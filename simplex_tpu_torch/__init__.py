@@ -1,0 +1,26 @@
+"""simplex_tpu_torch: the dense two-phase simplex solver in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The port of ``simplex_tpu`` (JAX/Pallas on a TPU), which stays the
+reference. This package imports ``torch`` and neither ``jax`` nor
+``simplex_tpu``. Public API, with the names and behaviour of
+``simplex_tpu``::
+
+    from simplex_tpu_torch import read_problem, solve, Status
+    p = read_problem("data/examples/smallProblem.txt")
+    r = solve(p, dtype="float32", vector_dtype="float64", block_pivots=128)
+
+``solve`` runs on the device it is given (``device="cuda"`` by default,
+which raises where CUDA is absent; ``device="cpu"`` runs the kernels'
+plain PyTorch versions). Only configurations that resolve to the
+blocked-kernel loop are ported; the others raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
+"""
+
+from .config import EPS, SolverOptions, Status  # noqa: F401
+from .generator import generate_random_problem  # noqa: F401
+from .problem import Problem, read_problem, read_random_problem  # noqa: F401
+from .result import SolveResult  # noqa: F401
+from .two_phase import solve  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,295 @@
+"""Two-phase simplex orchestration and the public ``solve``.
+
+Port of ``simplex_tpu.two_phase`` for the configurations that resolve to
+the blocked-kernel loop: phase-1 build, Gaussian elimination, the loop,
+the infeasibility and degeneracy checks, pivoting artificials out of a
+degenerate basis, phase 2, extraction, the status resolution with its
+NUMERIC guards, f64 refinement with its LU retry, and up to two
+reinversion-restart rounds. The host finishing tiers that follow in the
+JAX package (``finish.finish_from_basis``, the checkpointed f64
+``fallback_solve``) are ROADMAP queue 1 item 6: when both restart rounds
+fail to certify, ``solve`` raises ``NotImplementedError``.
+
+The statuses are host values here: the loop syncs once per window
+anyway, so phase 2 is skipped when phase 1 already decided the outcome
+(the JAX core runs it on the device and masks it out).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import (DEFAULT_OPTIONS, SolverOptions, Status,
+                     kernel_blocked_enabled, refine_enabled)
+from .problem import Problem
+from .result import SolveResult
+from .solver import pivot_update, run_solve_loop
+from .tableau import (Tableau, build_phase1, count_basic_artificials,
+                      extract_solution, gaussian_eliminate, phase1_objective,
+                      phase2_reset)
+
+
+class DeviceSolveOutput(NamedTuple):
+    """Outcome of one two-phase solve (``x`` and ``base`` on the
+    device)."""
+
+    status: Status
+    x: torch.Tensor          # (n,), zeros unless OPTIMAL
+    objective: float
+    iterations_phase1: int
+    iterations_phase2: int
+    n_artificial_in_base: int
+    base: torch.Tensor       # (M_pad,) int32 final basis
+
+
+def pivot_out_artificials(tab: Tableau, options: SolverOptions) -> Tableau:
+    """Drive zero-valued artificials out of the phase-1 basis
+    (``simplex_tpu.two_phase.pivot_out_artificials``): for each
+    constraint whose basic variable is artificial, pivot in the
+    lowest-index structural or slack variable with a coefficient of at
+    least eps in that row; a row with none is a redundant constraint --
+    its row of ``Tt`` is zeroed and its base entry set to the R_pad
+    sentinel. One pass per basic artificial, at most m; updates the
+    tableau in place."""
+    eps = float(options.eps_resolved)
+    n, m = tab.n, tab.m
+    R_pad = tab.rows_padded
+    real = torch.arange(R_pad, device=tab.Tt.device) < n + m
+    for _ in range(m):
+        is_art = (tab.base >= n + m) & (tab.base < n + 2 * m)
+        arts = torch.nonzero(is_art)
+        if arts.numel() == 0:
+            break
+        k = int(arts[0, 0])
+        cands = torch.nonzero(real & (tab.Tt[k].abs() >= eps))
+        if cands.numel():
+            h = int(cands[0, 0])
+            tab = pivot_update(tab, h, k, tab.costs[h])
+        else:
+            tab.Tt[k].zero_()
+            b = tab.b.clone()
+            b[k] = 0.0
+            base = tab.base.clone()
+            base[k] = R_pad
+            tab = dataclasses.replace(tab, b=b, base=base)
+    return tab
+
+
+def solve_device_with_binv(A: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, n: int, m: int,
+                           options: SolverOptions):
+    """Full two-phase solve on ``A``'s device (``A`` (m, n), ``b`` (m,),
+    ``c`` (n,)). Returns ``(DeviceSolveOutput, binv)`` with ``binv =
+    Tt[:m, n:n+m]``, the final tableau's slack block -- ``B^{-1}`` of the
+    final basis up to drift (None when phase 2 did not run)."""
+    eps = float(options.eps_resolved)
+    max_iter = options.resolved_max_iter(n + 2 * m, m)
+    inputs_finite = bool(torch.isfinite(A).all() & torch.isfinite(b).all()
+                         & torch.isfinite(c).all())
+
+    # ---- Phase 1 ----
+    tab = build_phase1(A, b, n, m, options)
+    costs0 = tab.costs
+    tab = gaussian_eliminate(tab)
+    tab, status1, iters1 = run_solve_loop(tab, options, max_iter, costs0)
+
+    # Infeasibility on the exact phase-1 objective, scaled by |b|.
+    z_phase1 = float(phase1_objective(tab))
+    b_scale = 1.0 + float(b.abs().max())
+    infeasible = z_phase1 <= -eps * b_scale
+    n_art = count_basic_artificials(tab)
+    degenerate = n_art > 0
+    fuse1 = status1 == int(Status.RUNNING)
+    if (options.degeneracy == "continue" and degenerate and not infeasible
+            and not fuse1):
+        tab = pivot_out_artificials(tab, options)
+
+    # Phase 1 decided the outcome: report the phase-1 objective.
+    if not (np.isfinite(z_phase1) and inputs_finite):
+        status = Status.NUMERIC
+    elif fuse1:
+        status = Status.MAXITER
+    elif infeasible:
+        status = Status.INFEASIBLE
+    elif options.degeneracy == "reference" and degenerate:
+        status = Status.DEGENERATE
+    else:
+        status = None
+    if status is not None:
+        x = torch.zeros(n, dtype=tab.b.dtype, device=A.device)
+        return DeviceSolveOutput(status, x, z_phase1, iters1, 0, n_art,
+                                 tab.base), None
+
+    # ---- Phase 2 ----
+    tab2 = phase2_reset(tab, c)
+    costs0 = tab2.costs
+    tab2 = gaussian_eliminate(tab2)
+    tab2, status2, iters2 = run_solve_loop(tab2, options, max_iter, costs0)
+    x = extract_solution(tab2)
+
+    status = Status.MAXITER if status2 == int(Status.RUNNING) \
+        else Status(status2)
+    z2 = float(tab2.z)
+    if not (np.isfinite(z2) and bool(torch.isfinite(x).all())):
+        status = Status.NUMERIC
+    if status2 == int(Status.OPTIMAL):
+        objective = float(c.to(x.dtype) @ x)   # drift-immune c @ x
+    else:
+        objective = z2
+    if status != Status.OPTIMAL:
+        x = torch.zeros_like(x)
+    out = DeviceSolveOutput(status, x, objective, iters1, iters2, n_art,
+                            tab2.base)
+    return out, tab2.Tt[:m, n:n + m]
+
+
+def refine_result(problem: Problem, base, options: SolverOptions,
+                  A_dev, b_dev, c_dev, raw_objective: float = float("nan"),
+                  binv=None):
+    """f64 refinement of one OPTIMAL basis, certified
+    (``simplex_tpu.two_phase.refine_result``): the slack-block path
+    first, then the LU retry unless the slack-block refinement converged
+    primally and only dual feasibility failed (then the basis is truly
+    suboptimal and the LU would agree). Returns ``(x, objective,
+    RefineInfo, RefineOutput)``; x is None when the certificates fail."""
+    from .refine import (RefineInfo, certificates_pass, refine_solution,
+                         refine_solution_tableau)
+
+    t0 = time.perf_counter()
+    m, n = problem.constraints, problem.vars
+    tol = float(options.refine_tol)
+    ro = None
+    method = "lu"
+    ok = False
+    skip_lu = False
+    if binv is not None:
+        ro = refine_solution_tableau(A_dev, b_dev, c_dev, base, binv, n, m)
+        ok = certificates_pass(ro, problem.b, problem.c, tol)
+        method = "tableau"
+        if not ok:
+            b_scale = 1.0 + float(np.max(np.abs(problem.b)))
+            skip_lu = max(float(ro.primal_residual),
+                          float(ro.primal_negativity),
+                          float(ro.artificial_mass)) <= tol * b_scale
+    if not ok and not skip_lu:
+        ro = refine_solution(A_dev, b_dev, c_dev, base, n, m,
+                             iters=int(options.refine_iters))
+        ok = certificates_pass(ro, problem.b, problem.c, tol)
+        method = "lu"
+    info = RefineInfo(
+        certified=ok,
+        primal_residual=float(ro.primal_residual),
+        primal_negativity=float(ro.primal_negativity),
+        artificial_mass=float(ro.artificial_mass),
+        dual_infeasibility=float(ro.dual_infeasibility),
+        tol=tol,
+        objective_shift=float(ro.objective) - raw_objective,
+        wall_s=round(time.perf_counter() - t0, 4),
+        method=method)
+    if not ok:
+        return None, None, info, ro
+    return ro.x.cpu().numpy(), float(ro.objective), info, ro
+
+
+def check_supported(options: SolverOptions) -> None:
+    """Raise ``NotImplementedError`` for configurations that do not
+    resolve to the blocked-kernel loop, naming the ROADMAP item that
+    ports them."""
+    if options.equilibrate:
+        raise NotImplementedError(
+            "equilibrate=True: scaling.py is ROADMAP queue 1 item 6")
+    if kernel_blocked_enabled(options):
+        return
+    L = int(options.block_pivots or 1)
+    if np.dtype(options.dtype).itemsize != 4:
+        raise NotImplementedError(
+            "f64 tableau: the f64 loops are ROADMAP queue 1 items 2 and 3")
+    if L <= 1:
+        raise NotImplementedError(
+            "block_pivots <= 1: the sequential loop is ROADMAP queue 1 "
+            "item 2 (its Pallas kernel, use_pallas=True, is queue 2 K6)")
+    raise NotImplementedError(
+        f"block_pivots={L} with use_pallas={options.use_pallas!r}: the XLA "
+        "blocked loop is ROADMAP queue 1 item 3 (the kernel loop needs a "
+        "multiple of 8)")
+
+
+def resolve_device(device) -> torch.device:
+    """The solve's device, as given: asking for CUDA where there is none
+    raises instead of running elsewhere."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda is not "
+                           "available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def solve(problem: Problem, options: SolverOptions | None = None, *,
+          device="cuda", **replacements) -> SolveResult:
+    """Solve a dense LP ``max c x s.t. A x <= b, x >= 0`` on ``device``.
+
+    ``replacements`` override SolverOptions fields, e.g. the production
+    call ``solve(p, dtype="float32", vector_dtype="float64",
+    block_pivots=128)``. In that mixed mode every OPTIMAL result is
+    refined in f64 and certified; a result that does not certify gets up
+    to two reinversion-restart rounds."""
+    from .reinvert import restart_device
+
+    options = options or DEFAULT_OPTIONS
+    if replacements:
+        options = dataclasses.replace(options, **replacements)
+    check_supported(options)
+    dev = resolve_device(device)
+
+    m, n = problem.constraints, problem.vars
+    A_dev = torch.as_tensor(np.asarray(problem.A), device=dev)
+    b_dev = torch.as_tensor(np.asarray(problem.b), device=dev)
+    c_dev = torch.as_tensor(np.asarray(problem.c), device=dev)
+    out, binv = solve_device_with_binv(A_dev, b_dev, c_dev, n, m, options)
+    status = out.status
+    x = out.x.cpu().numpy() if status == Status.OPTIMAL else None
+    objective = out.objective
+    refine_info = None
+    extra_pivots = 0
+    if status == Status.OPTIMAL and refine_enabled(options):
+        rx, robj, refine_info, ro = refine_result(
+            problem, out.base, options, A_dev, b_dev, c_dev,
+            raw_objective=objective, binv=binv)
+        base_cur, binv_cur = out.base, binv
+        for _ in range(2 if rx is None else 0):
+            out2, binv_cur, _ = restart_device(
+                A_dev, b_dev, c_dev, base_cur, binv_cur, ro.xB, n, m,
+                options)
+            if out2.status != Status.OPTIMAL:
+                break
+            extra_pivots += out2.iterations_phase2
+            base_cur = out2.base
+            rx, robj, refine_info, ro = refine_result(
+                problem, base_cur, options, A_dev, b_dev, c_dev,
+                raw_objective=out2.objective, binv=binv_cur)
+            if rx is not None:
+                refine_info = refine_info._replace(method="restart")
+                break
+        if rx is None:
+            raise NotImplementedError(
+                "refinement did not certify after two reinversion rounds; "
+                "the host finishing tiers (finish_from_basis, "
+                "fallback_solve) are ROADMAP queue 1 item 6")
+        x, objective = rx, robj
+
+    return SolveResult(
+        status=status,
+        x=x,
+        objective=objective,
+        iterations_phase1=out.iterations_phase1,
+        iterations_phase2=out.iterations_phase2 + extra_pivots,
+        degenerate=out.n_artificial_in_base > 0,
+        refine=refine_info,
+    )

@@ -1,0 +1,106 @@
+"""Guards of the PyTorch port: it imports no JAX, its device is explicit,
+configurations it does not port yet raise, and the CPU path never
+counts a kernel launch."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import simplex_tpu_torch as pst
+from simplex_tpu_torch.kernels import _build
+from simplex_tpu_torch.kernels import blocked as kb
+
+from conftest import DATA
+
+ROOT = DATA.parents[1]
+PROD = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=128)
+
+
+def test_port_never_imports_jax():
+    """A fresh interpreter imports every module of the port and runs a
+    CPU solve: neither jax nor simplex_tpu may be loaded."""
+    code = (
+        "import sys\n"
+        "import simplex_tpu_torch as st\n"
+        "import simplex_tpu_torch.reinvert, simplex_tpu_torch.refine\n"
+        "import simplex_tpu_torch.kernels._build\n"
+        "r = st.solve(st.read_problem('data/examples/smallProblem.txt'),\n"
+        "             device='cpu', dtype='float32', vector_dtype='float64',\n"
+        "             block_pivots=128)\n"
+        "assert r.status == st.Status.OPTIMAL\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'simplex_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device='cuda' is valid here")
+    p = pst.read_problem(DATA / "smallProblem.txt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pst.solve(p, **PROD)              # device defaults to "cuda"
+
+
+def test_unknown_device_raises():
+    p = pst.read_problem(DATA / "smallProblem.txt")
+    with pytest.raises(ValueError, match="device"):
+        pst.solve(p, device="meta", **PROD)
+
+
+@pytest.mark.parametrize("opts,item", [
+    (dict(), "items 2 and 3"),                                # f64 default
+    (dict(dtype=np.float64, block_pivots=128), "items 2 and 3"),
+    (dict(dtype=np.float32, vector_dtype=np.float64), "item 2"),
+    (dict(dtype=np.float32, use_pallas=True), "K6"),
+    (dict(PROD, block_pivots=12), "item 3"),
+    (dict(PROD, use_pallas=False), "item 3"),
+    (dict(PROD, equilibrate=True), "item 6"),
+], ids=["f64-default", "f64-blocked", "f32-sequential", "pallas-sequential",
+        "L-not-multiple-of-8", "kernels-off", "equilibrate"])
+def test_unported_configurations_raise(opts, item):
+    p = pst.read_problem(DATA / "smallProblem.txt")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        pst.solve(p, device="cpu", **opts)
+
+
+def test_production_call_resolves_like_jax():
+    """README's production call keeps the JAX defaults and resolves to
+    devex pricing, eps 1e-4 and refinement on."""
+    from simplex_tpu_torch.config import (kernel_blocked_enabled,
+                                          refine_enabled)
+
+    opts = pst.SolverOptions(**PROD)
+    assert kernel_blocked_enabled(opts) and refine_enabled(opts)
+    assert opts.pivot_rule_resolved == "devex"
+    assert opts.eps_resolved == 1e-4
+    assert pst.SolverOptions().dtype == np.float64
+
+
+def test_cpu_solve_counts_no_launch():
+    kb.reset_launches()
+    r = pst.solve(pst.generate_random_problem(64, 16, 1, 1, 100),
+                  device="cpu", **PROD)
+    assert r.status == pst.Status.OPTIMAL
+    assert all(v == 0 for v in kb.LAUNCHES.values()), kb.LAUNCHES
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_library_name_follows_the_sources():
+    """The build is keyed by a hash of the sources and flags: one name
+    per tree, stable across calls."""
+    assert _build.source_digest() == _build.source_digest()
+    assert len(_build.source_digest()) == 16
+    assert [s.name for s in _build._sources()] == ["blocked.cu"]
