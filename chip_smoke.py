@@ -18,10 +18,24 @@ Phases, in order; any failed check exits non-zero:
    the same pivots);
 5. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
    pivots (2 windows);
-6. each kernel K1-K4 against its plain PyTorch version on the card at
+6. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
+   config 3's options: f32 tableau, f64 vectors, eps 1e-5, L=32, devex):
+   the status spread (OPTIMAL 13, UNBOUNDED, INFEASIBLE); config 3 at
+   full size, 256 x (m=500, n=2,000) from seeds 1000..1255, every lane
+   OPTIMAL and certified, lanes 0, 127 and 255 equal to a batch of that
+   lane alone and within 1e-9 of the single-LP ``solve`` -- the batched
+   main path, with the K7-K10 launch counters reset just before its
+   first call and read just after; then a warm call; then 32 x (m=500,
+   n=14,000) lanes from seeds 2000..2031 (the TPU's HBM-tier shape);
+7. each kernel K1-K4 against its plain PyTorch version on the card at
    the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K2
-   under devex and Dantzig), both timed on the device by torch.profiler.
-   It runs last so that no profiler session precedes the timed solves.
+   under devex and Dantzig), then the batched kernels at config 3's
+   shapes (B=256, M=512, R=3072, L=32) and the wide ones (B=32, R=15104),
+   under devex and Dantzig, with a frozen lane and a lane that hits its
+   fuse mid-window; all timed on the device by torch.profiler; then one
+   config-3 batch traced (device time by kernel, the device's busy
+   share). These run last so that no profiler session precedes the
+   timed solves.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' records, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -31,6 +45,7 @@ result.
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import statistics
@@ -58,6 +73,27 @@ KERNELS = {
 }
 SOURCE = "simplex_tpu_torch/kernels/csrc/blocked.cu"
 
+#: BASELINE.json config 3's options (tools/bench_batch.py:43-75).
+BATCH = dict(dtype="float32", vector_dtype="float64", eps=1e-5,
+             block_pivots=32)
+#: (n, m, seeds): config 3, and the lanes the TPU served from HBM.
+CONFIG3 = (2000, 500, range(1000, 1256))
+WIDE = (14000, 500, range(2000, 2032))
+#: The batched kernels, the JAX kernels each replaces (K7 is
+#: batch_window's pivot loop followed by batch_apply_reprice's fused
+#: apply and fold), and their source.
+BATCH_KERNELS = {
+    "batch_window": ("K7/K8", "simplex_tpu/kernels/batched.py:521; "
+                     "simplex_tpu/kernels/batched_hbm.py:330"),
+    "batch_apply_reprice": ("K7/K9", "simplex_tpu/kernels/batched.py:521; "
+                            "simplex_tpu/kernels/batched_hbm.py:214"),
+    "batch_apply": ("K10", "simplex_tpu/kernels/batched_hbm.py:281"),
+}
+BATCH_SOURCE = "simplex_tpu_torch/kernels/csrc/batched.cu"
+#: (label, (B, M, R, L)) of the batched kernels' check.
+BATCH_KERNEL_SHAPES = (("config-3", (256, 512, 3072, 32)),
+                       ("wide", (32, 512, 15104, 32)))
+
 
 class SmokeFailure(Exception):
     pass
@@ -80,12 +116,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, match: str | None = None) -> float:
     """Device ms per call of ``fn()``: the summed durations of the kernels
     it launches, traced by torch.profiler (CUPTI) over ``reps`` calls
-    after one warm-up call. The host's launch rate is left out: at these
-    shapes one call of a per-pivot pass runs for microseconds, less than
-    the host takes to enqueue it."""
+    after one warm-up call; with ``match``, only the kernels whose name
+    holds it (leaving out the copies that reset a state between calls).
+    The host's launch rate is left out: at these shapes one call of a
+    per-pivot pass runs for microseconds, less than the host takes to
+    enqueue it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -97,7 +135,8 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and (match is None or match in e.key))
     require(total_us > 0, "the profiler saw no device time")
     return total_us / 1e3 / reps
 
@@ -117,8 +156,15 @@ def close(name: str, got, want, tol) -> float:
 
 
 def equal(name: str, got, want) -> None:
-    require(bool((got == want).all()),
-            f"{name}: kernel {got.tolist()} != plain {want.tolist()}")
+    import torch
+
+    bad = got != want
+    if bool(bad.any()):
+        first = tuple(torch.nonzero(bad)[0].tolist())
+        raise SmokeFailure(
+            f"{name}: {int(bad.sum())} of {bad.numel()} differ; first at "
+            f"{first}: kernel {got[first].tolist()} != plain "
+            f"{want[first].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -268,17 +314,241 @@ def phase_kernels(records: dict) -> None:
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
 
+WINDOW_ARGS = ("costs", "b", "z", "base", "w", "sci", "c0", "cf", "C", "F",
+               "AH", "piv", "nlive")
+
+
+def window_state(B: int, M: int, R: int, L: int, devex: bool, g):
+    """A seeded window state on the card: Tt (B*M, R) uniform in (-1, 1),
+    costs uniform in (-1, 0.5) (many eligible columns), b in (0.1, 1),
+    distinct basic columns; lane 1 frozen (OPTIMAL), lane 2 with its fuse
+    5 pivots away, every other lane RUNNING with room for L pivots."""
+    import torch
+
+    from simplex_tpu_torch.config import Status
+
+    dev = torch.device("cuda")
+
+    def uni(shape, lo, hi, dtype=torch.float64):
+        x = torch.rand(shape, generator=g, device=dev, dtype=dtype)
+        return x * (hi - lo) + lo
+
+    r = R - 5
+    Tt = uni((B * M, R), -1.0, 1.0, torch.float32)
+    base = torch.argsort(torch.rand((B, R), generator=g, device=dev),
+                         dim=1)[:, :M].to(torch.int32)
+    c0 = uni((B, R), -1.0, 1.0)
+    picked = c0.gather(1, base.long())
+    sci = torch.zeros((B, 8), dtype=torch.int32, device=dev)
+    sci[:, 0] = int(Status.RUNNING)
+    sci[1, 0] = int(Status.OPTIMAL)
+    sci[:, 5] = 10 ** 6
+    sci[2, 5] = 5
+    sci[:, 4] = (sci[:, 0] == int(Status.RUNNING)).to(torch.int32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    st = dict(costs=uni((B, R), -1.0, 0.5), b=uni((B, M), 0.1, 1.0),
+              z=uni((B,), -1.0, 1.0), base=base,
+              w=uni((B, R), 1.0, 2.0, torch.float32) if devex else None,
+              sci=sci, c0=c0,
+              cf=torch.where(base < r, picked, torch.zeros_like(picked)),
+              C=torch.empty((B * L, R), **f32),
+              F=torch.empty((B * L, M), **f32),
+              AH=torch.empty((B * L, M), **f32),
+              piv=torch.empty((B * L, 2), dtype=torch.int32, device=dev),
+              nlive=torch.empty(B, dtype=torch.int32, device=dev))
+    return Tt, st, r
+
+
+def window_against_replay(tag: str, Tt, st0: dict, sk: dict, B: int,
+                          L: int) -> float:
+    """A window's outputs against its formulas on its own f32 operands
+    (``window_replay``): the pivot rows C and entering columns AH to
+    1e-5 of their terms' summed magnitudes (the f32 eta correction, t
+    products, in another order than the f64 replay); the eta rows F and
+    the devex weights to 1e-6 * (1 + |x|) (the same f32 operations on
+    the same operands); the f64 vectors to 1e-12 * (1 + |x|); base and
+    cf equal. Returns the max abs error."""
+    from simplex_tpu_torch.kernels import batched as kbt
+
+    rep = kbt.window_replay(Tt, st0, sk["C"], sk["F"], sk["AH"], sk["piv"],
+                            sk["nlive"])
+    e = 0.0
+    for name in ("C", "AH"):
+        got = sk[name].view(B, L, -1)
+        e = max(e, close(f"{tag} {name}", got, rep[name],
+                         1e-5 * (1 + rep[name + "_terms"])))
+    e = max(e, close(f"{tag} F", sk["F"].view(B, L, -1), rep["F"],
+                     1e-6 * (1 + rep["F"].abs())))
+    names = ("costs", "b", "z") + (("w",) if sk["w"] is not None else ())
+    for name in names:
+        tol = (1e-6 if name == "w" else 1e-12) * (1 + rep[name].abs())
+        e = max(e, close(f"{tag} {name}", sk[name], rep[name], tol))
+    equal(f"{tag} replayed base", sk["base"], rep["base"])
+    equal(f"{tag} replayed cf", sk["cf"], rep["cf"])
+    return e
+
+
+def phase_batch_kernels(records: dict) -> None:
+    """The batched kernels against their plain versions on the card, on
+    the same state: the integer outputs (the walk piv, base, sci, nlive)
+    equal, and each output against its formula on the kernel's own
+    operands (window_against_replay) -- the plain version's f32 rows
+    drift from the kernel's along the walk, since each row builds on the
+    earlier ones. The apply: Tt to 1e-5 * (1 + |x| + |F|^T |C|) of the
+    plain version on the same etas (another summation order of L
+    products), the reprice mv to 1e-12 relative of cf @ Tt_new in f64
+    on the kernel's own tableau -- an f32 accumulation would miss by
+    ~1e-7 -- and a frozen lane's tableau bit-identical. Times at config
+    3's shapes go into the kernels' records; the wide shape's are
+    printed."""
+    import torch
+
+    from simplex_tpu_torch.kernels import batched as kbt
+    from simplex_tpu_torch.tableau import batch_tt_matvec
+
+    g = torch.Generator(device="cuda").manual_seed(20261017)
+    errs = {name: 0.0 for name in BATCH_KERNELS}
+    for label, (B, M, R, L) in BATCH_KERNEL_SHAPES:
+        times = {}
+        for devex in (True, False):
+            rule = "devex" if devex else "dantzig"
+            tag = f"{label} {rule}"
+            Tt, st0, r = window_state(B, M, R, L, devex, g)
+            kw = dict(r=r, eps=1e-5, bland_static=False, threshold=50)
+            runs = []
+            for fn in (kbt.batch_window, kbt.batch_window_plain):
+                st = {k: None if v is None else v.clone()
+                      for k, v in st0.items()}
+                fn(Tt, *(st[k] for k in WINDOW_ARGS), **kw)
+                runs.append(st)
+            sk, sp = runs
+            for name in ("piv", "base", "sci", "nlive"):
+                equal(f"batch_window {tag} {name}", sk[name], sp[name])
+            nlive = sk["nlive"].tolist()
+            require(nlive[1] == 0 and nlive[2] == 5 and nlive[0] == L,
+                    f"batch_window {tag}: nlive {nlive[:3]}")
+            e = window_against_replay(f"batch_window {tag}", Tt, st0, sk,
+                                      B, L)
+            errs["batch_window"] = max(errs["batch_window"], e)
+
+            # K9 / K10 on the kernel's etas; lane 3 does not re-price.
+            do_r = torch.ones(B, dtype=torch.int32, device="cuda")
+            do_r[3] = 0
+            frozen = slice(M, 2 * M)
+            Tk, Tp = Tt.clone(), Tt.clone()
+            mv = kbt.batch_apply_reprice(Tk, sk["C"], sk["F"], sk["cf"],
+                                         do_r, sk["nlive"])
+            kbt.batch_apply_reprice_plain(Tp, sk["C"], sk["F"], sk["cf"],
+                                          do_r, sk["nlive"])
+            terms = torch.bmm(sk["F"].view(B, L, M).abs().transpose(1, 2),
+                              sk["C"].view(B, L, R).abs()).view(B * M, R)
+            e = close(f"batch_apply_reprice {tag} Tt", Tk, Tp,
+                      1e-5 * (1 + Tp.abs() + terms))
+            require(torch.equal(Tk[frozen], Tt[frozen]),
+                    f"batch_apply_reprice {tag}: the frozen lane changed")
+            T3 = Tk.view(B, M, R)
+            scale = batch_tt_matvec(T3.abs(), sk["cf"].abs())
+            want_mv = torch.where(do_r[:, None] != 0,
+                                  batch_tt_matvec(T3, sk["cf"]), 0.0)
+            e = max(e, close(f"batch_apply_reprice {tag} mv", mv, want_mv,
+                             1e-12 * scale))
+            require(not mv[3].any(), "batch_apply_reprice: do_r=0 lane")
+            errs["batch_apply_reprice"] = max(errs["batch_apply_reprice"], e)
+            del Tp
+            Tk.copy_(Tt)
+            Tp = Tt.clone()
+            kbt.batch_apply(Tk, sk["C"], sk["F"], sk["nlive"])
+            kbt.batch_apply_plain(Tp, sk["C"], sk["F"], sk["nlive"])
+            errs["batch_apply"] = max(errs["batch_apply"], close(
+                f"batch_apply {tag} Tt", Tk, Tp,
+                1e-5 * (1 + Tp.abs() + terms)))
+            require(torch.equal(Tk[frozen], Tt[frozen]),
+                    f"batch_apply {tag}: the frozen lane changed")
+            del Tp, terms
+            if devex:
+                # Each timed call starts from the same state (the copies
+                # that reset it are left out of the kernel's time).
+                st = {k: None if v is None else v.clone()
+                      for k, v in st0.items()}
+
+                def window(fn, st=st):
+                    for k in ("costs", "b", "z", "base", "w", "sci", "cf"):
+                        st[k].copy_(st0[k])
+                    fn(Tt, *(st[k] for k in WINDOW_ARGS), **kw)
+
+                C, F, cf, nl = sk["C"], sk["F"], sk["cf"], sk["nlive"]
+                times = {
+                    "batch_window": [
+                        device_ms(lambda: window(kbt.batch_window), 5,
+                                  "batch_window"),
+                        device_ms(lambda: window(kbt.batch_window_plain),
+                                  2)],
+                    "batch_apply_reprice": [
+                        device_ms(lambda: kbt.batch_apply_reprice(
+                            Tk, C, F, cf, do_r, nl), 5),
+                        device_ms(lambda: kbt.batch_apply_reprice_plain(
+                            Tk, C, F, cf, do_r, nl), 5)],
+                    "batch_apply": [
+                        device_ms(lambda: kbt.batch_apply(Tk, C, F, nl), 5),
+                        device_ms(lambda: kbt.batch_apply_plain(Tk, C, F,
+                                                                nl), 5)]}
+            del Tk, Tt, st0, sk, sp
+            torch.cuda.empty_cache()
+        for name, (kid, _) in BATCH_KERNELS.items():
+            ms, plain_ms = times[name]
+            if label == BATCH_KERNEL_SHAPES[0][0]:
+                records[name] = {"max_abs_err": errs[name], "ms": ms,
+                                 "plain_ms": plain_ms}
+            log(f"{kid} {name} {label} B={B} M={M} R={R} L={L}: matches "
+                f"plain (max abs err so far {errs[name]:.3e}); kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for name in BATCH_KERNELS:
+        records[name]["max_abs_err"] = errs[name]
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: solves through the public entry point.
 
-def timed_solve(problem):
+def phase_batch_trace() -> None:
+    """One config-3 ``solve_batch`` under torch.profiler (CUDA activity):
+    the device time by kernel, and the device's busy share of the traced
+    device solve (stats ``device_s``) and of the whole call. Runs after
+    every timed solve."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import simplex_tpu_torch as st
+
+    n, m, seeds = CONFIG3
+    problems = [st.generate_random_problem(n, m, s, 1, 100) for s in seeds]
+    stats: dict = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = timed_batch(problems, stats)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    copy_s = sum(r[0] for r in rows if r[2].startswith("Memcpy")) / 1e6
+    kernel_s = sum(r[0] for r in rows) / 1e6 - copy_s
+    require(kernel_s > 0, "the trace saw no kernel time")
+    log(f"config 3 traced: wall {wall:.3f} s (data to the card "
+        f"{stats['prepare_s']:.3f} s, device solve {stats['device_s']:.3f}"
+        f" s, host refinement {stats['refine_s']:.3f} s); kernels busy "
+        f"{kernel_s:.3f} s = {100 * kernel_s / stats['device_s']:.1f}% of "
+        f"the device solve ({sum(r[1] for r in rows)} launches and "
+        f"copies); copies {copy_s:.3f} s")
+    for us, count, key in rows[:8]:
+        log(f"  {us / 1e3:10.3f} ms {count:6d} x {key[:90]}")
+
+
+def timed_solve(problem, opts: dict = PROD):
     import torch
 
     import simplex_tpu_torch as st
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = st.solve(problem, device="cuda", **PROD)
+    res = st.solve(problem, device="cuda", **opts)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -401,6 +671,112 @@ def phase_northstar() -> None:
         f" GB")
 
 
+def timed_batch(problems, stats: dict):
+    import torch
+
+    import simplex_tpu_torch as st
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = st.solve_batch(problems, device="cuda", stats=stats, **BATCH)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_batch_spread() -> None:
+    import numpy as np
+
+    import simplex_tpu_torch as st
+
+    spread = [st.Problem(A=np.array(A), b=np.array(b), c=np.array(c))
+              for A, b, c in (
+                  ([[1.0, 0.0], [0.0, 1.0]], [1.0, 2.0], [3.0, 5.0]),
+                  ([[1.0, 0.0], [1.0, 0.0]], [1.0, 2.0], [1.0, 1.0]),
+                  ([[-1.0, 0.0], [1.0, 0.0]], [-1.0, 0.5], [1.0, 0.0]))]
+    res, _ = timed_batch(spread, {})
+    got = [r.status for r in res]
+    require(got == [st.Status.OPTIMAL, st.Status.UNBOUNDED,
+                    st.Status.INFEASIBLE], f"batch spread: {got}")
+    require(abs(res[0].objective - 13.0) <= 1e-12 and res[0].refine.certified,
+            f"batch spread: objective {res[0].objective!r}")
+    log("batch spread: OPTIMAL 13 (certified), UNBOUNDED, INFEASIBLE")
+
+
+def phase_batch(label: str, shape, launches: dict | None = None,
+                lanes=()) -> None:
+    """One batch through ``solve_batch`` twice (first and warm call): every
+    lane OPTIMAL and certified, the same walks both times; ``lanes``
+    checked against a batch of that lane alone (walk, basis, objective
+    bit for bit) and against the single-LP ``solve`` (1e-9). With
+    ``launches``, the K7-K10 counters of the first call."""
+    import numpy as np
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.kernels import batched as kbt
+
+    n, m, seeds = shape
+    t0 = time.perf_counter()
+    problems = [st.generate_random_problem(n, m, s, 1, 100) for s in seeds]
+    log(f"{label}: {len(problems)} x (m={m}, n={n}) generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kbt.reset_launches()
+    first_stats = {}
+    res, first = timed_batch(problems, first_stats)
+    counts = dict(kbt.LAUNCHES)
+    if launches is not None:
+        launches.update(counts)
+    warm_stats = {}
+    again, warm = timed_batch(problems, warm_stats)
+    for i, r in enumerate(res):
+        require(r.status == st.Status.OPTIMAL and r.refine is not None
+                and r.refine.certified,
+                f"{label} lane {i}: {r.status!r} refine {r.refine}")
+        require(np.isfinite(r.x).all() and r.x.shape == (n,),
+                f"{label} lane {i}: bad x")
+    walks = [(r.iterations_phase1, r.iterations_phase2) for r in res]
+    require(walks == [(r.iterations_phase1, r.iterations_phase2)
+                      for r in again]
+            and [r.objective for r in res] == [r.objective for r in again],
+            f"{label}: the warm call walked otherwise")
+    pivots = sorted(a + b for a, b in walks)
+    methods = sorted(collections.Counter(r.refine.method for r in res)
+                     .items())
+    log(f"{label}: {len(res)}/{len(res)} OPTIMAL and certified "
+        f"(refinement {methods}); wall first "
+        f"{first:.3f} s, warm {warm:.3f} s = {1e3 * warm / len(res):.3f} "
+        f"ms/instance (data to the card {warm_stats['prepare_s']:.3f} s, "
+        f"device solve {warm_stats['device_s']:.3f} s, host refinement "
+        f"{warm_stats['refine_s']:.3f} s); windows per phase "
+        f"{first_stats['windows']}; pivots per lane min {pivots[0]} median "
+        f"{statistics.median(pivots)} max {pivots[-1]}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB; launches {counts}")
+    for i in lanes:
+        alone_stats = {}
+        (alone,), _ = timed_batch([problems[i]], alone_stats)
+        r = res[i]
+        require((alone.iterations_phase1, alone.iterations_phase2)
+                == walks[i] and alone.objective == r.objective
+                and np.array_equal(alone_stats["bases"][0],
+                                   first_stats["bases"][i]),
+                f"{label} lane {i}: the batch of one walked "
+                f"{(alone.iterations_phase1, alone.iterations_phase2)} to "
+                f"{alone.objective!r}, the batch {walks[i]} to "
+                f"{r.objective!r}")
+        single, wall = timed_solve(problems[i], BATCH)
+        rel = abs(single.objective - r.objective) / abs(r.objective)
+        require(single.status == st.Status.OPTIMAL and rel <= 1e-9,
+                f"{label} lane {i}: solve() {single.status!r} "
+                f"{single.objective!r} vs batch {r.objective!r}")
+        log(f"{label} lane {i}: equals its batch of one ({walks[i]} pivots,"
+            f" objective {r.objective!r}); single-LP solve "
+            f"{single.objective!r} (rel {rel:.1e}, "
+            f"{single.iterations_phase1}+{single.iterations_phase2} pivots,"
+            f" {wall:.3f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -429,30 +805,45 @@ def main() -> int:
 
     records: dict = {}
     launches = {name: 0 for name in KERNELS}
+    batch_launches = {name: 0 for name in BATCH_KERNELS}
     try:
         phase_goldens()
         phase_r1024()
         phase_flagship(launches)
         phase_northstar()
+        phase_batch_spread()
+        phase_batch("config 3", CONFIG3, batch_launches, lanes=(0, 127, 255))
+        # Every kernel of the batched path ran in config 3's first call
+        # (batch_apply takes the off-cadence windows where no lane ends).
+        for name in BATCH_KERNELS:
+            require(batch_launches[name] > 0,
+                    f"{name} never launched on the batched path")
+        phase_batch("wide lanes", WIDE)
         phase_kernels(records)
+        phase_batch_kernels(records)
+        phase_batch_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
-    for name, (kid, replaces) in KERNELS.items():
-        rec = records.get(name, {})
-        kernels.append({"name": f"{kid} {name}", "route": "cuda",
-                        "source": SOURCE, "replaces": replaces,
-                        "launches": launches[name],
-                        "max_abs_err": rec.get("max_abs_err"),
-                        "ms": rec.get("ms"),
-                        "plain_ms": rec.get("plain_ms")})
+    for table, source, counts in ((KERNELS, SOURCE, launches),
+                                  (BATCH_KERNELS, BATCH_SOURCE,
+                                   batch_launches)):
+        for name, (kid, replaces) in table.items():
+            rec = records.get(name, {})
+            kernels.append({"name": f"{kid} {name}", "route": "cuda",
+                            "source": source, "replaces": replaces,
+                            "launches": counts[name],
+                            "max_abs_err": rec.get("max_abs_err"),
+                            "ms": rec.get("ms"),
+                            "plain_ms": rec.get("plain_ms")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    # count: the one card this script drives.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

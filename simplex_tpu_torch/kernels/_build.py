@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources ``kernels/csrc/*.cu`` have a plain C interface (no PyTorch
-headers), so one ``nvcc`` call compiles them in seconds into a shared
-library, which ``ctypes`` loads. The library lands in the package's
-gitignored ``_build`` directory under a name keyed by a hash of the
-sources and flags: an edit to any source rebuilds it, an unchanged tree
-reuses it. A failed build raises with nvcc's stderr.
+headers): one ``nvcc`` per source, all started together, compiles them
+in seconds, and one more links the objects into a shared library, which
+``ctypes`` loads. The library lands in the package's gitignored
+``_build`` directory under a name keyed by a hash of the sources, their
+headers (``*.cuh``) and the flags: an edit to any of them rebuilds it, an
+unchanged tree reuses it. A failed build raises with nvcc's stderr.
 
 Nothing here runs at import time; ``load_library`` is called by the
 kernel wrappers on their first CUDA launch.
@@ -26,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -52,10 +53,23 @@ def _sources() -> list[pathlib.Path]:
 
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; wait for all, then raise on the
+    first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
 
 
 def build() -> pathlib.Path:
@@ -65,15 +79,14 @@ def build() -> pathlib.Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [pathlib.Path(td) / f"{src.stem}.o" for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
         tmp = pathlib.Path(td) / lib_path.name
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
         os.replace(tmp, lib_path)    # atomic: a concurrent build is harmless
     return lib_path
 
@@ -83,7 +96,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 
-#: argtypes of every C entry point in csrc/blocked.cu.
+#: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
     "ah_ratio_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P],
@@ -95,6 +108,14 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # csrc/batched.cu: Tt costs b z base w sci c0 cf C F AH piv nlive,
+    # B M R L r eps bland_static threshold stream
+    "batch_window_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _D, _I, _I, _P],
+    # Tt F C B M R L nlive stream
+    "batch_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # Tt F C B M R L nlive do_r cf part mv stream
+    "batch_apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _P],
 }
 
 

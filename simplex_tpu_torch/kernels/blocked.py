@@ -102,33 +102,45 @@ def _index(x: torch.Tensor, i: torch.Tensor, hi: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Entering candidates over a cost vector (shared by K2's plain version and
-# the loop's window-boundary re-pricing).
+# Entering candidates over cost vectors (shared by K2's and batch_window's
+# plain versions and the loops' window-boundary re-pricing).
 
-def entering_candidates(costs: torch.Tensor, w: torch.Tensor | None,
-                        r: int, eps: float):
-    """(h_d, v_d, h_b, v_b) over the f64 ``costs`` of the active columns
-    ``j < r``: the main candidate is the Dantzig argmin (``w`` None) or
-    the devex argmax of cost^2 / w over eligible columns (cost <= -eps);
-    the Bland candidate is the lowest eligible index (``BIG_INDEX`` when
-    none). Ties go to the lowest index. With no eligible column the
-    devex candidate is (0, inf) and the Bland value inf."""
-    R = costs.shape[0]
+def batch_candidates(costs: torch.Tensor, w: torch.Tensor | None, r: int,
+                     eps: float):
+    """(h_d, v_d, h_b, v_b), each (B,), over the f64 ``costs (B, R)`` of
+    the active columns ``j < r``, lane by lane: the main candidate is the
+    Dantzig argmin (``w`` None) or the devex argmax of cost^2 / w over
+    eligible columns (cost <= -eps); the Bland candidate is the lowest
+    eligible index (``BIG_INDEX`` when none). Ties go to the lowest
+    index. With no eligible column the devex candidate is (0, inf) and
+    the Bland value inf."""
+    R = costs.shape[1]
     iota = torch.arange(R, device=costs.device)
     masked = torch.where(iota < r, costs, torch.inf)
     eligible = masked <= -eps
     if w is not None:
         score = torch.where(eligible, masked * masked / w.double(),
                             -torch.inf)
-        h_d = torch.argmax(score)
-        v_d = torch.where(eligible.any(), _index(costs, h_d, R - 1),
-                          torch.inf)
+        h_d = torch.argmax(score, dim=1)
+        v_d = torch.where(eligible.any(dim=1),
+                          costs.gather(1, h_d[:, None])[:, 0], torch.inf)
     else:
-        h_d = torch.argmin(masked)
-        v_d = _index(masked, h_d, R - 1)
-    h_b = torch.where(eligible, iota, BIG_INDEX).min()
-    v_b = torch.where(h_b < BIG_INDEX, _index(costs, h_b, R - 1), torch.inf)
-    return (h_d.to(torch.int32), v_d, h_b.to(torch.int32), v_b)
+        h_d = torch.argmin(masked, dim=1)
+        v_d = masked.gather(1, h_d[:, None])[:, 0]
+    h_b = torch.where(eligible, iota, BIG_INDEX).min(dim=1).values
+    v_b = torch.where(h_b < BIG_INDEX,
+                      costs.gather(1, h_b.clamp(max=R - 1)[:, None])[:, 0],
+                      torch.inf)
+    return h_d, v_d, h_b, v_b
+
+
+def entering_candidates(costs: torch.Tensor, w: torch.Tensor | None,
+                        r: int, eps: float):
+    """``batch_candidates`` of one cost vector: (h_d, v_d, h_b, v_b) as
+    0-dim tensors, the indices int32."""
+    h_d, v_d, h_b, v_b = batch_candidates(
+        costs[None], None if w is None else w[None], r, eps)
+    return (h_d[0].to(torch.int32), v_d[0], h_b[0].to(torch.int32), v_b[0])
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "apply_tile.cuh"
+
 namespace {
 
 constexpr int BIG_INDEX = 2147483647;
@@ -337,102 +339,22 @@ __global__ void __launch_bounds__(THREADS) colk_costs_finish(
 // the f32 peak, on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md). IEEE f32 FFMA,
 // no TF32 (the TPU ran HIGHEST).
 // Design: 128 x 128 output tiles, 256 threads each owning an 8 x 8 register
-// tile, F and C staged through shared memory 8 eta rows at a time; each
-// thread reads its Tt elements before it writes them, and no other thread
-// touches them, so the update is safe in place. The reprice rides the fresh
-// registers: each block sums coeffs * Tt_new down its 128 rows in f64 and
-// writes one partial row per M tile; a second pass sums the partials in M
-// order, so the result is deterministic. The TPU kernel took a traced flag
-// to skip the reprice off cadence; here the loop decides the cadence on the
-// host, where it syncs once per window anyway, and launches K4 instead.
-
-constexpr int AT = 128;      // tile edge on both axes
-constexpr int AK = 8;        // eta rows per shared-memory stage
+// tile (apply_tile.cuh, shared with the batched apply); each thread reads
+// its Tt elements before it writes them, and no other thread touches them,
+// so the update is safe in place. The reprice rides the fresh registers:
+// each block sums coeffs * Tt_new down its 128 rows in f64 and writes one
+// partial row per M tile; a second pass sums the partials in M order, so
+// the result is deterministic. The TPU kernel took a traced flag to skip
+// the reprice off cadence; here the loop decides the cadence on the host,
+// where it syncs once per window anyway, and launches K4 instead.
 
 template <bool REPRICE>
-__global__ void __launch_bounds__(THREADS) apply_tiles(
+__global__ void __launch_bounds__(APPLY_THREADS) apply_tiles(
         float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, int M, int R, int L,
         const double *__restrict__ coeffs, double *__restrict__ part) {
-    __shared__ __align__(16) float Fs[AK][AT];
-    __shared__ __align__(16) float Cs[AK][AT];
-    const int tx = threadIdx.x & 15;             // 8 columns each
-    const int ty = threadIdx.x >> 4;             // 8 rows each
-    const size_t i0 = (size_t)blockIdx.y * AT;   // M (row) offset
-    const size_t j0 = (size_t)blockIdx.x * AT;   // R (column) offset
-
-    float acc[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
-
-    const int lrow = threadIdx.x >> 5;           // stage row 0..7
-    const int lcol = (threadIdx.x & 31) * 4;     // stage column 0..124
-    for (int s0 = 0; s0 < L; s0 += AK) {
-        *reinterpret_cast<float4 *>(&Fs[lrow][lcol]) =
-            *reinterpret_cast<const float4 *>(
-                F + (size_t)(s0 + lrow) * M + i0 + lcol);
-        *reinterpret_cast<float4 *>(&Cs[lrow][lcol]) =
-            *reinterpret_cast<const float4 *>(
-                C + (size_t)(s0 + lrow) * R + j0 + lcol);
-        __syncthreads();
-#pragma unroll
-        for (int s = 0; s < AK; ++s) {
-            float fa[8], cb[8];
-            *reinterpret_cast<float4 *>(&fa[0]) =
-                *reinterpret_cast<const float4 *>(&Fs[s][ty * 8]);
-            *reinterpret_cast<float4 *>(&fa[4]) =
-                *reinterpret_cast<const float4 *>(&Fs[s][ty * 8 + 4]);
-            *reinterpret_cast<float4 *>(&cb[0]) =
-                *reinterpret_cast<const float4 *>(&Cs[s][tx * 8]);
-            *reinterpret_cast<float4 *>(&cb[4]) =
-                *reinterpret_cast<const float4 *>(&Cs[s][tx * 8 + 4]);
-#pragma unroll
-            for (int a = 0; a < 8; ++a)
-#pragma unroll
-                for (int c = 0; c < 8; ++c)
-                    acc[a][c] = fmaf(fa[a], cb[c], acc[a][c]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-        float *row = Tt + (i0 + ty * 8 + a) * (size_t)R + j0 + tx * 8;
-        float4 lo = *reinterpret_cast<float4 *>(row);
-        float4 hi = *reinterpret_cast<float4 *>(row + 4);
-        lo.x -= acc[a][0]; lo.y -= acc[a][1];
-        lo.z -= acc[a][2]; lo.w -= acc[a][3];
-        hi.x -= acc[a][4]; hi.y -= acc[a][5];
-        hi.z -= acc[a][6]; hi.w -= acc[a][7];
-        *reinterpret_cast<float4 *>(row) = lo;
-        *reinterpret_cast<float4 *>(row + 4) = hi;
-        acc[a][0] = lo.x; acc[a][1] = lo.y; acc[a][2] = lo.z; acc[a][3] = lo.w;
-        acc[a][4] = hi.x; acc[a][5] = hi.y; acc[a][6] = hi.z; acc[a][7] = hi.w;
-    }
-
-    if constexpr (REPRICE) {
-        __shared__ double red[THREADS / 16][AT];
-        double cf[8];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) cf[a] = coeffs[i0 + ty * 8 + a];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            double s = 0.0;
-#pragma unroll
-            for (int a = 0; a < 8; ++a)
-                s = __fma_rn(cf[a], (double)acc[a][c], s);
-            red[ty][tx * 8 + c] = s;
-        }
-        __syncthreads();
-        if (threadIdx.x < AT) {
-            double s = 0.0;
-            for (int y = 0; y < THREADS / 16; ++y)
-                s = __dadd_rn(s, red[y][threadIdx.x]);
-            part[(size_t)blockIdx.y * R + j0 + threadIdx.x] = s;
-        }
-    }
+    apply_tile<REPRICE>(Tt, F, C, M, R, L, coeffs,
+                        REPRICE ? part + (size_t)blockIdx.y * R : nullptr);
 }
 
 __global__ void __launch_bounds__(THREADS) reprice_finish(

@@ -184,6 +184,59 @@ def refine_solution(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return basis.certify(A, c, xB, y, primal_residual)
 
 
+def refine_solution_host(A, b, c, base, n: int, m: int
+                         ) -> RefineOutput | None:
+    """Straight f64 solve of one basis on the host with NumPy/LAPACK
+    (``simplex_tpu.refine.refine_solution_host``): LAPACK factorizes in
+    f64, so no iterative refinement is needed. The batched solve uses it
+    because the device copy of A was cast to the tableau dtype for the
+    transfer, while the f64 problem data is on the host anyway. Returns
+    None for a singular or non-finite basis system (the certificates
+    could never pass); else a RefineOutput of CPU f64 tensors."""
+    A = np.asarray(A, np.float64)
+    b = np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    v = np.asarray(base[:m], np.int64)
+
+    struct = v < n
+    slack = (v >= n) & (v < n + m)
+    aux = ~(struct | slack)
+    unit = np.where(slack, v - n, np.arange(m))
+    Bt = np.eye(m)[unit]
+    Bt[struct] = A.T[v[struct]]
+    B = Bt.T
+
+    c_B = np.where(struct, c[np.clip(v, 0, n - 1)], 0.0)
+    try:
+        xB = np.linalg.solve(B, b)
+        y = np.linalg.solve(B.T, c_B)
+    except np.linalg.LinAlgError:
+        return None
+    if not (np.isfinite(xB).all() and np.isfinite(y).all()):
+        return None
+
+    d_struct = A.T @ y - c
+    nonbasic_struct = np.ones(n, bool)
+    nonbasic_struct[v[struct]] = False
+    nonbasic_slack = np.ones(m, bool)
+    nonbasic_slack[unit[slack]] = False
+    cands = np.concatenate([d_struct[nonbasic_struct], y[nonbasic_slack]])
+    d_min = float(cands.min()) if cands.size else 0.0
+
+    x = np.zeros(n)
+    x[v[struct]] = xB[struct]
+
+    def f64(val):
+        return torch.as_tensor(val, dtype=torch.float64)
+
+    return RefineOutput(
+        x=f64(x), objective=f64(c @ x),
+        primal_residual=f64(np.max(np.abs(b - B @ xB)) if m else 0.0),
+        primal_negativity=f64(max(0.0, -xB.min()) if m else 0.0),
+        artificial_mass=f64(np.max(np.abs(xB[aux]), initial=0.0)),
+        dual_infeasibility=f64(max(0.0, -d_min)), y=f64(y), xB=f64(xB))
+
+
 def certificates_pass(out: RefineOutput, b, c, tol: float) -> bool:
     """Scale-relative certification (``simplex_tpu.refine``): the primal
     residual, negativity and artificial mass against ``1 + max|b|``, the

@@ -87,40 +87,24 @@ def build_phase1(A: torch.Tensor, b: torch.Tensor, n: int, m: int,
     artificials, and the sign fix for b <= -eps (structural and slack
     entries and b negated, artificials kept +1). ``A`` (m, n) and ``b``
     (m,) are tensors on the solve's device."""
-    dtype = getattr(torch, options.dtype.name)
-    vdtype = getattr(torch, options.vector_dtype.name)
-    dev = A.device
     R_pad, _, M_pad = padded_dims(n, m, options)
-    r = n + 2 * m
-
-    b = b.to(vdtype)
-    flip = b <= -options.eps_resolved
-    sign = torch.where(flip, -1.0, 1.0).to(dtype)
-
-    Tt = torch.zeros((M_pad, R_pad), dtype=dtype, device=dev)
-    Tt[:m, :n].copy_(A)                  # in place: no (m, n) temporary
-    Tt[:m, :n].mul_(sign[:, None])
-    idx = torch.arange(m, device=dev)
-    Tt[idx, n + idx] = sign
-    Tt[idx, n + m + idx] = 1.0
-    b_pad = torch.zeros(M_pad, dtype=vdtype, device=dev)
-    b_pad[:m] = b * sign.to(vdtype)
-    costs = torch.zeros(R_pad, dtype=vdtype, device=dev)
-    costs[n + m:r] = 1.0
-    base = torch.full((M_pad,), R_pad, dtype=torch.int32, device=dev)
-    base[:m] = torch.arange(n + m, n + 2 * m, dtype=torch.int32, device=dev)
-    return Tableau(Tt=Tt, b=b_pad, costs=costs,
-                   z=torch.zeros((), dtype=vdtype, device=dev),
-                   base=base, n=n, m=m, r=r)
+    return batch_build_phase1(A[None], b[None], n, m, options,
+                              dims=(R_pad, M_pad)).lane(0)
 
 
 def basic_costs(base: torch.Tensor, costs: torch.Tensor,
                 r: int) -> torch.Tensor:
     """``costs[base]`` with out-of-range entries (padding, artificials past
     a truncated phase, dropped rows) contributing 0."""
-    r_pad = costs.shape[0]
-    idx = torch.clamp(base.long(), max=r_pad - 1)
-    return torch.where(base < r, costs[idx], torch.zeros_like(costs[idx]))
+    return batch_basic_costs(base[None], costs[None], r)[0]
+
+
+def batch_basic_costs(base: torch.Tensor, costs: torch.Tensor,
+                      r: int) -> torch.Tensor:
+    """``basic_costs`` per lane: (B, M_pad)."""
+    idx = torch.clamp(base.long(), max=costs.shape[1] - 1)
+    picked = costs.gather(1, idx)
+    return torch.where(base < r, picked, torch.zeros_like(picked))
 
 
 def gaussian_eliminate(tab: Tableau) -> Tableau:
@@ -166,6 +150,153 @@ def count_basic_artificials(tab: Tableau) -> int:
     """Artificial variables still in the base."""
     is_art = (tab.base >= tab.n + tab.m) & (tab.base < tab.n + 2 * tab.m)
     return int(is_art.sum())
+
+
+def batch_tt_matvec(T3: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per lane ``T3[i]^T @ v[i]`` (B, R_pad), ``T3 (B, M_pad, R_pad)``,
+    accumulated in v's dtype, in chunks of lanes so that no widened copy
+    of the whole batch exists (256 lanes of 512 x 3072 would be 3.2 GB in
+    f64)."""
+    B, m_pad, r_pad = T3.shape
+    chunk = max(1, MATVEC_CHUNK_BYTES // (m_pad * r_pad * v.element_size()))
+    out = torch.empty((B, r_pad), dtype=v.dtype, device=T3.device)
+    for i in range(0, B, chunk):
+        out[i:i + chunk] = torch.bmm(v[i:i + chunk, None, :],
+                                     T3[i:i + chunk].to(v.dtype))[:, 0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Batched tableaus: B independent LPs of one shape, for ``batch.py``.
+
+@dataclasses.dataclass
+class BatchTableau:
+    """B lanes of solver state: ``Tt (B*M_pad, R_pad)`` (the lanes'
+    transposed tableaus stacked, the kernels' layout), ``b (B, M_pad)``,
+    ``costs (B, R_pad)``, ``z (B,)``, ``base (B, M_pad) int32``; ``n``,
+    ``m`` and ``r`` are shared."""
+
+    Tt: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    z: torch.Tensor
+    base: torch.Tensor
+    n: int
+    m: int
+    r: int
+
+    @property
+    def T3(self) -> torch.Tensor:
+        """``Tt`` as (B, M_pad, R_pad), a view."""
+        B, M_pad = self.b.shape
+        return self.Tt.view(B, M_pad, self.Tt.shape[1])
+
+    def lane(self, i: int) -> Tableau:
+        """Lane i as a Tableau whose ``Tt`` is a view into the batch."""
+        return Tableau(Tt=self.T3[i], b=self.b[i], costs=self.costs[i],
+                       z=self.z[i], base=self.base[i], n=self.n, m=self.m,
+                       r=self.r)
+
+
+def batch_build_phase1(A: torch.Tensor, b: torch.Tensor, n: int, m: int,
+                       options: SolverOptions,
+                       dims: tuple[int, int]) -> BatchTableau:
+    """``build_phase1`` per lane, ``A (B, m, n)``, ``b (B, m)``, padded to
+    ``dims = (R_pad, M_pad)``."""
+    dtype = getattr(torch, options.dtype.name)
+    vdtype = getattr(torch, options.vector_dtype.name)
+    dev = A.device
+    B = A.shape[0]
+    R_pad, M_pad = dims
+    r = n + 2 * m
+
+    b = b.to(vdtype)
+    sign = torch.where(b <= -options.eps_resolved, -1.0, 1.0).to(dtype)
+    Tt = torch.zeros((B * M_pad, R_pad), dtype=dtype, device=dev)
+    T3 = Tt.view(B, M_pad, R_pad)
+    T3[:, :m, :n].copy_(A)
+    T3[:, :m, :n].mul_(sign[:, :, None])
+    idx = torch.arange(m, device=dev)
+    T3[:, idx, n + idx] = sign
+    T3[:, idx, n + m + idx] = 1.0
+    b_pad = torch.zeros((B, M_pad), dtype=vdtype, device=dev)
+    b_pad[:, :m] = b * sign.to(vdtype)
+    costs = torch.zeros((B, R_pad), dtype=vdtype, device=dev)
+    costs[:, n + m:r] = 1.0
+    base = torch.full((B, M_pad), R_pad, dtype=torch.int32, device=dev)
+    base[:, :m] = torch.arange(n + m, n + 2 * m, dtype=torch.int32,
+                               device=dev)
+    return BatchTableau(Tt=Tt, b=b_pad, costs=costs,
+                        z=torch.zeros(B, dtype=vdtype, device=dev),
+                        base=base, n=n, m=m, r=r)
+
+
+def batch_gaussian_eliminate(tabs: BatchTableau) -> BatchTableau:
+    """``gaussian_eliminate`` per lane, accumulated in the vector dtype."""
+    coeffs = batch_basic_costs(tabs.base, tabs.costs, tabs.r)
+    delta = batch_tt_matvec(tabs.T3, coeffs)
+    return dataclasses.replace(tabs, costs=tabs.costs - delta,
+                               z=tabs.z - (tabs.b * coeffs).sum(dim=1))
+
+
+def batch_phase2_reset(tabs: BatchTableau, c: torch.Tensor,
+                       r2_pad: int) -> BatchTableau:
+    """``phase2_reset`` per lane, ``c (B, n)``, with the variable axis cut
+    to ``r2_pad`` (a copy): the window kernel's work scales with it."""
+    n, m = tabs.n, tabs.m
+    B, M_pad = tabs.b.shape
+    Tt = tabs.T3[:, :, :r2_pad].contiguous().view(B * M_pad, r2_pad)
+    costs = torch.zeros((B, r2_pad), dtype=tabs.costs.dtype,
+                        device=Tt.device)
+    costs[:, :n] = -c.to(costs.dtype)
+    return dataclasses.replace(tabs, Tt=Tt, costs=costs, r=n + m)
+
+
+def batch_extract_solution(tabs: BatchTableau) -> torch.Tensor:
+    """``extract_solution`` per lane: (B, n)."""
+    n = tabs.n
+    idx = torch.where(tabs.base < n, tabs.base,
+                      torch.full_like(tabs.base, n)).long()
+    x_ext = torch.zeros((tabs.b.shape[0], n + 1), dtype=tabs.b.dtype,
+                        device=tabs.b.device)
+    x_ext.scatter_(1, idx, tabs.b)
+    return x_ext[:, :n]
+
+
+def _artificial(tabs: BatchTableau) -> torch.Tensor:
+    return (tabs.base >= tabs.n + tabs.m) & (tabs.base < tabs.n + 2 * tabs.m)
+
+
+def batch_phase1_objective(tabs: BatchTableau) -> torch.Tensor:
+    """``phase1_objective`` per lane: (B,)."""
+    return -torch.where(_artificial(tabs), tabs.b,
+                        torch.zeros_like(tabs.b)).sum(dim=1)
+
+
+def batch_count_basic_artificials(tabs: BatchTableau) -> torch.Tensor:
+    """``count_basic_artificials`` per lane: (B,) int64, on the device."""
+    return _artificial(tabs).sum(dim=1)
+
+
+def batch_from_numpy(Tt_stack, b, costs, z, base, n: int, m: int, r: int,
+                     device="cpu") -> BatchTableau:
+    """The port's batched state from the JAX package's arrays: either a
+    batched ``Tableau``'s ``T (B, R_pad, M_pad)``, or the kernels' layout
+    ``Tt (B*M_pad, R_pad)``; ``b``, ``costs`` and ``z`` in f64 (a kernel
+    caller turns its (hi, lo) pairs into f64 with ``ff32_to_f64``). Lets
+    a test start both implementations from one state."""
+    dev = torch.device(device)
+    T = np.asarray(Tt_stack)
+    if T.ndim == 3:
+        B, R_pad, M_pad = T.shape
+        T = T.transpose(0, 2, 1).reshape(B * M_pad, R_pad)
+    return BatchTableau(
+        Tt=torch.from_numpy(np.ascontiguousarray(T)).to(dev),
+        b=torch.from_numpy(np.array(b)).to(dev),
+        costs=torch.from_numpy(np.array(costs)).to(dev),
+        z=torch.from_numpy(np.array(z)).to(dev),
+        base=torch.from_numpy(np.asarray(base, np.int32).copy()).to(dev),
+        n=n, m=m, r=r)
 
 
 def tableau_from_numpy(T, b, costs, z, base, n: int, m: int, r: int,

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 import simplex_tpu_torch as pst
+from simplex_tpu_torch.kernels import batched as kbt
 from simplex_tpu_torch.kernels import blocked as kb
-from simplex_tpu_torch.tableau import tt_matvec
+from simplex_tpu_torch.tableau import batch_tt_matvec, tt_matvec
 
 pytestmark = pytest.mark.gpu
 
@@ -89,6 +90,116 @@ def test_kernels_match_plain_on_card(cuda):
     kb.apply_window(Tk, C, F)
     kb.apply_window_plain(Tp, C, F)
     torch.testing.assert_close(Tk, Tp, rtol=1e-5, atol=1e-5)
+
+
+def _window_state(B, M, R, L, seed, devex, dev):
+    """A window's inputs: lane 1 frozen, lane 2 with a fuse at 5 pivots
+    (mid-window), the others free to run L pivots."""
+    rng = np.random.default_rng(seed)
+    f = dict(device=dev)
+    sci = np.zeros((B, 8), np.int32)
+    sci[:, 0] = int(pst.Status.RUNNING)
+    sci[:, 4] = 1
+    sci[:, 5] = 1000
+    sci[1, 4] = 0
+    sci[2, 5] = 5
+    st = dict(
+        costs=torch.from_numpy(rng.uniform(-1, 1, (B, R))).to(**f),
+        b=torch.from_numpy(rng.uniform(1, 100, (B, M))).to(**f),
+        z=torch.from_numpy(rng.uniform(-5, 5, B)).to(**f),
+        base=torch.from_numpy(rng.integers(0, R, (B, M)).astype(
+            np.int32)).to(**f),
+        w=(torch.from_numpy(rng.uniform(1, 2, (B, R)).astype(np.float32))
+           .to(**f) if devex else None),
+        sci=torch.from_numpy(sci).to(**f),
+        c0=torch.from_numpy(rng.uniform(-1, 1, (B, R))).to(**f),
+        cf=torch.from_numpy(rng.uniform(-1, 1, (B, M))).to(**f),
+        C=torch.empty((B * L, R), dtype=torch.float32, **f),
+        F=torch.empty((B * L, M), dtype=torch.float32, **f),
+        AH=torch.empty((B * L, M), dtype=torch.float32, **f),
+        piv=torch.empty((B * L, 2), dtype=torch.int32, **f),
+        nlive=torch.empty(B, dtype=torch.int32, **f))
+    Tt = torch.from_numpy(rng.uniform(-1, 1, (B * M, R)).astype(
+        np.float32)).to(**f)
+    return Tt, st
+
+
+_WINDOW_ARGS = ("costs", "b", "z", "base", "w", "sci", "c0", "cf", "C", "F",
+                "AH", "piv", "nlive")
+
+
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+def test_batch_kernels_match_plain_on_card(cuda, devex):
+    """Integer outputs (walk, base, sci, nlive) equal to the plain
+    version's; each output against its formula on the kernel's own
+    operands (window_replay): the f32 pivot rows and entering columns to
+    1e-5 of their terms' magnitudes, the eta rows and devex weights to
+    1e-6 relative (the same f32 operations), the f64 vectors to 1e-12
+    relative (an f32 accumulation would miss by ~1e-7); the apply against
+    the plain version to 1e-5 * (1 + |x|); a frozen lane's tableau
+    bit-identical after the apply."""
+    B, M, R, L, eps = 4, 128, 384, 16, 1e-5
+    Tt, st0 = _window_state(B, M, R, L, 11, devex, cuda)
+    kw = dict(r=R - 7, eps=eps, bland_static=False, threshold=50)
+    runs = []
+    for fn in (kbt.batch_window, kbt.batch_window_plain):
+        st = {k: (None if v is None else v.clone()) for k, v in st0.items()}
+        fn(Tt, *(st[k] for k in _WINDOW_ARGS), **kw)
+        runs.append(st)
+    sk, sp = runs
+    for name in ("sci", "base", "piv", "nlive"):
+        assert torch.equal(sk[name], sp[name]), name
+    assert sk["nlive"].tolist()[1:3] == [0, 5]
+    assert int(sk["nlive"][0]) == L
+    rep = kbt.window_replay(Tt, st0, sk["C"], sk["F"], sk["AH"], sk["piv"],
+                            sk["nlive"])
+    for name in ("C", "AH"):
+        err = (sk[name].view(B, L, -1).double() - rep[name]).abs()
+        assert (err <= 1e-5 * (1 + rep[name + "_terms"])).all(), name
+    names = ("F", "w") if devex else ("F",)
+    for name in names + ("costs", "b", "z"):
+        x = rep[name].double()
+        tol = (1e-6 if name in ("F", "w") else 1e-12) * (1 + x.abs())
+        got = sk[name].view(x.shape).double()
+        assert ((got - x).abs() <= tol).all(), name
+    assert torch.equal(sk["base"], rep["base"])
+    assert torch.equal(sk["cf"], rep["cf"])
+
+    do_r = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=cuda)
+    Tk, Tp = Tt.clone(), Tt.clone()
+    mv = kbt.batch_apply_reprice(Tk, sk["C"], sk["F"], sk["cf"], do_r,
+                                 sk["nlive"])
+    kbt.batch_apply_reprice_plain(Tp, sk["C"], sk["F"], sk["cf"], do_r,
+                                  sk["nlive"])
+    torch.testing.assert_close(Tk, Tp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(Tk[M:2 * M], Tt[M:2 * M])      # the frozen lane
+    mv_x = batch_tt_matvec(Tk.view(B, M, R), sk["cf"])
+    scale = batch_tt_matvec(Tk.abs().view(B, M, R), sk["cf"].abs())
+    live = do_r.bool()
+    assert ((mv - mv_x).abs()[live] <= 1e-12 * scale[live]).all()
+    assert not mv[2].any()
+    Tk, Tp = Tt.clone(), Tt.clone()
+    kbt.batch_apply(Tk, sk["C"], sk["F"], sk["nlive"])
+    kbt.batch_apply_plain(Tp, sk["C"], sk["F"], sk["nlive"])
+    torch.testing.assert_close(Tk, Tp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(Tk[M:2 * M], Tt[M:2 * M])
+
+
+def test_solve_batch_on_card_matches_cpu(cuda):
+    """Statuses equal; objectives within 1e-9 (both refined in f64)."""
+    probs = [pst.generate_random_problem(96, 40, s, 1, 100)
+             for s in (1, 2, 3)]
+    opts = dict(dtype=np.float32, vector_dtype=np.float64, eps=1e-5,
+                block_pivots=32)
+    kbt.reset_launches()
+    got = pst.solve_batch(probs, device="cuda", **opts)
+    assert kbt.LAUNCHES["batch_window"] > 0
+    assert kbt.LAUNCHES["batch_apply_reprice"] > 0
+    want = pst.solve_batch(probs, device="cpu", **opts)
+    for g, w in zip(got, want):
+        assert g.status == w.status == pst.Status.OPTIMAL
+        assert g.refine.certified
+        assert g.objective == pytest.approx(w.objective, rel=1e-9)
 
 
 def test_solve_on_card_matches_cpu(cuda):

@@ -31,6 +31,10 @@ def test_port_never_imports_jax():
         "             device='cpu', dtype='float32', vector_dtype='float64',\n"
         "             block_pivots=128)\n"
         "assert r.status == st.Status.OPTIMAL\n"
+        "rb = st.solve_batch([st.generate_random_problem(8, 4, 1, 1, 9)],\n"
+        "                    device='cpu', dtype='float32',\n"
+        "                    vector_dtype='float64', block_pivots=8)\n"
+        "assert rb[0].status == st.Status.OPTIMAL\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'simplex_tpu'))\n"
         "print(bad)\n"
@@ -103,4 +107,73 @@ def test_library_name_follows_the_sources():
     per tree, stable across calls."""
     assert _build.source_digest() == _build.source_digest()
     assert len(_build.source_digest()) == 16
-    assert [s.name for s in _build._sources()] == ["blocked.cu"]
+    assert [s.name for s in _build._sources()] == ["batched.cu",
+                                                    "blocked.cu"]
+
+
+BATCH = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=8,
+             eps=1e-5)
+
+
+def _batch(k=2):
+    return [pst.generate_random_problem(12, 6, s, 1, 100)
+            for s in range(1, k + 1)]
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(mesh=object()), NotImplementedError, "ROADMAP queue 1 item 8"),
+    (dict(kernel=False), NotImplementedError, "items 2 and 3"),
+    (dict(dtype=np.float64), NotImplementedError, "items 2 and 3"),
+    (dict(block_pivots=1), NotImplementedError, "items 2 and 3"),
+    (dict(block_pivots=12), NotImplementedError, "items 2 and 3"),
+    (dict(kernel="interpret"), ValueError, "device='cpu'"),
+], ids=["mesh", "kernel-false", "f64", "sequential", "L-not-multiple-of-8",
+        "interpret"])
+def test_batch_unported_configurations_raise(kw, exc, match):
+    opts = dict(BATCH)
+    opts.update({k: v for k, v in kw.items() if k not in ("mesh", "kernel")})
+    with pytest.raises(exc, match=match):
+        pst.solve_batch(_batch(), device="cpu",
+                        **{k: v for k, v in kw.items()
+                           if k in ("mesh", "kernel")}, **opts)
+
+
+def test_batch_block_pivots_lifts_the_alignment_rule():
+    """An explicit batch_block_pivots is the window; block_pivots' own
+    alignment is then irrelevant, as in simplex_tpu.batch."""
+    res = pst.solve_batch(_batch(), device="cpu",
+                          **dict(BATCH, block_pivots=12,
+                                 batch_block_pivots=16))
+    assert all(r.status == pst.Status.OPTIMAL for r in res)
+
+
+def test_heterogeneous_batch_raises():
+    with pytest.raises(ValueError, match="homogeneous"):
+        pst.solve_batch(_batch() + [pst.generate_random_problem(13, 6, 9, 1,
+                                                                 100)],
+                        device="cpu", **BATCH)
+
+
+def test_batch_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device='cuda' is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pst.solve_batch(_batch(), **BATCH)     # device defaults to "cuda"
+
+
+def test_cpu_batch_counts_no_launch():
+    from simplex_tpu_torch.kernels import batched as kbt
+
+    kbt.reset_launches()
+    res = pst.solve_batch(_batch(3), device="cpu", **BATCH)
+    assert all(r.status == pst.Status.OPTIMAL for r in res)
+    assert all(v == 0 for v in kbt.LAUNCHES.values()), kbt.LAUNCHES
+    assert pst.solve_batched is pst.solve_batch
+
+
+def test_batch_lane_that_never_certifies_raises():
+    """No certificate passes at refine_tol=1e-300: after the two
+    reinversion rounds the lane raises, naming the f64 finishing solve."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        pst.solve_batch(_batch(1), device="cpu",
+                        **dict(BATCH, refine_tol=1e-300))
