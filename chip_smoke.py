@@ -9,33 +9,58 @@ Phases, in order; any failed check exits non-zero:
 
 1. the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the build of the CUDA kernels from ``csrc`` (timed);
-2. the example goldens through ``solve(..., device="cuda")``;
-3. random_1024_1024 -> OPTIMAL, certified, objective 4.000455470573328;
-4. the flagship random_8192_8192 -> OPTIMAL, certified, objective
-   2.701733460335518 -- the main path, with the launch counters reset
-   just before the first solve and read just after it; then solved
-   again, for the wall-time spread of warm solves (each solve must walk
-   the same pivots);
-5. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
+2. the example goldens through ``solve(..., device="cuda")`` with the
+   default options (f64 tableau, the sequential reference loop), then
+   with the production options;
+3. the f64 reference path: random_1024_1024 and random_8192_8192 with
+   the default options (the 8192^2 solve twice, the same walk both
+   times), objectives within 1e-9 of the certified goldens, the pivot
+   counts printed beside the JAX package's TPU record and the reference
+   CUDA program's;
+4. K6's path: random_2048_2048 through ``solve(dtype="float32",
+   vector_dtype="float32", use_pallas=True)`` -- K6's launch counter
+   reset just before and read just after -- then the 10,000 x 100,000 phase-1 tableau for 256
+   pivots through ``solve_loop_pallas`` on the kernel and again on its
+   plain version (the same choices, the same tableau);
+5. the plain blocked loop: random_2048_2048 with ``dtype=float64,
+   block_pivots=128``, no K1-K4 launch;
+6. the CLI (``python -m simplex_tpu_torch.cli``): a problem file, the
+   ``-t --limit 1024 --timer`` sweep (the reference's CSV schema) and a
+   ``--per-iteration`` seed-file solve;
+7. random_1024_1024 -> OPTIMAL, certified, objective 4.000455470573328,
+   production options;
+8. the flagship random_8192_8192 -> OPTIMAL, certified, objective
+   2.701733460335518 -- the production path, with the K1-K4 launch
+   counters reset just before the first solve and read just after it;
+   then solved again, for the wall-time spread of warm solves (each
+   solve must walk the same pivots);
+9. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
    pivots (2 windows);
-6. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
+10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
    config 3's options: f32 tableau, f64 vectors, eps 1e-5, L=32, devex):
    the status spread (OPTIMAL 13, UNBOUNDED, INFEASIBLE); config 3 at
    full size, 256 x (m=500, n=2,000) from seeds 1000..1255, every lane
    OPTIMAL and certified, lanes 0, 127 and 255 equal to a batch of that
    lane alone and within 1e-9 of the single-LP ``solve`` -- the batched
-   main path, with the K7-K10 launch counters reset just before its
-   first call and read just after; then a warm call; then 32 x (m=500,
+   path, with the K7-K10 launch counters reset just before its first
+   call and read just after; then a warm call; then 32 x (m=500,
    n=14,000) lanes from seeds 2000..2031 (the TPU's HBM-tier shape);
-7. each kernel K1-K4 against its plain PyTorch version on the card at
+11. each kernel against its plain PyTorch version on the card: K1-K4 at
    the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K2
-   under devex and Dantzig), then the batched kernels at config 3's
-   shapes (B=256, M=512, R=3072, L=32) and the wide ones (B=32, R=15104),
-   under devex and Dantzig, with a frozen lane and a lane that hits its
-   fuse mid-window; all timed on the device by torch.profiler; then one
-   config-3 batch traced (device time by kernel, the device's busy
-   share). These run last so that no profiler session precedes the
-   timed solves.
+   under devex and Dantzig), K6 at the 8192^2 and the north-star f32
+   shapes, then the batched kernels at config 3's shapes (B=256, M=512,
+   R=3072, L=32) and the wide ones (B=32, R=15104), under devex and
+   Dantzig, with a frozen lane and a lane that hits its fuse
+   mid-window; all timed on the device by torch.profiler, beside each
+   kernel's bound and, where one PyTorch call computes the same
+   function, that call's time; then one config-3 batch traced (device
+   time by kernel, the device's busy share). These run last so that no
+   profiler run precedes the timed solves.
+
+Each kernel's bound is the larger of the bytes it must move (each input
+read once, each output written once) over HBM's 3.35 TB/s and its
+operations over the peak rate of their type: 67 TFLOP/s for f32 outside
+the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' records, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -46,6 +71,7 @@ result.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import pathlib
 import statistics
@@ -59,19 +85,33 @@ PROD = dict(dtype="float32", vector_dtype="float64", block_pivots=128)
 
 #: Certified f64 objectives (data/measures/refine_sweep_r5.json).
 OBJ_1024 = 4.000455470573328
+OBJ_2048 = 3.3087010624810915
 OBJ_8192 = 2.701733460335518
 #: Flagship solves in one process: the first, then the warm ones.
 FLAGSHIP_SOLVES = 5
 
-#: The JAX kernels each CUDA kernel replaces (function reaching
-#: pl.pallas_call).
-KERNELS = {
-    "ah_ratio": ("K1", "simplex_tpu/kernels/blocked.py:1201"),
-    "colk_costs": ("K2", "simplex_tpu/kernels/blocked.py:410"),
-    "apply_reprice": ("K3", "simplex_tpu/kernels/blocked.py:832"),
-    "apply_window": ("K4", "simplex_tpu/kernels/blocked.py:694"),
-}
+#: Each kernel's record: (id, the JAX kernel it replaces -- the function
+#: reaching pl.pallas_call --, its source).
 SOURCE = "simplex_tpu_torch/kernels/csrc/blocked.cu"
+KERNELS = {
+    "ah_ratio": ("K1", "simplex_tpu/kernels/blocked.py:1201", SOURCE),
+    "colk_costs": ("K2", "simplex_tpu/kernels/blocked.py:410", SOURCE),
+    "apply_reprice": ("K3", "simplex_tpu/kernels/blocked.py:832", SOURCE),
+    "apply_window": ("K4", "simplex_tpu/kernels/blocked.py:694", SOURCE),
+}
+PIVOT_KERNELS = {
+    "fused_pivot": ("K6", "simplex_tpu/kernels/pivot.py:126",
+                    "simplex_tpu_torch/kernels/csrc/pivot.cu"),
+}
+#: K6's check shapes (M, R): the 8192^2 f32 tableau and the north-star
+#: phase 1, both with the variable axis padded to 8 (use_pallas=True).
+PIVOT_SHAPES = (("8192^2", (8192, 24576)), ("north-star", (10112, 120000)))
+
+#: Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and
+#: FLOP/s outside the tensor cores in f32 and f64.
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 
 #: BASELINE.json config 3's options (tools/bench_batch.py:43-75).
 BATCH = dict(dtype="float32", vector_dtype="float64", eps=1e-5,
@@ -79,17 +119,19 @@ BATCH = dict(dtype="float32", vector_dtype="float64", eps=1e-5,
 #: (n, m, seeds): config 3, and the lanes the TPU served from HBM.
 CONFIG3 = (2000, 500, range(1000, 1256))
 WIDE = (14000, 500, range(2000, 2032))
+BATCH_SOURCE = "simplex_tpu_torch/kernels/csrc/batched.cu"
 #: The batched kernels, the JAX kernels each replaces (K7 is
 #: batch_window's pivot loop followed by batch_apply_reprice's fused
 #: apply and fold), and their source.
 BATCH_KERNELS = {
     "batch_window": ("K7/K8", "simplex_tpu/kernels/batched.py:521; "
-                     "simplex_tpu/kernels/batched_hbm.py:330"),
+                     "simplex_tpu/kernels/batched_hbm.py:330", BATCH_SOURCE),
     "batch_apply_reprice": ("K7/K9", "simplex_tpu/kernels/batched.py:521; "
-                            "simplex_tpu/kernels/batched_hbm.py:214"),
-    "batch_apply": ("K10", "simplex_tpu/kernels/batched_hbm.py:281"),
+                            "simplex_tpu/kernels/batched_hbm.py:214",
+                            BATCH_SOURCE),
+    "batch_apply": ("K10", "simplex_tpu/kernels/batched_hbm.py:281",
+                    BATCH_SOURCE),
 }
-BATCH_SOURCE = "simplex_tpu_torch/kernels/csrc/batched.cu"
 #: (label, (B, M, R, L)) of the batched kernels' check.
 BATCH_KERNEL_SHAPES = (("config-3", (256, 512, 3072, 32)),
                        ("wide", (32, 512, 15104, 32)))
@@ -139,6 +181,34 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
                    and (match is None or match in e.key))
     require(total_us > 0, "the profiler saw no device time")
     return total_us / 1e3 / reps
+
+
+def event_ms(fn, reps: int) -> float:
+    """ms per call of ``fn()`` between two CUDA events around ``reps``
+    back-to-back calls after one warm-up call: the device's time when
+    the calls keep it busy (a cross-check of ``device_ms``)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, f32_flops: float = 0.0,
+          f64_flops: float = 0.0) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves ``nbytes`` and does the given operations."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = f32_flops / F32_FLOPS + f64_flops / F64_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def close(name: str, got, want, tol) -> float:
@@ -306,12 +376,32 @@ def phase_kernels(records: dict) -> None:
                 device_ms(lambda: kb.apply_window(T2, C, F), 5),
                 device_ms(lambda: kb.apply_window_plain(T2, C, F), 5)]
             del T2
-    for name, (kid, _) in KERNELS.items():
+    # Bounds at the timed inputs (K1/K2 at t = 37, K2 under devex; K3/K4
+    # a full window): bytes each input read once and each output written
+    # once, and the operations.
+    t = 37
+    bounds = {
+        "ah_ratio": bound(4 * M + 4 * t * M + 4 * t + 8 * M + 4 * M,
+                          2 * t * M, M),
+        "colk_costs": bound(4 * R + 4 * t * R + 4 * t + 4 * R + 16 * R
+                            + 8 * R + 4 * M + 16 * M + 8 * M + 4 * M,
+                            2 * t * R + 4 * R, 4 * R + 3 * M),
+        "apply_reprice": bound(8 * M * R + 4 * L * (M + R) + 8 * (M + R),
+                               2 * L * M * R, 2 * M * R),
+        "apply_window": bound(8 * M * R + 4 * L * (M + R), 2 * L * M * R),
+    }
+    # K4's plain version is one PyTorch call (cuBLAS addmm_): its time is
+    # also the library's. K1-K3 have no single call that computes them.
+    library = {"apply_window": times["apply_window"][1]}
+    for name, (kid, _, _) in KERNELS.items():
         ms, plain_ms = times[name]
+        bound_ms, by = bounds[name]
         records[name] = {"max_abs_err": errs[name], "ms": ms,
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": by, "library_ms": library.get(name)}
         log(f"{kid} {name}: matches plain (max abs err {errs[name]:.3e}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({by})")
 
 
 WINDOW_ARGS = ("costs", "b", "z", "base", "w", "sci", "c0", "cf", "C", "F",
@@ -492,16 +582,46 @@ def phase_batch_kernels(records: dict) -> None:
                         device_ms(lambda: kbt.batch_apply(Tk, C, F, nl), 5),
                         device_ms(lambda: kbt.batch_apply_plain(Tk, C, F,
                                                                 nl), 5)]}
+                # Bounds on this state: each lane reads a column and a row
+                # of its tableau per live pivot and writes its eta rows;
+                # the applies move the tableaus of the lanes with live
+                # rows; the operations are the eta corrections (f32), the
+                # vector updates and the re-pricing fold (f64).
+                nls = [int(v) for v in nl.tolist()]
+                live = sum(1 for v in nls if v)
+                reprice = sum(1 for v, d in zip(nls, do_r.tolist()) if d)
+                vec = B * (16 * R + 16 * M + 8 * M + 8 * R + 8 * R + 16 * M)
+                etas = 4 * B * L * (M + R)
+                bnds = {
+                    "batch_window": bound(
+                        sum(4 * v * (M + R) for v in nls) + etas
+                        + 4 * B * L * M + vec,
+                        sum(v * (v - 1) * (M + R) for v in nls),
+                        sum(v * (4 * R + 3 * M) for v in nls)),
+                    "batch_apply_reprice": bound(
+                        live * 8 * M * R + etas + 8 * B * (M + R),
+                        sum(2 * v * M * R for v in nls),
+                        reprice * 2 * M * R),
+                    "batch_apply": bound(live * 8 * M * R + etas,
+                                         sum(2 * v * M * R for v in nls))}
             del Tk, Tt, st0, sk, sp
             torch.cuda.empty_cache()
-        for name, (kid, _) in BATCH_KERNELS.items():
+        for name, (kid, _, _) in BATCH_KERNELS.items():
             ms, plain_ms = times[name]
+            bound_ms, by = bnds[name]
             if label == BATCH_KERNEL_SHAPES[0][0]:
-                records[name] = {"max_abs_err": errs[name], "ms": ms,
-                                 "plain_ms": plain_ms}
+                # batch_apply's plain version is one PyTorch call (cuBLAS
+                # baddbmm_): its time is also the library's.
+                records[name] = {
+                    "max_abs_err": errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by,
+                    "library_ms": plain_ms if name == "batch_apply"
+                    else None}
             log(f"{kid} {name} {label} B={B} M={M} R={R} L={L}: matches "
                 f"plain (max abs err so far {errs[name]:.3e}); kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({by})")
     for name in BATCH_KERNELS:
         records[name]["max_abs_err"] = errs[name]
 
@@ -553,47 +673,394 @@ def timed_solve(problem, opts: dict = PROD):
     return res, time.perf_counter() - t0
 
 
-def phase_goldens() -> None:
+def phase_goldens(opts: dict, label: str) -> None:
     import numpy as np
 
     import simplex_tpu_torch as st
 
-    res, _ = timed_solve(st.read_problem(DATA / "smallProblem.txt"))
+    res, _ = timed_solve(st.read_problem(DATA / "smallProblem.txt"), opts)
     require(res.status == st.Status.OPTIMAL
             and abs(res.objective - 64.0) < 1e-9
             and np.allclose(res.x, [8.0, 0.0, 0.0], atol=1e-9),
-            f"smallProblem: {res.status!r} {res.objective} {res.x}")
-    res, _ = timed_solve(st.read_problem(DATA / "infeasibleProblem.txt"))
+            f"{label} smallProblem: {res.status!r} {res.objective} {res.x}")
+    res, _ = timed_solve(st.read_problem(DATA / "infeasibleProblem.txt"),
+                         opts)
     require(res.status == st.Status.INFEASIBLE,
-            f"infeasibleProblem: {res.status!r}")
-    res, _ = timed_solve(st.read_problem(DATA / "unboundedProblem.txt"))
+            f"{label} infeasibleProblem: {res.status!r}")
+    res, _ = timed_solve(st.read_problem(DATA / "unboundedProblem.txt"),
+                         opts)
     require(res.status == st.Status.UNBOUNDED,
-            f"unboundedProblem: {res.status!r}")
-    log("goldens: smallProblem OPTIMAL 64 at (8,0,0), infeasibleProblem "
-        "INFEASIBLE, unboundedProblem UNBOUNDED")
+            f"{label} unboundedProblem: {res.status!r}")
+    log(f"goldens ({label}): smallProblem OPTIMAL 64 at (8,0,0), "
+        "infeasibleProblem INFEASIBLE, unboundedProblem UNBOUNDED")
 
 
-def check_certified(label: str, res, want: float) -> None:
+def check_objective(label: str, res, want: float, rel_tol: float) -> None:
     import numpy as np
 
     import simplex_tpu_torch as st
 
     require(res.status == st.Status.OPTIMAL, f"{label}: {res.status!r}")
-    require(res.refine is not None and res.refine.certified,
-            f"{label}: not certified ({res.refine})")
     rel = abs(res.objective - want) / abs(want)
-    require(rel <= 1e-9, f"{label}: objective {res.objective!r} vs "
-            f"{want!r} (rel {rel:.2e})")
+    require(rel <= rel_tol, f"{label}: objective {res.objective!r} vs "
+            f"{want!r} (rel {rel:.2e} > {rel_tol:g})")
     require(np.isfinite(res.x).all() and res.x.shape[0] > 0,
             f"{label}: bad x")
 
 
-def phase_r1024() -> None:
+def check_certified(label: str, res, want: float) -> None:
+    check_objective(label, res, want, 1e-9)
+    require(res.refine is not None and res.refine.certified,
+            f"{label}: not certified ({res.refine})")
+
+
+@functools.lru_cache(maxsize=None)
+def benchmark_problem(n: int):
+    """random_n_n, regenerated from its seed file once per run."""
     import simplex_tpu_torch as st
 
+    t0 = time.perf_counter()
     p = st.read_random_problem(DATA / "benchmark_problems"
-                               / "random_1024_1024.txt")
-    res, wall = timed_solve(p)
+                               / f"random_{n}_{n}.txt")
+    log(f"random_{n}_{n} regenerated in {time.perf_counter() - t0:.1f} s")
+    return p
+
+
+def recorded_walks(n: int) -> tuple[str, str]:
+    """The pivot counts of random_n_n as recorded by the JAX package on a
+    TPU (data/measures/v5e_f64, its solveIterations rows) and by the
+    reference CUDA program (data/reference_measures, one solve row per
+    step, each phase's exit step included)."""
+    def rows(path):
+        return [line.split(",") for line in
+                path.read_text().splitlines()[1:] if line.strip()]
+
+    tpu = rows(ROOT / "data" / "measures" / "v5e_f64"
+               / f"benchmark_{n}_{n}.txt")
+    ref = rows(ROOT / "data" / "reference_measures"
+               / f"benchmark_{n}_{n}.txt")
+    ref_walk = [sum(r[2] == "solve" and int(r[0]) == v for r in ref) - 1
+                for v in (3 * n + 1, 2 * n + 1)]
+    return ("+".join(str(int(float(r[3]))) for r in tpu
+                     if r[2] == "solveIterations"),
+            "+".join(str(v) for v in ref_walk))
+
+
+def phase_reference_f64() -> None:
+    """The default options (f64 tableau, eps 1e-9, Dantzig, the sequential
+    loop; no refinement) on the reference's benchmarks, held to the
+    certified goldens at 1e-9; random_8192_8192 twice, with the same
+    walk. The pivot counts are printed beside the JAX package's and the
+    reference's records, not held to them: near-ties fall otherwise on
+    each machine."""
+    import torch
+
+    from simplex_tpu_torch.solver import SEQ_CHUNK
+
+    for n, want, runs in ((1024, OBJ_1024, 1), (8192, OBJ_8192, 2)):
+        p = benchmark_problem(n)
+        tpu, ref = recorded_walks(n)
+        walk = None
+        for i in range(runs):
+            torch.cuda.reset_peak_memory_stats()
+            res, wall = timed_solve(p, {})
+            label = f"f64 random_{n}_{n} solve {i + 1}"
+            check_objective(label, res, want, 1e-9)
+            w = (res.iterations_phase1, res.iterations_phase2)
+            require(walk is None or w == walk,
+                    f"{label} walked {w}, the first {walk}")
+            walk = w
+            reads = "+".join(str(v // SEQ_CHUNK + 1) for v in w)
+            log(f"{label}: OPTIMAL objective {res.objective!r} (golden "
+                f"{want!r}); pivots {w[0]}+{w[1]} (JAX package on a TPU "
+                f"{tpu}, reference CUDA program {ref}); wall {wall:.3f} s;"
+                f" {1e3 * wall / sum(w):.4f} ms/pivot; max_memory_allocated"
+                f" {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the "
+                f"loop's host reads per phase {reads} (one per {SEQ_CHUNK} "
+                "pivots)")
+
+
+def northstar_tableau(opts):
+    """The eliminated 10,000 x 100,000 phase-1 tableau, A and b uniform in
+    [1, 100] from a seeded generator on the card, and its pre-elimination
+    costs."""
+    import torch
+
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    n, m = 100_000, 10_000
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n * 100 + m)
+    A = torch.rand((m, n), generator=g, device=dev) * 99.0 + 1.0
+    b = torch.rand((m,), generator=g, device=dev) * 99.0 + 1.0
+    tab = build_phase1(A, b, n, m, opts)
+    del A
+    costs0 = tab.costs
+    return gaussian_eliminate(tab), costs0
+
+
+def phase_pallas_seq(launches: dict) -> None:
+    """K6's path: ``solve(random_2048_2048, dtype="float32",
+    vector_dtype="float32", use_pallas=True)`` (a pure-f32 tableau;
+    without ``vector_dtype`` the vectors stay f64, the mixed mode, as in
+    the JAX package) with K6's counter reset just before and read just
+    after; then the north-star phase-1 tableau (pure f32, the variable
+    axis padded to 8) for 256 pivots through ``solve_loop_pallas``, on
+    K6 and again on its plain version: the same k and the same folded
+    candidates (h_d, h_b) at every pivot, so the same choices, the same
+    basis, and tableaus equal within 2^-22 of their magnitude (the same
+    two roundings per element on both sides; expected bit-equal)."""
+    import dataclasses
+
+    import torch
+
+    from simplex_tpu_torch.config import SolverOptions
+    from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.solver import solve_loop_pallas
+
+    opts = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
+    kp.reset_launches()
+    res, wall = timed_solve(benchmark_problem(2048), opts)
+    launches.update(kp.LAUNCHES)
+    check_objective("f32 K6 random_2048_2048", res, OBJ_2048, 1e-3)
+    require(launches["fused_pivot"] > 0, "fused_pivot never launched")
+    w = (res.iterations_phase1, res.iterations_phase2)
+    log(f"f32 use_pallas random_2048_2048: OPTIMAL objective "
+        f"{res.objective!r} (golden {OBJ_2048!r}, rel "
+        f"{abs(res.objective - OBJ_2048) / OBJ_2048:.2e}); pivots "
+        f"{w[0]}+{w[1]}; wall {wall:.3f} s; {1e3 * wall / sum(w):.4f} "
+        f"ms/pivot; launches {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sopts = SolverOptions(**opts)
+    tab0, _ = northstar_tableau(sopts)
+    cap = 256
+    kernel = kp.fused_pivot
+    runs = {}
+    try:
+        for label, fn in (("kernel", kernel),
+                          ("plain", kp.fused_pivot_plain)):
+            tab = (dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+                   if label == "kernel" else tab0)
+            trace = []
+
+            def recorded(*a, fn=fn, trace=trace):
+                out = fn(*a)
+                trace.append(torch.stack([a[6].long(), out[0].long(),
+                                          out[2].long()]))
+                return out
+
+            kp.fused_pivot = recorded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _, iters = solve_loop_pallas(tab, sopts, cap)
+            torch.cuda.synchronize()
+            runs[label] = (out, iters, torch.stack(trace),
+                           time.perf_counter() - t0)
+    finally:
+        kp.fused_pivot = kernel
+    (tk, ik, trk, wk), (tp, ip, trp, wp) = runs["kernel"], runs["plain"]
+    require(ik == ip == cap, f"north-star K6 loop: {ik} / {ip} pivots")
+    equal("north-star K6 loop (k, h_d, h_b) per pivot", trk, trp)
+    equal("north-star K6 loop base", tk.base, tp.base)
+    err = 0.0
+    for i in range(0, tk.Tt.shape[0], 1024):
+        a, b = tk.Tt[i:i + 1024], tp.Tt[i:i + 1024]
+        d = (a - b).abs()
+        require(bool((d <= 2.0 ** -22 * (1.0 + b.abs())).all()),
+                f"north-star K6 loop: Tt rows {i}.. beyond tolerance")
+        err = max(err, float(d.max()))
+    err = max(err, close("north-star K6 loop costs", tk.costs, tp.costs,
+                         2.0 ** -22 * (1.0 + tp.costs.abs())))
+    err = max(err, close("north-star K6 loop b", tk.b, tp.b,
+                         2.0 ** -22 * (1.0 + tp.b.abs())))
+    log(f"north-star 10000x100000 f32 K6 loop: tableau "
+        f"{tuple(tk.Tt.shape)}; {cap} pivots on K6 in {wk:.3f} s = "
+        f"{1e3 * wk / cap:.4f} ms/pivot, on the plain version {wp:.3f} s "
+        f"= {1e3 * wp / cap:.4f} ms/pivot; the same choices at every "
+        f"pivot, max abs err {err:.3e}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def phase_blocked_plain() -> None:
+    """The plain blocked loop: random_2048_2048 with an f64 tableau and
+    L=128, within 1e-9 of the golden; none of K1-K4 launched."""
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    kb.reset_launches()
+    res, wall = timed_solve(benchmark_problem(2048),
+                            dict(dtype="float64", block_pivots=128))
+    counts = dict(kb.LAUNCHES)
+    check_objective("f64 blocked random_2048_2048", res, OBJ_2048, 1e-9)
+    require(not any(counts.values()), f"K1-K4 launched: {counts}")
+    w = (res.iterations_phase1, res.iterations_phase2)
+    log(f"f64 L=128 random_2048_2048: OPTIMAL objective {res.objective!r}"
+        f" (golden {OBJ_2048!r}); pivots {w[0]}+{w[1]}; wall {wall:.3f} "
+        f"s; {1e3 * wall / sum(w):.4f} ms/pivot; K1-K4 launches {counts}")
+
+
+TIMED_OPS = ["fillTableau", "gauss1", "solve", "solveIterations",
+             "checkDegeneracy", "costsVector", "gauss2", "solve",
+             "solveIterations", "solution"]
+
+
+def run_cli(args: list, timeout: int = 600) -> str:
+    proc = subprocess.run([sys.executable, "-m", "simplex_tpu_torch.cli",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    require(proc.returncode == 0, f"cli {args}: exit {proc.returncode}\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def csv_rows(path: pathlib.Path) -> list:
+    lines = path.read_text().splitlines()
+    require(lines[0] == "vars,contraints,operation,elapsed_time",
+            f"{path.name}: header {lines[0]!r}")
+    return [line.split(",") for line in lines[1:]]
+
+
+def phase_cli() -> None:
+    """``python -m simplex_tpu_torch.cli`` on the card: a problem file
+    (the reference's stdout lines and solution.txt), the ``-t --limit
+    1024 --timer`` sweep (every CSV in the reference's schema, each
+    solveIterations row equal to the pivots printed), and a seed file
+    with ``--per-iteration`` (pivots + 1 solve rows per phase)."""
+    import re
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        tmp = pathlib.Path(td)
+        t0 = time.perf_counter()
+        out = run_cli(["-f", str(DATA / "smallProblem.txt"),
+                       "--data-dir", str(tmp)])
+        want = ["Starting...", "Reading problem from file...",
+                "Resolving....", "", "Problem solved!",
+                "Optimal value: 64.000000",
+                f"Solution written to {tmp / 'solution.txt'}",
+                "(phase-1 pivots: 2, phase-2 pivots: 2)"]
+        require(out.splitlines() == want, f"cli -f stdout: {out!r}")
+        sol = (tmp / "solution.txt").read_text()
+        require(sol == "8.000000\n0.000000\n0.000000\n\n"
+                "Optimal value: 64.000000\n", f"solution.txt: {sol!r}")
+        log(f"cli -f smallProblem: the reference's stdout lines and "
+            f"solution.txt ({time.perf_counter() - t0:.1f} s)")
+
+        t0 = time.perf_counter()
+        out = run_cli(["-t", "--limit", "1024", "--timer", "--data-dir",
+                       str(tmp)])
+        sizes = re.findall(r"Current matrix: (\d+)\*(\d+)", out)
+        walks = re.findall(
+            r"status=(\w+) objective=\S+ pivots=(\d+)\+(\d+)", out)
+        require(len(sizes) == len(walks) == 9, f"cli -t: {out[-2000:]}")
+        done = []
+        for (n, m), (status, p1, p2) in zip(sizes, walks):
+            rows = csv_rows(tmp / "measures" / f"benchmark_{n}_{m}.txt")
+            ops = [r[2] for r in rows]
+            require(status == "OPTIMAL" and ops == TIMED_OPS,
+                    f"benchmark_{n}_{m}: {status} {ops}")
+            n, m = int(n), int(m)
+            cols = [(int(r[0]), int(r[1])) for r in rows]
+            require(cols == [(n + 2 * m + 1, m)] * 5 + [(n + m + 1, m)] * 5,
+                    f"benchmark_{n}_{m}: vars/constraints {cols}")
+            its = [float(r[3]) for r in rows if r[2] == "solveIterations"]
+            require(its == [float(p1), float(p2)],
+                    f"benchmark_{n}_{m}: solveIterations {its} vs the "
+                    f"printed {p1}+{p2}")
+            require(all(float(r[3]) > 0 for r in rows),
+                    f"benchmark_{n}_{m}: a time that is not positive")
+            done.append(f"{n}x{m}:{p1}+{p2}")
+        log(f"cli -t --limit 1024 --timer: 9 sizes OPTIMAL, every CSV in "
+            f"the reference's schema, solveIterations equal to the printed "
+            f"pivots ({', '.join(done)}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        out = run_cli(["-rf", str(DATA / "benchmark_problems"
+                                  / "random_256_256.txt"),
+                       "--timer", "--per-iteration", "--data-dir", str(tmp)])
+        p1, p2 = (int(v) for v in re.search(
+            r"phase-1 pivots: (\d+), phase-2 pivots: (\d+)", out).groups())
+        (csv,) = (tmp / "measures").glob("times_*.txt")
+        solve = [int(r[0]) for r in csv_rows(csv) if r[2] == "solve"]
+        got = (solve.count(256 + 2 * 256 + 1), solve.count(256 + 256 + 1))
+        require(got == (p1 + 1, p2 + 1),
+                f"cli --per-iteration: solve rows {got} for {p1}+{p2}")
+        log(f"cli -rf random_256_256 --timer --per-iteration: {p1}+{p2} "
+            f"pivots, solve rows {got[0]}+{got[1]} (pivots + 1 per phase);"
+            f" {time.perf_counter() - t0:.1f} s")
+
+
+def phase_pivot_kernel(records: dict) -> None:
+    """K6 against its plain version on the card at the main path's shapes
+    (random_2048_2048 and the north-star phase 1, pure f32) and at the
+    8192^2 f32 tableau: the candidates equal, the tableau and the costs
+    within 2^-22 of their magnitude (the same two roundings per element
+    on both sides: expected bit-equal); device ms per call against the
+    plain version and against ``Tt.addr_(factor, colk, alpha=-1)``, the
+    one PyTorch call that does the update alone (without the fold). The
+    north-star shape's numbers go into the kernel's record."""
+    import torch
+
+    from simplex_tpu_torch.kernels import pivot as kp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20261018)
+    eps = 1e-4
+    for label, (M, R) in (("2048^2", (2048, 6144)),) + PIVOT_SHAPES:
+        Tt = torch.rand((M, R), generator=g, device=dev) * 2.0 - 1.0
+        costs = torch.rand((R,), generator=g, device=dev) * 2.0 - 1.0
+        h = 12345 % R
+        a_h = Tt[:, h].clone()
+        k = torch.argmax(a_h.abs()).to(torch.int32)
+        colk = Tt[int(k)].clone()
+        p, minc = a_h[int(k)].clone(), costs[h].clone()
+        r = R - 100
+        Tk = Tt.clone()
+        ck, cp = costs.clone(), costs.clone()
+        cand_k = kp.fused_pivot(Tk, ck, colk, a_h, p, minc, k, r, eps)
+        cand_p = kp.fused_pivot_plain(Tt, cp, colk, a_h, p, minc, k, r, eps)
+        for name, a, b in zip(("h_d", "v_d", "h_b", "v_b"), cand_k, cand_p):
+            equal(f"K6 {label} {name}", a, b)
+        err = 0.0
+        for i in range(0, M, 1024):
+            d = (Tk[i:i + 1024] - Tt[i:i + 1024]).abs()
+            require(bool((d <= 2.0 ** -22 * (1.0 + Tt[i:i + 1024].abs()))
+                         .all()), f"K6 {label}: Tt rows {i}.. differ")
+            err = max(err, float(d.max()))
+        err = max(err, close(f"K6 {label} costs", ck, cp,
+                             2.0 ** -22 * (1.0 + cp.abs())))
+        factor = a_h * (1.0 / p)
+        ms = device_ms(lambda: kp.fused_pivot(Tk, ck, colk, a_h, p, minc, k,
+                                              r, eps), 10)
+        plain_ms = device_ms(lambda: kp.fused_pivot_plain(
+            Tt, cp, colk, a_h, p, minc, k, r, eps), 5)
+        library_ms = device_ms(lambda: Tt.addr_(factor, colk, alpha=-1.0),
+                               10)
+        ev = [event_ms(lambda: kp.fused_pivot(Tk, ck, colk, a_h, p, minc,
+                                              k, r, eps), 10),
+              event_ms(lambda: Tt.addr_(factor, colk, alpha=-1.0), 10)]
+        bound_ms, by = bound(8 * M * R + 12 * R + 4 * M, 2 * M * R + 2 * R)
+        log(f"K6 fused_pivot {label} M={M} R={R}: matches plain (max abs "
+            f"err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"addr_ {library_ms:.4f} ms (torch.profiler; CUDA events: "
+            f"kernel {ev[0]:.4f} ms, addr_ {ev[1]:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({by}); the kernel moves the tableau at "
+            f"{8 * M * R / ms / 1e9:.3f} TB/s")
+        if label == "north-star":
+            records["fused_pivot"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": library_ms}
+        del Tt, Tk, factor
+        torch.cuda.empty_cache()
+
+
+def phase_r1024() -> None:
+    res, wall = timed_solve(benchmark_problem(1024))
     check_certified("random_1024_1024", res, OBJ_1024)
     log(f"random_1024_1024: OPTIMAL certified objective {res.objective!r} "
         f"pivots {res.iterations_phase1}+{res.iterations_phase2} "
@@ -601,14 +1068,9 @@ def phase_r1024() -> None:
 
 
 def phase_flagship(launches: dict) -> None:
-    import simplex_tpu_torch as st
     from simplex_tpu_torch.kernels import blocked as kb
 
-    t0 = time.perf_counter()
-    p = st.read_random_problem(DATA / "benchmark_problems"
-                               / "random_8192_8192.txt")
-    log(f"flagship 8192x8192 regenerated in "
-        f"{time.perf_counter() - t0:.1f} s")
+    p = benchmark_problem(8192)
     kb.reset_launches()
     res, wall = timed_solve(p)
     launches.update(kb.LAUNCHES)
@@ -643,19 +1105,11 @@ def phase_northstar() -> None:
 
     from simplex_tpu_torch.config import SolverOptions
     from simplex_tpu_torch.solver import run_solve_loop
-    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
 
-    n, m, cap = 100_000, 10_000, 256
-    dev = torch.device("cuda")
+    cap = 256
     opts = SolverOptions(**PROD)
     torch.cuda.reset_peak_memory_stats()
-    g = torch.Generator(device=dev).manual_seed(n * 100 + m)
-    A = torch.rand((m, n), generator=g, device=dev) * 99.0 + 1.0
-    b = torch.rand((m,), generator=g, device=dev) * 99.0 + 1.0
-    tab = build_phase1(A, b, n, m, opts)
-    del A
-    costs0 = tab.costs
-    tab = gaussian_eliminate(tab)
+    tab, costs0 = northstar_tableau(opts)
     gb = tab.Tt.numel() * 4 / 1e9
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -805,9 +1259,15 @@ def main() -> int:
 
     records: dict = {}
     launches = {name: 0 for name in KERNELS}
+    pivot_launches = {name: 0 for name in PIVOT_KERNELS}
     batch_launches = {name: 0 for name in BATCH_KERNELS}
     try:
-        phase_goldens()
+        phase_goldens({}, "default options, f64")
+        phase_goldens(PROD, "production options")
+        phase_reference_f64()
+        phase_pallas_seq(pivot_launches)
+        phase_blocked_plain()
+        phase_cli()
         phase_r1024()
         phase_flagship(launches)
         phase_northstar()
@@ -820,6 +1280,7 @@ def main() -> int:
                     f"{name} never launched on the batched path")
         phase_batch("wide lanes", WIDE)
         phase_kernels(records)
+        phase_pivot_kernel(records)
         phase_batch_kernels(records)
         phase_batch_trace()
     except SmokeFailure as e:
@@ -827,17 +1288,18 @@ def main() -> int:
         return 1
 
     kernels = []
-    for table, source, counts in ((KERNELS, SOURCE, launches),
-                                  (BATCH_KERNELS, BATCH_SOURCE,
-                                   batch_launches)):
-        for name, (kid, replaces) in table.items():
-            rec = records.get(name, {})
+    for table, counts in ((KERNELS, launches), (PIVOT_KERNELS, pivot_launches),
+                          (BATCH_KERNELS, batch_launches)):
+        for name, (kid, replaces, source) in table.items():
+            rec = records[name]
             kernels.append({"name": f"{kid} {name}", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": counts[name],
-                            "max_abs_err": rec.get("max_abs_err"),
-                            "ms": rec.get("ms"),
-                            "plain_ms": rec.get("plain_ms")})
+                            "max_abs_err": rec["max_abs_err"],
+                            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                            "bound_ms": rec["bound_ms"],
+                            "bound_by": rec["bound_by"],
+                            "library_ms": rec["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     # count: the one card this script drives.

@@ -8,22 +8,37 @@ reference. This package imports ``torch`` and neither ``jax`` nor
 
     from simplex_tpu_torch import read_problem, solve, Status
     p = read_problem("data/examples/smallProblem.txt")
+    r = solve(p)                      # f64 tableau, the reference loop
     r = solve(p, dtype="float32", vector_dtype="float64", block_pivots=128)
 
-``solve`` and ``solve_batch`` (many LPs of one shape in one call) run on
-the device they are given (``device="cuda"`` by default, which raises
-where CUDA is absent; ``device="cpu"`` runs the kernels' plain PyTorch
-versions). Only configurations that resolve to the blocked-kernel loop
-(``solve``) or the batched kernels (``solve_batch``) are ported; the
-others raise ``NotImplementedError`` naming the ROADMAP item that will
-port them.
+What is ported: ``solve`` with every option set of the JAX ``solve`` but
+``equilibrate`` -- the sequential reference loop (f64 by default; over
+the fused pivot kernel K6 with ``use_pallas=True`` on a pure-f32
+tableau, ``dtype`` and ``vector_dtype`` both float32), the plain
+deferred block-pivot loop, and the blocked-kernel loop over K1-K4, with
+f64 refinement and reinversion restarts in the mixed mode; ``solve_batch`` on the batched kernels K7-K10;
+``solve_timed`` with the reference's per-operation CSV (``chrono``); the
+CLI, ``python -m simplex_tpu_torch.cli``; the problem files, the seeded
+generator and the host refinement ``refine_solution_host``. Not yet:
+``solve_sharded``, ``solve_resumable``, ``solve_oracle``, the f64
+finishing tiers and ``equilibrate`` (they raise ``NotImplementedError``
+naming their ROADMAP item where an option selects them).
+
+Every entry point runs on the device it is given (``device="cuda"`` by
+default, which raises where CUDA is absent; ``device="cpu"`` runs the
+kernels' plain PyTorch versions).
 """
 
 from .batch import solve_batched  # noqa: F401
 from .config import EPS, SolverOptions, Status  # noqa: F401
-from .generator import generate_random_problem  # noqa: F401
-from .problem import Problem, read_problem, read_random_problem  # noqa: F401
+from .generator import (benchmark_seed, benchmark_sizes,  # noqa: F401
+                        generate_random_problem)
+from .problem import (Problem, format_problem, read_problem,  # noqa: F401
+                      read_random_problem, read_seed_file, write_problem,
+                      write_seed_file)
+from .refine import refine_solution_host  # noqa: F401
 from .result import SolveResult  # noqa: F401
+from .timed import solve_timed  # noqa: F401
 from .two_phase import solve  # noqa: F401
 
 #: Alias with the JAX package's public name.

@@ -75,8 +75,8 @@ def check_batch_supported(options: SolverOptions, kernel, mesh) -> None:
                          "kernels with device='cpu'")
     if kernel is False:
         raise NotImplementedError(
-            "kernel=False: the vmapped-XLA fallback needs the f64 and XLA "
-            "loops, ROADMAP queue 1 items 2 and 3")
+            "kernel=False: the batched fallback (the vmapped-XLA lanes) "
+            "is ROADMAP queue 1 item 7")
     if kernel not in ("auto", True):
         raise ValueError(f"kernel must be 'auto', True or False, "
                          f"got {kernel!r}")
@@ -89,13 +89,13 @@ def check_batch_supported(options: SolverOptions, kernel, mesh) -> None:
             options.use_pallas == "auto" or bool(options.use_pallas)):
         raise NotImplementedError(
             "the batched kernel takes f32 blocked configurations; the "
-            "vmapped-XLA fallback for the others needs the f64 and XLA "
-            "loops, ROADMAP queue 1 items 2 and 3")
+            "batched fallback for the others (the vmapped-XLA lanes) is "
+            "ROADMAP queue 1 item 7")
     if options.batch_block_pivots is None and L % 8:
         raise NotImplementedError(
             f"block_pivots={L} (not a multiple of 8, no batch_block_pivots) "
-            "goes to the vmapped-XLA fallback: ROADMAP queue 1 items 2 "
-            "and 3")
+            "goes to the batched fallback (the vmapped-XLA lanes): "
+            "ROADMAP queue 1 item 7")
 
 
 # ---------------------------------------------------------------------------

@@ -116,6 +116,9 @@ SIGNATURES = {
     # Tt F C B M R L nlive do_r cf part mv stream
     "batch_apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _P],
+    # csrc/pivot.cu: Tt costs colk ah p minc k do, M R r eps, four
+    # partials, four candidates, stream
+    "fused_pivot_launch": [_P] * 8 + [_I, _I, _I, _F] + [_P] * 9,
 }
 
 

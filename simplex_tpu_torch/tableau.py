@@ -122,8 +122,11 @@ def phase2_reset(tab: Tableau, c: torch.Tensor) -> Tableau:
     The artificial variables leave the active set through ``r = n + m``
     while the phase-1 allocation stays: trimming the variable axis of
     ``Tt`` would be a strided copy of the whole tableau. The JAX package
-    does the same above 2 GB (``two_phase.py:182-184``); the artificial
-    columns cost 2m/(n+2m) of the phase-2 window apply."""
+    does the same above 2 GB (``two_phase.py:182-184``); the m artificial
+    columns cost m/(n+2m) of every phase-2 pass over the tableau: the
+    window apply of the blocked loops, and the rank-1 update of the
+    sequential loops (one third of it at n = m), which the JAX package
+    pays only above 2 GB."""
     n, m = tab.n, tab.m
     costs = torch.zeros_like(tab.costs)
     costs[:n] = -c.to(costs.dtype)
@@ -144,6 +147,48 @@ def phase1_objective(tab: Tableau) -> torch.Tensor:
     the basic artificials (drift-immune, unlike the running z)."""
     is_art = (tab.base >= tab.n + tab.m) & (tab.base < tab.n + 2 * tab.m)
     return -torch.where(is_art, tab.b, torch.zeros_like(tab.b)).sum()
+
+
+def format_tableau(tab: Tableau, max_rows: int = 32,
+                   max_cols: int = 16) -> str:
+    """Debug rendering of the tableau (``simplex_tpu.tableau.
+    format_tableau``, the reference's ``printTableauToStream``): the cost
+    row with the objective, then one line per variable with its
+    constraint coefficients (a column of ``Tt``), then b and the base.
+    Large tableaus elide middle rows and columns."""
+    import io
+
+    out = io.StringIO()
+    T = tab.Tt[:tab.m, :tab.r].t().cpu().numpy()
+    costs = tab.costs[:tab.r].cpu().numpy()
+    b = tab.b[:tab.m].cpu().numpy()
+    base = tab.base[:tab.m].cpu().numpy()
+
+    def fmt_row(label, vals):
+        shown = vals if len(vals) <= max_cols else np.concatenate(
+            [vals[:max_cols // 2], vals[-max_cols // 2:]])
+        ellip = " ... " if len(vals) > max_cols else " "
+        cells = ellip.join(" ".join(f"{v:10.4f}" for v in half)
+                           for half in (np.array_split(shown, 2)
+                                        if len(vals) > max_cols
+                                        else [shown]))
+        out.write(f"{label:>8s} | {cells}\n")
+
+    out.write(f"Tableau {tab.r} vars x {tab.m} constraints "
+              f"(z = {float(tab.z):.6f})\n")
+    fmt_row("costs", costs[:max_rows])
+    rows = range(tab.r) if tab.r <= max_rows else (
+        list(range(max_rows // 2))
+        + list(range(tab.r - max_rows // 2, tab.r)))
+    last = -1
+    for i in rows:
+        if i != last + 1:
+            out.write("     ...\n")
+        fmt_row(f"x{i}", T[i])
+        last = i
+    fmt_row("b", b)
+    out.write("    base | " + " ".join(str(v) for v in base) + "\n")
+    return out.getvalue()
 
 
 def count_basic_artificials(tab: Tableau) -> int:

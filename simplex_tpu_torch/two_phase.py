@@ -1,18 +1,20 @@
 """Two-phase simplex orchestration and the public ``solve``.
 
-Port of ``simplex_tpu.two_phase`` for the configurations that resolve to
-the blocked-kernel loop: phase-1 build, Gaussian elimination, the loop,
-the infeasibility and degeneracy checks, pivoting artificials out of a
-degenerate basis, phase 2, extraction, the status resolution with its
-NUMERIC guards, f64 refinement with its LU retry, and up to two
+Port of ``simplex_tpu.two_phase``: phase-1 build, Gaussian elimination,
+the loop ``run_solve_loop`` picks (the sequential reference loop, its K6
+variant, or a deferred block-pivot loop), the infeasibility and
+degeneracy checks, pivoting artificials out of a degenerate basis, phase
+2, extraction, the status resolution with its NUMERIC guards, and, in
+the mixed mode, f64 refinement with its LU retry and up to two
 reinversion-restart rounds. The host finishing tiers that follow in the
 JAX package (``finish.finish_from_basis``, the checkpointed f64
-``fallback_solve``) are ROADMAP queue 1 item 6: when both restart rounds
-fail to certify, ``solve`` raises ``NotImplementedError``.
+``fallback_solve``) and ``equilibrate`` are ROADMAP queue 1 item 6: when
+both restart rounds fail to certify, ``solve`` raises
+``NotImplementedError``.
 
-The statuses are host values here: the loop syncs once per window
-anyway, so phase 2 is skipped when phase 1 already decided the outcome
-(the JAX core runs it on the device and masks it out).
+The statuses are host values here: the loops sync once per chunk or
+window anyway, so phase 2 is skipped when phase 1 already decided the
+outcome (the JAX core runs it on the device and masks it out).
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import (DEFAULT_OPTIONS, SolverOptions, Status,
-                     kernel_blocked_enabled, refine_enabled)
+from .config import DEFAULT_OPTIONS, SolverOptions, Status, refine_enabled
 from .problem import Problem
 from .result import SolveResult
 from .solver import pivot_update, run_solve_loop
@@ -196,27 +197,48 @@ def refine_result(problem: Problem, base, options: SolverOptions,
     return ro.x.cpu().numpy(), float(ro.objective), info, ro
 
 
+def certify(problem: Problem, base, binv, objective: float,
+            options: SolverOptions, A_dev, b_dev, c_dev):
+    """The mixed mode's tiers for one OPTIMAL result: f64 refinement of
+    the final basis (``refine_result``), then up to two
+    reinversion-restart rounds from the final slack block ``binv``.
+    Returns ``(x, objective, RefineInfo, extra phase-2 pivots)``; raises
+    ``NotImplementedError`` when no round certifies (the host finishing
+    tiers are ROADMAP queue 1 item 6)."""
+    from .reinvert import restart_device
+
+    m, n = problem.constraints, problem.vars
+    rx, robj, info, ro = refine_result(problem, base, options, A_dev, b_dev,
+                                       c_dev, raw_objective=objective,
+                                       binv=binv)
+    extra = 0
+    for _ in range(2 if rx is None else 0):
+        out2, binv, _ = restart_device(A_dev, b_dev, c_dev, base, binv,
+                                       ro.xB, n, m, options)
+        if out2.status != Status.OPTIMAL:
+            break
+        extra += out2.iterations_phase2
+        base = out2.base
+        rx, robj, info, ro = refine_result(
+            problem, base, options, A_dev, b_dev, c_dev,
+            raw_objective=out2.objective, binv=binv)
+        if rx is not None:
+            info = info._replace(method="restart")
+            break
+    if rx is None:
+        raise NotImplementedError(
+            "refinement did not certify after two reinversion rounds; "
+            "the host finishing tiers (finish_from_basis, "
+            "fallback_solve) are ROADMAP queue 1 item 6")
+    return rx, robj, info, extra
+
+
 def check_supported(options: SolverOptions) -> None:
-    """Raise ``NotImplementedError`` for configurations that do not
-    resolve to the blocked-kernel loop, naming the ROADMAP item that
-    ports them."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    ``equilibrate`` (scaling.py, ROADMAP queue 1 item 6)."""
     if options.equilibrate:
         raise NotImplementedError(
             "equilibrate=True: scaling.py is ROADMAP queue 1 item 6")
-    if kernel_blocked_enabled(options):
-        return
-    L = int(options.block_pivots or 1)
-    if np.dtype(options.dtype).itemsize != 4:
-        raise NotImplementedError(
-            "f64 tableau: the f64 loops are ROADMAP queue 1 items 2 and 3")
-    if L <= 1:
-        raise NotImplementedError(
-            "block_pivots <= 1: the sequential loop is ROADMAP queue 1 "
-            "item 2 (its Pallas kernel, use_pallas=True, is queue 2 K6)")
-    raise NotImplementedError(
-        f"block_pivots={L} with use_pallas={options.use_pallas!r}: the XLA "
-        "blocked loop is ROADMAP queue 1 item 3 (the kernel loop needs a "
-        "multiple of 8)")
 
 
 def resolve_device(device) -> torch.device:
@@ -235,13 +257,13 @@ def solve(problem: Problem, options: SolverOptions | None = None, *,
           device="cuda", **replacements) -> SolveResult:
     """Solve a dense LP ``max c x s.t. A x <= b, x >= 0`` on ``device``.
 
-    ``replacements`` override SolverOptions fields, e.g. the production
-    call ``solve(p, dtype="float32", vector_dtype="float64",
-    block_pivots=128)``. In that mixed mode every OPTIMAL result is
-    refined in f64 and certified; a result that does not certify gets up
-    to two reinversion-restart rounds."""
-    from .reinvert import restart_device
-
+    ``replacements`` override SolverOptions fields. The defaults are the
+    reference-parity mode: an f64 tableau, eps 1e-9, Dantzig pricing and
+    the sequential loop. The production call is ``solve(p,
+    dtype="float32", vector_dtype="float64", block_pivots=128)``; in
+    that mixed mode every OPTIMAL result is refined in f64 and
+    certified, and a result that does not certify gets up to two
+    reinversion-restart rounds (``certify``)."""
     options = options or DEFAULT_OPTIONS
     if replacements:
         options = dataclasses.replace(options, **replacements)
@@ -259,30 +281,9 @@ def solve(problem: Problem, options: SolverOptions | None = None, *,
     refine_info = None
     extra_pivots = 0
     if status == Status.OPTIMAL and refine_enabled(options):
-        rx, robj, refine_info, ro = refine_result(
-            problem, out.base, options, A_dev, b_dev, c_dev,
-            raw_objective=objective, binv=binv)
-        base_cur, binv_cur = out.base, binv
-        for _ in range(2 if rx is None else 0):
-            out2, binv_cur, _ = restart_device(
-                A_dev, b_dev, c_dev, base_cur, binv_cur, ro.xB, n, m,
-                options)
-            if out2.status != Status.OPTIMAL:
-                break
-            extra_pivots += out2.iterations_phase2
-            base_cur = out2.base
-            rx, robj, refine_info, ro = refine_result(
-                problem, base_cur, options, A_dev, b_dev, c_dev,
-                raw_objective=out2.objective, binv=binv_cur)
-            if rx is not None:
-                refine_info = refine_info._replace(method="restart")
-                break
-        if rx is None:
-            raise NotImplementedError(
-                "refinement did not certify after two reinversion rounds; "
-                "the host finishing tiers (finish_from_basis, "
-                "fallback_solve) are ROADMAP queue 1 item 6")
-        x, objective = rx, robj
+        x, objective, refine_info, extra_pivots = certify(
+            problem, out.base, binv, objective, options, A_dev, b_dev,
+            c_dev)
 
     return SolveResult(
         status=status,

@@ -18,6 +18,7 @@ import torch
 import simplex_tpu_torch as pst
 from simplex_tpu_torch.kernels import batched as kbt
 from simplex_tpu_torch.kernels import blocked as kb
+from simplex_tpu_torch.kernels import pivot as kp
 from simplex_tpu_torch.tableau import batch_tt_matvec, tt_matvec
 
 pytestmark = pytest.mark.gpu
@@ -211,3 +212,54 @@ def test_solve_on_card_matches_cpu(cuda):
     assert got.status == want.status == pst.Status.OPTIMAL
     assert got.refine.certified
     assert got.objective == pytest.approx(want.objective, rel=1e-9)
+
+
+@pytest.mark.parametrize("do", [True, False], ids=["pivot", "identity"])
+def test_fused_pivot_matches_plain_on_card(cuda, do):
+    """K6 at a mid shape (R not a multiple of the 1,024-column tile): the
+    tableau and costs equal to the plain version's bit for bit (the same
+    two roundings per element, pinned with _rn), the candidates equal;
+    with do false nothing changes."""
+    M, R, r, eps = 384, 2056, 2000, 1e-4
+    Tt = _rand((M, R), 21).to(cuda)
+    costs = _rand((R,), 22).to(cuda)
+    k = torch.tensor(77, dtype=torch.int32, device=cuda)
+    h = 1234
+    colk, a_h = Tt[77].clone(), Tt[:, h].clone()
+    p, minc = a_h[77].clone(), costs[h].clone()
+    flag = torch.tensor(do, device=cuda)
+    outs = []
+    for fn in (kp.fused_pivot, kp.fused_pivot_plain):
+        T2, c2 = Tt.clone(), costs.clone()
+        cand = fn(T2, c2, colk, a_h, p, minc, k, r, eps, flag)
+        outs.append((T2, c2, cand))
+    (Tk, ck, cand_k), (Tp, cp, cand_p) = outs
+    assert torch.equal(Tk, Tp) and torch.equal(ck, cp)
+    for a, b in zip(cand_k, cand_p):
+        assert torch.equal(a, b)
+    if not do:
+        assert torch.equal(Tk, Tt) and torch.equal(ck, costs)
+
+
+def test_default_solve_on_card_matches_cpu(cuda):
+    """f64, the sequential loop: random_256_256 walks 473 + 17 pivots on
+    the card as on the CPU (and in the JAX package); objectives within
+    1e-12 (the card's rank-1 update rounds once, as an FMA)."""
+    p = pst.read_random_problem(DATA / "benchmark_problems"
+                                / "random_256_256.txt")
+    got = pst.solve(p, device="cuda")
+    want = pst.solve(p, device="cpu")
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert (got.iterations_phase1, got.iterations_phase2) == (473, 17)
+    assert got.objective == pytest.approx(want.objective, rel=1e-12)
+
+
+def test_pallas_solve_on_card_launches_k6(cuda):
+    p = pst.generate_random_problem(128, 64, 2, 1, 100)
+    kp.reset_launches()
+    got = pst.solve(p, device="cuda", dtype=np.float32,
+                    vector_dtype=np.float32, use_pallas=True)
+    assert kp.LAUNCHES["fused_pivot"] > 0
+    want = pst.solve(p, device="cpu", dtype=np.float64)
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert got.objective == pytest.approx(want.objective, rel=1e-3)

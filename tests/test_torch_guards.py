@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports no JAX, its device is explicit,
-configurations it does not port yet raise, and the CPU path never
-counts a kernel launch."""
+configurations it does not port yet raise (the ones ported since solve
+and match the JAX package), and the CPU path never counts a kernel
+launch."""
 
 import subprocess
 import sys
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import simplex_tpu as jst
 import simplex_tpu_torch as pst
 from simplex_tpu_torch.kernels import _build
 from simplex_tpu_torch.kernels import blocked as kb
@@ -27,6 +29,11 @@ def test_port_never_imports_jax():
         "import simplex_tpu_torch as st\n"
         "import simplex_tpu_torch.reinvert, simplex_tpu_torch.refine\n"
         "import simplex_tpu_torch.kernels._build\n"
+        "import simplex_tpu_torch.cli, simplex_tpu_torch.timed\n"
+        "import simplex_tpu_torch.chrono, simplex_tpu_torch.kernels.pivot\n"
+        "r = st.solve(st.read_problem('data/examples/smallProblem.txt'),\n"
+        "             device='cpu')\n"
+        "assert r.status == st.Status.OPTIMAL and r.objective == 64.0\n"
         "r = st.solve(st.read_problem('data/examples/smallProblem.txt'),\n"
         "             device='cpu', dtype='float32', vector_dtype='float64',\n"
         "             block_pivots=128)\n"
@@ -59,19 +66,35 @@ def test_unknown_device_raises():
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(), "items 2 and 3"),                                # f64 default
-    (dict(dtype=np.float64, block_pivots=128), "items 2 and 3"),
-    (dict(dtype=np.float32, vector_dtype=np.float64), "item 2"),
-    (dict(dtype=np.float32, use_pallas=True), "K6"),
-    (dict(PROD, block_pivots=12), "item 3"),
-    (dict(PROD, use_pallas=False), "item 3"),
+    (dict(), None),                                           # f64 default
+    (dict(dtype=np.float64, block_pivots=128), None),
+    (dict(dtype=np.float32, vector_dtype=np.float64), None),
+    (dict(dtype=np.float32, vector_dtype=np.float32, use_pallas=True),
+     None),
+    (dict(PROD, block_pivots=12), None),
+    (dict(PROD, use_pallas=False), None),
     (dict(PROD, equilibrate=True), "item 6"),
 ], ids=["f64-default", "f64-blocked", "f32-sequential", "pallas-sequential",
         "L-not-multiple-of-8", "kernels-off", "equilibrate"])
 def test_unported_configurations_raise(opts, item):
+    """Every option set of the JAX ``solve`` but ``equilibrate`` is
+    ported: those cases (they raised until the sequential and plain
+    blocked loops landed) solve on the CPU and match the JAX result --
+    status and pivot counts, the objective within 1e-12 (within 1e-9
+    after the mixed modes' refinement). ``equilibrate`` still raises,
+    naming its ROADMAP item."""
     p = pst.read_problem(DATA / "smallProblem.txt")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        pst.solve(p, device="cpu", **opts)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            pst.solve(p, device="cpu", **opts)
+        return
+    got, want = pst.solve(p, device="cpu", **opts), jst.solve(p, **opts)
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert (got.iterations_phase1, got.iterations_phase2) == \
+        (want.iterations_phase1, want.iterations_phase2)
+    rel = 1e-9 if got.refine is not None else 1e-12
+    assert got.objective == pytest.approx(want.objective, rel=rel)
+    assert got.objective == pytest.approx(64.0, rel=rel)
 
 
 def test_production_call_resolves_like_jax():
@@ -108,7 +131,7 @@ def test_library_name_follows_the_sources():
     assert _build.source_digest() == _build.source_digest()
     assert len(_build.source_digest()) == 16
     assert [s.name for s in _build._sources()] == ["batched.cu",
-                                                    "blocked.cu"]
+                                                    "blocked.cu", "pivot.cu"]
 
 
 BATCH = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=8,
@@ -122,10 +145,10 @@ def _batch(k=2):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(mesh=object()), NotImplementedError, "ROADMAP queue 1 item 8"),
-    (dict(kernel=False), NotImplementedError, "items 2 and 3"),
-    (dict(dtype=np.float64), NotImplementedError, "items 2 and 3"),
-    (dict(block_pivots=1), NotImplementedError, "items 2 and 3"),
-    (dict(block_pivots=12), NotImplementedError, "items 2 and 3"),
+    (dict(kernel=False), NotImplementedError, "ROADMAP queue 1 item 7"),
+    (dict(dtype=np.float64), NotImplementedError, "ROADMAP queue 1 item 7"),
+    (dict(block_pivots=1), NotImplementedError, "ROADMAP queue 1 item 7"),
+    (dict(block_pivots=12), NotImplementedError, "ROADMAP queue 1 item 7"),
     (dict(kernel="interpret"), ValueError, "device='cpu'"),
 ], ids=["mesh", "kernel-false", "f64", "sequential", "L-not-multiple-of-8",
         "interpret"])
