@@ -36,6 +36,13 @@ Phases, in order; any failed check exits non-zero:
    solve must walk the same pivots);
 9. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
    pivots (2 windows);
+9a. the sharded path (``solve_sharded``) at world size 1 over NCCL, in
+   this process: random_1024_1024 with the default options (the walk of
+   ``solve``), random_2048_2048 and the flagship with the production
+   options -- the flagship certified within 1e-9, walking as ``solve``
+   did, with the launch counters reset just before it and read just
+   after (K5, K2-K4 launched, K1 not) -- then the north-star phase-1
+   slice for 256 pivots, ending with phase 9's z and basis;
 10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
    config 3's options: f32 tableau, f64 vectors, eps 1e-5, L=32, devex):
    the status spread (OPTIMAL 13, UNBOUNDED, INFEASIBLE); config 3 at
@@ -45,13 +52,24 @@ Phases, in order; any failed check exits non-zero:
    path, with the K7-K10 launch counters reset just before its first
    call and read just after; then a warm call; then 32 x (m=500,
    n=14,000) lanes from seeds 2000..2031 (the TPU's HBM-tier shape);
+10a. two spawned ranks on the one card over gloo: random_2048_2048 in
+   production, the walk and certified objective of phase 9a's one rank;
+   the fleet of config 3's first 64 lanes, 32 a rank, bit for bit as
+   ``solve_batch`` on one device, K7-K10's counters set to 0 on each rank
+   just before the fleet's call and read just after (each launched);
+10b. where the host shows N > 1 cards: N ranks over NCCL, one card a
+   rank -- random_2048_2048 and the flagship in production, twice each,
+   certified; config 3's 256 lanes as a fleet, checked as in 10a;
 11. each kernel against its plain PyTorch version on the card: K1-K4 at
    the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K2
-   under devex and Dantzig), K6 at the 8192^2 and the north-star f32
-   shapes, then the batched kernels at config 3's shapes (B=256, M=512,
-   R=3072, L=32) and the wide ones (B=32, R=15104), under devex and
-   Dantzig, with a frozen lane and a lane that hits its fuse
-   mid-window; all timed on the device by torch.profiler, beside each
+   under devex and Dantzig) with K5 (its column K1's bit for bit) and
+   K11 (K3's mv with zero etas bit for bit), K6 at the 8192^2 and the
+   north-star f32 shapes, then the batched kernels at config 3's shapes
+   (B=256, M=512, R=3072, L=32) and the wide ones (B=32, R=15104), under
+   devex and Dantzig, with a frozen lane and a lane that hits its fuse
+   mid-window, and K12 at config 3's shapes (``batch_apply_reprice``'s
+   fold with no live eta bit for bit); all timed on the device by
+   torch.profiler, beside each
    kernel's bound and, where one PyTorch call computes the same
    function, that call's time; then one config-3 batch traced (device
    time by kernel, the device's busy share). These run last so that no
@@ -63,7 +81,9 @@ operations over the peak rate of their type: 67 TFLOP/s for f32 outside
 the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
-kernels' records, and ``{"ok": true, "device": {...}}``. Without CUDA, or
+kernels' records (K1-K12; K11 and K12 are on no path, in the port as in
+the JAX package, so their launches are 0), and ``{"ok": true, "device":
+{...}}``. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
 """
@@ -98,7 +118,12 @@ KERNELS = {
     "colk_costs": ("K2", "simplex_tpu/kernels/blocked.py:410", SOURCE),
     "apply_reprice": ("K3", "simplex_tpu/kernels/blocked.py:832", SOURCE),
     "apply_window": ("K4", "simplex_tpu/kernels/blocked.py:694", SOURCE),
+    "ah": ("K5", "simplex_tpu/kernels/blocked.py:1300", SOURCE),
+    "reprice": ("K11", "simplex_tpu/kernels/blocked.py:976", SOURCE),
 }
+#: The kernels of the single-card production path, and of the sharded one.
+SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window")
+SHARDED_PATH = ("ah", "colk_costs", "apply_reprice", "apply_window")
 PIVOT_KERNELS = {
     "fused_pivot": ("K6", "simplex_tpu/kernels/pivot.py:126",
                     "simplex_tpu_torch/kernels/csrc/pivot.cu"),
@@ -131,7 +156,17 @@ BATCH_KERNELS = {
                             BATCH_SOURCE),
     "batch_apply": ("K10", "simplex_tpu/kernels/batched_hbm.py:281",
                     BATCH_SOURCE),
+    "batch_reprice": ("K12", "simplex_tpu/kernels/batched.py:669",
+                      BATCH_SOURCE),
 }
+#: The kernels of the batched path (K12 is on none, as in the JAX package).
+BATCH_PATH = ("batch_window", "batch_apply_reprice", "batch_apply")
+#: The kernels line's order.
+ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
+         "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
+         "reprice", "batch_reprice")
+#: Config 3's lanes of the two-rank fleet.
+FLEET_LANES = 64
 #: (label, (B, M, R, L)) of the batched kernels' check.
 BATCH_KERNEL_SHAPES = (("config-3", (256, 512, 3072, 32)),
                        ("wide", (32, 512, 15104, 32)))
@@ -287,11 +322,27 @@ def phase_kernels(records: dict) -> None:
         # p and bk are the kernel's own a_h[k] and b[k], exactly.
         equal(f"K1 p t={t}", got[2], got[0][got[1].long()])
         equal(f"K1 bk t={t}", got[3], b[got[1].long()])
+        # ---- K5: K1's column code, so K1's column bit for bit ----
+        got5 = kb.ah(Tt, F, C, h, t)
+        equal(f"K5 a_h t={t} vs K1's", got5, got[0])
+        want5 = kb.ah_plain(Tt, F, C, h, t)
+        errs["ah"] = max(errs["ah"], close(
+            f"K5 a_h t={t}", got5, want5, 1e-5 * (1 + want5.abs())))
         if t == 37:
             times["ah_ratio"] = [
                 device_ms(lambda: kb.ah_ratio(Tt, F, C, b, h, t, eps), 50),
                 device_ms(lambda: kb.ah_ratio_plain(Tt, F, C, b, h, t, eps),
                         50)]
+            times["ah"] = [device_ms(lambda: kb.ah(Tt, F, C, h, t), 50),
+                           device_ms(lambda: kb.ah_plain(Tt, F, C, h, t), 50)]
+            # K5's library call: one addmv on views of the column and of
+            # the live eta rows.
+            hi = int(h)
+            lib5 = functools.partial(torch.addmv, Tt[:, hi], F[:t].t(),
+                                     C[:t, hi], alpha=-1.0)
+            close("K5 a_h vs addmv", got5, lib5(),
+                  1e-5 * (1 + want5.abs()))
+            library_ah = device_ms(lib5, 50)
         # ---- K2 (devex and Dantzig) ----
         ah, k, p, bk = got[0], got[1], got[2], got[3]
         u = torch.tensor(-0.5, dtype=torch.float64, device=dev) / p.double()
@@ -367,6 +418,21 @@ def phase_kernels(records: dict) -> None:
             kb.apply_window_plain(Tp, C, F)
             errs["apply_window"] = close("K4 Tt", Tk, Tp, tol_T)
             del Tk, Tp
+            # ---- K11: coeffs @ Tt in f64, K3's fold without the apply --
+            mv11 = kb.reprice(Tt, coeffs)
+            errs["reprice"] = close(
+                "K11 mv", mv11, kb.reprice_plain(Tt, coeffs),
+                1e-12 * tt_matvec(Tt.abs(), coeffs.abs()))
+            zero = (torch.zeros((8, R), device=dev),
+                    torch.zeros((8, M), device=dev))
+            T0 = Tt.clone()
+            equal("K11 mv vs K3's with zero etas", mv11,
+                  kb.apply_reprice(T0, *zero, coeffs))
+            del T0
+            times["reprice"] = [
+                device_ms(lambda: kb.reprice(Tt, coeffs), 10),
+                device_ms(lambda: kb.reprice_plain(Tt, coeffs), 5)]
+            library_reprice = device_ms(lambda: coeffs @ Tt.double(), 5)
             T2 = Tt.clone()
             times["apply_reprice"] = [
                 device_ms(lambda: kb.apply_reprice(T2, C, F, coeffs), 5),
@@ -389,10 +455,16 @@ def phase_kernels(records: dict) -> None:
         "apply_reprice": bound(8 * M * R + 4 * L * (M + R) + 8 * (M + R),
                                2 * L * M * R, 2 * M * R),
         "apply_window": bound(8 * M * R + 4 * L * (M + R), 2 * L * M * R),
+        # K5: the column h, t live F rows and t values of C, the output.
+        "ah": bound(4 * M + 4 * t * M + 4 * t + 4 + 4 * M, 2 * t * M),
+        "reprice": bound(4 * M * R + 8 * M + 8 * R, 0, 2 * M * R),
     }
     # K4's plain version is one PyTorch call (cuBLAS addmm_): its time is
-    # also the library's. K1-K3 have no single call that computes them.
-    library = {"apply_window": times["apply_window"][1]}
+    # also the library's. K5's is ``torch.addmv`` (above), K11's
+    # ``coeffs @ Tt.double()``, the cast included. K1-K3 have no single
+    # call that computes them.
+    library = {"apply_window": times["apply_window"][1],
+               "ah": library_ah, "reprice": library_reprice}
     for name, (kid, _, _) in KERNELS.items():
         ms, plain_ms = times[name]
         bound_ms, by = bounds[name]
@@ -497,7 +569,7 @@ def phase_batch_kernels(records: dict) -> None:
     from simplex_tpu_torch.tableau import batch_tt_matvec
 
     g = torch.Generator(device="cuda").manual_seed(20261017)
-    errs = {name: 0.0 for name in BATCH_KERNELS}
+    errs = {name: 0.0 for name in BATCH_PATH}
     for label, (B, M, R, L) in BATCH_KERNEL_SHAPES:
         times = {}
         for devex in (True, False):
@@ -606,7 +678,8 @@ def phase_batch_kernels(records: dict) -> None:
                                          sum(2 * v * M * R for v in nls))}
             del Tk, Tt, st0, sk, sp
             torch.cuda.empty_cache()
-        for name, (kid, _, _) in BATCH_KERNELS.items():
+        for name in BATCH_PATH:
+            kid = BATCH_KERNELS[name][0]
             ms, plain_ms = times[name]
             bound_ms, by = bnds[name]
             if label == BATCH_KERNEL_SHAPES[0][0]:
@@ -622,8 +695,58 @@ def phase_batch_kernels(records: dict) -> None:
                 f"plain (max abs err so far {errs[name]:.3e}); kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({by})")
-    for name in BATCH_KERNELS:
+    for name in BATCH_PATH:
         records[name]["max_abs_err"] = errs[name]
+
+
+def phase_batch_reprice(records: dict) -> None:
+    """K12 against its plain version at config 3's shapes (B=256, M=512,
+    R=3072), lane 3 unflagged: mv to 1e-12 of sum |cf * Tt| of the f64
+    formula on the same f32 tableau (an f32 accumulation would miss by
+    ~1e-7), lane 3 zero, and equal bit for bit to ``batch_apply_reprice``
+    with no live eta row (the same fold); timed beside its bound, its
+    plain version and ``torch.bmm`` in f64 (the cast included)."""
+    import torch
+
+    from simplex_tpu_torch.kernels import batched as kbt
+    from simplex_tpu_torch.tableau import batch_tt_matvec
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20261019)
+    B, M, R = 256, 512, 3072
+    Tt = torch.rand((B * M, R), generator=g, device=dev) * 2.0 - 1.0
+    cf = torch.rand((B, M), generator=g, device=dev, dtype=torch.float64)
+    flags = torch.ones(B, dtype=torch.int32, device=dev)
+    flags[3] = 0
+    T3 = Tt.view(B, M, R)
+    mv = kbt.batch_reprice(Tt, cf, flags)
+    want = torch.where(flags[:, None] != 0, batch_tt_matvec(T3, cf), 0.0)
+    err = close("K12 mv", mv, want, 1e-12 * batch_tt_matvec(T3.abs(),
+                                                            cf.abs()))
+    require(not mv[3].any(), "K12: the unflagged lane is not zero")
+    zC = torch.zeros((B * 32, R), device=dev)
+    zF = torch.zeros((B * 32, M), device=dev)
+    nlive = torch.zeros(B, dtype=torch.int32, device=dev)
+    T0 = Tt.clone()
+    equal("K12 mv vs batch_apply_reprice's fold", mv,
+          kbt.batch_apply_reprice(T0, zC, zF, cf, flags, nlive))
+    del T0, zC, zF
+    ms = device_ms(lambda: kbt.batch_reprice(Tt, cf, flags), 10)
+    plain_ms = device_ms(lambda: kbt.batch_reprice_plain(Tt, cf, flags), 5)
+    library_ms = device_ms(lambda: torch.bmm(cf[:, None, :], T3.double()),
+                           5)
+    live = int(flags.sum())
+    bound_ms, by = bound(4 * live * M * R + 8 * B * M + 4 * B + 8 * B * R,
+                         0, 2 * live * M * R)
+    records["batch_reprice"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+    log(f"K12 batch_reprice B={B} M={M} R={R}: matches plain (max abs err "
+        f"{err:.3e}), equals batch_apply_reprice's fold; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bmm f64 {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by})")
+    del Tt, T3
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -746,7 +869,7 @@ def recorded_walks(n: int) -> tuple[str, str]:
             "+".join(str(v) for v in ref_walk))
 
 
-def phase_reference_f64() -> None:
+def phase_reference_f64() -> dict:
     """The default options (f64 tableau, eps 1e-9, Dantzig, the sequential
     loop; no refinement) on the reference's benchmarks, held to the
     certified goldens at 1e-9; random_8192_8192 twice, with the same
@@ -757,6 +880,7 @@ def phase_reference_f64() -> None:
 
     from simplex_tpu_torch.solver import SEQ_CHUNK
 
+    walks = {}
     for n, want, runs in ((1024, OBJ_1024, 1), (8192, OBJ_8192, 2)):
         p = benchmark_problem(n)
         tpu, ref = recorded_walks(n)
@@ -778,6 +902,8 @@ def phase_reference_f64() -> None:
                 f" {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the "
                 f"loop's host reads per phase {reads} (one per {SEQ_CHUNK} "
                 "pivots)")
+        walks[n] = walk
+    return walks
 
 
 def northstar_tableau(opts):
@@ -1067,7 +1193,8 @@ def phase_r1024() -> None:
         f"refine {res.refine.method} wall {wall:.3f} s")
 
 
-def phase_flagship(launches: dict) -> None:
+def phase_flagship(launches: dict) -> tuple:
+    """The production flagship; returns its walk."""
     from simplex_tpu_torch.kernels import blocked as kb
 
     p = benchmark_problem(8192)
@@ -1083,7 +1210,7 @@ def phase_flagship(launches: dict) -> None:
         f"{wall:.3f} s; {1e3 * wall / pivots:.4f} ms/pivot; launches "
         f"{launches}")
     # K4 takes the off-cadence windows (reprice_every=2), so all four run.
-    for name in KERNELS:
+    for name in SINGLE_PATH:
         require(launches[name] > 0, f"{name} never launched on the path")
     warm = []
     for i in range(1, FLAGSHIP_SOLVES):
@@ -1098,9 +1225,12 @@ def phase_flagship(launches: dict) -> None:
     log(f"flagship warm solves: {len(warm)}, wall min {min(warm):.3f} "
         f"median {median:.3f} max {max(warm):.3f} s; median "
         f"{1e3 * median / pivots:.4f} ms/pivot")
+    return walk
 
 
-def phase_northstar() -> None:
+def phase_northstar() -> tuple:
+    """The production north-star tableau for 256 pivots; returns (z,
+    base) after them."""
     import torch
 
     from simplex_tpu_torch.config import SolverOptions
@@ -1123,6 +1253,7 @@ def phase_northstar() -> None:
         f"{1e3 * wall / iters:.4f} ms/pivot; status {status}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
+    return float(tab.z), tab.base.cpu()
 
 
 def timed_batch(problems, stats: dict):
@@ -1231,6 +1362,279 @@ def phase_batch(label: str, shape, launches: dict | None = None,
             f" {wall:.3f} s)")
 
 
+def timed_sharded(problem, group, opts: dict):
+    import torch
+
+    import simplex_tpu_torch as st
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = st.solve_sharded(problem, group, device="cuda", **opts)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def time_sharded_rank(group, device, cases):
+    """A spawned rank (``parallel.group.spawn``): ``solve_sharded`` of each
+    (problem, options) in ``cases`` in turn, each with its wall seconds on
+    the host clock, the card synchronized before and after: [(result,
+    seconds)]."""
+    import torch
+
+    import simplex_tpu_torch as st
+
+    out = []
+    for p, o in cases:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = st.solve_sharded(p, group, o, device=device)
+        torch.cuda.synchronize(device)
+        out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def fleet_rank(group, device, problems, options):
+    """A spawned rank of the fleet: K7-K10's launch counters set to 0 just
+    before ``solve_batched(mesh=group)`` and read just after. Returns (the
+    results, every rank's counts in rank order)."""
+    import torch.distributed as dist
+
+    from simplex_tpu_torch.batch import solve_batched
+    from simplex_tpu_torch.kernels import batched as kbt
+
+    kbt.reset_launches()
+    res = solve_batched(problems, options, device=device, mesh=group)
+    counts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(counts, {k: kbt.LAUNCHES[k] for k in BATCH_PATH},
+                           group=group)
+    return res, counts
+
+
+def check_fleet(label: str, nranks: int, backend: str, problems) -> float:
+    """``problems`` through the fleet on ``nranks`` spawned ranks: every
+    lane OPTIMAL, certified and bit for bit as ``solve_batch`` gives it on
+    one card, every batched-path kernel launched on every rank. Returns
+    the fleet's wall seconds, the processes' start included."""
+    import numpy as np
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.parallel.group import spawn
+
+    t0 = time.perf_counter()
+    fleet, counts = spawn(fleet_rank, nranks, backend, "cuda", problems,
+                          st.SolverOptions(**BATCH))
+    wall = time.perf_counter() - t0
+    one, wall1 = timed_batch(problems, {})
+    for i, (a, b) in enumerate(zip(fleet, one)):
+        require(a.status == b.status == st.Status.OPTIMAL
+                and a.refine.certified
+                and (a.iterations_phase1, a.iterations_phase2)
+                == (b.iterations_phase1, b.iterations_phase2)
+                and a.objective == b.objective and np.array_equal(a.x, b.x),
+                f"{label} lane {i}: {a.status!r} {a.objective!r} vs one "
+                f"card's {b.status!r} {b.objective!r}")
+    for rank, c in enumerate(counts):
+        for name in BATCH_PATH:
+            require(c[name] > 0, f"{label}: {name} never launched on rank "
+                    f"{rank}")
+    log(f"{label}: {len(problems)} config-3 lanes OPTIMAL and certified, "
+        f"each bit for bit as solve_batch on one card ({wall1:.3f} s "
+        f"there); {wall:.3f} s with the processes' start; launches per "
+        f"rank {counts}")
+    return wall
+
+
+def phase_sharded_one_rank(launches: dict, walks: dict,
+                           northstar: tuple) -> dict:
+    """The sharded path at world size 1 over NCCL, in this process:
+    random_1024_1024 with the default options (the sequential sharded
+    loop; the walk of ``solve``), random_2048_2048 and the flagship with
+    the production options (the kernel loop over K5, K2, K3/K4, and the
+    restart tier on the slices), the flagship certified within 1e-9 and
+    walking as ``solve`` did in this process, with the launch counters
+    reset just before it and read just after (K5 launched, K1 not); then
+    the north-star phase-1 slice for 256 pivots, its z and basis equal to
+    the single-card loop's. Returns the 2048 result, for the two-rank
+    phase."""
+    import tempfile
+
+    import torch
+
+    from simplex_tpu_torch.config import SolverOptions
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel.sharded import (
+        build_phase1_sharded, gaussian_eliminate_sharded,
+        run_solve_loop_sharded, sharded_padded_dims)
+
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "nccl", td) as group:
+        res, wall = timed_sharded(benchmark_problem(1024), group, {})
+        w = (res.iterations_phase1, res.iterations_phase2)
+        check_objective("sharded f64 random_1024_1024", res, OBJ_1024, 1e-9)
+        require(w == walks[1024], f"sharded f64 random_1024_1024 walked "
+                f"{w}, solve {walks[1024]}")
+        log(f"sharded, 1 rank, f64 random_1024_1024: objective "
+            f"{res.objective!r}, pivots {w[0]}+{w[1]} as solve; wall "
+            f"{wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot")
+
+        r2048, wall = timed_sharded(benchmark_problem(2048), group, PROD)
+        check_certified("sharded random_2048_2048", r2048, OBJ_2048)
+        w = (r2048.iterations_phase1, r2048.iterations_phase2)
+        log(f"sharded, 1 rank, random_2048_2048: certified objective "
+            f"{r2048.objective!r}, pivots {w[0]}+{w[1]}, refine "
+            f"{r2048.refine.method}; wall {wall:.3f} s = "
+            f"{1e3 * wall / sum(w):.4f} ms/pivot")
+
+        # The host's cost of one collective at one rank: the kernel loop
+        # issues 2 all_gathers of a few scalars and 1 (M_pad,) all_reduce
+        # a pivot.
+        vals = torch.zeros(5, dtype=torch.float64, device="cuda")
+        col = torch.zeros(8192, dtype=torch.float32, device="cuda")
+        per = {}
+        for name, fn in (("all_gather", lambda: pg.all_gather(vals, group)),
+                         ("all_reduce", lambda: pg.all_reduce(col, group))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            torch.cuda.synchronize()
+            per[name] = 1e6 * (time.perf_counter() - t0) / 500
+        log(f"NCCL at 1 rank: {per['all_gather']:.1f} us per all_gather of "
+            f"5 scalars, {per['all_reduce']:.1f} us per (8192,) all_reduce "
+            "(host clock over 500 back-to-back calls)")
+
+        kb.reset_launches()
+        pg.reset_counts()
+        res, wall = timed_sharded(benchmark_problem(8192), group, PROD)
+        counts = {k: kb.LAUNCHES[k] for k in ("ah", "ah_ratio")}
+        launches.update({k: kb.LAUNCHES[k] for k in SHARDED_PATH})
+        colls = dict(pg.COUNTS)
+        check_certified("sharded random_8192_8192", res, OBJ_8192)
+        w = (res.iterations_phase1, res.iterations_phase2)
+        for name in SHARDED_PATH:
+            require(launches[name] > 0, f"{name} never launched on the "
+                    "sharded path")
+        require(counts["ah_ratio"] == 0, f"K1 launched {counts['ah_ratio']}"
+                " times on the sharded path")
+        require(w == walks[8192], f"sharded flagship walked {w}, solve "
+                f"{walks[8192]} in this process")
+        log(f"sharded, 1 rank, flagship random_8192_8192: certified "
+            f"objective {res.objective!r} (golden {OBJ_8192!r}), pivots "
+            f"{w[0]}+{w[1]} as solve, refine {res.refine.method}; wall "
+            f"{wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot; launches "
+            f"{dict(kb.LAUNCHES)}; collectives {colls}")
+
+        opts = SolverOptions(**PROD)
+        n, m = 100_000, 10_000
+        R_pad, M_pad = sharded_padded_dims(n, m, 1, opts)
+        shard = pg.Shard.of(group, R_pad)
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(n * 100 + m)
+        A = torch.rand((m, n), generator=g, device=dev) * 99.0 + 1.0
+        b = torch.rand((m,), generator=g, device=dev) * 99.0 + 1.0
+        torch.cuda.reset_peak_memory_stats()
+        tab = build_phase1_sharded(A, b, n, m, shard, opts, M_pad, dev)
+        del A
+        costs0 = tab.costs
+        tab = gaussian_eliminate_sharded(tab, shard)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab, status, iters = run_solve_loop_sharded(tab, shard, opts, 256,
+                                                    costs0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(iters == 256, f"sharded north-star: {iters} pivots")
+        z, base = northstar
+        require(float(tab.z) == z and torch.equal(tab.base.cpu(), base),
+                f"sharded north-star: z {float(tab.z)!r} vs the single-card"
+                f" loop's {z!r}, or another basis")
+        log(f"sharded, 1 rank, north-star 10000x100000 phase-1 slice "
+            f"{tuple(tab.Tt.shape)}: 256 pivots in {wall:.3f} s = "
+            f"{1e3 * wall / 256:.4f} ms/pivot, z and basis equal to the "
+            f"single-card loop's; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del tab, costs0
+    torch.cuda.empty_cache()
+    return r2048
+
+
+def phase_sharded_two_ranks(r2048) -> None:
+    """Two ranks on the one card over gloo (spawned processes; gloo moves
+    the CUDA tensors through host memory, so these times say nothing of
+    sharded speed): random_2048_2048 in production walking as at one rank
+    to the same certified objective (1e-12); then the fleet of config 3's
+    first 64 lanes, 32 a rank, every lane bit for bit as ``solve_batch``
+    gives it on one device, K7-K10 launched on each rank."""
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.parallel.group import spawn
+    from simplex_tpu_torch.parallel.sharded import solve_sharded_rank
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (two,) = spawn(solve_sharded_rank, 2, "gloo", "cuda",
+                   [(benchmark_problem(2048), st.SolverOptions(**PROD))])
+    wall = time.perf_counter() - t0
+    w1 = (r2048.iterations_phase1, r2048.iterations_phase2)
+    w2 = (two.iterations_phase1, two.iterations_phase2)
+    check_certified("two-rank random_2048_2048", two, OBJ_2048)
+    require(w2 == w1, f"two ranks walked {w2}, one rank {w1}")
+    rel = abs(two.objective - r2048.objective) / abs(r2048.objective)
+    require(rel <= 1e-12, f"two ranks: objective {two.objective!r} vs one "
+            f"rank's {r2048.objective!r}")
+    log(f"sharded, 2 gloo ranks on one card, random_2048_2048: pivots "
+        f"{w2[0]}+{w2[1]} as at one rank, certified objective "
+        f"{two.objective!r} (rel {rel:.1e}); {wall:.3f} s with the two "
+        f"processes' start")
+
+    n, m, seeds = CONFIG3
+    problems = [st.generate_random_problem(n, m, s, 1, 100)
+                for s in list(seeds)[:FLEET_LANES]]
+    check_fleet("fleet, 2 gloo ranks on one card", 2, "gloo", problems)
+
+
+def phase_sharded_cards(cards: int) -> None:
+    """The sharded path and the fleet across ``cards`` cards of one host
+    over NCCL, one card a rank (run when the host shows more than one
+    card): random_2048_2048 and the flagship in production, each solved
+    twice by the ranks (the second warm), certified within 1e-9 of the
+    golden, their walks beside ``solve``'s on one card; then config 3's
+    256 lanes split across the ranks (``check_fleet``)."""
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.parallel.group import spawn
+
+    opts = st.SolverOptions(**PROD)
+    cases = []
+    for n, gold in ((2048, OBJ_2048), (8192, OBJ_8192)):
+        single, wall = timed_solve(benchmark_problem(n))
+        check_certified(f"random_{n}_{n} on one card", single, gold)
+        cases.append((n, gold, single, wall))
+    t0 = time.perf_counter()
+    runs = spawn(time_sharded_rank, cards, "nccl", "cuda",
+                 [(benchmark_problem(n), opts) for n, _, _, _ in cases
+                  for _ in range(2)])
+    log(f"{cards} NCCL ranks: {len(runs)} sharded solves in "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    for i, (n, gold, single, wall1) in enumerate(cases):
+        w1 = (single.iterations_phase1, single.iterations_phase2)
+        for j, (res, wall) in enumerate(runs[2 * i:2 * i + 2]):
+            label = f"random_{n}_{n} on {cards} NCCL ranks, solve {j + 1}"
+            check_certified(label, res, gold)
+            w = (res.iterations_phase1, res.iterations_phase2)
+            log(f"{label}: certified objective {res.objective!r}, pivots "
+                f"{w[0]}+{w[1]} (one card, solve(): {w1[0]}+{w1[1]} in "
+                f"{wall1:.3f} s), refine {res.refine.method}; wall "
+                f"{wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot")
+
+    n, m, seeds = CONFIG3
+    problems = [st.generate_random_problem(n, m, s, 1, 100) for s in seeds]
+    check_fleet(f"fleet of config 3 on {cards} NCCL ranks", cards, "nccl",
+                problems)
+
+
 def main() -> int:
     import torch
 
@@ -1257,55 +1661,67 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: "
         f"{lib_path.name}")
 
+    cards = torch.cuda.device_count()
     records: dict = {}
-    launches = {name: 0 for name in KERNELS}
-    pivot_launches = {name: 0 for name in PIVOT_KERNELS}
-    batch_launches = {name: 0 for name in BATCH_KERNELS}
+    # Launches on each kernel's path: K1-K4 the single-card flagship, K5
+    # (and K2-K4 again) the sharded flagship, K6 the pure-f32 solve,
+    # K7-K10 config 3's first call; K11 and K12 are on no path.
+    launches = {name: 0 for name in ORDER}
+    sharded_launches: dict = {}
+    t_start = time.perf_counter()
     try:
         phase_goldens({}, "default options, f64")
         phase_goldens(PROD, "production options")
-        phase_reference_f64()
-        phase_pallas_seq(pivot_launches)
+        walks = phase_reference_f64()
+        phase_pallas_seq(launches)
         phase_blocked_plain()
         phase_cli()
         phase_r1024()
-        phase_flagship(launches)
-        phase_northstar()
+        walks[8192] = phase_flagship(launches)
+        northstar = phase_northstar()
+        r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
+        launches["ah"] = sharded_launches["ah"]
         phase_batch_spread()
+        batch_launches: dict = {}
         phase_batch("config 3", CONFIG3, batch_launches, lanes=(0, 127, 255))
         # Every kernel of the batched path ran in config 3's first call
         # (batch_apply takes the off-cadence windows where no lane ends).
-        for name in BATCH_KERNELS:
+        for name in BATCH_PATH:
             require(batch_launches[name] > 0,
                     f"{name} never launched on the batched path")
+            launches[name] = batch_launches[name]
         phase_batch("wide lanes", WIDE)
+        phase_sharded_two_ranks(r2048)
+        if cards > 1:
+            phase_sharded_cards(cards)
         phase_kernels(records)
         phase_pivot_kernel(records)
         phase_batch_kernels(records)
+        phase_batch_reprice(records)
         phase_batch_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
 
+    tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS}
     kernels = []
-    for table, counts in ((KERNELS, launches), (PIVOT_KERNELS, pivot_launches),
-                          (BATCH_KERNELS, batch_launches)):
-        for name, (kid, replaces, source) in table.items():
-            rec = records[name]
-            kernels.append({"name": f"{kid} {name}", "route": "cuda",
-                            "source": source, "replaces": replaces,
-                            "launches": counts[name],
-                            "max_abs_err": rec["max_abs_err"],
-                            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                            "bound_ms": rec["bound_ms"],
-                            "bound_by": rec["bound_by"],
-                            "library_ms": rec["library_ms"]})
+    for name in ORDER:
+        kid, replaces, source = tables[name]
+        rec = records[name]
+        kernels.append({"name": f"{kid} {name}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": launches[name],
+                        "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # count: the one card this script drives.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": cards}}))
     return 0
 
 

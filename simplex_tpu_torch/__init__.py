@@ -16,13 +16,17 @@ What is ported: ``solve`` with every option set of the JAX ``solve`` but
 the fused pivot kernel K6 with ``use_pallas=True`` on a pure-f32
 tableau, ``dtype`` and ``vector_dtype`` both float32), the plain
 deferred block-pivot loop, and the blocked-kernel loop over K1-K4, with
-f64 refinement and reinversion restarts in the mixed mode; ``solve_batch`` on the batched kernels K7-K10;
-``solve_timed`` with the reference's per-operation CSV (``chrono``); the
-CLI, ``python -m simplex_tpu_torch.cli``; the problem files, the seeded
-generator and the host refinement ``refine_solution_host``. Not yet:
-``solve_sharded``, ``solve_resumable``, ``solve_oracle``, the f64
-finishing tiers and ``equilibrate`` (they raise ``NotImplementedError``
-naming their ROADMAP item where an option selects them).
+f64 refinement and reinversion restarts in the mixed mode;
+``solve_batch`` on the batched kernels K7-K10, and with ``mesh=`` (a
+``torch.distributed`` ProcessGroup) the scenario fleet across ranks;
+``solve_sharded``, the variable axis split across the ranks of a process
+group (K5 on its kernel path); ``solve_timed`` with the reference's
+per-operation CSV (``chrono``); the CLI, ``python -m
+simplex_tpu_torch.cli``; the problem files, the seeded generator and the
+host refinement ``refine_solution_host``. Not yet: ``solve_resumable``,
+``solve_oracle``, the f64 finishing tiers and ``equilibrate`` (they
+raise ``NotImplementedError`` naming their ROADMAP item where an option
+selects them).
 
 Every entry point runs on the device it is given (``device="cuda"`` by
 default, which raises where CUDA is absent; ``device="cpu"`` runs the
@@ -36,6 +40,7 @@ from .generator import (benchmark_seed, benchmark_sizes,  # noqa: F401
 from .problem import (Problem, format_problem, read_problem,  # noqa: F401
                       read_random_problem, read_seed_file, write_problem,
                       write_seed_file)
+from .parallel.sharded import solve_sharded  # noqa: F401
 from .refine import refine_solution_host  # noqa: F401
 from .result import SolveResult  # noqa: F401
 from .timed import solve_timed  # noqa: F401

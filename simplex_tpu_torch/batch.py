@@ -15,10 +15,14 @@ between the window and the apply, and nothing per pivot.
 The JAX package has two kernel tiers (VMEM-resident lanes and HBM lanes,
 ``batch_kernel_tier``) and a vmapped-XLA fallback for the rest. On the
 card one kernel design serves both tiers, so every eligible
-configuration takes it whatever the lane size; the fallback, the
-multi-device fleet (``mesh``) and the f64 finishing solve of a lane whose
-refinement does not certify are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+configuration takes it whatever the lane size; the fallback and the f64
+finishing solve of a lane whose refinement does not certify are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+
+The scenario fleet (``mesh=``, a ``torch.distributed`` ProcessGroup)
+gives each rank a contiguous block of lanes, solved as above with no
+collective at all; the results are gathered once at the end
+(``simplex_tpu/batch.py:388-422``).
 
 Every OPTIMAL lane is refined in f64 on the host (NumPy/LAPACK against
 the lane's own f64 problem data), as ``simplex_tpu.batch._refine_lane``
@@ -67,8 +71,8 @@ def batch_window_len(options: SolverOptions) -> int:
 def check_batch_supported(options: SolverOptions, kernel, mesh) -> None:
     """Raise for what the batched path does not port yet, naming the
     ROADMAP item that will: the options ``simplex_tpu.batch.
-    batch_kernel_tier`` sends to the vmapped-XLA fallback, the fallback
-    itself, and the multi-device fleet."""
+    batch_kernel_tier`` sends to the vmapped-XLA fallback and the fallback
+    itself; and for a ``mesh`` that is not a ProcessGroup."""
     if kernel == "interpret":
         raise ValueError("kernel='interpret' is the JAX package's CPU mode; "
                          "the port runs the plain PyTorch versions of its "
@@ -81,9 +85,11 @@ def check_batch_supported(options: SolverOptions, kernel, mesh) -> None:
         raise ValueError(f"kernel must be 'auto', True or False, "
                          f"got {kernel!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the multi-device scenario fleet is ROADMAP queue 1 "
-            "item 8")
+        import torch.distributed as dist
+
+        if not isinstance(mesh, dist.ProcessGroup):
+            raise TypeError(f"mesh must be a torch.distributed "
+                            f"ProcessGroup, got {type(mesh).__name__}")
     L = int(options.block_pivots or 1)
     if L <= 1 or np.dtype(options.dtype).itemsize != 4 or not (
             options.use_pallas == "auto" or bool(options.use_pallas)):
@@ -364,14 +370,22 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     """Solve a homogeneous batch of Problems in one device call
     (``simplex_tpu.solve_batch``). All problems must share (vars,
     constraints). ``device="cuda"`` (the default) raises where CUDA is
-    absent; ``device="cpu"`` runs the kernels' plain versions. ``mesh``
-    and ``kernel=False`` are not ported yet and raise; ``kernel="auto"``
-    and ``True`` both take the batched kernels. ``stats``, a dict when
-    given, receives the windows per phase (``windows``), the final bases
-    (``bases``, (B, M_pad)) and wall seconds: of casting and moving the
-    data to the device (``prepare_s``), of the device solve up to the
-    host's copy of its results (``device_s``) and of the host refinement
-    (``refine_s``)."""
+    absent; ``device="cpu"`` runs the kernels' plain versions.
+    ``kernel=False`` is not ported yet and raises; ``kernel="auto"`` and
+    ``True`` both take the batched kernels.
+
+    ``mesh``, a ``torch.distributed`` ProcessGroup of P ranks, makes this
+    the scenario fleet: every rank calls it with the same problems, rank
+    i solves the lanes ``[i B/P, (i+1) B/P)`` on its ``device`` with no
+    collective, and every rank returns the whole list, gathered once at
+    the end. B must divide by P.
+
+    ``stats``, a dict when given, receives the windows per phase
+    (``windows``), the final bases (``bases``, (B, M_pad)) and wall
+    seconds: of casting and moving the data to the device
+    (``prepare_s``), of the device solve up to the host's copy of its
+    results (``device_s``) and of the host refinement (``refine_s``); in
+    the fleet, of the rank's own lanes."""
     options = options or DEFAULT_OPTIONS
     if replacements:
         options = dataclasses.replace(options, **replacements)
@@ -385,7 +399,34 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
             raise ValueError(
                 f"batch must be homogeneous: got {(p.vars, p.constraints)} "
                 f"vs {(n, m)}")
+    if mesh is None:
+        return _solve_lanes(problems, n, m, options, dev, stats)
 
+    import torch.distributed as dist
+
+    ranks = dist.get_world_size(mesh)
+    if len(problems) % ranks:
+        raise ValueError(f"batch size {len(problems)} must divide across "
+                         f"{ranks} devices")
+    per = len(problems) // ranks
+    rank = dist.get_rank(mesh)
+    mine = _solve_lanes(problems[rank * per:(rank + 1) * per], n, m,
+                        options, dev, stats)
+    parts = [None] * ranks
+    dist.all_gather_object(parts, mine, group=mesh)
+    return [r for part in parts for r in part]
+
+
+def solve_batched_rank(group, device, problems, options):
+    """The fleet (``solve_batched`` with ``mesh=group``) for
+    ``parallel.group.spawn``."""
+    return solve_batched(problems, options, device=device, mesh=group)
+
+
+def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
+                 stats) -> list[SolveResult]:
+    """``solve_batched``'s body for one device: the lanes' data to the
+    device, the device solve, the host refinement of each OPTIMAL lane."""
     t0 = time.perf_counter()
     # A is cast to the tableau dtype on the host, lane by lane into one
     # buffer, before the transfer: the build converts it anyway, and f32

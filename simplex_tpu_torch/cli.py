@@ -19,10 +19,13 @@ the JAX package's: ``--dtype``, ``--vector-dtype``, ``--timer`` /
 ``--per-iteration``, ``--reference-degeneracy``, ``--max-iter``,
 ``--eps``, ``--block``, ``--pivot-rule``, ``--limit``,
 ``--resume-sweep``, ``--debug`` / ``--pause``, ``--profile DIR`` (a
-``torch.profiler`` chrome trace) and ``--batch``. ``--device`` takes the
-place of ``--platform`` (default ``cuda``). ``--equilibrate``,
-``--sharded``, ``--fleet`` and ``--checkpoint`` are not ported yet: they
-exit non-zero naming their ROADMAP item.
+``torch.profiler`` chrome trace), ``--batch``, and ``--sharded NDEV`` /
+``--fleet NDEV``, which start NDEV ranks (``parallel.group.spawn``):
+NCCL with ``--device cuda``, one card per rank, gloo with ``--device
+cpu``. ``--device`` takes the place of ``--platform`` (default
+``cuda``). ``--equilibrate`` and ``--checkpoint`` (alone or with
+``--sharded``) are not ported yet: they exit non-zero naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,11 +54,8 @@ MIN, MAX = -100.0, 100.0
 #: item that ports each.
 UNPORTED = {
     "equilibrate": "--equilibrate: scaling.py is ROADMAP queue 1 item 6",
-    "sharded": "--sharded: the sharded solve is ROADMAP queue 1 item 8",
-    "fleet": "--fleet: the multi-device scenario fleet is ROADMAP queue 1 "
-             "item 8",
-    "checkpoint": "--checkpoint: the resumable solve is ROADMAP queue 1 "
-                  "item 9",
+    "checkpoint": "--checkpoint: the resumable solve (and its sharded "
+                  "variant) is ROADMAP queue 1 item 9",
 }
 
 
@@ -120,13 +120,15 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="with -r/-rs/-rf: solve B instances (seeds "
                         "seed..seed+B-1) in one batched call")
     p.add_argument("--fleet", type=int, default=None, metavar="NDEV",
-                   help="not ported yet (ROADMAP queue 1 item 8)")
+                   help="with --batch: split the B instances across NDEV "
+                        "ranks (B must divide by NDEV)")
     p.add_argument("--checkpoint", metavar="PATH", default=None,
                    help="not ported yet (ROADMAP queue 1 item 9)")
     p.add_argument("--checkpoint-every", type=int, default=1000,
                    metavar="N", help="pivots per checkpoint window")
     p.add_argument("--sharded", type=int, default=None, metavar="NDEV",
-                   help="not ported yet (ROADMAP queue 1 item 8)")
+                   help="solve on NDEV ranks, the tableau's variable axis "
+                        "split across them (torch.distributed)")
     return p
 
 
@@ -278,6 +280,26 @@ def main(argv: list[str] | None = None) -> int:
             write_seed_file(path, n, m, seed, MIN, MAX)
             print(f"Seed file saved to {path}")
 
+    if args.sharded:
+        if args.timer or args.per_iteration or args.batch > 1 or args.fleet:
+            raise SystemExit(
+                "--sharded runs one solve across ranks and is "
+                "incompatible with --timer/--per-iteration/--batch/--fleet")
+        from .parallel.group import backend_for, spawn
+        from .parallel.sharded import solve_sharded_rank
+
+        print(f"Resolving on a {args.sharded}-device 'vars' mesh....")
+        t0 = time.time()
+        (result,) = spawn(solve_sharded_rank, args.sharded,
+                          backend_for(args.device), args.device,
+                          [(problem, options)])
+        print(f"Sharded solve finished in {time.time() - t0:.3f}s")
+        _report(result, problem, args.data_dir)
+        return 0
+
+    if args.fleet and args.batch <= 1:
+        raise SystemExit("--fleet requires --batch B > 1 (it splits the "
+                         "batch across ranks)")
     if args.batch > 1:
         if args.f:
             raise SystemExit("--batch requires a seeded mode (-r/-rs/-rf)")
@@ -289,11 +311,24 @@ def main(argv: list[str] | None = None) -> int:
             lo, hi = MIN, MAX
         problems = [generate_random_problem(n, m, seed + i, lo, hi)
                     for i in range(args.batch)]
+        where = (f"across a {args.fleet}-device fleet" if args.fleet
+                 else "batched")
         print(f"Solving {args.batch} instances "
-              f"(seeds {seed}..{seed + args.batch - 1}) batched...")
+              f"(seeds {seed}..{seed + args.batch - 1}) {where}...")
         t0 = time.time()
         try:
-            results = solve_batched(problems, options, device=args.device)
+            if args.fleet:
+                from .batch import check_batch_supported, solve_batched_rank
+                from .parallel.group import backend_for, spawn
+
+                # Refuse here what every rank would refuse.
+                check_batch_supported(options, "auto", None)
+                results = spawn(solve_batched_rank, args.fleet,
+                                backend_for(args.device), args.device,
+                                problems, options)
+            else:
+                results = solve_batched(problems, options,
+                                        device=args.device)
         except NotImplementedError as e:
             raise SystemExit(f"--batch: {e}") from e
         dt = time.time() - t0

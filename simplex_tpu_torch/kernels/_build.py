@@ -108,6 +108,10 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # Tt F C h t M R ah stream
+    "ah_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # Tt M R coeffs part mv stream
+    "reprice_launch": [_P, _I, _I, _P, _P, _P, _P],
     # csrc/batched.cu: Tt costs b z base w sci c0 cf C F AH piv nlive,
     # B M R L r eps bland_static threshold stream
     "batch_window_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _D, _I, _I, _P],
@@ -116,6 +120,8 @@ SIGNATURES = {
     # Tt F C B M R L nlive do_r cf part mv stream
     "batch_apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _P],
+    # Tt B M R flags cf part mv stream
+    "batch_reprice_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     # csrc/pivot.cu: Tt costs colk ah p minc k do, M R r eps, four
     # partials, four candidates, stream
     "fused_pivot_launch": [_P] * 8 + [_I, _I, _I, _F] + [_P] * 9,

@@ -48,7 +48,8 @@ LMAX = 128
 RUNNING = int(Status.RUNNING)
 
 #: Launches of each kernel since the last ``reset_launches``.
-LAUNCHES = {"batch_window": 0, "batch_apply": 0, "batch_apply_reprice": 0}
+LAUNCHES = {"batch_window": 0, "batch_apply": 0, "batch_apply_reprice": 0,
+            "batch_reprice": 0}
 
 
 def reset_launches() -> None:
@@ -372,4 +373,47 @@ def batch_apply_reprice(Tt, C, F, cf, do_r, nlive):
         _ptr(cf), _ptr(part), _ptr(mv), _stream(Tt))
     check(lib, err, "batch_apply_reprice")
     LAUNCHES["batch_apply_reprice"] += 1
+    return mv
+
+
+# ---------------------------------------------------------------------------
+# K12: the standalone per-lane reprice.
+
+def batch_reprice_plain(Tt, cf, flags):
+    """Plain version of ``batch_reprice``."""
+    B, M = cf.shape
+    mv = batch_tt_matvec(Tt.view(B, M, Tt.shape[1]), cf)
+    return torch.where(flags[:, None] != 0, mv, 0.0)
+
+
+def batch_reprice(Tt, cf, flags):
+    """K12, the port of ``simplex_tpu.kernels.batched.
+    batch_reprice_pass``: per lane with ``flags (B,)`` i32 set, ``mv =
+    cf @ Tt`` accumulated in f64 over the lane's tableau, Tt (B*M, R) f32
+    with M and R multiples of 128, cf (B, M) f64 (the JAX pass took and
+    returned double-f32 pairs). Returns mv (B, R) f64, zero for the lanes
+    whose flag is 0. No solve path launches it, as in the JAX package:
+    ``batch_apply_reprice`` with no live eta row gives the same mv bit for
+    bit."""
+    B, M = cf.shape
+    R = Tt.shape[1]
+    _expect(Tt, "Tt", torch.float32, (B * M, R))
+    _expect(cf, "cf", torch.float64, (B, M))
+    _expect(flags, "flags", torch.int32, (B,))
+    if M % 128 or R % 128 or not 1 <= B <= 65535:
+        raise ValueError(f"need M, R multiples of 128 and 1 <= B <= 65535, "
+                         f"got M={M} R={R} B={B}")
+    if not _on_card(Tt, cf, flags):
+        return batch_reprice_plain(Tt, cf, flags)
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    dev = Tt.device
+    part = torch.empty((B, M // 128, R), dtype=torch.float64, device=dev)
+    mv = torch.empty((B, R), dtype=torch.float64, device=dev)
+    err = lib.batch_reprice_launch(_ptr(Tt), B, M, R, _ptr(flags), _ptr(cf),
+                                   _ptr(part), _ptr(mv), _stream(Tt))
+    check(lib, err, "batch_reprice")
+    LAUNCHES["batch_reprice"] += 1
     return mv

@@ -44,7 +44,7 @@ APPLY_TILE = 128
 
 #: Launches of each kernel since the last ``reset_launches``.
 LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
-            "apply_window": 0}
+            "apply_window": 0, "ah": 0, "reprice": 0}
 
 
 def reset_launches() -> None:
@@ -148,11 +148,8 @@ def entering_candidates(costs: torch.Tensor, w: torch.Tensor | None,
 
 def ah_ratio_plain(Tt, F, C, b, h, t: int, eps: float):
     """Plain version of ``ah_ratio``."""
-    M, R = Tt.shape
-    hc = h.long().clamp(max=R - 1).view(1)
-    ah = Tt.index_select(1, hc).view(M)
-    if t:
-        ah = ah - C[:t].index_select(1, hc).view(t) @ F[:t]
+    M = Tt.shape[0]
+    ah = ah_plain(Tt, F, C, h, t)
     mask = ah >= eps
     q = torch.where(mask, b / torch.where(mask, ah, 1.0).double(),
                     torch.inf)
@@ -200,6 +197,46 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float):
     check(lib, err, "ah_ratio")
     LAUNCHES["ah_ratio"] += 1
     return ah, k, p, bk, unb
+
+
+# ---------------------------------------------------------------------------
+# K5: the live entering column alone (the sharded loop's M side).
+
+def ah_plain(Tt, F, C, h, t: int):
+    """Plain version of ``ah`` (and the column of ``ah_ratio_plain``)."""
+    M, R = Tt.shape
+    hc = h.long().clamp(max=R - 1).view(1)
+    ah = Tt.index_select(1, hc).view(M)
+    if t:
+        ah = ah - C[:t].index_select(1, hc).view(t) @ F[:t]
+    return ah
+
+
+def ah(Tt, F, C, h, t: int):
+    """K5, the port of ``simplex_tpu.kernels.blocked.ah_pass``.
+
+    The live entering column ``a_h = Tt[:, h] - C[:t, h] @ F[:t]`` (M,)
+    f32, h a 0-dim int32 column of ``Tt`` (clamped into range), ``t`` the
+    live eta rows. On the card it runs K1's column code without the ratio
+    fold, so K1 and K5 give the same column bit for bit. The sharded loop
+    calls it on each rank's slice and sums the owner's column across the
+    ranks before its ratio test."""
+    M, R, L = _check_factors(Tt, C, F)
+    _expect(h, "h", torch.int32, ())
+    if not 0 <= t < L:
+        raise ValueError(f"t={t} outside the window [0, {L})")
+    if not _on_card(Tt, F, C, h):
+        return ah_plain(Tt, F, C, h, t)
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    out = torch.empty(M, dtype=torch.float32, device=Tt.device)
+    err = lib.ah_launch(_ptr(Tt), _ptr(F), _ptr(C), _ptr(h), t, M, R,
+                        _ptr(out), _stream(Tt))
+    check(lib, err, "ah")
+    LAUNCHES["ah"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -355,3 +392,40 @@ def apply_window(Tt, C, F) -> None:
                                   _stream(Tt))
     check(lib, err, "apply_window")
     LAUNCHES["apply_window"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K11: the standalone reprice.
+
+def reprice_plain(Tt, coeffs):
+    """Plain version of ``reprice``."""
+    return tt_matvec(Tt, coeffs)
+
+
+def reprice(Tt, coeffs):
+    """K11, the port of ``simplex_tpu.kernels.blocked.reprice_pass``:
+    ``mv = coeffs @ Tt`` accumulated in f64, Tt (M, R) f32 with M and R
+    multiples of 128, coeffs (M,) f64 (the JAX pass took and returned
+    double-f32 pairs). Returns mv (R,) f64. No solve path launches it, as
+    in the JAX package: the loops re-price through K3, whose mv it equals
+    bit for bit when the window's etas are zero."""
+    M, R = Tt.shape
+    _expect(Tt, "Tt", torch.float32, (M, R))
+    _expect(coeffs, "coeffs", torch.float64, (M,))
+    if M % APPLY_TILE or R % APPLY_TILE:
+        raise ValueError(f"need M, R multiples of {APPLY_TILE}, got M={M} "
+                         f"R={R}")
+    if not _on_card(Tt, coeffs):
+        return reprice_plain(Tt, coeffs)
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    dev = Tt.device
+    part = torch.empty((M // APPLY_TILE, R), dtype=torch.float64, device=dev)
+    mv = torch.empty(R, dtype=torch.float64, device=dev)
+    err = lib.reprice_launch(_ptr(Tt), M, R, _ptr(coeffs), _ptr(part),
+                             _ptr(mv), _stream(Tt))
+    check(lib, err, "reprice")
+    LAUNCHES["reprice"] += 1
+    return mv

@@ -9,6 +9,10 @@
 // before it writes them and no other thread touches them, so the update is
 // safe in place. The caller's grid puts the R tile on blockIdx.x and the M
 // tile on blockIdx.y.
+//
+// The standalone reprices K11/K12 (reprice_tile) load the tile into the
+// same registers and run the same fold, so with zero etas they give K3's
+// and K9's mv bit for bit.
 
 #pragma once
 
@@ -20,6 +24,10 @@ namespace {
 constexpr int AT = 128;              // tile edge on both axes
 constexpr int AK = 8;                // eta rows per shared-memory stage
 constexpr int APPLY_THREADS = 256;
+
+__device__ __forceinline__ void reprice_fold(
+        const float (&acc)[8][8], const double *__restrict__ coeffs,
+        double *__restrict__ part_row);
 
 // Tt, F and C point at one tableau and its factors (F (L, M), C (L, R)).
 // L must be a multiple of AK. With REPRICE and coeffs != nullptr the tile's
@@ -90,26 +98,63 @@ __device__ __forceinline__ void apply_tile(
 
     if constexpr (REPRICE) {
         if (coeffs == nullptr) return;
-        __shared__ double red[APPLY_THREADS / 16][AT];
-        double cf[8];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) cf[a] = coeffs[i0 + ty * 8 + a];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            double s = 0.0;
-#pragma unroll
-            for (int a = 0; a < 8; ++a)
-                s = __fma_rn(cf[a], (double)acc[a][c], s);
-            red[ty][tx * 8 + c] = s;
-        }
-        __syncthreads();
-        if (threadIdx.x < AT) {
-            double s = 0.0;
-            for (int y = 0; y < APPLY_THREADS / 16; ++y)
-                s = __dadd_rn(s, red[y][threadIdx.x]);
-            part_row[j0 + threadIdx.x] = s;
-        }
+        reprice_fold(acc, coeffs, part_row);
     }
+}
+
+// The tile's reprice partial from the thread's 8 x 8 register tile of
+// Tt (acc[a][c] = Tt[i0 + ty*8 + a, j0 + tx*8 + c]): each thread folds its 8
+// rows per column in f64, then 128 threads sum the 16 row groups in order,
+//   part_row[j0 + c] = sum_{i in tile} coeffs[i] * Tt[i, j0 + c].
+// The whole block must call it (it synchronises).
+__device__ __forceinline__ void reprice_fold(
+        const float (&acc)[8][8], const double *__restrict__ coeffs,
+        double *__restrict__ part_row) {
+    __shared__ double red[APPLY_THREADS / 16][AT];
+    const int tx = threadIdx.x & 15;
+    const int ty = threadIdx.x >> 4;
+    const size_t i0 = (size_t)blockIdx.y * AT;
+    const size_t j0 = (size_t)blockIdx.x * AT;
+    double cf[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) cf[a] = coeffs[i0 + ty * 8 + a];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        double s = 0.0;
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+            s = __fma_rn(cf[a], (double)acc[a][c], s);
+        red[ty][tx * 8 + c] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < AT) {
+        double s = 0.0;
+        for (int y = 0; y < APPLY_THREADS / 16; ++y)
+            s = __dadd_rn(s, red[y][threadIdx.x]);
+        part_row[j0 + threadIdx.x] = s;
+    }
+}
+
+// The reprice partial of one tile without an apply (K11, K12): the thread's
+// 8 x 8 elements of Tt (R columns per row) loaded as apply_tile leaves
+// them in its registers, then reprice_fold.
+__device__ __forceinline__ void reprice_tile(
+        const float *__restrict__ Tt, int R,
+        const double *__restrict__ coeffs, double *__restrict__ part_row) {
+    const int tx = threadIdx.x & 15;
+    const int ty = threadIdx.x >> 4;
+    const size_t i0 = (size_t)blockIdx.y * AT;
+    const size_t j0 = (size_t)blockIdx.x * AT;
+    float acc[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+        const float *row = Tt + (i0 + ty * 8 + a) * (size_t)R + j0 + tx * 8;
+        const float4 lo = *reinterpret_cast<const float4 *>(row);
+        const float4 hi = *reinterpret_cast<const float4 *>(row + 4);
+        acc[a][0] = lo.x; acc[a][1] = lo.y; acc[a][2] = lo.z; acc[a][3] = lo.w;
+        acc[a][4] = hi.x; acc[a][5] = hi.y; acc[a][6] = hi.z; acc[a][7] = hi.w;
+    }
+    reprice_fold(acc, coeffs, part_row);
 }
 
 }  // namespace

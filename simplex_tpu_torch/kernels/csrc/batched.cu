@@ -411,6 +411,30 @@ __global__ void __launch_bounds__(FIN_THREADS) batch_reprice_finish(
     mv[lane * R + j] = s;
 }
 
+// ---------------------------------------------------------------------------
+// batch_reprice (K12): per lane mv = coeffs^T Tt in f64, gated by a flag.
+//
+// Replaces batch_reprice_pass (simplex_tpu/kernels/batched.py:669,
+// pallas_call at :700; body _batch_reprice_kernel :631-666), which no solve
+// path calls: the batched loop re-prices through batch_apply_reprice's
+// fused fold. The TPU accumulated double-f32 pairs; here the fold is f64.
+// Bound on the card: memory. It reads the flagged lanes' tableaus once,
+// 4 M R bytes each (computed: 1.61 GB at B = 256, M = 512, R = 3,072, 0.481
+// ms at 3.35 TB/s). Design: K11's tiles (apply_tile.cuh reprice_tile) with
+// the lane on gridDim.z; a lane with flag 0 skips its tiles, and
+// batch_reprice_finish writes it zeros. batch_apply_reprice with no live
+// eta row runs the same fold, so it gives the same mv bit for bit.
+
+__global__ void __launch_bounds__(APPLY_THREADS) batch_reprice_tiles(
+        const float *__restrict__ Tt, int M, int R,
+        const int *__restrict__ flags, const double *__restrict__ cf,
+        double *__restrict__ part) {
+    const size_t lane = blockIdx.z;
+    if (flags[lane] == 0) return;
+    reprice_tile(Tt + lane * M * R, R, cf + lane * M,
+                 part + (lane * (M / AT) + blockIdx.y) * R);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -465,6 +489,21 @@ int batch_apply_reprice_launch(float *Tt, const float *F, const float *C,
     RETURN_IF_ERROR();
     const dim3 fgrid((R + FIN_THREADS - 1) / FIN_THREADS, B);
     batch_reprice_finish<<<fgrid, FIN_THREADS, 0, st>>>(part, do_r, M / AT,
+                                                         R, mv);
+    RETURN_IF_ERROR();
+    return 0;
+}
+
+int batch_reprice_launch(const float *Tt, int B, int M, int R,
+                         const int *flags, const double *cf, double *part,
+                         double *mv, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(R / AT, M / AT, B);
+    batch_reprice_tiles<<<grid, APPLY_THREADS, 0, st>>>(Tt, M, R, flags, cf,
+                                                        part);
+    RETURN_IF_ERROR();
+    const dim3 fgrid((R + FIN_THREADS - 1) / FIN_THREADS, B);
+    batch_reprice_finish<<<fgrid, FIN_THREADS, 0, st>>>(part, flags, M / AT,
                                                          R, mv);
     RETURN_IF_ERROR();
     return 0;

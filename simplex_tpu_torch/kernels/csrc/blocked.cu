@@ -90,6 +90,28 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // sequential grid in SMEM scratch). The ratio is a native f64 quotient (the
 // TPU formed it from double-f32 pairs).
 
+// The live entering column, shared by K1 and K5 so that the two give the
+// same a_h bit for bit. ah_stage puts C[s, h] for s < t into the block's
+// shared memory ch (the whole block calls it); ah_entry is then
+//   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
+// with the eta correction summed in s order in FFMA.
+__device__ __forceinline__ void ah_stage(const float *__restrict__ C, int h,
+                                         int t, int R, float *ch) {
+    for (int s = threadIdx.x; s < t; s += blockDim.x)
+        ch[s] = C[(size_t)s * R + h];
+    __syncthreads();
+}
+
+__device__ __forceinline__ float ah_entry(const float *__restrict__ Tt,
+                                          const float *__restrict__ F,
+                                          const float *ch, int h, int t,
+                                          int j, int M, int R) {
+    float acc = 0.0f;
+    for (int s = 0; s < t; ++s)
+        acc = fmaf(ch[s], F[(size_t)s * M + j], acc);
+    return __fsub_rn(Tt[(size_t)j * R + h], acc);
+}
+
 __global__ void __launch_bounds__(THREADS) ah_ratio_tiles(
         const float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, const double *__restrict__ b,
@@ -98,18 +120,13 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_tiles(
         int *__restrict__ part_idx) {
     extern __shared__ float ch[];                // C[s, h] for s < t
     const int h = min(*h_ptr, R - 1);
-    for (int s = threadIdx.x; s < t; s += THREADS)
-        ch[s] = C[(size_t)s * R + h];
-    __syncthreads();
+    ah_stage(C, h, t, R, ch);
 
     const int j = blockIdx.x * THREADS + threadIdx.x;
     double key = -CUDART_INF;                    // key = -(b / a_h)
     int idx = BIG_INDEX;
     if (j < M) {
-        float acc = 0.0f;
-        for (int s = 0; s < t; ++s)
-            acc = fmaf(ch[s], F[(size_t)s * M + j], acc);
-        const float a = __fsub_rn(Tt[(size_t)j * R + h], acc);
+        const float a = ah_entry(Tt, F, ch, h, t, j, M, R);
         ah[j] = a;
         if (a >= eps) {
             key = -__ddiv_rn(b[j], (double)a);
@@ -147,6 +164,33 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_finish(
         *bk_out = none ? 0.0 : b[idx];
         *unb_out = none ? 1 : 0;
     }
+}
+
+// ---------------------------------------------------------------------------
+// K5: the live entering column alone.
+//
+// Replaces ah_pass (simplex_tpu/kernels/blocked.py:1300, pallas_call at
+// :1361; body _ah_kernel :1036). The sharded loop runs it on each rank's
+// slice of the tableau; its ratio test runs on the column after the
+// cross-rank sum, so K1's fused form does not apply there.
+//   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
+// with h a column of this slice (the caller clamps it into range).
+// Bound on the card: latency, as K1. It reads t live F rows and one strided
+// element of Tt per constraint (computed: 1.2 MB at t = 37, M = 8192) on
+// M / 256 blocks. Design: K1's tiles without the ratio fold -- the same
+// ah_stage / ah_entry device code, so K1 and K5 give the same column bit
+// for bit; one launch, no finishing pass. The TPU kernel skipped the dead
+// F segments through its index maps; here t is the loop bound.
+
+__global__ void __launch_bounds__(THREADS) ah_tiles(
+        const float *__restrict__ Tt, const float *__restrict__ F,
+        const float *__restrict__ C, const int *__restrict__ h_ptr, int t,
+        int M, int R, float *__restrict__ ah) {
+    extern __shared__ float ch[];                // C[s, h] for s < t
+    const int h = min(*h_ptr, R - 1);
+    ah_stage(C, h, t, R, ch);
+    const int j = blockIdx.x * THREADS + threadIdx.x;
+    if (j < M) ah[j] = ah_entry(Tt, F, ch, h, t, j, M, R);
 }
 
 // ---------------------------------------------------------------------------
@@ -368,6 +412,27 @@ __global__ void __launch_bounds__(THREADS) reprice_finish(
     mv[j] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K11: the standalone reprice mv = coeffs^T Tt, accumulated in f64.
+//
+// Replaces reprice_pass (simplex_tpu/kernels/blocked.py:976, pallas_call at
+// :1002; body _reprice_kernel :933-973), which no solve path calls: the
+// loops re-price through K3's fused pass. The TPU accumulated double-f32
+// pairs with Dekker transforms; here the fold is native f64.
+// Bound on the card: memory. It reads the tableau once, 4 M R bytes
+// (computed: 805 MB at M = 8192, R = 24576, 0.240 ms at 3.35 TB/s), for
+// 2 M R f64 operations (0.012 ms at 34 TFLOP/s). Design: K3's 128 x 128
+// tiles without the apply -- each thread loads its 8 x 8 elements into the
+// registers where K3 leaves Tt_new and runs the same fold (apply_tile.cuh
+// reprice_tile), then reprice_finish sums the per-tile partials in M
+// order: K3 with zero etas gives the same mv bit for bit.
+
+__global__ void __launch_bounds__(APPLY_THREADS) reprice_tiles(
+        const float *__restrict__ Tt, int R,
+        const double *__restrict__ coeffs, double *__restrict__ part) {
+    reprice_tile(Tt, R, coeffs, part + (size_t)blockIdx.y * R);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -397,6 +462,16 @@ int ah_ratio_launch(const float *Tt, const float *F, const float *C,
     RETURN_IF_ERROR();
     ah_ratio_finish<<<1, THREADS, 0, st>>>(part_key, part_idx, nb, ah, b,
                                            k_out, p_out, bk_out, unb_out);
+    RETURN_IF_ERROR();
+    return 0;
+}
+
+int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
+              int t, int M, int R, float *ah, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int nb = (M + THREADS - 1) / THREADS;
+    ah_tiles<<<nb, THREADS, t * sizeof(float), st>>>(Tt, F, C, h, t, M, R,
+                                                     ah);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -448,6 +523,18 @@ int apply_window_launch(float *Tt, const float *F, const float *C, int M,
     const dim3 grid(R / AT, M / AT);
     apply_tiles<false><<<grid, THREADS, 0, st>>>(Tt, F, C, M, R, L, nullptr,
                                                  nullptr);
+    RETURN_IF_ERROR();
+    return 0;
+}
+
+int reprice_launch(const float *Tt, int M, int R, const double *coeffs,
+                   double *part, double *mv, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(R / AT, M / AT);
+    reprice_tiles<<<grid, APPLY_THREADS, 0, st>>>(Tt, R, coeffs, part);
+    RETURN_IF_ERROR();
+    reprice_finish<<<(R + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+        part, M / AT, R, mv);
     RETURN_IF_ERROR();
     return 0;
 }

@@ -37,13 +37,28 @@ def restart_device(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     refinement. Returns ``(DeviceSolveOutput, binv, ns_residual)``: the
     output contract of a phase-2-only solve, the new slack block for the
     next refinement, and ``max|I - B M|`` after sharpening (telemetry)."""
-    from .two_phase import DeviceSolveOutput
+    _, R2_pad, M_pad = padded_dims(n, m, options)
+    tab, ns_res = restart_tableau(A, b, c, base, binv, xB, n, m, options,
+                                  M_pad, 0, R2_pad)
+    costs0 = tab.costs
+    tab = gaussian_eliminate(tab)
+    tab2, status2, iters2 = run_solve_loop(
+        tab, options, options.resolved_max_iter(n + 2 * m, m), costs0)
+    out = restart_output(tab2, status2, iters2, b, c, xB)
+    return out, tab2.Tt[:m, n:n + m], ns_res
 
+
+def restart_tableau(A, b, c, base, binv, xB, n: int, m: int,
+                    options: SolverOptions, M_pad: int, lo: int,
+                    R_loc: int):
+    """Steps 1 and 2 of a round: the sharpened ``M`` and the columns
+    ``[lo, lo + R_loc)`` of the rebuilt phase-2 tableau (all of it at
+    ``lo = 0``, ``R_loc = R_pad``; a rank's slice in the sharded solve),
+    before Gaussian elimination. Returns (tableau, ns_residual)."""
     dtype = getattr(torch, options.dtype.name)
     vdtype = getattr(torch, options.vector_dtype.name)
     dev = A.device
-    max_iter = options.resolved_max_iter(n + 2 * m, m)
-    _, R2_pad, M_pad = padded_dims(n, m, options)
+    hi = lo + R_loc
 
     # precision=HIGHEST in the JAX package: IEEE f32 products, no TF32.
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -65,31 +80,39 @@ def restart_device(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             M = M @ (2.0 * eye - B @ M)
         ns_res = float((eye - B @ M).abs().max())
 
-        Tt = torch.zeros((M_pad, R2_pad), dtype=dtype, device=dev)
-        Tt[:m, :n] = M @ A32
-        Tt[:m, n:n + m] = M
+        Tt = torch.zeros((M_pad, R_loc), dtype=dtype, device=dev)
+        if lo < n:
+            Tt[:m, :min(hi, n) - lo] = M @ A32[:, lo:min(hi, n)]
+        a, e = max(lo, n), min(hi, n + m)
+        if a < e:
+            Tt[:m, a - lo:e - lo] = M[:, a - n:e - n]
         del A32, Bt, B
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
 
-    b_scale = 1.0 + float(b.abs().max())
     b_pad = torch.zeros(M_pad, dtype=vdtype, device=dev)
     b_pad[:m] = xB.to(vdtype).clamp(min=0.0)
-    costs0 = torch.zeros(R2_pad, dtype=vdtype, device=dev)
-    costs0[:n] = -c.to(vdtype)
+    gi = lo + torch.arange(R_loc, device=dev)
+    costs0 = torch.where(
+        gi < n, -c.to(vdtype).index_select(0, gi.clamp(max=n - 1)), 0.0)
     tab = Tableau(Tt=Tt, b=b_pad, costs=costs0,
                   z=torch.zeros((), dtype=vdtype, device=dev),
                   base=base.to(torch.int32).clone(), n=n, m=m, r=n + m)
-    tab = gaussian_eliminate(tab)
-    tab2, status2, iters2 = run_solve_loop(tab, options, max_iter, costs0)
+    return tab, ns_res
+
+
+def restart_output(tab2: Tableau, status2: int, iters2: int, b, c, xB):
+    """Step 3's outcome: the ``DeviceSolveOutput`` of a phase-2-only
+    solve from the restarted loop's final (replicated) state."""
+    from .two_phase import DeviceSolveOutput
 
     x = extract_solution(tab2)
     status = Status.MAXITER if status2 == int(Status.RUNNING) \
         else Status(status2)
     finite = bool(torch.isfinite(tab2.z)) and bool(torch.isfinite(x).all())
     # Micro-infeasibility beyond the mixed envelope means a junk basis.
-    bad_basis = float(xB.min()) < -1e-4 * b_scale
+    bad_basis = float(xB.min()) < -1e-4 * (1.0 + float(b.abs().max()))
     if not finite or bad_basis:
         status = Status.NUMERIC
     if status2 == int(Status.OPTIMAL):
@@ -98,5 +121,4 @@ def restart_device(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         objective = float(tab2.z)
     if status != Status.OPTIMAL:
         x = torch.zeros_like(x)
-    out = DeviceSolveOutput(status, x, objective, 0, iters2, 0, tab2.base)
-    return out, tab2.Tt[:m, n:n + m], ns_res
+    return DeviceSolveOutput(status, x, objective, 0, iters2, 0, tab2.base)

@@ -198,15 +198,17 @@ def refine_result(problem: Problem, base, options: SolverOptions,
 
 
 def certify(problem: Problem, base, binv, objective: float,
-            options: SolverOptions, A_dev, b_dev, c_dev):
+            options: SolverOptions, A_dev, b_dev, c_dev, restart=None):
     """The mixed mode's tiers for one OPTIMAL result: f64 refinement of
     the final basis (``refine_result``), then up to two
-    reinversion-restart rounds from the final slack block ``binv``.
-    Returns ``(x, objective, RefineInfo, extra phase-2 pivots)``; raises
-    ``NotImplementedError`` when no round certifies (the host finishing
-    tiers are ROADMAP queue 1 item 6)."""
+    reinversion-restart rounds from the final slack block ``binv``
+    (``restart``, ``reinvert.restart_device`` by default; the sharded
+    solve passes its own). Returns ``(x, objective, RefineInfo, extra
+    phase-2 pivots)``; raises ``NotImplementedError`` when no round
+    certifies (the host finishing tiers are ROADMAP queue 1 item 6)."""
     from .reinvert import restart_device
 
+    restart_device = restart or restart_device
     m, n = problem.constraints, problem.vars
     rx, robj, info, ro = refine_result(problem, base, options, A_dev, b_dev,
                                        c_dev, raw_objective=objective,

@@ -139,12 +139,64 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     assert (prof / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--sharded", "2"], "item 8"),
-    (["--batch", "4", "--fleet", "2"], "item 8"),
-    (["--checkpoint", "state.npz"], "item 9"),
-    (["--equilibrate"], "item 6"),
+@pytest.mark.parametrize("flags,match", [
+    (["--sharded", "2", "--checkpoint", "state.npz"],
+     "ROADMAP queue 1 item 9"),
+    (["--fleet", "2"], "--fleet requires --batch"),
+    (["--checkpoint", "state.npz"], "ROADMAP queue 1 item 9"),
+    (["--equilibrate"], "ROADMAP queue 1 item 6"),
 ], ids=["sharded", "fleet", "checkpoint", "equilibrate"])
-def test_unported_flags_exit(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
+def test_unported_flags_exit(tmp_path, flags, match):
+    """What the port does not run yet exits naming its ROADMAP item:
+    ``--checkpoint``, with ``--sharded`` too, and ``--equilibrate``;
+    ``--fleet`` without ``--batch`` exits as the JAX CLI does."""
+    with pytest.raises(SystemExit, match=match):
         run_cli(["-r", "10", "5", "1"] + flags, tmp_path)
+
+
+def _timeless(lines):
+    """The lines without the wall times, which differ run to run, and
+    the per-seed pivot counts split off (returned apart)."""
+    kept, pivots = [], []
+    for line in lines:
+        if line.startswith(("Sharded solve finished in", "Batch solved in")):
+            continue
+        if line.startswith("seed ") and " pivots=" in line:
+            line, walk = line.split(" pivots=")
+            pivots.append([int(v) for v in walk.split("+")])
+        kept.append(line)
+    return kept, pivots
+
+
+@pytest.mark.parametrize("args", [
+    ["-rf", SEED_256, "--sharded", "2"],
+    ["-rf", "<seeds>", "--batch", "4", "--fleet", "2", "--dtype",
+     "float32", "--block", "8", "--eps", "1e-5"],
+], ids=["sharded", "fleet"])
+def test_sharded_and_fleet_match_jax(tmp_path, capsys, args):
+    """``--sharded 2`` (two gloo ranks, f64; 473 + 17 pivots at
+    random_256_256, as one device walks) and ``--fleet 2 --batch 4``
+    (mixed): the JAX CLI's stdout lines, its wall times aside, and
+    solution.txt; the fleet's mixed walks within max(3, 10%) of the JAX
+    ones (ROADMAP: mixed walks are not pinned across implementations)."""
+    from simplex_tpu_torch.problem import write_seed_file
+
+    seeds = tmp_path / "seeds.txt"          # 30 x 12 in [1, 100]: OPTIMAL
+    write_seed_file(str(seeds), 30, 12, 5, 1, 100)
+    args = [str(seeds) if a == "<seeds>" else a for a in args]
+    outs = {}
+    for name, fn, extra in (("port", main, ["--device", "cpu"]),
+                            ("jax", jax_main, [])):
+        d = tmp_path / name
+        assert fn(args + ["--data-dir", str(d)] + extra) == 0
+        sol = d / "solution.txt"
+        lines, walks = _timeless(_lines(capsys.readouterr().out, d))
+        outs[name] = (lines, sol.read_text() if sol.exists() else None,
+                      walks)
+    assert outs["port"][:2] == outs["jax"][:2]
+    assert any(line.startswith(("(phase-1", "seed 8:"))
+               for line in outs["port"][0])
+    assert len(outs["port"][2]) == len(outs["jax"][2])
+    for got, want in zip(outs["port"][2], outs["jax"][2]):
+        for a, b in zip(got, want):
+            assert abs(a - b) <= max(3, 0.1 * b), (got, want)

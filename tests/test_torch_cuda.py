@@ -263,3 +263,63 @@ def test_pallas_solve_on_card_launches_k6(cuda):
     want = pst.solve(p, device="cpu", dtype=np.float64)
     assert got.status == want.status == pst.Status.OPTIMAL
     assert got.objective == pytest.approx(want.objective, rel=1e-3)
+
+
+def test_k5_k11_k12_match_plain_on_card(cuda):
+    """K5's column equal to K1's bit for bit (the same device code) and to
+    its plain version at 1e-5 * (1 + |x|) (another summation order of t
+    products); K11 and K12 to 1e-12 of the f64 formula's magnitude, and
+    bit for bit to K3 / batch_apply_reprice run with zero etas (the same
+    fold); K12's unflagged lane zero."""
+    M, R, L, eps = 256, 384, 16, 1e-4
+    Tt = _rand((M, R), 31).to(cuda)
+    C = _rand((L, R), 32).to(cuda)
+    F = _rand((L, M), 33, -0.1, 0.1).to(cuda)
+    b = _rand((M,), 34, 0, 100, np.float64).to(cuda)
+    for t, h in ((0, 127), (7, 128), (L - 1, 255)):
+        C[t:] = 0
+        F[t:] = 0
+        hh = torch.tensor(h, dtype=torch.int32, device=cuda)
+        got = kb.ah(Tt, F, C, hh, t)
+        assert torch.equal(got, kb.ah_ratio(Tt, F, C, b, hh, t, eps)[0])
+        torch.testing.assert_close(got, kb.ah_plain(Tt, F, C, hh, t),
+                                   rtol=1e-5, atol=1e-5)
+    coeffs = _rand((M,), 35, dtype=np.float64).to(cuda)
+    mv = kb.reprice(Tt, coeffs)
+    scale = tt_matvec(Tt.abs(), coeffs.abs())
+    assert ((mv - kb.reprice_plain(Tt, coeffs)).abs() <= 1e-12 * scale).all()
+    zero = torch.zeros((8, R), device=cuda), torch.zeros((8, M), device=cuda)
+    assert torch.equal(mv, kb.apply_reprice(Tt.clone(), *zero, coeffs))
+
+    B = 3
+    T3 = _rand((B * M, R), 36).to(cuda)
+    cf = _rand((B, M), 37, dtype=np.float64).to(cuda)
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    mv = kbt.batch_reprice(T3, cf, flags)
+    scale = batch_tt_matvec(T3.abs().view(B, M, R), cf.abs())
+    assert ((mv - kbt.batch_reprice_plain(T3, cf, flags)).abs()
+            <= 1e-12 * scale).all()
+    assert not mv[1].any()
+    zC = torch.zeros((B * 8, R), device=cuda)
+    zF = torch.zeros((B * 8, M), device=cuda)
+    nlive = torch.zeros(B, dtype=torch.int32, device=cuda)
+    assert torch.equal(mv, kbt.batch_apply_reprice(T3.clone(), zC, zF, cf,
+                                                   flags, nlive))
+
+
+def test_solve_sharded_world_size_one_on_card(cuda, tmp_path):
+    """solve_sharded on one NCCL rank: K5 launched, K1 not; the walk and
+    the certified objective of solve() on the card."""
+    from simplex_tpu_torch.parallel.group import world
+
+    p = pst.generate_random_problem(128, 64, 2, 1, 100)
+    want = pst.solve(p, device="cuda", **PROD)
+    with world(0, 1, "nccl", str(tmp_path)) as group:
+        kb.reset_launches()
+        got = pst.solve_sharded(p, group, device="cuda", **PROD)
+        assert kb.LAUNCHES["ah"] > 0 and kb.LAUNCHES["ah_ratio"] == 0
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert got.refine.certified
+    assert (got.iterations_phase1, got.iterations_phase2) == (
+        want.iterations_phase1, want.iterations_phase2)
+    assert got.objective == pytest.approx(want.objective, rel=1e-9)

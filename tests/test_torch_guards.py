@@ -31,6 +31,17 @@ def test_port_never_imports_jax():
         "import simplex_tpu_torch.kernels._build\n"
         "import simplex_tpu_torch.cli, simplex_tpu_torch.timed\n"
         "import simplex_tpu_torch.chrono, simplex_tpu_torch.kernels.pivot\n"
+        "import simplex_tpu_torch.parallel.group as pg\n"
+        "import simplex_tpu_torch.parallel.sharded, tempfile\n"
+        "with tempfile.TemporaryDirectory() as td, \\\n"
+        "        pg.world(0, 1, 'gloo', td) as g:\n"
+        "    r = st.solve_sharded(st.read_problem(\n"
+        "        'data/examples/smallProblem.txt'), g, device='cpu')\n"
+        "    assert r.status == st.Status.OPTIMAL and r.objective == 64.0\n"
+        "    rb = st.solve_batch([st.generate_random_problem(8, 4, 1, 1, 9)],\n"
+        "                        device='cpu', mesh=g, dtype='float32',\n"
+        "                        vector_dtype='float64', block_pivots=8)\n"
+        "    assert rb[0].status == st.Status.OPTIMAL\n"
         "r = st.solve(st.read_problem('data/examples/smallProblem.txt'),\n"
         "             device='cpu')\n"
         "assert r.status == st.Status.OPTIMAL and r.objective == 64.0\n"
@@ -57,6 +68,21 @@ def test_cuda_device_raises_without_cuda():
     p = pst.read_problem(DATA / "smallProblem.txt")
     with pytest.raises(RuntimeError, match="cuda"):
         pst.solve(p, **PROD)              # device defaults to "cuda"
+
+
+def test_sharded_and_fleet_default_to_cuda(tmp_path):
+    """solve_sharded and the fleet default to the card, and raise where
+    it is absent -- before they touch the group."""
+    from simplex_tpu_torch.parallel.group import world
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device='cuda' is valid here")
+    p = pst.read_problem(DATA / "smallProblem.txt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pst.solve_sharded(p, None, **PROD)
+    with world(0, 1, "gloo", str(tmp_path)) as group:
+        with pytest.raises(RuntimeError, match="cuda"):
+            pst.solve_batch(_batch(), mesh=group, **BATCH)
 
 
 def test_unknown_device_raises():
@@ -144,7 +170,7 @@ def _batch(k=2):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=object()), NotImplementedError, "ROADMAP queue 1 item 8"),
+    (dict(mesh=object()), TypeError, "ProcessGroup"),
     (dict(kernel=False), NotImplementedError, "ROADMAP queue 1 item 7"),
     (dict(dtype=np.float64), NotImplementedError, "ROADMAP queue 1 item 7"),
     (dict(block_pivots=1), NotImplementedError, "ROADMAP queue 1 item 7"),
@@ -200,3 +226,41 @@ def test_batch_lane_that_never_certifies_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         pst.solve_batch(_batch(1), device="cpu",
                         **dict(BATCH, refine_tol=1e-300))
+
+
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_collective_structure_pinned(rule):
+    """The port's counterpart of tests/test_sharded_kernel.py:169-231, on
+    two gloo ranks: the kernel loop (L = 8, re-pricing every 2 windows)
+    capped at 8, 16 and 24 pivots (1, 2, 3 windows, the second on the
+    re-pricing cadence) issues exactly
+
+    * once: 1 all_gather for the cost scale, 2 for the first candidates;
+    * per pivot: 2 all_gathers (candidate values, candidate indices) and
+      1 all_reduce (the entering column);
+    * per window: under devex 1 all_gather (the weights' re-anchor); on a
+      re-pricing window 1 all_reduce (basic costs) and 3 all_gathers (the
+      premature-optimal minimum and the candidates), none off cadence (K4);
+
+    the sequential f64 loop 2 all_gathers and 1 all_reduce per pivot; and
+    a whole mixed solve one (m, m) all_reduce, the slack block. A change
+    that adds a collective per pivot or per window fails here."""
+    from simplex_tpu_torch.parallel.group import spawn
+    from simplex_tpu_torch.parallel.sharded import count_collectives
+
+    n, m, L = 96, 48, 8
+    problem = pst.generate_random_problem(n, m, 3, 1, 100)
+    mixed = pst.SolverOptions(**dict(PROD, block_pivots=L, eps=1e-5,
+                                     pivot_rule=rule))
+    (loops, shapes), (seq, _) = spawn(
+        count_collectives, 2, "gloo", "cpu", problem,
+        [(mixed, [L, 2 * L, 3 * L]), (pst.SolverOptions(), [8])])
+    devex = int(rule == "devex")
+    for windows, (iters, counts) in enumerate(loops, start=1):
+        assert iters == windows * L
+        reprices = windows // 2
+        assert counts == {
+            "all_gather": 3 + windows * (2 * L + devex) + 3 * reprices,
+            "all_reduce": windows * L + reprices}, (windows, counts)
+    assert seq == [(8, {"all_gather": 16, "all_reduce": 8})]
+    assert shapes[("all_reduce", (m, m))] == 1
