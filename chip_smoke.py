@@ -30,7 +30,8 @@ Phases, in order; any failed check exits non-zero:
 7. random_1024_1024 -> OPTIMAL, certified, objective 4.000455470573328,
    production options;
 8. the flagship random_8192_8192 -> OPTIMAL, certified, objective
-   2.701733460335518 -- the production path, with the K1-K4 launch
+   2.701733460335518, walking 9,206 + 409 pivots (the walk recorded on
+   the card since the port began) -- the production path, with the K1-K4 launch
    counters reset just before the first solve and read just after it;
    then solved again, for the wall-time spread of warm solves (each
    solve must walk the same pivots);
@@ -62,7 +63,10 @@ Phases, in order; any failed check exits non-zero:
    certified; config 3's 256 lanes as a fleet, checked as in 10a;
 11. each kernel against its plain PyTorch version on the card: K1-K4 at
    the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K2
-   under devex and Dantzig) with K5 (its column K1's bit for bit) and
+   under devex and Dantzig, its pivot row at h K1's p bit for bit, one
+   kernel launched per call) with K4's Tt K3's bit for bit (there and at
+   M=256, R=384, L=8), K4 timed in turns with cuBLAS ``addmm_``, the SM
+   clock before and after, K5 (its column K1's bit for bit) and
    K11 (K3's mv with zero etas bit for bit), K6 at the 8192^2 and the
    north-star f32 shapes, then the batched kernels at config 3's shapes
    (B=256, M=512, R=3072, L=32) and the wide ones (B=32, R=15104), under
@@ -109,6 +113,8 @@ OBJ_2048 = 3.3087010624810915
 OBJ_8192 = 2.701733460335518
 #: Flagship solves in one process: the first, then the warm ones.
 FLAGSHIP_SOLVES = 5
+#: The production flagship's walk (phase 1, phase 2) on one card.
+FLAGSHIP_WALK = (9206, 409)
 
 #: Each kernel's record: (id, the JAX kernel it replaces -- the function
 #: reaching pl.pallas_call --, its source).
@@ -218,6 +224,46 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     return total_us / 1e3 / reps
 
 
+def kernels_launched(fn) -> int:
+    """The number of kernels one call of ``fn()`` launches on the card,
+    counted by torch.profiler after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn()`` over ``reps`` back-to-back
+    calls, ending in one synchronize: the wrapper's cost when its kernel
+    is shorter than the host's work for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def sm_clock() -> str:
+    """The card's SM clock and its maximum, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def event_ms(fn, reps: int) -> float:
     """ms per call of ``fn()`` between two CUDA events around ``reps``
     back-to-back calls after one warm-up call: the device's time when
@@ -291,6 +337,8 @@ def phase_kernels(records: dict) -> None:
     M, R, L = 8192, 24576, 128
     eps = 1e-4
     g = torch.Generator(device=dev).manual_seed(20261016)
+    ws = kb.colk_workspace(R, dev)
+    log(f"kernel phase: SM clock before {sm_clock()}")
 
     def uni(shape, lo, hi, dtype=torch.float32):
         x = torch.rand(shape, generator=g, device=dev, dtype=dtype)
@@ -343,13 +391,14 @@ def phase_kernels(records: dict) -> None:
             close("K5 a_h vs addmv", got5, lib5(),
                   1e-5 * (1 + want5.abs()))
             library_ah = device_ms(lib5, 50)
-        # ---- K2 (devex and Dantzig) ----
+        # ---- K2 (devex and Dantzig), on one workspace throughout ----
         ah, k, p, bk = got[0], got[1], got[2], got[3]
         u = torch.tensor(-0.5, dtype=torch.float64, device=dev) / p.double()
         do = torch.tensor(True, device=dev)
         for rule, w in (("devex", w0), ("dantzig", None)):
             outs = []
-            for fn in (kb.colk_costs, kb.colk_costs_plain):
+            for fn in (functools.partial(kb.colk_costs, ws=ws),
+                       kb.colk_costs_plain):
                 st = dict(C=C.clone(), F=F.clone(), costs=costs0.clone(),
                           b=b.clone(), base=base0.clone(),
                           w=None if w is None else w.clone())
@@ -359,6 +408,9 @@ def phase_kernels(records: dict) -> None:
                 outs.append((st, cand))
             (sk, ck), (sp, cp) = outs
             tag = f"K2 {rule} t={t}"
+            # The pivot row at h and K1's p are both Tt[k, h] - the FFMA
+            # chain over s < t of C[s, h] F[s, k], in s order: bit for bit.
+            equal(f"{tag} C[t][h] vs K1's p", sk["C"][t][h.long()], p)
             # f32 pivot row: another summation order of t products.
             e = close(f"{tag} C[t]", sk["C"][t], sp["C"][t],
                       1e-5 * (1 + sp["C"][t].abs()))
@@ -386,14 +438,22 @@ def phase_kernels(records: dict) -> None:
                 if i % 2 == 0:
                     equal(f"{tag} {nm} vs plain", ck[i], cp[i])
             errs["colk_costs"] = max(errs["colk_costs"], e)
+            st = dict(C=C.clone(), F=F.clone(), costs=costs0.clone(),
+                      b=b.clone(), base=base0.clone(),
+                      w=None if w is None else w.clone())
+            args = (Tt, st["C"], st["F"], st["costs"], k, t, u, do,
+                    R - 100, eps, ah, st["b"], st["base"], h, p, bk, st["w"])
+            k2_us = 1e3 * device_ms(lambda: kb.colk_costs(*args, ws=ws), 50)
+            log(f"{tag}: {k2_us:.2f} us a call on the device")
             if t == 37 and rule == "devex":
-                st = dict(C=C.clone(), F=F.clone(), costs=costs0.clone(),
-                          b=b.clone(), base=base0.clone(), w=w0.clone())
-                args = (Tt, st["C"], st["F"], st["costs"], k, t, u, do,
-                        R - 100, eps, ah, st["b"], st["base"], h, p, bk,
-                        st["w"])
+                n = kernels_launched(lambda: kb.colk_costs(*args, ws=ws))
+                require(n == 1, f"one colk_costs call launched {n} kernels")
+                host = host_us(lambda: kb.colk_costs(*args, ws=ws), 500)
+                log(f"K2: one call launches {n} kernel (torch.profiler); "
+                    f"{host:.1f} us of host time a call (wrapper and "
+                    "enqueue, host clock over 500 calls)")
                 times["colk_costs"] = [
-                    device_ms(lambda: kb.colk_costs(*args), 50),
+                    k2_us / 1e3,
                     device_ms(lambda: kb.colk_costs_plain(*args), 50)]
         # ---- K3 / K4 (full window: every eta row live) ----
         if t == 127:
@@ -413,11 +473,15 @@ def phase_kernels(records: dict) -> None:
             e = max(e, close("K3 mv", mv_k, tt_matvec(Tk, coeffs),
                              1e-12 * scale))
             errs["apply_reprice"] = e
+            T3 = Tk
             Tk, Tp = Tt.clone(), Tt.clone()
             kb.apply_window(Tk, C, F)
             kb.apply_window_plain(Tp, C, F)
             errs["apply_window"] = close("K4 Tt", Tk, Tp, tol_T)
-            del Tk, Tp
+            # K4 rounds every element as K3's tile does: the same Tt.
+            equal("K4 Tt vs K3's apply", Tk, T3)
+            del Tk, Tp, T3
+            k4_vs_k3_small(g)
             # ---- K11: coeffs @ Tt in f64, K3's fold without the apply --
             mv11 = kb.reprice(Tt, coeffs)
             errs["reprice"] = close(
@@ -433,14 +497,31 @@ def phase_kernels(records: dict) -> None:
                 device_ms(lambda: kb.reprice(Tt, coeffs), 10),
                 device_ms(lambda: kb.reprice_plain(Tt, coeffs), 5)]
             library_reprice = device_ms(lambda: coeffs @ Tt.double(), 5)
+            # The window applies: CUDA events over back-to-back calls (each
+            # call keeps the device busy for over a millisecond), the
+            # profiler's sum printed beside (it has dropped launches of
+            # these long kernels). K3, then K4 and its plain version
+            # (cuBLAS addmm_) in turns: plain, kernel, kernel, plain.
             T2 = Tt.clone()
-            times["apply_reprice"] = [
-                device_ms(lambda: kb.apply_reprice(T2, C, F, coeffs), 5),
-                device_ms(lambda: kb.apply_reprice_plain(T2, C, F, coeffs),
-                          5)]
-            times["apply_window"] = [
-                device_ms(lambda: kb.apply_window(T2, C, F), 5),
-                device_ms(lambda: kb.apply_window_plain(T2, C, F), 5)]
+            fns = {"K3": lambda: kb.apply_reprice(T2, C, F, coeffs),
+                   "K3 plain": lambda: kb.apply_reprice_plain(T2, C, F,
+                                                              coeffs),
+                   "K4": lambda: kb.apply_window(T2, C, F),
+                   "addmm_": lambda: kb.apply_window_plain(T2, C, F)}
+            ev = {}
+            for name in ("K3", "K3 plain", "addmm_", "K4", "K4", "addmm_"):
+                ev.setdefault(name, []).append(event_ms(fns[name], 10))
+            prof = {name: device_ms(fns[name], 5) for name in fns}
+            times["apply_reprice"] = [ev["K3"][0], ev["K3 plain"][0]]
+            times["apply_window"] = [statistics.mean(ev["K4"]),
+                                     statistics.mean(ev["addmm_"])]
+            log(f"K4 apply_window {ev['K4'][0]:.4f} / {ev['K4'][1]:.4f} ms "
+                f"against addmm_ {ev['addmm_'][0]:.4f} / "
+                f"{ev['addmm_'][1]:.4f} ms (CUDA events; plain, kernel, "
+                f"kernel, plain; M={M} R={R} L={L}); K4/addmm_ "
+                f"{times['apply_window'][0] / times['apply_window'][1]:.3f};"
+                f" K3 {ev['K3'][0]:.4f} ms; profiler: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in prof.items()))
             del T2
     # Bounds at the timed inputs (K1/K2 at t = 37, K2 under devex; K3/K4
     # a full window): bytes each input read once and each output written
@@ -474,6 +555,27 @@ def phase_kernels(records: dict) -> None:
         log(f"{kid} {name}: matches plain (max abs err {errs[name]:.3e}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({by})")
+    log(f"kernel phase: SM clock after {sm_clock()}")
+
+
+def k4_vs_k3_small(g) -> None:
+    """K4 against K3's apply bit for bit at a shape with an odd number of
+    R tiles and the shortest window (M=256, R=384, L=8)."""
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    M, R, L = 256, 384, 8
+    dev = torch.device("cuda")
+    Tt = torch.rand((M, R), generator=g, device=dev) * 2 - 1
+    C = torch.rand((L, R), generator=g, device=dev) * 2 - 1
+    F = torch.rand((L, M), generator=g, device=dev) * 0.2 - 0.1
+    coeffs = torch.rand((M,), generator=g, device=dev, dtype=torch.float64)
+    T3, T4 = Tt.clone(), Tt.clone()
+    kb.apply_reprice(T3, C, F, coeffs)
+    kb.apply_window(T4, C, F)
+    equal(f"K4 Tt vs K3's apply (M={M} R={R} L={L})", T4, T3)
+    require(not torch.equal(T4, Tt), "K4 left Tt as it was")
 
 
 WINDOW_ARGS = ("costs", "b", "z", "base", "w", "sci", "c0", "cf", "C", "F",
@@ -1203,6 +1305,8 @@ def phase_flagship(launches: dict) -> tuple:
     launches.update(kb.LAUNCHES)
     check_certified("random_8192_8192", res, OBJ_8192)
     walk = (res.iterations_phase1, res.iterations_phase2)
+    require(walk == FLAGSHIP_WALK, f"flagship walked {walk}, recorded "
+            f"{FLAGSHIP_WALK}")
     pivots = sum(walk)
     log(f"flagship random_8192_8192: OPTIMAL certified objective "
         f"{res.objective!r} (golden {OBJ_8192!r}); pivots "

@@ -102,10 +102,10 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     # Tt C F costs k t u do r eps M R
     "colk_costs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _I, _I,
-                          # ah b base h p bk w scratch_i scratch_f
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          # five partials, four candidates, stream
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                          # ah b base h p bk w workspace, its bytes
+                          _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          # four candidates, stream
+                          _P, _P, _P, _P, _P],
     "apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
     # Tt F C h t M R ah stream

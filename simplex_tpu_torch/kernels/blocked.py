@@ -39,6 +39,8 @@ BIG_INDEX = 2 ** 31 - 1
 
 #: Threads per block of the per-pivot kernels (csrc/blocked.cu THREADS).
 THREADS = 256
+#: Columns per R block of K2 (csrc/blocked.cu COLK_COLS).
+COLK_COLS = 64
 #: Tile edge of the window apply (csrc/blocked.cu AT).
 APPLY_TILE = 128
 
@@ -275,8 +277,26 @@ def colk_costs_plain(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     return entering_candidates(costs, w, r, eps)
 
 
+def colk_workspace_bytes(R: int) -> int:
+    """Bytes of K2's workspace for ``R`` columns (csrc/blocked.cu
+    ``colk_ws_bytes``): the arrival counter and a stashed weight (16
+    bytes), then per R block of ``COLK_COLS`` columns one partial of
+    three f64 and two int32."""
+    return 16 + 32 * _cdiv(R, COLK_COLS)
+
+
+def colk_workspace(R: int, device) -> torch.Tensor:
+    """A zeroed workspace for ``colk_costs`` over ``R`` columns on
+    ``device``: the partials of its blocks and the arrival counter that
+    finds the last block. Each call leaves the counter at 0 again, so a
+    loop allocates one and passes it to every call; calls that share one
+    must run in order on one stream. The plain path ignores it."""
+    return torch.zeros(colk_workspace_bytes(R), dtype=torch.uint8,
+                       device=device)
+
+
 def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
-               ah, b, base, h, p, bk, w=None):
+               ah, b, base, h, p, bk, w=None, ws=None):
     """K2, the port of ``simplex_tpu.kernels.blocked.colk_costs_pass``
     with ``bf`` and optionally ``devex``.
 
@@ -290,7 +310,8 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     become zero and nothing else changes. Updates in place and returns
     the next candidates over the (updated) costs, as
     ``entering_candidates``. ``k`` may be ``BIG_INDEX`` (unbounded; then
-    ``do`` is false) and is clamped into range."""
+    ``do`` is false) and is clamped into range. ``ws`` is a
+    ``colk_workspace``; on the card a call without one allocates one."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -312,27 +333,26 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
 
     lib = load_library()
     dev = Tt.device
-    nr = _cdiv(R, THREADS)
-    si = torch.empty(2, dtype=torch.int32, device=dev)
-    sf = torch.empty(1, dtype=torch.float32, device=dev)
-    part_key = torch.empty(nr, dtype=torch.float64, device=dev)
-    part_idx = torch.empty(nr, dtype=torch.int32, device=dev)
-    part_val = torch.empty(nr, dtype=torch.float64, device=dev)
-    part_bidx = torch.empty(nr, dtype=torch.int32, device=dev)
-    part_bval = torch.empty(nr, dtype=torch.float64, device=dev)
-    h_d = torch.empty((), dtype=torch.int32, device=dev)
-    v_d = torch.empty((), dtype=torch.float64, device=dev)
-    h_b = torch.empty((), dtype=torch.int32, device=dev)
-    v_b = torch.empty((), dtype=torch.float64, device=dev)
+    if ws is None:
+        ws = colk_workspace(R, dev)
+    if (ws.dtype != torch.uint8 or not ws.is_contiguous()
+            or ws.device != dev or ws.numel() < colk_workspace_bytes(R)):
+        raise ValueError(f"ws: want a colk_workspace({R}) on {dev}, got "
+                         f"{ws.dtype} ({ws.numel()},) on {ws.device}")
+    # The candidates: (h_d, h_b) int32 and (v_d, v_b) f64, two allocations.
+    hidx = torch.empty(2, dtype=torch.int32, device=dev)
+    vals = torch.empty(2, dtype=torch.float64, device=dev)
+    hp, vp = hidx.data_ptr(), vals.data_ptr()
     err = lib.colk_costs_launch(
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(k), t, _ptr(u),
         _ptr(do), r, float(eps), M, R, _ptr(ah), _ptr(b), _ptr(base),
-        _ptr(h), _ptr(p), _ptr(bk), _ptr(w), _ptr(si), _ptr(sf),
-        _ptr(part_key), _ptr(part_idx), _ptr(part_val), _ptr(part_bidx),
-        _ptr(part_bval), _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b),
-        _stream(Tt))
+        _ptr(h), _ptr(p), _ptr(bk), _ptr(w), _ptr(ws), ws.numel(),
+        ctypes.c_void_p(hp), ctypes.c_void_p(vp), ctypes.c_void_p(hp + 4),
+        ctypes.c_void_p(vp + 8), _stream(Tt))
     check(lib, err, "colk_costs")
     LAUNCHES["colk_costs"] += 1
+    h_d, h_b = hidx.unbind()
+    v_d, v_b = vals.unbind()
     return h_d, v_d, h_b, v_b
 
 
@@ -378,8 +398,9 @@ def apply_window_plain(Tt, C, F):
 
 def apply_window(Tt, C, F) -> None:
     """K4, the port of ``simplex_tpu.kernels.blocked.apply_window_pass``:
-    ``Tt -= F^T @ C`` in place (IEEE f32). K3's kernel with the reprice
-    compiled out."""
+    ``Tt -= F^T @ C`` in place (IEEE f32). On the card a persistent
+    kernel whose every element rounds as K3's apply does, so the two leave
+    the same Tt bit for bit."""
     M, R, L = _check_factors(Tt, C, F)
     if not _on_card(Tt, C, F):
         apply_window_plain(Tt, C, F)

@@ -11,11 +11,13 @@
 // dead segments through their index maps, here t is the loop bound.
 //
 // Every kernel launches on the caller's stream, allocates nothing, and each
-// C entry point returns cudaGetLastError() after its launches. Cross-block
-// reductions never use atomics: each block writes one partial, and a
-// one-block pass folds the partials in a fixed order, so the pivot choices
-// (and therefore the walks) are the same from run to run. Every fold orders
-// candidates by (key, then lowest index).
+// C entry point returns cudaGetLastError() after its launches. No value is
+// reduced with atomics: each block writes one partial, and one block folds
+// the partials -- a one-block pass (K1, K3, K11), or the last block of the
+// same launch (K2), found by an atomic arrival counter that only counts
+// the blocks that are done. Every fold orders candidates by (key, then
+// lowest index), a total order, so the pivot choices (and therefore the
+// walks) are the same from run to run whatever the blocks' order.
 //
 // Offsets into Tt, C and F are computed in size_t: at 10k x 100k the
 // tableau holds 1.2e9 elements and its byte offsets overflow a 32-bit int.
@@ -62,6 +64,59 @@ __device__ void block_argmax(double &key, int &idx, double &val) {
     idx = si[0];
     val = sv[0];
     __syncthreads();
+}
+
+// block_argmax over warp shuffles: one barrier instead of eight. The whole
+// block must call it; thread 0 gets the result.
+__device__ void block_argmax_warps(double &key, int &idx, double &val) {
+    __shared__ double sk[THREADS / 32];
+    __shared__ int si[THREADS / 32];
+    __shared__ double sv[THREADS / 32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    auto fold = [&]() {
+        for (int off = 16; off > 0; off >>= 1) {
+            const double k2 = __shfl_down_sync(0xffffffffu, key, off);
+            const int i2 = __shfl_down_sync(0xffffffffu, idx, off);
+            const double v2 = __shfl_down_sync(0xffffffffu, val, off);
+            if (better(k2, i2, key, idx)) {
+                key = k2;
+                idx = i2;
+                val = v2;
+            }
+        }
+    };
+    fold();
+    if (lane == 0) {
+        sk[warp] = key;
+        si[warp] = idx;
+        sv[warp] = val;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const bool has = lane < THREADS / 32;
+        key = has ? sk[lane] : -CUDART_INF;
+        idx = has ? si[lane] : BIG_INDEX;
+        val = has ? sv[lane] : 0.0;
+        fold();
+    }
+    __syncthreads();
+}
+
+// Asynchronous global -> shared copies (sm_80+), 16 bytes each, past L1.
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // NaN-propagating max/min, as jnp.maximum / torch.maximum behave.
@@ -209,51 +264,96 @@ __global__ void __launch_bounds__(THREADS) ah_tiles(
 // index), all over the updated costs of the active columns j < r. A skipped
 // pivot (do = 0) writes zero rows C[t] and F[t] and leaves the vectors as
 // they are; the candidates are still folded.
-// Bound on the card: memory and launch latency. Per pivot it reads the live C
-// rows (t * R * 4 bytes, computed: 3.6 MB at t = 37, R = 24576) and streams
-// Tt's row k, the costs and the weights once; measured 9.3 us per call (three
-// launches) at those shapes on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md),
-// ~0.45 TB/s. Design: one thread per variable, coalesced C reads with the t
-// values F[:, k] staged in shared memory; extra blocks past the R axis do the
-// M-axis b / base / eta-row update in the same launch; the candidates fold
-// per block into partials that a one-block pass folds in a fixed order. In
-// place: C row t, F row t, costs, w, b and base are updated where they lie.
-// Each thread reads only C and F rows s < t and writes only row t, and reads
-// each vector element it writes before writing it. The two values that a
-// thread other than their owner reads -- w[h] and base[k], the leaving
-// variable l -- are snapshotted by a one-thread launch before the tiles run.
-// The TPU kernel emitted the eta row for the caller to store; here it goes
-// straight into F[t].
+// Bound on the card: memory and latency. Per pivot it reads the live C rows
+// (t * R * 4 bytes, computed: 3.6 MB at t = 37, R = 24576) and streams Tt's
+// row k, the costs and the weights once: 1.4 us at HBM's rate. PR 4's three
+// launches (a one-thread snapshot, the tiles, a one-block fold) took 9.2 us
+// at those shapes on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md), with one C
+// load in flight per thread behind its FFMA chain. This kernel: 7.4-7.6 us
+// there, 5.8-6.4 us at t = 0 -- what is left is latency, not bytes: k, then
+// row k; the partial, its fence and the ticket; the last block's fold.
+// Design: one launch. Each R block owns COLK_COLS columns: its 256 threads
+// first issue every load of the block at once -- C[s, its columns] for up to
+// COLK_ROWS live rows, as 16-byte cp.async copies into shared memory, and
+// Tt[k, its columns] -- so the whole C slab is in flight together; then one
+// thread per column runs the FFMA chain from shared memory, s = 0 .. t-1 in
+// order, and the column updates. Extra blocks past the R axis do the M-axis
+// b / base / eta-row update. Each R block writes its candidates' partial to
+// the workspace and takes a ticket from an arrival counter there; the block
+// that draws the last ticket folds the partials, writes the outputs and the
+// deferred elements, and resets the counter to 0 for the next call. The
+// counter only counts arrivals: the fold is the same total order as before,
+// so the candidates are the same whichever block comes last.
+// In place: C row t, F row t, costs, w, b and base are updated where they
+// lie. Each thread reads only C and F rows s < t and writes only row t, and
+// reads each vector element it writes before writing it. Two elements are
+// read by threads other than their owner: base[k] (the leaving variable l)
+// and w[h]. Every R block reads them at its start, and only the last block
+// writes them, after every R block has arrived (w[h]'s new value waits in
+// the workspace meanwhile). The TPU kernel emitted the eta row for the
+// caller to store; here it goes straight into F[t].
 
-__global__ void colk_prep(const int *__restrict__ k_ptr,
-                          const int *__restrict__ h_ptr,
-                          const int *__restrict__ base,
-                          const float *__restrict__ w, int M, int R,
-                          int *__restrict__ si, float *__restrict__ sf) {
-    const int k = min(*k_ptr, M - 1);            // k = BIG when unbounded
-    si[0] = k;
-    si[1] = base[k];                             // leaving variable l
-    sf[0] = w != nullptr ? w[min(*h_ptr, R - 1)] : 0.0f;
+constexpr int COLK_COLS = 64;    // columns per R block
+constexpr int COLK_ROWS = 128;   // live C rows staged per pass of the chain
+
+// The workspace (bytes; csrc and kernels/blocked.py colk_workspace_bytes
+// agree): [0, 4) the arrival counter, [4, 8) w[h]'s new value, then f64
+// key, val, bval[nb] and int idx, bidx[nb] for nb R blocks.
+__host__ __device__ constexpr size_t colk_ws_bytes(int nb) {
+    return 16 + (size_t)nb * (3 * sizeof(double) + 2 * sizeof(int));
 }
 
-__global__ void __launch_bounds__(THREADS) colk_costs_tiles(
+struct ColkWs {
+    unsigned *counter;
+    float *w_h;
+    double *key, *val, *bval;
+    int *idx, *bidx;
+    __device__ ColkWs(unsigned char *ws, int nb)
+        : counter(reinterpret_cast<unsigned *>(ws)),
+          w_h(reinterpret_cast<float *>(ws + 4)),
+          key(reinterpret_cast<double *>(ws + 16)), val(key + nb),
+          bval(val + nb), idx(reinterpret_cast<int *>(bval + nb)),
+          bidx(idx + nb) {}
+};
+
+// One pass's loads into shared memory: C[s0 + s, j0 .. j0 + COLK_COLS) as
+// 16-byte cp.async copies (not committed here) and F[s0 + s, k], for
+// s < min(COLK_ROWS, t - s0). The whole block calls it.
+__device__ __forceinline__ void colk_stage(const float *__restrict__ C,
+                                           const float *__restrict__ F,
+                                           int s0, int t, int k, int M, int R,
+                                           int j0, float (*cs)[COLK_COLS],
+                                           float *fk) {
+    constexpr int CHUNKS = COLK_COLS / 4;        // 16-byte copies per row
+    const int rows = min(COLK_ROWS, t - s0);
+    for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
+        const int s = c / CHUNKS, q = (c % CHUNKS) * 4;
+        cp_async16(&cs[s][q], C + (size_t)(s0 + s) * R + j0 + q);
+    }
+    for (int s = threadIdx.x; s < rows; s += THREADS)
+        fk[s] = F[(size_t)(s0 + s) * M + k];
+}
+
+__global__ void __launch_bounds__(THREADS) colk_costs_fused(
         const float *__restrict__ Tt, float *__restrict__ C,
-        float *__restrict__ F, double *__restrict__ costs, int t,
+        float *__restrict__ F, double *__restrict__ costs,
+        const int *__restrict__ k_ptr, int t,
         const double *__restrict__ u_ptr,
         const unsigned char *__restrict__ do_ptr, int r, double eps, int M,
-        int R, int n_rtiles, const float *__restrict__ ah,
+        int R, int n_rblocks, const float *__restrict__ ah,
         double *__restrict__ b, int *__restrict__ base,
         const int *__restrict__ h_ptr, const float *__restrict__ p_ptr,
         const double *__restrict__ bk_ptr, float *__restrict__ w,
-        const int *__restrict__ si, const float *__restrict__ sf,
-        double *__restrict__ part_key, int *__restrict__ part_idx,
-        double *__restrict__ part_val, int *__restrict__ part_bidx,
-        double *__restrict__ part_bval) {
-    const int k = si[0];
+        unsigned char *__restrict__ ws_bytes, int *__restrict__ hd_out,
+        double *__restrict__ vd_out, int *__restrict__ hb_out,
+        double *__restrict__ vb_out) {
+    const int k = min(*k_ptr, M - 1);            // k = BIG when unbounded
     const bool apply = *do_ptr != 0;
-    if ((int)blockIdx.x >= n_rtiles) {
-        // M axis: b, base and the eta row (whole blocks return together).
-        const int j = (blockIdx.x - n_rtiles) * THREADS + threadIdx.x;
+    const int tid = threadIdx.x;
+    if ((int)blockIdx.x >= n_rblocks) {
+        // M axis: b and the eta row (whole blocks return together); base[k]
+        // is the last block's, since the R blocks read it.
+        const int j = (blockIdx.x - n_rblocks) * THREADS + tid;
         if (j >= M) return;
         float *v = F + (size_t)t * M;
         if (!apply) {
@@ -264,7 +364,6 @@ __global__ void __launch_bounds__(THREADS) colk_costs_tiles(
         const double bk = *bk_ptr;
         if (j == k) {
             b[j] = __ddiv_rn(bk, (double)p);
-            base[j] = *h_ptr;
             v[j] = __fsub_rn(1.0f, __fdiv_rn(1.0f, p));
         } else {
             const float a = ah[j];
@@ -275,21 +374,54 @@ __global__ void __launch_bounds__(THREADS) colk_costs_tiles(
         return;
     }
 
-    extern __shared__ float fk[];                // F[s, k] for s < t
-    for (int s = threadIdx.x; s < t; s += THREADS)
-        fk[s] = F[(size_t)s * M + k];
-    __syncthreads();
+    __shared__ __align__(16) float cs[COLK_ROWS][COLK_COLS];
+    __shared__ __align__(16) float trow[COLK_COLS];
+    __shared__ float fk[COLK_ROWS];
+    __shared__ bool last;
+    const ColkWs ws(ws_bytes, n_rblocks);
+    const int j0 = blockIdx.x * COLK_COLS;
+    const int j = j0 + tid;                      // this thread's column
+    const bool owner = tid < COLK_COLS;          // R is a multiple of 128
+    const int hc = min(*h_ptr, R - 1);
 
-    const int j = blockIdx.x * THREADS + threadIdx.x;
+    // The first pass's loads, all issued before any is waited for.
+    colk_stage(C, F, 0, t, k, M, R, j0, cs, fk);
+    if (tid < COLK_COLS / 4)
+        cp_async16(&trow[tid * 4], Tt + (size_t)k * R + j0 + tid * 4);
+    cp_async_commit();
+    double c = 0.0;
+    float wj = 0.0f;
+    if (owner) {
+        c = costs[j];
+        if (w != nullptr) wj = w[j];
+    }
+    const int lvar = base[k];                    // read before any write
+    const float wh = w != nullptr ? w[hc] : 0.0f;
+
+    // colk[j] = Tt[k, j] - sum_{s<t} F[s, k] C[s, j], the FFMA chain in s
+    // order across the passes.
+    float acc = 0.0f;
+    for (int s0 = 0;;) {
+        cp_async_wait<0>();
+        __syncthreads();
+        const int rows = min(COLK_ROWS, t - s0);
+        if (owner) {
+#pragma unroll 8
+            for (int s = 0; s < rows; ++s)
+                acc = fmaf(fk[s], cs[s][tid], acc);
+        }
+        s0 += COLK_ROWS;
+        if (s0 >= t) break;
+        __syncthreads();                         // the pass is read
+        colk_stage(C, F, s0, t, k, M, R, j0, cs, fk);
+        cp_async_commit();
+    }
+
     double key = -CUDART_INF, val = CUDART_INF, bval = CUDART_INF;
     int idx = BIG_INDEX, bidx = BIG_INDEX;
-    if (j < R) {
-        float acc = 0.0f;
-        for (int s = 0; s < t; ++s)
-            acc = fmaf(fk[s], C[(size_t)s * R + j], acc);
-        const float colk = __fsub_rn(Tt[(size_t)k * R + j], acc);
+    if (owner) {
+        const float colk = __fsub_rn(trow[tid], acc);
         C[(size_t)t * R + j] = apply ? colk : 0.0f;
-        double c = costs[j];
         if (apply) {
             c = __dsub_rn(c, __dmul_rn(*u_ptr, (double)colk));
             costs[j] = c;
@@ -297,17 +429,20 @@ __global__ void __launch_bounds__(THREADS) colk_costs_tiles(
         const bool live = j < r;
         const bool elig = live && c <= -eps;
         if (w != nullptr) {
-            float wj = w[j];
             if (apply) {
                 const float p = *p_ptr;
-                const float wh = sf[0];
                 const float alpha = __fdiv_rn(colk, p);
                 float w2 = max_nan(wj, __fmul_rn(__fmul_rn(alpha, alpha), wh));
-                if (j == si[1])
+                if (j == lvar)
                     w2 = max_nan(__fdiv_rn(wh, __fmul_rn(p, p)), 1.0f);
                 w2 = min_nan(w2, 1e12f);
                 if (w2 != w2) w2 = 1.0f;
-                w[j] = w2;
+                if (j == hc) {
+                    *ws.w_h = w2;            // the last block stores it
+                    __threadfence();
+                } else {
+                    w[j] = w2;
+                }
                 wj = w2;
             }
             if (elig) {
@@ -325,63 +460,72 @@ __global__ void __launch_bounds__(THREADS) colk_costs_tiles(
             bval = c;
         }
     }
-    block_argmax(key, idx, val);
+    block_argmax_warps(key, idx, val);
     double bkey = bidx == BIG_INDEX ? -CUDART_INF : 0.0;
-    block_argmax(bkey, bidx, bval);              // lowest eligible index
-    if (threadIdx.x == 0) {
-        part_key[blockIdx.x] = key;
-        part_idx[blockIdx.x] = idx;
-        part_val[blockIdx.x] = val;
-        part_bidx[blockIdx.x] = bidx;
-        part_bval[blockIdx.x] = bval;
+    block_argmax_warps(bkey, bidx, bval);        // lowest eligible index
+    // Publish the partial (thread 0) and w[h]'s new value (its owner, who
+    // fenced before the fold's barriers), then arrive.
+    if (tid == 0) {
+        ws.key[blockIdx.x] = key;
+        ws.idx[blockIdx.x] = idx;
+        ws.val[blockIdx.x] = val;
+        ws.bidx[blockIdx.x] = bidx;
+        ws.bval[blockIdx.x] = bval;
+        __threadfence();
+        last = atomicAdd(ws.counter, 1u) == (unsigned)n_rblocks - 1;
     }
-}
+    __syncthreads();
+    if (!last) return;
 
-__global__ void __launch_bounds__(THREADS) colk_costs_finish(
-        const double *__restrict__ part_key, const int *__restrict__ part_idx,
-        const double *__restrict__ part_val,
-        const int *__restrict__ part_bidx,
-        const double *__restrict__ part_bval, int nparts,
-        int *__restrict__ hd_out, double *__restrict__ vd_out,
-        int *__restrict__ hb_out, double *__restrict__ vb_out) {
-    double key = -CUDART_INF, val = CUDART_INF, bval = CUDART_INF;
-    int idx = BIG_INDEX, bidx = BIG_INDEX;
-    for (int i = threadIdx.x; i < nparts; i += THREADS) {
-        if (better(part_key[i], part_idx[i], key, idx)) {
-            key = part_key[i];
-            idx = part_idx[i];
-            val = part_val[i];
+    // The last block: every R block has read base[k] and w[h] and written
+    // its partial. Fold the partials (read past L1) in the same order.
+    __threadfence();
+    key = -CUDART_INF;
+    val = bval = CUDART_INF;
+    idx = bidx = BIG_INDEX;
+    for (int i = tid; i < n_rblocks; i += THREADS) {
+        const double ki = __ldcg(ws.key + i), vi = __ldcg(ws.val + i);
+        const double bvi = __ldcg(ws.bval + i);
+        const int ii = __ldcg(ws.idx + i), bi = __ldcg(ws.bidx + i);
+        if (better(ki, ii, key, idx)) {
+            key = ki;
+            idx = ii;
+            val = vi;
         }
-        if (part_bidx[i] < bidx) {
-            bidx = part_bidx[i];
-            bval = part_bval[i];
+        if (bi < bidx) {
+            bidx = bi;
+            bval = bvi;
         }
     }
-    block_argmax(key, idx, val);
-    double bkey = bidx == BIG_INDEX ? -CUDART_INF : 0.0;
-    block_argmax(bkey, bidx, bval);
-    if (threadIdx.x == 0) {
+    block_argmax_warps(key, idx, val);
+    bkey = bidx == BIG_INDEX ? -CUDART_INF : 0.0;
+    block_argmax_warps(bkey, bidx, bval);
+    if (tid == 0) {
         const bool none = key == -CUDART_INF;    // no candidate at all
         *hd_out = none ? 0 : idx;
         *vd_out = none ? CUDART_INF : val;
         *hb_out = bidx;
         *vb_out = bidx == BIG_INDEX ? CUDART_INF : bval;
+        if (apply) {
+            base[k] = *h_ptr;
+            if (w != nullptr) w[hc] = __ldcg(ws.w_h);
+        }
+        *ws.counter = 0;                         // ready for the next call
     }
 }
 
 // ---------------------------------------------------------------------------
-// K3 / K4: window apply Tt -= F^T C in place, with the reprice
-// mv = coeffs^T Tt_new fused (K3) or not (K4).
+// K3: window apply Tt -= F^T C in place, fused with the reprice
+// mv = coeffs^T Tt_new.
 //
-// K3 replaces apply_reprice_pass (simplex_tpu/kernels/blocked.py:832,
-// pallas_call at :887; body _apply_reprice_kernel :744-826); K4 replaces
-// apply_window_pass (:694, pallas_call at :709; body _apply_kernel :686).
+// Replaces apply_reprice_pass (simplex_tpu/kernels/blocked.py:832,
+// pallas_call at :887; body _apply_reprice_kernel :744-826).
 // Bound on the card: f32 arithmetic. 2 L M R flops (computed: 51.5 GFLOP at
 // the flagship M = 8192, R = 24576, L = 128) against 8 M R bytes of tableau
 // read and write (1.6 GB): 32 flops per byte, above the H100's f32 ridge, so
-// the CUDA cores bound it; measured 1.32-1.38 ms = 37-39 TFLOP/s, 56-59% of
-// the f32 peak, on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md). IEEE f32 FFMA,
-// no TF32 (the TPU ran HIGHEST).
+// the CUDA cores bound it; measured 1.32-1.64 ms, 47-58% of the f32 peak, on
+// NVIDIA H100 80GB HBM3, 700.00 W (PERF.md). IEEE f32 FFMA, no TF32 (the
+// TPU ran HIGHEST).
 // Design: 128 x 128 output tiles, 256 threads each owning an 8 x 8 register
 // tile (apply_tile.cuh, shared with the batched apply); each thread reads
 // its Tt elements before it writes them, and no other thread touches them,
@@ -390,7 +534,8 @@ __global__ void __launch_bounds__(THREADS) colk_costs_finish(
 // partial row per M tile; a second pass sums the partials in M order, so
 // the result is deterministic. The TPU kernel took a traced flag to skip
 // the reprice off cadence; here the loop decides the cadence on the host,
-// where it syncs once per window anyway, and launches K4 instead.
+// where it syncs once per window anyway, and launches K4 instead. K4 below
+// rounds every element of Tt as this tile does.
 
 template <bool REPRICE>
 __global__ void __launch_bounds__(APPLY_THREADS) apply_tiles(
@@ -410,6 +555,174 @@ __global__ void __launch_bounds__(THREADS) reprice_finish(
     for (int i = 0; i < n_mtiles; ++i)
         s = __dadd_rn(s, part[(size_t)i * R + j]);
     mv[j] = s;
+}
+
+// ---------------------------------------------------------------------------
+// K4: window apply Tt -= F^T C in place, IEEE f32.
+//
+// Replaces apply_window_pass (simplex_tpu/kernels/blocked.py:694,
+// pallas_call at :709; body _apply_kernel :686).
+// Bound on the card: f32 arithmetic, as K3 (0.769 ms of FFMA at the
+// flagship shape against 0.481 ms of tableau traffic). PR 4's kernel, K3's
+// tile without the fold, took 1.71 ms there on NVIDIA H100 80GB HBM3,
+// 700.00 W (PERF.md), behind cuBLAS addmm_: each 8-row stage went global ->
+// register -> shared between two barriers, the 64 KB Tt tile was read and
+// written after the main loop with nothing to overlap it, and its C
+// fragments were read with 2-way bank conflicts. This kernel takes 1.19 ms
+// there, ahead of addmm_ (PERF.md; tools/k4_variants.cu times the designs).
+// Design (chosen on the card among variants of stage depth, stage height,
+// blocks per SM and thread layout; PERF.md): persistent blocks, two per SM,
+// each walking a contiguous range of the 128 x 128 output tiles (the R
+// tiles of one M tile in a row). Eight eta rows of F and of C make one 8 KB
+// stage; a ring of WIN_STAGES stages is filled by cp.async from all
+// threads, WIN_STAGES - 1 stages ahead, and runs on across tiles, so the
+// next tile's first stages arrive during this tile's last ones. The tile
+// of Tt is copied into shared memory when the tile starts, behind the main
+// loop, and written back from there by plain stores that drain while the
+// next tile computes. Tile and stage offsets advance by addition, not by
+// division. A warp covers 32 rows x 64 columns: each thread 8 rows and two
+// 4-wide column groups 32 apart, so a warp's 16-byte fragment reads touch
+// 128 contiguous bytes of C and 128 of F (no bank conflict, no replay).
+// The FFMAs of a step run in a zigzag over the thread's 8 x 8 outputs.
+// Arithmetic: each element's sum is fmaf over s = 0 .. L-1 in order from
+// 0.0f, then one __fsub_rn from Tt: the rounding of apply_tile.cuh, so K4
+// and K3 leave the same Tt bit for bit. No split-K, no tensor cores.
+// F is streamed with C rather than kept resident per M tile: a resident
+// slab (L x 512 bytes) would cap L in 227 KB of shared memory and leave
+// one block per SM, and its re-reads come from L2 (F is 4 MB at the
+// flagship shape).
+
+constexpr int WIN_STAGES = 4;
+constexpr int WIN_STAGE_FLOATS = 2 * AK * AT;    // F rows, then C rows
+constexpr size_t WIN_SMEM =
+    (size_t)(AT * AT + WIN_STAGES * WIN_STAGE_FLOATS) * sizeof(float);
+
+__global__ void __launch_bounds__(APPLY_THREADS, 2) window_apply(
+        float *__restrict__ Tt, const float *__restrict__ F,
+        const float *__restrict__ C, int M, int R, int L) {
+    extern __shared__ __align__(16) float win_smem[];
+    float *Ts = win_smem;                        // the tile of Tt
+    float *ring = win_smem + AT * AT;
+    const int n_rt = R / AT;
+    const int n_tiles = (M / AT) * n_rt;
+    const int nk = L / AK;                       // stages per tile
+    const int tile0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+    const int tile1 =
+        (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+    const int G = (tile1 - tile0) * nk;          // this block's stages
+    const int tid = threadIdx.x;
+
+    // The loader: stage lg (its eta rows ls0 .. ls0 + 7 of tile (li0, lj0))
+    // goes to slot lg % WIN_STAGES, one commit group each (empty past the
+    // end), so group g holds stage g. Thread -> one 16-byte chunk of F and
+    // one of C.
+    int lg = 0, ls0 = 0;
+    size_t li0 = (size_t)(tile0 / n_rt) * AT, lj0 = (size_t)(tile0 % n_rt) * AT;
+    const int lrow = tid >> 5, lcol = (tid & 31) * 4;
+    auto load = [&]() {
+        if (lg < G) {
+            float *st = ring + (lg % WIN_STAGES) * WIN_STAGE_FLOATS;
+            cp_async16(st + lrow * AT + lcol,
+                       F + (size_t)(ls0 + lrow) * M + li0 + lcol);
+            cp_async16(st + (AK + lrow) * AT + lcol,
+                       C + (size_t)(ls0 + lrow) * R + lj0 + lcol);
+            ls0 += AK;
+            if (ls0 == L) {
+                ls0 = 0;
+                lj0 += AT;
+                if (lj0 == (size_t)R) {
+                    lj0 = 0;
+                    li0 += AT;
+                }
+            }
+        }
+        ++lg;
+        cp_async_commit();
+    };
+    for (int g = 0; g < WIN_STAGES - 1; ++g) load();
+
+    const int warp = tid >> 5, lane = tid & 31;
+    const int r0 = (warp >> 1) * 32 + (lane >> 3) * 8;   // rows r0 .. r0+7
+    const int c0 = (warp & 1) * 64 + (lane & 7) * 4;     // c0.., c0+32..
+    float acc[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
+
+    int kk = 0;
+    size_t i0 = (size_t)(tile0 / n_rt) * AT;     // the tile computed
+    size_t j0 = (size_t)(tile0 % n_rt) * AT;
+    for (int g = 0; g < G; ++g) {
+        cp_async_wait<WIN_STAGES - 2>();         // stage g has landed
+        __syncthreads();
+        if (kk == 0) {
+            // The tile of Tt, into the group of stage g + WIN_STAGES - 1.
+            // The previous tile's store read Ts before the barrier.
+#pragma unroll
+            for (int q = 0; q < AT * AT / 4 / APPLY_THREADS; ++q) {
+                const int c = tid + q * APPLY_THREADS;
+                const int row = c >> 5, col = (c & 31) * 4;
+                cp_async16(Ts + row * AT + col,
+                           Tt + (i0 + row) * (size_t)R + j0 + col);
+            }
+        }
+        load();                                  // into stage g - 1's slot
+        const float *Fs = ring + (g % WIN_STAGES) * WIN_STAGE_FLOATS;
+        const float *Cs = Fs + AK * AT;
+#pragma unroll
+        for (int s = 0; s < AK; ++s) {
+            float fa[8], cb[8];
+            *reinterpret_cast<float4 *>(&fa[0]) =
+                *reinterpret_cast<const float4 *>(&Fs[s * AT + r0]);
+            *reinterpret_cast<float4 *>(&fa[4]) =
+                *reinterpret_cast<const float4 *>(&Fs[s * AT + r0 + 4]);
+            *reinterpret_cast<float4 *>(&cb[0]) =
+                *reinterpret_cast<const float4 *>(&Cs[s * AT + c0]);
+            *reinterpret_cast<float4 *>(&cb[4]) =
+                *reinterpret_cast<const float4 *>(&Cs[s * AT + c0 + 32]);
+            // Odd rows walk the columns backwards: each FFMA shares an
+            // operand with the one before it, row changes included, which
+            // suits the register reuse cache (4% faster than in order).
+#pragma unroll
+            for (int a = 0; a < 8; ++a)
+#pragma unroll
+                for (int cc = 0; cc < 8; ++cc) {
+                    const int c = (a & 1) ? 7 - cc : cc;
+                    acc[a][c] = fmaf(fa[a], cb[c], acc[a][c]);
+                }
+        }
+        if (++kk == nk) {
+            // Tt's group is stage (g - nk + 1) + WIN_STAGES - 1's: landed
+            // at this iteration's wait unless the tile has fewer stages.
+            kk = 0;
+            if (nk < WIN_STAGES) cp_async_wait<0>();
+            __syncthreads();
+#pragma unroll
+            for (int a = 0; a < 8; ++a) {
+                const int row = r0 + a;
+                float *out = Tt + (i0 + row) * (size_t)R + j0 + c0;
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    float4 v = *reinterpret_cast<const float4 *>(
+                        &Ts[row * AT + c0 + half * 32]);
+                    v.x = __fsub_rn(v.x, acc[a][half * 4 + 0]);
+                    v.y = __fsub_rn(v.y, acc[a][half * 4 + 1]);
+                    v.z = __fsub_rn(v.z, acc[a][half * 4 + 2]);
+                    v.w = __fsub_rn(v.w, acc[a][half * 4 + 3]);
+                    *reinterpret_cast<float4 *>(out + half * 32) = v;
+                }
+#pragma unroll
+                for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
+            }
+            j0 += AT;
+            if (j0 == (size_t)R) {
+                j0 = 0;
+                i0 += AT;
+            }
+        }
+    }
+    cp_async_wait<0>();                          // the empty tail groups
 }
 
 // ---------------------------------------------------------------------------
@@ -481,24 +794,17 @@ int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       const unsigned char *do_flag, int r, double eps, int M,
                       int R, const float *ah, double *b, int *base,
                       const int *h, const float *p, const double *bk,
-                      float *w, int *scratch_i, float *scratch_f,
-                      double *part_key, int *part_idx, double *part_val,
-                      int *part_bidx, double *part_bval, int *hd_out,
-                      double *vd_out, int *hb_out, double *vb_out,
-                      void *stream) {
+                      float *w, unsigned char *ws, long long ws_bytes,
+                      int *hd_out, double *vd_out, int *hb_out,
+                      double *vb_out, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int n_rtiles = (R + THREADS - 1) / THREADS;
-    const int n_mtiles = (M + THREADS - 1) / THREADS;
-    colk_prep<<<1, 1, 0, st>>>(k, h, base, w, M, R, scratch_i, scratch_f);
-    RETURN_IF_ERROR();
-    colk_costs_tiles<<<n_rtiles + n_mtiles, THREADS, t * sizeof(float), st>>>(
-        Tt, C, F, costs, t, u, do_flag, r, eps, M, R, n_rtiles, ah, b, base,
-        h, p, bk, w, scratch_i, scratch_f, part_key, part_idx, part_val,
-        part_bidx, part_bval);
-    RETURN_IF_ERROR();
-    colk_costs_finish<<<1, THREADS, 0, st>>>(part_key, part_idx, part_val,
-                                             part_bidx, part_bval, n_rtiles,
-                                             hd_out, vd_out, hb_out, vb_out);
+    const int n_rblocks = (R + COLK_COLS - 1) / COLK_COLS;
+    const int n_mblocks = (M + THREADS - 1) / THREADS;
+    if (ws_bytes < (long long)colk_ws_bytes(n_rblocks))
+        return (int)cudaErrorInvalidValue;       // workspace too small
+    colk_costs_fused<<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
+        Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah, b,
+        base, h, p, bk, w, ws, hd_out, vd_out, hb_out, vb_out);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -520,9 +826,16 @@ int apply_reprice_launch(float *Tt, const float *F, const float *C, int M,
 int apply_window_launch(float *Tt, const float *F, const float *C, int M,
                         int R, int L, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(R / AT, M / AT);
-    apply_tiles<false><<<grid, THREADS, 0, st>>>(Tt, F, C, M, R, L, nullptr,
-                                                 nullptr);
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(window_apply,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)WIN_SMEM);
+    RETURN_IF_ERROR();
+    const int n_tiles = (M / AT) * (R / AT);
+    const int nb = n_tiles < 2 * sms ? n_tiles : 2 * sms;  // persistent
+    window_apply<<<nb, APPLY_THREADS, WIN_SMEM, st>>>(Tt, F, C, M, R, L);
     RETURN_IF_ERROR();
     return 0;
 }

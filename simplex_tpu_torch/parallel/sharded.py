@@ -50,7 +50,8 @@ from ..config import (DEFAULT_OPTIONS, EPS_REL_F32, SolverOptions, Status,
                       kernel_blocked_enabled, normalize_enabled,
                       refine_enabled)
 from ..kernels.blocked import (BIG_INDEX, ah, ah_plain, apply_reprice,
-                               apply_window, colk_costs, entering_candidates)
+                               apply_window, colk_costs, colk_workspace,
+                               entering_candidates)
 from ..problem import Problem
 from ..result import SolveResult
 from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
@@ -510,6 +511,7 @@ def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,
         _local_candidates(costs, w, r_loc, eps, shard), shard)
     C = torch.zeros((L, R_loc), dtype=torch.float32, device=dev)
     F = torch.zeros((L, M), dtype=torch.float32, device=dev)
+    ws = colk_workspace(R_loc, dev)
 
     st, it, windows = RUNNING, 0, 0
     while st == RUNNING and it < max_iter and windows < max_iter:
@@ -533,7 +535,7 @@ def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,
             lvar = _at(base, k)                  # before K2 changes base
             k32 = k.to(torch.int32)
             cands = colk_costs(Tt, C, F, costs, k32, t, u, do, r_loc, eps,
-                               a_h, b, base, h, p, bk)
+                               a_h, b, base, h, p, bk, ws=ws)
             if devex:
                 w = devex_update_sharded(w, do, C[t], p,
                                          torch.where(use_bland, w_b, w_d),

@@ -31,7 +31,8 @@ import torch
 from .config import (EPS_REL_F32, SolverOptions, Status,
                      kernel_blocked_enabled, normalize_enabled)
 from .kernels.blocked import (BIG_INDEX, ah_ratio, apply_reprice,
-                              apply_window, colk_costs, entering_candidates)
+                              apply_window, colk_costs, colk_workspace,
+                              entering_candidates)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 RUNNING = int(Status.RUNNING)
@@ -508,6 +509,7 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
     # it (a skipped pivot writes zeros), so the factors are never cleared.
     C = torch.zeros((L, R), dtype=torch.float32, device=dev)
     F = torch.zeros((L, M), dtype=torch.float32, device=dev)
+    ws = colk_workspace(R, dev)
 
     st, it, windows = RUNNING, 0, 0
     while st == RUNNING and it < max_iter and windows < max_iter:
@@ -524,7 +526,7 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
             u = torch.where(do, minc / p.to(f64), 0.0)
             h_d, v_d, h_b, v_b = colk_costs(
                 Tt, C, F, costs, k, t, u, do, r, eps, a_h, b, base, h, p,
-                bk, w)
+                bk, w, ws)
             z2 = torch.where(do, z - u * bk, z)
             status = _exit_status(active, optimal, unbounded, status)
             stall, bland = anticycling_update(

@@ -93,6 +93,91 @@ def test_kernels_match_plain_on_card(cuda):
     torch.testing.assert_close(Tk, Tp, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("M,R,L", [(256, 384, 16), (128, 128, 8),
+                                   (1024, 2944, 136)])
+def test_apply_window_equals_k3_apply_on_card(cuda, M, R, L):
+    """K4 leaves Tt bit for bit as K3's apply does (each element the same
+    FFMA chain over s in order, then one subtraction), at an odd R-tile
+    count, the shortest window, and a shape where each persistent block
+    walks several tiles across M tiles; and within 1e-5 * (1 + |x|) of
+    cuBLAS addmm_ (another summation order)."""
+    Tt = _rand((M, R), 41).to(cuda)
+    C = _rand((L, R), 42).to(cuda)
+    F = _rand((L, M), 43, -0.1, 0.1).to(cuda)
+    coeffs = _rand((M,), 44, dtype=np.float64).to(cuda)
+    T3, T4, Tp = Tt.clone(), Tt.clone(), Tt.clone()
+    kb.apply_reprice(T3, C, F, coeffs)
+    kb.apply_window(T4, C, F)
+    kb.apply_window_plain(Tp, C, F)
+    assert torch.equal(T4, T3)
+    torch.testing.assert_close(T4, Tp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+@pytest.mark.parametrize("do", [True, False], ids=["pivot", "skipped"])
+@pytest.mark.parametrize("t", [0, 1, 15])
+def test_colk_costs_on_card(cuda, t, do, devex):
+    """K2 twice back to back on one workspace, each call on a fresh copy
+    of the same state: both equal bit for bit (the last block reset the
+    arrival counter, which is 0 after each call) and match the plain
+    version -- C[t] to 1e-5 * (1 + |x|), costs to 1e-12 of the f64
+    formula on the kernel's own pivot row, F[t] to 1e-6 relative, base
+    and the candidates' indices equal; C[t][h] equal to K1's p bit for
+    bit when the pivot is taken; with do false C[t] and F[t] zero and the
+    vectors unchanged."""
+    M, R, L, eps = 256, 384, 16, 1e-4
+    Tt = _rand((M, R), 51).to(cuda)
+    C = _rand((L, R), 52).to(cuda)
+    F = _rand((L, M), 53, -0.1, 0.1).to(cuda)
+    C[t:] = 0
+    F[t:] = 0
+    b = _rand((M,), 54, 0, 100, np.float64).to(cuda)
+    h = torch.tensor(129, dtype=torch.int32, device=cuda)
+    ah, k, p, bk, unb = kb.ah_ratio(Tt, F, C, b, h, t, eps)
+    assert int(unb) == 0
+    u = -0.5 / p.double()
+    flag = torch.tensor(do, device=cuda)
+    costs = _rand((R,), 55, dtype=np.float64).to(cuda)
+    base = torch.randperm(R, generator=torch.Generator().manual_seed(56))[
+        :M].to(torch.int32).to(cuda)
+    w = _rand((R,), 57, 1, 2).to(cuda) if devex else None
+    ws = kb.colk_workspace(R, cuda)
+
+    def run(fn, **kw):
+        st = dict(C=C.clone(), F=F.clone(), costs=costs.clone(),
+                  b=b.clone(), base=base.clone(),
+                  w=None if w is None else w.clone())
+        cand = fn(Tt, st["C"], st["F"], st["costs"], k, t, u, flag, R - 5,
+                  eps, ah, st["b"], st["base"], h, p, bk, st["w"], **kw)
+        return st, cand
+
+    (s1, c1), (s2, c2) = run(kb.colk_costs, ws=ws), run(kb.colk_costs, ws=ws)
+    sp, cp = run(kb.colk_costs_plain)
+    assert int(ws[:4].view(torch.int32)) == 0
+    for name in s1:
+        if s1[name] is not None:
+            assert torch.equal(s1[name], s2[name]), name
+    for a, b2 in zip(c1, c2):
+        assert torch.equal(a, b2)
+    assert torch.equal(s1["C"][:t], C[:t])
+    assert torch.equal(s1["base"], sp["base"])
+    assert int(c1[0]) == int(cp[0]) and int(c1[2]) == int(cp[2])
+    if not do:
+        assert not s1["C"][t].any() and not s1["F"][t].any()
+        for name, x in (("costs", costs), ("b", b), ("base", base), ("w", w)):
+            if x is not None:
+                assert torch.equal(s1[name], x), name
+        return
+    assert torch.equal(s1["C"][t][h.long()], p)
+    torch.testing.assert_close(s1["C"][t], sp["C"][t], rtol=1e-5, atol=1e-5)
+    costs_x = costs - u * s1["C"][t].double()
+    assert ((s1["costs"] - costs_x).abs() <= 1e-12 * (1 + costs_x.abs())).all()
+    assert ((s1["b"] - sp["b"]).abs() <= 1e-12 * (1 + sp["b"].abs())).all()
+    torch.testing.assert_close(s1["F"][t], sp["F"][t], rtol=1e-6, atol=1e-7)
+    if devex:
+        torch.testing.assert_close(s1["w"], sp["w"], rtol=1e-4, atol=1e-4)
+
+
 def _window_state(B, M, R, L, seed, devex, dev):
     """A window's inputs: lane 1 frozen, lane 2 with a fuse at 5 pivots
     (mid-window), the others free to run L pivots."""

@@ -193,6 +193,48 @@ def test_colk_costs_matches_pallas(L, t, devex):
                  2 * prop.max())
 
 
+@pytest.mark.parametrize("R", [128, 384, 24576])
+def test_colk_workspace_sizes(R):
+    """16 bytes (counter and stashed weight), then one partial of three
+    f64 and two int32 per block of COLK_COLS columns; zeroed."""
+    ws = kb.colk_workspace(R, "cpu")
+    assert ws.dtype == torch.uint8 and ws.is_contiguous()
+    assert ws.numel() == kb.colk_workspace_bytes(R) == 16 + 32 * (R // 64)
+    assert not ws.any()
+
+
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+@pytest.mark.parametrize("do", [True, False], ids=["pivot", "skipped"])
+def test_colk_costs_plain_ignores_workspace(devex, do):
+    """On the CPU the plain version runs with or without a workspace and
+    gives the same outputs bit for bit; the workspace stays untouched."""
+    _, Tt, C, F, b = _inputs(16, 7, 21)
+    rng = np.random.default_rng(22)
+    costs = rng.uniform(-1, 1, R_PAD)
+    ah = rng.uniform(-1, 1, M_PAD).astype(np.float32)
+    base = rng.integers(0, R_PAD, M_PAD).astype(np.int32)
+    w = rng.uniform(1, 2, R_PAD).astype(np.float32)
+    ah[17] = 0.75
+    runs = []
+    for ws in (None, kb.colk_workspace(R_PAD, "cpu")):
+        st = dict(C=_t(C), F=_t(F), costs=_t(costs), b=_t(b),
+                  base=_t(base), w=_t(w) if devex else None)
+        cands = kb.colk_costs(
+            _t(Tt), st["C"], st["F"], st["costs"], _i32(17), 7,
+            torch.tensor(-0.625, dtype=torch.float64), torch.tensor(do),
+            R_PAD - 9, EPS, _t(ah), st["b"], st["base"], _i32(29),
+            torch.tensor(np.float32(0.75)),
+            torch.tensor(float(b[17]), dtype=torch.float64), st["w"], ws=ws)
+        runs.append((st, cands, ws))
+    (s0, c0, _), (s1, c1, ws) = runs
+    for name in s0:
+        if s0[name] is not None:
+            assert torch.equal(s0[name], s1[name]), name
+    for a, b2 in zip(c0, c1):
+        assert torch.equal(a, b2)
+    assert not ws.any()
+
+
 def test_colk_costs_skipped_pivot_matches_pallas():
     """do=False: C[t] and the eta row are zero, the vectors untouched."""
     inp, want, port, _ = _colk_case(16, 7, 5, devex=True, do=False)
