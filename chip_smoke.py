@@ -62,22 +62,25 @@ Phases, in order; any failed check exits non-zero:
    rank -- random_2048_2048 and the flagship in production, twice each,
    certified; config 3's 256 lanes as a fleet, checked as in 10a;
 11. each kernel against its plain PyTorch version on the card: K1-K4 at
-   the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K2
-   under devex and Dantzig, its pivot row at h K1's p bit for bit, one
-   kernel launched per call) with K4's Tt K3's bit for bit (there and at
-   M=256, R=384, L=8), K4 timed in turns with cuBLAS ``addmm_``, the SM
-   clock before and after, K5 (its column K1's bit for bit) and
-   K11 (K3's mv with zero etas bit for bit), K6 at the 8192^2 and the
-   north-star f32 shapes, then the batched kernels at config 3's shapes
-   (B=256, M=512, R=3072, L=32) and the wide ones (B=32, R=15104), under
-   devex and Dantzig, with a frozen lane and a lane that hits its fuse
-   mid-window, and K12 at config 3's shapes (``batch_apply_reprice``'s
-   fold with no live eta bit for bit); all timed on the device by
-   torch.profiler, beside each
-   kernel's bound and, where one PyTorch call computes the same
-   function, that call's time; then one config-3 batch traced (device
-   time by kernel, the device's busy share). These run last so that no
-   profiler run precedes the timed solves.
+   the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K1
+   and K2 one kernel a call, each on one workspace, their wrappers' host
+   time; K2 under devex and Dantzig, its pivot row at h K1's p bit for
+   bit) with K4's Tt K3's bit for bit and K3's mv K11's on K3's output
+   bit for bit (there and at M=256, R=384, L=8), K3 and K4 timed in
+   turns with cuBLAS ``addmm_``, the SM clock before and after, K5 (its
+   column K1's bit for bit) and K11 (K3's mv with zero etas bit for
+   bit), K6 at the 8192^2 and the north-star f32 shapes, then the
+   batched kernels at config 3's shapes (B=256, M=512, R=3072, L=32) and
+   the wide ones (B=32, R=15104), under devex and Dantzig, with a frozen
+   lane and a lane that hits its fuse mid-window, and K12 at config 3's
+   shapes (``batch_apply_reprice``'s fold with no live eta bit for bit);
+   each timed on the device by two clocks -- torch.profiler, and CUDA
+   events (over a CUDA graph of 50 calls for K1, K2 and K5, over
+   back-to-back calls for the rest) -- beside its bound and, where one
+   PyTorch call computes the same function, that call's time; then one
+   config-3 batch traced (device time by kernel, the device's busy
+   share). These run last so that no profiler run precedes the timed
+   solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over HBM's 3.35 TB/s and its
@@ -282,6 +285,36 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 50, replays: int = 4) -> float:
+    """ms per call of ``fn()`` between CUDA events around ``replays``
+    replays of a CUDA graph that captured ``calls`` calls back to back:
+    the device's time per call with no host enqueue in it (the per-pivot
+    kernels run for microseconds, less than the host takes to launch
+    them; a cross-check of ``device_ms``)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                     # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def bound(nbytes: float, f32_flops: float = 0.0,
           f64_flops: float = 0.0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
@@ -338,6 +371,7 @@ def phase_kernels(records: dict) -> None:
     eps = 1e-4
     g = torch.Generator(device=dev).manual_seed(20261016)
     ws = kb.colk_workspace(R, dev)
+    ws1 = kb.ah_ratio_workspace(M, dev)
     log(f"kernel phase: SM clock before {sm_clock()}")
 
     def uni(shape, lo, hi, dtype=torch.float32):
@@ -353,13 +387,20 @@ def phase_kernels(records: dict) -> None:
     h = torch.tensor(12345, dtype=torch.int32, device=dev)
     errs = {name: 0.0 for name in KERNELS}
     times = {name: [] for name in KERNELS}
+    # The other clock for each kernel: CUDA events over a CUDA graph of 50
+    # calls (K1, K2, K5), torch.profiler for K3/K4 (timed by events), CUDA
+    # events over back-to-back calls for K11.
+    check = {}
     for t in (0, 37, 127):
         C = uni((L, R), -1.0, 1.0)
         F = uni((L, M), -0.1, 0.1)
         C[t:] = 0.0
         F[t:] = 0.0
-        # ---- K1 ----
-        got = kb.ah_ratio(Tt, F, C, b, h, t, eps)
+        # ---- K1, on one workspace throughout ----
+        def k1(t=t):
+            return kb.ah_ratio(Tt, F, C, b, h, t, eps, ws=ws1)
+
+        got = k1()
         want = kb.ah_ratio_plain(Tt, F, C, b, h, t, eps)
         # f32 a_h: the eta correction sums t products in another order.
         errs["ah_ratio"] = max(errs["ah_ratio"], close(
@@ -376,13 +417,34 @@ def phase_kernels(records: dict) -> None:
         want5 = kb.ah_plain(Tt, F, C, h, t)
         errs["ah"] = max(errs["ah"], close(
             f"K5 a_h t={t}", got5, want5, 1e-5 * (1 + want5.abs())))
+        k1_us = 1e3 * device_ms(k1, 50)
+        log(f"K1 t={t}: {k1_us:.2f} us a call on the device")
         if t == 37:
+            n = kernels_launched(k1)
+            require(n == 1, f"one ah_ratio call launched {n} kernels")
+            host = host_us(k1, 500)
+            # The two-launch kernel's wrapper made four more allocations a
+            # call (the partials' keys and indices, k, p and the flag
+            # apart).
+            f64, i32 = torch.float64, torch.int32
+            more = host_us(lambda: (
+                k1(), torch.empty(M // 256, dtype=f64, device=dev),
+                torch.empty(M // 256, dtype=i32, device=dev),
+                torch.empty((), dtype=i32, device=dev),
+                torch.empty((), dtype=torch.float32, device=dev)), 500)
+            log(f"K1: one call launches {n} kernel (torch.profiler); "
+                f"{host:.1f} us of host time a call (wrapper and enqueue, "
+                f"host clock over 500 calls); {more:.1f} us with four "
+                "more allocations, as the two-launch kernel's wrapper "
+                "made")
             times["ah_ratio"] = [
-                device_ms(lambda: kb.ah_ratio(Tt, F, C, b, h, t, eps), 50),
+                k1_us / 1e3,
                 device_ms(lambda: kb.ah_ratio_plain(Tt, F, C, b, h, t, eps),
-                        50)]
+                          50)]
             times["ah"] = [device_ms(lambda: kb.ah(Tt, F, C, h, t), 50),
                            device_ms(lambda: kb.ah_plain(Tt, F, C, h, t), 50)]
+            check["ah_ratio"] = graph_ms(k1)
+            check["ah"] = graph_ms(lambda: kb.ah(Tt, F, C, h, t))
             # K5's library call: one addmv on views of the column and of
             # the live eta rows.
             hi = int(h)
@@ -455,6 +517,8 @@ def phase_kernels(records: dict) -> None:
                 times["colk_costs"] = [
                     k2_us / 1e3,
                     device_ms(lambda: kb.colk_costs_plain(*args), 50)]
+                check["colk_costs"] = graph_ms(
+                    lambda: kb.colk_costs(*args, ws=ws))
         # ---- K3 / K4 (full window: every eta row live) ----
         if t == 127:
             C = uni((L, R), -1.0, 1.0)
@@ -472,6 +536,8 @@ def phase_kernels(records: dict) -> None:
             scale = tt_matvec(Tk.abs(), coeffs.abs())
             e = max(e, close("K3 mv", mv_k, tt_matvec(Tk, coeffs),
                              1e-12 * scale))
+            # The same row groups summed in the same orders as K11's fold.
+            equal("K3 mv vs K11 on K3's output", mv_k, kb.reprice(Tk, coeffs))
             errs["apply_reprice"] = e
             T3 = Tk
             Tk, Tp = Tt.clone(), Tt.clone()
@@ -496,12 +562,13 @@ def phase_kernels(records: dict) -> None:
             times["reprice"] = [
                 device_ms(lambda: kb.reprice(Tt, coeffs), 10),
                 device_ms(lambda: kb.reprice_plain(Tt, coeffs), 5)]
+            check["reprice"] = event_ms(lambda: kb.reprice(Tt, coeffs), 10)
             library_reprice = device_ms(lambda: coeffs @ Tt.double(), 5)
             # The window applies: CUDA events over back-to-back calls (each
             # call keeps the device busy for over a millisecond), the
             # profiler's sum printed beside (it has dropped launches of
-            # these long kernels). K3, then K4 and its plain version
-            # (cuBLAS addmm_) in turns: plain, kernel, kernel, plain.
+            # these long kernels). K3, K4 and K4's plain version (cuBLAS
+            # addmm_) in turns: K3, K4, addmm_, addmm_, K4, K3.
             T2 = Tt.clone()
             fns = {"K3": lambda: kb.apply_reprice(T2, C, F, coeffs),
                    "K3 plain": lambda: kb.apply_reprice_plain(T2, C, F,
@@ -509,18 +576,24 @@ def phase_kernels(records: dict) -> None:
                    "K4": lambda: kb.apply_window(T2, C, F),
                    "addmm_": lambda: kb.apply_window_plain(T2, C, F)}
             ev = {}
-            for name in ("K3", "K3 plain", "addmm_", "K4", "K4", "addmm_"):
+            for name in ("K3", "K4", "addmm_", "addmm_", "K4", "K3",
+                         "K3 plain"):
                 ev.setdefault(name, []).append(event_ms(fns[name], 10))
             prof = {name: device_ms(fns[name], 5) for name in fns}
-            times["apply_reprice"] = [ev["K3"][0], ev["K3 plain"][0]]
+            times["apply_reprice"] = [statistics.mean(ev["K3"]),
+                                      ev["K3 plain"][0]]
             times["apply_window"] = [statistics.mean(ev["K4"]),
                                      statistics.mean(ev["addmm_"])]
-            log(f"K4 apply_window {ev['K4'][0]:.4f} / {ev['K4'][1]:.4f} ms "
-                f"against addmm_ {ev['addmm_'][0]:.4f} / "
-                f"{ev['addmm_'][1]:.4f} ms (CUDA events; plain, kernel, "
-                f"kernel, plain; M={M} R={R} L={L}); K4/addmm_ "
-                f"{times['apply_window'][0] / times['apply_window'][1]:.3f};"
-                f" K3 {ev['K3'][0]:.4f} ms; profiler: "
+            check["apply_reprice"] = prof["K3"]
+            check["apply_window"] = prof["K4"]
+            k3, k4, mm = (times["apply_reprice"][0],
+                          *times["apply_window"])
+            log(f"K3 apply_reprice {ev['K3'][0]:.4f} / {ev['K3'][1]:.4f} "
+                f"ms, K4 apply_window {ev['K4'][0]:.4f} / "
+                f"{ev['K4'][1]:.4f} ms, addmm_ {ev['addmm_'][0]:.4f} / "
+                f"{ev['addmm_'][1]:.4f} ms (CUDA events in turns: K3, K4, "
+                f"addmm_, addmm_, K4, K3; M={M} R={R} L={L}); K4/addmm_ "
+                f"{k4 / mm:.3f}, K3/K4 {k3 / k4:.3f}; profiler: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in prof.items()))
             del T2
     # Bounds at the timed inputs (K1/K2 at t = 37, K2 under devex; K3/K4
@@ -551,7 +624,8 @@ def phase_kernels(records: dict) -> None:
         bound_ms, by = bounds[name]
         records[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": by, "library_ms": library.get(name)}
+                         "bound_by": by, "library_ms": library.get(name),
+                         "check_ms": check[name]}
         log(f"{kid} {name}: matches plain (max abs err {errs[name]:.3e}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({by})")
@@ -559,8 +633,9 @@ def phase_kernels(records: dict) -> None:
 
 
 def k4_vs_k3_small(g) -> None:
-    """K4 against K3's apply bit for bit at a shape with an odd number of
-    R tiles and the shortest window (M=256, R=384, L=8)."""
+    """K4 against K3's apply bit for bit, and K3's mv against K11 on K3's
+    output bit for bit, at a shape with an odd number of R tiles and the
+    shortest window (M=256, R=384, L=8)."""
     import torch
 
     from simplex_tpu_torch.kernels import blocked as kb
@@ -572,9 +647,11 @@ def k4_vs_k3_small(g) -> None:
     F = torch.rand((L, M), generator=g, device=dev) * 0.2 - 0.1
     coeffs = torch.rand((M,), generator=g, device=dev, dtype=torch.float64)
     T3, T4 = Tt.clone(), Tt.clone()
-    kb.apply_reprice(T3, C, F, coeffs)
+    mv = kb.apply_reprice(T3, C, F, coeffs)
     kb.apply_window(T4, C, F)
     equal(f"K4 Tt vs K3's apply (M={M} R={R} L={L})", T4, T3)
+    equal(f"K3 mv vs K11 on K3's output (M={M} R={R} L={L})", mv,
+          kb.reprice(T3, coeffs))
     require(not torch.equal(T4, Tt), "K4 left Tt as it was")
 
 
@@ -756,6 +833,16 @@ def phase_batch_kernels(records: dict) -> None:
                         device_ms(lambda: kbt.batch_apply(Tk, C, F, nl), 5),
                         device_ms(lambda: kbt.batch_apply_plain(Tk, C, F,
                                                                 nl), 5)]}
+                # CUDA events over back-to-back calls (batch_window's
+                # with the copies that reset its state).
+                checks = {
+                    "batch_window": event_ms(
+                        lambda: window(kbt.batch_window), 5),
+                    "batch_apply_reprice": event_ms(
+                        lambda: kbt.batch_apply_reprice(Tk, C, F, cf, do_r,
+                                                        nl), 5),
+                    "batch_apply": event_ms(
+                        lambda: kbt.batch_apply(Tk, C, F, nl), 5)}
                 # Bounds on this state: each lane reads a column and a row
                 # of its tableau per live pivot and writes its eta rows;
                 # the applies move the tableaus of the lanes with live
@@ -792,11 +879,11 @@ def phase_batch_kernels(records: dict) -> None:
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by,
                     "library_ms": plain_ms if name == "batch_apply"
-                    else None}
+                    else None, "check_ms": checks[name]}
             log(f"{kid} {name} {label} B={B} M={M} R={R} L={L}: matches "
                 f"plain (max abs err so far {errs[name]:.3e}); kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({by})")
+                f"{ms:.4f} ms (CUDA events {checks[name]:.4f}), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
     for name in BATCH_PATH:
         records[name]["max_abs_err"] = errs[name]
 
@@ -834,6 +921,7 @@ def phase_batch_reprice(records: dict) -> None:
           kbt.batch_apply_reprice(T0, zC, zF, cf, flags, nlive))
     del T0, zC, zF
     ms = device_ms(lambda: kbt.batch_reprice(Tt, cf, flags), 10)
+    ev_ms = event_ms(lambda: kbt.batch_reprice(Tt, cf, flags), 10)
     plain_ms = device_ms(lambda: kbt.batch_reprice_plain(Tt, cf, flags), 5)
     library_ms = device_ms(lambda: torch.bmm(cf[:, None, :], T3.double()),
                            5)
@@ -842,11 +930,12 @@ def phase_batch_reprice(records: dict) -> None:
                          0, 2 * live * M * R)
     records["batch_reprice"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+        "check_ms": ev_ms}
     log(f"K12 batch_reprice B={B} M={M} R={R}: matches plain (max abs err "
         f"{err:.3e}), equals batch_apply_reprice's fold; kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, bmm f64 {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({by})")
+        f"ms (CUDA events {ev_ms:.4f}), plain {plain_ms:.4f} ms, bmm f64 "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
     del Tt, T3
     torch.cuda.empty_cache()
 
@@ -1282,7 +1371,7 @@ def phase_pivot_kernel(records: dict) -> None:
             records["fused_pivot"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": by,
-                "library_ms": library_ms}
+                "library_ms": library_ms, "check_ms": ev[0]}
         del Tt, Tk, factor
         torch.cuda.empty_cache()
 
@@ -1807,6 +1896,12 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
+    # Each kernel's time by a second clock: K1, K2, K5 CUDA events over a
+    # CUDA graph of 50 calls; K3/K4 torch.profiler (their record is CUDA
+    # events); the rest CUDA events over back-to-back calls.
+    log("cross-check, ms a call (record / second clock): " + ", ".join(
+        f"{name} {records[name]['ms']:.4f} / {records[name]['check_ms']:.4f}"
+        for name in ORDER))
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS}
     kernels = []

@@ -62,10 +62,11 @@ class SolverOptions:
     resolution rules are those of ``simplex_tpu.SolverOptions`` (see its
     docstrings for the measured reasons behind each default).
 
-    The port runs only the configurations that resolve to the fused
-    blocked-kernel loop (f32 tableau, ``block_pivots`` > 1 and a multiple
-    of 8, no equilibration); ``two_phase.solve`` raises
-    ``NotImplementedError`` for the others."""
+    ``two_phase.solve`` runs every option set but ``equilibrate=True``,
+    for which it raises ``NotImplementedError`` (``check_supported``):
+    ``run_solve_loop`` dispatches the fused blocked-kernel loop, the plain
+    blocked loop and the sequential loops (over K6 or not) as the JAX
+    package does."""
 
     #: Tableau dtype.
     dtype: np.dtype = np.dtype(np.float64)

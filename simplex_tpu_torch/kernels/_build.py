@@ -98,8 +98,9 @@ _D = ctypes.c_double
 
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
-    "ah_ratio_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                        _P, _P, _P, _P, _P, _P, _P, _P],
+    # Tt F C b h t M R eps ah workspace, its bytes, k p bk unb stream
+    "ah_ratio_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+                        ctypes.c_longlong, _P, _P, _P, _P, _P],
     # Tt C F costs k t u do r eps M R
     "colk_costs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _I, _I,
                           # ah b base h p bk w workspace, its bytes

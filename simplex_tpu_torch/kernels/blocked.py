@@ -37,8 +37,8 @@ from ..tableau import tt_matvec
 #: Sentinel index: no eligible row / column.
 BIG_INDEX = 2 ** 31 - 1
 
-#: Threads per block of the per-pivot kernels (csrc/blocked.cu THREADS).
-THREADS = 256
+#: Constraints per block of K1 (csrc/blocked.cu AHR_COLS).
+AHR_COLS = 64
 #: Columns per R block of K2 (csrc/blocked.cu COLK_COLS).
 COLK_COLS = 64
 #: Tile edge of the window apply (csrc/blocked.cu AT).
@@ -96,6 +96,14 @@ def _check_factors(Tt, C, F) -> tuple[int, int, int]:
         raise ValueError(f"need M, R multiples of {APPLY_TILE} and L of 8, "
                          f"got M={M} R={R} L={L}")
     return M, R, L
+
+
+def _check_workspace(ws: torch.Tensor, nbytes: int, dev,
+                     what: str) -> None:
+    if (ws.dtype != torch.uint8 or not ws.is_contiguous()
+            or ws.device != dev or ws.numel() < nbytes):
+        raise ValueError(f"ws: want a {what} on {dev}, got {ws.dtype} "
+                         f"({ws.numel()},) on {ws.device}")
 
 
 def _index(x: torch.Tensor, i: torch.Tensor, hi: int) -> torch.Tensor:
@@ -164,19 +172,41 @@ def ah_ratio_plain(Tt, F, C, b, h, t: int, eps: float):
             unb.to(torch.int32))
 
 
-def ah_ratio(Tt, F, C, b, h, t: int, eps: float):
+def ah_ratio_workspace_bytes(M: int) -> int:
+    """Bytes of K1's workspace for ``M`` constraints (csrc/blocked.cu
+    ``ahr_ws_bytes``): the arrival counter (8 bytes), then per block of
+    ``AHR_COLS`` constraints one partial of three f64 and one int32."""
+    return 8 + 28 * _cdiv(M, AHR_COLS)
+
+
+def ah_ratio_workspace(M: int, device) -> torch.Tensor:
+    """A zeroed workspace for ``ah_ratio`` over ``M`` constraints on
+    ``device``: the partials of its blocks and the arrival counter that
+    finds the last block. Each call leaves the counter at 0 again, so a
+    loop allocates one and passes it to every call; calls that share one
+    must run in order on one stream. The plain path leaves it untouched."""
+    return torch.zeros(ah_ratio_workspace_bytes(M), dtype=torch.uint8,
+                       device=device)
+
+
+def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None):
     """K1, the port of ``simplex_tpu.kernels.blocked.ah_ratio_pass``.
 
     Live entering column ``a_h = Tt[:, h] - C[:t, h] @ F[:t]`` and the
     min-ratio test over ``a_h >= eps``: the smallest ``b / a_h`` (f64),
     ties to the lowest index. Returns ``(a_h (M,) f32, k i32, p = a_h[k]
     f32, bk = b[k] f64, unbounded i32)``; with no eligible row k is
-    ``BIG_INDEX``, p and bk are 0 and unbounded is 1."""
+    ``BIG_INDEX``, p and bk are 0 and unbounded is 1. ``ws`` is an
+    ``ah_ratio_workspace``; on the card a call without one allocates
+    one."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(b, "b", torch.float64, (M,))
     _expect(h, "h", torch.int32, ())
     if not 0 <= t < L:
         raise ValueError(f"t={t} outside the window [0, {L})")
+    if ws is not None:
+        _check_workspace(ws, ah_ratio_workspace_bytes(M), Tt.device,
+                         f"ah_ratio_workspace({M})")
     if not _on_card(Tt, F, C, b, h):
         return ah_ratio_plain(Tt, F, C, b, h, t, eps)
 
@@ -184,21 +214,22 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float):
 
     lib = load_library()
     dev = Tt.device
-    nb = _cdiv(M, THREADS)
+    if ws is None:
+        ws = ah_ratio_workspace(M, dev)
+    # Three allocations: a_h, (k, p's bits, unbounded) int32, and bk.
     ah = torch.empty(M, dtype=torch.float32, device=dev)
-    part_key = torch.empty(nb, dtype=torch.float64, device=dev)
-    part_idx = torch.empty(nb, dtype=torch.int32, device=dev)
-    k = torch.empty((), dtype=torch.int32, device=dev)
-    p = torch.empty((), dtype=torch.float32, device=dev)
+    ints = torch.empty(3, dtype=torch.int32, device=dev)
     bk = torch.empty((), dtype=torch.float64, device=dev)
-    unb = torch.empty((), dtype=torch.int32, device=dev)
+    ip = ints.data_ptr()
     err = lib.ah_ratio_launch(
         _ptr(Tt), _ptr(F), _ptr(C), _ptr(b), _ptr(h), t, M, R, float(eps),
-        _ptr(ah), _ptr(part_key), _ptr(part_idx), _ptr(k), _ptr(p),
-        _ptr(bk), _ptr(unb), _stream(Tt))
+        _ptr(ah), _ptr(ws), ws.numel(), ctypes.c_void_p(ip),
+        ctypes.c_void_p(ip + 4), _ptr(bk), ctypes.c_void_p(ip + 8),
+        _stream(Tt))
     check(lib, err, "ah_ratio")
     LAUNCHES["ah_ratio"] += 1
-    return ah, k, p, bk, unb
+    k, p_bits, unb = ints.unbind()
+    return ah, k, p_bits.view(torch.float32), bk, unb
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +366,7 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     dev = Tt.device
     if ws is None:
         ws = colk_workspace(R, dev)
-    if (ws.dtype != torch.uint8 or not ws.is_contiguous()
-            or ws.device != dev or ws.numel() < colk_workspace_bytes(R)):
-        raise ValueError(f"ws: want a colk_workspace({R}) on {dev}, got "
-                         f"{ws.dtype} ({ws.numel()},) on {ws.device}")
+    _check_workspace(ws, colk_workspace_bytes(R), dev, f"colk_workspace({R})")
     # The candidates: (h_d, h_b) int32 and (v_d, v_b) f64, two allocations.
     hidx = torch.empty(2, dtype=torch.int32, device=dev)
     vals = torch.empty(2, dtype=torch.float64, device=dev)

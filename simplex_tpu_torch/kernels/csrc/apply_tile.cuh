@@ -1,6 +1,6 @@
-// The window apply on one 128 x 128 tile of a transposed tableau, shared by
-// K3/K4 (blocked.cu, one tableau) and K9/K10 (batched.cu, one tableau per
-// lane):
+// The window apply on one 128 x 128 tile of a transposed tableau: K9/K10's
+// tile (batched.cu, one tableau per lane). blocked.cu's K3/K4 run their own
+// persistent window_apply, which rounds every element as this tile does.
 //   Tt[i, j] -= sum_{s<L} F[s, i] * C[s, j]           (IEEE f32 FFMA)
 // optionally followed by the reprice partial of the tile's 128 rows,
 //   part_row[j] = sum_{i in tile} coeffs[i] * Tt_new[i, j]   (f64).
@@ -11,8 +11,9 @@
 // tile on blockIdx.y.
 //
 // The standalone reprices K11/K12 (reprice_tile) load the tile into the
-// same registers and run the same fold, so with zero etas they give K3's
-// and K9's mv bit for bit.
+// same registers and run the same fold, so with zero etas they give K9's mv
+// bit for bit; K3's fold (blocked.cu window_apply<true>) sums the same
+// 8-row groups in the same order, so K11 gives K3's mv too.
 
 #pragma once
 
@@ -100,6 +101,20 @@ __device__ __forceinline__ void apply_tile(
         if (coeffs == nullptr) return;
         reprice_fold(acc, coeffs, part_row);
     }
+}
+
+// The tile over one whole tableau, one block a tile (the R tile on
+// blockIdx.x, the M tile on blockIdx.y; with REPRICE, part (M / AT, R) f64
+// takes one partial row per M tile). No kernel of the port launches it:
+// it is the first K3/K4, which blocked.cu's window_apply replaced, kept for
+// the design benches in tools/ that time the two side by side.
+template <bool REPRICE>
+__global__ void __launch_bounds__(APPLY_THREADS) apply_tiles(
+        float *__restrict__ Tt, const float *__restrict__ F,
+        const float *__restrict__ C, int M, int R, int L,
+        const double *__restrict__ coeffs, double *__restrict__ part) {
+    apply_tile<REPRICE>(Tt, F, C, M, R, L, coeffs,
+                        REPRICE ? part + (size_t)blockIdx.y * R : nullptr);
 }
 
 // The tile's reprice partial from the thread's 8 x 8 register tile of

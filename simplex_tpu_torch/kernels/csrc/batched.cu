@@ -372,8 +372,9 @@ __global__ void __launch_bounds__(WT, 2) batch_window(
 // f32 ridge (~20), where K3/K4 at L = 128 sit above it. Measured on NVIDIA
 // H100 80GB HBM3, 700.00 W (PERF.md): batch_apply over 256 lanes of
 // 512 x 3,072 in 1.46 ms, 2.2 TB/s of tableau traffic, 66% of the 3.35
-// TB/s peak. Design: K3/K4's 128 x 128 register tiles (apply_tile.cuh)
-// with the lane on gridDim.z, so any R that is a multiple of 128 is covered
+// TB/s peak. Design: the 128 x 128 register tiles of apply_tile.cuh (this
+// kernel's own; blocked.cu's K3/K4 run window_apply) with the lane on
+// gridDim.z, so any R that is a multiple of 128 is covered
 // (R = 15,104 = 118 tiles). A lane runs only its live eta rows (nlive,
 // rounded up to 8; the rows past nlive are zero), and a lane with no live
 // row skips its tiles, leaving its Tt untouched -- unless its reprice is

@@ -12,12 +12,14 @@
 //
 // Every kernel launches on the caller's stream, allocates nothing, and each
 // C entry point returns cudaGetLastError() after its launches. No value is
-// reduced with atomics: each block writes one partial, and one block folds
-// the partials -- a one-block pass (K1, K3, K11), or the last block of the
-// same launch (K2), found by an atomic arrival counter that only counts
-// the blocks that are done. Every fold orders candidates by (key, then
-// lowest index), a total order, so the pivot choices (and therefore the
-// walks) are the same from run to run whatever the blocks' order.
+// reduced with atomics: each block writes one partial, and the partials are
+// folded in a fixed order -- by the last block of the same launch (K1, K2),
+// found by an atomic arrival counter in the caller's workspace that only
+// counts the blocks that are done, or by a second pass, reprice_finish (K3,
+// K11). Every candidate fold orders candidates by (key, then lowest index),
+// a total order, so the pivot choices (and therefore the walks) are the
+// same from run to run whatever the blocks' order; the f64 reprice sums run
+// in a fixed order, so mv is the same bit for bit too.
 //
 // Offsets into Tt, C and F are computed in size_t: at 10k x 100k the
 // tableau holds 1.2e9 elements and its byte offsets overflow a 32-bit int.
@@ -40,34 +42,10 @@ __device__ __forceinline__ bool better(double ka, int ia, double kb, int ib) {
     return ka > kb || (ka == kb && ia < ib);
 }
 
-// Block-wide argmax of (key, idx) carrying val; ties go to the lowest index.
-// The order is total for non-NaN keys, so the result does not depend on the
-// tree's shape.
-__device__ void block_argmax(double &key, int &idx, double &val) {
-    __shared__ double sk[THREADS];
-    __shared__ int si[THREADS];
-    __shared__ double sv[THREADS];
-    const int tid = threadIdx.x;
-    sk[tid] = key;
-    si[tid] = idx;
-    sv[tid] = val;
-    __syncthreads();
-    for (int s = THREADS / 2; s > 0; s >>= 1) {
-        if (tid < s && better(sk[tid + s], si[tid + s], sk[tid], si[tid])) {
-            sk[tid] = sk[tid + s];
-            si[tid] = si[tid + s];
-            sv[tid] = sv[tid + s];
-        }
-        __syncthreads();
-    }
-    key = sk[0];
-    idx = si[0];
-    val = sv[0];
-    __syncthreads();
-}
-
-// block_argmax over warp shuffles: one barrier instead of eight. The whole
-// block must call it; thread 0 gets the result.
+// Block-wide argmax of (key, idx) carrying val, over warp shuffles; ties go
+// to the lowest index. The order is total for non-NaN keys, so the result
+// does not depend on the tree's shape. The whole block must call it; thread
+// 0 gets the result.
 __device__ void block_argmax_warps(double &key, int &idx, double &val) {
     __shared__ double sk[THREADS / 32];
     __shared__ int si[THREADS / 32];
@@ -134,20 +112,45 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // :1273; body _ah_ratio_kernel :1090, _ah_accumulate :1061, _ah_column :1075).
 //   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
 //   k = argmin over {j : a_h[j] >= eps} of b[j] / a_h[j] (ties: lowest j)
-// Bound on the card: latency. Per pivot it reads the live F rows (t * M * 4
-// bytes, computed: 1.2 MB at t = 37, M = 8192) and one strided element of Tt
-// per constraint (stride R: one 32-byte sector per load, M loads in all; left
-// as it is), on only M / 256 blocks; measured 6.0 us per call at those shapes
-// on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md), ~0.25 TB/s. Design: one
-// thread per constraint with coalesced F reads, the t values C[:, h] staged
-// once in shared memory; each block folds its ratio candidates and a
-// one-block pass folds the blocks (the TPU carried this fold across its
-// sequential grid in SMEM scratch). The ratio is a native f64 quotient (the
-// TPU formed it from double-f32 pairs).
+// Bound on the card: bytes. Per pivot it reads Tt[:, h] (one strided element
+// a constraint), the t live F rows, C[:t, h] and b, and writes a_h: 4M + 4tM
+// + 4t + 8M + 4M bytes (computed: 1.3 MB at t = 37, M = 8192, 0.39 us at
+// HBM's rate). The kernel it replaced made two launches (a tile pass of
+// M / 256 blocks, one thread a constraint loading its t F values one
+// behind the other behind its FFMA chain, and a one-block fold pass, both
+// with an eight-barrier block fold) and took 5.9 us there on NVIDIA H100
+// 80GB HBM3, 700.00 W (PERF.md). This kernel: 4.3 us at t = 37 by
+// torch.profiler (3.4 at t = 0, 5.4 at t = 127); 4.6 us against the old
+// kernel's 6.0 over a CUDA graph in one run (tools/k1k3_variants.cu, which
+// also times the parts). What is left is latency, not bytes: the launch
+// (1.0 us), h then Tt[:, h] (0.6 us), the F slab, the chain and the
+// block's fold (0.7 us at t = 0 to 2.4 at t = 127), the ticket and the
+// last block's fold (1.5 us). 32 or 128 constraints a block, and the
+// chain's loads batched ahead of it, moved it by less than 0.2 us.
+// Design: one launch, as K2's. Each block owns AHR_COLS constraints: its
+// 256 threads first issue every load of the block at once -- F[s, its
+// constraints] for up to AHR_ROWS live rows as 16-byte cp.async copies into
+// shared memory (they do not depend on h, so they go first), then C[s, h]
+// and, one thread a constraint, Tt[j, h] and b[j] -- so the whole F slab is
+// in flight together; then each owner runs the FFMA chain from shared
+// memory, s = 0 .. t-1 in order from 0.0f, and one __fsub_rn: ah_entry's
+// arithmetic, so K5's column is K1's bit for bit. AHR_COLS = 64 makes 128
+// blocks at M = 8192, one wave on the 132 SMs (at 128 a block, 64 blocks
+// would leave half the SMs idle and double each block's serial slab). Each
+// block folds its ratio candidates over warp shuffles, writes its partial
+// (key, index, a_h, b) to the workspace and takes a ticket from an arrival
+// counter there (one acq_rel atomic); the block that draws the last ticket
+// folds the partials in the same total order, writes k, p, bk and the
+// flag, and resets the counter to 0 for the next call. p and bk are the
+// winner's a_h and b[j] carried in its partial: p == a_h[k] and bk == b[k]
+// exactly, with no load after the fold.
+// The ratio is a native f64 quotient (the TPU formed it from double-f32
+// pairs); the TPU carried the fold across its sequential grid in SMEM
+// scratch.
 
-// The live entering column, shared by K1 and K5 so that the two give the
-// same a_h bit for bit. ah_stage puts C[s, h] for s < t into the block's
-// shared memory ch (the whole block calls it); ah_entry is then
+// The live entering column of K5 (K1 repeats its arithmetic from shared
+// memory). ah_stage puts C[s, h] for s < t into the block's shared memory
+// ch (the whole block calls it); ah_entry is then
 //   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
 // with the eta correction summed in s order in FFMA.
 __device__ __forceinline__ void ah_stage(const float *__restrict__ C, int h,
@@ -167,57 +170,163 @@ __device__ __forceinline__ float ah_entry(const float *__restrict__ Tt,
     return __fsub_rn(Tt[(size_t)j * R + h], acc);
 }
 
-__global__ void __launch_bounds__(THREADS) ah_ratio_tiles(
-        const float *__restrict__ Tt, const float *__restrict__ F,
-        const float *__restrict__ C, const double *__restrict__ b,
-        const int *__restrict__ h_ptr, int t, int M, int R, float eps,
-        float *__restrict__ ah, double *__restrict__ part_key,
-        int *__restrict__ part_idx) {
-    extern __shared__ float ch[];                // C[s, h] for s < t
-    const int h = min(*h_ptr, R - 1);
-    ah_stage(C, h, t, R, ch);
+constexpr int AHR_COLS = 64;    // constraints per block
+constexpr int AHR_ROWS = 128;   // live F rows staged per pass of the chain
 
-    const int j = blockIdx.x * THREADS + threadIdx.x;
-    double key = -CUDART_INF;                    // key = -(b / a_h)
-    int idx = BIG_INDEX;
-    if (j < M) {
-        const float a = ah_entry(Tt, F, ch, h, t, j, M, R);
-        ah[j] = a;
-        if (a >= eps) {
-            key = -__ddiv_rn(b[j], (double)a);
-            idx = j;
-        }
-    }
-    double unused = 0.0;
-    block_argmax(key, idx, unused);
-    if (threadIdx.x == 0) {
-        part_key[blockIdx.x] = key;
-        part_idx[blockIdx.x] = idx;
+// The workspace (bytes; csrc and kernels/blocked.py ah_ratio_workspace_bytes
+// agree): [0, 4) the arrival counter, [4, 8) unused, then f64 key[nb],
+// a[nb], b[nb] and int idx[nb] for nb blocks.
+__host__ __device__ constexpr size_t ahr_ws_bytes(int nb) {
+    return 8 + (size_t)nb * (3 * sizeof(double) + sizeof(int));
+}
+
+struct AhrWs {
+    unsigned *counter;
+    double *key, *a, *b;
+    int *idx;
+    __device__ AhrWs(unsigned char *ws, int nb)
+        : counter(reinterpret_cast<unsigned *>(ws)),
+          key(reinterpret_cast<double *>(ws + 8)), a(key + nb), b(a + nb),
+          idx(reinterpret_cast<int *>(b + nb)) {}
+};
+
+// The arrival ticket: one atomic add, acquire and release at the device's
+// scope. Its release orders the calling thread's partial before the add; in
+// the block that draws the last ticket its acquire orders every block's
+// partial before the fold, and the block's barrier hands that on to the
+// folding threads, which read past L1. (One atomic in place of
+// __threadfence + atomicAdd and a second fence: 0.6 us less a call,
+// tools/k1k3_variants.cu.)
+__device__ __forceinline__ unsigned ticket(unsigned *counter) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    return old;
+}
+
+// One pass's F slab into shared memory: F[s0 + s, j0 .. j0 + AHR_COLS) as
+// 16-byte cp.async copies (not committed here), s < min(AHR_ROWS, t - s0).
+// The whole block calls it.
+__device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
+                                          int s0, int t, int M, int j0,
+                                          float (*fs)[AHR_COLS]) {
+    constexpr int CHUNKS = AHR_COLS / 4;         // 16-byte copies per row
+    const int rows = min(AHR_ROWS, t - s0);
+    for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
+        const int s = c / CHUNKS, q = (c % CHUNKS) * 4;
+        cp_async16(&fs[s][q], F + (size_t)(s0 + s) * M + j0 + q);
     }
 }
 
-__global__ void __launch_bounds__(THREADS) ah_ratio_finish(
-        const double *__restrict__ part_key, const int *__restrict__ part_idx,
-        int nparts, const float *__restrict__ ah,
-        const double *__restrict__ b, int *__restrict__ k_out,
-        float *__restrict__ p_out, double *__restrict__ bk_out,
-        int *__restrict__ unb_out) {
-    double key = -CUDART_INF;
+__global__ void __launch_bounds__(THREADS) ah_ratio_fused(
+        const float *__restrict__ Tt, const float *__restrict__ F,
+        const float *__restrict__ C, const double *__restrict__ b,
+        const int *__restrict__ h_ptr, int t, int M, int R, float eps,
+        int nb, float *__restrict__ ah, unsigned char *__restrict__ ws_bytes,
+        int *__restrict__ k_out, float *__restrict__ p_out,
+        double *__restrict__ bk_out, int *__restrict__ unb_out) {
+    __shared__ __align__(16) float fs[AHR_ROWS][AHR_COLS];
+    __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
+    __shared__ double sa[THREADS], sb[THREADS];  // each thread's a_h, b
+    __shared__ bool last;
+    const AhrWs ws(ws_bytes, nb);
+    const int tid = threadIdx.x;
+    const int j0 = blockIdx.x * AHR_COLS;
+    const int j = j0 + tid;                      // this thread's constraint
+    const bool owner = tid < AHR_COLS;           // M is a multiple of 128
+
+    // The first pass's loads, all issued before any is waited for: the F
+    // slab, then what h selects.
+    ahr_stage(F, 0, t, M, j0, fs);
+    cp_async_commit();
+    const int h = min(*h_ptr, R - 1);
+    for (int s = tid; s < min(AHR_ROWS, t); s += THREADS)
+        ch[s] = C[(size_t)s * R + h];
+    float th = 0.0f;
+    double bj = 0.0;
+    if (owner) {
+        th = Tt[(size_t)j * R + h];
+        bj = b[j];
+    }
+
+    // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], the FFMA chain in s
+    // order across the passes (ah_entry's arithmetic).
+    float acc = 0.0f;
+    for (int s0 = 0;;) {
+        cp_async_wait<0>();
+        __syncthreads();
+        const int rows = min(AHR_ROWS, t - s0);
+        if (owner) {
+#pragma unroll 8
+            for (int s = 0; s < rows; ++s)
+                acc = fmaf(ch[s], fs[s][tid], acc);
+        }
+        s0 += AHR_ROWS;
+        if (s0 >= t) break;
+        __syncthreads();                         // the pass is read
+        ahr_stage(F, s0, t, M, j0, fs);
+        cp_async_commit();
+        for (int s = tid; s < min(AHR_ROWS, t - s0); s += THREADS)
+            ch[s] = C[(size_t)(s0 + s) * R + h];
+    }
+
+    // The block's fold carries the winner's thread: its a_h and b[j] wait
+    // in shared memory, so the partial gets a_h[k] and b[k] with no load.
+    double key = -CUDART_INF;                    // key = -(b / a_h)
     int idx = BIG_INDEX;
-    for (int i = threadIdx.x; i < nparts; i += THREADS) {
-        if (better(part_key[i], part_idx[i], key, idx)) {
-            key = part_key[i];
-            idx = part_idx[i];
+    if (owner) {
+        const float a = __fsub_rn(th, acc);
+        ah[j] = a;
+        if (a >= eps) {
+            key = -__ddiv_rn(bj, (double)a);
+            idx = j;
+        }
+        sa[tid] = (double)a;
+        sb[tid] = bj;
+    }
+    double who = tid;
+    block_argmax_warps(key, idx, who);
+    if (tid == 0) {
+        const bool none = idx == BIG_INDEX;
+        ws.key[blockIdx.x] = key;
+        ws.idx[blockIdx.x] = idx;
+        ws.a[blockIdx.x] = none ? 0.0 : sa[(int)who];
+        ws.b[blockIdx.x] = none ? 0.0 : sb[(int)who];
+        last = ticket(ws.counter) == (unsigned)nb - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+
+    // The last block: every block has written its partial. Fold the
+    // partials (read past L1) in the same order, carrying the winner's
+    // thread again.
+    key = -CUDART_INF;
+    idx = BIG_INDEX;
+    double pa = 0.0, pb = 0.0;
+    for (int i = tid; i < nb; i += THREADS) {
+        const double ki = __ldcg(ws.key + i);
+        const int ii = __ldcg(ws.idx + i);
+        const double ai = __ldcg(ws.a + i), bi = __ldcg(ws.b + i);
+        if (better(ki, ii, key, idx)) {
+            key = ki;
+            idx = ii;
+            pa = ai;
+            pb = bi;
         }
     }
-    double unused = 0.0;
-    block_argmax(key, idx, unused);
-    if (threadIdx.x == 0) {
+    sa[tid] = pa;                                // thread 0 read sa above
+    sb[tid] = pb;
+    who = tid;
+    block_argmax_warps(key, idx, who);
+    if (tid == 0) {
         const bool none = idx == BIG_INDEX;      // no eligible constraint
         *k_out = idx;
-        *p_out = none ? 0.0f : ah[idx];
-        *bk_out = none ? 0.0 : b[idx];
+        *p_out = none ? 0.0f : (float)sa[(int)who];   // a_h[k], exactly
+        *bk_out = none ? 0.0 : sb[(int)who];
         *unb_out = none ? 1 : 0;
+        *ws.counter = 0;                         // ready for the next call
     }
 }
 
@@ -230,12 +339,13 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_finish(
 // cross-rank sum, so K1's fused form does not apply there.
 //   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
 // with h a column of this slice (the caller clamps it into range).
-// Bound on the card: latency, as K1. It reads t live F rows and one strided
+// Bound on the card: latency. It reads t live F rows and one strided
 // element of Tt per constraint (computed: 1.2 MB at t = 37, M = 8192) on
-// M / 256 blocks. Design: K1's tiles without the ratio fold -- the same
-// ah_stage / ah_entry device code, so K1 and K5 give the same column bit
-// for bit; one launch, no finishing pass. The TPU kernel skipped the dead
-// F segments through its index maps; here t is the loop bound.
+// M / 256 blocks. Design: the first K1's tiles without the ratio fold
+// (ah_stage / ah_entry), one thread a constraint; K1 runs the same
+// arithmetic in the same order from shared memory, so K1 and K5 give the
+// same column bit for bit. The TPU kernel skipped the dead F segments
+// through its index maps; here t is the loop bound.
 
 __global__ void __launch_bounds__(THREADS) ah_tiles(
         const float *__restrict__ Tt, const float *__restrict__ F,
@@ -521,30 +631,31 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
 // Replaces apply_reprice_pass (simplex_tpu/kernels/blocked.py:832,
 // pallas_call at :887; body _apply_reprice_kernel :744-826).
 // Bound on the card: f32 arithmetic. 2 L M R flops (computed: 51.5 GFLOP at
-// the flagship M = 8192, R = 24576, L = 128) against 8 M R bytes of tableau
-// read and write (1.6 GB): 32 flops per byte, above the H100's f32 ridge, so
-// the CUDA cores bound it; measured 1.32-1.64 ms, 47-58% of the f32 peak, on
-// NVIDIA H100 80GB HBM3, 700.00 W (PERF.md). IEEE f32 FFMA, no TF32 (the
-// TPU ran HIGHEST).
-// Design: 128 x 128 output tiles, 256 threads each owning an 8 x 8 register
-// tile (apply_tile.cuh, shared with the batched apply); each thread reads
-// its Tt elements before it writes them, and no other thread touches them,
-// so the update is safe in place. The reprice rides the fresh registers:
-// each block sums coeffs * Tt_new down its 128 rows in f64 and writes one
-// partial row per M tile; a second pass sums the partials in M order, so
-// the result is deterministic. The TPU kernel took a traced flag to skip
-// the reprice off cadence; here the loop decides the cadence on the host,
-// where it syncs once per window anyway, and launches K4 instead. K4 below
-// rounds every element of Tt as this tile does.
-
-template <bool REPRICE>
-__global__ void __launch_bounds__(APPLY_THREADS) apply_tiles(
-        float *__restrict__ Tt, const float *__restrict__ F,
-        const float *__restrict__ C, int M, int R, int L,
-        const double *__restrict__ coeffs, double *__restrict__ part) {
-    apply_tile<REPRICE>(Tt, F, C, M, R, L, coeffs,
-                        REPRICE ? part + (size_t)blockIdx.y * R : nullptr);
-}
+// the flagship M = 8192, R = 24576, L = 128; 0.769 ms at 67 TFLOP/s) and
+// 2 M R f64 ones for the fold (0.012 ms) against 8 M R bytes of tableau
+// read and written (1.6 GB, 0.481 ms): the CUDA cores bound it. The first
+// kernel (apply_tile.cuh's 128 x 128 tile, one block a tile, its reprice
+// fold behind one more barrier and 16 KB more of shared memory) took
+// 1.66 ms there on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md). This kernel:
+// 1.21-1.23 ms, 0.5-1.5% over K4 in the same run and 63% of the bound;
+// 1.2072 ms against the old tile's 1.6509-1.6522 in one run
+// (tools/k1k3_variants.cu). IEEE f32 FFMA, no TF32 (the TPU ran HIGHEST).
+// Design: K4's window_apply (below), one template with it, plus the f64
+// fold at each tile's write-back. The thread keeps the fresh values Tt_new
+// of its 8 rows x 8 columns in registers and, per column, sums coeffs[r] *
+// Tt_new[r, col] over its 8 rows in f64 (__fma_rn, rows in order from 0.0);
+// it leaves each sum in its own elements of the tile's staging buffer Ts,
+// which its store has just read and no other thread reads, so no barrier
+// comes before; after one barrier 128 threads add the 16 row groups in
+// order and write one partial row per M tile, and reprice_finish sums the
+// partials in M order. The groups, the chains and both orders are those of
+// apply_tile.cuh's reprice_fold, so mv is the old tile's bit for bit, and
+// K11 run on K3's output gives K3's mv. Ts holds the sums until the next
+// tile's copy into it, which waits behind the next stage's barrier, so
+// the shared memory stays K4's 96 KB and two blocks share an SM. The TPU
+// kernel took a traced flag to skip the reprice off cadence; here the loop
+// decides the cadence on the host, where it syncs once per window anyway,
+// and launches K4 instead.
 
 __global__ void __launch_bounds__(THREADS) reprice_finish(
         const double *__restrict__ part, int n_mtiles, int R,
@@ -585,8 +696,9 @@ __global__ void __launch_bounds__(THREADS) reprice_finish(
 // 128 contiguous bytes of C and 128 of F (no bank conflict, no replay).
 // The FFMAs of a step run in a zigzag over the thread's 8 x 8 outputs.
 // Arithmetic: each element's sum is fmaf over s = 0 .. L-1 in order from
-// 0.0f, then one __fsub_rn from Tt: the rounding of apply_tile.cuh, so K4
-// and K3 leave the same Tt bit for bit. No split-K, no tensor cores.
+// 0.0f, then one __fsub_rn from Tt, the rounding of apply_tile.cuh; K3 is
+// the same template with its fold, so K3 and K4 leave the same Tt bit for
+// bit. No split-K, no tensor cores.
 // F is streamed with C rather than kept resident per M tile: a resident
 // slab (L x 512 bytes) would cap L in 227 KB of shared memory and leave
 // one block per SM, and its re-reads come from L2 (F is 4 MB at the
@@ -597,9 +709,52 @@ constexpr int WIN_STAGE_FLOATS = 2 * AK * AT;    // F rows, then C rows
 constexpr size_t WIN_SMEM =
     (size_t)(AT * AT + WIN_STAGES * WIN_STAGE_FLOATS) * sizeof(float);
 
+// K3's fold at a tile's write-back (window_apply<true>). acc holds the
+// thread's Tt_new[r0 + a, c0 + 32 * (c >> 2) + (c & 3)] as acc[a][c], cf
+// points at coeffs[i0 + r0], part_row at the tile's partial row. Each
+// thread sums its 8 rows per column in f64 and leaves the sum of (row group
+// r0 / 8, column col) in rows r0, r0 + 1 of its own column group of Ts, as
+// the double at red_at(r0, col); thread col < AT then adds the 16 groups
+// in order. Zeroes acc for the next tile. The whole block calls it.
+__device__ __forceinline__ double *red_at(float *Ts, int r0, int col) {
+    const int q = col & 3;
+    return reinterpret_cast<double *>(
+        &Ts[(r0 + (q >> 1)) * AT + (col & ~3) + 2 * (q & 1)]);
+}
+
+__device__ __forceinline__ void window_fold(float (&acc)[8][8],
+                                            const double *__restrict__ cf,
+                                            float *Ts, int r0, int c0,
+                                            double *__restrict__ part_row) {
+    double w[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) w[a] = cf[a];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        double s = 0.0;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+            s = __fma_rn(w[a], (double)acc[a][c], s);
+            acc[a][c] = 0.0f;
+        }
+        *red_at(Ts, r0, c0 + (c >> 2) * 32 + (c & 3)) = s;
+    }
+    __syncthreads();
+    const int col = threadIdx.x;
+    if (col < AT) {
+        double s = 0.0;
+        for (int g = 0; g < AT / 8; ++g)
+            s = __dadd_rn(s, *red_at(Ts, 8 * g, col));
+        part_row[col] = s;
+    }
+}
+
+// K4 (REPRICE false) and K3 (true; coeffs (M,) and part (M / AT, R) f64).
+template <bool REPRICE>
 __global__ void __launch_bounds__(APPLY_THREADS, 2) window_apply(
         float *__restrict__ Tt, const float *__restrict__ F,
-        const float *__restrict__ C, int M, int R, int L) {
+        const float *__restrict__ C, int M, int R, int L,
+        const double *__restrict__ coeffs, double *__restrict__ part) {
     extern __shared__ __align__(16) float win_smem[];
     float *Ts = win_smem;                        // the tile of Tt
     float *ring = win_smem + AT * AT;
@@ -658,7 +813,8 @@ __global__ void __launch_bounds__(APPLY_THREADS, 2) window_apply(
         __syncthreads();
         if (kk == 0) {
             // The tile of Tt, into the group of stage g + WIN_STAGES - 1.
-            // The previous tile's store read Ts before the barrier.
+            // The previous tile's store (and K3's fold) read Ts before the
+            // barrier.
 #pragma unroll
             for (int q = 0; q < AT * AT / 4 / APPLY_THREADS; ++q) {
                 const int c = tid + q * APPLY_THREADS;
@@ -711,10 +867,21 @@ __global__ void __launch_bounds__(APPLY_THREADS, 2) window_apply(
                     v.z = __fsub_rn(v.z, acc[a][half * 4 + 2]);
                     v.w = __fsub_rn(v.w, acc[a][half * 4 + 3]);
                     *reinterpret_cast<float4 *>(out + half * 32) = v;
+                    if constexpr (REPRICE) {             // Tt_new, folded
+                        acc[a][half * 4 + 0] = v.x;
+                        acc[a][half * 4 + 1] = v.y;
+                        acc[a][half * 4 + 2] = v.z;
+                        acc[a][half * 4 + 3] = v.w;
+                    }
                 }
+                if constexpr (!REPRICE) {
 #pragma unroll
-                for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
+                    for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
+                }
             }
+            if constexpr (REPRICE)
+                window_fold(acc, coeffs + i0 + r0, Ts, r0, c0,
+                            part + (i0 / AT) * (size_t)R + j0);
             j0 += AT;
             if (j0 == (size_t)R) {
                 j0 = 0;
@@ -734,11 +901,12 @@ __global__ void __launch_bounds__(APPLY_THREADS, 2) window_apply(
 // pairs with Dekker transforms; here the fold is native f64.
 // Bound on the card: memory. It reads the tableau once, 4 M R bytes
 // (computed: 805 MB at M = 8192, R = 24576, 0.240 ms at 3.35 TB/s), for
-// 2 M R f64 operations (0.012 ms at 34 TFLOP/s). Design: K3's 128 x 128
-// tiles without the apply -- each thread loads its 8 x 8 elements into the
-// registers where K3 leaves Tt_new and runs the same fold (apply_tile.cuh
-// reprice_tile), then reprice_finish sums the per-tile partials in M
-// order: K3 with zero etas gives the same mv bit for bit.
+// 2 M R f64 operations (0.012 ms at 34 TFLOP/s). Design: apply_tile.cuh's
+// 128 x 128 tiles without the apply -- each thread loads its 8 x 8
+// elements into registers and runs reprice_fold (reprice_tile), then
+// reprice_finish sums the per-tile partials in M order. K3's fold sums the
+// same 8-row groups in the same orders, so K11 run on K3's output gives
+// K3's mv bit for bit (and with zero etas, K3's mv on the same Tt).
 
 __global__ void __launch_bounds__(APPLY_THREADS) reprice_tiles(
         const float *__restrict__ Tt, int R,
@@ -757,6 +925,31 @@ __global__ void __launch_bounds__(APPLY_THREADS) reprice_tiles(
         if (e != cudaSuccess) return (int)e;       \
     } while (0)
 
+namespace {
+
+// window_apply<REPRICE> on its persistent grid: two blocks an SM, at most
+// one a tile.
+template <bool REPRICE>
+int launch_window(float *Tt, const float *F, const float *C, int M, int R,
+                  int L, const double *coeffs, double *part,
+                  cudaStream_t st) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(window_apply<REPRICE>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)WIN_SMEM);
+    RETURN_IF_ERROR();
+    const int n_tiles = (M / AT) * (R / AT);
+    const int nb = n_tiles < 2 * sms ? n_tiles : 2 * sms;
+    window_apply<REPRICE><<<nb, APPLY_THREADS, WIN_SMEM, st>>>(
+        Tt, F, C, M, R, L, coeffs, part);
+    RETURN_IF_ERROR();
+    return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
 const char *kernel_error_string(int err) {
@@ -765,16 +958,16 @@ const char *kernel_error_string(int err) {
 
 int ah_ratio_launch(const float *Tt, const float *F, const float *C,
                     const double *b, const int *h, int t, int M, int R,
-                    float eps, float *ah, double *part_key, int *part_idx,
-                    int *k_out, float *p_out, double *bk_out, int *unb_out,
-                    void *stream) {
+                    float eps, float *ah, unsigned char *ws,
+                    long long ws_bytes, int *k_out, float *p_out,
+                    double *bk_out, int *unb_out, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = (M + THREADS - 1) / THREADS;
-    ah_ratio_tiles<<<nb, THREADS, t * sizeof(float), st>>>(
-        Tt, F, C, b, h, t, M, R, eps, ah, part_key, part_idx);
-    RETURN_IF_ERROR();
-    ah_ratio_finish<<<1, THREADS, 0, st>>>(part_key, part_idx, nb, ah, b,
-                                           k_out, p_out, bk_out, unb_out);
+    const int nb = (M + AHR_COLS - 1) / AHR_COLS;
+    if (ws_bytes < (long long)ahr_ws_bytes(nb))
+        return (int)cudaErrorInvalidValue;       // workspace too small
+    ah_ratio_fused<<<nb, THREADS, 0, st>>>(Tt, F, C, b, h, t, M, R, eps, nb,
+                                           ah, ws, k_out, p_out, bk_out,
+                                           unb_out);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -813,10 +1006,8 @@ int apply_reprice_launch(float *Tt, const float *F, const float *C, int M,
                          int R, int L, const double *coeffs, double *part,
                          double *mv, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(R / AT, M / AT);
-    apply_tiles<true><<<grid, THREADS, 0, st>>>(Tt, F, C, M, R, L, coeffs,
-                                                part);
-    RETURN_IF_ERROR();
+    const int err = launch_window<true>(Tt, F, C, M, R, L, coeffs, part, st);
+    if (err != 0) return err;
     reprice_finish<<<(R + THREADS - 1) / THREADS, THREADS, 0, st>>>(
         part, M / AT, R, mv);
     RETURN_IF_ERROR();
@@ -825,19 +1016,8 @@ int apply_reprice_launch(float *Tt, const float *F, const float *C, int M,
 
 int apply_window_launch(float *Tt, const float *F, const float *C, int M,
                         int R, int L, void *stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(window_apply,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)WIN_SMEM);
-    RETURN_IF_ERROR();
-    const int n_tiles = (M / AT) * (R / AT);
-    const int nb = n_tiles < 2 * sms ? n_tiles : 2 * sms;  // persistent
-    window_apply<<<nb, APPLY_THREADS, WIN_SMEM, st>>>(Tt, F, C, M, R, L);
-    RETURN_IF_ERROR();
-    return 0;
+    return launch_window<false>(Tt, F, C, M, R, L, nullptr, nullptr,
+                                static_cast<cudaStream_t>(stream));
 }
 
 int reprice_launch(const float *Tt, int M, int R, const double *coeffs,

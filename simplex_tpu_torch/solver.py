@@ -30,9 +30,9 @@ import torch
 
 from .config import (EPS_REL_F32, SolverOptions, Status,
                      kernel_blocked_enabled, normalize_enabled)
-from .kernels.blocked import (BIG_INDEX, ah_ratio, apply_reprice,
-                              apply_window, colk_costs, colk_workspace,
-                              entering_candidates)
+from .kernels.blocked import (BIG_INDEX, ah_ratio, ah_ratio_workspace,
+                              apply_reprice, apply_window, colk_costs,
+                              colk_workspace, entering_candidates)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 RUNNING = int(Status.RUNNING)
@@ -509,6 +509,7 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
     # it (a skipped pivot writes zeros), so the factors are never cleared.
     C = torch.zeros((L, R), dtype=torch.float32, device=dev)
     F = torch.zeros((L, M), dtype=torch.float32, device=dev)
+    ws_k1 = ah_ratio_workspace(M, dev)
     ws = colk_workspace(R, dev)
 
     st, it, windows = RUNNING, 0, 0
@@ -519,7 +520,7 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
             h = torch.where(use_bland, h_b, h_d)
             minc = torch.where(use_bland, v_b, v_d)
             optimal = minc > -eps
-            a_h, k, p, bk, unb = ah_ratio(Tt, F, C, b, h, t, eps)
+            a_h, k, p, bk, unb = ah_ratio(Tt, F, C, b, h, t, eps, ws_k1)
             unbounded = unb != 0
             do = active & ~(optimal | unbounded)
             p = torch.where(do, p, 1.0)

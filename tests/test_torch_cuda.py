@@ -96,21 +96,72 @@ def test_kernels_match_plain_on_card(cuda):
 @pytest.mark.parametrize("M,R,L", [(256, 384, 16), (128, 128, 8),
                                    (1024, 2944, 136)])
 def test_apply_window_equals_k3_apply_on_card(cuda, M, R, L):
-    """K4 leaves Tt bit for bit as K3's apply does (each element the same
-    FFMA chain over s in order, then one subtraction), at an odd R-tile
-    count, the shortest window, and a shape where each persistent block
-    walks several tiles across M tiles; and within 1e-5 * (1 + |x|) of
-    cuBLAS addmm_ (another summation order)."""
+    """K4 leaves Tt bit for bit as K3 does (one kernel template: each
+    element the same FFMA chain over s in order, then one subtraction),
+    at an odd R-tile count, the shortest window, and a shape where each
+    persistent block walks several tiles across M tiles; and within
+    1e-5 * (1 + |x|) of cuBLAS addmm_ (another summation order). K3's mv
+    equals K11 run on K3's output bit for bit (the same row groups summed
+    in the same orders) and the f64 formula within 1e-12 of its terms'
+    magnitude."""
     Tt = _rand((M, R), 41).to(cuda)
     C = _rand((L, R), 42).to(cuda)
     F = _rand((L, M), 43, -0.1, 0.1).to(cuda)
     coeffs = _rand((M,), 44, dtype=np.float64).to(cuda)
     T3, T4, Tp = Tt.clone(), Tt.clone(), Tt.clone()
-    kb.apply_reprice(T3, C, F, coeffs)
+    mv = kb.apply_reprice(T3, C, F, coeffs)
     kb.apply_window(T4, C, F)
     kb.apply_window_plain(Tp, C, F)
     assert torch.equal(T4, T3)
     torch.testing.assert_close(T4, Tp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(mv, kb.reprice(T3, coeffs))
+    scale = tt_matvec(T3.abs(), coeffs.abs())
+    assert ((mv - tt_matvec(T3, coeffs)).abs() <= 1e-12 * scale).all()
+
+
+@pytest.mark.parametrize("t", [0, 1, 15])
+def test_ah_ratio_on_card(cuda, t):
+    """K1 twice back to back on one workspace: both calls equal bit for
+    bit and the arrival counter back at 0; k and the flag equal to the
+    plain version's; p == a_h[k] and bk == b[k] exactly; a_h equal to
+    K5's column bit for bit. M = 384 spreads the constraints over six
+    blocks."""
+    M, R, L, eps = 384, 256, 16, 1e-4
+    Tt = _rand((M, R), 61).to(cuda)
+    C = _rand((L, R), 62).to(cuda)
+    F = _rand((L, M), 63, -0.1, 0.1).to(cuda)
+    C[t:] = 0
+    F[t:] = 0
+    b = _rand((M,), 64, 0, 100, np.float64).to(cuda)
+    h = torch.tensor(77, dtype=torch.int32, device=cuda)
+    ws = kb.ah_ratio_workspace(M, cuda)
+    got = kb.ah_ratio(Tt, F, C, b, h, t, eps, ws=ws)
+    again = kb.ah_ratio(Tt, F, C, b, h, t, eps, ws=ws)
+    assert int(ws[:4].view(torch.int32)) == 0
+    for a, b2 in zip(got, again):
+        assert torch.equal(a, b2)
+    want = kb.ah_ratio_plain(Tt, F, C, b, h, t, eps)
+    ah, k, p, bk, unb = got
+    assert int(k) == int(want[1]) and int(unb) == int(want[4]) == 0
+    assert torch.equal(p, ah[k.long()]) and torch.equal(bk, b[k.long()])
+    assert torch.equal(ah, kb.ah(Tt, F, C, h, t))
+    torch.testing.assert_close(ah, want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_ah_ratio_unbounded_on_card(cuda):
+    """No eligible row: k = BIG_INDEX, p = 0, bk = 0, unbounded = 1."""
+    M, R, L, eps = 384, 256, 16, 1e-4
+    Tt = _rand((M, R), 65).to(cuda)
+    Tt[:, 9] = -Tt[:, 9].abs()
+    C = torch.zeros((L, R), device=cuda)
+    F = torch.zeros((L, M), device=cuda)
+    b = _rand((M,), 66, 0, 100, np.float64).to(cuda)
+    h = torch.tensor(9, dtype=torch.int32, device=cuda)
+    ws = kb.ah_ratio_workspace(M, cuda)
+    ah, k, p, bk, unb = kb.ah_ratio(Tt, F, C, b, h, 0, eps, ws=ws)
+    assert int(k) == kb.BIG_INDEX and int(unb) == 1
+    assert float(p) == 0.0 and float(bk) == 0.0
+    assert int(ws[:4].view(torch.int32)) == 0
 
 
 @pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
@@ -288,11 +339,39 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         assert g.objective == pytest.approx(w.objective, rel=1e-9)
 
 
-def test_solve_on_card_matches_cpu(cuda):
+def test_solve_on_card_matches_cpu(cuda, monkeypatch):
+    """The production solve on the card: K1 and K2 launched, each run of
+    the kernel loop allocating one K1 workspace and handing it to every
+    K1 call of that run; status equal to the CPU's, the objective
+    certified and within 1e-9."""
+    from simplex_tpu_torch import solver
+
+    runs, allocs, calls = [], [], []
+    loop_kernel = solver.solve_loop_blocked_kernel
+
+    def loop(*args, **kw):
+        runs.append(1)
+        return loop_kernel(*args, **kw)
+
+    def workspace(M, device):
+        ws = kb.ah_ratio_workspace(M, device)
+        allocs.append(ws.data_ptr())
+        return ws
+
+    def k1(*args, **kw):
+        ws = args[7] if len(args) > 7 else kw.get("ws")
+        calls.append(ws is not None and ws.data_ptr() == allocs[-1])
+        return kb.ah_ratio(*args, **kw)
+
+    monkeypatch.setattr(solver, "solve_loop_blocked_kernel", loop)
+    monkeypatch.setattr(solver, "ah_ratio_workspace", workspace)
+    monkeypatch.setattr(solver, "ah_ratio", k1)
     p = pst.generate_random_problem(128, 64, 2, 1, 100)
     kb.reset_launches()
     got = pst.solve(p, device="cuda", **PROD)
     assert kb.LAUNCHES["ah_ratio"] > 0 and kb.LAUNCHES["colk_costs"] > 0
+    assert runs and len(allocs) == len(runs)
+    assert calls and all(calls)
     want = pst.solve(p, device="cpu", **PROD)
     assert got.status == want.status == pst.Status.OPTIMAL
     assert got.refine.certified

@@ -193,6 +193,36 @@ def test_colk_costs_matches_pallas(L, t, devex):
                  2 * prop.max())
 
 
+@pytest.mark.parametrize("M", [128, 384, 8192])
+def test_ah_ratio_workspace_sizes(M):
+    """8 bytes (the arrival counter), then one partial of three f64 and
+    one int32 per block of AHR_COLS constraints; zeroed."""
+    ws = kb.ah_ratio_workspace(M, "cpu")
+    assert ws.dtype == torch.uint8 and ws.is_contiguous()
+    assert ws.numel() == kb.ah_ratio_workspace_bytes(M) == 8 + 28 * (M // 64)
+    assert not ws.any()
+
+
+@pytest.mark.parametrize("case", ["t0", "t7", "unbounded"])
+def test_ah_ratio_plain_ignores_workspace(case):
+    """On the CPU the plain version runs with or without a workspace and
+    gives the same outputs bit for bit; the workspace stays untouched."""
+    t = 7 if case == "t7" else 0
+    _, Tt, C, F, b = _inputs(16, t, 23)
+    if case == "unbounded":
+        Tt[:, 5] = -np.abs(Tt[:, 5])
+    runs = []
+    for ws in (None, kb.ah_ratio_workspace(M_PAD, "cpu")):
+        runs.append((kb.ah_ratio(_t(Tt), _t(F), _t(C), _t(b), _i32(5), t,
+                                 EPS, ws=ws), ws))
+    (out0, _), (out1, ws) = runs
+    for a, b2 in zip(out0, out1):
+        assert a.dtype == b2.dtype and a.shape == b2.shape
+        assert torch.equal(a, b2)
+    assert int(out0[4]) == (case == "unbounded")
+    assert not ws.any()
+
+
 @pytest.mark.parametrize("R", [128, 384, 24576])
 def test_colk_workspace_sizes(R):
     """16 bytes (counter and stashed weight), then one partial of three
@@ -295,14 +325,23 @@ def test_cpu_path_leaves_launch_counters_at_zero():
     assert kb.LAUNCHES == {name: 0 for name in kb.LAUNCHES}
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "window"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "window", "ws_dtype",
+                                 "ws_size", "ws_device"])
 def test_wrappers_reject_bad_operands(bad):
     _, Tt, C, F, b = _inputs(16, 3, 13)
     Tt, C, F, b = _t(Tt), _t(C), _t(F), _t(b)
+    ws = None
     if bad == "dtype":
         b = b.float()
     elif bad == "shape":
         F = F[:, :128].contiguous()
+    elif bad == "ws_dtype":
+        ws = kb.ah_ratio_workspace(M_PAD, "cpu").view(torch.int32)
+    elif bad == "ws_size":
+        ws = kb.ah_ratio_workspace(M_PAD, "cpu")[:-1]
+    elif bad == "ws_device":
+        ws = torch.zeros(kb.ah_ratio_workspace_bytes(M_PAD),
+                         dtype=torch.uint8, device="meta")
     t = 16 if bad == "window" else 3
     with pytest.raises(ValueError):
-        kb.ah_ratio(Tt, F, C, b, _i32(3), t, EPS)
+        kb.ah_ratio(Tt, F, C, b, _i32(3), t, EPS, ws=ws)
