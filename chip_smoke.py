@@ -53,6 +53,8 @@ Phases, in order; any failed check exits non-zero:
    path, with the K7-K10 launch counters reset just before its first
    call and read just after; then a warm call; then 32 x (m=500,
    n=14,000) lanes from seeds 2000..2031 (the TPU's HBM-tier shape);
+   each batch's walks printed as one digest (``walk_digest``; the same
+   as ``tools/batch_walks.py`` prints for any checkout);
 10a. two spawned ranks on the one card over gloo: random_2048_2048 in
    production, the walk and certified objective of phase 9a's one rank;
    the fleet of config 3's first 64 lanes, 32 a rank, bit for bit as
@@ -72,8 +74,10 @@ Phases, in order; any failed check exits non-zero:
    bit), K6 at the 8192^2 and the north-star f32 shapes, then the
    batched kernels at config 3's shapes (B=256, M=512, R=3072, L=32) and
    the wide ones (B=32, R=15104), under devex and Dantzig, with a frozen
-   lane and a lane that hits its fuse mid-window, and K12 at config 3's
-   shapes (``batch_apply_reprice``'s fold with no live eta bit for bit);
+   lane and a lane that hits its fuse mid-window (``batch_window``: one
+   kernel a call, one thread-block cluster a lane, its plan printed),
+   and K12 at config 3's shapes (``batch_apply_reprice``'s fold with no
+   live eta bit for bit);
    each timed on the device by two clocks -- torch.profiler, and CUDA
    events (over a CUDA graph of 50 calls for K1, K2 and K5, over
    back-to-back calls for the rest) -- beside its bound and, where one
@@ -99,6 +103,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import hashlib
 import json
 import pathlib
 import statistics
@@ -227,9 +232,10 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     return total_us / 1e3 / reps
 
 
-def kernels_launched(fn) -> int:
+def kernels_launched(fn, match: str | None = None) -> int:
     """The number of kernels one call of ``fn()`` launches on the card,
-    counted by torch.profiler after one warm-up call."""
+    counted by torch.profiler after one warm-up call; with ``match``, only
+    those whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -240,7 +246,8 @@ def kernels_launched(fn) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+               if e.device_type == DeviceType.CUDA
+               and (match is None or match in e.key))
 
 
 def host_us(fn, reps: int) -> float:
@@ -419,6 +426,10 @@ def phase_kernels(records: dict) -> None:
             f"K5 a_h t={t}", got5, want5, 1e-5 * (1 + want5.abs())))
         k1_us = 1e3 * device_ms(k1, 50)
         log(f"K1 t={t}: {k1_us:.2f} us a call on the device")
+        k5 = functools.partial(kb.ah, Tt, F, C, h, t)
+        log(f"K5 t={t}: {1e3 * device_ms(k5, 50):.2f} us a call by "
+            f"torch.profiler, {1e3 * graph_ms(k5):.2f} us by CUDA events "
+            "over a CUDA graph")
         if t == 37:
             n = kernels_launched(k1)
             require(n == 1, f"one ah_ratio call launched {n} kernels")
@@ -817,6 +828,14 @@ def phase_batch_kernels(records: dict) -> None:
                         st[k].copy_(st0[k])
                     fn(Tt, *(st[k] for k in WINDOW_ARGS), **kw)
 
+                # One kernel a call: one launch of B clusters.
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                plan = kbt.window_plan(B, M, R, L, True, sms)
+                n = kernels_launched(lambda: window(kbt.batch_window),
+                                     "batch_window")
+                require(n == 1, f"one batch_window call launched {n} "
+                        "kernels")
+                log(f"batch_window {label}: one kernel a call, {plan}")
                 C, F, cf, nl = sk["C"], sk["F"], sk["cf"], sk["nlive"]
                 times = {
                     "batch_window": [
@@ -1480,13 +1499,26 @@ def phase_batch_spread() -> None:
     log("batch spread: OPTIMAL 13 (certified), UNBOUNDED, INFEASIBLE")
 
 
+def walk_digest(results) -> str:
+    """sha256 over each lane's (status, phase-1 pivots, phase-2 pivots,
+    objective.hex()): a batch's walks in one line (tools/batch_walks.py
+    prints the same digest for any checkout)."""
+    h = hashlib.sha256()
+    for r in results:
+        obj = "none" if r.objective is None else float(r.objective).hex()
+        h.update(f"{int(r.status)} {r.iterations_phase1} "
+                 f"{r.iterations_phase2} {obj};".encode())
+    return h.hexdigest()
+
+
 def phase_batch(label: str, shape, launches: dict | None = None,
                 lanes=()) -> None:
     """One batch through ``solve_batch`` twice (first and warm call): every
-    lane OPTIMAL and certified, the same walks both times; ``lanes``
-    checked against a batch of that lane alone (walk, basis, objective
-    bit for bit) and against the single-LP ``solve`` (1e-9). With
-    ``launches``, the K7-K10 counters of the first call."""
+    lane OPTIMAL and certified, the same walks both times, printed as one
+    digest (``walk_digest``); ``lanes`` checked against a batch of that
+    lane alone (walk, basis, objective bit for bit) and against the
+    single-LP ``solve`` (1e-9). With ``launches``, the K7-K10 counters of
+    the first call."""
     import numpy as np
     import torch
 
@@ -1531,6 +1563,7 @@ def phase_batch(label: str, shape, launches: dict | None = None,
         f"{statistics.median(pivots)} max {pivots[-1]}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB; launches {counts}")
+    log(f"{label}: walk digest {walk_digest(res)}")
     for i in lanes:
         alone_stats = {}
         (alone,), _ = timed_batch([problems[i]], alone_stats)

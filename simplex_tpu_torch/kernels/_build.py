@@ -114,8 +114,11 @@ SIGNATURES = {
     # Tt M R coeffs part mv stream
     "reprice_launch": [_P, _I, _I, _P, _P, _P, _P],
     # csrc/batched.cu: Tt costs b z base w sci c0 cf C F AH piv nlive,
-    # B M R L r eps bland_static threshold stream
-    "batch_window_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _D, _I, _I, _P],
+    # B M R L r eps bland_static threshold, the plan (cs vec res_c res_f
+    # smem), stream
+    "batch_window_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _D, _I, _I,
+                                        _I, _I, _I, _I, ctypes.c_longlong,
+                                        _P],
     # Tt F C B M R L nlive stream
     "batch_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # Tt F C B M R L nlive do_r cf part mv stream
@@ -141,6 +144,9 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [_I]
             lib.kernel_error_string.restype = ctypes.c_char_p
+            # M R cs devex vec res_c res_f -> bytes
+            lib.batch_window_smem_bytes.argtypes = [_I] * 7
+            lib.batch_window_smem_bytes.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

@@ -34,6 +34,9 @@ applied; rows past a lane's ``nlive`` are zero.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..config import Status
@@ -76,6 +79,78 @@ def _dims(Tt, C, F, B: int) -> tuple[int, int, int]:
 
 # ---------------------------------------------------------------------------
 # K7 / K8 pivot loop: one window of up to L pivots per lane.
+
+#: Shared memory on sm_90: a block's most (227 KB); the window kernel's
+#: fixed header (csrc/batched.cu WIN_SMEM_LIMIT, WIN_HEADER).
+BLOCK_SMEM = 232448
+WINDOW_HEADER = 2048
+#: The cluster sizes the window kernel takes (past 8 a cluster is not
+#: portable; the kernel allows it), and its threads a block
+#: (csrc/batched.cu WIN_THREADS): at its 128 registers a thread they fill
+#: an SM's register file, so one block runs on an SM.
+CLUSTERS = (1, 2, 4, 8, 16)
+WINDOW_THREADS = 512
+
+
+class WindowPlan(NamedTuple):
+    """How ``batch_window`` spreads a lane: ``cs`` blocks (one
+    thread-block cluster), each holding in shared memory its vectors
+    (``vec``) and the first ``res_c`` rows of its columns of C and
+    ``res_f`` of its columns of F, ``smem`` bytes in all."""
+    cs: int
+    vec: bool
+    res_c: int
+    res_f: int
+    smem: int
+
+
+def window_smem_bytes(M: int, R: int, cs: int, devex: bool, vec: bool,
+                      res_c: int, res_f: int) -> int:
+    """Shared memory of one block of ``batch_window`` (csrc/batched.cu
+    ``window_smem_bytes``, which refuses a plan whose count differs): the
+    header, then with ``vec`` the block's R / cs columns of costs (f64),
+    devex weights and the pivot row (f32) and its M / cs rows of b (f64),
+    base, a_h and the entering column (4 bytes each), then its resident
+    eta rows."""
+    rc, mc = R // cs, M // cs
+    n = WINDOW_HEADER + 4 * (rc * res_c + mc * res_f)
+    if vec:
+        n += rc * (8 + (4 if devex else 0) + 4) + mc * (8 + 4 + 4 + 4)
+    return n
+
+
+def window_plan(B: int, M: int, R: int, L: int, devex: bool,
+                sms: int = 132) -> WindowPlan:
+    """The one place that decides how ``batch_window`` runs B lanes of M x
+    R on a card of ``sms`` SMs (chosen on the card, tools/k7_variants.cu
+    and PERF.md). A lane's pivots are a chain of dependent steps, so the
+    window takes its waves of lanes times L pivots: the lanes in flight
+    should fill the card, and each pivot should be short. One cluster of
+    cs blocks runs a lane, one block an SM, so cs is the smallest size
+    with B x cs at least 90% of the SMs -- more blocks a lane would only
+    add waves -- but no larger than leaves a block WINDOW_THREADS of the
+    lane's columns (past that the cluster's folds cost more than the
+    block's work saves). A block's 227 KB hold first its vectors, then
+    its columns of F's rows, then of C's rows, as many as fit."""
+    if M % 128 or R % 128 or not 1 <= L <= LMAX or B < 1 or sms < 1:
+        raise ValueError(f"no window plan for B={B} M={M} R={R} L={L}")
+    cs = 1
+    while (cs < CLUSTERS[-1] and B * cs < 0.9 * sms
+           and R // (2 * cs) >= WINDOW_THREADS):
+        cs *= 2
+    rc, mc = R // cs, M // cs
+    vec = window_smem_bytes(M, R, cs, devex, True, 0, 0) <= BLOCK_SMEM
+    rem = BLOCK_SMEM - window_smem_bytes(M, R, cs, devex, vec, 0, 0)
+    res_f = min(L, rem // (4 * mc))
+    res_c = min(L, (rem - 4 * mc * res_f) // (4 * rc))
+    return WindowPlan(cs, vec, res_c, res_f,
+                      window_smem_bytes(M, R, cs, devex, vec, res_c, res_f))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def batch_window_plain(Tt, costs, b, z, base, w, sci, c0, cf, C, F, AH, piv,
                        nlive, *, r: int, eps: float, bland_static: bool,
@@ -182,7 +257,8 @@ def batch_window(Tt, costs, b, z, base, w, sci, c0, cf, C, F, AH, piv, nlive,
     ``base[k] = h``, ``cf[k] = c0[h]`` and the stall / Bland policy.
     Updates ``costs b z base w sci[:, :4] cf`` in place and writes ``C F
     AH piv nlive``. ``Tt`` is only read. ``threshold`` None never enters
-    Bland mode."""
+    Bland mode. On the card one thread-block cluster runs each lane, as
+    ``window_plan`` decides; every plan gives the same bits."""
     B = costs.shape[0]
     M, R, L = _dims(Tt, C, F, B)
     _expect(costs, "costs", torch.float64, (B, R))
@@ -206,9 +282,12 @@ def batch_window(Tt, costs, b, z, base, w, sci, c0, cf, C, F, AH, piv, nlive,
     from ._build import check, load_library
 
     lib = load_library()
+    plan = window_plan(B, M, R, L, w is not None,
+                       _sm_count(Tt.device.index))
     err = lib.batch_window_launch(
         *(_ptr(x) for x in args), B, M, R, L, r, float(eps),
         int(bland_static), -1 if threshold is None else int(threshold),
+        plan.cs, int(plan.vec), plan.res_c, plan.res_f, plan.smem,
         _stream(Tt))
     check(lib, err, "batch_window")
     LAUNCHES["batch_window"] += 1

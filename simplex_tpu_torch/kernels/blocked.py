@@ -250,8 +250,8 @@ def ah(Tt, F, C, h, t: int):
 
     The live entering column ``a_h = Tt[:, h] - C[:t, h] @ F[:t]`` (M,)
     f32, h a 0-dim int32 column of ``Tt`` (clamped into range), ``t`` the
-    live eta rows. On the card it runs K1's column code without the ratio
-    fold, so K1 and K5 give the same column bit for bit. The sharded loop
+    live eta rows. On the card it runs K1's kernel without its ratio test,
+    so K1 and K5 give the same column bit for bit. The sharded loop
     calls it on each rank's slice and sums the owner's column across the
     ranks before its ratio test."""
     M, R, L = _check_factors(Tt, C, F)

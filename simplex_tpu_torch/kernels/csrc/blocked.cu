@@ -133,8 +133,9 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // shared memory (they do not depend on h, so they go first), then C[s, h]
 // and, one thread a constraint, Tt[j, h] and b[j] -- so the whole F slab is
 // in flight together; then each owner runs the FFMA chain from shared
-// memory, s = 0 .. t-1 in order from 0.0f, and one __fsub_rn: ah_entry's
-// arithmetic, so K5's column is K1's bit for bit. AHR_COLS = 64 makes 128
+// memory, s = 0 .. t-1 in order from 0.0f, and one __fsub_rn. K5 is this
+// kernel without the ratio test, so its column is K1's bit for bit.
+// AHR_COLS = 64 makes 128
 // blocks at M = 8192, one wave on the 132 SMs (at 128 a block, 64 blocks
 // would leave half the SMs idle and double each block's serial slab). Each
 // block folds its ratio candidates over warp shuffles, writes its partial
@@ -147,28 +148,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // The ratio is a native f64 quotient (the TPU formed it from double-f32
 // pairs); the TPU carried the fold across its sequential grid in SMEM
 // scratch.
-
-// The live entering column of K5 (K1 repeats its arithmetic from shared
-// memory). ah_stage puts C[s, h] for s < t into the block's shared memory
-// ch (the whole block calls it); ah_entry is then
-//   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
-// with the eta correction summed in s order in FFMA.
-__device__ __forceinline__ void ah_stage(const float *__restrict__ C, int h,
-                                         int t, int R, float *ch) {
-    for (int s = threadIdx.x; s < t; s += blockDim.x)
-        ch[s] = C[(size_t)s * R + h];
-    __syncthreads();
-}
-
-__device__ __forceinline__ float ah_entry(const float *__restrict__ Tt,
-                                          const float *__restrict__ F,
-                                          const float *ch, int h, int t,
-                                          int j, int M, int R) {
-    float acc = 0.0f;
-    for (int s = 0; s < t; ++s)
-        acc = fmaf(ch[s], F[(size_t)s * M + j], acc);
-    return __fsub_rn(Tt[(size_t)j * R + h], acc);
-}
 
 constexpr int AHR_COLS = 64;    // constraints per block
 constexpr int AHR_ROWS = 128;   // live F rows staged per pass of the chain
@@ -208,25 +187,31 @@ __device__ __forceinline__ unsigned ticket(unsigned *counter) {
 
 // One pass's F slab into shared memory: F[s0 + s, j0 .. j0 + AHR_COLS) as
 // 16-byte cp.async copies (not committed here), s < min(AHR_ROWS, t - s0).
-// The whole block calls it.
+// The whole block (NTH threads) calls it.
+template <int NTH>
 __device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
                                           int s0, int t, int M, int j0,
                                           float (*fs)[AHR_COLS]) {
     constexpr int CHUNKS = AHR_COLS / 4;         // 16-byte copies per row
     const int rows = min(AHR_ROWS, t - s0);
-    for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
+    for (int c = threadIdx.x; c < rows * CHUNKS; c += NTH) {
         const int s = c / CHUNKS, q = (c % CHUNKS) * 4;
         cp_async16(&fs[s][q], F + (size_t)(s0 + s) * M + j0 + q);
     }
 }
 
-__global__ void __launch_bounds__(THREADS) ah_ratio_fused(
+// RATIO false is K5: the column alone -- no b load, no fold, no ticket, no
+// workspace (b, ws and the outputs after ah may be null), NTH threads a
+// block; at t = 0 it writes Tt[j, h] - 0.0f without staging anything.
+template <bool RATIO, int NTH = THREADS>
+__global__ void __launch_bounds__(NTH) ah_ratio_fused(
         const float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, const double *__restrict__ b,
         const int *__restrict__ h_ptr, int t, int M, int R, float eps,
         int nb, float *__restrict__ ah, unsigned char *__restrict__ ws_bytes,
         int *__restrict__ k_out, float *__restrict__ p_out,
         double *__restrict__ bk_out, int *__restrict__ unb_out) {
+    static_assert(!RATIO || NTH == THREADS, "K1 folds over THREADS");
     __shared__ __align__(16) float fs[AHR_ROWS][AHR_COLS];
     __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
     __shared__ double sa[THREADS], sb[THREADS];  // each thread's a_h, b
@@ -239,20 +224,24 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_fused(
 
     // The first pass's loads, all issued before any is waited for: the F
     // slab, then what h selects.
-    ahr_stage(F, 0, t, M, j0, fs);
+    ahr_stage<NTH>(F, 0, t, M, j0, fs);
     cp_async_commit();
     const int h = min(*h_ptr, R - 1);
-    for (int s = tid; s < min(AHR_ROWS, t); s += THREADS)
+    for (int s = tid; s < min(AHR_ROWS, t); s += NTH)
         ch[s] = C[(size_t)s * R + h];
     float th = 0.0f;
     double bj = 0.0;
     if (owner) {
         th = Tt[(size_t)j * R + h];
-        bj = b[j];
+        if (RATIO) bj = b[j];
+    }
+    if (!RATIO && t == 0) {                      // no live eta row
+        if (owner) ah[j] = __fsub_rn(th, 0.0f);
+        return;
     }
 
     // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], the FFMA chain in s
-    // order across the passes (ah_entry's arithmetic).
+    // order across the passes.
     float acc = 0.0f;
     for (int s0 = 0;;) {
         cp_async_wait<0>();
@@ -266,10 +255,15 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_fused(
         s0 += AHR_ROWS;
         if (s0 >= t) break;
         __syncthreads();                         // the pass is read
-        ahr_stage(F, s0, t, M, j0, fs);
+        ahr_stage<NTH>(F, s0, t, M, j0, fs);
         cp_async_commit();
-        for (int s = tid; s < min(AHR_ROWS, t - s0); s += THREADS)
+        for (int s = tid; s < min(AHR_ROWS, t - s0); s += NTH)
             ch[s] = C[(size_t)(s0 + s) * R + h];
+    }
+
+    if constexpr (!RATIO) {
+        if (owner) ah[j] = __fsub_rn(th, acc);
+        return;
     }
 
     // The block's fold carries the winner's thread: its a_h and b[j] wait
@@ -339,24 +333,20 @@ __global__ void __launch_bounds__(THREADS) ah_ratio_fused(
 // cross-rank sum, so K1's fused form does not apply there.
 //   a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] * F[s, j]
 // with h a column of this slice (the caller clamps it into range).
-// Bound on the card: latency. It reads t live F rows and one strided
-// element of Tt per constraint (computed: 1.2 MB at t = 37, M = 8192) on
-// M / 256 blocks. Design: the first K1's tiles without the ratio fold
-// (ah_stage / ah_entry), one thread a constraint; K1 runs the same
-// arithmetic in the same order from shared memory, so K1 and K5 give the
-// same column bit for bit. The TPU kernel skipped the dead F segments
-// through its index maps; here t is the loop bound.
-
-__global__ void __launch_bounds__(THREADS) ah_tiles(
-        const float *__restrict__ Tt, const float *__restrict__ F,
-        const float *__restrict__ C, const int *__restrict__ h_ptr, int t,
-        int M, int R, float *__restrict__ ah) {
-    extern __shared__ float ch[];                // C[s, h] for s < t
-    const int h = min(*h_ptr, R - 1);
-    ah_stage(C, h, t, R, ch);
-    const int j = blockIdx.x * THREADS + threadIdx.x;
-    if (j < M) ah[j] = ah_entry(Tt, F, ch, h, t, j, M, R);
-}
+// Bound on the card: bytes. It reads t live F rows, t values of C and one
+// strided element of Tt per constraint and writes the column (computed:
+// 1.2 MB at t = 37, M = 8192, 0.37 us at HBM's rate), but what it can
+// reach is latency: a launch, h, then Tt[:, h]. The kernel it replaced
+// (one thread a constraint in M / 256 blocks, C[s, h] staged only after h
+// was read, each thread's F loads one behind the other behind its FFMA
+// chain) took 2.7 us at t = 37 on NVIDIA H100 80GB HBM3, 700.00 W
+// (PERF.md). Design: K1's kernel without its ratio test
+// (ah_ratio_fused<false>): 64 constraints a block, the block's F slab
+// issued at once as cp.async before h is read, then C[s, h] and Tt[j, h],
+// the same FFMA chain from shared memory; no b, no fold, no ticket, no
+// workspace. K5's column is K1's bit for bit by construction. The TPU
+// kernel skipped the dead F segments through its index maps; here t is the
+// loop bound.
 
 // ---------------------------------------------------------------------------
 // K2: pivot row, reduced-cost update, b / base / eta-row update, devex
@@ -965,9 +955,9 @@ int ah_ratio_launch(const float *Tt, const float *F, const float *C,
     const int nb = (M + AHR_COLS - 1) / AHR_COLS;
     if (ws_bytes < (long long)ahr_ws_bytes(nb))
         return (int)cudaErrorInvalidValue;       // workspace too small
-    ah_ratio_fused<<<nb, THREADS, 0, st>>>(Tt, F, C, b, h, t, M, R, eps, nb,
-                                           ah, ws, k_out, p_out, bk_out,
-                                           unb_out);
+    ah_ratio_fused<true><<<nb, THREADS, 0, st>>>(
+        Tt, F, C, b, h, t, M, R, eps, nb, ah, ws, k_out, p_out, bk_out,
+        unb_out);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -975,9 +965,15 @@ int ah_ratio_launch(const float *Tt, const float *F, const float *C,
 int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
               int t, int M, int R, float *ah, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = (M + THREADS - 1) / THREADS;
-    ah_tiles<<<nb, THREADS, t * sizeof(float), st>>>(Tt, F, C, h, t, M, R,
-                                                     ah);
+    const int nb = (M + AHR_COLS - 1) / AHR_COLS;
+    if (t == 0)        // a copy of Tt[:, h]: one thread a constraint
+        ah_ratio_fused<false, AHR_COLS><<<nb, AHR_COLS, 0, st>>>(
+            Tt, F, C, nullptr, h, t, M, R, 0.0f, nb, ah, nullptr, nullptr,
+            nullptr, nullptr, nullptr);
+    else
+        ah_ratio_fused<false, THREADS><<<nb, THREADS, 0, st>>>(
+            Tt, F, C, nullptr, h, t, M, R, 0.0f, nb, ah, nullptr, nullptr,
+            nullptr, nullptr, nullptr);
     RETURN_IF_ERROR();
     return 0;
 }

@@ -322,6 +322,108 @@ def test_batch_kernels_match_plain_on_card(cuda, devex):
     assert torch.equal(Tk[M:2 * M], Tt[M:2 * M])
 
 
+#: (B, M, R, L) where window_plan picks a cluster of 1, 2, 8 and 16 blocks,
+#: the last with L=128 and only a prefix of C's rows in shared memory.
+_WINDOW_CASES = {"cs1": (4, 256, 384, 16), "cs2": (4, 128, 1024, 32),
+                 "cs8": (4, 128, 4096, 32), "cs16-L128": (4, 128, 15104, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(_WINDOW_CASES))
+@pytest.mark.parametrize("rule", ["devex", "dantzig", "bland"])
+def test_batch_window_plans_on_card(cuda, case, rule):
+    """batch_window at shapes where window_plan spreads a lane over 1 to
+    16 blocks: every output bit for bit as the same lanes give inside a
+    batch of 32 (where the plan picks another cluster size); the integer
+    outputs equal to the plain version's, the rest against the window's
+    formulas on its own operands (window_replay), with the tolerances of
+    test_batch_kernels_match_plain_on_card. Lane 3 is unbounded at its
+    first pivot (its entering column all negative); under "bland" every
+    pivot takes the Bland candidate, the lowest index with cost <= -eps:
+    the plain version's f32 rows sum in another order and drift from the
+    kernel's, so over a long Bland walk a cost at -eps can tip, and at
+    L=128 its walk is compared over the first 64 pivots (past the
+    resident rows). tools/k7_variants.cu holds every plan to the
+    one-block kernel bit for bit."""
+    B, M, R, L = _WINDOW_CASES[case]
+    devex = rule == "devex"
+    plan = kbt.window_plan(B, M, R, L, devex)
+    assert plan.cs == int(case[2:].split("-")[0])
+    assert plan.res_c < L if L == 128 else plan.res_c == L
+    Tt, st0 = _window_state(B, M, R, L, 71, devex, cuda)
+    st0["costs"][3, :5] = 0.5                    # column 5 enters lane 3
+    st0["costs"][3, 5] = -10.0
+    Tt.view(B, M, R)[3, :, 5] = -Tt.view(B, M, R)[3, :, 5].abs()
+    if rule == "bland":
+        st0["sci"][:, 3] = 1
+    kw = dict(r=R - 7, eps=1e-5, bland_static=rule == "bland",
+              threshold=50)
+    runs = []
+    for fn in (kbt.batch_window, kbt.batch_window_plain):
+        st = {k: (None if v is None else v.clone()) for k, v in st0.items()}
+        fn(Tt, *(st[k] for k in _WINDOW_ARGS), **kw)
+        runs.append(st)
+    sk, sp = runs
+    # The same lanes inside a batch of 32, the others frozen copies.
+    B2 = 32
+    lanes = torch.tensor([0, 1, 2, 3] + [1] * (B2 - 4), device=cuda)
+    assert kbt.window_plan(B2, M, R, L, devex).cs != plan.cs or R < 2048
+    T2 = Tt.view(B, M, R)[lanes].reshape(B2 * M, R)
+    st2 = {k: None if v is None else (
+        v.view(B, -1, *v.shape[1:])[lanes].reshape(B2 * v.shape[0] // B,
+                                                   *v.shape[1:]).clone())
+        for k, v in st0.items()}
+    kbt.batch_window(T2, *(st2[k] for k in _WINDOW_ARGS), **kw)
+    for name in _WINDOW_ARGS:
+        if sk[name] is not None:
+            got = st2[name].view(B2, -1)[:B]
+            assert torch.equal(got, sk[name].view(B, -1)), name
+    long_bland = rule == "bland" and L > 64
+    for name in ("sci", "base", "piv", "nlive"):
+        got, want = sk[name], sp[name]
+        if long_bland and name == "piv":
+            got, want = got.view(B, L, 2)[:, :64], want.view(B, L, 2)[:, :64]
+        elif long_bland:
+            got, want = got[1:], want[1:]
+        assert torch.equal(got, want), name
+    nlive = sk["nlive"].tolist()
+    assert nlive[1:4] == [0, 5, 0]
+    assert nlive[0] == L if L <= 32 else nlive[0] > plan.res_c
+    assert int(sk["sci"][3, 0]) == int(pst.Status.UNBOUNDED)
+    rep = kbt.window_replay(Tt, st0, sk["C"], sk["F"], sk["AH"], sk["piv"],
+                            sk["nlive"])
+    for name in ("C", "AH"):
+        err = (sk[name].view(B, L, -1).double() - rep[name]).abs()
+        assert (err <= 1e-5 * (1 + rep[name + "_terms"])).all(), name
+    names = ("F", "w") if devex else ("F",)
+    for name in names + ("costs", "b", "z"):
+        x = rep[name].double()
+        tol = (1e-6 if name in ("F", "w") else 1e-12) * (1 + x.abs())
+        got = sk[name].view(x.shape).double()
+        assert ((got - x).abs() <= tol).all(), name
+    assert torch.equal(sk["base"], rep["base"])
+    assert torch.equal(sk["cf"], rep["cf"])
+
+
+def test_window_smem_bytes_match_c_on_card(cuda):
+    """kernels/batched.py's count of a block's shared memory equals the
+    kernel's own (csrc/batched.cu window_smem_bytes) for window_plan's
+    plan at every shape of the CPU plan tests, for few and many lanes,
+    and with the vectors in global memory."""
+    from simplex_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    for M in (128, 512, 4096):
+        for R in (384, 3072, 15104, 24576):
+            for L in (8, 16, 32, 64, 128):
+                for B, devex in ((4, True), (256, False)):
+                    p = kbt.window_plan(B, M, R, L, devex)
+                    for vec in {p.vec, False}:
+                        assert lib.batch_window_smem_bytes(
+                            M, R, p.cs, int(devex), int(vec), p.res_c,
+                            p.res_f) == kbt.window_smem_bytes(
+                                M, R, p.cs, devex, vec, p.res_c, p.res_f)
+
+
 def test_solve_batch_on_card_matches_cpu(cuda):
     """Statuses equal; objectives within 1e-9 (both refined in f64)."""
     probs = [pst.generate_random_problem(96, 40, s, 1, 100)
@@ -469,6 +571,26 @@ def test_k5_k11_k12_match_plain_on_card(cuda):
     nlive = torch.zeros(B, dtype=torch.int32, device=cuda)
     assert torch.equal(mv, kbt.batch_apply_reprice(T3.clone(), zC, zF, cf,
                                                    flags, nlive))
+
+
+@pytest.mark.parametrize("t", [0, 1, 127, 129])
+def test_ah_equals_k1_column_on_card(cuda, t):
+    """K5 runs K1's kernel without its ratio test: its column equals K1's
+    bit for bit, across a second pass of the chain at t = 129 (past
+    AHR_ROWS = 128 staged rows), and the plain version's to 1e-5 * (1 +
+    |x|) (another summation order of t products)."""
+    M, R, L, eps = 384, 256, 136, 1e-4
+    Tt = _rand((M, R), 81).to(cuda)
+    C = _rand((L, R), 82).to(cuda)
+    F = _rand((L, M), 83, -0.1, 0.1).to(cuda)
+    C[t:] = 0
+    F[t:] = 0
+    b = _rand((M,), 84, 0, 100, np.float64).to(cuda)
+    h = torch.tensor(200, dtype=torch.int32, device=cuda)
+    got = kb.ah(Tt, F, C, h, t)
+    assert torch.equal(got, kb.ah_ratio(Tt, F, C, b, h, t, eps)[0])
+    torch.testing.assert_close(got, kb.ah_plain(Tt, F, C, h, t), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_solve_sharded_world_size_one_on_card(cuda, tmp_path):

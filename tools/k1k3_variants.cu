@@ -41,6 +41,15 @@
 // (window_apply<false>); Tt and mv of the shipped K3 checked bit for bit
 // against the old tile's at the flagship shape, 256 x 384 x 8 and
 // 1024 x 2944 x 136.
+// K5 (the entering column alone, csrc/blocked.cu ah_launch: K1's kernel
+// without its ratio test), us a call at t = 0, 37, 127 over a CUDA graph as
+// K1, three rounds in turns: old (the kernel it replaced, ah_tiles: one
+// thread a constraint in M / 256 blocks, C[s, h] staged after h is read,
+// the F loads behind the FFMA chain), shipped (64 threads a block at t = 0,
+// 256 after), K1 beside, and the same kernel at 128 and at 64 threads a
+// block for every t; its column checked bit for bit against K1's and the
+// old kernel's at t = 0, 37, 127 and 129 (past AHR_ROWS, a second pass of
+// the chain), and the variants' against the shipped kernel's.
 
 #include <cstdio>
 #include <functional>
@@ -48,6 +57,37 @@
 #include "../simplex_tpu_torch/kernels/csrc/blocked.cu"
 
 namespace {
+
+// ---- the replaced K5 (and the column of the replaced K1): one thread a
+// constraint, C[s, h] staged in shared memory after h is read ----
+
+__device__ __forceinline__ void old_ah_stage(const float *__restrict__ C,
+                                             int h, int t, int R, float *ch) {
+    for (int s = threadIdx.x; s < t; s += blockDim.x)
+        ch[s] = C[(size_t)s * R + h];
+    __syncthreads();
+}
+
+__device__ __forceinline__ float old_ah_entry(const float *__restrict__ Tt,
+                                              const float *__restrict__ F,
+                                              const float *ch, int h, int t,
+                                              int j, int M, int R) {
+    float acc = 0.0f;
+    for (int s = 0; s < t; ++s)
+        acc = fmaf(ch[s], F[(size_t)s * M + j], acc);
+    return __fsub_rn(Tt[(size_t)j * R + h], acc);
+}
+
+__global__ void __launch_bounds__(THREADS) old_ah_tiles(
+        const float *__restrict__ Tt, const float *__restrict__ F,
+        const float *__restrict__ C, const int *__restrict__ h_ptr, int t,
+        int M, int R, float *__restrict__ ah) {
+    extern __shared__ float ch[];                // C[s, h] for s < t
+    const int h = min(*h_ptr, R - 1);
+    old_ah_stage(C, h, t, R, ch);
+    const int j = blockIdx.x * THREADS + threadIdx.x;
+    if (j < M) ah[j] = old_ah_entry(Tt, F, ch, h, t, j, M, R);
+}
 
 // ---- the replaced K1: two launches, the eight-barrier fold ----
 
@@ -78,12 +118,12 @@ __global__ void __launch_bounds__(THREADS) old_tiles(
         int *__restrict__ part_idx) {
     extern __shared__ float ch[];
     const int h = min(*h_ptr, R - 1);
-    ah_stage(C, h, t, R, ch);
+    old_ah_stage(C, h, t, R, ch);
     const int j = blockIdx.x * THREADS + threadIdx.x;
     double key = -CUDART_INF;
     int idx = BIG_INDEX;
     if (j < M) {
-        const float a = ah_entry(Tt, F, ch, h, t, j, M, R);
+        const float a = old_ah_entry(Tt, F, ch, h, t, j, M, R);
         ah[j] = a;
         if (a >= eps) {
             key = -__ddiv_rn(b[j], (double)a);
@@ -451,6 +491,75 @@ int k1_bench() {
     return cudaGetLastError() == cudaSuccess ? 0 : 1;
 }
 
+int k5_bench() {
+    const int M = 8192, R = 24576, L = 136;
+    const float eps = 1e-4f;
+    float *Tt, *F, *C, *a_old, *a_new;
+    double *b;
+    int *h;
+    unsigned char *ws;
+    cudaMalloc(&Tt, (size_t)M * R * 4);
+    cudaMalloc(&F, (size_t)L * M * 4);
+    cudaMalloc(&C, (size_t)L * R * 4);
+    cudaMalloc(&b, M * 8);
+    cudaMalloc(&h, 4);
+    cudaMalloc(&a_old, M * 4);
+    cudaMalloc(&a_new, M * 4);
+    const size_t ws_n = ahr_ws_bytes(M / AHR_COLS);
+    cudaMalloc(&ws, ws_n);
+    cudaMemset(ws, 0, ws_n);
+    fill<<<1024, 256>>>(Tt, (size_t)M * R, 21, -1, 1);
+    fill<<<1024, 256>>>(F, (size_t)L * M, 22, -0.1f, 0.1f);
+    fill<<<1024, 256>>>(C, (size_t)L * R, 23, -1, 1);
+    fill64<<<64, 256>>>(b, M, 24, 0.0, 100.0);
+    const int h_host = 12345;
+    cudaMemcpy(h, &h_host, 4, cudaMemcpyHostToDevice);
+    const K1Out o = k1_out(M);
+    const char *names[] = {"old", "shipped", "K1", "t128", "t64"};
+    for (int t : {0, 37, 127, 129}) {
+        auto run = [&](int v, cudaStream_t s) {
+            if (v == 0)
+                old_ah_tiles<<<M / THREADS, THREADS, t * sizeof(float), s>>>(
+                    Tt, F, C, h, t, M, R, a_old);
+            else if (v == 1)
+                ah_launch(Tt, F, C, h, t, M, R, a_new, s);
+            else if (v == 2)
+                ah_ratio_launch(Tt, F, C, b, h, t, M, R, eps, o.ah, ws,
+                                (long long)ws_n, o.k, o.p, o.bk, o.unb, s);
+            else if (v == 3)
+                ah_ratio_fused<false, 128><<<M / AHR_COLS, 128, 0, s>>>(
+                    Tt, F, C, nullptr, h, t, M, R, 0.0f, M / AHR_COLS, o.ah,
+                    nullptr, nullptr, nullptr, nullptr, nullptr);
+            else
+                ah_ratio_fused<false, 64><<<M / AHR_COLS, 64, 0, s>>>(
+                    Tt, F, C, nullptr, h, t, M, R, 0.0f, M / AHR_COLS, o.ah,
+                    nullptr, nullptr, nullptr, nullptr, nullptr);
+        };
+        for (int v = 0; v < 3; ++v) run(v, 0);
+        const unsigned long long d_old = differ(a_new, a_old, M * 4);
+        const unsigned long long d_k1 = differ(a_new, o.ah, M * 4);
+        printf("K5 t=%d shipped: a_h words differing from the old kernel's "
+               "%llu, from K1's %llu (%s)\n", t, d_old, d_k1,
+               cudaGetErrorString(cudaGetLastError()));
+        if (d_old != 0 || d_k1 != 0) return 1;
+        for (int v = 3; v < 5; ++v) {
+            run(v, 0);
+            const unsigned long long d = differ(o.ah, a_new, M * 4);
+            printf("K5 t=%d %s: a_h words differing from shipped %llu\n", t,
+                   names[v], d);
+            if (d != 0) return 1;
+        }
+        if (t > 127) continue;
+        for (int round = 0; round < 3; ++round)
+            for (int v = 0; v < 5; ++v)
+                printf("K5 t=%d round %d %-8s %.3f us\n", t, round, names[v],
+                       graph_us([&](cudaStream_t s) { run(v, s); }));
+    }
+    cudaFree(Tt); cudaFree(F); cudaFree(C); cudaFree(b); cudaFree(h);
+    cudaFree(a_old); cudaFree(a_new); cudaFree(ws);
+    return cudaGetLastError() == cudaSuccess ? 0 : 1;
+}
+
 int k3_bench() {
     const int shapes[][3] = {{8192, 24576, 128}, {256, 384, 8},
                              {1024, 2944, 136}};
@@ -527,5 +636,6 @@ int k3_bench() {
 int main() {
     cudaMalloc(&CNT, 8);
     if (k1_bench() != 0) return 1;
+    if (k5_bench() != 0) return 1;
     return k3_bench();
 }
