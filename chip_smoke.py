@@ -25,8 +25,10 @@ Phases, in order; any failed check exits non-zero:
 5. the plain blocked loop: random_2048_2048 with ``dtype=float64,
    block_pivots=128``, no K1-K4 launch;
 6. the CLI (``python -m simplex_tpu_torch.cli``): a problem file, the
-   ``-t --limit 1024 --timer`` sweep (the reference's CSV schema) and a
-   ``--per-iteration`` seed-file solve;
+   ``-t --limit 1024 --timer`` sweep (the reference's CSV schema), a
+   ``--per-iteration`` seed-file solve, ``--equilibrate`` on the problem
+   file and ``--batch 4`` with the default dtype (the batched fallback),
+   each in the reference's output format;
 7. random_1024_1024 -> OPTIMAL, certified, objective 4.000455470573328,
    production options;
 8. the flagship random_8192_8192 -> OPTIMAL, certified, objective
@@ -54,7 +56,26 @@ Phases, in order; any failed check exits non-zero:
    call and read just after; then a warm call; then 32 x (m=500,
    n=14,000) lanes from seeds 2000..2031 (the TPU's HBM-tier shape);
    each batch's walks printed as one digest (``walk_digest``; the same
-   as ``tools/batch_walks.py`` prints for any checkout);
+   as ``tools/batch_walks.py`` prints for any checkout); between the two,
+   config 3's lanes with ``DEFAULT_OPTIONS`` (f64, sequential: the
+   batched fallback's lane-batched loop, ``batch_rank1``'s counter set
+   to 0 just before and read just after), every lane's status printed
+   and equal to the kernel batch's, every objective within 1e-9 of the
+   kernel batch's certified one, four lanes solved alone by ``solve``
+   walking the same, the steps, ms per step, wall and peak memory; and
+   ``kernel=False`` at config 3's options on its first 16 lanes (a cut
+   for time), every lane certified within 1e-9 of the kernel batch;
+10c. the f64 tier chain: ``fallback_solve`` warm from the production
+   flagship's final (drifted) basis (the host finish, certified within
+   1e-9 of the golden, its finishing pivots printed), ``fallback_solve``
+   with no basis on random_2048_2048 (the full f64 re-solve on the card,
+   certified), and a production random_2048_2048 whose mixed-tier
+   certificates are made to fail (``two_phase.refine_result`` wrapped),
+   which reaches ``fallback_solve`` through ``certify`` after two restart
+   rounds and ends certified with ``refine.fallback``; then
+   ``equilibrate=True`` in production on the flagship and on a 2000 x 500
+   instance with rows and columns scaled by 10^[-15, 15], each certified
+   within 1e-9 (the latter of its base instance's f64 solve);
 10a. two spawned ranks on the one card over gloo: random_2048_2048 in
    production, the walk and certified objective of phase 9a's one rank;
    the fleet of config 3's first 64 lanes, 32 a rank, bit for bit as
@@ -77,7 +98,11 @@ Phases, in order; any failed check exits non-zero:
    lane and a lane that hits its fuse mid-window (``batch_window``: one
    kernel a call, one thread-block cluster a lane, its plan printed),
    and K12 at config 3's shapes (``batch_apply_reprice``'s fold with no
-   live eta bit for bit);
+   live eta bit for bit), and ``batch_rank1`` at config 3's f64 phase-1
+   tableau (256 x 512 x 3,000) bit for bit against its plain version
+   (``addr_`` a lane), with a lane left out untouched, the scalar and the
+   vector tile, and how many elements ``addcmul_`` and ``baddbmm_`` give
+   otherwise;
    each timed on the device by two clocks -- torch.profiler, and CUDA
    events (over a CUDA graph of 50 calls for K1, K2 and K5, over
    back-to-back calls for the rest) -- beside its bound and, where one
@@ -92,8 +117,9 @@ operations over the peak rate of their type: 67 TFLOP/s for f32 outside
 the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
-kernels' records (K1-K12; K11 and K12 are on no path, in the port as in
-the JAX package, so their launches are 0), and ``{"ok": true, "device":
+kernels' records (K1-K12 and ``batch_rank1``; K11 and K12 are on no
+path, in the port as in the JAX package, so their launches are 0), and
+``{"ok": true, "device":
 {...}}``. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
@@ -175,10 +201,30 @@ BATCH_KERNELS = {
 }
 #: The kernels of the batched path (K12 is on none, as in the JAX package).
 BATCH_PATH = ("batch_window", "batch_apply_reprice", "batch_apply")
+#: The batched fallback's kernel: the rank-1 update of the lane-batched
+#: sequential loop. The JAX package has no Pallas kernel there: its
+#: vmapped fallback updates each lane in XLA (solver.py:51 pivot_update).
+FALLBACK_KERNELS = {
+    "batch_rank1": ("fallback", "simplex_tpu/solver.py:51",
+                    "simplex_tpu_torch/kernels/csrc/pivot.cu"),
+}
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
-         "reprice", "batch_reprice")
+         "reprice", "batch_reprice", "batch_rank1")
+#: The default-option batch's lanes solved alone by solve() (config 3's
+#: first, last and two between).
+DEFAULT_BATCH_LANES = (0, 85, 170, 255)
+#: Config 3's lanes in the kernel=False batch: a cut for time (each lane
+#: runs the plain blocked loop alone).
+FALLBACK_LANES = 16
+#: (n, m, seed, exponent) of the extreme-magnitude instance: a config-3
+#: lane's shape, rows and columns scaled by 10^[-15, 15]
+#: (tests/test_scaling.py's _extreme_problem).
+EXTREME = (2000, 500, 1, 15)
+#: The batched rank-1 update's check shape: config 3's phase-1 tableau of
+#: the default options (B, M, R), f64.
+RANK1_SHAPE = (256, 512, 3000)
 #: Config 3's lanes of the two-rank fleet.
 FLEET_LANES = 64
 #: (label, (B, M, R, L)) of the batched kernels' check.
@@ -1329,6 +1375,32 @@ def phase_cli() -> None:
             f"pivots, solve rows {got[0]}+{got[1]} (pivots + 1 per phase);"
             f" {time.perf_counter() - t0:.1f} s")
 
+        t0 = time.perf_counter()
+        out = run_cli(["-f", str(DATA / "smallProblem.txt"), "--equilibrate",
+                       "--data-dir", str(tmp)])
+        require(out.splitlines() == want, f"cli --equilibrate: {out!r}")
+        seeds = DATA / "benchmark_problems" / "random_256_256.txt"
+        out = run_cli(["-rf", str(seeds), "--batch", "4", "--data-dir",
+                       str(tmp)])
+        lines = out.splitlines()
+        first = int(seeds.read_text().split()[2])
+        require(lines[:3] == ["Starting...", "Reading seed from file",
+                              f"Solving 4 instances (seeds {first}.."
+                              f"{first + 3}) batched..."]
+                and len(lines) == 8
+                and lines[3] == f"seed {first}: OPTIMAL objective=5.535474 "
+                                "pivots=473+17"
+                and all(re.fullmatch(rf"seed {first + i}: OPTIMAL "
+                                     r"objective=\d+\.\d{6} pivots=\d+\+\d+",
+                                     lines[3 + i]) for i in range(4))
+                and re.fullmatch(r"Batch solved in \d+\.\d{3}s \(\d+\.\d "
+                                 r"ms/instance\)", lines[7]),
+                f"cli --batch 4: {out!r}")
+        log(f"cli --equilibrate -f smallProblem: the reference's stdout lines"
+            f"; cli -rf random_256_256 --batch 4 with the default dtype (the "
+            f"batched fallback): {' | '.join(lines[3:7])}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
 
 def phase_pivot_kernel(records: dict) -> None:
     """K6 against its plain version on the card at the main path's shapes
@@ -1468,14 +1540,14 @@ def phase_northstar() -> tuple:
     return float(tab.z), tab.base.cpu()
 
 
-def timed_batch(problems, stats: dict):
+def timed_batch(problems, stats: dict, opts: dict = BATCH, **kw):
     import torch
 
     import simplex_tpu_torch as st
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = st.solve_batch(problems, device="cuda", stats=stats, **BATCH)
+    res = st.solve_batch(problems, device="cuda", stats=stats, **opts, **kw)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -1512,13 +1584,13 @@ def walk_digest(results) -> str:
 
 
 def phase_batch(label: str, shape, launches: dict | None = None,
-                lanes=()) -> None:
+                lanes=()) -> tuple:
     """One batch through ``solve_batch`` twice (first and warm call): every
     lane OPTIMAL and certified, the same walks both times, printed as one
     digest (``walk_digest``); ``lanes`` checked against a batch of that
     lane alone (walk, basis, objective bit for bit) and against the
     single-LP ``solve`` (1e-9). With ``launches``, the K7-K10 counters of
-    the first call."""
+    the first call. Returns (problems, the first call's results)."""
     import numpy as np
     import torch
 
@@ -1586,6 +1658,332 @@ def phase_batch(label: str, shape, launches: dict | None = None,
             f"{single.objective!r} (rel {rel:.1e}, "
             f"{single.iterations_phase1}+{single.iterations_phase2} pivots,"
             f" {wall:.3f} s)")
+    return problems, res
+
+
+def phase_default_batch(problems, kernel_res, launches: dict) -> None:
+    """Config 3's 256 lanes with ``DEFAULT_OPTIONS`` (f64 tableau,
+    sequential): the batched fallback's lane-batched sequential loop on
+    the card, ``batch_rank1``'s counter set to 0 just before the call and
+    read just after (launched; K6 not). Every lane's status equal to the
+    kernel batch's on the same LPs (all OPTIMAL), each OPTIMAL objective
+    within 1e-9 of the kernel batch's certified one; lanes
+    ``DEFAULT_BATCH_LANES`` solved alone by ``solve`` walk the same
+    (pivot counts equal, objective within 1e-12)."""
+    import numpy as np
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.kernels import pivot as kp
+
+    label = "default-option batch (config 3, f64 sequential)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    kp.reset_launches()
+    res, wall = timed_batch(problems, stats, {})
+    counts = dict(kp.LAUNCHES)
+    launches["batch_rank1"] = counts["batch_rank1"]
+    require(counts["batch_rank1"] > 0 and counts["fused_pivot"] == 0,
+            f"{label}: launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = stats["windows"]
+    log(f"{label}: lane statuses "
+        + " ".join(str(int(r.status)) for r in res))
+    for i, (r, k) in enumerate(zip(res, kernel_res)):
+        require(r.status == k.status,
+                f"{label} lane {i}: {r.status!r}, the kernel batch "
+                f"{k.status!r}")
+        if r.status == st.Status.OPTIMAL:
+            rel = abs(r.objective - k.objective) / abs(k.objective)
+            require(rel <= 1e-9 and np.isfinite(r.x).all()
+                    and r.x.shape == k.x.shape,
+                    f"{label} lane {i}: objective {r.objective!r} vs the "
+                    f"kernel batch's certified {k.objective!r}")
+        require(r.refine is None, f"{label} lane {i}: refined")
+    pivots = sorted(r.iterations_phase1 + r.iterations_phase2 for r in res)
+    worst = max(abs(r.objective - k.objective) / abs(k.objective)
+                for r, k in zip(res, kernel_res))
+    log(f"{label}: {collections.Counter(r.status.name for r in res)}; "
+        f"every objective within {worst:.2e} of the kernel batch's "
+        f"certified one; steps per phase {steps} (SEQ_CHUNK a host read); "
+        f"wall {wall:.3f} s (data to the card {stats['prepare_s']:.3f} s, "
+        f"device solve {stats['device_s']:.3f} s = "
+        f"{1e3 * stats['device_s'] / sum(steps):.4f} ms per batched step)"
+        f"; pivots per lane min {pivots[0]} median "
+        f"{statistics.median(pivots)} max {pivots[-1]}; "
+        f"max_memory_allocated {peak:.2f} GB; launches {counts}")
+    log(f"{label}: walk digest {walk_digest(res)}")
+    for i in DEFAULT_BATCH_LANES:
+        single, wall1 = timed_solve(problems[i], {})
+        r = res[i]
+        walk = (r.iterations_phase1, r.iterations_phase2)
+        rel = abs(single.objective - r.objective) / abs(r.objective)
+        require(single.status == r.status
+                and (single.iterations_phase1,
+                     single.iterations_phase2) == walk and rel <= 1e-12,
+                f"{label} lane {i}: solve() walked "
+                f"{single.iterations_phase1}+{single.iterations_phase2} to "
+                f"{single.objective!r}, the batch {walk} to "
+                f"{r.objective!r}")
+        log(f"{label} lane {i}: solve() walks the same ({walk[0]}+"
+            f"{walk[1]} pivots; objective {r.objective!r}, solve() "
+            f"{single.objective!r}, rel {rel:.1e}; {wall1:.3f} s)")
+
+
+def phase_fallback_blocked(problems, kernel_res) -> None:
+    """``kernel=False`` at config 3's options on its first
+    ``FALLBACK_LANES`` lanes (a cut for time): the fallback's lane-by-lane
+    route, each lane the plain blocked loop (no kernel launched); every
+    lane certified, its objective within 1e-9 of the kernel batch's."""
+    import torch
+
+    from simplex_tpu_torch.kernels import batched as kbt
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    label = (f"kernel=False batch (config 3's options, its first "
+             f"{FALLBACK_LANES} of 256 lanes: a cut for time)")
+    torch.cuda.empty_cache()
+    kb.reset_launches()
+    kbt.reset_launches()
+    stats: dict = {}
+    res, wall = timed_batch(problems[:FALLBACK_LANES], stats, kernel=False)
+    counts = {**kb.LAUNCHES, **kbt.LAUNCHES}
+    require(not any(counts.values()), f"{label}: kernels launched {counts}")
+    worst = 0.0
+    for i, r in enumerate(res):
+        k = kernel_res[i]
+        require(r.refine is not None and r.refine.certified,
+                f"{label} lane {i}: {r.status!r} refine {r.refine}")
+        rel = abs(r.objective - k.objective) / abs(k.objective)
+        require(rel <= 1e-9, f"{label} lane {i}: objective "
+                f"{r.objective!r} vs the kernel batch's {k.objective!r}")
+        worst = max(worst, rel)
+    methods = sorted(collections.Counter(r.refine.method for r in res)
+                     .items())
+    pivots = sorted(r.iterations_phase1 + r.iterations_phase2 for r in res)
+    log(f"{label}: {len(res)}/{len(res)} certified (refinement {methods})"
+        f", objectives within {worst:.2e} of the kernel batch's; pivots per"
+        f" lane min {pivots[0]} max {pivots[-1]}; wall {wall:.3f} s (device"
+        f" {stats['device_s']:.3f} s, host refinement "
+        f"{stats['refine_s']:.3f} s); no kernel launched")
+
+
+def phase_tiers() -> None:
+    """The f64 certification tier chain on the card: ``fallback_solve``
+    warm from the flagship production solve's final (drifted) basis, the
+    host finish (``finish_from_basis``); ``fallback_solve`` with no basis,
+    the full f64 re-solve on the card, at random_2048_2048; and one
+    production ``solve`` at random_2048_2048 whose mixed-tier certificates
+    are made to fail, so that it reaches ``fallback_solve`` through
+    ``certify`` after both restart rounds. Each certified within 1e-9 of
+    its golden."""
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch import reinvert, two_phase
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    opts = st.SolverOptions(**PROD)
+    p = benchmark_problem(8192)
+    data = [torch.as_tensor(v, device="cuda") for v in (p.A, p.b, p.c)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = two_phase.solve_device_with_binv(*data, p.vars, p.constraints,
+                                              opts)
+    base = out.base.cpu().numpy()
+    t_dev = time.perf_counter() - t0
+    require(out.status == st.Status.OPTIMAL, f"flagship: {out.status!r}")
+    del data, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = two_phase.fallback_solve(p, opts, base=base)
+    wall = time.perf_counter() - t0
+    check_certified("warm finish of the flagship", res, OBJ_8192)
+    require(res.refine.method == "finish",
+            f"warm finish of the flagship: took {res.refine.method!r}")
+    log(f"tier chain, warm finish: fallback_solve from the flagship "
+        f"production solve's final basis (device solve {t_dev:.3f} s, "
+        f"before refinement) -> OPTIMAL certified {res.objective!r} "
+        f"(golden {OBJ_8192!r}); finishing pivots "
+        f"{res.iterations_phase2}; host wall {wall:.3f} s (the (n + m) x "
+        f"m = 16,384 x 8,192 f64 tableau built and walked on the host)")
+
+    p = benchmark_problem(2048)
+    kb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = two_phase.fallback_solve(p, opts, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_certified("full f64 re-solve of random_2048_2048", res, OBJ_2048)
+    require(res.refine.method == "tableau" and not any(kb.LAUNCHES.values()),
+            f"full f64 re-solve: {res.refine.method!r} {kb.LAUNCHES}")
+    log(f"tier chain, full f64 re-solve: fallback_solve(random_2048_2048, "
+        f"no basis) -> OPTIMAL certified {res.objective!r} (golden "
+        f"{OBJ_2048!r}); {res.iterations_phase1}+{res.iterations_phase2} "
+        f"pivots (f64 tableau, L=128, the plain blocked loop); wall "
+        f"{wall:.3f} s")
+
+    refine_result = two_phase.refine_result
+    restart_device = reinvert.restart_device
+    rounds = []
+
+    def failing(*args, **kw):
+        rx, robj, info, ro = refine_result(*args, **kw)
+        return None, None, info._replace(certified=False), ro
+
+    def counted(*args, **kw):
+        rounds.append(1)
+        return restart_device(*args, **kw)
+
+    two_phase.refine_result = failing
+    reinvert.restart_device = counted
+    try:
+        res, wall = timed_solve(p)
+    finally:
+        two_phase.refine_result = refine_result
+        reinvert.restart_device = restart_device
+    check_certified("production solve through certify's tiers", res,
+                    OBJ_2048)
+    require(res.refine.fallback and len(rounds) == 2,
+            f"production solve through certify's tiers: fallback "
+            f"{res.refine.fallback}, {len(rounds)} restart rounds")
+    log(f"tier chain, through certify: production random_2048_2048 with "
+        f"two_phase.refine_result wrapped to report every mixed-tier "
+        f"refinement as failed (its certificates made to fail) -> "
+        f"{len(rounds)} restart rounds, then fallback_solve "
+        f"({res.refine.method}): OPTIMAL certified {res.objective!r}, "
+        f"refine.fallback {res.refine.fallback}; wall {wall:.3f} s")
+
+
+def extreme_problem(n: int, m: int, seed: int, exp: int):
+    """(base, extreme): a seeded instance and its counterpart with rows
+    and columns scaled by 10^[-exp, exp] (``tests/test_scaling.py``'s
+    ``_extreme_problem``). Row scaling keeps the feasible set and column
+    scaling substitutes x = s x', so both have one optimum value."""
+    import numpy as np
+
+    import simplex_tpu_torch as st
+
+    p = st.generate_random_problem(n, m, seed, 1, 100)
+    rng = np.random.default_rng(seed)
+    rexp = rng.integers(-exp, exp + 1, size=m)
+    cexp = rng.integers(-exp, exp + 1, size=n)
+    A = p.A * (10.0 ** rexp)[:, None] * (10.0 ** cexp)[None, :]
+    return p, st.Problem(A=A, b=p.b * 10.0 ** rexp, c=p.c * 10.0 ** cexp)
+
+
+def phase_equilibrate() -> None:
+    """``equilibrate=True`` with the production options on the card: the
+    flagship certified within 1e-9 of its golden, and the
+    extreme-magnitude instance ``EXTREME`` certified within 1e-9 of the
+    f64 solve (default options, no scaling) of its base instance, whose
+    optimum value it shares."""
+    import numpy as np
+
+    import simplex_tpu_torch as st
+
+    res, wall = timed_solve(benchmark_problem(8192),
+                            dict(PROD, equilibrate=True))
+    check_certified("equilibrated flagship", res, OBJ_8192)
+    log(f"equilibrate: flagship production -> OPTIMAL certified "
+        f"{res.objective!r} (golden {OBJ_8192!r}); pivots "
+        f"{res.iterations_phase1}+{res.iterations_phase2}; refine "
+        f"{res.refine.method} (fallback {res.refine.fallback}); wall "
+        f"{wall:.3f} s")
+    n, m, seed, exp = EXTREME
+    base, p = extreme_problem(n, m, seed, exp)
+    want, _ = timed_solve(base, {})
+    res, wall = timed_solve(p, dict(PROD, equilibrate=True))
+    check_certified("equilibrated extreme instance", res, want.objective)
+    mags = np.abs(p.A[p.A != 0])
+    log(f"equilibrate: {n} x {m} seed {seed}, rows and columns scaled by "
+        f"10^[-{exp}, {exp}] (|A| in [{mags.min():.1e}, {mags.max():.1e}])"
+        f" -> OPTIMAL certified {res.objective!r}, its base instance's f64"
+        f" solve {want.objective!r}; refine {res.refine.method} (fallback "
+        f"{res.refine.fallback}); wall {wall:.3f} s")
+
+
+def phase_rank1_kernel(records: dict) -> None:
+    """``batch_rank1`` against its plain version (the single-LP loop's
+    ``addr_`` on each live lane) at config 3's phase-1 f64 tableau of the
+    default options (``RANK1_SHAPE``), every lane live, bit for bit; a
+    lane whose do flag is clear keeps every bit; f32 and f64 at R = 63
+    and 64 (the scalar and the vector tile) bit for bit; how many
+    elements ``addcmul_`` and ``baddbmm_`` over all lanes give otherwise;
+    device ms per call against the plain version, ``addcmul_`` (the
+    library call: every lane live, the same function) and the bound."""
+    import torch
+
+    from simplex_tpu_torch.kernels import pivot as kp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20261017)
+    B, M, R = RANK1_SHAPE
+    T0 = torch.rand((B, M, R), generator=g, device=dev,
+                    dtype=torch.float64) * 200.0 - 100.0
+    factor = torch.rand((B, M), generator=g, device=dev,
+                        dtype=torch.float64) * 2.0 - 1.0
+    colk = torch.rand((B, R), generator=g, device=dev,
+                      dtype=torch.float64) * 200.0 - 100.0
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    Tk = T0.clone()
+    kp.batch_rank1(Tk, factor, colk, live)
+    Tp = T0.clone()
+    kp.batch_rank1_plain(Tp, factor, colk, live)
+    equal("batch_rank1 f64 vs plain (addr_ a lane)", Tk, Tp)
+    found = {}
+    for name, fn in (
+            ("addcmul_", lambda T: T.addcmul_(factor[:, :, None],
+                                              colk[:, None, :], value=-1.0)),
+            ("baddbmm_", lambda T: T.baddbmm_(factor[:, :, None],
+                                              colk[:, None, :], alpha=-1.0))):
+        Tp.copy_(T0)
+        fn(Tp)
+        found[name] = int((Tp != Tk).sum())
+    del Tp
+    some = live.clone()
+    some[B // 3] = False
+    Tk.copy_(T0)
+    kp.batch_rank1(Tk, factor, colk, some)
+    equal("batch_rank1: the lane left out", Tk[B // 3], T0[B // 3])
+    equal("batch_rank1: a live lane beside it", Tk[B // 3 + 1],
+          T0[B // 3 + 1].addr(factor[B // 3 + 1], colk[B // 3 + 1],
+                              alpha=-1.0))
+    three = torch.tensor([True, False, True, True], device=dev)
+    for dt, r in ((torch.float32, 64), (torch.float32, 63),
+                  (torch.float64, 63)):
+        # Rows of whole 16-byte vectors take the vector tile, the others
+        # the scalar one.
+        t = T0[:4, :, :r].to(dt).contiguous()
+        f = factor[:4].to(dt).contiguous()
+        c = colk[:4, :r].to(dt).contiguous()
+        want = t.clone()
+        kp.batch_rank1_plain(want, f, c, three)
+        kp.batch_rank1(t, f, c, three)
+        equal(f"batch_rank1 {dt} R={r} vs plain", t, want)
+    ms = device_ms(lambda: kp.batch_rank1(Tk, factor, colk, live), 10)
+    plain_ms = device_ms(lambda: kp.batch_rank1_plain(Tk, factor, colk,
+                                                       live), 3)
+    library_ms = device_ms(lambda: Tk.addcmul_(
+        factor[:, :, None], colk[:, None, :], value=-1.0), 10)
+    check_ms = event_ms(lambda: kp.batch_rank1(Tk, factor, colk, live), 10)
+    bound_ms, by = bound(16 * B * M * R + 8 * B * (M + R) + B,
+                         f64_flops=2 * B * M * R)
+    log(f"batch_rank1 B={B} M={M} R={R} f64, every lane live: bit for bit "
+        f"the plain version (addr_ a lane; and f32 / f64 at R = 63, 64; a "
+        f"lane left out untouched); elements differing from the kernel "
+        f"over all lanes in one call: {found}; kernel {ms:.4f} ms (CUDA "
+        f"events {check_ms:.4f}), plain {plain_ms:.4f} ms, addcmul_ "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); the kernel "
+        f"moves {16 * B * M * R / ms / 1e9:.3f} TB/s")
+    records["batch_rank1"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+        "check_ms": check_ms}
+    del T0, Tk
+    torch.cuda.empty_cache()
 
 
 def timed_sharded(problem, group, opts: dict):
@@ -1891,7 +2289,8 @@ def main() -> int:
     records: dict = {}
     # Launches on each kernel's path: K1-K4 the single-card flagship, K5
     # (and K2-K4 again) the sharded flagship, K6 the pure-f32 solve,
-    # K7-K10 config 3's first call; K11 and K12 are on no path.
+    # K7-K10 config 3's first call, batch_rank1 config 3 with the default
+    # options; K11 and K12 are on no path.
     launches = {name: 0 for name in ORDER}
     sharded_launches: dict = {}
     t_start = time.perf_counter()
@@ -1909,14 +2308,20 @@ def main() -> int:
         launches["ah"] = sharded_launches["ah"]
         phase_batch_spread()
         batch_launches: dict = {}
-        phase_batch("config 3", CONFIG3, batch_launches, lanes=(0, 127, 255))
+        problems3, res3 = phase_batch("config 3", CONFIG3, batch_launches,
+                                      lanes=(0, 127, 255))
         # Every kernel of the batched path ran in config 3's first call
         # (batch_apply takes the off-cadence windows where no lane ends).
         for name in BATCH_PATH:
             require(batch_launches[name] > 0,
                     f"{name} never launched on the batched path")
             launches[name] = batch_launches[name]
+        phase_default_batch(problems3, res3, launches)
+        phase_fallback_blocked(problems3, res3)
+        del problems3, res3
         phase_batch("wide lanes", WIDE)
+        phase_tiers()
+        phase_equilibrate()
         phase_sharded_two_ranks(r2048)
         if cards > 1:
             phase_sharded_cards(cards)
@@ -1924,6 +2329,7 @@ def main() -> int:
         phase_pivot_kernel(records)
         phase_batch_kernels(records)
         phase_batch_reprice(records)
+        phase_rank1_kernel(records)
         phase_batch_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1936,7 +2342,8 @@ def main() -> int:
         f"{name} {records[name]['ms']:.4f} / {records[name]['check_ms']:.4f}"
         for name in ORDER))
 
-    tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS}
+    tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
+              **FALLBACK_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

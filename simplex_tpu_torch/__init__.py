@@ -11,22 +11,24 @@ reference. This package imports ``torch`` and neither ``jax`` nor
     r = solve(p)                      # f64 tableau, the reference loop
     r = solve(p, dtype="float32", vector_dtype="float64", block_pivots=128)
 
-What is ported: ``solve`` with every option set of the JAX ``solve`` but
-``equilibrate`` -- the sequential reference loop (f64 by default; over
-the fused pivot kernel K6 with ``use_pallas=True`` on a pure-f32
-tableau, ``dtype`` and ``vector_dtype`` both float32), the plain
-deferred block-pivot loop, and the blocked-kernel loop over K1-K4, with
-f64 refinement and reinversion restarts in the mixed mode;
-``solve_batch`` on the batched kernels K7-K10, and with ``mesh=`` (a
+What is ported: ``solve`` with every option set of the JAX ``solve`` --
+the sequential reference loop (f64 by default; over the fused pivot
+kernel K6 with ``use_pallas=True`` on a pure-f32 tableau, ``dtype`` and
+``vector_dtype`` both float32), the plain deferred block-pivot loop, and
+the blocked-kernel loop over K1-K4, with f64 refinement, reinversion
+restarts and the f64 finishing tiers (``finish.finish_from_basis``, the
+full f64 re-solve of ``two_phase.fallback_solve``) in the mixed mode, and
+power-of-two ``equilibrate``; ``solve_batch`` on the batched kernels
+K7-K10 and, for the options they do not take (``DEFAULT_OPTIONS``
+among them), the batched fallback, and with ``mesh=`` (a
 ``torch.distributed`` ProcessGroup) the scenario fleet across ranks;
 ``solve_sharded``, the variable axis split across the ranks of a process
 group (K5 on its kernel path); ``solve_timed`` with the reference's
-per-operation CSV (``chrono``); the CLI, ``python -m
+per-operation CSV (``chrono``); the host oracle ``solve_oracle`` (with
+the reference GPU's tie order and fma update); the CLI, ``python -m
 simplex_tpu_torch.cli``; the problem files, the seeded generator and the
-host refinement ``refine_solution_host``. Not yet: ``solve_resumable``,
-``solve_oracle``, the f64 finishing tiers and ``equilibrate`` (they
-raise ``NotImplementedError`` naming their ROADMAP item where an option
-selects them).
+host refinement ``refine_solution_host``. Not yet: ``solve_resumable``
+and its checkpoints (ROADMAP queue 1 item 9).
 
 Every entry point runs on the device it is given (``device="cuda"`` by
 default, which raises where CUDA is absent; ``device="cpu"`` runs the
@@ -37,6 +39,7 @@ from .batch import solve_batched  # noqa: F401
 from .config import EPS, SolverOptions, Status  # noqa: F401
 from .generator import (benchmark_seed, benchmark_sizes,  # noqa: F401
                         generate_random_problem)
+from .oracle import solve_oracle  # noqa: F401
 from .problem import (Problem, format_problem, read_problem,  # noqa: F401
                       read_random_problem, read_seed_file, write_problem,
                       write_seed_file)

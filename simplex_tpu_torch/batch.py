@@ -15,9 +15,9 @@ between the window and the apply, and nothing per pivot.
 The JAX package has two kernel tiers (VMEM-resident lanes and HBM lanes,
 ``batch_kernel_tier``) and a vmapped-XLA fallback for the rest. On the
 card one kernel design serves both tiers, so every eligible
-configuration takes it whatever the lane size; the fallback and the f64
-finishing solve of a lane whose refinement does not certify are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+configuration takes it whatever the lane size; the others take the
+batched fallback (``batch_fallback.py``), as ``solve_device_batched``'s
+``kernel`` argument dispatches.
 
 The scenario fleet (``mesh=``, a ``torch.distributed`` ProcessGroup)
 gives each rank a contiguous block of lanes, solved as above with no
@@ -26,7 +26,7 @@ collective at all; the results are gathered once at the end
 
 Every OPTIMAL lane is refined in f64 on the host (NumPy/LAPACK against
 the lane's own f64 problem data), as ``simplex_tpu.batch._refine_lane``
-does.
+does, with the restart rounds and the f64 finishing tier behind it.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from .result import SolveResult
 from .tableau import (BatchTableau, batch_basic_costs, batch_build_phase1,
                       batch_count_basic_artificials, batch_extract_solution,
                       batch_gaussian_eliminate, batch_phase1_objective,
-                      batch_phase2_reset, round_up)
+                      batch_phase2_reset, padded_dims, round_up)
 from .two_phase import pivot_out_artificials, resolve_device
 
 RUNNING = int(Status.RUNNING)
@@ -68,40 +68,43 @@ def batch_window_len(options: SolverOptions) -> int:
     return min(int(options.block_pivots or 1), 32)
 
 
+def batch_kernel_eligible(options: SolverOptions) -> bool:
+    """Whether the batched kernels take ``options`` (``simplex_tpu.batch.
+    batch_kernel_tier`` without its VMEM/HBM fit, one kernel design serving
+    both tiers here): an f32 blocked configuration with the kernels not
+    switched off, and a window length the kernel takes (a multiple of 8,
+    unless ``batch_block_pivots`` sets it)."""
+    L = int(options.block_pivots or 1)
+    if L <= 1 or np.dtype(options.dtype).itemsize != 4 or not (
+            options.use_pallas == "auto" or bool(options.use_pallas)):
+        return False
+    return options.batch_block_pivots is not None or L % 8 == 0
+
+
 def check_batch_supported(options: SolverOptions, kernel, mesh) -> None:
-    """Raise for what the batched path does not port yet, naming the
-    ROADMAP item that will: the options ``simplex_tpu.batch.
-    batch_kernel_tier`` sends to the vmapped-XLA fallback and the fallback
-    itself; and for a ``mesh`` that is not a ProcessGroup."""
+    """Raise for arguments the batched solve does not take: a ``kernel``
+    other than "auto", True or False (the JAX package's CPU mode
+    "interpret" included), ``kernel=True`` for options the kernels refuse,
+    and a ``mesh`` that is not a ProcessGroup."""
     if kernel == "interpret":
         raise ValueError("kernel='interpret' is the JAX package's CPU mode; "
                          "the port runs the plain PyTorch versions of its "
                          "kernels with device='cpu'")
-    if kernel is False:
-        raise NotImplementedError(
-            "kernel=False: the batched fallback (the vmapped-XLA lanes) "
-            "is ROADMAP queue 1 item 7")
-    if kernel not in ("auto", True):
+    if kernel not in ("auto", True, False):
         raise ValueError(f"kernel must be 'auto', True or False, "
                          f"got {kernel!r}")
+    if kernel is True and not batch_kernel_eligible(options):
+        raise ValueError(
+            "kernel=True forces the batched kernels, which take f32 "
+            "blocked configurations with the kernels on and a window that "
+            "is a multiple of 8; kernel='auto' sends these options to the "
+            "batched fallback")
     if mesh is not None:
         import torch.distributed as dist
 
         if not isinstance(mesh, dist.ProcessGroup):
             raise TypeError(f"mesh must be a torch.distributed "
                             f"ProcessGroup, got {type(mesh).__name__}")
-    L = int(options.block_pivots or 1)
-    if L <= 1 or np.dtype(options.dtype).itemsize != 4 or not (
-            options.use_pallas == "auto" or bool(options.use_pallas)):
-        raise NotImplementedError(
-            "the batched kernel takes f32 blocked configurations; the "
-            "batched fallback for the others (the vmapped-XLA lanes) is "
-            "ROADMAP queue 1 item 7")
-    if options.batch_block_pivots is None and L % 8:
-        raise NotImplementedError(
-            f"block_pivots={L} (not a multiple of 8, no batch_block_pivots) "
-            "goes to the batched fallback (the vmapped-XLA lanes): "
-            "ROADMAP queue 1 item 7")
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +279,7 @@ def run_solve_loop_batched(tabs: BatchTableau, options: SolverOptions,
 
 class BatchSolveOutput(NamedTuple):
     """Outcome of a batched two-phase solve (tensors on the device, a
-    leading lane axis on each) and the windows each phase took."""
+    leading lane axis on each) and the loop's steps per phase."""
 
     status: torch.Tensor             # (B,) int32 Status codes
     x: torch.Tensor                  # (B, n), zeros unless OPTIMAL
@@ -285,23 +288,54 @@ class BatchSolveOutput(NamedTuple):
     iterations_phase2: torch.Tensor  # (B,)
     n_artificial_in_base: torch.Tensor  # (B,)
     base: torch.Tensor               # (B, M_pad) final bases
+    #: Per phase: the kernel path's windows, or the batched sequential
+    #: loop's steps; (0, 0) for the fallback's lane-by-lane route.
     windows: tuple[int, int]
-    binv: torch.Tensor               # (B, m, m) slack blocks, views of Tt
+    #: The lanes' slack blocks (m, m), views of Tt (a list on the
+    #: lane-by-lane route, None where phase 2 did not run).
+    binv: object
 
 
 def solve_device_batched(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                         n: int, m: int,
-                         options: SolverOptions) -> BatchSolveOutput:
+                         n: int, m: int, options: SolverOptions,
+                         kernel="auto") -> BatchSolveOutput:
     """Two-phase solve of every lane (``A (B, m, n)`` in the tableau
-    dtype, ``b (B, m)``, ``c (B, n)`` on the solve's device): the stages,
-    statuses and NUMERIC guards of
-    ``simplex_tpu.batch._solve_device_batched_kernel``, lane by lane. The
-    artificials are pivoted out only in the lanes that need it, one lane
-    at a time; lanes whose phase 1 decided the outcome stay frozen
-    through phase 2 (their phase-2 result would be discarded)."""
+    dtype, ``b (B, m)``, ``c (B, n)`` on the solve's device), dispatched
+    as ``simplex_tpu.batch.solve_device_batched``: ``kernel="auto"`` takes
+    the batched kernels where ``batch_kernel_eligible`` and the batched
+    fallback elsewhere, True the kernels, False the fallback. The
+    fallback's sequential configurations run the lane-batched sequential
+    loop, its blocked ones lane by lane (``batch_fallback.py``)."""
+    use_kernel = (batch_kernel_eligible(options) if kernel == "auto"
+                  else bool(kernel))
+    if use_kernel:
+        return _two_phase_batched(A, b, c, n, m, options,
+                                  batch_kernel_dims(n, m, options),
+                                  run_solve_loop_batched)
+    from .batch_fallback import solve_device_lanes, solve_loop_seq_batched
+
+    if int(options.block_pivots or 1) > 1:
+        return solve_device_lanes(A, b, c, n, m, options)
+    # The single-LP tableau's padding: each lane is solve()'s.
+    return _two_phase_batched(A, b, c, n, m, options,
+                              padded_dims(n, m, options),
+                              solve_loop_seq_batched)
+
+
+def _two_phase_batched(A, b, c, n: int, m: int, options: SolverOptions,
+                       dims: tuple[int, int, int],
+                       loop) -> BatchSolveOutput:
+    """The stages, statuses and NUMERIC guards of
+    ``simplex_tpu.batch._solve_device_batched_kernel``, lane by lane, on
+    tableaus padded to ``dims`` (R1_pad, R2_pad, M_pad), with ``loop``
+    (``run_solve_loop_batched`` or ``batch_fallback.
+    solve_loop_seq_batched``) running both phases. The artificials are
+    pivoted out only in the lanes that need it, one lane at a time; lanes
+    whose phase 1 decided the outcome stay frozen through phase 2 (their
+    phase-2 result would be discarded)."""
     eps = float(options.eps_resolved)
     max_iter = options.resolved_max_iter(n + 2 * m, m)
-    R1, R2, M = batch_kernel_dims(n, m, options)
+    R1, R2, M = dims
     inputs_finite = (torch.isfinite(A).all(dim=2).all(dim=1)
                      & torch.isfinite(b).all(dim=1)
                      & torch.isfinite(c).all(dim=1))
@@ -310,8 +344,7 @@ def solve_device_batched(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     tabs = batch_build_phase1(A, b, n, m, options, dims=(R1, M))
     costs0 = tabs.costs
     tabs = batch_gaussian_eliminate(tabs)
-    tabs, status1, iters1, windows1 = run_solve_loop_batched(
-        tabs, options, max_iter, costs0)
+    tabs, status1, iters1, windows1 = loop(tabs, options, max_iter, costs0)
 
     z_phase1 = batch_phase1_objective(tabs)
     infeasible = z_phase1 <= -eps * (1.0 + b.abs().amax(dim=1))
@@ -335,8 +368,8 @@ def solve_device_batched(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     del tabs
     costs0 = tab2.costs
     tab2 = batch_gaussian_eliminate(tab2)
-    tab2, status2, iters2, windows2 = run_solve_loop_batched(
-        tab2, options, max_iter, costs0, live=~phase1_failed)
+    tab2, status2, iters2, windows2 = loop(tab2, options, max_iter, costs0,
+                                           live=~phase1_failed)
     x = batch_extract_solution(tab2)
 
     # Status resolution, per lane as in two_phase.solve_device.
@@ -371,8 +404,11 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     (``simplex_tpu.solve_batch``). All problems must share (vars,
     constraints). ``device="cuda"`` (the default) raises where CUDA is
     absent; ``device="cpu"`` runs the kernels' plain versions.
-    ``kernel=False`` is not ported yet and raises; ``kernel="auto"`` and
-    ``True`` both take the batched kernels.
+    ``kernel`` dispatches as in ``solve_device_batched``: "auto" (the
+    default) takes the batched kernels where the options allow and the
+    batched fallback elsewhere -- ``DEFAULT_OPTIONS``, an f64 sequential
+    tableau, takes the fallback's lane-batched sequential loop --, True
+    the kernels, False the fallback.
 
     ``mesh``, a ``torch.distributed`` ProcessGroup of P ranks, makes this
     the scenario fleet: every rank calls it with the same problems, rank
@@ -380,8 +416,9 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     collective, and every rank returns the whole list, gathered once at
     the end. B must divide by P.
 
-    ``stats``, a dict when given, receives the windows per phase
-    (``windows``), the final bases (``bases``, (B, M_pad)) and wall
+    ``stats``, a dict when given, receives the windows (the kernel path)
+    or batched steps (the sequential fallback) per phase (``windows``),
+    the final bases (``bases``, (B, M_pad)) and wall
     seconds: of casting and moving the data to the device
     (``prepare_s``), of the device solve up to the host's copy of its
     results (``device_s``) and of the host refinement (``refine_s``); in
@@ -400,7 +437,7 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
                 f"batch must be homogeneous: got {(p.vars, p.constraints)} "
                 f"vs {(n, m)}")
     if mesh is None:
-        return _solve_lanes(problems, n, m, options, dev, stats)
+        return _solve_lanes(problems, n, m, options, dev, stats, kernel)
 
     import torch.distributed as dist
 
@@ -411,7 +448,7 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     per = len(problems) // ranks
     rank = dist.get_rank(mesh)
     mine = _solve_lanes(problems[rank * per:(rank + 1) * per], n, m,
-                        options, dev, stats)
+                        options, dev, stats, kernel)
     parts = [None] * ranks
     dist.all_gather_object(parts, mine, group=mesh)
     return [r for part in parts for r in part]
@@ -424,7 +461,7 @@ def solve_batched_rank(group, device, problems, options):
 
 
 def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
-                 stats) -> list[SolveResult]:
+                 stats, kernel="auto") -> list[SolveResult]:
     """``solve_batched``'s body for one device: the lanes' data to the
     device, the device solve, the host refinement of each OPTIMAL lane."""
     t0 = time.perf_counter()
@@ -441,7 +478,7 @@ def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_prep = time.perf_counter()
-    out = solve_device_batched(A, b, c, n, m, options)
+    out = solve_device_batched(A, b, c, n, m, options, kernel)
     del A
     status = out.status.cpu().numpy()
     objective = out.objective.cpu().numpy()
@@ -463,7 +500,7 @@ def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
             iterations_phase2=int(iters2[i]),
             degenerate=bool(n_art[i] > 0))
         if refine and st == Status.OPTIMAL:
-            result = _refine_lane(p, base[i], options, result, i,
+            result = _refine_lane(p, base[i], options, result,
                                   out.binv[i])
         results.append(result)
     if stats is not None:
@@ -474,17 +511,19 @@ def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
 
 
 def _refine_lane(problem, base, options: SolverOptions, result: SolveResult,
-                 lane: int, binv: torch.Tensor) -> SolveResult:
+                 binv: torch.Tensor) -> SolveResult:
     """f64 refinement of one OPTIMAL lane on the host
     (``simplex_tpu.batch._refine_lane``): NumPy/LAPACK against the lane's
     own f64 problem data. A lane whose certificates fail gets up to two
-    reinversion-restart rounds on the device, as ``solve`` does
-    (``reinvert.restart_device``, from the lane's final slack block
-    ``binv``); the reference goes to its f64 finishing solve there
-    instead, which is not ported yet: a lane that still does not
-    certify raises."""
+    reinversion-restart rounds on the device first (``reinvert.
+    restart_device``, from the lane's final slack block ``binv``; a
+    RuntimeError in a round ends them), which the JAX package does not
+    run. A lane that still does not certify goes to the f64 finishing
+    tier (``two_phase.fallback_solve`` from its last basis, on the lane's
+    device), whose result it takes, its RefineInfo marked ``fallback``."""
     from .refine import RefineInfo, certificates_pass, refine_solution_host
     from .reinvert import restart_device
+    from .two_phase import fallback_solve
 
     t0 = time.perf_counter()
     tol = float(options.refine_tol)
@@ -505,22 +544,35 @@ def _refine_lane(problem, base, options: SolverOptions, result: SolveResult,
                 for v in (problem.A, problem.b, problem.c)]
         base_cur = torch.from_numpy(np.asarray(base)).to(dev)
         for _ in range(2):
-            out2, binv, _ = restart_device(*data, base_cur, binv,
-                                           ro.xB.to(dev), n, m, options)
+            try:
+                out2, binv, _ = restart_device(*data, base_cur, binv,
+                                               ro.xB.to(dev), n, m, options)
+            except RuntimeError:   # out of memory and the like: hand
+                break              # over to the finishing tier
             if out2.status != Status.OPTIMAL:
                 break
             extra += out2.iterations_phase2
             base_cur = out2.base
-            ro, ok = refined(base_cur.cpu().numpy())
+            base = base_cur.cpu().numpy()
+            ro, ok = refined(base)
             if ok:
                 method = "restart"
             if ok or ro is None:
                 break
     if not ok:
-        raise NotImplementedError(
-            f"lane {lane}: the f64 refinement did not certify after two "
-            "reinversion rounds; the f64 finishing solve (fallback_solve) "
-            "is ROADMAP queue 1 item 6")
+        inf = float("inf")
+        info = RefineInfo(
+            certified=False,
+            primal_residual=float(ro.primal_residual) if ro else inf,
+            primal_negativity=float(ro.primal_negativity) if ro else inf,
+            artificial_mass=float(ro.artificial_mass) if ro else inf,
+            dual_infeasibility=float(ro.dual_infeasibility) if ro else inf,
+            tol=tol, fallback=True)
+        result64 = fallback_solve(problem, options, base=np.asarray(base),
+                                  device=binv.device)
+        # The finishing tier's own RefineInfo when it has one.
+        info = (result64.refine or info)._replace(fallback=True)
+        return dataclasses.replace(result64, refine=info)
     info = RefineInfo(
         certified=True, primal_residual=float(ro.primal_residual),
         primal_negativity=float(ro.primal_negativity),

@@ -23,9 +23,10 @@ the JAX package's: ``--dtype``, ``--vector-dtype``, ``--timer`` /
 ``--fleet NDEV``, which start NDEV ranks (``parallel.group.spawn``):
 NCCL with ``--device cuda``, one card per rank, gloo with ``--device
 cpu``. ``--device`` takes the place of ``--platform`` (default
-``cuda``). ``--equilibrate`` and ``--checkpoint`` (alone or with
-``--sharded``) are not ported yet: they exit non-zero naming their
-ROADMAP item.
+``cuda``). ``--equilibrate`` sets the option as the JAX CLI does (only
+``solve`` reads it there, so the CLI's solves do not). ``--checkpoint``
+(alone or with ``--sharded``) is not ported yet: it exits non-zero
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,7 +54,6 @@ MIN, MAX = -100.0, 100.0
 #: Flags of the JAX CLI that the port does not run yet, and the ROADMAP
 #: item that ports each.
 UNPORTED = {
-    "equilibrate": "--equilibrate: scaling.py is ROADMAP queue 1 item 6",
     "checkpoint": "--checkpoint: the resumable solve (and its sharded "
                   "variant) is ROADMAP queue 1 item 9",
 }
@@ -102,7 +102,8 @@ def _build_parser() -> argparse.ArgumentParser:
                         "--block runs, dantzig elsewhere), dantzig, devex "
                         "or bland")
     p.add_argument("--equilibrate", action="store_true",
-                   help="not ported yet (ROADMAP queue 1 item 6)")
+                   help="power-of-two row/column equilibration (the "
+                        "option; only solve() reads it)")
     p.add_argument("--limit", type=int, default=8192,
                    help="benchmark sweep upper size")
     p.add_argument("--resume-sweep", action="store_true",
@@ -141,6 +142,7 @@ def _options(args) -> SolverOptions:
         block_pivots=args.block,
         pivot_rule=None if args.pivot_rule == "auto" else args.pivot_rule,
         degeneracy="reference" if args.reference_degeneracy else "continue",
+        equilibrate=args.equilibrate,
     )
 
 
@@ -316,21 +318,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Solving {args.batch} instances "
               f"(seeds {seed}..{seed + args.batch - 1}) {where}...")
         t0 = time.time()
-        try:
-            if args.fleet:
-                from .batch import check_batch_supported, solve_batched_rank
-                from .parallel.group import backend_for, spawn
+        if args.fleet:
+            from .batch import solve_batched_rank
+            from .parallel.group import backend_for, spawn
 
-                # Refuse here what every rank would refuse.
-                check_batch_supported(options, "auto", None)
-                results = spawn(solve_batched_rank, args.fleet,
-                                backend_for(args.device), args.device,
-                                problems, options)
-            else:
-                results = solve_batched(problems, options,
-                                        device=args.device)
-        except NotImplementedError as e:
-            raise SystemExit(f"--batch: {e}") from e
+            results = spawn(solve_batched_rank, args.fleet,
+                            backend_for(args.device), args.device, problems,
+                            options)
+        else:
+            results = solve_batched(problems, options, device=args.device)
         dt = time.time() - t0
         for i, r in enumerate(results):
             obj = f"{r.objective:f}" if r.status == Status.OPTIMAL else "-"

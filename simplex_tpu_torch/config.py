@@ -62,11 +62,11 @@ class SolverOptions:
     resolution rules are those of ``simplex_tpu.SolverOptions`` (see its
     docstrings for the measured reasons behind each default).
 
-    ``two_phase.solve`` runs every option set but ``equilibrate=True``,
-    for which it raises ``NotImplementedError`` (``check_supported``):
-    ``run_solve_loop`` dispatches the fused blocked-kernel loop, the plain
-    blocked loop and the sequential loops (over K6 or not) as the JAX
-    package does."""
+    ``two_phase.solve`` runs every option set: ``run_solve_loop``
+    dispatches the fused blocked-kernel loop, the plain blocked loop and
+    the sequential loops (over K6 or not) as the JAX package does, and
+    ``equilibrate`` scales the problem (``scaling.py``). As in the JAX
+    package only ``solve`` reads ``equilibrate``."""
 
     #: Tableau dtype.
     dtype: np.dtype = np.dtype(np.float64)
@@ -94,8 +94,8 @@ class SolverOptions:
     bland_threshold: Optional[int] = 50
     #: 'continue' (pivot artificials out after phase 1) or 'reference'.
     degeneracy: str = "continue"
-    #: Kernel switch kept for surface parity: False selects the plain
-    #: blocked loop, which the port does not have yet.
+    #: Kernel switch: False selects the plain loops (no kernel); True
+    #: takes K6 on a pure-f32 sequential tableau.
     use_pallas: str | bool = "auto"
     #: Deferred block pivoting window length L.
     block_pivots: Optional[int] = None
@@ -109,7 +109,7 @@ class SolverOptions:
     refine_iters: int = 3
     #: Scale-relative certificate tolerance.
     refine_tol: float = 1e-6
-    #: Power-of-two equilibration (not ported yet).
+    #: Power-of-two equilibration (``two_phase.solve`` only).
     equilibrate: bool = False
     #: Pad the constraint axis to a multiple of this.
     lane_pad: int = 128

@@ -129,6 +129,9 @@ SIGNATURES = {
     # csrc/pivot.cu: Tt costs colk ah p minc k do, M R r eps, four
     # partials, four candidates, stream
     "fused_pivot_launch": [_P] * 8 + [_I, _I, _I, _F] + [_P] * 9,
+    # Tt factor colk do B M R stream
+    "batch_rank1_f64_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "batch_rank1_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernel of the sequential pivot loop: the CUDA
+// Hand-written Hopper (sm_90a) kernels of the sequential pivot loops: the CUDA
 // counterpart of the Pallas pass fused_pivot (K6) in
-// simplex_tpu/kernels/pivot.py.
+// simplex_tpu/kernels/pivot.py, and (at the end of the file) the batched
+// rank-1 update of the batched sequential loop.
 //
 // K6 replaces fused_pivot (simplex_tpu/kernels/pivot.py:126, pallas_call at
 // :163; body _kernel :63-122). One pivot of the sequential loop, in the
@@ -224,4 +225,171 @@ extern "C" int fused_pivot_launch(float *Tt, float *costs, const float *colk,
                                          part_bidx, nx, hd_out, vd_out, hb_out,
                                          vb_out);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The batched rank-1 update of the batched sequential loop (batch_fallback.py,
+// the lanes of the JAX package's vmapped fallback). It replaces no Pallas
+// kernel: the JAX package applies the update of each lane in XLA
+// (simplex_tpu/solver.py:51 pivot_update, under jax.vmap). For every lane
+// whose do flag is set,
+//   Tt[lane][j, i] = Tt[lane][j, i] - factor[lane][j] * colk[lane][i]
+// over all M x R elements, the product and the difference each rounded
+// (pinned with the _rn intrinsics, which nvcc does not contract): bit for bit
+// what the single-LP loop's Tt.addr_(factor, colk, alpha=-1) computes on the
+// card (measured on an H100 with torch 2.11: addr_, addcmul_ and baddbmm_
+// all round twice there, and one FMA differs in a fifth of the elements), so
+// that each lane walks as solve() does (the caller writes row k afterwards,
+// as solve() does). A lane whose flag is clear is not read or written at
+// all, so its tableau keeps every bit (a masked addcmul_ would turn a -0.0
+// into +0.0) and costs no traffic.
+//
+// Bound on the card: memory. One read and one write of each live lane's
+// tableau, 2 M R sizeof(T) bytes a lane: 6.29 GB a step at BASELINE.json
+// config 3's phase 1 in f64 with every lane live (256 x 512 x 3,000), 1.88 ms
+// at 3.35 TB/s. Design: a 3-D grid (column chunks, row bands, lanes). Where
+// a row is a whole number of 16-byte vectors (R even in f64, a multiple of 4
+// in f32, as the padded tableaus are) and Tt 16-byte aligned, a thread owns
+// one vector column of a band of ROWS rows: it keeps its colk vector in
+// registers and streams the band four rows at a time, four 16-byte loads in
+// flight before the four stores, each row's factor one broadcast load. Other
+// shapes take a scalar tile of VEC strided columns a thread.
+
+namespace {
+
+constexpr int R1_THREADS = 256;
+constexpr int R1_VEC = 4;          // scalar tile: columns a thread
+constexpr int R1_ROWS = 32;        // rows a block
+constexpr int R1_INFLIGHT = 4;     // rows loaded before the first store
+
+// t - f * c with the product and the difference rounded apart.
+__device__ __forceinline__ float mul_sub_rn(float t, float f, float c) {
+    return __fsub_rn(t, __fmul_rn(f, c));
+}
+__device__ __forceinline__ double mul_sub_rn(double t, double f, double c) {
+    return __dsub_rn(t, __dmul_rn(f, c));
+}
+__device__ __forceinline__ double2 mul_sub_rn(double2 t, double f,
+                                              double2 c) {
+    return make_double2(mul_sub_rn(t.x, f, c.x), mul_sub_rn(t.y, f, c.y));
+}
+__device__ __forceinline__ float4 mul_sub_rn(float4 t, float f, float4 c) {
+    return make_float4(mul_sub_rn(t.x, f, c.x), mul_sub_rn(t.y, f, c.y),
+                       mul_sub_rn(t.z, f, c.z), mul_sub_rn(t.w, f, c.w));
+}
+
+// The 16-byte vector of each element type.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<double> {
+    using type = double2;
+};
+template <>
+struct Vec16<float> {
+    using type = float4;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(R1_THREADS)
+batch_rank1_vec(T *__restrict__ Tt, const T *__restrict__ factor,
+                const T *__restrict__ colk,
+                const unsigned char *__restrict__ do_flag, int M, int R) {
+    using V = typename Vec16<T>::type;
+    const int lane = blockIdx.z;
+    if (!do_flag[lane]) return;
+    const int RV = R / (int)(sizeof(V) / sizeof(T));   // vectors a row
+    const int cv = blockIdx.x * R1_THREADS + threadIdx.x;
+    if (cv >= RV) return;
+    const int row0 = blockIdx.y * R1_ROWS;
+    const int rows = min(R1_ROWS, M - row0);
+    const V c = reinterpret_cast<const V *>(colk + (size_t)lane * R)[cv];
+    const T *f = factor + (size_t)lane * M + row0;
+    V *t = reinterpret_cast<V *>(Tt + ((size_t)lane * M + row0) * R) + cv;
+    int r = 0;
+    for (; r + R1_INFLIGHT <= rows; r += R1_INFLIGHT) {
+        V tv[R1_INFLIGHT];
+        T fv[R1_INFLIGHT];
+#pragma unroll
+        for (int u = 0; u < R1_INFLIGHT; ++u) {
+            tv[u] = t[(size_t)(r + u) * RV];
+            fv[u] = f[r + u];
+        }
+#pragma unroll
+        for (int u = 0; u < R1_INFLIGHT; ++u)
+            t[(size_t)(r + u) * RV] = mul_sub_rn(tv[u], fv[u], c);
+    }
+    for (; r < rows; ++r)
+        t[(size_t)r * RV] = mul_sub_rn(t[(size_t)r * RV], f[r], c);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(R1_THREADS)
+batch_rank1_tiles(T *__restrict__ Tt, const T *__restrict__ factor,
+                  const T *__restrict__ colk,
+                  const unsigned char *__restrict__ do_flag, int M, int R) {
+    const int lane = blockIdx.z;
+    if (!do_flag[lane]) return;
+    const int row0 = blockIdx.y * R1_ROWS;
+    const int col0 = blockIdx.x * (R1_THREADS * R1_VEC) + threadIdx.x;
+    const T *c = colk + (size_t)lane * R;
+    const T *f = factor + (size_t)lane * M;
+    T *t = Tt + (size_t)lane * M * R;
+    T cv[R1_VEC];
+#pragma unroll
+    for (int v = 0; v < R1_VEC; ++v) {
+        const int col = col0 + v * R1_THREADS;
+        cv[v] = col < R ? c[col] : T(0);
+    }
+    const int rows = min(R1_ROWS, M - row0);
+    for (int r = 0; r < rows; ++r) {
+        const T fr = f[row0 + r];
+        T *trow = t + (size_t)(row0 + r) * R;
+#pragma unroll
+        for (int v = 0; v < R1_VEC; ++v) {
+            const int col = col0 + v * R1_THREADS;
+            if (col < R) trow[col] = mul_sub_rn(trow[col], fr, cv[v]);
+        }
+    }
+}
+
+template <typename T>
+int batch_rank1_run(T *Tt, const T *factor, const T *colk,
+                    const unsigned char *do_flag, int B, int M, int R,
+                    void *stream) {
+    if (B <= 0 || M <= 0 || R <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int per = (int)(16 / sizeof(T));
+    const dim3 bands(1, (M + R1_ROWS - 1) / R1_ROWS, B);
+    if (R % per == 0 && reinterpret_cast<uintptr_t>(Tt) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(colk) % 16 == 0) {
+        const dim3 grid((R / per + R1_THREADS - 1) / R1_THREADS, bands.y, B);
+        batch_rank1_vec<T><<<grid, R1_THREADS, 0, st>>>(Tt, factor, colk,
+                                                         do_flag, M, R);
+    } else {
+        const dim3 grid((R + R1_THREADS * R1_VEC - 1) / (R1_THREADS * R1_VEC),
+                        bands.y, B);
+        batch_rank1_tiles<T><<<grid, R1_THREADS, 0, st>>>(Tt, factor, colk,
+                                                           do_flag, M, R);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Tt (B, M, R), factor (B, M), colk (B, R), all f64 (f32 below); do (B,).
+extern "C" int batch_rank1_f64_launch(double *Tt, const double *factor,
+                                      const double *colk,
+                                      const unsigned char *do_flag, int B,
+                                      int M, int R, void *stream) {
+    return batch_rank1_run<double>(Tt, factor, colk, do_flag, B, M, R,
+                                   stream);
+}
+
+extern "C" int batch_rank1_f32_launch(float *Tt, const float *factor,
+                                      const float *colk,
+                                      const unsigned char *do_flag, int B,
+                                      int M, int R, void *stream) {
+    return batch_rank1_run<float>(Tt, factor, colk, do_flag, B, M, R,
+                                  stream);
 }

@@ -1,4 +1,5 @@
-"""The fused pivot pass of the sequential loop (K6).
+"""The fused pivot pass of the sequential loop (K6), and the batched
+rank-1 update of the batched sequential loop (``batch_rank1``).
 
 The PyTorch port of ``simplex_tpu/kernels/pivot.py``: one pass over the
 tableau applies the rank-1 pivot update, updates the reduced costs and
@@ -31,8 +32,8 @@ from .blocked import entering_candidates as _candidates
 #: Columns per block of the tiles (csrc/pivot.cu COLS).
 COLS = 1024
 
-#: Launches of the kernel since the last ``reset_launches``.
-LAUNCHES = {"fused_pivot": 0}
+#: Launches of each kernel since the last ``reset_launches``.
+LAUNCHES = {"fused_pivot": 0, "batch_rank1": 0}
 
 
 def reset_launches() -> None:
@@ -119,3 +120,42 @@ def fused_pivot(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
     check(lib, err, "fused_pivot")
     LAUNCHES["fused_pivot"] += 1
     return h_d, v_d, h_b, v_b
+
+
+def batch_rank1_plain(T3: torch.Tensor, factor: torch.Tensor,
+                      colk: torch.Tensor, do: torch.Tensor) -> None:
+    """Plain version of ``batch_rank1``: the single-LP loop's own update,
+    ``T3[i].addr_(factor[i], colk[i], alpha=-1)``, on each lane whose
+    ``do`` is set (one host read of ``do``)."""
+    for i in torch.nonzero(do).view(-1).tolist():
+        T3[i].addr_(factor[i], colk[i], alpha=-1.0)
+
+
+def batch_rank1(T3: torch.Tensor, factor: torch.Tensor, colk: torch.Tensor,
+                do: torch.Tensor) -> None:
+    """The batched rank-1 update, in place: for every lane i with
+    ``do[i]``, ``T3[i, j, :] -= factor[i, j] * colk[i, :]``, the product
+    and the difference rounded apart, as the single-LP loop's ``Tt.addr_``
+    rounds on the card; a lane with ``do[i]`` false is not touched.
+    ``T3 (B, M, R)``, ``factor (B, M)`` and ``colk (B, R)`` contiguous,
+    all f64 or all f32; ``do (B,)`` bool. CPU tensors take
+    ``batch_rank1_plain``."""
+    B, M, R = T3.shape
+    if T3.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"T3: want float32 or float64, got {T3.dtype}")
+    _expect(T3, "T3", T3.dtype, (B, M, R))
+    _expect(factor, "factor", T3.dtype, (B, M))
+    _expect(colk, "colk", T3.dtype, (B, R))
+    _expect(do, "do", torch.bool, (B,))
+    if not _on_card(T3, factor, colk, do):
+        return batch_rank1_plain(T3, factor, colk, do)
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    launch = (lib.batch_rank1_f64_launch if T3.dtype == torch.float64
+              else lib.batch_rank1_f32_launch)
+    err = launch(_ptr(T3), _ptr(factor), _ptr(colk), _ptr(do), B, M, R,
+                 _stream(T3))
+    check(lib, err, "batch_rank1")
+    LAUNCHES["batch_rank1"] += 1

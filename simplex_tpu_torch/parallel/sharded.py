@@ -59,8 +59,7 @@ from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
                       pivot_update, ratio_test)
 from ..tableau import (Tableau, count_basic_artificials, extract_solution,
                        phase1_objective, round_up, tt_matvec)
-from ..two_phase import (DeviceSolveOutput, certify, check_supported,
-                         resolve_device)
+from ..two_phase import DeviceSolveOutput, certify, resolve_device
 from .group import Shard, all_gather, all_reduce
 
 
@@ -805,12 +804,13 @@ def solve_sharded(problem: Problem, mesh=None,
     the mixed mode every OPTIMAL result is refined in f64 and certified on
     every rank's device from the gathered slack block, with up to two
     reinversion-restart rounds on the slices (``two_phase.certify`` with
-    ``restart_sharded``; the JAX package goes to ``fallback_solve``
-    instead, which the port does not have yet)."""
+    ``restart_sharded``), and then the f64 finishing tier
+    (``two_phase.fallback_solve`` on the rank's device), whose result is
+    returned as ``simplex_tpu.parallel.sharded.solve_sharded`` returns it
+    (the JAX package goes to that tier without the restart rounds)."""
     options = options or DEFAULT_OPTIONS
     if replacements:
         options = dataclasses.replace(options, **replacements)
-    check_supported(options)
     dev = resolve_device(device)
     group = mesh if mesh is not None else dist.group.WORLD
     m, n = problem.constraints, problem.vars
@@ -836,9 +836,13 @@ def solve_sharded(problem: Problem, mesh=None,
     refine_info = None
     extra = 0
     if status == Status.OPTIMAL and refine:
-        x, objective, refine_info, extra = certify(
-            problem, out.base, binv, objective, options, A_src, b_dev, c_dev,
-            restart=functools.partial(restart_sharded, shard))
+        cert = certify(problem, out.base, binv, objective, options, A_src,
+                       b_dev, c_dev,
+                       restart=functools.partial(restart_sharded, shard))
+        if cert.fallback is not None:
+            return cert.fallback
+        x, objective = cert.x, cert.objective
+        refine_info, extra = cert.refine, cert.extra_pivots
     return SolveResult(
         status=status, x=x, objective=objective,
         iterations_phase1=out.iterations_phase1,

@@ -237,6 +237,68 @@ def refine_solution_host(A, b, c, base, n: int, m: int
         dual_infeasibility=f64(max(0.0, -d_min)), y=f64(y), xB=f64(xB))
 
 
+def refine_solution_tableau_host(A, b, c, base, binv_t, n: int, m: int,
+                                 iters: int = 8) -> RefineOutput:
+    """NumPy version of ``refine_solution_tableau`` for host callers
+    (``simplex_tpu.refine.refine_solution_tableau_host``): the warm finish
+    certifies its basis with its own f64 tableau's slack block, and the
+    full f64 re-solve of ``two_phase.fallback_solve`` with the card's
+    final slack block. ``binv_t`` is that block in the JAX layout,
+    ``B^{-T}`` (the port's ``Tt[:m, n:n+m].T``). Returns a RefineOutput of
+    CPU f64 tensors."""
+    A = np.asarray(A, np.float64)
+    b = np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    Mt = np.asarray(binv_t, np.float64)
+    v = np.asarray(base, np.int64)[:m]
+
+    struct = v < n
+    slack = (v >= n) & (v < n + m)
+    aux = ~(struct | slack)
+    unit = np.where(slack, v - n, np.arange(m))
+
+    def apply_B(xB):
+        x_full = np.zeros(n)
+        np.add.at(x_full, v[struct], xB[struct])
+        s_full = np.zeros(m)
+        np.add.at(s_full, unit[~struct], xB[~struct])
+        return A @ x_full + s_full
+
+    def apply_Bt(y):
+        w = A.T @ y
+        return np.where(struct, w[np.clip(v, 0, n - 1)], y[unit])
+
+    xB = np.zeros(m)
+    for _ in range(iters):
+        xB = xB + (b - apply_B(xB)) @ Mt
+    primal_residual = float(np.max(np.abs(b - apply_B(xB)))) if m else 0.0
+
+    c_B = np.where(struct, c[np.clip(v, 0, n - 1)], 0.0)
+    y = np.zeros(m)
+    for _ in range(iters):
+        y = y + Mt @ (c_B - apply_Bt(y))
+
+    d_struct = A.T @ y - c
+    nonbasic_struct = np.ones(n, bool)
+    nonbasic_struct[v[struct]] = False
+    nonbasic_slack = np.ones(m, bool)
+    nonbasic_slack[unit[slack]] = False
+    cands = np.concatenate([d_struct[nonbasic_struct], y[nonbasic_slack]])
+    d_min = float(cands.min()) if cands.size else 0.0
+
+    x = np.zeros(n)
+    x[v[struct]] = xB[struct]
+
+    def f64(val):
+        return torch.as_tensor(val, dtype=torch.float64)
+
+    return RefineOutput(
+        x=f64(x), objective=f64(c @ x), primal_residual=f64(primal_residual),
+        primal_negativity=f64(max(0.0, -xB.min()) if m else 0.0),
+        artificial_mass=f64(np.max(np.abs(xB[aux]), initial=0.0)),
+        dual_infeasibility=f64(max(0.0, -d_min)), y=f64(y), xB=f64(xB))
+
+
 def certificates_pass(out: RefineOutput, b, c, tol: float) -> bool:
     """Scale-relative certification (``simplex_tpu.refine``): the primal
     residual, negativity and artificial mass against ``1 + max|b|``, the

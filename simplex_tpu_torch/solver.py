@@ -120,10 +120,11 @@ def pivot_update(tab: Tableau, h, k, minc, p=None, do=None,
     The tableau is updated in place by one ``Tt.addr_(factor, colk,
     alpha=-1)``: no tableau-sized temporary (1.6 GB at the 8192^2 f64
     tableau). It rounds as PyTorch's ``addr`` kernel does for the
-    device -- on the card an FMA, one rounding per element (the reference
-    CUDA program's own, ``solver.cu:43``), where the JAX package rounds
-    the product and the difference apart. The CPU tests hold the f64
-    walks equal to the JAX package's all the same."""
+    device: on an H100 (torch 2.11) the product and the difference apart,
+    as the JAX package does, where the reference CUDA program rounds once
+    (an FMA, ``solver.cu:43``); ``batch_fallback.seq_step``'s batched
+    update rounds the same way. The CPU tests hold the f64 walks equal to
+    the JAX package's."""
     Tt = tab.Tt
     M, R = Tt.shape
     dev = Tt.device

@@ -39,8 +39,7 @@ from .solver import initial_state, iteration_body, run_solve_loop
 from .tableau import (build_phase1, count_basic_artificials,
                       extract_solution, format_tableau, gaussian_eliminate,
                       phase1_objective, phase2_reset)
-from .two_phase import (certify, check_supported, pivot_out_artificials,
-                        resolve_device)
+from .two_phase import certify, pivot_out_artificials, resolve_device
 
 
 def _run_solve(tab, options, max_iter, chrono, rows_csv, per_iteration,
@@ -100,7 +99,6 @@ def solve_timed(problem: Problem, options: SolverOptions | None = None,
         # auto rule's devex (an f32 blocked default) would raise: auto
         # resolves to the reference's own Dantzig here.
         options = dataclasses.replace(options, pivot_rule="dantzig")
-    check_supported(options)
     dev = resolve_device(device)
     chrono = chrono or NullChrono()
 
@@ -186,8 +184,14 @@ def solve_timed(problem: Problem, options: SolverOptions | None = None,
     if refine_enabled(options):
         # The pivot counts stay the timed walk's, which the CSV recorded,
         # also when a reinversion restart certified the result.
-        x, objective, refine_info, _ = certify(
-            problem, tab.base, tab.Tt[:m, n:n + m], objective, options, A,
-            b, c)
+        cert = certify(problem, tab.base, tab.Tt[:m, n:n + m], objective,
+                       options, A, b, c)
+        if cert.fallback is not None:
+            # The finishing tier's result with the timed walk's pivot
+            # counts, as simplex_tpu.timed reports it.
+            return dataclasses.replace(cert.fallback,
+                                       iterations_phase1=iters1,
+                                       iterations_phase2=iters2)
+        x, objective, refine_info = cert.x, cert.objective, cert.refine
     return SolveResult(Status.OPTIMAL, x, objective, iters1, iters2,
                        degenerate=degenerate, refine=refine_info)

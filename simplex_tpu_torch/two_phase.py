@@ -6,11 +6,10 @@ variant, or a deferred block-pivot loop), the infeasibility and
 degeneracy checks, pivoting artificials out of a degenerate basis, phase
 2, extraction, the status resolution with its NUMERIC guards, and, in
 the mixed mode, f64 refinement with its LU retry and up to two
-reinversion-restart rounds. The host finishing tiers that follow in the
-JAX package (``finish.finish_from_basis``, the checkpointed f64
-``fallback_solve``) and ``equilibrate`` are ROADMAP queue 1 item 6: when
-both restart rounds fail to certify, ``solve`` raises
-``NotImplementedError``.
+reinversion-restart rounds, then the f64 finishing tier
+(``fallback_solve``: the warm host finish ``finish.finish_from_basis``,
+else the full f64 re-solve on the device); and ``equilibrate``
+(``scaling.py``).
 
 The statuses are host values here: the loops sync once per chunk or
 window anyway, so phase 2 is skipped when phase 1 already decided the
@@ -197,15 +196,32 @@ def refine_result(problem: Problem, base, options: SolverOptions,
     return ro.x.cpu().numpy(), float(ro.objective), info, ro
 
 
+class Certified(NamedTuple):
+    """What ``certify`` returns: the certified ``x`` and objective with
+    their RefineInfo and the restart rounds' extra phase-2 pivots; or,
+    when no mixed tier certified, ``fallback``, the finishing tier's whole
+    result (``x`` and ``objective`` then None), its RefineInfo marked
+    ``fallback=True``."""
+
+    x: np.ndarray | None
+    objective: float | None
+    refine: object
+    extra_pivots: int
+    fallback: SolveResult | None
+
+
 def certify(problem: Problem, base, binv, objective: float,
-            options: SolverOptions, A_dev, b_dev, c_dev, restart=None):
-    """The mixed mode's tiers for one OPTIMAL result: f64 refinement of
-    the final basis (``refine_result``), then up to two
-    reinversion-restart rounds from the final slack block ``binv``
-    (``restart``, ``reinvert.restart_device`` by default; the sharded
-    solve passes its own). Returns ``(x, objective, RefineInfo, extra
-    phase-2 pivots)``; raises ``NotImplementedError`` when no round
-    certifies (the host finishing tiers are ROADMAP queue 1 item 6)."""
+            options: SolverOptions, A_dev, b_dev, c_dev,
+            restart=None) -> Certified:
+    """The mixed mode's tiers for one OPTIMAL result
+    (``simplex_tpu.two_phase.solve``): f64 refinement of the final basis
+    (``refine_result``), then up to two reinversion-restart rounds from
+    the final slack block ``binv`` (``restart``, ``reinvert.
+    restart_device`` by default; the sharded solve passes its own), and
+    when none certifies the f64 finishing tier ``fallback_solve`` from
+    the last basis, on the data's device. A RuntimeError inside a restart
+    round (out of device memory at extreme shapes) goes to the finishing
+    tier too."""
     from .reinvert import restart_device
 
     restart_device = restart or restart_device
@@ -214,33 +230,102 @@ def certify(problem: Problem, base, binv, objective: float,
                                        c_dev, raw_objective=objective,
                                        binv=binv)
     extra = 0
-    for _ in range(2 if rx is None else 0):
-        out2, binv, _ = restart_device(A_dev, b_dev, c_dev, base, binv,
-                                       ro.xB, n, m, options)
-        if out2.status != Status.OPTIMAL:
-            break
-        extra += out2.iterations_phase2
-        base = out2.base
-        rx, robj, info, ro = refine_result(
-            problem, base, options, A_dev, b_dev, c_dev,
-            raw_objective=out2.objective, binv=binv)
-        if rx is not None:
-            info = info._replace(method="restart")
-            break
-    if rx is None:
-        raise NotImplementedError(
-            "refinement did not certify after two reinversion rounds; "
-            "the host finishing tiers (finish_from_basis, "
-            "fallback_solve) are ROADMAP queue 1 item 6")
-    return rx, robj, info, extra
+    if rx is None and binv is not None:
+        for _ in range(2):
+            try:
+                out2, binv2, _ = restart_device(A_dev, b_dev, c_dev, base,
+                                                binv, ro.xB, n, m, options)
+            except RuntimeError:   # out of memory and the like: hand
+                break              # over to the finishing tier
+            if out2.status != Status.OPTIMAL:
+                break
+            extra += out2.iterations_phase2
+            base, binv = out2.base, binv2
+            rx, robj, info, ro = refine_result(
+                problem, base, options, A_dev, b_dev, c_dev,
+                raw_objective=out2.objective, binv=binv)
+            if rx is not None:
+                info = info._replace(method="restart")
+                break
+    if rx is not None:
+        return Certified(rx, robj, info, extra, None)
+    result64 = fallback_solve(problem, options, base=base,
+                              device=A_dev.device)
+    # The finishing tier's own RefineInfo when it has one: the failed
+    # certificates describe a solution that was thrown away.
+    info = (result64.refine or info)._replace(fallback=True)
+    return Certified(None, None, info, extra,
+                     dataclasses.replace(result64, refine=info))
 
 
-def check_supported(options: SolverOptions) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    ``equilibrate`` (scaling.py, ROADMAP queue 1 item 6)."""
-    if options.equilibrate:
-        raise NotImplementedError(
-            "equilibrate=True: scaling.py is ROADMAP queue 1 item 6")
+def fallback_options(options: SolverOptions) -> SolverOptions:
+    """The f64 finishing configuration (``simplex_tpu.two_phase.
+    fallback_options``): an f64 tableau and vectors (an ``eps`` of None
+    re-resolves to 1e-9), refinement off."""
+    return dataclasses.replace(
+        options, dtype=np.float64, vector_dtype=np.float64, refine=False)
+
+
+def fallback_solve(problem: Problem, options: SolverOptions, base=None, *,
+                   device="cuda") -> SolveResult:
+    """The f64 finishing tier for a result whose certificates fail
+    (``simplex_tpu.two_phase.fallback_solve``). With ``base`` (the mixed
+    solve's final basis) the warm host finish ``finish.finish_from_basis``
+    goes first; where it does not apply, the full f64 re-solve on
+    ``device`` (``resolve_f64``)."""
+    if base is not None:
+        from .finish import finish_from_basis
+
+        if isinstance(base, torch.Tensor):
+            base = base.cpu().numpy()
+        finished = finish_from_basis(problem, np.asarray(base), options)
+        if finished is not None:
+            return finished
+    return resolve_f64(problem, fallback_options(options),
+                       resolve_device(device))
+
+
+def resolve_f64(problem: Problem, options: SolverOptions,
+                dev: torch.device) -> SolveResult:
+    """The full f64 re-solve of the finishing tier with its extraction
+    refinement, the result of ``simplex_tpu.checkpoint.solve_resumable(...,
+    refine_extraction=True)`` (``checkpoint.py:255-290``): the two-phase
+    solve on ``dev`` in one call (the JAX package cuts it into
+    checkpointed chunks only for the TPU runtime's watchdog); an OPTIMAL
+    basis refined on the host against the f64 data with the final slack
+    block, its RefineInfo attached (method "tableau") and, when it
+    certifies, its x and objective reported."""
+    from .refine import (RefineInfo, certificates_pass,
+                         refine_solution_tableau_host)
+
+    m, n = problem.constraints, problem.vars
+    out, binv = solve_device_with_binv(
+        *(torch.as_tensor(np.asarray(v), device=dev)
+          for v in (problem.A, problem.b, problem.c)), n, m, options)
+    degenerate = out.n_artificial_in_base > 0
+    if out.status != Status.OPTIMAL:
+        return SolveResult(out.status, None, out.objective,
+                           out.iterations_phase1, out.iterations_phase2,
+                           degenerate=degenerate)
+    x = out.x.cpu().numpy()
+    objective = float(np.dot(problem.c, x))
+    ro = refine_solution_tableau_host(problem.A, problem.b, problem.c,
+                                      out.base.cpu().numpy(),
+                                      binv.t().cpu().numpy(), n, m)
+    ok = certificates_pass(ro, problem.b, problem.c,
+                           float(options.refine_tol))
+    info = RefineInfo(
+        certified=ok, primal_residual=float(ro.primal_residual),
+        primal_negativity=float(ro.primal_negativity),
+        artificial_mass=float(ro.artificial_mass),
+        dual_infeasibility=float(ro.dual_infeasibility),
+        tol=float(options.refine_tol), method="tableau",
+        objective_shift=float(ro.objective) - objective)
+    if ok:
+        x, objective = ro.x.numpy(), float(ro.objective)
+    return SolveResult(Status.OPTIMAL, x, objective, out.iterations_phase1,
+                       out.iterations_phase2, degenerate=degenerate,
+                       refine=info)
 
 
 def resolve_device(device) -> torch.device:
@@ -264,28 +349,56 @@ def solve(problem: Problem, options: SolverOptions | None = None, *,
     the sequential loop. The production call is ``solve(p,
     dtype="float32", vector_dtype="float64", block_pivots=128)``; in
     that mixed mode every OPTIMAL result is refined in f64 and
-    certified, and a result that does not certify gets up to two
-    reinversion-restart rounds (``certify``)."""
+    certified, through the tiers of ``certify`` (refinement, up to two
+    reinversion restarts, then the f64 finishing tier, which marks its
+    RefineInfo ``fallback``).
+
+    With ``equilibrate=True`` the problem is scaled by powers of two
+    (``scaling.equilibrate``) and solved, refined and certified in scaled
+    space (the finishing tier too); x and the objective of an OPTIMAL
+    result are unwound to original units (``scaling.unwind_result``),
+    while a non-OPTIMAL objective stays in scaled units, as in
+    ``simplex_tpu.two_phase.solve``."""
     options = options or DEFAULT_OPTIONS
     if replacements:
         options = dataclasses.replace(options, **replacements)
-    check_supported(options)
     dev = resolve_device(device)
 
+    scaling = None
+    solve_problem = problem
+    if options.equilibrate:
+        from .scaling import equilibrate
+
+        solve_problem, scaling = equilibrate(problem)
+
     m, n = problem.constraints, problem.vars
-    A_dev = torch.as_tensor(np.asarray(problem.A), device=dev)
-    b_dev = torch.as_tensor(np.asarray(problem.b), device=dev)
-    c_dev = torch.as_tensor(np.asarray(problem.c), device=dev)
+    A_dev, b_dev, c_dev = (torch.as_tensor(np.asarray(v), device=dev)
+                           for v in (solve_problem.A, solve_problem.b,
+                                     solve_problem.c))
     out, binv = solve_device_with_binv(A_dev, b_dev, c_dev, n, m, options)
     status = out.status
     x = out.x.cpu().numpy() if status == Status.OPTIMAL else None
     objective = out.objective
+    if scaling is not None and x is not None:
+        x = scaling.col * x
+        objective = float(problem.c @ x)
     refine_info = None
     extra_pivots = 0
     if status == Status.OPTIMAL and refine_enabled(options):
-        x, objective, refine_info, extra_pivots = certify(
-            problem, out.base, binv, objective, options, A_dev, b_dev,
-            c_dev)
+        cert = certify(solve_problem, out.base, binv, objective, options,
+                       A_dev, b_dev, c_dev)
+        if cert.fallback is not None:
+            if scaling is None:
+                return cert.fallback
+            from .scaling import unwind_result
+
+            return unwind_result(cert.fallback, scaling, problem)
+        x, objective = cert.x, cert.objective
+        refine_info, extra_pivots = cert.refine, cert.extra_pivots
+        if scaling is not None:
+            # The certified values were found in scaled space.
+            x = scaling.col * x
+            objective = float(problem.c @ x)
 
     return SolveResult(
         status=status,

@@ -1,7 +1,7 @@
 """The port's CLI (``python -m simplex_tpu_torch.cli``) on the CPU: the
 flag contract of tests/test_cli.py through the port, its stdout and CSVs
 against the JAX package's CLI on the same arguments, and the flags it
-does not port yet."""
+does not port yet (``--checkpoint``)."""
 
 import glob
 
@@ -127,9 +127,30 @@ def test_batch_mode(tmp_path, capsys):
     assert "seed 5:" in out and "seed 8:" in out
 
 
-def test_batch_mode_f64_names_the_fallback(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 7"):
-        run_cli(["-r", "24", "10", "5", "--batch", "4"], tmp_path)
+def test_batch_mode_f64_names_the_fallback(tmp_path, capsys):
+    """--batch with the default dtype (f64, sequential: the batched
+    fallback; it exited naming its ROADMAP item until that landed)
+    prints the JAX CLI's lines, wall times aside and with "batched" where
+    the JAX CLI says "vmapped", with the same f64 walks; -r draws from
+    [-100, 100], so lanes may be unbounded or infeasible, and a seed file
+    of [1, 100] instances makes them all OPTIMAL."""
+    from simplex_tpu_torch.problem import write_seed_file
+
+    seeds = tmp_path / "seeds.txt"
+    write_seed_file(str(seeds), 24, 10, 5, 1, 100)
+    for args in (["-r", "24", "10", "5"], ["-rf", str(seeds)]):
+        outs = {}
+        for name, fn, extra in (("port", main, ["--device", "cpu"]),
+                                ("jax", jax_main, [])):
+            d = tmp_path / name
+            assert fn(args + ["--batch", "4", "--data-dir", str(d)]
+                      + extra) == 0
+            lines, walks = _timeless(_lines(capsys.readouterr().out, d))
+            outs[name] = ([line.replace(") batched...", ") vmapped...")
+                           for line in lines], walks)
+        assert outs["port"] == outs["jax"]
+        assert any(line.startswith("seed 8:") for line in outs["port"][0])
+    assert all(" OPTIMAL " in line for line in outs["port"][0][3:7])
 
 
 def test_profile_writes_a_trace(tmp_path, capsys):
@@ -144,14 +165,28 @@ def test_profile_writes_a_trace(tmp_path, capsys):
      "ROADMAP queue 1 item 9"),
     (["--fleet", "2"], "--fleet requires --batch"),
     (["--checkpoint", "state.npz"], "ROADMAP queue 1 item 9"),
-    (["--equilibrate"], "ROADMAP queue 1 item 6"),
+    (["--equilibrate"], None),
 ], ids=["sharded", "fleet", "checkpoint", "equilibrate"])
-def test_unported_flags_exit(tmp_path, flags, match):
+def test_unported_flags_exit(tmp_path, capsys, flags, match):
     """What the port does not run yet exits naming its ROADMAP item:
-    ``--checkpoint``, with ``--sharded`` too, and ``--equilibrate``;
-    ``--fleet`` without ``--batch`` exits as the JAX CLI does."""
-    with pytest.raises(SystemExit, match=match):
-        run_cli(["-r", "10", "5", "1"] + flags, tmp_path)
+    ``--checkpoint``, with ``--sharded`` too; ``--fleet`` without
+    ``--batch`` exits as the JAX CLI does. ``--equilibrate`` (it exited
+    naming its ROADMAP item until ``scaling.py`` landed) exits 0
+    with the JAX CLI's stdout lines and solution.txt."""
+    args = ["-r", "10", "5", "1"] + flags
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            run_cli(args, tmp_path)
+        return
+    outs = {}
+    for name, fn, extra in (("port", main, ["--device", "cpu"]),
+                            ("jax", jax_main, [])):
+        d = tmp_path / name
+        assert fn(args + ["--data-dir", str(d)] + extra) == 0
+        sol = d / "solution.txt"
+        outs[name] = (_lines(capsys.readouterr().out, d),
+                      sol.read_text() if sol.exists() else None)
+    assert outs["port"] == outs["jax"]
 
 
 def _timeless(lines):

@@ -510,7 +510,7 @@ def test_fused_pivot_matches_plain_on_card(cuda, do):
 def test_default_solve_on_card_matches_cpu(cuda):
     """f64, the sequential loop: random_256_256 walks 473 + 17 pivots on
     the card as on the CPU (and in the JAX package); objectives within
-    1e-12 (the card's rank-1 update rounds once, as an FMA)."""
+    1e-12 (the card's reductions sum in another order)."""
     p = pst.read_random_problem(DATA / "benchmark_problems"
                                 / "random_256_256.txt")
     got = pst.solve(p, device="cuda")
@@ -609,3 +609,62 @@ def test_solve_sharded_world_size_one_on_card(cuda, tmp_path):
     assert (got.iterations_phase1, got.iterations_phase2) == (
         want.iterations_phase1, want.iterations_phase2)
     assert got.objective == pytest.approx(want.objective, rel=1e-9)
+
+
+@pytest.mark.parametrize("dtype,R", [(torch.float64, 64), (torch.float64, 63),
+                                     (torch.float32, 64), (torch.float32, 63)])
+def test_batch_rank1_matches_plain_on_card(cuda, dtype, R):
+    """The batched fallback's rank-1 update against its plain version
+    (the single-LP loop's ``addr_`` on each live lane), bit for bit, on
+    the vector tile (rows of whole 16-byte vectors) and the scalar one; a
+    lane whose flag is clear keeps every bit, a -0.0 included."""
+    g = torch.Generator().manual_seed(R)
+    B, M = 5, 37
+    T3 = (torch.rand((B, M, R), generator=g, dtype=torch.float64) * 200
+          - 100).to(dtype).to(cuda)
+    T3[2, 0, 0] = -0.0
+    factor = (torch.rand((B, M), generator=g, dtype=torch.float64) * 2
+              - 1).to(dtype).to(cuda)
+    colk = (torch.rand((B, R), generator=g, dtype=torch.float64) * 200
+            - 100).to(dtype).to(cuda)
+    do = torch.tensor([True, True, False, True, True], device=cuda)
+    want = T3.clone()
+    kp.batch_rank1_plain(want, factor, colk, do)
+    kp.reset_launches()
+    kp.batch_rank1(T3, factor, colk, do)
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES["batch_rank1"] == 1
+    assert torch.equal(T3, want)
+    assert torch.signbit(T3[2, 0, 0])
+
+
+def test_default_batch_walks_as_solve_on_card(cuda):
+    """Route (a) of the batched fallback on the card (the default f64
+    options: the lane-batched sequential loop over ``batch_rank1``): each
+    lane walks as the single-LP ``solve`` does on the card (pivot counts
+    equal, objective within 1e-12)."""
+    problems = [pst.generate_random_problem(60, 30, s, 1, 100)
+                for s in range(4)]
+    kp.reset_launches()
+    got = pst.solve_batch(problems, device="cuda")
+    assert kp.LAUNCHES["batch_rank1"] > 0
+    for p, r in zip(problems, got):
+        want = pst.solve(p, device="cuda")
+        assert r.status == want.status == pst.Status.OPTIMAL
+        assert (r.iterations_phase1, r.iterations_phase2) == (
+            want.iterations_phase1, want.iterations_phase2)
+        assert r.objective == pytest.approx(want.objective, rel=1e-12)
+
+
+def test_fallback_solve_on_card(cuda):
+    """The finishing tier's full f64 re-solve on the card, refined on the
+    host: certified at the CPU re-solve's objective."""
+    from simplex_tpu_torch import two_phase
+
+    p = pst.generate_random_problem(120, 48, 5, 1, 100)
+    opts = pst.SolverOptions(**PROD)
+    got = two_phase.fallback_solve(p, opts, device="cuda")
+    want = two_phase.fallback_solve(p, opts, device="cpu")
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert got.refine.certified and got.refine.method == "tableau"
+    assert got.objective == pytest.approx(want.objective, rel=1e-12)

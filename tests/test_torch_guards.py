@@ -1,7 +1,6 @@
 """Guards of the PyTorch port: it imports no JAX, its device is explicit,
-configurations it does not port yet raise (the ones ported since solve
-and match the JAX package), and the CPU path never counts a kernel
-launch."""
+the configurations that once raised (not ported then) solve and match
+the JAX package, and the CPU path never counts a kernel launch."""
 
 import subprocess
 import sys
@@ -31,6 +30,10 @@ def test_port_never_imports_jax():
         "import simplex_tpu_torch.kernels._build\n"
         "import simplex_tpu_torch.cli, simplex_tpu_torch.timed\n"
         "import simplex_tpu_torch.chrono, simplex_tpu_torch.kernels.pivot\n"
+        "import simplex_tpu_torch.oracle, simplex_tpu_torch.finish\n"
+        "import simplex_tpu_torch.scaling, simplex_tpu_torch.batch_fallback\n"
+        "import simplex_tpu_torch.utils.cuda_order\n"
+        "import simplex_tpu_torch.utils.fma_native\n"
         "import simplex_tpu_torch.parallel.group as pg\n"
         "import simplex_tpu_torch.parallel.sharded, tempfile\n"
         "with tempfile.TemporaryDirectory() as td, \\\n"
@@ -53,6 +56,13 @@ def test_port_never_imports_jax():
         "                    device='cpu', dtype='float32',\n"
         "                    vector_dtype='float64', block_pivots=8)\n"
         "assert rb[0].status == st.Status.OPTIMAL\n"
+        "p = st.generate_random_problem(8, 4, 1, 1, 9)\n"
+        "assert st.solve_batch([p], device='cpu')[0].status == 0\n"
+        "assert st.solve(p, device='cpu', equilibrate=True).status == 0\n"
+        "assert st.solve_oracle(p, tie_rule='cuda',\n"
+        "                       update_rule='fma').status == 0\n"
+        "from simplex_tpu_torch.two_phase import fallback_solve\n"
+        "assert fallback_solve(p, st.SolverOptions(), device='cpu').refine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'simplex_tpu'))\n"
         "print(bad)\n"
@@ -91,29 +101,23 @@ def test_unknown_device_raises():
         pst.solve(p, device="meta", **PROD)
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(), None),                                           # f64 default
-    (dict(dtype=np.float64, block_pivots=128), None),
-    (dict(dtype=np.float32, vector_dtype=np.float64), None),
-    (dict(dtype=np.float32, vector_dtype=np.float32, use_pallas=True),
-     None),
-    (dict(PROD, block_pivots=12), None),
-    (dict(PROD, use_pallas=False), None),
-    (dict(PROD, equilibrate=True), "item 6"),
+@pytest.mark.parametrize("opts", [
+    dict(),                                                   # f64 default
+    dict(dtype=np.float64, block_pivots=128),
+    dict(dtype=np.float32, vector_dtype=np.float64),
+    dict(dtype=np.float32, vector_dtype=np.float32, use_pallas=True),
+    dict(PROD, block_pivots=12),
+    dict(PROD, use_pallas=False),
+    dict(PROD, equilibrate=True),
 ], ids=["f64-default", "f64-blocked", "f32-sequential", "pallas-sequential",
         "L-not-multiple-of-8", "kernels-off", "equilibrate"])
-def test_unported_configurations_raise(opts, item):
-    """Every option set of the JAX ``solve`` but ``equilibrate`` is
-    ported: those cases (they raised until the sequential and plain
-    blocked loops landed) solve on the CPU and match the JAX result --
+def test_unported_configurations_raise(opts):
+    """Every option set of the JAX ``solve`` is ported: these cases (they
+    raised until the sequential and plain blocked loops, and then
+    ``scaling.py``, landed) solve on the CPU and match the JAX result --
     status and pivot counts, the objective within 1e-12 (within 1e-9
-    after the mixed modes' refinement). ``equilibrate`` still raises,
-    naming its ROADMAP item."""
+    after the mixed modes' refinement)."""
     p = pst.read_problem(DATA / "smallProblem.txt")
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            pst.solve(p, device="cpu", **opts)
-        return
     got, want = pst.solve(p, device="cpu", **opts), jst.solve(p, **opts)
     assert got.status == want.status == pst.Status.OPTIMAL
     assert (got.iterations_phase1, got.iterations_phase2) == \
@@ -171,20 +175,39 @@ def _batch(k=2):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(mesh=object()), TypeError, "ProcessGroup"),
-    (dict(kernel=False), NotImplementedError, "ROADMAP queue 1 item 7"),
-    (dict(dtype=np.float64), NotImplementedError, "ROADMAP queue 1 item 7"),
-    (dict(block_pivots=1), NotImplementedError, "ROADMAP queue 1 item 7"),
-    (dict(block_pivots=12), NotImplementedError, "ROADMAP queue 1 item 7"),
+    (dict(kernel=False), None, None),
+    (dict(dtype=np.float64), None, None),
+    (dict(block_pivots=1), None, None),
+    (dict(block_pivots=12), None, None),
     (dict(kernel="interpret"), ValueError, "device='cpu'"),
 ], ids=["mesh", "kernel-false", "f64", "sequential", "L-not-multiple-of-8",
         "interpret"])
 def test_batch_unported_configurations_raise(kw, exc, match):
+    """A ``mesh`` that is no ProcessGroup and the JAX package's
+    ``kernel="interpret"`` raise. The options the batched kernels do not
+    take (``kernel=False``, an f64 tableau, a sequential one, an L that is
+    not a multiple of 8) raised until the batched fallback landed: they
+    now solve and match ``simplex_tpu.solve_batch`` (whose kernels are off
+    on the CPU, so it runs its fallback) -- statuses equal, the objective
+    within 1e-9 (refined in the mixed modes), pivot counts equal in f64
+    and within max(3, 10%) in the mixed walks, which are not pinned."""
     opts = dict(BATCH)
     opts.update({k: v for k, v in kw.items() if k not in ("mesh", "kernel")})
-    with pytest.raises(exc, match=match):
-        pst.solve_batch(_batch(), device="cpu",
-                        **{k: v for k, v in kw.items()
-                           if k in ("mesh", "kernel")}, **opts)
+    extra = {k: v for k, v in kw.items() if k in ("mesh", "kernel")}
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            pst.solve_batch(_batch(), device="cpu", **extra, **opts)
+        return
+    got = pst.solve_batch(_batch(), device="cpu", **extra, **opts)
+    want = jst.solve_batch(_batch(), jst.SolverOptions(**opts),
+                           kernel=extra.get("kernel", "auto"))
+    f64 = np.dtype(opts["dtype"]) == np.float64
+    for g, w in zip(got, want):
+        assert g.status == w.status == pst.Status.OPTIMAL
+        assert g.objective == pytest.approx(w.objective, rel=1e-9)
+        for a, b in ((g.iterations_phase1, w.iterations_phase1),
+                     (g.iterations_phase2, w.iterations_phase2)):
+            assert a == b if f64 else abs(a - b) <= max(3, 0.1 * b)
 
 
 def test_batch_block_pivots_lifts_the_alignment_rule():
@@ -222,10 +245,18 @@ def test_cpu_batch_counts_no_launch():
 
 def test_batch_lane_that_never_certifies_raises():
     """No certificate passes at refine_tol=1e-300: after the two
-    reinversion rounds the lane raises, naming the f64 finishing solve."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        pst.solve_batch(_batch(1), device="cpu",
-                        **dict(BATCH, refine_tol=1e-300))
+    reinversion rounds (which the JAX package does not run) the lane goes
+    to the f64 finishing tier, as in ``simplex_tpu.batch._refine_lane``,
+    and comes back OPTIMAL with ``refine.fallback`` set, at the JAX
+    package's objective (it raised until the finishing tier landed)."""
+    opts = dict(BATCH, refine_tol=1e-300)
+    (got,) = pst.solve_batch(_batch(1), device="cpu", **opts)
+    (want,) = jst.solve_batch(_batch(1), jst.SolverOptions(**opts),
+                              kernel="interpret")
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert got.refine.fallback and want.refine.fallback
+    assert got.objective == pytest.approx(want.objective, rel=1e-9)
+    assert got.x.shape == (12,) and np.isfinite(got.x).all()
 
 
 @pytest.mark.parametrize("rule", ["devex", "dantzig"])
