@@ -100,9 +100,10 @@ Phases, in order; any failed check exits non-zero:
    and K12 at config 3's shapes (``batch_apply_reprice``'s fold with no
    live eta bit for bit), and ``batch_rank1`` at config 3's f64 phase-1
    tableau (256 x 512 x 3,000) bit for bit against its plain version
-   (``addr_`` a lane), with a lane left out untouched, the scalar and the
-   vector tile, and how many elements ``addcmul_`` and ``baddbmm_`` give
-   otherwise;
+   (``addr_`` a lane), with a lane left out untouched, rows of whole
+   16-byte vectors and not (R = 63, 64 and 2,999), how many elements
+   ``addcmul_`` and ``baddbmm_`` give otherwise, its plan printed, and
+   its time with a quarter of the lanes live and at R = 2,999;
    each timed on the device by two clocks -- torch.profiler, and CUDA
    events (over a CUDA graph of 50 calls for K1, K2 and K5, over
    back-to-back calls for the rest) -- beside its bound and, where one
@@ -1908,12 +1909,15 @@ def phase_equilibrate() -> None:
 def phase_rank1_kernel(records: dict) -> None:
     """``batch_rank1`` against its plain version (the single-LP loop's
     ``addr_`` on each live lane) at config 3's phase-1 f64 tableau of the
-    default options (``RANK1_SHAPE``), every lane live, bit for bit; a
-    lane whose do flag is clear keeps every bit; f32 and f64 at R = 63
-    and 64 (the scalar and the vector tile) bit for bit; how many
-    elements ``addcmul_`` and ``baddbmm_`` over all lanes give otherwise;
+    default options (``RANK1_SHAPE``), every lane live, bit for bit, and
+    at R = 2,999 (rows that are not whole 16-byte vectors); a lane whose
+    do flag is clear keeps every bit; f32 and f64 at R = 63 and 64 bit for
+    bit; how many elements ``addcmul_`` and ``baddbmm_`` over all lanes
+    give otherwise; its plan (``kernels.pivot.rank1_plan``) printed;
     device ms per call against the plain version, ``addcmul_`` (the
-    library call: every lane live, the same function) and the bound."""
+    library call: every lane live, the same function) and the bound; by
+    CUDA events in turns, every lane live, a quarter live (every fourth
+    lane) and ``addcmul_``; and at R = 2,999."""
     import torch
 
     from simplex_tpu_torch.kernels import pivot as kp
@@ -1928,6 +1932,9 @@ def phase_rank1_kernel(records: dict) -> None:
     colk = torch.rand((B, R), generator=g, device=dev,
                       dtype=torch.float64) * 200.0 - 100.0
     live = torch.ones(B, dtype=torch.bool, device=dev)
+    plan = kp.rank1_plan(B, M, R, 8)
+    log(f"batch_rank1 plan at B={B} M={M} R={R} f64: {plan} (one block of "
+        f"{kp.RANK1_THREADS} threads a tile, a grid of {plan.tiles} x {B})")
     Tk = T0.clone()
     kp.batch_rank1(Tk, factor, colk, live)
     Tp = T0.clone()
@@ -1954,8 +1961,7 @@ def phase_rank1_kernel(records: dict) -> None:
     three = torch.tensor([True, False, True, True], device=dev)
     for dt, r in ((torch.float32, 64), (torch.float32, 63),
                   (torch.float64, 63)):
-        # Rows of whole 16-byte vectors take the vector tile, the others
-        # the scalar one.
+        # Rows of whole 16-byte vectors and rows that are not.
         t = T0[:4, :, :r].to(dt).contiguous()
         f = factor[:4].to(dt).contiguous()
         c = colk[:4, :r].to(dt).contiguous()
@@ -1969,6 +1975,16 @@ def phase_rank1_kernel(records: dict) -> None:
     library_ms = device_ms(lambda: Tk.addcmul_(
         factor[:, :, None], colk[:, None, :], value=-1.0), 10)
     check_ms = event_ms(lambda: kp.batch_rank1(Tk, factor, colk, live), 10)
+    quarter = torch.arange(B, device=dev) % 4 == 0
+    turns = {
+        "every lane live": lambda: kp.batch_rank1(Tk, factor, colk, live),
+        "a quarter live": lambda: kp.batch_rank1(Tk, factor, colk,
+                                                 quarter),
+        "addcmul_": lambda: Tk.addcmul_(factor[:, :, None],
+                                        colk[:, None, :], value=-1.0)}
+    in_turns: dict = {name: [] for name in turns}
+    for name in [*turns, *reversed(turns)]:
+        in_turns[name].append(event_ms(turns[name], 10))
     bound_ms, by = bound(16 * B * M * R + 8 * B * (M + R) + B,
                          f64_flops=2 * B * M * R)
     log(f"batch_rank1 B={B} M={M} R={R} f64, every lane live: bit for bit "
@@ -1978,11 +1994,32 @@ def phase_rank1_kernel(records: dict) -> None:
         f"events {check_ms:.4f}), plain {plain_ms:.4f} ms, addcmul_ "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); the kernel "
         f"moves {16 * B * M * R / ms / 1e9:.3f} TB/s")
+    share = min(in_turns["a quarter live"]) / min(in_turns["every lane live"])
+    log("batch_rank1 by CUDA events over 10 calls, in turns (ms): "
+        + "; ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+                    for name, ts in in_turns.items())
+        + f"; a quarter live takes {share:.3f} of every lane live's time")
     records["batch_rank1"] = {
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
         "check_ms": check_ms}
     del T0, Tk
+    torch.cuda.empty_cache()
+    r = R - 1
+    T0 = torch.rand((B, M, r), generator=g, device=dev,
+                    dtype=torch.float64) * 200.0 - 100.0
+    colk = torch.rand((B, r), generator=g, device=dev,
+                      dtype=torch.float64) * 200.0 - 100.0
+    Tp = T0.clone()
+    kp.batch_rank1(T0, factor, colk, live)
+    kp.batch_rank1_plain(Tp, factor, colk, live)
+    equal(f"batch_rank1 f64 R={r} vs plain", T0, Tp)
+    del Tp
+    odd_ms = event_ms(lambda: kp.batch_rank1(T0, factor, colk, live), 10)
+    log(f"batch_rank1 B={B} M={M} R={r} f64, every lane live: bit for bit "
+        f"the plain version; {odd_ms:.4f} ms by CUDA events (R={R}: "
+        f"{check_ms:.4f})")
+    del T0
     torch.cuda.empty_cache()
 
 

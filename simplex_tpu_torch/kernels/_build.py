@@ -129,9 +129,11 @@ SIGNATURES = {
     # csrc/pivot.cu: Tt costs colk ah p minc k do, M R r eps, four
     # partials, four candidates, stream
     "fused_pivot_launch": [_P] * 8 + [_I, _I, _I, _F] + [_P] * 9,
-    # Tt factor colk do B M R stream
-    "batch_rank1_f64_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "batch_rank1_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # Tt factor colk do B M R, the plan (vecs tiles), stream
+    "batch_rank1_f64_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
+                               ctypes.c_longlong, _P],
+    "batch_rank1_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
+                               ctypes.c_longlong, _P],
 }
 
 
@@ -150,6 +152,9 @@ def load_library() -> ctypes.CDLL:
             # M R cs devex vec res_c res_f -> bytes
             lib.batch_window_smem_bytes.argtypes = [_I] * 7
             lib.batch_window_smem_bytes.restype = ctypes.c_longlong
+            # M R item vecs -> tiles a lane
+            lib.batch_rank1_lane_tiles.argtypes = [_I] * 4
+            lib.batch_rank1_lane_tiles.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

@@ -247,20 +247,37 @@ extern "C" int fused_pivot_launch(float *Tt, float *costs, const float *colk,
 // Bound on the card: memory. One read and one write of each live lane's
 // tableau, 2 M R sizeof(T) bytes a lane: 6.29 GB a step at BASELINE.json
 // config 3's phase 1 in f64 with every lane live (256 x 512 x 3,000), 1.88 ms
-// at 3.35 TB/s. Design: a 3-D grid (column chunks, row bands, lanes). Where
-// a row is a whole number of 16-byte vectors (R even in f64, a multiple of 4
-// in f32, as the padded tableaus are) and Tt 16-byte aligned, a thread owns
-// one vector column of a band of ROWS rows: it keeps its colk vector in
-// registers and streams the band four rows at a time, four 16-byte loads in
-// flight before the four stores, each row's factor one broadcast load. Other
-// shapes take a scalar tile of VEC strided columns a thread.
+// at 3.35 TB/s. Design: a lane's tableau is one contiguous range of M R
+// elements, element e at row e / R and column e % R, so one path serves
+// every R. Its 16-byte aligned vectors go in tiles of R1_THREADS x R1_VECS
+// (kernels/pivot.py rank1_plan counts them), a thread's vectors R1_THREADS
+// apart so a warp's accesses are contiguous; the fewer than one vector's
+// elements before the first aligned vector and after the last go element by
+// element with the lane's first tile. One block a tile, the grid (tiles a
+// lane, lanes): the card dispatches the blocks in order, so the blocks in
+// flight cover one contiguous stretch of the tableau, and a block of a lane
+// whose flag is clear exits after reading it. A thread issues all its loads
+// before its first store (40 registers: six blocks an SM). factor and colk
+// (a few KB a lane, hot in L1 and L2) are read through the read-only path.
+// Measured on an H100 at config 3 (tools/rank1_probe.py,
+// tools/rank1_variants.cu): 89-90% of the bound at any tile width;
+// persistent blocks walking the live tiles round robin drift apart and
+// reach 77-81% (claiming each next tile from a counter, which keeps the
+// tiles in flight in order, 90%); a ring of bulk async copies 70-75%.
 
 namespace {
 
 constexpr int R1_THREADS = 256;
-constexpr int R1_VEC = 4;          // scalar tile: columns a thread
-constexpr int R1_ROWS = 32;        // rows a block
-constexpr int R1_INFLIGHT = 4;     // rows loaded before the first store
+constexpr int R1_VECS = 4;         // 16-byte vectors a thread a tile
+
+// Tiles of one lane of M x R elements of item bytes (kernels/pivot.py
+// rank1_lane_tiles): its 16-byte vectors R1_THREADS x vecs a tile, at least
+// one tile (which also takes the elements outside the aligned vectors).
+long long rank1_lane_tiles(int M, int R, int item, int vecs) {
+    const long long nvec = (long long)M * R * item / 16;
+    const long long tv = (long long)R1_THREADS * vecs;
+    return nvec > 0 ? (nvec + tv - 1) / tv : 1;
+}
 
 // t - f * c with the product and the difference rounded apart.
 __device__ __forceinline__ float mul_sub_rn(float t, float f, float c) {
@@ -268,14 +285,6 @@ __device__ __forceinline__ float mul_sub_rn(float t, float f, float c) {
 }
 __device__ __forceinline__ double mul_sub_rn(double t, double f, double c) {
     return __dsub_rn(t, __dmul_rn(f, c));
-}
-__device__ __forceinline__ double2 mul_sub_rn(double2 t, double f,
-                                              double2 c) {
-    return make_double2(mul_sub_rn(t.x, f, c.x), mul_sub_rn(t.y, f, c.y));
-}
-__device__ __forceinline__ float4 mul_sub_rn(float4 t, float f, float4 c) {
-    return make_float4(mul_sub_rn(t.x, f, c.x), mul_sub_rn(t.y, f, c.y),
-                       mul_sub_rn(t.z, f, c.z), mul_sub_rn(t.w, f, c.w));
 }
 
 // The 16-byte vector of each element type.
@@ -290,106 +299,185 @@ struct Vec16<float> {
     using type = float4;
 };
 
+// One element at (row, col), then (row, col) steps to the next element.
 template <typename T>
-__global__ void __launch_bounds__(R1_THREADS)
-batch_rank1_vec(T *__restrict__ Tt, const T *__restrict__ factor,
-                const T *__restrict__ colk,
-                const unsigned char *__restrict__ do_flag, int M, int R) {
-    using V = typename Vec16<T>::type;
-    const int lane = blockIdx.z;
-    if (!do_flag[lane]) return;
-    const int RV = R / (int)(sizeof(V) / sizeof(T));   // vectors a row
-    const int cv = blockIdx.x * R1_THREADS + threadIdx.x;
-    if (cv >= RV) return;
-    const int row0 = blockIdx.y * R1_ROWS;
-    const int rows = min(R1_ROWS, M - row0);
-    const V c = reinterpret_cast<const V *>(colk + (size_t)lane * R)[cv];
-    const T *f = factor + (size_t)lane * M + row0;
-    V *t = reinterpret_cast<V *>(Tt + ((size_t)lane * M + row0) * R) + cv;
-    int r = 0;
-    for (; r + R1_INFLIGHT <= rows; r += R1_INFLIGHT) {
-        V tv[R1_INFLIGHT];
-        T fv[R1_INFLIGHT];
-#pragma unroll
-        for (int u = 0; u < R1_INFLIGHT; ++u) {
-            tv[u] = t[(size_t)(r + u) * RV];
-            fv[u] = f[r + u];
-        }
-#pragma unroll
-        for (int u = 0; u < R1_INFLIGHT; ++u)
-            t[(size_t)(r + u) * RV] = mul_sub_rn(tv[u], fv[u], c);
+__device__ __forceinline__ T rank1_elem(T x, const T *f, const T *ck,
+                                        int &row, int &col, int R) {
+    const T y = mul_sub_rn(x, __ldg(f + row), __ldg(ck + col));
+    if (++col == R) {
+        col = 0;
+        ++row;
     }
-    for (; r < rows; ++r)
-        t[(size_t)r * RV] = mul_sub_rn(t[(size_t)r * RV], f[r], c);
+    return y;
 }
 
+// One vector whose first element is at (row, col); the fast form when its
+// elements lie in one row.
+__device__ __forceinline__ double2 rank1_vec(double2 x, const double *f,
+                                             const double *ck, int row,
+                                             int col, int R) {
+    if (col + 2 <= R) {
+        const double fr = __ldg(f + row);
+        return make_double2(mul_sub_rn(x.x, fr, __ldg(ck + col)),
+                            mul_sub_rn(x.y, fr, __ldg(ck + col + 1)));
+    }
+    double2 y;
+    y.x = rank1_elem(x.x, f, ck, row, col, R);
+    y.y = rank1_elem(x.y, f, ck, row, col, R);
+    return y;
+}
+__device__ __forceinline__ float4 rank1_vec(float4 x, const float *f,
+                                            const float *ck, int row,
+                                            int col, int R) {
+    if (col + 4 <= R) {
+        const float fr = __ldg(f + row);
+        return make_float4(mul_sub_rn(x.x, fr, __ldg(ck + col)),
+                           mul_sub_rn(x.y, fr, __ldg(ck + col + 1)),
+                           mul_sub_rn(x.z, fr, __ldg(ck + col + 2)),
+                           mul_sub_rn(x.w, fr, __ldg(ck + col + 3)));
+    }
+    float4 y;
+    y.x = rank1_elem(x.x, f, ck, row, col, R);
+    y.y = rank1_elem(x.y, f, ck, row, col, R);
+    y.z = rank1_elem(x.z, f, ck, row, col, R);
+    y.w = rank1_elem(x.w, f, ck, row, col, R);
+    return y;
+}
+
+// Tile c of a lane, as one thread sees it.
 template <typename T>
+struct R1Tile {
+    T *t;                  // the lane's tableau
+    const T *f, *ck;       // its factor and colk
+    size_t n, h, nv;       // its elements; those before the first aligned
+                           // vector; its aligned vectors
+    long long v0;          // the thread's first vector in the tile
+    bool first;            // the lane's first tile: it also does head and tail
+};
+
+template <typename T, int U>
+__device__ __forceinline__ R1Tile<T> rank1_tile(T *Tt, const T *factor,
+                                                const T *colk, int lane,
+                                                long long c, int M, int R) {
+    constexpr int PER = (int)(16 / sizeof(T));
+    R1Tile<T> d;
+    d.n = (size_t)M * R;
+    d.t = Tt + (size_t)lane * d.n;
+    d.f = factor + (size_t)lane * M;
+    d.ck = colk + (size_t)lane * R;
+    const size_t mis = reinterpret_cast<uintptr_t>(d.t) % 16;
+    const size_t head = mis ? (16 - mis) / sizeof(T) : 0;
+    d.h = head < d.n ? head : d.n;
+    d.nv = (d.n - d.h) / PER;
+    d.v0 = c * (R1_THREADS * U) + threadIdx.x;
+    d.first = c == 0;
+    return d;
+}
+
+// The thread's U vectors of the tile, R1_THREADS vectors apart.
+template <typename T, int U>
+__device__ __forceinline__ void rank1_load(const R1Tile<T> &d,
+                                           typename Vec16<T>::type *a) {
+    using V = typename Vec16<T>::type;
+    const V *tv = reinterpret_cast<const V *>(d.t + d.h);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const long long v = d.v0 + u * R1_THREADS;
+        if (v < (long long)d.nv) a[u] = tv[v];
+    }
+}
+
+// Updates and stores the thread's U vectors; in the lane's first tile, also
+// the head and the tail, element by element.
+template <typename T, int U>
+__device__ __forceinline__ void rank1_store(const R1Tile<T> &d,
+                                            const typename Vec16<T>::type *a,
+                                            int R) {
+    using V = typename Vec16<T>::type;
+    constexpr int PER = (int)(16 / sizeof(T));
+    // A thread's next vector lies R1_THREADS vectors on: sq rows, sr columns.
+    const int sq = (R1_THREADS * PER) / R, sr = (R1_THREADS * PER) % R;
+    V *tv = reinterpret_cast<V *>(d.t + d.h);
+    const size_t e = d.h + (size_t)d.v0 * PER;
+    int row = (int)(e / R), col = (int)(e % R);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const long long v = d.v0 + u * R1_THREADS;
+        if (v < (long long)d.nv)
+            tv[v] = rank1_vec(a[u], d.f, d.ck, row, col, R);
+        col += sr;
+        row += sq;
+        if (col >= R) {
+            col -= R;
+            ++row;
+        }
+    }
+    if (!d.first) return;
+    const size_t tail = d.h + d.nv * PER;
+    const size_t i = threadIdx.x < d.h ? threadIdx.x
+                                      : tail + (threadIdx.x - d.h);
+    if (i < d.n && (i < d.h || i >= tail)) {
+        int r = (int)(i / R), c = (int)(i % R);
+        d.t[i] = rank1_elem(d.t[i], d.f, d.ck, r, c, R);
+    }
+}
+
+// One tile a block: grid (tiles a lane, lanes).
+template <typename T, int U>
 __global__ void __launch_bounds__(R1_THREADS)
 batch_rank1_tiles(T *__restrict__ Tt, const T *__restrict__ factor,
                   const T *__restrict__ colk,
                   const unsigned char *__restrict__ do_flag, int M, int R) {
-    const int lane = blockIdx.z;
+    const int lane = blockIdx.y;
     if (!do_flag[lane]) return;
-    const int row0 = blockIdx.y * R1_ROWS;
-    const int col0 = blockIdx.x * (R1_THREADS * R1_VEC) + threadIdx.x;
-    const T *c = colk + (size_t)lane * R;
-    const T *f = factor + (size_t)lane * M;
-    T *t = Tt + (size_t)lane * M * R;
-    T cv[R1_VEC];
-#pragma unroll
-    for (int v = 0; v < R1_VEC; ++v) {
-        const int col = col0 + v * R1_THREADS;
-        cv[v] = col < R ? c[col] : T(0);
-    }
-    const int rows = min(R1_ROWS, M - row0);
-    for (int r = 0; r < rows; ++r) {
-        const T fr = f[row0 + r];
-        T *trow = t + (size_t)(row0 + r) * R;
-#pragma unroll
-        for (int v = 0; v < R1_VEC; ++v) {
-            const int col = col0 + v * R1_THREADS;
-            if (col < R) trow[col] = mul_sub_rn(trow[col], fr, cv[v]);
-        }
-    }
+    const R1Tile<T> d =
+        rank1_tile<T, U>(Tt, factor, colk, lane, blockIdx.x, M, R);
+    typename Vec16<T>::type a[U];
+    rank1_load<T, U>(d, a);
+    rank1_store<T, U>(d, a, R);
 }
 
+// The plan (vecs a thread, the tiles a lane) comes from kernels/pivot.py
+// rank1_plan; a plan this kernel cannot run, or whose tile count differs
+// from its own, is refused with cudaErrorInvalidValue.
 template <typename T>
 int batch_rank1_run(T *Tt, const T *factor, const T *colk,
                     const unsigned char *do_flag, int B, int M, int R,
-                    void *stream) {
-    if (B <= 0 || M <= 0 || R <= 0) return 0;
+                    int vecs, long long tiles, void *stream) {
+    if (B < 1 || B > 65535 || M < 1 || R < 1 || vecs != R1_VECS
+        || tiles > 2147483647LL
+        || tiles != rank1_lane_tiles(M, R, (int)sizeof(T), vecs))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int per = (int)(16 / sizeof(T));
-    const dim3 bands(1, (M + R1_ROWS - 1) / R1_ROWS, B);
-    if (R % per == 0 && reinterpret_cast<uintptr_t>(Tt) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(colk) % 16 == 0) {
-        const dim3 grid((R / per + R1_THREADS - 1) / R1_THREADS, bands.y, B);
-        batch_rank1_vec<T><<<grid, R1_THREADS, 0, st>>>(Tt, factor, colk,
-                                                         do_flag, M, R);
-    } else {
-        const dim3 grid((R + R1_THREADS * R1_VEC - 1) / (R1_THREADS * R1_VEC),
-                        bands.y, B);
-        batch_rank1_tiles<T><<<grid, R1_THREADS, 0, st>>>(Tt, factor, colk,
-                                                           do_flag, M, R);
-    }
+    batch_rank1_tiles<T, R1_VECS><<<dim3((unsigned)tiles, B), R1_THREADS, 0,
+                                    st>>>(Tt, factor, colk, do_flag, M, R);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tt (B, M, R), factor (B, M), colk (B, R), all f64 (f32 below); do (B,).
-extern "C" int batch_rank1_f64_launch(double *Tt, const double *factor,
-                                      const double *colk,
-                                      const unsigned char *do_flag, int B,
-                                      int M, int R, void *stream) {
-    return batch_rank1_run<double>(Tt, factor, colk, do_flag, B, M, R,
-                                   stream);
+extern "C" {
+
+// The tiles a lane of batch_rank1 (the plan's count must equal it).
+long long batch_rank1_lane_tiles(int M, int R, int item, int vecs) {
+    return rank1_lane_tiles(M, R, item, vecs);
 }
 
-extern "C" int batch_rank1_f32_launch(float *Tt, const float *factor,
-                                      const float *colk,
-                                      const unsigned char *do_flag, int B,
-                                      int M, int R, void *stream) {
-    return batch_rank1_run<float>(Tt, factor, colk, do_flag, B, M, R,
-                                  stream);
+// Tt (B, M, R), factor (B, M), colk (B, R), all f64 (f32 below); do (B,);
+// then the plan: vecs a thread, tiles a lane.
+int batch_rank1_f64_launch(double *Tt, const double *factor,
+                           const double *colk, const unsigned char *do_flag,
+                           int B, int M, int R, int vecs, long long tiles,
+                           void *stream) {
+    return batch_rank1_run<double>(Tt, factor, colk, do_flag, B, M, R, vecs,
+                                   tiles, stream);
 }
+
+int batch_rank1_f32_launch(float *Tt, const float *factor, const float *colk,
+                           const unsigned char *do_flag, int B, int M, int R,
+                           int vecs, long long tiles, void *stream) {
+    return batch_rank1_run<float>(Tt, factor, colk, do_flag, B, M, R, vecs,
+                                  tiles, stream);
+}
+
+}  // extern "C"

@@ -23,6 +23,8 @@ minc are f32 too.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .blocked import (BIG_INDEX, _cdiv, _expect, _on_card, _ptr,  # noqa: F401
@@ -31,6 +33,12 @@ from .blocked import entering_candidates as _candidates
 
 #: Columns per block of the tiles (csrc/pivot.cu COLS).
 COLS = 1024
+
+#: ``batch_rank1``'s threads a block and 16-byte vectors a thread a tile
+#: (csrc/pivot.cu R1_THREADS, R1_VECS; other widths ran as fast on the
+#: card: tools/rank1_probe.py, PERF.md).
+RANK1_THREADS = 256
+RANK1_VECS = 4
 
 #: Launches of each kernel since the last ``reset_launches``.
 LAUNCHES = {"fused_pivot": 0, "batch_rank1": 0}
@@ -122,6 +130,61 @@ def fused_pivot(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
     return h_d, v_d, h_b, v_b
 
 
+class Rank1Plan(NamedTuple):
+    """How ``batch_rank1`` runs: one block of ``RANK1_THREADS`` threads a
+    tile of ``RANK1_THREADS * vecs`` 16-byte vectors of a lane, on a grid
+    of ``tiles`` (a lane) x B."""
+    vecs: int
+    tiles: int
+
+
+def rank1_lane_tiles(M: int, R: int, itemsize: int, vecs: int) -> int:
+    """Tiles of one lane (csrc/pivot.cu ``rank1_lane_tiles``, which
+    refuses a plan whose count differs): its M R elements as 16-byte
+    vectors, ``RANK1_THREADS * vecs`` a tile, at least one tile (the first
+    also takes the elements before the first aligned vector and after
+    the last)."""
+    return max(1, _cdiv(M * R * itemsize // 16, RANK1_THREADS * vecs))
+
+
+def rank1_plan(B: int, M: int, R: int, itemsize: int) -> Rank1Plan:
+    """The one place that decides how ``batch_rank1`` runs B lanes of M x R
+    elements of ``itemsize`` bytes: tiles of ``RANK1_VECS`` vectors a
+    thread, one block a tile. Raises for a shape past the grid's limits
+    (65,535 lanes, 2^31 - 1 tiles a lane)."""
+    if not 1 <= B <= 65535 or M < 1 or R < 1 or itemsize not in (4, 8):
+        raise ValueError(f"no batch_rank1 plan for B={B} M={M} R={R} "
+                         f"itemsize={itemsize}")
+    tiles = rank1_lane_tiles(M, R, itemsize, RANK1_VECS)
+    if tiles > 2**31 - 1:
+        raise ValueError(f"batch_rank1: {tiles} tiles a lane at M={M} R={R}")
+    return Rank1Plan(RANK1_VECS, tiles)
+
+
+def rank1_cover(plan: Rank1Plan, M: int, R: int, itemsize: int,
+                do: list, offset: int = 0) -> torch.Tensor:
+    """The kernel's walk under ``plan``, on the host: how many times each
+    element of each lane is updated, (B, M R) int64, for lanes whose flags
+    are ``do`` and a tableau whose first element lies ``offset`` bytes past
+    a 16-byte boundary. Tile c of a live lane is its aligned vectors [c,
+    c + 1) x ``RANK1_THREADS * vecs``; tile 0 also takes the elements
+    before the first aligned vector and after the last."""
+    B, n, per = len(do), M * R, 16 // itemsize
+    tv = RANK1_THREADS * plan.vecs
+    counts = torch.zeros((B, n), dtype=torch.int64)
+    for lane in (i for i in range(B) if do[i]):
+        mis = (offset + lane * n * itemsize) % 16
+        h = min(n, (16 - mis) // itemsize if mis else 0)
+        nv = (n - h) // per
+        for c in range(plan.tiles):
+            v0, v1 = c * tv, min(nv, (c + 1) * tv)
+            if v1 > v0:
+                counts[lane, h + v0 * per:h + v1 * per] += 1
+        counts[lane, :h] += 1
+        counts[lane, h + nv * per:] += 1
+    return counts
+
+
 def batch_rank1_plain(T3: torch.Tensor, factor: torch.Tensor,
                       colk: torch.Tensor, do: torch.Tensor) -> None:
     """Plain version of ``batch_rank1``: the single-LP loop's own update,
@@ -139,7 +202,8 @@ def batch_rank1(T3: torch.Tensor, factor: torch.Tensor, colk: torch.Tensor,
     rounds on the card; a lane with ``do[i]`` false is not touched.
     ``T3 (B, M, R)``, ``factor (B, M)`` and ``colk (B, R)`` contiguous,
     all f64 or all f32; ``do (B,)`` bool. CPU tensors take
-    ``batch_rank1_plain``."""
+    ``batch_rank1_plain``; on the card ``rank1_plan`` decides the
+    launch."""
     B, M, R = T3.shape
     if T3.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"T3: want float32 or float64, got {T3.dtype}")
@@ -155,7 +219,8 @@ def batch_rank1(T3: torch.Tensor, factor: torch.Tensor, colk: torch.Tensor,
     lib = load_library()
     launch = (lib.batch_rank1_f64_launch if T3.dtype == torch.float64
               else lib.batch_rank1_f32_launch)
+    plan = rank1_plan(B, M, R, T3.element_size())
     err = launch(_ptr(T3), _ptr(factor), _ptr(colk), _ptr(do), B, M, R,
-                 _stream(T3))
+                 plan.vecs, plan.tiles, _stream(T3))
     check(lib, err, "batch_rank1")
     LAUNCHES["batch_rank1"] += 1

@@ -611,31 +611,95 @@ def test_solve_sharded_world_size_one_on_card(cuda, tmp_path):
     assert got.objective == pytest.approx(want.objective, rel=1e-9)
 
 
-@pytest.mark.parametrize("dtype,R", [(torch.float64, 64), (torch.float64, 63),
-                                     (torch.float32, 64), (torch.float32, 63)])
-def test_batch_rank1_matches_plain_on_card(cuda, dtype, R):
-    """The batched fallback's rank-1 update against its plain version
-    (the single-LP loop's ``addr_`` on each live lane), bit for bit, on
-    the vector tile (rows of whole 16-byte vectors) and the scalar one; a
-    lane whose flag is clear keeps every bit, a -0.0 included."""
-    g = torch.Generator().manual_seed(R)
-    B, M = 5, 37
-    T3 = (torch.rand((B, M, R), generator=g, dtype=torch.float64) * 200
-          - 100).to(dtype).to(cuda)
-    T3[2, 0, 0] = -0.0
+def _rank1_case(cuda, dtype, B, M, R, do, offset=0, seed=0):
+    """batch_rank1 on random lanes (a dead lane's first element -0.0)
+    against its plain version, bit for bit; ``offset`` elements of a
+    buffer before T3 put its first element off a 16-byte boundary. Returns
+    the launches."""
+    g = torch.Generator().manual_seed(seed)
+    buf = (torch.rand(offset + B * M * R, generator=g, dtype=torch.float64)
+           * 200 - 100).to(dtype).to(cuda)
+    T3 = buf[offset:].view(B, M, R)
+    dead = [i for i in range(B) if not do[i]]
+    if dead:
+        T3[dead[0], 0, 0] = -0.0
     factor = (torch.rand((B, M), generator=g, dtype=torch.float64) * 2
               - 1).to(dtype).to(cuda)
     colk = (torch.rand((B, R), generator=g, dtype=torch.float64) * 200
             - 100).to(dtype).to(cuda)
-    do = torch.tensor([True, True, False, True, True], device=cuda)
+    flags = torch.tensor(do, device=cuda)
     want = T3.clone()
-    kp.batch_rank1_plain(want, factor, colk, do)
+    kp.batch_rank1_plain(want, factor, colk, flags)
     kp.reset_launches()
-    kp.batch_rank1(T3, factor, colk, do)
+    kp.batch_rank1(T3, factor, colk, flags)
     torch.cuda.synchronize()
-    assert kp.LAUNCHES["batch_rank1"] == 1
     assert torch.equal(T3, want)
-    assert torch.signbit(T3[2, 0, 0])
+    if dead:
+        assert torch.signbit(T3[dead[0], 0, 0])
+    return kp.LAUNCHES["batch_rank1"]
+
+
+@pytest.mark.parametrize("dtype,R", [(torch.float64, 64), (torch.float64, 63),
+                                     (torch.float32, 64), (torch.float32, 63),
+                                     (torch.float64, 1), (torch.float32, 1),
+                                     (torch.float64, 2), (torch.float32, 2),
+                                     (torch.float64, 2999),
+                                     (torch.float32, 2999)])
+def test_batch_rank1_matches_plain_on_card(cuda, dtype, R):
+    """The batched fallback's rank-1 update against its plain version
+    (the single-LP loop's ``addr_`` on each live lane), bit for bit, with
+    rows of whole 16-byte vectors and not (R = 1, 2, 63, 64, 2,999; M =
+    37, so a tile ends inside a row); a lane whose flag is clear keeps
+    every bit, a -0.0 included."""
+    assert _rank1_case(cuda, dtype, 5, 37, R,
+                       [True, True, False, True, True], seed=R) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,M,R,which,offset", [
+    (6, 1, 63, "some", 0),          # one row a lane
+    (3, 700, 63, "all", 0),         # many tiles a lane, rows cut by tiles
+    (1100, 2, 3, "some", 0),        # many lanes of one tile each
+    (9, 37, 63, "one", 0),
+    (9, 37, 63, "none", 0),
+    (5, 37, 64, "some", 1),         # T3 off a 16-byte boundary
+    (5, 37, 63, "some", 3)])
+def test_batch_rank1_shapes_on_card(cuda, dtype, B, M, R, which, offset):
+    """batch_rank1 bit for bit its plain version at one row a lane, at
+    lanes of many tiles, with many lanes of one tile each, with one live
+    lane and none (nothing written), and on a T3 whose first element lies
+    off a 16-byte boundary (which the wrapper lets through)."""
+    do = {"all": [True] * B, "none": [False] * B,
+          "one": [i == B // 2 for i in range(B)],
+          "some": [i % 3 != 1 for i in range(B)]}[which]
+    assert _rank1_case(cuda, dtype, B, M, R, do, offset, seed=B + M) == 1
+
+
+def test_batch_rank1_refuses_a_foreign_plan_on_card(cuda):
+    """The kernel's tile count is the plan's, and a plan with another
+    count or tile width is refused with an error, nothing run."""
+    from simplex_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    for M, R, item in ((512, 3000, 8), (512, 2999, 8), (37, 63, 4),
+                       (1, 1, 8)):
+        for vecs in (2, 4, 8):
+            assert lib.batch_rank1_lane_tiles(M, R, item, vecs) == (
+                kp.rank1_lane_tiles(M, R, item, vecs))
+    M, R = 300, 40
+    T3 = torch.ones((2, M, R), dtype=torch.float64, device=cuda)
+    f = torch.ones((2, M), dtype=torch.float64, device=cuda)
+    c = torch.ones((2, R), dtype=torch.float64, device=cuda)
+    do = torch.ones(2, dtype=torch.bool, device=cuda)
+    stream = kb._stream(T3)
+    ptrs = [kb._ptr(x) for x in (T3, f, c, do)]
+    tiles = kp.rank1_lane_tiles(M, R, 8, 4)
+    for vecs, n in ((4, tiles - 1), (4, tiles + 1),
+                    (8, kp.rank1_lane_tiles(M, R, 8, 8))):
+        assert lib.batch_rank1_f64_launch(*ptrs, 2, M, R, vecs, n,
+                                          stream) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(T3, torch.ones_like(T3))
 
 
 def test_default_batch_walks_as_solve_on_card(cuda):
@@ -654,6 +718,27 @@ def test_default_batch_walks_as_solve_on_card(cuda):
         assert (r.iterations_phase1, r.iterations_phase2) == (
             want.iterations_phase1, want.iterations_phase2)
         assert r.objective == pytest.approx(want.objective, rel=1e-12)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(dtype=np.float32, vector_dtype=np.float32, eps=1e-4),
+    dict(dtype=np.float32, vector_dtype=np.float64)])
+def test_f32_sequential_batch_walks_as_solve_on_card(cuda, opts):
+    """Route (a) on an f32 tableau (pure f32, and f32 with f64 vectors):
+    ``batch_rank1``'s f32 entry point on the card, each lane walking as
+    the single-LP ``solve`` does on the card (pivot counts equal,
+    objective within 1e-6 of it)."""
+    problems = [pst.generate_random_problem(60, 30, s, 1, 100)
+                for s in range(4)]
+    kp.reset_launches()
+    got = pst.solve_batch(problems, device="cuda", **opts)
+    assert kp.LAUNCHES["batch_rank1"] > 0
+    for p, r in zip(problems, got):
+        want = pst.solve(p, device="cuda", **opts)
+        assert r.status == want.status == pst.Status.OPTIMAL
+        assert (r.iterations_phase1, r.iterations_phase2) == (
+            want.iterations_phase1, want.iterations_phase2)
+        assert r.objective == pytest.approx(want.objective, rel=1e-6)
 
 
 def test_fallback_solve_on_card(cuda):

@@ -6,11 +6,14 @@ walks inside one run.
 Config 3 is 256 x (m=500, n=2,000) random LPs from seeds 1000..1255, the
 wide batch 32 x (m=500, n=14,000) from seeds 2000..2031, both through
 ``solve_batch`` with BASELINE.json config 3's options (f32 tableau, f64
-vectors, eps 1e-5, L=32, devex). A batch's digest is a sha256 over each
-lane's (status, phase-1 pivots, phase-2 pivots, objective.hex()), the
-digest ``chip_smoke.py`` prints. Each ``--root`` is a checkout of the
-repository (this one by default, or another commit unpacked with ``git
-archive``); the script runs one process per root, in the order given::
+vectors, eps 1e-5, L=32, devex); then config 3 again with the default
+options (f64 tableau, the batched fallback's lane-batched sequential loop
+over ``batch_rank1``), with its device ms per batched step. A batch's
+digest is a sha256 over each lane's (status, phase-1 pivots, phase-2
+pivots, objective.hex()), the digest ``chip_smoke.py`` prints. Each
+``--root`` is a checkout of the repository (this one by default, or
+another commit unpacked with ``git archive``); the script runs one
+process per root, in the order given::
 
     python3 tools/batch_walks.py --root _checkout/parent --root .
 
@@ -29,9 +32,10 @@ import time
 HERE = pathlib.Path(__file__).resolve()
 BATCH = dict(dtype="float32", vector_dtype="float64", eps=1e-5,
              block_pivots=32)
-#: (label, n, m, seeds)
-BATCHES = (("config 3", 2000, 500, range(1000, 1256)),
-           ("wide lanes", 14000, 500, range(2000, 2032)))
+#: (label, n, m, seeds, options)
+BATCHES = (("config 3", 2000, 500, range(1000, 1256), BATCH),
+           ("wide lanes", 14000, 500, range(2000, 2032), BATCH),
+           ("config 3 default options", 2000, 500, range(1000, 1256), {}))
 
 
 def walk_digest(results) -> str:
@@ -59,18 +63,21 @@ def measure(root: pathlib.Path) -> int:
         return 2
     _build.build()
     _build.load_library()
-    for label, n, m, seeds in BATCHES:
+    for label, n, m, seeds, options in BATCHES:
         problems = [st.generate_random_problem(n, m, s, 1, 100)
                     for s in seeds]
         stats: dict = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = st.solve_batch(problems, device="cuda", stats=stats, **BATCH)
+        res = st.solve_batch(problems, device="cuda", stats=stats, **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        steps = sum(stats["windows"])
         print(f"{root}: {label} walk digest {walk_digest(res)}; wall "
-              f"{wall:.3f} s, device solve {stats['device_s']:.3f} s",
-              flush=True)
+              f"{wall:.3f} s, device solve {stats['device_s']:.3f} s "
+              f"({1e3 * stats['device_s'] / steps:.4f} ms a step of "
+              f"{steps}: a window on the kernel path, a pivot on the "
+              "fallback's)", flush=True)
     return 0
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """How the rank-1 update ``T - f (x) c`` rounds, on the CPU and on the
-card, and what the batched fallback's ``batch_rank1`` kernel costs.
+card, and what the batched fallback's ``batch_rank1`` kernel costs under
+each design.
 
 1. Rounding. For each device (the CPU, then the card) and each of f64
    and f32, lanes of random ``T (B, M, R)``, ``f (B, M)`` and ``c (B, R)``
@@ -10,11 +11,21 @@ card, and what the batched fallback's ``batch_rank1`` kernel costs.
    rounded apart), ``addcmul_`` and ``baddbmm_`` over all lanes, the
    kernel (on the card), and, for lane 0 in f64, one FMA an element
    (``utils.fma_native``, the reference CUDA program's rounding).
-2. Time, on the card: ``batch_rank1`` on config 3's f64 phase-1 tableau
-   (256 x 512 x 3,000, every lane live, its 16-byte vector tile), the
-   same at R = 2,999 (the scalar tile), and ``addcmul_``, by CUDA events
-   over 10 calls, in turns (kernel, scalar, addcmul_, addcmul_, scalar,
-   kernel).
+2. Designs, on the card. ``tools/rank1_variants.cu`` is built (nvcc,
+   its registers and spills printed) and each design runs on four f64
+   cases: config 3's phase-1 tableau of the default options (256 x 512 x
+   3,000) with every lane live and with a quarter live (every fourth
+   lane), R = 2,999 (rows that are not whole 16-byte vectors), and the
+   wide batch's phase 1 (32 x 512 x 15,000). Designs (their list is at
+   the head of tools/rank1_variants.cu): the kernel the shipped one
+   replaced (``old``), the shipped kernel under ``rank1_plan``
+   (``shipped``) and at each tile width, with streaming cache hints
+   (``hinted``), persistent blocks walking the live tiles statically or
+   claiming them from a counter (``persistent``), the bulk-copy ring
+   (``bulk``), and ``addcmul_`` over all lanes. Each is checked bit for
+   bit against the plain version (``addr_`` a live lane) on the same
+   input, then timed by CUDA events over 10 calls, the designs in turns
+   (the list forward, then backward).
 
 Run from the root of a checkout on a machine with a card::
 
@@ -23,11 +34,14 @@ Run from the root of a checkout on a machine with a card::
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import subprocess
 import sys
+import tempfile
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
@@ -69,40 +83,134 @@ def rounding(dev: torch.device, dtype: torch.dtype) -> dict:
     return counts
 
 
-def timing() -> dict:
+def build_variants() -> ctypes.CDLL:
+    """nvcc tools/rank1_variants.cu into a temporary shared library."""
+    from simplex_tpu_torch.kernels._build import NVCC_FLAGS, nvcc_path
+
+    out = pathlib.Path(tempfile.mkdtemp()) / "librank1_variants.so"
+    done = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+         str(out), str(ROOT / "tools" / "rank1_variants.cu")],
+        capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{done.stderr}")
+    name = ""
+    for line in done.stderr.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line and "rank1" in name:
+            print(f"ptxas {name}: {line.split(':', 1)[1].strip()}",
+                  flush=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {"old_rank1_launch": [P, P, P, P, I, I, I, I, P],
+            "persistent_rank1_launch": [P, P, P, P, I, I, I, I, I, I, P, P],
+            "bulk_rank1_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
+            "hinted_rank1_launch": [P, P, P, P, I, I, I, I, I, P],
+            "tiles_rank1_launch": [P, P, P, P, I, I, I, I, I, P]}
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = I
+    return lib
+
+
+def designs(lib: ctypes.CDLL, B: int, M: int, R: int) -> dict:
+    """name -> fn(T, f, c, do) for every design at one shape (f64)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctr = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def ptrs(T, f, c, do):
+        return [ctypes.c_void_p(x.data_ptr()) for x in (T, f, c, do)]
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run(err, name):
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    out = {"old": lambda T, f, c, do: run(lib.old_rank1_launch(
+        *ptrs(T, f, c, do), B, M, R, 8, stream()), "old"),
+        "shipped": kp.batch_rank1}
+    for vecs in (2, 4, 8):
+        out[f"shipped vecs={vecs}"] = (
+            lambda T, f, c, do, v=vecs: run(lib.tiles_rank1_launch(
+                *ptrs(T, f, c, do), B, M, R, 8, v, stream()), "tiles"))
+    out["hinted vecs=4"] = lambda T, f, c, do: run(lib.hinted_rank1_launch(
+        *ptrs(T, f, c, do), B, M, R, 8, 4, stream()), "hinted")
+    for vecs, per_sm, dyn in ((4, 2, False), (4, 4, False), (8, 2, False),
+                              (4, 2, True), (4, 4, True), (8, 2, True)):
+        def persistent(T, f, c, do, v=vecs, g=per_sm * sms, dyn=dyn):
+            if dyn:
+                ctr.zero_()
+            run(lib.persistent_rank1_launch(
+                *ptrs(T, f, c, do), B, M, R, 8, v, g,
+                ctypes.c_void_p(ctr.data_ptr() if dyn else 0), stream()),
+                "persistent")
+        walk = "dynamic" if dyn else "static"
+        out[f"persistent {walk} vecs={vecs} {per_sm}/SM"] = persistent
+    for stages, kb, per_sm in ((8, 16, 1), (3, 32, 2)):
+        out[f"bulk {stages} x {kb} KB {per_sm}/SM"] = (
+            lambda T, f, c, do, s=stages, v=kb * 64, g=per_sm * sms: run(
+                lib.bulk_rank1_launch(*ptrs(T, f, c, do), B, M, R, 8, s, v,
+                                      g, stream()), "bulk"))
+    out["addcmul_"] = lambda T, f, c, do: T.addcmul_(
+        f[:, :, None], c[:, None, :], value=-1.0)
+    return out
+
+
+def timing(lib: ctypes.CDLL) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    B, M, R = 256, 512, 3000
-    live = torch.ones(B, dtype=torch.bool, device=dev)
-    cases = {}
-    for name, r in (("vector tile", R), ("scalar tile", R - 1)):
-        T = torch.rand((B, M, r), generator=g, device=dev,
-                       dtype=torch.float64)
-        f = torch.rand((B, M), generator=g, device=dev, dtype=torch.float64)
-        c = torch.rand((B, r), generator=g, device=dev, dtype=torch.float64)
-        cases[name] = (T, f, c)
-    T, f, c = cases["vector tile"]
-    fns = {
-        "vector tile": lambda: kp.batch_rank1(*cases["vector tile"], live),
-        "scalar tile": lambda: kp.batch_rank1(*cases["scalar tile"], live),
-        "addcmul_": lambda: T.addcmul_(f[:, :, None], c[:, None, :],
-                                       value=-1.0),
-    }
-    times: dict = {k: [] for k in fns}
-    for name in ("vector tile", "scalar tile", "addcmul_", "addcmul_",
-                 "scalar tile", "vector tile"):
-        fn = fns[name]
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(10):
-            fn()
-        end.record()
-        end.synchronize()
-        times[name].append(round(start.elapsed_time(end) / 10, 4))
-    return times
+    cases = (("config-3 f64, every lane live", (256, 512, 3000), 1),
+             ("config-3 f64, a quarter live", (256, 512, 3000), 4),
+             ("R = 2,999", (256, 512, 2999), 1),
+             ("wide f64 phase 1", (32, 512, 15000), 1))
+    for label, (B, M, R), every in cases:
+        T0 = torch.rand((B, M, R), generator=g, device=dev,
+                        dtype=torch.float64) * 200 - 100
+        f = torch.rand((B, M), generator=g, device=dev,
+                       dtype=torch.float64) * 2 - 1
+        c = torch.rand((B, R), generator=g, device=dev,
+                       dtype=torch.float64) * 200 - 100
+        do = torch.arange(B, device=dev) % every == 0
+        want = T0.clone()
+        kp.batch_rank1_plain(want, f, c, do)
+        fns = designs(lib, B, M, R)
+        diff = {}
+        T = torch.empty_like(T0)
+        for name, fn in fns.items():
+            T.copy_(T0)
+            fn(T, f, c, do)
+            torch.cuda.synchronize()
+            diff[name] = int((T != want).sum())
+        del want
+        times: dict = {k: [] for k in fns}
+        for name in [*fns, *reversed(fns)]:
+            fn = fns[name]
+            fn(T, f, c, do)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(10):
+                fn(T, f, c, do)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / 10)
+        live = int(do.sum())
+        bound = 16 * live * M * R / 3.35e12 * 1e3
+        print(f"{label}: B={B} M={M} R={R}, {live} lanes live, plan "
+              f"{kp.rank1_plan(B, M, R, 8)}, bound {bound:.4f} ms "
+              "(the live lanes' bytes / 3.35 TB/s)", flush=True)
+        for name in fns:
+            ms = times[name]
+            print(f"  {name:34s} {ms[0]:.4f} / {ms[1]:.4f} ms "
+                  f"({100 * bound / min(ms):.0f}% of the bound); elements "
+                  f"differing from the plain version: {diff[name]}",
+                  flush=True)
+        del T0, T, f, c
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -117,10 +225,7 @@ def main() -> int:
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     print("cuda", {str(dt): rounding(torch.device("cuda"), dt)
                    for dt in (torch.float64, torch.float32)}, flush=True)
-    B, M, R = 256, 512, 3000
-    print(f"ms a call at B={B} M={M} R={R} f64 (scalar tile: R={R - 1}), "
-          f"CUDA events over 10 calls, in turns: {timing()}; bound "
-          f"{1e3 * 16 * B * M * R / 3.35e12:.4f} ms", flush=True)
+    timing(build_variants())
     return 0
 
 
