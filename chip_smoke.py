@@ -37,6 +37,17 @@ Phases, in order; any failed check exits non-zero:
    counters reset just before the first solve and read just after it;
    then solved again, for the wall-time spread of warm solves (each
    solve must walk the same pivots);
+8a. the checkpointed solves (``phase_resumable``): the flagship through
+   ``solve_resumable`` in windows of 2,048 pivots, certified within 1e-9,
+   K1-K4 launched (counters reset just before, read just after), each
+   write timed; the CLI with ``--checkpoint`` killed (SIGKILL) as soon
+   as its first file exists, then rerun: it resumes to the same walk,
+   objective and ``solution.txt``; ``solve_resumable_sharded`` at one
+   NCCL rank on random_2048_2048, K5 launched and K1 not, walking as
+   ``solve_resumable``, and a MAXITER run resumed to the same result;
+   random_2048_2048 resumable on K6's path; and
+   ``generate_random_problem_device`` at 8192^2 in f64, bit for bit on a
+   second call;
 9. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
    pivots (2 windows);
 9a. the sharded path (``solve_sharded``) at world size 1 over NCCL, in
@@ -150,6 +161,9 @@ OBJ_8192 = 2.701733460335518
 FLAGSHIP_SOLVES = 5
 #: The production flagship's walk (phase 1, phase 2) on one card.
 FLAGSHIP_WALK = (9206, 409)
+#: Pivots between checkpoints in the resumable phase: about four phase-1
+#: windows of the flagship, each followed by a file.
+CHECKPOINT_EVERY = 2048
 
 #: Each kernel's record: (id, the JAX kernel it replaces -- the function
 #: reaching pl.pallas_call --, its source).
@@ -1477,7 +1491,8 @@ def phase_r1024() -> None:
 
 
 def phase_flagship(launches: dict) -> tuple:
-    """The production flagship; returns its walk."""
+    """The production flagship; returns its walk and the warm solves'
+    median wall."""
     from simplex_tpu_torch.kernels import blocked as kb
 
     p = benchmark_problem(8192)
@@ -1510,7 +1525,264 @@ def phase_flagship(launches: dict) -> tuple:
     log(f"flagship warm solves: {len(warm)}, wall min {min(warm):.3f} "
         f"median {median:.3f} max {max(warm):.3f} s; median "
         f"{1e3 * median / pivots:.4f} ms/pivot")
-    return walk
+    return walk, median
+
+
+class SaveTimes:
+    """Times each single-card checkpoint write while active (the
+    device-to-host copy and the file, ``checkpoint._Card.save``): a list
+    of (seconds, bytes on disk)."""
+
+    def __enter__(self):
+        from simplex_tpu_torch import checkpoint as ck
+
+        self.saves, self.orig = [], ck._Card.save
+        orig, saves = self.orig, self.saves
+
+        def save(stages, *args, **kw):
+            t0 = time.perf_counter()
+            orig(stages, *args, **kw)
+            saves.append((time.perf_counter() - t0,
+                          pathlib.Path(stages.path).stat().st_size))
+
+        ck._Card.save = save
+        return self.saves
+
+    def __exit__(self, *exc):
+        from simplex_tpu_torch import checkpoint as ck
+
+        ck._Card.save = self.orig
+
+
+def timed_resumable(problem, path, opts: dict, every: int = CHECKPOINT_EVERY,
+                    **kw):
+    import torch
+
+    import simplex_tpu_torch as st
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = st.solve_resumable(problem, str(path), every, device="cuda",
+                             **opts, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def cli_result(stdout: str) -> tuple:
+    """(objective as printed, (phase-1, phase-2 pivots)) of a CLI run."""
+    value = walk = None
+    for line in stdout.splitlines():
+        if line.startswith("Optimal value: "):
+            value = line.split(": ", 1)[1]
+        if line.startswith("(phase-1 pivots: "):
+            walk = tuple(int(v.split(": ")[1]) for v in
+                         line.strip("()").split(", "))
+    return value, walk
+
+
+def phase_resumable(flagship_wall: float) -> None:
+    """The checkpointed solves (``solve_resumable``,
+    ``solve_resumable_sharded``, ``--checkpoint``), each file in a
+    temporary directory:
+
+    1. the production flagship in windows of ``CHECKPOINT_EVERY`` pivots,
+       K1-K4's counters reset just before and read just after, certified
+       within 1e-9 (each window restarts the devex weights and the
+       re-pricing cadence, so the walk is not FLAGSHIP_WALK); the wall
+       against ``solve``'s warm median, each write's seconds, GB and
+       GB/s, the peak device memory;
+    2. the same through the CLI in a child process, killed (SIGKILL) as
+       soon as the first file exists, then run again: it resumes, prints
+       1.'s objective and walk and writes 1.'s ``solution.txt`` (the
+       CLI prints six decimals), and the file is gone;
+    3. ``solve_resumable_sharded`` on one NCCL rank in this process:
+       random_2048_2048 in production, K5 launched and K1 not, certified,
+       walking as ``solve_resumable`` on one card; a MAXITER run that
+       keeps its file, and its resume to the same walk and objective;
+    4. K6's path: random_2048_2048 in pure f32 with ``use_pallas=True``,
+       K6 launched, within 1e-3 of the golden;
+    5. ``generate_random_problem_device`` at 8192 x 8192 in f64 on the
+       card twice, bit for bit, in [1, 100), the 'glibc' sub-seeds
+       giving another instance."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.checkpoint import solve_resumable_sharded
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.parallel import group as pg
+
+    p = benchmark_problem(8192)
+    with tempfile.TemporaryDirectory() as tdir:
+        td = pathlib.Path(tdir)
+        # 1. The flagship, uninterrupted.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_launches()
+        with SaveTimes() as saves:
+            res, wall = timed_resumable(p, td / "flagship.npz", PROD)
+        launches = dict(kb.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_certified("resumable flagship", res, OBJ_8192)
+        for name in SINGLE_PATH:
+            require(launches[name] > 0, f"{name} never launched on the "
+                    "resumable path")
+        require(not (td / "flagship.npz").exists(),
+                "resumable flagship: the file outlived the solve")
+        walk = (res.iterations_phase1, res.iterations_phase2)
+        log(f"resumable flagship random_8192_8192 (checkpoint_every "
+            f"{CHECKPOINT_EVERY}): OPTIMAL certified objective "
+            f"{res.objective!r} (golden {OBJ_8192!r}); pivots "
+            f"{walk[0]}+{walk[1]} (solve: {FLAGSHIP_WALK[0]}+"
+            f"{FLAGSHIP_WALK[1]}); refine {res.refine.method}; wall "
+            f"{wall:.3f} s against solve's warm median {flagship_wall:.3f} "
+            f"s; {len(saves)} writes, {sum(t for t, _ in saves):.3f} s in "
+            f"all; max_memory_allocated {peak:.2f} GB; launches {launches}")
+        for i, (secs, size) in enumerate(saves):
+            log(f"  checkpoint write {i + 1}: {secs:.3f} s, {size / 1e9:.3f}"
+                f" GB, {size / 1e9 / secs:.3f} GB/s")
+
+        # 2. Killed and resumed through the CLI.
+        ck = td / "cli.npz"
+        args = ["-rf", str(DATA / "benchmark_problems"
+                           / "random_8192_8192.txt"),
+                "--dtype", "float32", "--vector-dtype", "float64",
+                "--block", "128", "--checkpoint", str(ck),
+                "--checkpoint-every", str(CHECKPOINT_EVERY),
+                "--data-dir", str(td / "cli")]
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "simplex_tpu_torch.cli", *args],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            while (not ck.exists() and child.poll() is None
+                   and time.perf_counter() - t0 < 600):
+                time.sleep(0.01)
+        finally:
+            child.send_signal(signal.SIGKILL)
+            _, err = child.communicate(timeout=120)
+        killed = time.perf_counter() - t0
+        require(child.returncode == -signal.SIGKILL,
+                f"the CLI child was not killed mid-solve (exit "
+                f"{child.returncode}): {err[-2000:]}")
+        require(ck.exists(), "no checkpoint when the CLI child was killed")
+        with np.load(ck) as z:
+            meta = [int(v) for v in z["__meta__"]]
+        t1 = time.perf_counter()
+        out = run_cli(args)
+        resumed = time.perf_counter() - t1
+        value, cli_walk = cli_result(out)
+        require("Resuming from checkpoint" in out
+                and "Problem solved!" in out,
+                f"the CLI rerun did not resume to OPTIMAL:\n{out[-2000:]}")
+        require(value == f"{res.objective:f}" and cli_walk == walk,
+                f"the resumed CLI printed {value} in {cli_walk}; the "
+                f"uninterrupted solve {res.objective:f} in {walk}")
+        want = "".join(f"{v:f}\n" for v in res.x) + \
+            f"\nOptimal value: {res.objective:f}\n"
+        require((td / "cli" / "solution.txt").read_text() == want,
+                "the resumed CLI's solution.txt differs from the "
+                "uninterrupted solve's")
+        require(not ck.exists(), "the CLI's checkpoint outlived the solve")
+        log(f"CLI --checkpoint: the child killed {killed:.3f} s after its "
+            f"start, its file at phase {meta[3]}, {meta[4]} pivots; the "
+            f"rerun resumed to objective {value} and pivots "
+            f"{cli_walk[0]}+{cli_walk[1]}, solution.txt as the uninterrupted"
+            f" solve's, in {resumed:.3f} s; killed + resumed "
+            f"{killed + resumed:.3f} s against the in-process solve's "
+            f"{wall:.3f} s "
+            f"(both CLI runs start a process and regenerate the problem)")
+
+        # 3. Sharded, one NCCL rank, in this process.
+        p2 = benchmark_problem(2048)
+        every2 = 512
+        single, wall1 = timed_resumable(p2, td / "single.npz", PROD, every2)
+        w1 = (single.iterations_phase1, single.iterations_phase2)
+        with tempfile.TemporaryDirectory() as gd, \
+                pg.world(0, 1, "nccl", gd) as group:
+            def sharded(path, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = solve_resumable_sharded(p2, group, str(path), every2,
+                                            device="cuda", **PROD, **kw)
+                torch.cuda.synchronize()
+                return r, time.perf_counter() - t
+
+            kb.reset_launches()
+            rs, wall_s = sharded(td / "sharded.npz")
+            counts = {k: kb.LAUNCHES[k] for k in SHARDED_PATH + ("ah_ratio",)}
+            cut, _ = sharded(td / "cut.npz", max_iter=2 * every2)
+            kept = (td / "cut.npz").exists()
+            back, _ = sharded(td / "cut.npz")
+        check_certified("resumable sharded random_2048_2048", rs, OBJ_2048)
+        for name in SHARDED_PATH:
+            require(counts[name] > 0, f"{name} never launched on the "
+                    "resumable sharded path")
+        require(counts["ah_ratio"] == 0, f"K1 launched {counts['ah_ratio']}"
+                " times on the resumable sharded path")
+        ws = (rs.iterations_phase1, rs.iterations_phase2)
+        require(ws == w1, f"resumable sharded walked {ws}, solve_resumable "
+                f"{w1}")
+        require(cut.status == st.Status.MAXITER and kept,
+                f"capped sharded run: {cut.status!r}, file kept {kept}")
+        check_certified("resumed sharded random_2048_2048", back, OBJ_2048)
+        wb = (back.iterations_phase1, back.iterations_phase2)
+        require(wb == ws and back.objective == rs.objective,
+                f"resumed sharded run: {wb} {back.objective!r}, the full "
+                f"run {ws} {rs.objective!r}")
+        log(f"resumable sharded, 1 NCCL rank, random_2048_2048 "
+            f"(checkpoint_every {every2}): certified objective "
+            f"{rs.objective!r}, pivots {ws[0]}+{ws[1]} as solve_resumable "
+            f"({wall1:.3f} s there), refine {rs.refine.method}; wall "
+            f"{wall_s:.3f} s; launches {counts}; a run capped at "
+            f"{2 * every2} pivots kept its file and resumed to the same "
+            f"walk and objective")
+
+        # 4. K6's path.
+        kp.reset_launches()
+        r6, wall6 = timed_resumable(
+            p2, td / "k6.npz", dict(dtype="float32", vector_dtype="float32",
+                                    use_pallas=True))
+        k6 = kp.LAUNCHES["fused_pivot"]
+        check_objective("resumable f32 K6 random_2048_2048", r6, OBJ_2048,
+                        1e-3)
+        require(k6 > 0, "fused_pivot never launched on the resumable path")
+        log(f"resumable f32 use_pallas random_2048_2048: objective "
+            f"{r6.objective!r}, pivots {r6.iterations_phase1}+"
+            f"{r6.iterations_phase2}; wall {wall6:.3f} s; fused_pivot "
+            f"launches {k6}")
+
+    # 5. The device generator.
+    n = 8192
+    seed = n * 100 + n
+    gen = functools.partial(st.generate_random_problem_device, n, n, seed,
+                            1.0, 100.0, np.float64, device="cuda")
+    times, draws = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws.append(gen())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    for a, b in zip(*draws):
+        require(torch.equal(a, b), "generate_random_problem_device drew "
+                "other bits on a second call")
+        require(bool(((a >= 1.0) & (a < 100.0)).all()),
+                "generate_random_problem_device left [1, 100)")
+    glibc = gen(rand_flavor="glibc")
+    require(not torch.equal(glibc[0], draws[0][0]),
+            "the glibc sub-seeds drew the msvc instance")
+    log(f"generate_random_problem_device {n}x{n} f64 on the card: "
+        f"{1e3 * times[0]:.3f} ms, then {1e3 * times[1]:.3f} ms a call "
+        f"(host clock, synchronized); bit for bit across calls, in [1, "
+        f"100), another instance under glibc")
+    del draws, glibc
+    torch.cuda.empty_cache()
 
 
 def phase_northstar() -> tuple:
@@ -2339,7 +2611,8 @@ def main() -> int:
         phase_blocked_plain()
         phase_cli()
         phase_r1024()
-        walks[8192] = phase_flagship(launches)
+        walks[8192], flagship_wall = phase_flagship(launches)
+        phase_resumable(flagship_wall)
         northstar = phase_northstar()
         r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
         launches["ah"] = sharded_launches["ah"]

@@ -26,9 +26,15 @@ among them), the batched fallback, and with ``mesh=`` (a
 group (K5 on its kernel path); ``solve_timed`` with the reference's
 per-operation CSV (``chrono``); the host oracle ``solve_oracle`` (with
 the reference GPU's tie order and fma update); the CLI, ``python -m
-simplex_tpu_torch.cli``; the problem files, the seeded generator and the
-host refinement ``refine_solution_host``. Not yet: ``solve_resumable``
-and its checkpoints (ROADMAP queue 1 item 9).
+simplex_tpu_torch.cli``, ``--checkpoint`` included; ``solve_resumable``,
+the two-phase solve in windows of pivots with a checkpoint file after
+each, resumed from the newest after a crash (``checkpoint.py``; the file
+is the JAX package's, so either package resumes the other's), and
+``checkpoint.solve_resumable_sharded`` across the ranks of a process
+group; the problem files, the seeded generator (on the host, bit for bit
+the reference's instances, and ``generate_random_problem_device`` on the
+device), the reference's three-way ``compare`` and the host refinement
+``refine_solution_host``.
 
 Every entry point runs on the device it is given (``device="cuda"`` by
 default, which raises where CUDA is absent; ``device="cpu"`` runs the
@@ -36,9 +42,11 @@ kernels' plain PyTorch versions).
 """
 
 from .batch import solve_batched  # noqa: F401
-from .config import EPS, SolverOptions, Status  # noqa: F401
+from .checkpoint import solve_resumable  # noqa: F401
+from .config import EPS, SolverOptions, Status, compare  # noqa: F401
 from .generator import (benchmark_seed, benchmark_sizes,  # noqa: F401
-                        generate_random_problem)
+                        generate_random_problem,
+                        generate_random_problem_device)
 from .oracle import solve_oracle  # noqa: F401
 from .problem import (Problem, format_problem, read_problem,  # noqa: F401
                       read_random_problem, read_seed_file, write_problem,

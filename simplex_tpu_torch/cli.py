@@ -24,9 +24,11 @@ the JAX package's: ``--dtype``, ``--vector-dtype``, ``--timer`` /
 NCCL with ``--device cuda``, one card per rank, gloo with ``--device
 cpu``. ``--device`` takes the place of ``--platform`` (default
 ``cuda``). ``--equilibrate`` sets the option as the JAX CLI does (only
-``solve`` reads it there, so the CLI's solves do not). ``--checkpoint``
-(alone or with ``--sharded``) is not ported yet: it exits non-zero
-naming its ROADMAP item.
+``solve`` reads it there, so the CLI's solves do not). ``--checkpoint
+PATH`` solves resumably (``checkpoint.solve_resumable``, with
+``--sharded`` ``solve_resumable_sharded`` on every rank), writing PATH
+every ``--checkpoint-every`` pivots: rerun the same command after a
+crash or a kill to continue from the newest file.
 """
 
 from __future__ import annotations
@@ -50,13 +52,6 @@ from .timed import solve_timed
 
 #: Reference CLI generation range.
 MIN, MAX = -100.0, 100.0
-
-#: Flags of the JAX CLI that the port does not run yet, and the ROADMAP
-#: item that ports each.
-UNPORTED = {
-    "checkpoint": "--checkpoint: the resumable solve (and its sharded "
-                  "variant) is ROADMAP queue 1 item 9",
-}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -124,7 +119,10 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="with --batch: split the B instances across NDEV "
                         "ranks (B must divide by NDEV)")
     p.add_argument("--checkpoint", metavar="PATH", default=None,
-                   help="not ported yet (ROADMAP queue 1 item 9)")
+                   help="solve resumably, persisting the tableau to PATH "
+                        "every --checkpoint-every pivots; rerun the same "
+                        "command after a crash/kill to continue from the "
+                        "newest checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=1000,
                    metavar="N", help="pivots per checkpoint window")
     p.add_argument("--sharded", type=int, default=None, metavar="NDEV",
@@ -254,9 +252,6 @@ def _profiler(directory: str | None, device: str):
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     print("Starting...")
-    for flag, message in UNPORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(message)
     options = _options(args)
 
     if args.t:
@@ -288,13 +283,24 @@ def main(argv: list[str] | None = None) -> int:
                 "--sharded runs one solve across ranks and is "
                 "incompatible with --timer/--per-iteration/--batch/--fleet")
         from .parallel.group import backend_for, spawn
-        from .parallel.sharded import solve_sharded_rank
 
         print(f"Resolving on a {args.sharded}-device 'vars' mesh....")
         t0 = time.time()
-        (result,) = spawn(solve_sharded_rank, args.sharded,
-                          backend_for(args.device), args.device,
-                          [(problem, options)])
+        backend = backend_for(args.device)
+        if args.checkpoint:
+            from .checkpoint import solve_resumable_sharded_rank
+
+            if os.path.exists(args.checkpoint):
+                print(f"Resuming from checkpoint {args.checkpoint}")
+            (result,) = spawn(solve_resumable_sharded_rank, args.sharded,
+                              backend, args.device,
+                              [(problem, args.checkpoint,
+                                args.checkpoint_every, options)])
+        else:
+            from .parallel.sharded import solve_sharded_rank
+
+            (result,) = spawn(solve_sharded_rank, args.sharded, backend,
+                              args.device, [(problem, options)])
         print(f"Sharded solve finished in {time.time() - t0:.3f}s")
         _report(result, problem, args.data_dir)
         return 0
@@ -338,6 +344,22 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.debug:
         print(format_problem(problem))
+
+    if args.checkpoint:
+        if args.timer or args.per_iteration:
+            raise SystemExit(
+                "--checkpoint is incompatible with --timer/--per-iteration "
+                "(the resumable solve runs in fused windows with no "
+                "per-operation boundaries)")
+        from .checkpoint import solve_resumable
+
+        if os.path.exists(args.checkpoint):
+            print(f"Resuming from checkpoint {args.checkpoint}")
+        result = solve_resumable(problem, args.checkpoint,
+                                 checkpoint_every=args.checkpoint_every,
+                                 options=options, device=args.device)
+        _report(result, problem, args.data_dir)
+        return 0
 
     chrono = (Chrono.open_timestamped(os.path.join(args.data_dir,
                                                    "measures"))

@@ -56,6 +56,19 @@ class Status(enum.IntEnum):
         }[self]
 
 
+def compare(x, y=0.0, eps: float = EPS) -> int:
+    """Three-way epsilon comparison, identical to reference macro.h:28-42
+    (``simplex_tpu.config.compare``).
+
+    Returns 0 if ``|x - y| < eps``, -1 if ``x < y``, +1 otherwise.
+    Host-side helper (Python or NumPy scalars); the solver loops inline
+    the same predicate as tensor comparisons.
+    """
+    if abs(x - y) < eps:
+        return 0
+    return -1 if x < y else 1
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Options controlling the two-phase solve; fields, defaults and

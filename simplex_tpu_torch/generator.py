@@ -9,19 +9,24 @@ The reference derives three sub-seeds from the user seed via C
 streams: one independent stream per matrix column (generator.cu:15) and per
 vector element (generator.cu:29), uniform in ``(min, max]``.
 
-The default stream is **bit-exact cuRAND XORWOW** (the JAX package's
-native/xorwow.cpp, built and loaded by utils/curand.py): because the
+The default stream is **bit-exact cuRAND XORWOW** (native/xorwow.cpp,
+the port's copy of the JAX package's, built and loaded by
+utils/curand.py): because the
 reference's per-thread offsets tile contiguously, its whole
 matrix/vector is one plain XORWOW sequence, so the
 seed-file instances regenerate identically off-GPU. Validated by exact
 per-phase pivot-count parity against the reference's measure CSVs on its
 regenerated benchmark instances (tests/test_parity.py). A NumPy-Philox
 stream remains available for compiler-less environments.
+
+``generate_random_problem_device`` draws the instance on the device
+instead, from ``torch.Generator`` streams with the same sub-seeds.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .problem import Problem
 from .utils.crand import derive_subseeds
@@ -108,3 +113,50 @@ def benchmark_sizes(limit: int = 8192) -> list[tuple[int, int]]:
             n_vars *= 2
         constraints *= 2
     return sizes
+
+
+def generate_random_problem_device(
+    n_vars: int,
+    n_constraints: int,
+    seed: int,
+    lo: float = DEFAULT_MIN,
+    hi: float = DEFAULT_MAX,
+    dtype=None,
+    rand_flavor: str = "msvc",
+    *,
+    device="cuda",
+):
+    """Generate ``(A, b, c)`` on ``device`` (``simplex_tpu.generator.
+    generate_random_problem_device``): tensors ``(n_constraints, n_vars)``,
+    ``(n_constraints,)`` and ``(n_vars,)`` in ``dtype`` (default: the
+    default options' float64), drawn uniform in ``[lo, hi)`` in float32 and
+    then cast.
+
+    The sub-seeds are the host path's (``derive_subseeds``; ``rand_flavor``
+    defaults to 'msvc' there too): b, c and A each come from one explicit
+    ``torch.Generator(device=device)`` seeded with its sub-seed. The
+    stream is neither cuRAND's XORWOW (the host path) nor JAX's threefry
+    (the JAX package's device path), and it depends on the device kind:
+    the CUDA generator is Philox, the CPU one is not. What is shared is
+    the contract: the same seed, device kind and shape give the same bits.
+    ``device="cuda"`` raises where CUDA is absent."""
+    from .two_phase import resolve_device
+
+    if n_vars <= 0 or n_constraints <= 0:
+        raise ValueError("n_vars and n_constraints must be positive")
+    dev = resolve_device(device)
+    dtype = getattr(torch, np.dtype(dtype or np.float64).name)
+    seed_b, seed_c, seed_a = derive_subseeds(seed, rand_flavor)
+
+    def uniform(sub_seed: int, shape) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(sub_seed)
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        x.uniform_(lo, hi, generator=g)
+        # CUDA's uniform_ maps a draw that rounds up to ``hi`` back to
+        # ``lo``; the same on every device keeps the range half-open.
+        return x.masked_fill_(x >= hi, lo).to(dtype)
+
+    b = uniform(seed_b, (n_constraints,))
+    c = uniform(seed_c, (n_vars,))
+    A = uniform(seed_a, (n_constraints, n_vars))
+    return A, b, c

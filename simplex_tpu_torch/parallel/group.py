@@ -7,9 +7,10 @@ what replaces the mesh:
 
 * ``Shard``: a rank's place in the group and its contiguous slice of the
   variable axis (``sharded.py:104-115``: the offset and the row mask);
-* ``all_gather`` of a stack of scalars and ``all_reduce`` (sum), each
-  raising its per-kind counter in ``COUNTS`` (and ``SHAPES`` by operand
-  shape), which the collective-structure test reads;
+* ``all_gather`` of a stack of scalars, ``all_reduce`` (sum) and
+  ``gather`` onto rank 0, each raising its per-kind counter in ``COUNTS``
+  (and ``SHAPES`` by operand shape), which the collective-structure test
+  reads, and ``barrier`` (one counted ``all_reduce``);
 * ``world``, which sets up and tears down a group of this process, and
   ``spawn``, which runs a function on ``nranks`` new processes and
   returns rank 0's result (the CLI and the tests use it).
@@ -114,6 +115,29 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
         out = out.cpu()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.device) if staged else out
+
+
+def gather(x: torch.Tensor, group) -> torch.Tensor | None:
+    """Every rank's ``x`` stacked in rank order, ``(P, *x.shape)``, on the
+    group's rank 0 (on x's device, or the host where gloo stages a CUDA
+    tensor); None on the other ranks."""
+    COUNTS["gather"] += 1
+    SHAPES[("gather", tuple(x.shape))] += 1
+    src = x.contiguous()
+    if _staged(src, group):
+        src = src.cpu()
+    parts = None
+    if dist.get_rank(group) == 0:
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+    dist.gather(src, parts, dst=dist.get_global_rank(group, 0), group=group)
+    return None if parts is None else torch.stack(parts)
+
+
+def barrier(group, device) -> None:
+    """Return on each rank only once every rank has called it: one
+    one-element ``all_reduce`` on ``device``, read on the host."""
+    float(all_reduce(torch.zeros(1, device=device), group))
 
 
 def backend_for(device) -> str:

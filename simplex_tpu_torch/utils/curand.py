@@ -2,11 +2,11 @@
 
 Bit-exact cuRAND XORWOW, so the seed-file benchmark instances regenerate
 identically to the JAX package's (and therefore carry the same certified
-objectives). The C++ source is the JAX package's
-``simplex_tpu/native/xorwow.cpp``, read by path (the JAX package is never
-imported); the shared library is built on first use with the system C++
-compiler into the port's build directory. Without a compiler the
-pure-Python generator answers instead (same bits, ~1000x slower).
+objectives). The C++ source is ``simplex_tpu_torch/native/xorwow.cpp``,
+the port's own copy of the JAX package's; the shared library is built on
+first use with the system C++ compiler into the port's build directory
+(keyed by a hash of the source). Without a compiler the pure-Python
+generator answers instead (same bits, ~1000x slower).
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import warnings
 
 import numpy as np
 
-_SRC = (pathlib.Path(__file__).resolve().parents[2] / "simplex_tpu"
-        / "native" / "xorwow.cpp")
+_SRC = (pathlib.Path(__file__).resolve().parents[1] / "native"
+        / "xorwow.cpp")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 _LIB: ctypes.CDLL | None = None
 _BUILD_FAILED = False

@@ -1,7 +1,7 @@
 """The port's CLI (``python -m simplex_tpu_torch.cli``) on the CPU: the
 flag contract of tests/test_cli.py through the port, its stdout and CSVs
 against the JAX package's CLI on the same arguments, and the flags it
-does not port yet (``--checkpoint``)."""
+refuses as the JAX CLI does."""
 
 import glob
 
@@ -161,19 +161,30 @@ def test_profile_writes_a_trace(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--sharded", "2", "--checkpoint", "state.npz"],
-     "ROADMAP queue 1 item 9"),
+    (["--sharded", "2", "--checkpoint", "<ckpt>"], None),
     (["--fleet", "2"], "--fleet requires --batch"),
-    (["--checkpoint", "state.npz"], "ROADMAP queue 1 item 9"),
+    (["--checkpoint", "<ckpt>"], None),
     (["--equilibrate"], None),
-], ids=["sharded", "fleet", "checkpoint", "equilibrate"])
+    (["--timer", "--checkpoint", "<ckpt>"],
+     "--checkpoint is incompatible with --timer"),
+], ids=["sharded", "fleet", "checkpoint", "equilibrate", "timer-checkpoint"])
 def test_unported_flags_exit(tmp_path, capsys, flags, match):
-    """What the port does not run yet exits naming its ROADMAP item:
-    ``--checkpoint``, with ``--sharded`` too; ``--fleet`` without
-    ``--batch`` exits as the JAX CLI does. ``--equilibrate`` (it exited
-    naming its ROADMAP item until ``scaling.py`` landed) exits 0
-    with the JAX CLI's stdout lines and solution.txt."""
-    args = ["-r", "10", "5", "1"] + flags
+    """Flags the JAX CLI refuses exit as it does: ``--fleet`` without
+    ``--batch``, ``--checkpoint`` with ``--timer``. ``--checkpoint``,
+    alone and with ``--sharded 2`` (the port's two gloo ranks, the JAX
+    CLI's two-device CPU mesh), and ``--equilibrate`` (each exited naming
+    its ROADMAP item until it was ported) exit 0 with the JAX CLI's
+    stdout lines, its wall times aside, and solution.txt; the file is
+    gone at the end. The seed file's instance (30 x 12 in [1, 100]) is
+    OPTIMAL; windows of 5 pivots, the Bland clamp raising them, write
+    checkpoints."""
+    from simplex_tpu_torch.problem import write_seed_file
+
+    seeds = tmp_path / "seeds.txt"
+    write_seed_file(str(seeds), 30, 12, 5, 1, 100)
+    ckpt = str(tmp_path / "state.npz")
+    args = ["-rf", str(seeds), "--checkpoint-every", "5"] + [
+        ckpt if f == "<ckpt>" else f for f in flags]
     if match is not None:
         with pytest.raises(SystemExit, match=match):
             run_cli(args, tmp_path)
@@ -184,9 +195,45 @@ def test_unported_flags_exit(tmp_path, capsys, flags, match):
         d = tmp_path / name
         assert fn(args + ["--data-dir", str(d)] + extra) == 0
         sol = d / "solution.txt"
-        outs[name] = (_lines(capsys.readouterr().out, d),
-                      sol.read_text() if sol.exists() else None)
+        lines, _ = _timeless(_lines(capsys.readouterr().out, d))
+        outs[name] = (lines, sol.read_text() if sol.exists() else None)
+        assert not (tmp_path / "state.npz").exists()
     assert outs["port"] == outs["jax"]
+    assert outs["port"][1] is not None
+
+
+def test_checkpoint_resume_matches_jax(tmp_path, capsys):
+    """A checkpoint left by a MAXITER run of one CLI (``--max-iter``
+    keeps it) is resumed by the other CLI, which prints "Resuming from
+    checkpoint PATH" and ends with the stdout lines and solution.txt of
+    the uninterrupted run, both ways."""
+    from simplex_tpu_torch.problem import write_seed_file
+
+    seeds = tmp_path / "seeds.txt"
+    write_seed_file(str(seeds), 300, 8, 2, 1, 100)   # f64 walk 10 + 16
+    ckpt = str(tmp_path / "state.npz")
+    base = ["-rf", str(seeds), "--checkpoint", ckpt, "--checkpoint-every",
+            "200"]
+    clis = {"port": (main, ["--device", "cpu"]), "jax": (jax_main, [])}
+    for writer, reader in (("port", "jax"), ("jax", "port")):
+        fn, extra = clis[writer]
+        d = tmp_path / writer
+        assert fn(base + ["--max-iter", "12", "--data-dir", str(d)]
+                  + extra) == 0
+        assert "Iteration limit reached!" in capsys.readouterr().out
+        fn, extra = clis[reader]
+        d = tmp_path / reader
+        assert fn(base + ["--data-dir", str(d)] + extra) == 0
+        resumed = _lines(capsys.readouterr().out, d)
+        assert f"Resuming from checkpoint {ckpt}" in resumed
+        assert not (tmp_path / "state.npz").exists()
+        resumed_sol = (d / "solution.txt").read_text()
+        assert fn(["-rf", str(seeds), "--data-dir", str(d)] + extra) == 0
+        fresh = _lines(capsys.readouterr().out, d)
+        assert [line for line in resumed if not line.startswith(
+            "Resuming")] == [line.replace("Resolving....", "")
+                             for line in fresh if line != "Resolving...."]
+        assert resumed_sol == (d / "solution.txt").read_text()
 
 
 def _timeless(lines):

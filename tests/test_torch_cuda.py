@@ -520,6 +520,56 @@ def test_default_solve_on_card_matches_cpu(cuda):
     assert got.objective == pytest.approx(want.objective, rel=1e-12)
 
 
+def test_resumable_walk_on_card_matches_cpu(cuda, tmp_path):
+    """f64, the sequential loop in windows of 100 pivots (the Bland clamp
+    off): random_256_256's resumable solve walks on the card as on the
+    CPU (473 + 17, the walk of ``solve``), objectives within 1e-12; the
+    file gone at the end."""
+    p = pst.read_random_problem(DATA / "benchmark_problems"
+                                / "random_256_256.txt")
+    got = pst.solve_resumable(p, str(tmp_path / "card.npz"), 100,
+                              bland_threshold=None)
+    want = pst.solve_resumable(p, str(tmp_path / "host.npz"), 100,
+                               bland_threshold=None, device="cpu")
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert (got.iterations_phase1, got.iterations_phase2) == (473, 17)
+    assert (want.iterations_phase1, want.iterations_phase2) == (473, 17)
+    assert got.objective == pytest.approx(want.objective, rel=1e-12)
+    assert not list(tmp_path.iterdir())
+
+
+def test_resume_on_card_from_cpu_file(cuda, tmp_path):
+    """A checkpoint written on the CPU (a MAXITER run keeps it) finishes
+    on the card as the card's uninterrupted run does: f64 in windows of
+    100, the same walk, objectives within 1e-12; the production options
+    (the kernel loop, K1-K3 launched) in windows of 128, refined and
+    certified within 1e-9 (the CPU's f32 windows round apart from the
+    card's, so their walks are not pinned)."""
+    p = pst.read_random_problem(DATA / "benchmark_problems"
+                                / "random_256_256.txt")
+    for opts, every, cap in ((dict(bland_threshold=None), 100, 250),
+                             (PROD, 128, 256)):
+        path = str(tmp_path / "state.npz")
+        cut = pst.solve_resumable(p, path, every, device="cpu",
+                                  **dict(opts, max_iter=cap))
+        assert cut.status == pst.Status.MAXITER
+        kb.reset_launches()
+        got = pst.solve_resumable(p, path, every, **opts)
+        want = pst.solve_resumable(p, str(tmp_path / "fresh.npz"), every,
+                                   **opts)
+        assert got.status == want.status == pst.Status.OPTIMAL
+        if "block_pivots" in opts:
+            assert got.refine.certified and want.refine.certified
+            assert got.objective == pytest.approx(want.objective, rel=1e-9)
+            assert all(kb.LAUNCHES[k] > 0 for k in (
+                "ah_ratio", "colk_costs", "apply_reprice"))
+        else:
+            assert (got.iterations_phase1, got.iterations_phase2) == (
+                want.iterations_phase1, want.iterations_phase2)
+            assert got.objective == pytest.approx(want.objective, rel=1e-12)
+        assert not list(tmp_path.iterdir())
+
+
 def test_pallas_solve_on_card_launches_k6(cuda):
     p = pst.generate_random_problem(128, 64, 2, 1, 100)
     kp.reset_launches()

@@ -2,6 +2,8 @@
 the configurations that once raised (not ported then) solve and match
 the JAX package, and the CPU path never counts a kernel launch."""
 
+import ast
+import re
 import subprocess
 import sys
 
@@ -20,12 +22,40 @@ ROOT = DATA.parents[1]
 PROD = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=128)
 
 
+#: A path component naming the JAX package, in a string of the code.
+JAX_PATH = re.compile(r"(^|[/\\])simplex_tpu($|[/\\])")
+
+
+def _code_strings(path):
+    """The string constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter imports every module of the port and runs a
-    CPU solve: neither jax nor simplex_tpu may be loaded."""
+    CPU solve: neither jax nor simplex_tpu may be loaded. No module of the
+    port builds a path into the JAX package (a ``"simplex_tpu"`` path
+    component in a string of the code, as ``parents[2] / "simplex_tpu"``
+    was; docstrings and comments citing ``simplex_tpu/...:line`` stay
+    allowed): what the port needs from there it keeps a copy of."""
+    hits = [(str(f.relative_to(ROOT)), line, text)
+            for f in sorted((ROOT / "simplex_tpu_torch").rglob("*.py"))
+            for line, text in _code_strings(f) if JAX_PATH.search(text)]
+    assert hits == []
+    assert JAX_PATH.search("simplex_tpu") and JAX_PATH.search(
+        "../simplex_tpu/native") and not JAX_PATH.search("simplex_tpu_torch")
     code = (
         "import sys\n"
         "import simplex_tpu_torch as st\n"
+        "import simplex_tpu_torch.checkpoint as ck\n"
         "import simplex_tpu_torch.reinvert, simplex_tpu_torch.refine\n"
         "import simplex_tpu_torch.kernels._build\n"
         "import simplex_tpu_torch.cli, simplex_tpu_torch.timed\n"
@@ -61,6 +91,16 @@ def test_port_never_imports_jax():
         "assert st.solve(p, device='cpu', equilibrate=True).status == 0\n"
         "assert st.solve_oracle(p, tie_rule='cuda',\n"
         "                       update_rule='fma').status == 0\n"
+        "with tempfile.TemporaryDirectory() as td:\n"
+        "    r = st.solve_resumable(p, td + '/s.npz', 5, device='cpu',\n"
+        "                           bland_threshold=None)\n"
+        "    assert r.status == 0\n"
+        "    with pg.world(0, 1, 'gloo', td) as g:\n"
+        "        r = ck.solve_resumable_sharded(p, g, td + '/t.npz',\n"
+        "                                       device='cpu')\n"
+        "    assert r.status == 0\n"
+        "A, b, c = st.generate_random_problem_device(8, 4, 1, device='cpu')\n"
+        "assert st.compare(1.0, 1.0) == 0\n"
         "from simplex_tpu_torch.two_phase import fallback_solve\n"
         "assert fallback_solve(p, st.SolverOptions(), device='cpu').refine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -72,17 +112,23 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_cuda_device_raises_without_cuda():
+def test_cuda_device_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device='cuda' is valid here")
     p = pst.read_problem(DATA / "smallProblem.txt")
     with pytest.raises(RuntimeError, match="cuda"):
         pst.solve(p, **PROD)              # device defaults to "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        pst.solve_resumable(p, str(tmp_path / "state.npz"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        pst.generate_random_problem_device(8, 4, 1)
+    assert not (tmp_path / "state.npz").exists()
 
 
 def test_sharded_and_fleet_default_to_cuda(tmp_path):
-    """solve_sharded and the fleet default to the card, and raise where
-    it is absent -- before they touch the group."""
+    """solve_sharded, the fleet and solve_resumable_sharded default to the
+    card, and raise where it is absent -- before they touch the group."""
+    from simplex_tpu_torch.checkpoint import solve_resumable_sharded
     from simplex_tpu_torch.parallel.group import world
 
     if torch.cuda.is_available():
@@ -90,6 +136,8 @@ def test_sharded_and_fleet_default_to_cuda(tmp_path):
     p = pst.read_problem(DATA / "smallProblem.txt")
     with pytest.raises(RuntimeError, match="cuda"):
         pst.solve_sharded(p, None, **PROD)
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_resumable_sharded(p, None, str(tmp_path / "state.npz"), **PROD)
     with world(0, 1, "gloo", str(tmp_path)) as group:
         with pytest.raises(RuntimeError, match="cuda"):
             pst.solve_batch(_batch(), mesh=group, **BATCH)
