@@ -74,8 +74,13 @@ Phases, in order; any failed check exits non-zero:
    and equal to the kernel batch's, every objective within 1e-9 of the
    kernel batch's certified one, four lanes solved alone by ``solve``
    walking the same, the steps, ms per step, wall and peak memory; and
-   ``kernel=False`` at config 3's options on its first 16 lanes (a cut
-   for time), every lane certified within 1e-9 of the kernel batch;
+   route (b) of the fallback at full width, config 3's 256 lanes with
+   ``kernel=False`` at its options and as an f64 blocked batch (L=32),
+   each one lane-batched plain blocked loop a phase with no kernel
+   launched, every lane certified within 1e-9 of the kernel batch, four
+   lanes held to their single-LP ``solve(use_pallas=False)``, the
+   windows, steps, ms per window, wall, device and refinement seconds and
+   peak memory, then the first 16 lanes of each timed alone;
 10c. the f64 tier chain: ``fallback_solve`` warm from the production
    flagship's final (drifted) basis (the host finish, certified within
    1e-9 of the golden, its finishing pivots printed), ``fallback_solve``
@@ -230,8 +235,10 @@ ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
-#: Config 3's lanes in the kernel=False batch: a cut for time (each lane
-#: runs the plain blocked loop alone).
+#: Route (b)'s f64 blocked configuration at config 3.
+FALLBACK_F64 = dict(dtype="float64", block_pivots=32)
+#: Route (b)'s lanes timed apart as well: the 16 of config 3 that route
+#: ran until it was batched (then lane by lane, a cut for time).
 FALLBACK_LANES = 16
 #: (n, m, seed, exponent) of the extreme-magnitude instance: a config-3
 #: lane's shape, rows and columns scaled by 10^[-15, 15]
@@ -2005,41 +2012,111 @@ def phase_default_batch(problems, kernel_res, launches: dict) -> None:
 
 
 def phase_fallback_blocked(problems, kernel_res) -> None:
-    """``kernel=False`` at config 3's options on its first
-    ``FALLBACK_LANES`` lanes (a cut for time): the fallback's lane-by-lane
-    route, each lane the plain blocked loop (no kernel launched); every
-    lane certified, its objective within 1e-9 of the kernel batch's."""
+    """Route (b) of the batched fallback at full width: config 3's 256
+    lanes with ``kernel=False`` at its options, then as an f64 blocked
+    batch (``FALLBACK_F64``, ``kernel="auto"``), each one lane-batched
+    plain blocked loop a phase with no kernel launched (every launch
+    counter set to 0 just before the call and read just after). Every
+    lane's status equal to the kernel batch's; every OPTIMAL lane
+    certified (the mixed lanes by the batch's own refinement, the f64
+    lanes, which the batch does not refine, by ``refine_solution_host``
+    and ``certificates_pass`` on their final bases) and within 1e-9 of the
+    kernel batch's certified objective; lanes ``DEFAULT_BATCH_LANES``
+    against their own single-LP ``solve(..., use_pallas=False)``: f64
+    pivot counts equal and objectives within 1e-12, mixed status equal,
+    certified, within 1e-9 and pivot counts within max(3, 10%). Then the
+    first ``FALLBACK_LANES`` lanes of each, timed alone."""
+    for label, opts, kernel in (
+            ("kernel=False batch (config 3's options)", BATCH, False),
+            ("f64 blocked batch (config 3, L=32)", FALLBACK_F64, "auto")):
+        fallback_batch(label, problems, kernel_res, opts, kernel)
+
+
+def fallback_batch(label: str, problems, kernel_res, opts: dict,
+                   kernel) -> None:
+    import numpy as np
     import torch
 
+    import simplex_tpu_torch as st
     from simplex_tpu_torch.kernels import batched as kbt
     from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.refine import (certificates_pass,
+                                          refine_solution_host)
 
-    label = (f"kernel=False batch (config 3's options, its first "
-             f"{FALLBACK_LANES} of 256 lanes: a cut for time)")
+    options = st.SolverOptions(**opts)
+    f64 = options.dtype == np.float64
     torch.cuda.empty_cache()
-    kb.reset_launches()
-    kbt.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (kb, kbt, kp):
+        mod.reset_launches()
     stats: dict = {}
-    res, wall = timed_batch(problems[:FALLBACK_LANES], stats, kernel=False)
-    counts = {**kb.LAUNCHES, **kbt.LAUNCHES}
+    res, wall = timed_batch(problems, stats, opts, kernel=kernel)
+    counts = {**kb.LAUNCHES, **kbt.LAUNCHES, **kp.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
     require(not any(counts.values()), f"{label}: kernels launched {counts}")
+    t0 = time.perf_counter()
     worst = 0.0
-    for i, r in enumerate(res):
-        k = kernel_res[i]
-        require(r.refine is not None and r.refine.certified,
-                f"{label} lane {i}: {r.status!r} refine {r.refine}")
+    for i, (r, k, p) in enumerate(zip(res, kernel_res, problems)):
+        require(r.status == k.status, f"{label} lane {i}: {r.status!r}, "
+                f"the kernel batch {k.status!r}")
+        if r.status != st.Status.OPTIMAL:
+            continue
+        if f64:
+            ro = refine_solution_host(p.A, p.b, p.c, stats["bases"][i],
+                                      p.vars, p.constraints)
+            certified = ro is not None and certificates_pass(
+                ro, p.b, p.c, float(options.refine_tol))
+        else:
+            certified = r.refine is not None and r.refine.certified
         rel = abs(r.objective - k.objective) / abs(k.objective)
-        require(rel <= 1e-9, f"{label} lane {i}: objective "
+        require(certified and rel <= 1e-9 and np.isfinite(r.x).all()
+                and r.x.shape == k.x.shape,
+                f"{label} lane {i}: certified {certified}, objective "
                 f"{r.objective!r} vs the kernel batch's {k.objective!r}")
         worst = max(worst, rel)
-    methods = sorted(collections.Counter(r.refine.method for r in res)
-                     .items())
+    check_s = time.perf_counter() - t0
+    windows = stats["windows"]
+    L = int(options.block_pivots)
     pivots = sorted(r.iterations_phase1 + r.iterations_phase2 for r in res)
-    log(f"{label}: {len(res)}/{len(res)} certified (refinement {methods})"
-        f", objectives within {worst:.2e} of the kernel batch's; pivots per"
-        f" lane min {pivots[0]} max {pivots[-1]}; wall {wall:.3f} s (device"
-        f" {stats['device_s']:.3f} s, host refinement "
-        f"{stats['refine_s']:.3f} s); no kernel launched")
+    how = ("certified on the host (refine_solution_host, "
+           f"{check_s:.3f} s)" if f64 else "certified by the batch")
+    log(f"{label}: {len(res)} lanes, "
+        f"{collections.Counter(r.status.name for r in res)}, every OPTIMAL "
+        f"lane {how}, objectives within {worst:.2e} of the kernel batch's; "
+        f"windows per phase {windows}, steps {L * sum(windows)}; wall "
+        f"{wall:.3f} s (data to the card {stats['prepare_s']:.3f} s, device "
+        f"solve {stats['device_s']:.3f} s = "
+        f"{1e3 * stats['device_s'] / sum(windows):.3f} ms per window, host "
+        f"refinement {stats['refine_s']:.3f} s); pivots per lane min "
+        f"{pivots[0]} median {statistics.median(pivots)} max {pivots[-1]}; "
+        f"max_memory_allocated {peak:.2f} GB; no kernel launched")
+    log(f"{label}: walk digest {walk_digest(res)}")
+    for i in DEFAULT_BATCH_LANES:
+        single, wall1 = timed_solve(problems[i], dict(opts, use_pallas=False))
+        r = res[i]
+        got = (r.iterations_phase1, r.iterations_phase2)
+        want = (single.iterations_phase1, single.iterations_phase2)
+        rel = abs(single.objective - r.objective) / abs(r.objective)
+        if f64:
+            ok = got == want and rel <= 1e-12
+        else:
+            ok = (single.refine.certified and rel <= 1e-9
+                  and all(abs(a - b) <= max(3, 0.1 * b)
+                          for a, b in zip(got, want)))
+        require(single.status == r.status and ok,
+                f"{label} lane {i}: solve() {single.status!r} walked "
+                f"{want} to {single.objective!r}, the batch {got} to "
+                f"{r.objective!r}")
+        log(f"{label} lane {i}: the batch {got[0]}+{got[1]} pivots, solve() "
+            f"{want[0]}+{want[1]}; objective {r.objective!r}, solve() "
+            f"{single.objective!r}, rel {rel:.1e}; {wall1:.3f} s")
+    stats16: dict = {}
+    _, wall16 = timed_batch(problems[:FALLBACK_LANES], stats16, opts,
+                            kernel=kernel)
+    log(f"{label}: its first {FALLBACK_LANES} lanes alone: wall "
+        f"{wall16:.3f} s, device solve {stats16['device_s']:.3f} s, windows "
+        f"per phase {stats16['windows']}")
 
 
 def phase_tiers() -> None:

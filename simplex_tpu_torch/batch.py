@@ -288,12 +288,13 @@ class BatchSolveOutput(NamedTuple):
     iterations_phase2: torch.Tensor  # (B,)
     n_artificial_in_base: torch.Tensor  # (B,)
     base: torch.Tensor               # (B, M_pad) final bases
-    #: Per phase: the kernel path's windows, or the batched sequential
-    #: loop's steps; (0, 0) for the fallback's lane-by-lane route.
+    #: Per phase: the windows of the kernel path and of the fallback's
+    #: blocked loop, or the fallback's sequential steps.
     windows: tuple[int, int]
-    #: The lanes' slack blocks (m, m), views of Tt (a list on the
-    #: lane-by-lane route, None where phase 2 did not run).
-    binv: object
+    #: The lanes' slack blocks (B, m, m), a view of the phase-2 tableau
+    #: (a list from the lane-by-lane reference ``batch_fallback.
+    #: solve_device_lanes``).
+    binv: torch.Tensor
 
 
 def solve_device_batched(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -304,22 +305,25 @@ def solve_device_batched(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     as ``simplex_tpu.batch.solve_device_batched``: ``kernel="auto"`` takes
     the batched kernels where ``batch_kernel_eligible`` and the batched
     fallback elsewhere, True the kernels, False the fallback. The
-    fallback's sequential configurations run the lane-batched sequential
-    loop, its blocked ones lane by lane (``batch_fallback.py``)."""
+    fallback (``batch_fallback.py``) runs with the kernels off, as the
+    JAX vmap does: its sequential configurations in the lane-batched
+    sequential loop, its blocked ones in the lane-batched plain blocked
+    loop."""
     use_kernel = (batch_kernel_eligible(options) if kernel == "auto"
                   else bool(kernel))
     if use_kernel:
         return _two_phase_batched(A, b, c, n, m, options,
                                   batch_kernel_dims(n, m, options),
                                   run_solve_loop_batched)
-    from .batch_fallback import solve_device_lanes, solve_loop_seq_batched
+    from .batch_fallback import (solve_loop_blocked_batched,
+                                 solve_loop_seq_batched)
 
-    if int(options.block_pivots or 1) > 1:
-        return solve_device_lanes(A, b, c, n, m, options)
+    options = dataclasses.replace(options, use_pallas=False)
+    loop = (solve_loop_blocked_batched if int(options.block_pivots or 1) > 1
+            else solve_loop_seq_batched)
     # The single-LP tableau's padding: each lane is solve()'s.
     return _two_phase_batched(A, b, c, n, m, options,
-                              padded_dims(n, m, options),
-                              solve_loop_seq_batched)
+                              padded_dims(n, m, options), loop)
 
 
 def _two_phase_batched(A, b, c, n: int, m: int, options: SolverOptions,
@@ -328,11 +332,11 @@ def _two_phase_batched(A, b, c, n: int, m: int, options: SolverOptions,
     """The stages, statuses and NUMERIC guards of
     ``simplex_tpu.batch._solve_device_batched_kernel``, lane by lane, on
     tableaus padded to ``dims`` (R1_pad, R2_pad, M_pad), with ``loop``
-    (``run_solve_loop_batched`` or ``batch_fallback.
-    solve_loop_seq_batched``) running both phases. The artificials are
-    pivoted out only in the lanes that need it, one lane at a time; lanes
-    whose phase 1 decided the outcome stay frozen through phase 2 (their
-    phase-2 result would be discarded)."""
+    (``run_solve_loop_batched``, ``batch_fallback.solve_loop_seq_batched``
+    or ``batch_fallback.solve_loop_blocked_batched``) running both
+    phases. The artificials are pivoted out only in the lanes that need
+    it, one lane at a time; lanes whose phase 1 decided the outcome stay
+    frozen through phase 2 (their phase-2 result would be discarded)."""
     eps = float(options.eps_resolved)
     max_iter = options.resolved_max_iter(n + 2 * m, m)
     R1, R2, M = dims
@@ -408,7 +412,8 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     default) takes the batched kernels where the options allow and the
     batched fallback elsewhere -- ``DEFAULT_OPTIONS``, an f64 sequential
     tableau, takes the fallback's lane-batched sequential loop --, True
-    the kernels, False the fallback.
+    the kernels, False the fallback, with no kernel launched anywhere
+    (the lanes' restart rounds included).
 
     ``mesh``, a ``torch.distributed`` ProcessGroup of P ranks, makes this
     the scenario fleet: every rank calls it with the same problems, rank
@@ -416,8 +421,9 @@ def solve_batched(problems, options: SolverOptions | None = None, *,
     collective, and every rank returns the whole list, gathered once at
     the end. B must divide by P.
 
-    ``stats``, a dict when given, receives the windows (the kernel path)
-    or batched steps (the sequential fallback) per phase (``windows``),
+    ``stats``, a dict when given, receives the windows (the kernel path
+    and the fallback's blocked loop) or batched steps (the sequential
+    fallback) per phase (``windows``),
     the final bases (``bases``, (B, M_pad)) and wall
     seconds: of casting and moving the data to the device
     (``prepare_s``), of the device solve up to the host's copy of its
@@ -463,7 +469,11 @@ def solve_batched_rank(group, device, problems, options):
 def _solve_lanes(problems, n: int, m: int, options: SolverOptions, dev,
                  stats, kernel="auto") -> list[SolveResult]:
     """``solve_batched``'s body for one device: the lanes' data to the
-    device, the device solve, the host refinement of each OPTIMAL lane."""
+    device, the device solve, the host refinement of each OPTIMAL lane.
+    With ``kernel=False`` the lanes' restart rounds run with the kernels
+    off too."""
+    if kernel is False:
+        options = dataclasses.replace(options, use_pallas=False)
     t0 = time.perf_counter()
     # A is cast to the tableau dtype on the host, lane by lane into one
     # buffer, before the transfer: the build converts it anyway, and f32

@@ -152,6 +152,21 @@ def _int3(values, what: str) -> tuple[int, int, int]:
     return n, m, seed
 
 
+def _need_cards(flag: str, ranks: int, device, devices: str) -> None:
+    """Exit as the JAX CLI does when ``ranks`` NCCL ranks (one card a
+    rank) would need more cards than there are; gloo ranks are CPU
+    processes, as many as asked."""
+    from .parallel.group import backend_for
+
+    if backend_for(device) != "nccl":
+        return
+    import torch
+
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise SystemExit(f"{flag} {ranks}: only {cards} {devices} available")
+
+
 def _report(result: SolveResult, problem: Problem, data_dir: str) -> None:
     """Reference status lines + solution file."""
     print()
@@ -284,6 +299,7 @@ def main(argv: list[str] | None = None) -> int:
                 "incompatible with --timer/--per-iteration/--batch/--fleet")
         from .parallel.group import backend_for, spawn
 
+        _need_cards("--sharded", args.sharded, args.device, "device(s)")
         print(f"Resolving on a {args.sharded}-device 'vars' mesh....")
         t0 = time.time()
         backend = backend_for(args.device)
@@ -319,6 +335,8 @@ def main(argv: list[str] | None = None) -> int:
             lo, hi = MIN, MAX
         problems = [generate_random_problem(n, m, seed + i, lo, hi)
                     for i in range(args.batch)]
+        if args.fleet:
+            _need_cards("--fleet", args.fleet, args.device, "devices")
         where = (f"across a {args.fleet}-device fleet" if args.fleet
                  else "batched")
         print(f"Solving {args.batch} instances "

@@ -8,14 +8,24 @@ Held per lane:
   loop): statuses equal, pivot counts equal, objectives within 1e-12
   relative, against the JAX fallback and against ``solve`` (each lane
   walks as ``solve`` walks it);
-* the blocked configurations the kernels refuse (``kernel=False`` mixed,
-  f64 blocked, L=12; lane by lane through the plain blocked loop):
-  statuses equal, the objective within 1e-9 after refinement (1e-12 in
-  f64), pivot counts within max(3, 10%) (mixed walks are not pinned
-  across implementations, ROADMAP "The reference");
-* a decided lane's tableau keeps every bit while the other lanes pivot;
+* the blocked configurations the kernels refuse (``kernel=False`` mixed
+  under devex, its default, and Dantzig, f64 blocked, L=12; route (b),
+  one lane-batched plain blocked loop a phase): statuses equal, the
+  objective within 1e-9 after refinement (1e-12 in f64), pivot counts
+  equal in f64 and within max(3, 10%) mixed (mixed walks are not pinned
+  across implementations, ROADMAP "The reference"), against the JAX
+  fallback and against the lane-by-lane reference
+  ``solve_device_lanes``; the loop's lanes against the single-LP
+  ``solver.solve_loop_blocked`` (f64: pivot counts equal, vectors within
+  1e-12 of their scale);
+* a decided lane keeps every bit while the other lanes pivot, in both
+  loops, and each lane ends in the state it reaches alone; a premature
+  OPTIMAL reopens at the window's re-pricing, a lane decided before the
+  window is not re-priced;
 * the fleet on two gloo ranks equals one device.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +35,7 @@ import simplex_tpu as jst
 import simplex_tpu_torch as pst
 from simplex_tpu_torch import batch as pbatch
 from simplex_tpu_torch import batch_fallback as fb
+from simplex_tpu_torch import solver
 from simplex_tpu_torch.kernels import pivot as kp
 from simplex_tpu_torch.tableau import (batch_build_phase1,
                                        batch_gaussian_eliminate, padded_dims)
@@ -115,29 +126,17 @@ def test_devex_sequential_raises_like_solve():
         pst.solve_batch(_random(8, 4, [1]), device="cpu", pivot_rule="devex")
 
 
-@pytest.mark.parametrize("opts,kernel", [
-    (MIXED, False),
-    (dict(dtype=np.float64, block_pivots=8), "auto"),
-    (dict(MIXED, block_pivots=12), "auto"),
-], ids=["kernel-false-mixed", "f64-blocked", "L=12"])
-def test_blocked_fallback_matches_jax(opts, kernel, monkeypatch):
-    """Route (b), lane by lane through the plain blocked loop (asserted
-    by counting the lanes it took)."""
-    taken = []
-    lanes = fb.solve_device_lanes
+def _blocked_problems():
+    """Four OPTIMAL lanes and an UNBOUNDED one, 30 x 12."""
+    return _random(30, 12, range(1, 5)) + [
+        jst.generate_random_problem(30, 12, 9, -10, 10)]
 
-    def counted(A, *args):
-        taken.append(A.shape[0])
-        return lanes(A, *args)
 
-    monkeypatch.setattr(fb, "solve_device_lanes", counted)
-    problems = _random(30, 12, range(1, 5)) + _spread()[1:3]
-    problems = problems[:4] + [jst.generate_random_problem(30, 12, 9, -10,
-                                                           10)]
-    got = pst.solve_batch(problems, device="cpu", kernel=kernel, **opts)
-    want = jst.solve_batch(problems, jst.SolverOptions(**opts), kernel=False)
-    assert taken == [len(problems)]
-    f64 = np.dtype(opts["dtype"]) == np.float64
+def _hold_walks(got, want, f64):
+    """Route (b)'s rule: statuses equal; OPTIMAL objectives within 1e-12
+    (f64) or 1e-9 and certified (mixed); pivot counts equal (f64) or
+    within max(3, 10%) (mixed)."""
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.status == w.status
         if g.status == pst.Status.OPTIMAL:
@@ -151,6 +150,104 @@ def test_blocked_fallback_matches_jax(opts, kernel, monkeypatch):
                 assert a == b
             else:
                 assert abs(a - b) <= max(3, 0.1 * b)
+
+
+BLOCKED_CASES = [
+    (MIXED, False),
+    (dict(dtype=np.float64, block_pivots=8), "auto"),
+    (dict(MIXED, block_pivots=12), "auto"),
+    (dict(MIXED, pivot_rule="devex"), False),
+    (dict(MIXED, pivot_rule="dantzig"), False),
+]
+BLOCKED_IDS = ["kernel-false-mixed", "f64-blocked", "L=12",
+               "kernel-false-devex", "kernel-false-dantzig"]
+
+
+@pytest.mark.parametrize("opts,kernel", BLOCKED_CASES, ids=BLOCKED_IDS)
+def test_blocked_fallback_matches_jax(opts, kernel, monkeypatch):
+    """Route (b): one call of the lane-batched plain blocked loop a phase,
+    each over every lane (counted), and never the lane-by-lane
+    reference; the walks held to the JAX fallback's."""
+    taken = []
+    loop = fb.solve_loop_blocked_batched
+
+    def counted(tabs, *args, **kw):
+        taken.append(tabs.b.shape[0])
+        return loop(tabs, *args, **kw)
+
+    def refused(*args):
+        raise AssertionError("solve_device_lanes is on no dispatch path")
+
+    monkeypatch.setattr(fb, "solve_loop_blocked_batched", counted)
+    monkeypatch.setattr(fb, "solve_device_lanes", refused)
+    problems = _blocked_problems()
+    got = pst.solve_batch(problems, device="cpu", kernel=kernel, **opts)
+    want = jst.solve_batch(problems, jst.SolverOptions(**opts), kernel=False)
+    assert taken == [len(problems)] * 2
+    _hold_walks(got, want, np.dtype(opts["dtype"]) == np.float64)
+
+
+@pytest.mark.parametrize("opts,kernel", BLOCKED_CASES, ids=BLOCKED_IDS)
+def test_blocked_route_matches_the_lane_by_lane_reference(opts, kernel):
+    """Route (b) against ``solve_device_lanes`` (each lane alone through
+    the single-LP device core's plain blocked loop) on the same data:
+    statuses, objectives and pivot counts by the same rule, and the
+    phase-2 slack blocks within 1e-9 (f64; the mixed walks may part, and
+    their objectives are held after refinement, above)."""
+    problems = _blocked_problems()
+    options = pst.SolverOptions(**opts)
+    n, m = 30, 12
+    A = torch.from_numpy(np.stack([p.A for p in problems]).astype(
+        options.dtype))
+    b = torch.from_numpy(np.stack([p.b for p in problems]))
+    c = torch.from_numpy(np.stack([p.c for p in problems]))
+    got = pbatch.solve_device_batched(A, b, c, n, m, options, kernel)
+    want = fb.solve_device_lanes(A, b, c, n, m, options)
+    f64 = options.dtype == np.float64
+    assert got.binv.shape == (len(problems), m, m)
+    for i in range(len(problems)):
+        assert int(got.status[i]) == int(want.status[i])
+        for a, w in ((got.iterations_phase1[i], want.iterations_phase1[i]),
+                     (got.iterations_phase2[i], want.iterations_phase2[i])):
+            a, w = int(a), int(w)
+            assert a == w if f64 else abs(a - w) <= max(3, 0.1 * w)
+        if f64 and int(got.status[i]) == int(pst.Status.OPTIMAL):
+            assert float(got.objective[i]) == pytest.approx(
+                float(want.objective[i]), rel=1e-12)
+            torch.testing.assert_close(got.binv[i], want.binv[i],
+                                       rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("kernel,use_pallas", [(False, False),
+                                               (True, "auto")])
+def test_kernel_false_restarts_with_the_kernels_off(kernel, use_pallas,
+                                                    monkeypatch):
+    """``kernel=False`` launches no kernel, the restart rounds of a lane
+    that does not certify at once included: they get the options with
+    ``use_pallas=False``; with the kernels on they keep the caller's.
+    Each lane's first certificate check is made to fail, its restart
+    round to raise (as an out-of-memory would), so the finishing tier
+    certifies it."""
+    import simplex_tpu_torch.refine as prefine
+    import simplex_tpu_torch.reinvert as reinvert
+
+    seen, checks = [], []
+    certificates_pass = prefine.certificates_pass
+
+    def first_fails(*a, **k):
+        checks.append(1)
+        return len(checks) % 2 == 0 and certificates_pass(*a, **k)
+
+    def restart(*a, **k):
+        seen.append(a[-1].use_pallas)
+        raise RuntimeError("simulated out of memory")
+
+    monkeypatch.setattr(prefine, "certificates_pass", first_fails)
+    monkeypatch.setattr(reinvert, "restart_device", restart)
+    problems = _random(16, 8, range(2))
+    res = pst.solve_batch(problems, device="cpu", kernel=kernel, **MIXED)
+    assert seen == [use_pallas] * len(problems)
+    assert all(r.refine.fallback and r.refine.certified for r in res)
 
 
 def test_kernel_dispatch():
@@ -210,6 +307,122 @@ def test_decided_lane_keeps_every_bit():
         assert torch.equal(alone.T3[0], out.T3[i])
         for k in ("b", "costs", "z", "base"):
             assert torch.equal(getattr(alone, k)[0], getattr(out, k)[i])
+
+
+BLOCKED_MIXED = dict(MIXED, block_pivots=4, use_pallas=False)
+
+
+def _phase1(problems, opts):
+    """The lanes' eliminated phase-1 tableau and its pre-elimination
+    costs, at the single-LP padding."""
+    n, m = problems[0].vars, problems[0].constraints
+    R1, _, M = padded_dims(n, m, opts)
+    A = torch.from_numpy(np.stack([p.A for p in problems]).astype(
+        opts.dtype))
+    b = torch.from_numpy(np.stack([p.b for p in problems]))
+    tabs = batch_build_phase1(A, b, n, m, opts, dims=(R1, M))
+    return batch_gaussian_eliminate(tabs), tabs.costs
+
+
+@pytest.mark.parametrize("opts", [
+    BLOCKED_MIXED, dict(dtype=np.float64, block_pivots=4),
+    dict(BLOCKED_MIXED, pivot_rule="bland")], ids=["mixed-devex", "f64",
+                                                    "mixed-bland"])
+def test_blocked_decided_lane_keeps_every_bit(opts):
+    """Route (b)'s twin of ``test_decided_lane_keeps_every_bit``: lane 1
+    is not live and keeps every bit of its tableau and vectors (its costs
+    are not re-priced); some live lane decides a window or more before
+    the last one; each live lane ends, bit for bit, in the state
+    (tableau, vectors, status, pivots) the loop reaches with that lane
+    alone (B = 1)."""
+    opts = pst.SolverOptions(**opts)
+    problems = [pst.generate_random_problem(20, 10, s, 1, 100)
+                for s in (5, 1, 6, 2)]
+    tabs, costs0 = _phase1(problems, opts)
+    before = {k: getattr(tabs, k).clone()
+              for k in ("b", "costs", "z", "base")}
+    T1 = tabs.T3[1].clone()
+    live = torch.tensor([True, False, True, True])
+    out, status, iters, windows = fb.solve_loop_blocked_batched(
+        tabs, opts, 10_000, costs0, live=live)
+    assert torch.equal(out.T3[1], T1)
+    for k, v in before.items():
+        assert torch.equal(getattr(out, k)[1], v[1])
+    assert int(status[1]) == int(pst.Status.INFEASIBLE) and int(iters[1]) == 0
+    alone_windows = []
+    for i in (0, 2, 3):
+        tab1, c1 = _phase1([problems[i]], opts)
+        alone, st1, it1, w1 = fb.solve_loop_blocked_batched(tab1, opts,
+                                                            10_000, c1)
+        alone_windows.append(w1)
+        assert int(st1[0]) == int(status[i]) == int(pst.Status.OPTIMAL)
+        assert int(it1[0]) == int(iters[i])
+        assert torch.equal(alone.T3[0], out.T3[i])
+        for k in ("b", "costs", "z", "base"):
+            assert torch.equal(getattr(alone, k)[0], getattr(out, k)[i])
+    assert min(alone_windows) < max(alone_windows) == windows
+
+
+@pytest.mark.parametrize("rule", ["dantzig", "bland", "devex"])
+def test_blocked_lanes_walk_as_the_single_lp_loop(rule):
+    """Each lane of the lane-batched loop against ``solver.
+    solve_loop_blocked`` on the same f64 phase-1 tableau: status and
+    pivot count equal, base equal; b, the costs, z and the tableau within
+    1e-12 of the largest magnitude each held at the start or the end (or
+    of 1): their updates sum the same terms in another order."""
+    opts = pst.SolverOptions(dtype=np.float64, block_pivots=4,
+                             pivot_rule=rule)
+    problems = [pst.generate_random_problem(24, 10, s, 1, 100)
+                for s in range(3, 7)]
+    tabs, _ = _phase1(problems, opts)
+    single = [dataclasses.replace(tabs.lane(i), Tt=tabs.T3[i].clone())
+              for i in range(len(problems))]
+    start = [(lane.b, lane.costs, lane.z, lane.Tt.clone())
+             for lane in single]
+    out, status, iters, _ = fb.solve_loop_blocked_batched(tabs, opts,
+                                                          10_000)
+    for i, lane in enumerate(single):
+        want, st1, it1 = solver.solve_loop_blocked(lane, opts, 10_000)
+        assert (int(status[i]), int(iters[i])) == (st1, it1)
+        assert st1 == int(pst.Status.OPTIMAL) and it1 > 4
+        assert torch.equal(out.base[i], want.base)
+        for got, ref, first in zip(
+                (out.b[i], out.costs[i], out.z[i], out.T3[i]),
+                (want.b, want.costs, want.z, want.Tt), start[i]):
+            scale = max(1.0, float(ref.abs().max()),
+                        float(first.abs().max()))
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-12 * scale)
+
+
+def test_blocked_window_reopens_a_premature_optimal():
+    """One window of two copies of a phase-1 tableau whose working costs
+    were zeroed, so that pivot 0 declares OPTIMAL: lane 0, RUNNING when
+    the window begins, is re-priced from ``costs0``, which still shows an
+    eligible column, and returns to RUNNING; lane 1, OPTIMAL before the
+    window, keeps its tableau, zero costs and status bit for bit."""
+    opts = pst.SolverOptions(**BLOCKED_MIXED)
+    p = pst.generate_random_problem(20, 10, 5, 1, 100)
+    tabs, costs0 = _phase1([p, p], opts)
+    exact = tabs.costs.clone()
+    assert bool((exact[:, :tabs.r] <= -opts.eps_resolved).any())
+    tabs.costs = torch.zeros_like(tabs.costs)
+    T = tabs.T3.clone()
+    B, M, R = tabs.T3.shape
+    st = fb.BlockedState(
+        tabs, torch.tensor([fb.RUNNING, fb.OPTIMAL], dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+        torch.zeros(2, dtype=torch.bool),
+        w=torch.ones((B, R), dtype=torch.float64),
+        C=torch.zeros((B, 4, R), dtype=torch.float32),
+        F=torch.zeros((B, 4, M), dtype=torch.float32))
+    run = (st.status == fb.RUNNING) & (st.iterations < 100)
+    fb.blocked_window(st, run, opts, 100, costs0)
+    assert st.status.tolist() == [fb.RUNNING, fb.OPTIMAL]
+    assert st.iterations.tolist() == [0, 0]
+    assert torch.equal(st.tabs.T3, T)
+    assert torch.equal(st.tabs.costs[1], torch.zeros(R, dtype=torch.float64))
+    torch.testing.assert_close(st.tabs.costs[0], exact[0], rtol=0,
+                               atol=1e-9)
 
 
 def test_batch_rank1_plain_is_the_single_lp_update():

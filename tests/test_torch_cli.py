@@ -202,6 +202,29 @@ def test_unported_flags_exit(tmp_path, capsys, flags, match):
     assert outs["port"][1] is not None
 
 
+@pytest.mark.parametrize("flags,match", [
+    (["--sharded", "2"], "--sharded 2: only 0 device\\(s\\) available"),
+    (["--batch", "4", "--fleet", "2"], "--fleet 2: only 0 devices available"),
+], ids=["sharded", "fleet"])
+def test_nccl_ranks_need_cards(tmp_path, capsys, flags, match, monkeypatch):
+    """``--sharded N`` and ``--fleet N`` on CUDA (NCCL, one card a rank)
+    with fewer cards than ranks exit before spawning with the JAX CLI's
+    messages (``simplex_tpu/cli.py:295-297``, ``:336-338``), here with no
+    card at all; nothing is solved."""
+    import torch
+
+    from simplex_tpu_torch.problem import write_seed_file
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    seeds = tmp_path / "seeds.txt"
+    write_seed_file(str(seeds), 30, 12, 5, 1, 100)
+    with pytest.raises(SystemExit, match=match):
+        main(["-rf", str(seeds), "--data-dir", str(tmp_path), "--device",
+              "cuda"] + flags)
+    out = capsys.readouterr().out
+    assert "Resolving on" not in out and "Solving" not in out
+
+
 def test_checkpoint_resume_matches_jax(tmp_path, capsys):
     """A checkpoint left by a MAXITER run of one CLI (``--max-iter``
     keeps it) is resumed by the other CLI, which prints "Resuming from

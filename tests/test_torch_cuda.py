@@ -770,6 +770,37 @@ def test_default_batch_walks_as_solve_on_card(cuda):
         assert r.objective == pytest.approx(want.objective, rel=1e-12)
 
 
+@pytest.mark.parametrize("opts,kernel", [
+    (dict(dtype=np.float64, block_pivots=8), "auto"),
+    (dict(dtype=np.float32, vector_dtype=np.float64, eps=1e-5,
+          block_pivots=8), False)], ids=["f64-blocked", "kernel-false"])
+def test_blocked_fallback_walks_as_solve_on_card(cuda, opts, kernel):
+    """Route (b) of the batched fallback on the card (the lane-batched
+    plain blocked loop): no kernel launched; each lane against the
+    single-LP ``solve(use_pallas=False)`` on the card -- f64 pivot counts
+    equal and objectives within 1e-12, mixed lanes certified within 1e-9
+    with pivot counts within max(3, 10%)."""
+    problems = [pst.generate_random_problem(60, 30, s, 1, 100)
+                for s in range(4)]
+    for mod in (kb, kbt, kp):
+        mod.reset_launches()
+    got = pst.solve_batch(problems, device="cuda", kernel=kernel, **opts)
+    assert not any({**kb.LAUNCHES, **kbt.LAUNCHES, **kp.LAUNCHES}.values())
+    f64 = opts["dtype"] == np.float64
+    for p, r in zip(problems, got):
+        want = pst.solve(p, device="cuda", use_pallas=False, **opts)
+        assert r.status == want.status == pst.Status.OPTIMAL
+        walk = (r.iterations_phase1, r.iterations_phase2)
+        if f64:
+            assert walk == (want.iterations_phase1, want.iterations_phase2)
+            assert r.objective == pytest.approx(want.objective, rel=1e-12)
+        else:
+            assert r.refine.certified and want.refine.certified
+            assert r.objective == pytest.approx(want.objective, rel=1e-9)
+            for a, b in zip(walk, (want.iterations_phase1,
+                                   want.iterations_phase2)):
+                assert abs(a - b) <= max(3, 0.1 * b)
+
 @pytest.mark.parametrize("opts", [
     dict(dtype=np.float32, vector_dtype=np.float32, eps=1e-4),
     dict(dtype=np.float32, vector_dtype=np.float64)])

@@ -175,16 +175,22 @@ def test_forced_fallback_lands_on_oracle(monkeypatch):
                                         rel=1e-12)
 
 
-@pytest.mark.parametrize("entry", ["solve_sharded", "solve_timed"])
+@pytest.mark.parametrize("entry", ["solve_sharded", "solve_timed",
+                                   "solve_resumable",
+                                   "solve_resumable_sharded"])
 def test_other_entry_points_reach_the_finishing_tier(entry, monkeypatch,
                                                      tmp_path):
-    """``solve_sharded`` (one gloo rank in this process) and
-    ``solve_timed`` reach ``fallback_solve`` through ``certify`` when the
-    mixed tiers do not certify: the finishing tier's certified result,
-    marked ``fallback``, at the oracle's objective; the sharded solve
-    returns it whole (``simplex_tpu/parallel/sharded.py:1213-1228``), the
-    timed one with its own walk's pivot counts
-    (``simplex_tpu/timed.py:309-321``)."""
+    """``solve_sharded`` (one gloo rank in this process), ``solve_timed``
+    and the checkpointed solves ``solve_resumable`` and
+    ``solve_resumable_sharded`` (one gloo rank) reach ``fallback_solve``
+    through ``certify`` when the mixed tiers do not certify: the
+    finishing tier's certified result, marked ``fallback``, at the
+    oracle's objective; the sharded and checkpointed solves return it
+    whole (``simplex_tpu/parallel/sharded.py:1213-1228``; the JAX
+    package's checkpointed solves stop uncertified there, the port's
+    certify as ``solve`` does), the timed one with its own walk's pivot
+    counts (``simplex_tpu/timed.py:309-321``)."""
+    from simplex_tpu_torch.checkpoint import solve_resumable_sharded
     from simplex_tpu_torch.parallel.group import world
 
     refine_result = two_phase.refine_result
@@ -198,9 +204,17 @@ def test_other_entry_points_reach_the_finishing_tier(entry, monkeypatch,
     if entry == "solve_timed":
         walk = pst.solve_timed(p, opts, device="cpu")
     monkeypatch.setattr(two_phase, "refine_result", failing)
-    if entry == "solve_sharded":
+    ckpt = str(tmp_path / "state.npz")
+    if entry in ("solve_sharded", "solve_resumable_sharded"):
         with world(0, 1, "gloo", str(tmp_path)) as group:
-            r = pst.solve_sharded(p, group, opts, device="cpu")
+            if entry == "solve_sharded":
+                r = pst.solve_sharded(p, group, opts, device="cpu")
+            else:
+                r = solve_resumable_sharded(p, group, ckpt, 50, opts,
+                                            device="cpu")
+    elif entry == "solve_resumable":
+        r = pst.solve_resumable(p, ckpt, 50, opts, device="cpu")
+    if entry != "solve_timed":
         assert r.refine.method == "finish"
         assert r.iterations_phase1 == 0
     else:
