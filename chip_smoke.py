@@ -100,6 +100,15 @@ Phases, in order; any failed check exits non-zero:
 10b. where the host shows N > 1 cards: N ranks over NCCL, one card a
    rank -- random_2048_2048 and the flagship in production, twice each,
    certified; config 3's 256 lanes as a fleet, checked as in 10a;
+10d. the benchmark entry points, each a process as a user starts it
+   (``phase_bench``): ``python -m simplex_tpu_torch.bench`` at the
+   north-star defaults with ``--repeats 2`` (devex, then Dantzig) and
+   again on K6's path (``--block 0 --vector-dtype float32 --iters 64``),
+   each printing one JSON line with the key set of ``bench.py``, a
+   positive value and a floor below its marginal; ``bench_batch`` at
+   config 3 with ``--repeats 1``, ending in ``BENCH_BATCH_OK``; and
+   ``bench_sharded`` at one NCCL rank with ``--repeats 2``, its one line
+   well formed; each line and the diagnostics printed;
 11. each kernel against its plain PyTorch version on the card: K1-K4 at
    the flagship shapes (M=8192, R=24576, L=128, t in {0, 37, 127}; K1
    and K2 one kernel a call, each on one workspace, their wrappers' host
@@ -438,6 +447,7 @@ def phase_kernels(records: dict) -> None:
     relative and fail."""
     import torch
 
+    from simplex_tpu_torch.bench import pivot_work
     from simplex_tpu_torch.kernels import blocked as kb
     from simplex_tpu_torch.tableau import tt_matvec
 
@@ -677,17 +687,11 @@ def phase_kernels(records: dict) -> None:
             del T2
     # Bounds at the timed inputs (K1/K2 at t = 37, K2 under devex; K3/K4
     # a full window): bytes each input read once and each output written
-    # once, and the operations.
+    # once, and the operations -- the counts of the bench's floor.
     t = 37
+    work = pivot_work(M, R, L, t, True, 4)
     bounds = {
-        "ah_ratio": bound(4 * M + 4 * t * M + 4 * t + 8 * M + 4 * M,
-                          2 * t * M, M),
-        "colk_costs": bound(4 * R + 4 * t * R + 4 * t + 4 * R + 16 * R
-                            + 8 * R + 4 * M + 16 * M + 8 * M + 4 * M,
-                            2 * t * R + 4 * R, 4 * R + 3 * M),
-        "apply_reprice": bound(8 * M * R + 4 * L * (M + R) + 8 * (M + R),
-                               2 * L * M * R, 2 * M * R),
-        "apply_window": bound(8 * M * R + 4 * L * (M + R), 2 * L * M * R),
+        **{name: bound(*work[name]) for name in SINGLE_PATH},
         # K5: the column h, t live F rows and t values of C, the output.
         "ah": bound(4 * M + 4 * t * M + 4 * t + 4 + 4 * M, 2 * t * M),
         "reprice": bound(4 * M * R + 8 * M + 8 * R, 0, 2 * M * R),
@@ -1187,20 +1191,13 @@ def phase_reference_f64() -> dict:
 def northstar_tableau(opts):
     """The eliminated 10,000 x 100,000 phase-1 tableau, A and b uniform in
     [1, 100] from a seeded generator on the card, and its pre-elimination
-    costs."""
+    costs: the tableau of ``python -m simplex_tpu_torch.bench``."""
     import torch
 
-    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+    from simplex_tpu_torch.bench import build_bench_state
 
-    n, m = 100_000, 10_000
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(n * 100 + m)
-    A = torch.rand((m, n), generator=g, device=dev) * 99.0 + 1.0
-    b = torch.rand((m,), generator=g, device=dev) * 99.0 + 1.0
-    tab = build_phase1(A, b, n, m, opts)
-    del A
-    costs0 = tab.costs
-    return gaussian_eliminate(tab), costs0
+    return build_bench_state(100_000, 10_000, torch.float32, opts, {},
+                             "cuda")
 
 
 def phase_pallas_seq(launches: dict) -> None:
@@ -1322,6 +1319,66 @@ def csv_rows(path: pathlib.Path) -> list:
     require(lines[0] == "vars,contraints,operation,elapsed_time",
             f"{path.name}: header {lines[0]!r}")
     return [line.split(",") for line in lines[1:]]
+
+
+#: The benchmark entry points of phase 10d: (module, arguments).
+BENCH_RUNS = (
+    ("bench", ["--repeats", "2"]),
+    ("bench", ["--block", "0", "--vector-dtype", "float32", "--iters", "64",
+               "--repeats", "2"]),
+    ("bench_batch", ["--repeats", "1"]),
+    ("bench_sharded", ["--repeats", "2"]),
+)
+#: The key set of bench.py's line (tests/test_bench.py:43-49).
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ceiling_gbs",
+              "floor_ms_per_pivot", "efficiency_pct", "pivot_rule",
+              "dantzig_ms_per_pivot", "build_trace_s", "build_compile_s",
+              "build_exec_s", "loop_trace_s", "loop_compile_s"}
+
+
+def phase_bench() -> None:
+    """Each of ``BENCH_RUNS`` as ``python -m simplex_tpu_torch.<module>``
+    on the card: exit 0 and the module's stdout contract (one JSON line
+    with bench.py's keys, a positive value, a floor no higher than the
+    marginal and Dantzig's marginal beside a devex one; ``BENCH_BATCH_OK``
+    last; one ``sharded_ms_per_pivot_mesh1`` line). Its lines and
+    diagnostics are printed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    for module, args in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"simplex_tpu_torch.{module}", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        label = " ".join([module, *args])
+        for line in proc.stderr.splitlines():
+            log(f"  [{module}] {line}")
+        require(proc.returncode == 0, f"{label}: exit {proc.returncode}\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        lines = [l for l in proc.stdout.splitlines() if l.strip()]
+        if module == "bench_batch":
+            require(lines and lines[-1] == "BENCH_BATCH_OK",
+                    f"{label}: stdout ends {lines[-1:]}")
+        else:
+            require(len(lines) == 1, f"{label}: {len(lines)} lines on stdout")
+            rec = json.loads(lines[0])
+            if module == "bench":
+                require(set(rec) == BENCH_KEYS, f"{label}: keys {set(rec)}")
+                require(rec["value"] > 0 and rec["ceiling_gbs"] > 0
+                        and 0 < rec["efficiency_pct"] <= 100,
+                        f"{label}: {rec}")
+                require((rec["dantzig_ms_per_pivot"] is None)
+                        == (rec["pivot_rule"] == "dantzig"),
+                        f"{label}: pivot rule {rec['pivot_rule']}, Dantzig "
+                        f"{rec['dantzig_ms_per_pivot']}")
+            else:
+                require(set(rec) == {"sharded_ms_per_pivot_mesh1", "lo",
+                                     "hi"}
+                        and rec["sharded_ms_per_pivot_mesh1"] > 0,
+                        f"{label}: {rec}")
+        log(f"bench {label} ({wall:.1f} s): {lines[0]}")
 
 
 def phase_cli() -> None:
@@ -2470,6 +2527,7 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
 
     import torch
 
+    from simplex_tpu_torch.bench import bench_problem
     from simplex_tpu_torch.config import SolverOptions
     from simplex_tpu_torch.kernels import blocked as kb
     from simplex_tpu_torch.parallel import group as pg
@@ -2541,9 +2599,7 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
         R_pad, M_pad = sharded_padded_dims(n, m, 1, opts)
         shard = pg.Shard.of(group, R_pad)
         dev = torch.device("cuda")
-        g = torch.Generator(device=dev).manual_seed(n * 100 + m)
-        A = torch.rand((m, n), generator=g, device=dev) * 99.0 + 1.0
-        b = torch.rand((m,), generator=g, device=dev) * 99.0 + 1.0
+        A, b = bench_problem(n, m, dev)
         torch.cuda.reset_peak_memory_stats()
         tab = build_phase1_sharded(A, b, n, m, shard, opts, M_pad, dev)
         del A
@@ -2712,6 +2768,10 @@ def main() -> int:
         phase_sharded_two_ranks(r2048)
         if cards > 1:
             phase_sharded_cards(cards)
+        t_bench = time.perf_counter()
+        phase_bench()
+        log(f"benchmark entry points in {time.perf_counter() - t_bench:.1f}"
+            " s")
         phase_kernels(records)
         phase_pivot_kernel(records)
         phase_batch_kernels(records)

@@ -66,6 +66,8 @@ def test_port_never_imports_jax():
         "import simplex_tpu_torch.utils.fma_native\n"
         "import simplex_tpu_torch.parallel.group as pg\n"
         "import simplex_tpu_torch.parallel.sharded, tempfile\n"
+        "import simplex_tpu_torch.bench, simplex_tpu_torch.bench_batch\n"
+        "import simplex_tpu_torch.bench_sharded\n"
         "with tempfile.TemporaryDirectory() as td, \\\n"
         "        pg.world(0, 1, 'gloo', td) as g:\n"
         "    r = st.solve_sharded(st.read_problem(\n"
@@ -123,6 +125,23 @@ def test_cuda_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         pst.generate_random_problem_device(8, 4, 1)
     assert not (tmp_path / "state.npz").exists()
+
+
+@pytest.mark.parametrize("module", ["bench", "bench_batch",
+                                    "bench_sharded"])
+def test_bench_entry_points_need_the_card(module):
+    """The benchmark entry points run on the card unless given ``--device
+    cpu``: without one they exit non-zero, naming cuda, and print nothing
+    on stdout."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device='cuda' is valid here")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"simplex_tpu_torch.{module}", "--vars", "40",
+         "--constraints", "10"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "cuda" in proc.stderr
 
 
 def test_sharded_and_fleet_default_to_cuda(tmp_path):
