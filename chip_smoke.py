@@ -25,7 +25,10 @@ Phases, in order; any failed check exits non-zero:
 5. the plain blocked loop: random_2048_2048 with ``dtype=float64,
    block_pivots=128``, no K1-K4 launch;
 6. the CLI (``python -m simplex_tpu_torch.cli``): a problem file, the
-   ``-t --limit 1024 --timer`` sweep (the reference's CSV schema), a
+   ``-t --limit 1024 --timer`` sweep (the reference's CSV schema; its 9
+   CSVs through ``simplex_tpu_torch.sweep_table`` against the
+   reference's, every row with the reference's pivots and seconds and
+   the pivots the CLI printed), a
    ``--per-iteration`` seed-file solve, ``--equilibrate`` on the problem
    file and ``--batch 4`` with the default dtype (the batched fallback),
    each in the reference's output format;
@@ -100,6 +103,15 @@ Phases, in order; any failed check exits non-zero:
 10b. where the host shows N > 1 cards: N ranks over NCCL, one card a
    rank -- random_2048_2048 and the flagship in production, twice each,
    certified; config 3's 256 lanes as a fleet, checked as in 10a;
+10e. the measurement entry points in this process, each with K1-K4's
+   counters set to 0 just before and read just after (each launched):
+   ``validate_refine_sweep`` on 256x8192, 8192x256 and 4096x4096, every
+   row OPTIMAL, certified at 1e-9 and within 1e-9 of
+   ``data/measures/refine_sweep_r5.json``'s objective for its seed; and
+   ``measure_refine_flagship`` at its default 50,000 x 10,000,
+   ``REFINE_FLAGSHIP_OK`` last and its answer certified at 1e-9 (the
+   refinement's, or where the drifted basis fails, the warm f64
+   finish's);
 10d. the benchmark entry points, each a process as a user starts it
    (``phase_bench``): ``python -m simplex_tpu_torch.bench`` at the
    north-star defaults with ``--repeats 2`` (devex, then Dantzig) and
@@ -1321,6 +1333,12 @@ def csv_rows(path: pathlib.Path) -> list:
     return [line.split(",") for line in lines[1:]]
 
 
+#: The certified record of the JAX package's 36-size sweep.
+R5_SWEEP = ROOT / "data" / "measures" / "refine_sweep_r5.json"
+#: Phase 10e's sweep sizes: the tallest and the widest of the grid and
+#: 4096^2, none solved by an earlier phase (1024^2, 2048^2 and 8192^2 are).
+SWEEP_SIZES = "256x8192,8192x256,4096x4096"
+
 #: The benchmark entry points of phase 10d: (module, arguments).
 BENCH_RUNS = (
     ("bench", ["--repeats", "2"]),
@@ -1381,6 +1399,142 @@ def phase_bench() -> None:
         log(f"bench {label} ({wall:.1f} s): {lines[0]}")
 
 
+def run_module(main, argv: list) -> tuple[int, str, str]:
+    """``main(argv)`` of an entry point in this process (so that the
+    launch counters can be read), its stdout and stderr captured."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_refine_sweep() -> None:
+    """``python -m simplex_tpu_torch.validate_refine_sweep`` on
+    ``SWEEP_SIZES``, in this process: every row OPTIMAL, certified at
+    1e-9 and within 1e-9 of ``refine_sweep_r5.json``'s objective for its
+    seed; K1-K4 launched (counters set to 0 just before, read just
+    after). Its file goes to a temporary directory."""
+    import tempfile
+
+    import torch
+
+    from simplex_tpu_torch import validate_refine_sweep
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    record = {r["seed"]: r for r in json.loads(R5_SWEEP.read_text())["rows"]}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        out = pathlib.Path(td) / "sweep.json"
+        t0 = time.perf_counter()
+        kb.reset_launches()
+        rc, _, err = run_module(validate_refine_sweep.main,
+                                ["--sizes", SWEEP_SIZES, "--out", str(out)])
+        counts = {k: kb.LAUNCHES[k] for k in SINGLE_PATH}
+        wall = time.perf_counter() - t0
+        for line in err.splitlines():
+            log(f"  [validate_refine_sweep] {line}")
+        require(rc == 0, f"validate_refine_sweep: exit {rc}")
+        doc = json.loads(out.read_text())
+    rows = doc["rows"]
+    require(len(rows) == len(SWEEP_SIZES.split(","))
+            and doc["summary"]["device"].startswith(
+                torch.cuda.get_device_name(0)),
+            f"validate_refine_sweep: {doc['summary']}")
+    for row in rows:
+        want = record[row["seed"]]["objective"]
+        rel = abs(row["objective"] - want) / abs(want)
+        require(row["status"] == "OPTIMAL" and row["certified_1e9"]
+                and rel <= 1e-9,
+                f"sweep {row['vars']}x{row['constraints']}: "
+                f"{row['status']} certified_1e9={row.get('certified_1e9')} "
+                f"objective {row['objective']!r} vs {want!r}")
+    for name in SINGLE_PATH:
+        require(counts[name] > 0, f"{name} never launched in the sweep")
+    log(f"validate_refine_sweep {SWEEP_SIZES}: every row OPTIMAL, certified"
+        f" at 1e-9, within 1e-9 of refine_sweep_r5.json; launches {counts};"
+        f" {wall:.1f} s")
+
+
+def phase_refine_flagship() -> None:
+    """``python -m simplex_tpu_torch.measure_refine_flagship`` at its
+    default 50,000 x 10,000, in this process: ``REFINE_FLAGSHIP_OK``
+    last and K1-K4 launched (counters set to 0 just before, read just
+    after); its answer certified at 1e-9: the refinement of the mixed
+    solve's basis, or where that fails (the basis drifted, as the JAX
+    package's own run at this shape recorded:
+    data/measures/logs_r5/refine_flagship_50k.log), the warm f64 finish
+    from it, OPTIMAL with its certificates at 1e-9."""
+    import torch
+
+    from simplex_tpu_torch import finish, measure_refine_flagship
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.validate_refine_sweep import strong_certified
+
+    finished = []
+    real = finish.finish_from_basis
+
+    def spy(problem, base, options, *a, **kw):
+        res = real(problem, base, options, *a, **kw)
+        finished.append((problem, res))
+        return res
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kb.reset_launches()
+    finish.finish_from_basis = spy
+    try:
+        rc, out, err = run_module(measure_refine_flagship.main, [])
+    finally:
+        finish.finish_from_basis = real
+    counts = {k: kb.LAUNCHES[k] for k in SINGLE_PATH}
+    wall = time.perf_counter() - t0
+    for line in err.splitlines():
+        log(f"  [measure_refine_flagship] {line}")
+    lines = out.splitlines()
+    require(rc == 0 and lines and lines[-1].startswith("REFINE_FLAGSHIP_OK "),
+            f"measure_refine_flagship: exit {rc}, stdout {lines[-1:]}")
+    for name in SINGLE_PATH:
+        require(counts[name] > 0,
+                f"{name} never launched in measure_refine_flagship")
+    if "certificates: pass@1e-6=True pass@1e-9=True" in err:
+        how = "the refinement passes at 1e-9"
+    else:
+        require(len(finished) == 1 and finished[0][1] is not None,
+                "measure_refine_flagship: the certificates failed and the "
+                "warm finish did not apply")
+        problem, res = finished[0]
+        require(res.status.name == "OPTIMAL"
+                and strong_certified(res.refine, problem.b, problem.c),
+                f"measure_refine_flagship: warm finish {res.status!r} "
+                f"{res.refine}")
+        how = (f"the refinement fails, the warm finish certifies at 1e-9 "
+               f"(objective {res.objective!r}, "
+               f"{res.iterations_phase2} finishing pivots)")
+    log(f"measure_refine_flagship 50000x10000: {lines[-1]}; {how}; "
+        f"launches {counts}; {wall:.1f} s")
+
+
+def sweep_table_rows(measures: pathlib.Path) -> list:
+    """``python -m simplex_tpu_torch.sweep_table`` on ``measures``
+    against data/reference_measures: its table's rows, as cells."""
+    from simplex_tpu_torch import sweep_table
+
+    rc, out, err = run_module(sweep_table.main, [
+        "--ours", str(measures), "--ref",
+        str(ROOT / "data" / "reference_measures")])
+    require(rc == 0, f"sweep_table: exit {rc}")
+    lines = out.splitlines()
+    require(lines[1] == "|---|---|---|---|---|---|",
+            f"sweep_table: {lines[:2]}")
+    for line in lines:
+        log(f"  [sweep_table] {line}")
+    return [[cell.strip() for cell in line.strip("|").split("|")]
+            for line in lines[2:]]
+
+
 def phase_cli() -> None:
     """``python -m simplex_tpu_torch.cli`` on the card: a problem file
     (the reference's stdout lines and solution.txt), the ``-t --limit
@@ -1438,6 +1592,13 @@ def phase_cli() -> None:
             f"the reference's schema, solveIterations equal to the printed "
             f"pivots ({', '.join(done)}); "
             f"{time.perf_counter() - t0:.1f} s")
+        rows = sweep_table_rows(tmp / "measures")
+        got = [f"{r[0].replace('×', 'x')}:{r[1]}" for r in rows]
+        require(sorted(got) == sorted(done)
+                and all("—" not in r[2:5] for r in rows),
+                f"sweep_table: {rows} against the CLI's {done}")
+        log("sweep_table on the sweep's CSVs: 9 rows, each with the "
+            "reference's pivots and seconds, pivots as the CLI printed")
 
         t0 = time.perf_counter()
         out = run_cli(["-rf", str(DATA / "benchmark_problems"
@@ -2768,6 +2929,8 @@ def main() -> int:
         phase_sharded_two_ranks(r2048)
         if cards > 1:
             phase_sharded_cards(cards)
+        phase_refine_sweep()
+        phase_refine_flagship()
         t_bench = time.perf_counter()
         phase_bench()
         log(f"benchmark entry points in {time.perf_counter() - t_bench:.1f}"

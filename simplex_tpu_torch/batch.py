@@ -530,8 +530,11 @@ def _refine_lane(problem, base, options: SolverOptions, result: SolveResult,
     RuntimeError in a round ends them), which the JAX package does not
     run. A lane that still does not certify goes to the f64 finishing
     tier (``two_phase.fallback_solve`` from its last basis, on the lane's
-    device), whose result it takes, its RefineInfo marked ``fallback``."""
-    from .refine import RefineInfo, certificates_pass, refine_solution_host
+    device), whose result it takes, its RefineInfo marked ``fallback``;
+    so does a lane that certifies short of the strong dual bound
+    (``refine.dual_strong``), as in ``two_phase.certify``."""
+    from .refine import (RefineInfo, certificates_pass, dual_strong,
+                         refine_solution_host)
     from .reinvert import restart_device
     from .two_phase import fallback_solve
 
@@ -569,7 +572,7 @@ def _refine_lane(problem, base, options: SolverOptions, result: SolveResult,
                 method = "restart"
             if ok or ro is None:
                 break
-    if not ok:
+    if not ok or not dual_strong(float(ro.dual_infeasibility), problem.c):
         inf = float("inf")
         info = RefineInfo(
             certified=False,

@@ -55,6 +55,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 
@@ -85,6 +86,24 @@ def log(msg: str) -> None:
 def synchronize(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the name alone
+    where nvidia-smi cannot be run), or ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(dev)
+    return out.stdout.strip().splitlines()[0]
 
 
 def bench_problem(n: int, m: int, device) -> tuple[torch.Tensor,

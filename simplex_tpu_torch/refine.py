@@ -312,3 +312,22 @@ def certificates_pass(out: RefineOutput, b, c, tol: float) -> bool:
     d_scale = c_scale + ymax
     return (pr <= tol * b_scale and neg <= tol * b_scale
             and art <= tol * b_scale and dual <= tol * d_scale)
+
+
+#: The strong bound on an accepted basis's dual infeasibility, relative to
+#: ``1 + max|c|`` (the 36-size sweep's ``certified_1e9`` test).
+STRONG_TOL = 1e-9
+
+
+def dual_strong(dual_infeasibility: float, c) -> bool:
+    """Whether a certified basis is optimal to the strong bound and not
+    only to the loop's pricing eps: the mixed loops stop once no reduced
+    cost is below -eps (1e-4 on an f32 tableau), and ``certificates_pass``
+    at ``refine_tol`` accepts a dual infeasibility of up to ``refine_tol *
+    (1 + max|c| + max|y|)``, so a walk may stop short of the optimum and
+    still certify (on an H100 the 4096 x 4096 instance of the ``-t``
+    grid certified 8.8e-7 relative below its optimum, a dual
+    infeasibility of 9.7e-5). Such a basis goes to the f64 finishing
+    tier."""
+    c_scale = 1.0 + float(np.max(np.abs(c))) if np.size(c) else 1.0
+    return dual_infeasibility <= STRONG_TOL * c_scale

@@ -221,7 +221,12 @@ def certify(problem: Problem, base, binv, objective: float,
     when none certifies the f64 finishing tier ``fallback_solve`` from
     the last basis, on the data's device. A RuntimeError inside a restart
     round (out of device memory at extreme shapes) goes to the finishing
-    tier too."""
+    tier too. A basis that certifies at ``refine_tol`` but not to the
+    strong dual bound (``refine.dual_strong``: the walk stopped within
+    the pricing eps of a better vertex) goes to the finishing tier as
+    well, where the JAX package returns it as certified: a restart would
+    stop at the same eps."""
+    from .refine import dual_strong
     from .reinvert import restart_device
 
     restart_device = restart or restart_device
@@ -247,7 +252,7 @@ def certify(problem: Problem, base, binv, objective: float,
             if rx is not None:
                 info = info._replace(method="restart")
                 break
-    if rx is not None:
+    if rx is not None and dual_strong(info.dual_infeasibility, problem.c):
         return Certified(rx, robj, info, extra, None)
     result64 = fallback_solve(problem, options, base=base,
                               device=A_dev.device)

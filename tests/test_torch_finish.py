@@ -225,3 +225,76 @@ def test_other_entry_points_reach_the_finishing_tier(entry, monkeypatch,
     assert r.refine.fallback and r.refine.certified
     assert r.objective == pytest.approx(jst.solve_oracle(p).objective,
                                         rel=1e-12)
+
+
+@pytest.mark.parametrize("dual,finished", [(0.0, False), (0.5, False),
+                                           (100.0, True)],
+                         ids=["exact", "inside", "eps-short"])
+def test_certify_holds_the_dual_to_the_strong_bound(dual, finished,
+                                                    monkeypatch):
+    """A basis whose refinement certifies at ``refine_tol`` but whose
+    dual infeasibility exceeds ``dual`` x 1e-9 (1 + max|c|) with ``dual``
+    > 1 -- the walk stopped within the pricing eps of a better vertex --
+    goes straight to the finishing tier (no restart round: the loop
+    would stop at the same eps) and comes back at the oracle's
+    objective, marked ``fallback``; one within the bound is returned as
+    refined."""
+    import simplex_tpu_torch.reinvert as reinvert
+    from simplex_tpu_torch.refine import STRONG_TOL
+
+    p = pst.generate_random_problem(100, 40, 5, 1, 100)
+    bound = STRONG_TOL * (1.0 + float(np.max(np.abs(p.c))))
+    refine_result = two_phase.refine_result
+    seen = []
+
+    def short(*a, **k):
+        rx, robj, info, ro = refine_result(*a, **k)
+        assert rx is not None and info.dual_infeasibility == 0.0
+        seen.append(info)
+        return rx, robj, info._replace(dual_infeasibility=dual * bound), ro
+
+    def no_restart(*a, **k):
+        raise AssertionError("a restart round ran")
+
+    monkeypatch.setattr(two_phase, "refine_result", short)
+    monkeypatch.setattr(reinvert, "restart_device", no_restart)
+    r = pst.solve(p, device="cpu", **MIXED)
+    assert len(seen) == 1
+    assert r.status == pst.Status.OPTIMAL and r.refine.certified
+    assert r.refine.fallback == finished
+    assert r.refine.method == ("finish" if finished else "tableau")
+    assert r.objective == pytest.approx(jst.solve_oracle(p).objective,
+                                        rel=1e-12)
+
+
+def test_batch_lane_holds_the_dual_to_the_strong_bound(monkeypatch):
+    """``solve_batch``'s lanes keep the same rule: a lane whose host
+    refinement certifies at ``refine_tol`` short of the strong dual bound
+    takes the finishing tier, the others keep their refinement."""
+    import torch
+
+    import simplex_tpu_torch.refine as refine
+    from simplex_tpu_torch.refine import STRONG_TOL
+
+    problems = [pst.generate_random_problem(60, 20, s, 1, 100)
+                for s in (3, 4)]
+    host = refine.refine_solution_host
+    short_c = problems[1].c
+
+    def short(A, b, c, base, n, m):
+        ro = host(A, b, c, base, n, m)
+        if np.array_equal(c, short_c):
+            bound = STRONG_TOL * (1.0 + float(np.max(np.abs(c))))
+            ro = ro._replace(dual_infeasibility=torch.tensor(
+                100.0 * bound, dtype=torch.float64))
+        return ro
+
+    monkeypatch.setattr(refine, "refine_solution_host", short)
+    got = pst.solve_batch(problems, device="cpu", dtype=np.float32,
+                          vector_dtype=np.float64, eps=1e-5,
+                          block_pivots=8)
+    assert [r.refine.fallback for r in got] == [False, True]
+    for r, p in zip(got, problems):
+        assert r.status == pst.Status.OPTIMAL and r.refine.certified
+        assert r.objective == pytest.approx(jst.solve_oracle(p).objective,
+                                            rel=1e-12)

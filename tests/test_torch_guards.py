@@ -68,6 +68,9 @@ def test_port_never_imports_jax():
         "import simplex_tpu_torch.parallel.sharded, tempfile\n"
         "import simplex_tpu_torch.bench, simplex_tpu_torch.bench_batch\n"
         "import simplex_tpu_torch.bench_sharded\n"
+        "import simplex_tpu_torch.sweep_table\n"
+        "import simplex_tpu_torch.validate_refine_sweep\n"
+        "import simplex_tpu_torch.measure_refine_flagship\n"
         "with tempfile.TemporaryDirectory() as td, \\\n"
         "        pg.world(0, 1, 'gloo', td) as g:\n"
         "    r = st.solve_sharded(st.read_problem(\n"
@@ -128,20 +131,25 @@ def test_cuda_device_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["bench", "bench_batch",
-                                    "bench_sharded"])
-def test_bench_entry_points_need_the_card(module):
-    """The benchmark entry points run on the card unless given ``--device
-    cpu``: without one they exit non-zero, naming cuda, and print nothing
-    on stdout."""
+                                    "bench_sharded", "validate_refine_sweep",
+                                    "measure_refine_flagship"])
+def test_bench_entry_points_need_the_card(module, tmp_path):
+    """The benchmark and measurement entry points run on the card unless
+    given ``--device cpu``: without one they exit non-zero, naming cuda,
+    print nothing on stdout and write no record."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device='cuda' is valid here")
+    out = tmp_path / "sweep.json"
+    args = (["--limit", "256", "--out", str(out)]
+            if module == "validate_refine_sweep"
+            else ["--vars", "40", "--constraints", "10"])
     proc = subprocess.run(
-        [sys.executable, "-m", f"simplex_tpu_torch.{module}", "--vars", "40",
-         "--constraints", "10"], cwd=ROOT, capture_output=True, text=True,
-        timeout=120)
+        [sys.executable, "-m", f"simplex_tpu_torch.{module}", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "cuda" in proc.stderr
+    assert not out.exists()
 
 
 def test_sharded_and_fleet_default_to_cuda(tmp_path):
