@@ -39,15 +39,23 @@ Phases, in order; any failed check exits non-zero:
    the card since the port began) -- the production path, with the K1-K4 launch
    counters reset just before the first solve and read just after it;
    then solved again, for the wall-time spread of warm solves (each
-   solve must walk the same pivots);
-8a. the checkpointed solves (``phase_resumable``): the flagship through
+   solve must walk the same pivots); every counter of the path above 0:
+   K1-K4 and the step kernels, which a CUDA graph's replay counts;
+8a. the flagship's kernel loop two ways, in turns (eager, graph, graph,
+   eager; ``phase_window_graph``): enqueued eagerly
+   (``solve_loop_blocked_kernel(graph=False)``) and as one CUDA graph a
+   window, each run walking 9,206 + 409 and each loop call ending with
+   the first run's Tt, b, costs, z, base and devex weights bit for bit;
+   each run's loop ms/pivot and capture ms;
+8b. the checkpointed solves (``phase_resumable``): the flagship through
    ``solve_resumable`` in windows of 2,048 pivots, certified within 1e-9,
-   K1-K4 launched (counters reset just before, read just after), each
-   write timed; the CLI with ``--checkpoint`` killed (SIGKILL) as soon
-   as its first file exists, then rerun: it resumes to the same walk,
-   objective and ``solution.txt``; ``solve_resumable_sharded`` at one
-   NCCL rank on random_2048_2048, K5 launched and K1 not, walking as
-   ``solve_resumable``, and a MAXITER run resumed to the same result;
+   K1-K4 and the step kernels launched (counters reset just before,
+   read just after), each write timed; the CLI with ``--checkpoint``
+   killed (SIGKILL) as soon as its first file exists, then rerun: it
+   resumes to the same walk, objective and ``solution.txt``;
+   ``solve_resumable_sharded`` at one NCCL rank on random_2048_2048, K5
+   launched and K1 not, walking as ``solve_resumable``, and a MAXITER
+   run resumed to the same result;
    random_2048_2048 resumable on K6's path; and
    ``generate_random_problem_device`` at 8192^2 in f64, bit for bit on a
    second call;
@@ -104,7 +112,8 @@ Phases, in order; any failed check exits non-zero:
    rank -- random_2048_2048 and the flagship in production, twice each,
    certified; config 3's 256 lanes as a fleet, checked as in 10a;
 10e. the measurement entry points in this process, each with K1-K4's
-   counters set to 0 just before and read just after (each launched):
+   and the step kernels' counters set to 0 just before and read just
+   after (each launched):
    ``validate_refine_sweep`` on 256x8192, 8192x256 and 4096x4096, every
    row OPTIMAL, certified at 1e-9 and within 1e-9 of
    ``data/measures/refine_sweep_r5.json``'s objective for its seed; and
@@ -129,7 +138,8 @@ Phases, in order; any failed check exits non-zero:
    bit for bit (there and at M=256, R=384, L=8), K3 and K4 timed in
    turns with cuBLAS ``addmm_``, the SM clock before and after, K5 (its
    column K1's bit for bit) and K11 (K3's mv with zero etas bit for
-   bit), K6 at the 8192^2 and the north-star f32 shapes, then the
+   bit), the step kernels on K1's outputs under 192 seeded states, bit
+   for bit, K6 at the 8192^2 and the north-star f32 shapes, then the
    batched kernels at config 3's shapes (B=256, M=512, R=3072, L=32) and
    the wide ones (B=32, R=15104), under devex and Dantzig, with a frozen
    lane and a lane that hits its fuse mid-window (``batch_window``: one
@@ -146,8 +156,10 @@ Phases, in order; any failed check exits non-zero:
    back-to-back calls for the rest) -- beside its bound and, where one
    PyTorch call computes the same function, that call's time; then one
    config-3 batch traced (device time by kernel, the device's busy
-   share). These run last so that no profiler run precedes the timed
-   solves.
+   share), and the flagship's phase-1 loop traced (the kernels a pivot
+   of a replayed window, the device's busy share inside a window and
+   over its period). These run last so that no profiler run precedes
+   the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over HBM's 3.35 TB/s and its
@@ -155,7 +167,8 @@ operations over the peak rate of their type: 67 TFLOP/s for f32 outside
 the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
-kernels' records (K1-K12 and ``batch_rank1``; K11 and K12 are on no
+kernels' records (K1-K12, ``batch_rank1`` and the step kernels, which
+replace XLA-fused glue, no Pallas kernel; K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
 {...}}``. Without CUDA, or
@@ -202,8 +215,27 @@ KERNELS = {
     "ah": ("K5", "simplex_tpu/kernels/blocked.py:1300", SOURCE),
     "reprice": ("K11", "simplex_tpu/kernels/blocked.py:976", SOURCE),
 }
+#: The per-pivot step kernels: the JAX loop's XLA-fused scalar glue
+#: (no Pallas kernel), each replacing the lines it ports.
+STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/step.cu"
+STEP_KERNELS = {
+    "step_pre": ("glue", "simplex_tpu/solver.py:731", STEP_SOURCE),
+    "step_mid": ("glue", "simplex_tpu/solver.py:751", STEP_SOURCE),
+    "step_post": ("glue", "simplex_tpu/solver.py:777", STEP_SOURCE),
+}
+STEPS = tuple(STEP_KERNELS)
+#: Bytes each step kernel moves on a taken pivot outside Bland mode (the
+#: timed state), each 0-dim input read once and each output written once
+#: (csrc/step.cu): step_pre reads status, iterations, bland, h_b, h_d and
+#: v_d (25) and writes active, h, minc and optimal (14); step_mid reads
+#: active, optimal, unb, K1's p and minc (18) and writes do, p and u (13);
+#: step_post reads do, z, u, bk, active, optimal, unb, stall and
+#: iterations (39), writes status, stall, bland, iterations and z (21), and
+#: as the next pivot's step_pre reads h_b, h_d and v_d (16) and writes 14.
+STEP_BYTES = {"step_pre": 39, "step_mid": 31, "step_post": 90}
 #: The kernels of the single-card production path, and of the sharded one.
-SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window")
+SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window",
+               *STEPS)
 SHARDED_PATH = ("ah", "colk_costs", "apply_reprice", "apply_window")
 PIVOT_KERNELS = {
     "fused_pivot": ("K6", "simplex_tpu/kernels/pivot.py:126",
@@ -252,7 +284,7 @@ FALLBACK_KERNELS = {
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
-         "reprice", "batch_reprice", "batch_rank1")
+         "reprice", "batch_reprice", "batch_rank1", *STEPS)
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
@@ -521,6 +553,7 @@ def phase_kernels(records: dict) -> None:
             f"torch.profiler, {1e3 * graph_ms(k5):.2f} us by CUDA events "
             "over a CUDA graph")
         if t == 37:
+            step_kernels(records, got)
             n = kernels_launched(k1)
             require(n == 1, f"one ah_ratio call launched {n} kernels")
             host = host_us(k1, 500)
@@ -703,7 +736,7 @@ def phase_kernels(records: dict) -> None:
     t = 37
     work = pivot_work(M, R, L, t, True, 4)
     bounds = {
-        **{name: bound(*work[name]) for name in SINGLE_PATH},
+        **{name: bound(*cost) for name, cost in work.items()},
         # K5: the column h, t live F rows and t values of C, the output.
         "ah": bound(4 * M + 4 * t * M + 4 * t + 4 + 4 * M, 2 * t * M),
         "reprice": bound(4 * M * R + 8 * M + 8 * R, 0, 2 * M * R),
@@ -725,6 +758,92 @@ def phase_kernels(records: dict) -> None:
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({by})")
     log(f"kernel phase: SM clock after {sm_clock()}")
+
+
+def step_kernels(records: dict, k1) -> None:
+    """The step kernels against their plain versions on the card, on K1's
+    outputs at the flagship shapes (k, p, bk, unbounded at t = 37) under
+    64 seeded states for each anti-cycling policy -- taken and skipped
+    pivots, the fuse, optimal and unbounded, Bland on and off, z moving
+    by less than eps: every output bit for bit. Then each timed on a
+    taken pivot outside Bland mode (the kernel and its plain version by
+    torch.profiler, the kernel also over a CUDA graph of 50 calls),
+    beside its bound (``STEP_BYTES``: latency binds a one-thread kernel,
+    whose bytes take picoseconds)."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    dev = torch.device("cuda")
+    _, k, p, bk, unb = k1
+    eps, max_iter = 1e-4, 10
+    rng = np.random.default_rng(20261017)
+    running = int(kb.RUNNING)
+
+    def state(bland: bool, fills: dict):
+        z = torch.tensor(rng.uniform(-5, 5), dtype=torch.float64, device=dev)
+        s = kb.pivot_scalars(z, bland)
+        for name, x in (("k", k), ("p_k1", p), ("bk", bk), ("unb", unb)):
+            getattr(s, name).copy_(x)
+        for name, v in fills.items():
+            getattr(s, name).fill_(v)
+        return s
+
+    for policy in ((False, 50), (False, None), (True, 50)):
+        for i in range(64):
+            fills = dict(
+                status=running if rng.random() < 0.8 else int(kb.OPTIMAL),
+                iterations=int(rng.integers(8, 11)),
+                stall=int(rng.integers(47, 51)),
+                h_d=int(rng.integers(0, 24476)),
+                v_d=-1e-4 * rng.uniform(0.5, 3),
+                h_b=int(rng.choice([3, kb.BIG_INDEX])),
+                v_b=-rng.uniform(0, 1))
+            if i % 4 == 0:
+                fills.update(unb=1, k=kb.BIG_INDEX, p_k1=0.0, bk=0.0)
+            elif i % 4 == 1:
+                fills["bk"] = float(bk) * 10.0 ** -rng.uniform(0, 8)
+            sk = state(bool(rng.integers(2)), fills)
+            sp = kb.PivotScalars(**{n: x.clone()
+                                    for n, x in sk.tensors().items()})
+            kb.step_pre(sk, max_iter, eps)
+            kb.step_pre_plain(sp, max_iter, eps)
+            kb.step_mid(sk)
+            kb.step_mid_plain(sp)
+            kb.step_post(sk, max_iter, eps, bland_static=policy[0],
+                         threshold=policy[1], then_pre=bool(i % 2))
+            kb.step_post_plain(sp, max_iter, eps, *policy, bool(i % 2))
+            for name, x in sk.tensors().items():
+                equal(f"step kernels {policy} state {i} {name}", x,
+                      getattr(sp, name))
+    # A taken pivot outside Bland mode, far from the fuse.
+    s = state(False, dict(h_b=kb.BIG_INDEX, v_d=-1.0))
+    big = 2 ** 30
+    calls = {
+        "step_pre": (lambda: kb.step_pre(s, big, eps),
+                     lambda: kb.step_pre_plain(s, big, eps)),
+        "step_mid": (lambda: kb.step_mid(s), lambda: kb.step_mid_plain(s)),
+        "step_post": (
+            lambda: kb.step_post(s, big, eps, bland_static=False,
+                                 threshold=50, then_pre=True),
+            lambda: kb.step_post_plain(s, big, eps, False, 50, True)),
+    }
+    for name, (kernel, plain) in calls.items():
+        kb.step_pre(s, big, eps)
+        kb.step_mid(s)
+        require(bool(s.do), f"{name}: the timed pivot is not taken")
+        ms = device_ms(kernel, 50, match=name)
+        bound_ms, by = bound(STEP_BYTES[name])
+        records[name] = {"max_abs_err": 0.0, "ms": ms,
+                         "plain_ms": device_ms(plain, 50),
+                         "bound_ms": bound_ms, "bound_by": by,
+                         "library_ms": None, "check_ms": graph_ms(kernel)}
+        log(f"{name}: every output equals its plain version's on 192 "
+            f"states; kernel {ms:.4f} ms a call (torch.profiler), "
+            f"{records[name]['check_ms']:.4f} ms (CUDA events over a CUDA "
+            f"graph of 50 calls), plain {records[name]['plain_ms']:.4f} "
+            f"ms, bound {bound_ms:.2e} ms ({by})")
 
 
 def k4_vs_k3_small(g) -> None:
@@ -1415,8 +1534,8 @@ def phase_refine_sweep() -> None:
     """``python -m simplex_tpu_torch.validate_refine_sweep`` on
     ``SWEEP_SIZES``, in this process: every row OPTIMAL, certified at
     1e-9 and within 1e-9 of ``refine_sweep_r5.json``'s objective for its
-    seed; K1-K4 launched (counters set to 0 just before, read just
-    after). Its file goes to a temporary directory."""
+    seed; K1-K4 and the step kernels launched (counters set to 0 just
+    before, read just after). Its file goes to a temporary directory."""
     import tempfile
 
     import torch
@@ -1461,9 +1580,10 @@ def phase_refine_sweep() -> None:
 def phase_refine_flagship() -> None:
     """``python -m simplex_tpu_torch.measure_refine_flagship`` at its
     default 50,000 x 10,000, in this process: ``REFINE_FLAGSHIP_OK``
-    last and K1-K4 launched (counters set to 0 just before, read just
-    after); its answer certified at 1e-9: the refinement of the mixed
-    solve's basis, or where that fails (the basis drifted, as the JAX
+    last and K1-K4 and the step kernels launched (counters set to 0
+    just before, read just after); its answer certified at 1e-9: the
+    refinement of the mixed solve's basis, or where that fails (the
+    basis drifted, as the JAX
     package's own run at this shape recorded:
     data/measures/logs_r5/refine_flagship_50k.log), the warm f64 finish
     from it, OPTIMAL with its certificates at 1e-9."""
@@ -1751,6 +1871,207 @@ def phase_flagship(launches: dict) -> tuple:
         f"median {median:.3f} max {max(warm):.3f} s; median "
         f"{1e3 * median / pivots:.4f} ms/pivot")
     return walk, median
+
+
+#: The kernels a replayed window holds (K1, K2 and the step kernels).
+GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel",
+                 "step_mid_kernel", "step_post_kernel")
+
+
+def flagship_loops(p, graph: bool, keep: list | None = None,
+                   against: list | None = None) -> dict:
+    """One production ``solve`` of the flagship ``p`` with its kernel loop
+    replaying one CUDA graph a window (``graph``) or enqueuing the same
+    kernels eagerly (``graph=False``): the walk (``FLAGSHIP_WALK``), the
+    solve's wall, each loop call's wall (host clock between two
+    synchronizes) and pivots, and each capture's ms (``capture_window``:
+    the capture and the graph's instantiation). Each loop call's final
+    state -- Tt, b, costs, z, base, the devex weights, status and
+    iterations -- is appended to ``keep`` as copies, or held to
+    ``against``'s bit for bit."""
+    import torch
+
+    from simplex_tpu_torch import solver
+
+    real = (solver.solve_loop_blocked_kernel, solver.kernel_loop,
+            solver.capture_window)
+    loops, calls, captures = [], [], []
+
+    def kernel_loop(*args, **kw):
+        loops.append(real[1](*args, **kw))
+        return loops[-1]
+
+    def capture(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real[2](*args, **kw)
+        torch.cuda.synchronize()
+        captures.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def loop(tab, options, max_iter, costs0=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st, it = real[0](tab, options, max_iter, costs0, graph=graph)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, it))
+        final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
+                 "base": out.base, "w": loops[-1].w,
+                 "status": torch.tensor(st), "iterations": torch.tensor(it)}
+        if keep is not None:
+            keep.append({k: v.clone() for k, v in final.items()})
+        if against is not None:
+            for name, want in against[len(calls) - 1].items():
+                equal(f"flagship loop call {len(calls)} {name}, graph "
+                      f"{graph}", final[name], want)
+        return out, st, it
+
+    (solver.solve_loop_blocked_kernel, solver.kernel_loop,
+     solver.capture_window) = (loop, kernel_loop, capture)
+    try:
+        res, wall = timed_solve(p)
+    finally:
+        (solver.solve_loop_blocked_kernel, solver.kernel_loop,
+         solver.capture_window) = real
+    check_certified("random_8192_8192", res, OBJ_8192)
+    walk = (res.iterations_phase1, res.iterations_phase2)
+    require(walk == FLAGSHIP_WALK, f"flagship (graph {graph}) walked {walk}, "
+            f"recorded {FLAGSHIP_WALK}")
+    require(len(captures) == (len(calls) if graph else 0),
+            f"{len(captures)} captures in {len(calls)} loop calls")
+    loop_s = sum(c[0] for c in calls)
+    pivots = sum(c[1] for c in calls)
+    return dict(wall=wall, loop_s=loop_s, pivots=pivots, calls=calls,
+                captures=captures, ms_pivot=1e3 * loop_s / pivots)
+
+
+def phase_window_graph() -> None:
+    """The production flagship through ``solve`` two ways, in turns --
+    eager, graph, graph, eager: the kernel loop enqueuing its kernels
+    eagerly (``solve_loop_blocked_kernel(graph=False)``) and replaying
+    one CUDA graph a window. Every run walks ``FLAGSHIP_WALK`` and every
+    loop call (phase 1 and phase 2) ends with the first eager run's Tt,
+    b, costs, z, base and devex weights bit for bit. Prints each run's
+    loop ms/pivot, solve wall and capture ms."""
+    import statistics as stats
+
+    p = benchmark_problem(8192)
+    keep: list = []
+    ms = {False: [], True: []}
+    for i, graph in enumerate((False, True, True, False)):
+        r = flagship_loops(p, graph, keep=None if i else keep,
+                           against=keep if i else None)
+        ms[graph].append(r["ms_pivot"])
+        log(f"flagship, loop {'graph' if graph else 'eager'}: "
+            f"{r['ms_pivot']:.4f} ms/pivot over {r['pivots']} pivots "
+            f"(loop calls " + ", ".join(f"{1e3 * c[0]:.1f} ms / {c[1]}"
+                                        for c in r["calls"])
+            + f"); solve wall {r['wall']:.3f} s; captures "
+            + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
+            + " ms" + ("" if i else "; the final state kept"))
+    del keep
+    log(f"flagship loop: eager {ms[False][0]:.4f} / {ms[False][1]:.4f}, "
+        f"graph {ms[True][0]:.4f} / {ms[True][1]:.4f} ms/pivot; eager / "
+        f"graph {stats.mean(ms[False]) / stats.mean(ms[True]):.2f}x; every "
+        "run walked the recorded pivots, every loop call's final state "
+        "bit for bit the first eager run's")
+
+
+def phase_window_trace() -> None:
+    """One production flagship ``solve`` with its phase-1 loop call traced
+    by torch.profiler (CUDA activity): the kernels each replayed window
+    holds a pivot (``GRAPH_KERNELS``), the device's busy share inside a
+    replayed window (its kernels' time over the span from its first
+    kernel's start to its last one's end), and over the window's whole
+    period, boundary included (window apply to window apply). Runs after
+    every timed solve."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import solver
+
+    real = solver.solve_loop_blocked_kernel
+    traced = []
+
+    def loop(*args, **kw):
+        if traced:
+            return real(*args, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+        traced.append((prof, out[2]))
+        return out
+
+    p = benchmark_problem(8192)
+    solver.solve_loop_blocked_kernel = loop
+    try:
+        timed_solve(p)
+    finally:
+        solver.solve_loop_blocked_kernel = real
+    prof, pivots = traced[0]
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    w = window_stats(events, PROD["block_pivots"])
+    log(f"phase-1 loop traced ({pivots} pivots, {w['windows']} windows): "
+        f"{w['per_pivot'][0]:.4f}-{w['per_pivot'][1]:.4f} kernels a pivot "
+        f"in a replayed window (the middle one: {w['names']}); device busy "
+        f"inside a replayed window {100 * w['inside'][0]:.1f}-"
+        f"{100 * w['inside'][2]:.1f}% (median {100 * w['inside'][1]:.1f}%),"
+        f" over a window's period with its boundary "
+        f"{100 * w['period'][0]:.1f}-{100 * w['period'][2]:.1f}% (median "
+        f"{100 * w['period'][1]:.1f}%); the middle window's kernels "
+        f"{w['us_pivot']:.2f} us a pivot, its span {w['span_us']:.1f} us")
+
+
+def window_stats(events: list, L: int) -> dict:
+    """From a chrome trace's events, the windows of a traced kernel loop:
+    a window is the graph's kernels (``GRAPH_KERNELS``) before a window
+    apply (K3 or K4). Returns the windows' count, the (min, max) kernels
+    a pivot, the (min, median, max) busy share inside a window (its
+    kernels' time over the span from its first kernel's start to its last
+    one's end) and over a window's period (apply to apply, the boundary
+    included), and the middle window's kernels by name, kernel us a
+    pivot and span."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    windows, applies = [[]], []
+    for e in kernels:
+        if "window_apply" in e["name"]:
+            applies.append(e)
+            windows.append([])
+        elif any(name in e["name"] for name in GRAPH_KERNELS):
+            windows[-1].append(e)
+    windows = windows[:len(applies)]
+    require(len(applies) >= 3 and all(windows),
+            f"the trace holds {len(applies)} window applies and "
+            f"{sum(map(len, windows))} graph kernels")
+    per_pivot = [len(w) / L for w in windows]
+    inside, period = [], []
+    for i, w in enumerate(windows):
+        span = max(e["ts"] + e["dur"] for e in w) - w[0]["ts"]
+        inside.append(sum(e["dur"] for e in w) / span)
+        if i:
+            t0, t1 = applies[i - 1]["ts"], applies[i]["ts"]
+            busy = sum(min(e["ts"] + e["dur"], t1) - e["ts"]
+                       for e in kernels if t0 <= e["ts"] < t1)
+            period.append(busy / (t1 - t0))
+    require(max(per_pivot) <= 5, f"{max(per_pivot)} kernels a pivot")
+    mid = windows[len(windows) // 2]
+
+    def spread(x):
+        return min(x), statistics.median(x), max(x)
+
+    return dict(
+        windows=len(windows), per_pivot=(min(per_pivot), max(per_pivot)),
+        inside=spread(inside), period=spread(period),
+        names=dict(collections.Counter(
+            next(n for n in GRAPH_KERNELS if n in e["name"]) for e in mid)),
+        us_pivot=sum(e["dur"] for e in mid) / L,
+        span_us=max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"])
 
 
 class SaveTimes:
@@ -2906,6 +3227,7 @@ def main() -> int:
         phase_cli()
         phase_r1024()
         walks[8192], flagship_wall = phase_flagship(launches)
+        phase_window_graph()
         phase_resumable(flagship_wall)
         northstar = phase_northstar()
         r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
@@ -2941,6 +3263,7 @@ def main() -> int:
         phase_batch_reprice(records)
         phase_rank1_kernel(records)
         phase_batch_trace()
+        phase_window_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2953,7 +3276,7 @@ def main() -> int:
         for name in ORDER))
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
-              **FALLBACK_KERNELS}
+              **FALLBACK_KERNELS, **STEP_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

@@ -40,8 +40,9 @@ import dataclasses
 import torch
 
 from .config import EPS_REL_F32, SolverOptions, Status, normalize_enabled
+from .kernels.blocked import anticycling_update, exit_status
 from .kernels.pivot import batch_rank1
-from .solver import SEQ_CHUNK, _exit_status, anticycling_update
+from .solver import SEQ_CHUNK
 from .tableau import MATVEC_CHUNK_BYTES, BatchTableau, batch_basic_costs
 
 RUNNING = int(Status.RUNNING)
@@ -129,7 +130,7 @@ def seq_step(st: SeqState, options: SolverOptions, max_iter: int) -> None:
         bland_static=options.pivot_rule_resolved == "bland",
         threshold=options.bland_threshold)
     tabs.z = z2
-    st.status = _exit_status(active, optimal, unbounded, st.status)
+    st.status = exit_status(active, optimal, unbounded, st.status)
     st.iterations = st.iterations + do.to(torch.int32)
 
 
@@ -310,7 +311,7 @@ def blocked_pivot(st: BlockedState, t: int, options: SolverOptions,
         do, (z - tabs.z).abs() >= eps, st.stall, st.bland,
         bland_static=options.pivot_rule_resolved == "bland",
         threshold=options.bland_threshold)
-    st.status = _exit_status(active, optimal, unbounded, st.status)
+    st.status = exit_status(active, optimal, unbounded, st.status)
     st.iterations = st.iterations + do.to(torch.int32)
     tabs.b, tabs.costs, tabs.z = b, costs, z
 

@@ -33,9 +33,11 @@ the same shape, the peak device memory) go to stderr:
 * ``pivot_rule`` (the options' resolved rule) and
   ``dantzig_ms_per_pivot`` (the marginal under Dantzig when the rule is
   not Dantzig, else null);
-* the set-up stages. Eager PyTorch has no trace step and compiles no
-  loop, so ``build_trace_s``, ``loop_trace_s`` and ``loop_compile_s``
-  are 0.0. ``build_compile_s`` is the wall of ``kernels._build.build()``
+* the set-up stages. PyTorch has no trace step, and the kernel loop's
+  counterpart of the JAX loop's compile -- one CUDA graph of a window,
+  captured by each loop call on the card -- runs inside each timed run,
+  so ``build_trace_s``, ``loop_trace_s`` and ``loop_compile_s`` are
+  0.0. ``build_compile_s`` is the wall of ``kernels._build.build()``
   and ``load_library()`` at first use (on the card, when the options
   take a kernel; near 0 when ``_build/`` is warm, 0.0 elsewhere).
   ``build_exec_s`` is the wall of generating A and b, building the

@@ -113,6 +113,11 @@ SIGNATURES = {
     "ah_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # Tt M R coeffs part mv stream
     "reprice_launch": [_P, _I, _I, _P, _P, _P, _P],
+    # csrc/step.cu: the scalars' pointers (by reference), max_iter eps,
+    # [bland mode, threshold, then_pre,] stream
+    "step_pre_launch": [_P, ctypes.c_longlong, _D, _P],
+    "step_mid_launch": [_P, _P],
+    "step_post_launch": [_P, ctypes.c_longlong, _D, _I, _I, _I, _P],
     # csrc/batched.cu: Tt costs b z base w sci c0 cf C F AH piv nlive,
     # B M R L r eps bland_static threshold, the plan (cs vec res_c res_f
     # smem), stream

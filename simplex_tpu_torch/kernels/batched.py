@@ -40,10 +40,9 @@ from typing import NamedTuple
 import torch
 
 from ..config import Status
-from ..solver import anticycling_update
 from ..tableau import batch_tt_matvec
 from .blocked import (BIG_INDEX, _expect, _on_card, _ptr, _stream,
-                      batch_candidates)
+                      anticycling_update, batch_candidates)
 
 #: The largest window the kernel takes (csrc/batched.cu LMAX).
 LMAX = 128

@@ -29,9 +29,11 @@ flag) are 0-dim tensors; ``t``, ``r`` and ``eps`` are host values.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
+from ..config import Status
 from ..tableau import tt_matvec
 
 #: Sentinel index: no eligible row / column.
@@ -46,12 +48,33 @@ APPLY_TILE = 128
 
 #: Launches of each kernel since the last ``reset_launches``.
 LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
-            "apply_window": 0, "ah": 0, "reprice": 0}
+            "apply_window": 0, "ah": 0, "reprice": 0, "step_pre": 0,
+            "step_mid": 0, "step_post": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class CapturedLaunches:
+    """Launch counts for a CUDA graph. Around a capture it takes back what
+    the wrappers counted while capturing (a capture runs nothing) and keeps
+    it as the graph's own launches; ``replayed`` adds those once a
+    replay."""
+
+    def __enter__(self) -> "CapturedLaunches":
+        self._before = dict(LAUNCHES)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.per_replay = {name: LAUNCHES[name] - self._before[name]
+                           for name in LAUNCHES}
+        LAUNCHES.update(self._before)
+
+    def replayed(self) -> None:
+        for name, n in self.per_replay.items():
+            LAUNCHES[name] += n
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -189,7 +212,14 @@ def ah_ratio_workspace(M: int, device) -> torch.Tensor:
                        device=device)
 
 
-def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None):
+def _into(out, got):
+    """Copy each of ``got`` into its buffer in ``out``; returns ``out``."""
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
+
+
+def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None, out=None):
     """K1, the port of ``simplex_tpu.kernels.blocked.ah_ratio_pass``.
 
     Live entering column ``a_h = Tt[:, h] - C[:t, h] @ F[:t]`` and the
@@ -198,7 +228,9 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None):
     f32, bk = b[k] f64, unbounded i32)``; with no eligible row k is
     ``BIG_INDEX``, p and bk are 0 and unbounded is 1. ``ws`` is an
     ``ah_ratio_workspace``; on the card a call without one allocates
-    one."""
+    one. ``out``, when given, holds five tensors of those dtypes and
+    shapes that the results are written into and returned: a call that
+    allocates nothing, as a CUDA graph needs."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(b, "b", torch.float64, (M,))
     _expect(h, "h", torch.int32, ())
@@ -207,8 +239,15 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None):
     if ws is not None:
         _check_workspace(ws, ah_ratio_workspace_bytes(M), Tt.device,
                          f"ah_ratio_workspace({M})")
+    if out is not None:
+        for x, name, dt, shape in zip(
+                out, ("a_h", "k", "p", "bk", "unbounded"),
+                (torch.float32, torch.int32, torch.float32, torch.float64,
+                 torch.int32), ((M,), (), (), (), ())):
+            _expect(x, f"out {name}", dt, shape)
     if not _on_card(Tt, F, C, b, h):
-        return ah_ratio_plain(Tt, F, C, b, h, t, eps)
+        got = ah_ratio_plain(Tt, F, C, b, h, t, eps)
+        return got if out is None else _into(out, got)
 
     from ._build import check, load_library
 
@@ -216,20 +255,21 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None):
     dev = Tt.device
     if ws is None:
         ws = ah_ratio_workspace(M, dev)
-    # Three allocations: a_h, (k, p's bits, unbounded) int32, and bk.
-    ah = torch.empty(M, dtype=torch.float32, device=dev)
-    ints = torch.empty(3, dtype=torch.int32, device=dev)
-    bk = torch.empty((), dtype=torch.float64, device=dev)
-    ip = ints.data_ptr()
+    if out is None:
+        # Three allocations: a_h, (k, p's bits, unbounded) int32, and bk.
+        ints = torch.empty(3, dtype=torch.int32, device=dev)
+        k, p_bits, unb = ints.unbind()
+        out = (torch.empty(M, dtype=torch.float32, device=dev), k,
+               p_bits.view(torch.float32),
+               torch.empty((), dtype=torch.float64, device=dev), unb)
+    ah, k, p, bk, unb = out
     err = lib.ah_ratio_launch(
         _ptr(Tt), _ptr(F), _ptr(C), _ptr(b), _ptr(h), t, M, R, float(eps),
-        _ptr(ah), _ptr(ws), ws.numel(), ctypes.c_void_p(ip),
-        ctypes.c_void_p(ip + 4), _ptr(bk), ctypes.c_void_p(ip + 8),
-        _stream(Tt))
+        _ptr(ah), _ptr(ws), ws.numel(), _ptr(k), _ptr(p), _ptr(bk),
+        _ptr(unb), _stream(Tt))
     check(lib, err, "ah_ratio")
     LAUNCHES["ah_ratio"] += 1
-    k, p_bits, unb = ints.unbind()
-    return ah, k, p_bits.view(torch.float32), bk, unb
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +367,7 @@ def colk_workspace(R: int, device) -> torch.Tensor:
 
 
 def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
-               ah, b, base, h, p, bk, w=None, ws=None):
+               ah, b, base, h, p, bk, w=None, ws=None, out=None):
     """K2, the port of ``simplex_tpu.kernels.blocked.colk_costs_pass``
     with ``bf`` and optionally ``devex``.
 
@@ -342,7 +382,9 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     the next candidates over the (updated) costs, as
     ``entering_candidates``. ``k`` may be ``BIG_INDEX`` (unbounded; then
     ``do`` is false) and is clamped into range. ``ws`` is a
-    ``colk_workspace``; on the card a call without one allocates one."""
+    ``colk_workspace``; on the card a call without one allocates one.
+    ``out``, when given, holds the four candidates' 0-dim tensors (int32,
+    f64, int32, f64) that they are written into and returned."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -356,9 +398,14 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
         _expect(w, "w", torch.float32, (R,))
     if not 0 <= t < L:
         raise ValueError(f"t={t} outside the window [0, {L})")
+    if out is not None:
+        for x, name, dt in zip(out, ("h_d", "v_d", "h_b", "v_b"),
+                               (torch.int32, torch.float64) * 2):
+            _expect(x, f"out {name}", dt, ())
     if not _on_card(Tt, C, F, costs, k, u, do, ah, b, base, h, p, bk, w):
-        return colk_costs_plain(Tt, C, F, costs, k, t, u, do, r, eps, ah, b,
-                                base, h, p, bk, w)
+        got = colk_costs_plain(Tt, C, F, costs, k, t, u, do, r, eps, ah, b,
+                               base, h, p, bk, w)
+        return got if out is None else _into(out, got)
 
     from ._build import check, load_library
 
@@ -367,21 +414,223 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     if ws is None:
         ws = colk_workspace(R, dev)
     _check_workspace(ws, colk_workspace_bytes(R), dev, f"colk_workspace({R})")
-    # The candidates: (h_d, h_b) int32 and (v_d, v_b) f64, two allocations.
-    hidx = torch.empty(2, dtype=torch.int32, device=dev)
-    vals = torch.empty(2, dtype=torch.float64, device=dev)
-    hp, vp = hidx.data_ptr(), vals.data_ptr()
+    if out is None:
+        # (h_d, h_b) int32 and (v_d, v_b) f64: two allocations.
+        h_d, h_b = torch.empty(2, dtype=torch.int32, device=dev).unbind()
+        v_d, v_b = torch.empty(2, dtype=torch.float64, device=dev).unbind()
+        out = (h_d, v_d, h_b, v_b)
+    h_d, v_d, h_b, v_b = out
     err = lib.colk_costs_launch(
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(k), t, _ptr(u),
         _ptr(do), r, float(eps), M, R, _ptr(ah), _ptr(b), _ptr(base),
         _ptr(h), _ptr(p), _ptr(bk), _ptr(w), _ptr(ws), ws.numel(),
-        ctypes.c_void_p(hp), ctypes.c_void_p(vp), ctypes.c_void_p(hp + 4),
-        ctypes.c_void_p(vp + 8), _stream(Tt))
+        _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b), _stream(Tt))
     check(lib, err, "colk_costs")
     LAUNCHES["colk_costs"] += 1
-    h_d, h_b = hidx.unbind()
-    v_d, v_b = vals.unbind()
-    return h_d, v_d, h_b, v_b
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The per-pivot step: the blocked-kernel loop's scalar glue around K1 and K2.
+
+RUNNING = int(Status.RUNNING)
+OPTIMAL = int(Status.OPTIMAL)
+UNBOUNDED = int(Status.UNBOUNDED)
+
+#: Bland policies of the step kernels (csrc/step.cu ``BlandMode``).
+BLAND_THRESHOLD, BLAND_STATIC, BLAND_NEVER = 0, 1, 2
+
+
+def exit_status(active, optimal, unbounded, status):
+    """The status after one pivot: OPTIMAL / UNBOUNDED / RUNNING where the
+    pivot was active, else the status as it was."""
+    return torch.where(
+        active, torch.where(optimal, OPTIMAL,
+                            torch.where(unbounded, UNBOUNDED, RUNNING)),
+        status).to(torch.int32)
+
+
+def anticycling_update(do, improved, prev_stall, prev_bland, *,
+                       bland_static: bool, threshold):
+    """The stall/Bland anti-cycling policy (``simplex_tpu.solver``): an
+    applied pivot that improves z by >= eps resets the stall counter and
+    leaves Bland mode; a non-improving one increments it and enters Bland
+    once it reaches ``threshold``. Returns (stall, bland) tensors."""
+    stall = torch.where(do, torch.where(improved, 0, prev_stall + 1),
+                        prev_stall).to(torch.int32)
+    if bland_static:
+        bland = torch.ones_like(prev_bland)
+    elif threshold is None:
+        bland = torch.zeros_like(prev_bland)
+    else:
+        bland = torch.where(do, ~improved & (stall >= threshold), prev_bland)
+    return stall, bland
+
+
+_I32, _F32, _F64, _BOOL = torch.int32, torch.float32, torch.float64, torch.bool
+
+
+@dataclasses.dataclass
+class PivotScalars:
+    """The 0-dim tensors that the per-pivot step reads and writes, each
+    only ever updated in place. The first nine are the loop's carry; the
+    rest one pivot's intermediates: the step before K1 writes active, h,
+    minc and optimal; K1 writes k, p_k1 (its p), bk and unb; the step
+    between K1 and K2 writes do, p and u, which K2 reads. The field order
+    is ``csrc/step.cu``'s ``Step``."""
+
+    status: torch.Tensor
+    iterations: torch.Tensor
+    stall: torch.Tensor
+    bland: torch.Tensor
+    z: torch.Tensor
+    h_d: torch.Tensor
+    v_d: torch.Tensor
+    h_b: torch.Tensor
+    v_b: torch.Tensor
+    active: torch.Tensor
+    h: torch.Tensor
+    minc: torch.Tensor
+    optimal: torch.Tensor
+    k: torch.Tensor
+    p_k1: torch.Tensor
+    bk: torch.Tensor
+    unb: torch.Tensor
+    do: torch.Tensor
+    p: torch.Tensor
+    u: torch.Tensor
+
+    DTYPES = (_I32, _I32, _I32, _BOOL, _F64, _I32, _F64, _I32, _F64, _BOOL,
+              _I32, _F64, _BOOL, _I32, _F32, _F64, _I32, _BOOL, _F32, _F64)
+
+    def __post_init__(self):
+        dev = self.status.device
+        for (name, x), dt in zip(self.tensors().items(), self.DTYPES):
+            _expect(x, name, dt, ())
+            if x.device != dev:
+                raise ValueError(f"{name} on {x.device}, status on {dev}")
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+
+def pivot_scalars(z: torch.Tensor, bland: bool) -> PivotScalars:
+    """A loop's scalars at its start: status RUNNING, no iterations, no
+    stall, ``bland`` as given, a copy of ``z`` in f64, the rest zero."""
+    dev = z.device
+    vals = {"status": RUNNING, "bland": bland}
+    fields = [f.name for f in dataclasses.fields(PivotScalars)]
+    x = {name: torch.full((), vals.get(name, 0), dtype=dt, device=dev)
+         for name, dt in zip(fields, PivotScalars.DTYPES)}
+    x["z"] = z.to(_F64).reshape(()).clone()
+    return PivotScalars(**x)
+
+
+def step_pre_plain(s: PivotScalars, max_iter: int, eps: float) -> None:
+    """Plain version of ``step_pre``."""
+    s.active.copy_((s.status == RUNNING) & (s.iterations < max_iter))
+    use_bland = s.bland & (s.h_b < BIG_INDEX)
+    s.h.copy_(torch.where(use_bland, s.h_b, s.h_d))
+    s.minc.copy_(torch.where(use_bland, s.v_b, s.v_d))
+    s.optimal.copy_(s.minc > -eps)
+
+
+def step_mid_plain(s: PivotScalars) -> None:
+    """Plain version of ``step_mid``."""
+    do = s.active & ~(s.optimal | (s.unb != 0))
+    s.do.copy_(do)
+    s.p.copy_(torch.where(do, s.p_k1, 1.0))
+    s.u.copy_(torch.where(do, s.minc / s.p.to(_F64), 0.0))
+
+
+def step_post_plain(s: PivotScalars, max_iter: int, eps: float,
+                    bland_static: bool, threshold, then_pre: bool) -> None:
+    """Plain version of ``step_post``."""
+    z2 = torch.where(s.do, s.z - s.u * s.bk, s.z)
+    s.status.copy_(exit_status(s.active, s.optimal, s.unb != 0, s.status))
+    stall, bland = anticycling_update(
+        s.do, (z2 - s.z).abs() >= eps, s.stall, s.bland,
+        bland_static=bland_static, threshold=threshold)
+    s.stall.copy_(stall)
+    s.bland.copy_(bland)
+    s.iterations.add_(s.do.to(_I32))
+    s.z.copy_(z2)
+    if then_pre:
+        step_pre_plain(s, max_iter, eps)
+
+
+class _StepPtrs(ctypes.Structure):
+    """``PivotScalars``' device pointers, in its field order: csrc/step.cu's
+    ``Step``, passed by value to each step kernel."""
+
+    _fields_ = [(f.name, ctypes.c_void_p)
+                for f in dataclasses.fields(PivotScalars)]
+
+
+def _step_ptrs(s: PivotScalars) -> _StepPtrs:
+    return _StepPtrs(*(x.data_ptr() for x in s.tensors().values()))
+
+
+def step_pre(s: PivotScalars, max_iter: int, eps: float) -> None:
+    """The step before K1 (the XLA-fused glue of ``simplex_tpu/solver.py:
+    731-742``): ``active = status == RUNNING and iterations < max_iter``;
+    the Bland candidate where ``bland`` is on and one is eligible
+    (``h_b < BIG_INDEX``), else the main one, gives ``h`` and ``minc``;
+    ``optimal = minc > -eps``. One thread on the card."""
+    if not _on_card(s.status):
+        step_pre_plain(s, max_iter, eps)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.step_pre_launch(ctypes.byref(_step_ptrs(s)), max_iter,
+                              float(eps), _stream(s.status))
+    check(lib, err, "step_pre")
+    LAUNCHES["step_pre"] += 1
+
+
+def step_mid(s: PivotScalars) -> None:
+    """The step between K1 and K2 (``simplex_tpu/solver.py:751-761``):
+    ``do = active and not (optimal or unb)``; ``p`` is K1's p where the
+    pivot is done, else 1; ``u = minc / p`` in f64 where it is done, else
+    0. One thread on the card."""
+    if not _on_card(s.status):
+        step_mid_plain(s)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.step_mid_launch(ctypes.byref(_step_ptrs(s)), _stream(s.status))
+    check(lib, err, "step_mid")
+    LAUNCHES["step_mid"] += 1
+
+
+def step_post(s: PivotScalars, max_iter: int, eps: float, *,
+              bland_static: bool, threshold, then_pre: bool) -> None:
+    """The step after K2 (``simplex_tpu/solver.py:777-794``): ``z -= u *
+    bk`` where the pivot is done (two f64 roundings); the status
+    (``exit_status``); the stall counter and Bland flag
+    (``anticycling_update``, improved when z moved by >= eps);
+    ``iterations += do``. With ``then_pre`` the next pivot's
+    ``step_pre`` follows in the same launch. One thread on the card."""
+    if not _on_card(s.status):
+        step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
+        return
+
+    from ._build import check, load_library
+
+    mode = (BLAND_STATIC if bland_static else
+            BLAND_NEVER if threshold is None else BLAND_THRESHOLD)
+    lib = load_library()
+    err = lib.step_post_launch(
+        ctypes.byref(_step_ptrs(s)), max_iter, float(eps), mode,
+        0 if threshold is None else int(threshold), int(then_pre),
+        _stream(s.status))
+    check(lib, err, "step_post")
+    LAUNCHES["step_post"] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -49,14 +49,14 @@ import torch.distributed as dist
 from ..config import (DEFAULT_OPTIONS, EPS_REL_F32, SolverOptions, Status,
                       kernel_blocked_enabled, normalize_enabled,
                       refine_enabled)
-from ..kernels.blocked import (BIG_INDEX, ah, ah_plain, apply_reprice,
-                               apply_window, colk_costs, colk_workspace,
-                               entering_candidates)
+from ..kernels.blocked import (BIG_INDEX, ah, ah_plain, anticycling_update,
+                               apply_reprice, apply_window, colk_costs,
+                               colk_workspace, entering_candidates,
+                               exit_status)
 from ..problem import Problem
 from ..result import SolveResult
 from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
-                      _exit_status, anticycling_update, initial_state,
-                      pivot_update, ratio_test)
+                      initial_state, pivot_update, ratio_test)
 from ..tableau import (Tableau, count_basic_artificials, extract_solution,
                        phase1_objective, round_up, tt_matvec)
 from ..two_phase import DeviceSolveOutput, certify, resolve_device
@@ -284,7 +284,7 @@ def iteration_body_sharded(state: LoopState, shard: Shard,
         do, (tab2.z - tab.z).abs() >= eps, state.stall, state.bland,
         bland_static=options.pivot_rule_resolved == "bland",
         threshold=options.bland_threshold)
-    return LoopState(tab2, _exit_status(active, optimal, unbounded,
+    return LoopState(tab2, exit_status(active, optimal, unbounded,
                                         state.status),
                      state.iterations + do.to(torch.int32), stall, bland)
 
@@ -397,7 +397,7 @@ def solve_loop_blocked_sharded(tab: Tableau, shard: Shard,
             C[t] = torch.where(do, colk, 0.0)
             F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p,
                                                a_h / p), 0.0)
-            status = _exit_status(active, optimal, unbounded, status)
+            status = exit_status(active, optimal, unbounded, status)
             stall, bland = anticycling_update(
                 do, (z2 - z).abs() >= eps, stall, bland,
                 bland_static=bland_static, threshold=threshold)
@@ -544,7 +544,7 @@ def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,
                 packed = _pack(*cands, None, shard)
             h_d, v_d, h_b, v_b, w_d, w_b = _fold(packed, shard)
             z2 = torch.where(do, z - u * bk, z)
-            status = _exit_status(active, optimal, unbounded, status)
+            status = exit_status(active, optimal, unbounded, status)
             stall, bland = anticycling_update(
                 do, (z2 - z).abs() >= eps, stall, bland,
                 bland_static=bland_static, threshold=threshold)

@@ -18,7 +18,11 @@ idempotent once its loop has finished, and every pivot is gated on
 reports exactly ``max_iter`` pivots whatever the chunk.
 
 The tableau is updated in place (the JAX package's loops return a new
-one); b, the costs, z and base are new tensors each pivot.
+one); in the other loops than the blocked-kernel one b, the costs, z and
+base are new tensors each pivot. The blocked-kernel loop keeps its whole
+state in fixed tensors updated in place, and on the card replays one
+CUDA graph a window: the port of the JAX loop's jitted
+``lax.fori_loop``.
 """
 
 from __future__ import annotations
@@ -28,16 +32,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from .config import (EPS_REL_F32, SolverOptions, Status,
-                     kernel_blocked_enabled, normalize_enabled)
-from .kernels.blocked import (BIG_INDEX, ah_ratio, ah_ratio_workspace,
-                              apply_reprice, apply_window, colk_costs,
-                              colk_workspace, entering_candidates)
+from .config import (EPS_REL_F32, SolverOptions, kernel_blocked_enabled,
+                     normalize_enabled)
+from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
+                              PivotScalars, ah_ratio, ah_ratio_workspace,
+                              anticycling_update, apply_reprice,
+                              apply_window, colk_costs, colk_workspace,
+                              entering_candidates, exit_status,
+                              pivot_scalars, step_mid, step_post, step_pre)
 from .tableau import Tableau, basic_costs, tt_matvec
-
-RUNNING = int(Status.RUNNING)
-OPTIMAL = int(Status.OPTIMAL)
-UNBOUNDED = int(Status.UNBOUNDED)
 
 #: Pivots the sequential loops enqueue between two host reads of the
 #: status. After the exit the rest of a chunk are skipped pivots: each
@@ -49,32 +52,6 @@ def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``x[i]`` for a 0-dim index tensor, as a 0-dim tensor, without a
     host sync."""
     return x.index_select(0, i.long().view(1)).view(())
-
-
-def _exit_status(active, optimal, unbounded, status):
-    """The status after one pivot: OPTIMAL / UNBOUNDED / RUNNING where the
-    pivot was active, else the status as it was."""
-    return torch.where(
-        active, torch.where(optimal, OPTIMAL,
-                            torch.where(unbounded, UNBOUNDED, RUNNING)),
-        status).to(torch.int32)
-
-
-def anticycling_update(do, improved, prev_stall, prev_bland, *,
-                       bland_static: bool, threshold):
-    """The stall/Bland anti-cycling policy (``simplex_tpu.solver``): an
-    applied pivot that improves z by >= eps resets the stall counter and
-    leaves Bland mode; a non-improving one increments it and enters Bland
-    once it reaches ``threshold``. Returns (stall, bland) tensors."""
-    stall = torch.where(do, torch.where(improved, 0, prev_stall + 1),
-                        prev_stall).to(torch.int32)
-    if bland_static:
-        bland = torch.ones_like(prev_bland)
-    elif threshold is None:
-        bland = torch.zeros_like(prev_bland)
-    else:
-        bland = torch.where(do, ~improved & (stall >= threshold), prev_bland)
-    return stall, bland
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +185,7 @@ def iteration_body(state: LoopState, options: SolverOptions,
         do, (tab2.z - tab.z).abs() >= eps, state.stall, state.bland,
         bland_static=options.pivot_rule_resolved == "bland",
         threshold=options.bland_threshold)
-    return LoopState(tab2, _exit_status(active, optimal, unbounded,
+    return LoopState(tab2, exit_status(active, optimal, unbounded,
                                         state.status),
                      state.iterations + do.to(torch.int32), stall, bland)
 
@@ -294,7 +271,7 @@ def solve_loop_pallas(tab: Tableau, options: SolverOptions,
         stall, bland = anticycling_update(
             do, (tab2.z - tab.z).abs() >= eps, s.stall, s.bland,
             bland_static=bland_static, threshold=options.bland_threshold)
-        return LoopState(tab2, _exit_status(active, optimal, unbounded,
+        return LoopState(tab2, exit_status(active, optimal, unbounded,
                                             s.status),
                          s.iterations + do.to(torch.int32), stall, bland,
                          cand)
@@ -431,7 +408,7 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions, max_iter: int,
             C[t] = torch.where(do, colk, 0.0)
             F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p,
                                                a_h / p), 0.0)
-            status = _exit_status(active, optimal, unbounded, status)
+            status = exit_status(active, optimal, unbounded, status)
             stall, bland = anticycling_update(
                 do, (z2 - z).abs() >= eps, stall, bland,
                 bland_static=bland_static, threshold=threshold)
@@ -453,9 +430,108 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions, max_iter: int,
 # ---------------------------------------------------------------------------
 # The blocked-kernel loop (K1-K4).
 
+@dataclasses.dataclass
+class KernelLoop:
+    """The blocked-kernel loop's state: a fixed set of tensors, each only
+    ever updated in place, since a CUDA graph of the window bakes in every
+    pointer it reads. ``Tt`` is the caller's tableau; b, the costs (f64)
+    and base are the loop's own copies; ``w`` holds the devex weights
+    (None under the other rules); ``ah`` is K1's column, ``ws_k1`` and
+    ``ws_k2`` K1's and K2's workspaces; ``s`` the per-pivot scalars."""
+
+    Tt: torch.Tensor
+    C: torch.Tensor
+    F: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    w: torch.Tensor | None
+    ah: torch.Tensor
+    ws_k1: torch.Tensor
+    ws_k2: torch.Tensor
+    s: PivotScalars
+    r: int
+
+    def set_candidates(self, cands) -> None:
+        for dst, src in zip((self.s.h_d, self.s.v_d, self.s.h_b,
+                             self.s.v_b), cands):
+            dst.copy_(src)
+
+
+def kernel_loop(tab: Tableau, options: SolverOptions) -> KernelLoop:
+    """The state at the start of ``solve_loop_blocked_kernel``: the
+    vectors in f64, the devex weights at 1, status RUNNING and the first
+    candidates folded over the costs."""
+    L = int(options.block_pivots)
+    Tt = tab.Tt
+    M, R = Tt.shape
+    dev = Tt.device
+    f64 = torch.float64
+    devex = options.pivot_rule_resolved == "devex"
+    # Every row of C and F is rewritten each window before any pass reads
+    # it (a skipped pivot writes zeros), so the factors are never cleared.
+    loop = KernelLoop(
+        Tt, C=torch.zeros((L, R), dtype=torch.float32, device=dev),
+        F=torch.zeros((L, M), dtype=torch.float32, device=dev),
+        b=tab.b.to(f64).clone(), costs=tab.costs.to(f64).clone(),
+        base=tab.base.to(torch.int32).clone(),
+        w=torch.ones(R, dtype=torch.float32, device=dev) if devex else None,
+        ah=torch.empty(M, dtype=torch.float32, device=dev),
+        ws_k1=ah_ratio_workspace(M, dev), ws_k2=colk_workspace(R, dev),
+        s=pivot_scalars(tab.z, options.pivot_rule_resolved == "bland"),
+        r=tab.r)
+    loop.set_candidates(entering_candidates(
+        loop.costs, loop.w, tab.r, float(options.eps_resolved)))
+    return loop
+
+
+def run_window(loop: KernelLoop, options: SolverOptions,
+               max_iter: int) -> None:
+    """Enqueue one window of L pivots with no host read: the step before
+    K1 of the window's first pivot, then per pivot K1, the step between,
+    K2 and the step after, which also runs the next pivot's step before
+    K1. ``t`` is a constant of each call: the body that a CUDA graph
+    captures."""
+    eps = float(options.eps_resolved)
+    L = int(options.block_pivots)
+    policy = dict(bland_static=options.pivot_rule_resolved == "bland",
+                  threshold=options.bland_threshold)
+    s = loop.s
+    step_pre(s, max_iter, eps)
+    for t in range(L):
+        ah_ratio(loop.Tt, loop.F, loop.C, loop.b, s.h, t, eps, loop.ws_k1,
+                 out=(loop.ah, s.k, s.p_k1, s.bk, s.unb))
+        step_mid(s)
+        colk_costs(loop.Tt, loop.C, loop.F, loop.costs, s.k, t, s.u, s.do,
+                   loop.r, eps, loop.ah, loop.b, loop.base, s.h, s.p, s.bk,
+                   loop.w, loop.ws_k2, out=(s.h_d, s.v_d, s.h_b, s.v_b))
+        step_post(s, max_iter, eps, then_pre=t + 1 < L, **policy)
+
+
+def capture_window(loop: KernelLoop, options: SolverOptions, max_iter: int
+                   ) -> tuple[torch.cuda.CUDAGraph, CapturedLaunches]:
+    """One window (``run_window``) captured as a CUDA graph on a side
+    stream, and the launches it holds. A capture runs nothing, so the
+    state does not move; the kernel library is loaded first, outside
+    it. A failed capture raises."""
+    from .kernels._build import load_library
+
+    load_library()
+    graph = torch.cuda.CUDAGraph()
+    with CapturedLaunches() as launches, \
+            torch.cuda.stream(torch.cuda.Stream(loop.Tt.device)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            run_window(loop, options, max_iter)
+        finally:
+            graph.capture_end()
+    return graph, launches
+
+
 def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
                               max_iter: int,
-                              costs0: torch.Tensor | None = None
+                              costs0: torch.Tensor | None = None, *,
+                              graph: bool = True
                               ) -> tuple[Tableau, int, int]:
     """Deferred block pivoting over K1-K4 (port of
     ``simplex_tpu.solver.solve_loop_blocked_kernel``).
@@ -463,12 +539,22 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
     Per pivot: K1 builds the live entering column and runs the ratio
     test; K2 builds the pivot row into ``C[t]``, updates costs, b, base,
     the eta row ``F[t]`` and the devex weights, and folds the next
-    candidates. Per window of L pivots: ``Tt -= F^T C`` in place, fused
-    with the exact re-pricing ``costs0 - coeffs @ Tt`` every
+    candidates; the step kernels (``kernels.blocked.step_*``) carry the
+    scalar glue between them. Per window of L pivots: ``Tt -= F^T C`` in
+    place, fused with the exact re-pricing ``costs0 - coeffs @ Tt`` every
     ``reprice_every`` windows and on every window that ends non-RUNNING
     (K3), else the apply alone (K4; always when ``costs0`` is None). The
     tableau is updated in place. Returns (tableau, status, iterations);
     status stays RUNNING when the iteration fuse tripped.
+
+    On the card the L pivots of a window are one CUDA graph, captured
+    once a call and replayed once a window (the JAX loop's jitted
+    ``lax.fori_loop``); the window boundary -- the devex re-anchor, the
+    one host read of status and iterations, K3 or K4 -- stays on the
+    host (the ``while_loop``'s ``cond`` and tail). ``graph=False``
+    enqueues the same kernels eagerly instead, the on-card comparison
+    path; on the CPU the loop always runs eagerly, with the plain
+    versions.
 
     b, the reduced costs and z are native f64 inside the loop, so the
     in-window optimality test, the candidate fold and the window-boundary
@@ -479,91 +565,61 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
     window (plus once more on a window that ends optimal, for the
     premature-optimal test)."""
     eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    devex = options.pivot_rule_resolved == "devex"
-    threshold = options.bland_threshold
-    L = int(options.block_pivots)
     every = max(1, int(options.reprice_every))
     Tt = tab.Tt
-    M, R = Tt.shape
+    R = Tt.shape[1]
     if Tt.dtype != torch.float32 or R % 128:
         raise ValueError(f"the kernel loop needs an f32 tableau padded to "
                          f"128 variables, got {Tt.dtype} R={R}")
-    dev = Tt.device
-    f64 = torch.float64
     r = tab.r
-    row_mask = torch.arange(R, device=dev) < r
-
-    b = tab.b.to(f64).clone()
-    costs = tab.costs.to(f64).clone()
-    z = tab.z.to(f64).clone()
-    base = tab.base.to(torch.int32).clone()
     if costs0 is not None:
-        costs0 = costs0.to(f64)
-    w = torch.ones(R, dtype=torch.float32, device=dev) if devex else None
-    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    bland = torch.tensor(bland_static, device=dev)
-    h_d, v_d, h_b, v_b = entering_candidates(costs, w, r, eps)
-    # Every row of C and F is rewritten each window before any pass reads
-    # it (a skipped pivot writes zeros), so the factors are never cleared.
-    C = torch.zeros((L, R), dtype=torch.float32, device=dev)
-    F = torch.zeros((L, M), dtype=torch.float32, device=dev)
-    ws_k1 = ah_ratio_workspace(M, dev)
-    ws = colk_workspace(R, dev)
+        costs0 = costs0.to(torch.float64)
+    loop = kernel_loop(tab, options)
+    s = loop.s
+    captured = None
 
     st, it, windows = RUNNING, 0, 0
     while st == RUNNING and it < max_iter and windows < max_iter:
-        for t in range(L):
-            active = (status == RUNNING) & (iterations < max_iter)
-            use_bland = bland & (h_b < BIG_INDEX)
-            h = torch.where(use_bland, h_b, h_d)
-            minc = torch.where(use_bland, v_b, v_d)
-            optimal = minc > -eps
-            a_h, k, p, bk, unb = ah_ratio(Tt, F, C, b, h, t, eps, ws_k1)
-            unbounded = unb != 0
-            do = active & ~(optimal | unbounded)
-            p = torch.where(do, p, 1.0)
-            u = torch.where(do, minc / p.to(f64), 0.0)
-            h_d, v_d, h_b, v_b = colk_costs(
-                Tt, C, F, costs, k, t, u, do, r, eps, a_h, b, base, h, p,
-                bk, w, ws)
-            z2 = torch.where(do, z - u * bk, z)
-            status = _exit_status(active, optimal, unbounded, status)
-            stall, bland = anticycling_update(
-                do, (z2 - z).abs() >= eps, stall, bland,
-                bland_static=bland_static, threshold=threshold)
-            iterations = iterations + do.to(torch.int32)
-            z = z2
-        if devex:
+        if graph and Tt.is_cuda:
+            if captured is None:
+                captured = capture_window(loop, options, max_iter)
+            cuda_graph, launches = captured
+            cuda_graph.replay()
+            launches.replayed()
+        else:
+            run_window(loop, options, max_iter)
+        if loop.w is not None:
             # Re-anchor the reference framework once per window when the
             # weights drift too far.
-            w = torch.where(w.max() > 1e8, 1.0, w)
+            loop.w.copy_(torch.where(loop.w.max() > 1e8, 1.0, loop.w))
         # The window's one host sync.
-        st, it = (int(v) for v in torch.stack([status, iterations]).tolist())
+        st, it = (int(v) for v in
+                  torch.stack([s.status, s.iterations]).tolist())
         # Exact re-pricing every ``reprice_every`` windows and on every
         # window that ends non-RUNNING (K3); otherwise the apply alone
         # (K4), the in-window costs and candidates being current.
         if costs0 is not None and (st != RUNNING
                                    or (windows + 1) % every == 0):
-            coeffs = basic_costs(base, costs0, r)
-            costs = costs0 - apply_reprice(Tt, C, F, coeffs)
-            h_d, v_d, h_b, v_b = entering_candidates(costs, w, r, eps)
-            if st == OPTIMAL and float(
-                    torch.where(row_mask, costs, torch.inf).min()) <= -eps:
+            coeffs = basic_costs(loop.base, costs0, r)
+            loop.costs.copy_(costs0 - apply_reprice(Tt, loop.C, loop.F,
+                                                    coeffs))
+            loop.set_candidates(entering_candidates(loop.costs, loop.w, r,
+                                                    eps))
+            if st == OPTIMAL and float(torch.where(
+                    torch.arange(R, device=Tt.device) < r, loop.costs,
+                    torch.inf).min()) <= -eps:
                 # Declared optimal on in-window costs while exact pricing
                 # still shows an improving column: keep running.
-                status.fill_(RUNNING)
+                s.status.fill_(RUNNING)
                 st = RUNNING
         else:
-            apply_window(Tt, C, F)
+            apply_window(Tt, loop.C, loop.F)
         windows += 1
 
     vdtype = tab.costs.dtype
-    out = dataclasses.replace(tab, Tt=Tt, b=b.to(vdtype),
-                              costs=costs.to(vdtype), z=z.to(vdtype),
-                              base=base)
+    out = dataclasses.replace(tab, b=loop.b.to(vdtype),
+                              costs=loop.costs.to(vdtype),
+                              z=s.z.to(vdtype), base=loop.base)
     return out, st, it
 
 

@@ -9,6 +9,7 @@ with a card and no JAX it runs as::
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -834,3 +835,99 @@ def test_fallback_solve_on_card(cuda):
     assert got.status == want.status == pst.Status.OPTIMAL
     assert got.refine.certified and got.refine.method == "tableau"
     assert got.objective == pytest.approx(want.objective, rel=1e-12)
+
+
+def _card_scalars(rng, dev):
+    """Random per-pivot scalars: status RUNNING or not, iterations at or
+    near the fuse, Bland on or off with or without an eligible column,
+    the main value around -eps, unbounded or not, p of either sign, and
+    the stall near its threshold."""
+    s = kb.pivot_scalars(torch.tensor(rng.uniform(-5, 5), device=dev),
+                         bool(rng.integers(2)))
+    vals = dict(
+        status=int(rng.choice([int(pst.Status.RUNNING),
+                               int(pst.Status.OPTIMAL)], p=[0.8, 0.2])),
+        iterations=int(rng.integers(8, 11)), stall=int(rng.integers(47, 51)),
+        h_d=int(rng.integers(0, 500)), v_d=-1e-4 * rng.uniform(0.5, 3),
+        h_b=int(rng.choice([3, kb.BIG_INDEX])), v_b=-rng.uniform(0, 1),
+        k=int(rng.integers(0, 200)), p_k1=rng.uniform(-2, 2),
+        bk=rng.uniform(0, 1e-3) * rng.choice([1, 1e4]),
+        unb=int(rng.random() < 0.2))
+    for name, v in vals.items():
+        getattr(s, name).fill_(v)
+    return s
+
+
+@pytest.mark.parametrize("policy", [(False, 50), (False, None), (True, 50)],
+                         ids=["threshold", "never", "static"])
+def test_step_kernels_match_plain_on_card(cuda, policy):
+    """Each step kernel against its plain version on the same card
+    scalars, 256 random states: every output bit for bit (the f64
+    division, product and differences rounded apart, as torch does)."""
+    bland_static, threshold = policy
+    rng = np.random.default_rng(31)
+    kb.reset_launches()
+    for i in range(256):
+        s = _card_scalars(rng, cuda)
+        sp = kb.PivotScalars(**{k: x.clone() for k, x in s.tensors().items()})
+        then_pre = bool(i % 2)
+        kb.step_pre(s, 10, 1e-4)
+        kb.step_pre_plain(sp, 10, 1e-4)
+        kb.step_mid(s)
+        kb.step_mid_plain(sp)
+        kb.step_post(s, 10, 1e-4, bland_static=bland_static,
+                     threshold=threshold, then_pre=then_pre)
+        kb.step_post_plain(sp, 10, 1e-4, bland_static, threshold, then_pre)
+        for name, x in s.tensors().items():
+            assert torch.equal(x, getattr(sp, name)), (i, name, x)
+    assert (kb.LAUNCHES["step_pre"], kb.LAUNCHES["step_mid"],
+            kb.LAUNCHES["step_post"]) == (256, 256, 256)
+
+
+@pytest.mark.parametrize("with_costs0", [True, False],
+                         ids=["costs0", "no_costs0"])
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_window_graph_matches_eager_on_card(cuda, monkeypatch, rule,
+                                            with_costs0):
+    """The loop as one CUDA graph a window against ``graph=False`` (the
+    same kernels enqueued eagerly) from one phase-1 tableau: the same
+    status and iterations, the final Tt, b, costs, z, base and devex
+    weights bit for bit, and the same launch counts (a replay adds the
+    graph's launches, the capture none)."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    n, m = 600, 200
+    opts = pst.SolverOptions(dtype=np.float32, vector_dtype=np.float64,
+                             block_pivots=16, pivot_rule=rule)
+    p = pst.generate_random_problem(n, m, 5, 1, 100)
+    tab0 = build_phase1(torch.as_tensor(p.A, device=cuda),
+                        torch.as_tensor(p.b, device=cuda), n, m, opts)
+    costs0 = tab0.costs if with_costs0 else None
+    tab0 = gaussian_eliminate(tab0)
+    loops = []
+    make = solver.kernel_loop
+    monkeypatch.setattr(solver, "kernel_loop",
+                        lambda *a, **kw: loops.append(make(*a, **kw))
+                        or loops[-1])
+    runs = {}
+    for graph in (False, True):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        kb.reset_launches()
+        out, status, iters = solver.solve_loop_blocked_kernel(
+            tab, opts, 5000, costs0, graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (out, status, iters, dict(kb.LAUNCHES), loops[-1].w)
+    (eo, est, eit, el, ew), (go, gst, git, gl, gw) = runs[False], runs[True]
+    assert est == gst == int(pst.Status.OPTIMAL) and eit == git > 16
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert torch.equal(getattr(go, name), getattr(eo, name)), name
+    assert (ew is None) == (rule != "devex")
+    if ew is not None:
+        assert torch.equal(gw, ew)
+    assert gl == el
+    for name in ("ah_ratio", "colk_costs", "step_pre", "step_mid",
+                 "step_post"):
+        assert gl[name] > 0, name
+    assert gl["ah_ratio"] == gl["step_mid"] == gl["step_post"] == (
+        16 * gl["step_pre"])
