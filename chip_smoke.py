@@ -66,8 +66,14 @@ Phases, in order; any failed check exits non-zero:
    ``solve``), random_2048_2048 and the flagship with the production
    options -- the flagship certified within 1e-9, walking as ``solve``
    did, with the launch counters reset just before it and read just
-   after (K5, K2-K4 launched, K1 not) -- then the north-star phase-1
-   slice for 256 pivots, ending with phase 9's z and basis;
+   after (K5, K2-K4 and the sharded step kernels launched, K1 not); its
+   kernel loop replays one CUDA graph a window with the per-pivot
+   all_reduce and two all_gathers inside -- then the flagship's sharded
+   loop eager (``graph=False``) and graphed in turns (eager, graph,
+   graph, eager: the walk, every loop call's final state bit for bit,
+   ms/pivot, capture ms, the same collectives counted), then the
+   north-star phase-1 slice for 256 pivots, ending with phase 9's z and
+   basis;
 10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
    config 3's options: f32 tableau, f64 vectors, eps 1e-5, L=32, devex):
    the status spread (OPTIMAL 13, UNBOUNDED, INFEASIBLE); config 3 at
@@ -139,8 +145,12 @@ Phases, in order; any failed check exits non-zero:
    turns with cuBLAS ``addmm_``, the SM clock before and after, K5 (its
    column K1's bit for bit) and K11 (K3's mv with zero etas bit for
    bit), the step kernels on K1's outputs under 192 seeded states, bit
-   for bit, K6 at the 8192^2 and the north-star f32 shapes, then the
-   batched kernels at config 3's shapes (B=256, M=512, R=3072, L=32) and
+   for bit, the sharded step kernels on K1's column under 192 seeded
+   states at P = 1, 2 and 4, bit for bit, K5 with its owner flag and K2
+   with a column offset and a given weight at h (offset 0: the
+   single-card call bit for bit; a second slice at t = 0: its plain
+   version bit for bit), K6 at the 8192^2 and the north-star f32
+   shapes, then the batched kernels at config 3's shapes (B=256, M=512, R=3072, L=32) and
    the wide ones (B=32, R=15104), under devex and Dantzig, with a frozen
    lane and a lane that hits its fuse mid-window (``batch_window``: one
    kernel a call, one thread-block cluster a lane, its plan printed),
@@ -156,9 +166,10 @@ Phases, in order; any failed check exits non-zero:
    back-to-back calls for the rest) -- beside its bound and, where one
    PyTorch call computes the same function, that call's time; then one
    config-3 batch traced (device time by kernel, the device's busy
-   share), and the flagship's phase-1 loop traced (the kernels a pivot
-   of a replayed window, the device's busy share inside a window and
-   over its period). These run last so that no profiler run precedes
+   share), and the flagship's phase-1 loop traced, single-card and
+   sharded at one NCCL rank (the kernels -- and the NCCL nodes -- a
+   pivot of a replayed window, the device's busy share inside a window
+   and over its period). These run last so that no profiler run precedes
    the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
@@ -167,8 +178,9 @@ operations over the peak rate of their type: 67 TFLOP/s for f32 outside
 the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
-kernels' records (K1-K12, ``batch_rank1`` and the step kernels, which
-replace XLA-fused glue, no Pallas kernel; K11 and K12 are on no
+kernels' records (K1-K12, ``batch_rank1``, the step kernels and the
+sharded step kernels, which replace XLA-fused glue, no Pallas kernel;
+K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
 {...}}``. Without CUDA, or
@@ -233,10 +245,40 @@ STEPS = tuple(STEP_KERNELS)
 #: iterations (39), writes status, stall, bland, iterations and z (21), and
 #: as the next pivot's step_pre reads h_b, h_d and v_d (16) and writes 14.
 STEP_BYTES = {"step_pre": 39, "step_mid": 31, "step_post": 90}
+#: The sharded loop's per-pivot step kernels: the JAX sharded loop's
+#: XLA-fused glue around its passes and collectives (no Pallas kernel).
+SHARDED_STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/sharded_step.cu"
+SHARDED_STEP_KERNELS = {
+    "sharded_step_pre": ("glue", "simplex_tpu/parallel/sharded.py:668",
+                         SHARDED_STEP_SOURCE),
+    "sharded_ratio": ("glue", "simplex_tpu/parallel/sharded.py:690",
+                      SHARDED_STEP_SOURCE),
+    "sharded_pack": ("glue", "simplex_tpu/parallel/sharded.py:741",
+                     SHARDED_STEP_SOURCE),
+    "sharded_step_post": ("glue", "simplex_tpu/parallel/sharded.py:745",
+                          SHARDED_STEP_SOURCE),
+}
+SHARDED_STEPS = tuple(SHARDED_STEP_KERNELS)
+#: Bytes each sharded step kernel moves on a taken pivot outside Bland
+#: mode under devex at one rank (csrc/sharded_step.cu), each input read
+#: once and each output written once: sharded_step_pre reads status,
+#: iterations, bland, h_b, h_d, v_d and w_d (29) and writes active, h, minc,
+#: optimal, wh, own and hl (23); sharded_ratio reads the column and b (12
+#: bytes a constraint, added where it is timed), active, optimal, minc and
+#: base[k] (14) and writes k, unb, do, p, bk, u and lvar (33); sharded_pack
+#: reads K2's four candidates and two weights (32) and writes the five
+#: values and two indices (48); sharded_step_post reads the gathered
+#: (1, 5) and (1, 2) buffers (48), do, z, u, bk, active, optimal, unb,
+#: stall and iterations (39), writes the six folded values (32), status,
+#: stall, bland, iterations and z (21), and as the next pivot's pre reads
+#: 20 and writes 23.
+SHARDED_STEP_BYTES = {"sharded_step_pre": 52, "sharded_ratio": 47,
+                      "sharded_pack": 80, "sharded_step_post": 183}
 #: The kernels of the single-card production path, and of the sharded one.
 SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window",
                *STEPS)
-SHARDED_PATH = ("ah", "colk_costs", "apply_reprice", "apply_window")
+SHARDED_PATH = ("ah", "colk_costs", "apply_reprice", "apply_window",
+                *SHARDED_STEPS)
 PIVOT_KERNELS = {
     "fused_pivot": ("K6", "simplex_tpu/kernels/pivot.py:126",
                     "simplex_tpu_torch/kernels/csrc/pivot.cu"),
@@ -284,7 +326,7 @@ FALLBACK_KERNELS = {
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
-         "reprice", "batch_reprice", "batch_rank1", *STEPS)
+         "reprice", "batch_reprice", "batch_rank1", *STEPS, *SHARDED_STEPS)
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
@@ -554,6 +596,15 @@ def phase_kernels(records: dict) -> None:
             "over a CUDA graph")
         if t == 37:
             step_kernels(records, got)
+            sharded_step_kernels(records, got, b, base0, w0)
+            # K5 with its owner flag (the sharded loop's call): its column
+            # where the rank owns h, zeros where not, bit for bit.
+            buf = torch.empty(M, dtype=torch.float32, device=dev)
+            for own in (True, False):
+                kb.ah(Tt, F, C, h, t, own=torch.tensor(own, device=dev),
+                      out=buf)
+                equal(f"K5 own={own} t={t}", buf,
+                      got5 if own else torch.zeros_like(got5))
             n = kernels_launched(k1)
             require(n == 1, f"one ah_ratio call launched {n} kernels")
             host = host_us(k1, 500)
@@ -604,6 +655,23 @@ def phase_kernels(records: dict) -> None:
                 outs.append((st, cand))
             (sk, ck), (sp, cp) = outs
             tag = f"K2 {rule} t={t}"
+            # The sharded loop's arguments at offset 0 with w_h = w[h]:
+            # the single-card call bit for bit.
+            st = dict(C=C.clone(), F=F.clone(), costs=costs0.clone(),
+                      b=b.clone(), base=base0.clone(),
+                      w=None if w is None else w.clone())
+            c0 = kb.colk_costs(
+                Tt, st["C"], st["F"], st["costs"], k, t, u, do, R - 100, eps,
+                ah, st["b"], st["base"], h, p, bk, st["w"], ws=ws, offset=0,
+                w_h=None if w is None else w[h.long()].clone())
+            for name in st:
+                if st[name] is not None:
+                    equal(f"{tag} offset 0 {name}", st[name], sk[name])
+            for a, b2 in zip(c0, ck):
+                equal(f"{tag} offset 0 candidates", a, b2)
+            if t == 0:
+                k2_slice(tag, Tt, C, F, costs0, k, u, do, eps, ah, b, base0,
+                         h, p, bk, w, ws)
             # The pivot row at h and K1's p are both Tt[k, h] - the FFMA
             # chain over s < t of C[s, h] F[s, k], in s order: bit for bit.
             equal(f"{tag} C[t][h] vs K1's p", sk["C"][t][h.long()], p)
@@ -844,6 +912,188 @@ def step_kernels(records: dict, k1) -> None:
             f"{records[name]['check_ms']:.4f} ms (CUDA events over a CUDA "
             f"graph of 50 calls), plain {records[name]['plain_ms']:.4f} "
             f"ms, bound {bound_ms:.2e} ms ({by})")
+
+
+def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
+    """The sharded step kernels against their plain versions on the card,
+    on K1's column at the flagship shapes (M = 8192, its b, a basis
+    drawn over R = 24,576 columns, the slice weights) as the summed
+    column, under 192 seeded states -- P = 1, 2 and 4 slices, devex and
+    Dantzig, each anti-cycling policy, taken and skipped pivots, the fuse,
+    optimal and unbounded, Bland on and off, ranks with no eligible column
+    and ties across ranks: every output bit for bit (each rank's pre,
+    ratio and pack, each rank's fold and post, with and without the next
+    pivot's pre, and the fold alone). Then each timed at one rank under
+    devex on a taken pivot outside Bland mode (the kernel and its plain
+    version by torch.profiler, the kernel also over a CUDA graph of 50
+    calls), beside its bound (``SHARDED_STEP_BYTES``; sharded_ratio's
+    column and b added)."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    dev = torch.device("cuda")
+    ah = k1[0]
+    M, R = ah.shape[0], w.shape[0]
+    eps, max_iter = 1e-4, 10
+    rng = np.random.default_rng(20261017)
+    unb_ah = -ah.abs()
+
+    def clone(s):
+        return kb.ShardedScalars(**{n: x.clone()
+                                    for n, x in s.tensors().items()})
+
+    i = 0
+    for policy in ((False, 50), (False, None), (True, 50)):
+        for devex in (True, False):
+            for _ in range(32):
+                P = (1, 2, 4)[i % 3]
+                R_loc = R // P
+                s0 = kb.sharded_scalars(torch.tensor(
+                    rng.uniform(-5, 5), dtype=torch.float64, device=dev),
+                    bool(rng.integers(2)))
+                fills = dict(
+                    status=int(kb.RUNNING) if rng.random() < 0.8
+                    else int(kb.OPTIMAL),
+                    iterations=int(rng.integers(8, 11)),
+                    stall=int(rng.integers(47, 51)),
+                    h_d=int(rng.integers(0, R)),
+                    v_d=-1e-4 * rng.uniform(0.5, 3),
+                    h_b=int(rng.choice([int(rng.integers(0, R)),
+                                        kb.BIG_INDEX])),
+                    v_b=-rng.uniform(0, 1), w_d=rng.uniform(1, 3),
+                    w_b=rng.uniform(1, 3))
+                for name, v in fills.items():
+                    getattr(s0, name).fill_(v)
+                col = unb_ah if i % 5 == 0 else ah
+                kv = 5 if devex else 2
+                Vs = [torch.empty((P, kv), dtype=torch.float64, device=dev)
+                      for _ in range(2)]
+                Is = [torch.empty((P, 2), dtype=torch.int32, device=dev)
+                      for _ in range(2)]
+                ranks = []
+                for rank in range(P):
+                    where = dict(offset=rank * R_loc, R_loc=R_loc)
+                    sk, sp = clone(s0), clone(s0)
+                    kb.sharded_step_pre(sk, max_iter, eps, **where)
+                    kb.sharded_step_pre_plain(sp, max_iter, eps, **where)
+                    kb.sharded_ratio(sk, col, b, base, eps)
+                    kb.sharded_ratio_plain(sp, col, b, base, eps)
+                    cand = (int(rng.integers(0, R_loc)),
+                            -rng.uniform(0.1, 3),
+                            int(rng.integers(0, R_loc)),
+                            -rng.uniform(0.1, 3))
+                    if rng.random() < 0.2:
+                        cand = (0, float("inf"), kb.BIG_INDEX, float("inf"))
+                    elif rng.random() < 0.2:
+                        cand = (2, -1.5) + cand[2:]
+                    for x in (sk, sp):
+                        for name, v in zip(("h_d", "v_d", "h_b", "v_b"),
+                                           cand):
+                            getattr(x, name).fill_(v)
+                    wr = w[rank * R_loc:(rank + 1) * R_loc] if devex else None
+                    kb.sharded_pack(sk, wr, rank * R_loc, Vs[0][rank],
+                                    Is[0][rank])
+                    kb.sharded_pack_plain(sp, wr, rank * R_loc, Vs[1][rank],
+                                          Is[1][rank])
+                    ranks.append((sk, sp))
+                equal(f"sharded_pack state {i} values", Vs[0], Vs[1])
+                equal(f"sharded_pack state {i} indices", Is[0], Is[1])
+                for rank, (sk, sp) in enumerate(ranks):
+                    where = dict(offset=rank * R_loc, R_loc=R_loc)
+                    then_pre, fold_only = bool(i % 2), i % 7 == 0
+                    kb.sharded_step_post(sk, Vs[0], Is[0], max_iter, eps,
+                                         bland_static=policy[0],
+                                         threshold=policy[1],
+                                         then_pre=then_pre,
+                                         fold_only=fold_only, **where)
+                    kb.sharded_step_post_plain(sp, Vs[1], Is[1], max_iter,
+                                               eps, *policy, then_pre,
+                                               fold_only=fold_only, **where)
+                    for name, x in sk.tensors().items():
+                        equal(f"sharded step kernels {policy} state {i} "
+                              f"rank {rank} {name}", x, getattr(sp, name))
+                i += 1
+
+    # A taken pivot outside Bland mode under devex at one rank.
+    s = kb.sharded_scalars(torch.zeros((), dtype=torch.float64,
+                                       device=dev), False)
+    s.h_b.fill_(kb.BIG_INDEX)
+    s.v_d.fill_(-1.0)
+    s.h_d.fill_(12345)
+    vals = torch.empty(5, dtype=torch.float64, device=dev)
+    idx = torch.empty(2, dtype=torch.int32, device=dev)
+    big = 2 ** 30
+    kb.sharded_step_pre(s, big, eps, 0, R)
+    kb.sharded_ratio(s, ah, b, base, eps)
+    require(bool(s.do), "the timed sharded pivot is not taken")
+    kb.sharded_pack(s, w, 0, vals, idx)
+    V, I = vals.view(1, 5), idx.view(1, 2)
+    post = dict(bland_static=False, threshold=50, then_pre=True, offset=0,
+                R_loc=R)
+    calls = {
+        "sharded_step_pre": (
+            lambda: kb.sharded_step_pre(s, big, eps, 0, R),
+            lambda: kb.sharded_step_pre_plain(s, big, eps, 0, R)),
+        "sharded_ratio": (
+            lambda: kb.sharded_ratio(s, ah, b, base, eps),
+            lambda: kb.sharded_ratio_plain(s, ah, b, base, eps)),
+        "sharded_pack": (
+            lambda: kb.sharded_pack(s, w, 0, vals, idx),
+            lambda: kb.sharded_pack_plain(s, w, 0, vals, idx)),
+        "sharded_step_post": (
+            lambda: kb.sharded_step_post(s, V, I, big, eps, **post),
+            lambda: kb.sharded_step_post_plain(
+                s, V, I, big, eps, False, 50, True, 0, R)),
+    }
+    for name, (kernel, plain) in calls.items():
+        ms = device_ms(kernel, 50, match=name)
+        nbytes = SHARDED_STEP_BYTES[name] + (12 * M if name ==
+                                             "sharded_ratio" else 0)
+        bound_ms, by = bound(nbytes, 0.0, M if name == "sharded_ratio"
+                             else 0.0)
+        records[name] = {"max_abs_err": 0.0, "ms": ms,
+                         "plain_ms": device_ms(plain, 50),
+                         "bound_ms": bound_ms, "bound_by": by,
+                         "library_ms": None, "check_ms": graph_ms(kernel)}
+        log(f"{name}: every output equals its plain version's on {i} "
+            f"states; kernel {ms:.4f} ms a call (torch.profiler), "
+            f"{records[name]['check_ms']:.4f} ms (CUDA events over a CUDA "
+            f"graph of 50 calls), plain {records[name]['plain_ms']:.4f} "
+            f"ms, bound {bound_ms:.2e} ms ({by})")
+
+
+def k2_slice(tag, Tt, C, F, costs, k, u, do, eps, ah, b, base, h, p, bk, w,
+             ws) -> None:
+    """K2 on the second of two slices of the flagship's columns (offset
+    R / 2, h = 12,345 on it, the weight at h given as the fold carries
+    it) against its plain version with the same arguments at t = 0, where
+    no eta row sums: every output bit for bit."""
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    R = Tt.shape[1]
+    half = slice(R // 2, R)
+    w_h = None if w is None else w[h.long()].clone()
+    Ts = Tt[:, half].contiguous()
+    outs = []
+    for fn in (functools.partial(kb.colk_costs, ws=ws), kb.colk_costs_plain):
+        st = dict(C=C[:, half].contiguous(), F=F.clone(),
+                  costs=costs[half].clone(), b=b.clone(), base=base.clone(),
+                  w=None if w is None else w[half].clone())
+        cand = fn(Ts, st["C"], st["F"], st["costs"], k, 0, u, do,
+                  R // 2 - 100, eps, ah, st["b"], st["base"], h, p, bk,
+                  st["w"], offset=R // 2, w_h=w_h)
+        outs.append((st, cand))
+    (sk, ck), (sp, cp) = outs
+    for name in sk:
+        if sk[name] is not None:
+            equal(f"{tag} slice {name}", sk[name], sp[name])
+    for a, b2 in zip(ck, cp):
+        equal(f"{tag} slice candidates", a, b2)
+    del Ts
 
 
 def k4_vs_k3_small(g) -> None:
@@ -1876,25 +2126,42 @@ def phase_flagship(launches: dict) -> tuple:
 #: The kernels a replayed window holds (K1, K2 and the step kernels).
 GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel",
                  "step_mid_kernel", "step_post_kernel")
+#: The nodes of the sharded loop's window graph by name: K5 (K1's kernel
+#: without its ratio test), K2, the sharded step kernels, and NCCL's
+#: collectives, kernels or device-to-device copies. The graph's first and
+#: last nodes bound a replayed window: the boundary's own collectives and
+#: fold fall outside.
+SHARDED_GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused",
+                         "sharded_step_pre", "sharded_ratio", "sharded_pack",
+                         "sharded_step_post", "nccl", "Memcpy DtoD")
+SHARDED_GRAPH_SPAN = ("sharded_step_pre", "sharded_step_post")
 
 
 def flagship_loops(p, graph: bool, keep: list | None = None,
-                   against: list | None = None) -> dict:
+                   against: list | None = None, group=None) -> dict:
     """One production ``solve`` of the flagship ``p`` with its kernel loop
     replaying one CUDA graph a window (``graph``) or enqueuing the same
     kernels eagerly (``graph=False``): the walk (``FLAGSHIP_WALK``), the
     solve's wall, each loop call's wall (host clock between two
-    synchronizes) and pivots, and each capture's ms (``capture_window``:
-    the capture and the graph's instantiation). Each loop call's final
-    state -- Tt, b, costs, z, base, the devex weights, status and
-    iterations -- is appended to ``keep`` as copies, or held to
-    ``against``'s bit for bit."""
+    synchronizes) and pivots, each capture's ms (``capture_window``: the
+    capture and the graph's instantiation) and the collectives counted.
+    Each loop call's final state -- Tt, b, costs, z, base, the devex
+    weights, status and iterations -- is appended to ``keep`` as copies,
+    or held to ``against``'s bit for bit. With ``group`` the same for
+    ``solve_sharded`` on that group and its sharded kernel loop
+    (``solve_loop_blocked_kernel_sharded``)."""
     import torch
 
     from simplex_tpu_torch import solver
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
 
-    real = (solver.solve_loop_blocked_kernel, solver.kernel_loop,
-            solver.capture_window)
+    mod, names = (solver, ("solve_loop_blocked_kernel", "kernel_loop",
+                           "capture_window"))
+    if group is not None:
+        mod, names = (ps, ("solve_loop_blocked_kernel_sharded",
+                           "sharded_kernel_loop", "capture_window_sharded"))
+    real = tuple(getattr(mod, name) for name in names)
     loops, calls, captures = [], [], []
 
     def kernel_loop(*args, **kw):
@@ -1907,12 +2174,18 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
         out = real[2](*args, **kw)
         torch.cuda.synchronize()
         captures.append(1e3 * (time.perf_counter() - t0))
+        if group is not None:
+            # The window's collectives are inside its graph.
+            L = PROD["block_pivots"]
+            want = {"all_reduce": L, "all_gather": 2 * L}
+            require(dict(out[2].counts) == want, f"the sharded window graph "
+                    f"holds {dict(out[2].counts)}, not {want}")
         return out
 
-    def loop(tab, options, max_iter, costs0=None):
+    def loop(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, st, it = real[0](tab, options, max_iter, costs0, graph=graph)
+        out, st, it = real[0](*args, graph=graph)
         torch.cuda.synchronize()
         calls.append((time.perf_counter() - t0, it))
         final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
@@ -1926,13 +2199,17 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
                       f"{graph}", final[name], want)
         return out, st, it
 
-    (solver.solve_loop_blocked_kernel, solver.kernel_loop,
-     solver.capture_window) = (loop, kernel_loop, capture)
+    for name, fn in zip(names, (loop, kernel_loop, capture)):
+        setattr(mod, name, fn)
+    pg.reset_counts()
     try:
-        res, wall = timed_solve(p)
+        if group is None:
+            res, wall = timed_solve(p)
+        else:
+            res, wall = timed_sharded(p, group, PROD)
     finally:
-        (solver.solve_loop_blocked_kernel, solver.kernel_loop,
-         solver.capture_window) = real
+        for name, fn in zip(names, real):
+            setattr(mod, name, fn)
     check_certified("random_8192_8192", res, OBJ_8192)
     walk = (res.iterations_phase1, res.iterations_phase2)
     require(walk == FLAGSHIP_WALK, f"flagship (graph {graph}) walked {walk}, "
@@ -1942,57 +2219,73 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
     loop_s = sum(c[0] for c in calls)
     pivots = sum(c[1] for c in calls)
     return dict(wall=wall, loop_s=loop_s, pivots=pivots, calls=calls,
-                captures=captures, ms_pivot=1e3 * loop_s / pivots)
+                captures=captures, ms_pivot=1e3 * loop_s / pivots,
+                collectives=dict(pg.COUNTS))
 
 
-def phase_window_graph() -> None:
+def phase_window_graph(group=None) -> None:
     """The production flagship through ``solve`` two ways, in turns --
     eager, graph, graph, eager: the kernel loop enqueuing its kernels
     eagerly (``solve_loop_blocked_kernel(graph=False)``) and replaying
     one CUDA graph a window. Every run walks ``FLAGSHIP_WALK`` and every
     loop call (phase 1 and phase 2) ends with the first eager run's Tt,
     b, costs, z, base and devex weights bit for bit. Prints each run's
-    loop ms/pivot, solve wall and capture ms."""
+    loop ms/pivot, solve wall and capture ms. With ``group`` the same
+    through ``solve_sharded`` on it (the sharded kernel loop, its NCCL
+    collectives inside the graph), each run also counting the same
+    collectives."""
     import statistics as stats
 
     p = benchmark_problem(8192)
     keep: list = []
     ms = {False: [], True: []}
+    colls = []
+    what = "flagship" if group is None else "sharded flagship, 1 NCCL rank"
     for i, graph in enumerate((False, True, True, False)):
         r = flagship_loops(p, graph, keep=None if i else keep,
-                           against=keep if i else None)
+                           against=keep if i else None, group=group)
         ms[graph].append(r["ms_pivot"])
-        log(f"flagship, loop {'graph' if graph else 'eager'}: "
+        colls.append(r["collectives"])
+        log(f"{what}, loop {'graph' if graph else 'eager'}: "
             f"{r['ms_pivot']:.4f} ms/pivot over {r['pivots']} pivots "
             f"(loop calls " + ", ".join(f"{1e3 * c[0]:.1f} ms / {c[1]}"
                                         for c in r["calls"])
             + f"); solve wall {r['wall']:.3f} s; captures "
             + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
-            + " ms" + ("" if i else "; the final state kept"))
+            + " ms" + (f"; collectives {r['collectives']}" if group
+                       is not None else "")
+            + ("" if i else "; the final state kept"))
     del keep
-    log(f"flagship loop: eager {ms[False][0]:.4f} / {ms[False][1]:.4f}, "
+    require(all(c == colls[0] for c in colls),
+            f"{what}: the runs counted other collectives: {colls}")
+    log(f"{what} loop: eager {ms[False][0]:.4f} / {ms[False][1]:.4f}, "
         f"graph {ms[True][0]:.4f} / {ms[True][1]:.4f} ms/pivot; eager / "
         f"graph {stats.mean(ms[False]) / stats.mean(ms[True]):.2f}x; every "
         "run walked the recorded pivots, every loop call's final state "
         "bit for bit the first eager run's")
 
 
-def phase_window_trace() -> None:
+def phase_window_trace(group=None) -> None:
     """One production flagship ``solve`` with its phase-1 loop call traced
     by torch.profiler (CUDA activity): the kernels each replayed window
     holds a pivot (``GRAPH_KERNELS``), the device's busy share inside a
     replayed window (its kernels' time over the span from its first
     kernel's start to its last one's end), and over the window's whole
     period, boundary included (window apply to window apply). Runs after
-    every timed solve."""
+    every timed solve. With ``group`` the same for ``solve_sharded`` on
+    it, whose window graph also holds the NCCL collectives
+    (``SHARDED_GRAPH_KERNELS``; copies counted as kernels)."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from simplex_tpu_torch import solver
+    from simplex_tpu_torch.parallel import sharded as ps
 
-    real = solver.solve_loop_blocked_kernel
+    mod, name = ((solver, "solve_loop_blocked_kernel") if group is None
+                 else (ps, "solve_loop_blocked_kernel_sharded"))
+    real = getattr(mod, name)
     traced = []
 
     def loop(*args, **kw):
@@ -2005,18 +2298,26 @@ def phase_window_trace() -> None:
         return out
 
     p = benchmark_problem(8192)
-    solver.solve_loop_blocked_kernel = loop
+    setattr(mod, name, loop)
     try:
-        timed_solve(p)
+        if group is None:
+            timed_solve(p)
+        else:
+            timed_sharded(p, group, PROD)
     finally:
-        solver.solve_loop_blocked_kernel = real
+        setattr(mod, name, real)
     prof, pivots = traced[0]
     with tempfile.TemporaryDirectory() as td:
         path = pathlib.Path(td) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    w = window_stats(events, PROD["block_pivots"])
-    log(f"phase-1 loop traced ({pivots} pivots, {w['windows']} windows): "
+    if group is None:
+        w = window_stats(events, PROD["block_pivots"])
+    else:
+        w = window_stats(events, PROD["block_pivots"], SHARDED_GRAPH_KERNELS,
+                         ("kernel", "gpu_memcpy"), 10, SHARDED_GRAPH_SPAN)
+    log(f"{'' if group is None else 'sharded 1-rank '}"
+        f"phase-1 loop traced ({pivots} pivots, {w['windows']} windows): "
         f"{w['per_pivot'][0]:.4f}-{w['per_pivot'][1]:.4f} kernels a pivot "
         f"in a replayed window (the middle one: {w['names']}); device busy "
         f"inside a replayed window {100 * w['inside'][0]:.1f}-"
@@ -2027,25 +2328,45 @@ def phase_window_trace() -> None:
         f"{w['us_pivot']:.2f} us a pivot, its span {w['span_us']:.1f} us")
 
 
-def window_stats(events: list, L: int) -> dict:
+def phase_sharded_trace() -> None:
+    """``phase_window_trace`` of ``solve_sharded`` at one NCCL rank in this
+    process: the nodes a pivot of a replayed window, NCCL's included, and
+    the device's busy share inside a window and over its period."""
+    import tempfile
+
+    from simplex_tpu_torch.parallel import group as pg
+
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "nccl", td) as group:
+        phase_window_trace(group)
+
+
+def window_stats(events: list, L: int, graph_kernels=GRAPH_KERNELS,
+                 cats=("kernel",), most: int = 5, bounds=None) -> dict:
     """From a chrome trace's events, the windows of a traced kernel loop:
-    a window is the graph's kernels (``GRAPH_KERNELS``) before a window
-    apply (K3 or K4). Returns the windows' count, the (min, max) kernels
-    a pivot, the (min, median, max) busy share inside a window (its
-    kernels' time over the span from its first kernel's start to its last
-    one's end) and over a window's period (apply to apply, the boundary
-    included), and the middle window's kernels by name, kernel us a
-    pivot and span."""
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+    a window is the graph's kernels (``graph_kernels``, events of the
+    categories ``cats``) before a window apply (K3 or K4), with ``bounds``
+    = (first, last) from the graph's first node to its last. Returns the
+    windows' count, the (min, max) kernels a pivot (at most ``most``), the
+    (min, median, max) busy share inside a window (its kernels' time over
+    the span from its first kernel's start to its last one's end) and over
+    a window's period (apply to apply, the boundary included), and the
+    middle window's kernels by name, kernel us a pivot and span."""
+    kernels = sorted((e for e in events if e.get("cat") in cats),
                      key=lambda e: e["ts"])
     windows, applies = [[]], []
     for e in kernels:
         if "window_apply" in e["name"]:
             applies.append(e)
             windows.append([])
-        elif any(name in e["name"] for name in GRAPH_KERNELS):
+        elif any(name in e["name"] for name in graph_kernels):
             windows[-1].append(e)
     windows = windows[:len(applies)]
+    if bounds is not None:
+        for i, w in enumerate(windows):
+            first = [j for j, e in enumerate(w) if bounds[0] in e["name"]]
+            last = [j for j, e in enumerate(w) if bounds[1] in e["name"]]
+            windows[i] = w[first[0]:last[-1] + 1] if first and last else []
     require(len(applies) >= 3 and all(windows),
             f"the trace holds {len(applies)} window applies and "
             f"{sum(map(len, windows))} graph kernels")
@@ -2059,7 +2380,7 @@ def window_stats(events: list, L: int) -> dict:
             busy = sum(min(e["ts"] + e["dur"], t1) - e["ts"]
                        for e in kernels if t0 <= e["ts"] < t1)
             period.append(busy / (t1 - t0))
-    require(max(per_pivot) <= 5, f"{max(per_pivot)} kernels a pivot")
+    require(max(per_pivot) <= most, f"{max(per_pivot)} kernels a pivot")
     mid = windows[len(windows) // 2]
 
     def spread(x):
@@ -2069,7 +2390,7 @@ def window_stats(events: list, L: int) -> dict:
         windows=len(windows), per_pivot=(min(per_pivot), max(per_pivot)),
         inside=spread(inside), period=spread(period),
         names=dict(collections.Counter(
-            next(n for n in GRAPH_KERNELS if n in e["name"]) for e in mid)),
+            next(n for n in graph_kernels if n in e["name"]) for e in mid)),
         us_pivot=sum(e["dur"] for e in mid) / L,
         span_us=max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"])
 
@@ -3075,6 +3396,7 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
             f"{w[0]}+{w[1]} as solve, refine {res.refine.method}; wall "
             f"{wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot; launches "
             f"{dict(kb.LAUNCHES)}; collectives {colls}")
+        phase_window_graph(group)
 
         opts = SolverOptions(**PROD)
         n, m = 100_000, 10_000
@@ -3231,7 +3553,8 @@ def main() -> int:
         phase_resumable(flagship_wall)
         northstar = phase_northstar()
         r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
-        launches["ah"] = sharded_launches["ah"]
+        for name in ("ah", *SHARDED_STEPS):
+            launches[name] = sharded_launches[name]
         phase_batch_spread()
         batch_launches: dict = {}
         problems3, res3 = phase_batch("config 3", CONFIG3, batch_launches,
@@ -3264,6 +3587,7 @@ def main() -> int:
         phase_rank1_kernel(records)
         phase_batch_trace()
         phase_window_trace()
+        phase_sharded_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3276,7 +3600,7 @@ def main() -> int:
         for name in ORDER))
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
-              **FALLBACK_KERNELS, **STEP_KERNELS}
+              **FALLBACK_KERNELS, **STEP_KERNELS, **SHARDED_STEP_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

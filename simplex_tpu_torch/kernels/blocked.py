@@ -49,7 +49,8 @@ APPLY_TILE = 128
 #: Launches of each kernel since the last ``reset_launches``.
 LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
             "apply_window": 0, "ah": 0, "reprice": 0, "step_pre": 0,
-            "step_mid": 0, "step_post": 0}
+            "step_mid": 0, "step_post": 0, "sharded_step_pre": 0,
+            "sharded_ratio": 0, "sharded_pack": 0, "sharded_step_post": 0}
 
 
 def reset_launches() -> None:
@@ -285,7 +286,7 @@ def ah_plain(Tt, F, C, h, t: int):
     return ah
 
 
-def ah(Tt, F, C, h, t: int):
+def ah(Tt, F, C, h, t: int, own=None, out=None):
     """K5, the port of ``simplex_tpu.kernels.blocked.ah_pass``.
 
     The live entering column ``a_h = Tt[:, h] - C[:t, h] @ F[:t]`` (M,)
@@ -293,20 +294,31 @@ def ah(Tt, F, C, h, t: int):
     live eta rows. On the card it runs K1's kernel without its ratio test,
     so K1 and K5 give the same column bit for bit. The sharded loop
     calls it on each rank's slice and sums the owner's column across the
-    ranks before its ratio test."""
+    ranks before its ratio test: ``own``, a 0-dim bool, says whether this
+    rank owns h, and where it does not the column is zeros (its share of
+    the sum). ``out``, an (M,) f32 tensor, receives the column and is
+    returned: a call that allocates nothing, as a CUDA graph needs."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(h, "h", torch.int32, ())
+    if own is not None:
+        _expect(own, "own", torch.bool, ())
+    if out is not None:
+        _expect(out, "out", torch.float32, (M,))
     if not 0 <= t < L:
         raise ValueError(f"t={t} outside the window [0, {L})")
-    if not _on_card(Tt, F, C, h):
-        return ah_plain(Tt, F, C, h, t)
+    if not _on_card(Tt, F, C, h, own, out):
+        got = ah_plain(Tt, F, C, h, t)
+        if own is not None:
+            got = torch.where(own, got, 0.0)
+        return got if out is None else out.copy_(got)
 
     from ._build import check, load_library
 
     lib = load_library()
-    out = torch.empty(M, dtype=torch.float32, device=Tt.device)
-    err = lib.ah_launch(_ptr(Tt), _ptr(F), _ptr(C), _ptr(h), t, M, R,
-                        _ptr(out), _stream(Tt))
+    if out is None:
+        out = torch.empty(M, dtype=torch.float32, device=Tt.device)
+    err = lib.ah_launch(_ptr(Tt), _ptr(F), _ptr(C), _ptr(h), _ptr(own), t,
+                        M, R, _ptr(out), _stream(Tt))
     check(lib, err, "ah")
     LAUNCHES["ah"] += 1
     return out
@@ -316,7 +328,8 @@ def ah(Tt, F, C, h, t: int):
 # K2: pivot row, cost / b / base / eta-row / devex updates, next candidates.
 
 def colk_costs_plain(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
-                     ah, b, base, h, p, bk, w=None):
+                     ah, b, base, h, p, bk, w=None, offset: int = 0,
+                     w_h=None):
     """Plain version of ``colk_costs`` (same in-place contract)."""
     M, R = Tt.shape
     kc = k.long().clamp(max=M - 1).view(1)
@@ -336,10 +349,10 @@ def colk_costs_plain(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     base.copy_(torch.where(do & is_k, h, base))
 
     if w is not None:
-        wh = _index(w, h, R - 1)
+        wh = _index(w, h, R - 1) if w_h is None else w_h
         alpha = colk / p
         w2 = torch.maximum(w, alpha * alpha * wh)
-        is_l = torch.arange(R, device=Tt.device) == lvar
+        is_l = torch.arange(R, device=Tt.device) + offset == lvar
         w2 = torch.where(is_l, torch.maximum(wh / (p * p),
                                              torch.ones_like(wh)), w2)
         w2 = torch.minimum(w2, torch.full_like(w2, 1e12))
@@ -367,7 +380,8 @@ def colk_workspace(R: int, device) -> torch.Tensor:
 
 
 def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
-               ah, b, base, h, p, bk, w=None, ws=None, out=None):
+               ah, b, base, h, p, bk, w=None, ws=None, out=None,
+               offset: int = 0, w_h=None):
     """K2, the port of ``simplex_tpu.kernels.blocked.colk_costs_pass``
     with ``bf`` and optionally ``devex``.
 
@@ -384,7 +398,16 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     ``do`` is false) and is clamped into range. ``ws`` is a
     ``colk_workspace``; on the card a call without one allocates one.
     ``out``, when given, holds the four candidates' 0-dim tensors (int32,
-    f64, int32, f64) that they are written into and returned."""
+    f64, int32, f64) that they are written into and returned.
+
+    On a slice of the sharded loop the columns of ``Tt``, C, the costs
+    and ``w`` are the global columns ``offset .. offset + R - 1``: h and
+    ``base`` hold global columns, the devex stage updates the leaving
+    variable's and h's weights only where the slice holds them, and
+    ``w_h`` (0-dim f32), the weight at h that the candidate fold carries,
+    stands for ``w[h]``. The candidates are the slice's, as local
+    columns below ``r``. With offset 0 and no ``w_h`` it is the
+    single-card pass."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -396,15 +419,18 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
         _expect(x, name, dt, ())
     if w is not None:
         _expect(w, "w", torch.float32, (R,))
+    if w_h is not None:
+        _expect(w_h, "w_h", torch.float32, ())
     if not 0 <= t < L:
         raise ValueError(f"t={t} outside the window [0, {L})")
     if out is not None:
         for x, name, dt in zip(out, ("h_d", "v_d", "h_b", "v_b"),
                                (torch.int32, torch.float64) * 2):
             _expect(x, f"out {name}", dt, ())
-    if not _on_card(Tt, C, F, costs, k, u, do, ah, b, base, h, p, bk, w):
+    if not _on_card(Tt, C, F, costs, k, u, do, ah, b, base, h, p, bk, w,
+                    w_h):
         got = colk_costs_plain(Tt, C, F, costs, k, t, u, do, r, eps, ah, b,
-                               base, h, p, bk, w)
+                               base, h, p, bk, w, offset, w_h)
         return got if out is None else _into(out, got)
 
     from ._build import check, load_library
@@ -423,8 +449,8 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     err = lib.colk_costs_launch(
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(k), t, _ptr(u),
         _ptr(do), r, float(eps), M, R, _ptr(ah), _ptr(b), _ptr(base),
-        _ptr(h), _ptr(p), _ptr(bk), _ptr(w), _ptr(ws), ws.numel(),
-        _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b), _stream(Tt))
+        _ptr(h), _ptr(p), _ptr(bk), _ptr(w), offset, _ptr(w_h), _ptr(ws),
+        ws.numel(), _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b), _stream(Tt))
     check(lib, err, "colk_costs")
     LAUNCHES["colk_costs"] += 1
     return out
@@ -439,6 +465,11 @@ UNBOUNDED = int(Status.UNBOUNDED)
 
 #: Bland policies of the step kernels (csrc/step.cu ``BlandMode``).
 BLAND_THRESHOLD, BLAND_STATIC, BLAND_NEVER = 0, 1, 2
+
+
+def _bland_mode(bland_static: bool, threshold) -> int:
+    return (BLAND_STATIC if bland_static else
+            BLAND_NEVER if threshold is None else BLAND_THRESHOLD)
 
 
 def exit_status(active, optimal, unbounded, status):
@@ -622,15 +653,256 @@ def step_post(s: PivotScalars, max_iter: int, eps: float, *,
 
     from ._build import check, load_library
 
-    mode = (BLAND_STATIC if bland_static else
-            BLAND_NEVER if threshold is None else BLAND_THRESHOLD)
     lib = load_library()
     err = lib.step_post_launch(
-        ctypes.byref(_step_ptrs(s)), max_iter, float(eps), mode,
+        ctypes.byref(_step_ptrs(s)), max_iter, float(eps),
+        _bland_mode(bland_static, threshold),
         0 if threshold is None else int(threshold), int(then_pre),
         _stream(s.status))
     check(lib, err, "step_post")
     LAUNCHES["step_post"] += 1
+
+
+# ---------------------------------------------------------------------------
+# The sharded loop's per-pivot step: the glue around K5, the column's
+# all_reduce, K2 on the slice and the candidates' all_gathers.
+
+@dataclasses.dataclass
+class ShardedScalars(PivotScalars):
+    """``PivotScalars`` with what the sharded loop's step carries besides:
+    the devex weights at the folded main and Bland candidates (``w_d``,
+    ``w_b``; 1 under the other rules), and one pivot's intermediates --
+    the weight at h (``wh``), h's local column in the slice (``hl``,
+    clamped into it) and whether this rank owns h (``own``), which
+    ``sharded_step_pre`` writes, and the leaving variable ``base[k]``
+    (``lvar``), which ``sharded_ratio`` writes with k, unb, do, p, bk and
+    u. ``p_k1`` is unused. The field order is ``csrc/sharded_step.cu``'s
+    ``ShardStep``."""
+
+    w_d: torch.Tensor
+    w_b: torch.Tensor
+    wh: torch.Tensor
+    hl: torch.Tensor
+    own: torch.Tensor
+    lvar: torch.Tensor
+
+    DTYPES = PivotScalars.DTYPES + (_F32, _F32, _F32, _I32, _BOOL, _I32)
+
+
+def sharded_scalars(z: torch.Tensor, bland: bool) -> ShardedScalars:
+    """``pivot_scalars`` with the sharded fields: the weights 1, the rest
+    zero."""
+    base = pivot_scalars(z, bland).tensors()
+    dev = z.device
+    return ShardedScalars(
+        **base, w_d=torch.ones((), device=dev), w_b=torch.ones((), device=dev),
+        wh=torch.ones((), device=dev),
+        hl=torch.zeros((), dtype=_I32, device=dev),
+        own=torch.zeros((), dtype=_BOOL, device=dev),
+        lvar=torch.zeros((), dtype=_I32, device=dev))
+
+
+def sharded_step_pre_plain(s: ShardedScalars, max_iter: int, eps: float,
+                           offset: int, R_loc: int) -> None:
+    """Plain version of ``sharded_step_pre``."""
+    step_pre_plain(s, max_iter, eps)
+    use_bland = s.bland & (s.h_b < BIG_INDEX)
+    s.wh.copy_(torch.where(use_bland, s.w_b, s.w_d))
+    loc = s.h.long() - offset
+    s.own.copy_((loc >= 0) & (loc < R_loc))
+    s.hl.copy_(loc.clamp(0, R_loc - 1))
+
+
+def sharded_ratio_plain(s: ShardedScalars, ah, b, base, eps: float) -> None:
+    """Plain version of ``sharded_ratio``."""
+    M = ah.shape[0]
+    mask = ah >= eps
+    q = torch.where(mask, b / torch.where(mask, ah, 1.0).double(), torch.inf)
+    k = torch.argmin(q)
+    unb = ~mask.any()
+    do = s.active & ~(s.optimal | unb)
+    p = torch.where(do, _index(ah, k, M - 1), 1.0)
+    s.k.copy_(k)
+    s.unb.copy_(unb)
+    s.do.copy_(do)
+    s.p.copy_(p)
+    s.bk.copy_(_index(b, k, M - 1))
+    s.u.copy_(torch.where(do, s.minc / p.to(_F64), 0.0))
+    s.lvar.copy_(_index(base, k, M - 1))
+
+
+def sharded_pack_plain(s: ShardedScalars, w, offset: int, vals,
+                       idx) -> None:
+    """Plain version of ``sharded_pack``."""
+    parts = [s.v_d, s.v_b]
+    if w is not None:
+        R_loc = w.shape[0]
+        has = s.h_b < BIG_INDEX
+        w_d = _index(w, s.h_d, R_loc - 1).double()
+        parts += [w_d, torch.where(has, _index(w, s.h_b, R_loc - 1).double(),
+                                   1.0),
+                  torch.where(has, s.v_d * s.v_d / w_d, -torch.inf)]
+    vals.copy_(torch.stack(parts))
+    for i, x in enumerate((s.h_d, s.h_b)):
+        idx[i].copy_(torch.where(x >= BIG_INDEX, BIG_INDEX, offset + x))
+
+
+def sharded_fold_plain(s: ShardedScalars, V, I) -> None:
+    """The candidate fold of ``sharded_step_post_plain``: the main
+    candidate from the first rank with the largest key, the Bland one from
+    the first rank with the lowest global index."""
+    devex = V.shape[1] == 5
+    key = V[:, 4] if devex else -V[:, 0]
+    od = torch.argmax((key == key.max()).to(torch.int8))
+    ob = torch.argmin(I[:, 1])
+    s.h_d.copy_(I[od, 0])
+    s.v_d.copy_(V[od, 0])
+    s.h_b.copy_(I[ob, 1])
+    s.v_b.copy_(V[ob, 1])
+    if devex:
+        s.w_d.copy_(V[od, 2])
+        s.w_b.copy_(V[ob, 3])
+    else:
+        s.w_d.fill_(1.0)
+        s.w_b.fill_(1.0)
+
+
+def sharded_step_post_plain(s: ShardedScalars, V, I, max_iter: int,
+                            eps: float, bland_static: bool, threshold,
+                            then_pre: bool, offset: int, R_loc: int,
+                            fold_only: bool = False) -> None:
+    """Plain version of ``sharded_step_post``."""
+    sharded_fold_plain(s, V, I)
+    if fold_only:
+        return
+    step_post_plain(s, max_iter, eps, bland_static, threshold, False)
+    if then_pre:
+        sharded_step_pre_plain(s, max_iter, eps, offset, R_loc)
+
+
+class _ShardStepPtrs(ctypes.Structure):
+    """``ShardedScalars``' device pointers, in its field order:
+    csrc/sharded_step.cu's ``ShardStep``."""
+
+    _fields_ = [(f.name, ctypes.c_void_p)
+                for f in dataclasses.fields(ShardedScalars)]
+
+
+def _shard_step_ptrs(s: ShardedScalars) -> _ShardStepPtrs:
+    return _ShardStepPtrs(*(x.data_ptr() for x in s.tensors().values()))
+
+
+def sharded_step_pre(s: ShardedScalars, max_iter: int, eps: float,
+                     offset: int, R_loc: int) -> None:
+    """The step before K5 (``simplex_tpu/parallel/sharded.py:668-685``):
+    ``step_pre``'s active, h, minc and optimal over the folded
+    candidates, then the weight at h, whether this rank's slice
+    ``[offset, offset + R_loc)`` owns h, and h's local column clamped into
+    the slice. One thread on the card."""
+    if not _on_card(s.status):
+        sharded_step_pre_plain(s, max_iter, eps, offset, R_loc)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.sharded_step_pre_launch(ctypes.byref(_shard_step_ptrs(s)),
+                                      max_iter, float(eps), offset, R_loc,
+                                      _stream(s.status))
+    check(lib, err, "sharded_step_pre")
+    LAUNCHES["sharded_step_pre"] += 1
+
+
+def sharded_ratio(s: ShardedScalars, ah, b, base, eps: float) -> None:
+    """The ratio test on the summed column (``sharded.py:690-699``): k,
+    the first index of the smallest ``b / a_h`` (f64) over ``a_h >= eps``
+    (0 with none, as ``torch.argmin``); ``unb`` where no row is eligible;
+    ``do = active and not (optimal or unb)``; ``p = a_h[k]`` where the
+    pivot is done, else 1; ``bk = b[k]``; ``u = minc / p`` where done,
+    else 0; and the leaving variable ``lvar = base[k]``, read before K2
+    writes base. ``ah`` (M,) f32, ``b`` (M,) f64, ``base`` (M,) int32.
+    One block on the card."""
+    M = ah.shape[0]
+    _expect(ah, "ah", torch.float32, (M,))
+    _expect(b, "b", torch.float64, (M,))
+    _expect(base, "base", torch.int32, (M,))
+    if not _on_card(s.status, ah, b, base):
+        sharded_ratio_plain(s, ah, b, base, eps)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.sharded_ratio_launch(ctypes.byref(_shard_step_ptrs(s)),
+                                   _ptr(ah), _ptr(b), _ptr(base), M,
+                                   float(eps), _stream(ah))
+    check(lib, err, "sharded_ratio")
+    LAUNCHES["sharded_ratio"] += 1
+
+
+def sharded_pack(s: ShardedScalars, w, offset: int, vals, idx) -> None:
+    """The slice's candidates (K2's ``h_d, v_d, h_b, v_b``, local
+    columns) into the ``all_gather`` send buffers (``sharded.py:741-
+    743``, the fold's operands): ``vals`` (5,) f64 ``[v_d, v_b, w[h_d], w[h_b], key]`` under
+    devex (``w`` given; ``w[h_b]`` 1 and key ``-inf`` with no eligible
+    column, else ``key = v_d^2 / w[h_d]``), (2,) ``[v_d, v_b]`` otherwise;
+    ``idx`` (2,) int32 the global indices (``BIG_INDEX`` stays). One
+    thread on the card."""
+    _expect(vals, "vals", torch.float64, (2 if w is None else 5,))
+    _expect(idx, "idx", torch.int32, (2,))
+    if w is not None:
+        _expect(w, "w", torch.float32, (w.shape[0],))
+    if not _on_card(s.status, w, vals, idx):
+        sharded_pack_plain(s, w, offset, vals, idx)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.sharded_pack_launch(
+        ctypes.byref(_shard_step_ptrs(s)), _ptr(w), offset,
+        0 if w is None else w.shape[0], _ptr(vals), _ptr(idx),
+        _stream(vals))
+    check(lib, err, "sharded_pack")
+    LAUNCHES["sharded_pack"] += 1
+
+
+def sharded_step_post(s: ShardedScalars, V, I, max_iter: int, eps: float,
+                      *, bland_static: bool, threshold, then_pre: bool,
+                      offset: int, R_loc: int,
+                      fold_only: bool = False) -> None:
+    """The step after the candidates' ``all_gather``s (``sharded.py:741-
+    768``). The fold of every rank's ``sharded_pack`` output, ``V`` (P, 5
+    or 2) f64 and ``I`` (P, 2) int32: the main candidate (``h_d, v_d``,
+    ``w_d`` under devex) from the first rank with the largest key (the
+    devex key, else ``-v_d``), the Bland one (``h_b, v_b, w_b``) from the
+    first rank with the lowest global index -- ties go to the lowest rank,
+    and the slices are contiguous, so to the lowest global index as on one
+    card. Then ``step_post``'s z, status, stall, bland and iterations,
+    and with ``then_pre`` the next pivot's ``sharded_step_pre``; with
+    ``fold_only`` the fold alone (the window boundary's). One thread on
+    the card."""
+    P, kv = V.shape
+    if kv not in (2, 5):
+        raise ValueError(f"V: want (P, 2) or (P, 5), got {tuple(V.shape)}")
+    _expect(V, "V", torch.float64, (P, kv))
+    _expect(I, "I", torch.int32, (P, 2))
+    if not _on_card(s.status, V, I):
+        sharded_step_post_plain(s, V, I, max_iter, eps, bland_static,
+                                threshold, then_pre, offset, R_loc,
+                                fold_only)
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.sharded_step_post_launch(
+        ctypes.byref(_shard_step_ptrs(s)), _ptr(V), _ptr(I), P, kv,
+        max_iter, float(eps), _bland_mode(bland_static, threshold),
+        0 if threshold is None else int(threshold), int(fold_only),
+        int(then_pre), offset, R_loc, _stream(V))
+    check(lib, err, "sharded_step_post")
+    LAUNCHES["sharded_step_post"] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -203,14 +203,17 @@ __device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
 // RATIO false is K5: the column alone -- no b load, no fold, no ticket, no
 // workspace (b, ws and the outputs after ah may be null), NTH threads a
 // block; at t = 0 it writes Tt[j, h] - 0.0f without staging anything.
+// K5's owner flag ``own`` (null: owned) is the sharded loop's: a rank that
+// does not own h writes zeros, its share of the column's cross-rank sum.
 template <bool RATIO, int NTH = THREADS>
 __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         const float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, const double *__restrict__ b,
-        const int *__restrict__ h_ptr, int t, int M, int R, float eps,
-        int nb, float *__restrict__ ah, unsigned char *__restrict__ ws_bytes,
-        int *__restrict__ k_out, float *__restrict__ p_out,
-        double *__restrict__ bk_out, int *__restrict__ unb_out) {
+        const int *__restrict__ h_ptr, const unsigned char *__restrict__ own,
+        int t, int M, int R, float eps, int nb, float *__restrict__ ah,
+        unsigned char *__restrict__ ws_bytes, int *__restrict__ k_out,
+        float *__restrict__ p_out, double *__restrict__ bk_out,
+        int *__restrict__ unb_out) {
     static_assert(!RATIO || NTH == THREADS, "K1 folds over THREADS");
     __shared__ __align__(16) float fs[AHR_ROWS][AHR_COLS];
     __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
@@ -234,6 +237,11 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     if (owner) {
         th = Tt[(size_t)j * R + h];
         if (RATIO) bj = b[j];
+    }
+    if (!RATIO && own != nullptr && *own == 0) { // another rank's column
+        cp_async_wait<0>();
+        if (owner) ah[j] = 0.0f;
+        return;
     }
     if (!RATIO && t == 0) {                      // no live eta row
         if (owner) ah[j] = __fsub_rn(th, 0.0f);
@@ -392,6 +400,12 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
 // writes them, after every R block has arrived (w[h]'s new value waits in
 // the workspace meanwhile). The TPU kernel emitted the eta row for the
 // caller to store; here it goes straight into F[t].
+// On a slice of the sharded loop (csrc/sharded_step.cu) the columns are
+// global columns offset .. offset + R - 1: h and l are global, so the devex
+// stage compares local columns with h - offset and l - offset, which hold
+// only on the rank that owns the variable, and w_h, the weight at h, comes
+// from the candidate fold through wh_ptr, since another rank may own h.
+// With offset 0 and no wh_ptr it is the single-card kernel.
 
 constexpr int COLK_COLS = 64;    // columns per R block
 constexpr int COLK_ROWS = 128;   // live C rows staged per pass of the chain
@@ -444,6 +458,7 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         double *__restrict__ b, int *__restrict__ base,
         const int *__restrict__ h_ptr, const float *__restrict__ p_ptr,
         const double *__restrict__ bk_ptr, float *__restrict__ w,
+        int offset, const float *__restrict__ wh_ptr,
         unsigned char *__restrict__ ws_bytes, int *__restrict__ hd_out,
         double *__restrict__ vd_out, int *__restrict__ hb_out,
         double *__restrict__ vb_out) {
@@ -483,6 +498,8 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
     const int j = j0 + tid;                      // this thread's column
     const bool owner = tid < COLK_COLS;          // R is a multiple of 128
     const int hc = min(*h_ptr, R - 1);
+    const int hl = *h_ptr - offset;              // h's local column
+    const bool own_h = hl >= 0 && hl < R;
 
     // The first pass's loads, all issued before any is waited for.
     colk_stage(C, F, 0, t, k, M, R, j0, cs, fk);
@@ -495,8 +512,9 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         c = costs[j];
         if (w != nullptr) wj = w[j];
     }
-    const int lvar = base[k];                    // read before any write
-    const float wh = w != nullptr ? w[hc] : 0.0f;
+    const int lvar = base[k] - offset;           // read before any write
+    const float wh = w == nullptr ? 0.0f
+                     : wh_ptr != nullptr ? *wh_ptr : w[hc];
 
     // colk[j] = Tt[k, j] - sum_{s<t} F[s, k] C[s, j], the FFMA chain in s
     // order across the passes.
@@ -537,7 +555,7 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
                     w2 = max_nan(__fdiv_rn(wh, __fmul_rn(p, p)), 1.0f);
                 w2 = min_nan(w2, 1e12f);
                 if (w2 != w2) w2 = 1.0f;
-                if (j == hc) {
+                if (j == hl) {
                     *ws.w_h = w2;            // the last block stores it
                     __threadfence();
                 } else {
@@ -608,7 +626,7 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         *vb_out = bidx == BIG_INDEX ? CUDART_INF : bval;
         if (apply) {
             base[k] = *h_ptr;
-            if (w != nullptr) w[hc] = __ldcg(ws.w_h);
+            if (w != nullptr && own_h) w[hl] = __ldcg(ws.w_h);
         }
         *ws.counter = 0;                         // ready for the next call
     }
@@ -956,24 +974,25 @@ int ah_ratio_launch(const float *Tt, const float *F, const float *C,
     if (ws_bytes < (long long)ahr_ws_bytes(nb))
         return (int)cudaErrorInvalidValue;       // workspace too small
     ah_ratio_fused<true><<<nb, THREADS, 0, st>>>(
-        Tt, F, C, b, h, t, M, R, eps, nb, ah, ws, k_out, p_out, bk_out,
-        unb_out);
+        Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
+        bk_out, unb_out);
     RETURN_IF_ERROR();
     return 0;
 }
 
 int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
-              int t, int M, int R, float *ah, void *stream) {
+              const unsigned char *own, int t, int M, int R, float *ah,
+              void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nb = (M + AHR_COLS - 1) / AHR_COLS;
     if (t == 0)        // a copy of Tt[:, h]: one thread a constraint
         ah_ratio_fused<false, AHR_COLS><<<nb, AHR_COLS, 0, st>>>(
-            Tt, F, C, nullptr, h, t, M, R, 0.0f, nb, ah, nullptr, nullptr,
-            nullptr, nullptr, nullptr);
+            Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
+            nullptr, nullptr, nullptr, nullptr);
     else
         ah_ratio_fused<false, THREADS><<<nb, THREADS, 0, st>>>(
-            Tt, F, C, nullptr, h, t, M, R, 0.0f, nb, ah, nullptr, nullptr,
-            nullptr, nullptr, nullptr);
+            Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
+            nullptr, nullptr, nullptr, nullptr);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -983,7 +1002,8 @@ int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       const unsigned char *do_flag, int r, double eps, int M,
                       int R, const float *ah, double *b, int *base,
                       const int *h, const float *p, const double *bk,
-                      float *w, unsigned char *ws, long long ws_bytes,
+                      float *w, int offset, const float *wh,
+                      unsigned char *ws, long long ws_bytes,
                       int *hd_out, double *vd_out, int *hb_out,
                       double *vb_out, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -993,7 +1013,7 @@ int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
         return (int)cudaErrorInvalidValue;       // workspace too small
     colk_costs_fused<<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
         Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah, b,
-        base, h, p, bk, w, ws, hd_out, vd_out, hb_out, vb_out);
+        base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out, vb_out);
     RETURN_IF_ERROR();
     return 0;
 }

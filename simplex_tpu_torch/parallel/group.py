@@ -11,6 +11,9 @@ what replaces the mesh:
   ``gather`` onto rank 0, each raising its per-kind counter in ``COUNTS``
   (and ``SHAPES`` by operand shape), which the collective-structure test
   reads, and ``barrier`` (one counted ``all_reduce``);
+* ``all_reduce_`` and ``all_gather_into``, the same collectives into
+  fixed buffers, counted alike: the forms a CUDA graph can capture (over
+  NCCL, ``capturable``), whose replays ``CapturedCollectives`` counts;
 * ``world``, which sets up and tears down a group of this process, and
   ``spawn``, which runs a function on ``nranks`` new processes and
   returns rank 0's result (the CLI and the tests use it).
@@ -115,6 +118,81 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
         out = out.cpu()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.device) if staged else out
+
+
+def all_reduce_(buf: torch.Tensor, group) -> torch.Tensor:
+    """``all_reduce`` summed into ``buf`` itself (contiguous), which is
+    returned: over NCCL one collective that allocates nothing, as a CUDA
+    graph needs; gloo with a CUDA tensor stages it through the host."""
+    if not buf.is_contiguous():
+        raise ValueError("all_reduce_: want a contiguous buffer")
+    COUNTS["all_reduce"] += 1
+    SHAPES[("all_reduce", tuple(buf.shape))] += 1
+    if _staged(buf, group):
+        host = buf.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        buf.copy_(host)
+    else:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf
+
+
+def all_gather_into(out: torch.Tensor, src: torch.Tensor,
+                    group) -> torch.Tensor:
+    """``all_gather`` into ``out`` (P, *src.shape), contiguous, in rank
+    order; returns ``out``. Over NCCL one ``all_gather_into_tensor``
+    that allocates nothing, as a CUDA graph needs; over gloo the list
+    form into ``out``'s rows, staged through the host for CUDA
+    tensors."""
+    P = dist.get_world_size(group)
+    if (tuple(out.shape) != (P, *src.shape) or out.dtype != src.dtype
+            or not out.is_contiguous()):
+        raise ValueError(f"all_gather_into: want a contiguous {src.dtype} "
+                         f"{(P, *src.shape)} output, got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    COUNTS["all_gather"] += 1
+    SHAPES[("all_gather", tuple(src.shape))] += 1
+    flat = src.reshape(-1).contiguous()
+    if dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(out.view(-1), flat, group=group)
+        return out
+    staged = _staged(flat, group)
+    rows = out.cpu() if staged else out
+    dist.all_gather(list(rows.view(P, -1).unbind(0)),
+                    flat.cpu() if staged else flat, group=group)
+    if staged:
+        out.copy_(rows)
+    return out
+
+
+def capturable(group, x: torch.Tensor) -> bool:
+    """Whether a CUDA graph can hold this group's collectives on ``x``:
+    NCCL on a CUDA tensor. Gloo stages CUDA tensors through the host,
+    which no graph captures."""
+    return x.is_cuda and dist.get_backend(group) == "nccl"
+
+
+class CapturedCollectives:
+    """Collective counts for a CUDA graph, as
+    ``kernels.blocked.CapturedLaunches`` counts launches: around a capture
+    it takes back what the collectives counted while capturing (a capture
+    runs nothing) and keeps it as the graph's own; ``replayed`` adds those
+    to ``COUNTS`` and ``SHAPES`` once a replay."""
+
+    def __enter__(self) -> "CapturedCollectives":
+        self._before = (COUNTS.copy(), SHAPES.copy())
+        return self
+
+    def __exit__(self, *exc) -> None:
+        counts, shapes = self._before
+        self.counts, self.shapes = COUNTS - counts, SHAPES - shapes
+        for live, saved in ((COUNTS, counts), (SHAPES, shapes)):
+            live.clear()
+            live.update(saved)
+
+    def replayed(self) -> None:
+        COUNTS.update(self.counts)
+        SHAPES.update(self.shapes)
 
 
 def gather(x: torch.Tensor, group) -> torch.Tensor | None:

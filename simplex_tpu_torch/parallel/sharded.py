@@ -49,10 +49,13 @@ import torch.distributed as dist
 from ..config import (DEFAULT_OPTIONS, EPS_REL_F32, SolverOptions, Status,
                       kernel_blocked_enabled, normalize_enabled,
                       refine_enabled)
-from ..kernels.blocked import (BIG_INDEX, ah, ah_plain, anticycling_update,
+from ..kernels.blocked import (BIG_INDEX, CapturedLaunches, ShardedScalars,
+                               ah, ah_plain, anticycling_update,
                                apply_reprice, apply_window, colk_costs,
                                colk_workspace, entering_candidates,
-                               exit_status)
+                               exit_status, sharded_pack, sharded_ratio,
+                               sharded_scalars, sharded_step_post,
+                               sharded_step_pre)
 from ..problem import Problem
 from ..result import SolveResult
 from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
@@ -60,7 +63,8 @@ from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
 from ..tableau import (Tableau, count_basic_artificials, extract_solution,
                        phase1_objective, round_up, tt_matvec)
 from ..two_phase import DeviceSolveOutput, certify, resolve_device
-from .group import Shard, all_gather, all_reduce
+from .group import (CapturedCollectives, Shard, all_gather,
+                    all_gather_into, all_reduce, all_reduce_, capturable)
 
 
 def _column_unit(options: SolverOptions, nranks: int) -> int:
@@ -156,7 +160,7 @@ def gather_basic_coeffs(base: torch.Tensor, costs: torch.Tensor, r: int,
     phase, dropped rows, padding) contribute 0; one ``all_reduce``."""
     loc, own = _owned(base, shard)
     vals = costs.index_select(0, loc)
-    return all_reduce(torch.where(own & (base < r), vals, 0.0), shard.group)
+    return all_reduce_(torch.where(own & (base < r), vals, 0.0), shard.group)
 
 
 def gather_column(Tt: torch.Tensor, h: torch.Tensor, shard: Shard,
@@ -213,11 +217,6 @@ def fold_candidates(vals: torch.Tensor, idxs: torch.Tensor, shard: Shard,
     vd, vb = V.index_select(0, od)[0], V.index_select(0, ob)[0]
     return (Ix.index_select(0, od)[0, 0], Ix.index_select(0, ob)[0, 1],
             vd, vb)
-
-
-def _global_index(loc: torch.Tensor, shard: Shard) -> torch.Tensor:
-    loc = loc.long()
-    return torch.where(loc >= BIG_INDEX, BIG_INDEX, shard.offset + loc)
 
 
 # ---------------------------------------------------------------------------
@@ -418,166 +417,236 @@ def solve_loop_blocked_sharded(tab: Tableau, shard: Shard,
 
 
 # ---------------------------------------------------------------------------
-# The kernel sharded loop (K5, K2, K3/K4 on each slice).
+# The kernel sharded loop (K5, K2, K3/K4 and the sharded step kernels on
+# each slice).
 
-def _local_candidates(costs, w, r_loc: int, eps: float, shard: Shard):
-    """The slice's candidates over its f64 costs (``entering_candidates``)
-    ready for ``fold_candidates``: values [v_d, v_b, w at h_d, w at h_b]
-    (the weights under devex only), global indices, and under devex the
-    main key cost^2 / w (-inf when the slice has no eligible column)."""
-    h_d, v_d, h_b, v_b = entering_candidates(costs, w, r_loc, eps)
-    return _pack(h_d, v_d, h_b, v_b, w, shard)
+@dataclasses.dataclass
+class ShardedKernelLoop:
+    """The sharded kernel loop's state on one rank (``solver.KernelLoop``'s
+    counterpart): a fixed set of tensors, each only ever updated in place,
+    since a CUDA graph of the window bakes in every pointer it reads --
+    its collectives' buffers included. ``Tt`` is the caller's slice; b,
+    the slice's costs (f64) and base the loop's own copies; ``w`` the
+    slice's devex weights (None under the other rules); ``ah`` the (M_pad,)
+    column K5 writes and the ``all_reduce`` sums in place; ``send_v``,
+    ``send_i`` and ``recv_v``, ``recv_i`` the two candidate
+    ``all_gather``s' buffers ((k,) f64 and (2,) int32, and (P, k), (P, 2));
+    ``ws_k2`` K2's workspace; ``s`` the per-pivot scalars; ``shard`` the
+    rank's slice and ``r_loc`` its live columns."""
+
+    Tt: torch.Tensor
+    C: torch.Tensor
+    F: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    w: torch.Tensor | None
+    ah: torch.Tensor
+    send_v: torch.Tensor
+    send_i: torch.Tensor
+    recv_v: torch.Tensor
+    recv_i: torch.Tensor
+    ws_k2: torch.Tensor
+    s: ShardedScalars
+    shard: Shard
+    r_loc: int
+
+    def refold(self, eps: float) -> None:
+        """The slice's candidates over its costs, folded across the ranks
+        into the scalars (the window boundary's fold): ``sharded_pack``,
+        the two ``all_gather``s, ``sharded_step_post``'s fold."""
+        s, sh = self.s, self.shard
+        for dst, src in zip((s.h_d, s.v_d, s.h_b, s.v_b), entering_candidates(
+                self.costs, self.w, self.r_loc, eps)):
+            dst.copy_(src)
+        sharded_pack(s, self.w, sh.offset, self.send_v, self.send_i)
+        all_gather_into(self.recv_v, self.send_v, sh.group)
+        all_gather_into(self.recv_i, self.send_i, sh.group)
+        sharded_step_post(s, self.recv_v, self.recv_i, 0, eps,
+                          bland_static=False, threshold=None,
+                          then_pre=False, offset=sh.offset, R_loc=sh.R_loc,
+                          fold_only=True)
 
 
-def _pack(h_d, v_d, h_b, v_b, w, shard: Shard):
-    vals = [v_d, v_b]
-    key = None
-    if w is not None:
-        R_loc = shard.R_loc
-        w_d = _at(w, h_d.long().clamp(max=R_loc - 1)).double()
-        w_b = torch.where(h_b < BIG_INDEX,
-                          _at(w, h_b.long().clamp(max=R_loc - 1)).double(),
-                          1.0)
-        key = torch.where(h_b < BIG_INDEX, v_d * v_d / w_d, -torch.inf)
-        vals += [w_d, w_b]
-    idxs = torch.stack([_global_index(h_d, shard), _global_index(h_b, shard)])
-    return torch.stack(vals), idxs, key
+def sharded_kernel_loop(tab: Tableau, shard: Shard,
+                        options: SolverOptions) -> ShardedKernelLoop:
+    """The state at the start of ``solve_loop_blocked_kernel_sharded``:
+    the vectors in f64, the devex weights at 1, status RUNNING and the
+    first candidates folded across the ranks (two ``all_gather``s, which
+    also bring up the group's communicator before any capture)."""
+    L = int(options.block_pivots)
+    Tt = tab.Tt
+    M, R_loc = Tt.shape
+    dev = Tt.device
+    f64, i32 = torch.float64, torch.int32
+    devex = options.pivot_rule_resolved == "devex"
+    kv = 5 if devex else 2
+    # Every row of C and F is rewritten each window before any pass reads
+    # it (a skipped pivot writes zeros), so the factors are never cleared.
+    loop = ShardedKernelLoop(
+        Tt, C=torch.zeros((L, R_loc), dtype=torch.float32, device=dev),
+        F=torch.zeros((L, M), dtype=torch.float32, device=dev),
+        b=tab.b.to(f64).clone(), costs=tab.costs.to(f64).clone(),
+        base=tab.base.to(i32).clone(),
+        w=torch.ones(R_loc, dtype=torch.float32, device=dev) if devex
+        else None,
+        ah=torch.empty(M, dtype=torch.float32, device=dev),
+        send_v=torch.empty(kv, dtype=f64, device=dev),
+        send_i=torch.empty(2, dtype=i32, device=dev),
+        recv_v=torch.empty((shard.size, kv), dtype=f64, device=dev),
+        recv_i=torch.empty((shard.size, 2), dtype=i32, device=dev),
+        ws_k2=colk_workspace(R_loc, dev),
+        s=sharded_scalars(tab.z, options.pivot_rule_resolved == "bland"),
+        shard=shard, r_loc=shard.local_r(tab.r))
+    loop.refold(float(options.eps_resolved))
+    return loop
 
 
-def _fold(packed, shard: Shard):
-    """(h_d, v_d, h_b, v_b, w at h_d, w at h_b) from ``_pack``'s output,
-    replicated; the weights are 1 without devex."""
-    vals, idxs, key = packed
-    h_d, h_b, vd, vb = fold_candidates(vals, idxs, shard, key)
-    one = torch.ones((), dtype=torch.float32, device=vals.device)
-    w_d = vd[2].float() if key is not None else one
-    w_b = vb[3].float() if key is not None else one
-    return (h_d.to(torch.int32), vd[0], h_b.to(torch.int32), vb[1], w_d,
-            w_b)
+def run_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
+                       max_iter: int) -> None:
+    """Enqueue one window of L pivots with no host read: the step before
+    K5 of the window's first pivot, then per pivot K5 (the owner's column,
+    zeros elsewhere), its ``all_reduce``, the ratio step, K2 on the slice,
+    the pack, the two candidate ``all_gather``s and the step after, which
+    also runs the next pivot's step before K5. ``t`` is a constant of each
+    call: the body that a CUDA graph captures, collectives included."""
+    eps = float(options.eps_resolved)
+    L = int(options.block_pivots)
+    policy = dict(bland_static=options.pivot_rule_resolved == "bland",
+                  threshold=options.bland_threshold)
+    s, sh = loop.s, loop.shard
+    where = dict(offset=sh.offset, R_loc=sh.R_loc)
+    w_h = None if loop.w is None else s.wh
+    sharded_step_pre(s, max_iter, eps, **where)
+    for t in range(L):
+        ah(loop.Tt, loop.F, loop.C, s.hl, t, own=s.own, out=loop.ah)
+        all_reduce_(loop.ah, sh.group)
+        sharded_ratio(s, loop.ah, loop.b, loop.base, eps)
+        colk_costs(loop.Tt, loop.C, loop.F, loop.costs, s.k, t, s.u, s.do,
+                   loop.r_loc, eps, loop.ah, loop.b, loop.base, s.h, s.p,
+                   s.bk, loop.w, loop.ws_k2, out=(s.h_d, s.v_d, s.h_b, s.v_b),
+                   offset=sh.offset, w_h=w_h)
+        sharded_pack(s, loop.w, sh.offset, loop.send_v, loop.send_i)
+        all_gather_into(loop.recv_v, loop.send_v, sh.group)
+        all_gather_into(loop.recv_i, loop.send_i, sh.group)
+        sharded_step_post(s, loop.recv_v, loop.recv_i, max_iter, eps,
+                          then_pre=t + 1 < L, **policy, **where)
+
+
+def capture_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
+                           max_iter: int):
+    """One window (``run_window_sharded``) captured as a CUDA graph on a
+    side stream, with its NCCL collectives, and the launches and
+    collectives it holds: (graph, ``CapturedLaunches``,
+    ``CapturedCollectives``). A capture runs nothing, so the state does
+    not move; the kernel library is loaded first, outside it, and the
+    communicator is up (``sharded_kernel_loop``'s fold). The capture is
+    thread-local, so ProcessGroupNCCL's watchdog thread may go on querying
+    its events meanwhile. A failed capture raises."""
+    from ..kernels._build import load_library
+
+    load_library()
+    graph = torch.cuda.CUDAGraph()
+    with CapturedLaunches() as launches, CapturedCollectives() as colls, \
+            torch.cuda.stream(torch.cuda.Stream(loop.Tt.device)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            run_window_sharded(loop, options, max_iter)
+        finally:
+            graph.capture_end()
+    return graph, launches, colls
 
 
 def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,
                                       options: SolverOptions, max_iter: int,
-                                      costs0: torch.Tensor | None = None):
+                                      costs0: torch.Tensor | None = None, *,
+                                      graph: bool = True):
     """Deferred block pivoting over K5, K2 and K3/K4 on each rank's slice
     (``solve_loop_blocked_kernel_sharded``, ``sharded.py:540-859``; the
     port's ``solver.solve_loop_blocked_kernel``, which it equals pivot for
     pivot at one rank).
 
-    Per pivot: K5 builds the owner's live entering column, one (M_pad,)
-    ``all_reduce`` replicates it, the ratio test runs on it in f64 (as
-    K1's), K2 builds the slice's pivot row into ``C[t]``, updates the
-    slice's costs and the replicated b, base and eta row ``F[t]``, and
-    folds the slice's candidates, which two ``all_gather``s fold across
-    the ranks. Under devex the weights are updated in torch ops on the
-    slice and its candidates re-derived (K2's devex stage indexes its
-    weights by global column; ``sharded.py:705-737`` does the same), and
-    the fold carries the weights at both candidates. Per window: the devex
-    re-anchor's global max (one ``all_gather``); then either K4 (off
-    cadence) or the basic-cost ``all_reduce``, K3, the premature-optimal
-    minimum and the candidate fold (three ``all_gather``s), chosen on the
-    host as the single-card loop chooses. The tableau slice is updated in
-    place. Returns (tableau, status, iterations)."""
+    Per pivot: K5 builds the owner's live entering column (zeros on the
+    other ranks), one (M_pad,) ``all_reduce`` sums it in place, the ratio
+    step runs the ratio test on it in f64 (as K1's), K2 builds the
+    slice's pivot row into ``C[t]``, updates the slice's costs and devex
+    weights and the replicated b, base and eta row ``F[t]``, and folds the
+    slice's candidates, which the pack step and two ``all_gather``s fold
+    across the ranks, carrying the weights at both candidates; the step
+    kernels (``kernels.blocked.sharded_*``) carry the scalar glue. Per
+    window: the devex re-anchor's global max (one ``all_gather``); then
+    either K4 (off cadence) or the basic-cost ``all_reduce``, K3, the
+    candidate fold and the premature-optimal minimum (three
+    ``all_gather``s), chosen on the host as the single-card loop chooses.
+    The tableau slice is updated in place. Returns (tableau, status,
+    iterations).
+
+    Where the group's collectives can be captured (NCCL on the card,
+    ``group.capturable``) the L pivots of a window are one CUDA graph,
+    its collectives inside, captured once a call and replayed once a
+    window -- the JAX loop's jitted ``lax.fori_loop`` under ``shard_map``;
+    the window boundary stays on the host. ``graph=False`` enqueues the
+    same kernels and collectives eagerly instead, the on-card comparison
+    path. Gloo stages CUDA tensors through the host, which no graph
+    captures, and the CPU has no graphs: both run eagerly, the CPU with
+    the plain versions."""
     eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    devex = options.pivot_rule_resolved == "devex"
-    threshold = options.bland_threshold
-    L = int(options.block_pivots)
     every = max(1, int(options.reprice_every))
     Tt = tab.Tt
-    M, R_loc = Tt.shape
+    R_loc = Tt.shape[1]
     if Tt.dtype != torch.float32 or R_loc % 128:
         raise ValueError(f"the kernel loop needs an f32 slice of whole "
                          f"128-column tiles, got {Tt.dtype} R_loc={R_loc}")
-    dev = Tt.device
-    f64 = torch.float64
     r = tab.r
-    r_loc = shard.local_r(r)
-    row_mask = shard.row_mask(r, dev)
-
-    b = tab.b.to(f64).clone()
-    costs = tab.costs.to(f64).clone()
-    z = tab.z.to(f64).clone()
-    base = tab.base.to(torch.int32).clone()
+    row_mask = shard.row_mask(r, Tt.device)
     if costs0 is not None:
-        costs0 = costs0.to(f64)
-    w = torch.ones(R_loc, dtype=torch.float32, device=dev) if devex else None
-    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    bland = torch.tensor(bland_static, device=dev)
-    h_d, v_d, h_b, v_b, w_d, w_b = _fold(
-        _local_candidates(costs, w, r_loc, eps, shard), shard)
-    C = torch.zeros((L, R_loc), dtype=torch.float32, device=dev)
-    F = torch.zeros((L, M), dtype=torch.float32, device=dev)
-    ws = colk_workspace(R_loc, dev)
+        costs0 = costs0.to(torch.float64)
+    loop = sharded_kernel_loop(tab, shard, options)
+    s = loop.s
+    replay = graph and capturable(shard.group, Tt)
+    captured = None
 
     st, it, windows = RUNNING, 0, 0
     while st == RUNNING and it < max_iter and windows < max_iter:
-        for t in range(L):
-            active = (status == RUNNING) & (iterations < max_iter)
-            use_bland = bland & (h_b < BIG_INDEX)
-            h = torch.where(use_bland, h_b, h_d)
-            minc = torch.where(use_bland, v_b, v_d)
-            optimal = minc > -eps
-            hl, own = _owned(h, shard)
-            a_h = all_reduce(torch.where(
-                own, ah(Tt, F, C, hl.to(torch.int32), t), 0.0), shard.group)
-            mask = a_h >= eps
-            unbounded = ~mask.any()
-            k = torch.argmin(torch.where(
-                mask, b / torch.where(mask, a_h, 1.0).double(), torch.inf))
-            do = active & ~(optimal | unbounded)
-            p = torch.where(do, _at(a_h, k), 1.0)
-            bk = _at(b, k)
-            u = torch.where(do, minc / p.to(f64), 0.0)
-            lvar = _at(base, k)                  # before K2 changes base
-            k32 = k.to(torch.int32)
-            cands = colk_costs(Tt, C, F, costs, k32, t, u, do, r_loc, eps,
-                               a_h, b, base, h, p, bk, ws=ws)
-            if devex:
-                w = devex_update_sharded(w, do, C[t], p,
-                                         torch.where(use_bland, w_b, w_d),
-                                         lvar, shard)
-                packed = _local_candidates(costs, w, r_loc, eps, shard)
-            else:
-                packed = _pack(*cands, None, shard)
-            h_d, v_d, h_b, v_b, w_d, w_b = _fold(packed, shard)
-            z2 = torch.where(do, z - u * bk, z)
-            status = exit_status(active, optimal, unbounded, status)
-            stall, bland = anticycling_update(
-                do, (z2 - z).abs() >= eps, stall, bland,
-                bland_static=bland_static, threshold=threshold)
-            iterations = iterations + do.to(torch.int32)
-            z = z2
-        if devex:
+        if replay:
+            if captured is None:
+                captured = capture_window_sharded(loop, options, max_iter)
+            cuda_graph, launches, colls = captured
+            cuda_graph.replay()
+            launches.replayed()
+            colls.replayed()
+        else:
+            run_window_sharded(loop, options, max_iter)
+        if loop.w is not None:
             # Re-anchor the framework on the global max, once per window;
             # the carried weights at the candidates follow.
-            w, reset = reanchor(w, shard)
-            w_d = torch.where(reset, 1.0, w_d)
-            w_b = torch.where(reset, 1.0, w_b)
-        st, it = (int(v) for v in torch.stack([status, iterations]).tolist())
+            reset = global_max(loop.w.max(), shard) > 1e8
+            for x in (loop.w, s.w_d, s.w_b):
+                x.copy_(torch.where(reset, 1.0, x))
+        # The window's one host sync.
+        st, it = (int(v) for v in
+                  torch.stack([s.status, s.iterations]).tolist())
         if costs0 is not None and (st != RUNNING
                                    or (windows + 1) % every == 0):
-            coeffs = gather_basic_coeffs(base, costs0, r, shard)
-            costs = costs0 - apply_reprice(Tt, C, F, coeffs)
-            h_d, v_d, h_b, v_b, w_d, w_b = _fold(
-                _local_candidates(costs, w, r_loc, eps, shard), shard)
-            vmin = global_min(torch.where(row_mask, costs, torch.inf).min(),
-                              shard)
+            coeffs = gather_basic_coeffs(loop.base, costs0, r, shard)
+            loop.costs.copy_(costs0 - apply_reprice(Tt, loop.C, loop.F,
+                                                    coeffs))
+            loop.refold(eps)
+            vmin = global_min(torch.where(row_mask, loop.costs,
+                                          torch.inf).min(), shard)
             if st == OPTIMAL and float(vmin) <= -eps:
                 # Declared optimal on in-window costs while exact pricing
                 # still shows an improving column: keep running.
-                status.fill_(RUNNING)
+                s.status.fill_(RUNNING)
                 st = RUNNING
         else:
-            apply_window(Tt, C, F)
+            apply_window(Tt, loop.C, loop.F)
         windows += 1
 
     vdtype = tab.costs.dtype
-    out = dataclasses.replace(tab, Tt=Tt, b=b.to(vdtype),
-                              costs=costs.to(vdtype), z=z.to(vdtype),
-                              base=base)
+    out = dataclasses.replace(tab, Tt=Tt, b=loop.b.to(vdtype),
+                              costs=loop.costs.to(vdtype),
+                              z=s.z.to(vdtype), base=loop.base)
     return out, st, it
 
 

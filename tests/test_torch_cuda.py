@@ -931,3 +931,226 @@ def test_window_graph_matches_eager_on_card(cuda, monkeypatch, rule,
         assert gl[name] > 0, name
     assert gl["ah_ratio"] == gl["step_mid"] == gl["step_post"] == (
         16 * gl["step_pre"])
+
+
+def _card_sharded_state(rng, P, R_loc, M, dev):
+    """Random sharded step scalars (as ``_card_scalars``, plus the folded
+    weights), a summed column with ties and unbounded draws, b, base, the
+    slice weights and each rank's K2 candidates, some ranks empty."""
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5), device=dev),
+                           bool(rng.integers(2)))
+    for name, x in _card_scalars(rng, dev).tensors().items():
+        getattr(s, name).copy_(x)
+    s.h_d.fill_(int(rng.integers(0, P * R_loc)))
+    s.h_b.fill_(int(rng.choice([int(rng.integers(0, P * R_loc)),
+                                kb.BIG_INDEX])))
+    s.w_d.fill_(rng.uniform(1, 3))
+    s.w_b.fill_(rng.uniform(1, 3))
+    ah = rng.uniform(-1, 1, M).astype(np.float32)
+    if rng.random() < 0.2:
+        ah = -np.abs(ah)
+    b = rng.uniform(0, 10, M)
+    j = rng.integers(0, M, 2)
+    ah[j], b[j] = 0.5, 1.25                      # a tie in b / a_h
+    cands = []
+    for _ in range(P):
+        c = (int(rng.integers(0, R_loc)), -rng.uniform(0.1, 3),
+             int(rng.integers(0, R_loc)), -rng.uniform(0.1, 3))
+        if rng.random() < 0.2:
+            c = (0, float("inf"), kb.BIG_INDEX, float("inf"))
+        elif rng.random() < 0.2:
+            c = (2, -1.5, c[2], c[3])            # ties across ranks
+        cands.append(c)
+    w = torch.from_numpy(rng.uniform(1, 4, (P, R_loc)).astype(np.float32))
+    w[:, 2] = 2.0
+    return (s, torch.from_numpy(ah).to(dev), torch.from_numpy(b).to(dev),
+            torch.from_numpy(rng.integers(0, P * R_loc, M).astype(np.int32))
+            .to(dev), w.to(dev), cands)
+
+
+@pytest.mark.parametrize("policy", [(False, 50), (False, None), (True, 50)],
+                         ids=["threshold", "never", "static"])
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+def test_sharded_step_kernels_match_plain_on_card(cuda, devex, policy):
+    """Each sharded step kernel against its plain version on the same card
+    tensors, 128 random states at P = 1, 2 and 4: every output bit for
+    bit (each rank's pre and ratio, its pack, and each rank's fold and
+    post, with and without the next pivot's pre, and the fold alone)."""
+    bland_static, threshold = policy
+    rng = np.random.default_rng(41)
+    M, R_loc, eps = 300, 128, 1e-4
+    kb.reset_launches()
+    for i in range(128):
+        P = (1, 2, 4)[i % 3]
+        s0, ah, b, base, w, cands = _card_sharded_state(rng, P, R_loc, M,
+                                                        cuda)
+        kv = 5 if devex else 2
+        Vs = [torch.empty((P, kv), dtype=torch.float64, device=cuda)
+              for _ in range(2)]
+        Is = [torch.empty((P, 2), dtype=torch.int32, device=cuda)
+              for _ in range(2)]
+        ranks = []
+        for rank in range(P):
+            where = dict(offset=rank * R_loc, R_loc=R_loc)
+            sk, sp = (kb.ShardedScalars(**{n: x.clone() for n, x in
+                                           s0.tensors().items()})
+                      for _ in range(2))
+            kb.sharded_step_pre(sk, 10, eps, **where)
+            kb.sharded_step_pre_plain(sp, 10, eps, **where)
+            kb.sharded_ratio(sk, ah, b, base, eps)
+            kb.sharded_ratio_plain(sp, ah, b, base, eps)
+            for x in (sk, sp):
+                for name, v in zip(("h_d", "v_d", "h_b", "v_b"),
+                                   cands[rank]):
+                    getattr(x, name).fill_(v)
+            wr = w[rank] if devex else None
+            kb.sharded_pack(sk, wr, rank * R_loc, Vs[0][rank], Is[0][rank])
+            kb.sharded_pack_plain(sp, wr, rank * R_loc, Vs[1][rank],
+                                  Is[1][rank])
+            ranks.append((sk, sp))
+        assert torch.equal(Vs[0], Vs[1]) and torch.equal(Is[0], Is[1]), i
+        for rank, (sk, sp) in enumerate(ranks):
+            where = dict(offset=rank * R_loc, R_loc=R_loc)
+            then_pre, fold_only = bool(i % 2), i % 7 == 0
+            kb.sharded_step_post(sk, Vs[0], Is[0], 10, eps,
+                                 bland_static=bland_static,
+                                 threshold=threshold, then_pre=then_pre,
+                                 fold_only=fold_only, **where)
+            kb.sharded_step_post_plain(sp, Vs[1], Is[1], 10, eps,
+                                       bland_static, threshold, then_pre,
+                                       fold_only=fold_only, **where)
+            for name, x in sk.tensors().items():
+                assert torch.equal(x, getattr(sp, name)), (i, rank, name, x)
+    n = sum((1, 2, 4)[i % 3] for i in range(128))
+    assert (kb.LAUNCHES["sharded_step_pre"], kb.LAUNCHES["sharded_ratio"],
+            kb.LAUNCHES["sharded_pack"],
+            kb.LAUNCHES["sharded_step_post"]) == (n, n, n, n)
+
+
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+@pytest.mark.parametrize("t", [0, 5])
+def test_colk_offset_and_ah_owner_on_card(cuda, t, devex):
+    """K5 with its owner flag: its column where the rank owns h, zeros
+    where not, bit for bit. K2 with offset 0 and ``w_h = w[h]`` is its
+    single-card call bit for bit. On the second of two slices (offset R;
+    h and the leaving variable on it or on the first) K2 matches its
+    plain version with the same arguments: bit for bit at t = 0, where no
+    eta row sums; at t = 5 C[t] to 1e-5 and the weights to 1e-4 (another
+    summation order of the pivot row), the costs to 1e-12 of the f64
+    formula on the kernel's own pivot row, the candidates' values the
+    kernel's own costs at the same indices, the rest bit for bit."""
+    M, R, L, eps = 256, 384, 16, 1e-4
+    Tt = _rand((M, R), 1).to(cuda)
+    C = _rand((L, R), 2).to(cuda)
+    F = _rand((L, M), 3, -0.1, 0.1).to(cuda)
+    C[t:] = 0
+    F[t:] = 0
+    b = _rand((M,), 4, 0, 100, np.float64).to(cuda)
+    costs = _rand((R,), 5, dtype=np.float64).to(cuda)
+    w = _rand((R,), 6, 1, 2).to(cuda) if devex else None
+    h33 = torch.tensor(33, dtype=torch.int32, device=cuda)
+    ah = kb.ah(Tt, F, C, h33, t)
+    for own in (True, False):
+        out = torch.empty_like(ah)
+        kb.ah(Tt, F, C, h33, t, own=torch.tensor(own, device=cuda), out=out)
+        assert torch.equal(out, ah if own else torch.zeros_like(ah))
+    k = torch.tensor(7, dtype=torch.int32, device=cuda)
+    p = ah[7].clone()
+    u = -0.5 / p.double()
+    do = torch.tensor(True, device=cuda)
+    base0 = torch.arange(M, dtype=torch.int32, device=cuda)
+    ws = kb.colk_workspace(R, cuda)
+
+    def run(fn, h, lvar, **kw):
+        base = base0.clone()
+        base[7] = lvar
+        st = dict(C=C.clone(), F=F.clone(), costs=costs.clone(),
+                  b=b.clone(), base=base,
+                  w=None if w is None else w.clone())
+        cand = fn(Tt, st["C"], st["F"], st["costs"], k, t, u, do, R - 5,
+                  eps, ah, st["b"], st["base"],
+                  torch.tensor(h, dtype=torch.int32, device=cuda), p,
+                  b[7].clone(), st["w"], **kw)
+        return [x for x in st.values() if x is not None] + list(cand)
+
+    w_h = None if w is None else w[40].clone()
+    for a, b_ in zip(run(kb.colk_costs, 40, 9, ws=ws),
+                     run(kb.colk_costs, 40, 9, ws=ws, offset=0, w_h=w_h)):
+        assert torch.equal(a, b_)
+    for h, lvar in ((R + 40, R + 9), (40, 9), (R + 40, 9), (40, R + 9)):
+        w_h = None if w is None else w[h % R].clone()
+        got = run(kb.colk_costs, h, lvar, ws=ws, offset=R, w_h=w_h)
+        want = run(kb.colk_costs_plain, h, lvar, offset=R, w_h=w_h)
+        names = ["C", "F", "costs", "b", "base"] + (["w"] if devex else [])
+        got_costs = got[2]
+        for name, a, b_ in zip(names + ["h_d", "v_d", "h_b", "v_b"], got,
+                               want):
+            if t and name == "C":
+                torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+            elif t and name == "w":
+                torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)
+            elif t and name == "costs":
+                x = costs - u * got[0][t].double()
+                assert ((a - x).abs() <= 1e-12 * (1 + x.abs())).all()
+            elif t and name in ("v_d", "v_b"):
+                j = int(got[len(names) + (2 if name == "v_b" else 0)])
+                assert (float(a) == float("inf") if j == kb.BIG_INDEX
+                        else torch.equal(a, got_costs[j])), name
+            else:
+                assert torch.equal(a, b_), (name, h, lvar)
+
+
+def test_sharded_loop_graph_matches_eager_on_card(cuda, monkeypatch,
+                                                  tmp_path):
+    """The sharded kernel loop at one NCCL rank as one CUDA graph a window
+    against ``graph=False`` from one phase-1 slice, under devex and
+    Dantzig: the same status and iterations, the final Tt, b, costs, z,
+    base and weights bit for bit, the same launches and collectives (a
+    replay adds the graph's, the capture none), and K5, the step kernels
+    and K2 launched with K1 not."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    n, m = 600, 200
+    p = pst.generate_random_problem(n, m, 5, 1, 100)
+    loops = []
+    make = ps.sharded_kernel_loop
+    monkeypatch.setattr(ps, "sharded_kernel_loop",
+                        lambda *a: loops.append(make(*a)) or loops[-1])
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        for rule in ("devex", "dantzig"):
+            opts = pst.SolverOptions(dtype=np.float32,
+                                     vector_dtype=np.float64,
+                                     block_pivots=16, pivot_rule=rule)
+            R_pad, M_pad = ps.sharded_padded_dims(n, m, 1, opts)
+            shard = pg.Shard.of(group, R_pad)
+            tab0 = ps.build_phase1_sharded(
+                torch.as_tensor(p.A), torch.as_tensor(p.b, device=cuda), n,
+                m, shard, opts, M_pad, cuda)
+            costs0 = tab0.costs
+            tab0 = ps.gaussian_eliminate_sharded(tab0, shard)
+            runs = {}
+            for graph in (False, True):
+                tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+                kb.reset_launches()
+                pg.reset_counts()
+                out, status, iters = ps.solve_loop_blocked_kernel_sharded(
+                    tab, shard, opts, 5000, costs0, graph=graph)
+                torch.cuda.synchronize()
+                runs[graph] = (out, status, iters, dict(kb.LAUNCHES),
+                               dict(pg.COUNTS), loops[-1].w)
+            (eo, est, eit, el, ec, ew), (go, gst, git, gl, gc, gw) = (
+                runs[False], runs[True])
+            assert est == gst == int(pst.Status.OPTIMAL) and eit == git > 16
+            for name in ("Tt", "b", "costs", "z", "base"):
+                assert torch.equal(getattr(go, name), getattr(eo, name)), (
+                    rule, name)
+            assert (ew is None) == (rule != "devex")
+            if ew is not None:
+                assert torch.equal(gw, ew)
+            assert gl == el and gc == ec, rule
+            for name in ("ah", "colk_costs", "sharded_step_pre",
+                         "sharded_ratio", "sharded_pack",
+                         "sharded_step_post"):
+                assert gl[name] > 0, name
+            assert gl["ah_ratio"] == 0

@@ -1,0 +1,648 @@
+"""The sharded kernel loop's per-pivot step and its fixed state, on the CPU.
+
+* The sharded step's plain versions (``kernels.blocked.sharded_step_pre``
+  / ``sharded_ratio`` / ``sharded_pack`` / ``sharded_step_post`` on CPU
+  tensors) against the eager glue they replace, written out here as the
+  sharded loop ran it (the fold as ``parallel.sharded.fold_candidates``
+  runs it on the gathered candidates): every output equal, over a grid of
+  pivots (done, skipped, at the fuse, optimal, unbounded, Bland on and
+  off, a rank with no eligible column, ties across ranks) at P = 1, 2
+  and 4, under devex and Dantzig and each anti-cycling policy.
+* K2's plain version with a column offset and a given weight at h: at
+  offset 0 bit for bit its single-card call, and on a two-slice cut the
+  one-card result. K5's owner flag.
+* ``group.CapturedCollectives``: a capture counts nothing, a replay the
+  graph's collectives.
+* ``ShardedKernelLoop`` keeps every carried tensor in one storage from
+  its first window to its last, under devex and Dantzig, with ``costs0``
+  and without; and the loop ends bit for bit where the eager loop it
+  replaces (written out here) ends.
+* ``solve_sharded`` against the JAX package's on a CPU mesh (its kernels
+  in interpret mode), at the ROADMAP's holding rules.
+"""
+
+import dataclasses
+import itertools
+import tempfile
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+import simplex_tpu as jst
+import simplex_tpu_torch as pst
+from simplex_tpu.parallel.sharded import solve_sharded as jax_sharded
+from simplex_tpu_torch.config import SolverOptions, Status
+from simplex_tpu_torch.generator import generate_random_problem
+from simplex_tpu_torch.kernels import blocked as kb
+from simplex_tpu_torch.parallel import group as pg
+from simplex_tpu_torch.parallel import sharded as ps
+
+BIG = kb.BIG_INDEX
+RUNNING, OPTIMAL, UNBOUNDED = (int(Status.RUNNING), int(Status.OPTIMAL),
+                               int(Status.UNBOUNDED))
+EPS = 1e-4
+MAX_ITER = 10
+M, R_LOC = 16, 8
+POLICIES = {"threshold": (False, 50), "never": (False, None),
+            "static": (True, 50)}
+
+# (status, iterations, stall, bland, Bland candidate, v_d, unbounded,
+# local candidates): the pivot each case makes. "ties" gives every rank
+# the same main value and key; "empty_rank" leaves rank 1 with no
+# eligible column.
+CASES = {
+    "pivot": (RUNNING, 3, 4, False, True, -2.5, False, "spread"),
+    "inactive": (OPTIMAL, 3, 4, False, True, -2.5, False, "spread"),
+    "fuse": (RUNNING, MAX_ITER, 4, False, True, -2.5, False, "spread"),
+    "optimal": (RUNNING, 3, 4, False, True, -1e-5, False, "spread"),
+    "unbounded": (RUNNING, 3, 4, False, True, -2.5, True, "spread"),
+    "bland": (RUNNING, 3, 4, True, True, -2.5, False, "spread"),
+    "bland_none_eligible": (RUNNING, 3, 4, True, False, -2.5, False,
+                            "spread"),
+    "stall_to_bland": (RUNNING, 3, 49, False, True, -2e-4, False,
+                       "spread"),
+    "ties": (RUNNING, 3, 4, False, True, -2.5, False, "ties"),
+    "empty_rank": (RUNNING, 3, 4, False, True, -2.5, False, "empty_rank"),
+}
+
+
+def _state(case, P, devex, seed):
+    """Every rank's scalars (identical: the loop's replicated carry), the
+    summed column, b and base, and each rank's slice weights and K2
+    candidates (local columns)."""
+    status, iters, stall, bland, hb_ok, v_d, unb, local = CASES[case]
+    rng = np.random.default_rng(seed)
+    R = P * R_LOC
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5)), bland)
+    h_d = int(rng.integers(0, R))
+    vals = dict(status=status, iterations=iters, stall=stall, h_d=h_d,
+                v_d=v_d * rng.uniform(0.9, 1.1),
+                h_b=int(rng.integers(0, R)) if hb_ok else BIG,
+                v_b=-0.5 * rng.uniform(0.9, 1.1) if hb_ok else float("inf"),
+                w_d=rng.uniform(1, 3) if devex else 1.0,
+                w_b=rng.uniform(1, 3) if devex else 1.0)
+    for name, v in vals.items():
+        getattr(s, name).fill_(v)
+    ah = torch.from_numpy(rng.uniform(-1, 1, M).astype(np.float32))
+    if unb:
+        ah = -ah.abs()
+    else:
+        ah[3] = ah[9] = 0.5                     # a tie in b / a_h
+    b = torch.from_numpy(rng.uniform(0, 10, M))
+    b[3] = b[9] = 1.25
+    base = torch.from_numpy(rng.integers(0, R, M).astype(np.int32))
+    ws = [torch.from_numpy(rng.uniform(1, 4, R_LOC).astype(np.float32))
+          for _ in range(P)]
+    cands = []
+    for rank in range(P):
+        hd, hb = int(rng.integers(0, R_LOC)), int(rng.integers(0, R_LOC))
+        vd, vb = -rng.uniform(0.1, 3), -rng.uniform(0.1, 3)
+        if local == "ties":
+            hd, vd = 2, -1.5
+            ws[rank][2] = 2.0
+        if local == "empty_rank" and rank == 1 % P:
+            hd, vd, hb, vb = 0, float("inf"), BIG, float("inf")
+        cands.append((hd, vd, hb, vb))
+    return s, ah, b, base, ws, cands
+
+
+def _clone(s):
+    return kb.ShardedScalars(**{n: x.clone() for n, x in s.tensors().items()})
+
+
+def _eager_glue(s, ah, b, base, ws, cands, P, devex, then_pre, policy):
+    """The sharded kernel loop's per-pivot glue as it ran eagerly before
+    the step kernels, for every rank: before K5, between the column's
+    all_reduce and K2, the candidates' pack (``_pack``), the fold
+    (``fold_candidates`` and ``_fold`` on the stacked packs) and the part
+    after; with ``then_pre`` the next pivot's part before K5."""
+    bland_static, threshold = policy
+    status, iterations = s.status.clone(), s.iterations.clone()
+    stall, bland, z = s.stall.clone(), s.bland.clone(), s.z.clone()
+    h_d, v_d, h_b, v_b = s.h_d, s.v_d, s.h_b, s.v_b
+    w_d, w_b = s.w_d, s.w_b
+
+    def before_k5(offset):
+        active = (status == RUNNING) & (iterations < MAX_ITER)
+        use_bland = bland & (h_b < BIG)
+        h = torch.where(use_bland, h_b, h_d)
+        minc = torch.where(use_bland, v_b, v_d)
+        loc = h.long() - offset
+        own = (loc >= 0) & (loc < R_LOC)
+        return dict(active=active, h=h, minc=minc, optimal=minc > -EPS,
+                    hl=loc.clamp(0, R_LOC - 1), own=own,
+                    wh=torch.where(use_bland, w_b, w_d))
+
+    pre = [before_k5(rank * R_LOC) for rank in range(P)]
+    active, minc, optimal = pre[0]["active"], pre[0]["minc"], \
+        pre[0]["optimal"]
+    mask = ah >= EPS
+    unbounded = ~mask.any()
+    k = torch.argmin(torch.where(
+        mask, b / torch.where(mask, ah, 1.0).double(), torch.inf))
+    do = active & ~(optimal | unbounded)
+    p = torch.where(do, ah[k], 1.0)
+    bk = b[k]
+    u = torch.where(do, minc / p.to(torch.float64), 0.0)
+    mid = dict(k=k, unb=unbounded, do=do, p=p, bk=bk, u=u, lvar=base[k])
+
+    packs = []
+    for rank, ((hd, vd, hb, vb), w) in enumerate(zip(cands, ws)):
+        hd, hb = torch.tensor(hd, dtype=torch.int32), torch.tensor(
+            hb, dtype=torch.int32)
+        vd, vb = torch.tensor(vd, dtype=torch.float64), torch.tensor(
+            vb, dtype=torch.float64)
+        vals, key = [vd, vb], None
+        if devex:
+            wd = w[hd.long().clamp(max=R_LOC - 1)].double()
+            wb = torch.where(hb < BIG, w[hb.long().clamp(max=R_LOC - 1)]
+                             .double(), 1.0)
+            key = torch.where(hb < BIG, vd * vd / wd, -torch.inf)
+            vals += [wd, wb]
+        idxs = torch.stack([torch.where(x.long() >= BIG, BIG,
+                                        rank * R_LOC + x.long())
+                            for x in (hd, hb)])
+        if key is not None:
+            vals.append(key)
+        packs.append((torch.stack(vals), idxs))
+    V = torch.stack([v for v, _ in packs])
+    Ix = torch.stack([i for _, i in packs])
+    key = V[:, -1] if devex else -V[:, 0]
+    od = torch.argmax((key == key.max()).to(torch.int8)).view(1)
+    ob = torch.argmin(Ix[:, 1]).view(1)
+    vd, vb = V.index_select(0, od)[0], V.index_select(0, ob)[0]
+    h_d = Ix.index_select(0, od)[0, 0].to(torch.int32)
+    h_b = Ix.index_select(0, ob)[0, 1].to(torch.int32)
+    v_d, v_b = vd[0], vb[1]
+    one = torch.ones((), dtype=torch.float32)
+    w_d = vd[2].float() if devex else one
+    w_b = vb[3].float() if devex else one
+
+    z2 = torch.where(do, z - u * bk, z)
+    status = kb.exit_status(active, optimal, unbounded, status)
+    stall, bland = kb.anticycling_update(
+        do, (z2 - z).abs() >= EPS, stall, bland, bland_static=bland_static,
+        threshold=threshold)
+    iterations = iterations + do.to(torch.int32)
+    z = z2
+    post = dict(h_d=h_d, v_d=v_d, h_b=h_b, v_b=v_b, w_d=w_d, w_b=w_b,
+                status=status, stall=stall, bland=bland,
+                iterations=iterations, z=z)
+    nxt = ([before_k5(rank * R_LOC) for rank in range(P)] if then_pre
+           else None)
+    return pre, mid, packs, post, nxt
+
+
+def _equal(got, want, what):
+    """Equal values; floating values of one dtype (the eager glue kept
+    indices in int64 and flags in bool where the scalars hold int32)."""
+    assert not want.is_floating_point() or got.dtype == want.dtype, what
+    assert torch.equal(got, want.to(got.dtype)), (what, got, want)
+
+
+@pytest.mark.parametrize("then_pre", [False, True], ids=["post", "post+pre"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sharded_step_plain_matches_eager_glue(case, P, rule, policy,
+                                               then_pre):
+    devex = rule == "devex"
+    s0, ah, b, base, ws, cands = _state(case, P, devex, seed=len(case) + P)
+    pre, mid, packs, post, nxt = _eager_glue(
+        s0, ah, b, base, ws, cands, P, devex, then_pre, POLICIES[policy])
+    ranks = [_clone(s0) for _ in range(P)]
+    kv = 5 if devex else 2
+    V = torch.empty((P, kv), dtype=torch.float64)
+    Ix = torch.empty((P, 2), dtype=torch.int32)
+    for rank, s in enumerate(ranks):
+        where = dict(offset=rank * R_LOC, R_loc=R_LOC)
+        kb.sharded_step_pre(s, MAX_ITER, EPS, **where)
+        for name, want in pre[rank].items():
+            _equal(getattr(s, name), want, (rank, "pre", name))
+        kb.sharded_ratio(s, ah, b, base, EPS)
+        for name, want in mid.items():
+            _equal(getattr(s, name), want, (rank, "ratio", name))
+        # K2 leaves the slice's candidates in the scalars.
+        for name, v in zip(("h_d", "v_d", "h_b", "v_b"), cands[rank]):
+            getattr(s, name).fill_(v)
+        kb.sharded_pack(s, ws[rank] if devex else None, rank * R_LOC,
+                        V[rank], Ix[rank])
+        _equal(V[rank], packs[rank][0], (rank, "pack values"))
+        _equal(Ix[rank], packs[rank][1], (rank, "pack indices"))
+    for rank, s in enumerate(ranks):
+        kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS,
+                             bland_static=POLICIES[policy][0],
+                             threshold=POLICIES[policy][1],
+                             then_pre=then_pre, offset=rank * R_LOC,
+                             R_loc=R_LOC)
+        for name, want in post.items():
+            _equal(getattr(s, name), want, (rank, "post", name))
+        if then_pre:
+            for name, want in nxt[rank].items():
+                _equal(getattr(s, name), want, (rank, "next pre", name))
+    # The case makes the pivot it is named for; h has one owner.
+    assert bool(ranks[0].do) == (case in ("pivot", "bland",
+                                          "bland_none_eligible",
+                                          "stall_to_bland", "ties",
+                                          "empty_rank")), case
+    assert sum(bool(s.own) for s in ranks) == 1
+
+
+def test_sharded_fold_only_folds():
+    """``fold_only``: the candidates change, the carry does not."""
+    s, *_ = _state("pivot", 2, True, seed=3)
+    V = torch.tensor([[-1.0, -2.0, 1.0, 1.0, 1.0], [-3.0, -4.0, 2.0, 1.5,
+                                                     4.5]],
+                     dtype=torch.float64)
+    Ix = torch.tensor([[5, 1], [9, 8]], dtype=torch.int32)
+    before = _clone(s)
+    kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS, bland_static=False,
+                         threshold=50, then_pre=True, offset=0, R_loc=R_LOC,
+                         fold_only=True)
+    assert (int(s.h_d), float(s.v_d), int(s.h_b), float(s.v_b),
+            float(s.w_d), float(s.w_b)) == (9, -3.0, 1, -2.0, 2.0, 1.0)
+    for name in ("status", "iterations", "stall", "bland", "z", "h",
+                 "active", "own", "hl"):
+        assert torch.equal(getattr(s, name), getattr(before, name)), name
+
+
+def _k2_state(R, seed, devex):
+    """A K2 call's operands at M = 128, L = 8, t = 3 over R columns."""
+    rng = np.random.default_rng(seed)
+    M, L, t = 128, 8, 3
+    f32 = np.float32
+    Tt = torch.from_numpy(rng.uniform(-1, 1, (M, R)).astype(f32))
+    C = torch.from_numpy(rng.uniform(-1, 1, (L, R)).astype(f32))
+    F = torch.from_numpy(rng.uniform(-0.1, 0.1, (L, M)).astype(f32))
+    C[t:] = 0
+    F[t:] = 0
+    costs = torch.from_numpy(rng.uniform(-1, 1, R))
+    ah = torch.from_numpy(rng.uniform(-1, 1, M).astype(f32))
+    b = torch.from_numpy(rng.uniform(0, 10, M))
+    base = torch.from_numpy(rng.permutation(R)[:M].astype(np.int32))
+    w = (torch.from_numpy(rng.uniform(1, 3, R).astype(f32)) if devex
+         else None)
+    return dict(Tt=Tt, C=C, F=F, costs=costs, ah=ah, b=b, base=base, w=w,
+                t=t)
+
+
+def _k2(st, k, h, offset=0, w_h=None, sl=slice(None)):
+    """K2's plain version on a copy of ``st`` cut to columns ``sl``."""
+    x = {n: (v[..., sl] if n in ("Tt", "C", "costs", "w") else v)
+         for n, v in st.items() if n != "t" and v is not None}
+    x = {n: v.clone() for n, v in x.items()}
+    x.setdefault("w", None)
+    p = x["ah"][k].clone()
+    do = torch.tensor(True)
+    u = -0.7 / p.double()
+    cands = kb.colk_costs(
+        x["Tt"], x["C"], x["F"], x["costs"],
+        torch.tensor(k, dtype=torch.int32), st["t"], u, do, x["Tt"].shape[1],
+        EPS, x["ah"], x["b"], x["base"], torch.tensor(h, dtype=torch.int32),
+        p, x["b"][k].clone(), x["w"],
+        offset=offset, w_h=w_h)
+    return x, cands
+
+
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_colk_offset_zero_is_single_card(rule):
+    st = _k2_state(128, 7, rule == "devex")
+    k, h = 5, 40
+    want, wc = _k2(st, k, h)
+    w_h = None if st["w"] is None else st["w"][h].clone()
+    got, gc = _k2(st, k, h, offset=0, w_h=w_h)
+    for name in want:
+        if want[name] is not None:
+            assert torch.equal(got[name], want[name]), name
+    for a, b_ in zip(gc, wc):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("leaving", ["slice0", "slice1"])
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_colk_two_slices_equal_one_card(rule, leaving):
+    """K2 on two slices of 128 columns, each with its offset and the
+    weight at h, against K2 on the 256 columns: the same pivot row,
+    costs and weights by slice, the same replicated b, base and eta row,
+    and the slices' candidates folded (``sharded_pack``,
+    ``sharded_step_post``'s fold) are the one-card candidates."""
+    devex = rule == "devex"
+    st = _k2_state(256, 11, devex)
+    k, h = 4, 200                                # h on slice 1
+    # The leaving variable base[k] on one slice or the other.
+    st["base"][k] = 60 if leaving == "slice0" else 150
+    want, wc = _k2(st, k, h)
+    w_h = None if st["w"] is None else st["w"][h].clone()
+    V = torch.empty((2, 5 if devex else 2), dtype=torch.float64)
+    Ix = torch.empty((2, 2), dtype=torch.int32)
+    s = kb.sharded_scalars(torch.tensor(0.0), False)
+    for rank in range(2):
+        cols = slice(128 * rank, 128 * (rank + 1))
+        got, gc = _k2(st, k, h, offset=128 * rank, w_h=w_h, sl=cols)
+        for name in ("C", "costs", "w"):
+            if want[name] is not None:
+                assert torch.equal(got[name], want[name][..., cols]), name
+        for name in ("F", "b", "base"):
+            assert torch.equal(got[name], want[name]), name
+        for name, v in zip(("h_d", "v_d", "h_b", "v_b"), gc):
+            getattr(s, name).copy_(v)
+        kb.sharded_pack(s, got["w"], 128 * rank, V[rank], Ix[rank])
+    kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS, bland_static=False,
+                         threshold=50, then_pre=False, offset=0, R_loc=128,
+                         fold_only=True)
+    assert (int(s.h_d), int(s.h_b)) == (int(wc[0]), int(wc[2]))
+    assert torch.equal(s.v_d, wc[1]) and torch.equal(s.v_b, wc[3])
+    if devex:
+        assert float(s.w_d) == float(want["w"][int(wc[0])])
+
+
+def test_ah_owner_flag():
+    rng = np.random.default_rng(2)
+    Tt = torch.from_numpy(rng.uniform(-1, 1, (128, 128)).astype(np.float32))
+    C = torch.from_numpy(rng.uniform(-1, 1, (8, 128)).astype(np.float32))
+    F = torch.from_numpy(rng.uniform(-1, 1, (8, 128)).astype(np.float32))
+    h = torch.tensor(17, dtype=torch.int32)
+    out = torch.full((128,), 9.0)
+    want = kb.ah_plain(Tt, F, C, h, 5)
+    got = kb.ah(Tt, F, C, h, 5, own=torch.tensor(True), out=out)
+    assert got is out and torch.equal(out, want)
+    kb.ah(Tt, F, C, h, 5, own=torch.tensor(False), out=out)
+    assert torch.equal(out, torch.zeros(128))
+    assert torch.equal(kb.ah(Tt, F, C, h, 5), want)
+    with pytest.raises(ValueError, match="own"):
+        kb.ah(Tt, F, C, h, 5, own=torch.tensor(1))
+
+
+def test_captured_collectives_counts_replays_only():
+    pg.reset_counts()
+    pg.COUNTS["all_gather"] = 3
+    with pg.CapturedCollectives() as colls:
+        for _ in range(8):
+            pg.COUNTS["all_gather"] += 2
+            pg.COUNTS["all_reduce"] += 1
+            pg.SHAPES[("all_reduce", (16,))] += 1
+    assert dict(pg.COUNTS) == {"all_gather": 3} and not pg.SHAPES
+    colls.replayed()
+    colls.replayed()
+    assert dict(pg.COUNTS) == {"all_gather": 35, "all_reduce": 16}
+    assert dict(pg.SHAPES) == {("all_reduce", (16,)): 16}
+    pg.reset_counts()
+
+
+def test_in_place_collectives_count_as_allocating(tmp_path):
+    """``all_reduce_`` and ``all_gather_into`` give what the allocating
+    forms give, into their buffers, counted under the same kinds and
+    shapes."""
+    with pg.world(0, 1, "gloo", str(tmp_path)) as group:
+        pg.reset_counts()
+        x = torch.arange(4.0)
+        assert pg.all_reduce_(x, group) is x
+        assert torch.equal(x, pg.all_reduce(torch.arange(4.0), group))
+        src = torch.tensor([3, 4], dtype=torch.int32)
+        out = torch.empty((1, 2), dtype=torch.int32)
+        assert pg.all_gather_into(out, src, group) is out
+        assert torch.equal(out, pg.all_gather(src, group))
+        one = torch.empty(1)
+        pg.all_gather_into(one, torch.tensor(2.5), group)
+        assert float(one) == 2.5
+        assert dict(pg.COUNTS) == {"all_reduce": 2, "all_gather": 3}
+        assert pg.SHAPES[("all_gather", (2,))] == 2
+        assert pg.SHAPES[("all_gather", ())] == 1
+        assert not pg.capturable(group, x)
+        with pytest.raises(ValueError, match="output"):
+            pg.all_gather_into(torch.empty((2, 2)), torch.zeros(2), group)
+        pg.reset_counts()
+
+
+def _phase1_slice(n, m, seed, group, **kw):
+    opts = SolverOptions(dtype=np.float32, vector_dtype=np.float64,
+                         block_pivots=8, **kw)
+    p = generate_random_problem(n, m, seed, 1, 100)
+    R_pad, M_pad = ps.sharded_padded_dims(n, m, 1, opts)
+    shard = pg.Shard.of(group, R_pad)
+    tab = ps.build_phase1_sharded(torch.as_tensor(p.A), torch.as_tensor(p.b),
+                                  n, m, shard, opts, M_pad, "cpu")
+    return ps.gaussian_eliminate_sharded(tab, shard), tab.costs, shard, opts
+
+
+def _pointers(loop):
+    """``data_ptr()`` of every tensor of a ``ShardedKernelLoop`` by name,
+    its scalars' included (``w`` left out when None)."""
+    out = {f.name: getattr(loop, f.name) for f in dataclasses.fields(loop)
+           if f.name not in ("s", "shard", "r_loc")}
+    out.update(loop.s.tensors())
+    return {name: x.data_ptr() for name, x in out.items() if x is not None}
+
+
+@pytest.mark.parametrize("with_costs0", [True, False],
+                         ids=["costs0", "no_costs0"])
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_sharded_loop_keeps_its_storage(monkeypatch, tmp_path, rule,
+                                        with_costs0):
+    """Every tensor of the loop's state keeps its ``data_ptr()`` from the
+    first window boundary to the last (read where the loop calls K3 or
+    K4), and they are the tensors the loop started with."""
+    loops, seen = [], []
+    make = ps.sharded_kernel_loop
+
+    def kernel_loop(*args, **kw):
+        loops.append(make(*args, **kw))
+        seen.append(_pointers(loops[-1]))
+        return loops[-1]
+
+    def boundary(real):
+        def call(*args, **kw):
+            seen.append(_pointers(loops[-1]))
+            return real(*args, **kw)
+        return call
+
+    monkeypatch.setattr(ps, "sharded_kernel_loop", kernel_loop)
+    monkeypatch.setattr(ps, "apply_window", boundary(ps.apply_window))
+    monkeypatch.setattr(ps, "apply_reprice", boundary(ps.apply_reprice))
+    with pg.world(0, 1, "gloo", str(tmp_path)) as group:
+        tab, costs0, shard, opts = _phase1_slice(96, 40, 11, group,
+                                                 pivot_rule=rule)
+        _, status, iters = ps.solve_loop_blocked_kernel_sharded(
+            tab, shard, opts, 5000, costs0 if with_costs0 else None)
+    assert status == OPTIMAL
+    assert len(seen) >= 4, (len(seen), iters)     # three windows or more
+    names = {"Tt", "C", "F", "b", "costs", "base", "ah", "send_v",
+             "send_i", "recv_v", "recv_i", "ws_k2", "z", "status",
+             "iterations", "stall", "bland", "h_d", "v_d", "h_b", "v_b",
+             "w_d", "w_b", "wh", "own", "hl"} | (
+                 {"w"} if rule == "devex" else set())
+    assert names <= set(seen[0])
+    assert all(ptrs == seen[0] for ptrs in seen[1:])
+    assert loops[0].Tt is tab.Tt
+
+
+def _eager_loop(tab, shard, options, max_iter, costs0):
+    """The sharded kernel loop as it ran before its step kernels: the
+    per-pivot glue in torch ops around K5 and K2, the devex update and the
+    candidates re-derived in torch ops, the collectives allocating."""
+    from simplex_tpu_torch.solver import _at
+
+    eps = float(options.eps_resolved)
+    bland_static = options.pivot_rule_resolved == "bland"
+    devex = options.pivot_rule_resolved == "devex"
+    L, every = int(options.block_pivots), max(1, int(options.reprice_every))
+    Tt = tab.Tt
+    M, R_loc = Tt.shape
+    f64 = torch.float64
+    r, r_loc = tab.r, shard.local_r(tab.r)
+    b, costs = tab.b.to(f64).clone(), tab.costs.to(f64).clone()
+    z, base = tab.z.to(f64).clone(), tab.base.to(torch.int32).clone()
+    costs0 = costs0.to(f64)
+    w = torch.ones(R_loc) if devex else None
+    status = torch.tensor(RUNNING, dtype=torch.int32)
+    iterations = torch.zeros((), dtype=torch.int32)
+    stall = torch.zeros((), dtype=torch.int32)
+    bland = torch.tensor(bland_static)
+
+    def fold():
+        h_d, v_d, h_b, v_b = kb.entering_candidates(costs, w, r_loc, eps)
+        vals, key = [v_d, v_b], None
+        if w is not None:
+            w_d = _at(w, h_d.long().clamp(max=R_loc - 1)).double()
+            w_b = torch.where(h_b < BIG, _at(w, h_b.long().clamp(
+                max=R_loc - 1)).double(), 1.0)
+            key = torch.where(h_b < BIG, v_d * v_d / w_d, -torch.inf)
+            vals += [w_d, w_b]
+        idxs = torch.stack([torch.where(x.long() >= BIG, BIG,
+                                        shard.offset + x.long())
+                            for x in (h_d, h_b)])
+        hd, hb, vd, vb = ps.fold_candidates(torch.stack(vals), idxs, shard,
+                                            key)
+        one = torch.ones(())
+        return (hd.to(torch.int32), vd[0], hb.to(torch.int32), vb[1],
+                vd[2].float() if devex else one,
+                vb[3].float() if devex else one)
+
+    h_d, v_d, h_b, v_b, w_d, w_b = fold()
+    C = torch.zeros((L, R_loc))
+    F = torch.zeros((L, M))
+    st, it, windows = RUNNING, 0, 0
+    while st == RUNNING and it < max_iter and windows < max_iter:
+        for t in range(L):
+            active = (status == RUNNING) & (iterations < max_iter)
+            use_bland = bland & (h_b < BIG)
+            h = torch.where(use_bland, h_b, h_d)
+            minc = torch.where(use_bland, v_b, v_d)
+            optimal = minc > -eps
+            loc = h.long() - shard.offset
+            own = (loc >= 0) & (loc < R_loc)
+            hl = loc.clamp(0, R_loc - 1)
+            a_h = pg.all_reduce(torch.where(
+                own, kb.ah(Tt, F, C, hl.to(torch.int32), t), 0.0),
+                shard.group)
+            mask = a_h >= eps
+            unbounded = ~mask.any()
+            k = torch.argmin(torch.where(
+                mask, b / torch.where(mask, a_h, 1.0).double(), torch.inf))
+            do = active & ~(optimal | unbounded)
+            p = torch.where(do, _at(a_h, k), 1.0)
+            bk = _at(b, k)
+            u = torch.where(do, minc / p.to(f64), 0.0)
+            lvar = _at(base, k)
+            kb.colk_costs(Tt, C, F, costs, k.to(torch.int32), t, u, do,
+                          r_loc, eps, a_h, b, base, h, p, bk)
+            if devex:
+                w = ps.devex_update_sharded(w, do, C[t], p, torch.where(
+                    use_bland, w_b, w_d), lvar, shard)
+            h_d, v_d, h_b, v_b, w_d, w_b = fold()
+            z2 = torch.where(do, z - u * bk, z)
+            status = kb.exit_status(active, optimal, unbounded, status)
+            stall, bland = kb.anticycling_update(
+                do, (z2 - z).abs() >= eps, stall, bland,
+                bland_static=bland_static, threshold=options.bland_threshold)
+            iterations = iterations + do.to(torch.int32)
+            z = z2
+        if devex:
+            w, reset = ps.reanchor(w, shard)
+            w_d = torch.where(reset, 1.0, w_d)
+            w_b = torch.where(reset, 1.0, w_b)
+        st, it = int(status), int(iterations)
+        if st != RUNNING or (windows + 1) % every == 0:
+            coeffs = ps.gather_basic_coeffs(base, costs0, r, shard)
+            costs = costs0 - kb.apply_reprice(Tt, C, F, coeffs)
+            h_d, v_d, h_b, v_b, w_d, w_b = fold()
+            vmin = ps.global_min(torch.where(shard.row_mask(r, "cpu"),
+                                             costs, torch.inf).min(), shard)
+            if st == OPTIMAL and float(vmin) <= -eps:
+                status.fill_(RUNNING)
+                st = RUNNING
+        else:
+            kb.apply_window(Tt, C, F)
+        windows += 1
+    return dict(Tt=Tt, b=b, costs=costs, z=z, base=base, w=w), st, it
+
+
+@pytest.mark.parametrize("rule,seed", [("devex", 4), ("dantzig", 8),
+                                       ("bland", 6)])
+def test_sharded_loop_matches_the_eager_loop(monkeypatch, tmp_path, rule,
+                                             seed):
+    """From one phase-1 slice at one rank, the loop of step kernels
+    (their plain versions here) ends where the eager loop it replaces
+    ends, bit for bit: status, iterations, Tt, b, costs, z, base and the
+    devex weights."""
+    loops = []
+    with pg.world(0, 1, "gloo", str(tmp_path)) as group:
+        tab, costs0, shard, opts = _phase1_slice(120, 48, seed, group,
+                                                 pivot_rule=rule)
+        ref = dataclasses.replace(tab, Tt=tab.Tt.clone())
+        want, wst, wit = _eager_loop(ref, shard, opts, 5000, costs0)
+        make = ps.sharded_kernel_loop
+        monkeypatch.setattr(ps, "sharded_kernel_loop",
+                            lambda *a: loops.append(make(*a)) or loops[-1])
+        got, gst, git = ps.solve_loop_blocked_kernel_sharded(
+            tab, shard, opts, 5000, costs0)
+    assert (gst, git) == (wst, wit) and gst == OPTIMAL and git > 8
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert torch.equal(getattr(got, name), want[name]), name
+    if rule == "devex":
+        assert torch.equal(loops[0].w, want["w"])
+
+
+MIXED = dict(dtype=np.float32, vector_dtype=np.float64, eps=1e-5,
+             block_pivots=8)
+JAX_CASES = [
+    ("devex-reprice1-88x36", 88, 36, 21, dict(MIXED, reprice_every=1)),
+    ("dantzig-L16-80x32", 80, 32, 17, dict(MIXED, pivot_rule="dantzig",
+                                           block_pivots=16)),
+]
+
+
+@pytest.mark.parametrize("cid,n,m,seed,opts", JAX_CASES,
+                         ids=[c[0] for c in JAX_CASES])
+def test_matches_jax_sharded_at_one_rank(cid, n, m, seed, opts):
+    """The port's ``solve_sharded`` at one gloo rank against the JAX
+    package's on a one-device CPU mesh: status, the refined objective at
+    1e-9, both certified, pivot counts within max(3, 10%); and the walk of
+    the port's ``solve``."""
+    problem = pst.generate_random_problem(n, m, seed, 1.0, 100.0)
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "gloo", td) as group:
+        got = pst.solve_sharded(problem, group, device="cpu", **opts)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("vars",))
+    want = jax_sharded(problem, mesh, jst.SolverOptions(**opts),
+                       interpret=True)
+    assert got.status == want.status == pst.Status.OPTIMAL
+    assert got.refine.certified and want.refine.certified
+    assert got.objective == pytest.approx(want.objective, rel=1e-9)
+    walk = (got.iterations_phase1, got.iterations_phase2)
+    for a, b in zip(walk, (want.iterations_phase1, want.iterations_phase2)):
+        assert abs(a - b) <= max(3, 0.1 * b), cid
+    one = pst.solve(problem, device="cpu", **opts)
+    assert walk == (one.iterations_phase1, one.iterations_phase2)
+
+
+def test_cases_cover_the_grid():
+    """Every case at every P makes a state the step kernels accept."""
+    for case, P in itertools.product(CASES, (1, 2, 4)):
+        s, ah, b, base, ws, cands = _state(case, P, True, seed=1)
+        assert len(ws) == len(cands) == P and ah.shape == (M,)
+        kb.ShardedScalars(**s.tensors())

@@ -522,18 +522,20 @@ int k5_bench() {
                 old_ah_tiles<<<M / THREADS, THREADS, t * sizeof(float), s>>>(
                     Tt, F, C, h, t, M, R, a_old);
             else if (v == 1)
-                ah_launch(Tt, F, C, h, t, M, R, a_new, s);
+                ah_launch(Tt, F, C, h, nullptr, t, M, R, a_new, s);
             else if (v == 2)
                 ah_ratio_launch(Tt, F, C, b, h, t, M, R, eps, o.ah, ws,
                                 (long long)ws_n, o.k, o.p, o.bk, o.unb, s);
             else if (v == 3)
                 ah_ratio_fused<false, 128><<<M / AHR_COLS, 128, 0, s>>>(
-                    Tt, F, C, nullptr, h, t, M, R, 0.0f, M / AHR_COLS, o.ah,
-                    nullptr, nullptr, nullptr, nullptr, nullptr);
+                    Tt, F, C, nullptr, h, nullptr, t, M, R, 0.0f,
+                    M / AHR_COLS, o.ah, nullptr, nullptr, nullptr, nullptr,
+                    nullptr);
             else
                 ah_ratio_fused<false, 64><<<M / AHR_COLS, 64, 0, s>>>(
-                    Tt, F, C, nullptr, h, t, M, R, 0.0f, M / AHR_COLS, o.ah,
-                    nullptr, nullptr, nullptr, nullptr, nullptr);
+                    Tt, F, C, nullptr, h, nullptr, t, M, R, 0.0f,
+                    M / AHR_COLS, o.ah, nullptr, nullptr, nullptr, nullptr,
+                    nullptr);
         };
         for (int v = 0; v < 3; ++v) run(v, 0);
         const unsigned long long d_old = differ(a_new, a_old, M * 4);
