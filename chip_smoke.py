@@ -40,13 +40,16 @@ Phases, in order; any failed check exits non-zero:
    counters reset just before the first solve and read just after it;
    then solved again, for the wall-time spread of warm solves (each
    solve must walk the same pivots); every counter of the path above 0:
-   K1-K4 and the step kernels, which a CUDA graph's replay counts;
+   K1-K4, ``step_pre`` and the steps that run as K1's and K2's tails,
+   which a CUDA graph's replay counts;
 8a. the flagship's kernel loop two ways, in turns (eager, graph, graph,
    eager; ``phase_window_graph``): enqueued eagerly
    (``solve_loop_blocked_kernel(graph=False)``) and as one CUDA graph a
    window, each run walking 9,206 + 409 and each loop call ending with
-   the first run's Tt, b, costs, z, base and devex weights bit for bit;
-   each run's loop ms/pivot and capture ms;
+   the first run's Tt, b, costs, z, base and devex weights bit for bit,
+   each captured window holding 2 + 1/L kernels a pivot by its launch
+   counts (``CapturedLaunches``: K1 and K2 with their tails a pivot,
+   ``step_pre`` once); each run's loop ms/pivot and capture ms;
 8b. the checkpointed solves (``phase_resumable``): the flagship through
    ``solve_resumable`` in windows of 2,048 pivots, certified within 1e-9,
    K1-K4 and the step kernels launched (counters reset just before,
@@ -144,8 +147,10 @@ Phases, in order; any failed check exits non-zero:
    bit for bit (there and at M=256, R=384, L=8), K3 and K4 timed in
    turns with cuBLAS ``addmm_``, the SM clock before and after, K5 (its
    column K1's bit for bit) and K11 (K3's mv with zero etas bit for
-   bit), the step kernels on K1's outputs under 192 seeded states, bit
-   for bit, the sharded step kernels on K1's column under 192 seeded
+   bit), ``step_pre`` and K1 and K2 with the steps as their tails
+   against ``step_pre_plain``, K1, ``step_mid_plain``, K2 and
+   ``step_post_plain`` under 192 seeded states, bit for bit, K1 and K2
+   timed with and without their tails in turns, the sharded step kernels on K1's column under 192 seeded
    states at P = 1, 2 and 4, bit for bit, K5 with its owner flag and K2
    with a column offset and a given weight at h (offset 0: the
    single-card call bit for bit; a second slice at t = 0: its plain
@@ -178,8 +183,10 @@ operations over the peak rate of their type: 67 TFLOP/s for f32 outside
 the tensor cores, 34 TFLOP/s for f64 (NVIDIA's H100 SXM data sheet).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
-kernels' records (K1-K12, ``batch_rank1``, the step kernels and the
-sharded step kernels, which replace XLA-fused glue, no Pallas kernel;
+kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
+``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
+or K2's time with it less their time without -- and the sharded step
+kernels, which replace XLA-fused glue, no Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -227,24 +234,29 @@ KERNELS = {
     "ah": ("K5", "simplex_tpu/kernels/blocked.py:1300", SOURCE),
     "reprice": ("K11", "simplex_tpu/kernels/blocked.py:976", SOURCE),
 }
-#: The per-pivot step kernels: the JAX loop's XLA-fused scalar glue
-#: (no Pallas kernel), each replacing the lines it ports.
-STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/step.cu"
+#: The per-pivot steps: the JAX loop's XLA-fused scalar glue (no Pallas
+#: kernel), each replacing the lines it ports -- ``step_pre`` a kernel of
+#: its own (csrc/step.cu, once a window), the other two tails of K1 and
+#: K2 (their bodies csrc/step.cuh, run in csrc/blocked.cu's last blocks).
 STEP_KERNELS = {
-    "step_pre": ("glue", "simplex_tpu/solver.py:731", STEP_SOURCE),
-    "step_mid": ("glue", "simplex_tpu/solver.py:751", STEP_SOURCE),
-    "step_post": ("glue", "simplex_tpu/solver.py:777", STEP_SOURCE),
+    "step_pre": ("glue", "simplex_tpu/solver.py:731",
+                 "simplex_tpu_torch/kernels/csrc/step.cu"),
+    "step_mid_tail": ("glue", "simplex_tpu/solver.py:751",
+                      "simplex_tpu_torch/kernels/csrc/step.cuh"),
+    "step_post_tail": ("glue", "simplex_tpu/solver.py:777",
+                       "simplex_tpu_torch/kernels/csrc/step.cuh"),
 }
 STEPS = tuple(STEP_KERNELS)
-#: Bytes each step kernel moves on a taken pivot outside Bland mode (the
-#: timed state), each 0-dim input read once and each output written once
-#: (csrc/step.cu): step_pre reads status, iterations, bland, h_b, h_d and
-#: v_d (25) and writes active, h, minc and optimal (14); step_mid reads
-#: active, optimal, unb, K1's p and minc (18) and writes do, p and u (13);
-#: step_post reads do, z, u, bk, active, optimal, unb, stall and
-#: iterations (39), writes status, stall, bland, iterations and z (21), and
-#: as the next pivot's step_pre reads h_b, h_d and v_d (16) and writes 14.
-STEP_BYTES = {"step_pre": 39, "step_mid": 31, "step_post": 90}
+#: Bytes each step moves on a taken pivot outside Bland mode (the timed
+#: state), each 0-dim input read once and each output written once
+#: (csrc/step.cuh): step_pre reads status, iterations, bland, h_b, h_d and
+#: v_d (25) and writes active, h, minc and optimal (14); K1's tail reads
+#: active, optimal and minc (10; K1's p and flag are in registers) and
+#: writes do, p and u (13); K2's tail reads z, u, bk, active, optimal,
+#: unb, stall and iterations (38; do and the candidates are in registers),
+#: writes status, stall, bland, iterations and z (21), and as the next
+#: pivot's step before K1 writes 14.
+STEP_BYTES = {"step_pre": 39, "step_mid_tail": 23, "step_post_tail": 73}
 #: The sharded loop's per-pivot step kernels: the JAX sharded loop's
 #: XLA-fused glue around its passes and collectives (no Pallas kernel).
 SHARDED_STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/sharded_step.cu"
@@ -595,7 +607,7 @@ def phase_kernels(records: dict) -> None:
             f"torch.profiler, {1e3 * graph_ms(k5):.2f} us by CUDA events "
             "over a CUDA graph")
         if t == 37:
-            step_kernels(records, got)
+            step_kernels(records, Tt, F, C, b, costs0, w0, base0, t)
             sharded_step_kernels(records, got, b, base0, w0)
             # K5 with its owner flag (the sharded loop's call): its column
             # where the rank owns h, zeros where not, bit for bit.
@@ -828,15 +840,21 @@ def phase_kernels(records: dict) -> None:
     log(f"kernel phase: SM clock after {sm_clock()}")
 
 
-def step_kernels(records: dict, k1) -> None:
-    """The step kernels against their plain versions on the card, on K1's
-    outputs at the flagship shapes (k, p, bk, unbounded at t = 37) under
-    64 seeded states for each anti-cycling policy -- taken and skipped
-    pivots, the fuse, optimal and unbounded, Bland on and off, z moving
-    by less than eps: every output bit for bit. Then each timed on a
-    taken pivot outside Bland mode (the kernel and its plain version by
-    torch.profiler, the kernel also over a CUDA graph of 50 calls),
-    beside its bound (``STEP_BYTES``: latency binds a one-thread kernel,
+def step_kernels(records: dict, Tt, F, C, b, costs, w, base, t: int
+                 ) -> None:
+    """``step_pre`` and K1 and K2 with the steps as their tails against
+    ``step_pre_plain``, K1, ``step_mid_plain``, K2 and ``step_post_plain``
+    on the card, at the flagship shapes (the phase's tableau, t = 37 live
+    eta rows), under 64 seeded states for each anti-cycling policy --
+    taken and skipped pivots, the fuse, optimal, K1 unbounded (an eps no
+    row reaches), Bland on and off, z moving by less than eps and by
+    more, devex and Dantzig, with and without the next pivot's step:
+    every scalar, K1's column and every vector K2 updates bit for bit.
+    Then, on a taken pivot outside Bland mode, K1 and K2 timed with and
+    without their tails in turns, by torch.profiler and by CUDA events
+    over a CUDA graph of 50 calls: a tail's own cost is the kernel's time
+    with it less its time without, beside the plain step's time and the
+    step's bound (``STEP_BYTES``: latency binds one thread's scalars,
     whose bytes take picoseconds)."""
     import numpy as np
     import torch
@@ -844,74 +862,145 @@ def step_kernels(records: dict, k1) -> None:
     from simplex_tpu_torch.kernels import blocked as kb
 
     dev = torch.device("cuda")
-    _, k, p, bk, unb = k1
+    M, R = Tt.shape
+    r = R - 100
     eps, max_iter = 1e-4, 10
     rng = np.random.default_rng(20261017)
     running = int(kb.RUNNING)
+    ws1 = [kb.ah_ratio_workspace(M, dev) for _ in range(2)]
+    ws2 = [kb.colk_workspace(R, dev) for _ in range(2)]
+    ahs = [torch.empty(M, dtype=torch.float32, device=dev) for _ in range(2)]
 
     def state(bland: bool, fills: dict):
         z = torch.tensor(rng.uniform(-5, 5), dtype=torch.float64, device=dev)
         s = kb.pivot_scalars(z, bland)
-        for name, x in (("k", k), ("p_k1", p), ("bk", bk), ("unb", unb)):
-            getattr(s, name).copy_(x)
         for name, v in fills.items():
             getattr(s, name).fill_(v)
         return s
 
+    def vectors(devex: bool) -> dict:
+        return dict(C=C.clone(), F=F.clone(), costs=costs.clone(),
+                    b=b.clone(), base=base.clone(),
+                    w=w.clone() if devex else None)
+
+    seen = collections.Counter()
     for policy in ((False, 50), (False, None), (True, 50)):
         for i in range(64):
             fills = dict(
                 status=running if rng.random() < 0.8 else int(kb.OPTIMAL),
                 iterations=int(rng.integers(8, 11)),
                 stall=int(rng.integers(47, 51)),
-                h_d=int(rng.integers(0, 24476)),
+                h_d=int(rng.integers(0, r)),
                 v_d=-1e-4 * rng.uniform(0.5, 3),
                 h_b=int(rng.choice([3, kb.BIG_INDEX])),
                 v_b=-rng.uniform(0, 1))
-            if i % 4 == 0:
-                fills.update(unb=1, k=kb.BIG_INDEX, p_k1=0.0, bk=0.0)
-            elif i % 4 == 1:
-                fills["bk"] = float(bk) * 10.0 ** -rng.uniform(0, 8)
+            if i % 4 == 1:
+                fills["v_d"] = -rng.uniform(0.01, 3)
+            k1_eps = 1e30 if i % 4 == 0 else eps
+            then_pre = bool(i % 2)
+            devex = i % 8 < 4
             sk = state(bool(rng.integers(2)), fills)
             sp = kb.PivotScalars(**{n: x.clone()
                                     for n, x in sk.tensors().items()})
+            vk, vp = vectors(devex), vectors(devex)
             kb.step_pre(sk, max_iter, eps)
+            kb.ah_ratio_tail(Tt, vk["F"], vk["C"], vk["b"], t, k1_eps, sk,
+                             ahs[0], ws1[0])
+            kb.colk_costs_tail(Tt, vk["C"], vk["F"], vk["costs"], t, r, eps,
+                               ahs[0], vk["b"], vk["base"], vk["w"], sk,
+                               max_iter, ws2[0], bland_static=policy[0],
+                               threshold=policy[1], then_pre=then_pre)
             kb.step_pre_plain(sp, max_iter, eps)
-            kb.step_mid(sk)
+            kb.ah_ratio(Tt, vp["F"], vp["C"], vp["b"], sp.h, t, k1_eps,
+                        ws1[1], out=(ahs[1], sp.k, sp.p_k1, sp.bk, sp.unb))
             kb.step_mid_plain(sp)
-            kb.step_post(sk, max_iter, eps, bland_static=policy[0],
-                         threshold=policy[1], then_pre=bool(i % 2))
-            kb.step_post_plain(sp, max_iter, eps, *policy, bool(i % 2))
+            kb.colk_costs(Tt, vp["C"], vp["F"], vp["costs"], sp.k, t, sp.u,
+                          sp.do, r, eps, ahs[1], vp["b"], vp["base"], sp.h,
+                          sp.p, sp.bk, vp["w"], ws2[1],
+                          out=(sp.h_d, sp.v_d, sp.h_b, sp.v_b))
+            kb.step_post_plain(sp, max_iter, eps, *policy, then_pre)
+            tag = f"tails {policy} state {i}"
             for name, x in sk.tensors().items():
-                equal(f"step kernels {policy} state {i} {name}", x,
-                      getattr(sp, name))
-    # A taken pivot outside Bland mode, far from the fuse.
-    s = state(False, dict(h_b=kb.BIG_INDEX, v_d=-1.0))
+                equal(f"{tag} {name}", x, getattr(sp, name))
+            equal(f"{tag} a_h", ahs[0], ahs[1])
+            for name, x in vk.items():
+                if x is not None:
+                    equal(f"{tag} {name}", x, vp[name])
+            seen["taken" if bool(sk.do) else "skipped"] += 1
+            seen["unbounded"] += bool(sk.unb)
+            seen["bland"] += bool(sk.bland)
+    require(min(seen["taken"], seen["skipped"], seen["unbounded"]) > 0,
+            f"the tails' states miss a kind of pivot: {dict(seen)}")
+    log(f"step_pre and K1 and K2 with their tails: every scalar, a_h and "
+        f"vector equals the plain chain's on 192 states ({dict(seen)})")
+
+    # A taken pivot outside Bland mode, far from the fuse, under devex.
     big = 2 ** 30
-    calls = {
+    s = state(False, dict(h_b=kb.BIG_INDEX, v_d=-1.0))
+    v = vectors(True)
+    kb.step_pre(s, big, eps)
+    kb.ah_ratio_tail(Tt, F, C, b, t, eps, s, ahs[0], ws1[0])
+    require(bool(s.do), "the timed pivot is not taken")
+    k2_args = (Tt, v["C"], v["F"], v["costs"], s.k, t, s.u, s.do, r, eps,
+               ahs[0], v["b"], v["base"], s.h, s.p, s.bk, v["w"], ws2[0])
+    timed = {
+        "K1": (lambda: kb.ah_ratio(Tt, F, C, b, s.h, t, eps, ws1[0], out=(
+            ahs[0], s.k, s.p_k1, s.bk, s.unb)), "ah_ratio_fused"),
+        "K1+tail": (lambda: kb.ah_ratio_tail(Tt, F, C, b, t, eps, s, ahs[0],
+                                             ws1[0]), "ah_ratio_fused"),
+        "K2": (lambda: kb.colk_costs(*k2_args,
+                                     out=(s.h_d, s.v_d, s.h_b, s.v_b)),
+               "colk_costs_fused"),
+        "K2+tail": (lambda: kb.colk_costs_tail(
+            Tt, v["C"], v["F"], v["costs"], t, r, eps, ahs[0], v["b"],
+            v["base"], v["w"], s, big, ws2[0], bland_static=False,
+            threshold=50, then_pre=True), "colk_costs_fused"),
+    }
+    for name in ("K1+tail", "K2+tail"):
+        n = kernels_launched(timed[name][0])
+        require(n == 1, f"one {name} call launched {n} kernels")
+    prof = {name: [] for name in timed}
+    graph = {name: [] for name in timed}
+    for name in ("K1", "K1+tail", "K2", "K2+tail", "K2+tail", "K2",
+                 "K1+tail", "K1"):
+        fn, match = timed[name]
+        prof[name].append(device_ms(fn, 50, match=match))
+        graph[name].append(graph_ms(fn))
+    mean = statistics.mean
+    log("K1 and K2 with and without their tails, ms a call in turns (K1, "
+        "K1+tail, K2, K2+tail, then back): " + "; ".join(
+            f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
+            + " (torch.profiler), " + ", ".join(f"{x:.5f}"
+                                                 for x in graph[name])
+            + " (CUDA graph of 50 calls)" for name in timed))
+    plain = {
         "step_pre": (lambda: kb.step_pre(s, big, eps),
                      lambda: kb.step_pre_plain(s, big, eps)),
-        "step_mid": (lambda: kb.step_mid(s), lambda: kb.step_mid_plain(s)),
-        "step_post": (
-            lambda: kb.step_post(s, big, eps, bland_static=False,
-                                 threshold=50, then_pre=True),
-            lambda: kb.step_post_plain(s, big, eps, False, 50, True)),
+        "step_mid_tail": (None, lambda: kb.step_mid_plain(s)),
+        "step_post_tail": (None, lambda: kb.step_post_plain(
+            s, big, eps, False, 50, True)),
     }
-    for name, (kernel, plain) in calls.items():
-        kb.step_pre(s, big, eps)
-        kb.step_mid(s)
-        require(bool(s.do), f"{name}: the timed pivot is not taken")
-        ms = device_ms(kernel, 50, match=name)
+    carrier = {"step_mid_tail": "K1", "step_post_tail": "K2"}
+    for name, (kernel, plain_fn) in plain.items():
+        if kernel is not None:
+            ms = device_ms(kernel, 50, match=name)
+            check_ms = graph_ms(kernel)
+        else:
+            k = carrier[name]
+            ms = mean(prof[k + "+tail"]) - mean(prof[k])
+            check_ms = mean(graph[k + "+tail"]) - mean(graph[k])
         bound_ms, by = bound(STEP_BYTES[name])
         records[name] = {"max_abs_err": 0.0, "ms": ms,
-                         "plain_ms": device_ms(plain, 50),
+                         "plain_ms": device_ms(plain_fn, 50),
                          "bound_ms": bound_ms, "bound_by": by,
-                         "library_ms": None, "check_ms": graph_ms(kernel)}
-        log(f"{name}: every output equals its plain version's on 192 "
-            f"states; kernel {ms:.4f} ms a call (torch.profiler), "
-            f"{records[name]['check_ms']:.4f} ms (CUDA events over a CUDA "
-            f"graph of 50 calls), plain {records[name]['plain_ms']:.4f} "
-            f"ms, bound {bound_ms:.2e} ms ({by})")
+                         "library_ms": None, "check_ms": check_ms}
+        log(f"{name}: {ms:.5f} ms a call"
+            + ("" if kernel is not None else
+               f" (its carrier {carrier[name]} with it less without, "
+               "torch.profiler)")
+            + f", {check_ms:.5f} ms by CUDA events over a CUDA graph of 50 "
+            f"calls, plain {records[name]['plain_ms']:.4f} ms, bound "
+            f"{bound_ms:.2e} ms ({by})")
 
 
 def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
@@ -2123,9 +2212,9 @@ def phase_flagship(launches: dict) -> tuple:
     return walk, median
 
 
-#: The kernels a replayed window holds (K1, K2 and the step kernels).
-GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel",
-                 "step_mid_kernel", "step_post_kernel")
+#: The kernels a replayed window holds (K1 and K2, each with its tail, and
+#: step_pre).
+GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel")
 #: The nodes of the sharded loop's window graph by name: K5 (K1's kernel
 #: without its ratio test), K2, the sharded step kernels, and NCCL's
 #: collectives, kernels or device-to-device copies. The graph's first and
@@ -2138,7 +2227,8 @@ SHARDED_GRAPH_SPAN = ("sharded_step_pre", "sharded_step_post")
 
 
 def flagship_loops(p, graph: bool, keep: list | None = None,
-                   against: list | None = None, group=None) -> dict:
+                   against: list | None = None, group=None,
+                   tails: bool = True) -> dict:
     """One production ``solve`` of the flagship ``p`` with its kernel loop
     replaying one CUDA graph a window (``graph``) or enqueuing the same
     kernels eagerly (``graph=False``): the walk (``FLAGSHIP_WALK``), the
@@ -2149,10 +2239,14 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
     weights, status and iterations -- is appended to ``keep`` as copies,
     or held to ``against``'s bit for bit. With ``group`` the same for
     ``solve_sharded`` on that group and its sharded kernel loop
-    (``solve_loop_blocked_kernel_sharded``)."""
+    (``solve_loop_blocked_kernel_sharded``). Single-card with ``tails``
+    (the production window), each captured window must hold 2L + 1
+    kernels by its launch counts: K1 and K2 with their tails a pivot and
+    ``step_pre`` once."""
     import torch
 
     from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import blocked as kb
     from simplex_tpu_torch.parallel import group as pg
     from simplex_tpu_torch.parallel import sharded as ps
 
@@ -2162,7 +2256,7 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
         mod, names = (ps, ("solve_loop_blocked_kernel_sharded",
                            "sharded_kernel_loop", "capture_window_sharded"))
     real = tuple(getattr(mod, name) for name in names)
-    loops, calls, captures = [], [], []
+    loops, calls, captures, per_pivot = [], [], [], []
 
     def kernel_loop(*args, **kw):
         loops.append(real[1](*args, **kw))
@@ -2174,12 +2268,21 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
         out = real[2](*args, **kw)
         torch.cuda.synchronize()
         captures.append(1e3 * (time.perf_counter() - t0))
+        L = PROD["block_pivots"]
         if group is not None:
             # The window's collectives are inside its graph.
-            L = PROD["block_pivots"]
             want = {"all_reduce": L, "all_gather": 2 * L}
             require(dict(out[2].counts) == want, f"the sharded window graph "
                     f"holds {dict(out[2].counts)}, not {want}")
+        elif tails:
+            # K1 and K2, each with its tail, a pivot and step_pre once: a
+            # tail launches nothing of its own.
+            per = out[1].per_replay
+            nodes = sum(n for name, n in per.items() if name not in kb.TAILS)
+            require(nodes == 2 * L + 1
+                    and all(per[tail] == L for tail in kb.TAILS),
+                    f"the window graph holds {per}, not 2L + 1 kernels")
+            per_pivot.append(nodes / L)
         return out
 
     def loop(*args):
@@ -2220,7 +2323,7 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
     pivots = sum(c[1] for c in calls)
     return dict(wall=wall, loop_s=loop_s, pivots=pivots, calls=calls,
                 captures=captures, ms_pivot=1e3 * loop_s / pivots,
-                collectives=dict(pg.COUNTS))
+                collectives=dict(pg.COUNTS), per_pivot=per_pivot)
 
 
 def phase_window_graph(group=None) -> None:
@@ -2254,6 +2357,9 @@ def phase_window_graph(group=None) -> None:
             + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
             + " ms" + (f"; collectives {r['collectives']}" if group
                        is not None else "")
+            + ("; kernels a pivot of each captured window (launch counts) "
+               + ", ".join(f"{x:.4f}" for x in r["per_pivot"])
+               if r["per_pivot"] else "")
             + ("" if i else "; the final state kept"))
     del keep
     require(all(c == colls[0] for c in colls),
@@ -2312,7 +2418,11 @@ def phase_window_trace(group=None) -> None:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     if group is None:
-        w = window_stats(events, PROD["block_pivots"])
+        L = PROD["block_pivots"]
+        w = window_stats(events, L)
+        want = (2 * L + 1) / L
+        require(w["per_pivot"] == (want, want), f"{w['per_pivot']} kernels "
+                f"a pivot in the traced windows, not {want}")
     else:
         w = window_stats(events, PROD["block_pivots"], SHARDED_GRAPH_KERNELS,
                          ("kernel", "gpu_memcpy"), 10, SHARDED_GRAPH_SPAN)

@@ -98,28 +98,30 @@ _D = ctypes.c_double
 
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
-    # Tt F C b h t M R eps ah workspace, its bytes, k p bk unb stream
+    # Tt F C b h t M R eps ah workspace, its bytes, k p bk unb, the step's
+    # pointers (by reference, or null: no tail), stream
     "ah_ratio_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-                        ctypes.c_longlong, _P, _P, _P, _P, _P],
+                        ctypes.c_longlong, _P, _P, _P, _P, _P, _P],
     # Tt C F costs k t u do r eps M R
     "colk_costs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _I, _I,
                           # ah b base h p bk w offset w_h workspace, its
                           # bytes
                           _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           ctypes.c_longlong,
-                          # four candidates, stream
-                          _P, _P, _P, _P, _P],
+                          # four candidates, the step's pointers (by
+                          # reference, or null: no tail), max_iter, bland
+                          # mode, threshold, then_pre, stream
+                          _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                          _P],
     "apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
     # Tt F C h own t M R ah stream
     "ah_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # Tt M R coeffs part mv stream
     "reprice_launch": [_P, _I, _I, _P, _P, _P, _P],
-    # csrc/step.cu: the scalars' pointers (by reference), max_iter eps,
-    # [bland mode, threshold, then_pre,] stream
+    # csrc/step.cu: the scalars' pointers (by reference), max_iter eps
+    # stream
     "step_pre_launch": [_P, ctypes.c_longlong, _D, _P],
-    "step_mid_launch": [_P, _P],
-    "step_post_launch": [_P, ctypes.c_longlong, _D, _I, _I, _I, _P],
     # csrc/sharded_step.cu: the scalars' pointers (by reference), then
     # max_iter eps offset R_loc stream;
     "sharded_step_pre_launch": [_P, ctypes.c_longlong, _D, _I, _I, _P],

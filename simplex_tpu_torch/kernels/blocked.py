@@ -46,11 +46,15 @@ COLK_COLS = 64
 #: Tile edge of the window apply (csrc/blocked.cu AT).
 APPLY_TILE = 128
 
-#: Launches of each kernel since the last ``reset_launches``.
+#: Launches of each kernel since the last ``reset_launches``. A step run
+#: as the tail of another kernel (``TAILS``) counts the launches of the
+#: kernel that carries it: no node of its own.
 LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
             "apply_window": 0, "ah": 0, "reprice": 0, "step_pre": 0,
-            "step_mid": 0, "step_post": 0, "sharded_step_pre": 0,
+            "step_mid_tail": 0, "step_post_tail": 0, "sharded_step_pre": 0,
             "sharded_ratio": 0, "sharded_pack": 0, "sharded_step_post": 0}
+#: The tails and the kernel each rides in.
+TAILS = {"step_mid_tail": "ah_ratio", "step_post_tail": "colk_costs"}
 
 
 def reset_launches() -> None:
@@ -232,6 +236,12 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None, out=None):
     one. ``out``, when given, holds five tensors of those dtypes and
     shapes that the results are written into and returned: a call that
     allocates nothing, as a CUDA graph needs."""
+    return _ah_ratio(Tt, F, C, b, h, t, eps, ws, out, None)
+
+
+def _ah_ratio(Tt, F, C, b, h, t, eps, ws, out, s):
+    """K1, with the step between K1 and K2 as its tail on the scalars
+    ``s`` unless None."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(b, "b", torch.float64, (M,))
     _expect(h, "h", torch.int32, ())
@@ -248,7 +258,10 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None, out=None):
             _expect(x, f"out {name}", dt, shape)
     if not _on_card(Tt, F, C, b, h):
         got = ah_ratio_plain(Tt, F, C, b, h, t, eps)
-        return got if out is None else _into(out, got)
+        out = got if out is None else _into(out, got)
+        if s is not None:
+            step_mid_plain(s)
+        return out
 
     from ._build import check, load_library
 
@@ -267,9 +280,12 @@ def ah_ratio(Tt, F, C, b, h, t: int, eps: float, ws=None, out=None):
     err = lib.ah_ratio_launch(
         _ptr(Tt), _ptr(F), _ptr(C), _ptr(b), _ptr(h), t, M, R, float(eps),
         _ptr(ah), _ptr(ws), ws.numel(), _ptr(k), _ptr(p), _ptr(bk),
-        _ptr(unb), _stream(Tt))
+        _ptr(unb), None if s is None else ctypes.byref(_step_ptrs(s)),
+        _stream(Tt))
     check(lib, err, "ah_ratio")
     LAUNCHES["ah_ratio"] += 1
+    if s is not None:
+        LAUNCHES["step_mid_tail"] += 1
     return out
 
 
@@ -408,6 +424,15 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
     stands for ``w[h]``. The candidates are the slice's, as local
     columns below ``r``. With offset 0 and no ``w_h`` it is the
     single-card pass."""
+    return _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h,
+                       p, bk, w, ws, out, offset, w_h)
+
+
+def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
+                w, ws, out, offset, w_h, s=None, max_iter=0,
+                bland_static=False, threshold=None, then_pre=False):
+    """K2, with the step after K2 as its tail on the scalars ``s`` under
+    that policy unless ``s`` is None."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -431,7 +456,11 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
                     w_h):
         got = colk_costs_plain(Tt, C, F, costs, k, t, u, do, r, eps, ah, b,
                                base, h, p, bk, w, offset, w_h)
-        return got if out is None else _into(out, got)
+        out = got if out is None else _into(out, got)
+        if s is not None:
+            step_post_plain(s, max_iter, eps, bland_static, threshold,
+                            then_pre)
+        return out
 
     from ._build import check, load_library
 
@@ -450,14 +479,24 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(k), t, _ptr(u),
         _ptr(do), r, float(eps), M, R, _ptr(ah), _ptr(b), _ptr(base),
         _ptr(h), _ptr(p), _ptr(bk), _ptr(w), offset, _ptr(w_h), _ptr(ws),
-        ws.numel(), _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b), _stream(Tt))
+        ws.numel(), _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b),
+        None if s is None else ctypes.byref(_step_ptrs(s)), max_iter,
+        _bland_mode(bland_static, threshold),
+        0 if threshold is None else int(threshold), int(then_pre),
+        _stream(Tt))
     check(lib, err, "colk_costs")
     LAUNCHES["colk_costs"] += 1
+    if s is not None:
+        LAUNCHES["step_post_tail"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
 # The per-pivot step: the blocked-kernel loop's scalar glue around K1 and K2.
+# On the card the step before K1 of a window's first pivot is a kernel of
+# its own (``step_pre``); the step between K1 and K2 runs as K1's tail
+# (``ah_ratio_tail``) and the step after K2, with the next pivot's step
+# before K1, as K2's (``colk_costs_tail``).
 
 RUNNING = int(Status.RUNNING)
 OPTIMAL = int(Status.OPTIMAL)
@@ -568,7 +607,10 @@ def step_pre_plain(s: PivotScalars, max_iter: int, eps: float) -> None:
 
 
 def step_mid_plain(s: PivotScalars) -> None:
-    """Plain version of ``step_mid``."""
+    """The step between K1 and K2 (``simplex_tpu/solver.py:751-761``):
+    ``do = active and not (optimal or unb)``; ``p`` is K1's p where the
+    pivot is done, else 1; ``u = minc / p`` in f64 where it is done, else
+    0. The plain version of ``ah_ratio_tail``'s tail."""
     do = s.active & ~(s.optimal | (s.unb != 0))
     s.do.copy_(do)
     s.p.copy_(torch.where(do, s.p_k1, 1.0))
@@ -577,7 +619,13 @@ def step_mid_plain(s: PivotScalars) -> None:
 
 def step_post_plain(s: PivotScalars, max_iter: int, eps: float,
                     bland_static: bool, threshold, then_pre: bool) -> None:
-    """Plain version of ``step_post``."""
+    """The step after K2 (``simplex_tpu/solver.py:777-794``): ``z -= u *
+    bk`` where the pivot is done (two f64 roundings); the status
+    (``exit_status``); the stall counter and Bland flag
+    (``anticycling_update``, improved when z moved by >= eps);
+    ``iterations += do``. With ``then_pre`` the next pivot's
+    ``step_pre_plain`` follows. The plain version of
+    ``colk_costs_tail``'s tail."""
     z2 = torch.where(s.do, s.z - s.u * s.bk, s.z)
     s.status.copy_(exit_status(s.active, s.optimal, s.unb != 0, s.status))
     stall, bland = anticycling_update(
@@ -592,8 +640,9 @@ def step_post_plain(s: PivotScalars, max_iter: int, eps: float,
 
 
 class _StepPtrs(ctypes.Structure):
-    """``PivotScalars``' device pointers, in its field order: csrc/step.cu's
-    ``Step``, passed by value to each step kernel."""
+    """``PivotScalars``' device pointers, in its field order: csrc/step.cuh's
+    ``Step``, passed by value to ``step_pre``'s kernel and to K1 and K2
+    with their tails."""
 
     _fields_ = [(f.name, ctypes.c_void_p)
                 for f in dataclasses.fields(PivotScalars)]
@@ -622,45 +671,30 @@ def step_pre(s: PivotScalars, max_iter: int, eps: float) -> None:
     LAUNCHES["step_pre"] += 1
 
 
-def step_mid(s: PivotScalars) -> None:
-    """The step between K1 and K2 (``simplex_tpu/solver.py:751-761``):
-    ``do = active and not (optimal or unb)``; ``p`` is K1's p where the
-    pivot is done, else 1; ``u = minc / p`` in f64 where it is done, else
-    0. One thread on the card."""
-    if not _on_card(s.status):
-        step_mid_plain(s)
-        return
-
-    from ._build import check, load_library
-
-    lib = load_library()
-    err = lib.step_mid_launch(ctypes.byref(_step_ptrs(s)), _stream(s.status))
-    check(lib, err, "step_mid")
-    LAUNCHES["step_mid"] += 1
+def ah_ratio_tail(Tt, F, C, b, t: int, eps: float, s: PivotScalars, ah,
+                  ws=None) -> None:
+    """K1 with the step between K1 and K2 as its tail: ``ah_ratio`` of the
+    column ``s.h`` into ``ah`` and ``s``'s k, p_k1, bk and unb, then
+    ``step_mid_plain``'s do, p and u. On the card one launch, whose last
+    block runs the step on K1's p and flag in one thread; it counts a
+    launch of ``ah_ratio`` and one of ``step_mid_tail``."""
+    _ah_ratio(Tt, F, C, b, s.h, t, eps, ws, (ah, s.k, s.p_k1, s.bk, s.unb), s)
 
 
-def step_post(s: PivotScalars, max_iter: int, eps: float, *,
-              bland_static: bool, threshold, then_pre: bool) -> None:
-    """The step after K2 (``simplex_tpu/solver.py:777-794``): ``z -= u *
-    bk`` where the pivot is done (two f64 roundings); the status
-    (``exit_status``); the stall counter and Bland flag
-    (``anticycling_update``, improved when z moved by >= eps);
-    ``iterations += do``. With ``then_pre`` the next pivot's
-    ``step_pre`` follows in the same launch. One thread on the card."""
-    if not _on_card(s.status):
-        step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
-        return
-
-    from ._build import check, load_library
-
-    lib = load_library()
-    err = lib.step_post_launch(
-        ctypes.byref(_step_ptrs(s)), max_iter, float(eps),
-        _bland_mode(bland_static, threshold),
-        0 if threshold is None else int(threshold), int(then_pre),
-        _stream(s.status))
-    check(lib, err, "step_post")
-    LAUNCHES["step_post"] += 1
+def colk_costs_tail(Tt, C, F, costs, t: int, r: int, eps: float, ah, b,
+                    base, w, s: PivotScalars, max_iter: int, ws=None, *,
+                    bland_static: bool, threshold, then_pre: bool) -> None:
+    """K2 with the step after K2 as its tail: ``colk_costs`` of the pivot
+    ``s`` holds (k, u, do, h, p, bk) with its candidates into ``s``'s h_d,
+    v_d, h_b and v_b, then ``step_post_plain``'s z, status, stall, bland
+    and iterations and, with ``then_pre``, the next pivot's
+    ``step_pre_plain`` -- which rewrites h, after K2 has read it. On the
+    card one launch, whose last block runs the step in one thread once
+    every block has arrived; it counts a launch of ``colk_costs`` and one
+    of ``step_post_tail``."""
+    _colk_costs(Tt, C, F, costs, s.k, t, s.u, s.do, r, eps, ah, b, base, s.h,
+                s.p, s.bk, w, ws, (s.h_d, s.v_d, s.h_b, s.v_b), 0, None, s,
+                max_iter, bland_static, threshold, then_pre)
 
 
 # ---------------------------------------------------------------------------
@@ -878,7 +912,8 @@ def sharded_step_post(s: ShardedScalars, V, I, max_iter: int, eps: float,
     devex key, else ``-v_d``), the Bland one (``h_b, v_b, w_b``) from the
     first rank with the lowest global index -- ties go to the lowest rank,
     and the slices are contiguous, so to the lowest global index as on one
-    card. Then ``step_post``'s z, status, stall, bland and iterations,
+    card. Then the step after K2's z, status, stall, bland and iterations
+    (``step_post_plain``),
     and with ``then_pre`` the next pivot's ``sharded_step_pre``; with
     ``fold_only`` the fold alone (the window boundary's). One thread on
     the card."""

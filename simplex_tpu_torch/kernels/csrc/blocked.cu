@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "apply_tile.cuh"
+#include "step.cuh"
 
 namespace {
 
@@ -205,7 +206,9 @@ __device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
 // block; at t = 0 it writes Tt[j, h] - 0.0f without staging anything.
 // K5's owner flag ``own`` (null: owned) is the sharded loop's: a rank that
 // does not own h writes zeros, its share of the column's cross-rank sum.
-template <bool RATIO, int NTH = THREADS>
+// TAIL (RATIO only) runs the loop's step between K1 and K2 (step.cuh
+// step::mid) on ``s`` after the fold; without it ``s`` is unread.
+template <bool RATIO, int NTH = THREADS, bool TAIL = false>
 __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         const float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, const double *__restrict__ b,
@@ -213,8 +216,9 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         int t, int M, int R, float eps, int nb, float *__restrict__ ah,
         unsigned char *__restrict__ ws_bytes, int *__restrict__ k_out,
         float *__restrict__ p_out, double *__restrict__ bk_out,
-        int *__restrict__ unb_out) {
+        int *__restrict__ unb_out, Step s) {
     static_assert(!RATIO || NTH == THREADS, "K1 folds over THREADS");
+    static_assert(RATIO || !TAIL, "the step's tail follows the ratio test");
     __shared__ __align__(16) float fs[AHR_ROWS][AHR_COLS];
     __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
     __shared__ double sa[THREADS], sb[THREADS];  // each thread's a_h, b
@@ -301,6 +305,11 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     __syncthreads();
     if (!last) return;
 
+    // The tail's other operands, loaded while the partials fold: the step
+    // before K1 wrote them and no block of K1 writes them.
+    step::MidIn mid{};
+    if (TAIL && tid == 0) mid = step::mid_load(s);
+
     // The last block: every block has written its partial. Fold the
     // partials (read past L1) in the same order, carrying the winner's
     // thread again.
@@ -324,11 +333,15 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     block_argmax_warps(key, idx, who);
     if (tid == 0) {
         const bool none = idx == BIG_INDEX;      // no eligible constraint
+        const float p = none ? 0.0f : (float)sa[(int)who];  // a_h[k], exactly
         *k_out = idx;
-        *p_out = none ? 0.0f : (float)sa[(int)who];   // a_h[k], exactly
+        *p_out = p;
         *bk_out = none ? 0.0 : sb[(int)who];
         *unb_out = none ? 1 : 0;
         *ws.counter = 0;                         // ready for the next call
+        // The step between K1 and K2, on K1's p and flag in registers: K2,
+        // the next node, reads do, p and u.
+        if (TAIL) step::mid(s, mid, p, none);
     }
 }
 
@@ -406,6 +419,14 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
 // only on the rank that owns the variable, and w_h, the weight at h, comes
 // from the candidate fold through wh_ptr, since another rank may own h.
 // With offset 0 and no wh_ptr it is the single-card kernel.
+// TAIL runs the single-card loop's step after K2 (step.cuh step::post,
+// with the next pivot's step before K1 under pol.then_pre) on ``s`` in the
+// last block, once its thread 0 has written the candidates, base[k] and
+// w[h]; without it ``s`` and ``pol`` are unread. The step before K1
+// rewrites h, which every R block reads at its start and the last block's
+// thread 0 reads for base[k]: the rewrite waits for the last ticket and
+// for that store, and h_ptr is not __restrict__, since the tail writes its
+// element through s.h.
 
 constexpr int COLK_COLS = 64;    // columns per R block
 constexpr int COLK_ROWS = 128;   // live C rows staged per pass of the chain
@@ -448,6 +469,7 @@ __device__ __forceinline__ void colk_stage(const float *__restrict__ C,
         fk[s] = F[(size_t)(s0 + s) * M + k];
 }
 
+template <bool TAIL>
 __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         const float *__restrict__ Tt, float *__restrict__ C,
         float *__restrict__ F, double *__restrict__ costs,
@@ -456,12 +478,12 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         const unsigned char *__restrict__ do_ptr, int r, double eps, int M,
         int R, int n_rblocks, const float *__restrict__ ah,
         double *__restrict__ b, int *__restrict__ base,
-        const int *__restrict__ h_ptr, const float *__restrict__ p_ptr,
+        const int *h_ptr, const float *__restrict__ p_ptr,
         const double *__restrict__ bk_ptr, float *__restrict__ w,
         int offset, const float *__restrict__ wh_ptr,
         unsigned char *__restrict__ ws_bytes, int *__restrict__ hd_out,
         double *__restrict__ vd_out, int *__restrict__ hb_out,
-        double *__restrict__ vb_out) {
+        double *__restrict__ vb_out, Step s, step::Policy pol) {
     const int k = min(*k_ptr, M - 1);            // k = BIG when unbounded
     const bool apply = *do_ptr != 0;
     const int tid = threadIdx.x;
@@ -595,9 +617,14 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
     __syncthreads();
     if (!last) return;
 
-    // The last block: every R block has read base[k] and w[h] and written
-    // its partial. Fold the partials (read past L1) in the same order.
+    // The last block: every R block has read h, base[k] and w[h] and
+    // written its partial. Fold the partials (read past L1) in the same
+    // order.
     __threadfence();
+    // The tail's other operands, loaded while the partials fold: no block
+    // of K2 writes them.
+    step::PostIn post{};
+    if (TAIL && tid == 0) post = step::post_load(s);
     key = -CUDART_INF;
     val = bval = CUDART_INF;
     idx = bidx = BIG_INDEX;
@@ -620,15 +647,21 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
     block_argmax_warps(bkey, bidx, bval);
     if (tid == 0) {
         const bool none = key == -CUDART_INF;    // no candidate at all
-        *hd_out = none ? 0 : idx;
-        *vd_out = none ? CUDART_INF : val;
-        *hb_out = bidx;
-        *vb_out = bidx == BIG_INDEX ? CUDART_INF : bval;
+        const step::Candidates c{none ? 0 : idx, none ? CUDART_INF : val,
+                                 bidx,
+                                 bidx == BIG_INDEX ? CUDART_INF : bval};
+        *hd_out = c.h_d;
+        *vd_out = c.v_d;
+        *hb_out = c.h_b;
+        *vb_out = c.v_b;
         if (apply) {
             base[k] = *h_ptr;
             if (w != nullptr && own_h) w[hl] = __ldcg(ws.w_h);
         }
         *ws.counter = 0;                         // ready for the next call
+        // The step after K2 on the do flag and the candidates in registers;
+        // its step before K1 rewrites h, read above for the last time.
+        if (TAIL) step::post(s, post, apply, c, pol);
     }
 }
 
@@ -964,18 +997,26 @@ const char *kernel_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// ``step`` null: K1 alone; else K1 with the step between K1 and K2 as its
+// tail, on those scalars.
 int ah_ratio_launch(const float *Tt, const float *F, const float *C,
                     const double *b, const int *h, int t, int M, int R,
                     float eps, float *ah, unsigned char *ws,
                     long long ws_bytes, int *k_out, float *p_out,
-                    double *bk_out, int *unb_out, void *stream) {
+                    double *bk_out, int *unb_out, const Step *step,
+                    void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nb = (M + AHR_COLS - 1) / AHR_COLS;
     if (ws_bytes < (long long)ahr_ws_bytes(nb))
         return (int)cudaErrorInvalidValue;       // workspace too small
-    ah_ratio_fused<true><<<nb, THREADS, 0, st>>>(
-        Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
-        bk_out, unb_out);
+    if (step == nullptr)
+        ah_ratio_fused<true><<<nb, THREADS, 0, st>>>(
+            Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
+            bk_out, unb_out, Step{});
+    else
+        ah_ratio_fused<true, THREADS, true><<<nb, THREADS, 0, st>>>(
+            Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
+            bk_out, unb_out, *step);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -988,15 +1029,18 @@ int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
     if (t == 0)        // a copy of Tt[:, h]: one thread a constraint
         ah_ratio_fused<false, AHR_COLS><<<nb, AHR_COLS, 0, st>>>(
             Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
-            nullptr, nullptr, nullptr, nullptr);
+            nullptr, nullptr, nullptr, nullptr, Step{});
     else
         ah_ratio_fused<false, THREADS><<<nb, THREADS, 0, st>>>(
             Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
-            nullptr, nullptr, nullptr, nullptr);
+            nullptr, nullptr, nullptr, nullptr, Step{});
     RETURN_IF_ERROR();
     return 0;
 }
 
+// ``step`` null: K2 alone; else K2 with the step after K2 as its tail, on
+// those scalars, under max_iter, eps, the Bland mode and threshold, and
+// then_pre.
 int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       const int *k, int t, const double *u,
                       const unsigned char *do_flag, int r, double eps, int M,
@@ -1005,15 +1049,25 @@ int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       float *w, int offset, const float *wh,
                       unsigned char *ws, long long ws_bytes,
                       int *hd_out, double *vd_out, int *hb_out,
-                      double *vb_out, void *stream) {
+                      double *vb_out, const Step *step, long long max_iter,
+                      int bland_mode, int threshold, int then_pre,
+                      void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int n_rblocks = (R + COLK_COLS - 1) / COLK_COLS;
     const int n_mblocks = (M + THREADS - 1) / THREADS;
     if (ws_bytes < (long long)colk_ws_bytes(n_rblocks))
         return (int)cudaErrorInvalidValue;       // workspace too small
-    colk_costs_fused<<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
-        Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah, b,
-        base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out, vb_out);
+    const step::Policy pol{max_iter, eps, bland_mode, threshold, then_pre};
+    if (step == nullptr)
+        colk_costs_fused<false><<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
+            Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah,
+            b, base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out,
+            vb_out, Step{}, pol);
+    else
+        colk_costs_fused<true><<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
+            Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah,
+            b, base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out,
+            vb_out, *step, pol);
     RETURN_IF_ERROR();
     return 0;
 }

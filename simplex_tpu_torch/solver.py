@@ -35,11 +35,11 @@ import torch
 from .config import (EPS_REL_F32, SolverOptions, kernel_blocked_enabled,
                      normalize_enabled)
 from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
-                              PivotScalars, ah_ratio, ah_ratio_workspace,
-                              anticycling_update, apply_reprice,
-                              apply_window, colk_costs, colk_workspace,
-                              entering_candidates, exit_status,
-                              pivot_scalars, step_mid, step_post, step_pre)
+                              PivotScalars, ah_ratio_tail,
+                              ah_ratio_workspace, anticycling_update,
+                              apply_reprice, apply_window, colk_costs_tail,
+                              colk_workspace, entering_candidates,
+                              exit_status, pivot_scalars, step_pre)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 #: Pivots the sequential loops enqueue between two host reads of the
@@ -488,10 +488,11 @@ def kernel_loop(tab: Tableau, options: SolverOptions) -> KernelLoop:
 def run_window(loop: KernelLoop, options: SolverOptions,
                max_iter: int) -> None:
     """Enqueue one window of L pivots with no host read: the step before
-    K1 of the window's first pivot, then per pivot K1, the step between,
-    K2 and the step after, which also runs the next pivot's step before
-    K1. ``t`` is a constant of each call: the body that a CUDA graph
-    captures."""
+    K1 of the window's first pivot, then per pivot K1 with the step
+    between K1 and K2 as its tail, and K2 with the step after as its
+    tail, which also runs the next pivot's step before K1 -- 2L + 1
+    launches on the card. ``t`` is a constant of each call: the body that
+    a CUDA graph captures."""
     eps = float(options.eps_resolved)
     L = int(options.block_pivots)
     policy = dict(bland_static=options.pivot_rule_resolved == "bland",
@@ -499,13 +500,11 @@ def run_window(loop: KernelLoop, options: SolverOptions,
     s = loop.s
     step_pre(s, max_iter, eps)
     for t in range(L):
-        ah_ratio(loop.Tt, loop.F, loop.C, loop.b, s.h, t, eps, loop.ws_k1,
-                 out=(loop.ah, s.k, s.p_k1, s.bk, s.unb))
-        step_mid(s)
-        colk_costs(loop.Tt, loop.C, loop.F, loop.costs, s.k, t, s.u, s.do,
-                   loop.r, eps, loop.ah, loop.b, loop.base, s.h, s.p, s.bk,
-                   loop.w, loop.ws_k2, out=(s.h_d, s.v_d, s.h_b, s.v_b))
-        step_post(s, max_iter, eps, then_pre=t + 1 < L, **policy)
+        ah_ratio_tail(loop.Tt, loop.F, loop.C, loop.b, t, eps, s, loop.ah,
+                      loop.ws_k1)
+        colk_costs_tail(loop.Tt, loop.C, loop.F, loop.costs, t, loop.r, eps,
+                        loop.ah, loop.b, loop.base, loop.w, s, max_iter,
+                        loop.ws_k2, then_pre=t + 1 < L, **policy)
 
 
 def capture_window(loop: KernelLoop, options: SolverOptions, max_iter: int
@@ -539,8 +538,9 @@ def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
     Per pivot: K1 builds the live entering column and runs the ratio
     test; K2 builds the pivot row into ``C[t]``, updates costs, b, base,
     the eta row ``F[t]`` and the devex weights, and folds the next
-    candidates; the step kernels (``kernels.blocked.step_*``) carry the
-    scalar glue between them. Per window of L pivots: ``Tt -= F^T C`` in
+    candidates; the scalar glue between them runs as their tails
+    (``kernels.blocked.ah_ratio_tail``, ``colk_costs_tail``), and a
+    window's first step before K1 as ``step_pre``. Per window of L pivots: ``Tt -= F^T C`` in
     place, fused with the exact re-pricing ``costs0 - coeffs @ Tt`` every
     ``reprice_every`` windows and on every window that ends non-RUNNING
     (K3), else the apply alone (K4; always when ``costs0`` is None). The

@@ -443,10 +443,10 @@ def test_solve_batch_on_card_matches_cpu(cuda):
 
 
 def test_solve_on_card_matches_cpu(cuda, monkeypatch):
-    """The production solve on the card: K1 and K2 launched, each run of
-    the kernel loop allocating one K1 workspace and handing it to every
-    K1 call of that run; status equal to the CPU's, the objective
-    certified and within 1e-9."""
+    """The production solve on the card: K1 and K2 launched (with their
+    tails), each run of the kernel loop allocating one K1 workspace and
+    handing it to every K1 call of that run; status equal to the CPU's,
+    the objective certified and within 1e-9."""
     from simplex_tpu_torch import solver
 
     runs, allocs, calls = [], [], []
@@ -462,17 +462,19 @@ def test_solve_on_card_matches_cpu(cuda, monkeypatch):
         return ws
 
     def k1(*args, **kw):
-        ws = args[7] if len(args) > 7 else kw.get("ws")
+        ws = args[8] if len(args) > 8 else kw.get("ws")
         calls.append(ws is not None and ws.data_ptr() == allocs[-1])
-        return kb.ah_ratio(*args, **kw)
+        return kb.ah_ratio_tail(*args, **kw)
 
     monkeypatch.setattr(solver, "solve_loop_blocked_kernel", loop)
     monkeypatch.setattr(solver, "ah_ratio_workspace", workspace)
-    monkeypatch.setattr(solver, "ah_ratio", k1)
+    monkeypatch.setattr(solver, "ah_ratio_tail", k1)
     p = pst.generate_random_problem(128, 64, 2, 1, 100)
     kb.reset_launches()
     got = pst.solve(p, device="cuda", **PROD)
     assert kb.LAUNCHES["ah_ratio"] > 0 and kb.LAUNCHES["colk_costs"] > 0
+    assert kb.LAUNCHES["step_mid_tail"] == kb.LAUNCHES["ah_ratio"]
+    assert kb.LAUNCHES["step_post_tail"] == kb.LAUNCHES["colk_costs"]
     assert runs and len(allocs) == len(runs)
     assert calls and all(calls)
     want = pst.solve(p, device="cpu", **PROD)
@@ -860,28 +862,78 @@ def _card_scalars(rng, dev):
 
 @pytest.mark.parametrize("policy", [(False, 50), (False, None), (True, 50)],
                          ids=["threshold", "never", "static"])
-def test_step_kernels_match_plain_on_card(cuda, policy):
-    """Each step kernel against its plain version on the same card
-    scalars, 256 random states: every output bit for bit (the f64
-    division, product and differences rounded apart, as torch does)."""
+def test_step_tails_match_plain_on_card(cuda, policy):
+    """``step_pre``, then K1 and K2 with the steps as their tails, against
+    ``step_pre_plain``, K1, ``step_mid_plain``, K2 and ``step_post_plain``
+    from the same card scalars and tableau, 256 random states under devex
+    and Dantzig, with and without the next pivot's step: every scalar,
+    K1's column and every vector K2 updates bit for bit (the f64
+    division, product and differences rounded apart, as torch does). A
+    state drawn unbounded gets K1 an eps no row reaches."""
     bland_static, threshold = policy
     rng = np.random.default_rng(31)
+    M, R, L, t, eps = 256, 512, 8, 3, 1e-4
+    g = torch.Generator(device=cuda).manual_seed(31)
+
+    def uni(shape, lo, hi, dtype=torch.float32):
+        x = torch.rand(shape, generator=g, device=cuda, dtype=dtype)
+        return x * (hi - lo) + lo
+
+    Tt = uni((M, R), -1.0, 1.0)
+    C = torch.zeros((L, R), device=cuda)
+    F = torch.zeros((L, M), device=cuda)
+    C[:t] = uni((t, R), -1.0, 1.0)
+    F[:t] = uni((t, M), -0.01, 0.01)
+    tab = dict(C=C, F=F, b=uni((M,), 0.0, 1.0, torch.float64),
+               costs=uni((R,), -1.0, 1.0, torch.float64),
+               base=torch.randint(0, R, (M,), generator=g, device=cuda,
+                                  dtype=torch.int32),
+               w=uni((R,), 1.0, 2.0))
+    seen = set()
     kb.reset_launches()
     for i in range(256):
         s = _card_scalars(rng, cuda)
         sp = kb.PivotScalars(**{k: x.clone() for k, x in s.tensors().items()})
-        then_pre = bool(i % 2)
-        kb.step_pre(s, 10, 1e-4)
-        kb.step_pre_plain(sp, 10, 1e-4)
-        kb.step_mid(s)
-        kb.step_mid_plain(sp)
-        kb.step_post(s, 10, 1e-4, bland_static=bland_static,
-                     threshold=threshold, then_pre=then_pre)
-        kb.step_post_plain(sp, 10, 1e-4, bland_static, threshold, then_pre)
+        k1_eps = 1e30 if bool(s.unb) else eps
+        then_pre = i % 4 < 2
+        runs = []
+        for sc, tails in ((s, True), (sp, False)):
+            st = {k: v.clone() for k, v in tab.items()}
+            if i % 2:
+                st["w"] = None
+            ah = torch.empty(M, device=cuda)
+            if tails:
+                kb.step_pre(sc, 10, eps)
+                kb.ah_ratio_tail(Tt, st["F"], st["C"], st["b"], t, k1_eps,
+                                 sc, ah)
+                kb.colk_costs_tail(Tt, st["C"], st["F"], st["costs"], t,
+                                   R - 16, eps, ah, st["b"], st["base"],
+                                   st["w"], sc, 10,
+                                   bland_static=bland_static,
+                                   threshold=threshold, then_pre=then_pre)
+            else:
+                kb.step_pre_plain(sc, 10, eps)
+                kb.ah_ratio(Tt, st["F"], st["C"], st["b"], sc.h, t, k1_eps,
+                            out=(ah, sc.k, sc.p_k1, sc.bk, sc.unb))
+                kb.step_mid_plain(sc)
+                kb.colk_costs(Tt, st["C"], st["F"], st["costs"], sc.k, t,
+                              sc.u, sc.do, R - 16, eps, ah, st["b"],
+                              st["base"], sc.h, sc.p, sc.bk, st["w"],
+                              out=(sc.h_d, sc.v_d, sc.h_b, sc.v_b))
+                kb.step_post_plain(sc, 10, eps, bland_static, threshold,
+                                   then_pre)
+            runs.append((st, ah))
         for name, x in s.tensors().items():
             assert torch.equal(x, getattr(sp, name)), (i, name, x)
-    assert (kb.LAUNCHES["step_pre"], kb.LAUNCHES["step_mid"],
-            kb.LAUNCHES["step_post"]) == (256, 256, 256)
+        assert torch.equal(runs[0][1], runs[1][1]), i
+        for name, x in runs[0][0].items():
+            if x is not None:
+                assert torch.equal(x, runs[1][0][name]), (i, name)
+        seen.add((bool(s.do), bool(s.unb)))
+    assert {(True, False), (False, False), (False, True)} <= seen
+    assert (kb.LAUNCHES["step_pre"], kb.LAUNCHES["ah_ratio"],
+            kb.LAUNCHES["step_mid_tail"], kb.LAUNCHES["colk_costs"],
+            kb.LAUNCHES["step_post_tail"]) == (256, 512, 256, 512, 256)
 
 
 @pytest.mark.parametrize("with_costs0", [True, False],
@@ -926,11 +978,11 @@ def test_window_graph_matches_eager_on_card(cuda, monkeypatch, rule,
     if ew is not None:
         assert torch.equal(gw, ew)
     assert gl == el
-    for name in ("ah_ratio", "colk_costs", "step_pre", "step_mid",
-                 "step_post"):
+    for name in ("ah_ratio", "colk_costs", "step_pre", "step_mid_tail",
+                 "step_post_tail"):
         assert gl[name] > 0, name
-    assert gl["ah_ratio"] == gl["step_mid"] == gl["step_post"] == (
-        16 * gl["step_pre"])
+    assert gl["ah_ratio"] == gl["step_mid_tail"] == gl["step_post_tail"] == (
+        gl["colk_costs"]) == 16 * gl["step_pre"]
 
 
 def _card_sharded_state(rng, P, R_loc, M, dev):

@@ -4,17 +4,17 @@
 The flagship random_8192_8192 through ``solve`` with the production
 options, its loop (``solver.solve_loop_blocked_kernel``) run as:
 
-* ``eager-glue``: the kernels enqueued eagerly with the per-pivot glue
-  as plain PyTorch (``kernels.blocked.step_*_plain``), the loop as it
-  ran before the step kernels;
-* ``graph-glue``: one CUDA graph a window of that glue;
-* ``graph``: one CUDA graph a window with the step kernels (the
-  production path);
-* ``eager``: the step kernels enqueued eagerly (``graph=False``).
+* ``eager-glue``: K1 and K2 without their tails enqueued eagerly, with
+  the per-pivot glue as plain PyTorch (``kernels.blocked.step_*_plain``),
+  the loop as it ran before any step kernel;
+* ``graph-glue``: one CUDA graph a window of that;
+* ``graph``: one CUDA graph a window of ``step_pre`` and K1 and K2 with
+  the steps as their tails (the production path);
+* ``eager``: the same enqueued eagerly (``graph=False``).
 
 Each run must walk the recorded pivots, and each loop call must end with
-the first run's state bit for bit (the plain glue and the step kernels
-compute the same bits). Prints each run's loop ms/pivot, solve wall and
+the first run's state bit for bit (the plain glue and the tails compute
+the same bits). Prints each run's loop ms/pivot, solve wall and
 capture ms, the medians, then the same for two small sizes (``--small``)
 as solve walls, then ``chip_smoke.phase_window_trace``'s trace of a
 replayed window. Run from the root of a checkout on a CUDA card::
@@ -41,24 +41,43 @@ VARIANTS = {"eager-glue": (False, True), "graph-glue": (True, True),
             "graph": (True, False), "eager": (False, False)}
 
 
+def _k1_then_plain(Tt, F, C, b, t, eps, s, ah, ws=None):
+    """K1 without its tail, then the step between K1 and K2 in PyTorch."""
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    kb.ah_ratio(Tt, F, C, b, s.h, t, eps, ws,
+                out=(ah, s.k, s.p_k1, s.bk, s.unb))
+    kb.step_mid_plain(s)
+
+
+def _k2_then_plain(Tt, C, F, costs, t, r, eps, ah, b, base, w, s, max_iter,
+                   ws=None, *, bland_static, threshold, then_pre):
+    """K2 without its tail, then the step after K2 in PyTorch."""
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    kb.colk_costs(Tt, C, F, costs, s.k, t, s.u, s.do, r, eps, ah, b, base,
+                  s.h, s.p, s.bk, w, ws, out=(s.h_d, s.v_d, s.h_b, s.v_b))
+    kb.step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
+
+
 @contextlib.contextmanager
 def plain_glue(on: bool):
-    """The loop's step wrappers replaced by their plain versions."""
+    """The loop's step kernel and K1 and K2 with their tails replaced by
+    K1 and K2 alone and the plain steps."""
     from simplex_tpu_torch import solver
     from simplex_tpu_torch.kernels import blocked as kb
 
-    saved = solver.step_pre, solver.step_mid, solver.step_post
+    names = ("step_pre", "ah_ratio_tail", "colk_costs_tail")
+    saved = tuple(getattr(solver, name) for name in names)
     if on:
-        solver.step_pre = kb.step_pre_plain
-        solver.step_mid = kb.step_mid_plain
-        solver.step_post = (
-            lambda s, max_iter, eps, *, bland_static, threshold, then_pre:
-            kb.step_post_plain(s, max_iter, eps, bland_static, threshold,
-                               then_pre))
+        for name, fn in zip(names, (kb.step_pre_plain, _k1_then_plain,
+                                    _k2_then_plain)):
+            setattr(solver, name, fn)
     try:
         yield
     finally:
-        solver.step_pre, solver.step_mid, solver.step_post = saved
+        for name, fn in zip(names, saved):
+            setattr(solver, name, fn)
 
 
 def small_walls(n: int, rounds: int) -> None:
@@ -123,7 +142,8 @@ def main() -> int:
             graph, glue = VARIANTS[name]
             with plain_glue(glue):
                 r = cs.flagship_loops(p, graph, keep=None if i else keep,
-                                      against=keep if i else None)
+                                      against=keep if i else None,
+                                      tails=not glue)
             ms[name].append(r["ms_pivot"])
             cs.log(f"{name}: {r['ms_pivot']:.4f} ms/pivot over "
                    f"{r['pivots']} pivots (loop calls "
