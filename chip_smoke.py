@@ -69,12 +69,13 @@ Phases, in order; any failed check exits non-zero:
    ``solve``), random_2048_2048 and the flagship with the production
    options -- the flagship certified within 1e-9, walking as ``solve``
    did, with the launch counters reset just before it and read just
-   after (K5, K2-K4 and the sharded step kernels launched, K1 not); its
-   kernel loop replays one CUDA graph a window with the per-pivot
-   all_reduce and two all_gathers inside -- then the flagship's sharded
-   loop eager (``graph=False``) and graphed in turns (eager, graph,
-   graph, eager: the walk, every loop call's final state bit for bit,
-   ms/pivot, capture ms, the same collectives counted), then the
+   after (K5, K2-K4 and the sharded step kernels, K5's head and K2's
+   sharded tail launched, K1 not); its kernel loop replays one CUDA graph
+   a window with the per-pivot all_reduce and two all_gathers inside --
+   then the flagship's sharded loop eager (``graph=False``) and graphed
+   in turns (eager, graph, graph, eager: the walk, every loop call's
+   final state bit for bit, ms/pivot, capture ms, the same collectives
+   counted, 6 + 2/L nodes a pivot by the captured launch counts), then the
    north-star phase-1 slice for 256 pivots, ending with phase 9's z and
    basis;
 10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
@@ -150,8 +151,13 @@ Phases, in order; any failed check exits non-zero:
    bit), ``step_pre`` and K1 and K2 with the steps as their tails
    against ``step_pre_plain``, K1, ``step_mid_plain``, K2 and
    ``step_post_plain`` under 192 seeded states, bit for bit, K1 and K2
-   timed with and without their tails in turns, the sharded step kernels on K1's column under 192 seeded
-   states at P = 1, 2 and 4, bit for bit, K5 with its owner flag and K2
+   timed with and without their tails in turns, the sharded step kernels
+   (``sharded_ratio`` one thread-block cluster) on K1's column under 192
+   seeded states at P = 1, 2 and 4 with a NaN b, a tie across the
+   cluster's blocks and no eligible row among them, bit for bit, K5 with
+   its head and K2 with its sharded tail against their plain chains over
+   six pivots at P = 1, 2 and 4, bit for bit, K5 and K2 timed with and
+   without their head and tail in turns, K5 with its owner flag and K2
    with a column offset and a given weight at h (offset 0: the
    single-card call bit for bit; a second slice at t = 0: its plain
    version bit for bit), K6 at the 8192^2 and the north-star f32
@@ -172,9 +178,9 @@ Phases, in order; any failed check exits non-zero:
    PyTorch call computes the same function, that call's time; then one
    config-3 batch traced (device time by kernel, the device's busy
    share), and the flagship's phase-1 loop traced, single-card and
-   sharded at one NCCL rank (the kernels -- and the NCCL nodes -- a
-   pivot of a replayed window, the device's busy share inside a window
-   and over its period). These run last so that no profiler run precedes
+   sharded at one NCCL rank (the kernels -- and the NCCL nodes, 6 + 2/L
+   of them -- a pivot of a replayed window, the device's busy share
+   inside a window and over its period). These run last so that no profiler run precedes
    the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
@@ -186,7 +192,8 @@ The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 ``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
 or K2's time with it less their time without -- and the sharded step
-kernels, which replace XLA-fused glue, no Pallas kernel;
+kernels with K2's sharded tail and K5's head, which replace XLA-fused
+glue, no Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -257,35 +264,48 @@ STEPS = tuple(STEP_KERNELS)
 #: writes status, stall, bland, iterations and z (21), and as the next
 #: pivot's step before K1 writes 14.
 STEP_BYTES = {"step_pre": 39, "step_mid_tail": 23, "step_post_tail": 73}
-#: The sharded loop's per-pivot step kernels: the JAX sharded loop's
-#: XLA-fused glue around its passes and collectives (no Pallas kernel).
+#: The sharded loop's per-pivot step: the JAX sharded loop's XLA-fused
+#: glue around its passes and collectives (no Pallas kernel), each
+#: replacing the lines it ports -- sharded_step_pre (once a window),
+#: sharded_ratio (one thread-block cluster), sharded_pack and sharded_fold
+#: (the window's last fold) kernels of their own (csrc/sharded_step.cu),
+#: the step after K2 as K2's tail (its body csrc/step.cuh's step::post)
+#: and the fold with the next step before K5 as K5's head (its body
+#: csrc/sharded_step.cuh, run in csrc/blocked.cu).
 SHARDED_STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/sharded_step.cu"
 SHARDED_STEP_KERNELS = {
     "sharded_step_pre": ("glue", "simplex_tpu/parallel/sharded.py:668",
                          SHARDED_STEP_SOURCE),
-    "sharded_ratio": ("glue", "simplex_tpu/parallel/sharded.py:690",
+    "sharded_ratio": ("glue", "simplex_tpu/parallel/sharded.py:687",
                       SHARDED_STEP_SOURCE),
     "sharded_pack": ("glue", "simplex_tpu/parallel/sharded.py:741",
                      SHARDED_STEP_SOURCE),
-    "sharded_step_post": ("glue", "simplex_tpu/parallel/sharded.py:745",
-                          SHARDED_STEP_SOURCE),
+    "sharded_fold": ("glue", "simplex_tpu/parallel/sharded.py:738",
+                     SHARDED_STEP_SOURCE),
+    "sharded_post_tail": ("glue", "simplex_tpu/parallel/sharded.py:743",
+                          "simplex_tpu_torch/kernels/csrc/step.cuh"),
+    "sharded_fold_head": ("glue", "simplex_tpu/parallel/sharded.py:738; "
+                          "simplex_tpu/parallel/sharded.py:668",
+                          "simplex_tpu_torch/kernels/csrc/sharded_step.cuh"),
 }
 SHARDED_STEPS = tuple(SHARDED_STEP_KERNELS)
-#: Bytes each sharded step kernel moves on a taken pivot outside Bland
-#: mode under devex at one rank (csrc/sharded_step.cu), each input read
-#: once and each output written once: sharded_step_pre reads status,
-#: iterations, bland, h_b, h_d, v_d and w_d (29) and writes active, h, minc,
-#: optimal, wh, own and hl (23); sharded_ratio reads the column and b (12
-#: bytes a constraint, added where it is timed), active, optimal, minc and
-#: base[k] (14) and writes k, unb, do, p, bk, u and lvar (33); sharded_pack
-#: reads K2's four candidates and two weights (32) and writes the five
-#: values and two indices (48); sharded_step_post reads the gathered
-#: (1, 5) and (1, 2) buffers (48), do, z, u, bk, active, optimal, unb,
-#: stall and iterations (39), writes the six folded values (32), status,
-#: stall, bland, iterations and z (21), and as the next pivot's pre reads
-#: 20 and writes 23.
-SHARDED_STEP_BYTES = {"sharded_step_pre": 52, "sharded_ratio": 47,
-                      "sharded_pack": 80, "sharded_step_post": 183}
+#: Bytes each sharded step moves on a taken pivot outside Bland mode under
+#: devex at one rank, each input read once and each output written once:
+#: sharded_step_pre reads status, iterations, bland, h_b, h_d, v_d and w_d
+#: (29) and writes active, h, minc, optimal, wh, own and hl (23);
+#: sharded_ratio reads the column and b (12 bytes a constraint, added
+#: where it is timed), active, optimal and minc (10) and writes k, unb,
+#: do, p, bk and u (29); sharded_pack reads K2's four candidates and two
+#: weights (32) and writes the five values and two indices (48);
+#: sharded_fold reads the gathered (1, 5) and (1, 2) buffers (48) and
+#: writes the six folded values (32); K2's tail reads z, u, bk, active,
+#: optimal, unb, stall and iterations (38; do is in registers) and writes
+#: status, stall, bland, iterations and z (21); K5's head reads the
+#: gathered buffers (48) and status, iterations and bland (9), writes the
+#: six folded values (32) and, as the step before K5, 23.
+SHARDED_STEP_BYTES = {"sharded_step_pre": 52, "sharded_ratio": 39,
+                      "sharded_pack": 80, "sharded_fold": 80,
+                      "sharded_post_tail": 59, "sharded_fold_head": 112}
 #: The kernels of the single-card production path, and of the sharded one.
 SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window",
                *STEPS)
@@ -522,9 +542,12 @@ def close(name: str, got, want, tol) -> float:
 
 
 def equal(name: str, got, want) -> None:
+    """Bit for bit, a NaN equal to a NaN (a NaN b gives a NaN bk)."""
     import torch
 
     bad = got != want
+    if got.is_floating_point():
+        bad &= ~(torch.isnan(got) & torch.isnan(want))
     if bool(bad.any()):
         first = tuple(torch.nonzero(bad)[0].tolist())
         raise SmokeFailure(
@@ -608,7 +631,8 @@ def phase_kernels(records: dict) -> None:
             "over a CUDA graph")
         if t == 37:
             step_kernels(records, Tt, F, C, b, costs0, w0, base0, t)
-            sharded_step_kernels(records, got, b, base0, w0)
+            sharded_step_kernels(records, Tt, F, C, b, costs0, w0, base0, t,
+                                 got[0])
             # K5 with its owner flag (the sharded loop's call): its column
             # where the rank owns h, zeros where not, bit for bit.
             buf = torch.empty(M, dtype=torch.float32, device=dev)
@@ -1003,28 +1027,39 @@ def step_kernels(records: dict, Tt, F, C, b, costs, w, base, t: int
             f"{bound_ms:.2e} ms ({by})")
 
 
-def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
-    """The sharded step kernels against their plain versions on the card,
-    on K1's column at the flagship shapes (M = 8192, its b, a basis
-    drawn over R = 24,576 columns, the slice weights) as the summed
-    column, under 192 seeded states -- P = 1, 2 and 4 slices, devex and
-    Dantzig, each anti-cycling policy, taken and skipped pivots, the fuse,
-    optimal and unbounded, Bland on and off, ranks with no eligible column
-    and ties across ranks: every output bit for bit (each rank's pre,
-    ratio and pack, each rank's fold and post, with and without the next
-    pivot's pre, and the fold alone). Then each timed at one rank under
-    devex on a taken pivot outside Bland mode (the kernel and its plain
-    version by torch.profiler, the kernel also over a CUDA graph of 50
-    calls), beside its bound (``SHARDED_STEP_BYTES``; sharded_ratio's
-    column and b added)."""
+def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
+                         t: int, ah) -> None:
+    """The sharded loop's step on the card at the flagship shapes (M =
+    8192, R = 24,576 columns cut into P slices, t = 37 live eta rows, K1's
+    column ``ah`` as the summed column, its b, a basis drawn over the
+    columns, the slice weights). First the one-launch kernels against
+    their plain versions under 192 seeded states -- P = 1, 2 and 4 slices,
+    devex and Dantzig, each anti-cycling policy, taken and skipped pivots,
+    the fuse, optimal and unbounded, Bland on and off, ranks with no
+    eligible column and ties across ranks, and in every fourth state a
+    NaN b, equal quotients on three rows 2,048 apart (other blocks of the
+    ratio test's cluster) or no eligible row: every output bit for bit (each
+    rank's pre, ratio and pack, each rank's fold, with and without the
+    next pivot's pre). Then six pivots of the window at P = 1, 2 and 4
+    under devex and Dantzig two ways on the same tensors: K5 with its head
+    and K2 with its sharded tail, and their plain chains
+    (``sharded_fold_plain`` and ``sharded_step_pre_plain`` then K5
+    without its head; K2 without its tail then ``step_post_plain``),
+    every scalar, column and vector bit for bit after each pivot, and
+    ``sharded_fold`` against its plain version at the end. Then each
+    timed at one rank under devex on a taken pivot outside Bland mode:
+    the kernels and their plain versions by torch.profiler, the kernels
+    also over a CUDA graph of 50 calls, K5 and K2 with and without their
+    head and tail in turns (the head's and the tail's own cost is the
+    carrier's time with it less without), beside the bounds
+    (``SHARDED_STEP_BYTES``; sharded_ratio's column and b added)."""
     import numpy as np
     import torch
 
     from simplex_tpu_torch.kernels import blocked as kb
 
     dev = torch.device("cuda")
-    ah = k1[0]
-    M, R = ah.shape[0], w.shape[0]
+    M, R = Tt.shape
     eps, max_iter = 1e-4, 10
     rng = np.random.default_rng(20261017)
     unb_ah = -ah.abs()
@@ -1033,7 +1068,20 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
         return kb.ShardedScalars(**{n: x.clone()
                                     for n, x in s.tensors().items()})
 
-    i = 0
+    def edge_column(kind):
+        col, bb = ah.clone(), b.clone()
+        if kind == "nan":
+            j = torch.from_numpy(rng.integers(0, M, 2)).to(dev)
+            col[j], bb[j] = 0.5, float("nan")
+        elif kind == "tie":
+            j = int(rng.integers(0, M - 4096)) + torch.tensor(
+                [0, 2048, 4096], device=dev)
+            col[j], bb[j] = 4.0, 1e-9
+        elif kind == "none":
+            col = unb_ah
+        return col, bb
+
+    i, edges = 0, collections.Counter()
     for policy in ((False, 50), (False, None), (True, 50)):
         for devex in (True, False):
             for _ in range(32):
@@ -1055,7 +1103,11 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
                     w_b=rng.uniform(1, 3))
                 for name, v in fills.items():
                     getattr(s0, name).fill_(v)
-                col = unb_ah if i % 5 == 0 else ah
+                kind = (("nan", "tie", "none")[i // 4 % 3] if i % 4 == 3
+                        else None)
+                col, bb = edge_column(kind) if kind else (
+                    unb_ah if i % 5 == 0 else ah, b)
+                edges[kind or "seeded"] += 1
                 kv = 5 if devex else 2
                 Vs = [torch.empty((P, kv), dtype=torch.float64, device=dev)
                       for _ in range(2)]
@@ -1067,8 +1119,12 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
                     sk, sp = clone(s0), clone(s0)
                     kb.sharded_step_pre(sk, max_iter, eps, **where)
                     kb.sharded_step_pre_plain(sp, max_iter, eps, **where)
-                    kb.sharded_ratio(sk, col, b, base, eps)
-                    kb.sharded_ratio_plain(sp, col, b, base, eps)
+                    kb.sharded_ratio(sk, col, bb, eps)
+                    kb.sharded_ratio_plain(sp, col, bb, eps)
+                    for name, x in sk.tensors().items():
+                        equal(f"sharded pre and ratio {policy} state {i} "
+                              f"({kind}) rank {rank} {name}", x,
+                              getattr(sp, name))
                     cand = (int(rng.integers(0, R_loc)),
                             -rng.uniform(0.1, 3),
                             int(rng.integers(0, R_loc)),
@@ -1091,19 +1147,121 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
                 equal(f"sharded_pack state {i} indices", Is[0], Is[1])
                 for rank, (sk, sp) in enumerate(ranks):
                     where = dict(offset=rank * R_loc, R_loc=R_loc)
-                    then_pre, fold_only = bool(i % 2), i % 7 == 0
-                    kb.sharded_step_post(sk, Vs[0], Is[0], max_iter, eps,
-                                         bland_static=policy[0],
-                                         threshold=policy[1],
-                                         then_pre=then_pre,
-                                         fold_only=fold_only, **where)
-                    kb.sharded_step_post_plain(sp, Vs[1], Is[1], max_iter,
-                                               eps, *policy, then_pre,
-                                               fold_only=fold_only, **where)
+                    kb.sharded_fold(sk, Vs[0], Is[0])
+                    kb.sharded_fold_plain(sp, Vs[1], Is[1])
+                    if i % 2:
+                        kb.sharded_step_pre(sk, max_iter, eps, **where)
+                        kb.sharded_step_pre_plain(sp, max_iter, eps,
+                                                  **where)
                     for name, x in sk.tensors().items():
                         equal(f"sharded step kernels {policy} state {i} "
                               f"rank {rank} {name}", x, getattr(sp, name))
                 i += 1
+    log(f"sharded_step_pre, sharded_ratio (one cluster), sharded_pack and "
+        f"sharded_fold: every output equals its plain version's on {i} "
+        f"states at P = 1, 2 and 4 ({dict(edges)})")
+
+    # Six pivots of the window, kernels with their head and tail against
+    # the plain chains, on the same tensors.
+    pivots = 6
+    for devex in (True, False):
+        for P in (1, 2, 4):
+            R_loc = R // P
+            slices = [Tt[:, r * R_loc:(r + 1) * R_loc].contiguous()
+                      for r in range(P)]
+            s0 = kb.sharded_scalars(torch.tensor(
+                rng.uniform(-5, 5), dtype=torch.float64, device=dev),
+                False)
+            for name, v in dict(h_d=int(rng.integers(0, R)), v_d=-1.0,
+                                h_b=kb.BIG_INDEX, iterations=3,
+                                w_d=1.5).items():
+                getattr(s0, name).fill_(v)
+            runs = []
+            for _ in range(2):
+                ranks = []
+                for r in range(P):
+                    cols = slice(r * R_loc, (r + 1) * R_loc)
+                    x = dict(s=clone(s0), Tt=slices[r],
+                             C=C[:, cols].contiguous(), F=F.clone(),
+                             costs=costs[cols].clone(), b=b.clone(),
+                             base=base.clone(),
+                             w=w[cols].clone() if devex else None,
+                             ah=torch.empty(M, device=dev),
+                             ws=kb.colk_workspace(R_loc, dev),
+                             where=dict(offset=r * R_loc, R_loc=R_loc))
+                    kb.sharded_step_pre_plain(x["s"], max_iter, eps,
+                                              **x["where"])
+                    ranks.append(x)
+                kv = 5 if devex else 2
+                runs.append((ranks, torch.empty((P, kv), dtype=torch.float64,
+                                                device=dev),
+                             torch.empty((P, 2), dtype=torch.int32,
+                                         device=dev)))
+            for tp in range(t, t + pivots):
+                for chain, (ranks, V, I) in enumerate(runs):
+                    for x in ranks:
+                        s = x["s"]
+                        if tp > t and chain == 0:
+                            kb.ah_fold_head(x["Tt"], x["F"], x["C"], tp, s,
+                                            V, I, max_iter, eps,
+                                            x["where"]["offset"],
+                                            out=x["ah"])
+                            continue
+                        if tp > t:
+                            kb.sharded_fold_plain(s, V, I)
+                            kb.sharded_step_pre_plain(s, max_iter, eps,
+                                                      **x["where"])
+                        kb.ah(x["Tt"], x["F"], x["C"], s.hl, tp, own=s.own,
+                              out=x["ah"])
+                    col = sum(x["ah"] for x in ranks)
+                    for r, x in enumerate(ranks):
+                        s = x["s"]
+                        x["ah"].copy_(col)
+                        kb.sharded_ratio_plain(s, x["ah"], x["b"], eps)
+                        args = (x["Tt"], x["C"], x["F"], x["costs"])
+                        r_loc = R_loc - (100 if r == P - 1 else 0)
+                        if chain == 0:
+                            kb.colk_costs_sharded_tail(
+                                *args, tp, r_loc, eps, x["ah"], x["b"],
+                                x["base"], x["w"], s, max_iter, x["ws"],
+                                offset=x["where"]["offset"],
+                                bland_static=False, threshold=50)
+                        else:
+                            kb.colk_costs(
+                                *args, s.k, tp, s.u, s.do, r_loc, eps,
+                                x["ah"], x["b"], x["base"], s.h, s.p, s.bk,
+                                x["w"], x["ws"],
+                                out=(s.h_d, s.v_d, s.h_b, s.v_b),
+                                offset=x["where"]["offset"],
+                                w_h=None if x["w"] is None else s.wh)
+                            kb.step_post_plain(s, max_iter, eps, False, 50,
+                                               False)
+                        kb.sharded_pack_plain(s, x["w"], x["where"]["offset"],
+                                              V[r], I[r])
+                tag = f"sharded window devex={devex} P={P} t={tp}"
+                for r, (a, b2) in enumerate(zip(runs[0][0], runs[1][0])):
+                    for name, x in a["s"].tensors().items():
+                        equal(f"{tag} rank {r} {name}", x,
+                              getattr(b2["s"], name))
+                    for name in ("ah", "C", "F", "costs", "w", "b", "base"):
+                        if a[name] is not None:
+                            equal(f"{tag} rank {r} {name}", a[name],
+                                  b2[name])
+            require(int(runs[0][0][0]["s"].iterations) > 3,
+                    f"the sharded window devex={devex} P={P} took no pivot")
+            for chain, (ranks, V, I) in enumerate(runs):
+                for x in ranks:
+                    (kb.sharded_fold if chain == 0 else
+                     kb.sharded_fold_plain)(x["s"], V, I)
+            for r, (a, b2) in enumerate(zip(runs[0][0], runs[1][0])):
+                for name, x in a["s"].tensors().items():
+                    equal(f"sharded_fold devex={devex} P={P} rank {r} "
+                          f"{name}", x, getattr(b2["s"], name))
+            del runs, slices
+    log(f"K5 with its head and K2 with its sharded tail: every scalar, "
+        f"column and vector equals the plain chains' after each of "
+        f"{pivots} pivots at P = 1, 2 and 4, devex and Dantzig; "
+        "sharded_fold equals its plain version after them")
 
     # A taken pivot outside Bland mode under devex at one rank.
     s = kb.sharded_scalars(torch.zeros((), dtype=torch.float64,
@@ -1114,30 +1272,80 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
     vals = torch.empty(5, dtype=torch.float64, device=dev)
     idx = torch.empty(2, dtype=torch.int32, device=dev)
     big = 2 ** 30
+    v = dict(C=C.clone(), F=F.clone(), costs=costs.clone(), b=b.clone(),
+             base=base.clone(), w=w.clone())
+    col = torch.empty(M, device=dev)
+    ws2 = kb.colk_workspace(R, dev)
     kb.sharded_step_pre(s, big, eps, 0, R)
-    kb.sharded_ratio(s, ah, b, base, eps)
+    kb.ah(Tt, v["F"], v["C"], s.hl, t, own=s.own, out=col)
+    kb.sharded_ratio(s, col, v["b"], eps)
     require(bool(s.do), "the timed sharded pivot is not taken")
     kb.sharded_pack(s, w, 0, vals, idx)
     V, I = vals.view(1, 5), idx.view(1, 2)
-    post = dict(bland_static=False, threshold=50, then_pre=True, offset=0,
-                R_loc=R)
+    k2 = (Tt, v["C"], v["F"], v["costs"])
+    timed = {
+        "K5": (lambda: kb.ah(Tt, v["F"], v["C"], s.hl, t, own=s.own,
+                             out=col), "ah_ratio_fused"),
+        "K5+head": (lambda: kb.ah_fold_head(Tt, v["F"], v["C"], t, s, V, I,
+                                            big, eps, 0, out=col),
+                    "ah_ratio_fused"),
+        "K2": (lambda: kb.colk_costs(
+            *k2, s.k, t, s.u, s.do, R - 100, eps, col, v["b"], v["base"],
+            s.h, s.p, s.bk, v["w"], ws2, out=(s.h_d, s.v_d, s.h_b, s.v_b),
+            offset=0, w_h=s.wh), "colk_costs_fused"),
+        "K2+tail": (lambda: kb.colk_costs_sharded_tail(
+            *k2, t, R - 100, eps, col, v["b"], v["base"], v["w"], s, big,
+            ws2, offset=0, bland_static=False, threshold=50),
+            "colk_costs_fused"),
+    }
+    for name in ("K5+head", "K2+tail"):
+        n = kernels_launched(timed[name][0])
+        require(n == 1, f"one {name} call launched {n} kernels")
+    prof = {name: [] for name in timed}
+    graph = {name: [] for name in timed}
+    for name in ("K5", "K5+head", "K2", "K2+tail", "K2+tail", "K2",
+                 "K5+head", "K5"):
+        fn, match = timed[name]
+        prof[name].append(device_ms(fn, 50, match=match))
+        graph[name].append(graph_ms(fn))
+    mean = statistics.mean
+    log("sharded K5 and K2 with and without their head and tail, ms a call "
+        "in turns (K5, K5+head, K2, K2+tail, then back): " + "; ".join(
+            f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
+            + " (torch.profiler), " + ", ".join(f"{x:.5f}"
+                                                 for x in graph[name])
+            + " (CUDA graph of 50 calls)" for name in timed))
+    # The timed calls moved the state: one clean pivot again for the rest.
+    kb.sharded_pack(s, w, 0, vals, idx)
     calls = {
         "sharded_step_pre": (
             lambda: kb.sharded_step_pre(s, big, eps, 0, R),
             lambda: kb.sharded_step_pre_plain(s, big, eps, 0, R)),
         "sharded_ratio": (
-            lambda: kb.sharded_ratio(s, ah, b, base, eps),
-            lambda: kb.sharded_ratio_plain(s, ah, b, base, eps)),
+            lambda: kb.sharded_ratio(s, ah, b, eps),
+            lambda: kb.sharded_ratio_plain(s, ah, b, eps)),
         "sharded_pack": (
             lambda: kb.sharded_pack(s, w, 0, vals, idx),
             lambda: kb.sharded_pack_plain(s, w, 0, vals, idx)),
-        "sharded_step_post": (
-            lambda: kb.sharded_step_post(s, V, I, big, eps, **post),
-            lambda: kb.sharded_step_post_plain(
-                s, V, I, big, eps, False, 50, True, 0, R)),
+        "sharded_fold": (
+            lambda: kb.sharded_fold(s, V, I),
+            lambda: kb.sharded_fold_plain(s, V, I)),
+        "sharded_post_tail": (None, lambda: kb.step_post_plain(
+            s, big, eps, False, 50, False)),
+        "sharded_fold_head": (None, lambda: (
+            kb.sharded_fold_plain(s, V, I),
+            kb.sharded_step_pre_plain(s, big, eps, 0, R))),
     }
+    carrier = {"sharded_post_tail": "K2", "sharded_fold_head": "K5"}
     for name, (kernel, plain) in calls.items():
-        ms = device_ms(kernel, 50, match=name)
+        if kernel is not None:
+            ms = device_ms(kernel, 50, match=name)
+            check_ms = graph_ms(kernel)
+        else:
+            k = carrier[name]
+            add = "+tail" if k == "K2" else "+head"
+            ms = mean(prof[k + add]) - mean(prof[k])
+            check_ms = mean(graph[k + add]) - mean(graph[k])
         nbytes = SHARDED_STEP_BYTES[name] + (12 * M if name ==
                                              "sharded_ratio" else 0)
         bound_ms, by = bound(nbytes, 0.0, M if name == "sharded_ratio"
@@ -1145,12 +1353,14 @@ def sharded_step_kernels(records: dict, k1, b, base, w) -> None:
         records[name] = {"max_abs_err": 0.0, "ms": ms,
                          "plain_ms": device_ms(plain, 50),
                          "bound_ms": bound_ms, "bound_by": by,
-                         "library_ms": None, "check_ms": graph_ms(kernel)}
-        log(f"{name}: every output equals its plain version's on {i} "
-            f"states; kernel {ms:.4f} ms a call (torch.profiler), "
-            f"{records[name]['check_ms']:.4f} ms (CUDA events over a CUDA "
-            f"graph of 50 calls), plain {records[name]['plain_ms']:.4f} "
-            f"ms, bound {bound_ms:.2e} ms ({by})")
+                         "library_ms": None, "check_ms": check_ms}
+        log(f"{name}: {ms:.5f} ms a call"
+            + ("" if kernel is not None else
+               f" (its carrier {carrier[name]} with it less without, "
+               "torch.profiler)")
+            + f", {check_ms:.5f} ms by CUDA events over a CUDA graph of 50 "
+            f"calls, plain {records[name]['plain_ms']:.4f} ms, bound "
+            f"{bound_ms:.2e} ms ({by})")
 
 
 def k2_slice(tag, Tt, C, F, costs, k, u, do, eps, ah, b, base, h, p, bk, w,
@@ -2216,14 +2426,14 @@ def phase_flagship(launches: dict) -> tuple:
 #: step_pre).
 GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel")
 #: The nodes of the sharded loop's window graph by name: K5 (K1's kernel
-#: without its ratio test), K2, the sharded step kernels, and NCCL's
-#: collectives, kernels or device-to-device copies. The graph's first and
-#: last nodes bound a replayed window: the boundary's own collectives and
-#: fold fall outside.
+#: without its ratio test, with its head), K2 (with its tail), the sharded
+#: step kernels, and NCCL's collectives, kernels or device-to-device
+#: copies. The graph's first and last nodes bound a replayed window: the
+#: boundary's own collectives and fold fall outside.
 SHARDED_GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused",
                          "sharded_step_pre", "sharded_ratio", "sharded_pack",
-                         "sharded_step_post", "nccl", "Memcpy DtoD")
-SHARDED_GRAPH_SPAN = ("sharded_step_pre", "sharded_step_post")
+                         "sharded_fold", "nccl", "Memcpy DtoD")
+SHARDED_GRAPH_SPAN = ("sharded_step_pre", "sharded_fold")
 
 
 def flagship_loops(p, graph: bool, keep: list | None = None,
@@ -2270,17 +2480,30 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
         captures.append(1e3 * (time.perf_counter() - t0))
         L = PROD["block_pivots"]
         if group is not None:
-            # The window's collectives are inside its graph.
+            # The window's collectives are inside its graph, and its nodes
+            # at one rank are its kernels -- K5, sharded_ratio, K2 and
+            # sharded_pack a pivot, sharded_step_pre and sharded_fold once,
+            # K5's head and K2's tail none of their own -- and a copy an
+            # all_gather: 6L + 2.
             want = {"all_reduce": L, "all_gather": 2 * L}
             require(dict(out[2].counts) == want, f"the sharded window graph "
                     f"holds {dict(out[2].counts)}, not {want}")
+            per = out[1].per_replay
+            nodes = sum(n for name, n in per.items()
+                        if name not in kb.TAILS) + want["all_gather"]
+            require(nodes == 6 * L + 2
+                    and per["sharded_post_tail"] == L
+                    and per["sharded_fold_head"] == L - 1,
+                    f"the sharded window graph holds {per}, not 6L + 2 "
+                    "nodes")
+            per_pivot.append(nodes / L)
         elif tails:
             # K1 and K2, each with its tail, a pivot and step_pre once: a
             # tail launches nothing of its own.
             per = out[1].per_replay
             nodes = sum(n for name, n in per.items() if name not in kb.TAILS)
             require(nodes == 2 * L + 1
-                    and all(per[tail] == L for tail in kb.TAILS),
+                    and all(per[tail] == L for tail in STEPS[1:]),
                     f"the window graph holds {per}, not 2L + 1 kernels")
             per_pivot.append(nodes / L)
         return out
@@ -2357,7 +2580,9 @@ def phase_window_graph(group=None) -> None:
             + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
             + " ms" + (f"; collectives {r['collectives']}" if group
                        is not None else "")
-            + ("; kernels a pivot of each captured window (launch counts) "
+            + ("; nodes a pivot of each captured window (launch counts"
+               + (", a copy an all_gather" if group is not None else "")
+               + ") "
                + ", ".join(f"{x:.4f}" for x in r["per_pivot"])
                if r["per_pivot"] else "")
             + ("" if i else "; the final state kept"))
@@ -2424,8 +2649,12 @@ def phase_window_trace(group=None) -> None:
         require(w["per_pivot"] == (want, want), f"{w['per_pivot']} kernels "
                 f"a pivot in the traced windows, not {want}")
     else:
-        w = window_stats(events, PROD["block_pivots"], SHARDED_GRAPH_KERNELS,
+        L = PROD["block_pivots"]
+        w = window_stats(events, L, SHARDED_GRAPH_KERNELS,
                          ("kernel", "gpu_memcpy"), 10, SHARDED_GRAPH_SPAN)
+        want = (6 * L + 2) / L
+        require(w["per_pivot"] == (want, want), f"{w['per_pivot']} nodes a "
+                f"pivot in the traced sharded windows, not {want}")
     log(f"{'' if group is None else 'sharded 1-rank '}"
         f"phase-1 loop traced ({pivots} pivots, {w['windows']} windows): "
         f"{w['per_pivot'][0]:.4f}-{w['per_pivot'][1]:.4f} kernels a pivot "

@@ -117,6 +117,10 @@ SIGNATURES = {
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
     # Tt F C h own t M R ah stream
     "ah_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # Tt F C t M R ah, the sharded scalars' pointers (by reference), V I P
+    # kv max_iter eps offset stream
+    "ah_head_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                       ctypes.c_longlong, _D, _I, _P],
     # Tt M R coeffs part mv stream
     "reprice_launch": [_P, _I, _I, _P, _P, _P, _P],
     # csrc/step.cu: the scalars' pointers (by reference), max_iter eps
@@ -125,14 +129,12 @@ SIGNATURES = {
     # csrc/sharded_step.cu: the scalars' pointers (by reference), then
     # max_iter eps offset R_loc stream;
     "sharded_step_pre_launch": [_P, ctypes.c_longlong, _D, _I, _I, _P],
-    # ah b base M eps stream;
-    "sharded_ratio_launch": [_P, _P, _P, _P, _I, _F, _P],
+    # ah b M eps stream;
+    "sharded_ratio_launch": [_P, _P, _P, _I, _F, _P],
     # w offset R_loc vals idx stream;
     "sharded_pack_launch": [_P, _P, _I, _I, _P, _P, _P],
-    # V I P kv max_iter eps, bland mode, threshold, fold_only, then_pre,
-    # offset R_loc stream
-    "sharded_step_post_launch": [_P, _P, _P, _I, _I, ctypes.c_longlong, _D,
-                                 _I, _I, _I, _I, _I, _I, _P],
+    # V I P kv stream
+    "sharded_fold_launch": [_P, _P, _P, _I, _I, _P],
     # csrc/batched.cu: Tt costs b z base w sci c0 cf C F AH piv nlive,
     # B M R L r eps bland_static threshold, the plan (cs vec res_c res_f
     # smem), stream

@@ -47,14 +47,16 @@ COLK_COLS = 64
 APPLY_TILE = 128
 
 #: Launches of each kernel since the last ``reset_launches``. A step run
-#: as the tail of another kernel (``TAILS``) counts the launches of the
-#: kernel that carries it: no node of its own.
+#: as the tail (or head) of another kernel (``TAILS``) counts the launches
+#: of the kernel that carries it: no node of its own.
 LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
             "apply_window": 0, "ah": 0, "reprice": 0, "step_pre": 0,
             "step_mid_tail": 0, "step_post_tail": 0, "sharded_step_pre": 0,
-            "sharded_ratio": 0, "sharded_pack": 0, "sharded_step_post": 0}
-#: The tails and the kernel each rides in.
-TAILS = {"step_mid_tail": "ah_ratio", "step_post_tail": "colk_costs"}
+            "sharded_ratio": 0, "sharded_pack": 0, "sharded_fold": 0,
+            "sharded_post_tail": 0, "sharded_fold_head": 0}
+#: The tails (and K5's head) and the kernel each rides in.
+TAILS = {"step_mid_tail": "ah_ratio", "step_post_tail": "colk_costs",
+         "sharded_post_tail": "colk_costs", "sharded_fold_head": "ah"}
 
 
 def reset_launches() -> None:
@@ -430,9 +432,10 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
 
 def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
                 w, ws, out, offset, w_h, s=None, max_iter=0,
-                bland_static=False, threshold=None, then_pre=False):
+                bland_static=False, threshold=None, then_pre=False,
+                tail="step_post_tail"):
     """K2, with the step after K2 as its tail on the scalars ``s`` under
-    that policy unless ``s`` is None."""
+    that policy unless ``s`` is None; the tail counts under ``tail``."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -487,7 +490,7 @@ def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
     check(lib, err, "colk_costs")
     LAUNCHES["colk_costs"] += 1
     if s is not None:
-        LAUNCHES["step_post_tail"] += 1
+        LAUNCHES[tail] += 1
     return out
 
 
@@ -649,7 +652,10 @@ class _StepPtrs(ctypes.Structure):
 
 
 def _step_ptrs(s: PivotScalars) -> _StepPtrs:
-    return _StepPtrs(*(x.data_ptr() for x in s.tensors().values()))
+    """The pointers of ``PivotScalars``' fields: of a ``ShardedScalars``
+    its first twenty, which are a ``Step``."""
+    return _StepPtrs(*(getattr(s, name).data_ptr()
+                       for name, _ in _StepPtrs._fields_))
 
 
 def step_pre(s: PivotScalars, max_iter: int, eps: float) -> None:
@@ -699,7 +705,14 @@ def colk_costs_tail(Tt, C, F, costs, t: int, r: int, eps: float, ah, b,
 
 # ---------------------------------------------------------------------------
 # The sharded loop's per-pivot step: the glue around K5, the column's
-# all_reduce, K2 on the slice and the candidates' all_gathers.
+# all_reduce, K2 on the slice and the candidates' all_gathers. On the card
+# the step before K5 of a window's first pivot is a kernel of its own
+# (``sharded_step_pre``), the ratio test one thread-block cluster
+# (``sharded_ratio``), the step after K2 K2's tail
+# (``colk_costs_sharded_tail``), the pack a one-thread kernel
+# (``sharded_pack``), and the fold of the gathered candidates with the
+# next pivot's step before K5 the head of that pivot's K5
+# (``ah_fold_head``); the window's last fold is ``sharded_fold``.
 
 @dataclasses.dataclass
 class ShardedScalars(PivotScalars):
@@ -707,20 +720,18 @@ class ShardedScalars(PivotScalars):
     the devex weights at the folded main and Bland candidates (``w_d``,
     ``w_b``; 1 under the other rules), and one pivot's intermediates --
     the weight at h (``wh``), h's local column in the slice (``hl``,
-    clamped into it) and whether this rank owns h (``own``), which
-    ``sharded_step_pre`` writes, and the leaving variable ``base[k]``
-    (``lvar``), which ``sharded_ratio`` writes with k, unb, do, p, bk and
-    u. ``p_k1`` is unused. The field order is ``csrc/sharded_step.cu``'s
-    ``ShardStep``."""
+    clamped into it) and whether this rank owns h (``own``), which the
+    step before K5 writes. ``sharded_ratio`` writes k, unb, do, p, bk and
+    u; ``p_k1`` is unused. The field order is ``csrc/sharded_step.cuh``'s
+    ``ShardStep``, whose first twenty fields are a ``Step``."""
 
     w_d: torch.Tensor
     w_b: torch.Tensor
     wh: torch.Tensor
     hl: torch.Tensor
     own: torch.Tensor
-    lvar: torch.Tensor
 
-    DTYPES = PivotScalars.DTYPES + (_F32, _F32, _F32, _I32, _BOOL, _I32)
+    DTYPES = PivotScalars.DTYPES + (_F32, _F32, _F32, _I32, _BOOL)
 
 
 def sharded_scalars(z: torch.Tensor, bland: bool) -> ShardedScalars:
@@ -732,8 +743,7 @@ def sharded_scalars(z: torch.Tensor, bland: bool) -> ShardedScalars:
         **base, w_d=torch.ones((), device=dev), w_b=torch.ones((), device=dev),
         wh=torch.ones((), device=dev),
         hl=torch.zeros((), dtype=_I32, device=dev),
-        own=torch.zeros((), dtype=_BOOL, device=dev),
-        lvar=torch.zeros((), dtype=_I32, device=dev))
+        own=torch.zeros((), dtype=_BOOL, device=dev))
 
 
 def sharded_step_pre_plain(s: ShardedScalars, max_iter: int, eps: float,
@@ -747,7 +757,7 @@ def sharded_step_pre_plain(s: ShardedScalars, max_iter: int, eps: float,
     s.hl.copy_(loc.clamp(0, R_loc - 1))
 
 
-def sharded_ratio_plain(s: ShardedScalars, ah, b, base, eps: float) -> None:
+def sharded_ratio_plain(s: ShardedScalars, ah, b, eps: float) -> None:
     """Plain version of ``sharded_ratio``."""
     M = ah.shape[0]
     mask = ah >= eps
@@ -762,7 +772,6 @@ def sharded_ratio_plain(s: ShardedScalars, ah, b, base, eps: float) -> None:
     s.p.copy_(p)
     s.bk.copy_(_index(b, k, M - 1))
     s.u.copy_(torch.where(do, s.minc / p.to(_F64), 0.0))
-    s.lvar.copy_(_index(base, k, M - 1))
 
 
 def sharded_pack_plain(s: ShardedScalars, w, offset: int, vals,
@@ -782,9 +791,9 @@ def sharded_pack_plain(s: ShardedScalars, w, offset: int, vals,
 
 
 def sharded_fold_plain(s: ShardedScalars, V, I) -> None:
-    """The candidate fold of ``sharded_step_post_plain``: the main
-    candidate from the first rank with the largest key, the Bland one from
-    the first rank with the lowest global index."""
+    """Plain version of ``sharded_fold``: the main candidate from the
+    first rank with the largest key, the Bland one from the first rank
+    with the lowest global index."""
     devex = V.shape[1] == 5
     key = V[:, 4] if devex else -V[:, 0]
     od = torch.argmax((key == key.max()).to(torch.int8))
@@ -803,12 +812,15 @@ def sharded_fold_plain(s: ShardedScalars, V, I) -> None:
 
 def sharded_step_post_plain(s: ShardedScalars, V, I, max_iter: int,
                             eps: float, bland_static: bool, threshold,
-                            then_pre: bool, offset: int, R_loc: int,
-                            fold_only: bool = False) -> None:
-    """Plain version of ``sharded_step_post``."""
+                            then_pre: bool, offset: int, R_loc: int) -> None:
+    """The step after the candidates' ``all_gather``s as one step, in the
+    order the sharded loop first ran it (``sharded.py:738-768``): the fold
+    (``sharded_fold_plain``), then the step after K2 (``step_post_plain``)
+    and, with ``then_pre``, the next pivot's ``sharded_step_pre_plain``.
+    The loop now runs the step after K2 as K2's tail and the fold with the
+    next step before K5 as K5's head: the fold and the step after K2 touch
+    disjoint fields, so the two orders agree (the tests' reference)."""
     sharded_fold_plain(s, V, I)
-    if fold_only:
-        return
     step_post_plain(s, max_iter, eps, bland_static, threshold, False)
     if then_pre:
         sharded_step_pre_plain(s, max_iter, eps, offset, R_loc)
@@ -816,7 +828,7 @@ def sharded_step_post_plain(s: ShardedScalars, V, I, max_iter: int,
 
 class _ShardStepPtrs(ctypes.Structure):
     """``ShardedScalars``' device pointers, in its field order:
-    csrc/sharded_step.cu's ``ShardStep``."""
+    csrc/sharded_step.cuh's ``ShardStep``."""
 
     _fields_ = [(f.name, ctypes.c_void_p)
                 for f in dataclasses.fields(ShardedScalars)]
@@ -826,13 +838,22 @@ def _shard_step_ptrs(s: ShardedScalars) -> _ShardStepPtrs:
     return _ShardStepPtrs(*(x.data_ptr() for x in s.tensors().values()))
 
 
+def _check_gathered(V, I) -> None:
+    P, kv = V.shape
+    if kv not in (2, 5):
+        raise ValueError(f"V: want (P, 2) or (P, 5), got {tuple(V.shape)}")
+    _expect(V, "V", torch.float64, (P, kv))
+    _expect(I, "I", torch.int32, (P, 2))
+
+
 def sharded_step_pre(s: ShardedScalars, max_iter: int, eps: float,
                      offset: int, R_loc: int) -> None:
     """The step before K5 (``simplex_tpu/parallel/sharded.py:668-685``):
     ``step_pre``'s active, h, minc and optimal over the folded
     candidates, then the weight at h, whether this rank's slice
     ``[offset, offset + R_loc)`` owns h, and h's local column clamped into
-    the slice. One thread on the card."""
+    the slice. One thread on the card, launched once a window: within it
+    the step runs as K5's head (``ah_fold_head``)."""
     if not _on_card(s.status):
         sharded_step_pre_plain(s, max_iter, eps, offset, R_loc)
         return
@@ -847,41 +868,58 @@ def sharded_step_pre(s: ShardedScalars, max_iter: int, eps: float,
     LAUNCHES["sharded_step_pre"] += 1
 
 
-def sharded_ratio(s: ShardedScalars, ah, b, base, eps: float) -> None:
-    """The ratio test on the summed column (``sharded.py:690-699``): k,
+def sharded_ratio(s: ShardedScalars, ah, b, eps: float) -> None:
+    """The ratio test on the summed column (``sharded.py:687-699``): k,
     the first index of the smallest ``b / a_h`` (f64) over ``a_h >= eps``
-    (0 with none, as ``torch.argmin``); ``unb`` where no row is eligible;
-    ``do = active and not (optimal or unb)``; ``p = a_h[k]`` where the
-    pivot is done, else 1; ``bk = b[k]``; ``u = minc / p`` where done,
-    else 0; and the leaving variable ``lvar = base[k]``, read before K2
-    writes base. ``ah`` (M,) f32, ``b`` (M,) f64, ``base`` (M,) int32.
-    One block on the card."""
+    (a NaN quotient first, as ``torch.argmin``; 0 with no eligible row);
+    ``unb`` where no row is eligible; ``do = active and not (optimal or
+    unb)``; ``p = a_h[k]`` where the pivot is done, else 1; ``bk =
+    b[k]``; ``u = minc / p`` where done, else 0. ``ah`` (M,) f32, ``b``
+    (M,) f64. One thread-block cluster on the card."""
     M = ah.shape[0]
     _expect(ah, "ah", torch.float32, (M,))
     _expect(b, "b", torch.float64, (M,))
-    _expect(base, "base", torch.int32, (M,))
-    if not _on_card(s.status, ah, b, base):
-        sharded_ratio_plain(s, ah, b, base, eps)
+    if not _on_card(s.status, ah, b):
+        sharded_ratio_plain(s, ah, b, eps)
         return
 
     from ._build import check, load_library
 
     lib = load_library()
     err = lib.sharded_ratio_launch(ctypes.byref(_shard_step_ptrs(s)),
-                                   _ptr(ah), _ptr(b), _ptr(base), M,
-                                   float(eps), _stream(ah))
+                                   _ptr(ah), _ptr(b), M, float(eps),
+                                   _stream(ah))
     check(lib, err, "sharded_ratio")
     LAUNCHES["sharded_ratio"] += 1
+
+
+def colk_costs_sharded_tail(Tt, C, F, costs, t: int, r: int, eps: float,
+                            ah, b, base, w, s: ShardedScalars,
+                            max_iter: int, ws=None, *, offset: int,
+                            bland_static: bool, threshold) -> None:
+    """K2 on a slice with the step after K2 as its tail (``sharded.py:
+    742-768``): ``colk_costs`` of the pivot ``s`` holds (k, u, do, h, p,
+    bk) at the slice's ``offset``, with the weight at h ``s.wh`` under
+    devex (``w`` given), its candidates into ``s``'s h_d, v_d, h_b and
+    v_b; then ``step_post_plain``'s z, status, stall, bland and iterations
+    without the next pivot's step before K5, which needs the candidates
+    folded across the ranks first. On the card one launch, K2 with the
+    single-card tail (``s``'s first twenty fields are a ``Step``); it
+    counts a launch of ``colk_costs`` and one of ``sharded_post_tail``."""
+    _colk_costs(Tt, C, F, costs, s.k, t, s.u, s.do, r, eps, ah, b, base, s.h,
+                s.p, s.bk, w, ws, (s.h_d, s.v_d, s.h_b, s.v_b), offset,
+                None if w is None else s.wh, s, max_iter, bland_static,
+                threshold, False, "sharded_post_tail")
 
 
 def sharded_pack(s: ShardedScalars, w, offset: int, vals, idx) -> None:
     """The slice's candidates (K2's ``h_d, v_d, h_b, v_b``, local
     columns) into the ``all_gather`` send buffers (``sharded.py:741-
-    743``, the fold's operands): ``vals`` (5,) f64 ``[v_d, v_b, w[h_d], w[h_b], key]`` under
-    devex (``w`` given; ``w[h_b]`` 1 and key ``-inf`` with no eligible
-    column, else ``key = v_d^2 / w[h_d]``), (2,) ``[v_d, v_b]`` otherwise;
-    ``idx`` (2,) int32 the global indices (``BIG_INDEX`` stays). One
-    thread on the card."""
+    743``, the fold's operands): ``vals`` (5,) f64 ``[v_d, v_b, w[h_d],
+    w[h_b], key]`` under devex (``w`` given; ``w[h_b]`` 1 and key ``-inf``
+    with no eligible column, else ``key = v_d^2 / w[h_d]``), (2,) ``[v_d,
+    v_b]`` otherwise; ``idx`` (2,) int32 the global indices (``BIG_INDEX``
+    stays). One thread on the card."""
     _expect(vals, "vals", torch.float64, (2 if w is None else 5,))
     _expect(idx, "idx", torch.int32, (2,))
     if w is not None:
@@ -901,43 +939,62 @@ def sharded_pack(s: ShardedScalars, w, offset: int, vals, idx) -> None:
     LAUNCHES["sharded_pack"] += 1
 
 
-def sharded_step_post(s: ShardedScalars, V, I, max_iter: int, eps: float,
-                      *, bland_static: bool, threshold, then_pre: bool,
-                      offset: int, R_loc: int,
-                      fold_only: bool = False) -> None:
-    """The step after the candidates' ``all_gather``s (``sharded.py:741-
-    768``). The fold of every rank's ``sharded_pack`` output, ``V`` (P, 5
-    or 2) f64 and ``I`` (P, 2) int32: the main candidate (``h_d, v_d``,
-    ``w_d`` under devex) from the first rank with the largest key (the
-    devex key, else ``-v_d``), the Bland one (``h_b, v_b, w_b``) from the
-    first rank with the lowest global index -- ties go to the lowest rank,
-    and the slices are contiguous, so to the lowest global index as on one
-    card. Then the step after K2's z, status, stall, bland and iterations
-    (``step_post_plain``),
-    and with ``then_pre`` the next pivot's ``sharded_step_pre``; with
-    ``fold_only`` the fold alone (the window boundary's). One thread on
-    the card."""
-    P, kv = V.shape
-    if kv not in (2, 5):
-        raise ValueError(f"V: want (P, 2) or (P, 5), got {tuple(V.shape)}")
-    _expect(V, "V", torch.float64, (P, kv))
-    _expect(I, "I", torch.int32, (P, 2))
+def sharded_fold(s: ShardedScalars, V, I) -> None:
+    """The fold of every rank's ``sharded_pack`` output (``sharded.py:
+    738-740``), ``V`` (P, 5 or 2) f64 and ``I`` (P, 2) int32: the main
+    candidate (``h_d, v_d``, ``w_d`` under devex) from the first rank with
+    the largest key (the devex key, else ``-v_d``), the Bland one (``h_b,
+    v_b, w_b``) from the first rank with the lowest global index -- ties
+    go to the lowest rank, and the slices are contiguous, so to the
+    lowest global index as on one card. A window's last node and the
+    window boundary's fold; within a window K5's head folds. One thread
+    on the card."""
+    _check_gathered(V, I)
     if not _on_card(s.status, V, I):
-        sharded_step_post_plain(s, V, I, max_iter, eps, bland_static,
-                                threshold, then_pre, offset, R_loc,
-                                fold_only)
+        sharded_fold_plain(s, V, I)
         return
 
     from ._build import check, load_library
 
     lib = load_library()
-    err = lib.sharded_step_post_launch(
-        ctypes.byref(_shard_step_ptrs(s)), _ptr(V), _ptr(I), P, kv,
-        max_iter, float(eps), _bland_mode(bland_static, threshold),
-        0 if threshold is None else int(threshold), int(fold_only),
-        int(then_pre), offset, R_loc, _stream(V))
-    check(lib, err, "sharded_step_post")
-    LAUNCHES["sharded_step_post"] += 1
+    err = lib.sharded_fold_launch(ctypes.byref(_shard_step_ptrs(s)),
+                                  _ptr(V), _ptr(I), *V.shape, _stream(V))
+    check(lib, err, "sharded_fold")
+    LAUNCHES["sharded_fold"] += 1
+
+
+def ah_fold_head(Tt, F, C, t: int, s: ShardedScalars, V, I, max_iter: int,
+                 eps: float, offset: int, out) -> None:
+    """K5 with the sharded loop's head, for every pivot of a window but
+    the first: ``sharded_fold_plain`` of the candidates gathered after the
+    pivot before (``V``, ``I``), then ``sharded_step_pre_plain`` on this
+    rank's slice (``Tt``'s columns, from global column ``offset``), then
+    ``ah`` of the column ``s.hl`` with the owner flag ``s.own`` into
+    ``out``. On the card one launch, K5 with the fold and
+    the step in each block's first thread and block 0 storing the
+    scalars; it counts a launch of ``ah`` and one of
+    ``sharded_fold_head``."""
+    M, R, L = _check_factors(Tt, C, F)
+    _check_gathered(V, I)
+    _expect(out, "out", torch.float32, (M,))
+    if not 0 <= t < L:
+        raise ValueError(f"t={t} outside the window [0, {L})")
+    if not _on_card(Tt, F, C, s.status, V, I, out):
+        sharded_fold_plain(s, V, I)
+        sharded_step_pre_plain(s, max_iter, eps, offset, R)
+        out.copy_(torch.where(s.own, ah_plain(Tt, F, C, s.hl, t), 0.0))
+        return
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    err = lib.ah_head_launch(
+        _ptr(Tt), _ptr(F), _ptr(C), t, M, R, _ptr(out),
+        ctypes.byref(_shard_step_ptrs(s)), _ptr(V), _ptr(I), *V.shape,
+        max_iter, float(eps), offset, _stream(Tt))
+    check(lib, err, "ah")
+    LAUNCHES["ah"] += 1
+    LAUNCHES["sharded_fold_head"] += 1
 
 
 # ---------------------------------------------------------------------------

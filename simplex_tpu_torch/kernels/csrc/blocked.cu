@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "apply_tile.cuh"
+#include "sharded_step.cuh"
 #include "step.cuh"
 
 namespace {
@@ -201,6 +202,17 @@ __device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
     }
 }
 
+// The sharded loop's head of K5 (HEAD): the scalars, the gathered
+// candidates V (P, kv) and I (P, 2) of the pivot before, and the step
+// before K5's policy.
+struct K5Head {
+    ShardStep s;
+    const double *V;
+    const int *I;
+    int P, kv;
+    sharded::PrePolicy pol;
+};
+
 // RATIO false is K5: the column alone -- no b load, no fold, no ticket, no
 // workspace (b, ws and the outputs after ah may be null), NTH threads a
 // block; at t = 0 it writes Tt[j, h] - 0.0f without staging anything.
@@ -208,7 +220,11 @@ __device__ __forceinline__ void ahr_stage(const float *__restrict__ F,
 // does not own h writes zeros, its share of the column's cross-rank sum.
 // TAIL (RATIO only) runs the loop's step between K1 and K2 (step.cuh
 // step::mid) on ``s`` after the fold; without it ``s`` is unread.
-template <bool RATIO, int NTH = THREADS, bool TAIL = false>
+// HEAD (K5 only) is the sharded loop's head on ``hd`` (see K5 below): the
+// column's h and owner flag come from it, not from h_ptr and own; without
+// it ``hd`` is unread.
+template <bool RATIO, int NTH = THREADS, bool TAIL = false,
+          bool HEAD = false>
 __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         const float *__restrict__ Tt, const float *__restrict__ F,
         const float *__restrict__ C, const double *__restrict__ b,
@@ -216,13 +232,16 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         int t, int M, int R, float eps, int nb, float *__restrict__ ah,
         unsigned char *__restrict__ ws_bytes, int *__restrict__ k_out,
         float *__restrict__ p_out, double *__restrict__ bk_out,
-        int *__restrict__ unb_out, Step s) {
+        int *__restrict__ unb_out, Step s, K5Head hd) {
     static_assert(!RATIO || NTH == THREADS, "K1 folds over THREADS");
     static_assert(RATIO || !TAIL, "the step's tail follows the ratio test");
+    static_assert(!RATIO || !HEAD, "the head is K5's");
     __shared__ __align__(16) float fs[AHR_ROWS][AHR_COLS];
     __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
     __shared__ double sa[THREADS], sb[THREADS];  // each thread's a_h, b
     __shared__ bool last;
+    __shared__ int head_h;                       // the head's hl and own
+    __shared__ bool head_own;
     const AhrWs ws(ws_bytes, nb);
     const int tid = threadIdx.x;
     const int j0 = blockIdx.x * AHR_COLS;
@@ -233,7 +252,29 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     // slab, then what h selects.
     ahr_stage<NTH>(F, 0, t, M, j0, fs);
     cp_async_commit();
-    const int h = min(*h_ptr, R - 1);
+    if constexpr (HEAD) {
+        // The fold and the step before K5 in each block's thread 0, every
+        // operand loaded at once while the F slab is on its way; block 0
+        // stores the scalars. No block of K5 reads a field the head writes
+        // (the column takes hl and own from shared memory), so the blocks
+        // need no ticket.
+        if (tid == 0) {
+            const int status = *hd.s.status, iters = *hd.s.iterations;
+            const bool bland = *hd.s.bland != 0;
+            const sharded::Fold f = sharded::fold(hd.V, hd.I, hd.P, hd.kv);
+            const sharded::Pre x = sharded::pre(
+                status, iters, bland, f, hd.pol.max_iter, hd.pol.eps,
+                hd.pol.offset, hd.pol.R_loc);
+            if (blockIdx.x == 0) {
+                sharded::store(hd.s, f);
+                sharded::store(hd.s, x);
+            }
+            head_h = x.hl;
+            head_own = x.own;
+        }
+        __syncthreads();
+    }
+    const int h = HEAD ? head_h : min(*h_ptr, R - 1);
     for (int s = tid; s < min(AHR_ROWS, t); s += NTH)
         ch[s] = C[(size_t)s * R + h];
     float th = 0.0f;
@@ -242,7 +283,8 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         th = Tt[(size_t)j * R + h];
         if (RATIO) bj = b[j];
     }
-    if (!RATIO && own != nullptr && *own == 0) { // another rank's column
+    if (!RATIO && (HEAD ? !head_own : (own != nullptr && *own == 0))) {
+        // another rank's column
         cp_async_wait<0>();
         if (owner) ah[j] = 0.0f;
         return;
@@ -368,6 +410,16 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
 // workspace. K5's column is K1's bit for bit by construction. The TPU
 // kernel skipped the dead F segments through its index maps; here t is the
 // loop bound.
+// The head (HEAD, the sharded loop's launch for every pivot of a window
+// but the first; csrc/sharded_step.cu): each block's thread 0 loads the
+// candidates every rank gathered after the pivot before (V, I) with
+// status, iterations and bland, all at once, right after the block's F
+// slab went out (it does not depend on h); folds them and runs the step
+// before K5 (sharded_step.cuh) in registers; and hands h's local column
+// and the owner flag to its block through shared memory. Block 0 alone
+// stores the scalars: the folded candidates, active, h, minc, optimal, wh,
+// own and hl. The head's round trip overlaps the slab's; the column is
+// the headless K5's bit for bit.
 
 // ---------------------------------------------------------------------------
 // K2: pivot row, reduced-cost update, b / base / eta-row update, devex
@@ -1012,11 +1064,30 @@ int ah_ratio_launch(const float *Tt, const float *F, const float *C,
     if (step == nullptr)
         ah_ratio_fused<true><<<nb, THREADS, 0, st>>>(
             Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
-            bk_out, unb_out, Step{});
+            bk_out, unb_out, Step{}, K5Head{});
     else
         ah_ratio_fused<true, THREADS, true><<<nb, THREADS, 0, st>>>(
             Tt, F, C, b, h, nullptr, t, M, R, eps, nb, ah, ws, k_out, p_out,
-            bk_out, unb_out, *step);
+            bk_out, unb_out, *step, K5Head{});
+    RETURN_IF_ERROR();
+    return 0;
+}
+
+// K5 with the sharded loop's head (the fold of V and I, then the step
+// before K5 on the scalars ``s`` for the slice of Tt's R columns from
+// global column ``offset``): one block of THREADS threads for every 64
+// constraints, at every t.
+int ah_head_launch(const float *Tt, const float *F, const float *C, int t,
+                   int M, int R, float *ah, const ShardStep *s,
+                   const double *V, const int *I, int P, int kv,
+                   long long max_iter, double eps, int offset,
+                   void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int nb = (M + AHR_COLS - 1) / AHR_COLS;
+    const K5Head hd{*s, V, I, P, kv, {max_iter, eps, offset, R}};
+    ah_ratio_fused<false, THREADS, false, true><<<nb, THREADS, 0, st>>>(
+        Tt, F, C, nullptr, nullptr, nullptr, t, M, R, 0.0f, nb, ah, nullptr,
+        nullptr, nullptr, nullptr, nullptr, Step{}, hd);
     RETURN_IF_ERROR();
     return 0;
 }
@@ -1029,11 +1100,11 @@ int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
     if (t == 0)        // a copy of Tt[:, h]: one thread a constraint
         ah_ratio_fused<false, AHR_COLS><<<nb, AHR_COLS, 0, st>>>(
             Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
-            nullptr, nullptr, nullptr, nullptr, Step{});
+            nullptr, nullptr, nullptr, nullptr, Step{}, K5Head{});
     else
         ah_ratio_fused<false, THREADS><<<nb, THREADS, 0, st>>>(
             Tt, F, C, nullptr, h, own, t, M, R, 0.0f, nb, ah, nullptr,
-            nullptr, nullptr, nullptr, nullptr, Step{});
+            nullptr, nullptr, nullptr, nullptr, Step{}, K5Head{});
     RETURN_IF_ERROR();
     return 0;
 }

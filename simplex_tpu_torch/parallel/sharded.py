@@ -50,11 +50,12 @@ from ..config import (DEFAULT_OPTIONS, EPS_REL_F32, SolverOptions, Status,
                       kernel_blocked_enabled, normalize_enabled,
                       refine_enabled)
 from ..kernels.blocked import (BIG_INDEX, CapturedLaunches, ShardedScalars,
-                               ah, ah_plain, anticycling_update,
-                               apply_reprice, apply_window, colk_costs,
+                               ah, ah_fold_head, ah_plain,
+                               anticycling_update, apply_reprice,
+                               apply_window, colk_costs_sharded_tail,
                                colk_workspace, entering_candidates,
-                               exit_status, sharded_pack, sharded_ratio,
-                               sharded_scalars, sharded_step_post,
+                               exit_status, sharded_fold, sharded_pack,
+                               sharded_ratio, sharded_scalars,
                                sharded_step_pre)
 from ..problem import Problem
 from ..result import SolveResult
@@ -454,7 +455,7 @@ class ShardedKernelLoop:
     def refold(self, eps: float) -> None:
         """The slice's candidates over its costs, folded across the ranks
         into the scalars (the window boundary's fold): ``sharded_pack``,
-        the two ``all_gather``s, ``sharded_step_post``'s fold."""
+        the two ``all_gather``s, ``sharded_fold``."""
         s, sh = self.s, self.shard
         for dst, src in zip((s.h_d, s.v_d, s.h_b, s.v_b), entering_candidates(
                 self.costs, self.w, self.r_loc, eps)):
@@ -462,10 +463,7 @@ class ShardedKernelLoop:
         sharded_pack(s, self.w, sh.offset, self.send_v, self.send_i)
         all_gather_into(self.recv_v, self.send_v, sh.group)
         all_gather_into(self.recv_i, self.send_i, sh.group)
-        sharded_step_post(s, self.recv_v, self.recv_i, 0, eps,
-                          bland_static=False, threshold=None,
-                          then_pre=False, offset=sh.offset, R_loc=sh.R_loc,
-                          fold_only=True)
+        sharded_fold(s, self.recv_v, self.recv_i)
 
 
 def sharded_kernel_loop(tab: Tableau, shard: Shard,
@@ -505,32 +503,39 @@ def sharded_kernel_loop(tab: Tableau, shard: Shard,
 def run_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
                        max_iter: int) -> None:
     """Enqueue one window of L pivots with no host read: the step before
-    K5 of the window's first pivot, then per pivot K5 (the owner's column,
-    zeros elsewhere), its ``all_reduce``, the ratio step, K2 on the slice,
-    the pack, the two candidate ``all_gather``s and the step after, which
-    also runs the next pivot's step before K5. ``t`` is a constant of each
-    call: the body that a CUDA graph captures, collectives included."""
+    K5 of the window's first pivot (``sharded_step_pre``); then per pivot
+    K5 (the owner's column, zeros elsewhere; for every pivot but the first
+    with the fold of the candidates gathered after the pivot before and
+    the step before K5 as its head), its ``all_reduce``, the ratio test,
+    K2 on the slice with the step after K2 as its tail, the pack and the
+    two candidate ``all_gather``s; then the fold of the last pivot's
+    (``sharded_fold``). The step after K2 runs before the fold that the
+    sharded loop first ran ahead of it: the two touch disjoint fields.
+    ``t`` is a constant of each call: the body that a CUDA graph captures,
+    collectives included."""
     eps = float(options.eps_resolved)
     L = int(options.block_pivots)
     policy = dict(bland_static=options.pivot_rule_resolved == "bland",
                   threshold=options.bland_threshold)
     s, sh = loop.s, loop.shard
     where = dict(offset=sh.offset, R_loc=sh.R_loc)
-    w_h = None if loop.w is None else s.wh
     sharded_step_pre(s, max_iter, eps, **where)
     for t in range(L):
-        ah(loop.Tt, loop.F, loop.C, s.hl, t, own=s.own, out=loop.ah)
+        if t:
+            ah_fold_head(loop.Tt, loop.F, loop.C, t, s, loop.recv_v,
+                         loop.recv_i, max_iter, eps, sh.offset, out=loop.ah)
+        else:
+            ah(loop.Tt, loop.F, loop.C, s.hl, t, own=s.own, out=loop.ah)
         all_reduce_(loop.ah, sh.group)
-        sharded_ratio(s, loop.ah, loop.b, loop.base, eps)
-        colk_costs(loop.Tt, loop.C, loop.F, loop.costs, s.k, t, s.u, s.do,
-                   loop.r_loc, eps, loop.ah, loop.b, loop.base, s.h, s.p,
-                   s.bk, loop.w, loop.ws_k2, out=(s.h_d, s.v_d, s.h_b, s.v_b),
-                   offset=sh.offset, w_h=w_h)
+        sharded_ratio(s, loop.ah, loop.b, eps)
+        colk_costs_sharded_tail(
+            loop.Tt, loop.C, loop.F, loop.costs, t, loop.r_loc, eps,
+            loop.ah, loop.b, loop.base, loop.w, s, max_iter, loop.ws_k2,
+            offset=sh.offset, **policy)
         sharded_pack(s, loop.w, sh.offset, loop.send_v, loop.send_i)
         all_gather_into(loop.recv_v, loop.send_v, sh.group)
         all_gather_into(loop.recv_i, loop.send_i, sh.group)
-        sharded_step_post(s, loop.recv_v, loop.recv_i, max_iter, eps,
-                          then_pre=t + 1 < L, **policy, **where)
+    sharded_fold(s, loop.recv_v, loop.recv_i)
 
 
 def capture_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,

@@ -985,10 +985,22 @@ def test_window_graph_matches_eager_on_card(cuda, monkeypatch, rule,
         gl["colk_costs"]) == 16 * gl["step_pre"]
 
 
-def _card_sharded_state(rng, P, R_loc, M, dev):
+def _same(a, b) -> bool:
+    """Equal values, a NaN equal to a NaN (a NaN b gives a NaN bk)."""
+    return a.dtype == b.dtype and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()
+        if a.is_floating_point() else torch.equal(a, b))
+
+
+def _card_sharded_state(rng, P, R_loc, M, dev, edge=None):
     """Random sharded step scalars (as ``_card_scalars``, plus the folded
     weights), a summed column with ties and unbounded draws, b, base, the
-    slice weights and each rank's K2 candidates, some ranks empty."""
+    slice weights and each rank's K2 candidates, some ranks empty. With
+    ``edge`` the column is one of the ratio test's edge cases: "nan" (a
+    NaN b on two eligible rows), "tie" (the smallest quotient on three
+    rows 2,048 apart: in other blocks of the card's cluster, and two in
+    one thread), "none" (no
+    eligible row)."""
     s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5), device=dev),
                            bool(rng.integers(2)))
     for name, x in _card_scalars(rng, dev).tensors().items():
@@ -1004,6 +1016,14 @@ def _card_sharded_state(rng, P, R_loc, M, dev):
     b = rng.uniform(0, 10, M)
     j = rng.integers(0, M, 2)
     ah[j], b[j] = 0.5, 1.25                      # a tie in b / a_h
+    if edge == "nan":
+        j = rng.integers(0, M, 2)
+        ah[j], b[j] = 0.5, np.nan
+    elif edge == "tie":
+        j = int(rng.integers(0, M - 4096)) + np.array([0, 2048, 4096])
+        ah[j], b[j] = 4.0, 1e-4
+    elif edge == "none":
+        ah = -np.abs(ah)
     cands = []
     for _ in range(P):
         c = (int(rng.integers(0, R_loc)), -rng.uniform(0.1, 3),
@@ -1025,17 +1045,18 @@ def _card_sharded_state(rng, P, R_loc, M, dev):
 @pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
 def test_sharded_step_kernels_match_plain_on_card(cuda, devex, policy):
     """Each sharded step kernel against its plain version on the same card
-    tensors, 128 random states at P = 1, 2 and 4: every output bit for
-    bit (each rank's pre and ratio, its pack, and each rank's fold and
-    post, with and without the next pivot's pre, and the fold alone)."""
-    bland_static, threshold = policy
+    tensors, 128 random states at P = 1, 2 and 4, a NaN b, a tie across
+    the cluster's blocks or no eligible row in every fourth: every output
+    bit for bit (each rank's pre and ratio at M = 8192, its pack, and each
+    rank's fold, with and without the next pivot's pre after it)."""
     rng = np.random.default_rng(41)
-    M, R_loc, eps = 300, 128, 1e-4
+    M, R_loc, eps = 8192, 128, 1e-4
     kb.reset_launches()
     for i in range(128):
         P = (1, 2, 4)[i % 3]
+        edge = (None, "nan", "tie", "none")[i % 4] if i % 2 else None
         s0, ah, b, base, w, cands = _card_sharded_state(rng, P, R_loc, M,
-                                                        cuda)
+                                                        cuda, edge)
         kv = 5 if devex else 2
         Vs = [torch.empty((P, kv), dtype=torch.float64, device=cuda)
               for _ in range(2)]
@@ -1049,8 +1070,10 @@ def test_sharded_step_kernels_match_plain_on_card(cuda, devex, policy):
                       for _ in range(2))
             kb.sharded_step_pre(sk, 10, eps, **where)
             kb.sharded_step_pre_plain(sp, 10, eps, **where)
-            kb.sharded_ratio(sk, ah, b, base, eps)
-            kb.sharded_ratio_plain(sp, ah, b, base, eps)
+            kb.sharded_ratio(sk, ah, b, eps)
+            kb.sharded_ratio_plain(sp, ah, b, eps)
+            for name, x in sk.tensors().items():
+                assert _same(x, getattr(sp, name)), (i, edge, name)
             for x in (sk, sp):
                 for name, v in zip(("h_d", "v_d", "h_b", "v_b"),
                                    cands[rank]):
@@ -1063,20 +1086,162 @@ def test_sharded_step_kernels_match_plain_on_card(cuda, devex, policy):
         assert torch.equal(Vs[0], Vs[1]) and torch.equal(Is[0], Is[1]), i
         for rank, (sk, sp) in enumerate(ranks):
             where = dict(offset=rank * R_loc, R_loc=R_loc)
-            then_pre, fold_only = bool(i % 2), i % 7 == 0
-            kb.sharded_step_post(sk, Vs[0], Is[0], 10, eps,
-                                 bland_static=bland_static,
-                                 threshold=threshold, then_pre=then_pre,
-                                 fold_only=fold_only, **where)
-            kb.sharded_step_post_plain(sp, Vs[1], Is[1], 10, eps,
-                                       bland_static, threshold, then_pre,
-                                       fold_only=fold_only, **where)
+            kb.sharded_fold(sk, Vs[0], Is[0])
+            kb.sharded_fold_plain(sp, Vs[1], Is[1])
+            if i % 2:
+                kb.sharded_step_pre(sk, 10, eps, **where)
+                kb.sharded_step_pre_plain(sp, 10, eps, **where)
             for name, x in sk.tensors().items():
-                assert torch.equal(x, getattr(sp, name)), (i, rank, name, x)
+                assert _same(x, getattr(sp, name)), (i, rank, name, x)
     n = sum((1, 2, 4)[i % 3] for i in range(128))
+    n_odd = sum((1, 2, 4)[i % 3] for i in range(1, 128, 2))
     assert (kb.LAUNCHES["sharded_step_pre"], kb.LAUNCHES["sharded_ratio"],
             kb.LAUNCHES["sharded_pack"],
-            kb.LAUNCHES["sharded_step_post"]) == (n, n, n, n)
+            kb.LAUNCHES["sharded_fold"]) == (n + n_odd, n, n, n)
+
+
+def test_sharded_ratio_cluster_edges_on_card(cuda):
+    """The cluster ``sharded_ratio`` against its plain version at M =
+    8,192 (two constraints a thread), 10,112 (three) and 40,064 (three
+    passes of four), bit for bit: a NaN b on eligible rows (the first NaN
+    wins), equal quotients in different blocks of the cluster and in one
+    thread (the lowest row wins), no eligible row (k = 0, unbounded)."""
+    rng = np.random.default_rng(43)
+    kb.reset_launches()
+    for M in (8192, 10112, 40064):
+        for edge in ("nan", "tie", "none"):
+            for _ in range(4):
+                s0, ah, b, *_ = _card_sharded_state(rng, 1, 128, M, cuda,
+                                                    edge)
+                s0.status.fill_(int(pst.Status.RUNNING))
+                s0.iterations.fill_(0)
+                s0.minc.fill_(-0.5)
+                s0.active.fill_(True)
+                s0.optimal.fill_(False)
+                sk, sp = (kb.ShardedScalars(**{n: x.clone() for n, x in
+                                               s0.tensors().items()})
+                          for _ in range(2))
+                kb.sharded_ratio(sk, ah, b, 1e-4)
+                kb.sharded_ratio_plain(sp, ah, b, 1e-4)
+                for name, x in sk.tensors().items():
+                    assert _same(x, getattr(sp, name)), (M, edge, name)
+                assert bool(sk.unb) == (edge == "none")
+                if edge == "nan":
+                    assert torch.isnan(sk.bk)
+    assert kb.LAUNCHES["sharded_ratio"] == 36
+
+
+def _card_window(P, devex, seed, dev):
+    """P slices of 128 columns (M = 256, L = 8) for a few pivots: the
+    scalars, each slice's Tt, costs and weights, the replicated b, base
+    and factors."""
+    rng = np.random.default_rng(seed)
+    M, R = 256, 128 * P
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5), device=dev),
+                           bool(rng.integers(2)))
+    w = rng.uniform(1, 3, R).astype(np.float32)
+    h_d, h_b = int(rng.integers(0, R)), int(rng.integers(0, R))
+    for name, v in dict(h_d=h_d, v_d=-rng.uniform(0.5, 3), h_b=h_b,
+                        v_b=-rng.uniform(0.1, 1), iterations=3,
+                        stall=int(rng.integers(47, 51)),
+                        w_d=float(w[h_d]) if devex else 1.0,
+                        w_b=float(w[h_b]) if devex else 1.0).items():
+        getattr(s, name).fill_(v)
+    Tt = _rand((M, R), seed + 1)
+    costs = _rand((R,), seed + 2, dtype=np.float64)
+    ranks = []
+    for rank in range(P):
+        cols = slice(128 * rank, 128 * (rank + 1))
+        ranks.append(dict(
+            s=kb.ShardedScalars(**{n: x.clone()
+                                   for n, x in s.tensors().items()}),
+            Tt=Tt[:, cols].contiguous().to(dev),
+            costs=costs[cols].clone().to(dev),
+            w=torch.from_numpy(w[cols].copy()).to(dev) if devex else None,
+            C=torch.zeros((8, 128), device=dev),
+            F=torch.zeros((8, M), device=dev),
+            b=_rand((M,), seed + 3, 0, 10, np.float64).to(dev),
+            base=torch.from_numpy(rng.integers(0, R, M).astype(np.int32))
+            .to(dev), ah=torch.empty(M, device=dev),
+            ws=kb.colk_workspace(128, dev),
+            where=dict(offset=128 * rank, R_loc=128)))
+    return ranks
+
+
+@pytest.mark.parametrize("policy", [(False, 50), (False, None), (True, 50)],
+                         ids=["threshold", "never", "static"])
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+def test_sharded_tail_and_head_match_plain_chains_on_card(cuda, devex,
+                                                          policy):
+    """Six pivots of the sharded window at P = 1, 2 and 4 two ways on the
+    same card tensors: K5 with its head and K2 with its sharded tail, and
+    their plain chains -- ``sharded_fold_plain`` and
+    ``sharded_step_pre_plain`` then K5 without its head, K2 without its
+    tail then ``step_post_plain`` -- every scalar, column and vector bit
+    for bit after each pivot; the head and the tail count a launch beside
+    their carriers'."""
+    bland_static, threshold = policy
+    eps, pivots = 1e-4, 6
+    for P in (1, 2, 4):
+        kb.reset_launches()
+        runs = [_card_window(P, devex, 50 + P, cuda) for _ in range(2)]
+        kv = 5 if devex else 2
+        gathered = [(torch.empty((P, kv), dtype=torch.float64, device=cuda),
+                     torch.empty((P, 2), dtype=torch.int32, device=cuda))
+                    for _ in range(2)]
+        for ranks in runs:
+            for x in ranks:
+                kb.sharded_step_pre_plain(x["s"], 10, eps, **x["where"])
+        for t in range(pivots):
+            for chain, (ranks, (V, I)) in enumerate(zip(runs, gathered)):
+                for x in ranks:
+                    s = x["s"]
+                    if t and chain == 0:
+                        kb.ah_fold_head(x["Tt"], x["F"], x["C"], t, s, V, I,
+                                        10, eps, x["where"]["offset"],
+                                        out=x["ah"])
+                        continue
+                    if t:
+                        kb.sharded_fold_plain(s, V, I)
+                        kb.sharded_step_pre_plain(s, 10, eps, **x["where"])
+                    kb.ah(x["Tt"], x["F"], x["C"], s.hl, t, own=s.own,
+                          out=x["ah"])
+                col = sum(x["ah"] for x in ranks)
+                for rank, x in enumerate(ranks):
+                    s = x["s"]
+                    x["ah"].copy_(col)
+                    kb.sharded_ratio_plain(s, x["ah"], x["b"], eps)
+                    args = (x["Tt"], x["C"], x["F"], x["costs"])
+                    if chain == 0:
+                        kb.colk_costs_sharded_tail(
+                            *args, t, 128, eps, x["ah"], x["b"], x["base"],
+                            x["w"], s, 10, x["ws"],
+                            offset=x["where"]["offset"],
+                            bland_static=bland_static, threshold=threshold)
+                    else:
+                        kb.colk_costs(
+                            *args, s.k, t, s.u, s.do, 128, eps, x["ah"],
+                            x["b"], x["base"], s.h, s.p, s.bk, x["w"],
+                            x["ws"], out=(s.h_d, s.v_d, s.h_b, s.v_b),
+                            offset=x["where"]["offset"],
+                            w_h=None if x["w"] is None else s.wh)
+                        kb.step_post_plain(s, 10, eps, bland_static,
+                                           threshold, False)
+                    kb.sharded_pack_plain(s, x["w"], x["where"]["offset"],
+                                          V[rank], I[rank])
+            for rank, (a, b_) in enumerate(zip(*runs)):
+                for name, x in a["s"].tensors().items():
+                    assert torch.equal(x, getattr(b_["s"], name)), (
+                        P, t, rank, name)
+                for name in ("ah", "C", "F", "costs", "w", "b", "base"):
+                    if a[name] is not None:
+                        assert torch.equal(a[name], b_[name]), (
+                            P, t, rank, name)
+        assert (kb.LAUNCHES["sharded_fold_head"],
+                kb.LAUNCHES["sharded_post_tail"]) == (
+                    P * (pivots - 1), P * pivots)
+        assert kb.LAUNCHES["ah"] == 2 * P * pivots
+        assert kb.LAUNCHES["colk_costs"] == 2 * P * pivots
 
 
 @pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
@@ -1202,7 +1367,7 @@ def test_sharded_loop_graph_matches_eager_on_card(cuda, monkeypatch,
                 assert torch.equal(gw, ew)
             assert gl == el and gc == ec, rule
             for name in ("ah", "colk_costs", "sharded_step_pre",
-                         "sharded_ratio", "sharded_pack",
-                         "sharded_step_post"):
+                         "sharded_ratio", "sharded_pack", "sharded_fold",
+                         "sharded_post_tail", "sharded_fold_head"):
                 assert gl[name] > 0, name
             assert gl["ah_ratio"] == 0

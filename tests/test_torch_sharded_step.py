@@ -1,13 +1,19 @@
 """The sharded kernel loop's per-pivot step and its fixed state, on the CPU.
 
 * The sharded step's plain versions (``kernels.blocked.sharded_step_pre``
-  / ``sharded_ratio`` / ``sharded_pack`` / ``sharded_step_post`` on CPU
-  tensors) against the eager glue they replace, written out here as the
-  sharded loop ran it (the fold as ``parallel.sharded.fold_candidates``
-  runs it on the gathered candidates): every output equal, over a grid of
-  pivots (done, skipped, at the fuse, optimal, unbounded, Bland on and
-  off, a rank with no eligible column, ties across ranks) at P = 1, 2
-  and 4, under devex and Dantzig and each anti-cycling policy.
+  / ``sharded_ratio`` / ``sharded_pack`` / ``sharded_fold`` on CPU
+  tensors, and the step after K2 that K2's sharded tail runs) against the
+  eager glue they replace, written out here as the sharded loop ran it
+  (the fold as ``parallel.sharded.fold_candidates`` runs it on the
+  gathered candidates): every output equal, over a grid of pivots (done,
+  skipped, at the fuse, optimal, unbounded, Bland on and off, a rank with
+  no eligible column, ties across ranks) at P = 1, 2 and 4, under devex
+  and Dantzig and each anti-cycling policy.
+* The window's new order (K2 with the step after K2 as its tail, K5 with
+  the fold and the next step before K5 as its head, ``sharded_fold``
+  last) against the order it replaced (``sharded_step_post_plain`` after
+  the gathers) on the same grid, every scalar and vector equal; the
+  ratio test's edge cases; the window's launches in order.
 * K2's plain version with a column offset and a given weight at h: at
   offset 0 bit for bit its single-card call, and on a two-slice cut the
   one-card result. K5's owner flag.
@@ -147,7 +153,7 @@ def _eager_glue(s, ah, b, base, ws, cands, P, devex, then_pre, policy):
     p = torch.where(do, ah[k], 1.0)
     bk = b[k]
     u = torch.where(do, minc / p.to(torch.float64), 0.0)
-    mid = dict(k=k, unb=unbounded, do=do, p=p, bk=bk, u=u, lvar=base[k])
+    mid = dict(k=k, unb=unbounded, do=do, p=p, bk=bk, u=u)
 
     packs = []
     for rank, ((hd, vd, hb, vb), w) in enumerate(zip(cands, ws)):
@@ -223,7 +229,7 @@ def test_sharded_step_plain_matches_eager_glue(case, P, rule, policy,
         kb.sharded_step_pre(s, MAX_ITER, EPS, **where)
         for name, want in pre[rank].items():
             _equal(getattr(s, name), want, (rank, "pre", name))
-        kb.sharded_ratio(s, ah, b, base, EPS)
+        kb.sharded_ratio(s, ah, b, EPS)
         for name, want in mid.items():
             _equal(getattr(s, name), want, (rank, "ratio", name))
         # K2 leaves the slice's candidates in the scalars.
@@ -234,11 +240,13 @@ def test_sharded_step_plain_matches_eager_glue(case, P, rule, policy,
         _equal(V[rank], packs[rank][0], (rank, "pack values"))
         _equal(Ix[rank], packs[rank][1], (rank, "pack indices"))
     for rank, s in enumerate(ranks):
-        kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS,
-                             bland_static=POLICIES[policy][0],
-                             threshold=POLICIES[policy][1],
-                             then_pre=then_pre, offset=rank * R_LOC,
-                             R_loc=R_LOC)
+        # The step after K2 (K2's sharded tail), the fold, and the next
+        # pivot's step before K5 (with the fold, K5's head).
+        kb.step_post_plain(s, MAX_ITER, EPS, *POLICIES[policy], False)
+        kb.sharded_fold(s, V, Ix)
+        if then_pre:
+            kb.sharded_step_pre(s, MAX_ITER, EPS, offset=rank * R_LOC,
+                                R_loc=R_LOC)
         for name, want in post.items():
             _equal(getattr(s, name), want, (rank, "post", name))
         if then_pre:
@@ -253,16 +261,14 @@ def test_sharded_step_plain_matches_eager_glue(case, P, rule, policy,
 
 
 def test_sharded_fold_only_folds():
-    """``fold_only``: the candidates change, the carry does not."""
+    """``sharded_fold``: the candidates change, the carry does not."""
     s, *_ = _state("pivot", 2, True, seed=3)
     V = torch.tensor([[-1.0, -2.0, 1.0, 1.0, 1.0], [-3.0, -4.0, 2.0, 1.5,
                                                      4.5]],
                      dtype=torch.float64)
     Ix = torch.tensor([[5, 1], [9, 8]], dtype=torch.int32)
     before = _clone(s)
-    kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS, bland_static=False,
-                         threshold=50, then_pre=True, offset=0, R_loc=R_LOC,
-                         fold_only=True)
+    kb.sharded_fold(s, V, Ix)
     assert (int(s.h_d), float(s.v_d), int(s.h_b), float(s.v_b),
             float(s.w_d), float(s.w_b)) == (9, -3.0, 1, -2.0, 2.0, 1.0)
     for name in ("status", "iterations", "stall", "bland", "z", "h",
@@ -329,7 +335,7 @@ def test_colk_two_slices_equal_one_card(rule, leaving):
     weight at h, against K2 on the 256 columns: the same pivot row,
     costs and weights by slice, the same replicated b, base and eta row,
     and the slices' candidates folded (``sharded_pack``,
-    ``sharded_step_post``'s fold) are the one-card candidates."""
+    ``sharded_fold``) are the one-card candidates."""
     devex = rule == "devex"
     st = _k2_state(256, 11, devex)
     k, h = 4, 200                                # h on slice 1
@@ -351,9 +357,7 @@ def test_colk_two_slices_equal_one_card(rule, leaving):
         for name, v in zip(("h_d", "v_d", "h_b", "v_b"), gc):
             getattr(s, name).copy_(v)
         kb.sharded_pack(s, got["w"], 128 * rank, V[rank], Ix[rank])
-    kb.sharded_step_post(s, V, Ix, MAX_ITER, EPS, bland_static=False,
-                         threshold=50, then_pre=False, offset=0, R_loc=128,
-                         fold_only=True)
+    kb.sharded_fold(s, V, Ix)
     assert (int(s.h_d), int(s.h_b)) == (int(wc[0]), int(wc[2]))
     assert torch.equal(s.v_d, wc[1]) and torch.equal(s.v_b, wc[3])
     if devex:
@@ -646,3 +650,244 @@ def test_cases_cover_the_grid():
         s, ah, b, base, ws, cands = _state(case, P, True, seed=1)
         assert len(ws) == len(cands) == P and ah.shape == (M,)
         kb.ShardedScalars(**s.tensors())
+
+
+# ---------------------------------------------------------------------------
+# The window's new order against the order it replaced.
+
+K2_M, K2_R, K2_L, PIVOTS = 128, 128, 8, 3
+
+
+def _window_state(case, P, devex, seed):
+    """The state of P slices of 128 columns for a few pivots of a window:
+    the scalars as ``_state`` fills them for ``case``, the slices' Tt,
+    costs and weights, the replicated b, base and factors. "unbounded"
+    makes both candidates' columns non-positive, "ties" gives every slice
+    the same columns, costs and weights, and "empty_rank" leaves only the
+    first slice live (none at P = 1)."""
+    status, iters, stall, bland, hb_ok, v_d, unb, local = CASES[case]
+    rng = np.random.default_rng(seed)
+    R = P * K2_R
+    f32 = np.float32
+    Tt = rng.uniform(-1, 1, (K2_M, R)).astype(f32)
+    costs = rng.uniform(-1, 1, R)
+    w = rng.uniform(1, 3, R).astype(f32)
+    if local == "ties":
+        Tt = np.tile(Tt[:, :K2_R], (1, P))
+        costs, w = np.tile(costs[:K2_R], P), np.tile(w[:K2_R], P)
+    h_d = int(rng.integers(0, R))
+    h_b = int(rng.integers(0, R)) if hb_ok else BIG
+    if unb:
+        for h in (h_d, h_b % R):
+            Tt[:, h] = -np.abs(Tt[:, h])
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5)), bland)
+    vals = dict(status=status, iterations=iters, stall=stall, h_d=h_d,
+                v_d=v_d * rng.uniform(0.9, 1.1), h_b=h_b,
+                v_b=-0.5 * rng.uniform(0.9, 1.1) if hb_ok else float("inf"),
+                w_d=float(w[h_d]) if devex else 1.0,
+                w_b=float(w[h_b]) if devex and hb_ok else 1.0)
+    for name, v in vals.items():
+        getattr(s, name).fill_(v)
+    r = (0 if P == 1 else K2_R) if local == "empty_rank" else R - 5
+    return dict(
+        s=s, Tt=torch.from_numpy(Tt), costs=torch.from_numpy(costs),
+        w=torch.from_numpy(w) if devex else None, r=r,
+        b=torch.from_numpy(rng.uniform(0, 10, K2_M)),
+        base=torch.from_numpy(rng.integers(0, R, K2_M).astype(np.int32)))
+
+
+def _ranks(st, P):
+    """Each rank's loop state: its slice and its copies of the replicated
+    vectors, factors and scalars."""
+    out = []
+    for rank in range(P):
+        cols = slice(rank * K2_R, (rank + 1) * K2_R)
+        out.append(dict(
+            s=_clone(st["s"]), Tt=st["Tt"][:, cols].contiguous(),
+            costs=st["costs"][cols].clone(),
+            w=None if st["w"] is None else st["w"][cols].clone(),
+            r=min(max(st["r"] - rank * K2_R, 0), K2_R),
+            C=torch.zeros((K2_L, K2_R)), F=torch.zeros((K2_L, K2_M)),
+            b=st["b"].clone(), base=st["base"].clone(),
+            ah=torch.empty(K2_M), where=dict(offset=rank * K2_R,
+                                             R_loc=K2_R)))
+    return out
+
+
+def _gathered(P, devex):
+    return (torch.empty((P, 5 if devex else 2), dtype=torch.float64),
+            torch.empty((P, 2), dtype=torch.int32))
+
+
+def _old_order(st, P, policy):
+    """PR 15's window: the step before K5, then per pivot K5, the sum,
+    the ratio test, K2, the pack, the gathers and the step after them
+    (``sharded_step_post_plain``: the fold, the step after K2 and the next
+    step before K5)."""
+    ranks = _ranks(st, P)
+    V, Ix = _gathered(P, st["w"] is not None)
+    for x in ranks:
+        kb.sharded_step_pre_plain(x["s"], MAX_ITER, EPS, **x["where"])
+    for t in range(PIVOTS):
+        col = sum(kb.ah(x["Tt"], x["F"], x["C"], x["s"].hl, t, own=x["s"].own)
+                  for x in ranks)
+        for rank, x in enumerate(ranks):
+            s = x["s"]
+            x["ah"].copy_(col)
+            kb.sharded_ratio_plain(s, col, x["b"], EPS)
+            kb.colk_costs(x["Tt"], x["C"], x["F"], x["costs"], s.k, t, s.u,
+                          s.do, x["r"], EPS, col, x["b"], x["base"], s.h,
+                          s.p, s.bk, x["w"],
+                          out=(s.h_d, s.v_d, s.h_b, s.v_b),
+                          offset=x["where"]["offset"],
+                          w_h=None if x["w"] is None else s.wh)
+            kb.sharded_pack_plain(s, x["w"], x["where"]["offset"], V[rank],
+                                  Ix[rank])
+        for x in ranks:
+            kb.sharded_step_post_plain(x["s"], V, Ix, MAX_ITER, EPS, *policy,
+                                       t + 1 < PIVOTS, **x["where"])
+    return ranks
+
+
+def _new_order(st, P, policy, seen_h):
+    """The window as ``run_window_sharded`` now enqueues it, through the
+    wrappers: the step before K5, then per pivot K5 (from the second on
+    with the fold and the step before K5 as its head), the sum, the ratio
+    test, K2 with its sharded tail, the pack and the gathers; then
+    ``sharded_fold``. ``seen_h`` gets rank 0's h after each pivot's tail
+    and after the next head."""
+    ranks = _ranks(st, P)
+    V, Ix = _gathered(P, st["w"] is not None)
+    for x in ranks:
+        kb.sharded_step_pre(x["s"], MAX_ITER, EPS, **x["where"])
+    for t in range(PIVOTS):
+        for x in ranks:
+            if t:
+                kb.ah_fold_head(x["Tt"], x["F"], x["C"], t, x["s"], V, Ix,
+                                MAX_ITER, EPS, x["where"]["offset"],
+                                out=x["ah"])
+            else:
+                kb.ah(x["Tt"], x["F"], x["C"], x["s"].hl, t, own=x["s"].own,
+                      out=x["ah"])
+        seen_h.append(int(ranks[0]["s"].h))
+        col = sum(x["ah"] for x in ranks)
+        for rank, x in enumerate(ranks):
+            s = x["s"]
+            x["ah"].copy_(col)
+            kb.sharded_ratio(s, x["ah"], x["b"], EPS)
+            kb.colk_costs_sharded_tail(
+                x["Tt"], x["C"], x["F"], x["costs"], t, x["r"], EPS, x["ah"],
+                x["b"], x["base"], x["w"], s, MAX_ITER,
+                offset=x["where"]["offset"], bland_static=policy[0],
+                threshold=policy[1])
+            kb.sharded_pack(s, x["w"], x["where"]["offset"], V[rank],
+                            Ix[rank])
+    for x in ranks:
+        kb.sharded_fold(x["s"], V, Ix)
+    return ranks
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_new_order_matches_the_old_order(case, P, rule, policy):
+    """Three pivots of a window in the new order (the step after K2 as
+    K2's tail, the fold and the next step before K5 as K5's head,
+    ``sharded_fold`` last) and in the order it replaced: every rank's
+    scalars, column, factors and vectors equal. The step after K2 now
+    runs before the fold that used to precede it; the two touch disjoint
+    fields. In a taken pivot the fold moves h between the tail and the
+    head."""
+    devex = rule == "devex"
+    st = _window_state(case, P, devex, seed=len(case) * 7 + P)
+    seen_h = []
+    new = _new_order(st, P, POLICIES[policy], seen_h)
+    old = _old_order(st, P, POLICIES[policy])
+    for rank, (a, b_) in enumerate(zip(new, old)):
+        for name, x in a["s"].tensors().items():
+            assert torch.equal(x, getattr(b_["s"], name)), (rank, name)
+        for name in ("ah", "C", "F", "costs", "w", "b", "base"):
+            if a[name] is not None:
+                assert torch.equal(a[name], b_[name]), (rank, name)
+    if case in ("pivot", "ties"):
+        assert int(old[0]["s"].iterations) == CASES[case][1] + PIVOTS
+        assert len(set(seen_h)) > 1, seen_h
+
+
+@pytest.mark.parametrize("edge", ["nan_b", "cross_block_tie", "no_eligible",
+                                  "north_star_m"])
+def test_sharded_ratio_edge_cases(edge):
+    """``sharded_ratio`` (its plain version here; the card's cluster in
+    tests/test_torch_cuda.py) against numpy's argmin of the same
+    quotients: a NaN b on an eligible row comes first; equal quotients on
+    rows 2,048 and 4,096 apart (two blocks of the card's cluster, and one
+    thread's two constraints) go to the lowest row; with no eligible row
+    k = 0 and the pivot is unbounded; and the north star's M_pad = 10,112
+    (two constraints for some threads)."""
+    rng = np.random.default_rng(5)
+    M = 10112 if edge == "north_star_m" else 8192
+    a = rng.uniform(-1, 1, M).astype(np.float32)
+    b = rng.uniform(0, 10, M)
+    want_k = None
+    if edge == "nan_b":
+        a[[100, 7000]] = 0.5
+        b[[100, 7000]] = np.nan
+        want_k = 100
+    elif edge == "cross_block_tie":
+        a[[1000, 3048, 5096]] = 4.0
+        b[[1000, 3048, 5096]] = 1e-3
+        want_k = 1000
+    elif edge == "no_eligible":
+        a = -np.abs(a)
+        want_k = 0
+    mask = a >= np.float32(EPS)
+    q = np.where(mask, b / np.where(mask, a, 1).astype(np.float64), np.inf)
+    k = int(np.argmin(q))
+    assert want_k is None or k == want_k
+    s = kb.sharded_scalars(torch.tensor(0.0), False)
+    s.active.fill_(True)
+    s.minc.fill_(-0.75)
+    kb.sharded_ratio(s, torch.from_numpy(a), torch.from_numpy(b), EPS)
+    unb = not mask.any()
+    assert (int(s.k), bool(s.unb), bool(s.do)) == (k, unb, not unb)
+    assert float(s.p) == (1.0 if unb else float(a[k]))
+    assert np.array_equal(float(s.bk), b[k], equal_nan=True)
+    assert float(s.u) == (0.0 if unb else -0.75 / float(np.float32(a[k])))
+
+
+def test_window_launches_in_order(monkeypatch, tmp_path):
+    """``run_window_sharded`` enqueues ``sharded_step_pre`` once; per
+    pivot K5 (with its head from the second pivot on), the column's
+    all_reduce, the ratio test, K2 with its sharded tail, the pack and
+    the two all_gathers; then ``sharded_fold`` once. No standalone step
+    after the gathers is left."""
+    calls = []
+
+    def record(name):
+        real = getattr(ps, name)
+
+        def call(*args, **kw):
+            calls.append(name)
+            return real(*args, **kw)
+        return call
+
+    names = ("sharded_step_pre", "ah", "ah_fold_head", "all_reduce_",
+             "sharded_ratio", "colk_costs_sharded_tail", "sharded_pack",
+             "all_gather_into", "sharded_fold")
+    with pg.world(0, 1, "gloo", str(tmp_path)) as group:
+        tab, _, shard, opts = _phase1_slice(96, 40, 11, group)
+        loop = ps.sharded_kernel_loop(tab, shard, opts)
+        for name in names:
+            monkeypatch.setattr(ps, name, record(name))
+        ps.run_window_sharded(loop, opts, 5000)
+    L = int(opts.block_pivots)
+    tail = ["all_reduce_", "sharded_ratio", "colk_costs_sharded_tail",
+            "sharded_pack", "all_gather_into", "all_gather_into"]
+    assert calls == (["sharded_step_pre", "ah"] + tail
+                     + (["ah_fold_head"] + tail) * (L - 1)
+                     + ["sharded_fold"])
+    assert not hasattr(kb, "sharded_step_post")
+    assert "sharded_step_post" not in kb.LAUNCHES
+    assert kb.TAILS["sharded_post_tail"] == "colk_costs"
+    assert kb.TAILS["sharded_fold_head"] == "ah"

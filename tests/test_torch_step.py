@@ -311,7 +311,9 @@ def test_run_window_launches_two_kernels_a_pivot(monkeypatch):
         assert not hasattr(kb, name) and not hasattr(solver, name)
         assert name not in kb.LAUNCHES
     assert kb.TAILS == {"step_mid_tail": "ah_ratio",
-                        "step_post_tail": "colk_costs"}
+                        "step_post_tail": "colk_costs",
+                        "sharded_post_tail": "colk_costs",
+                        "sharded_fold_head": "ah"}
 
 
 def _phase1(n, m, seed, **kw):
