@@ -70,12 +70,12 @@ Phases, in order; any failed check exits non-zero:
    options -- the flagship certified within 1e-9, walking as ``solve``
    did, with the launch counters reset just before it and read just
    after (K5, K2-K4 and the sharded step kernels, K5's head and K2's
-   sharded tail launched, K1 not); its kernel loop replays one CUDA graph
+   sharded tails launched, K1 not); its kernel loop replays one CUDA graph
    a window with the per-pivot all_reduce and two all_gathers inside --
    then the flagship's sharded loop eager (``graph=False``) and graphed
    in turns (eager, graph, graph, eager: the walk, every loop call's
    final state bit for bit, ms/pivot, capture ms, the same collectives
-   counted, 6 + 2/L nodes a pivot by the captured launch counts), then the
+   counted, 5 + 2/L nodes a pivot by the captured launch counts), then the
    north-star phase-1 slice for 256 pivots, ending with phase 9's z and
    basis;
 10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
@@ -154,10 +154,13 @@ Phases, in order; any failed check exits non-zero:
    timed with and without their tails in turns, the sharded step kernels
    (``sharded_ratio`` one thread-block cluster) on K1's column under 192
    seeded states at P = 1, 2 and 4 with a NaN b, a tie across the
-   cluster's blocks and no eligible row among them, bit for bit, K5 with
-   its head and K2 with its sharded tail against their plain chains over
-   six pivots at P = 1, 2 and 4, bit for bit, K5 and K2 timed with and
-   without their head and tail in turns, K5 with its owner flag and K2
+   cluster's blocks and no eligible row among them, K2 with its sharded
+   tail and pack against K2 and the plain step and pack on each state's
+   slices (NaN weights, no eligible column, h as both candidates, a tie
+   across K2's blocks among them), bit for bit, K5 with its head and K2
+   with its sharded tail and pack against their plain chains over six
+   pivots at P = 1, 2 and 4, bit for bit, K5 and K2 timed with and
+   without their head and tails in turns, K5 with its owner flag and K2
    with a column offset and a given weight at h (offset 0: the
    single-card call bit for bit; a second slice at t = 0: its plain
    version bit for bit), K6 at the 8192^2 and the north-star f32
@@ -178,7 +181,7 @@ Phases, in order; any failed check exits non-zero:
    PyTorch call computes the same function, that call's time; then one
    config-3 batch traced (device time by kernel, the device's busy
    share), and the flagship's phase-1 loop traced, single-card and
-   sharded at one NCCL rank (the kernels -- and the NCCL nodes, 6 + 2/L
+   sharded at one NCCL rank (the kernels -- and the NCCL nodes, 5 + 2/L
    of them -- a pivot of a replayed window, the device's busy share
    inside a window and over its period). These run last so that no profiler run precedes
    the timed solves.
@@ -192,8 +195,8 @@ The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 ``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
 or K2's time with it less their time without -- and the sharded step
-kernels with K2's sharded tail and K5's head, which replace XLA-fused
-glue, no Pallas kernel;
+kernels with K2's sharded tails, the step after K2 and the pack, and
+K5's head, which replace XLA-fused glue, no Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -267,11 +270,12 @@ STEP_BYTES = {"step_pre": 39, "step_mid_tail": 23, "step_post_tail": 73}
 #: The sharded loop's per-pivot step: the JAX sharded loop's XLA-fused
 #: glue around its passes and collectives (no Pallas kernel), each
 #: replacing the lines it ports -- sharded_step_pre (once a window),
-#: sharded_ratio (one thread-block cluster), sharded_pack and sharded_fold
-#: (the window's last fold) kernels of their own (csrc/sharded_step.cu),
-#: the step after K2 as K2's tail (its body csrc/step.cuh's step::post)
-#: and the fold with the next step before K5 as K5's head (its body
-#: csrc/sharded_step.cuh, run in csrc/blocked.cu).
+#: sharded_ratio (one thread-block cluster), sharded_pack (the window
+#: boundary's) and sharded_fold (the window's last fold) kernels of their
+#: own (csrc/sharded_step.cu), the step after K2 as K2's tail (its body
+#: csrc/step.cuh's step::post) and the pack after it as the same tail's
+#: end (csrc/blocked.cu), and the fold with the next step before K5 as
+#: K5's head (its body csrc/sharded_step.cuh, run in csrc/blocked.cu).
 SHARDED_STEP_SOURCE = "simplex_tpu_torch/kernels/csrc/sharded_step.cu"
 SHARDED_STEP_KERNELS = {
     "sharded_step_pre": ("glue", "simplex_tpu/parallel/sharded.py:668",
@@ -284,6 +288,8 @@ SHARDED_STEP_KERNELS = {
                      SHARDED_STEP_SOURCE),
     "sharded_post_tail": ("glue", "simplex_tpu/parallel/sharded.py:743",
                           "simplex_tpu_torch/kernels/csrc/step.cuh"),
+    "sharded_pack_tail": ("glue", "simplex_tpu/parallel/sharded.py:741",
+                          SOURCE),
     "sharded_fold_head": ("glue", "simplex_tpu/parallel/sharded.py:738; "
                           "simplex_tpu/parallel/sharded.py:668",
                           "simplex_tpu_torch/kernels/csrc/sharded_step.cuh"),
@@ -300,12 +306,15 @@ SHARDED_STEPS = tuple(SHARDED_STEP_KERNELS)
 #: sharded_fold reads the gathered (1, 5) and (1, 2) buffers (48) and
 #: writes the six folded values (32); K2's tail reads z, u, bk, active,
 #: optimal, unb, stall and iterations (38; do is in registers) and writes
-#: status, stall, bland, iterations and z (21); K5's head reads the
-#: gathered buffers (48) and status, iterations and bland (9), writes the
-#: six folded values (32) and, as the step before K5, 23.
+#: status, stall, bland, iterations and z (21); the pack at its end reads
+#: the two weights (8; the candidates are in registers) and writes the
+#: five values and two indices (48); K5's head reads the gathered buffers
+#: (48) and status, iterations and bland (9), writes the six folded
+#: values (32) and, as the step before K5, 23.
 SHARDED_STEP_BYTES = {"sharded_step_pre": 52, "sharded_ratio": 39,
                       "sharded_pack": 80, "sharded_fold": 80,
-                      "sharded_post_tail": 59, "sharded_fold_head": 112}
+                      "sharded_post_tail": 59, "sharded_pack_tail": 56,
+                      "sharded_fold_head": 112}
 #: The kernels of the single-card production path, and of the sharded one.
 SINGLE_PATH = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window",
                *STEPS)
@@ -1039,20 +1048,26 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
     eligible column and ties across ranks, and in every fourth state a
     NaN b, equal quotients on three rows 2,048 apart (other blocks of the
     ratio test's cluster) or no eligible row: every output bit for bit (each
-    rank's pre, ratio and pack, each rank's fold, with and without the
-    next pivot's pre). Then six pivots of the window at P = 1, 2 and 4
-    under devex and Dantzig two ways on the same tensors: K5 with its head
-    and K2 with its sharded tail, and their plain chains
+    rank's pre and ratio; on each rank's slice K2 with its sharded tail
+    and the pack into the send buffers against K2, ``step_post_plain``
+    and ``sharded_pack_plain``, its costs and weights in turn seeded, NaN
+    on a third of the columns and at column 0, all positive, h the most
+    negative and first eligible, or tied across K2's blocks; each rank's
+    boundary pack on drawn candidates, each rank's fold, with and without
+    the next pivot's pre). Then six pivots of the window at P = 1, 2 and
+    4 under devex and Dantzig two ways on the same tensors: K5 with its
+    head and K2 with its sharded tail and pack, and their plain chains
     (``sharded_fold_plain`` and ``sharded_step_pre_plain`` then K5
-    without its head; K2 without its tail then ``step_post_plain``),
-    every scalar, column and vector bit for bit after each pivot, and
-    ``sharded_fold`` against its plain version at the end. Then each
-    timed at one rank under devex on a taken pivot outside Bland mode:
-    the kernels and their plain versions by torch.profiler, the kernels
-    also over a CUDA graph of 50 calls, K5 and K2 with and without their
-    head and tail in turns (the head's and the tail's own cost is the
-    carrier's time with it less without), beside the bounds
-    (``SHARDED_STEP_BYTES``; sharded_ratio's column and b added)."""
+    without its head; K2 without its tail then ``step_post_plain`` and
+    ``sharded_pack_plain``), every scalar, column, vector and gathered
+    buffer bit for bit after each pivot, and ``sharded_fold`` against its
+    plain version at the end. Then each timed at one rank under devex on
+    a taken pivot outside Bland mode: the kernels and their plain
+    versions by torch.profiler, the kernels also over a CUDA graph of 50
+    calls, K5 and K2 with and without their head and tails in turns (a
+    head's or a tail's own cost is the carrier's time with it less
+    without), beside the bounds (``SHARDED_STEP_BYTES``; sharded_ratio's
+    column and b added)."""
     import numpy as np
     import torch
 
@@ -1067,6 +1082,81 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
     def clone(s):
         return kb.ShardedScalars(**{n: x.clone()
                                     for n, x in s.tensors().items()})
+
+    # K2 with its sharded tail and pack against its plain chain on each
+    # state's slices: Tt's slices, two copies of C's and of F (rows < t
+    # the phase's; each K2 writes row t only), a workspace a way.
+    tt_slices = {P: [Tt[:, r * (R // P):(r + 1) * (R // P)].contiguous()
+                     for r in range(P)] for P in (1, 2, 4)}
+    k2_C = {P: [[C[:, r * (R // P):(r + 1) * (R // P)].contiguous()
+                 for r in range(P)] for _ in range(2)] for P in (1, 2, 4)}
+    k2_F = [F.clone() for _ in range(2)]
+    k2_ws = {P: [kb.colk_workspace(R // P, dev) for _ in range(2)]
+             for P in (1, 2, 4)}
+    k2_kinds = collections.Counter()
+
+    def k2_pack(i, P, rank, s0, col, bb, devex, policy):
+        R_loc = R // P
+        off = rank * R_loc
+        r_loc = R_loc - (100 if rank == P - 1 else 0)
+        kind = ("seeded", "nan_weights", "no_eligible", "h_candidate",
+                "tie")[i % 5]
+        cs = costs[off:off + R_loc].clone()
+        ww = w[off:off + R_loc].clone()
+        hl = int(s0.h) - off
+        if kind == "nan_weights":
+            ww[torch.from_numpy(rng.random(R_loc) < 1 / 3).to(dev)] = (
+                float("nan"))
+            ww[0] = float("nan")
+        elif kind == "no_eligible":
+            cs = cs.abs() + 1e6
+        elif kind == "h_candidate" and 0 <= hl < r_loc:
+            cs[:hl] = cs[:hl].abs() + 1e6
+            cs[hl] = -1e6
+        elif kind == "tie":
+            cs[[10, 3210]] = -1e5
+            ww[[10, 3210]] = 2.0
+        outs = []
+        for chain in (0, 1):
+            sc = clone(s0)
+            v = dict(C=k2_C[P][chain][rank], F=k2_F[chain],
+                     costs=cs.clone(), b=bb.clone(), base=base.clone(),
+                     w=ww.clone() if devex else None)
+            V = torch.full((5 if devex else 2,), -7.0, dtype=torch.float64,
+                           device=dev)
+            I = torch.full((2,), -7, dtype=torch.int32, device=dev)
+            args = (tt_slices[P][rank], v["C"], v["F"], v["costs"])
+            if chain == 0:
+                kb.colk_costs_sharded_tail(
+                    *args, t, r_loc, eps, col, v["b"], v["base"], v["w"], sc,
+                    max_iter, k2_ws[P][0], offset=off,
+                    bland_static=policy[0], threshold=policy[1], send_v=V,
+                    send_i=I)
+            else:
+                kb.colk_costs(*args, sc.k, t, sc.u, sc.do, r_loc, eps, col,
+                              v["b"], v["base"], sc.h, sc.p, sc.bk, v["w"],
+                              k2_ws[P][1], out=(sc.h_d, sc.v_d, sc.h_b,
+                                                sc.v_b),
+                              offset=off, w_h=sc.wh if devex else None)
+                kb.step_post_plain(sc, max_iter, eps, *policy, False)
+                kb.sharded_pack_plain(sc, v["w"], off, V, I)
+            outs.append((sc, v, V, I))
+        (sa, va, Va, Ia), (sb, vb, Vb, Ib) = outs
+        tag = f"K2 pack tail {policy} state {i} ({kind}) rank {rank}/{P}"
+        equal(f"{tag} send_v", Va, Vb)
+        equal(f"{tag} send_i", Ia, Ib)
+        for name, x in sa.tensors().items():
+            equal(f"{tag} {name}", x, getattr(sb, name))
+        for name in ("costs", "w", "b", "base"):
+            if va[name] is not None:
+                equal(f"{tag} {name}", va[name], vb[name])
+        equal(f"{tag} C[t]", va["C"][t], vb["C"][t])
+        equal(f"{tag} F[t]", va["F"][t], vb["F"][t])
+        if kind == "h_candidate" and 0 <= hl < r_loc:
+            require(int(sa.h_d) == int(sa.h_b) == hl,
+                    f"{tag}: candidates {int(sa.h_d)}, {int(sa.h_b)}, not "
+                    f"h's column {hl}")
+        k2_kinds[kind] += 1
 
     def edge_column(kind):
         col, bb = ah.clone(), b.clone()
@@ -1125,6 +1215,7 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                         equal(f"sharded pre and ratio {policy} state {i} "
                               f"({kind}) rank {rank} {name}", x,
                               getattr(sp, name))
+                    k2_pack(i, P, rank, sk, col, bb, devex, policy)
                     cand = (int(rng.integers(0, R_loc)),
                             -rng.uniform(0.1, 3),
                             int(rng.integers(0, R_loc)),
@@ -1157,9 +1248,11 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                         equal(f"sharded step kernels {policy} state {i} "
                               f"rank {rank} {name}", x, getattr(sp, name))
                 i += 1
-    log(f"sharded_step_pre, sharded_ratio (one cluster), sharded_pack and "
-        f"sharded_fold: every output equals its plain version's on {i} "
-        f"states at P = 1, 2 and 4 ({dict(edges)})")
+    log(f"sharded_step_pre, sharded_ratio (one cluster), K2 with its "
+        f"sharded tail and pack, sharded_pack and sharded_fold: every output "
+        f"equals its plain version's or chain's on {i} states at P = 1, 2 "
+        f"and 4 ({dict(edges)}; K2's costs and weights {dict(k2_kinds)})")
+    del tt_slices, k2_C, k2_F, k2_ws
 
     # Six pivots of the window, kernels with their head and tail against
     # the plain chains, on the same tensors.
@@ -1225,7 +1318,8 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                                 *args, tp, r_loc, eps, x["ah"], x["b"],
                                 x["base"], x["w"], s, max_iter, x["ws"],
                                 offset=x["where"]["offset"],
-                                bland_static=False, threshold=50)
+                                bland_static=False, threshold=50,
+                                send_v=V[r], send_i=I[r])
                         else:
                             kb.colk_costs(
                                 *args, s.k, tp, s.u, s.do, r_loc, eps,
@@ -1236,9 +1330,11 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                                 w_h=None if x["w"] is None else s.wh)
                             kb.step_post_plain(s, max_iter, eps, False, 50,
                                                False)
-                        kb.sharded_pack_plain(s, x["w"], x["where"]["offset"],
-                                              V[r], I[r])
+                            kb.sharded_pack_plain(
+                                s, x["w"], x["where"]["offset"], V[r], I[r])
                 tag = f"sharded window devex={devex} P={P} t={tp}"
+                equal(f"{tag} gathered values", runs[0][1], runs[1][1])
+                equal(f"{tag} gathered indices", runs[0][2], runs[1][2])
                 for r, (a, b2) in enumerate(zip(runs[0][0], runs[1][0])):
                     for name, x in a["s"].tensors().items():
                         equal(f"{tag} rank {r} {name}", x,
@@ -1258,10 +1354,10 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                     equal(f"sharded_fold devex={devex} P={P} rank {r} "
                           f"{name}", x, getattr(b2["s"], name))
             del runs, slices
-    log(f"K5 with its head and K2 with its sharded tail: every scalar, "
-        f"column and vector equals the plain chains' after each of "
-        f"{pivots} pivots at P = 1, 2 and 4, devex and Dantzig; "
-        "sharded_fold equals its plain version after them")
+    log(f"K5 with its head and K2 with its sharded tail and pack: every "
+        f"scalar, column, vector and gathered buffer equals the plain "
+        f"chains' after each of {pivots} pivots at P = 1, 2 and 4, devex "
+        "and Dantzig; sharded_fold equals its plain version after them")
 
     # A taken pivot outside Bland mode under devex at one rank.
     s = kb.sharded_scalars(torch.zeros((), dtype=torch.float64,
@@ -1297,20 +1393,25 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
             *k2, t, R - 100, eps, col, v["b"], v["base"], v["w"], s, big,
             ws2, offset=0, bland_static=False, threshold=50),
             "colk_costs_fused"),
+        "K2+tail+pack": (lambda: kb.colk_costs_sharded_tail(
+            *k2, t, R - 100, eps, col, v["b"], v["base"], v["w"], s, big,
+            ws2, offset=0, bland_static=False, threshold=50, send_v=vals,
+            send_i=idx), "colk_costs_fused"),
     }
-    for name in ("K5+head", "K2+tail"):
+    for name in ("K5+head", "K2+tail", "K2+tail+pack"):
         n = kernels_launched(timed[name][0])
         require(n == 1, f"one {name} call launched {n} kernels")
     prof = {name: [] for name in timed}
     graph = {name: [] for name in timed}
-    for name in ("K5", "K5+head", "K2", "K2+tail", "K2+tail", "K2",
-                 "K5+head", "K5"):
+    for name in ("K5", "K5+head", "K2", "K2+tail", "K2+tail+pack",
+                 "K2+tail+pack", "K2+tail", "K2", "K5+head", "K5"):
         fn, match = timed[name]
         prof[name].append(device_ms(fn, 50, match=match))
         graph[name].append(graph_ms(fn))
     mean = statistics.mean
-    log("sharded K5 and K2 with and without their head and tail, ms a call "
-        "in turns (K5, K5+head, K2, K2+tail, then back): " + "; ".join(
+    log("sharded K5 and K2 with and without their head and tails, ms a "
+        "call in turns (K5, K5+head, K2, K2+tail, K2+tail+pack, then back): "
+        + "; ".join(
             f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
             + " (torch.profiler), " + ", ".join(f"{x:.5f}"
                                                  for x in graph[name])
@@ -1332,20 +1433,24 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
             lambda: kb.sharded_fold_plain(s, V, I)),
         "sharded_post_tail": (None, lambda: kb.step_post_plain(
             s, big, eps, False, 50, False)),
+        "sharded_pack_tail": (None, lambda: kb.sharded_pack_plain(
+            s, w, 0, vals, idx)),
         "sharded_fold_head": (None, lambda: (
             kb.sharded_fold_plain(s, V, I),
             kb.sharded_step_pre_plain(s, big, eps, 0, R))),
     }
-    carrier = {"sharded_post_tail": "K2", "sharded_fold_head": "K5"}
+    # Each head or tail: its carrier with it, and without.
+    carrier = {"sharded_post_tail": ("K2+tail", "K2"),
+               "sharded_pack_tail": ("K2+tail+pack", "K2+tail"),
+               "sharded_fold_head": ("K5+head", "K5")}
     for name, (kernel, plain) in calls.items():
         if kernel is not None:
             ms = device_ms(kernel, 50, match=name)
             check_ms = graph_ms(kernel)
         else:
-            k = carrier[name]
-            add = "+tail" if k == "K2" else "+head"
-            ms = mean(prof[k + add]) - mean(prof[k])
-            check_ms = mean(graph[k + add]) - mean(graph[k])
+            with_it, without = carrier[name]
+            ms = mean(prof[with_it]) - mean(prof[without])
+            check_ms = mean(graph[with_it]) - mean(graph[without])
         nbytes = SHARDED_STEP_BYTES[name] + (12 * M if name ==
                                              "sharded_ratio" else 0)
         bound_ms, by = bound(nbytes, 0.0, M if name == "sharded_ratio"
@@ -1356,7 +1461,7 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
                          "library_ms": None, "check_ms": check_ms}
         log(f"{name}: {ms:.5f} ms a call"
             + ("" if kernel is not None else
-               f" (its carrier {carrier[name]} with it less without, "
+               f" ({carrier[name][0]} less {carrier[name][1]}, "
                "torch.profiler)")
             + f", {check_ms:.5f} ms by CUDA events over a CUDA graph of 50 "
             f"calls, plain {records[name]['plain_ms']:.4f} ms, bound "
@@ -2426,10 +2531,11 @@ def phase_flagship(launches: dict) -> tuple:
 #: step_pre).
 GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused", "step_pre_kernel")
 #: The nodes of the sharded loop's window graph by name: K5 (K1's kernel
-#: without its ratio test, with its head), K2 (with its tail), the sharded
-#: step kernels, and NCCL's collectives, kernels or device-to-device
-#: copies. The graph's first and last nodes bound a replayed window: the
-#: boundary's own collectives and fold fall outside.
+#: without its ratio test, with its head), K2 (with its tails), the
+#: sharded step kernels (sharded_pack, the boundary's, counted should one
+#: appear), and NCCL's collectives, kernels or device-to-device copies.
+#: The graph's first and last nodes bound a replayed window: the
+#: boundary's own collectives, pack and fold fall outside.
 SHARDED_GRAPH_KERNELS = ("ah_ratio_fused", "colk_costs_fused",
                          "sharded_step_pre", "sharded_ratio", "sharded_pack",
                          "sharded_fold", "nccl", "Memcpy DtoD")
@@ -2481,20 +2587,22 @@ def flagship_loops(p, graph: bool, keep: list | None = None,
         L = PROD["block_pivots"]
         if group is not None:
             # The window's collectives are inside its graph, and its nodes
-            # at one rank are its kernels -- K5, sharded_ratio, K2 and
-            # sharded_pack a pivot, sharded_step_pre and sharded_fold once,
-            # K5's head and K2's tail none of their own -- and a copy an
-            # all_gather: 6L + 2.
+            # at one rank are its kernels -- K5, sharded_ratio and K2 a
+            # pivot, sharded_step_pre and sharded_fold once, K5's head and
+            # K2's tails (the step after K2, the pack) none of their own,
+            # sharded_pack none -- and a copy an all_gather: 5L + 2.
             want = {"all_reduce": L, "all_gather": 2 * L}
             require(dict(out[2].counts) == want, f"the sharded window graph "
                     f"holds {dict(out[2].counts)}, not {want}")
             per = out[1].per_replay
             nodes = sum(n for name, n in per.items()
                         if name not in kb.TAILS) + want["all_gather"]
-            require(nodes == 6 * L + 2
+            require(nodes == 5 * L + 2
                     and per["sharded_post_tail"] == L
+                    and per["sharded_pack_tail"] == L
+                    and per["sharded_pack"] == 0
                     and per["sharded_fold_head"] == L - 1,
-                    f"the sharded window graph holds {per}, not 6L + 2 "
+                    f"the sharded window graph holds {per}, not 5L + 2 "
                     "nodes")
             per_pivot.append(nodes / L)
         elif tails:
@@ -2652,7 +2760,7 @@ def phase_window_trace(group=None) -> None:
         L = PROD["block_pivots"]
         w = window_stats(events, L, SHARDED_GRAPH_KERNELS,
                          ("kernel", "gpu_memcpy"), 10, SHARDED_GRAPH_SPAN)
-        want = (6 * L + 2) / L
+        want = (5 * L + 2) / L
         require(w["per_pivot"] == (want, want), f"{w['per_pivot']} nodes a "
                 f"pivot in the traced sharded windows, not {want}")
     log(f"{'' if group is None else 'sharded 1-rank '}"

@@ -108,11 +108,12 @@ SIGNATURES = {
                           # bytes
                           _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           ctypes.c_longlong,
-                          # four candidates, the step's pointers (by
-                          # reference, or null: no tail), max_iter, bland
-                          # mode, threshold, then_pre, stream
-                          _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-                          _P],
+                          # four candidates, the send buffers (or null: no
+                          # pack), the step's pointers (by reference, or
+                          # null: no tail), max_iter, bland mode,
+                          # threshold, then_pre, stream
+                          _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                          _I, _I, _P],
     "apply_reprice_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "apply_window_launch": [_P, _P, _P, _I, _I, _I, _P],
     # Tt F C h own t M R ah stream

@@ -53,10 +53,12 @@ LAUNCHES = {"ah_ratio": 0, "colk_costs": 0, "apply_reprice": 0,
             "apply_window": 0, "ah": 0, "reprice": 0, "step_pre": 0,
             "step_mid_tail": 0, "step_post_tail": 0, "sharded_step_pre": 0,
             "sharded_ratio": 0, "sharded_pack": 0, "sharded_fold": 0,
-            "sharded_post_tail": 0, "sharded_fold_head": 0}
+            "sharded_post_tail": 0, "sharded_pack_tail": 0,
+            "sharded_fold_head": 0}
 #: The tails (and K5's head) and the kernel each rides in.
 TAILS = {"step_mid_tail": "ah_ratio", "step_post_tail": "colk_costs",
-         "sharded_post_tail": "colk_costs", "sharded_fold_head": "ah"}
+         "sharded_post_tail": "colk_costs", "sharded_pack_tail": "colk_costs",
+         "sharded_fold_head": "ah"}
 
 
 def reset_launches() -> None:
@@ -433,9 +435,11 @@ def colk_costs(Tt, C, F, costs, k, t: int, u, do, r: int, eps: float,
 def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
                 w, ws, out, offset, w_h, s=None, max_iter=0,
                 bland_static=False, threshold=None, then_pre=False,
-                tail="step_post_tail"):
+                tail="step_post_tail", send=None):
     """K2, with the step after K2 as its tail on the scalars ``s`` under
-    that policy unless ``s`` is None; the tail counts under ``tail``."""
+    that policy unless ``s`` is None; the tail counts under ``tail``. With
+    ``send`` = (send_v, send_i) and ``s`` the sharded pack follows the
+    tail, counted under ``sharded_pack_tail``."""
     M, R, L = _check_factors(Tt, C, F)
     _expect(costs, "costs", torch.float64, (R,))
     _expect(ah, "ah", torch.float32, (M,))
@@ -455,14 +459,20 @@ def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
         for x, name, dt in zip(out, ("h_d", "v_d", "h_b", "v_b"),
                                (torch.int32, torch.float64) * 2):
             _expect(x, f"out {name}", dt, ())
+    send_v, send_i = (None, None) if send is None else send
+    if send is not None:
+        _expect(send_v, "send_v", torch.float64, (2 if w is None else 5,))
+        _expect(send_i, "send_i", torch.int32, (2,))
     if not _on_card(Tt, C, F, costs, k, u, do, ah, b, base, h, p, bk, w,
-                    w_h):
+                    w_h, send_v, send_i):
         got = colk_costs_plain(Tt, C, F, costs, k, t, u, do, r, eps, ah, b,
                                base, h, p, bk, w, offset, w_h)
         out = got if out is None else _into(out, got)
         if s is not None:
             step_post_plain(s, max_iter, eps, bland_static, threshold,
                             then_pre)
+            if send is not None:
+                sharded_pack_plain(s, w, offset, send_v, send_i)
         return out
 
     from ._build import check, load_library
@@ -483,6 +493,7 @@ def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
         _ptr(do), r, float(eps), M, R, _ptr(ah), _ptr(b), _ptr(base),
         _ptr(h), _ptr(p), _ptr(bk), _ptr(w), offset, _ptr(w_h), _ptr(ws),
         ws.numel(), _ptr(h_d), _ptr(v_d), _ptr(h_b), _ptr(v_b),
+        _ptr(send_v), _ptr(send_i),
         None if s is None else ctypes.byref(_step_ptrs(s)), max_iter,
         _bland_mode(bland_static, threshold),
         0 if threshold is None else int(threshold), int(then_pre),
@@ -491,6 +502,8 @@ def _colk_costs(Tt, C, F, costs, k, t, u, do, r, eps, ah, b, base, h, p, bk,
     LAUNCHES["colk_costs"] += 1
     if s is not None:
         LAUNCHES[tail] += 1
+        if send is not None:
+            LAUNCHES["sharded_pack_tail"] += 1
     return out
 
 
@@ -708,11 +721,11 @@ def colk_costs_tail(Tt, C, F, costs, t: int, r: int, eps: float, ah, b,
 # all_reduce, K2 on the slice and the candidates' all_gathers. On the card
 # the step before K5 of a window's first pivot is a kernel of its own
 # (``sharded_step_pre``), the ratio test one thread-block cluster
-# (``sharded_ratio``), the step after K2 K2's tail
-# (``colk_costs_sharded_tail``), the pack a one-thread kernel
-# (``sharded_pack``), and the fold of the gathered candidates with the
-# next pivot's step before K5 the head of that pivot's K5
-# (``ah_fold_head``); the window's last fold is ``sharded_fold``.
+# (``sharded_ratio``), the step after K2 and the pack of the slice's
+# candidates K2's tail (``colk_costs_sharded_tail``), and the fold of the
+# gathered candidates with the next pivot's step before K5 the head of
+# that pivot's K5 (``ah_fold_head``); the window's last fold is
+# ``sharded_fold``, and the window boundary packs with ``sharded_pack``.
 
 @dataclasses.dataclass
 class ShardedScalars(PivotScalars):
@@ -896,20 +909,30 @@ def sharded_ratio(s: ShardedScalars, ah, b, eps: float) -> None:
 def colk_costs_sharded_tail(Tt, C, F, costs, t: int, r: int, eps: float,
                             ah, b, base, w, s: ShardedScalars,
                             max_iter: int, ws=None, *, offset: int,
-                            bland_static: bool, threshold) -> None:
-    """K2 on a slice with the step after K2 as its tail (``sharded.py:
-    742-768``): ``colk_costs`` of the pivot ``s`` holds (k, u, do, h, p,
-    bk) at the slice's ``offset``, with the weight at h ``s.wh`` under
-    devex (``w`` given), its candidates into ``s``'s h_d, v_d, h_b and
-    v_b; then ``step_post_plain``'s z, status, stall, bland and iterations
-    without the next pivot's step before K5, which needs the candidates
-    folded across the ranks first. On the card one launch, K2 with the
-    single-card tail (``s``'s first twenty fields are a ``Step``); it
-    counts a launch of ``colk_costs`` and one of ``sharded_post_tail``."""
+                            bland_static: bool, threshold, send_v=None,
+                            send_i=None) -> None:
+    """K2 on a slice with the step after K2 and the pack as its tail
+    (``sharded.py:741-768``): ``colk_costs`` of the pivot ``s`` holds (k,
+    u, do, h, p, bk) at the slice's ``offset``, with the weight at h
+    ``s.wh`` under devex (``w`` given), its candidates into ``s``'s h_d,
+    v_d, h_b and v_b; then ``step_post_plain``'s z, status, stall, bland
+    and iterations without the next pivot's step before K5, which needs
+    the candidates folded across the ranks first; then, with the send
+    buffers, ``sharded_pack_plain`` of the slice's candidates into
+    ``send_v`` and ``send_i``. On the card one launch, K2 with the
+    single-card tail (``s``'s first twenty fields are a ``Step``) and the
+    pack from the candidates its last block holds in registers and the
+    weights at them, loaded after its store of w[h]; it counts a launch
+    of ``colk_costs``, one of ``sharded_post_tail`` and, with the buffers,
+    one of ``sharded_pack_tail``. Without them (a comparison on the card)
+    the pack is left to ``sharded_pack``."""
+    if (send_v is None) != (send_i is None):
+        raise ValueError("send_v and send_i: both or neither")
     _colk_costs(Tt, C, F, costs, s.k, t, s.u, s.do, r, eps, ah, b, base, s.h,
                 s.p, s.bk, w, ws, (s.h_d, s.v_d, s.h_b, s.v_b), offset,
                 None if w is None else s.wh, s, max_iter, bland_static,
-                threshold, False, "sharded_post_tail")
+                threshold, False, "sharded_post_tail",
+                None if send_v is None else (send_v, send_i))
 
 
 def sharded_pack(s: ShardedScalars, w, offset: int, vals, idx) -> None:
@@ -919,7 +942,8 @@ def sharded_pack(s: ShardedScalars, w, offset: int, vals, idx) -> None:
     w[h_b], key]`` under devex (``w`` given; ``w[h_b]`` 1 and key ``-inf``
     with no eligible column, else ``key = v_d^2 / w[h_d]``), (2,) ``[v_d,
     v_b]`` otherwise; ``idx`` (2,) int32 the global indices (``BIG_INDEX``
-    stays). One thread on the card."""
+    stays). One thread on the card: the window boundary's pack; within a
+    window K2's tail packs (``colk_costs_sharded_tail``)."""
     _expect(vals, "vals", torch.float64, (2 if w is None else 5,))
     _expect(idx, "idx", torch.int32, (2,))
     if w is not None:

@@ -479,6 +479,16 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
 // thread 0 reads for base[k]: the rewrite waits for the last ticket and
 // for that store, and h_ptr is not __restrict__, since the tail writes its
 // element through s.h.
+// PACK (the sharded loop's K2, after its tail) then writes the slice's
+// candidates into the all_gather send buffers, as csrc/sharded_step.cu's
+// sharded_pack does from the stored candidates: send_v = [v_d, v_b] f64,
+// with w[h_d], w[h_b] (1 with no eligible column) and key = v_d^2 / w[h_d]
+// (-inf with none) under devex; send_i the global indices (offset + h,
+// BIG_INDEX kept). The last block's thread 0 loads the two weights past L1
+// after its own store of w[h]. Other R blocks' threads wrote the rest of
+// w; each block's barrier and its thread 0's fence before the ticket
+// release those writes (PTX fences are cumulative). Without PACK the send
+// pointers are unread and the kernel is the single-card one.
 
 constexpr int COLK_COLS = 64;    // columns per R block
 constexpr int COLK_ROWS = 128;   // live C rows staged per pass of the chain
@@ -521,7 +531,7 @@ __device__ __forceinline__ void colk_stage(const float *__restrict__ C,
         fk[s] = F[(size_t)(s0 + s) * M + k];
 }
 
-template <bool TAIL>
+template <bool TAIL, bool PACK = false>
 __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         const float *__restrict__ Tt, float *__restrict__ C,
         float *__restrict__ F, double *__restrict__ costs,
@@ -535,7 +545,8 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         int offset, const float *__restrict__ wh_ptr,
         unsigned char *__restrict__ ws_bytes, int *__restrict__ hd_out,
         double *__restrict__ vd_out, int *__restrict__ hb_out,
-        double *__restrict__ vb_out, Step s, step::Policy pol) {
+        double *__restrict__ vb_out, double *__restrict__ send_v,
+        int *__restrict__ send_i, Step s, step::Policy pol) {
     const int k = min(*k_ptr, M - 1);            // k = BIG when unbounded
     const bool apply = *do_ptr != 0;
     const int tid = threadIdx.x;
@@ -714,6 +725,21 @@ __global__ void __launch_bounds__(THREADS) colk_costs_fused(
         // The step after K2 on the do flag and the candidates in registers;
         // its step before K1 rewrites h, read above for the last time.
         if (TAIL) step::post(s, post, apply, c, pol);
+        if (PACK) {
+            // The slice's candidates into the send buffers, from registers.
+            send_v[0] = c.v_d;
+            send_v[1] = c.v_b;
+            if (w != nullptr) {
+                const bool has = c.h_b < BIG_INDEX;
+                const double wd = (double)__ldcg(w + min(c.h_d, R - 1));
+                send_v[2] = wd;
+                send_v[3] = has ? (double)__ldcg(w + min(c.h_b, R - 1)) : 1.0;
+                send_v[4] = has ? __ddiv_rn(__dmul_rn(c.v_d, c.v_d), wd)
+                                : -CUDART_INF;
+            }
+            send_i[0] = c.h_d >= BIG_INDEX ? BIG_INDEX : offset + c.h_d;
+            send_i[1] = c.h_b >= BIG_INDEX ? BIG_INDEX : offset + c.h_b;
+        }
     }
 }
 
@@ -1111,7 +1137,8 @@ int ah_launch(const float *Tt, const float *F, const float *C, const int *h,
 
 // ``step`` null: K2 alone; else K2 with the step after K2 as its tail, on
 // those scalars, under max_iter, eps, the Bland mode and threshold, and
-// then_pre.
+// then_pre; with ``send_v`` and ``send_i`` also the pack after it (the
+// sharded loop's, which needs the tail).
 int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       const int *k, int t, const double *u,
                       const unsigned char *do_flag, int r, double eps, int M,
@@ -1120,25 +1147,34 @@ int colk_costs_launch(const float *Tt, float *C, float *F, double *costs,
                       float *w, int offset, const float *wh,
                       unsigned char *ws, long long ws_bytes,
                       int *hd_out, double *vd_out, int *hb_out,
-                      double *vb_out, const Step *step, long long max_iter,
-                      int bland_mode, int threshold, int then_pre,
-                      void *stream) {
+                      double *vb_out, double *send_v, int *send_i,
+                      const Step *step, long long max_iter, int bland_mode,
+                      int threshold, int then_pre, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int n_rblocks = (R + COLK_COLS - 1) / COLK_COLS;
     const int n_mblocks = (M + THREADS - 1) / THREADS;
     if (ws_bytes < (long long)colk_ws_bytes(n_rblocks))
         return (int)cudaErrorInvalidValue;       // workspace too small
+    const bool pack = send_v != nullptr;
+    if (pack != (send_i != nullptr) || (pack && step == nullptr))
+        return (int)cudaErrorInvalidValue;       // a pack needs both, a tail
     const step::Policy pol{max_iter, eps, bland_mode, threshold, then_pre};
+    const dim3 grid(n_rblocks + n_mblocks);
     if (step == nullptr)
-        colk_costs_fused<false><<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
+        colk_costs_fused<false><<<grid, THREADS, 0, st>>>(
             Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah,
             b, base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out,
-            vb_out, Step{}, pol);
+            vb_out, nullptr, nullptr, Step{}, pol);
+    else if (!pack)
+        colk_costs_fused<true><<<grid, THREADS, 0, st>>>(
+            Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah,
+            b, base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out,
+            vb_out, nullptr, nullptr, *step, pol);
     else
-        colk_costs_fused<true><<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
+        colk_costs_fused<true, true><<<grid, THREADS, 0, st>>>(
             Tt, C, F, costs, k, t, u, do_flag, r, eps, M, R, n_rblocks, ah,
             b, base, h, p, bk, w, offset, wh, ws, hd_out, vd_out, hb_out,
-            vb_out, *step, pol);
+            vb_out, send_v, send_i, *step, pol);
     RETURN_IF_ERROR();
     return 0;
 }

@@ -9,8 +9,9 @@
 // pivots is one CUDA graph: sharded_step_pre, then per pivot K5 (for every
 // pivot but the first with the fold and the step before K5 as its head,
 // csrc/blocked.cu), the all_reduce, sharded_ratio, K2 with the step after
-// K2 as its tail (step.cuh step::post), sharded_pack and the two
-// all_gathers, then sharded_fold: 6L + 2 nodes at one rank.
+// K2 (step.cuh step::post) and the pack into the send buffers as its tail
+// (csrc/blocked.cu colk_costs_fused with PACK), and the two all_gathers,
+// then sharded_fold: 5L + 2 nodes at one rank.
 //
 // * sharded_step_pre (one thread): active, h, minc and optimal as the
 //   single-card step_pre, then h's local index in the slice and whether
@@ -23,7 +24,11 @@
 // * sharded_pack (one thread): the slice's candidates from K2 into the
 //   all_gather send buffers: [v_d, v_b, w at h_d, w at h_b, key] f64 with
 //   key = v_d^2 / w_d (-inf with no eligible column) under devex, [v_d,
-//   v_b] otherwise; the candidates' global indices int32.
+//   v_b] otherwise; the candidates' global indices int32 -- the window
+//   boundary's pack, after the re-pricing's candidates. Within a window
+//   K2's tail packs the same values from its registers, in place of
+//   this kernel's node a pivot (1.4 us a call on NVIDIA H100 80GB HBM3,
+//   700.00 W, PERF.md).
 // * sharded_fold (one thread): the fold of the gathered candidates
 //   (sharded_step.cuh sharded::fold) -- the window's last node, and the
 //   boundary's fold after its re-pricing. Within a window the fold runs

@@ -507,10 +507,11 @@ def run_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
     K5 (the owner's column, zeros elsewhere; for every pivot but the first
     with the fold of the candidates gathered after the pivot before and
     the step before K5 as its head), its ``all_reduce``, the ratio test,
-    K2 on the slice with the step after K2 as its tail, the pack and the
-    two candidate ``all_gather``s; then the fold of the last pivot's
-    (``sharded_fold``). The step after K2 runs before the fold that the
-    sharded loop first ran ahead of it: the two touch disjoint fields.
+    K2 on the slice with the step after K2 and the pack of the slice's
+    candidates into the send buffers as its tail, and the two candidate
+    ``all_gather``s; then the fold of the last pivot's (``sharded_fold``).
+    The step after K2 runs before the fold that the sharded loop first
+    ran ahead of it: the two touch disjoint fields.
     ``t`` is a constant of each call: the body that a CUDA graph captures,
     collectives included."""
     eps = float(options.eps_resolved)
@@ -531,8 +532,8 @@ def run_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
         colk_costs_sharded_tail(
             loop.Tt, loop.C, loop.F, loop.costs, t, loop.r_loc, eps,
             loop.ah, loop.b, loop.base, loop.w, s, max_iter, loop.ws_k2,
-            offset=sh.offset, **policy)
-        sharded_pack(s, loop.w, sh.offset, loop.send_v, loop.send_i)
+            offset=sh.offset, send_v=loop.send_v, send_i=loop.send_i,
+            **policy)
         all_gather_into(loop.recv_v, loop.send_v, sh.group)
         all_gather_into(loop.recv_i, loop.send_i, sh.group)
     sharded_fold(s, loop.recv_v, loop.recv_i)
@@ -575,9 +576,9 @@ def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,
     other ranks), one (M_pad,) ``all_reduce`` sums it in place, the ratio
     step runs the ratio test on it in f64 (as K1's), K2 builds the
     slice's pivot row into ``C[t]``, updates the slice's costs and devex
-    weights and the replicated b, base and eta row ``F[t]``, and folds the
-    slice's candidates, which the pack step and two ``all_gather``s fold
-    across the ranks, carrying the weights at both candidates; the step
+    weights and the replicated b, base and eta row ``F[t]``, and folds and
+    packs the slice's candidates, which two ``all_gather``s fold across
+    the ranks, carrying the weights at both candidates; the step
     kernels (``kernels.blocked.sharded_*``) carry the scalar glue. Per
     window: the devex re-anchor's global max (one ``all_gather``); then
     either K4 (off cadence) or the basic-cost ``all_reduce``, K3, the

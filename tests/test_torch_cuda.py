@@ -1174,12 +1174,13 @@ def _card_window(P, devex, seed, dev):
 def test_sharded_tail_and_head_match_plain_chains_on_card(cuda, devex,
                                                           policy):
     """Six pivots of the sharded window at P = 1, 2 and 4 two ways on the
-    same card tensors: K5 with its head and K2 with its sharded tail, and
-    their plain chains -- ``sharded_fold_plain`` and
-    ``sharded_step_pre_plain`` then K5 without its head, K2 without its
-    tail then ``step_post_plain`` -- every scalar, column and vector bit
-    for bit after each pivot; the head and the tail count a launch beside
-    their carriers'."""
+    same card tensors: K5 with its head and K2 with its sharded tail (the
+    step after K2 and the pack into the gathered buffers), and their
+    plain chains -- ``sharded_fold_plain`` and ``sharded_step_pre_plain``
+    then K5 without its head, K2 without its tail then ``step_post_plain``
+    and ``sharded_pack_plain`` -- every scalar, column, vector and
+    gathered buffer bit for bit after each pivot; the head and the tails
+    count a launch beside their carriers'."""
     bland_static, threshold = policy
     eps, pivots = 1e-4, 6
     for P in (1, 2, 4):
@@ -1217,7 +1218,8 @@ def test_sharded_tail_and_head_match_plain_chains_on_card(cuda, devex,
                             *args, t, 128, eps, x["ah"], x["b"], x["base"],
                             x["w"], s, 10, x["ws"],
                             offset=x["where"]["offset"],
-                            bland_static=bland_static, threshold=threshold)
+                            bland_static=bland_static, threshold=threshold,
+                            send_v=V[rank], send_i=I[rank])
                     else:
                         kb.colk_costs(
                             *args, s.k, t, s.u, s.do, 128, eps, x["ah"],
@@ -1227,8 +1229,11 @@ def test_sharded_tail_and_head_match_plain_chains_on_card(cuda, devex,
                             w_h=None if x["w"] is None else s.wh)
                         kb.step_post_plain(s, 10, eps, bland_static,
                                            threshold, False)
-                    kb.sharded_pack_plain(s, x["w"], x["where"]["offset"],
-                                          V[rank], I[rank])
+                        kb.sharded_pack_plain(s, x["w"],
+                                              x["where"]["offset"], V[rank],
+                                              I[rank])
+            (V0, I0), (V1, I1) = gathered
+            assert torch.equal(V0, V1) and torch.equal(I0, I1), (P, t)
             for rank, (a, b_) in enumerate(zip(*runs)):
                 for name, x in a["s"].tensors().items():
                     assert torch.equal(x, getattr(b_["s"], name)), (
@@ -1238,10 +1243,138 @@ def test_sharded_tail_and_head_match_plain_chains_on_card(cuda, devex,
                         assert torch.equal(a[name], b_[name]), (
                             P, t, rank, name)
         assert (kb.LAUNCHES["sharded_fold_head"],
-                kb.LAUNCHES["sharded_post_tail"]) == (
-                    P * (pivots - 1), P * pivots)
+                kb.LAUNCHES["sharded_post_tail"],
+                kb.LAUNCHES["sharded_pack_tail"]) == (
+                    P * (pivots - 1), P * pivots, P * pivots)
+        assert kb.LAUNCHES["sharded_pack"] == 0
         assert kb.LAUNCHES["ah"] == 2 * P * pivots
         assert kb.LAUNCHES["colk_costs"] == 2 * P * pivots
+
+
+def _card_pack_slices(case, P, devex, seed, dev):
+    """K2's operands on P slices of 384 columns (six of K2's blocks; M =
+    256, L = 8, t = 3) and a pivot it takes or skips: "seeded" taken,
+    random; "nan_weights" skipped, NaN weights on a third of the columns
+    and at each slice's column 0; "no_eligible" skipped, every cost
+    positive; "h_candidate" taken, h (on the last slice, its column 5)
+    the most negative cost and the first eligible one there;
+    "cross_block_tie" skipped, equal costs and weights at columns 10 and
+    330 (blocks 0 and 5) of every slice."""
+    rng = np.random.default_rng(seed)
+    M, R_loc, L, t = 256, 384, 8, 3
+    R = P * R_loc
+    Tt = rng.uniform(-1, 1, (M, R)).astype(np.float32)
+    C = rng.uniform(-1, 1, (L, R)).astype(np.float32)
+    F = rng.uniform(-0.1, 0.1, (L, M)).astype(np.float32)
+    C[t:] = 0
+    F[t:] = 0
+    costs = rng.uniform(-1, 1, R)
+    w = rng.uniform(1, 3, R).astype(np.float32)
+    ah = rng.uniform(-1, 1, M).astype(np.float32)
+    k = int(rng.integers(0, M))
+    ah[k] = 0.9
+    h = int(rng.integers(0, R))
+    do = case in ("seeded", "h_candidate")
+    if case == "nan_weights":
+        w[rng.random(R) < 1 / 3] = np.nan
+        w[::R_loc] = np.nan
+    elif case == "no_eligible":
+        costs = np.abs(costs) + 0.1
+    elif case == "h_candidate":
+        h = (P - 1) * R_loc + 5
+        costs[h - 5:h] = 20.0
+        costs[h] = -50.0
+    elif case == "cross_block_tie":
+        for c0 in range(0, R, R_loc):
+            costs[c0 + 10] = costs[c0 + 330] = -3.0
+            w[c0 + 10] = w[c0 + 330] = 2.0
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5), device=dev),
+                           False)
+    for name, v in dict(status=int(pst.Status.RUNNING), iterations=3,
+                        stall=4, active=True, optimal=False, unb=0, do=do,
+                        k=k, h=h, p=float(ah[k]) if do else 1.0,
+                        u=-0.7 / float(ah[k]) if do else 0.0,
+                        bk=rng.uniform(0, 1),
+                        wh=float(w[h]) if devex else 1.0).items():
+        getattr(s, name).fill_(v)
+    b = rng.uniform(0, 10, M)
+    base = rng.integers(0, R, M).astype(np.int32)
+    out = []
+    for rank in range(P):
+        cols = slice(rank * R_loc, (rank + 1) * R_loc)
+        x = dict(Tt=Tt[:, cols], C=C[:, cols], F=F, costs=costs[cols],
+                 w=w[cols] if devex else None, ah=ah, b=b, base=base)
+        x = {n: None if v is None else torch.from_numpy(
+            np.ascontiguousarray(v)).to(dev) for n, v in x.items()}
+        x.update(s=kb.ShardedScalars(**{n: v.clone() for n, v in
+                                        s.tensors().items()}),
+                 r=R_loc - (5 if rank == P - 1 and case == "seeded" else 0),
+                 offset=rank * R_loc, ws=kb.colk_workspace(R_loc, dev))
+        out.append(x)
+    return out
+
+
+@pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
+def test_pack_tail_matches_plain_chain_on_card(cuda, devex):
+    """K2 with the step after K2 and the pack as its tail against K2 with
+    the step alone and then the pack -- the boundary's ``sharded_pack``
+    kernel and ``sharded_pack_plain`` -- on the same card tensors, at P =
+    1, 2 and 4 under the five cases of ``_card_pack_slices``: the send
+    buffers, every scalar and every vector bit for bit, a NaN equal to a
+    NaN; one launch of ``sharded_pack_tail`` a tail."""
+    kv = 5 if devex else 2
+    n = 0
+    for case in ("seeded", "nan_weights", "no_eligible", "h_candidate",
+                 "cross_block_tie"):
+        for P in (1, 2, 4):
+            slices = _card_pack_slices(case, P, devex, 60 + P, cuda)
+            runs = []
+            kb.reset_launches()
+            for way in ("tail", "kernel", "plain"):
+                V = torch.full((P, kv), -7.0, dtype=torch.float64,
+                               device=cuda)
+                I = torch.full((P, 2), -7, dtype=torch.int32, device=cuda)
+                states = []
+                for rank, x0 in enumerate(slices):
+                    x = {n_: v.clone() if isinstance(v, torch.Tensor)
+                         else v for n_, v in x0.items() if n_ != "s"}
+                    sc = kb.ShardedScalars(**{n_: v.clone() for n_, v in
+                                              x0["s"].tensors().items()})
+                    send = (dict(send_v=V[rank], send_i=I[rank])
+                            if way == "tail" else {})
+                    kb.colk_costs_sharded_tail(
+                        x["Tt"], x["C"], x["F"], x["costs"], 3, x["r"],
+                        1e-4, x["ah"], x["b"], x["base"], x["w"], sc, 10,
+                        x["ws"], offset=x["offset"], bland_static=False,
+                        threshold=50, **send)
+                    if way != "tail":
+                        (kb.sharded_pack if way == "kernel" else
+                         kb.sharded_pack_plain)(sc, x["w"], x["offset"],
+                                                V[rank], I[rank])
+                    states.append((sc, x))
+                runs.append((V, I, states))
+            assert (kb.LAUNCHES["sharded_pack_tail"],
+                    kb.LAUNCHES["sharded_pack"],
+                    kb.LAUNCHES["sharded_post_tail"]) == (P, P, 3 * P)
+            (V, I, st), *others = runs
+            for V2, I2, st2 in others:
+                assert _same(V, V2) and torch.equal(I, I2), (case, P, V, V2)
+                for (sa, xa), (sb, xb) in zip(st, st2):
+                    for name, x in sa.tensors().items():
+                        assert _same(x, getattr(sb, name)), (case, P, name)
+                    for name in ("C", "F", "costs", "w", "b", "base"):
+                        if xa[name] is not None:
+                            assert _same(xa[name], xb[name]), (case, P, name)
+            last = st[-1][0]
+            if case == "h_candidate":
+                assert int(last.h_d) == int(last.h_b) == 5
+            elif case == "cross_block_tie":
+                assert (I[:, 0] == torch.arange(P, device=cuda) * 384
+                        + 10).all()
+            elif case == "no_eligible":
+                assert (I[:, 1] == kb.BIG_INDEX).all()
+            n += 1
+    assert n == 15
 
 
 @pytest.mark.parametrize("devex", [True, False], ids=["devex", "dantzig"])
@@ -1368,6 +1501,10 @@ def test_sharded_loop_graph_matches_eager_on_card(cuda, monkeypatch,
             assert gl == el and gc == ec, rule
             for name in ("ah", "colk_costs", "sharded_step_pre",
                          "sharded_ratio", "sharded_pack", "sharded_fold",
-                         "sharded_post_tail", "sharded_fold_head"):
+                         "sharded_post_tail", "sharded_pack_tail",
+                         "sharded_fold_head"):
                 assert gl[name] > 0, name
             assert gl["ah_ratio"] == 0
+            # K2 packs every pivot; sharded_pack only at the boundaries.
+            assert gl["sharded_pack_tail"] == gl["sharded_post_tail"]
+            assert gl["sharded_pack"] < gl["sharded_pack_tail"]

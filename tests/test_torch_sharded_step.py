@@ -9,11 +9,18 @@
   skipped, at the fuse, optimal, unbounded, Bland on and off, a rank with
   no eligible column, ties across ranks) at P = 1, 2 and 4, under devex
   and Dantzig and each anti-cycling policy.
-* The window's new order (K2 with the step after K2 as its tail, K5 with
-  the fold and the next step before K5 as its head, ``sharded_fold``
-  last) against the order it replaced (``sharded_step_post_plain`` after
+* The window's new order (K2 with the step after K2 and the pack as its
+  tail, K5 with the fold and the next step before K5 as its head,
+  ``sharded_fold`` last) against the order it replaced
+  (``sharded_pack_plain`` after K2, ``sharded_step_post_plain`` after
   the gathers) on the same grid, every scalar and vector equal; the
-  ratio test's edge cases; the window's launches in order.
+  ratio test's edge cases; the window's launches in order, with
+  ``sharded_pack`` left only to the window boundary's fold.
+* K2's pack tail (``colk_costs_sharded_tail`` with the send buffers):
+  against the chain it replaced (the tail without them, then
+  ``sharded_pack_plain``) on two slices under devex and Dantzig, both
+  buffers or neither, and its launch's arguments and counts with the
+  library stubbed.
 * K2's plain version with a column offset and a given weight at h: at
   offset 0 bit for bit its single-card call, and on a two-slice cut the
   one-card result. K5's owner flag.
@@ -27,6 +34,7 @@
   in interpret mode), at the ROADMAP's holding rules.
 """
 
+import ctypes
 import dataclasses
 import itertools
 import tempfile
@@ -753,9 +761,9 @@ def _new_order(st, P, policy, seen_h):
     """The window as ``run_window_sharded`` now enqueues it, through the
     wrappers: the step before K5, then per pivot K5 (from the second on
     with the fold and the step before K5 as its head), the sum, the ratio
-    test, K2 with its sharded tail, the pack and the gathers; then
-    ``sharded_fold``. ``seen_h`` gets rank 0's h after each pivot's tail
-    and after the next head."""
+    test, K2 with its sharded tail and the pack into the send buffers,
+    and the gathers; then ``sharded_fold``. ``seen_h`` gets rank 0's h
+    after each pivot's tail and after the next head."""
     ranks = _ranks(st, P)
     V, Ix = _gathered(P, st["w"] is not None)
     for x in ranks:
@@ -779,9 +787,7 @@ def _new_order(st, P, policy, seen_h):
                 x["Tt"], x["C"], x["F"], x["costs"], t, x["r"], EPS, x["ah"],
                 x["b"], x["base"], x["w"], s, MAX_ITER,
                 offset=x["where"]["offset"], bland_static=policy[0],
-                threshold=policy[1])
-            kb.sharded_pack(s, x["w"], x["where"]["offset"], V[rank],
-                            Ix[rank])
+                threshold=policy[1], send_v=V[rank], send_i=Ix[rank])
     for x in ranks:
         kb.sharded_fold(x["s"], V, Ix)
     return ranks
@@ -792,9 +798,9 @@ def _new_order(st, P, policy, seen_h):
 @pytest.mark.parametrize("P", [1, 2, 4])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_new_order_matches_the_old_order(case, P, rule, policy):
-    """Three pivots of a window in the new order (the step after K2 as
-    K2's tail, the fold and the next step before K5 as K5's head,
-    ``sharded_fold`` last) and in the order it replaced: every rank's
+    """Three pivots of a window in the new order (the step after K2 and
+    the pack as K2's tail, the fold and the next step before K5 as K5's
+    head, ``sharded_fold`` last) and in the order it replaced: every rank's
     scalars, column, factors and vectors equal. The step after K2 now
     runs before the fold that used to precede it; the two touch disjoint
     fields. In a taken pivot the fold moves h between the tail and the
@@ -859,9 +865,11 @@ def test_sharded_ratio_edge_cases(edge):
 def test_window_launches_in_order(monkeypatch, tmp_path):
     """``run_window_sharded`` enqueues ``sharded_step_pre`` once; per
     pivot K5 (with its head from the second pivot on), the column's
-    all_reduce, the ratio test, K2 with its sharded tail, the pack and
-    the two all_gathers; then ``sharded_fold`` once. No standalone step
-    after the gathers is left."""
+    all_reduce, the ratio test, K2 with its sharded tail and the pack
+    into the send buffers, and the two all_gathers; then ``sharded_fold``
+    once. No standalone step after the gathers is left, and
+    ``sharded_pack`` runs only in the window boundary's fold
+    (``ShardedKernelLoop.refold``), before its gathers."""
     calls = []
 
     def record(name):
@@ -881,13 +889,168 @@ def test_window_launches_in_order(monkeypatch, tmp_path):
         for name in names:
             monkeypatch.setattr(ps, name, record(name))
         ps.run_window_sharded(loop, opts, 5000)
+        window = list(calls)
+        calls.clear()
+        loop.refold(float(opts.eps_resolved))
     L = int(opts.block_pivots)
     tail = ["all_reduce_", "sharded_ratio", "colk_costs_sharded_tail",
-            "sharded_pack", "all_gather_into", "all_gather_into"]
-    assert calls == (["sharded_step_pre", "ah"] + tail
-                     + (["ah_fold_head"] + tail) * (L - 1)
-                     + ["sharded_fold"])
+            "all_gather_into", "all_gather_into"]
+    assert window == (["sharded_step_pre", "ah"] + tail
+                      + (["ah_fold_head"] + tail) * (L - 1)
+                      + ["sharded_fold"])
+    assert calls == ["sharded_pack", "all_gather_into", "all_gather_into",
+                     "sharded_fold"]
     assert not hasattr(kb, "sharded_step_post")
     assert "sharded_step_post" not in kb.LAUNCHES
     assert kb.TAILS["sharded_post_tail"] == "colk_costs"
+    assert kb.TAILS["sharded_pack_tail"] == "colk_costs"
     assert kb.TAILS["sharded_fold_head"] == "ah"
+
+
+# ---------------------------------------------------------------------------
+# K2's pack tail: its wiring. On the CPU the tail is by definition the
+# chain it replaced; the card's kernel is held to that chain over the NaN,
+# tie and no-eligible cases in tests/test_torch_cuda.py and chip_smoke.py.
+
+PACK_M, PACK_R, PACK_L, PACK_T, PACK_P = 128, 128, 8, 3, 2
+
+
+def _pack_state(devex, seed):
+    """One K2 call's operands on ``PACK_P`` slices of ``PACK_R`` columns
+    (M = 128, L = 8, t = 3) and the scalars of a taken pivot whose
+    entering column h, in the last slice, stays by far its most negative
+    cost and its first eligible one: both of that slice's candidates are
+    h, whose weight K2 raises."""
+    rng = np.random.default_rng(seed)
+    R = PACK_P * PACK_R
+    f32 = np.float32
+    Tt = rng.uniform(-1, 1, (PACK_M, R)).astype(f32)
+    C = rng.uniform(-1, 1, (PACK_L, R)).astype(f32)
+    F = rng.uniform(-0.1, 0.1, (PACK_L, PACK_M)).astype(f32)
+    C[PACK_T:] = 0
+    F[PACK_T:] = 0
+    costs = rng.uniform(-1, 1, R)
+    w = rng.uniform(1, 3, R).astype(f32)
+    ah = rng.uniform(-1, 1, PACK_M).astype(f32)
+    k = int(rng.integers(0, PACK_M))
+    ah[k] = 0.9
+    h = (PACK_P - 1) * PACK_R + 5
+    costs[h - 5:h] = 20.0
+    costs[h] = -50.0
+    Tt[k, h] = 2 * ah[k]              # alpha about 2: w[h] grows
+    s = kb.sharded_scalars(torch.tensor(rng.uniform(-5, 5)), False)
+    vals = dict(status=RUNNING, iterations=3, stall=4, active=True,
+                optimal=False, unb=0, do=True, k=k, h=h, p=float(ah[k]),
+                u=-0.7 / float(ah[k]), bk=rng.uniform(0, 1),
+                wh=float(w[h]) if devex else 1.0)
+    for name, v in vals.items():
+        getattr(s, name).fill_(v)
+    ranks = []
+    for rank in range(PACK_P):
+        cols = slice(rank * PACK_R, (rank + 1) * PACK_R)
+        ranks.append(dict(
+            s=_clone(s), Tt=torch.from_numpy(Tt[:, cols].copy()),
+            C=torch.from_numpy(C[:, cols].copy()),
+            F=torch.from_numpy(F.copy()),
+            costs=torch.from_numpy(costs[cols].copy()),
+            w=torch.from_numpy(w[cols].copy()) if devex else None,
+            ah=torch.from_numpy(ah.copy()),
+            b=torch.from_numpy(rng.uniform(0, 10, PACK_M)),
+            base=torch.from_numpy(rng.integers(0, R, PACK_M)
+                                  .astype(np.int32)),
+            offset=rank * PACK_R))
+    return ranks
+
+
+def _pack_tail(x, **send):
+    kb.colk_costs_sharded_tail(
+        x["Tt"], x["C"], x["F"], x["costs"], PACK_T, PACK_R, EPS, x["ah"],
+        x["b"], x["base"], x["w"], x["s"], MAX_ITER, offset=x["offset"],
+        bland_static=False, threshold=50, **send)
+
+
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_pack_tail_matches_the_old_chain(rule):
+    """K2 with the step after K2 and the pack as its tail against K2 with
+    the step alone and then ``sharded_pack_plain``, on each of two
+    slices: the gathered send buffers, every scalar and every vector
+    equal. The pack follows K2: the last slice sends h at its global
+    index, under devex with the weight K2 left at h."""
+    devex = rule == "devex"
+    ranks = _pack_state(devex, seed=11)
+    runs = []
+    for tail in (True, False):
+        V, Ix = _gathered(PACK_P, devex)
+        states = []
+        for rank, x0 in enumerate(ranks):
+            x = {n: v.clone() if isinstance(v, torch.Tensor) else v
+                 for n, v in x0.items()}
+            x["s"] = _clone(x0["s"])
+            if tail:
+                _pack_tail(x, send_v=V[rank], send_i=Ix[rank])
+            else:
+                _pack_tail(x)
+                kb.sharded_pack_plain(x["s"], x["w"], x["offset"], V[rank],
+                                      Ix[rank])
+            states.append(x)
+        runs.append((states, V, Ix))
+    (new, Vn, In), (old, Vo, Io) = runs
+    assert torch.equal(Vn, Vo) and torch.equal(In, Io)
+    for rank, (a, b_) in enumerate(zip(new, old)):
+        for name, x in a["s"].tensors().items():
+            assert torch.equal(x, getattr(b_["s"], name)), (rank, name)
+        for name in ("C", "F", "costs", "w", "b", "base"):
+            if a[name] is not None:
+                assert torch.equal(a[name], b_[name]), (rank, name)
+    last = new[-1]
+    h = int(last["s"].h)
+    assert int(last["s"].h_d) == int(last["s"].h_b) == 5
+    assert In[-1].tolist() == [h, h]
+    if devex:
+        assert float(Vn[-1, 2]) == float(Vn[-1, 3]) == float(last["w"][5])
+        assert float(last["w"][5]) != float(ranks[-1]["w"][5])
+
+
+def test_pack_tail_takes_both_buffers():
+    x = _pack_state(True, seed=2)[0]
+    with pytest.raises(ValueError, match="both or neither"):
+        _pack_tail(x, send_v=torch.empty(5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="send_v"):
+        _pack_tail(x, send_v=torch.empty(2, dtype=torch.float64),
+                   send_i=torch.empty(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_pack_tail_launch_is_wired(monkeypatch, pack):
+    """The card's path, its library stubbed: one ``colk_costs_launch`` with
+    as many arguments as its ctypes signature, the send buffers' pointers
+    after the four candidates' (null without a pack) and the step's
+    pointers given; the launch counts ``colk_costs`` and
+    ``sharded_post_tail``, and ``sharded_pack_tail`` with the buffers."""
+    from simplex_tpu_torch.kernels import _build
+
+    got = []
+
+    class Lib:
+        def colk_costs_launch(self, *args):
+            got.append(args)
+            return 0
+
+    monkeypatch.setattr(kb, "_on_card", lambda *a: True)
+    monkeypatch.setattr(kb, "_stream", lambda x: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    x = _pack_state(True, seed=3)[1]
+    V, Ix = _gathered(PACK_P, True)
+    kb.reset_launches()
+    _pack_tail(x, **(dict(send_v=V[1], send_i=Ix[1]) if pack else {}))
+    (args,) = got
+    assert len(args) == len(_build.SIGNATURES["colk_costs_launch"])
+    ptrs = [a.value or 0 for a in args[23:29]]
+    assert ptrs[:4] == [x["s"].h_d.data_ptr(), x["s"].v_d.data_ptr(),
+                        x["s"].h_b.data_ptr(), x["s"].v_b.data_ptr()]
+    assert ptrs[4:] == ([V[1].data_ptr(), Ix[1].data_ptr()] if pack
+                        else [0, 0])
+    assert args[29] is not None
+    assert kb.LAUNCHES["colk_costs"] == kb.LAUNCHES["sharded_post_tail"] == 1
+    assert kb.LAUNCHES["sharded_pack_tail"] == int(pack)
+    assert kb.LAUNCHES["sharded_pack"] == 0

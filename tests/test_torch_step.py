@@ -313,6 +313,7 @@ def test_run_window_launches_two_kernels_a_pivot(monkeypatch):
     assert kb.TAILS == {"step_mid_tail": "ah_ratio",
                         "step_post_tail": "colk_costs",
                         "sharded_post_tail": "colk_costs",
+                        "sharded_pack_tail": "colk_costs",
                         "sharded_fold_head": "ah"}
 
 
