@@ -12,16 +12,25 @@ Phases, in order; any failed check exits non-zero:
 2. the example goldens through ``solve(..., device="cuda")`` with the
    default options (f64 tableau, the sequential reference loop), then
    with the production options;
-3. the f64 reference path: random_1024_1024 and random_8192_8192 with
-   the default options (the 8192^2 solve twice, the same walk both
-   times), objectives within 1e-9 of the certified goldens, the pivot
-   counts printed beside the JAX package's TPU record and the reference
-   CUDA program's;
+3. the f64 reference path (the default options: the sequential loop as
+   one CUDA graph a chunk of 32 pivots): random_1024_1024 three ways in
+   turns -- graphed, ``graph=False`` and the old eager
+   ``iteration_body`` -- each loop call ending with the graph run's state
+   bit for bit, then random_8192_8192 twice graphed (the sequential
+   kernels' counters set to 0 just before the first and read just
+   after), objectives within 1e-9 of the certified goldens, the walks
+   the recorded 1,871 + 64 and 21,697 + 1,123, each run's loop ms/pivot,
+   capture ms and nodes a pivot (3 + 1/32 by the captured launch counts)
+   printed beside the JAX package's TPU record and the reference CUDA
+   program's;
 4. K6's path: random_2048_2048 through ``solve(dtype="float32",
-   vector_dtype="float32", use_pallas=True)`` -- K6's launch counter
-   reset just before and read just after -- then the 10,000 x 100,000 phase-1 tableau for 256
-   pivots through ``solve_loop_pallas`` on the kernel and again on its
-   plain version (the same choices, the same tableau);
+   vector_dtype="float32", use_pallas=True)`` -- K6's and the
+   sequential kernels' launch counters reset just before and read just
+   after -- graphed, then with ``graph=False`` (the recorded walk 4,594 +
+   342 both times, every loop call's state bit for bit, 4 + 1/32 kernels
+   a pivot), then the 10,000 x 100,000 phase-1 tableau for 256 pivots
+   through ``solve_loop_pallas`` graphed and with ``graph=False`` (the
+   same state bit for bit);
 5. the plain blocked loop: random_2048_2048 with ``dtype=float64,
    block_pivots=128``, no K1-K4 launch;
 6. the CLI (``python -m simplex_tpu_torch.cli``): a problem file, the
@@ -133,8 +142,8 @@ Phases, in order; any failed check exits non-zero:
    finish's);
 10d. the benchmark entry points, each a process as a user starts it
    (``phase_bench``): ``python -m simplex_tpu_torch.bench`` at the
-   north-star defaults with ``--repeats 2`` (devex, then Dantzig) and
-   again on K6's path (``--block 0 --vector-dtype float32 --iters 64``),
+   north-star defaults with ``--repeats 5`` (devex, then Dantzig) and
+   again on K6's path (``--block 0 --vector-dtype float32 --iters 256``),
    each printing one JSON line with the key set of ``bench.py``, a
    positive value and a floor below its marginal; ``bench_batch`` at
    config 3 with ``--repeats 1``, ending in ``BENCH_BATCH_OK``; and
@@ -174,7 +183,13 @@ Phases, in order; any failed check exits non-zero:
    (``addr_`` a lane), with a lane left out untouched, rows of whole
    16-byte vectors and not (R = 63, 64 and 2,999), how many elements
    ``addcmul_`` and ``baddbmm_`` give otherwise, its plan printed, and
-   its time with a quarter of the lanes live and at R = 2,999;
+   its time with a quarter of the lanes live and at R = 2,999; the
+   sequential loops' kernels (``seq_step_pre``, ``seq_ratio``,
+   ``seq_colk`` and ``seq_rank1`` at the 8192^2 f64 tableau,
+   ``seq_snapshot`` and K6 with its tail at 2048^2 f32) against their
+   plain versions from 24 seeded states each (a NaN in b, a tie, no
+   eligible row, Bland, the fuse), bit for bit, ``seq_rank1`` in turns
+   with ``batch_rank1`` at one lane and ``addr_``;
    each timed on the device by two clocks -- torch.profiler, and CUDA
    events (over a CUDA graph of 50 calls for K1, K2 and K5, over
    back-to-back calls for the rest) -- beside its bound and, where one
@@ -183,8 +198,11 @@ Phases, in order; any failed check exits non-zero:
    share), and the flagship's phase-1 loop traced, single-card and
    sharded at one NCCL rank (the kernels -- and the NCCL nodes, 5 + 2/L
    of them -- a pivot of a replayed window, the device's busy share
-   inside a window and over its period). These run last so that no profiler run precedes
-   the timed solves.
+   inside a window and over its period), and the sequential loops'
+   phase-1 loop calls (random_1024_1024 f64, K6's random_2048_2048: the
+   kernels a pivot of each replayed chunk, the device's busy share
+   inside a chunk and over its period). These run last so that no
+   profiler run precedes the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over HBM's 3.35 TB/s and its
@@ -196,7 +214,8 @@ kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 ``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
 or K2's time with it less their time without -- and the sharded step
 kernels with K2's sharded tails, the step after K2 and the pack, and
-K5's head, which replace XLA-fused glue, no Pallas kernel;
+K5's head, and the sequential loops' kernels with K6's tail, which
+replace XLA-fused glue, no Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -364,10 +383,53 @@ FALLBACK_KERNELS = {
     "batch_rank1": ("fallback", "simplex_tpu/solver.py:51",
                     "simplex_tpu_torch/kernels/csrc/pivot.cu"),
 }
+#: The sequential loops' per-pivot kernels (kernels/seq.py): the JAX
+#: loops' XLA-fused pivot (no Pallas kernel but K6), each replacing the
+#: lines it ports -- seq_step_pre once a chunk, seq_ratio, seq_colk and
+#: seq_rank1 a pivot of the default loop, seq_ratio, seq_snapshot and K6
+#: with the step after as its fold's tail a pivot of the K6 loop.
+SEQ_SOURCE = "simplex_tpu_torch/kernels/csrc/seq.cu"
+SEQ_KERNELS = {
+    "seq_step_pre": ("glue", "simplex_tpu/solver.py:79", SEQ_SOURCE),
+    "seq_ratio": ("glue", "simplex_tpu/solver.py:99; "
+                  "simplex_tpu/solver.py:127", SEQ_SOURCE),
+    "seq_colk": ("glue", "simplex_tpu/solver.py:72; "
+                 "simplex_tpu/solver.py:79", SEQ_SOURCE),
+    "seq_rank1": ("glue", "simplex_tpu/solver.py:70",
+                  "simplex_tpu_torch/kernels/csrc/pivot.cu"),
+    "seq_snapshot": ("glue", "simplex_tpu/solver.py:253", SEQ_SOURCE),
+    "seq_k6_tail": ("glue", "simplex_tpu/solver.py:258",
+                    "simplex_tpu_torch/kernels/csrc/pivot.cu"),
+}
+SEQS = tuple(SEQ_KERNELS)
+#: Bytes the one-thread steps move on a taken pivot outside Bland mode,
+#: each input read once and each output written once (csrc/seq_step.cuh):
+#: seq_step_pre reads status, iterations, bland, h_d, v_d, h_b and v_b (33
+#: in f64) and writes active, h, minc and optimal (14); K6's tail (pure
+#: f32) reads z, u, bk, status, iterations, stall, bland, active,
+#: optimal, unb, do and the carried candidates (45; the new ones are in
+#: registers), writes the candidates, status, stall, bland, iterations and
+#: z (33) and as the next pivot's step before 10.
+SEQ_STEP_BYTES = {"seq_step_pre": 47, "seq_k6_tail": 88}
+#: The sequential loops' recorded walks (phase 1, phase 2) on the card:
+#: the default options at 1024^2 and 8192^2 (data/measures/h100_f64's
+#: CSVs), K6's path at 2048^2 (data/measures/h100_logs/'s chip_smoke
+#: logs).
+F64_WALKS = {1024: (1871, 64), 8192: (21697, 1123)}
+K6_WALK = (4594, 342)
+#: K6's path: a pure-f32 tableau (without vector_dtype the vectors stay
+#: f64, the mixed mode, as in the JAX package).
+K6_OPTS = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
+#: (K6 loop, M, R, tableau dtype, vector dtype, eps) of the sequential
+#: kernels' check: the default loop at the 8192^2 f64 tableau, the K6 loop
+#: at 2048^2 pure f32.
+SEQ_KERNEL_SHAPES = ((False, 8192, 24576, "float64", "float64", 1e-9),
+                     (True, 2048, 6144, "float32", "float32", 1e-4))
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
-         "reprice", "batch_reprice", "batch_rank1", *STEPS, *SHARDED_STEPS)
+         "reprice", "batch_reprice", "batch_rank1", *STEPS, *SHARDED_STEPS,
+         *SEQS)
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
@@ -411,6 +473,55 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: Sessions of torch.profiler that one trace may take (see ``traced``).
+TRACE_TRIES = 3
+
+
+def saw_device(prof) -> bool:
+    """Whether a finished torch.profiler session recorded any event on the
+    card (a kernel or a copy)."""
+    from torch.autograd import DeviceType
+
+    return any(e.device_type == DeviceType.CUDA for e in prof.key_averages())
+
+
+def until_traced(run, what: str):
+    """``run()``, which traces work on the card with torch.profiler and
+    returns its finished profiler (or a tuple led by it), run again while
+    the session recorded no event on the card at all. CUPTI now and then
+    hands back such an empty session for work that launched kernels
+    (``tools/profiler_probe.py`` counts them); a second session then sees
+    them. Fails after ``TRACE_TRIES`` sessions, each empty one logged."""
+    for attempt in range(1, TRACE_TRIES + 1):
+        out = run()
+        if saw_device(out[0] if isinstance(out, tuple) else out):
+            return out
+        log(f"{what}: the profiler recorded no event on the card "
+            f"(session {attempt} of {TRACE_TRIES})")
+    raise SmokeFailure(f"{what}: the profiler recorded no event on the card "
+                       f"in {TRACE_TRIES} sessions")
+
+
+def traced(fn, reps: int, what: str):
+    """The torch.profiler session (CUDA activity) of ``reps`` back-to-back
+    calls of ``fn()`` ended by a synchronize, after one warm-up call; an
+    empty session is traced again (``until_traced``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return prof
+
+    return until_traced(run, what)
+
+
 def device_ms(fn, reps: int, match: str | None = None) -> float:
     """Device ms per call of ``fn()``: the summed durations of the kernels
     it launches, traced by torch.profiler (CUPTI) over ``reps`` calls
@@ -419,16 +530,9 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     The host's launch rate is left out: at these shapes one call of a
     per-pivot pass runs for microseconds, less than the host takes to
     enqueue it."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = traced(fn, reps, f"device_ms({match or 'all'})")
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and (match is None or match in e.key))
@@ -440,15 +544,9 @@ def kernels_launched(fn, match: str | None = None) -> int:
     """The number of kernels one call of ``fn()`` launches on the card,
     counted by torch.profiler after one warm-up call; with ``match``, only
     those whose name holds it."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = traced(fn, 1, f"kernels_launched({match or 'all'})")
     return sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and (match is None or match in e.key))
@@ -1833,8 +1931,13 @@ def phase_batch_trace() -> None:
     n, m, seeds = CONFIG3
     problems = [st.generate_random_problem(n, m, s, 1, 100) for s in seeds]
     stats: dict = {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = timed_batch(problems, stats)
+
+    def run():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = timed_batch(problems, stats)
+        return prof, out
+
+    prof, (_, wall) = until_traced(run, "config 3's trace")
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
@@ -1936,40 +2039,161 @@ def recorded_walks(n: int) -> tuple[str, str]:
             "+".join(str(v) for v in ref_walk))
 
 
-def phase_reference_f64() -> dict:
-    """The default options (f64 tableau, eps 1e-9, Dantzig, the sequential
-    loop; no refinement) on the reference's benchmarks, held to the
-    certified goldens at 1e-9; random_8192_8192 twice, with the same
-    walk. The pivot counts are printed beside the JAX package's and the
-    reference's records, not held to them: near-ties fall otherwise on
-    each machine."""
-    import torch
-
+def seq_nodes(pallas: bool) -> int:
+    """The nodes of a chunk's graph: ``seq_step_pre``, then per pivot
+    ``seq_ratio``, ``seq_colk`` and ``seq_rank1`` -- or ``seq_ratio``,
+    ``seq_snapshot`` and K6's two kernels (its tail none of its own)."""
     from simplex_tpu_torch.solver import SEQ_CHUNK
 
+    return (4 if pallas else 3) * SEQ_CHUNK + 1
+
+
+def old_solve_loop(tab, options, max_iter):
+    """The f64 sequential loop as it ran before its chunk's graph:
+    ``iteration_body`` (about 40 torch calls a pivot) driven by
+    ``_drive``, one host read a chunk."""
+    from simplex_tpu_torch import solver
+
+    state, st, it = solver._drive(
+        lambda s: solver.iteration_body(s, options, max_iter),
+        solver.initial_state(tab, options), max_iter)
+    return state.tab, st, it
+
+
+def seq_loops(p, opts: dict, way: str, pallas: bool = False,
+              keep: list | None = None, against: list | None = None) -> dict:
+    """One ``solve(p, **opts)`` with its sequential loop (``solve_loop``,
+    or ``solve_loop_pallas`` with ``pallas``) run ``way``: "graph" (one
+    CUDA graph a chunk, the default), "eager" (``graph=False``: the same
+    kernels enqueued eagerly) or "old" (``old_solve_loop``). Returns the
+    result, the solve's wall, each loop call's wall (host clock between
+    two synchronizes) and pivots, each capture's ms (``capture_chunk``:
+    the capture and the graph's instantiation) and the nodes a pivot of
+    each captured chunk by its launch counts, which must be
+    ``seq_nodes``. Each loop call's final state (Tt, b, costs, z, base,
+    status, iterations) is appended to ``keep`` as copies, or held to
+    ``against``'s bit for bit."""
+    import torch
+
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import seq as ks
+
+    name = "solve_loop_pallas" if pallas else "solve_loop"
+    real, real_capture = getattr(solver, name), solver.capture_chunk
+    calls, captures, per_pivot = [], [], []
+
+    def capture(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(*args)
+        torch.cuda.synchronize()
+        captures.append(1e3 * (time.perf_counter() - t0))
+        per = out[1].per_replay
+        # K6 is one launch of two kernels; a tail launches nothing.
+        nodes = sum(n for k, n in per.items() if k not in ks.TAILS) + per.get(
+            "fused_pivot", 0)
+        require(nodes == seq_nodes(pallas), f"the chunk graph holds {per}, "
+                f"not {seq_nodes(pallas)} nodes")
+        per_pivot.append(nodes / solver.SEQ_CHUNK)
+        return out
+
+    def loop(tab, options, max_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if way == "old":
+            out, st, it = old_solve_loop(tab, options, max_iter)
+        else:
+            out, st, it = real(tab, options, max_iter, graph=way == "graph")
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, it))
+        final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
+                 "base": out.base, "status": torch.tensor(st),
+                 "iterations": torch.tensor(it)}
+        if keep is not None:
+            keep.append({k: v.clone() for k, v in final.items()})
+        if against is not None:
+            for k, want in against[len(calls) - 1].items():
+                equal(f"{way} loop call {len(calls)} {k}", final[k], want)
+        return out, st, it
+
+    setattr(solver, name, loop)
+    solver.capture_chunk = capture
+    try:
+        res, wall = timed_solve(p, opts)
+    finally:
+        setattr(solver, name, real)
+        solver.capture_chunk = real_capture
+    require(len(captures) == (len(calls) if way == "graph" else 0),
+            f"{len(captures)} captures in {len(calls)} loop calls")
+    pivots = sum(c[1] for c in calls)
+    loop_s = sum(c[0] for c in calls)
+    return dict(res=res, wall=wall, calls=calls, captures=captures,
+                per_pivot=per_pivot, pivots=pivots,
+                ms_pivot=1e3 * loop_s / pivots)
+
+
+def seq_line(label: str, r: dict) -> str:
+    return (f"{label}: {r['ms_pivot']:.4f} ms/pivot over {r['pivots']} "
+            "pivots (loop calls " + ", ".join(
+                f"{1e3 * c[0]:.1f} ms / {c[1]}" for c in r["calls"])
+            + f"); solve wall {r['wall']:.3f} s; captures "
+            + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
+            + " ms" + ("; nodes a pivot of each captured chunk (launch "
+                       "counts) " + ", ".join(f"{x:.5f}"
+                                              for x in r["per_pivot"])
+                       if r["per_pivot"] else ""))
+
+
+def phase_reference_f64(launches: dict) -> dict:
+    """The default options (f64 tableau, eps 1e-9, Dantzig, the sequential
+    loop; no refinement) on the reference's benchmarks, held to the
+    certified goldens at 1e-9 and to the recorded walks (``F64_WALKS``).
+    random_1024_1024 three ways in turns: the loop as one CUDA graph a
+    chunk (the default), ``graph=False`` and the old eager
+    ``iteration_body``, each loop call ending with the graph run's state
+    bit for bit; then random_8192_8192 twice graphed, with the sequential
+    kernels' launch counters set to 0 just before the first and read just
+    after it. Prints each run's loop ms/pivot, capture ms and nodes a
+    pivot beside the JAX package's TPU record and the reference's."""
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
     walks = {}
-    for n, want, runs in ((1024, OBJ_1024, 1), (8192, OBJ_8192, 2)):
+    for n, want, ways in ((1024, OBJ_1024, ("graph", "eager", "old")),
+                          (8192, OBJ_8192, ("graph", "graph"))):
         p = benchmark_problem(n)
         tpu, ref = recorded_walks(n)
-        walk = None
-        for i in range(runs):
+        keep: list = []
+        for i, way in enumerate(ways):
             torch.cuda.reset_peak_memory_stats()
-            res, wall = timed_solve(p, {})
-            label = f"f64 random_{n}_{n} solve {i + 1}"
+            if n == 8192 and i == 0:
+                ks.reset_launches()
+            r = seq_loops(p, {}, way,
+                          keep=keep if i == 0 and n == 1024 else None,
+                          against=keep if i and n == 1024 else None)
+            if n == 8192 and i == 0:
+                for name in ("seq_step_pre", "seq_ratio", "seq_colk",
+                             "seq_rank1"):
+                    launches[name] = ks.LAUNCHES[name]
+                    require(launches[name] > 0, f"{name} never launched")
+            label = f"f64 random_{n}_{n} {way} solve {i + 1}"
+            res = r["res"]
             check_objective(label, res, want, 1e-9)
             w = (res.iterations_phase1, res.iterations_phase2)
-            require(walk is None or w == walk,
-                    f"{label} walked {w}, the first {walk}")
-            walk = w
-            reads = "+".join(str(v // SEQ_CHUNK + 1) for v in w)
-            log(f"{label}: OPTIMAL objective {res.objective!r} (golden "
-                f"{want!r}); pivots {w[0]}+{w[1]} (JAX package on a TPU "
-                f"{tpu}, reference CUDA program {ref}); wall {wall:.3f} s;"
-                f" {1e3 * wall / sum(w):.4f} ms/pivot; max_memory_allocated"
-                f" {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the "
-                f"loop's host reads per phase {reads} (one per {SEQ_CHUNK} "
-                "pivots)")
-        walks[n] = walk
+            require(w == F64_WALKS[n], f"{label} walked {w}, recorded "
+                    f"{F64_WALKS[n]}")
+            walks[n] = w
+            log(seq_line(label, r) + f"; OPTIMAL objective "
+                f"{res.objective!r} (golden {want!r}); pivots {w[0]}+{w[1]}"
+                f" (JAX package on a TPU {tpu}, reference CUDA program "
+                f"{ref}); max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                + ("" if i or n != 1024 else "; the final state kept"))
+        if n == 1024:
+            log("f64 random_1024_1024: graph, graph=False and the old eager "
+                "body walked the recorded pivots, every loop call's final "
+                "state bit for bit the graph run's")
     return walks
 
 
@@ -1986,85 +2210,77 @@ def northstar_tableau(opts):
 
 
 def phase_pallas_seq(launches: dict) -> None:
-    """K6's path: ``solve(random_2048_2048, dtype="float32",
-    vector_dtype="float32", use_pallas=True)`` (a pure-f32 tableau;
-    without ``vector_dtype`` the vectors stay f64, the mixed mode, as in
-    the JAX package) with K6's counter reset just before and read just
-    after; then the north-star phase-1 tableau (pure f32, the variable
-    axis padded to 8) for 256 pivots through ``solve_loop_pallas``, on
-    K6 and again on its plain version: the same k and the same folded
-    candidates (h_d, h_b) at every pivot, so the same choices, the same
-    basis, and tableaus equal within 2^-22 of their magnitude (the same
-    two roundings per element on both sides; expected bit-equal)."""
+    """K6's path: ``solve(random_2048_2048, **K6_OPTS)`` with its loop as
+    one CUDA graph a chunk, the launch counters of K6 and the sequential
+    kernels set to 0 just before and read just after, then with
+    ``graph=False``: the recorded walk (``K6_WALK``) both times, every loop
+    call's final state bit for bit the graph run's. Then the north-star
+    phase-1 tableau (pure f32, the variable axis padded to 8) for 256
+    pivots through ``solve_loop_pallas`` graphed and with ``graph=False``:
+    the same pivots, the same tableau, costs, b, z and basis bit for bit.
+    (K6 against its plain version at these shapes: the kernel phase.)"""
     import dataclasses
 
     import torch
 
     from simplex_tpu_torch.config import SolverOptions
     from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.kernels import seq as ks
     from simplex_tpu_torch.solver import solve_loop_pallas
 
-    opts = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
-    kp.reset_launches()
-    res, wall = timed_solve(benchmark_problem(2048), opts)
-    launches.update(kp.LAUNCHES)
-    check_objective("f32 K6 random_2048_2048", res, OBJ_2048, 1e-3)
-    require(launches["fused_pivot"] > 0, "fused_pivot never launched")
-    w = (res.iterations_phase1, res.iterations_phase2)
-    log(f"f32 use_pallas random_2048_2048: OPTIMAL objective "
-        f"{res.objective!r} (golden {OBJ_2048!r}, rel "
-        f"{abs(res.objective - OBJ_2048) / OBJ_2048:.2e}); pivots "
-        f"{w[0]}+{w[1]}; wall {wall:.3f} s; {1e3 * wall / sum(w):.4f} "
-        f"ms/pivot; launches {launches}")
+    p = benchmark_problem(2048)
+    keep: list = []
+    for i, way in enumerate(("graph", "eager")):
+        if i == 0:
+            kp.reset_launches()
+            ks.reset_launches()
+        r = seq_loops(p, K6_OPTS, way, pallas=True,
+                      keep=None if i else keep, against=keep if i else None)
+        if i == 0:
+            for name in ("fused_pivot",):
+                launches[name] = kp.LAUNCHES[name]
+            for name in ("seq_snapshot", "seq_k6_tail"):
+                launches[name] = ks.LAUNCHES[name]
+            require(min(launches["fused_pivot"], launches["seq_snapshot"],
+                        launches["seq_k6_tail"]) > 0,
+                    f"K6's path launched {launches}")
+        res = r["res"]
+        label = f"f32 K6 random_2048_2048 {way}"
+        check_objective(label, res, OBJ_2048, 1e-3)
+        w = (res.iterations_phase1, res.iterations_phase2)
+        require(w == K6_WALK, f"{label} walked {w}, recorded {K6_WALK}")
+        log(seq_line(label, r) + f"; OPTIMAL objective {res.objective!r} "
+            f"(golden {OBJ_2048!r}, rel "
+            f"{abs(res.objective - OBJ_2048) / OBJ_2048:.2e}); pivots "
+            f"{w[0]}+{w[1]}" + ("" if i else f"; launches {launches}"))
 
     torch.cuda.reset_peak_memory_stats()
-    sopts = SolverOptions(**opts)
+    sopts = SolverOptions(**K6_OPTS)
     tab0, _ = northstar_tableau(sopts)
     cap = 256
-    kernel = kp.fused_pivot
     runs = {}
-    try:
-        for label, fn in (("kernel", kernel),
-                          ("plain", kp.fused_pivot_plain)):
-            tab = (dataclasses.replace(tab0, Tt=tab0.Tt.clone())
-                   if label == "kernel" else tab0)
-            trace = []
-
-            def recorded(*a, fn=fn, trace=trace):
-                out = fn(*a)
-                trace.append(torch.stack([a[6].long(), out[0].long(),
-                                          out[2].long()]))
-                return out
-
-            kp.fused_pivot = recorded
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, _, iters = solve_loop_pallas(tab, sopts, cap)
-            torch.cuda.synchronize()
-            runs[label] = (out, iters, torch.stack(trace),
-                           time.perf_counter() - t0)
-    finally:
-        kp.fused_pivot = kernel
-    (tk, ik, trk, wk), (tp, ip, trp, wp) = runs["kernel"], runs["plain"]
-    require(ik == ip == cap, f"north-star K6 loop: {ik} / {ip} pivots")
-    equal("north-star K6 loop (k, h_d, h_b) per pivot", trk, trp)
-    equal("north-star K6 loop base", tk.base, tp.base)
-    err = 0.0
-    for i in range(0, tk.Tt.shape[0], 1024):
-        a, b = tk.Tt[i:i + 1024], tp.Tt[i:i + 1024]
-        d = (a - b).abs()
-        require(bool((d <= 2.0 ** -22 * (1.0 + b.abs())).all()),
-                f"north-star K6 loop: Tt rows {i}.. beyond tolerance")
-        err = max(err, float(d.max()))
-    err = max(err, close("north-star K6 loop costs", tk.costs, tp.costs,
-                         2.0 ** -22 * (1.0 + tp.costs.abs())))
-    err = max(err, close("north-star K6 loop b", tk.b, tp.b,
-                         2.0 ** -22 * (1.0 + tp.b.abs())))
+    for way in ("graph", "eager"):
+        tab = (dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+               if way == "graph" else tab0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, iters = solve_loop_pallas(tab, sopts, cap,
+                                          graph=way == "graph")
+        torch.cuda.synchronize()
+        runs[way] = (out, iters, time.perf_counter() - t0)
+    (tg, ig, wg), (te, ie, we) = runs["graph"], runs["eager"]
+    require(ig == ie == cap, f"north-star K6 loop: {ig} / {ie} pivots")
+    for name in ("b", "costs", "z", "base"):
+        equal(f"north-star K6 loop {name}", getattr(tg, name),
+              getattr(te, name))
+    for i in range(0, tg.Tt.shape[0], 1024):
+        equal(f"north-star K6 loop Tt rows {i}..", tg.Tt[i:i + 1024],
+              te.Tt[i:i + 1024])
     log(f"north-star 10000x100000 f32 K6 loop: tableau "
-        f"{tuple(tk.Tt.shape)}; {cap} pivots on K6 in {wk:.3f} s = "
-        f"{1e3 * wk / cap:.4f} ms/pivot, on the plain version {wp:.3f} s "
-        f"= {1e3 * wp / cap:.4f} ms/pivot; the same choices at every "
-        f"pivot, max abs err {err:.3e}; max_memory_allocated "
+        f"{tuple(tg.Tt.shape)}; {cap} pivots graphed in {wg:.3f} s = "
+        f"{1e3 * wg / cap:.4f} ms/pivot (the capture included), with "
+        f"graph=False {we:.3f} s = {1e3 * we / cap:.4f} ms/pivot; the "
+        f"same state bit for bit; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
@@ -2113,10 +2329,17 @@ R5_SWEEP = ROOT / "data" / "measures" / "refine_sweep_r5.json"
 SWEEP_SIZES = "256x8192,8192x256,4096x4096"
 
 #: The benchmark entry points of phase 10d: (module, arguments).
+#: ``bench``'s marginal is the difference of the best of its repeats at
+#: two caps, each run timed on the host with its graph's capture: two
+#: repeats once left a slow spell of the host in both cap-256 runs and a
+#: marginal under the floor (efficiency 208%); five give the best of each
+#: cap room to be a quiet run. K6's pass runs at 96-98% of its floor, and
+#: its runs at one cap spread by 3 ms: between the caps 32 and 64 that is
+#: 3% of the marginal, so it runs to 256 pivots (128 between the caps).
 BENCH_RUNS = (
-    ("bench", ["--repeats", "2"]),
-    ("bench", ["--block", "0", "--vector-dtype", "float32", "--iters", "64",
-               "--repeats", "2"]),
+    ("bench", ["--repeats", "5"]),
+    ("bench", ["--block", "0", "--vector-dtype", "float32", "--iters", "256",
+               "--repeats", "5"]),
     ("bench_batch", ["--repeats", "1"]),
     ("bench_sharded", ["--repeats", "2"]),
 )
@@ -2481,6 +2704,386 @@ def phase_pivot_kernel(records: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def seq_kernel_loop(M: int, R: int, dtype, vdtype, pallas: bool, g,
+                    eps: float):
+    """A ``solver.SeqLoop`` over a seeded random tableau on the card (Tt
+    uniform in [-1, 1], b in [0, 100], the costs in [-1, 1], the last 100
+    columns dead) and its options, with a copy of its every tensor: the
+    kernels run on one, the plain versions on the other."""
+    import dataclasses
+
+    import torch
+
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.config import SolverOptions
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.tableau import Tableau
+
+    dev = torch.device("cuda")
+
+    def uni(shape, lo, hi, dt):
+        return torch.rand(shape, generator=g, device=dev, dtype=dt) * (
+            hi - lo) + lo
+
+    tab = Tableau(uni((M, R), -1.0, 1.0, dtype), uni((M,), 0.0, 100.0, vdtype),
+                  uni((R,), -1.0, 1.0, vdtype),
+                  torch.zeros((), dtype=vdtype, device=dev),
+                  torch.randint(0, R, (M,), generator=g, device=dev,
+                                dtype=torch.int32), n=R - M - 100, m=M,
+                  r=R - 100)
+    opts = SolverOptions(dtype=str(dtype).split(".")[1],
+                         vector_dtype=str(vdtype).split(".")[1],
+                         use_pallas=pallas, eps=eps)
+    loop = solver.seq_loop(tab, opts, pallas=pallas)
+    twin = dataclasses.replace(
+        loop, **{f.name: getattr(loop, f.name).clone()
+                 for f in dataclasses.fields(loop)
+                 if isinstance(getattr(loop, f.name), torch.Tensor)},
+        s=ks.SeqScalars(**{k: x.clone()
+                           for k, x in loop.s.tensors().items()}))
+    return loop, twin, opts
+
+
+def seq_pivot(lp, kernel: bool, pallas: bool, max_iter: int, eps: float,
+              ratio_eps: float) -> None:
+    """One pivot of a chunk from its step before, on the kernels or on
+    their plain versions (the K6 loop's kernels with ``pallas``)."""
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import seq as ks
+
+    s = lp.s
+    policy = dict(bland_static=False, threshold=50)
+    if kernel:
+        ks.seq_step_pre(s, max_iter, eps)
+        ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, ratio_eps, lp.ws_ratio)
+        if pallas:
+            ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
+            ks.fused_pivot_tail(lp.Tt, lp.costs, lp.colk, lp.ah, s, lp.r,
+                                eps, max_iter, lp.ws_pass, then_pre=False,
+                                **policy)
+        else:
+            ks.seq_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
+                        lp.fac, s, lp.r, eps, max_iter, lp.ws_pass,
+                        then_pre=False, **policy)
+            ks.seq_rank1(lp.Tt, lp.fac, lp.colk, s)
+        return
+    kb.step_pre_plain(s, max_iter, eps)
+    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, ratio_eps)
+    if pallas:
+        ks.seq_snapshot_plain(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
+        ks.fused_pivot_tail_plain(lp.Tt, lp.costs, lp.colk, lp.ah, s, lp.r,
+                                  eps, max_iter, then_pre=False, **policy)
+    else:
+        ks.seq_colk_plain(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
+                          lp.fac, s, lp.r, eps, max_iter, then_pre=False,
+                          **policy)
+        ks.seq_rank1_plain(lp.Tt, lp.fac, lp.colk, s)
+
+
+def phase_seq_kernels(records: dict) -> None:
+    """The sequential loops' kernels against their plain versions on the
+    card, at the main paths' shapes: the default loop's at the 8192^2 f64
+    tableau (M 8,192 x R 24,576), the K6 loop's at 2048^2 pure f32 (M
+    2,048 x R 6,144). From 24 seeded states each -- taken and skipped
+    pivots, the fuse, Bland on, a NaN in b on an eligible row, a tie of
+    the smallest quotient, no eligible row (a ratio eps no row reaches) --
+    one pivot (the step before, the ratio test, the pass, the update) on
+    the kernels and on their plain versions from the same state: every
+    scalar, vector and the tableau bit for bit. Then, on a taken pivot,
+    each kernel timed by torch.profiler and by CUDA events over a CUDA
+    graph of 50 calls (``seq_rank1`` over back-to-back calls, in turns with
+    ``batch_rank1`` at one lane -- the update without row k -- and with
+    ``Tt.addr_``, its library call; K6's tail as K6 with it less K6
+    without, in turns), beside its plain version and its bound."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.kernels import seq as ks
+
+    g = torch.Generator(device="cuda").manual_seed(20261019)
+    rng = np.random.default_rng(20261019)
+    max_iter = 10
+    for pallas, M, R, dt, vdt, eps in SEQ_KERNEL_SHAPES:
+        dt, vdt = getattr(torch, dt), getattr(torch, vdt)
+        a, b, _ = seq_kernel_loop(M, R, dt, vdt, pallas, g, eps)
+        seen = collections.Counter()
+        for i in range(24):
+            edge = i % 6
+            ratio_eps = 1e30 if edge == 5 else eps
+            stall = int(rng.integers(0, 60))
+            for lp in (a, b):
+                s = lp.s
+                s.status.fill_(kb.RUNNING)
+                s.iterations.fill_(max_iter if edge == 1 else 3)
+                s.bland.fill_(edge == 2)
+                s.stall.fill_(stall)
+            if edge in (3, 4):
+                # The next column (the Dantzig candidate's), bent alike.
+                h = int(a.s.h_d)
+                rows = torch.nonzero(a.Tt[:, h] >= eps).view(-1)
+                for lp in (a, b):
+                    if edge == 3:
+                        lp.b[rows[1]] = float("nan")
+                    else:
+                        lp.Tt[rows[-1], h] = lp.Tt[rows[0], h]
+                        lp.b[rows[-1]] = lp.b[rows[0]]
+            seq_pivot(a, True, pallas, max_iter, eps, ratio_eps)
+            seq_pivot(b, False, pallas, max_iter, eps, ratio_eps)
+            tag = f"{'K6' if pallas else 'f64'} seq state {i}"
+            for name, x in a.s.tensors().items():
+                equal(f"{tag} {name}", x, getattr(b.s, name))
+            for name in ("b", "costs", "base", "ah", "colk", "fac"):
+                if getattr(a, name) is not None:
+                    equal(f"{tag} {name}", getattr(a, name), getattr(b, name))
+            for j in range(0, M, 1024):
+                equal(f"{tag} Tt rows {j}..", a.Tt[j:j + 1024],
+                      b.Tt[j:j + 1024])
+            seen["taken" if bool(a.s.do) else "skipped"] += 1
+            seen["unbounded"] += bool(a.s.unb)
+            for lp in (a, b):
+                lp.b.nan_to_num_(nan=1.0)
+                lp.s.z.nan_to_num_(nan=0.0)
+        require(min(seen["taken"], seen["skipped"], seen["unbounded"]) > 0,
+                f"the states miss a kind of pivot: {dict(seen)}")
+        log(f"sequential kernels ({'K6 loop, f32' if pallas else 'f64'}, "
+            f"M={M} R={R}): every scalar, vector and the tableau equal the "
+            f"plain versions' on 24 states ({dict(seen)})")
+
+        # A taken pivot far from the fuse, for the timings.
+        big = 2 ** 30
+        s = a.s
+        s.status.fill_(kb.RUNNING)
+        s.iterations.fill_(0)
+        s.bland.fill_(False)
+        ks.seq_step_pre(s, big, eps)
+        ks.seq_ratio(a.Tt, a.b, s, a.ah, eps, a.ws_ratio)
+        require(bool(s.do), "the timed pivot is not taken")
+        item = a.Tt.element_size()
+        pol = dict(bland_static=False, threshold=50, then_pre=True)
+        timed = {
+            "seq_step_pre": (lambda: ks.seq_step_pre(s, big, eps),
+                             lambda: kb.step_pre_plain(s, big, eps),
+                             "seq_step_pre", bound(SEQ_STEP_BYTES[
+                                 "seq_step_pre"])),
+            "seq_ratio": (lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps,
+                                               a.ws_ratio),
+                          lambda: ks.seq_ratio_plain(a.Tt, a.b, s, a.ah,
+                                                     eps),
+                          "seq_ratio", bound(M * (2 * item + 8) + 44,
+                                             f64_flops=M)),
+        }
+        if pallas:
+            timed["seq_snapshot"] = (
+                lambda: ks.seq_snapshot(a.Tt, a.b, a.base, a.ah, a.colk, s),
+                lambda: ks.seq_snapshot_plain(a.Tt, a.b, a.base, a.ah,
+                                              a.colk, s),
+                "seq_colk", bound(8 * R + 12 * M + 30, 3 * M))
+        else:
+            timed["seq_colk"] = (
+                lambda: ks.seq_colk(a.Tt, a.costs, a.b, a.base, a.ah,
+                                    a.colk, a.fac, s, a.r, eps, big,
+                                    a.ws_pass, **pol),
+                lambda: ks.seq_colk_plain(a.Tt, a.costs, a.b, a.base, a.ah,
+                                          a.colk, a.fac, s, a.r, eps, big,
+                                          **pol),
+                "seq_colk", bound(32 * R + 32 * M + 130,
+                                  f64_flops=2 * R + 3 * M))
+        for name, (fn, plain_fn, match, (bound_ms, by)) in timed.items():
+            require(kernels_launched(fn) == 1, f"one {name} call launched "
+                    "more than one kernel")
+            ms = device_ms(fn, 50, match=match)
+            rec = {"max_abs_err": 0.0, "ms": ms,
+                   "plain_ms": device_ms(plain_fn, 20), "bound_ms": bound_ms,
+                   "bound_by": by, "library_ms": None, "check_ms": graph_ms(fn)}
+            # The record is the first loop's (the default loop's shapes).
+            records.setdefault(name, rec)
+            log(f"{name} M={M} R={R}: {ms:.5f} ms a call (torch.profiler), "
+                f"{rec['check_ms']:.5f} ms by CUDA events over a CUDA graph "
+                f"of 50 calls, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{bound_ms:.2e} ms ({by})")
+        if pallas:
+            # K6's tail: K6 with it less K6 without, in turns.
+            cand = tuple(torch.empty((), dtype=dt, device=a.Tt.device)
+                         for dt in (torch.int32, torch.float32) * 2)
+            k6 = {"K6": lambda: kp.fused_pivot(
+                      a.Tt, a.costs, a.colk, a.ah, s.p, s.minc, s.k, a.r, eps,
+                      s.do, a.ws_pass, cand),
+                  "K6+tail": lambda: ks.fused_pivot_tail(
+                      a.Tt, a.costs, a.colk, a.ah, s, a.r, eps, big,
+                      a.ws_pass, **pol)}
+            prof = {name: [] for name in k6}
+            graph = {name: [] for name in k6}
+            for name in ("K6", "K6+tail", "K6+tail", "K6"):
+                prof[name].append(device_ms(k6[name], 20,
+                                            match="fused_pivot_finish"))
+                graph[name].append(graph_ms(k6[name], 20))
+            mean = statistics.mean
+            ms = mean(prof["K6+tail"]) - mean(prof["K6"])
+            bound_ms, by = bound(SEQ_STEP_BYTES["seq_k6_tail"])
+            records["seq_k6_tail"] = {
+                "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": device_ms(lambda: kb.step_post_plain(
+                    s, big, eps, False, 50, True), 20),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "check_ms": mean(graph["K6+tail"]) - mean(graph["K6"])}
+            log("K6's fold with and without the step after, ms a call in "
+                "turns: " + "; ".join(
+                    f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
+                    + " (torch.profiler, the fold), " + ", ".join(
+                        f"{x:.5f}" for x in graph[name])
+                    + " (CUDA graph of 20 K6 calls)" for name in k6)
+                + f"; the tail's own cost {ms:.5f} ms")
+            del a, b
+            torch.cuda.empty_cache()
+            continue
+
+        # The update: seq_rank1 (row k written), batch_rank1 at one lane
+        # (without row k), Tt.addr_ -- in turns.
+        do1 = s.do.view(1)
+        rank1 = {
+            "seq_rank1": lambda: ks.seq_rank1(a.Tt, a.fac, a.colk, s),
+            "batch_rank1 B=1": lambda: kp.batch_rank1(
+                a.Tt[None], a.fac[None], a.colk[None], do1),
+            "addr_": lambda: a.Tt.addr_(a.fac, a.colk, alpha=-1.0)}
+        prof = {name: [] for name in rank1}
+        ev = {name: [] for name in rank1}
+        for name in ("seq_rank1", "batch_rank1 B=1", "addr_", "addr_",
+                     "batch_rank1 B=1", "seq_rank1"):
+            prof[name].append(device_ms(rank1[name], 10))
+            ev[name].append(event_ms(rank1[name], 10))
+        mean = statistics.mean
+        bound_ms, by = bound(2 * M * R * item + (M + R) * item,
+                             f64_flops=2 * M * R)
+        records["seq_rank1"] = {
+            "max_abs_err": 0.0, "ms": mean(prof["seq_rank1"]),
+            "plain_ms": device_ms(lambda: ks.seq_rank1_plain(
+                a.Tt, a.fac, a.colk, s), 5),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": mean(prof["addr_"]),
+            "check_ms": mean(ev["seq_rank1"])}
+        log(f"the rank-1 update M={M} R={R} f64, ms a call in turns: "
+            + "; ".join(f"{name} " + ", ".join(f"{x:.4f}" for x in prof[name])
+                        + " (torch.profiler), " + ", ".join(
+                            f"{x:.4f}" for x in ev[name]) + " (CUDA events)"
+                        for name in rank1)
+            + f"; bound {bound_ms:.4f} ms ({by}); seq_rank1 moves the "
+            f"tableau at {2 * M * R * item / records['seq_rank1']['ms'] / 1e9:.3f}"
+            " TB/s")
+        del a, b
+        torch.cuda.empty_cache()
+
+
+#: The nodes of a chunk's graph by name (torch.profiler's kernel names).
+SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_kernel",
+                     "seq_colk_kernel", "batch_rank1_tiles",
+                     "fused_pivot_tiles", "fused_pivot_finish")
+
+
+def chunk_stats(events: list, chunk: int) -> dict:
+    """From a chrome trace's kernel events, the replayed chunks of a
+    traced sequential loop: a chunk runs from one ``seq_step_pre`` to the
+    kernel before the next. Returns the chunks' count, the (min, max)
+    kernels a pivot, the (min, median, max) busy share inside a chunk
+    (its kernels' time over the span from its first kernel's start to its
+    last one's end) and over a chunk's period (step_pre to step_pre, the
+    host read included), and the middle chunk's kernels by name, kernel us
+    a pivot and span. The last chunk (no period) counts inside only."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and any(n in e["name"] for n in SEQ_GRAPH_KERNELS)),
+                     key=lambda e: e["ts"])
+    chunks: list = []
+    for e in kernels:
+        if "seq_step_pre" in e["name"]:
+            chunks.append([])
+        if chunks:
+            chunks[-1].append(e)
+    require(len(chunks) >= 3, f"the trace holds {len(chunks)} chunks")
+    per_pivot = [len(c) / chunk for c in chunks]
+    inside, period = [], []
+    for i, c in enumerate(chunks):
+        span = max(e["ts"] + e["dur"] for e in c) - c[0]["ts"]
+        inside.append(sum(e["dur"] for e in c) / span)
+        if i + 1 < len(chunks):
+            period.append(sum(e["dur"] for e in c)
+                          / (chunks[i + 1][0]["ts"] - c[0]["ts"]))
+    mid = chunks[len(chunks) // 2]
+
+    def spread(x):
+        return min(x), statistics.median(x), max(x)
+
+    return dict(
+        chunks=len(chunks), per_pivot=(min(per_pivot), max(per_pivot)),
+        inside=spread(inside), period=spread(period),
+        names=dict(collections.Counter(
+            next(n for n in SEQ_GRAPH_KERNELS if n in e["name"])
+            for e in mid)),
+        us_pivot=sum(e["dur"] for e in mid) / chunk,
+        span_us=max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"])
+
+
+def phase_chunk_trace() -> None:
+    """The default-option random_1024_1024 and K6's random_2048_2048, each
+    solve's phase-1 loop call traced by torch.profiler (CUDA activity):
+    the kernels each replayed chunk holds a pivot (``seq_nodes``), the
+    device's busy share inside a chunk and over a chunk's period (its
+    kernels' time from its ``seq_step_pre`` to the next's: the host's read
+    of status and the next replay included). Runs after every timed
+    solve."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import solver
+
+    for label, n, opts, pallas in (("f64", 1024, {}, False),
+                                   ("f32 K6", 2048, K6_OPTS, True)):
+        name = "solve_loop_pallas" if pallas else "solve_loop"
+        real = getattr(solver, name)
+        first = []
+
+        def loop(*args, real=real, first=first, **kw):
+            if first:
+                return real(*args, **kw)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = real(*args, **kw)
+                torch.cuda.synchronize()
+            first.append((prof, out[2]))
+            return out
+
+        def run(name=name, real=real, loop=loop, first=first, n=n,
+                opts=opts):
+            first.clear()
+            setattr(solver, name, loop)
+            try:
+                timed_solve(benchmark_problem(n), opts)
+            finally:
+                setattr(solver, name, real)
+            return first[0]
+
+        prof, pivots = until_traced(run, f"{label} chunk trace")
+        with tempfile.TemporaryDirectory() as td:
+            path = pathlib.Path(td) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        w = chunk_stats(events, solver.SEQ_CHUNK)
+        want = seq_nodes(pallas) / solver.SEQ_CHUNK
+        require(w["per_pivot"] == (want, want), f"{w['per_pivot']} kernels "
+                f"a pivot in the traced chunks, not {want}")
+        log(f"{label} random_{n}_{n} phase-1 loop traced ({pivots} pivots, "
+            f"{w['chunks']} chunks): {w['per_pivot'][0]:.5f} kernels a "
+            f"pivot in every replayed chunk (the middle one: {w['names']}); "
+            f"device busy inside a chunk {100 * w['inside'][0]:.1f}-"
+            f"{100 * w['inside'][2]:.1f}% (median "
+            f"{100 * w['inside'][1]:.1f}%), over a chunk's period with the "
+            f"host read {100 * w['period'][0]:.1f}-"
+            f"{100 * w['period'][2]:.1f}% (median "
+            f"{100 * w['period'][1]:.1f}%); the middle chunk's kernels "
+            f"{w['us_pivot']:.2f} us a pivot, its span {w['span_us']:.1f} us")
+
+
 def phase_r1024() -> None:
     res, wall = timed_solve(benchmark_problem(1024))
     check_certified("random_1024_1024", res, OBJ_1024)
@@ -2725,27 +3328,32 @@ def phase_window_trace(group=None) -> None:
     mod, name = ((solver, "solve_loop_blocked_kernel") if group is None
                  else (ps, "solve_loop_blocked_kernel_sharded"))
     real = getattr(mod, name)
-    traced = []
+    first = []
 
     def loop(*args, **kw):
-        if traced:
+        if first:
             return real(*args, **kw)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = real(*args, **kw)
             torch.cuda.synchronize()
-        traced.append((prof, out[2]))
+        first.append((prof, out[2]))
         return out
 
     p = benchmark_problem(8192)
-    setattr(mod, name, loop)
-    try:
-        if group is None:
-            timed_solve(p)
-        else:
-            timed_sharded(p, group, PROD)
-    finally:
-        setattr(mod, name, real)
-    prof, pivots = traced[0]
+
+    def run():
+        first.clear()
+        setattr(mod, name, loop)
+        try:
+            if group is None:
+                timed_solve(p)
+            else:
+                timed_sharded(p, group, PROD)
+        finally:
+            setattr(mod, name, real)
+        return first[0]
+
+    prof, pivots = until_traced(run, "the window trace")
     with tempfile.TemporaryDirectory() as td:
         path = pathlib.Path(td) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -3990,7 +4598,7 @@ def main() -> int:
     try:
         phase_goldens({}, "default options, f64")
         phase_goldens(PROD, "production options")
-        walks = phase_reference_f64()
+        walks = phase_reference_f64(launches)
         phase_pallas_seq(launches)
         phase_blocked_plain()
         phase_cli()
@@ -4032,8 +4640,10 @@ def main() -> int:
         phase_batch_kernels(records)
         phase_batch_reprice(records)
         phase_rank1_kernel(records)
+        phase_seq_kernels(records)
         phase_batch_trace()
         phase_window_trace()
+        phase_chunk_trace()
         phase_sharded_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -4047,7 +4657,8 @@ def main() -> int:
         for name in ORDER))
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
-              **FALLBACK_KERNELS, **STEP_KERNELS, **SHARDED_STEP_KERNELS}
+              **FALLBACK_KERNELS, **STEP_KERNELS, **SHARDED_STEP_KERNELS,
+              **SEQ_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

@@ -157,6 +157,24 @@ SIGNATURES = {
                                ctypes.c_longlong, _P],
     "batch_rank1_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_longlong, _P],
+    # Tt fac colk do k p M R item, the plan (vecs tiles), stream
+    "seq_rank1_launch": [_P] * 6 + [_I, _I, _I, _I, ctypes.c_longlong, _P],
+    # Tt costs colk ah M R r eps, four partials, the sequential scalars'
+    # pointers (by reference), max_iter, bland mode, threshold, then_pre,
+    # stream
+    "fused_pivot_seq_launch": [_P] * 4 + [_I, _I, _I, _F] + [_P] * 5
+                              + [ctypes.c_longlong, _I, _I, _I, _P],
+    # csrc/seq.cu: the sequential scalars' pointers (by reference),
+    # max_iter eps pair stream
+    "seq_step_pre_launch": [_P, ctypes.c_longlong, _D, _I, _P],
+    # Tt b M R eps ah workspace, its bytes, scalars, pair, stream
+    "seq_ratio_launch": [_P, _P, _I, _I, _D, _P, _P, ctypes.c_longlong, _P,
+                         _I, _P],
+    # Tt costs b base ah colk fac M R r eps workspace, its bytes, scalars,
+    # max_iter, bland mode, threshold, then_pre, fold, pair, stream
+    "seq_colk_launch": [_P] * 7 + [_I, _I, _I, _D, _P, ctypes.c_longlong,
+                                   _P, ctypes.c_longlong, _I, _I, _I, _I,
+                                   _I, _P],
 }
 
 

@@ -67,23 +67,31 @@ def reset_launches() -> None:
 
 
 class CapturedLaunches:
-    """Launch counts for a CUDA graph. Around a capture it takes back what
+    """Launch counts for a CUDA graph, in the counter tables given (this
+    module's ``LAUNCHES`` when none). Around a capture it takes back what
     the wrappers counted while capturing (a capture runs nothing) and keeps
-    it as the graph's own launches; ``replayed`` adds those once a
-    replay."""
+    it as the graph's own launches, ``per_replay`` by kernel name;
+    ``replayed`` adds those once a replay."""
+
+    def __init__(self, *tables: dict) -> None:
+        self.tables = tables or (LAUNCHES,)
 
     def __enter__(self) -> "CapturedLaunches":
-        self._before = dict(LAUNCHES)
+        self._before = [dict(t) for t in self.tables]
         return self
 
     def __exit__(self, *exc) -> None:
-        self.per_replay = {name: LAUNCHES[name] - self._before[name]
-                           for name in LAUNCHES}
-        LAUNCHES.update(self._before)
+        self._per = [{name: t[name] - before[name] for name in t}
+                     for t, before in zip(self.tables, self._before)]
+        for t, before in zip(self.tables, self._before):
+            t.update(before)
+        self.per_replay = {name: n for per in self._per
+                           for name, n in per.items()}
 
     def replayed(self) -> None:
-        for name, n in self.per_replay.items():
-            LAUNCHES[name] += n
+        for t, per in zip(self.tables, self._per):
+            for name, n in per.items():
+                t[name] += n
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -43,6 +43,9 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "seq_step.cuh"
 
 namespace {
 
@@ -173,11 +176,27 @@ __global__ void __launch_bounds__(PT) fused_pivot_tiles(
     }
 }
 
+// TAIL: the K6 loop's step after the pass (seq_step.cuh) on ``s`` in
+// thread 0 after the fold -- the candidates where the pivot is done, else
+// the carried ones, stored into ``s``; then seq::post -- and the outputs
+// unwritten (they may be null). Without it ``s`` and ``pol`` are unread.
+template <bool TAIL>
 __global__ void __launch_bounds__(PT) fused_pivot_finish(
         const float *__restrict__ part_val, const int *__restrict__ part_idx,
         const float *__restrict__ part_bval, const int *__restrict__ part_bidx,
         int nparts, int *__restrict__ hd_out, float *__restrict__ vd_out,
-        int *__restrict__ hb_out, float *__restrict__ vb_out) {
+        int *__restrict__ hb_out, float *__restrict__ vb_out,
+        SeqStep<float, float> s, seq::Policy pol) {
+    // The tail's operands, loaded while the partials fold: the pass writes
+    // none of them.
+    seq::PostIn<float> in{};
+    bool d = false;
+    seq::Candidates<float> old{};
+    if (TAIL && threadIdx.x == 0) {
+        in = seq::post_load(s);
+        d = *s.do_ != 0;
+        old = {*s.h_d, *s.v_d, *s.h_b, *s.v_b};
+    }
     float val = CUDART_INF_F, bval = CUDART_INF_F;
     int idx = BIG_INDEX, bidx = BIG_INDEX;
     for (int i = threadIdx.x; i < nparts; i += PT) {
@@ -191,12 +210,23 @@ __global__ void __launch_bounds__(PT) fused_pivot_finish(
         }
     }
     block_fold(val, idx, bval, bidx);
-    if (threadIdx.x == 0) {
-        *hd_out = idx;
-        *vd_out = val;
-        *hb_out = bidx;
-        *vb_out = bidx == BIG_INDEX ? CUDART_INF_F : bval;
+    if (threadIdx.x != 0) return;
+    const seq::Candidates<float> c{idx, val, bidx,
+                                   bidx == BIG_INDEX ? CUDART_INF_F : bval};
+    if (!TAIL) {
+        *hd_out = c.h_d;
+        *vd_out = c.v_d;
+        *hb_out = c.h_b;
+        *vb_out = c.v_b;
+        return;
     }
+    // solver.py's ``cand = where(do, new, cand)``, then the step after.
+    const seq::Candidates<float> n = d ? c : old;
+    *s.h_d = n.h_d;
+    *s.v_d = n.v_d;
+    *s.h_b = n.h_b;
+    *s.v_b = n.v_b;
+    seq::post(s, in, d, n, pol);
 }
 
 }  // namespace
@@ -221,9 +251,38 @@ extern "C" int fused_pivot_launch(float *Tt, float *costs, const float *colk,
         part_idx, part_bval, part_bidx);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    fused_pivot_finish<<<1, PT, 0, st>>>(part_val, part_idx, part_bval,
-                                         part_bidx, nx, hd_out, vd_out, hb_out,
-                                         vb_out);
+    fused_pivot_finish<false><<<1, PT, 0, st>>>(
+        part_val, part_idx, part_bval, part_bidx, nx, hd_out, vd_out, hb_out,
+        vb_out, SeqStep<float, float>{}, seq::Policy{});
+    return (int)cudaGetLastError();
+}
+
+// K6 in the K6 loop's chunk graph: its operands p, minc, k and do from the
+// loop's scalars (``step``, the host's array of kernels/seq.py SeqScalars'
+// pointers, pure f32), and the step after the pass as the fold's tail under
+// max_iter, eps, the Bland mode, threshold and then_pre.
+extern "C" int fused_pivot_seq_launch(float *Tt, float *costs,
+                                      const float *colk, const float *ah,
+                                      int M, int R, int r, float eps,
+                                      float *part_val, int *part_idx,
+                                      float *part_bval, int *part_bidx,
+                                      const void *step, long long max_iter,
+                                      int bland_mode, int threshold,
+                                      int then_pre, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    SeqStep<float, float> s;
+    memcpy(&s, step, sizeof s);
+    const int nx = (R + COLS - 1) / COLS;
+    const dim3 grid(nx, (M + ROWS - 1) / ROWS);
+    fused_pivot_tiles<<<grid, PT, 0, st>>>(
+        Tt, costs, colk, ah, s.p, s.minc, s.k, s.do_, M, R, r, eps, part_val,
+        part_idx, part_bval, part_bidx);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    fused_pivot_finish<true><<<1, PT, 0, st>>>(
+        part_val, part_idx, part_bval, part_bidx, nx, nullptr, nullptr,
+        nullptr, nullptr, s,
+        seq::Policy{max_iter, (double)eps, bland_mode, threshold, then_pre});
     return (int)cudaGetLastError();
 }
 
@@ -264,6 +323,16 @@ extern "C" int fused_pivot_launch(float *Tt, float *costs, const float *colk,
 // persistent blocks walking the live tiles round robin drift apart and
 // reach 77-81% (claiming each next tile from a counter, which keeps the
 // tiles in flight in order, 90%); a ring of bulk async copies 70-75%.
+//
+// The same tiles at one lane are the sequential loops' rank-1 update
+// (seq_rank1; the pivot's other kernels are csrc/seq.cu): ROWK writes the
+// leaving row k as colk / p with one correctly rounded division, as
+// solver.pivot_update's ``Tt[k] = colk / p`` after its addr_, reading k, p
+// and the do flag from the loop's 0-dim tensors, and factor = a_h / p from
+// the fixed buffer seq_colk fills. A skipped pivot leaves the tableau
+// untouched, where the eager loop's addr_ with factor 0 ran a full pass.
+// Bound: one read and one write of the tableau, 2 M R sizeof(T) bytes
+// (3.22 GB at the 8192^2 f64 tableau, 0.96 ms at 3.35 TB/s).
 
 namespace {
 
@@ -299,51 +368,6 @@ struct Vec16<float> {
     using type = float4;
 };
 
-// One element at (row, col), then (row, col) steps to the next element.
-template <typename T>
-__device__ __forceinline__ T rank1_elem(T x, const T *f, const T *ck,
-                                        int &row, int &col, int R) {
-    const T y = mul_sub_rn(x, __ldg(f + row), __ldg(ck + col));
-    if (++col == R) {
-        col = 0;
-        ++row;
-    }
-    return y;
-}
-
-// One vector whose first element is at (row, col); the fast form when its
-// elements lie in one row.
-__device__ __forceinline__ double2 rank1_vec(double2 x, const double *f,
-                                             const double *ck, int row,
-                                             int col, int R) {
-    if (col + 2 <= R) {
-        const double fr = __ldg(f + row);
-        return make_double2(mul_sub_rn(x.x, fr, __ldg(ck + col)),
-                            mul_sub_rn(x.y, fr, __ldg(ck + col + 1)));
-    }
-    double2 y;
-    y.x = rank1_elem(x.x, f, ck, row, col, R);
-    y.y = rank1_elem(x.y, f, ck, row, col, R);
-    return y;
-}
-__device__ __forceinline__ float4 rank1_vec(float4 x, const float *f,
-                                            const float *ck, int row,
-                                            int col, int R) {
-    if (col + 4 <= R) {
-        const float fr = __ldg(f + row);
-        return make_float4(mul_sub_rn(x.x, fr, __ldg(ck + col)),
-                           mul_sub_rn(x.y, fr, __ldg(ck + col + 1)),
-                           mul_sub_rn(x.z, fr, __ldg(ck + col + 2)),
-                           mul_sub_rn(x.w, fr, __ldg(ck + col + 3)));
-    }
-    float4 y;
-    y.x = rank1_elem(x.x, f, ck, row, col, R);
-    y.y = rank1_elem(x.y, f, ck, row, col, R);
-    y.z = rank1_elem(x.z, f, ck, row, col, R);
-    y.w = rank1_elem(x.w, f, ck, row, col, R);
-    return y;
-}
-
 // Tile c of a lane, as one thread sees it.
 template <typename T>
 struct R1Tile {
@@ -353,7 +377,59 @@ struct R1Tile {
                            // vector; its aligned vectors
     long long v0;          // the thread's first vector in the tile
     bool first;            // the lane's first tile: it also does head and tail
+    int k;                 // ROWK: the row written as ck / p
+    T p;
 };
+
+// One element at (row, col), then (row, col) steps to the next element.
+// With ROWK, row k becomes ck / p (one rounding), as solver.pivot_update's
+// ``Tt[k] = colk / p`` after its addr_.
+template <typename T, bool ROWK>
+__device__ __forceinline__ T rank1_elem(T x, const R1Tile<T> &d, int &row,
+                                        int &col, int R) {
+    const T y = ROWK && row == d.k
+                    ? seq::div_rn(__ldg(d.ck + col), d.p)
+                    : mul_sub_rn(x, __ldg(d.f + row), __ldg(d.ck + col));
+    if (++col == R) {
+        col = 0;
+        ++row;
+    }
+    return y;
+}
+
+// One vector whose first element is at (row, col); the fast form when its
+// elements lie in one row other than row k.
+template <bool ROWK>
+__device__ __forceinline__ double2 rank1_vec(double2 x,
+                                             const R1Tile<double> &d, int row,
+                                             int col, int R) {
+    if (col + 2 <= R && !(ROWK && row == d.k)) {
+        const double fr = __ldg(d.f + row);
+        return make_double2(mul_sub_rn(x.x, fr, __ldg(d.ck + col)),
+                            mul_sub_rn(x.y, fr, __ldg(d.ck + col + 1)));
+    }
+    double2 y;
+    y.x = rank1_elem<double, ROWK>(x.x, d, row, col, R);
+    y.y = rank1_elem<double, ROWK>(x.y, d, row, col, R);
+    return y;
+}
+template <bool ROWK>
+__device__ __forceinline__ float4 rank1_vec(float4 x, const R1Tile<float> &d,
+                                            int row, int col, int R) {
+    if (col + 4 <= R && !(ROWK && row == d.k)) {
+        const float fr = __ldg(d.f + row);
+        return make_float4(mul_sub_rn(x.x, fr, __ldg(d.ck + col)),
+                           mul_sub_rn(x.y, fr, __ldg(d.ck + col + 1)),
+                           mul_sub_rn(x.z, fr, __ldg(d.ck + col + 2)),
+                           mul_sub_rn(x.w, fr, __ldg(d.ck + col + 3)));
+    }
+    float4 y;
+    y.x = rank1_elem<float, ROWK>(x.x, d, row, col, R);
+    y.y = rank1_elem<float, ROWK>(x.y, d, row, col, R);
+    y.z = rank1_elem<float, ROWK>(x.z, d, row, col, R);
+    y.w = rank1_elem<float, ROWK>(x.w, d, row, col, R);
+    return y;
+}
 
 template <typename T, int U>
 __device__ __forceinline__ R1Tile<T> rank1_tile(T *Tt, const T *factor,
@@ -371,6 +447,8 @@ __device__ __forceinline__ R1Tile<T> rank1_tile(T *Tt, const T *factor,
     d.nv = (d.n - d.h) / PER;
     d.v0 = c * (R1_THREADS * U) + threadIdx.x;
     d.first = c == 0;
+    d.k = -1;
+    d.p = (T)1;
     return d;
 }
 
@@ -389,7 +467,7 @@ __device__ __forceinline__ void rank1_load(const R1Tile<T> &d,
 
 // Updates and stores the thread's U vectors; in the lane's first tile, also
 // the head and the tail, element by element.
-template <typename T, int U>
+template <typename T, int U, bool ROWK>
 __device__ __forceinline__ void rank1_store(const R1Tile<T> &d,
                                             const typename Vec16<T>::type *a,
                                             int R) {
@@ -404,7 +482,7 @@ __device__ __forceinline__ void rank1_store(const R1Tile<T> &d,
     for (int u = 0; u < U; ++u) {
         const long long v = d.v0 + u * R1_THREADS;
         if (v < (long long)d.nv)
-            tv[v] = rank1_vec(a[u], d.f, d.ck, row, col, R);
+            tv[v] = rank1_vec<ROWK>(a[u], d, row, col, R);
         col += sr;
         row += sq;
         if (col >= R) {
@@ -418,39 +496,48 @@ __device__ __forceinline__ void rank1_store(const R1Tile<T> &d,
                                       : tail + (threadIdx.x - d.h);
     if (i < d.n && (i < d.h || i >= tail)) {
         int r = (int)(i / R), c = (int)(i % R);
-        d.t[i] = rank1_elem(d.t[i], d.f, d.ck, r, c, R);
+        d.t[i] = rank1_elem<T, ROWK>(d.t[i], d, r, c, R);
     }
 }
 
-// One tile a block: grid (tiles a lane, lanes).
-template <typename T, int U>
+// One tile a block: grid (tiles a lane, lanes). ROWK (one lane, the
+// sequential loop's seq_rank1): row *k_ptr becomes colk / *p_ptr.
+template <typename T, int U, bool ROWK>
 __global__ void __launch_bounds__(R1_THREADS)
 batch_rank1_tiles(T *__restrict__ Tt, const T *__restrict__ factor,
                   const T *__restrict__ colk,
-                  const unsigned char *__restrict__ do_flag, int M, int R) {
+                  const unsigned char *__restrict__ do_flag, int M, int R,
+                  const int *__restrict__ k_ptr, const T *__restrict__ p_ptr) {
     const int lane = blockIdx.y;
     if (!do_flag[lane]) return;
-    const R1Tile<T> d =
-        rank1_tile<T, U>(Tt, factor, colk, lane, blockIdx.x, M, R);
+    R1Tile<T> d = rank1_tile<T, U>(Tt, factor, colk, lane, blockIdx.x, M, R);
+    if (ROWK) {
+        d.k = *k_ptr;
+        d.p = *p_ptr;
+    }
     typename Vec16<T>::type a[U];
     rank1_load<T, U>(d, a);
-    rank1_store<T, U>(d, a, R);
+    rank1_store<T, U, ROWK>(d, a, R);
 }
 
 // The plan (vecs a thread, the tiles a lane) comes from kernels/pivot.py
 // rank1_plan; a plan this kernel cannot run, or whose tile count differs
-// from its own, is refused with cudaErrorInvalidValue.
-template <typename T>
+// from its own, is refused with cudaErrorInvalidValue, as is ROWK with
+// more than one lane.
+template <typename T, bool ROWK>
 int batch_rank1_run(T *Tt, const T *factor, const T *colk,
                     const unsigned char *do_flag, int B, int M, int R,
-                    int vecs, long long tiles, void *stream) {
+                    int vecs, long long tiles, const int *k, const T *p,
+                    void *stream) {
     if (B < 1 || B > 65535 || M < 1 || R < 1 || vecs != R1_VECS
         || tiles > 2147483647LL
-        || tiles != rank1_lane_tiles(M, R, (int)sizeof(T), vecs))
+        || tiles != rank1_lane_tiles(M, R, (int)sizeof(T), vecs)
+        || (ROWK && B != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    batch_rank1_tiles<T, R1_VECS><<<dim3((unsigned)tiles, B), R1_THREADS, 0,
-                                    st>>>(Tt, factor, colk, do_flag, M, R);
+    batch_rank1_tiles<T, R1_VECS, ROWK>
+        <<<dim3((unsigned)tiles, B), R1_THREADS, 0, st>>>(
+            Tt, factor, colk, do_flag, M, R, k, p);
     return (int)cudaGetLastError();
 }
 
@@ -469,15 +556,37 @@ int batch_rank1_f64_launch(double *Tt, const double *factor,
                            const double *colk, const unsigned char *do_flag,
                            int B, int M, int R, int vecs, long long tiles,
                            void *stream) {
-    return batch_rank1_run<double>(Tt, factor, colk, do_flag, B, M, R, vecs,
-                                   tiles, stream);
+    return batch_rank1_run<double, false>(Tt, factor, colk, do_flag, B, M, R,
+                                          vecs, tiles, nullptr, nullptr,
+                                          stream);
 }
 
 int batch_rank1_f32_launch(float *Tt, const float *factor, const float *colk,
                            const unsigned char *do_flag, int B, int M, int R,
                            int vecs, long long tiles, void *stream) {
-    return batch_rank1_run<float>(Tt, factor, colk, do_flag, B, M, R, vecs,
-                                  tiles, stream);
+    return batch_rank1_run<float, false>(Tt, factor, colk, do_flag, B, M, R,
+                                         vecs, tiles, nullptr, nullptr,
+                                         stream);
+}
+
+// The sequential loop's update: Tt (M, R), fac (M,) and colk (R,) of
+// ``item`` bytes (8: f64, 4: f32), the pivot's do flag, k and p; the plan
+// as batch_rank1's for one lane.
+int seq_rank1_launch(void *Tt, const void *fac, const void *colk,
+                     const unsigned char *do_flag, const int *k,
+                     const void *p, int M, int R, int item, int vecs,
+                     long long tiles, void *stream) {
+    if (item == 8)
+        return batch_rank1_run<double, true>(
+            static_cast<double *>(Tt), static_cast<const double *>(fac),
+            static_cast<const double *>(colk), do_flag, 1, M, R, vecs, tiles,
+            k, static_cast<const double *>(p), stream);
+    if (item == 4)
+        return batch_rank1_run<float, true>(
+            static_cast<float *>(Tt), static_cast<const float *>(fac),
+            static_cast<const float *>(colk), do_flag, 1, M, R, vecs, tiles,
+            k, static_cast<const float *>(p), stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // The per-pivot step of the blocked-kernel loop: the scalar glue between
 // K1 (ah_ratio) and K2 (colk_costs), shared by csrc/step.cu (step_pre, its
 // own one-thread kernel, launched once a window) and csrc/blocked.cu (the
-// steps between K1 and K2 and after K2, run as tails of K1 and K2).
+// steps between K1 and K2 and after K2, run as tails of K1 and K2). The
+// sequential loops' step (csrc/seq_step.cuh) takes its constants, Bland
+// modes and Policy.
 //
 // Replaces no Pallas kernel: in the JAX package this glue is XLA code that
 // the jitted lax.fori_loop fuses around the two passes

@@ -61,22 +61,35 @@ def entering_candidates(costs: torch.Tensor, r: int, eps: float):
 def fused_pivot_plain(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
                       do=None):
     """Plain version of ``fused_pivot`` (same in-place contract and the
-    same two roundings per element)."""
-    if do is None:
-        do = torch.ones((), dtype=torch.bool, device=Tt.device)
-    one = torch.ones((), dtype=Tt.dtype, device=Tt.device)
-    p_safe = torch.where(do, p, one)
-    inv_p = torch.where(do, 1.0 / p_safe, one)
-    mop = torch.where(do, minc / p_safe, torch.zeros_like(one))
-    factor = torch.where(do, a_h * inv_p, 0.0)
-    Tt.sub_(factor[:, None] * colk[None, :])
-    Tt.index_copy_(0, k.long().view(1), (colk * inv_p)[None])
-    costs.sub_(mop * colk)
+    same two roundings per element; with ``do`` false, one host read of
+    it, Tt and the costs untouched, as the kernel leaves them)."""
+    if do is None or bool(do):
+        inv_p = 1.0 / p
+        Tt.sub_((a_h * inv_p)[:, None] * colk[None, :])
+        Tt.index_copy_(0, k.long().view(1), (colk * inv_p)[None])
+        costs.sub_((minc / p) * colk)
     return entering_candidates(costs, r, eps)
 
 
+def fused_pivot_workspace(R: int, device) -> torch.Tensor:
+    """K6's partials for ``R`` columns on ``device``: (4, blocks) int32,
+    one row each of the blocks' Dantzig values (f32 bits) and indices and
+    Bland values and indices, which its fold reads; every call writes
+    them all before its fold, so they need no clearing. A loop allocates
+    one and passes it to every call, in order on one stream."""
+    return torch.empty((4, _cdiv(R, COLS)), dtype=torch.int32, device=device)
+
+
+def check_fused_pivot_workspace(ws: torch.Tensor, R: int, device) -> None:
+    want = (4, _cdiv(R, COLS))
+    if (ws.dtype != torch.int32 or tuple(ws.shape) != want
+            or not ws.is_contiguous() or ws.device != device):
+        raise ValueError(f"ws: want fused_pivot_workspace({R}) on {device}, "
+                         f"got {ws.dtype} {tuple(ws.shape)} on {ws.device}")
+
+
 def fused_pivot(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
-                do=None):
+                do=None, ws=None, out=None):
     """K6, the port of ``simplex_tpu.kernels.pivot.fused_pivot``.
 
     With ``do`` true (the default): ``Tt[j] -= (a_h[j] / p) * colk`` for
@@ -87,7 +100,10 @@ def fused_pivot(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
     ``entering_candidates``: ``(h_d, v_d, h_b, v_b)`` 0-dim tensors, the
     indices int32. ``Tt (M, R)``, ``costs`` and ``colk (R,)``, ``a_h
     (M,)``, ``p`` and ``minc`` are f32, ``k`` int32 and ``do`` bool 0-dim
-    tensors; R must be a multiple of 4 (16-byte rows)."""
+    tensors; R must be a multiple of 4 (16-byte rows). ``ws`` is a
+    ``fused_pivot_workspace``; ``out``, four 0-dim tensors of the
+    candidates' dtypes that they are written into and returned. With both,
+    a call on the card allocates nothing, as a CUDA graph needs."""
     M, R = Tt.shape
     dev = Tt.device
     if do is None:
@@ -111,23 +127,22 @@ def fused_pivot(Tt, costs, colk, a_h, p, minc, k, r: int, eps: float,
     from ._build import check, load_library
 
     lib = load_library()
-    nx = _cdiv(R, COLS)
-    part_val = torch.empty(nx, dtype=torch.float32, device=dev)
-    part_idx = torch.empty(nx, dtype=torch.int32, device=dev)
-    part_bval = torch.empty(nx, dtype=torch.float32, device=dev)
-    part_bidx = torch.empty(nx, dtype=torch.int32, device=dev)
-    h_d = torch.empty((), dtype=torch.int32, device=dev)
-    v_d = torch.empty((), dtype=torch.float32, device=dev)
-    h_b = torch.empty((), dtype=torch.int32, device=dev)
-    v_b = torch.empty((), dtype=torch.float32, device=dev)
+    if ws is None:
+        ws = fused_pivot_workspace(R, dev)
+    check_fused_pivot_workspace(ws, R, dev)
+    if out is None:
+        out = tuple(torch.empty((), dtype=dt, device=dev)
+                    for dt in (torch.int32, torch.float32) * 2)
+    for x, name, dt in zip(out, ("h_d", "v_d", "h_b", "v_b"),
+                           (torch.int32, torch.float32) * 2):
+        _expect(x, f"out {name}", dt, ())
     err = lib.fused_pivot_launch(
         _ptr(Tt), _ptr(costs), _ptr(colk), _ptr(a_h), _ptr(p), _ptr(minc),
-        _ptr(k), _ptr(do), M, R, r, float(eps), _ptr(part_val),
-        _ptr(part_idx), _ptr(part_bval), _ptr(part_bidx), _ptr(h_d),
-        _ptr(v_d), _ptr(h_b), _ptr(v_b), _stream(Tt))
+        _ptr(k), _ptr(do), M, R, r, float(eps), *(_ptr(x) for x in ws),
+        *(_ptr(x) for x in out), _stream(Tt))
     check(lib, err, "fused_pivot")
     LAUNCHES["fused_pivot"] += 1
-    return h_d, v_d, h_b, v_b
+    return tuple(out)
 
 
 class Rank1Plan(NamedTuple):

@@ -18,11 +18,13 @@ idempotent once its loop has finished, and every pivot is gated on
 reports exactly ``max_iter`` pivots whatever the chunk.
 
 The tableau is updated in place (the JAX package's loops return a new
-one); in the other loops than the blocked-kernel one b, the costs, z and
-base are new tensors each pivot. The blocked-kernel loop keeps its whole
-state in fixed tensors updated in place, and on the card replays one
-CUDA graph a window: the port of the JAX loop's jitted
-``lax.fori_loop``.
+one). The sequential loops (``SeqLoop``) and the blocked-kernel loop
+(``KernelLoop``) keep their whole state in fixed tensors updated in
+place, and on the card replay one CUDA graph a chunk or a window: the
+port of the JAX loops' compiled ``lax.while_loop`` and ``lax.fori_loop``.
+The plain blocked loop and ``iteration_body`` (the sequential sharded
+loop's and ``timed.solve_timed``'s per-iteration pivot) build new b,
+costs, z and base each pivot.
 """
 
 from __future__ import annotations
@@ -40,11 +42,19 @@ from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
                               apply_reprice, apply_window, colk_costs_tail,
                               colk_workspace, entering_candidates,
                               exit_status, pivot_scalars, step_pre)
+from .kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
+from .kernels.pivot import fused_pivot_workspace
+from .kernels.seq import LAUNCHES as SEQ_LAUNCHES
+from .kernels.seq import (SeqScalars, fused_pivot_tail, seq_colk,
+                          seq_colk_workspace, seq_rank1, seq_ratio,
+                          seq_ratio_workspace, seq_scalars, seq_snapshot,
+                          seq_step_pre, set_candidates)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 #: Pivots the sequential loops enqueue between two host reads of the
-#: status. After the exit the rest of a chunk are skipped pivots: each
-#: is a full pass of ``solve_loop``'s update (K6 skips the tableau).
+#: status: one CUDA graph on the card. After the exit the rest of a chunk
+#: are skipped pivots, each a few microseconds of scalar work (no pass
+#: over the tableau).
 SEQ_CHUNK = 32
 
 
@@ -139,18 +149,15 @@ def pivot_update(tab: Tableau, h, k, minc, p=None, do=None,
 
 @dataclasses.dataclass
 class LoopState:
-    """The sequential loops' carry (``simplex_tpu.solver.LoopState``;
-    with ``cand``, ``PallasLoopState``): the tableau, and 0-dim status,
-    iterations and stall (int32) and bland (bool). ``cand`` holds the K6
-    loop's entering candidates over the current costs, (h_d, v_d, h_b,
-    v_b), which the previous pivot's pass folded."""
+    """The carry of ``iteration_body`` (``simplex_tpu.solver.LoopState``):
+    the tableau, and 0-dim status, iterations and stall (int32) and bland
+    (bool)."""
 
     tab: Tableau
     status: torch.Tensor
     iterations: torch.Tensor
     stall: torch.Tensor
     bland: torch.Tensor
-    cand: tuple | None = None
 
 
 def initial_state(tab: Tableau, options: SolverOptions) -> LoopState:
@@ -165,11 +172,15 @@ def initial_state(tab: Tableau, options: SolverOptions) -> LoopState:
 def iteration_body(state: LoopState, options: SolverOptions,
                    max_iter: int) -> LoopState:
     """One pivot of the sequential loop (``simplex_tpu.solver.
-    iteration_body``): entering argmin, unboundedness and min-ratio tests,
-    the rank-1 update, the status and the anti-cycling policy, with no
-    host sync. A skipped pivot (the loop finished, or the fuse reached)
-    changes nothing, so the body is idempotent once the loop has
-    finished."""
+    iteration_body``) in torch ops: entering argmin, unboundedness and
+    min-ratio tests, the rank-1 update, the status and the anti-cycling
+    policy, with no host sync. A skipped pivot (the loop finished, or the
+    fuse reached) changes no value -- its ``addr_`` with factor 0 can only
+    turn a -0.0 into +0.0, or an inf of the leaving row into NaN rows --
+    so the body is idempotent once the loop has finished.
+    ``timed.solve_timed``'s per-iteration pivot; ``solve_loop`` runs the
+    same arithmetic as ``kernels.seq``'s passes, skipping the tableau on
+    a skipped pivot."""
     eps = float(options.eps_resolved)
     tab = state.tab
     active = (state.status == RUNNING) & (state.iterations < max_iter)
@@ -203,14 +214,155 @@ def _drive(body, state: LoopState, max_iter: int):
     return state, st, it
 
 
-def solve_loop(tab: Tableau, options: SolverOptions,
-               max_iter: int) -> tuple[Tableau, int, int]:
+# ---------------------------------------------------------------------------
+# The sequential loops as one device program a chunk.
+
+@dataclasses.dataclass
+class SeqLoop:
+    """The sequential loops' state: a fixed set of tensors, each only ever
+    updated in place, since a CUDA graph of the chunk bakes in every
+    pointer. ``Tt`` is the caller's tableau; b, the costs and base the
+    loop's own copies; ``ah`` and ``colk`` the pivot's entering column and
+    leaving row, ``fac`` its factors ``a_h / p`` (None in the K6 loop,
+    whose pass forms them); ``ws_ratio`` ``seq_ratio``'s workspace and
+    ``ws_pass`` ``seq_colk``'s or K6's; ``s`` the scalars; ``pallas``
+    whether the pivot's pass is K6."""
+
+    Tt: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    ah: torch.Tensor
+    colk: torch.Tensor
+    fac: torch.Tensor | None
+    ws_ratio: torch.Tensor
+    ws_pass: torch.Tensor
+    s: SeqScalars
+    r: int
+    pallas: bool
+
+
+def seq_loop(tab: Tableau, options: SolverOptions,
+             pallas: bool = False) -> SeqLoop:
+    """The state at the start of a sequential loop: status RUNNING, the
+    first candidates folded over the costs (``entering_candidates``, as
+    ``choose_entering`` folds them)."""
+    Tt = tab.Tt
+    M, R = Tt.shape
+    dev, dt = Tt.device, Tt.dtype
+    loop = SeqLoop(
+        Tt, b=tab.b.clone(), costs=tab.costs.clone(),
+        base=tab.base.to(torch.int32).clone(),
+        ah=torch.zeros(M, dtype=dt, device=dev),
+        colk=torch.zeros(R, dtype=dt, device=dev),
+        fac=None if pallas else torch.zeros(M, dtype=dt, device=dev),
+        ws_ratio=seq_ratio_workspace(M, dev),
+        ws_pass=(fused_pivot_workspace(R, dev) if pallas
+                 else seq_colk_workspace(R, dev)),
+        s=seq_scalars(tab.z.to(tab.costs.dtype),
+                      options.pivot_rule_resolved == "bland", dt),
+        r=tab.r, pallas=pallas)
+    set_candidates(loop.s, entering_candidates(
+        loop.costs, None, tab.r, float(options.eps_resolved)))
+    return loop
+
+
+def run_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int) -> None:
+    """Enqueue one chunk of ``SEQ_CHUNK`` pivots with no host read: the
+    step before the first pivot's ratio test, then per pivot ``seq_ratio``
+    (the column, the ratio test, the step between), and ``seq_colk`` (the
+    row, costs, candidates, b and base, the step after and the next
+    pivot's step before) and ``seq_rank1`` -- or in the K6 loop
+    ``seq_snapshot`` and K6 with the step after as its fold's tail.
+    3 SEQ_CHUNK + 1 launches on the card, the body a CUDA graph captures:
+    as many nodes, or in the K6 loop 4 SEQ_CHUNK + 1 (K6 is two
+    kernels a launch)."""
+    eps = float(options.eps_resolved)
+    policy = dict(bland_static=options.pivot_rule_resolved == "bland",
+                  threshold=options.bland_threshold)
+    s = loop.s
+    seq_step_pre(s, max_iter, eps)
+    for t in range(SEQ_CHUNK):
+        then_pre = t + 1 < SEQ_CHUNK
+        seq_ratio(loop.Tt, loop.b, s, loop.ah, eps, loop.ws_ratio)
+        if loop.pallas:
+            seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
+            fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
+                             loop.r, eps, max_iter, loop.ws_pass,
+                             then_pre=then_pre, **policy)
+        else:
+            seq_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
+                     loop.colk, loop.fac, s, loop.r, eps, max_iter,
+                     loop.ws_pass, then_pre=then_pre, **policy)
+            seq_rank1(loop.Tt, loop.fac, loop.colk, s)
+
+
+def _capture(run, device, *tables) -> tuple[torch.cuda.CUDAGraph,
+                                            CapturedLaunches]:
+    """``run()`` captured as a CUDA graph on a side stream, and the
+    launches it holds (counted in ``tables``). A capture runs nothing, so
+    no state moves; the kernel library is loaded first, outside it. A
+    failed capture raises."""
+    from .kernels._build import load_library
+
+    load_library()
+    graph = torch.cuda.CUDAGraph()
+    with CapturedLaunches(*tables) as launches, \
+            torch.cuda.stream(torch.cuda.Stream(device)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            run()
+        finally:
+            graph.capture_end()
+    return graph, launches
+
+
+def capture_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int
+                  ) -> tuple[torch.cuda.CUDAGraph, CapturedLaunches]:
+    """One chunk (``run_chunk``) captured as a CUDA graph, and the
+    launches it holds."""
+    return _capture(lambda: run_chunk(loop, options, max_iter),
+                    loop.Tt.device, SEQ_LAUNCHES, PIVOT_LAUNCHES)
+
+
+def _solve_seq(tab: Tableau, loop: SeqLoop, options: SolverOptions,
+               max_iter: int, graph: bool) -> tuple[Tableau, int, int]:
+    """Run ``loop`` to its exit, a chunk between two host reads of status
+    and iterations: on the card one replay of the chunk's CUDA graph,
+    captured once a call (``graph=False``: the same kernels enqueued
+    eagerly), on the CPU the plain versions eagerly."""
+    s = loop.s
+    captured = None
+    st, it = RUNNING, 0
+    while st == RUNNING and it < max_iter:
+        if graph and loop.Tt.is_cuda:
+            if captured is None:
+                captured = capture_chunk(loop, options, max_iter)
+            cuda_graph, launches = captured
+            cuda_graph.replay()
+            launches.replayed()
+        else:
+            run_chunk(loop, options, max_iter)
+        # The chunk's one host sync.
+        st, it = (int(v) for v in
+                  torch.stack([s.status, s.iterations]).tolist())
+    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=s.z,
+                              base=loop.base)
+    return out, st, it
+
+
+def solve_loop(tab: Tableau, options: SolverOptions, max_iter: int, *,
+               graph: bool = True) -> tuple[Tableau, int, int]:
     """Pivots until OPTIMAL / UNBOUNDED / the iteration fuse
     (``simplex_tpu.solver.solve_loop``). Returns (tableau, status,
-    iterations); status stays RUNNING if the fuse tripped."""
-    state, st, it = _drive(lambda s: iteration_body(s, options, max_iter),
-                           initial_state(tab, options), max_iter)
-    return state.tab, st, it
+    iterations); status stays RUNNING if the fuse tripped. The pivot is
+    ``iteration_body``'s arithmetic as three kernels (``run_chunk``); the
+    tableau is updated in place and b, the costs, z and base are the
+    loop's. On the card a chunk of ``SEQ_CHUNK`` pivots is one CUDA graph
+    replay (the JAX ``lax.while_loop``), ``graph=False`` the same kernels
+    enqueued eagerly (the on-card comparison path). A tableau and vectors
+    of a dtype pair with no kernel raise on the card."""
+    return _solve_seq(tab, seq_loop(tab, options), options, max_iter, graph)
 
 
 def use_pallas(options: SolverOptions) -> bool:
@@ -226,60 +378,18 @@ def use_pallas(options: SolverOptions) -> bool:
     return options.use_pallas is not False and options.use_pallas != "auto"
 
 
-def solve_loop_pallas(tab: Tableau, options: SolverOptions,
-                      max_iter: int) -> tuple[Tableau, int, int]:
+def solve_loop_pallas(tab: Tableau, options: SolverOptions, max_iter: int,
+                      *, graph: bool = True) -> tuple[Tableau, int, int]:
     """The sequential loop over K6 (``simplex_tpu.solver.
     solve_loop_pallas``): per pivot one fused pass updates the tableau and
     the costs and folds the next candidates, so the body never re-reads
-    the cost vector; only the O(M) glue is torch. The same pivot
-    sequence as ``solve_loop`` in exact arithmetic; in f32 K6 scales by
-    ``1/p`` and the two part where rounding decides a tie."""
-    from .kernels.pivot import (BIG_INDEX as BIG, entering_candidates,
-                                fused_pivot)
-
-    eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    Tt = tab.Tt
-    M, R = Tt.shape
-    M_iota = torch.arange(M, device=Tt.device)
-    tab = dataclasses.replace(tab, costs=tab.costs.clone())   # K6: in place
-
-    def body(s: LoopState) -> LoopState:
-        tab = s.tab
-        h_d, v_d, h_b, v_b = s.cand
-        active = (s.status == RUNNING) & (s.iterations < max_iter)
-        use_bland = s.bland & (h_b < BIG)
-        h = torch.where(use_bland, h_b, h_d)
-        minc = torch.where(use_bland, v_b, v_d)
-        optimal = minc > -eps
-        a_h = Tt.index_select(1, h.long().clamp(max=R - 1).view(1)).view(M)
-        k, unbounded = ratio_test(tab, a_h, eps)
-        do = active & ~(optimal | unbounded)
-        colk = Tt.index_select(0, k.long().view(1)).view(R)
-        p = _at(a_h, k)
-        new = fused_pivot(Tt, tab.costs, colk, a_h, p, minc, k, tab.r, eps,
-                          do)
-        cand = tuple(torch.where(do, a, b) for a, b in zip(new, s.cand))
-
-        p_safe = torch.where(do, p, 1.0)
-        bk = _at(tab.b, k)
-        b = torch.where(M_iota == k, bk / p_safe, tab.b - bk * (a_h / p_safe))
-        z = tab.z - (minc / p_safe) * bk
-        tab2 = dataclasses.replace(
-            tab, b=torch.where(do, b, tab.b), z=torch.where(do, z, tab.z),
-            base=torch.where(do & (M_iota == k), h, tab.base))
-        stall, bland = anticycling_update(
-            do, (tab2.z - tab.z).abs() >= eps, s.stall, s.bland,
-            bland_static=bland_static, threshold=options.bland_threshold)
-        return LoopState(tab2, exit_status(active, optimal, unbounded,
-                                            s.status),
-                         s.iterations + do.to(torch.int32), stall, bland,
-                         cand)
-
-    init = initial_state(tab, options)
-    init.cand = entering_candidates(tab.costs, tab.r, eps)
-    state, st, it = _drive(body, init, max_iter)
-    return state.tab, st, it
+    the cost vector; around it ``seq_ratio``, ``seq_snapshot`` and the
+    step after K6 as its fold's tail. The same pivot sequence as
+    ``solve_loop`` in exact arithmetic; in f32 K6 scales by ``1/p`` and
+    the two part where rounding decides a tie. On the card one CUDA graph
+    a chunk, as ``solve_loop``."""
+    return _solve_seq(tab, seq_loop(tab, options, pallas=True), options,
+                      max_iter, graph)
 
 
 # ---------------------------------------------------------------------------
@@ -509,22 +619,10 @@ def run_window(loop: KernelLoop, options: SolverOptions,
 
 def capture_window(loop: KernelLoop, options: SolverOptions, max_iter: int
                    ) -> tuple[torch.cuda.CUDAGraph, CapturedLaunches]:
-    """One window (``run_window``) captured as a CUDA graph on a side
-    stream, and the launches it holds. A capture runs nothing, so the
-    state does not move; the kernel library is loaded first, outside
-    it. A failed capture raises."""
-    from .kernels._build import load_library
-
-    load_library()
-    graph = torch.cuda.CUDAGraph()
-    with CapturedLaunches() as launches, \
-            torch.cuda.stream(torch.cuda.Stream(loop.Tt.device)):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            run_window(loop, options, max_iter)
-        finally:
-            graph.capture_end()
-    return graph, launches
+    """One window (``run_window``) captured as a CUDA graph, and the
+    launches it holds."""
+    return _capture(lambda: run_window(loop, options, max_iter),
+                    loop.Tt.device)
 
 
 def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,

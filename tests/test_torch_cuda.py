@@ -1508,3 +1508,255 @@ def test_sharded_loop_graph_matches_eager_on_card(cuda, monkeypatch,
             # K2 packs every pivot; sharded_pack only at the boundaries.
             assert gl["sharded_pack_tail"] == gl["sharded_post_tail"]
             assert gl["sharded_pack"] < gl["sharded_pack_tail"]
+
+
+# ---------------------------------------------------------------------------
+# The sequential loops as one CUDA graph a chunk (kernels/seq.py).
+
+SEQ_PAIRS = {"f64": (np.float64, np.float64),
+             "mixed": (np.float32, np.float64),
+             "f32": (np.float32, np.float32)}
+
+
+def _seq_phase1(dev, pair, n=300, m=100, seed=5, **kw):
+    """An eliminated phase-1 tableau on ``dev`` of the dtype pair, and its
+    options (Dantzig unless ``kw`` says otherwise)."""
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    T, V = SEQ_PAIRS[pair]
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V, **kw)
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    tab = build_phase1(torch.as_tensor(p.A, device=dev),
+                       torch.as_tensor(p.b, device=dev), n, m, opts)
+    return gaussian_eliminate(tab), opts
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, a NaN equal to a NaN and the sign of a zero kept."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a) & torch.isnan(b)
+    return bool((nan | ((a == b) & (torch.signbit(a) == torch.signbit(b))))
+                .all())
+
+
+#: (dtype pair, K6 loop) of the loops: solve_loop at each pair, K6's pure f32.
+SEQ_LOOPS = [("f64", False), ("mixed", False), ("f32", False), ("f32", True)]
+
+
+@pytest.mark.parametrize("pair,pallas", SEQ_LOOPS,
+                         ids=["f64", "mixed", "f32", "k6"])
+def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
+    """Each pivot kernel of the sequential loops against its plain version
+    on the same card tensors, pivot by pivot along a whole walk (taken,
+    then skipped pivots) and from edge states drawn at every fourth pivot
+    (a NaN in b on an eligible row, a tie of the smallest quotient, no
+    eligible row, Bland on with a Bland candidate, the fuse reached):
+    ``seq_step_pre``, ``seq_ratio``, ``seq_colk`` (K6 loop:
+    ``seq_snapshot``, ``fused_pivot_tail``) and ``seq_rank1``; every
+    scalar and vector, the gathered column, the row and the factors bit
+    for bit, the tableau too."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import seq as ks
+
+    tab, opts = _seq_phase1(cuda, pair, use_pallas=pallas)
+    eps = float(opts.eps_resolved)
+    rng = np.random.default_rng(19)
+    loops = [solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                             opts, pallas=pallas) for _ in range(2)]
+    M = tab.Tt.shape[0]
+    kinds = set()
+    for i in range(160):
+        if i % 4 == 3:
+            edge = rng.integers(5)
+            for lp in loops:
+                s = lp.s
+                kb.step_pre_plain(s, 100, eps)      # the next pivot's h
+                if edge == 0:
+                    s.bland.fill_(True)
+                elif edge == 1:
+                    s.iterations.fill_(100)         # the fuse
+                else:
+                    # The next pivot's column, bent as the edge says.
+                    h = int(s.h)
+                    col = lp.Tt[:, h]
+                    rows = torch.nonzero(col >= eps).view(-1)
+                    if edge == 2 and rows.numel() > 1:
+                        lp.b[rows[1]] = float("nan")
+                    elif edge == 3 and rows.numel() > 1:
+                        j1, j2 = int(rows[0]), int(rows[-1])
+                        col[j2] = col[j1]
+                        lp.b[j2] = lp.b[j1]
+                    elif edge == 4:
+                        col.copy_(-col.abs())
+        for lp, kernel in zip(loops, (True, False)):
+            s = lp.s
+            policy = dict(bland_static=False, threshold=50)
+            if kernel:
+                ks.seq_step_pre(s, 100, eps)
+                ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps, lp.ws_ratio)
+            else:
+                kb.step_pre_plain(s, 100, eps)
+                ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
+            if pallas:
+                if kernel:
+                    ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
+                    ks.fused_pivot_tail(lp.Tt, lp.costs, lp.colk, lp.ah, s,
+                                        lp.r, eps, 100, lp.ws_pass,
+                                        then_pre=False, **policy)
+                else:
+                    ks.seq_snapshot_plain(lp.Tt, lp.b, lp.base, lp.ah,
+                                          lp.colk, s)
+                    ks.fused_pivot_tail_plain(lp.Tt, lp.costs, lp.colk,
+                                              lp.ah, s, lp.r, eps, 100,
+                                              then_pre=False, **policy)
+            elif kernel:
+                ks.seq_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
+                            lp.fac, s, lp.r, eps, 100, lp.ws_pass,
+                            then_pre=True, **policy)
+                ks.seq_rank1(lp.Tt, lp.fac, lp.colk, s)
+            else:
+                ks.seq_colk_plain(lp.Tt, lp.costs, lp.b, lp.base, lp.ah,
+                                  lp.colk, lp.fac, s, lp.r, eps, 100,
+                                  then_pre=True, **policy)
+                ks.seq_rank1_plain(lp.Tt, lp.fac, lp.colk, s)
+        (a, b) = loops
+        for name, x in a.s.tensors().items():
+            assert _bits_equal(x, getattr(b.s, name)), (i, name)
+        for name in ("Tt", "b", "costs", "base", "ah", "colk", "fac"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x is None or _bits_equal(x, y), (i, name)
+        kinds.add((bool(a.s.do), bool(a.s.unb)))
+        for lp in loops:
+            # Go on walking from the state the pivot left: running again,
+            # below the fuse, b and z without the NaN.
+            lp.s.status.fill_(int(pst.Status.RUNNING))
+            lp.s.iterations.fill_(0)
+            lp.b.nan_to_num_(nan=1.0)
+            lp.s.z.nan_to_num_(nan=0.0)
+    assert {(True, False), (False, True)} <= kinds, kinds
+    assert M % 128 == 0
+
+
+def _old_eager_seq(tab, opts, cap):
+    """The sequential loop as it ran eagerly before the chunk's graph:
+    ``iteration_body`` driven by ``_drive``."""
+    from simplex_tpu_torch import solver
+
+    state, st, it = solver._drive(
+        lambda s: solver.iteration_body(s, opts, cap),
+        solver.initial_state(tab, opts), cap)
+    return state.tab, st, it
+
+
+@pytest.mark.parametrize("pair,pallas", SEQ_LOOPS,
+                         ids=["f64", "mixed", "f32", "k6"])
+def test_seq_graph_matches_eager_on_card(cuda, monkeypatch, pair, pallas):
+    """``solve_loop`` (``solve_loop_pallas``) as one CUDA graph a chunk
+    against ``graph=False`` and against the loop as it ran before: the
+    old eager ``iteration_body`` on the card (the K6 loop: its plain
+    versions on the CPU, whose arithmetic K6 keeps bit for bit). The
+    same status and iterations, the final Tt, b, costs, z and base bit for
+    bit (Tt against the old body by value: its skipped pivots' addr_ with
+    factor 0 may turn a -0.0 into +0.0), the same launches -- 3 a pivot
+    and ``seq_step_pre`` once a chunk (the K6 loop: K6 one launch of two
+    kernels, its tail counted apart) -- a replay adding the graph's, the
+    capture none."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import seq as ks
+
+    tab0, opts = _seq_phase1(cuda, pair, use_pallas=pallas)
+    loop_fn = solver.solve_loop_pallas if pallas else solver.solve_loop
+    captures = []
+    real = solver.capture_chunk
+    monkeypatch.setattr(solver, "capture_chunk",
+                        lambda *a: captures.append(real(*a)) or captures[-1])
+    runs = {}
+    for graph in (False, True):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        ks.reset_launches()
+        kp.reset_launches()
+        out, st, it = loop_fn(tab, opts, 5000, graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (out, st, it, {**ks.LAUNCHES, **kp.LAUNCHES})
+    if pallas:
+        cpu = dataclasses.replace(tab0, **{
+            f: getattr(tab0, f).cpu() for f in ("Tt", "b", "costs", "z",
+                                                "base")})
+        out, st, it = solver.solve_loop_pallas(cpu, opts, 5000)
+        runs["old"] = (dataclasses.replace(out, **{
+            f: getattr(out, f).to(cuda) for f in ("Tt", "b", "costs", "z",
+                                                  "base")}), st, it)
+    else:
+        runs["old"] = _old_eager_seq(
+            dataclasses.replace(tab0, Tt=tab0.Tt.clone()), opts, 5000)
+    (eo, est, eit, el), (go, gst, git, gl) = runs[False], runs[True]
+    oo, ost, oit = runs["old"]
+    assert est == gst == ost == int(pst.Status.OPTIMAL)
+    assert eit == git == oit > 2 * 32
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name), getattr(eo, name)), name
+        if name == "Tt" and not pallas:
+            assert torch.equal(go.Tt, oo.Tt)
+        else:
+            assert _bits_equal(getattr(go, name), getattr(oo, name)), name
+    assert gl == el and len(captures) == 1
+    chunks = gl["seq_step_pre"]
+    assert chunks == -(-git // 32) or chunks == -(-git // 32) + 1
+    body = (("seq_ratio", "seq_snapshot", "fused_pivot", "seq_k6_tail")
+            if pallas else ("seq_ratio", "seq_colk", "seq_rank1"))
+    for name in body:
+        assert gl[name] == 32 * chunks, (name, gl)
+    per = captures[0][1].per_replay
+    assert sum(n for name, n in per.items() if name not in ks.TAILS) == (
+        3 * 32 + 1)
+
+
+@pytest.mark.parametrize("cap", [1, 31, 32, 33])
+@pytest.mark.parametrize("pallas", [False, True], ids=["seq", "k6"])
+def test_seq_graph_fuse_is_exact_on_card(cuda, cap, pallas):
+    """A capped graphed loop stops at the cap whatever the chunk: status
+    RUNNING, exactly ``cap`` pivots, the state of ``graph=False``."""
+    from simplex_tpu_torch import solver
+
+    tab0, opts = _seq_phase1(cuda, "f32" if pallas else "f64",
+                             use_pallas=pallas)
+    loop_fn = solver.solve_loop_pallas if pallas else solver.solve_loop
+    outs = []
+    for graph in (True, False):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        out, st, it = loop_fn(tab, opts, cap, graph=graph)
+        assert st == int(pst.Status.RUNNING) and it == cap
+        outs.append(out)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(outs[0], name), getattr(outs[1], name))
+
+
+def test_seq_kernels_refuse_on_card(cuda):
+    """A launch the kernel refuses raises (a workspace smaller than its
+    blocks' partials, through the C entry point, and through the wrapper),
+    and a dtype pair with no kernel raises: no fallback."""
+    from simplex_tpu_torch.kernels import _build
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = _build.load_library()
+    M, R = 512, 1024
+    Tt = torch.rand((M, R), dtype=torch.float64, device=cuda)
+    b = torch.rand(M, dtype=torch.float64, device=cuda)
+    ah = torch.empty(M, dtype=torch.float64, device=cuda)
+    s = ks.seq_scalars(torch.zeros((), dtype=torch.float64, device=cuda),
+                       False, torch.float64)
+    ws = ks.seq_ratio_workspace(M, cuda)
+    err = lib.seq_ratio_launch(
+        Tt.data_ptr(), b.data_ptr(), M, R, 1e-9, ah.data_ptr(),
+        ws.data_ptr(), 8, ks.ctypes.byref(ks._seq_ptrs(s)), 0,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="seq_ratio: CUDA error"):
+        _build.check(lib, err, "seq_ratio")
+    with pytest.raises(ValueError, match="seq_ratio_workspace"):
+        ks.seq_ratio(Tt, b, s, ah, 1e-9, ws[:8])
+    odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
+    with pytest.raises(ValueError, match="no sequential kernel"):
+        ks.seq_ratio(Tt, b.float(), odd, ah, 1e-9)

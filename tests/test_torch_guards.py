@@ -236,7 +236,7 @@ def test_library_name_follows_the_sources():
     assert _build.source_digest() == _build.source_digest()
     assert len(_build.source_digest()) == 16
     assert [s.name for s in _build._sources()] == [
-        "batched.cu", "blocked.cu", "pivot.cu", "sharded_step.cu",
+        "batched.cu", "blocked.cu", "pivot.cu", "seq.cu", "sharded_step.cu",
         "step.cu"]
 
 

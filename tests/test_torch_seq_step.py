@@ -1,0 +1,457 @@
+"""The sequential loops as one device program a chunk, on the CPU.
+
+* The plain versions of a chunk's kernels (``kernels.seq``:
+  ``seq_step_pre``, ``seq_ratio``, ``seq_colk``, ``seq_rank1``; in the K6
+  loop ``seq_snapshot`` and ``fused_pivot_tail``), applied in the graph's
+  order, against the eager pivot they replace -- ``solver.iteration_body``,
+  and the K6 loop's body as it ran eagerly (written out here) -- from
+  seeded states in f64, f32 with f64 vectors and pure f32: a NaN in b,
+  tied quotients, no eligible row, no improving column, Bland static, by
+  its threshold and never, a skipped pivot and the fuse reached. Every
+  field of the state bit for bit (a NaN equal to a NaN, the sign of a zero
+  kept), and the next pivot's entering choice ``choose_entering``'s.
+* A skipped pivot leaves the tableau untouched, where the eager body's
+  ``addr_`` with factor 0 turned an inf of the leaving row into NaN rows.
+* ``solver.solve_loop`` and ``solve_loop_pallas`` (``SeqLoop`` on the plain
+  versions) against the JAX package's ``solve_loop`` and
+  ``solve_loop_pallas`` (K6 in interpret mode), Dantzig and Bland:
+  statuses and pivot counts; the fuse gives exactly ``max_iter`` pivots.
+* ``run_chunk``'s launches in order; the loop's fixed storage from its
+  first chunk to its last; the scalars' checks.
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import simplex_tpu.kernels.pivot as jax_pivot
+from simplex_tpu.config import SolverOptions as JaxOptions
+from simplex_tpu.solver import solve_loop as jax_solve_loop
+from simplex_tpu.solver import solve_loop_pallas as jax_solve_loop_pallas
+from simplex_tpu.tableau import build_phase1 as jax_build_phase1
+from simplex_tpu.tableau import gaussian_eliminate as jax_eliminate
+from simplex_tpu_torch import solver
+from simplex_tpu_torch.config import SolverOptions, Status
+from simplex_tpu_torch.generator import generate_random_problem
+from simplex_tpu_torch.kernels import blocked as kb
+from simplex_tpu_torch.kernels import pivot as kp
+from simplex_tpu_torch.kernels import seq as ks
+from simplex_tpu_torch.tableau import (build_phase1, gaussian_eliminate,
+                                       tableau_from_numpy)
+
+RUNNING, OPTIMAL = int(Status.RUNNING), int(Status.OPTIMAL)
+MAX_ITER = 40
+#: (tableau, vectors) dtype pairs: the default options, the mixed mode at
+#: L = 1, pure f32 (use_pallas off: solve_loop; on: the K6 loop).
+PAIRS = {"f64": (np.float64, np.float64), "mixed": (np.float32, np.float64),
+         "f32": (np.float32, np.float32)}
+#: The states each case starts from (applied by ``_edge``).
+CASES = ("walk", "nan_b", "tie", "unbounded", "optimal", "bland_static",
+         "bland_threshold", "bland_never", "skipped", "fuse")
+
+
+def _options(pair, case, **kw):
+    T, V = PAIRS[pair]
+    rule = "bland" if case == "bland_static" else "dantzig"
+    thr = None if case == "bland_never" else 3
+    return SolverOptions(dtype=T, vector_dtype=V, pivot_rule=rule,
+                         bland_threshold=thr, **kw)
+
+
+def _phase1(opts, n=30, m=12, seed=7):
+    p = generate_random_problem(n, m, seed, 1, 100)
+    return gaussian_eliminate(build_phase1(
+        torch.as_tensor(p.A), torch.as_tensor(p.b), n, m, opts))
+
+
+def _edge(tab, case, opts):
+    """The phase-1 tableau bent into ``case``'s state, and the carry
+    (status, iterations, stall, bland)."""
+    eps = float(opts.eps_resolved)
+    tab = dataclasses.replace(tab, Tt=tab.Tt.clone(), b=tab.b.clone(),
+                              costs=tab.costs.clone())
+    h, _ = solver.choose_entering(tab, torch.tensor(False), eps)
+    col = tab.Tt[:, int(h)]
+    rows = torch.nonzero(col >= eps).view(-1)
+    status, iters, stall = RUNNING, 3, 0
+    bland = opts.pivot_rule_resolved == "bland"
+    if case == "nan_b":
+        tab.b[rows[1]] = float("nan")
+    elif case == "tie":
+        # Two eligible rows with the smallest quotient, the same bits.
+        j1, j2 = int(rows[0]), int(rows[-1])
+        tab.Tt[j2, int(h)] = tab.Tt[j1, int(h)]
+        tab.b[j1] = tab.b[j2] = 1e-3 * tab.Tt[j1, int(h)].to(tab.b.dtype)
+    elif case == "unbounded":
+        tab.Tt[:, int(h)] = -col.abs()
+    elif case == "optimal":
+        tab.costs.copy_(tab.costs.abs())
+    elif case == "bland_threshold":
+        # A degenerate pivot (the smallest quotient 0: z does not move)
+        # with the stall one short of the threshold.
+        tab.b[rows[0]] = 0.0
+        stall = int(opts.bland_threshold) - 1
+    elif case == "bland_never":
+        tab.b[rows[0]] = 0.0
+        stall = 7
+    elif case == "skipped":
+        status = OPTIMAL
+    elif case == "fuse":
+        iters = MAX_ITER
+    carry = (torch.tensor(status, dtype=torch.int32),
+             torch.tensor(iters, dtype=torch.int32),
+             torch.tensor(stall, dtype=torch.int32), torch.tensor(bland))
+    return tab, carry
+
+
+def _same(a, b) -> bool:
+    """Bit for bit up to a NaN's payload: equal dtypes and shapes, equal
+    values with the sign of a zero kept, a NaN where the other has one."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a) & torch.isnan(b)
+    return bool((nan | ((a == b) & (torch.signbit(a) == torch.signbit(b))))
+                .all())
+
+
+def _eager_pallas_body(s, options, max_iter):
+    """The K6 loop's pivot as it ran eagerly before the chunk's kernels
+    (a ``solver.LoopState`` with ``cand`` the folded candidates)."""
+    eps = float(options.eps_resolved)
+    tab = s.tab
+    Tt = tab.Tt
+    M, R = Tt.shape
+    M_iota = torch.arange(M)
+    h_d, v_d, h_b, v_b = s.cand
+    active = (s.status == RUNNING) & (s.iterations < max_iter)
+    use_bland = s.bland & (h_b < kb.BIG_INDEX)
+    h = torch.where(use_bland, h_b, h_d)
+    minc = torch.where(use_bland, v_b, v_d)
+    optimal = minc > -eps
+    a_h = Tt.index_select(1, h.long().clamp(max=R - 1).view(1)).view(M)
+    k, unbounded = solver.ratio_test(tab, a_h, eps)
+    do = active & ~(optimal | unbounded)
+    colk = Tt.index_select(0, k.long().view(1)).view(R)
+    p = solver._at(a_h, k)
+    new = kp.fused_pivot(Tt, tab.costs, colk, a_h, p, minc, k, tab.r, eps,
+                         do)
+    cand = tuple(torch.where(do, a, b) for a, b in zip(new, s.cand))
+    p_safe = torch.where(do, p, 1.0)
+    bk = solver._at(tab.b, k)
+    b = torch.where(M_iota == k, bk / p_safe, tab.b - bk * (a_h / p_safe))
+    z = tab.z - (minc / p_safe) * bk
+    tab2 = dataclasses.replace(
+        tab, b=torch.where(do, b, tab.b), z=torch.where(do, z, tab.z),
+        base=torch.where(do & (M_iota == k), h, tab.base))
+    stall, bland = kb.anticycling_update(
+        do, (tab2.z - tab.z).abs() >= eps, s.stall, s.bland,
+        bland_static=options.pivot_rule_resolved == "bland",
+        threshold=options.bland_threshold)
+    out = solver.LoopState(tab2, kb.exit_status(active, optimal, unbounded,
+                                                s.status),
+                           s.iterations + do.to(torch.int32), stall, bland)
+    out.cand = cand
+    return out
+
+
+def _graph_order(loop, opts, pallas, then_pre):
+    """One pivot of ``run_chunk``'s body on ``loop`` (its first pivot
+    after ``seq_step_pre``)."""
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
+                  threshold=opts.bland_threshold)
+    s = loop.s
+    ks.seq_ratio(loop.Tt, loop.b, s, loop.ah, eps, loop.ws_ratio)
+    if pallas:
+        ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
+        ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
+                            loop.r, eps, MAX_ITER, loop.ws_pass,
+                            then_pre=then_pre, **policy)
+    else:
+        ks.seq_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
+                    loop.colk, loop.fac, s, loop.r, eps, MAX_ITER,
+                    loop.ws_pass, then_pre=then_pre, **policy)
+        ks.seq_rank1(loop.Tt, loop.fac, loop.colk, s)
+
+
+def _run_both(tab, carry, opts, pallas, pivots):
+    """``pivots`` pivots eagerly and in the graph's order from one state;
+    after each, every field of the two states equal bit for bit and the
+    next pivot's h and minc ``choose_entering``'s. Returns the kinds of
+    pivot seen (do, unbounded)."""
+    eps = float(opts.eps_resolved)
+    ref = solver.LoopState(dataclasses.replace(
+        tab, Tt=tab.Tt.clone(), b=tab.b.clone(), costs=tab.costs.clone(),
+        base=tab.base.clone()), *(x.clone() for x in carry))
+    loop = solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()), opts,
+                           pallas=pallas)
+    s = loop.s
+    for dst, src in zip((s.status, s.iterations, s.stall, s.bland), carry):
+        dst.copy_(src)
+    if pallas:
+        ref.cand = kp.entering_candidates(ref.tab.costs, tab.r, eps)
+    ks.seq_step_pre(s, MAX_ITER, eps)
+    seen = set()
+    for i in range(pivots):
+        before = loop.Tt.clone()
+        _graph_order(loop, opts, pallas, then_pre=True)
+        ref = (_eager_pallas_body(ref, opts, MAX_ITER) if pallas
+               else solver.iteration_body(ref, opts, MAX_ITER))
+        seen.add((bool(s.do), bool(s.unb)))
+        if not bool(s.do):
+            # The one place the bits may part: a skipped pivot leaves Tt
+            # untouched, where the eager addr_ with factor 0 may turn a
+            # -0.0 into +0.0 (and an inf of colk into NaN rows, below).
+            assert _same(loop.Tt, before) and torch.equal(loop.Tt,
+                                                          ref.tab.Tt), i
+            ref.tab.Tt.copy_(loop.Tt)
+        got = dict(Tt=loop.Tt, b=loop.b, costs=loop.costs, z=s.z,
+                   base=loop.base, status=s.status, iterations=s.iterations,
+                   stall=s.stall, bland=s.bland)
+        want = dict(Tt=ref.tab.Tt, b=ref.tab.b, costs=ref.tab.costs,
+                    z=ref.tab.z, base=ref.tab.base, status=ref.status,
+                    iterations=ref.iterations, stall=ref.stall,
+                    bland=ref.bland)
+        for name in got:
+            assert _same(got[name], want[name]), (i, name)
+        if pallas:
+            want_cand = ref.cand
+            for name, x, w in zip(("h_d", "v_d", "h_b", "v_b"),
+                                  (s.h_d, s.v_d, s.h_b, s.v_b), want_cand):
+                assert _same(x, w.to(x.dtype)), (i, name)
+        else:
+            h, minc = solver.choose_entering(ref.tab, ref.bland, eps)
+            assert int(s.h) == int(h) and _same(s.minc, minc), i
+    return seen
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_plain_chunk_matches_iteration_body(pair, case):
+    """``seq_step_pre``, then ``seq_ratio``, ``seq_colk`` and ``seq_rank1``
+    (the plain versions, CPU tensors) against ``iteration_body`` from one
+    edge state, three pivots: the same state bit for bit after each."""
+    opts = _options(pair, case)
+    tab, carry = _edge(_phase1(opts), case, opts)
+    seen = _run_both(tab, carry, opts, False, 3)
+    want = {"walk": (True, False), "nan_b": (True, False),
+            "tie": (True, False), "unbounded": (False, True),
+            "optimal": (False, False), "skipped": (False, False),
+            "fuse": (False, False)}.get(case, (True, False))
+    assert want in seen, seen
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_k6_chunk_matches_the_eager_k6_body(case):
+    """``seq_step_pre``, then ``seq_ratio``, ``seq_snapshot`` and
+    ``fused_pivot_tail`` against the K6 loop's eager body (pure f32), from
+    one edge state, three pivots: the same state and candidates."""
+    opts = _options("f32", case, use_pallas=True)
+    tab, carry = _edge(_phase1(opts), case, opts)
+    _run_both(tab, carry, opts, True, 3)
+
+
+def test_walk_matches_iteration_body_through_the_exit():
+    """A whole phase-1 walk in f64, 60 pivots past its exit in the
+    graph's order against ``iteration_body``: every state bit for bit,
+    the skipped pivots after the exit included."""
+    opts = _options("f64", "walk")
+    tab = _phase1(opts, n=16, m=6, seed=2)
+    carry = (torch.tensor(RUNNING, dtype=torch.int32),
+             torch.tensor(0, dtype=torch.int32),
+             torch.tensor(0, dtype=torch.int32), torch.tensor(False))
+    seen = _run_both(tab, carry, opts, False, 60)
+    assert {(True, False), (False, False)} <= seen
+
+
+def test_skipped_pivot_leaves_the_tableau_untouched():
+    """With do false and an inf in the leaving row, the eager body's
+    ``addr_`` with factor 0 turns the tableau's column of that inf into
+    NaN; ``seq_rank1`` does not touch it, as the JAX ``while_loop`` runs no
+    skipped pivot. Every other field equal."""
+    opts = _options("f64", "skipped")
+    tab, carry = _edge(_phase1(opts), "skipped", opts)
+    eps = float(opts.eps_resolved)
+    h, _ = solver.choose_entering(tab, torch.tensor(False), eps)
+    k, _ = solver.ratio_test(tab, tab.Tt[:, int(h)], eps)
+    tab.Tt[int(k), tab.r - 1] = float("inf")
+    before = tab.Tt.clone()
+    loop = solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()), opts)
+    for dst, src in zip((loop.s.status, loop.s.iterations, loop.s.stall,
+                         loop.s.bland), carry):
+        dst.copy_(src)
+    ks.seq_step_pre(loop.s, MAX_ITER, eps)
+    _graph_order(loop, opts, False, then_pre=True)
+    assert not bool(loop.s.do) and int(loop.s.k) == int(k)
+    assert _same(loop.Tt, before)
+    ref = solver.iteration_body(solver.LoopState(
+        dataclasses.replace(tab, Tt=tab.Tt.clone()),
+        *(x.clone() for x in carry)), opts, MAX_ITER)
+    others = torch.arange(tab.Tt.shape[0]) != int(k)
+    assert torch.isnan(ref.tab.Tt[others, tab.r - 1]).all()
+    assert not torch.isnan(loop.Tt[:, tab.r - 1]).any()
+    for name in ("b", "costs", "z", "base"):
+        assert _same(getattr(loop, name) if name != "z" else loop.s.z,
+                     getattr(ref.tab, name)), name
+
+
+# ---------------------------------------------------------------------------
+# SeqLoop against the JAX package's loops.
+
+def _jax_tableau(n, m, seed, **opts):
+    jopt = JaxOptions(**opts)
+    rng = np.random.Generator(np.random.Philox(key=seed))
+    A = jnp.asarray(rng.uniform(1, 100, (m, n)), jopt.dtype)
+    b = jnp.asarray(rng.uniform(1, 100, (m,)), jopt.dtype)
+    return jax_eliminate(jax_build_phase1(A, b, n, m, jopt)), jopt, \
+        SolverOptions(**opts)
+
+
+def _port(tab):
+    return tableau_from_numpy(tab.T, tab.b, tab.costs, tab.z, tab.base,
+                              tab.n, tab.m, tab.r)
+
+
+@pytest.mark.parametrize("cap", [2000, 1, 31, 32, 33])
+@pytest.mark.parametrize("rule", ["dantzig", "bland"])
+def test_seq_loop_walks_as_jax_solve_loop(rule, cap):
+    """f64: the port's ``solve_loop`` (``SeqLoop``, one chunk a host read)
+    walks as the JAX ``solve_loop`` from one tableau: the same status and
+    pivot count, the same basis; capped runs stop at the cap, status
+    RUNNING, whatever the chunk."""
+    tab, jopt, popt = _jax_tableau(70, 22, 13, pivot_rule=rule)
+    wt, ws, wi = jax_solve_loop(tab, jopt, cap)
+    gt, gs, gi = solver.solve_loop(_port(tab), popt, cap)
+    assert gs == int(ws) and gi == int(wi)
+    assert gs == (int(Status.OPTIMAL) if cap == 2000 else RUNNING)
+    assert gi == cap or cap == 2000
+    np.testing.assert_array_equal(gt.base.numpy(), np.asarray(wt.base))
+    np.testing.assert_allclose(gt.b.numpy(), np.asarray(wt.b), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("rule", ["dantzig", "bland"])
+def test_seq_loop_walks_as_jax_solve_loop_pallas(monkeypatch, rule):
+    """Pure f32: the port's ``solve_loop_pallas`` (the plain K6 and the
+    chunk's plain steps) against the JAX ``solve_loop_pallas`` with K6 in
+    interpret mode, from one tableau. Capped inside phase 1, the same
+    status (RUNNING), pivot count and basis, b within 2^-18 relative. The
+    whole walk: OPTIMAL on both sides, pivot counts within max(3, 10%),
+    as the f32 walks are held (tests/test_torch_sequential.py): in f32 the
+    two part in phase 1's degenerate tail, where z is within eps of 0 and
+    rounding breaks the ties (at pivot 29 of 29 under Dantzig, 32 of 33
+    under Bland here; the port's walk is its eager K6 loop's, bit for bit,
+    above)."""
+    monkeypatch.setattr(jax_pivot, "fused_pivot", functools.partial(
+        jax_pivot.fused_pivot, interpret=True))
+    tab, jopt, popt = _jax_tableau(40, 14, 5, dtype=np.float32,
+                                   pivot_rule=rule, use_pallas=True)
+    wt, ws, wi = jax_solve_loop_pallas(tab, jopt, 24)
+    gt, gs, gi = solver.solve_loop_pallas(_port(tab), popt, 24)
+    assert gs == int(ws) == RUNNING and gi == int(wi) == 24
+    np.testing.assert_array_equal(gt.base.numpy(), np.asarray(wt.base))
+    np.testing.assert_allclose(gt.b.numpy(), np.asarray(wt.b),
+                               rtol=2.0 ** -18, atol=2.0 ** -18)
+    wt, ws, wi = jax_solve_loop_pallas(tab, jopt, 2000)
+    gt, gs, gi = solver.solve_loop_pallas(_port(tab), popt, 2000)
+    assert gs == int(ws) == int(Status.OPTIMAL)
+    assert abs(gi - int(wi)) <= max(3, int(wi) // 10), (gi, int(wi))
+    assert kp.LAUNCHES["fused_pivot"] == 0          # CPU: the plain version
+
+
+# ---------------------------------------------------------------------------
+# The chunk's structure and the loop's storage.
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["seq", "k6"])
+def test_run_chunk_enqueues_in_the_graphs_order(monkeypatch, pallas):
+    """``run_chunk`` enqueues ``seq_step_pre`` once, then per pivot
+    ``seq_ratio``, ``seq_colk`` and ``seq_rank1`` (the K6 loop:
+    ``seq_ratio``, ``seq_snapshot``, ``fused_pivot_tail``), the last
+    pivot's step after without the next pivot's step before: SEQ_CHUNK
+    pivots whatever the fuse."""
+    opts = _options("f32", "walk", use_pallas=pallas)
+    loop = solver.seq_loop(_phase1(opts), opts, pallas=pallas)
+    calls = []
+
+    def record(name):
+        real = getattr(solver, name)
+
+        def call(*args, **kw):
+            calls.append((name, kw.get("then_pre")))
+            return real(*args, **kw)
+        return call
+
+    names = ("seq_step_pre", "seq_ratio", "seq_colk", "seq_rank1",
+             "seq_snapshot", "fused_pivot_tail")
+    for name in names:
+        monkeypatch.setattr(solver, name, record(name))
+    solver.run_chunk(loop, opts, 5)
+    body = (["seq_ratio", "seq_snapshot", "fused_pivot_tail"] if pallas
+            else ["seq_ratio", "seq_colk", "seq_rank1"])
+    assert [c[0] for c in calls] == ["seq_step_pre"] + body * solver.SEQ_CHUNK
+    tails = [c[1] for c in calls if c[0] == body[1 + pallas]]
+    assert tails == [True] * (solver.SEQ_CHUNK - 1) + [False]
+    assert int(loop.s.iterations) == 5
+
+
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_seq_loop_keeps_its_storage(monkeypatch, pair):
+    """Every tensor of the loop's state keeps its ``data_ptr()`` from the
+    first chunk to the last, and ``solve_loop`` returns the loop's b,
+    costs, z and base and updates the caller's Tt in place."""
+    opts = _options(pair, "walk")
+    tab = _phase1(opts, n=160, m=64, seed=4)
+    loops, seen = [], []
+    make, chunk = solver.seq_loop, solver.run_chunk
+
+    def ptrs(loop):
+        out = {f.name: getattr(loop, f.name) for f in dataclasses.fields(loop)
+               if f.name not in ("s", "r", "pallas")}
+        out.update(loop.s.tensors())
+        return {n: x.data_ptr() for n, x in out.items() if x is not None}
+
+    def seq_loop(*a, **kw):
+        loops.append(make(*a, **kw))
+        return loops[-1]
+
+    def run_chunk(loop, *a, **kw):
+        seen.append(ptrs(loop))
+        return chunk(loop, *a, **kw)
+
+    monkeypatch.setattr(solver, "seq_loop", seq_loop)
+    monkeypatch.setattr(solver, "run_chunk", run_chunk)
+    out, status, iters = solver.solve_loop(tab, opts, 5000)
+    assert status == OPTIMAL and len(seen) >= 2, (status, iters)
+    assert all(p == seen[0] for p in seen[1:])
+    loop = loops[0]
+    assert loop.Tt is tab.Tt and out.Tt is tab.Tt
+    assert out.b is loop.b and out.costs is loop.costs
+    assert out.z is loop.s.z and out.base is loop.base
+
+
+def test_seq_scalars_are_checked():
+    """The scalars take the tableau's dtype for p and the vectors' for z,
+    the candidates' values, minc, bk and u; another dtype or a shape
+    raises, and the kernels refuse a pair with no kernel."""
+    s = ks.seq_scalars(torch.tensor(0.0, dtype=torch.float64), False,
+                       torch.float32)
+    assert s.p.dtype == torch.float32 and s.u.dtype == torch.float64
+    assert int(s.status) == RUNNING and s.h_b.dtype == torch.int32
+    fields = s.tensors()
+    with pytest.raises(ValueError, match="minc"):
+        ks.SeqScalars(**{**fields, "minc": torch.zeros(())})
+    with pytest.raises(ValueError, match="status"):
+        ks.SeqScalars(**{**fields, "status": torch.zeros(1,
+                                                         dtype=torch.int32)})
+    odd = ks.seq_scalars(torch.tensor(0.0), False, torch.float64)
+    with pytest.raises(ValueError, match="no sequential kernel"):
+        ks._pair(odd)
+    assert ks.seq_ratio_workspace_bytes(1024) == 8 + 32 * 4
+    assert ks.seq_colk_workspace_bytes(3072) == 8 + 24 * 12
+    assert ks.TAILS == {"seq_k6_tail": "fused_pivot"}
