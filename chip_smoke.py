@@ -184,9 +184,10 @@ Phases, in order; any failed check exits non-zero:
    16-byte vectors and not (R = 63, 64 and 2,999), how many elements
    ``addcmul_`` and ``baddbmm_`` give otherwise, its plan printed, and
    its time with a quarter of the lanes live and at R = 2,999; the
-   sequential loops' kernels (``seq_step_pre``, ``seq_ratio``,
-   ``seq_colk`` and ``seq_rank1`` at the 8192^2 f64 tableau,
-   ``seq_snapshot`` and K6 with its tail at 2048^2 f32) against their
+   sequential loops' kernels (``seq_step_pre``, ``seq_ratio_colk``,
+   ``seq_ratio`` and ``seq_rank1`` at the 8192^2 f64 tableau,
+   ``seq_ratio``, ``seq_snapshot`` and K6 with its tail at 2048^2 f32,
+   ``seq_colk`` timed as ``seq_ratio_colk`` less ``seq_ratio``) against their
    plain versions from 24 seeded states each (a NaN in b, a tie, no
    eligible row, Bland, the fuse), bit for bit, ``seq_rank1`` in turns
    with ``batch_rank1`` at one lane and ``addr_``;
@@ -385,9 +386,10 @@ FALLBACK_KERNELS = {
 }
 #: The sequential loops' per-pivot kernels (kernels/seq.py): the JAX
 #: loops' XLA-fused pivot (no Pallas kernel but K6), each replacing the
-#: lines it ports -- seq_step_pre once a chunk, seq_ratio, seq_colk and
-#: seq_rank1 a pivot of the default loop, seq_ratio, seq_snapshot and K6
-#: with the step after as its fold's tail a pivot of the K6 loop.
+#: lines it ports -- seq_step_pre once a chunk, seq_ratio_colk (seq_ratio,
+#: then seq_colk as its tail) and seq_rank1 a pivot of the default loop,
+#: seq_ratio, seq_snapshot and K6 with the step after as its fold's tail a
+#: pivot of the K6 loop.
 SEQ_SOURCE = "simplex_tpu_torch/kernels/csrc/seq.cu"
 SEQ_KERNELS = {
     "seq_step_pre": ("glue", "simplex_tpu/solver.py:79", SEQ_SOURCE),
@@ -2041,11 +2043,12 @@ def recorded_walks(n: int) -> tuple[str, str]:
 
 def seq_nodes(pallas: bool) -> int:
     """The nodes of a chunk's graph: ``seq_step_pre``, then per pivot
-    ``seq_ratio``, ``seq_colk`` and ``seq_rank1`` -- or ``seq_ratio``,
-    ``seq_snapshot`` and K6's two kernels (its tail none of its own)."""
+    ``seq_ratio_colk`` (``seq_ratio`` with ``seq_colk`` as its tail) and
+    ``seq_rank1`` -- or ``seq_ratio``, ``seq_snapshot`` and K6's two
+    kernels (its tail none of its own)."""
     from simplex_tpu_torch.solver import SEQ_CHUNK
 
-    return (4 if pallas else 3) * SEQ_CHUNK + 1
+    return (4 if pallas else 2) * SEQ_CHUNK + 1
 
 
 def old_solve_loop(tab, options, max_iter):
@@ -2744,8 +2747,8 @@ def seq_kernel_loop(M: int, R: int, dtype, vdtype, pallas: bool, g,
     return loop, twin, opts
 
 
-def seq_pivot(lp, kernel: bool, pallas: bool, max_iter: int, eps: float,
-              ratio_eps: float) -> None:
+def seq_pivot(lp, kernel: bool, pallas: bool, max_iter: int,
+              eps: float) -> None:
     """One pivot of a chunk from its step before, on the kernels or on
     their plain versions (the K6 loop's kernels with ``pallas``)."""
     from simplex_tpu_torch.kernels import blocked as kb
@@ -2755,20 +2758,20 @@ def seq_pivot(lp, kernel: bool, pallas: bool, max_iter: int, eps: float,
     policy = dict(bland_static=False, threshold=50)
     if kernel:
         ks.seq_step_pre(s, max_iter, eps)
-        ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, ratio_eps, lp.ws_ratio)
         if pallas:
+            ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps)
             ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
             ks.fused_pivot_tail(lp.Tt, lp.costs, lp.colk, lp.ah, s, lp.r,
                                 eps, max_iter, lp.ws_pass, then_pre=False,
                                 **policy)
         else:
-            ks.seq_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
-                        lp.fac, s, lp.r, eps, max_iter, lp.ws_pass,
-                        then_pre=False, **policy)
+            ks.seq_ratio_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
+                              lp.fac, s, lp.r, eps, max_iter, then_pre=False,
+                              **policy)
             ks.seq_rank1(lp.Tt, lp.fac, lp.colk, s)
         return
     kb.step_pre_plain(s, max_iter, eps)
-    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, ratio_eps)
+    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
     if pallas:
         ks.seq_snapshot_plain(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
         ks.fused_pivot_tail_plain(lp.Tt, lp.costs, lp.colk, lp.ah, s, lp.r,
@@ -2786,14 +2789,16 @@ def phase_seq_kernels(records: dict) -> None:
     tableau (M 8,192 x R 24,576), the K6 loop's at 2048^2 pure f32 (M
     2,048 x R 6,144). From 24 seeded states each -- taken and skipped
     pivots, the fuse, Bland on, a NaN in b on an eligible row, a tie of
-    the smallest quotient, no eligible row (a ratio eps no row reaches) --
-    one pivot (the step before, the ratio test, the pass, the update) on
-    the kernels and on their plain versions from the same state: every
-    scalar, vector and the tableau bit for bit. Then, on a taken pivot,
-    each kernel timed by torch.profiler and by CUDA events over a CUDA
-    graph of 50 calls (``seq_rank1`` over back-to-back calls, in turns with
-    ``batch_rank1`` at one lane -- the update without row k -- and with
-    ``Tt.addr_``, its library call; K6's tail as K6 with it less K6
+    the smallest quotient on two rows far apart, no eligible row (the
+    entering column bent to <= 0) -- one pivot (the step before, the
+    ratio test, the pass, the update) on the kernels and on their plain
+    versions from the same state: every scalar, vector and the tableau bit
+    for bit. Then, on a taken pivot, each kernel timed by torch.profiler
+    and by CUDA events over a CUDA graph of 50 calls (``seq_ratio`` the
+    one-cluster kernel alone, ``seq_colk`` as ``seq_ratio_colk`` less
+    ``seq_ratio`` in turns; ``seq_rank1`` over back-to-back calls, in turns
+    with ``batch_rank1`` at one lane -- the update without row k -- and
+    with ``Tt.addr_``, its library call; K6's tail as K6 with it less K6
     without, in turns), beside its plain version and its bound."""
     import numpy as np
     import torch
@@ -2811,7 +2816,6 @@ def phase_seq_kernels(records: dict) -> None:
         seen = collections.Counter()
         for i in range(24):
             edge = i % 6
-            ratio_eps = 1e30 if edge == 5 else eps
             stall = int(rng.integers(0, 60))
             for lp in (a, b):
                 s = lp.s
@@ -2819,18 +2823,21 @@ def phase_seq_kernels(records: dict) -> None:
                 s.iterations.fill_(max_iter if edge == 1 else 3)
                 s.bland.fill_(edge == 2)
                 s.stall.fill_(stall)
-            if edge in (3, 4):
+            if edge in (3, 4, 5):
                 # The next column (the Dantzig candidate's), bent alike.
                 h = int(a.s.h_d)
                 rows = torch.nonzero(a.Tt[:, h] >= eps).view(-1)
                 for lp in (a, b):
                     if edge == 3:
                         lp.b[rows[1]] = float("nan")
-                    else:
+                    elif edge == 4:
                         lp.Tt[rows[-1], h] = lp.Tt[rows[0], h]
                         lp.b[rows[-1]] = lp.b[rows[0]]
-            seq_pivot(a, True, pallas, max_iter, eps, ratio_eps)
-            seq_pivot(b, False, pallas, max_iter, eps, ratio_eps)
+                    else:
+                        col = lp.Tt[:, h].clone()
+                        lp.Tt[:, h] = -col.abs()
+            seq_pivot(a, True, pallas, max_iter, eps)
+            seq_pivot(b, False, pallas, max_iter, eps)
             tag = f"{'K6' if pallas else 'f64'} seq state {i}"
             for name, x in a.s.tensors().items():
                 equal(f"{tag} {name}", x, getattr(b.s, name))
@@ -2845,6 +2852,8 @@ def phase_seq_kernels(records: dict) -> None:
             for lp in (a, b):
                 lp.b.nan_to_num_(nan=1.0)
                 lp.s.z.nan_to_num_(nan=0.0)
+                if edge == 5:
+                    lp.Tt[:, h] = col            # the skipped pivot's column
         require(min(seen["taken"], seen["skipped"], seen["unbounded"]) > 0,
                 f"the states miss a kind of pivot: {dict(seen)}")
         log(f"sequential kernels ({'K6 loop, f32' if pallas else 'f64'}, "
@@ -2858,7 +2867,7 @@ def phase_seq_kernels(records: dict) -> None:
         s.iterations.fill_(0)
         s.bland.fill_(False)
         ks.seq_step_pre(s, big, eps)
-        ks.seq_ratio(a.Tt, a.b, s, a.ah, eps, a.ws_ratio)
+        ks.seq_ratio(a.Tt, a.b, s, a.ah, eps)
         require(bool(s.do), "the timed pivot is not taken")
         item = a.Tt.element_size()
         pol = dict(bland_static=False, threshold=50, then_pre=True)
@@ -2867,29 +2876,18 @@ def phase_seq_kernels(records: dict) -> None:
                              lambda: kb.step_pre_plain(s, big, eps),
                              "seq_step_pre", bound(SEQ_STEP_BYTES[
                                  "seq_step_pre"])),
-            "seq_ratio": (lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps,
-                                               a.ws_ratio),
+            "seq_ratio": (lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps),
                           lambda: ks.seq_ratio_plain(a.Tt, a.b, s, a.ah,
                                                      eps),
-                          "seq_ratio", bound(M * (2 * item + 8) + 44,
-                                             f64_flops=M)),
+                          "seq_ratio_kernel", bound(M * (2 * item + 8) + 44,
+                                                    f64_flops=M)),
         }
         if pallas:
             timed["seq_snapshot"] = (
                 lambda: ks.seq_snapshot(a.Tt, a.b, a.base, a.ah, a.colk, s),
                 lambda: ks.seq_snapshot_plain(a.Tt, a.b, a.base, a.ah,
                                               a.colk, s),
-                "seq_colk", bound(8 * R + 12 * M + 30, 3 * M))
-        else:
-            timed["seq_colk"] = (
-                lambda: ks.seq_colk(a.Tt, a.costs, a.b, a.base, a.ah,
-                                    a.colk, a.fac, s, a.r, eps, big,
-                                    a.ws_pass, **pol),
-                lambda: ks.seq_colk_plain(a.Tt, a.costs, a.b, a.base, a.ah,
-                                          a.colk, a.fac, s, a.r, eps, big,
-                                          **pol),
-                "seq_colk", bound(32 * R + 32 * M + 130,
-                                  f64_flops=2 * R + 3 * M))
+                "seq_snapshot", bound(8 * R + 12 * M + 30, 3 * M))
         for name, (fn, plain_fn, match, (bound_ms, by)) in timed.items():
             require(kernels_launched(fn) == 1, f"one {name} call launched "
                     "more than one kernel")
@@ -2939,6 +2937,7 @@ def phase_seq_kernels(records: dict) -> None:
             torch.cuda.empty_cache()
             continue
 
+        seq_colk_record(records, a, s, eps, big, pol, M, R)
         # The update: seq_rank1 (row k written), batch_rank1 at one lane
         # (without row k), Tt.addr_ -- in turns.
         do1 = s.do.view(1)
@@ -2975,10 +2974,58 @@ def phase_seq_kernels(records: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def seq_colk_record(records: dict, a, s, eps: float, big: int, pol: dict,
+                    M: int, R: int) -> None:
+    """``seq_colk``'s record at the default loop's shape: the pass runs
+    inside ``seq_ratio_colk``, so its time is ``seq_ratio_colk`` less
+    ``seq_ratio`` alone (the same cluster's ratio test and step between),
+    in turns, by torch.profiler and by CUDA events over a CUDA graph of 50
+    calls; beside ``seq_colk_plain``'s time and the pass's bound."""
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
+    fns = {"seq_ratio_colk": lambda: ks.seq_ratio_colk(
+               a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r, eps,
+               big, **pol),
+           "seq_ratio": lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps)}
+    require(kernels_launched(fns["seq_ratio_colk"]) == 1,
+            "one seq_ratio_colk call launched more than one kernel")
+    prof = {name: [] for name in fns}
+    graph = {name: [] for name in fns}
+    for name in ("seq_ratio", "seq_ratio_colk", "seq_ratio_colk",
+                 "seq_ratio"):
+        prof[name].append(device_ms(fns[name], 50, match=name + "_kernel"))
+        graph[name].append(graph_ms(fns[name]))
+    mean = statistics.mean
+    bound_ms, by = bound(32 * R + 32 * M + 130, f64_flops=2 * R + 3 * M)
+    records["seq_colk"] = {
+        "max_abs_err": 0.0,
+        "ms": mean(prof["seq_ratio_colk"]) - mean(prof["seq_ratio"]),
+        "plain_ms": device_ms(lambda: ks.seq_colk_plain(
+            a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r, eps,
+            big, **pol), 20),
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "check_ms": mean(graph["seq_ratio_colk"]) - mean(graph["seq_ratio"])}
+    torch.cuda.synchronize()
+    log(f"seq_ratio_colk and seq_ratio alone M={M} R={R}, ms a call in "
+        "turns: " + "; ".join(
+            f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
+            + " (torch.profiler), " + ", ".join(
+                f"{x:.5f}" for x in graph[name])
+            + " (CUDA graph of 50 calls)" for name in fns)
+        + f"; seq_colk, the pass inside seq_ratio_colk: "
+        f"{records['seq_colk']['ms']:.5f} ms (torch.profiler), "
+        f"{records['seq_colk']['check_ms']:.5f} ms (CUDA graphs), plain "
+        f"{records['seq_colk']['plain_ms']:.4f} ms, bound {bound_ms:.2e} ms "
+        f"({by})")
+
+
 #: The nodes of a chunk's graph by name (torch.profiler's kernel names).
 SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_kernel",
-                     "seq_colk_kernel", "batch_rank1_tiles",
-                     "fused_pivot_tiles", "fused_pivot_finish")
+                     "seq_ratio_colk_kernel", "seq_snapshot_kernel",
+                     "batch_rank1_tiles", "fused_pivot_tiles",
+                     "fused_pivot_finish")
 
 
 def chunk_stats(events: list, chunk: int) -> dict:
@@ -2988,8 +3035,9 @@ def chunk_stats(events: list, chunk: int) -> dict:
     kernels a pivot, the (min, median, max) busy share inside a chunk
     (its kernels' time over the span from its first kernel's start to its
     last one's end) and over a chunk's period (step_pre to step_pre, the
-    host read included), and the middle chunk's kernels by name, kernel us
-    a pivot and span. The last chunk (no period) counts inside only."""
+    host read included), and the middle chunk's kernels by name, their us
+    a pivot by name and in all, and its span. The last chunk (no period)
+    counts inside only."""
     kernels = sorted((e for e in events if e.get("cat") == "kernel"
                       and any(n in e["name"] for n in SEQ_GRAPH_KERNELS)),
                      key=lambda e: e["ts"])
@@ -3013,12 +3061,18 @@ def chunk_stats(events: list, chunk: int) -> dict:
     def spread(x):
         return min(x), statistics.median(x), max(x)
 
+    def kind(e):
+        return next(n for n in SEQ_GRAPH_KERNELS if n in e["name"])
+
+    by_name: dict = collections.defaultdict(float)
+    for e in mid:
+        by_name[kind(e)] += e["dur"] / chunk
+
     return dict(
         chunks=len(chunks), per_pivot=(min(per_pivot), max(per_pivot)),
         inside=spread(inside), period=spread(period),
-        names=dict(collections.Counter(
-            next(n for n in SEQ_GRAPH_KERNELS if n in e["name"])
-            for e in mid)),
+        names=dict(collections.Counter(kind(e) for e in mid)),
+        us_by_name=dict(by_name),
         us_pivot=sum(e["dur"] for e in mid) / chunk,
         span_us=max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"])
 
@@ -3081,7 +3135,9 @@ def phase_chunk_trace() -> None:
             f"host read {100 * w['period'][0]:.1f}-"
             f"{100 * w['period'][2]:.1f}% (median "
             f"{100 * w['period'][1]:.1f}%); the middle chunk's kernels "
-            f"{w['us_pivot']:.2f} us a pivot, its span {w['span_us']:.1f} us")
+            f"{w['us_pivot']:.2f} us a pivot ("
+            + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
+            + f"), its span {w['span_us']:.1f} us")
 
 
 def phase_r1024() -> None:

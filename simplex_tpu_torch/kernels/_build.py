@@ -167,14 +167,15 @@ SIGNATURES = {
     # csrc/seq.cu: the sequential scalars' pointers (by reference),
     # max_iter eps pair stream
     "seq_step_pre_launch": [_P, ctypes.c_longlong, _D, _I, _P],
-    # Tt b M R eps ah workspace, its bytes, scalars, pair, stream
-    "seq_ratio_launch": [_P, _P, _I, _I, _D, _P, _P, ctypes.c_longlong, _P,
-                         _I, _P],
-    # Tt costs b base ah colk fac M R r eps workspace, its bytes, scalars,
-    # max_iter, bland mode, threshold, then_pre, fold, pair, stream
-    "seq_colk_launch": [_P] * 7 + [_I, _I, _I, _D, _P, ctypes.c_longlong,
-                                   _P, ctypes.c_longlong, _I, _I, _I, _I,
-                                   _I, _P],
+    # Tt b M R eps ah scalars pair stream
+    "seq_ratio_launch": [_P, _P, _I, _I, _D, _P, _P, _I, _P],
+    # Tt costs b base ah colk fac M R r eps scalars, max_iter, bland mode,
+    # threshold, then_pre, pair, stream
+    "seq_ratio_colk_launch": [_P] * 7 + [_I, _I, _I, _D, _P,
+                                         ctypes.c_longlong, _I, _I, _I, _I,
+                                         _P],
+    # Tt b base ah colk M R scalars pair stream
+    "seq_snapshot_launch": [_P] * 5 + [_I, _I, _P, _I, _P],
 }
 
 

@@ -5,60 +5,89 @@
 // lax.while_loops whose pivot is XLA code (simplex_tpu/solver.py:116-157
 // iteration_body, with ratio_test :99-113 and choose_entering :79-96; the
 // K6 loop's glue around fused_pivot, :239-294). The port's eager loop ran
-// that pivot as about 40 torch calls; here one pivot is three nodes:
+// that pivot as about 40 torch calls; here a pivot of the default loop is
+// two nodes, of the K6 loop four:
 //
-// * seq_ratio (a grid over M): gathers the entering column a_h = Tt[:, h]
-//   into the loop's fixed ``ah`` and runs the ratio test -- the first index
-//   of the smallest b / a_h over a_h >= eps, the quotient in V, NaN first as
-//   torch.argmin orders it, the rows with a_h < eps counted as +inf as
-//   torch.where puts them, so k is torch.argmin's; then the block that
-//   draws the last arrival ticket runs the step between: k, bk, unbounded,
-//   do = active and not (optimal or unbounded), p = a_h[k] where done
-//   (else 1) and u = minc / p.
-// * seq_colk (a grid over R, and blocks over M): copies the leaving row
-//   colk = Tt[k] into the fixed ``colk`` before the rank-1 update
-//   overwrites it, updates the costs (costs -= u * colk, two roundings in V)
-//   and folds the next entering candidates over them (the Dantzig argmin of
-//   the live columns in torch.argmin's order, Bland's lowest eligible
-//   index); its M blocks form factor = a_h / p (one rounding in T) into the
-//   fixed ``fac`` and update b (b -= bk * factor, b[k] = bk / p, in V). The
-//   last R block stores the candidates and base[k] = h, then runs the step
-//   after the pivot and the next pivot's step before seq_ratio
-//   (seq_step.cuh). Without FOLD it is the K6 loop's snapshot: the copy of
-//   row k, b and base[k] = h, no costs (K6 updates them) and no tail.
+// * seq_ratio_colk (the default loop; one thread-block cluster): the
+//   ratio test, then the pivot row's pass, with one cluster barrier
+//   between them and one after.
+//   - The ratio test: gathers the entering column a_h = Tt[:, h] into the
+//     loop's fixed ``ah`` and takes the first index of the smallest b /
+//     a_h over a_h >= eps, the quotient in V, NaN first as torch.argmin
+//     orders it, the rows with a_h < eps counted as +inf as torch.where
+//     puts them, so k is torch.argmin's. Every block folds the blocks'
+//     results and runs the step between (k, bk, unbounded, do = active and
+//     not (optimal or unbounded), p = a_h[k] where done, else 1, and u =
+//     minc / p); block 0 stores it.
+//   - The pass: copies the leaving row colk = Tt[k] into the fixed
+//     ``colk`` before the rank-1 update overwrites it, updates the costs
+//     (costs -= u * colk, two roundings in V) and folds the next entering
+//     candidates over them (the Dantzig argmin of the live columns in
+//     torch.argmin's order, Bland's lowest eligible index); forms factor =
+//     a_h / p (one rounding in T) into the fixed ``fac`` and updates b (b
+//     -= bk * factor, b[k] = bk / p, in V). Block 0 folds the blocks'
+//     candidates, stores them and base[k] = h, then runs the step after
+//     the pivot and the next pivot's step before the ratio test
+//     (seq_step.cuh). It counts a launch of seq_ratio and one of seq_colk
+//     (kernels/seq.py TAILS).
 // * the rank-1 update (csrc/pivot.cu seq_rank1, batch_rank1's tiles for one
 //   lane with row k written as colk / p).
+// * seq_ratio (the K6 loop; one cluster): the ratio test and the step
+//   between alone; seq_snapshot (a grid): the K6 loop's copy of row k, b
+//   and base[k] = h (no costs: K6 updates them; no fold); K6 with the step
+//   after as its fold's tail (csrc/pivot.cu).
 //
-// plus seq_step_pre (one thread) once a chunk, before its first seq_ratio:
-// 3 SEQ_CHUNK + 1 nodes. Every kernel reads its scalars from the loop's
-// fixed 0-dim tensors (kernels.seq.SeqScalars), so the chunk's graph holds
-// no host value but max_iter, eps, r and the Bland policy.
+// plus seq_step_pre (one thread) once a chunk, before its first pivot:
+// 2 SEQ_CHUNK + 1 nodes (K6 loop: 4 SEQ_CHUNK + 1). Every kernel reads its
+// scalars from the loop's fixed 0-dim tensors (kernels.seq.SeqScalars), so
+// the chunk's graph holds no host value but max_iter, eps, r and the Bland
+// policy.
 //
-// Bound on the card: latency, not bytes. seq_ratio moves M (2 sizeof(T) +
-// sizeof(V)) bytes (0.20 MB at the 8192^2 f64 tableau: 0.06 us at 3.35
-// TB/s), seq_colk 2 R sizeof(T) + 2 R sizeof(V) + M (2 sizeof(T) + 2
-// sizeof(V)) (0.98 MB, 0.29 us); each is a launch, a dependent load (h or
-// k, then the column or row), a block fold, a ticket and the last block's
-// fold and stores. Design: K1's and K2's one-launch form without their eta
-// slabs: one thread a row (seq_ratio) or a column (seq_colk), each block's
-// candidates folded over warp shuffles, one partial a block in the
-// caller's workspace, an acq_rel arrival ticket; the block that draws the
-// last ticket folds the partials in the same total order (so the results
-// do not depend on the blocks' schedule), writes the outputs, resets the
-// counter and runs the tail in one thread. The ratio test's winner carries
-// its a_h and b, so p == a_h[k] and bk == b[k] with no load after the fold.
+// Bound on the card: latency, not bytes. The ratio test moves M (2
+// sizeof(T) + sizeof(V)) bytes (0.20 MB at the 8192^2 f64 tableau: 0.06 us
+// at 3.35 TB/s), the pass 2 R sizeof(T) + 2 R sizeof(V) + M (2 sizeof(T) +
+// 2 sizeof(V)) (0.98 MB, 0.29 us); each is a dependent load (h or k, then
+// the column or the row), a fold across the card and the step. The forms
+// they replaced (K1's and K2's: one thread a row or a column over a grid,
+// a partial a block in a workspace, an acq_rel arrival ticket, the last
+// block folding the partials past L1; three nodes a pivot) took 4.33 and
+// 4.39 us at M 8,192, R 24,576 on an NVIDIA H100 80GB HBM3, 700.00 W
+// (PERF.md). Design: one cluster of CLUSTER_BLOCKS blocks of
+// CLUSTER_THREADS threads (sharded_ratio's, csrc/sharded_step.cu), each
+// thread walking its rows and columns (strided by the cluster's thread
+// count) PER at a time, every load of the PER issued before any is waited
+// for; the costs of its first PER columns and the step's scalars are
+// loaded before h; the rows' a_h and b gathered for the ratio test stay in
+// registers for the factors and b; the warps fold by shuffles, each
+// block's warp 0 over its warps, and the blocks' results go into the
+// shared memory of the blocks that fold them (distributed shared memory)
+// before a cluster barrier. No workspace, no atomics, no counter. The
+// ratio test's winner carries its a_h and b, so p == a_h[k] and bk == b[k]
+// with no load after the fold. On that card (tools/seq_variants.cu, every
+// form bit for bit against the kernels it replaced) one pivot's ratio test
+// and pass took, a CUDA graph of 50 pivots a replay: at the 1,024^2 f64
+// tableau (it stays in L2 in the loop) 6.65 us for this kernel at 16 x 256
+// x 4, against 8.55 for the two it replaced, 7.64 for the two as clusters
+// and 7.05-8.70 for other shapes of this one (8 or 16 blocks, 128-1,024
+// threads, 1-8 at a time); at 8,192 x 24,576 with L2 evicted 9.71 against
+// 11.08 and 10.82 (16 x 512 x 4: 8.83, but 7.22 at 1,024^2).
 //
 // Every result keeps the bits of the plain version (kernels/seq.py
 // seq_*_plain): every product, quotient and difference is rounded apart
 // with the _rn intrinsics (nvcc contracts none of them), an f32 a_h widens
-// exactly to f64 before the quotient, and eps is compared in the
-// operand's type, as torch compares a tensor with a Python float.
+// exactly to f64 before the quotient, eps is compared in the operand's
+// type, as torch compares a tensor with a Python float, and every fold is
+// a total order, so the results do not depend on the blocks' schedule.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <string.h>
 
+#include "cluster.cuh"
 #include "seq_step.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,26 +98,18 @@ using seq::inf;
 using seq::mul_rn;
 using seq::sub_rn;
 
+// seq_snapshot's blocks: one row, or one column, a thread.
 constexpr int THREADS = 256;
-constexpr int NW = THREADS / 32;
+// The clusters: CLUSTER_BLOCKS blocks (past the portable 8, so launched
+// with the non-portable cluster size allowed) of CLUSTER_THREADS threads,
+// each thread walking its rows and columns PER at a time.
+constexpr int CLUSTER_BLOCKS = 16;
+constexpr int CLUSTER_THREADS = 256;
+constexpr int PER = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
 // The (tableau, vector) dtype pairs (kernels/seq.py PAIRS).
 enum Pair { PAIR_F64 = 0, PAIR_MIXED = 1, PAIR_F32 = 2 };
-
-// The arrival ticket (as csrc/blocked.cu's): one atomic add, acquire and
-// release at the device's scope. Its release orders the calling thread's
-// partial before the add; in the block that draws the last ticket its
-// acquire orders every block's partial before the fold, and the block's
-// barrier hands that on to the folding threads, which read past L1.
-__device__ __forceinline__ unsigned ticket(unsigned *counter) {
-    unsigned old;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
-                 : "=r"(old)
-                 : "l"(counter)
-                 : "memory");
-    return old;
-}
 
 // The host's array of pointers (kernels/seq.py _SeqPtrs) as the struct.
 template <typename T, typename V>
@@ -99,7 +120,7 @@ SeqStep<T, V> step_of(const void *ptrs) {
 }
 
 // ---------------------------------------------------------------------------
-// seq_step_pre: the first pivot's step before seq_ratio, once a chunk.
+// seq_step_pre: the first pivot's step before the ratio test, once a chunk.
 
 template <typename T, typename V>
 __global__ void seq_step_pre_kernel(SeqStep<T, V> s, long long max_iter,
@@ -112,7 +133,7 @@ __global__ void seq_step_pre_kernel(SeqStep<T, V> s, long long max_iter,
 }
 
 // ---------------------------------------------------------------------------
-// seq_ratio
+// The folds.
 
 // A ratio candidate: its quotient, its row, and the row's a_h and b.
 template <typename T, typename V>
@@ -138,277 +159,434 @@ __device__ __forceinline__ Ratio<T, V> shfl_xor(const Ratio<T, V> &x,
                        __shfl_xor_sync(FULL, x.b, off)};
 }
 
-// Block-wide fold of the ratio candidates and of the eligible flag; thread
-// 0 gets the result. The whole block calls it.
-template <typename T, typename V>
-__device__ void block_ratio(Ratio<T, V> &x, bool &any,
-                            const Ratio<T, V> &none) {
-    __shared__ Ratio<T, V> warps[NW];
-    __shared__ int wany[NW];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    any = __any_sync(FULL, any);
-    for (int off = 16; off > 0; off >>= 1) take_first(x, shfl_xor(x, off));
-    if (lane == 0) {
-        warps[warp] = x;
-        wany[warp] = any;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        x = lane < NW ? warps[lane] : none;
-        any = __any_sync(FULL, lane < NW && wany[lane] != 0);
-        for (int off = NW / 2; off > 0; off >>= 1)
-            take_first(x, shfl_xor(x, off));
-    }
-    __syncthreads();                             // warps[] free again
-}
-
-// seq_ratio's workspace (bytes; kernels/seq.py seq_ratio_workspace_bytes
-// agrees): [0, 4) the arrival counter, [4, 8) unused, then f64 q[nb],
-// a[nb], b[nb] and int j[nb], any[nb] for nb blocks.
-__host__ __device__ constexpr size_t ratio_ws_bytes(int nb) {
-    return 8 + (size_t)nb * (3 * sizeof(double) + 2 * sizeof(int));
-}
-
-struct RatioWs {
-    unsigned *counter;
-    double *q, *a, *b;
-    int *j, *any;
-    __device__ RatioWs(unsigned char *ws, int nb)
-        : counter(reinterpret_cast<unsigned *>(ws)),
-          q(reinterpret_cast<double *>(ws + 8)), a(q + nb), b(a + nb),
-          j(reinterpret_cast<int *>(b + nb)), any(j + nb) {}
+// The entering candidates: the Dantzig one (val, idx) in torch.argmin's
+// order and the Bland one (the lowest eligible index bidx, carrying bval).
+template <typename V>
+struct Cands {
+    V val;
+    int idx;
+    V bval;
+    int bidx;
 };
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(THREADS) seq_ratio_kernel(
-        const T *__restrict__ Tt, const V *__restrict__ b, int M, int R,
-        double eps, T *__restrict__ ah, unsigned char *__restrict__ ws_bytes,
-        int nb, SeqStep<T, V> s) {
-    __shared__ bool last;
-    const RatioWs ws(ws_bytes, nb);
-    const int tid = threadIdx.x;
-    const int j = blockIdx.x * THREADS + tid;
-    const int h = min(*s.h, R - 1);
-    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
-    Ratio<T, V> x = none;
-    bool any = false;
-    if (j < M) {
-        const T a = Tt[(size_t)j * R + h];
-        const V bj = b[j];
-        ah[j] = a;
-        any = a >= (T)eps;
-        x = Ratio<T, V>{any ? div_rn(bj, (V)a) : inf<V>(), j, a, bj};
+template <typename V>
+__device__ __forceinline__ void take_first(Cands<V> &x, const Cands<V> &o) {
+    if (first(o.val, o.idx, x.val, x.idx)) {
+        x.val = o.val;
+        x.idx = o.idx;
     }
-    block_ratio(x, any, none);
-    if (tid == 0) {
-        ws.q[blockIdx.x] = (double)x.q;
-        ws.j[blockIdx.x] = x.j;
-        ws.a[blockIdx.x] = (double)x.a;
-        ws.b[blockIdx.x] = (double)x.b;
-        ws.any[blockIdx.x] = any;
-        last = ticket(ws.counter) == (unsigned)nb - 1;
+    if (o.bidx < x.bidx) {
+        x.bidx = o.bidx;
+        x.bval = o.bval;
     }
-    __syncthreads();
-    if (!last) return;
+}
 
-    // The tail's other operands, loaded while the partials fold: the step
-    // before wrote them and no block of seq_ratio writes them.
-    bool active = false, optimal = false;
-    V minc = 0;
-    if (tid == 0) {
-        active = *s.active != 0;
-        optimal = *s.optimal != 0;
-        minc = *s.minc;
-    }
-    // The last block: fold every block's partial (read past L1) in the
-    // same order.
-    x = none;
-    any = false;
-    for (int i = tid; i < nb; i += THREADS) {
-        any |= __ldcg(ws.any + i) != 0;
-        take_first(x, Ratio<T, V>{(V)__ldcg(ws.q + i), __ldcg(ws.j + i),
-                                  (T)__ldcg(ws.a + i), (V)__ldcg(ws.b + i)});
-    }
-    block_ratio(x, any, none);
-    if (tid == 0) {
-        const bool unb = !any;
-        const bool d = active && !(optimal || unb);
-        const T p = d ? x.a : (T)1;
-        *s.k = x.j;
-        *s.unb = unb;
-        *s.do_ = d;
-        *s.p = p;
-        *s.bk = x.b;
-        *s.u = d ? div_rn(minc, (V)p) : (V)0;
-        *ws.counter = 0;                         // ready for the next call
+template <typename V>
+__device__ __forceinline__ Cands<V> shfl_xor(const Cands<V> &x, int off) {
+    return Cands<V>{__shfl_xor_sync(FULL, x.val, off),
+                    __shfl_xor_sync(FULL, x.idx, off),
+                    __shfl_xor_sync(FULL, x.bval, off),
+                    __shfl_xor_sync(FULL, x.bidx, off)};
+}
+
+// The warp's fold: every lane gets the warp's result.
+template <typename X>
+__device__ __forceinline__ X warp_fold(X x) {
+    for (int off = 16; off > 0; off >>= 1) take_first(x, shfl_xor(x, off));
+    return x;
+}
+
+// The block's fold of x and of the flag ``any``: every lane of warp 0 gets
+// the block's result. ``warps`` and ``wany`` are the block's shared
+// arrays of NW entries; the whole block calls it.
+template <int NW, typename X>
+__device__ __forceinline__ void block_fold(X &x, bool &any, const X &none,
+                                           X *warps, int *wany) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    any = __any_sync(FULL, any);
+    x = warp_fold(x);
+    if (NW > 1) {
+        if (lane == 0) {
+            warps[warp] = x;
+            wany[warp] = any;
+        }
+        __syncthreads();
+        if (warp == 0) {
+            x = warp_fold(lane < NW ? warps[lane] : none);
+            any = __any_sync(FULL, lane < NW && wany[lane] != 0);
+        }
     }
 }
 
 // ---------------------------------------------------------------------------
-// seq_colk
+// The ratio test and the pass, one thread's share.
 
-// Block-wide fold of the Dantzig candidate (val, idx) in torch.argmin's
-// order and the Bland one (lowest bidx, carrying bval); thread 0 gets the
-// result. The whole block calls it.
-template <typename V>
-__device__ void block_cands(V &val, int &idx, V &bval, int &bidx) {
-    __shared__ V sv[NW], sbv[NW];
-    __shared__ int si[NW], sbi[NW];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    auto fold = [&](int width) {
-        for (int off = width / 2; off > 0; off >>= 1) {
-            const V v2 = __shfl_xor_sync(FULL, val, off);
-            const int i2 = __shfl_xor_sync(FULL, idx, off);
-            const V bv2 = __shfl_xor_sync(FULL, bval, off);
-            const int bi2 = __shfl_xor_sync(FULL, bidx, off);
-            if (first(v2, i2, val, idx)) {
-                val = v2;
-                idx = i2;
-            }
-            if (bi2 < bidx) {
-                bidx = bi2;
-                bval = bv2;
-            }
-        }
-    };
-    fold(32);
-    if (lane == 0) {
-        sv[warp] = val;
-        si[warp] = idx;
-        sbv[warp] = bval;
-        sbi[warp] = bidx;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        const bool has = lane < NW;
-        val = has ? sv[lane] : inf<V>();
-        idx = has ? si[lane] : BIG_INDEX;
-        bval = has ? sbv[lane] : inf<V>();
-        bidx = has ? sbi[lane] : BIG_INDEX;
-        fold(NW);
-    }
-    __syncthreads();                             // the arrays free again
-}
-
-// seq_colk's workspace (bytes; kernels/seq.py seq_colk_workspace_bytes
-// agrees): [0, 4) the arrival counter, [4, 8) unused, then f64 val[nb],
-// bval[nb] and int idx[nb], bidx[nb] for nb R blocks.
-__host__ __device__ constexpr size_t colk_ws_bytes(int nb) {
-    return 8 + (size_t)nb * (2 * sizeof(double) + 2 * sizeof(int));
-}
-
-struct ColkWs {
-    unsigned *counter;
-    double *val, *bval;
-    int *idx, *bidx;
-    __device__ ColkWs(unsigned char *ws, int nb)
-        : counter(reinterpret_cast<unsigned *>(ws)),
-          val(reinterpret_cast<double *>(ws + 8)), bval(val + nb),
-          idx(reinterpret_cast<int *>(bval + nb)), bidx(idx + nb) {}
+// The step between the ratio test and the pass, from the folded winner.
+template <typename T, typename V>
+struct Between {
+    int k;
+    bool d, unb;
+    T p;
+    V bk, u;
 };
 
-// FOLD: the sequential loop's pass (costs, fold, fac, the tail). Without
-// it: the K6 loop's snapshot (colk, b and base; costs, fac, ws unread).
-// The R blocks come first (n_rblocks of them), then the M blocks. Two
-// elements are read by threads other than their writer's kernel-mates:
-// h, which the tail's step before rewrites after the last block has read
-// it for base[k] (the M blocks of FOLD do not read it), and k, do, p, bk
-// and u, which nothing in the kernel writes.
-template <typename T, typename V, bool FOLD>
-__global__ void __launch_bounds__(THREADS) seq_colk_kernel(
+template <typename T, typename V>
+__device__ __forceinline__ Between<T, V> between(const Ratio<T, V> &x,
+                                                 bool any, bool active,
+                                                 bool optimal, V minc) {
+    const bool unb = !any;                       // x.j < M: every q is ordered
+    const bool d = active && !(optimal || unb);
+    const T p = d ? x.a : (T)1;
+    return Between<T, V>{x.j, d, unb, p, x.b,
+                         d ? div_rn(minc, (V)p) : (V)0};
+}
+
+template <typename T, typename V>
+__device__ __forceinline__ void store(const SeqStep<T, V> &s,
+                                      const Between<T, V> &w) {
+    *s.k = w.k;
+    *s.unb = w.unb;
+    *s.do_ = w.d;
+    *s.p = w.p;
+    *s.bk = w.bk;
+    *s.u = w.u;
+}
+
+// This thread's rows of the ratio test (rows g, g + SPAN, ...), PER at a
+// time, b and the gathers of a_h of the PER issued before any is waited
+// for: a_h into ah, each row's candidate folded into x and its eligibility
+// into any. The first PER rows' a_h and b stay in a0 and b0.
+template <typename T, typename V, int PER_, int SPAN>
+__device__ __forceinline__ void ratio_rows(const T *__restrict__ Tt,
+                                           const V *__restrict__ b,
+                                           T *__restrict__ ah, int M, int R,
+                                           int h, T eps, int g,
+                                           Ratio<T, V> &x, bool &any,
+                                           T (&a0)[PER_], V (&b0)[PER_]) {
+    for (int j0 = g; j0 < M; j0 += PER_ * SPAN) {
+        T a[PER_];
+        V bj[PER_];
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int j = j0 + q * SPAN;
+            if (j < M) {
+                bj[q] = b[j];
+                a[q] = Tt[(size_t)j * R + h];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int j = j0 + q * SPAN;
+            if (j < M) {
+                ah[j] = a[q];
+                const bool mask = a[q] >= eps;
+                any |= mask;
+                take_first(x, Ratio<T, V>{mask ? div_rn(bj[q], (V)a[q])
+                                               : inf<V>(),
+                                          j, a[q], bj[q]});
+            }
+        }
+        if (j0 == g) {
+#pragma unroll
+            for (int q = 0; q < PER_; ++q) {
+                a0[q] = a[q];
+                b0[q] = bj[q];
+            }
+        }
+    }
+}
+
+// b and the factors of a done pivot over this thread's rows, PER at a
+// time: fac = a_h / p (T); b -= bk * fac, b[k] = bk / p (V). The first PER
+// rows' a_h and b come from a0 and b0 where ``held``, the others from ah
+// and b (this thread's own stores, or the caller's).
+template <typename T, typename V, int PER_, int SPAN>
+__device__ __forceinline__ void update_rows(V *__restrict__ b,
+                                            T *__restrict__ fac,
+                                            const T *__restrict__ ah, int M,
+                                            const Between<T, V> &w, int g,
+                                            bool held, const T (&a0)[PER_],
+                                            const V (&b0)[PER_]) {
+    for (int j0 = g; j0 < M; j0 += PER_ * SPAN) {
+        const bool reg = held && j0 == g;
+        T a[PER_];
+        V bj[PER_];
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int j = j0 + q * SPAN;
+            if (j < M) {
+                a[q] = reg ? a0[q] : ah[j];
+                bj[q] = reg ? b0[q] : b[j];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int j = j0 + q * SPAN;
+            if (j < M) {
+                const T f = div_rn(a[q], w.p);
+                fac[j] = f;
+                b[j] = j == w.k ? div_rn(w.bk, (V)w.p)
+                                : sub_rn(bj[q], mul_rn(w.bk, (V)f));
+            }
+        }
+    }
+}
+
+// The pivot row's pass over this thread's columns (g, g + SPAN, ...), PER
+// at a time: colk = Tt[k]; where done costs -= u * colk (V); the
+// candidates over the live columns (i < r) folded into x. The first PER
+// columns' costs come from c0 (loaded before k was known); every load of
+// the PER is issued before any is waited for. ``between_loads`` runs after
+// the first PER's loads are issued (the factors and b, in the fused
+// kernel).
+template <typename T, typename V, int PER_, int SPAN, typename F>
+__device__ __forceinline__ void colk_cols(const T *__restrict__ Tt,
+                                          V *__restrict__ costs,
+                                          T *__restrict__ colk, int R, int r,
+                                          V eps, const Between<T, V> &w,
+                                          int g, const V (&c0)[PER_],
+                                          Cands<V> &x, F between_loads) {
+    const T *row = Tt + (size_t)w.k * R;
+    for (int i0 = g; i0 < R; i0 += PER_ * SPAN) {
+        const bool reg = i0 == g;
+        T ck[PER_];
+        V c[PER_];
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int i = i0 + q * SPAN;
+            if (i < R) {
+                ck[q] = row[i];
+                c[q] = reg ? c0[q] : costs[i];
+            }
+        }
+        if (reg) between_loads();
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int i = i0 + q * SPAN;
+            if (i < R) {
+                colk[i] = ck[q];
+                if (w.d) {
+                    c[q] = sub_rn(c[q], mul_rn(w.u, (V)ck[q]));
+                    costs[i] = c[q];
+                }
+                const V cm = i < r ? c[q] : inf<V>();  // torch.where(iota < r)
+                take_first(x, Cands<V>{cm, i, cm, cm <= -eps ? i : BIG_INDEX});
+            }
+        }
+    }
+    if (g >= R) between_loads();
+}
+
+// The costs of this thread's first PER columns, loaded before k is known.
+template <typename V, int PER_, int SPAN>
+__device__ __forceinline__ void first_costs(const V *__restrict__ costs,
+                                            int R, int g, V (&c0)[PER_]) {
+#pragma unroll
+    for (int q = 0; q < PER_; ++q) {
+        const int i = g + q * SPAN;
+        if (i < R) c0[q] = costs[i];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// seq_ratio: the ratio test and the step between, one cluster (the K6
+// loop's; the default loop's runs inside seq_ratio_colk).
+
+template <typename T, typename V, int NB, int NT, int PER_>
+__global__ void __launch_bounds__(NT) seq_ratio_kernel(
+        const T *__restrict__ Tt, const V *__restrict__ b, int M, int R,
+        double eps, T *__restrict__ ah, SeqStep<T, V> s) {
+    constexpr int NW = NT / 32, SPAN = NB * NT;
+    static_assert(NW <= 32 && NB <= 32, "one warp folds the warps, blocks");
+    __shared__ Ratio<T, V> warps[NW];
+    __shared__ int wany[NW];
+    __shared__ Ratio<T, V> parts[NB];            // block 0's: the blocks'
+    __shared__ int pany[NB];
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = rank * NT + tid;
+    cluster_arrive_relaxed();
+
+    // The step's operands, then this thread's rows.
+    bool active = false, optimal = false;
+    V minc = 0;
+    if (g == 0) {
+        active = *s.active != 0;
+        optimal = *s.optimal != 0;
+        minc = *s.minc;
+    }
+    const int h = min(*s.h, R - 1);
+    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
+    Ratio<T, V> x = none;
+    bool any = false;
+    T a0[PER_];
+    V b0[PER_];
+    ratio_rows<T, V, PER_, SPAN>(Tt, b, ah, M, R, h, (T)eps, g, x, any, a0,
+                                 b0);
+    block_fold<NW>(x, any, none, warps, wany);
+    // Warp 0's lane 0 stores the block's result into block 0's shared
+    // memory once every block runs.
+    cluster_wait();
+    if (tid == 0) {
+        *cl.map_shared_rank(&parts[rank], 0) = x;
+        *cl.map_shared_rank(&pany[rank], 0) = any;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0 || warp != 0) return;
+    x = warp_fold(lane < NB ? parts[lane] : none);
+    any = __any_sync(FULL, lane < NB && pany[lane] != 0);
+    if (lane == 0) store(s, between(x, any, active, optimal, minc));
+}
+
+// ---------------------------------------------------------------------------
+// seq_ratio_colk: the ratio test, the step between, the pass and the step
+// after (with then_pre the next step before), one cluster.
+//
+// Two elements are read by threads other than their writer: h, which
+// every thread reads before the first cluster barrier and block 0's tail
+// rewrites after the second, and the step between, which each block's
+// thread 0 hands to its block through shared memory.
+
+template <typename T, typename V, int NB, int NT, int PER_>
+__global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
         const T *__restrict__ Tt, V *__restrict__ costs, V *__restrict__ b,
-        int *__restrict__ base, const T *__restrict__ ah,
-        T *__restrict__ colk, T *__restrict__ fac, int M, int R, int r,
-        double eps, int n_rblocks, unsigned char *__restrict__ ws_bytes,
+        int *__restrict__ base, T *__restrict__ ah, T *__restrict__ colk,
+        T *__restrict__ fac, int M, int R, int r, double eps,
         SeqStep<T, V> s, seq::Policy pol) {
+    constexpr int NW = NT / 32, SPAN = NB * NT;
+    static_assert(NW <= 32 && NB <= 32, "one warp folds the warps, blocks");
+    __shared__ Ratio<T, V> rwarps[NW];
+    __shared__ int rwany[NW];
+    __shared__ Ratio<T, V> rparts[NB];           // every block's: the blocks'
+    __shared__ int rpany[NB];
+    __shared__ Between<T, V> held;
+    __shared__ Cands<V> cwarps[NW];
+    __shared__ int cwany[NW];
+    __shared__ Cands<V> cparts[NB];              // block 0's: the blocks'
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = rank * NT + tid;
+    cluster_arrive_relaxed();
+
+    // What waits on nothing: the costs of this thread's first columns, and
+    // the steps' operands (each block's thread 0 those of the step
+    // between; block 0's those of the step after too); then h.
+    V c0[PER_];
+    first_costs<V, PER_, SPAN>(costs, R, g, c0);
+    seq::PostIn<V> in{};
+    V minc = 0;
+    if (tid == 0) {
+        in.active = *s.active != 0;
+        in.optimal = *s.optimal != 0;
+        minc = *s.minc;
+        if (rank == 0) {
+            in.status = *s.status;
+            in.iterations = *s.iterations;
+            in.stall = *s.stall;
+            in.bland = *s.bland != 0;
+            in.z = *s.z;
+        }
+    }
+    const int h_raw = *s.h;
+
+    // The ratio test: every block folds every block's result.
+    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
+    Ratio<T, V> x = none;
+    bool any = false;
+    T a0[PER_];
+    V b0[PER_];
+    ratio_rows<T, V, PER_, SPAN>(Tt, b, ah, M, R, min(h_raw, R - 1),
+                                 (T)eps, g, x, any, a0, b0);
+    block_fold<NW>(x, any, none, rwarps, rwany);
+    cluster_wait();
+    if (warp == 0 && lane < NB) {
+        *cl.map_shared_rank(&rparts[rank], lane) = x;
+        *cl.map_shared_rank(&rpany[rank], lane) = any;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (warp == 0) {
+        x = warp_fold(lane < NB ? rparts[lane] : none);
+        any = __any_sync(FULL, lane < NB && rpany[lane] != 0);
+        if (lane == 0) {
+            const Between<T, V> w =
+                    between(x, any, in.active, in.optimal, minc);
+            held = w;
+            if (rank == 0) store(s, w);
+        }
+    }
+    __syncthreads();
+    const Between<T, V> w = held;
+
+    // The pass: the row's loads, then b and the factors, then the costs
+    // and the candidates.
+    const Cands<V> cnone{inf<V>(), BIG_INDEX, inf<V>(), BIG_INDEX};
+    Cands<V> cx = cnone;
+    colk_cols<T, V, PER_, SPAN>(
+            Tt, costs, colk, R, r, (V)eps, w, g, c0, cx, [&] {
+                if (w.d)
+                    update_rows<T, V, PER_, SPAN>(b, fac, ah, M, w, g, true,
+                                                  a0, b0);
+            });
+    bool unused = false;
+    block_fold<NW>(cx, unused, cnone, cwarps, cwany);
+    if (tid == 0) *cl.map_shared_rank(&cparts[rank], 0) = cx;
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0 || warp != 0) return;
+
+    // Block 0's warp 0 over the blocks, then the step after in lane 0.
+    cx = warp_fold(lane < NB ? cparts[lane] : cnone);
+    if (lane != 0) return;
+    const seq::Candidates<V> c{cx.idx, cx.val, cx.bidx,
+                               cx.bidx == BIG_INDEX ? inf<V>() : cx.bval};
+    *s.h_d = c.h_d;
+    *s.v_d = c.v_d;
+    *s.h_b = c.h_b;
+    *s.v_b = c.v_b;
+    if (w.d) base[w.k] = h_raw;                  // before the step rewrites h
+    in.unb = w.unb;
+    in.u = w.u;
+    in.bk = w.bk;
+    seq::post(s, in, w.d, c, pol);
+}
+
+// ---------------------------------------------------------------------------
+// seq_snapshot: the K6 loop's pass before K6 -- the copy of row k, b and
+// base[k] = h where the pivot is done. A grid: R blocks, then M blocks, one
+// column or row a thread, nothing folded.
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(THREADS) seq_snapshot_kernel(
+        const T *__restrict__ Tt, V *__restrict__ b, int *__restrict__ base,
+        const T *__restrict__ ah, T *__restrict__ colk, int M, int R,
+        int n_rblocks, SeqStep<T, V> s) {
     const int tid = threadIdx.x;
     const bool d = *s.do_ != 0;
     const int k = *s.k;
     if ((int)blockIdx.x >= n_rblocks) {
-        // M axis: factor and b where the pivot is done (whole blocks
-        // return together).
+        // M axis: b where the pivot is done (whole blocks return together).
         const int j = (blockIdx.x - n_rblocks) * THREADS + tid;
         if (!d || j >= M) return;
         const T p = *s.p;
         const V bk = *s.bk;
-        const T f = div_rn(ah[j], p);
-        if (FOLD) fac[j] = f;
         if (j == k) {
             b[j] = div_rn(bk, (V)p);
-            if (!FOLD) base[j] = *s.h;
+            base[j] = *s.h;
         } else {
-            b[j] = sub_rn(b[j], mul_rn(bk, (V)f));
+            b[j] = sub_rn(b[j], mul_rn(bk, (V)div_rn(ah[j], p)));
         }
         return;
     }
-
-    const int i = blockIdx.x * THREADS + tid;    // this thread's column
-    V val = inf<V>(), bval = inf<V>();
-    int idx = BIG_INDEX, bidx = BIG_INDEX;
-    if (i < R) {
-        const T ck = Tt[(size_t)k * R + i];
-        colk[i] = ck;
-        if (FOLD) {
-            V c = costs[i];
-            if (d) {
-                c = sub_rn(c, mul_rn(*s.u, (V)ck));
-                costs[i] = c;
-            }
-            const V cm = i < r ? c : inf<V>();   // torch.where(iota < r, ..)
-            val = cm;
-            idx = i;
-            if (cm <= -(V)eps) {
-                bval = cm;
-                bidx = i;
-            }
-        }
-    }
-    if constexpr (FOLD) {
-        __shared__ bool last;
-        const ColkWs ws(ws_bytes, n_rblocks);
-        block_cands(val, idx, bval, bidx);
-        if (tid == 0) {
-            ws.val[blockIdx.x] = (double)val;
-            ws.idx[blockIdx.x] = idx;
-            ws.bval[blockIdx.x] = (double)bval;
-            ws.bidx[blockIdx.x] = bidx;
-            last = ticket(ws.counter) == (unsigned)n_rblocks - 1;
-        }
-        __syncthreads();
-        if (!last) return;
-
-        // The tail's other operands, loaded while the partials fold.
-        seq::PostIn<V> in{};
-        if (tid == 0) in = seq::post_load(s);
-        val = bval = inf<V>();
-        idx = bidx = BIG_INDEX;
-        for (int q = tid; q < n_rblocks; q += THREADS) {
-            const V vq = (V)__ldcg(ws.val + q);
-            const int iq = __ldcg(ws.idx + q);
-            if (first(vq, iq, val, idx)) {
-                val = vq;
-                idx = iq;
-            }
-            const int bq = __ldcg(ws.bidx + q);
-            if (bq < bidx) {
-                bidx = bq;
-                bval = (V)__ldcg(ws.bval + q);
-            }
-        }
-        block_cands(val, idx, bval, bidx);
-        if (tid == 0) {
-            const seq::Candidates<V> c{idx, val, bidx,
-                                       bidx == BIG_INDEX ? inf<V>() : bval};
-            *s.h_d = c.h_d;
-            *s.v_d = c.v_d;
-            *s.h_b = c.h_b;
-            *s.v_b = c.v_b;
-            if (d) base[k] = *s.h;               // before the step rewrites h
-            *ws.counter = 0;                     // ready for the next call
-            seq::post(s, in, d, c, pol);
-        }
-    }
+    const int i = blockIdx.x * THREADS + tid;
+    if (i < R) colk[i] = Tt[(size_t)k * R + i];
 }
+
+// ---------------------------------------------------------------------------
+// Launchers.
 
 template <typename T, typename V>
 int step_pre_run(const void *step, long long max_iter, double eps,
@@ -420,32 +598,44 @@ int step_pre_run(const void *step, long long max_iter, double eps,
 
 template <typename T, typename V>
 int ratio_run(const void *Tt, const void *b, int M, int R, double eps,
-              void *ah, unsigned char *ws, long long ws_bytes,
-              const void *step, cudaStream_t st) {
-    const int nb = (M + THREADS - 1) / THREADS;
-    if (M < 1 || R < 1 || ws_bytes < (long long)ratio_ws_bytes(nb))
-        return (int)cudaErrorInvalidValue;       // workspace too small
-    seq_ratio_kernel<T, V><<<nb, THREADS, 0, st>>>(
-        static_cast<const T *>(Tt), static_cast<const V *>(b), M, R, eps,
-        static_cast<T *>(ah), ws, nb, step_of<T, V>(step));
-    return (int)cudaGetLastError();
+              void *ah, const void *step, cudaStream_t st) {
+    if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    auto kernel = seq_ratio_kernel<T, V, CLUSTER_BLOCKS, CLUSTER_THREADS, PER>;
+    static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
+                          static_cast<const T *>(Tt),
+                          static_cast<const V *>(b), M, R, eps,
+                          static_cast<T *>(ah), step_of<T, V>(step));
 }
 
-template <typename T, typename V, bool FOLD>
-int colk_run(const void *Tt, void *costs, void *b, int *base, const void *ah,
-             void *colk, void *fac, int M, int R, int r, double eps,
-             unsigned char *ws, long long ws_bytes, const void *step,
-             const seq::Policy &pol, cudaStream_t st) {
+template <typename T, typename V>
+int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
+                   void *colk, void *fac, int M, int R, int r, double eps,
+                   const void *step, const seq::Policy &pol,
+                   cudaStream_t st) {
+    if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    auto kernel =
+            seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS, CLUSTER_THREADS, PER>;
+    static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
+                          static_cast<const T *>(Tt), static_cast<V *>(costs),
+                          static_cast<V *>(b), base, static_cast<T *>(ah),
+                          static_cast<T *>(colk), static_cast<T *>(fac), M, R,
+                          r, eps, step_of<T, V>(step), pol);
+}
+
+int snapshot_run(const float *Tt, float *b, int *base, const float *ah,
+                 float *colk, int M, int R, const void *step,
+                 cudaStream_t st) {
+    if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
     const int n_rblocks = (R + THREADS - 1) / THREADS;
     const int n_mblocks = (M + THREADS - 1) / THREADS;
-    if (M < 1 || R < 1
-        || (FOLD && ws_bytes < (long long)colk_ws_bytes(n_rblocks)))
-        return (int)cudaErrorInvalidValue;       // workspace too small
-    seq_colk_kernel<T, V, FOLD><<<n_rblocks + n_mblocks, THREADS, 0, st>>>(
-        static_cast<const T *>(Tt), static_cast<V *>(costs),
-        static_cast<V *>(b), base, static_cast<const T *>(ah),
-        static_cast<T *>(colk), static_cast<T *>(fac), M, R, r, eps,
-        n_rblocks, ws, step_of<T, V>(step), pol);
+    seq_snapshot_kernel<float, float><<<n_rblocks + n_mblocks, THREADS, 0,
+                                        st>>>(Tt, b, base, ah, colk, M, R,
+                                              n_rblocks,
+                                              step_of<float, float>(step));
     return (int)cudaGetLastError();
 }
 
@@ -453,9 +643,10 @@ int colk_run(const void *Tt, void *costs, void *b, int *base, const void *ah,
 
 // ---------------------------------------------------------------------------
 // C entry points (ctypes). ``step`` is the host's array of the scalars'
-// pointers, ``pair`` the dtype pair (PAIR_*); an unknown pair, a shape the
-// kernel does not take or a workspace too small is refused with
-// cudaErrorInvalidValue. Each returns cudaGetLastError() as an int.
+// pointers, ``pair`` the dtype pair (PAIR_*); an unknown pair or an empty
+// shape is refused with cudaErrorInvalidValue, as is a cluster the card
+// cannot launch with its own error. Each returns cudaGetLastError() as an
+// int.
 
 extern "C" {
 
@@ -472,56 +663,54 @@ int seq_step_pre_launch(const void *step, long long max_iter, double eps,
 
 // Tt (M, R) and ah (M,) of the tableau's dtype, b (M,) of the vectors'.
 int seq_ratio_launch(const void *Tt, const void *b, int M, int R, double eps,
-                     void *ah, unsigned char *ws, long long ws_bytes,
-                     const void *step, int pair, void *stream) {
+                     void *ah, const void *step, int pair, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (pair) {
     case PAIR_F64:
-        return ratio_run<double, double>(Tt, b, M, R, eps, ah, ws, ws_bytes,
-                                         step, st);
+        return ratio_run<double, double>(Tt, b, M, R, eps, ah, step, st);
     case PAIR_MIXED:
-        return ratio_run<float, double>(Tt, b, M, R, eps, ah, ws, ws_bytes,
-                                        step, st);
+        return ratio_run<float, double>(Tt, b, M, R, eps, ah, step, st);
     case PAIR_F32:
-        return ratio_run<float, float>(Tt, b, M, R, eps, ah, ws, ws_bytes,
-                                       step, st);
+        return ratio_run<float, float>(Tt, b, M, R, eps, ah, step, st);
     }
     return (int)cudaErrorInvalidValue;
 }
 
-// fold 1: the sequential loop's seq_colk under max_iter, eps, the Bland
-// mode, threshold and then_pre; fold 0: the K6 loop's snapshot (pure f32
-// only; costs, fac and ws may be null).
-int seq_colk_launch(const void *Tt, void *costs, void *b, int *base,
-                    const void *ah, void *colk, void *fac, int M, int R,
-                    int r, double eps, unsigned char *ws, long long ws_bytes,
-                    const void *step, long long max_iter, int bland_mode,
-                    int threshold, int then_pre, int fold, int pair,
-                    void *stream) {
+// The default loop's pivot but its rank-1 update, under max_iter, eps, the
+// Bland mode, threshold and then_pre.
+int seq_ratio_colk_launch(const void *Tt, void *costs, void *b, int *base,
+                          void *ah, void *colk, void *fac, int M, int R,
+                          int r, double eps, const void *step,
+                          long long max_iter, int bland_mode, int threshold,
+                          int then_pre, int pair, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const seq::Policy pol{max_iter, eps, bland_mode, threshold, then_pre};
-    if (!fold)
-        return pair == PAIR_F32
-                   ? colk_run<float, float, false>(Tt, costs, b, base, ah,
-                                                   colk, fac, M, R, r, eps,
-                                                   ws, ws_bytes, step, pol,
-                                                   st)
-                   : (int)cudaErrorInvalidValue;
     switch (pair) {
     case PAIR_F64:
-        return colk_run<double, double, true>(Tt, costs, b, base, ah, colk,
-                                              fac, M, R, r, eps, ws,
-                                              ws_bytes, step, pol, st);
+        return ratio_colk_run<double, double>(Tt, costs, b, base, ah, colk,
+                                              fac, M, R, r, eps, step, pol,
+                                              st);
     case PAIR_MIXED:
-        return colk_run<float, double, true>(Tt, costs, b, base, ah, colk,
-                                             fac, M, R, r, eps, ws, ws_bytes,
-                                             step, pol, st);
+        return ratio_colk_run<float, double>(Tt, costs, b, base, ah, colk,
+                                             fac, M, R, r, eps, step, pol,
+                                             st);
     case PAIR_F32:
-        return colk_run<float, float, true>(Tt, costs, b, base, ah, colk,
-                                            fac, M, R, r, eps, ws, ws_bytes,
-                                            step, pol, st);
+        return ratio_colk_run<float, float>(Tt, costs, b, base, ah, colk, fac,
+                                            M, R, r, eps, step, pol, st);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// The K6 loop's snapshot: pure f32 only.
+int seq_snapshot_launch(const void *Tt, void *b, int *base, const void *ah,
+                        void *colk, int M, int R, const void *step, int pair,
+                        void *stream) {
+    if (pair != PAIR_F32) return (int)cudaErrorInvalidValue;
+    return snapshot_run(static_cast<const float *>(Tt),
+                        static_cast<float *>(b), base,
+                        static_cast<const float *>(ah),
+                        static_cast<float *>(colk), M, R, step,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "cluster.cuh"
 #include "sharded_step.cuh"
 
 namespace cg = cooperative_groups;
@@ -124,21 +125,6 @@ __device__ __forceinline__ Ratio shfl_xor(const Ratio &x, int off) {
                  __shfl_xor_sync(FULL, x.j, off),
                  __shfl_xor_sync(FULL, x.a, off),
                  __shfl_xor_sync(FULL, x.b, off)};
-}
-
-// The cluster barrier in two halves (PTX barrier.cluster): arrive, then
-// wait. The first arrival is relaxed (it orders nothing: it only tells
-// that the block runs, before any block writes into another's shared
-// memory); the second releases the stores before it, and the wait
-// acquires them.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // One cluster of NB blocks of NT threads, each walking its constraints
@@ -242,32 +228,14 @@ __global__ void __launch_bounds__(NT) sharded_ratio_kernel(
     *s.u = d ? __ddiv_rn(minc, (double)p) : 0.0;
 }
 
-// sharded_ratio_kernel<NB, NT, PER> as one cluster, launched with the
-// cluster-dimension attribute on the stream (which a CUDA graph
-// captures).
+// sharded_ratio_kernel<NB, NT, PER> as one cluster (csrc/cluster.cuh).
 template <int NB, int NT, int PER>
 int launch_ratio(const ShardStep &s, const float *ah, const double *b, int M,
                  float eps, cudaStream_t st) {
     auto kernel = sharded_ratio_kernel<NB, NT, PER>;
-    if (NB > 8) {
-        static const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (e != cudaSuccess) return (int)e;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(NB);
-    cfg.blockDim = dim3(NT);
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = NB;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, s, ah, b, M, eps);
+    static const cudaError_t e = allow_cluster(kernel, NB);
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return launch_cluster(kernel, NB, NT, st, s, ah, b, M, eps);
 }
 
 __global__ void sharded_pack_kernel(ShardStep s, const float *w, int offset,

@@ -5,29 +5,30 @@ No Pallas kernel stands behind these: in the JAX package the sequential
 loops are ``lax.while_loop``s whose pivot XLA fuses
 (``simplex_tpu/solver.py:116-157`` ``iteration_body``, ``:239-294`` the
 K6 loop's body). The port's eager loop ran a pivot as about 40 torch
-calls; here a pivot of the default loop is three kernels --
+calls; here a pivot of the default loop is two kernels --
 
-* ``seq_ratio``: the entering column ``a_h = Tt[:, h]`` gathered into a
-  fixed buffer, the ratio test, and the step between (k, bk, unbounded,
-  do, p, u);
-* ``seq_colk``: the leaving row ``colk = Tt[k]`` copied into a fixed
-  buffer, the costs updated and the next candidates folded, ``factor =
-  a_h / p`` and b updated, ``base[k] = h``, then the step after the pivot
-  and the next pivot's step before ``seq_ratio``;
+* ``seq_ratio_colk`` (one thread-block cluster): the entering column
+  ``a_h = Tt[:, h]`` gathered into a fixed buffer, the ratio test and the
+  step between (k, bk, unbounded, do, p, u) -- ``seq_ratio`` -- then the
+  leaving row ``colk = Tt[k]`` copied into a fixed buffer, the costs
+  updated and the next candidates folded, ``factor = a_h / p`` and b
+  updated, ``base[k] = h``, the step after the pivot and the next pivot's
+  step before the ratio test -- ``seq_colk``;
 * ``seq_rank1``: ``Tt -= factor colk^T`` with row k written as ``colk /
   p`` (``csrc/pivot.cu``, ``batch_rank1``'s tiles at one lane);
 
-and of the K6 loop four: ``seq_ratio``, ``seq_snapshot`` (the copy of row
-k, b and base), K6 (``fused_pivot``'s pass and fold, two kernels) with the
-step after it as the fold's tail (``fused_pivot_tail``). ``seq_step_pre``
-runs once a chunk, before the chunk's first ``seq_ratio``.
+and of the K6 loop four: ``seq_ratio`` (one cluster), ``seq_snapshot``
+(the copy of row k, b and base), K6 (``fused_pivot``'s pass and fold, two
+kernels) with the step after it as the fold's tail
+(``fused_pivot_tail``). ``seq_step_pre`` runs once a chunk, before the
+chunk's first pivot.
 
 As in the other kernel modules each has a hand-written CUDA kernel
 (``csrc/seq.cu``, ``csrc/pivot.cu``; the step's body ``csrc/seq_step.cuh``)
 built at first use, a plain PyTorch version taken for CPU tensors (and by
 ``chip_smoke.py`` as the kernel's reference on the card), and a launch
 counter in ``LAUNCHES``. A wrapper given CUDA tensors launches its kernel
-or raises.
+or raises: a cluster the card cannot launch raises too.
 
 Dtypes: the tableau ``Tt (M, R)`` of T, b, the costs and z of V: (f64,
 f64), (f32, f64) and (f32, f32) have kernels; the plain versions take any
@@ -42,24 +43,21 @@ import dataclasses
 
 import torch
 
-from .blocked import (RUNNING, _bland_mode, _cdiv,
-                      _check_workspace, _expect, _index, _on_card, _ptr,
-                      _stream, entering_candidates, step_post_plain,
+from .blocked import (RUNNING, _bland_mode, _expect, _index, _on_card,
+                      _ptr, _stream, entering_candidates, step_post_plain,
                       step_pre_plain)
 from .pivot import LAUNCHES as PIVOT_LAUNCHES
 from .pivot import (check_fused_pivot_workspace, fused_pivot_plain,
                     fused_pivot_workspace, rank1_plan)
 
-#: Threads a block of ``seq_ratio`` and ``seq_colk`` (csrc/seq.cu THREADS):
-#: one row, or one column, a thread.
-THREADS = 256
-
-#: Launches of each kernel since the last ``reset_launches``. The step
-#: after K6 (``seq_k6_tail``) runs as the tail of K6's fold (``TAILS``):
-#: it counts beside K6's own count in ``kernels.pivot.LAUNCHES``.
+#: Launches of each kernel since the last ``reset_launches``. A tail runs
+#: inside its carrier's launch (``TAILS``) and counts beside it: the pass
+#: ``seq_colk`` inside ``seq_ratio_colk``, counted as ``seq_ratio``, and
+#: the step after K6 (``seq_k6_tail``) as the tail of K6's fold, counted
+#: in ``kernels.pivot.LAUNCHES``.
 LAUNCHES = {"seq_step_pre": 0, "seq_ratio": 0, "seq_colk": 0,
             "seq_rank1": 0, "seq_snapshot": 0, "seq_k6_tail": 0}
-TAILS = {"seq_k6_tail": "fused_pivot"}
+TAILS = {"seq_colk": "seq_ratio", "seq_k6_tail": "fused_pivot"}
 
 _F64, _F32, _I32, _BOOL = torch.float64, torch.float32, torch.int32, \
     torch.bool
@@ -188,7 +186,7 @@ def seq_step_pre(s: SeqScalars, max_iter: int, eps: float) -> None:
     eligible, else the Dantzig one, gives ``h`` and ``minc``; ``optimal =
     minc > -eps``. Plain version: ``kernels.blocked.step_pre_plain``. One
     thread on the card, once a chunk: within it the step runs as the tail
-    of ``seq_colk`` or of K6's fold."""
+    of ``seq_ratio_colk`` or of K6's fold."""
     if not _on_card(s.status):
         step_pre_plain(s, max_iter, eps)
         return
@@ -201,21 +199,6 @@ def seq_step_pre(s: SeqScalars, max_iter: int, eps: float) -> None:
 
 # ---------------------------------------------------------------------------
 # seq_ratio: the entering column, the ratio test and the step between.
-
-def seq_ratio_workspace_bytes(M: int) -> int:
-    """Bytes of ``seq_ratio``'s workspace for ``M`` constraints
-    (csrc/seq.cu ``ratio_ws_bytes``): the arrival counter (8 bytes), then
-    per block of ``THREADS`` constraints three f64 and two int32."""
-    return 8 + 32 * _cdiv(M, THREADS)
-
-
-def seq_ratio_workspace(M: int, device) -> torch.Tensor:
-    """A zeroed workspace for ``seq_ratio`` over ``M`` constraints; each
-    call leaves its arrival counter at 0 again, so a loop allocates one
-    and passes it to every call, in order on one stream."""
-    return torch.zeros(seq_ratio_workspace_bytes(M), dtype=torch.uint8,
-                       device=device)
-
 
 def seq_ratio_plain(Tt, b, s: SeqScalars, ah, eps: float) -> None:
     """Plain version of ``seq_ratio``: ``solver.ratio_test`` on the
@@ -238,7 +221,7 @@ def seq_ratio_plain(Tt, b, s: SeqScalars, ah, eps: float) -> None:
     s.u.copy_(torch.where(do, s.minc / p.to(s.u.dtype), 0.0))
 
 
-def seq_ratio(Tt, b, s: SeqScalars, ah, eps: float, ws=None) -> None:
+def seq_ratio(Tt, b, s: SeqScalars, ah, eps: float) -> None:
     """The entering column and the ratio test (``simplex_tpu/solver.py:
     99-113`` with ``iteration_body``'s step between, ``:127-137``):
     ``ah = Tt[:, h]`` (h clamped into the columns); k the first index of
@@ -246,9 +229,8 @@ def seq_ratio(Tt, b, s: SeqScalars, ah, eps: float, ws=None) -> None:
     NaN first as ``torch.argmin`` orders it, the other rows +inf: with no
     eligible row k is 0); ``unb`` where no row is eligible; ``do = active
     and not (optimal or unb)``; ``p = a_h[k]`` where done, else 1; ``bk =
-    b[k]``; ``u = minc / p`` where done, else 0. ``ws`` is a
-    ``seq_ratio_workspace``; on the card a call without one allocates
-    one. One launch on the card, its last block running the step."""
+    b[k]``; ``u = minc / p`` where done, else 0. One cluster on the card
+    (the K6 loop's; the default loop's runs inside ``seq_ratio_colk``)."""
     M, R = Tt.shape
     _expect(Tt, "Tt", s.p.dtype, (M, R))
     _expect(b, "b", s.z.dtype, (M,))
@@ -258,33 +240,15 @@ def seq_ratio(Tt, b, s: SeqScalars, ah, eps: float, ws=None) -> None:
         return
     pair = _pair(s)
     lib, check = _lib()
-    if ws is None:
-        ws = seq_ratio_workspace(M, Tt.device)
-    _check_workspace(ws, seq_ratio_workspace_bytes(M), Tt.device,
-                     f"seq_ratio_workspace({M})")
     err = lib.seq_ratio_launch(_ptr(Tt), _ptr(b), M, R, float(eps), _ptr(ah),
-                               _ptr(ws), ws.numel(),
                                ctypes.byref(_seq_ptrs(s)), pair, _stream(Tt))
     check(lib, err, "seq_ratio")
     LAUNCHES["seq_ratio"] += 1
 
 
 # ---------------------------------------------------------------------------
-# seq_colk: the leaving row, costs, candidates, b and base, the step after.
-
-def seq_colk_workspace_bytes(R: int) -> int:
-    """Bytes of ``seq_colk``'s workspace for ``R`` columns (csrc/seq.cu
-    ``colk_ws_bytes``): the arrival counter (8 bytes), then per block of
-    ``THREADS`` columns two f64 and two int32."""
-    return 8 + 24 * _cdiv(R, THREADS)
-
-
-def seq_colk_workspace(R: int, device) -> torch.Tensor:
-    """A zeroed workspace for ``seq_colk`` over ``R`` columns, used as
-    ``seq_ratio_workspace``."""
-    return torch.zeros(seq_colk_workspace_bytes(R), dtype=torch.uint8,
-                       device=device)
-
+# seq_colk: the leaving row, costs, candidates, b and base, the step after;
+# on the card the second half of seq_ratio_colk.
 
 def _update_b(b, base, ah, s: SeqScalars):
     """b and base of a done pivot (``solver.pivot_update``'s vector half
@@ -302,19 +266,6 @@ def _update_b(b, base, ah, s: SeqScalars):
 def seq_colk_plain(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
                    eps: float, max_iter: int, bland_static: bool, threshold,
                    then_pre: bool) -> None:
-    """Plain version of ``seq_colk``."""
-    M, R = Tt.shape
-    colk.copy_(Tt.index_select(0, s.k.long().view(1)).view(R))
-    costs.copy_(torch.where(s.do, costs - s.u * colk.to(costs.dtype), costs))
-    f = _update_b(b, base, ah, s)
-    fac.copy_(torch.where(s.do, f, fac))
-    set_candidates(s, entering_candidates(costs, None, r, eps))
-    step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
-
-
-def seq_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
-             eps: float, max_iter: int, ws=None, *, bland_static: bool,
-             threshold, then_pre: bool) -> None:
     """The pivot row's pass and the step after (``solver.pivot_update``'s
     vector half, ``choose_entering`` of the next pivot, ``iteration_body``'s
     status and anti-cycling, ``simplex_tpu/solver.py:51-96, 139-157``):
@@ -325,9 +276,29 @@ def seq_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
     (``entering_candidates``: the Dantzig argmin in ``torch.argmin``'s
     order, Bland's lowest eligible index); then
     ``kernels.blocked.step_post_plain``'s z, status, stall, bland and
-    iterations and, with ``then_pre``, the next pivot's step before
-    ``seq_ratio``. ``ws`` is a ``seq_colk_workspace``. One launch on the
-    card: R blocks, then M blocks; the last R block runs the step."""
+    iterations and, with ``then_pre``, the next pivot's step before the
+    ratio test. On the card it runs as the second half of
+    ``seq_ratio_colk``."""
+    R = Tt.shape[1]
+    colk.copy_(Tt.index_select(0, s.k.long().view(1)).view(R))
+    costs.copy_(torch.where(s.do, costs - s.u * colk.to(costs.dtype), costs))
+    f = _update_b(b, base, ah, s)
+    fac.copy_(torch.where(s.do, f, fac))
+    set_candidates(s, entering_candidates(costs, None, r, eps))
+    step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
+
+
+def seq_ratio_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
+                   eps: float, max_iter: int, *, bland_static: bool,
+                   threshold, then_pre: bool) -> None:
+    """A pivot of the default loop but its rank-1 update: ``seq_ratio``
+    (the ratio test and the step between) then ``seq_colk_plain``'s pass
+    and step after, with one ``eps``. One launch on the card: one
+    thread-block cluster (``csrc/seq.cu`` ``seq_ratio_colk_kernel``) whose
+    blocks fold the ratio test over distributed shared memory, each run
+    the step between, then the pass, block 0 folding the candidates and
+    running the step after; it counts a launch of ``seq_ratio`` and one
+    of ``seq_colk`` (``TAILS``)."""
     M, R = Tt.shape
     T, V = s.p.dtype, s.z.dtype
     _expect(Tt, "Tt", T, (M, R))
@@ -336,22 +307,18 @@ def seq_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
                            ("colk", colk, T, R), ("fac", fac, T, M)):
         _expect(x, name, dt, (n,))
     if not _on_card(Tt, costs, b, base, ah, colk, fac, s.status):
+        seq_ratio_plain(Tt, b, s, ah, eps)
         seq_colk_plain(Tt, costs, b, base, ah, colk, fac, s, r, eps,
                        max_iter, bland_static, threshold, then_pre)
         return
     pair = _pair(s)
     lib, check = _lib()
-    if ws is None:
-        ws = seq_colk_workspace(R, Tt.device)
-    _check_workspace(ws, seq_colk_workspace_bytes(R), Tt.device,
-                     f"seq_colk_workspace({R})")
-    err = lib.seq_colk_launch(
+    err = lib.seq_ratio_colk_launch(
         _ptr(Tt), _ptr(costs), _ptr(b), _ptr(base), _ptr(ah), _ptr(colk),
-        _ptr(fac), M, R, r, float(eps), _ptr(ws), ws.numel(),
-        ctypes.byref(_seq_ptrs(s)), max_iter,
-        *_policy(bland_static, threshold), int(then_pre), 1, pair,
-        _stream(Tt))
-    check(lib, err, "seq_colk")
+        _ptr(fac), M, R, r, float(eps), ctypes.byref(_seq_ptrs(s)), max_iter,
+        *_policy(bland_static, threshold), int(then_pre), pair, _stream(Tt))
+    check(lib, err, "seq_ratio_colk")
+    LAUNCHES["seq_ratio"] += 1
     LAUNCHES["seq_colk"] += 1
 
 
@@ -366,9 +333,8 @@ def seq_snapshot(Tt, b, base, ah, colk, s: SeqScalars) -> None:
     """The K6 loop's pass before K6 (``simplex_tpu/solver.py:253-283``
     without K6 and the step after it): ``colk = Tt[k]``, the snapshot K6
     reads while it overwrites row k; where the pivot is done ``b -= bk *
-    (a_h / p)`` with ``b[k] = bk / p`` and ``base[k] = h``. Pure f32. On
-    the card ``seq_colk``'s kernel without its fold and tail: one
-    launch."""
+    (a_h / p)`` with ``b[k] = bk / p`` and ``base[k] = h``. Pure f32. One
+    launch on the card: a grid of one column, then one row, a thread."""
     M, R = Tt.shape
     _expect(Tt, "Tt", _F32, (M, R))
     for name, x, dt, n in (("b", b, _F32, M), ("base", base, _I32, M),
@@ -379,10 +345,10 @@ def seq_snapshot(Tt, b, base, ah, colk, s: SeqScalars) -> None:
         return
     pair = _pair(s)
     lib, check = _lib()
-    err = lib.seq_colk_launch(
-        _ptr(Tt), None, _ptr(b), _ptr(base), _ptr(ah), _ptr(colk), None, M,
-        R, 0, 0.0, None, 0, ctypes.byref(_seq_ptrs(s)), 0, 0, 0, 0, 0, pair,
-        _stream(Tt))
+    err = lib.seq_snapshot_launch(_ptr(Tt), _ptr(b), _ptr(base), _ptr(ah),
+                                  _ptr(colk), M, R,
+                                  ctypes.byref(_seq_ptrs(s)), pair,
+                                  _stream(Tt))
     check(lib, err, "seq_snapshot")
     LAUNCHES["seq_snapshot"] += 1
 

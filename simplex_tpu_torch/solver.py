@@ -45,10 +45,9 @@ from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
 from .kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
 from .kernels.pivot import fused_pivot_workspace
 from .kernels.seq import LAUNCHES as SEQ_LAUNCHES
-from .kernels.seq import (SeqScalars, fused_pivot_tail, seq_colk,
-                          seq_colk_workspace, seq_rank1, seq_ratio,
-                          seq_ratio_workspace, seq_scalars, seq_snapshot,
-                          seq_step_pre, set_candidates)
+from .kernels.seq import (SeqScalars, fused_pivot_tail, seq_rank1,
+                          seq_ratio, seq_ratio_colk, seq_scalars,
+                          seq_snapshot, seq_step_pre, set_candidates)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 #: Pivots the sequential loops enqueue between two host reads of the
@@ -224,8 +223,8 @@ class SeqLoop:
     pointer. ``Tt`` is the caller's tableau; b, the costs and base the
     loop's own copies; ``ah`` and ``colk`` the pivot's entering column and
     leaving row, ``fac`` its factors ``a_h / p`` (None in the K6 loop,
-    whose pass forms them); ``ws_ratio`` ``seq_ratio``'s workspace and
-    ``ws_pass`` ``seq_colk``'s or K6's; ``s`` the scalars; ``pallas``
+    whose pass forms them); ``ws_pass`` K6's workspace (None in the
+    default loop, whose kernels take none); ``s`` the scalars; ``pallas``
     whether the pivot's pass is K6."""
 
     Tt: torch.Tensor
@@ -235,8 +234,7 @@ class SeqLoop:
     ah: torch.Tensor
     colk: torch.Tensor
     fac: torch.Tensor | None
-    ws_ratio: torch.Tensor
-    ws_pass: torch.Tensor
+    ws_pass: torch.Tensor | None
     s: SeqScalars
     r: int
     pallas: bool
@@ -256,9 +254,7 @@ def seq_loop(tab: Tableau, options: SolverOptions,
         ah=torch.zeros(M, dtype=dt, device=dev),
         colk=torch.zeros(R, dtype=dt, device=dev),
         fac=None if pallas else torch.zeros(M, dtype=dt, device=dev),
-        ws_ratio=seq_ratio_workspace(M, dev),
-        ws_pass=(fused_pivot_workspace(R, dev) if pallas
-                 else seq_colk_workspace(R, dev)),
+        ws_pass=fused_pivot_workspace(R, dev) if pallas else None,
         s=seq_scalars(tab.z.to(tab.costs.dtype),
                       options.pivot_rule_resolved == "bland", dt),
         r=tab.r, pallas=pallas)
@@ -269,14 +265,14 @@ def seq_loop(tab: Tableau, options: SolverOptions,
 
 def run_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int) -> None:
     """Enqueue one chunk of ``SEQ_CHUNK`` pivots with no host read: the
-    step before the first pivot's ratio test, then per pivot ``seq_ratio``
-    (the column, the ratio test, the step between), and ``seq_colk`` (the
+    step before the first pivot's ratio test, then per pivot
+    ``seq_ratio_colk`` (the column, the ratio test, the step between, the
     row, costs, candidates, b and base, the step after and the next
     pivot's step before) and ``seq_rank1`` -- or in the K6 loop
-    ``seq_snapshot`` and K6 with the step after as its fold's tail.
-    3 SEQ_CHUNK + 1 launches on the card, the body a CUDA graph captures:
-    as many nodes, or in the K6 loop 4 SEQ_CHUNK + 1 (K6 is two
-    kernels a launch)."""
+    ``seq_ratio``, ``seq_snapshot`` and K6 with the step after as its
+    fold's tail. 2 SEQ_CHUNK + 1 launches on the card, the body a CUDA
+    graph captures: as many nodes, or in the K6 loop 4 SEQ_CHUNK + 1 (K6
+    is two kernels a launch)."""
     eps = float(options.eps_resolved)
     policy = dict(bland_static=options.pivot_rule_resolved == "bland",
                   threshold=options.bland_threshold)
@@ -284,16 +280,16 @@ def run_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int) -> None:
     seq_step_pre(s, max_iter, eps)
     for t in range(SEQ_CHUNK):
         then_pre = t + 1 < SEQ_CHUNK
-        seq_ratio(loop.Tt, loop.b, s, loop.ah, eps, loop.ws_ratio)
         if loop.pallas:
+            seq_ratio(loop.Tt, loop.b, s, loop.ah, eps)
             seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
             fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
                              loop.r, eps, max_iter, loop.ws_pass,
                              then_pre=then_pre, **policy)
         else:
-            seq_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
-                     loop.colk, loop.fac, s, loop.r, eps, max_iter,
-                     loop.ws_pass, then_pre=then_pre, **policy)
+            seq_ratio_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
+                           loop.colk, loop.fac, s, loop.r, eps, max_iter,
+                           then_pre=then_pre, **policy)
             seq_rank1(loop.Tt, loop.fac, loop.colk, s)
 
 
@@ -356,7 +352,7 @@ def solve_loop(tab: Tableau, options: SolverOptions, max_iter: int, *,
     """Pivots until OPTIMAL / UNBOUNDED / the iteration fuse
     (``simplex_tpu.solver.solve_loop``). Returns (tableau, status,
     iterations); status stays RUNNING if the fuse tripped. The pivot is
-    ``iteration_body``'s arithmetic as three kernels (``run_chunk``); the
+    ``iteration_body``'s arithmetic as two kernels (``run_chunk``); the
     tableau is updated in place and b, the costs, z and base are the
     loop's. On the card a chunk of ``SEQ_CHUNK`` pivots is one CUDA graph
     replay (the JAX ``lax.while_loop``), ``graph=False`` the same kernels

@@ -1554,7 +1554,8 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
     then skipped pivots) and from edge states drawn at every fourth pivot
     (a NaN in b on an eligible row, a tie of the smallest quotient, no
     eligible row, Bland on with a Bland candidate, the fuse reached):
-    ``seq_step_pre``, ``seq_ratio``, ``seq_colk`` (K6 loop:
+    ``seq_step_pre``, ``seq_ratio_colk`` against ``seq_ratio``'s and
+    ``seq_colk``'s plain versions (K6 loop: ``seq_ratio``,
     ``seq_snapshot``, ``fused_pivot_tail``) and ``seq_rank1``; every
     scalar and vector, the gathered column, the row and the factors bit
     for bit, the tableau too."""
@@ -1596,10 +1597,13 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
             policy = dict(bland_static=False, threshold=50)
             if kernel:
                 ks.seq_step_pre(s, 100, eps)
-                ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps, lp.ws_ratio)
             else:
                 kb.step_pre_plain(s, 100, eps)
-                ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
+            if pallas:
+                if kernel:
+                    ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps)
+                else:
+                    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
             if pallas:
                 if kernel:
                     ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
@@ -1613,11 +1617,12 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
                                               lp.ah, s, lp.r, eps, 100,
                                               then_pre=False, **policy)
             elif kernel:
-                ks.seq_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk,
-                            lp.fac, s, lp.r, eps, 100, lp.ws_pass,
-                            then_pre=True, **policy)
+                ks.seq_ratio_colk(lp.Tt, lp.costs, lp.b, lp.base, lp.ah,
+                                  lp.colk, lp.fac, s, lp.r, eps, 100,
+                                  then_pre=True, **policy)
                 ks.seq_rank1(lp.Tt, lp.fac, lp.colk, s)
             else:
+                ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
                 ks.seq_colk_plain(lp.Tt, lp.costs, lp.b, lp.base, lp.ah,
                                   lp.colk, lp.fac, s, lp.r, eps, 100,
                                   then_pre=True, **policy)
@@ -1660,10 +1665,11 @@ def test_seq_graph_matches_eager_on_card(cuda, monkeypatch, pair, pallas):
     versions on the CPU, whose arithmetic K6 keeps bit for bit). The
     same status and iterations, the final Tt, b, costs, z and base bit for
     bit (Tt against the old body by value: its skipped pivots' addr_ with
-    factor 0 may turn a -0.0 into +0.0), the same launches -- 3 a pivot
-    and ``seq_step_pre`` once a chunk (the K6 loop: K6 one launch of two
-    kernels, its tail counted apart) -- a replay adding the graph's, the
-    capture none."""
+    factor 0 may turn a -0.0 into +0.0), the same launches -- 2 a pivot
+    (``seq_ratio_colk`` counting ``seq_ratio`` and its tail ``seq_colk``)
+    and ``seq_step_pre`` once a chunk (the K6 loop: 3 a pivot, K6 one
+    launch of two kernels, its tail counted apart) -- a replay adding the
+    graph's, the capture none."""
     from simplex_tpu_torch import solver
     from simplex_tpu_torch.kernels import seq as ks
 
@@ -1711,7 +1717,7 @@ def test_seq_graph_matches_eager_on_card(cuda, monkeypatch, pair, pallas):
         assert gl[name] == 32 * chunks, (name, gl)
     per = captures[0][1].per_replay
     assert sum(n for name, n in per.items() if name not in ks.TAILS) == (
-        3 * 32 + 1)
+        3 * 32 + 1 if pallas else 2 * 32 + 1)
 
 
 @pytest.mark.parametrize("cap", [1, 31, 32, 33])
@@ -1735,9 +1741,10 @@ def test_seq_graph_fuse_is_exact_on_card(cuda, cap, pallas):
 
 
 def test_seq_kernels_refuse_on_card(cuda):
-    """A launch the kernel refuses raises (a workspace smaller than its
-    blocks' partials, through the C entry point, and through the wrapper),
-    and a dtype pair with no kernel raises: no fallback."""
+    """A launch the kernel refuses raises (an empty shape through the C
+    entry points, a dtype pair the snapshot does not take), a buffer of
+    another shape raises in the wrapper, and a dtype pair with no kernel
+    raises: no fallback."""
     from simplex_tpu_torch.kernels import _build
     from simplex_tpu_torch.kernels import seq as ks
 
@@ -1748,15 +1755,147 @@ def test_seq_kernels_refuse_on_card(cuda):
     ah = torch.empty(M, dtype=torch.float64, device=cuda)
     s = ks.seq_scalars(torch.zeros((), dtype=torch.float64, device=cuda),
                        False, torch.float64)
-    ws = ks.seq_ratio_workspace(M, cuda)
-    err = lib.seq_ratio_launch(
-        Tt.data_ptr(), b.data_ptr(), M, R, 1e-9, ah.data_ptr(),
-        ws.data_ptr(), 8, ks.ctypes.byref(ks._seq_ptrs(s)), 0,
-        torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    step = ks.ctypes.byref(ks._seq_ptrs(s))
+    err = lib.seq_ratio_launch(Tt.data_ptr(), b.data_ptr(), 0, R, 1e-9,
+                               ah.data_ptr(), step, 0, stream)
     with pytest.raises(RuntimeError, match="seq_ratio: CUDA error"):
         _build.check(lib, err, "seq_ratio")
-    with pytest.raises(ValueError, match="seq_ratio_workspace"):
-        ks.seq_ratio(Tt, b, s, ah, 1e-9, ws[:8])
+    err = lib.seq_snapshot_launch(Tt.data_ptr(), b.data_ptr(), None,
+                                  ah.data_ptr(), None, M, R, step, 0, stream)
+    with pytest.raises(RuntimeError, match="seq_snapshot: CUDA error"):
+        _build.check(lib, err, "seq_snapshot")
+    with pytest.raises(ValueError, match="ah"):
+        ks.seq_ratio(Tt, b, s, ah[:-1], 1e-9)
     odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
         ks.seq_ratio(Tt, b.float(), odd, ah, 1e-9)
+
+
+#: (M, R) of the cluster kernels' edge shapes: one row, a few, M and R not
+#: multiples of the cluster's 4,096 threads, past 16,384 rows (a thread
+#: walks its rows more than PER at a time), R as the north star's.
+SEQ_EDGE_SHAPES = [(1, 3), (7, 21), (4095, 12285), (4097, 257),
+                   (40064, 2048), (2048, 120064)]
+#: The edge states: a taken pivot, a NaN in b on an eligible row, equal
+#: smallest quotients on the first and last eligible rows, no eligible row,
+#: Bland static, Bland by its threshold, no eligible column (a skipped
+#: pivot over non-negative costs), a skipped pivot (optimal) over equal
+#: most negative costs in the first and last live columns.
+SEQ_EDGES = ("taken", "nan_b", "tie", "no_row", "bland_static",
+             "bland_threshold", "no_column", "skipped")
+
+
+def _seq_edge_loops(dev, pair, M, R, seed):
+    """Two ``SeqLoop``s over one seeded random tableau (Tt uniform in
+    [-1, 1], b in [1, 100], the costs in [-1, 1], the last quarter of the
+    columns up to 100 dead): the kernels run on one, the plain versions
+    on the other."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.tableau import Tableau
+
+    T, V = SEQ_PAIRS[pair]
+    rng = np.random.default_rng(seed)
+    dead = min(100, R // 4)
+    tab = Tableau(torch.from_numpy(rng.uniform(-1, 1, (M, R)).astype(T)),
+                  torch.from_numpy(rng.uniform(1, 100, M).astype(V)),
+                  torch.from_numpy(rng.uniform(-1, 1, R).astype(V)),
+                  torch.zeros((), dtype=torch.float64 if V == np.float64
+                              else torch.float32),
+                  torch.from_numpy(rng.integers(0, R, M).astype(np.int32)),
+                  n=max(0, R - M - dead), m=M, r=R - dead)
+    tab = dataclasses.replace(tab, **{f: getattr(tab, f).to(dev) for f in
+                                      ("Tt", "b", "costs", "z", "base")})
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V)
+    return [solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                            opts) for _ in range(2)], opts
+
+
+def _seq_edge(lp, edge, eps, M):
+    """Bend ``lp`` into ``edge``'s state before a pivot: running, below
+    the fuse, the candidates folded over the costs, the step before."""
+    s = lp.s
+    s.status.fill_(int(pst.Status.RUNNING))
+    s.iterations.fill_(3)
+    s.stall.fill_(49 if edge == "bland_threshold" else 0)
+    s.bland.fill_(False)
+    if edge == "no_column":
+        lp.costs.copy_(lp.costs.abs())
+    elif edge == "skipped" and lp.r > 1:
+        lp.costs[0] = lp.costs[lp.r - 1] = -7.0
+    else:
+        lp.costs[lp.r - 1] = -5.0                # an entering column
+    from simplex_tpu_torch.kernels.seq import set_candidates
+
+    set_candidates(s, kb.entering_candidates(lp.costs, None, lp.r, eps))
+    kb.step_pre_plain(s, 100, eps)
+    col = lp.Tt[:, int(s.h)]
+    if edge == "no_row":
+        col.copy_(-col.abs())
+        return
+    rows = torch.nonzero(col >= eps).view(-1)
+    if rows.numel() == 0:
+        col[M // 2] = 0.5
+        rows = torch.nonzero(col >= eps).view(-1)
+    if edge == "nan_b":
+        lp.b[rows[rows.numel() // 2]] = float("nan")
+    elif edge == "tie" and rows.numel() > 1:
+        j1, j2 = int(rows[0]), int(rows[-1])
+        col[j2] = col[j1]
+        lp.b[j1] = lp.b[j2] = 0.001
+    elif edge == "bland_threshold":
+        lp.b[rows[0]] = 0.0                      # z does not move
+    elif edge == "no_column":
+        s.active.fill_(False)
+    elif edge == "skipped":
+        s.optimal.fill_(True)
+
+
+@pytest.mark.parametrize("M,R", SEQ_EDGE_SHAPES,
+                         ids=[f"{m}x{r}" for m, r in SEQ_EDGE_SHAPES])
+@pytest.mark.parametrize("pair", ["f64", "mixed", "f32"])
+def test_seq_cluster_edges_match_plain_on_card(cuda, pair, M, R):
+    """``seq_ratio_colk`` and ``seq_ratio`` (one cluster each) against
+    ``seq_ratio_plain`` and ``seq_colk_plain`` on the card, from every
+    state of ``SEQ_EDGES`` at shapes the cluster's walk splits unevenly
+    (``SEQ_EDGE_SHAPES``), with ties across blocks in both folds: every
+    scalar and vector bit for bit, and ``seq_ratio``'s column and step
+    between the plain version's."""
+    from simplex_tpu_torch.kernels import seq as ks
+
+    if pair == "f64" and M * R > 2 ** 27:
+        R = 2 ** 27 // M                        # 1 GiB of f64 tableau
+    loops, opts = _seq_edge_loops(cuda, pair, M, R, seed=M + R)
+    eps = float(opts.eps_resolved)
+    kinds = set()
+    for edge in SEQ_EDGES:
+        policy = dict(bland_static=edge == "bland_static", threshold=50)
+        for lp in loops:
+            _seq_edge(lp, edge, eps, M)
+        (a, b) = loops
+        ks.seq_ratio_colk(a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac,
+                          a.s, a.r, eps, 100, then_pre=True, **policy)
+        ks.seq_ratio_plain(b.Tt, b.b, b.s, b.ah, eps)
+        ks.seq_colk_plain(b.Tt, b.costs, b.b, b.base, b.ah, b.colk, b.fac,
+                          b.s, b.r, eps, 100, then_pre=True, **policy)
+        for name, x in a.s.tensors().items():
+            assert _bits_equal(x, getattr(b.s, name)), (edge, name)
+        for name in ("b", "costs", "base", "ah", "colk", "fac"):
+            assert _bits_equal(getattr(a, name), getattr(b, name)), (edge,
+                                                                    name)
+        kinds.add((edge, bool(a.s.do), bool(a.s.unb)))
+        # seq_ratio alone on the next pivot's column.
+        for lp in loops:
+            lp.s.status.fill_(int(pst.Status.RUNNING))
+            kb.step_pre_plain(lp.s, 100, eps)
+            lp.b.nan_to_num_(nan=1.0)
+            lp.s.z.nan_to_num_(nan=0.0)
+        ks.seq_ratio(a.Tt, a.b, a.s, a.ah, eps)
+        ks.seq_ratio_plain(b.Tt, b.b, b.s, b.ah, eps)
+        for name, x in a.s.tensors().items():
+            assert _bits_equal(x, getattr(b.s, name)), ("ratio", edge, name)
+        assert _bits_equal(a.ah, b.ah), edge
+    done = {e for e, d, _ in kinds if d}
+    assert {"taken", "nan_b", "bland_static"} <= done, kinds
+    assert ("no_row", False, True) in kinds, kinds
+    assert not {"no_column", "skipped"} & done, kinds

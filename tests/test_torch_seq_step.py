@@ -1,10 +1,11 @@
 """The sequential loops as one device program a chunk, on the CPU.
 
 * The plain versions of a chunk's kernels (``kernels.seq``:
-  ``seq_step_pre``, ``seq_ratio``, ``seq_colk``, ``seq_rank1``; in the K6
-  loop ``seq_snapshot`` and ``fused_pivot_tail``), applied in the graph's
-  order, against the eager pivot they replace -- ``solver.iteration_body``,
-  and the K6 loop's body as it ran eagerly (written out here) -- from
+  ``seq_step_pre``, ``seq_ratio_colk``, ``seq_rank1``; in the K6 loop
+  ``seq_ratio``, ``seq_snapshot`` and ``fused_pivot_tail``), applied in
+  the graph's order, against the eager pivot they replace --
+  ``solver.iteration_body``, and the K6 loop's body as it ran eagerly
+  (written out here) -- from
   seeded states in f64, f32 with f64 vectors and pure f32: a NaN in b,
   tied quotients, no eligible row, no improving column, Bland static, by
   its threshold and never, a skipped pivot and the fuse reached. Every
@@ -17,9 +18,13 @@
   ``solve_loop_pallas`` (K6 in interpret mode), Dantzig and Bland:
   statuses and pivot counts; the fuse gives exactly ``max_iter`` pivots.
 * ``run_chunk``'s launches in order; the loop's fixed storage from its
-  first chunk to its last; the scalars' checks.
+  first chunk to its last; the scalars' checks; the card's launches
+  (``seq_ratio_colk``, ``seq_ratio``, ``seq_snapshot``) with the kernel
+  library stubbed: their arguments against the ctypes signatures and
+  their launch counts.
 """
 
+import ctypes
 import dataclasses
 import functools
 
@@ -167,16 +172,16 @@ def _graph_order(loop, opts, pallas, then_pre):
     policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
                   threshold=opts.bland_threshold)
     s = loop.s
-    ks.seq_ratio(loop.Tt, loop.b, s, loop.ah, eps, loop.ws_ratio)
     if pallas:
+        ks.seq_ratio(loop.Tt, loop.b, s, loop.ah, eps)
         ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
         ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
                             loop.r, eps, MAX_ITER, loop.ws_pass,
                             then_pre=then_pre, **policy)
     else:
-        ks.seq_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
-                    loop.colk, loop.fac, s, loop.r, eps, MAX_ITER,
-                    loop.ws_pass, then_pre=then_pre, **policy)
+        ks.seq_ratio_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
+                          loop.colk, loop.fac, s, loop.r, eps, MAX_ITER,
+                          then_pre=then_pre, **policy)
         ks.seq_rank1(loop.Tt, loop.fac, loop.colk, s)
 
 
@@ -234,8 +239,9 @@ def _run_both(tab, carry, opts, pallas, pivots):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 def test_plain_chunk_matches_iteration_body(pair, case):
-    """``seq_step_pre``, then ``seq_ratio``, ``seq_colk`` and ``seq_rank1``
-    (the plain versions, CPU tensors) against ``iteration_body`` from one
+    """``seq_step_pre``, then ``seq_ratio_colk`` (``seq_ratio``'s and
+    ``seq_colk``'s plain versions) and ``seq_rank1`` (CPU tensors)
+    against ``iteration_body`` from one
     edge state, three pivots: the same state bit for bit after each."""
     opts = _options(pair, case)
     tab, carry = _edge(_phase1(opts), case, opts)
@@ -371,10 +377,10 @@ def test_seq_loop_walks_as_jax_solve_loop_pallas(monkeypatch, rule):
 @pytest.mark.parametrize("pallas", [False, True], ids=["seq", "k6"])
 def test_run_chunk_enqueues_in_the_graphs_order(monkeypatch, pallas):
     """``run_chunk`` enqueues ``seq_step_pre`` once, then per pivot
-    ``seq_ratio``, ``seq_colk`` and ``seq_rank1`` (the K6 loop:
-    ``seq_ratio``, ``seq_snapshot``, ``fused_pivot_tail``), the last
-    pivot's step after without the next pivot's step before: SEQ_CHUNK
-    pivots whatever the fuse."""
+    ``seq_ratio_colk`` and ``seq_rank1`` (the K6 loop: ``seq_ratio``,
+    ``seq_snapshot``, ``fused_pivot_tail``), the last pivot's step after
+    without the next pivot's step before: SEQ_CHUNK pivots whatever the
+    fuse."""
     opts = _options("f32", "walk", use_pallas=pallas)
     loop = solver.seq_loop(_phase1(opts), opts, pallas=pallas)
     calls = []
@@ -387,15 +393,15 @@ def test_run_chunk_enqueues_in_the_graphs_order(monkeypatch, pallas):
             return real(*args, **kw)
         return call
 
-    names = ("seq_step_pre", "seq_ratio", "seq_colk", "seq_rank1",
+    names = ("seq_step_pre", "seq_ratio", "seq_ratio_colk", "seq_rank1",
              "seq_snapshot", "fused_pivot_tail")
     for name in names:
         monkeypatch.setattr(solver, name, record(name))
     solver.run_chunk(loop, opts, 5)
     body = (["seq_ratio", "seq_snapshot", "fused_pivot_tail"] if pallas
-            else ["seq_ratio", "seq_colk", "seq_rank1"])
+            else ["seq_ratio_colk", "seq_rank1"])
     assert [c[0] for c in calls] == ["seq_step_pre"] + body * solver.SEQ_CHUNK
-    tails = [c[1] for c in calls if c[0] == body[1 + pallas]]
+    tails = [c[1] for c in calls if c[0] == body[2 * pallas]]
     assert tails == [True] * (solver.SEQ_CHUNK - 1) + [False]
     assert int(loop.s.iterations) == 5
 
@@ -452,6 +458,112 @@ def test_seq_scalars_are_checked():
     odd = ks.seq_scalars(torch.tensor(0.0), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
         ks._pair(odd)
-    assert ks.seq_ratio_workspace_bytes(1024) == 8 + 32 * 4
-    assert ks.seq_colk_workspace_bytes(3072) == 8 + 24 * 12
-    assert ks.TAILS == {"seq_k6_tail": "fused_pivot"}
+    assert ks.TAILS == {"seq_colk": "seq_ratio",
+                        "seq_k6_tail": "fused_pivot"}
+    assert set(ks.TAILS) <= set(ks.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# The card's launches, the library stubbed.
+
+def _stub_card(monkeypatch, name):
+    """The wrappers' card path with ``load_library`` stubbed by a library
+    whose entry point ``name`` records its arguments and returns 0."""
+    from simplex_tpu_torch.kernels import _build
+
+    got = []
+
+    class Lib:
+        pass
+
+    setattr(Lib, name, lambda self, *args: got.append(args) or 0)
+    monkeypatch.setattr(ks, "_on_card", lambda *a: True)
+    monkeypatch.setattr(ks, "_stream", lambda x: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    return got, _build.SIGNATURES[name]
+
+
+def _values(args):
+    return [a.value or 0 if isinstance(a, ctypes.c_void_p) else a
+            for a in args]
+
+
+@pytest.mark.parametrize("policy", [
+    dict(bland_static=False, threshold=5, then_pre=True),
+    dict(bland_static=True, threshold=5, then_pre=False),
+    dict(bland_static=False, threshold=None, then_pre=True)],
+    ids=["threshold", "static", "never"])
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_ratio_colk_launch_is_wired(monkeypatch, pair, policy):
+    """The default loop's pivot on the card, its library stubbed: one
+    ``seq_ratio_colk_launch`` with as many arguments as its ctypes
+    signature -- the loop's seven tensors' pointers in order, M, R, r,
+    eps, the scalars by reference (their pointers in ``SeqScalars``'
+    order), max_iter, the Bland mode, threshold (0 for none), then_pre and
+    the pair's code -- counting one launch of ``seq_ratio`` and one of
+    ``seq_colk``, its tail; nothing else launched, no state moved."""
+    opts = _options(pair, "walk")
+    loop = solver.seq_loop(_phase1(opts), opts)
+    got, sig = _stub_card(monkeypatch, "seq_ratio_colk_launch")
+    state = {n: x.clone() for n, x in loop.s.tensors().items()}
+    ks.reset_launches()
+    M, R = loop.Tt.shape
+    ks.seq_ratio_colk(loop.Tt, loop.costs, loop.b, loop.base, loop.ah,
+                      loop.colk, loop.fac, loop.s, loop.r, 1e-9, 77,
+                      **policy)
+    (args,) = got
+    assert len(args) == len(sig) == 18
+    vals = _values(args)
+    assert vals[:7] == [x.data_ptr() for x in (
+        loop.Tt, loop.costs, loop.b, loop.base, loop.ah, loop.colk,
+        loop.fac)]
+    assert vals[7:11] == [M, R, loop.r, 1e-9]
+    ptrs = ctypes.cast(args[11], ctypes.POINTER(ks._SeqPtrs)).contents
+    assert [getattr(ptrs, n) for n, _ in ks._SeqPtrs._fields_] == [
+        x.data_ptr() for x in loop.s.tensors().values()]
+    mode = (kb.BLAND_STATIC if policy["bland_static"] else kb.BLAND_NEVER
+            if policy["threshold"] is None else kb.BLAND_THRESHOLD)
+    assert vals[12:17] == [77, mode, policy["threshold"] or 0,
+                           int(policy["then_pre"]), ks.PAIRS[
+                               (loop.Tt.dtype, loop.b.dtype)]]
+    assert ks.LAUNCHES == {**{n: 0 for n in ks.LAUNCHES}, "seq_ratio": 1,
+                           "seq_colk": 1}
+    for n, x in loop.s.tensors().items():
+        assert _same(x, state[n]), n
+
+
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_ratio_and_snapshot_launches_are_wired(monkeypatch, pair):
+    """The K6 loop's ``seq_ratio`` and ``seq_snapshot`` on the card, the
+    library stubbed: one launch each with as many arguments as its ctypes
+    signature, no workspace, each counting its own launch; the snapshot
+    takes a pure-f32 pair only (the C entry point refuses another) and
+    its pair's code is passed on."""
+    opts = _options(pair, "walk")
+    loop = solver.seq_loop(_phase1(opts), opts)
+    M, R = loop.Tt.shape
+    code = ks.PAIRS[(loop.Tt.dtype, loop.b.dtype)]
+    got, sig = _stub_card(monkeypatch, "seq_ratio_launch")
+    ks.reset_launches()
+    ks.seq_ratio(loop.Tt, loop.b, loop.s, loop.ah, 1e-9)
+    (args,) = got
+    assert len(args) == len(sig) == 9
+    vals = _values(args)
+    assert vals[:6] == [loop.Tt.data_ptr(), loop.b.data_ptr(), M, R, 1e-9,
+                        loop.ah.data_ptr()]
+    assert vals[7] == code
+    assert ks.LAUNCHES["seq_ratio"] == 1 and ks.LAUNCHES["seq_colk"] == 0
+    if pair != "f32":
+        with pytest.raises(ValueError, match="want contiguous torch.float32"):
+            ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk,
+                            loop.s)
+        return
+    got, sig = _stub_card(monkeypatch, "seq_snapshot_launch")
+    ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, loop.s)
+    (args,) = got
+    assert len(args) == len(sig) == 10
+    vals = _values(args)
+    assert vals[:7] == [x.data_ptr() for x in (
+        loop.Tt, loop.b, loop.base, loop.ah, loop.colk)] + [M, R]
+    assert vals[8] == code
+    assert ks.LAUNCHES["seq_snapshot"] == 1 and ks.LAUNCHES["seq_ratio"] == 1

@@ -18,6 +18,13 @@ With ``--sharded`` each process solves through ``solve_sharded`` at one
 NCCL rank instead (the sharded kernel loop, one CUDA graph a window),
 and prints beside each wall the phase-1 loop call's ms/pivot with its
 graph's capture taken out: the replayed windows and their boundaries.
+With ``--seq N`` each process solves random_N_N with the default
+options (f64, the sequential loop, one CUDA graph a chunk) and prints
+beside each wall the loop calls' ms/pivot with their captures taken
+out: the replayed chunks and the host read between them; with
+``--trace`` as well one more solve whose phase-1 loop call torch.profiler
+traces, and the kernels of its middle replayed chunk, by name, in
+microseconds a pivot.
 
 Needs a CUDA card: a process that finds none exits non-zero.
 """
@@ -84,7 +91,107 @@ def sharded_solver(stack):
     return solve, phase1
 
 
-def measure(root: pathlib.Path, solves: int, sharded: bool) -> int:
+def seq_solver():
+    """``solve`` with the default options, and a list that each solve
+    appends its loop calls' (seconds, pivots, capture seconds) to."""
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch import solver
+
+    loop, capture = solver.solve_loop, solver.capture_chunk
+    calls, captures = [], []
+
+    def timed_capture(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = capture(*args, **kw)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0)
+        return out
+
+    def timed_loop(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(captures)
+        out = loop(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out[2],
+                      sum(captures[n:])))
+        return out
+
+    solver.capture_chunk = timed_capture
+    solver.solve_loop = timed_loop
+    loops = []
+
+    def solve(problem, **opts):
+        del calls[:]
+        res = st.solve(problem, device="cuda")
+        loops.append(tuple(map(sum, zip(*calls))))
+        return res
+    return solve, loops
+
+
+def trace_chunk(solve, problem) -> None:
+    """One more solve with its first loop call traced by torch.profiler:
+    the kernels of the middle replayed chunk (from one ``seq_step_pre`` to
+    the kernel before the next) by name, in us a pivot, and the nodes a
+    pivot. Names are read from the trace, so any version's kernels show."""
+    import collections
+    import json
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import solver
+
+    real, traced = solver.solve_loop, []
+
+    def loop(*args, **kw):
+        if traced:
+            return real(*args, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+        traced.append(prof)
+        return out
+
+    solver.solve_loop = loop
+    try:
+        solve(problem)
+    finally:
+        solver.solve_loop = real
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        traced[0].export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    chunks: list = []
+    for e in kernels:
+        if "seq_step_pre" in e["name"]:
+            chunks.append([])
+        if chunks:
+            chunks[-1].append(e)
+    mid = chunks[len(chunks) // 2]
+    chunk = solver.SEQ_CHUNK
+    us = collections.defaultdict(float)
+    for e in mid:
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
+        us[re.match(r"[\w:]*", name).group(0).split("::")[-1]] += (
+            e["dur"] / chunk)
+    print(f"traced chunk {len(chunks) // 2} of {len(chunks)}: "
+          f"{len(mid) / chunk:.5f} nodes a pivot, kernels "
+          f"{sum(us.values()):.2f} us a pivot ("
+          + ", ".join(f"{n} {v:.3f}" for n, v in us.items()) + "), span "
+          f"{(mid[-1]['ts'] + mid[-1]['dur'] - mid[0]['ts']) / chunk:.2f} "
+          "us a pivot", flush=True)
+
+
+def measure(root: pathlib.Path, solves: int, sharded: bool,
+            seq: int, trace: bool) -> int:
     """Solve the flagship from ``root``'s package once cold and ``solves``
     times warm on the card, printing each wall."""
     sys.path.insert(0, str(root))
@@ -103,11 +210,15 @@ def measure(root: pathlib.Path, solves: int, sharded: bool) -> int:
     _build.load_library()
     print(f"{root}: kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    problem = st.read_random_problem(root / PROBLEM)
+    problem = st.read_random_problem(
+        root / (PROBLEM.with_name(f"random_{seq}_{seq}.txt") if seq
+                else PROBLEM))
     stack = contextlib.ExitStack()
     solve, phase1 = ((lambda p, **o: st.solve(p, device="cuda", **o)), None)
     if sharded:
         solve, phase1 = sharded_solver(stack)
+    elif seq:
+        solve, phase1 = seq_solver()
     walls = []
     for i in range(solves + 1):
         torch.cuda.synchronize()
@@ -119,14 +230,19 @@ def measure(root: pathlib.Path, solves: int, sharded: bool) -> int:
         loop = ""
         if phase1:
             sec, n, cap = phase1[-1]
-            loop = (f"; phase-1 loop {1e3 * (sec - cap) / n:.4f} ms/pivot "
-                    f"without its capture ({1e3 * cap:.1f} ms)")
+            loop = (f"; {'loops' if seq else 'phase-1 loop'} "
+                    f"{1e3 * (sec - cap) / n:.4f} ms/pivot without "
+                    f"{'their captures' if seq else 'its capture'} "
+                    f"({1e3 * cap:.1f} ms)")
         print(f"{root}: solve {i} ({'cold' if i == 0 else 'warm'}) wall "
               f"{wall:.3f} s, pivots {res.iterations_phase1}+"
               f"{res.iterations_phase2}, objective {res.objective!r}, "
-              f"certified {res.refine.certified}{loop}", flush=True)
+              f"certified {getattr(res.refine, 'certified', None)}{loop}",
+              flush=True)
         if i:
             walls.append(wall)
+    if seq and trace:
+        trace_chunk(solve, problem)
     if walls:
         med = statistics.median(walls)
         print(f"{root}: warm wall min {min(walls):.3f} median {med:.3f} max "
@@ -145,14 +261,22 @@ def main() -> int:
                     help="warm solves after the cold one (default 3)")
     ap.add_argument("--sharded", action="store_true",
                     help="solve_sharded at one NCCL rank")
+    ap.add_argument("--seq", type=int, default=0, metavar="N",
+                    help="random_N_N with the default options (the "
+                         "sequential loop)")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --seq: trace a replayed chunk's kernels")
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        return measure(args.child.resolve(), args.solves, args.sharded)
+        return measure(args.child.resolve(), args.solves, args.sharded,
+                       args.seq, args.trace)
     for root in args.root or [HERE.parents[1]]:
         rc = subprocess.run([sys.executable, str(HERE), "--child", str(root),
-                             "--solves", str(args.solves)]
+                             "--solves", str(args.solves),
+                             "--seq", str(args.seq)]
                             + (["--sharded"] if args.sharded else [])
+                            + (["--trace"] if args.trace else [])
                             ).returncode
         if rc != 0:
             return rc

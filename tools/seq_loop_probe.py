@@ -1,6 +1,11 @@
 #!/usr/bin/env python3
 """The sequential loops as one CUDA graph a chunk, on the card.
 
+0. ``tools/seq_variants.cu`` built with nvcc (its registers and spills
+   from ``-Xptxas -v`` written to ``chiprun_out/seq_variants_ptxas.log``)
+   and run: the ratio test and the pivot row's pass in every form tried,
+   bit for bit against the kernels they replaced, and timed in turns
+   (``--no-variants`` skips it);
 1. the kernel library's build (timed);
 2. ``chip_smoke.phase_seq_kernels``: each sequential kernel against its
    plain version at the main paths' shapes, bit for bit, and timed -- the
@@ -19,14 +24,16 @@
 
 Run from the root of a checkout on a CUDA card::
 
-    python3 tools/seq_loop_probe.py [--no-big]
+    python3 tools/seq_loop_probe.py [--no-big] [--no-variants]
 """
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -52,12 +59,41 @@ def turns(label: str, p, opts: dict, ways, pallas: bool = False) -> None:
                f"objective {res.objective!r}; pivots {w[0]}+{w[1]}")
 
 
+def variants() -> None:
+    """Build and run ``tools/seq_variants.cu``; its output to the log,
+    ptxas's report to ``chiprun_out/seq_variants_ptxas.log``."""
+    from simplex_tpu_torch.kernels import _build
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory() as td:
+        exe = pathlib.Path(td) / "seq_variants"
+        t0 = time.perf_counter()
+        build = subprocess.run(
+            [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xptxas", "-v", "-o", str(exe),
+             str(ROOT / "tools" / "seq_variants.cu")],
+            capture_output=True, text=True, timeout=900)
+        (out / "seq_variants_ptxas.log").write_text(build.stderr)
+        cs.require(build.returncode == 0, "seq_variants.cu did not build: "
+                   + build.stderr[-3000:])
+        cs.log(f"seq_variants.cu built in {time.perf_counter() - t0:.1f} s")
+        run = subprocess.run([str(exe)], capture_output=True, text=True,
+                             timeout=900)
+    for line in run.stdout.splitlines():
+        cs.log(f"seq_variants: {line}")
+    cs.require(run.returncode == 0, f"seq_variants exited {run.returncode}: "
+               + run.stderr[-2000:])
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--no-big", action="store_true",
                         help="skip random_8192_8192")
+    parser.add_argument("--no-variants", action="store_true",
+                        help="skip tools/seq_variants.cu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("seq_loop_probe: no CUDA card", file=sys.stderr)
@@ -71,6 +107,8 @@ def main() -> int:
     _build.load_library()
     cs.log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     try:
+        if not args.no_variants:
+            variants()
         records: dict = {}
         cs.phase_seq_kernels(records)
         for name, rec in records.items():

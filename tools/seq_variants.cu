@@ -1,0 +1,912 @@
+// The sequential loop's ratio test and pivot-row pass (csrc/seq.cu) on the
+// card, several ways, every output checked bit for bit against the forms
+// they replaced:
+//
+//   ticket    verbatim copies of the two kernels the port launched before:
+//             seq_ratio (one row a thread over a grid, a partial a block
+//             in a workspace, an acq_rel arrival ticket, the last block
+//             folding the partials and running the step between) and
+//             seq_colk (one column a thread over R blocks, then M blocks
+//             for b; the same ticket; the last R block's step after);
+//   abNBxNTpP the two as clusters of NB blocks of NT threads, each thread
+//             walking P rows or columns at a time: the shipped seq_ratio
+//             (included from the source) and this file's seq_colk
+//             cluster, which loads the costs before k and folds the
+//             candidates into block 0's shared memory;
+//   cNBxNTpP  the shipped seq_ratio_colk (included from the source): both
+//             in one cluster, the rows' a_h and b kept in registers for
+//             the factors and b, the costs loaded before the first
+//             cluster barrier: one launch a pivot.
+//
+// Build and run on a machine with an H100:
+//
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+//        -o /tmp/seq_variants tools/seq_variants.cu && /tmp/seq_variants
+//
+// Checks, in f64/f64, f32/f64 and f32/f32: every scalar of the step, a_h,
+// the row, the costs, b, the factors and base equal to ticket's, byte for
+// byte, after one pivot from edge states -- a taken pivot, a NaN in b on
+// an eligible row, equal smallest quotients on two rows far apart, no
+// eligible row, no eligible column (a skipped pivot over non-negative
+// costs), equal most negative costs on two columns far apart, a NaN cost,
+// Bland static, Bland by its threshold, a skipped pivot (optimal) -- at M
+// x R = 8,192 x 24,576, 1,024 x 3,072, 2,048 x 6,144, 1 x 3, 7 x 21,
+// 4,095 x 12,285, 4,097 x 257, 40,064 x 2,048 and 2,048 x 120,064 (the
+// last in f32 only, 10,112 x 120,064 too). Times, at the first four shapes
+// above (f64; 2,048 x 6,144 in f32/f32 and f32/f64): us a pivot (the ratio
+// test and the pass) by CUDA events around 20 replays of a CUDA graph of
+// 50 pivots, in turns (each form, then back), three rounds; then each
+// kernel of the two-launch forms alone the same way; then, at 8,192 x
+// 24,576 and 2,048 x 6,144 f32, each pivot cold: after a 256 MiB write
+// that evicts L2, less the write alone (the 1,024^2 tableau stays in L2
+// in the loop). The timed state is a degenerate pivot (b[k] = 0), so b
+// stays put and every call does the same work.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <limits>
+#include <random>
+#include <string>
+#include <vector>
+
+#include "../simplex_tpu_torch/kernels/csrc/seq.cu"
+
+#define CK(x)                                                            \
+    do {                                                                 \
+        cudaError_t e_ = (cudaError_t)(x);                               \
+        if (e_ != cudaSuccess) {                                         \
+            std::printf("CUDA error %s at %s:%d\n", cudaGetErrorString(e_), \
+                        __FILE__, __LINE__);                             \
+            std::exit(1);                                                \
+        }                                                                \
+    } while (0)
+
+// ---------------------------------------------------------------------------
+// The kernels the port launched before, verbatim.
+
+namespace ticket_form {
+
+constexpr int NW = THREADS / 32;
+
+__device__ __forceinline__ unsigned ticket(unsigned *counter) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    return old;
+}
+
+template <typename T, typename V>
+__device__ void block_ratio(Ratio<T, V> &x, bool &any,
+                            const Ratio<T, V> &none) {
+    __shared__ Ratio<T, V> warps[NW];
+    __shared__ int wany[NW];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    any = __any_sync(FULL, any);
+    for (int off = 16; off > 0; off >>= 1) take_first(x, shfl_xor(x, off));
+    if (lane == 0) {
+        warps[warp] = x;
+        wany[warp] = any;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        x = lane < NW ? warps[lane] : none;
+        any = __any_sync(FULL, lane < NW && wany[lane] != 0);
+        for (int off = NW / 2; off > 0; off >>= 1)
+            take_first(x, shfl_xor(x, off));
+    }
+    __syncthreads();                             // warps[] free again
+}
+
+__host__ __device__ constexpr size_t ratio_ws_bytes(int nb) {
+    return 8 + (size_t)nb * (3 * sizeof(double) + 2 * sizeof(int));
+}
+
+struct RatioWs {
+    unsigned *counter;
+    double *q, *a, *b;
+    int *j, *any;
+    __device__ RatioWs(unsigned char *ws, int nb)
+        : counter(reinterpret_cast<unsigned *>(ws)),
+          q(reinterpret_cast<double *>(ws + 8)), a(q + nb), b(a + nb),
+          j(reinterpret_cast<int *>(b + nb)), any(j + nb) {}
+};
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(THREADS) seq_ratio_kernel(
+        const T *__restrict__ Tt, const V *__restrict__ b, int M, int R,
+        double eps, T *__restrict__ ah, unsigned char *__restrict__ ws_bytes,
+        int nb, SeqStep<T, V> s) {
+    __shared__ bool last;
+    const RatioWs ws(ws_bytes, nb);
+    const int tid = threadIdx.x;
+    const int j = blockIdx.x * THREADS + tid;
+    const int h = min(*s.h, R - 1);
+    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
+    Ratio<T, V> x = none;
+    bool any = false;
+    if (j < M) {
+        const T a = Tt[(size_t)j * R + h];
+        const V bj = b[j];
+        ah[j] = a;
+        any = a >= (T)eps;
+        x = Ratio<T, V>{any ? div_rn(bj, (V)a) : inf<V>(), j, a, bj};
+    }
+    block_ratio(x, any, none);
+    if (tid == 0) {
+        ws.q[blockIdx.x] = (double)x.q;
+        ws.j[blockIdx.x] = x.j;
+        ws.a[blockIdx.x] = (double)x.a;
+        ws.b[blockIdx.x] = (double)x.b;
+        ws.any[blockIdx.x] = any;
+        last = ticket(ws.counter) == (unsigned)nb - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+
+    // The tail's other operands, loaded while the partials fold: the step
+    // before wrote them and no block of seq_ratio writes them.
+    bool active = false, optimal = false;
+    V minc = 0;
+    if (tid == 0) {
+        active = *s.active != 0;
+        optimal = *s.optimal != 0;
+        minc = *s.minc;
+    }
+    // The last block: fold every block's partial (read past L1) in the
+    // same order.
+    x = none;
+    any = false;
+    for (int i = tid; i < nb; i += THREADS) {
+        any |= __ldcg(ws.any + i) != 0;
+        take_first(x, Ratio<T, V>{(V)__ldcg(ws.q + i), __ldcg(ws.j + i),
+                                  (T)__ldcg(ws.a + i), (V)__ldcg(ws.b + i)});
+    }
+    block_ratio(x, any, none);
+    if (tid == 0) {
+        const bool unb = !any;
+        const bool d = active && !(optimal || unb);
+        const T p = d ? x.a : (T)1;
+        *s.k = x.j;
+        *s.unb = unb;
+        *s.do_ = d;
+        *s.p = p;
+        *s.bk = x.b;
+        *s.u = d ? div_rn(minc, (V)p) : (V)0;
+        *ws.counter = 0;                         // ready for the next call
+    }
+}
+
+template <typename V>
+__device__ void block_cands(V &val, int &idx, V &bval, int &bidx) {
+    __shared__ V sv[NW], sbv[NW];
+    __shared__ int si[NW], sbi[NW];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    auto fold = [&](int width) {
+        for (int off = width / 2; off > 0; off >>= 1) {
+            const V v2 = __shfl_xor_sync(FULL, val, off);
+            const int i2 = __shfl_xor_sync(FULL, idx, off);
+            const V bv2 = __shfl_xor_sync(FULL, bval, off);
+            const int bi2 = __shfl_xor_sync(FULL, bidx, off);
+            if (first(v2, i2, val, idx)) {
+                val = v2;
+                idx = i2;
+            }
+            if (bi2 < bidx) {
+                bidx = bi2;
+                bval = bv2;
+            }
+        }
+    };
+    fold(32);
+    if (lane == 0) {
+        sv[warp] = val;
+        si[warp] = idx;
+        sbv[warp] = bval;
+        sbi[warp] = bidx;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const bool has = lane < NW;
+        val = has ? sv[lane] : inf<V>();
+        idx = has ? si[lane] : BIG_INDEX;
+        bval = has ? sbv[lane] : inf<V>();
+        bidx = has ? sbi[lane] : BIG_INDEX;
+        fold(NW);
+    }
+    __syncthreads();                             // the arrays free again
+}
+
+__host__ __device__ constexpr size_t colk_ws_bytes(int nb) {
+    return 8 + (size_t)nb * (2 * sizeof(double) + 2 * sizeof(int));
+}
+
+struct ColkWs {
+    unsigned *counter;
+    double *val, *bval;
+    int *idx, *bidx;
+    __device__ ColkWs(unsigned char *ws, int nb)
+        : counter(reinterpret_cast<unsigned *>(ws)),
+          val(reinterpret_cast<double *>(ws + 8)), bval(val + nb),
+          idx(reinterpret_cast<int *>(bval + nb)), bidx(idx + nb) {}
+};
+
+template <typename T, typename V, bool FOLD>
+__global__ void __launch_bounds__(THREADS) seq_colk_kernel(
+        const T *__restrict__ Tt, V *__restrict__ costs, V *__restrict__ b,
+        int *__restrict__ base, const T *__restrict__ ah,
+        T *__restrict__ colk, T *__restrict__ fac, int M, int R, int r,
+        double eps, int n_rblocks, unsigned char *__restrict__ ws_bytes,
+        SeqStep<T, V> s, seq::Policy pol) {
+    const int tid = threadIdx.x;
+    const bool d = *s.do_ != 0;
+    const int k = *s.k;
+    if ((int)blockIdx.x >= n_rblocks) {
+        // M axis: factor and b where the pivot is done (whole blocks
+        // return together).
+        const int j = (blockIdx.x - n_rblocks) * THREADS + tid;
+        if (!d || j >= M) return;
+        const T p = *s.p;
+        const V bk = *s.bk;
+        const T f = div_rn(ah[j], p);
+        if (FOLD) fac[j] = f;
+        if (j == k) {
+            b[j] = div_rn(bk, (V)p);
+            if (!FOLD) base[j] = *s.h;
+        } else {
+            b[j] = sub_rn(b[j], mul_rn(bk, (V)f));
+        }
+        return;
+    }
+
+    const int i = blockIdx.x * THREADS + tid;    // this thread's column
+    V val = inf<V>(), bval = inf<V>();
+    int idx = BIG_INDEX, bidx = BIG_INDEX;
+    if (i < R) {
+        const T ck = Tt[(size_t)k * R + i];
+        colk[i] = ck;
+        if (FOLD) {
+            V c = costs[i];
+            if (d) {
+                c = sub_rn(c, mul_rn(*s.u, (V)ck));
+                costs[i] = c;
+            }
+            const V cm = i < r ? c : inf<V>();   // torch.where(iota < r, ..)
+            val = cm;
+            idx = i;
+            if (cm <= -(V)eps) {
+                bval = cm;
+                bidx = i;
+            }
+        }
+    }
+    if constexpr (FOLD) {
+        __shared__ bool last;
+        const ColkWs ws(ws_bytes, n_rblocks);
+        block_cands(val, idx, bval, bidx);
+        if (tid == 0) {
+            ws.val[blockIdx.x] = (double)val;
+            ws.idx[blockIdx.x] = idx;
+            ws.bval[blockIdx.x] = (double)bval;
+            ws.bidx[blockIdx.x] = bidx;
+            last = ticket(ws.counter) == (unsigned)n_rblocks - 1;
+        }
+        __syncthreads();
+        if (!last) return;
+
+        // The tail's other operands, loaded while the partials fold.
+        seq::PostIn<V> in{};
+        if (tid == 0) in = seq::post_load(s);
+        val = bval = inf<V>();
+        idx = bidx = BIG_INDEX;
+        for (int q = tid; q < n_rblocks; q += THREADS) {
+            const V vq = (V)__ldcg(ws.val + q);
+            const int iq = __ldcg(ws.idx + q);
+            if (first(vq, iq, val, idx)) {
+                val = vq;
+                idx = iq;
+            }
+            const int bq = __ldcg(ws.bidx + q);
+            if (bq < bidx) {
+                bidx = bq;
+                bval = (V)__ldcg(ws.bval + q);
+            }
+        }
+        block_cands(val, idx, bval, bidx);
+        if (tid == 0) {
+            const seq::Candidates<V> c{idx, val, bidx,
+                                       bidx == BIG_INDEX ? inf<V>() : bval};
+            *s.h_d = c.h_d;
+            *s.v_d = c.v_d;
+            *s.h_b = c.h_b;
+            *s.v_b = c.v_b;
+            if (d) base[k] = *s.h;               // before the step rewrites h
+            *ws.counter = 0;                     // ready for the next call
+            seq::post(s, in, d, c, pol);
+        }
+    }
+}
+
+}  // namespace ticket_form
+
+// ---------------------------------------------------------------------------
+// Form (b), not shipped: seq_colk as one cluster, after seq_ratio's
+// cluster. Every thread loads its first columns' costs and k, do, p, bk
+// and u at once, then the row; b and the factors from ah and b; the
+// candidates folded into block 0's shared memory; block 0's tail.
+
+template <typename T, typename V, int NB, int NT, int PER_>
+__global__ void __launch_bounds__(NT) colk_cluster_kernel(
+        const T *__restrict__ Tt, V *__restrict__ costs, V *__restrict__ b,
+        int *__restrict__ base, const T *__restrict__ ah,
+        T *__restrict__ colk, T *__restrict__ fac, int M, int R, int r,
+        double eps, SeqStep<T, V> s, seq::Policy pol) {
+    constexpr int NW = NT / 32, SPAN = NB * NT;
+    __shared__ Cands<V> cwarps[NW];
+    __shared__ int cwany[NW];
+    __shared__ Cands<V> cparts[NB];
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = rank * NT + tid;
+    cluster_arrive_relaxed();
+    V c0[PER_];
+    first_costs<V, PER_, SPAN>(costs, R, g, c0);
+    seq::PostIn<V> in{};
+    if (g == 0) in = seq::post_load(s);
+    const Between<T, V> w{*s.k, *s.do_ != 0, false, *s.p, *s.bk, *s.u};
+    const Cands<V> cnone{inf<V>(), BIG_INDEX, inf<V>(), BIG_INDEX};
+    Cands<V> cx = cnone;
+    T a0[PER_];
+    V b0[PER_];
+    colk_cols<T, V, PER_, SPAN>(
+            Tt, costs, colk, R, r, (V)eps, w, g, c0, cx, [&] {
+                if (w.d)
+                    update_rows<T, V, PER_, SPAN>(b, fac, ah, M, w, g, false,
+                                                  a0, b0);
+            });
+    bool unused = false;
+    block_fold<NW>(cx, unused, cnone, cwarps, cwany);
+    cluster_wait();
+    if (tid == 0) *cl.map_shared_rank(&cparts[rank], 0) = cx;
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0 || warp != 0) return;
+    cx = warp_fold(lane < NB ? cparts[lane] : cnone);
+    if (lane != 0) return;
+    const seq::Candidates<V> c{cx.idx, cx.val, cx.bidx,
+                               cx.bidx == BIG_INDEX ? inf<V>() : cx.bval};
+    *s.h_d = c.h_d;
+    *s.v_d = c.v_d;
+    *s.h_b = c.h_b;
+    *s.v_b = c.v_b;
+    if (w.d) base[w.k] = *s.h;                   // before the step rewrites h
+    seq::post(s, in, w.d, c, pol);
+}
+
+// ---------------------------------------------------------------------------
+// The harness.
+
+// One state's device buffers: the tableau (shared, never written), the
+// vectors, the fixed buffers, the scalars (one 8-byte slot each, in
+// SeqStep's order) and the ticket form's workspaces.
+template <typename T, typename V>
+struct Bufs {
+    const T *Tt;
+    V *costs, *b;
+    int *base;
+    T *ah, *colk, *fac;
+    unsigned char *scal;                         // 19 slots of 8 bytes
+    unsigned char *ws_r, *ws_c;
+    int M, R, r;
+    double eps;
+    seq::Policy pol;
+    SeqStep<T, V> step() const {
+        SeqStep<T, V> s;
+        void **f = reinterpret_cast<void **>(&s);
+        for (int i = 0; i < 19; ++i) f[i] = scal + 8 * i;
+        return s;
+    }
+};
+
+template <typename T, typename V>
+using LaunchFn = int (*)(const Bufs<T, V> &, cudaStream_t);
+
+template <typename T, typename V>
+int ticket_ratio(const Bufs<T, V> &x, cudaStream_t st) {
+    const int nb = (x.M + THREADS - 1) / THREADS;
+    ticket_form::seq_ratio_kernel<T, V><<<nb, THREADS, 0, st>>>(
+        x.Tt, x.b, x.M, x.R, x.eps, x.ah, x.ws_r, nb, x.step());
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename V>
+int ticket_colk(const Bufs<T, V> &x, cudaStream_t st) {
+    const int nr = (x.R + THREADS - 1) / THREADS;
+    const int nm = (x.M + THREADS - 1) / THREADS;
+    ticket_form::seq_colk_kernel<T, V, true>
+            <<<nr + nm, THREADS, 0, st>>>(
+        x.Tt, x.costs, x.b, x.base, x.ah, x.colk, x.fac, x.M, x.R, x.r,
+        x.eps, nr, x.ws_c, x.step(), x.pol);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename V, int NB, int NT, int P>
+int a_ratio(const Bufs<T, V> &x, cudaStream_t st) {
+    auto kernel = seq_ratio_kernel<T, V, NB, NT, P>;
+    static const cudaError_t e = allow_cluster(kernel, NB);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, NB, NT, st, x.Tt, (const V *)x.b, x.M, x.R,
+                          x.eps, x.ah, x.step());
+}
+
+template <typename T, typename V, int NB, int NT, int P>
+int b_colk(const Bufs<T, V> &x, cudaStream_t st) {
+    auto kernel = colk_cluster_kernel<T, V, NB, NT, P>;
+    static const cudaError_t e = allow_cluster(kernel, NB);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, NB, NT, st, x.Tt, x.costs, x.b, x.base,
+                          (const T *)x.ah, x.colk, x.fac, x.M, x.R, x.r,
+                          x.eps, x.step(), x.pol);
+}
+
+template <typename T, typename V, int NB, int NT, int P>
+int c_fused(const Bufs<T, V> &x, cudaStream_t st) {
+    auto kernel = seq_ratio_colk_kernel<T, V, NB, NT, P>;
+    static const cudaError_t e = allow_cluster(kernel, NB);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, NB, NT, st, x.Tt, x.costs, x.b, x.base,
+                          x.ah, x.colk, x.fac, x.M, x.R, x.r, x.eps, x.step(),
+                          x.pol);
+}
+
+// A form: its name, the ratio test's launch and the pass's (none: the
+// first launch does both).
+template <typename T, typename V>
+struct Form {
+    std::string name;
+    LaunchFn<T, V> ratio, colk;
+};
+
+// The two cluster forms at NB blocks of NT threads, P at a time.
+template <typename T, typename V, int NB, int NT, int P>
+void add_cfg(std::vector<Form<T, V>> &out) {
+    const std::string tag = std::to_string(NB) + "x" + std::to_string(NT) +
+                            "p" + std::to_string(P);
+    out.push_back({"ab" + tag, a_ratio<T, V, NB, NT, P>,
+                   b_colk<T, V, NB, NT, P>});
+    out.push_back({"c" + tag, c_fused<T, V, NB, NT, P>, nullptr});
+}
+
+template <typename T, typename V>
+std::vector<Form<T, V>> forms() {
+    std::vector<Form<T, V>> out{
+            {"ticket", ticket_ratio<T, V>, ticket_colk<T, V>}};
+    add_cfg<T, V, 16, 256, 4>(out);
+    add_cfg<T, V, 16, 256, 8>(out);
+    add_cfg<T, V, 16, 128, 8>(out);
+    add_cfg<T, V, 16, 512, 2>(out);
+    add_cfg<T, V, 16, 512, 4>(out);
+    add_cfg<T, V, 8, 512, 4>(out);
+    add_cfg<T, V, 8, 256, 8>(out);
+    add_cfg<T, V, 16, 1024, 1>(out);
+    return out;
+}
+
+template <typename V>
+V inf_host() {
+    return std::numeric_limits<V>::infinity();
+}
+
+// The host's copy of a state.
+template <typename T, typename V>
+struct Host {
+    int M, R, r;
+    std::vector<T> Tt;
+    std::vector<V> costs, b;
+    std::vector<int> base;
+    unsigned char scal[19 * 8];
+    seq::Policy pol;
+    double eps;
+};
+
+template <typename X>
+void put(unsigned char *scal, int slot, X v) {
+    std::memset(scal + 8 * slot, 0, 8);
+    std::memcpy(scal + 8 * slot, &v, sizeof v);
+}
+
+template <typename X>
+X get(const unsigned char *scal, int slot) {
+    X v;
+    std::memcpy(&v, scal + 8 * slot, sizeof v);
+    return v;
+}
+
+// SeqStep's slots.
+enum Slot {
+    S_STATUS, S_ITER, S_STALL, S_BLAND, S_Z, S_HD, S_VD, S_HB, S_VB,
+    S_ACTIVE, S_H, S_MINC, S_OPTIMAL, S_K, S_BK, S_UNB, S_DO, S_P, S_U
+};
+
+const char *EDGES[] = {"taken",       "nan-b",         "tie-rows",
+                       "no-row",      "no-column",     "tie-columns",
+                       "nan-cost",    "bland-static",  "bland-threshold",
+                       "optimal"};
+constexpr int N_EDGES = 10;
+
+// A seeded state at M x R bent into ``edge`` (timed: a degenerate pivot).
+template <typename T, typename V>
+Host<T, V> make_state(int M, int R, int edge, bool timed, unsigned seed) {
+    std::mt19937_64 rng(seed);
+    std::uniform_real_distribution<double> u(-1.0, 1.0), ub(0.0, 100.0);
+    Host<T, V> x;
+    x.M = M;
+    x.R = R;
+    x.r = std::max(1, R - std::min(100, R / 4));
+    x.eps = sizeof(T) == 8 ? 1e-9 : 1e-4;
+    x.Tt.resize((size_t)M * R);
+    unsigned long long z = seed;                 // splitmix64: fast enough
+    for (auto &v : x.Tt) {                       // for 10^9 elements
+        z += 0x9e3779b97f4a7c15ull;
+        unsigned long long w = z;
+        w = (w ^ (w >> 30)) * 0xbf58476d1ce4e5b9ull;
+        w = (w ^ (w >> 27)) * 0x94d049bb133111ebull;
+        w ^= w >> 31;
+        v = (T)((double)(w >> 11) * 0x1.0p-52 - 1.0);
+    }
+    x.costs.resize(R);
+    for (auto &v : x.costs) v = (V)u(rng);
+    x.b.resize(M);
+    for (auto &v : x.b) v = (V)ub(rng);
+    x.base.resize(M);
+    for (auto &v : x.base) v = (int)(rng() % R);
+    const int h = (int)(rng() % x.r);
+    const T eps_t = (T)x.eps;
+    std::vector<int> rows;
+    for (int j = 0; j < M; ++j)
+        if (x.Tt[(size_t)j * R + h] >= eps_t) rows.push_back(j);
+    if (rows.empty() && edge != 3) {             // make one row eligible
+        x.Tt[(size_t)(M / 2) * R + h] = (T)0.5;
+        rows.push_back(M / 2);
+    }
+    int mode = step::BLAND_THRESHOLD, stall = 0;
+    bool active = true, bland = false;
+    V minc = (V)-0.75;
+    switch (edge) {
+    case 1: x.b[rows[rows.size() / 2]] = (V)NAN; break;
+    case 2:
+        if (rows.size() > 1) {
+            const int j1 = rows.front(), j2 = rows.back();
+            x.Tt[(size_t)j2 * R + h] = x.Tt[(size_t)j1 * R + h];
+            x.b[j1] = x.b[j2] = (V)1e-3 * (V)x.Tt[(size_t)j1 * R + h];
+        }
+        break;
+    case 3:
+        for (int j = 0; j < M; ++j) {
+            T &a = x.Tt[(size_t)j * R + h];
+            a = -std::fabs(a);
+        }
+        break;
+    case 4:
+        active = false;
+        for (auto &v : x.costs) v = std::fabs(v);
+        break;
+    case 5:
+        active = false;
+        if (x.r > 1) x.costs[0] = x.costs[x.r - 1] = (V)-5;
+        break;
+    case 6: x.costs[x.r / 2] = (V)NAN; break;
+    case 7: mode = step::BLAND_STATIC; break;
+    case 8:
+        x.b[rows[0]] = 0;                        // z does not move
+        stall = 49;
+        break;
+    case 9: minc = (V)0.25; break;               // optimal: skipped
+    }
+    if (timed) x.b[rows[rows.size() / 2]] = 0;   // degenerate: b stays put
+    x.pol = seq::Policy{1LL << 40, x.eps, mode, 50, 1};
+    std::memset(x.scal, 0, sizeof x.scal);
+    put<int>(x.scal, S_STATUS, step::RUNNING);
+    put<int>(x.scal, S_ITER, 3);
+    put<int>(x.scal, S_STALL, stall);
+    put<unsigned char>(x.scal, S_BLAND, bland);
+    put<V>(x.scal, S_Z, (V)1.5);
+    put<int>(x.scal, S_HD, h);
+    put<V>(x.scal, S_VD, minc);
+    put<int>(x.scal, S_HB, BIG_INDEX);
+    put<V>(x.scal, S_VB, inf_host<V>());
+    put<unsigned char>(x.scal, S_ACTIVE, active);
+    put<int>(x.scal, S_H, h);
+    put<V>(x.scal, S_MINC, minc);
+    put<unsigned char>(x.scal, S_OPTIMAL, minc > -(V)x.eps);
+    return x;
+}
+
+template <typename T, typename V>
+struct Device {
+    Bufs<T, V> x;
+    T *Tt;
+    size_t ws_r_bytes, ws_c_bytes;
+    Device(const Host<T, V> &h) {
+        CK(cudaMalloc(&Tt, h.Tt.size() * sizeof(T)));
+        CK(cudaMemcpy(Tt, h.Tt.data(), h.Tt.size() * sizeof(T),
+                      cudaMemcpyHostToDevice));
+        x.Tt = Tt;
+        x.M = h.M;
+        x.R = h.R;
+        x.r = h.r;
+        x.eps = h.eps;
+        x.pol = h.pol;
+        CK(cudaMalloc(&x.costs, h.R * sizeof(V)));
+        CK(cudaMalloc(&x.b, h.M * sizeof(V)));
+        CK(cudaMalloc(&x.base, h.M * sizeof(int)));
+        CK(cudaMalloc(&x.ah, h.M * sizeof(T)));
+        CK(cudaMalloc(&x.colk, h.R * sizeof(T)));
+        CK(cudaMalloc(&x.fac, h.M * sizeof(T)));
+        CK(cudaMalloc(&x.scal, 19 * 8));
+        ws_r_bytes =
+                ticket_form::ratio_ws_bytes((h.M + THREADS - 1) / THREADS);
+        ws_c_bytes =
+                ticket_form::colk_ws_bytes((h.R + THREADS - 1) / THREADS);
+        CK(cudaMalloc(&x.ws_r, ws_r_bytes));
+        CK(cudaMalloc(&x.ws_c, ws_c_bytes));
+        reset(h);
+    }
+    // Every buffer the pivot writes back to the host's state (fac and ah
+    // to a fixed pattern, so an unwritten element shows).
+    void reset(const Host<T, V> &h) {
+        CK(cudaMemcpy(x.costs, h.costs.data(), h.R * sizeof(V),
+                      cudaMemcpyHostToDevice));
+        CK(cudaMemcpy(x.b, h.b.data(), h.M * sizeof(V),
+                      cudaMemcpyHostToDevice));
+        CK(cudaMemcpy(x.base, h.base.data(), h.M * sizeof(int),
+                      cudaMemcpyHostToDevice));
+        CK(cudaMemset(x.ah, 0x7f, h.M * sizeof(T)));
+        CK(cudaMemset(x.colk, 0x7f, h.R * sizeof(T)));
+        CK(cudaMemset(x.fac, 0x7f, h.M * sizeof(T)));
+        CK(cudaMemcpy(x.scal, h.scal, 19 * 8, cudaMemcpyHostToDevice));
+        CK(cudaMemset(x.ws_r, 0, ws_r_bytes));
+        CK(cudaMemset(x.ws_c, 0, ws_c_bytes));
+    }
+    ~Device() {
+        cudaFree(Tt);
+        cudaFree(x.costs);
+        cudaFree(x.b);
+        cudaFree(x.base);
+        cudaFree(x.ah);
+        cudaFree(x.colk);
+        cudaFree(x.fac);
+        cudaFree(x.scal);
+        cudaFree(x.ws_r);
+        cudaFree(x.ws_c);
+    }
+};
+
+// The bytes a pivot leaves: scalars, ah, colk, costs, b, fac, base.
+template <typename T, typename V>
+std::vector<unsigned char> snapshot(const Bufs<T, V> &x) {
+    std::vector<unsigned char> out;
+    auto add = [&](const void *p, size_t n) {
+        const size_t o = out.size();
+        out.resize(o + n);
+        CK(cudaMemcpy(out.data() + o, p, n, cudaMemcpyDeviceToHost));
+    };
+    add(x.scal, 19 * 8);
+    add(x.ah, x.M * sizeof(T));
+    add(x.colk, x.R * sizeof(T));
+    add(x.costs, x.R * sizeof(V));
+    add(x.b, x.M * sizeof(V));
+    add(x.fac, x.M * sizeof(T));
+    add(x.base, x.M * sizeof(int));
+    return out;
+}
+
+template <typename T, typename V>
+int pivot(const Form<T, V> &f, const Bufs<T, V> &x, cudaStream_t st) {
+    int e = f.ratio(x, st);
+    if (e == 0 && f.colk) e = f.colk(x, st);
+    return e;
+}
+
+int failures = 0;
+
+template <typename T, typename V>
+void check(const char *pair, int M, int R) {
+    const auto fs = forms<T, V>();
+    for (int edge = 0; edge < N_EDGES; ++edge) {
+        const Host<T, V> h =
+                make_state<T, V>(M, R, edge, false, 1000 + 31 * edge + M);
+        Device<T, V> d(h);
+        CK(pivot(fs[0], d.x, 0));
+        CK(cudaDeviceSynchronize());
+        const auto want = snapshot(d.x);
+        const int k = get<int>(want.data(), S_K);
+        const bool done = get<unsigned char>(want.data(), S_DO) != 0;
+        std::string bad;
+        for (size_t v = 1; v < fs.size(); ++v) {
+            d.reset(h);
+            const int e = pivot(fs[v], d.x, 0);
+            if (e != 0) {
+                bad += " " + fs[v].name + "(launch " +
+                       cudaGetErrorString((cudaError_t)e) + ")";
+                cudaGetLastError();
+                continue;
+            }
+            CK(cudaDeviceSynchronize());
+            if (snapshot(d.x) != want) bad += " " + fs[v].name;
+        }
+        std::printf("check %s M=%d R=%d %-15s k=%d do=%d: %s\n", pair, M, R,
+                    EDGES[edge], k, (int)done,
+                    bad.empty() ? "every form bit for bit" : "DIFFER");
+        if (!bad.empty()) {
+            std::printf("  differ:%s\n", bad.c_str());
+            ++failures;
+        }
+    }
+}
+
+float replay_us(cudaGraphExec_t g, cudaStream_t st, int pivots) {
+    cudaEvent_t e0, e1;
+    CK(cudaEventCreate(&e0));
+    CK(cudaEventCreate(&e1));
+    CK(cudaEventRecord(e0, st));
+    for (int i = 0; i < 20; ++i) CK(cudaGraphLaunch(g, st));
+    CK(cudaEventRecord(e1, st));
+    CK(cudaEventSynchronize(e1));
+    float ms = 0;
+    CK(cudaEventElapsedTime(&ms, e0, e1));
+    CK(cudaEventDestroy(e0));
+    CK(cudaEventDestroy(e1));
+    return 1e3f * ms / (20 * pivots);
+}
+
+// ``fn`` 50 times as a CUDA graph on st.
+template <typename F>
+cudaGraphExec_t capture(cudaStream_t st, F fn) {
+    cudaGraph_t g;
+    cudaGraphExec_t exec;
+    CK(cudaStreamBeginCapture(st, cudaStreamCaptureModeThreadLocal));
+    for (int i = 0; i < 50; ++i) CK(fn());
+    CK(cudaStreamEndCapture(st, &g));
+    CK(cudaGraphInstantiate(&exec, g, 0));
+    CK(cudaGraphDestroy(g));
+    return exec;
+}
+
+void report(const char *what, const std::vector<std::string> &names,
+            std::vector<std::vector<float>> &t) {
+    for (size_t v = 0; v < names.size(); ++v) {
+        auto s = t[v];
+        std::sort(s.begin(), s.end());
+        std::printf("time %s %-14s min %.3f median %.3f max %.3f us (",
+                    what, names[v].c_str(), s.front(), s[s.size() / 2],
+                    s.back());
+        for (size_t i = 0; i < t[v].size(); ++i)
+            std::printf("%s%.3f", i ? " " : "", t[v][i]);
+        std::printf(")\n");
+    }
+}
+
+// In turns: every graph, then back, three rounds.
+void turns(const std::vector<cudaGraphExec_t> &gs, cudaStream_t st,
+           std::vector<std::vector<float>> &t) {
+    const int n = (int)gs.size();
+    t.assign(n, {});
+    for (int v = 0; v < n; ++v) CK(cudaGraphLaunch(gs[v], st));   // warm
+    for (int round = 0; round < 3; ++round)
+        for (int i = 0; i < 2 * n; ++i) {
+            const int v = i < n ? i : 2 * n - 1 - i;
+            t[v].push_back(replay_us(gs[v], st, 50));
+        }
+}
+
+// With ``cold``, the pivot forms again with a 256 MiB write before every
+// pivot in the graph, less the writes alone: the column, the row and the
+// vectors come from HBM, as they do in the loop once the rank-1 update
+// has streamed a tableau larger than L2 through it.
+template <typename T, typename V>
+void timing(const char *pair, int M, int R, bool cold) {
+    const auto fs = forms<T, V>();
+    const Host<T, V> h = make_state<T, V>(M, R, 0, true, 7 + M);
+    Device<T, V> d(h);
+    cudaStream_t st;
+    CK(cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking));
+    // A pivot first, so the state is a taken, degenerate one: each timed
+    // call does the same work (no then_pre: h stays).
+    Bufs<T, V> x = d.x;
+    x.pol.then_pre = 0;
+    CK(pivot(fs[0], x, st));
+    CK(cudaStreamSynchronize(st));
+    const auto s0 = snapshot(x);
+    std::printf("timed state %s M=%d R=%d: k=%d do=%d\n", pair, M, R,
+                get<int>(s0.data(), S_K),
+                (int)get<unsigned char>(s0.data(), S_DO));
+    std::vector<cudaGraphExec_t> gs;
+    std::vector<std::string> names;
+    for (const auto &f : fs) {
+        gs.push_back(capture(st, [&] { return pivot(f, x, st); }));
+        names.push_back(f.name);
+    }
+    std::vector<std::vector<float>> t;
+    turns(gs, st, t);
+    char what[96];
+    std::snprintf(what, sizeof what, "%s M=%d R=%d pivot", pair, M, R);
+    report(what, names, t);
+    for (auto g : gs) CK(cudaGraphExecDestroy(g));
+
+    // Each kernel of the two-launch forms alone.
+    gs.clear();
+    names.clear();
+    for (const auto &f : fs) {
+        if (!f.colk) continue;
+        gs.push_back(capture(st, [&] { return f.ratio(x, st); }));
+        names.push_back(f.name + "-ratio");
+        gs.push_back(capture(st, [&] { return f.colk(x, st); }));
+        names.push_back(f.name + "-colk");
+    }
+    turns(gs, st, t);
+    std::snprintf(what, sizeof what, "%s M=%d R=%d alone", pair, M, R);
+    report(what, names, t);
+    for (auto g : gs) CK(cudaGraphExecDestroy(g));
+
+    if (cold) {
+        const size_t nj = 256ull << 20;
+        void *junk;
+        CK(cudaMalloc(&junk, nj));
+        auto flush = [&] { return (int)cudaMemsetAsync(junk, 0, nj, st); };
+        gs.clear();
+        names.clear();
+        gs.push_back(capture(st, flush));
+        for (const auto &f : fs) {
+            gs.push_back(capture(st, [&] {
+                const int e = flush();
+                return e ? e : pivot(f, x, st);
+            }));
+            names.push_back(f.name);
+        }
+        turns(gs, st, t);
+        auto w = t[0];
+        std::sort(w.begin(), w.end());
+        std::printf("time %s M=%d R=%d the 256 MiB write alone: median "
+                    "%.3f us\n", pair, M, R, w[w.size() / 2]);
+        t.erase(t.begin());
+        for (auto &tv : t)
+            for (auto &x : tv) x -= w[w.size() / 2];
+        std::snprintf(what, sizeof what, "%s M=%d R=%d cold pivot", pair, M,
+                      R);
+        report(what, names, t);
+        for (auto g : gs) CK(cudaGraphExecDestroy(g));
+        CK(cudaFree(junk));
+    }
+    CK(cudaStreamDestroy(st));
+}
+
+int main() {
+    cudaDeviceProp prop;
+    CK(cudaGetDeviceProperties(&prop, 0));
+    std::printf("card: %s, %d SMs\n", prop.name, prop.multiProcessorCount);
+    const int shapes[][2] = {{8192, 24576}, {1024, 3072}, {2048, 6144},
+                             {1, 3},        {7, 21},      {4095, 12285},
+                             {4097, 257},   {40064, 2048}};
+    for (const auto &s : shapes) {
+        check<double, double>("f64", s[0], s[1]);
+        check<float, double>("mixed", s[0], s[1]);
+        check<float, float>("f32", s[0], s[1]);
+    }
+    check<float, float>("f32", 2048, 120064);
+    check<float, float>("f32", 10112, 120064);
+    check<double, double>("f64", 1024, 120064);
+    std::printf("bit for bit: %s (%d state(s) differ)\n",
+                failures ? "FAILED" : "every form, every state", failures);
+
+    timing<double, double>("f64", 8192, 24576, true);
+    timing<double, double>("f64", 1024, 3072, false);
+    timing<float, float>("f32", 2048, 6144, true);
+    timing<float, double>("mixed", 2048, 6144, false);
+    return failures ? 1 : 0;
+}
