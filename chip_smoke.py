@@ -20,14 +20,14 @@ Phases, in order; any failed check exits non-zero:
    kernels' counters set to 0 just before the first and read just
    after), objectives within 1e-9 of the certified goldens, the walks
    the recorded 1,871 + 64 and 21,697 + 1,123, each run's loop ms/pivot,
-   capture ms and nodes a pivot (3 + 1/32 by the captured launch counts)
+   capture ms and nodes a pivot (2 + 1/32 by the captured launch counts)
    printed beside the JAX package's TPU record and the reference CUDA
    program's;
 4. K6's path: random_2048_2048 through ``solve(dtype="float32",
    vector_dtype="float32", use_pallas=True)`` -- K6's and the
    sequential kernels' launch counters reset just before and read just
    after -- graphed, then with ``graph=False`` (the recorded walk 4,594 +
-   342 both times, every loop call's state bit for bit, 4 + 1/32 kernels
+   342 both times, every loop call's state bit for bit, 2 + 1/32 kernels
    a pivot), then the 10,000 x 100,000 phase-1 tableau for 256 pivots
    through ``solve_loop_pallas`` graphed and with ``graph=False`` (the
    same state bit for bit);
@@ -186,8 +186,10 @@ Phases, in order; any failed check exits non-zero:
    its time with a quarter of the lanes live and at R = 2,999; the
    sequential loops' kernels (``seq_step_pre``, ``seq_ratio_colk``,
    ``seq_ratio`` and ``seq_rank1`` at the 8192^2 f64 tableau,
-   ``seq_ratio``, ``seq_snapshot`` and K6 with its tail at 2048^2 f32,
-   ``seq_colk`` timed as ``seq_ratio_colk`` less ``seq_ratio``) against their
+   ``seq_ratio_snapshot`` and K6 with its tail at 2048^2 f32,
+   ``seq_colk`` and ``seq_snapshot`` timed as ``seq_ratio_colk`` and
+   ``seq_ratio_snapshot`` less ``seq_ratio``, K6's tail as K6's tiles
+   with it less without) against their
    plain versions from 24 seeded states each (a NaN in b, a tie, no
    eligible row, Bland, the fuse), bit for bit, ``seq_rank1`` in turns
    with ``batch_rank1`` at one lane and ``addr_``;
@@ -388,8 +390,9 @@ FALLBACK_KERNELS = {
 #: loops' XLA-fused pivot (no Pallas kernel but K6), each replacing the
 #: lines it ports -- seq_step_pre once a chunk, seq_ratio_colk (seq_ratio,
 #: then seq_colk as its tail) and seq_rank1 a pivot of the default loop,
-#: seq_ratio, seq_snapshot and K6 with the step after as its fold's tail a
-#: pivot of the K6 loop.
+#: seq_ratio_snapshot (seq_ratio, then seq_snapshot as its tail) and K6
+#: with its fold and the step after as its last tile block's tail
+#: (seq_k6_tail) a pivot of the K6 loop.
 SEQ_SOURCE = "simplex_tpu_torch/kernels/csrc/seq.cu"
 SEQ_KERNELS = {
     "seq_step_pre": ("glue", "simplex_tpu/solver.py:79", SEQ_SOURCE),
@@ -2041,14 +2044,15 @@ def recorded_walks(n: int) -> tuple[str, str]:
             "+".join(str(v) for v in ref_walk))
 
 
-def seq_nodes(pallas: bool) -> int:
+def seq_nodes() -> int:
     """The nodes of a chunk's graph: ``seq_step_pre``, then per pivot
     ``seq_ratio_colk`` (``seq_ratio`` with ``seq_colk`` as its tail) and
-    ``seq_rank1`` -- or ``seq_ratio``, ``seq_snapshot`` and K6's two
-    kernels (its tail none of its own)."""
+    ``seq_rank1`` -- or ``seq_ratio_snapshot`` (``seq_ratio`` with
+    ``seq_snapshot`` as its tail) and K6 (its fold and the step after,
+    ``seq_k6_tail``, the tail of its last tile block)."""
     from simplex_tpu_torch.solver import SEQ_CHUNK
 
-    return (4 if pallas else 2) * SEQ_CHUNK + 1
+    return 2 * SEQ_CHUNK + 1
 
 
 def old_solve_loop(tab, options, max_iter):
@@ -2092,11 +2096,10 @@ def seq_loops(p, opts: dict, way: str, pallas: bool = False,
         torch.cuda.synchronize()
         captures.append(1e3 * (time.perf_counter() - t0))
         per = out[1].per_replay
-        # K6 is one launch of two kernels; a tail launches nothing.
-        nodes = sum(n for k, n in per.items() if k not in ks.TAILS) + per.get(
-            "fused_pivot", 0)
-        require(nodes == seq_nodes(pallas), f"the chunk graph holds {per}, "
-                f"not {seq_nodes(pallas)} nodes")
+        # A tail launches nothing.
+        nodes = sum(n for k, n in per.items() if k not in ks.TAILS)
+        require(nodes == seq_nodes(), f"the chunk graph holds {per}, not "
+                f"{seq_nodes()} nodes")
         per_pivot.append(nodes / solver.SEQ_CHUNK)
         return out
 
@@ -2759,8 +2762,8 @@ def seq_pivot(lp, kernel: bool, pallas: bool, max_iter: int,
     if kernel:
         ks.seq_step_pre(s, max_iter, eps)
         if pallas:
-            ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps)
-            ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
+            ks.seq_ratio_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s,
+                                  eps)
             ks.fused_pivot_tail(lp.Tt, lp.costs, lp.colk, lp.ah, s, lp.r,
                                 eps, max_iter, lp.ws_pass, then_pre=False,
                                 **policy)
@@ -2795,11 +2798,13 @@ def phase_seq_kernels(records: dict) -> None:
     versions from the same state: every scalar, vector and the tableau bit
     for bit. Then, on a taken pivot, each kernel timed by torch.profiler
     and by CUDA events over a CUDA graph of 50 calls (``seq_ratio`` the
-    one-cluster kernel alone, ``seq_colk`` as ``seq_ratio_colk`` less
-    ``seq_ratio`` in turns; ``seq_rank1`` over back-to-back calls, in turns
-    with ``batch_rank1`` at one lane -- the update without row k -- and
-    with ``Tt.addr_``, its library call; K6's tail as K6 with it less K6
-    without, in turns), beside its plain version and its bound."""
+    one-cluster kernel alone, ``seq_colk`` as ``seq_ratio_colk`` and
+    ``seq_snapshot`` as ``seq_ratio_snapshot`` less ``seq_ratio`` in
+    turns, ``cluster_tail_record``; ``seq_rank1`` over back-to-back calls,
+    in turns with ``batch_rank1`` at one lane -- the update without row k
+    -- and with ``Tt.addr_``, its library call; K6's tail as K6's tiles
+    with it less without, in turns, ``k6_tail_record``), beside its plain
+    version and its bound."""
     import numpy as np
     import torch
 
@@ -2882,12 +2887,6 @@ def phase_seq_kernels(records: dict) -> None:
                           "seq_ratio_kernel", bound(M * (2 * item + 8) + 44,
                                                     f64_flops=M)),
         }
-        if pallas:
-            timed["seq_snapshot"] = (
-                lambda: ks.seq_snapshot(a.Tt, a.b, a.base, a.ah, a.colk, s),
-                lambda: ks.seq_snapshot_plain(a.Tt, a.b, a.base, a.ah,
-                                              a.colk, s),
-                "seq_snapshot", bound(8 * R + 12 * M + 30, 3 * M))
         for name, (fn, plain_fn, match, (bound_ms, by)) in timed.items():
             require(kernels_launched(fn) == 1, f"one {name} call launched "
                     "more than one kernel")
@@ -2902,42 +2901,28 @@ def phase_seq_kernels(records: dict) -> None:
                 f"of 50 calls, plain {rec['plain_ms']:.4f} ms, bound "
                 f"{bound_ms:.2e} ms ({by})")
         if pallas:
-            # K6's tail: K6 with it less K6 without, in turns.
-            cand = tuple(torch.empty((), dtype=dt, device=a.Tt.device)
-                         for dt in (torch.int32, torch.float32) * 2)
-            k6 = {"K6": lambda: kp.fused_pivot(
-                      a.Tt, a.costs, a.colk, a.ah, s.p, s.minc, s.k, a.r, eps,
-                      s.do, a.ws_pass, cand),
-                  "K6+tail": lambda: ks.fused_pivot_tail(
-                      a.Tt, a.costs, a.colk, a.ah, s, a.r, eps, big,
-                      a.ws_pass, **pol)}
-            prof = {name: [] for name in k6}
-            graph = {name: [] for name in k6}
-            for name in ("K6", "K6+tail", "K6+tail", "K6"):
-                prof[name].append(device_ms(k6[name], 20,
-                                            match="fused_pivot_finish"))
-                graph[name].append(graph_ms(k6[name], 20))
-            mean = statistics.mean
-            ms = mean(prof["K6+tail"]) - mean(prof["K6"])
-            bound_ms, by = bound(SEQ_STEP_BYTES["seq_k6_tail"])
-            records["seq_k6_tail"] = {
-                "max_abs_err": 0.0, "ms": ms,
-                "plain_ms": device_ms(lambda: kb.step_post_plain(
-                    s, big, eps, False, 50, True), 20),
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-                "check_ms": mean(graph["K6+tail"]) - mean(graph["K6"])}
-            log("K6's fold with and without the step after, ms a call in "
-                "turns: " + "; ".join(
-                    f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
-                    + " (torch.profiler, the fold), " + ", ".join(
-                        f"{x:.5f}" for x in graph[name])
-                    + " (CUDA graph of 20 K6 calls)" for name in k6)
-                + f"; the tail's own cost {ms:.5f} ms")
+            cluster_tail_record(
+                records, "seq_snapshot", "seq_ratio_snapshot",
+                lambda: ks.seq_ratio_snapshot(a.Tt, a.b, a.base, a.ah,
+                                              a.colk, s, eps),
+                lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps),
+                lambda: ks.seq_snapshot_plain(a.Tt, a.b, a.base, a.ah,
+                                              a.colk, s),
+                bound(8 * R + 12 * M + 30, 3 * M), M, R)
+            k6_tail_record(records, a, s, eps, big, pol)
             del a, b
             torch.cuda.empty_cache()
             continue
 
-        seq_colk_record(records, a, s, eps, big, pol, M, R)
+        cluster_tail_record(
+            records, "seq_colk", "seq_ratio_colk",
+            lambda: ks.seq_ratio_colk(a.Tt, a.costs, a.b, a.base, a.ah,
+                                      a.colk, a.fac, s, a.r, eps, big, **pol),
+            lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps),
+            lambda: ks.seq_colk_plain(a.Tt, a.costs, a.b, a.base, a.ah,
+                                      a.colk, a.fac, s, a.r, eps, big,
+                                      **pol),
+            bound(32 * R + 32 * M + 130, f64_flops=2 * R + 3 * M), M, R)
         # The update: seq_rank1 (row k written), batch_rank1 at one lane
         # (without row k), Tt.addr_ -- in turns.
         do1 = s.do.view(1)
@@ -2974,58 +2959,106 @@ def phase_seq_kernels(records: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def seq_colk_record(records: dict, a, s, eps: float, big: int, pol: dict,
-                    M: int, R: int) -> None:
-    """``seq_colk``'s record at the default loop's shape: the pass runs
-    inside ``seq_ratio_colk``, so its time is ``seq_ratio_colk`` less
-    ``seq_ratio`` alone (the same cluster's ratio test and step between),
-    in turns, by torch.profiler and by CUDA events over a CUDA graph of 50
-    calls; beside ``seq_colk_plain``'s time and the pass's bound."""
+def cluster_tail_record(records: dict, tail: str, carrier: str, fn,
+                        ratio_fn, plain_fn, bound_by: tuple, M: int,
+                        R: int) -> None:
+    """The record of ``tail``, the part of the one-cluster kernel
+    ``carrier`` (``fn``) after the ratio test: ``carrier`` less
+    ``seq_ratio`` alone (``ratio_fn``, the same cluster's ratio test and
+    step between), in turns, by torch.profiler and by CUDA events over a
+    CUDA graph of 50 calls; beside ``plain_fn``'s time and the tail's
+    bound ``bound_by`` (ms, what bounds it)."""
     import torch
 
-    from simplex_tpu_torch.kernels import seq as ks
-
-    fns = {"seq_ratio_colk": lambda: ks.seq_ratio_colk(
-               a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r, eps,
-               big, **pol),
-           "seq_ratio": lambda: ks.seq_ratio(a.Tt, a.b, s, a.ah, eps)}
-    require(kernels_launched(fns["seq_ratio_colk"]) == 1,
-            "one seq_ratio_colk call launched more than one kernel")
+    fns = {carrier: fn, "seq_ratio": ratio_fn}
+    require(kernels_launched(fn) == 1,
+            f"one {carrier} call launched more than one kernel")
     prof = {name: [] for name in fns}
     graph = {name: [] for name in fns}
-    for name in ("seq_ratio", "seq_ratio_colk", "seq_ratio_colk",
-                 "seq_ratio"):
+    for name in ("seq_ratio", carrier, carrier, "seq_ratio"):
         prof[name].append(device_ms(fns[name], 50, match=name + "_kernel"))
         graph[name].append(graph_ms(fns[name]))
     mean = statistics.mean
-    bound_ms, by = bound(32 * R + 32 * M + 130, f64_flops=2 * R + 3 * M)
-    records["seq_colk"] = {
+    bound_ms, by = bound_by
+    rec = records[tail] = {
         "max_abs_err": 0.0,
-        "ms": mean(prof["seq_ratio_colk"]) - mean(prof["seq_ratio"]),
-        "plain_ms": device_ms(lambda: ks.seq_colk_plain(
-            a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r, eps,
-            big, **pol), 20),
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-        "check_ms": mean(graph["seq_ratio_colk"]) - mean(graph["seq_ratio"])}
+        "ms": mean(prof[carrier]) - mean(prof["seq_ratio"]),
+        "plain_ms": device_ms(plain_fn, 20), "bound_ms": bound_ms,
+        "bound_by": by, "library_ms": None,
+        "check_ms": mean(graph[carrier]) - mean(graph["seq_ratio"])}
     torch.cuda.synchronize()
-    log(f"seq_ratio_colk and seq_ratio alone M={M} R={R}, ms a call in "
+    log(f"{carrier} and seq_ratio alone M={M} R={R}, ms a call in "
         "turns: " + "; ".join(
             f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
             + " (torch.profiler), " + ", ".join(
                 f"{x:.5f}" for x in graph[name])
             + " (CUDA graph of 50 calls)" for name in fns)
-        + f"; seq_colk, the pass inside seq_ratio_colk: "
-        f"{records['seq_colk']['ms']:.5f} ms (torch.profiler), "
-        f"{records['seq_colk']['check_ms']:.5f} ms (CUDA graphs), plain "
-        f"{records['seq_colk']['plain_ms']:.4f} ms, bound {bound_ms:.2e} ms "
-        f"({by})")
+        + f"; {tail}, the part inside {carrier}: {rec['ms']:.5f} ms "
+        f"(torch.profiler), {rec['check_ms']:.5f} ms (CUDA graphs), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {bound_ms:.2e} ms ({by})")
+
+
+def k6_tail_record(records: dict, a, s, eps: float, big: int,
+                   pol: dict) -> None:
+    """``seq_k6_tail``'s record at K6's loop shape: K6's fold and the step
+    after the pass run as the tail of the first row band's last tile
+    block, so its own cost is K6's tiles with it (``fused_pivot_tail``,
+    one kernel) less the standalone K6's tiles (``fused_pivot``, whose
+    fold is a second kernel), in turns, by torch.profiler; the second
+    clock is CUDA events over a CUDA graph of 20 calls of each, the
+    loop's K6 less the standalone's two nodes (the fold's node and its
+    launch gap that went). Beside the standalone fold's own time and the
+    step's plain version and bound."""
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import pivot as kp
+    from simplex_tpu_torch.kernels import seq as ks
+
+    cand = tuple(torch.empty((), dtype=dt, device=a.Tt.device)
+                 for dt in (torch.int32, torch.float32) * 2)
+    k6 = {"K6": lambda: kp.fused_pivot(
+              a.Tt, a.costs, a.colk, a.ah, s.p, s.minc, s.k, a.r, eps, s.do,
+              a.ws_pass[:4], cand),
+          "K6+tail": lambda: ks.fused_pivot_tail(
+              a.Tt, a.costs, a.colk, a.ah, s, a.r, eps, big, a.ws_pass,
+              **pol)}
+    require(kernels_launched(k6["K6+tail"]) == 1,
+            "one fused_pivot_tail call launched more than one kernel")
+    tiles = {name: [] for name in k6}
+    graph = {name: [] for name in k6}
+    fold = []
+    for name in ("K6", "K6+tail", "K6+tail", "K6"):
+        tiles[name].append(device_ms(k6[name], 20,
+                                     match="fused_pivot_tiles"))
+        graph[name].append(graph_ms(k6[name], 20))
+        if name == "K6":
+            fold.append(device_ms(k6[name], 20, match="fused_pivot_finish"))
+    mean = statistics.mean
+    ms = mean(tiles["K6+tail"]) - mean(tiles["K6"])
+    bound_ms, by = bound(SEQ_STEP_BYTES["seq_k6_tail"])
+    records["seq_k6_tail"] = {
+        "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": device_ms(lambda: kb.step_post_plain(
+            s, big, eps, False, 50, True), 20),
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "check_ms": mean(graph["K6+tail"]) - mean(graph["K6"])}
+    log("K6's tiles with and without the fold and the step after as their "
+        "tail, ms a call in turns: " + "; ".join(
+            f"{name} " + ", ".join(f"{x:.5f}" for x in tiles[name])
+            + " (torch.profiler, the tiles), " + ", ".join(
+                f"{x:.5f}" for x in graph[name])
+            + " (CUDA graph of 20 calls)" for name in k6)
+        + "; the standalone K6's fold, its own kernel, " + ", ".join(
+            f"{x:.5f}" for x in fold) + f" ms; the tail's own cost {ms:.5f}"
+        f" ms; the loop's K6 less the standalone K6 by the graphs "
+        f"{records['seq_k6_tail']['check_ms']:.5f} ms")
 
 
 #: The nodes of a chunk's graph by name (torch.profiler's kernel names).
-SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_kernel",
-                     "seq_ratio_colk_kernel", "seq_snapshot_kernel",
-                     "batch_rank1_tiles", "fused_pivot_tiles",
-                     "fused_pivot_finish")
+SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_colk_kernel",
+                     "seq_ratio_snapshot_kernel", "batch_rank1_tiles",
+                     "fused_pivot_tiles")
 
 
 def chunk_stats(events: list, chunk: int) -> dict:
@@ -3123,7 +3156,7 @@ def phase_chunk_trace() -> None:
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
         w = chunk_stats(events, solver.SEQ_CHUNK)
-        want = seq_nodes(pallas) / solver.SEQ_CHUNK
+        want = seq_nodes() / solver.SEQ_CHUNK
         require(w["per_pivot"] == (want, want), f"{w['per_pivot']} kernels "
                 f"a pivot in the traced chunks, not {want}")
         log(f"{label} random_{n}_{n} phase-1 loop traced ({pivots} pivots, "

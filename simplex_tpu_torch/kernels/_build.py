@@ -159,10 +159,10 @@ SIGNATURES = {
                                ctypes.c_longlong, _P],
     # Tt fac colk do k p M R item, the plan (vecs tiles), stream
     "seq_rank1_launch": [_P] * 6 + [_I, _I, _I, _I, ctypes.c_longlong, _P],
-    # Tt costs colk ah M R r eps, four partials, the sequential scalars'
-    # pointers (by reference), max_iter, bland mode, threshold, then_pre,
-    # stream
-    "fused_pivot_seq_launch": [_P] * 4 + [_I, _I, _I, _F] + [_P] * 5
+    # Tt costs colk ah M R r eps, four partials, the tail's counter, the
+    # sequential scalars' pointers (by reference), max_iter, bland mode,
+    # threshold, then_pre, stream
+    "fused_pivot_seq_launch": [_P] * 4 + [_I, _I, _I, _F] + [_P] * 6
                               + [ctypes.c_longlong, _I, _I, _I, _P],
     # csrc/seq.cu: the sequential scalars' pointers (by reference),
     # max_iter eps pair stream
@@ -174,8 +174,8 @@ SIGNATURES = {
     "seq_ratio_colk_launch": [_P] * 7 + [_I, _I, _I, _D, _P,
                                          ctypes.c_longlong, _I, _I, _I, _I,
                                          _P],
-    # Tt b base ah colk M R scalars pair stream
-    "seq_snapshot_launch": [_P] * 5 + [_I, _I, _P, _I, _P],
+    # Tt b base ah colk M R eps scalars pair stream
+    "seq_ratio_snapshot_launch": [_P] * 5 + [_I, _I, _D, _P, _I, _P],
 }
 
 

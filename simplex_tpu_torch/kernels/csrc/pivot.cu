@@ -31,10 +31,23 @@
 // the do flag is false the tiles skip the tableau altogether (the TPU kernel
 // ran an identity pass). The blocks of the first row band also update the
 // costs of their columns and fold the two candidates into one partial per
-// block; a one-block pass folds the partials in index order. No atomics:
-// every fold orders by (value, then lowest index), a total order, so the
-// choice does not depend on the blocks' schedule (the TPU kernel folded
-// across its sequential grid in SMEM scratch).
+// block; a one-block pass folds the partials in index order. Every fold
+// orders by (value, then lowest index), a total order, so the choice does
+// not depend on the blocks' schedule (the TPU kernel folded across its
+// sequential grid in SMEM scratch).
+//
+// In the K6 loop's chunk graph (fused_pivot_seq_launch) there is no
+// second pass: the first row band's blocks update their costs and store
+// their partials before their rows and take an arrival ticket; the one
+// that draws the last folds the partials in one warp (shuffles, no
+// barrier) and runs the step after the pass while the tableau streams, so
+// a pivot's K6 is one node. The one-block pass it replaced folded in an
+// 8-level shared-memory tree with a barrier a level and then ran the step
+// in thread 0: 2.9-3.2 us and a node's launch gap at M 2,048 x R 6,144
+// (PERF.md, NVIDIA H100 80GB HBM3, 700 W). There the tail adds 0.18-0.46
+// us to the tiles; taken after the rows instead (its release then waits
+// for the rows' stores) it added 2.0 us, and a one-warp fold as a node of
+// its own 1.8 (tools/k6_tail_variants.cu).
 //
 // Each thread reads only its own tableau elements before it writes them, and
 // colk and a_h are snapshots, so overwriting row k cannot race its readers.
@@ -49,7 +62,8 @@
 
 namespace {
 
-constexpr int BIG_INDEX = 2147483647;
+using seq::BIG_INDEX;
+using seq::FULL;
 constexpr int PT = 256;            // threads per block
 constexpr int VEC = 4;             // floats per thread along R (16 bytes)
 constexpr int COLS = PT * VEC;     // columns per block
@@ -99,50 +113,99 @@ __device__ __forceinline__ float4 update4(float4 t, float4 c, float f) {
                        __fsub_rn(t.w, __fmul_rn(c.w, f)));
 }
 
-__global__ void __launch_bounds__(PT) fused_pivot_tiles(
-        float *__restrict__ Tt, float *__restrict__ costs,
-        const float *__restrict__ colk, const float *__restrict__ ah,
-        const float *__restrict__ p_ptr, const float *__restrict__ minc_ptr,
-        const int *__restrict__ k_ptr, const unsigned char *__restrict__ do_ptr,
-        int M, int R, int r, float eps, float *__restrict__ part_val,
-        int *__restrict__ part_idx, float *__restrict__ part_bval,
-        int *__restrict__ part_bidx) {
-    const bool apply = *do_ptr != 0;
-    const float p = *p_ptr;
-    const float inv_p = apply ? __fdiv_rn(1.0f, p) : 1.0f;
-    const int k = *k_ptr;
-    const int c0 = (blockIdx.x * PT + threadIdx.x) * VEC;
-    const bool in = c0 < R;                    // R % 4 == 0: all or nothing
-    const float4 ck = in ? *reinterpret_cast<const float4 *>(colk + c0)
-                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// The arrival ticket (csrc/blocked.cu's): one atomic add, acquire and
+// release at the device's scope. Its release orders the calling thread's
+// partial before the add; in the block that draws the last ticket its
+// acquire orders every block's partial before the fold, and the block's
+// barrier hands that on to the folding warp, which reads past L1.
+__device__ __forceinline__ unsigned ticket(unsigned *counter) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    return old;
+}
 
-    if (apply && in) {
-        const int j0 = blockIdx.y * ROWS;
-        const int j1 = min(j0 + ROWS, M);
-        for (int j = j0; j < j1; j += INFLIGHT) {
-            float4 t[INFLIGHT];
-#pragma unroll
-            for (int u = 0; u < INFLIGHT; ++u)
-                if (j + u < j1)
-                    t[u] = *reinterpret_cast<const float4 *>(
-                        Tt + (size_t)(j + u) * R + c0);
-#pragma unroll
-            for (int u = 0; u < INFLIGHT; ++u) {
-                const int row = j + u;
-                if (row >= j1) break;
-                const float4 out =
-                    row == k ? make_float4(__fmul_rn(ck.x, inv_p),
-                                           __fmul_rn(ck.y, inv_p),
-                                           __fmul_rn(ck.z, inv_p),
-                                           __fmul_rn(ck.w, inv_p))
-                             : update4(t[u], ck, __fmul_rn(ah[row], inv_p));
-                *reinterpret_cast<float4 *>(Tt + (size_t)row * R + c0) = out;
-            }
+// The K6 loop's tail, in every block of the first row band after its
+// partial: the block that draws the last of the band's nx tickets folds
+// the nx partials in warp 0 -- each lane its partials in index order, then
+// shuffles; the order is total, so the result is block_fold's -- and its
+// lane 0 resets the counter, stores the candidates where the pivot is
+// done (``apply``), else the carried ones, and runs the step after the
+// pass (seq_step.cuh); then the block goes on to its rows. Each block
+// takes its ticket after it has read the one scalar the step rewrites
+// that a tile block reads, minc (read by the first row band only); the
+// other bands read k, p and do, which only the ratio test writes.
+__device__ __forceinline__ void k6_tail(
+        bool apply, const float *__restrict__ part_val,
+        const int *__restrict__ part_idx, const float *__restrict__ part_bval,
+        const int *__restrict__ part_bidx, unsigned *__restrict__ counter,
+        const SeqStep<float, float> &s, const seq::Policy &pol) {
+    __shared__ bool last;
+    const int nx = (int)gridDim.x, lane = threadIdx.x;   // in warp 0
+    if (threadIdx.x == 0) last = ticket(counter) == (unsigned)nx - 1;
+    __syncthreads();
+    if (!last || threadIdx.x >= 32) return;
+    // The step's operands, loaded while the partials fold: no block of the
+    // pass writes them.
+    seq::PostIn<float> in{};
+    seq::Candidates<float> old{};
+    if (lane == 0) {
+        in = seq::post_load(s);
+        old = {*s.h_d, *s.v_d, *s.h_b, *s.v_b};
+    }
+    float val = CUDART_INF_F, bval = CUDART_INF_F;
+    int idx = BIG_INDEX, bidx = BIG_INDEX;
+    for (int i = lane; i < nx; i += 32) {
+        const float v = __ldcg(part_val + i), bv = __ldcg(part_bval + i);
+        const int ix = __ldcg(part_idx + i), bi = __ldcg(part_bidx + i);
+        if (less(v, ix, val, idx)) {
+            val = v;
+            idx = ix;
+        }
+        if (bi < bidx) {
+            bidx = bi;
+            bval = bv;
         }
     }
-    if (blockIdx.y != 0) return;
+    for (int off = 16; off > 0; off >>= 1) {
+        const float v = __shfl_xor_sync(FULL, val, off);
+        const float bv = __shfl_xor_sync(FULL, bval, off);
+        const int ix = __shfl_xor_sync(FULL, idx, off);
+        const int bi = __shfl_xor_sync(FULL, bidx, off);
+        if (less(v, ix, val, idx)) {
+            val = v;
+            idx = ix;
+        }
+        if (bi < bidx) {
+            bidx = bi;
+            bval = bv;
+        }
+    }
+    if (lane != 0) return;
+    *counter = 0;                                // ready for the next call
+    // solver.py's ``cand = where(do, new, cand)``, then the step after.
+    const seq::Candidates<float> n =
+            apply ? seq::Candidates<float>{idx, val, bidx,
+                                           bidx == BIG_INDEX ? CUDART_INF_F
+                                                             : bval}
+                  : old;
+    *s.h_d = n.h_d;
+    *s.v_d = n.v_d;
+    *s.h_b = n.h_b;
+    *s.v_b = n.v_b;
+    seq::post(s, in, apply, n, pol);
+}
 
-    // First row band: the costs of this block's columns and its partials.
+// The first row band's share of a pass: the costs of this block's
+// columns where the pivot is done (costs -= (minc / p) colk) and the
+// block's partial of the two candidates over them.
+__device__ __forceinline__ void band_partial(
+        float *__restrict__ costs, const float *minc_ptr, float4 ck, int c0,
+        bool in, bool apply, float p, int r, float eps,
+        float *__restrict__ part_val, int *__restrict__ part_idx,
+        float *__restrict__ part_bval, int *__restrict__ part_bidx) {
     float val = CUDART_INF_F, bval = CUDART_INF_F;
     int idx = BIG_INDEX, bidx = BIG_INDEX;
     if (in) {
@@ -176,27 +239,73 @@ __global__ void __launch_bounds__(PT) fused_pivot_tiles(
     }
 }
 
-// TAIL: the K6 loop's step after the pass (seq_step.cuh) on ``s`` in
-// thread 0 after the fold -- the candidates where the pivot is done, else
-// the carried ones, stored into ``s``; then seq::post -- and the outputs
-// unwritten (they may be null). Without it ``s`` and ``pol`` are unread.
+// TAIL: the K6 loop's instantiation. The first row band's blocks do their
+// band_partial and k6_tail before their rows, so the fold and the step
+// after the pass run while the tableau streams, and the ticket's release
+// waits on no row's stores. Without TAIL (the standalone K6) they do
+// band_partial after their rows, and ``counter``, ``s`` and ``pol`` are
+// unread. minc is not __restrict__: the tail rewrites it.
 template <bool TAIL>
+__global__ void __launch_bounds__(PT) fused_pivot_tiles(
+        float *__restrict__ Tt, float *__restrict__ costs,
+        const float *__restrict__ colk, const float *__restrict__ ah,
+        const float *__restrict__ p_ptr, const float *minc_ptr,
+        const int *__restrict__ k_ptr, const unsigned char *__restrict__ do_ptr,
+        int M, int R, int r, float eps, float *__restrict__ part_val,
+        int *__restrict__ part_idx, float *__restrict__ part_bval,
+        int *__restrict__ part_bidx, unsigned *__restrict__ counter,
+        SeqStep<float, float> s, seq::Policy pol) {
+    const bool apply = *do_ptr != 0;
+    const float p = *p_ptr;
+    const float inv_p = apply ? __fdiv_rn(1.0f, p) : 1.0f;
+    const int k = *k_ptr;
+    const int c0 = (blockIdx.x * PT + threadIdx.x) * VEC;
+    const bool in = c0 < R;                    // R % 4 == 0: all or nothing
+    const float4 ck = in ? *reinterpret_cast<const float4 *>(colk + c0)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (TAIL && blockIdx.y == 0) {
+        band_partial(costs, minc_ptr, ck, c0, in, apply, p, r, eps, part_val,
+                     part_idx, part_bval, part_bidx);
+        k6_tail(apply, part_val, part_idx, part_bval, part_bidx, counter, s,
+                pol);
+    }
+
+    if (apply && in) {
+        const int j0 = blockIdx.y * ROWS;
+        const int j1 = min(j0 + ROWS, M);
+        for (int j = j0; j < j1; j += INFLIGHT) {
+            float4 t[INFLIGHT];
+#pragma unroll
+            for (int u = 0; u < INFLIGHT; ++u)
+                if (j + u < j1)
+                    t[u] = *reinterpret_cast<const float4 *>(
+                        Tt + (size_t)(j + u) * R + c0);
+#pragma unroll
+            for (int u = 0; u < INFLIGHT; ++u) {
+                const int row = j + u;
+                if (row >= j1) break;
+                const float4 out =
+                    row == k ? make_float4(__fmul_rn(ck.x, inv_p),
+                                           __fmul_rn(ck.y, inv_p),
+                                           __fmul_rn(ck.z, inv_p),
+                                           __fmul_rn(ck.w, inv_p))
+                             : update4(t[u], ck, __fmul_rn(ah[row], inv_p));
+                *reinterpret_cast<float4 *>(Tt + (size_t)row * R + c0) = out;
+            }
+        }
+    }
+    if (TAIL || blockIdx.y != 0) return;
+    band_partial(costs, minc_ptr, ck, c0, in, apply, p, r, eps, part_val,
+                 part_idx, part_bval, part_bidx);
+}
+
+// The standalone K6's fold: one block over the nparts partials, in index
+// order, into the outputs.
 __global__ void __launch_bounds__(PT) fused_pivot_finish(
         const float *__restrict__ part_val, const int *__restrict__ part_idx,
         const float *__restrict__ part_bval, const int *__restrict__ part_bidx,
         int nparts, int *__restrict__ hd_out, float *__restrict__ vd_out,
-        int *__restrict__ hb_out, float *__restrict__ vb_out,
-        SeqStep<float, float> s, seq::Policy pol) {
-    // The tail's operands, loaded while the partials fold: the pass writes
-    // none of them.
-    seq::PostIn<float> in{};
-    bool d = false;
-    seq::Candidates<float> old{};
-    if (TAIL && threadIdx.x == 0) {
-        in = seq::post_load(s);
-        d = *s.do_ != 0;
-        old = {*s.h_d, *s.v_d, *s.h_b, *s.v_b};
-    }
+        int *__restrict__ hb_out, float *__restrict__ vb_out) {
     float val = CUDART_INF_F, bval = CUDART_INF_F;
     int idx = BIG_INDEX, bidx = BIG_INDEX;
     for (int i = threadIdx.x; i < nparts; i += PT) {
@@ -211,22 +320,10 @@ __global__ void __launch_bounds__(PT) fused_pivot_finish(
     }
     block_fold(val, idx, bval, bidx);
     if (threadIdx.x != 0) return;
-    const seq::Candidates<float> c{idx, val, bidx,
-                                   bidx == BIG_INDEX ? CUDART_INF_F : bval};
-    if (!TAIL) {
-        *hd_out = c.h_d;
-        *vd_out = c.v_d;
-        *hb_out = c.h_b;
-        *vb_out = c.v_b;
-        return;
-    }
-    // solver.py's ``cand = where(do, new, cand)``, then the step after.
-    const seq::Candidates<float> n = d ? c : old;
-    *s.h_d = n.h_d;
-    *s.v_d = n.v_d;
-    *s.h_b = n.h_b;
-    *s.v_b = n.v_b;
-    seq::post(s, in, d, n, pol);
+    *hd_out = idx;
+    *vd_out = val;
+    *hb_out = bidx;
+    *vb_out = bidx == BIG_INDEX ? CUDART_INF_F : bval;
 }
 
 }  // namespace
@@ -246,42 +343,41 @@ extern "C" int fused_pivot_launch(float *Tt, float *costs, const float *colk,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nx = (R + COLS - 1) / COLS;
     const dim3 grid(nx, (M + ROWS - 1) / ROWS);
-    fused_pivot_tiles<<<grid, PT, 0, st>>>(
+    fused_pivot_tiles<false><<<grid, PT, 0, st>>>(
         Tt, costs, colk, ah, p, minc, k, do_flag, M, R, r, eps, part_val,
-        part_idx, part_bval, part_bidx);
+        part_idx, part_bval, part_bidx, nullptr, SeqStep<float, float>{},
+        seq::Policy{});
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    fused_pivot_finish<false><<<1, PT, 0, st>>>(
-        part_val, part_idx, part_bval, part_bidx, nx, hd_out, vd_out, hb_out,
-        vb_out, SeqStep<float, float>{}, seq::Policy{});
+    fused_pivot_finish<<<1, PT, 0, st>>>(part_val, part_idx, part_bval,
+                                         part_bidx, nx, hd_out, vd_out,
+                                         hb_out, vb_out);
     return (int)cudaGetLastError();
 }
 
-// K6 in the K6 loop's chunk graph: its operands p, minc, k and do from the
-// loop's scalars (``step``, the host's array of kernels/seq.py SeqScalars'
-// pointers, pure f32), and the step after the pass as the fold's tail under
-// max_iter, eps, the Bland mode, threshold and then_pre.
+// K6 in the K6 loop's chunk graph, one kernel: its operands p, minc, k and
+// do from the loop's scalars (``step``, the host's array of kernels/seq.py
+// SeqScalars' pointers, pure f32); the fold and the step after the pass
+// the tail of the first row band's last block, under max_iter, eps, the
+// Bland mode, threshold and then_pre. ``counter`` is the tail's arrival
+// counter, zero before the first call (the tail leaves it zero).
 extern "C" int fused_pivot_seq_launch(float *Tt, float *costs,
                                       const float *colk, const float *ah,
                                       int M, int R, int r, float eps,
                                       float *part_val, int *part_idx,
                                       float *part_bval, int *part_bidx,
-                                      const void *step, long long max_iter,
-                                      int bland_mode, int threshold,
-                                      int then_pre, void *stream) {
+                                      unsigned *counter, const void *step,
+                                      long long max_iter, int bland_mode,
+                                      int threshold, int then_pre,
+                                      void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     SeqStep<float, float> s;
     memcpy(&s, step, sizeof s);
     const int nx = (R + COLS - 1) / COLS;
     const dim3 grid(nx, (M + ROWS - 1) / ROWS);
-    fused_pivot_tiles<<<grid, PT, 0, st>>>(
+    fused_pivot_tiles<true><<<grid, PT, 0, st>>>(
         Tt, costs, colk, ah, s.p, s.minc, s.k, s.do_, M, R, r, eps, part_val,
-        part_idx, part_bval, part_bidx);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    fused_pivot_finish<true><<<1, PT, 0, st>>>(
-        part_val, part_idx, part_bval, part_bidx, nx, nullptr, nullptr,
-        nullptr, nullptr, s,
+        part_idx, part_bval, part_bidx, counter, s,
         seq::Policy{max_iter, (double)eps, bland_mode, threshold, then_pre});
     return (int)cudaGetLastError();
 }

@@ -5,8 +5,8 @@
 // lax.while_loops whose pivot is XLA code (simplex_tpu/solver.py:116-157
 // iteration_body, with ratio_test :99-113 and choose_entering :79-96; the
 // K6 loop's glue around fused_pivot, :239-294). The port's eager loop ran
-// that pivot as about 40 torch calls; here a pivot of the default loop is
-// two nodes, of the K6 loop four:
+// that pivot as about 40 torch calls; here a pivot of either loop is two
+// nodes:
 //
 // * seq_ratio_colk (the default loop; one thread-block cluster): the
 //   ratio test, then the pivot row's pass, with one cluster barrier
@@ -32,13 +32,23 @@
 //     (kernels/seq.py TAILS).
 // * the rank-1 update (csrc/pivot.cu seq_rank1, batch_rank1's tiles for one
 //   lane with row k written as colk / p).
-// * seq_ratio (the K6 loop; one cluster): the ratio test and the step
-//   between alone; seq_snapshot (a grid): the K6 loop's copy of row k, b
-//   and base[k] = h (no costs: K6 updates them; no fold); K6 with the step
-//   after as its fold's tail (csrc/pivot.cu).
+// * seq_ratio_snapshot (the K6 loop; one cluster, pure f32): the ratio
+//   test and the step between as seq_ratio_colk runs them, then the
+//   snapshot K6 reads -- row k copied into the fixed ``colk`` 16 bytes a
+//   load (R % 4 == 0), and where the pivot is done b (from the a_h and b
+//   each thread holds for its first rows) and base[k] = h; no costs (K6
+//   updates them), no fold, no second barrier. It counts a launch of
+//   seq_ratio and one of seq_snapshot (kernels/seq.py TAILS).
+// * K6 with the step after as the tail of its last tile block
+//   (csrc/pivot.cu).
+//
+// seq_ratio (one cluster: the ratio test and the step between alone,
+// block 0 folding) is what the K6 loop launched before the snapshot
+// became its tail; it stays, the baseline that the tails' own cost is
+// measured against.
 //
 // plus seq_step_pre (one thread) once a chunk, before its first pivot:
-// 2 SEQ_CHUNK + 1 nodes (K6 loop: 4 SEQ_CHUNK + 1). Every kernel reads its
+// 2 SEQ_CHUNK + 1 nodes in either loop. Every kernel reads its
 // scalars from the loop's fixed 0-dim tensors (kernels.seq.SeqScalars), so
 // the chunk's graph holds no host value but max_iter, eps, r and the Bland
 // policy.
@@ -63,9 +73,16 @@
 // shared memory of the blocks that fold them (distributed shared memory)
 // before a cluster barrier. No workspace, no atomics, no counter. The
 // ratio test's winner carries its a_h and b, so p == a_h[k] and bk == b[k]
-// with no load after the fold. On that card (tools/seq_variants.cu, every
-// form bit for bit against the kernels it replaced) one pivot's ratio test
-// and pass took, a CUDA graph of 50 pivots a replay: at the 1,024^2 f64
+// with no load after the fold. The snapshot was a grid of its own (R/256 +
+// M/256 blocks, one column or row a thread) that reloaded k, do, p and bk
+// before its dependent loads: 1.80 us at 2048 x 6144, 1.2% of its bound,
+// and a node's launch gap; as the cluster's tail it starts from the step
+// between in registers and costs 0.48-0.55 us there (seq_ratio_snapshot
+// less seq_ratio alone; the two kernels it replaced 5.20 us a pivot, it
+// 4.09, graphs of 50 in turns, tools/k6_tail_variants.cu). On that card
+// (tools/seq_variants.cu, every form bit for bit against the kernels it
+// replaced) one pivot's ratio test and pass took, a CUDA graph of 50
+// pivots a replay: at the 1,024^2 f64
 // tableau (it stays in L2 in the loop) 6.65 us for this kernel at 16 x 256
 // x 4, against 8.55 for the two it replaced, 7.64 for the two as clusters
 // and 7.05-8.70 for other shapes of this one (8 or 16 blocks, 128-1,024
@@ -82,6 +99,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 #include <string.h>
 
 #include "cluster.cuh"
@@ -98,15 +116,13 @@ using seq::inf;
 using seq::mul_rn;
 using seq::sub_rn;
 
-// seq_snapshot's blocks: one row, or one column, a thread.
-constexpr int THREADS = 256;
 // The clusters: CLUSTER_BLOCKS blocks (past the portable 8, so launched
 // with the non-portable cluster size allowed) of CLUSTER_THREADS threads,
 // each thread walking its rows and columns PER at a time.
 constexpr int CLUSTER_BLOCKS = 16;
 constexpr int CLUSTER_THREADS = 256;
 constexpr int PER = 4;
-constexpr unsigned FULL = 0xffffffffu;
+using seq::FULL;
 
 // The (tableau, vector) dtype pairs (kernels/seq.py PAIRS).
 enum Pair { PAIR_F64 = 0, PAIR_MIXED = 1, PAIR_F32 = 2 };
@@ -297,10 +313,10 @@ __device__ __forceinline__ void ratio_rows(const T *__restrict__ Tt,
 }
 
 // b and the factors of a done pivot over this thread's rows, PER at a
-// time: fac = a_h / p (T); b -= bk * fac, b[k] = bk / p (V). The first PER
-// rows' a_h and b come from a0 and b0 where ``held``, the others from ah
-// and b (this thread's own stores, or the caller's).
-template <typename T, typename V, int PER_, int SPAN>
+// time: fac = a_h / p (T; stored with FAC); b -= bk * fac, b[k] = bk / p
+// (V). The first PER rows' a_h and b come from a0 and b0 where ``held``,
+// the others from ah and b (this thread's own stores, or the caller's).
+template <typename T, typename V, int PER_, int SPAN, bool FAC = true>
 __device__ __forceinline__ void update_rows(V *__restrict__ b,
                                             T *__restrict__ fac,
                                             const T *__restrict__ ah, int M,
@@ -324,7 +340,7 @@ __device__ __forceinline__ void update_rows(V *__restrict__ b,
             const int j = j0 + q * SPAN;
             if (j < M) {
                 const T f = div_rn(a[q], w.p);
-                fac[j] = f;
+                if (FAC) fac[j] = f;
                 b[j] = j == w.k ? div_rn(w.bk, (V)w.p)
                                 : sub_rn(bj[q], mul_rn(w.bk, (V)f));
             }
@@ -388,9 +404,90 @@ __device__ __forceinline__ void first_costs(const V *__restrict__ costs,
     }
 }
 
+// Row ``row`` of n4 16-byte vectors into colk, this thread's vectors (g,
+// g + SPAN, ...) PER at a time, every load of the PER issued before any
+// is waited for; ``between_loads`` runs after the first PER's loads.
+template <int PER_, int SPAN, typename F>
+__device__ __forceinline__ void copy_row(const float *__restrict__ row,
+                                         float *__restrict__ colk, int n4,
+                                         int g, F between_loads) {
+    const float4 *src = reinterpret_cast<const float4 *>(row);
+    float4 *dst = reinterpret_cast<float4 *>(colk);
+    for (int i0 = g; i0 < n4; i0 += PER_ * SPAN) {
+        float4 v[PER_];
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int i = i0 + q * SPAN;
+            if (i < n4) v[q] = src[i];
+        }
+        if (i0 == g) between_loads();
+#pragma unroll
+        for (int q = 0; q < PER_; ++q) {
+            const int i = i0 + q * SPAN;
+            if (i < n4) dst[i] = v[q];
+        }
+    }
+    if (g >= n4) between_loads();
+}
+
+// The ratio test over a cluster of NB blocks, every block folding every
+// block's result: this thread's rows (the first PER's a_h and b kept in a0
+// and b0), the block's fold, the block's result into every block's shared
+// memory (distributed shared memory) before one cluster barrier, the NB
+// results folded in one order, and the step between in each block's
+// thread 0 on its operands (active, optimal and minc: thread 0's); block 0
+// stores it. Every thread of the block gets it. The caller has arrived at
+// the cluster barrier (relaxed) before.
+template <typename T, typename V, int NB, int NW>
+struct RatioShared {
+    Ratio<T, V> warps[NW];
+    int wany[NW];
+    Ratio<T, V> parts[NB];
+    int pany[NB];
+    Between<T, V> held;
+};
+
+template <typename T, typename V, int NB, int NT, int PER_>
+__device__ __forceinline__ Between<T, V> ratio_cluster(
+        RatioShared<T, V, NB, NT / 32> &sh, const T *__restrict__ Tt,
+        const V *__restrict__ b, T *__restrict__ ah, int M, int R, int h,
+        double eps, bool active, bool optimal, V minc,
+        const SeqStep<T, V> &s, T (&a0)[PER_], V (&b0)[PER_]) {
+    constexpr int NW = NT / 32, SPAN = NB * NT;
+    static_assert(NW <= 32 && NB <= 32, "one warp folds the warps, blocks");
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
+    Ratio<T, V> x = none;
+    bool any = false;
+    ratio_rows<T, V, PER_, SPAN>(Tt, b, ah, M, R, h, (T)eps, rank * NT + tid,
+                                 x, any, a0, b0);
+    block_fold<NW>(x, any, none, sh.warps, sh.wany);
+    cluster_wait();
+    if (warp == 0 && lane < NB) {
+        *cl.map_shared_rank(&sh.parts[rank], lane) = x;
+        *cl.map_shared_rank(&sh.pany[rank], lane) = any;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (warp == 0) {
+        x = warp_fold(lane < NB ? sh.parts[lane] : none);
+        any = __any_sync(FULL, lane < NB && sh.pany[lane] != 0);
+        if (lane == 0) {
+            const Between<T, V> w = between(x, any, active, optimal, minc);
+            sh.held = w;
+            if (rank == 0) store(s, w);
+        }
+    }
+    __syncthreads();
+    return sh.held;
+}
+
 // ---------------------------------------------------------------------------
-// seq_ratio: the ratio test and the step between, one cluster (the K6
-// loop's; the default loop's runs inside seq_ratio_colk).
+// seq_ratio: the ratio test and the step between alone, one cluster whose
+// block 0 folds (the loops run the ratio test inside seq_ratio_colk and
+// seq_ratio_snapshot; this is the baseline of their tails' own cost).
 
 template <typename T, typename V, int NB, int NT, int PER_>
 __global__ void __launch_bounds__(NT) seq_ratio_kernel(
@@ -456,12 +553,7 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
         T *__restrict__ fac, int M, int R, int r, double eps,
         SeqStep<T, V> s, seq::Policy pol) {
     constexpr int NW = NT / 32, SPAN = NB * NT;
-    static_assert(NW <= 32 && NB <= 32, "one warp folds the warps, blocks");
-    __shared__ Ratio<T, V> rwarps[NW];
-    __shared__ int rwany[NW];
-    __shared__ Ratio<T, V> rparts[NB];           // every block's: the blocks'
-    __shared__ int rpany[NB];
-    __shared__ Between<T, V> held;
+    __shared__ RatioShared<T, V, NB, NW> rsh;
     __shared__ Cands<V> cwarps[NW];
     __shared__ int cwany[NW];
     __shared__ Cands<V> cparts[NB];              // block 0's: the blocks'
@@ -493,33 +585,11 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
     const int h_raw = *s.h;
 
     // The ratio test: every block folds every block's result.
-    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
-    Ratio<T, V> x = none;
-    bool any = false;
     T a0[PER_];
     V b0[PER_];
-    ratio_rows<T, V, PER_, SPAN>(Tt, b, ah, M, R, min(h_raw, R - 1),
-                                 (T)eps, g, x, any, a0, b0);
-    block_fold<NW>(x, any, none, rwarps, rwany);
-    cluster_wait();
-    if (warp == 0 && lane < NB) {
-        *cl.map_shared_rank(&rparts[rank], lane) = x;
-        *cl.map_shared_rank(&rpany[rank], lane) = any;
-    }
-    cluster_arrive();
-    cluster_wait();
-    if (warp == 0) {
-        x = warp_fold(lane < NB ? rparts[lane] : none);
-        any = __any_sync(FULL, lane < NB && rpany[lane] != 0);
-        if (lane == 0) {
-            const Between<T, V> w =
-                    between(x, any, in.active, in.optimal, minc);
-            held = w;
-            if (rank == 0) store(s, w);
-        }
-    }
-    __syncthreads();
-    const Between<T, V> w = held;
+    const Between<T, V> w = ratio_cluster<T, V, NB, NT, PER_>(
+            rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, in.active,
+            in.optimal, minc, s, a0, b0);
 
     // The pass: the row's loads, then b and the factors, then the costs
     // and the candidates.
@@ -555,34 +625,47 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// seq_snapshot: the K6 loop's pass before K6 -- the copy of row k, b and
-// base[k] = h where the pivot is done. A grid: R blocks, then M blocks, one
-// column or row a thread, nothing folded.
+// seq_ratio_snapshot: the K6 loop's ratio test, the step between and the
+// snapshot K6 reads, one cluster (pure f32): every block folds the ratio
+// test and runs the step between (ratio_cluster), then issues its loads of
+// row k, updates b for its rows where the pivot is done (the first PER
+// rows' a_h and b from registers) and stores the row into colk; block 0's
+// thread 0 writes base[k] = h where done. No thread reads what another
+// writes after the barrier: each updates the rows it gathered. The row
+// goes RPER 16-byte vectors a thread at a time.
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(THREADS) seq_snapshot_kernel(
-        const T *__restrict__ Tt, V *__restrict__ b, int *__restrict__ base,
-        const T *__restrict__ ah, T *__restrict__ colk, int M, int R,
-        int n_rblocks, SeqStep<T, V> s) {
-    const int tid = threadIdx.x;
-    const bool d = *s.do_ != 0;
-    const int k = *s.k;
-    if ((int)blockIdx.x >= n_rblocks) {
-        // M axis: b where the pivot is done (whole blocks return together).
-        const int j = (blockIdx.x - n_rblocks) * THREADS + tid;
-        if (!d || j >= M) return;
-        const T p = *s.p;
-        const V bk = *s.bk;
-        if (j == k) {
-            b[j] = div_rn(bk, (V)p);
-            base[j] = *s.h;
-        } else {
-            b[j] = sub_rn(b[j], mul_rn(bk, (V)div_rn(ah[j], p)));
-        }
-        return;
+template <int NB, int NT, int PER_, int RPER>
+__global__ void __launch_bounds__(NT) seq_ratio_snapshot_kernel(
+        const float *__restrict__ Tt, float *__restrict__ b,
+        int *__restrict__ base, float *__restrict__ ah,
+        float *__restrict__ colk, int M, int R, double eps,
+        SeqStep<float, float> s) {
+    constexpr int SPAN = NB * NT;
+    __shared__ RatioShared<float, float, NB, NT / 32> rsh;
+    const int g = (int)cg::this_cluster().block_rank() * NT + threadIdx.x;
+    cluster_arrive_relaxed();
+
+    // The step between's operands (each block's thread 0), then h.
+    bool active = false, optimal = false;
+    float minc = 0;
+    if (threadIdx.x == 0) {
+        active = *s.active != 0;
+        optimal = *s.optimal != 0;
+        minc = *s.minc;
     }
-    const int i = blockIdx.x * THREADS + tid;
-    if (i < R) colk[i] = Tt[(size_t)k * R + i];
+    const int h_raw = *s.h;
+    float a0[PER_], b0[PER_];
+    const Between<float, float> w = ratio_cluster<float, float, NB, NT, PER_>(
+            rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, active, optimal,
+            minc, s, a0, b0);
+
+    // Row k's first loads, then b, then the row's stores.
+    copy_row<RPER, SPAN>(Tt + (size_t)w.k * R, colk, R / 4, g, [&] {
+        if (w.d)
+            update_rows<float, float, PER_, SPAN, false>(
+                    b, nullptr, ah, M, w, g, true, a0, b0);
+    });
+    if (w.d && g == 0) base[w.k] = h_raw;
 }
 
 // ---------------------------------------------------------------------------
@@ -626,17 +709,21 @@ int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
                           r, eps, step_of<T, V>(step), pol);
 }
 
-int snapshot_run(const float *Tt, float *b, int *base, const float *ah,
-                 float *colk, int M, int R, const void *step,
-                 cudaStream_t st) {
-    if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
-    const int n_rblocks = (R + THREADS - 1) / THREADS;
-    const int n_mblocks = (M + THREADS - 1) / THREADS;
-    seq_snapshot_kernel<float, float><<<n_rblocks + n_mblocks, THREADS, 0,
-                                        st>>>(Tt, b, base, ah, colk, M, R,
-                                              n_rblocks,
-                                              step_of<float, float>(step));
-    return (int)cudaGetLastError();
+// Row k goes 16 bytes a load: R a multiple of 4, Tt and colk 16-byte
+// aligned, else refused.
+int ratio_snapshot_run(const float *Tt, float *b, int *base, float *ah,
+                       float *colk, int M, int R, double eps,
+                       const void *step, cudaStream_t st) {
+    if (M < 1 || R < 1 || R % 4 || reinterpret_cast<uintptr_t>(Tt) % 16
+        || reinterpret_cast<uintptr_t>(colk) % 16)
+        return (int)cudaErrorInvalidValue;
+    auto kernel = seq_ratio_snapshot_kernel<CLUSTER_BLOCKS, CLUSTER_THREADS,
+                                            PER, PER>;
+    static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st, Tt, b,
+                          base, ah, colk, M, R, eps,
+                          step_of<float, float>(step));
 }
 
 }  // namespace
@@ -701,16 +788,16 @@ int seq_ratio_colk_launch(const void *Tt, void *costs, void *b, int *base,
     return (int)cudaErrorInvalidValue;
 }
 
-// The K6 loop's snapshot: pure f32 only.
-int seq_snapshot_launch(const void *Tt, void *b, int *base, const void *ah,
-                        void *colk, int M, int R, const void *step, int pair,
-                        void *stream) {
+// The K6 loop's ratio test and snapshot: pure f32 only.
+int seq_ratio_snapshot_launch(const void *Tt, void *b, int *base, void *ah,
+                              void *colk, int M, int R, double eps,
+                              const void *step, int pair, void *stream) {
     if (pair != PAIR_F32) return (int)cudaErrorInvalidValue;
-    return snapshot_run(static_cast<const float *>(Tt),
-                        static_cast<float *>(b), base,
-                        static_cast<const float *>(ah),
-                        static_cast<float *>(colk), M, R, step,
-                        static_cast<cudaStream_t>(stream));
+    return ratio_snapshot_run(static_cast<const float *>(Tt),
+                              static_cast<float *>(b), base,
+                              static_cast<float *>(ah),
+                              static_cast<float *>(colk), M, R, eps, step,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // solve_loop_pallas as one CUDA graph a chunk): the scalar glue around the
 // ratio test, the pivot row's pass and the rank-1 update, shared by
 // csrc/seq.cu (seq_step_pre, seq_ratio's tail, seq_colk's tail) and
-// csrc/pivot.cu (the step after K6 as the tail of K6's fold).
+// csrc/pivot.cu (the step after K6 as the tail of K6's last tile block).
 //
 // Replaces no Pallas kernel: in the JAX package this glue is XLA code that
 // the lax.while_loop fuses around the pivot (simplex_tpu/solver.py:116-157
@@ -60,6 +60,9 @@ using step::OPTIMAL;
 using step::Policy;
 using step::RUNNING;
 using step::UNBOUNDED;
+
+// Every lane of a warp, for its shuffles.
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ double div_rn(double a, double b) {
     return __ddiv_rn(a, b);

@@ -17,11 +17,17 @@ calls; here a pivot of the default loop is two kernels --
 * ``seq_rank1``: ``Tt -= factor colk^T`` with row k written as ``colk /
   p`` (``csrc/pivot.cu``, ``batch_rank1``'s tiles at one lane);
 
-and of the K6 loop four: ``seq_ratio`` (one cluster), ``seq_snapshot``
-(the copy of row k, b and base), K6 (``fused_pivot``'s pass and fold, two
-kernels) with the step after it as the fold's tail
-(``fused_pivot_tail``). ``seq_step_pre`` runs once a chunk, before the
-chunk's first pivot.
+and of the K6 loop two as well --
+
+* ``seq_ratio_snapshot`` (one cluster, pure f32): ``seq_ratio``, then
+  the snapshot K6 reads -- the copy of row k, b and base -- as its tail
+  ``seq_snapshot``;
+* K6 (``fused_pivot``'s pass) with its fold and the step after it as
+  the tail of its last tile block (``fused_pivot_tail``).
+
+``seq_step_pre`` runs once a chunk, before the chunk's first pivot.
+``seq_ratio`` alone (one cluster) stays, the baseline of its tails'
+own cost.
 
 As in the other kernel modules each has a hand-written CUDA kernel
 (``csrc/seq.cu``, ``csrc/pivot.cu``; the step's body ``csrc/seq_step.cuh``)
@@ -43,21 +49,22 @@ import dataclasses
 
 import torch
 
-from .blocked import (RUNNING, _bland_mode, _expect, _index, _on_card,
-                      _ptr, _stream, entering_candidates, step_post_plain,
-                      step_pre_plain)
+from .blocked import (RUNNING, _bland_mode, _cdiv, _expect, _index,
+                      _on_card, _ptr, _stream, entering_candidates,
+                      step_post_plain, step_pre_plain)
 from .pivot import LAUNCHES as PIVOT_LAUNCHES
-from .pivot import (check_fused_pivot_workspace, fused_pivot_plain,
-                    fused_pivot_workspace, rank1_plan)
+from .pivot import COLS, fused_pivot_plain, rank1_plan
 
 #: Launches of each kernel since the last ``reset_launches``. A tail runs
 #: inside its carrier's launch (``TAILS``) and counts beside it: the pass
-#: ``seq_colk`` inside ``seq_ratio_colk``, counted as ``seq_ratio``, and
-#: the step after K6 (``seq_k6_tail``) as the tail of K6's fold, counted
-#: in ``kernels.pivot.LAUNCHES``.
+#: ``seq_colk`` inside ``seq_ratio_colk`` and the snapshot
+#: ``seq_snapshot`` inside ``seq_ratio_snapshot``, both counted as
+#: ``seq_ratio``, and K6's fold with the step after it (``seq_k6_tail``)
+#: in K6's last tile block, counted in ``kernels.pivot.LAUNCHES``.
 LAUNCHES = {"seq_step_pre": 0, "seq_ratio": 0, "seq_colk": 0,
             "seq_rank1": 0, "seq_snapshot": 0, "seq_k6_tail": 0}
-TAILS = {"seq_colk": "seq_ratio", "seq_k6_tail": "fused_pivot"}
+TAILS = {"seq_colk": "seq_ratio", "seq_snapshot": "seq_ratio",
+         "seq_k6_tail": "fused_pivot"}
 
 _F64, _F32, _I32, _BOOL = torch.float64, torch.float32, torch.int32, \
     torch.bool
@@ -186,7 +193,7 @@ def seq_step_pre(s: SeqScalars, max_iter: int, eps: float) -> None:
     eligible, else the Dantzig one, gives ``h`` and ``minc``; ``optimal =
     minc > -eps``. Plain version: ``kernels.blocked.step_pre_plain``. One
     thread on the card, once a chunk: within it the step runs as the tail
-    of ``seq_ratio_colk`` or of K6's fold."""
+    of ``seq_ratio_colk`` or of K6's last tile block."""
     if not _on_card(s.status):
         step_pre_plain(s, max_iter, eps)
         return
@@ -323,33 +330,62 @@ def seq_ratio_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
 
 
 def seq_snapshot_plain(Tt, b, base, ah, colk, s: SeqScalars) -> None:
-    """Plain version of ``seq_snapshot``."""
+    """The K6 loop's snapshot after the ratio test (``simplex_tpu/
+    solver.py:253-283`` without K6 and the step after it): ``colk =
+    Tt[k]``, the row K6 reads while it overwrites row k; where the pivot
+    is done ``b -= bk * (a_h / p)`` with ``b[k] = bk / p`` and ``base[k] =
+    h``. On the card the tail of ``seq_ratio_snapshot``."""
     R = Tt.shape[1]
     colk.copy_(Tt.index_select(0, s.k.long().view(1)).view(R))
     _update_b(b, base, ah, s)
 
 
-def seq_snapshot(Tt, b, base, ah, colk, s: SeqScalars) -> None:
-    """The K6 loop's pass before K6 (``simplex_tpu/solver.py:253-283``
-    without K6 and the step after it): ``colk = Tt[k]``, the snapshot K6
-    reads while it overwrites row k; where the pivot is done ``b -= bk *
-    (a_h / p)`` with ``b[k] = bk / p`` and ``base[k] = h``. Pure f32. One
-    launch on the card: a grid of one column, then one row, a thread."""
+def _check_rows16(R: int, **xs: torch.Tensor) -> None:
+    """Raises unless the f32 rows of ``xs`` go 16 bytes a load: R a
+    multiple of 4, each tensor 16-byte aligned."""
+    if R % 4:
+        raise ValueError(f"R={R}: the K6 loop's kernels take whole 16-byte "
+                         "rows (R a multiple of 4)")
+    for name, x in xs.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
+def seq_ratio_snapshot_plain(Tt, b, base, ah, colk, s: SeqScalars,
+                             eps: float) -> None:
+    """Plain version of ``seq_ratio_snapshot``: ``seq_ratio_plain``, then
+    ``seq_snapshot_plain``."""
+    seq_ratio_plain(Tt, b, s, ah, eps)
+    seq_snapshot_plain(Tt, b, base, ah, colk, s)
+
+
+def seq_ratio_snapshot(Tt, b, base, ah, colk, s: SeqScalars,
+                       eps: float) -> None:
+    """The K6 loop's pivot before K6: ``seq_ratio`` (the entering column,
+    the ratio test and the step between), then ``seq_snapshot_plain``'s
+    copy of row k and, where the pivot is done, b and base. Pure f32, R a
+    multiple of 4, Tt and colk 16-byte aligned (the row goes 16 bytes a
+    load). One launch on the card: one thread-block cluster
+    (``csrc/seq.cu`` ``seq_ratio_snapshot_kernel``) whose blocks each fold
+    the ratio test over distributed shared memory, run the step between
+    and take their share of the row and of b; it counts a launch of
+    ``seq_ratio`` and one of ``seq_snapshot`` (``TAILS``)."""
     M, R = Tt.shape
     _expect(Tt, "Tt", _F32, (M, R))
     for name, x, dt, n in (("b", b, _F32, M), ("base", base, _I32, M),
                            ("ah", ah, _F32, M), ("colk", colk, _F32, R)):
         _expect(x, name, dt, (n,))
     if not _on_card(Tt, b, base, ah, colk, s.status):
-        seq_snapshot_plain(Tt, b, base, ah, colk, s)
+        seq_ratio_snapshot_plain(Tt, b, base, ah, colk, s, eps)
         return
+    _check_rows16(R, Tt=Tt, colk=colk)
     pair = _pair(s)
     lib, check = _lib()
-    err = lib.seq_snapshot_launch(_ptr(Tt), _ptr(b), _ptr(base), _ptr(ah),
-                                  _ptr(colk), M, R,
-                                  ctypes.byref(_seq_ptrs(s)), pair,
-                                  _stream(Tt))
-    check(lib, err, "seq_snapshot")
+    err = lib.seq_ratio_snapshot_launch(
+        _ptr(Tt), _ptr(b), _ptr(base), _ptr(ah), _ptr(colk), M, R,
+        float(eps), ctypes.byref(_seq_ptrs(s)), pair, _stream(Tt))
+    check(lib, err, "seq_ratio_snapshot")
+    LAUNCHES["seq_ratio"] += 1
     LAUNCHES["seq_snapshot"] += 1
 
 
@@ -393,7 +429,16 @@ def seq_rank1(Tt, fac, colk, s: SeqScalars) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K6 with the step after it as its fold's tail.
+# K6 with its fold and the step after it as the tail of its last tile block.
+
+def fused_pivot_tail_workspace(R: int, device) -> torch.Tensor:
+    """K6's workspace in the K6 loop for ``R`` columns on ``device``: (5,
+    blocks) int32, zeroed -- rows 0-3 the tile blocks' partials as in
+    ``kernels.pivot.fused_pivot_workspace``, ``[4, 0]`` the tail's arrival
+    counter, which every call leaves zero. A loop allocates one and
+    passes it to every call, in order on one stream."""
+    return torch.zeros((5, _cdiv(R, COLS)), dtype=_I32, device=device)
+
 
 def fused_pivot_tail_plain(Tt, costs, colk, ah, s: SeqScalars, r: int,
                            eps: float, max_iter: int, bland_static: bool,
@@ -414,9 +459,10 @@ def fused_pivot_tail(Tt, costs, colk, ah, s: SeqScalars, r: int, eps: float,
     ``colk`` and ``ah``; the candidates it folds where the pivot is done,
     else the carried ones, into ``s``; then ``step_post_plain``'s z,
     status, stall, bland and iterations and, with ``then_pre``, the next
-    pivot's step before ``seq_ratio``. Pure f32. ``ws`` is a
-    ``kernels.pivot.fused_pivot_workspace``. On the card K6's two kernels
-    with the step in its fold's thread 0: it counts a launch of
+    pivot's step before ``seq_ratio_snapshot``. Pure f32. ``ws`` is a
+    ``fused_pivot_tail_workspace``. On the card one kernel, K6's tiles,
+    whose first row band's last block (an arrival ticket) folds the
+    partials in one warp and runs the step: it counts a launch of
     ``fused_pivot`` (``kernels.pivot.LAUNCHES``) and one of
     ``seq_k6_tail``."""
     M, R = Tt.shape
@@ -428,16 +474,16 @@ def fused_pivot_tail(Tt, costs, colk, ah, s: SeqScalars, r: int, eps: float,
         fused_pivot_tail_plain(Tt, costs, colk, ah, s, r, eps, max_iter,
                                bland_static, threshold, then_pre)
         return
-    if _pair(s) != PAIRS[(_F32, _F32)] or R % 4:
-        raise ValueError(f"K6 takes a pure-f32 tableau of whole 16-byte rows,"
-                         f" got {s.p.dtype} / {s.z.dtype}, R={R}")
-    for name, x in (("Tt", Tt), ("costs", costs), ("colk", colk)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
+    if _pair(s) != PAIRS[(_F32, _F32)]:
+        raise ValueError(f"K6 takes a pure-f32 tableau, got {s.p.dtype} / "
+                         f"{s.z.dtype}")
+    _check_rows16(R, Tt=Tt, costs=costs, colk=colk)
     lib, check = _lib()
     if ws is None:
-        ws = fused_pivot_workspace(R, Tt.device)
-    check_fused_pivot_workspace(ws, R, Tt.device)
+        ws = fused_pivot_tail_workspace(R, Tt.device)
+    _expect(ws, "ws", _I32, (5, _cdiv(R, COLS)))
+    if ws.device != Tt.device:
+        raise ValueError(f"ws on {ws.device}, Tt on {Tt.device}")
     err = lib.fused_pivot_seq_launch(
         _ptr(Tt), _ptr(costs), _ptr(colk), _ptr(ah), M, R, r, float(eps),
         *(_ptr(x) for x in ws), ctypes.byref(_seq_ptrs(s)), max_iter,

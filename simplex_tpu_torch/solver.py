@@ -43,11 +43,11 @@ from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
                               colk_workspace, entering_candidates,
                               exit_status, pivot_scalars, step_pre)
 from .kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
-from .kernels.pivot import fused_pivot_workspace
 from .kernels.seq import LAUNCHES as SEQ_LAUNCHES
-from .kernels.seq import (SeqScalars, fused_pivot_tail, seq_rank1,
-                          seq_ratio, seq_ratio_colk, seq_scalars,
-                          seq_snapshot, seq_step_pre, set_candidates)
+from .kernels.seq import (SeqScalars, fused_pivot_tail,
+                          fused_pivot_tail_workspace, seq_rank1,
+                          seq_ratio_colk, seq_ratio_snapshot, seq_scalars,
+                          seq_step_pre, set_candidates)
 from .tableau import Tableau, basic_costs, tt_matvec
 
 #: Pivots the sequential loops enqueue between two host reads of the
@@ -223,8 +223,9 @@ class SeqLoop:
     pointer. ``Tt`` is the caller's tableau; b, the costs and base the
     loop's own copies; ``ah`` and ``colk`` the pivot's entering column and
     leaving row, ``fac`` its factors ``a_h / p`` (None in the K6 loop,
-    whose pass forms them); ``ws_pass`` K6's workspace (None in the
-    default loop, whose kernels take none); ``s`` the scalars; ``pallas``
+    whose pass forms them); ``ws_pass`` K6's workspace, its partials and
+    its tail's counter (None in the default loop, whose kernels take
+    none); ``s`` the scalars; ``pallas``
     whether the pivot's pass is K6."""
 
     Tt: torch.Tensor
@@ -254,7 +255,7 @@ def seq_loop(tab: Tableau, options: SolverOptions,
         ah=torch.zeros(M, dtype=dt, device=dev),
         colk=torch.zeros(R, dtype=dt, device=dev),
         fac=None if pallas else torch.zeros(M, dtype=dt, device=dev),
-        ws_pass=fused_pivot_workspace(R, dev) if pallas else None,
+        ws_pass=fused_pivot_tail_workspace(R, dev) if pallas else None,
         s=seq_scalars(tab.z.to(tab.costs.dtype),
                       options.pivot_rule_resolved == "bland", dt),
         r=tab.r, pallas=pallas)
@@ -269,10 +270,10 @@ def run_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int) -> None:
     ``seq_ratio_colk`` (the column, the ratio test, the step between, the
     row, costs, candidates, b and base, the step after and the next
     pivot's step before) and ``seq_rank1`` -- or in the K6 loop
-    ``seq_ratio``, ``seq_snapshot`` and K6 with the step after as its
-    fold's tail. 2 SEQ_CHUNK + 1 launches on the card, the body a CUDA
-    graph captures: as many nodes, or in the K6 loop 4 SEQ_CHUNK + 1 (K6
-    is two kernels a launch)."""
+    ``seq_ratio_snapshot`` (the column, the ratio test, the step between,
+    the row, b and base) and K6 with its fold and the step after as the
+    tail of its last tile block. 2 SEQ_CHUNK + 1 launches on the card,
+    the body a CUDA graph captures: as many nodes."""
     eps = float(options.eps_resolved)
     policy = dict(bland_static=options.pivot_rule_resolved == "bland",
                   threshold=options.bland_threshold)
@@ -281,8 +282,8 @@ def run_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int) -> None:
     for t in range(SEQ_CHUNK):
         then_pre = t + 1 < SEQ_CHUNK
         if loop.pallas:
-            seq_ratio(loop.Tt, loop.b, s, loop.ah, eps)
-            seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
+            seq_ratio_snapshot(loop.Tt, loop.b, loop.base, loop.ah,
+                               loop.colk, s, eps)
             fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
                              loop.r, eps, max_iter, loop.ws_pass,
                              then_pre=then_pre, **policy)
@@ -379,8 +380,9 @@ def solve_loop_pallas(tab: Tableau, options: SolverOptions, max_iter: int,
     """The sequential loop over K6 (``simplex_tpu.solver.
     solve_loop_pallas``): per pivot one fused pass updates the tableau and
     the costs and folds the next candidates, so the body never re-reads
-    the cost vector; around it ``seq_ratio``, ``seq_snapshot`` and the
-    step after K6 as its fold's tail. The same pivot sequence as
+    the cost vector; before it ``seq_ratio_snapshot``, and its fold and
+    the step after it the tail of its last tile block: two nodes a pivot.
+    The same pivot sequence as
     ``solve_loop`` in exact arithmetic; in f32 K6 scales by ``1/p`` and
     the two part where rounding decides a tie. On the card one CUDA graph
     a chunk, as ``solve_loop``."""

@@ -1555,8 +1555,9 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
     (a NaN in b on an eligible row, a tie of the smallest quotient, no
     eligible row, Bland on with a Bland candidate, the fuse reached):
     ``seq_step_pre``, ``seq_ratio_colk`` against ``seq_ratio``'s and
-    ``seq_colk``'s plain versions (K6 loop: ``seq_ratio``,
-    ``seq_snapshot``, ``fused_pivot_tail``) and ``seq_rank1``; every
+    ``seq_colk``'s plain versions (K6 loop: ``seq_ratio_snapshot`` against
+    ``seq_ratio``'s and ``seq_snapshot``'s, ``fused_pivot_tail``) and
+    ``seq_rank1``; every
     scalar and vector, the gathered column, the row and the factors bit
     for bit, the tableau too."""
     from simplex_tpu_torch import solver
@@ -1601,16 +1602,13 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
                 kb.step_pre_plain(s, 100, eps)
             if pallas:
                 if kernel:
-                    ks.seq_ratio(lp.Tt, lp.b, s, lp.ah, eps)
-                else:
-                    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
-            if pallas:
-                if kernel:
-                    ks.seq_snapshot(lp.Tt, lp.b, lp.base, lp.ah, lp.colk, s)
+                    ks.seq_ratio_snapshot(lp.Tt, lp.b, lp.base, lp.ah,
+                                          lp.colk, s, eps)
                     ks.fused_pivot_tail(lp.Tt, lp.costs, lp.colk, lp.ah, s,
                                         lp.r, eps, 100, lp.ws_pass,
                                         then_pre=False, **policy)
                 else:
+                    ks.seq_ratio_plain(lp.Tt, lp.b, s, lp.ah, eps)
                     ks.seq_snapshot_plain(lp.Tt, lp.b, lp.base, lp.ah,
                                           lp.colk, s)
                     ks.fused_pivot_tail_plain(lp.Tt, lp.costs, lp.colk,
@@ -1667,9 +1665,10 @@ def test_seq_graph_matches_eager_on_card(cuda, monkeypatch, pair, pallas):
     bit (Tt against the old body by value: its skipped pivots' addr_ with
     factor 0 may turn a -0.0 into +0.0), the same launches -- 2 a pivot
     (``seq_ratio_colk`` counting ``seq_ratio`` and its tail ``seq_colk``)
-    and ``seq_step_pre`` once a chunk (the K6 loop: 3 a pivot, K6 one
-    launch of two kernels, its tail counted apart) -- a replay adding the
-    graph's, the capture none."""
+    and ``seq_step_pre`` once a chunk (the K6 loop: 2 a pivot as well,
+    ``seq_ratio_snapshot`` counting ``seq_ratio`` and its tail
+    ``seq_snapshot``, K6 one kernel counting ``fused_pivot`` and its tail
+    ``seq_k6_tail``) -- a replay adding the graph's, the capture none."""
     from simplex_tpu_torch import solver
     from simplex_tpu_torch.kernels import seq as ks
 
@@ -1717,7 +1716,7 @@ def test_seq_graph_matches_eager_on_card(cuda, monkeypatch, pair, pallas):
         assert gl[name] == 32 * chunks, (name, gl)
     per = captures[0][1].per_replay
     assert sum(n for name, n in per.items() if name not in ks.TAILS) == (
-        3 * 32 + 1 if pallas else 2 * 32 + 1)
+        2 * 32 + 1)
 
 
 @pytest.mark.parametrize("cap", [1, 31, 32, 33])
@@ -1742,9 +1741,9 @@ def test_seq_graph_fuse_is_exact_on_card(cuda, cap, pallas):
 
 def test_seq_kernels_refuse_on_card(cuda):
     """A launch the kernel refuses raises (an empty shape through the C
-    entry points, a dtype pair the snapshot does not take), a buffer of
-    another shape raises in the wrapper, and a dtype pair with no kernel
-    raises: no fallback."""
+    entry points; a dtype pair ``seq_ratio_snapshot`` does not take, or a
+    row not of whole 16-byte vectors), a buffer of another shape raises in
+    the wrapper, and a dtype pair with no kernel raises: no fallback."""
     from simplex_tpu_torch.kernels import _build
     from simplex_tpu_torch.kernels import seq as ks
 
@@ -1761,10 +1760,15 @@ def test_seq_kernels_refuse_on_card(cuda):
                                ah.data_ptr(), step, 0, stream)
     with pytest.raises(RuntimeError, match="seq_ratio: CUDA error"):
         _build.check(lib, err, "seq_ratio")
-    err = lib.seq_snapshot_launch(Tt.data_ptr(), b.data_ptr(), None,
-                                  ah.data_ptr(), None, M, R, step, 0, stream)
-    with pytest.raises(RuntimeError, match="seq_snapshot: CUDA error"):
-        _build.check(lib, err, "seq_snapshot")
+    base = torch.zeros(M, dtype=torch.int32, device=cuda)
+    colk = torch.empty(R, dtype=torch.float64, device=cuda)
+    for pair, rows in ((0, R), (2, R - 2)):
+        err = lib.seq_ratio_snapshot_launch(
+            Tt.data_ptr(), b.data_ptr(), base.data_ptr(), ah.data_ptr(),
+            colk.data_ptr(), M, rows, 1e-9, step, pair, stream)
+        with pytest.raises(RuntimeError,
+                           match="seq_ratio_snapshot: CUDA error"):
+            _build.check(lib, err, "seq_ratio_snapshot")
     with pytest.raises(ValueError, match="ah"):
         ks.seq_ratio(Tt, b, s, ah[:-1], 1e-9)
     odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
@@ -1786,11 +1790,11 @@ SEQ_EDGES = ("taken", "nan_b", "tie", "no_row", "bland_static",
              "bland_threshold", "no_column", "skipped")
 
 
-def _seq_edge_loops(dev, pair, M, R, seed):
-    """Two ``SeqLoop``s over one seeded random tableau (Tt uniform in
-    [-1, 1], b in [1, 100], the costs in [-1, 1], the last quarter of the
-    columns up to 100 dead): the kernels run on one, the plain versions
-    on the other."""
+def _seq_edge_loops(dev, pair, M, R, seed, pallas=False):
+    """Two ``SeqLoop``s (K6's with ``pallas``) over one seeded random
+    tableau (Tt uniform in [-1, 1], b in [1, 100], the costs in [-1, 1],
+    the last quarter of the columns up to 100 dead): the kernels run on
+    one, the plain versions on the other."""
     from simplex_tpu_torch import solver
     from simplex_tpu_torch.tableau import Tableau
 
@@ -1808,7 +1812,7 @@ def _seq_edge_loops(dev, pair, M, R, seed):
                                       ("Tt", "b", "costs", "z", "base")})
     opts = pst.SolverOptions(dtype=T, vector_dtype=V)
     return [solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
-                            opts) for _ in range(2)], opts
+                            opts, pallas=pallas) for _ in range(2)], opts
 
 
 def _seq_edge(lp, edge, eps, M):
@@ -1899,3 +1903,76 @@ def test_seq_cluster_edges_match_plain_on_card(cuda, pair, M, R):
     assert {"taken", "nan_b", "bland_static"} <= done, kinds
     assert ("no_row", False, True) in kinds, kinds
     assert not {"no_column", "skipped"} & done, kinds
+
+
+#: (M, R) of the K6 loop's edge shapes: rows of whole 16-byte vectors, R
+#: not a multiple of K6's 1,024-column blocks, M not of its 32-row bands,
+#: one row, past 16,384 rows, R as the north star's.
+K6_EDGE_SHAPES = [(1, 4), (7, 20), (4095, 12284), (4097, 260),
+                  (40064, 2048), (2048, 120064)]
+#: The K6 loop's edge states past ``SEQ_EDGES``: the leaving row the first
+#: or the last, and no Bland candidate after a taken pivot.
+K6_EDGES = SEQ_EDGES + ("k_first", "k_last", "no_bland")
+
+
+@pytest.mark.parametrize("M,R", K6_EDGE_SHAPES,
+                         ids=[f"{m}x{r}" for m, r in K6_EDGE_SHAPES])
+def test_k6_loop_edges_match_plain_on_card(cuda, M, R):
+    """The K6 loop's pivot -- ``seq_ratio_snapshot`` (one cluster) and K6
+    with its fold and the step after as its last tile block's tail --
+    against ``seq_ratio_plain``, ``seq_snapshot_plain`` and
+    ``fused_pivot_tail_plain`` on the card, from every state of
+    ``K6_EDGES`` at ``K6_EDGE_SHAPES``, with and without the next step
+    before: every scalar, vector and the tableau bit for bit; the tail's
+    counter back at zero after each call."""
+    from simplex_tpu_torch.kernels import seq as ks
+
+    loops, opts = _seq_edge_loops(cuda, "f32", M, R, seed=M + R,
+                                  pallas=True)
+    eps = float(opts.eps_resolved)
+    kinds = set()
+    for n, edge in enumerate(K6_EDGES):
+        policy = dict(bland_static=edge == "bland_static", threshold=50,
+                      then_pre=n % 2 == 0)
+        for lp in loops:
+            _seq_edge(lp, edge if edge in SEQ_EDGES else "taken", eps, M)
+            col = lp.Tt[:, int(lp.s.h)]
+            if edge in ("k_first", "k_last"):
+                # The one zero quotient: b positive elsewhere.
+                j = 0 if edge == "k_first" else M - 1
+                lp.b.clamp_(min=1.0)
+                col[j] = 0.5
+                lp.b[j] = 0.0
+            elif edge == "no_bland":
+                h = int(lp.s.h)
+                lp.costs.copy_(lp.costs.abs() + 3.0)
+                lp.costs[h] = -2 * eps
+                ks.set_candidates(lp.s, kb.entering_candidates(
+                    lp.costs, None, lp.r, eps))
+                kb.step_pre_plain(lp.s, 100, eps)
+                assert int(lp.s.h) == h
+        (a, b) = loops
+        ks.seq_ratio_snapshot(a.Tt, a.b, a.base, a.ah, a.colk, a.s, eps)
+        ks.fused_pivot_tail(a.Tt, a.costs, a.colk, a.ah, a.s, a.r, eps, 100,
+                            a.ws_pass, **policy)
+        ks.seq_ratio_plain(b.Tt, b.b, b.s, b.ah, eps)
+        ks.seq_snapshot_plain(b.Tt, b.b, b.base, b.ah, b.colk, b.s)
+        ks.fused_pivot_tail_plain(b.Tt, b.costs, b.colk, b.ah, b.s, b.r, eps,
+                                  100, **policy)
+        for name, x in a.s.tensors().items():
+            assert _bits_equal(x, getattr(b.s, name)), (edge, name)
+        for name in ("Tt", "b", "costs", "base", "ah", "colk"):
+            assert _bits_equal(getattr(a, name), getattr(b, name)), (edge,
+                                                                    name)
+        assert int(a.ws_pass[4, 0]) == 0, edge
+        kinds.add((edge, bool(a.s.do), bool(a.s.unb), int(a.s.k),
+                   int(a.s.h_b)))
+        for lp in loops:
+            lp.b.nan_to_num_(nan=1.0)
+            lp.s.z.nan_to_num_(nan=0.0)
+    done = {e for e, d, *_ in kinds if d}
+    assert {"taken", "nan_b", "k_first", "k_last", "no_bland"} <= done, kinds
+    assert not {"no_column", "skipped", "no_row"} & done, kinds
+    ks_of = {e: k for e, _, _, k, _ in kinds}
+    assert ks_of["k_first"] == 0 and ks_of["k_last"] == M - 1, kinds
+    assert [hb for e, *_, hb in kinds if e == "no_bland"] == [kb.BIG_INDEX]

@@ -2,7 +2,7 @@
 
 * The plain versions of a chunk's kernels (``kernels.seq``:
   ``seq_step_pre``, ``seq_ratio_colk``, ``seq_rank1``; in the K6 loop
-  ``seq_ratio``, ``seq_snapshot`` and ``fused_pivot_tail``), applied in
+  ``seq_ratio_snapshot`` and ``fused_pivot_tail``), applied in
   the graph's order, against the eager pivot they replace --
   ``solver.iteration_body``, and the K6 loop's body as it ran eagerly
   (written out here) -- from
@@ -17,11 +17,13 @@
   versions) against the JAX package's ``solve_loop`` and
   ``solve_loop_pallas`` (K6 in interpret mode), Dantzig and Bland:
   statuses and pivot counts; the fuse gives exactly ``max_iter`` pivots.
+* ``seq_ratio_snapshot``'s plain version against ``seq_ratio``'s and
+  ``seq_snapshot``'s run in turn, from every edge state.
 * ``run_chunk``'s launches in order; the loop's fixed storage from its
   first chunk to its last; the scalars' checks; the card's launches
-  (``seq_ratio_colk``, ``seq_ratio``, ``seq_snapshot``) with the kernel
-  library stubbed: their arguments against the ctypes signatures and
-  their launch counts.
+  (``seq_ratio_colk``, ``seq_ratio``, ``seq_ratio_snapshot``, K6 with
+  its tail) with the kernel library stubbed: their arguments against the
+  ctypes signatures and their launch counts.
 """
 
 import ctypes
@@ -173,8 +175,8 @@ def _graph_order(loop, opts, pallas, then_pre):
                   threshold=opts.bland_threshold)
     s = loop.s
     if pallas:
-        ks.seq_ratio(loop.Tt, loop.b, s, loop.ah, eps)
-        ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, s)
+        ks.seq_ratio_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk,
+                              s, eps)
         ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, s,
                             loop.r, eps, MAX_ITER, loop.ws_pass,
                             then_pre=then_pre, **policy)
@@ -255,12 +257,40 @@ def test_plain_chunk_matches_iteration_body(pair, case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_k6_chunk_matches_the_eager_k6_body(case):
-    """``seq_step_pre``, then ``seq_ratio``, ``seq_snapshot`` and
+    """``seq_step_pre``, then ``seq_ratio_snapshot`` and
     ``fused_pivot_tail`` against the K6 loop's eager body (pure f32), from
     one edge state, three pivots: the same state and candidates."""
     opts = _options("f32", case, use_pallas=True)
     tab, carry = _edge(_phase1(opts), case, opts)
     _run_both(tab, carry, opts, True, 3)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ratio_snapshot_plain_is_ratio_then_snapshot(case):
+    """``seq_ratio_snapshot`` on CPU tensors (its plain version) against
+    ``seq_ratio_plain`` followed by ``seq_snapshot_plain`` from the same
+    edge state (pure f32, the step before run first): every scalar, b,
+    base, the gathered column and the row bit for bit."""
+    opts = _options("f32", case, use_pallas=True)
+    tab, carry = _edge(_phase1(opts), case, opts)
+    eps = float(opts.eps_resolved)
+    loops = [solver.seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                             opts, pallas=True) for _ in range(2)]
+    for lp in loops:
+        for dst, src in zip((lp.s.status, lp.s.iterations, lp.s.stall,
+                             lp.s.bland), carry):
+            dst.copy_(src)
+        ks.seq_step_pre(lp.s, MAX_ITER, eps)
+    a, b = loops
+    ks.seq_ratio_snapshot(a.Tt, a.b, a.base, a.ah, a.colk, a.s, eps)
+    ks.seq_ratio_plain(b.Tt, b.b, b.s, b.ah, eps)
+    ks.seq_snapshot_plain(b.Tt, b.b, b.base, b.ah, b.colk, b.s)
+    for name, x in a.s.tensors().items():
+        assert _same(x, getattr(b.s, name)), name
+    for name in ("Tt", "b", "base", "ah", "colk"):
+        assert _same(getattr(a, name), getattr(b, name)), name
+    assert _same(a.colk, a.Tt[int(a.s.k)])
+    assert ks.LAUNCHES["seq_snapshot"] == 0
 
 
 def test_walk_matches_iteration_body_through_the_exit():
@@ -377,10 +407,10 @@ def test_seq_loop_walks_as_jax_solve_loop_pallas(monkeypatch, rule):
 @pytest.mark.parametrize("pallas", [False, True], ids=["seq", "k6"])
 def test_run_chunk_enqueues_in_the_graphs_order(monkeypatch, pallas):
     """``run_chunk`` enqueues ``seq_step_pre`` once, then per pivot
-    ``seq_ratio_colk`` and ``seq_rank1`` (the K6 loop: ``seq_ratio``,
-    ``seq_snapshot``, ``fused_pivot_tail``), the last pivot's step after
-    without the next pivot's step before: SEQ_CHUNK pivots whatever the
-    fuse."""
+    ``seq_ratio_colk`` and ``seq_rank1`` (the K6 loop:
+    ``seq_ratio_snapshot``, ``fused_pivot_tail``), the last pivot's step
+    after without the next pivot's step before: SEQ_CHUNK pivots whatever
+    the fuse."""
     opts = _options("f32", "walk", use_pallas=pallas)
     loop = solver.seq_loop(_phase1(opts), opts, pallas=pallas)
     calls = []
@@ -393,15 +423,15 @@ def test_run_chunk_enqueues_in_the_graphs_order(monkeypatch, pallas):
             return real(*args, **kw)
         return call
 
-    names = ("seq_step_pre", "seq_ratio", "seq_ratio_colk", "seq_rank1",
-             "seq_snapshot", "fused_pivot_tail")
+    names = ("seq_step_pre", "seq_ratio_snapshot", "seq_ratio_colk",
+             "seq_rank1", "fused_pivot_tail")
     for name in names:
         monkeypatch.setattr(solver, name, record(name))
     solver.run_chunk(loop, opts, 5)
-    body = (["seq_ratio", "seq_snapshot", "fused_pivot_tail"] if pallas
+    body = (["seq_ratio_snapshot", "fused_pivot_tail"] if pallas
             else ["seq_ratio_colk", "seq_rank1"])
     assert [c[0] for c in calls] == ["seq_step_pre"] + body * solver.SEQ_CHUNK
-    tails = [c[1] for c in calls if c[0] == body[2 * pallas]]
+    tails = [c[1] for c in calls if c[0] == body[int(pallas)]]
     assert tails == [True] * (solver.SEQ_CHUNK - 1) + [False]
     assert int(loop.s.iterations) == 5
 
@@ -458,7 +488,7 @@ def test_seq_scalars_are_checked():
     odd = ks.seq_scalars(torch.tensor(0.0), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
         ks._pair(odd)
-    assert ks.TAILS == {"seq_colk": "seq_ratio",
+    assert ks.TAILS == {"seq_colk": "seq_ratio", "seq_snapshot": "seq_ratio",
                         "seq_k6_tail": "fused_pivot"}
     assert set(ks.TAILS) <= set(ks.LAUNCHES)
 
@@ -534,11 +564,12 @@ def test_ratio_colk_launch_is_wired(monkeypatch, pair, policy):
 
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 def test_ratio_and_snapshot_launches_are_wired(monkeypatch, pair):
-    """The K6 loop's ``seq_ratio`` and ``seq_snapshot`` on the card, the
-    library stubbed: one launch each with as many arguments as its ctypes
-    signature, no workspace, each counting its own launch; the snapshot
-    takes a pure-f32 pair only (the C entry point refuses another) and
-    its pair's code is passed on."""
+    """The K6 loop's ``seq_ratio_snapshot`` and ``seq_ratio`` alone on the
+    card, the library stubbed: one launch each with as many arguments as
+    its ctypes signature, no workspace, the pair's code passed on;
+    ``seq_ratio_snapshot`` counts a launch of ``seq_ratio`` and one of
+    its tail ``seq_snapshot``, and takes a pure-f32 pair only (the C entry
+    point refuses another)."""
     opts = _options(pair, "walk")
     loop = solver.seq_loop(_phase1(opts), opts)
     M, R = loop.Tt.shape
@@ -553,17 +584,83 @@ def test_ratio_and_snapshot_launches_are_wired(monkeypatch, pair):
                         loop.ah.data_ptr()]
     assert vals[7] == code
     assert ks.LAUNCHES["seq_ratio"] == 1 and ks.LAUNCHES["seq_colk"] == 0
+    ks.reset_launches()
     if pair != "f32":
         with pytest.raises(ValueError, match="want contiguous torch.float32"):
-            ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk,
-                            loop.s)
+            ks.seq_ratio_snapshot(loop.Tt, loop.b, loop.base, loop.ah,
+                                  loop.colk, loop.s, 1e-9)
+        assert ks.LAUNCHES["seq_ratio"] == 0
         return
-    got, sig = _stub_card(monkeypatch, "seq_snapshot_launch")
-    ks.seq_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk, loop.s)
+    got, sig = _stub_card(monkeypatch, "seq_ratio_snapshot_launch")
+    state = {n: x.clone() for n, x in loop.s.tensors().items()}
+    ks.seq_ratio_snapshot(loop.Tt, loop.b, loop.base, loop.ah, loop.colk,
+                          loop.s, 1e-4)
     (args,) = got
-    assert len(args) == len(sig) == 10
+    assert len(args) == len(sig) == 11
     vals = _values(args)
-    assert vals[:7] == [x.data_ptr() for x in (
-        loop.Tt, loop.b, loop.base, loop.ah, loop.colk)] + [M, R]
-    assert vals[8] == code
-    assert ks.LAUNCHES["seq_snapshot"] == 1 and ks.LAUNCHES["seq_ratio"] == 1
+    assert vals[:8] == [x.data_ptr() for x in (
+        loop.Tt, loop.b, loop.base, loop.ah, loop.colk)] + [M, R, 1e-4]
+    ptrs = ctypes.cast(args[8], ctypes.POINTER(ks._SeqPtrs)).contents
+    assert [getattr(ptrs, n) for n, _ in ks._SeqPtrs._fields_] == [
+        x.data_ptr() for x in loop.s.tensors().values()]
+    assert vals[9] == code
+    assert ks.LAUNCHES == {**{n: 0 for n in ks.LAUNCHES}, "seq_ratio": 1,
+                           "seq_snapshot": 1}
+    for n, x in loop.s.tensors().items():
+        assert _same(x, state[n]), n
+
+
+@pytest.mark.parametrize("policy", [
+    dict(bland_static=False, threshold=5, then_pre=True),
+    dict(bland_static=True, threshold=5, then_pre=False),
+    dict(bland_static=False, threshold=None, then_pre=True)],
+    ids=["threshold", "static", "never"])
+def test_k6_tail_launch_is_wired(monkeypatch, policy):
+    """K6 in the K6 loop on the card, the library stubbed: one
+    ``fused_pivot_seq_launch`` -- one kernel, its fold and the step after
+    the tail of its last tile block -- with as many arguments as its
+    ctypes signature: the four tensors' pointers, M, R, r, eps, the
+    workspace's five rows (four of partials, then the tail's counter,
+    zero), the scalars by reference, max_iter, the Bland mode, threshold
+    and then_pre; counting one launch of ``fused_pivot`` and one of its
+    tail ``seq_k6_tail``. A workspace without the counter's row, a row
+    not of whole 16-byte vectors, or another dtype pair raises."""
+    opts = _options("f32", "walk", use_pallas=True)
+    loop = solver.seq_loop(_phase1(opts), opts, pallas=True)
+    M, R = loop.Tt.shape
+    ws = loop.ws_pass
+    assert ws.shape == (5, -(-R // kp.COLS)) and not ws.any()
+    got, sig = _stub_card(monkeypatch, "fused_pivot_seq_launch")
+    ks.reset_launches()
+    kp.reset_launches()
+    ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, loop.s,
+                        loop.r, 1e-4, 77, ws, **policy)
+    (args,) = got
+    assert len(args) == len(sig) == 19
+    vals = _values(args)
+    assert vals[:8] == [x.data_ptr() for x in (
+        loop.Tt, loop.costs, loop.colk, loop.ah)] + [M, R, loop.r, 1e-4]
+    assert vals[8:13] == [x.data_ptr() for x in ws]
+    assert vals[12] == ws[4, 0].data_ptr()
+    ptrs = ctypes.cast(args[13], ctypes.POINTER(ks._SeqPtrs)).contents
+    assert [getattr(ptrs, n) for n, _ in ks._SeqPtrs._fields_] == [
+        x.data_ptr() for x in loop.s.tensors().values()]
+    mode = (kb.BLAND_STATIC if policy["bland_static"] else kb.BLAND_NEVER
+            if policy["threshold"] is None else kb.BLAND_THRESHOLD)
+    assert vals[14:18] == [77, mode, policy["threshold"] or 0,
+                           int(policy["then_pre"])]
+    assert kp.LAUNCHES["fused_pivot"] == 1
+    assert ks.LAUNCHES == {**{n: 0 for n in ks.LAUNCHES}, "seq_k6_tail": 1}
+    with pytest.raises(ValueError, match="ws"):
+        ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, loop.s,
+                            loop.r, 1e-4, 77, ws[:4], **policy)
+    with pytest.raises(ValueError, match="16-byte"):
+        ks.fused_pivot_tail(loop.Tt[:, :-2].contiguous(), loop.costs[:-2],
+                            loop.colk[:-2], loop.ah, loop.s, loop.r, 1e-4,
+                            77, **policy)
+    mixed = ks.seq_scalars(torch.zeros((), dtype=torch.float64), False,
+                           torch.float32)
+    with pytest.raises(ValueError, match="pure-f32"):
+        ks.fused_pivot_tail(loop.Tt, loop.costs, loop.colk, loop.ah, mixed,
+                            loop.r, 1e-4, 77, ws, **policy)
+    assert len(got) == 1

@@ -24,7 +24,12 @@ beside each wall the loop calls' ms/pivot with their captures taken
 out: the replayed chunks and the host read between them; with
 ``--trace`` as well one more solve whose phase-1 loop call torch.profiler
 traces, and the kernels of its middle replayed chunk, by name, in
-microseconds a pivot.
+microseconds a pivot. ``--k6`` with ``--seq N`` takes K6's loop instead
+(``solve_loop_pallas``: ``dtype`` and ``vector_dtype`` float32,
+``use_pallas=True``)::
+
+    python3 tools/flagship_walls.py --seq 2048 --k6 --trace \
+        --root _checkout/parent --root . --root . --root _checkout/parent
 
 Needs a CUDA card: a process that finds none exits non-zero.
 """
@@ -41,6 +46,7 @@ import time
 HERE = pathlib.Path(__file__).resolve()
 PROBLEM = pathlib.Path("data/examples/benchmark_problems/random_8192_8192.txt")
 PROD = dict(dtype="float32", vector_dtype="float64", block_pivots=128)
+K6 = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
 
 
 def sharded_solver(stack):
@@ -91,15 +97,17 @@ def sharded_solver(stack):
     return solve, phase1
 
 
-def seq_solver():
-    """``solve`` with the default options, and a list that each solve
-    appends its loop calls' (seconds, pivots, capture seconds) to."""
+def seq_solver(k6: bool):
+    """``solve`` with the default options (with ``k6``: K6's loop's),
+    and a list that each solve appends its loop calls' (seconds, pivots,
+    capture seconds) to."""
     import torch
 
     import simplex_tpu_torch as st
     from simplex_tpu_torch import solver
 
-    loop, capture = solver.solve_loop, solver.capture_chunk
+    name = "solve_loop_pallas" if k6 else "solve_loop"
+    loop, capture = getattr(solver, name), solver.capture_chunk
     calls, captures = [], []
 
     def timed_capture(*args, **kw):
@@ -121,18 +129,18 @@ def seq_solver():
         return out
 
     solver.capture_chunk = timed_capture
-    solver.solve_loop = timed_loop
+    setattr(solver, name, timed_loop)
     loops = []
 
     def solve(problem, **opts):
         del calls[:]
-        res = st.solve(problem, device="cuda")
+        res = st.solve(problem, device="cuda", **(K6 if k6 else {}))
         loops.append(tuple(map(sum, zip(*calls))))
         return res
     return solve, loops
 
 
-def trace_chunk(solve, problem) -> None:
+def trace_chunk(solve, problem, k6: bool) -> None:
     """One more solve with its first loop call traced by torch.profiler:
     the kernels of the middle replayed chunk (from one ``seq_step_pre`` to
     the kernel before the next) by name, in us a pivot, and the nodes a
@@ -147,7 +155,8 @@ def trace_chunk(solve, problem) -> None:
 
     from simplex_tpu_torch import solver
 
-    real, traced = solver.solve_loop, []
+    name = "solve_loop_pallas" if k6 else "solve_loop"
+    real, traced = getattr(solver, name), []
 
     def loop(*args, **kw):
         if traced:
@@ -158,11 +167,11 @@ def trace_chunk(solve, problem) -> None:
         traced.append(prof)
         return out
 
-    solver.solve_loop = loop
+    setattr(solver, name, loop)
     try:
         solve(problem)
     finally:
-        solver.solve_loop = real
+        setattr(solver, name, real)
     with tempfile.TemporaryDirectory() as td:
         path = pathlib.Path(td) / "trace.json"
         traced[0].export_chrome_trace(str(path))
@@ -191,7 +200,7 @@ def trace_chunk(solve, problem) -> None:
 
 
 def measure(root: pathlib.Path, solves: int, sharded: bool,
-            seq: int, trace: bool) -> int:
+            seq: int, trace: bool, k6: bool) -> int:
     """Solve the flagship from ``root``'s package once cold and ``solves``
     times warm on the card, printing each wall."""
     sys.path.insert(0, str(root))
@@ -218,7 +227,7 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
     if sharded:
         solve, phase1 = sharded_solver(stack)
     elif seq:
-        solve, phase1 = seq_solver()
+        solve, phase1 = seq_solver(k6)
     walls = []
     for i in range(solves + 1):
         torch.cuda.synchronize()
@@ -242,7 +251,7 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
         if i:
             walls.append(wall)
     if seq and trace:
-        trace_chunk(solve, problem)
+        trace_chunk(solve, problem, k6)
     if walls:
         med = statistics.median(walls)
         print(f"{root}: warm wall min {min(walls):.3f} median {med:.3f} max "
@@ -266,17 +275,20 @@ def main() -> int:
                          "sequential loop)")
     ap.add_argument("--trace", action="store_true",
                     help="with --seq: trace a replayed chunk's kernels")
+    ap.add_argument("--k6", action="store_true",
+                    help="with --seq: K6's loop (pure f32, use_pallas)")
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
         return measure(args.child.resolve(), args.solves, args.sharded,
-                       args.seq, args.trace)
+                       args.seq, args.trace, args.k6)
     for root in args.root or [HERE.parents[1]]:
         rc = subprocess.run([sys.executable, str(HERE), "--child", str(root),
                              "--solves", str(args.solves),
                              "--seq", str(args.seq)]
                             + (["--sharded"] if args.sharded else [])
                             + (["--trace"] if args.trace else [])
+                            + (["--k6"] if args.k6 else [])
                             ).returncode
         if rc != 0:
             return rc

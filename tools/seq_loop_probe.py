@@ -5,7 +5,9 @@
    from ``-Xptxas -v`` written to ``chiprun_out/seq_variants_ptxas.log``)
    and run: the ratio test and the pivot row's pass in every form tried,
    bit for bit against the kernels they replaced, and timed in turns
-   (``--no-variants`` skips it);
+   (``--no-variants`` skips it); then ``tools/k6_tail_variants.cu`` the
+   same way: the K6 loop's pivot in every form tried for its snapshot and
+   its fold and step after (``--no-k6-variants`` skips it);
 1. the kernel library's build (timed);
 2. ``chip_smoke.phase_seq_kernels``: each sequential kernel against its
    plain version at the main paths' shapes, bit for bit, and timed -- the
@@ -25,6 +27,7 @@
 Run from the root of a checkout on a CUDA card::
 
     python3 tools/seq_loop_probe.py [--no-big] [--no-variants]
+        [--no-k6-variants]
 """
 
 from __future__ import annotations
@@ -59,30 +62,30 @@ def turns(label: str, p, opts: dict, ways, pallas: bool = False) -> None:
                f"objective {res.objective!r}; pivots {w[0]}+{w[1]}")
 
 
-def variants() -> None:
-    """Build and run ``tools/seq_variants.cu``; its output to the log,
-    ptxas's report to ``chiprun_out/seq_variants_ptxas.log``."""
+def variants(name: str) -> None:
+    """Build and run ``tools/<name>.cu``; its output to the log,
+    ptxas's report to ``<name>_ptxas.log`` in the output directory."""
     from simplex_tpu_torch.kernels import _build
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory() as td:
-        exe = pathlib.Path(td) / "seq_variants"
+        exe = pathlib.Path(td) / name
         t0 = time.perf_counter()
         build = subprocess.run(
             [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-Xptxas", "-v", "-o", str(exe),
-             str(ROOT / "tools" / "seq_variants.cu")],
+             str(ROOT / "tools" / f"{name}.cu")],
             capture_output=True, text=True, timeout=900)
-        (out / "seq_variants_ptxas.log").write_text(build.stderr)
-        cs.require(build.returncode == 0, "seq_variants.cu did not build: "
+        (out / f"{name}_ptxas.log").write_text(build.stderr)
+        cs.require(build.returncode == 0, f"{name}.cu did not build: "
                    + build.stderr[-3000:])
-        cs.log(f"seq_variants.cu built in {time.perf_counter() - t0:.1f} s")
+        cs.log(f"{name}.cu built in {time.perf_counter() - t0:.1f} s")
         run = subprocess.run([str(exe)], capture_output=True, text=True,
                              timeout=900)
     for line in run.stdout.splitlines():
-        cs.log(f"seq_variants: {line}")
-    cs.require(run.returncode == 0, f"seq_variants exited {run.returncode}: "
+        cs.log(f"{name}: {line}")
+    cs.require(run.returncode == 0, f"{name} exited {run.returncode}: "
                + run.stderr[-2000:])
 
 
@@ -94,6 +97,8 @@ def main() -> int:
                         help="skip random_8192_8192")
     parser.add_argument("--no-variants", action="store_true",
                         help="skip tools/seq_variants.cu")
+    parser.add_argument("--no-k6-variants", action="store_true",
+                        help="skip tools/k6_tail_variants.cu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("seq_loop_probe: no CUDA card", file=sys.stderr)
@@ -108,7 +113,9 @@ def main() -> int:
     cs.log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     try:
         if not args.no_variants:
-            variants()
+            variants("seq_variants")
+        if not args.no_k6_variants:
+            variants("k6_tail_variants")
         records: dict = {}
         cs.phase_seq_kernels(records)
         for name, rec in records.items():

@@ -54,6 +54,9 @@
 
 #include "../simplex_tpu_torch/kernels/csrc/seq.cu"
 
+// The ticket forms' blocks: one row, or one column, a thread.
+constexpr int THREADS = 256;
+
 #define CK(x)                                                            \
     do {                                                                 \
         cudaError_t e_ = (cudaError_t)(x);                               \
