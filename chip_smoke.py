@@ -74,8 +74,18 @@ Phases, in order; any failed check exits non-zero:
 9. the 10,000 x 100,000 phase-1 tableau built on the card, run for 256
    pivots (2 windows);
 9a. the sharded path (``solve_sharded``) at world size 1 over NCCL, in
-   this process: random_1024_1024 with the default options (the walk of
-   ``solve``), random_2048_2048 and the flagship with the production
+   this process: random_1024_1024 with the default options (the
+   sequential sharded loop) three ways in turns -- one CUDA graph a chunk
+   of 32 pivots with its NCCL collectives inside, ``graph=False`` and the
+   old eager ``iteration_body_sharded`` -- each walking as ``solve``
+   (1,871 + 64) with every loop call's final state the graph run's bit
+   for bit; random_8192_8192 with the default options graphed walking as
+   ``solve`` (21,697 + 1,123), the sequential kernels' launch counters
+   set to 0 just before it and read just after (``seq_fold_column``,
+   ``seq_ratio_colk_sharded`` and ``seq_rank1`` launched); each run's
+   loop ms/pivot, capture ms and kernels a pivot (3 by the captured
+   launch counts, beside 2 ``all_gather``s and 1 ``all_reduce``) beside
+   the card's name and power limit; random_2048_2048 and the flagship with the production
    options -- the flagship certified within 1e-9, walking as ``solve``
    did, with the launch counters reset just before it and read just
    after (K5, K2-K4 and the sharded step kernels, K5's head and K2's
@@ -124,12 +134,17 @@ Phases, in order; any failed check exits non-zero:
    within 1e-9 (the latter of its base instance's f64 solve);
 10a. two spawned ranks on the one card over gloo: random_2048_2048 in
    production, the walk and certified objective of phase 9a's one rank;
+   random_1024_1024 with the default options (the sequential sharded
+   loop's kernels on each rank's slice, its collectives eager over gloo)
+   walking as ``solve`` to the golden within 1e-9, the loop's kernels
+   launched on each rank;
    the fleet of config 3's first 64 lanes, 32 a rank, bit for bit as
    ``solve_batch`` on one device, K7-K10's counters set to 0 on each rank
    just before the fleet's call and read just after (each launched);
 10b. where the host shows N > 1 cards: N ranks over NCCL, one card a
    rank -- random_2048_2048 and the flagship in production, twice each,
-   certified; config 3's 256 lanes as a fleet, checked as in 10a;
+   certified; random_1024_1024 with the default options walking as
+   ``solve``; config 3's 256 lanes as a fleet, checked as in 10a;
 10e. the measurement entry points in this process, each with K1-K4's
    and the step kernels' counters set to 0 just before and read just
    after (each launched):
@@ -192,7 +207,14 @@ Phases, in order; any failed check exits non-zero:
    with it less without) against their
    plain versions from 24 seeded states each (a NaN in b, a tie, no
    eligible row, Bland, the fuse), bit for bit, ``seq_rank1`` in turns
-   with ``batch_rank1`` at one lane and ``addr_``;
+   with ``batch_rank1`` at one lane and ``addr_``; the sequential
+   sharded loop's kernels (``seq_fold_column``, ``seq_ratio_colk_sharded``
+   with ``seq_rank1``) against their plain versions at the 8192^2 f64
+   tableau on two slices from 24 seeded states (a rank that does not own
+   h, a tie of the smallest cost across the slices) and on one from 8,
+   bit for bit, then timed on one; the latency floor of a one-thread
+   kernel (``tools/latency_floor.cu``: an empty kernel, one load, two
+   dependent loads) by the same clocks;
    each timed on the device by two clocks -- torch.profiler, and CUDA
    events (over a CUDA graph of 50 calls for K1, K2 and K5, over
    back-to-back calls for the rest) -- beside its bound and, where one
@@ -202,10 +224,12 @@ Phases, in order; any failed check exits non-zero:
    sharded at one NCCL rank (the kernels -- and the NCCL nodes, 5 + 2/L
    of them -- a pivot of a replayed window, the device's busy share
    inside a window and over its period), and the sequential loops'
-   phase-1 loop calls (random_1024_1024 f64, K6's random_2048_2048: the
-   kernels a pivot of each replayed chunk, the device's busy share
-   inside a chunk and over its period). These run last so that no
-   profiler run precedes the timed solves.
+   phase-1 loop calls (random_1024_1024 f64, K6's random_2048_2048, and
+   the f64 random_1024_1024 through ``solve_sharded`` at one NCCL rank:
+   the kernels -- and the sharded chunk's NCCL nodes -- a pivot of each
+   replayed chunk, the device's busy share inside a chunk and over its
+   period). These run last so that no profiler run precedes the timed
+   solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over HBM's 3.35 TB/s and its
@@ -217,8 +241,9 @@ kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 ``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
 or K2's time with it less their time without -- and the sharded step
 kernels with K2's sharded tails, the step after K2 and the pack, and
-K5's head, and the sequential loops' kernels with K6's tail, which
-replace XLA-fused glue, no Pallas kernel;
+K5's head, and the sequential loops' kernels with K6's tail and the
+sequential sharded loop's two, which replace XLA-fused glue, no Pallas
+kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -405,8 +430,15 @@ SEQ_KERNELS = {
     "seq_snapshot": ("glue", "simplex_tpu/solver.py:253", SEQ_SOURCE),
     "seq_k6_tail": ("glue", "simplex_tpu/solver.py:258",
                     "simplex_tpu_torch/kernels/csrc/pivot.cu"),
+    "seq_fold_column": ("glue", "simplex_tpu/parallel/sharded.py:116; "
+                        "simplex_tpu/parallel/sharded.py:166", SEQ_SOURCE),
+    "seq_ratio_colk_sharded": ("glue", "simplex_tpu/parallel/sharded.py:253",
+                               SEQ_SOURCE),
 }
 SEQS = tuple(SEQ_KERNELS)
+#: The sequential sharded loop's kernels (a pivot: seq_fold_column,
+#: seq_ratio_colk_sharded, seq_rank1 on the slice).
+SHARDED_SEQ_PATH = ("seq_fold_column", "seq_ratio_colk_sharded", "seq_rank1")
 #: Bytes the one-thread steps move on a taken pivot outside Bland mode,
 #: each input read once and each output written once (csrc/seq_step.cuh):
 #: seq_step_pre reads status, iterations, bland, h_d, v_d, h_b and v_b (33
@@ -2055,14 +2087,45 @@ def seq_nodes() -> int:
     return 2 * SEQ_CHUNK + 1
 
 
+def drive(body, state, max_iter: int):
+    """Run ``body`` (a ``solver.LoopState`` pivot) until the loop exits,
+    reading status and iterations once a chunk of at most ``SEQ_CHUNK``
+    pivots (never past the fuse): the old eager loops' driver. Returns
+    (state, status, iterations)."""
+    import torch
+
+    from simplex_tpu_torch import solver
+
+    st, it = solver.RUNNING, 0
+    while st == solver.RUNNING and it < max_iter:
+        for _ in range(min(solver.SEQ_CHUNK, max_iter - it)):
+            state = body(state)
+        st, it = (int(v) for v in
+                  torch.stack([state.status, state.iterations]).tolist())
+    return state, st, it
+
+
 def old_solve_loop(tab, options, max_iter):
     """The f64 sequential loop as it ran before its chunk's graph:
     ``iteration_body`` (about 40 torch calls a pivot) driven by
-    ``_drive``, one host read a chunk."""
+    ``drive``, one host read a chunk."""
     from simplex_tpu_torch import solver
 
-    state, st, it = solver._drive(
+    state, st, it = drive(
         lambda s: solver.iteration_body(s, options, max_iter),
+        solver.initial_state(tab, options), max_iter)
+    return state.tab, st, it
+
+
+def old_solve_loop_sharded(tab, shard, options, max_iter):
+    """The sequential sharded loop as it ran before its chunk's graph:
+    ``iteration_body_sharded`` (about 40 torch calls and three allocating
+    collectives a pivot) driven by ``drive``."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    state, st, it = drive(
+        lambda s: ps.iteration_body_sharded(s, shard, options, max_iter),
         solver.initial_state(tab, options), max_iter)
     return state.tab, st, it
 
@@ -3055,6 +3118,303 @@ def k6_tail_record(records: dict, a, s, eps: float, big: int,
         f"{records['seq_k6_tail']['check_ms']:.5f} ms")
 
 
+def sharded_seq_sets(M: int, R: int, P: int, g, eps: float):
+    """P ``ShardedSeqLoop`` slices of a seeded random f64 tableau on the
+    card (as ``seq_kernel_loop``'s: Tt in [-1, 1], b in [0, 100], the
+    costs in [-1, 1], the last 100 columns dead), twice: the kernels run
+    on one set, the plain versions on the other; and the options."""
+    import dataclasses
+
+    import torch
+
+    from simplex_tpu_torch.config import SolverOptions
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.tableau import Tableau
+
+    dev = torch.device("cuda")
+    f64 = torch.float64
+
+    def uni(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev, dtype=f64) * (
+            hi - lo) + lo
+
+    tab = Tableau(uni((M, R), -1.0, 1.0), uni((M,), 0.0, 100.0),
+                  uni((R,), -1.0, 1.0), torch.zeros((), dtype=f64,
+                                                    device=dev),
+                  torch.randint(0, R, (M,), generator=g, device=dev,
+                                dtype=torch.int32), n=R - M - 100, m=M,
+                  r=R - 100)
+    opts = SolverOptions(eps=eps)
+    sets = []
+    for _ in range(2):
+        slices = [ps.shard_tableau(tab, rank, P) for rank in range(P)]
+        # A slice of every column is the tableau itself: each set its own.
+        sets.append([ps.sharded_seq_loop(
+            dataclasses.replace(sl, Tt=sl.Tt.clone()),
+            pg.Shard(None, rank, P, R // P), opts)
+            for rank, sl in enumerate(slices)])
+        del slices
+    del tab
+    return sets, opts
+
+
+def fold_h(loops) -> int:
+    """The global h the next pivot's ``seq_fold_column`` folds from the
+    slices' send buffers (their ``all_gather``s, stacked here), by its
+    plain version on copies of rank 0's scalars."""
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
+    a = loops[0]
+    s = ks.SeqScalars(**{k: x.clone() for k, x in a.s.tensors().items()})
+    V = torch.stack([lp.send_v for lp in loops])
+    I = torch.stack([lp.send_i for lp in loops])
+    ks.seq_fold_column_plain(a.Tt, V, I, a.ah.clone(), s, 2 ** 30, 1e-9, 0)
+    return int(s.h)
+
+
+def sharded_seq_pivot(loops, kernel: bool, max_iter: int, eps: float,
+                      policy: dict) -> None:
+    """One pivot of ``run_chunk_sharded`` on P slices in this process:
+    the collectives by torch ops (the gathers stacked, the columns summed
+    in rank order), each rank's kernels (or their plain versions)
+    between them."""
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
+    V = torch.stack([lp.send_v for lp in loops])
+    I = torch.stack([lp.send_i for lp in loops])
+    for lp in loops:
+        lp.recv_v.copy_(V)
+        lp.recv_i.copy_(I)
+        (ks.seq_fold_column if kernel else ks.seq_fold_column_plain)(
+            lp.Tt, lp.recv_v, lp.recv_i, lp.ah, lp.s, max_iter, eps,
+            lp.shard.offset)
+    total = loops[0].ah.clone()
+    for lp in loops[1:]:
+        total += lp.ah
+    for lp in loops:
+        lp.ah.copy_(total)
+        if kernel:
+            ks.seq_ratio_colk_sharded(
+                lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk, lp.fac, lp.s,
+                lp.r_loc, eps, max_iter, offset=lp.shard.offset,
+                send_v=lp.send_v, send_i=lp.send_i, **policy)
+            ks.seq_rank1(lp.Tt, lp.fac, lp.colk, lp.s)
+        else:
+            ks.seq_ratio_colk_sharded_plain(
+                lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk, lp.fac, lp.s,
+                lp.r_loc, eps, max_iter, lp.shard.offset, lp.send_v,
+                lp.send_i, **policy)
+            ks.seq_rank1_plain(lp.Tt, lp.fac, lp.colk, lp.s)
+
+
+def phase_sharded_seq_kernels(records: dict) -> None:
+    """The sequential sharded loop's kernels against their plain versions
+    on the card at the main path's shapes (f64 random_8192_8192's phase 1:
+    M 8,192 x R 24,576, one slice at one rank): ``seq_fold_column`` and
+    ``seq_ratio_colk_sharded`` (with ``seq_rank1``), first on two slices
+    of that tableau (a rank that does not own h, a column offset) from 24
+    seeded states, then on one from 8 -- taken and skipped pivots, the
+    fuse, Bland on, a NaN in b on an eligible row, a tie of the smallest
+    quotient on two rows far apart, no eligible row, a tie of the
+    smallest cost across the slices -- every scalar, vector, buffer and
+    the slices bit for bit after each pivot. Then, on a taken pivot at
+    one slice, each timed by torch.profiler and by CUDA events over a
+    CUDA graph of 50 calls, beside its plain version and its bound, and
+    ``seq_ratio_colk_sharded`` beside ``seq_ratio_colk``'s record at the
+    same shape; then the latency floor (``latency_floor``)."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import seq as ks
+
+    M, R, eps, max_iter = 8192, 24576, 1e-9, 10
+    g = torch.Generator(device="cuda").manual_seed(20261022)
+    rng = np.random.default_rng(20261022)
+    policy = dict(bland_static=False, threshold=50)
+    for P, states in ((2, 24), (1, 8)):
+        (a_set, b_set), _ = sharded_seq_sets(M, R, P, g, eps)
+        R_loc = R // P
+        seen = collections.Counter()
+        for i in range(states):
+            edge = i % 7
+            stall = int(rng.integers(0, 60))
+            for loops in (a_set, b_set):
+                for lp in loops:
+                    s = lp.s
+                    s.status.fill_(kb.RUNNING)
+                    s.iterations.fill_(max_iter if edge == 1 else 3)
+                    s.bland.fill_(edge == 2)
+                    s.stall.fill_(stall)
+                if edge == 6:
+                    # The smallest cost twice, in the first slice's and
+                    # the last slice's first live column.
+                    v = min(float(lp.costs.min()) for lp in loops) - 1.0
+                    loops[0].costs[0] = v
+                    loops[-1].costs[1 if P == 1 else 0] = v
+                    for lp in (loops[0], loops[-1]):
+                        ks.pack_candidates(kb.entering_candidates(
+                            lp.costs, None, lp.r_loc, eps), lp.shard.offset,
+                            lp.send_v, lp.send_i)
+            if edge in (3, 4, 5):
+                h = fold_h(a_set)
+                own, loc = h // R_loc, h % R_loc
+                col = a_set[own].Tt[:, loc]
+                rows = torch.nonzero(col >= eps).view(-1)
+                for loops in (a_set, b_set):
+                    lp = loops[own]
+                    if edge == 3:
+                        for x in loops:
+                            x.b[rows[1]] = float("nan")
+                    elif edge == 4:
+                        lp.Tt[rows[-1], loc] = lp.Tt[rows[0], loc]
+                        for x in loops:
+                            x.b[rows[-1]] = x.b[rows[0]]
+                    else:
+                        saved = lp.Tt[:, loc].clone()
+                        lp.Tt[:, loc] = -saved.abs()
+            sharded_seq_pivot(a_set, True, max_iter, eps, policy)
+            sharded_seq_pivot(b_set, False, max_iter, eps, policy)
+            tag = f"sharded seq P={P} state {i}"
+            for rank, (a, b) in enumerate(zip(a_set, b_set)):
+                for name, x in a.s.tensors().items():
+                    equal(f"{tag} rank {rank} {name}", x, getattr(b.s, name))
+                for name in ("b", "costs", "base", "ah", "colk", "fac",
+                             "send_v", "send_i", "recv_v", "recv_i"):
+                    equal(f"{tag} rank {rank} {name}", getattr(a, name),
+                          getattr(b, name))
+                for j in range(0, M, 1024):
+                    equal(f"{tag} rank {rank} Tt rows {j}..",
+                          a.Tt[j:j + 1024], b.Tt[j:j + 1024])
+            s = a_set[0].s
+            seen["taken" if bool(s.do) else "skipped"] += 1
+            seen["unbounded"] += bool(s.unb)
+            for loops in (a_set, b_set):
+                for lp in loops:
+                    lp.b.nan_to_num_(nan=1.0)
+                    lp.s.z.nan_to_num_(nan=0.0)
+                if edge == 5:
+                    loops[own].Tt[:, loc] = saved
+        require(min(seen["taken"], seen["skipped"], seen["unbounded"]) > 0,
+                f"the sharded states miss a kind of pivot: {dict(seen)}")
+        log(f"sequential sharded kernels (f64, M={M} R={R} in {P} "
+            f"slice(s)): every scalar, vector, buffer and slice equal the "
+            f"plain versions' on {states} states ({dict(seen)})")
+        if P == 2:
+            del a_set, b_set
+            torch.cuda.empty_cache()
+
+    # A taken pivot far from the fuse, for the timings, at one slice.
+    (a,), big = a_set, 2 ** 30
+    s = a.s
+    s.status.fill_(kb.RUNNING)
+    s.iterations.fill_(0)
+    s.bland.fill_(False)
+    a.recv_v.copy_(a.send_v.view(1, 2))
+    a.recv_i.copy_(a.send_i.view(1, 2))
+    fold = (lambda: ks.seq_fold_column(a.Tt, a.recv_v, a.recv_i, a.ah, s,
+                                       big, eps, 0),
+            lambda: ks.seq_fold_column_plain(a.Tt, a.recv_v, a.recv_i,
+                                             a.ah, s, big, eps, 0))
+    fold[0]()
+    ratio = (lambda: ks.seq_ratio_colk_sharded(
+                 a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r_loc,
+                 eps, big, offset=0, send_v=a.send_v, send_i=a.send_i,
+                 **policy),
+             lambda: ks.seq_ratio_colk_sharded_plain(
+                 a.Tt, a.costs, a.b, a.base, a.ah, a.colk, a.fac, s, a.r_loc,
+                 eps, big, 0, a.send_v, a.send_i, **policy))
+    ratio[0]()
+    require(bool(s.do), "the timed sharded pivot is not taken")
+    timed = {
+        "seq_fold_column": (fold, "seq_fold_column_kernel",
+                            bound(2 * M * 8 + 24 + 47)),
+        "seq_ratio_colk_sharded": (ratio, "seq_ratio_colk_kernel",
+                                   bound(32 * M + 32 * R + 130,
+                                         f64_flops=2 * R + 4 * M)),
+    }
+    for name, ((fn, plain_fn), match, (bound_ms, by)) in timed.items():
+        require(kernels_launched(fn) == 1, f"one {name} call launched more "
+                "than one kernel")
+        prof = [device_ms(fn, 50, match=match) for _ in range(2)]
+        rec = records[name] = {
+            "max_abs_err": 0.0, "ms": statistics.mean(prof),
+            "plain_ms": device_ms(plain_fn, 20), "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None, "check_ms": graph_ms(fn)}
+        log(f"{name} M={M} R={R} f64: " + ", ".join(f"{x:.5f}" for x in prof)
+            + f" ms a call (torch.profiler), {rec['check_ms']:.5f} ms by "
+            f"CUDA events over a CUDA graph of 50 calls, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {bound_ms:.2e} ms ({by})")
+    single = records["seq_ratio"]["ms"] + records["seq_colk"]["ms"]
+    log(f"seq_ratio_colk_sharded {records['seq_ratio_colk_sharded']['ms']:.5f}"
+        f" ms against seq_ratio_colk {single:.5f} ms at the same shape "
+        "(seq_ratio's record and seq_colk's, phase_seq_kernels)")
+    del a, a_set, b_set
+    torch.cuda.empty_cache()
+    latency_floor()
+
+
+def latency_floor() -> None:
+    """The latency floor of a one-thread kernel, by the clocks of the
+    other kernels (torch.profiler; CUDA events over a CUDA graph of 50
+    calls): ``tools/latency_floor.cu``'s empty kernel, its one-element
+    copy (a store that waits on one global load) and its two dependent
+    loads (an index, then the element it names), built here by nvcc and
+    launched through ctypes on the current stream, each timed twice."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from simplex_tpu_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory() as td:
+        lib_path = pathlib.Path(td) / "liblatency.so"
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared",
+                        "-o", str(lib_path),
+                        str(ROOT / "tools" / "latency_floor.cu")],
+                       check=True, capture_output=True, timeout=300)
+        lib = ctypes.CDLL(str(lib_path))
+    P = ctypes.c_void_p
+    lib.latency_empty_launch.argtypes = [P]
+    lib.latency_load_launch.argtypes = [P, P, P]
+    lib.latency_chain_launch.argtypes = [P, P, P, P]
+    buf = torch.zeros(64, dtype=torch.int32, device="cuda")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def checked(err):
+        require(err == 0, f"the latency probe's launch failed ({err})")
+
+    fns = {
+        "empty": (lambda: checked(lib.latency_empty_launch(stream())),
+                  "latency_empty_kernel"),
+        "one load": (lambda: checked(lib.latency_load_launch(
+            buf.data_ptr(), buf.data_ptr() + 128, stream())),
+            "latency_load_kernel"),
+        "two dependent loads": (lambda: checked(lib.latency_chain_launch(
+            buf.data_ptr(), buf.data_ptr() + 64, buf.data_ptr() + 192,
+            stream())), "latency_chain_kernel"),
+    }
+    out = []
+    for name, (fn, match) in fns.items():
+        prof = [device_ms(fn, 50, match=match) for _ in range(2)]
+        graph = [graph_ms(fn) for _ in range(2)]
+        out.append(f"{name} " + ", ".join(f"{1e3 * x:.3f}" for x in prof)
+                   + " us (torch.profiler), " + ", ".join(
+                       f"{1e3 * x:.3f}" for x in graph)
+                   + " us (CUDA graph of 50 calls)")
+    torch.cuda.synchronize()
+    log("latency floor of a one-thread kernel (tools/latency_floor.cu): "
+        + "; ".join(out))
+
+
 #: The nodes of a chunk's graph by name (torch.profiler's kernel names).
 SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_colk_kernel",
                      "seq_ratio_snapshot_kernel", "batch_rank1_tiles",
@@ -3171,6 +3531,138 @@ def phase_chunk_trace() -> None:
             f"{w['us_pivot']:.2f} us a pivot ("
             + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
             + f"), its span {w['span_us']:.1f} us")
+
+
+#: The nodes of the sequential sharded loop's chunk graph by name: its
+#: kernels, and NCCL's collectives, kernels or device-to-device copies
+#: (at one rank an all_gather is a copy, the all_reduce no node).
+SHARDED_SEQ_KERNELS = ("seq_fold_column_kernel", "seq_ratio_colk_kernel",
+                       "batch_rank1_tiles")
+SHARDED_SEQ_NODES = (*SHARDED_SEQ_KERNELS, "nccl", "Memcpy DtoD")
+
+
+def sharded_chunk_stats(events: list, chunk: int) -> dict:
+    """From a chrome trace's events (kernels and copies), the replayed
+    chunks of a traced sequential sharded loop: a chunk runs from the
+    collectives before its first ``seq_fold_column`` to its ``chunk``-th
+    ``seq_rank1`` (the loop's first pack, before its first chunk, and the
+    host read's copies fall outside). Returns the chunks' count, the (min,
+    max) kernels and collective nodes a pivot, the (min, median, max) busy
+    share inside a chunk (its nodes' time over the span from its first
+    node's start to its last one's end) and over a chunk's period (to the
+    next chunk's first node: the host read included), and the middle
+    chunk's nodes by name, their us a pivot and its span."""
+    def kind(e):
+        return next(n for n in SHARDED_SEQ_NODES if n in e["name"])
+
+    nodes = sorted((e for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy")
+                    and any(n in e["name"] for n in SHARDED_SEQ_NODES)),
+                   key=lambda e: e["ts"])
+    first = next(i for i, e in enumerate(nodes)
+                 if kind(e) == "seq_fold_column_kernel")
+    start = first
+    while (start > 0 and first - start < 2
+           and kind(nodes[start - 1]) not in SHARDED_SEQ_KERNELS):
+        start -= 1
+    chunks, cur, rank1 = [], [], 0
+    for e in nodes[start:]:
+        cur.append(e)
+        if kind(e) == "batch_rank1_tiles":
+            rank1 += 1
+            if rank1 == chunk:
+                chunks.append(cur)
+                cur, rank1 = [], 0
+    require(len(chunks) >= 3 and not cur, f"the trace holds {len(chunks)} "
+            f"whole chunks and {len(cur)} nodes past them")
+    kernels = [sum(kind(e) in SHARDED_SEQ_KERNELS for e in c) / chunk
+               for c in chunks]
+    colls = [sum(kind(e) not in SHARDED_SEQ_KERNELS for e in c) / chunk
+             for c in chunks]
+    inside, period = [], []
+    for i, c in enumerate(chunks):
+        span = max(e["ts"] + e["dur"] for e in c) - c[0]["ts"]
+        inside.append(sum(e["dur"] for e in c) / span)
+        if i + 1 < len(chunks):
+            period.append(sum(e["dur"] for e in c)
+                          / (chunks[i + 1][0]["ts"] - c[0]["ts"]))
+    mid = chunks[len(chunks) // 2]
+
+    def spread(x):
+        return min(x), statistics.median(x), max(x)
+
+    by_name: dict = collections.defaultdict(float)
+    for e in mid:
+        by_name[kind(e)] += e["dur"] / chunk
+    return dict(
+        chunks=len(chunks), kernels=(min(kernels), max(kernels)),
+        colls=(min(colls), max(colls)), inside=spread(inside),
+        period=spread(period),
+        names=dict(collections.Counter(kind(e) for e in mid)),
+        us_by_name=dict(by_name),
+        us_pivot=sum(e["dur"] for e in mid) / chunk,
+        span_us=max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"])
+
+
+def phase_sharded_seq_trace() -> None:
+    """The default-option random_1024_1024 through ``solve_sharded`` at one
+    NCCL rank, its phase-1 sequential sharded loop call traced by
+    torch.profiler (CUDA activity): the kernels a pivot of each replayed
+    chunk (3: ``SHARDED_SEQ_KERNELS``) and NCCL's nodes a pivot, the
+    device's busy share inside a chunk and over its period (the host's
+    read of status included). Runs after every timed solve."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    real = ps.solve_loop_sharded
+    first = []
+
+    def loop(*args, **kw):
+        if first:
+            return real(*args, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+        first.append((prof, out[2]))
+        return out
+
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "nccl", td) as group:
+        def run():
+            first.clear()
+            ps.solve_loop_sharded = loop
+            try:
+                timed_sharded(benchmark_problem(1024), group, {})
+            finally:
+                ps.solve_loop_sharded = real
+            return first[0]
+
+        prof, pivots = until_traced(run, "the sharded chunk trace")
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    w = sharded_chunk_stats(events, solver.SEQ_CHUNK)
+    require(w["kernels"] == (3.0, 3.0), f"{w['kernels']} kernels a pivot in "
+            "the traced sharded chunks, not 3")
+    log(f"sharded 1-rank f64 random_1024_1024 phase-1 loop traced ({pivots}"
+        f" pivots, {w['chunks']} chunks): {w['kernels'][0]:.5f} kernels and "
+        f"{w['colls'][0]:.5f}-{w['colls'][1]:.5f} NCCL nodes a pivot in "
+        f"every replayed chunk (the middle one: {w['names']}); device busy "
+        f"inside a chunk {100 * w['inside'][0]:.1f}-"
+        f"{100 * w['inside'][2]:.1f}% (median {100 * w['inside'][1]:.1f}%), "
+        f"over a chunk's period with the host read "
+        f"{100 * w['period'][0]:.1f}-{100 * w['period'][2]:.1f}% (median "
+        f"{100 * w['period'][1]:.1f}%); the middle chunk's nodes "
+        f"{w['us_pivot']:.2f} us a pivot ("
+        + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
+        + f"), its span {w['span_us']:.1f} us; {nvidia_smi_line()}")
 
 
 def phase_r1024() -> None:
@@ -4458,11 +4950,98 @@ def check_fleet(label: str, nranks: int, backend: str, problems) -> float:
     return wall
 
 
+def sharded_seq_loops(p, group, way: str, keep: list | None = None,
+                      against: list | None = None) -> dict:
+    """One ``solve_sharded(p)`` with the default options (f64, Dantzig,
+    L = 1) on ``group``, its sequential sharded loop
+    (``solve_loop_sharded``) run ``way``: "graph" (one CUDA graph a
+    chunk of 32 pivots, its NCCL collectives inside), "eager"
+    (``graph=False``: the same kernels and collectives enqueued eagerly)
+    or "old" (``old_solve_loop_sharded``). Returns, as ``seq_loops``, the
+    result, the solve's wall, each loop call's wall and pivots, each
+    capture's ms and kernels a pivot by the captured launch counts, which
+    must be 3 (``SHARDED_SEQ_PATH``), beside 2 ``all_gather``s and 1
+    ``all_reduce`` a pivot by the captured collective counts. Each loop
+    call's final state is appended to ``keep`` as copies, or held to
+    ``against``'s bit for bit."""
+    import torch
+
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    chunk = solver.SEQ_CHUNK
+    real, real_capture = ps.solve_loop_sharded, ps.capture_chunk_sharded
+    calls, captures, per_pivot = [], [], []
+
+    def capture(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(*args)
+        torch.cuda.synchronize()
+        captures.append(1e3 * (time.perf_counter() - t0))
+        per = out[1].per_replay
+        kernels = sum(n for k, n in per.items() if k not in ks.TAILS)
+        colls = dict(out[2].counts)
+        require(kernels == 3 * chunk and all(
+            per[k] == chunk for k in SHARDED_SEQ_PATH), f"the sharded "
+            f"chunk graph holds {per}, not {len(SHARDED_SEQ_PATH)} kernels"
+            " a pivot")
+        require(colls == {"all_gather": 2 * chunk, "all_reduce": chunk},
+                f"the sharded chunk graph holds the collectives {colls}")
+        per_pivot.append(kernels / chunk)
+        return out
+
+    def loop(tab, shard, options, max_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if way == "old":
+            out, st, it = old_solve_loop_sharded(tab, shard, options,
+                                                 max_iter)
+        else:
+            out, st, it = real(tab, shard, options, max_iter,
+                               graph=way == "graph")
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, it))
+        final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
+                 "base": out.base, "status": torch.tensor(st),
+                 "iterations": torch.tensor(it)}
+        if keep is not None:
+            keep.append({k: v.clone() for k, v in final.items()})
+        if against is not None:
+            for k, want in against[len(calls) - 1].items():
+                equal(f"sharded {way} loop call {len(calls)} {k}", final[k],
+                      want)
+        return out, st, it
+
+    ps.solve_loop_sharded = loop
+    ps.capture_chunk_sharded = capture
+    try:
+        res, wall = timed_sharded(p, group, {})
+    finally:
+        ps.solve_loop_sharded = real
+        ps.capture_chunk_sharded = real_capture
+    require(len(captures) == (len(calls) if way == "graph" else 0),
+            f"{len(captures)} captures in {len(calls)} sharded loop calls")
+    pivots = sum(c[1] for c in calls)
+    loop_s = sum(c[0] for c in calls)
+    return dict(res=res, wall=wall, calls=calls, captures=captures,
+                per_pivot=per_pivot, pivots=pivots,
+                ms_pivot=1e3 * loop_s / pivots)
+
+
 def phase_sharded_one_rank(launches: dict, walks: dict,
                            northstar: tuple) -> dict:
     """The sharded path at world size 1 over NCCL, in this process:
     random_1024_1024 with the default options (the sequential sharded
-    loop; the walk of ``solve``), random_2048_2048 and the flagship with
+    loop) three ways in turns -- one CUDA graph a chunk, ``graph=False``
+    and the old eager ``iteration_body_sharded`` -- each walking as
+    ``solve`` with every loop call's final state the graph run's bit for
+    bit; random_8192_8192 with the default options graphed, walking as
+    ``solve`` (21,697 + 1,123), the sequential kernels' launch counters
+    set to 0 just before it and read just after (``SHARDED_SEQ_PATH``
+    launched); each run's ms/pivot, capture ms and kernels a pivot beside
+    the card's name and power limit; random_2048_2048 and the flagship with
     the production options (the kernel loop over K5, K2, K3/K4, and the
     restart tier on the slices), the flagship certified within 1e-9 and
     walking as ``solve`` did in this process, with the launch counters
@@ -4477,21 +5056,49 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
     from simplex_tpu_torch.bench import bench_problem
     from simplex_tpu_torch.config import SolverOptions
     from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import seq as ks
     from simplex_tpu_torch.parallel import group as pg
     from simplex_tpu_torch.parallel.sharded import (
         build_phase1_sharded, gaussian_eliminate_sharded,
         run_solve_loop_sharded, sharded_padded_dims)
 
+    smi = nvidia_smi_line()
     with tempfile.TemporaryDirectory() as td, \
             pg.world(0, 1, "nccl", td) as group:
-        res, wall = timed_sharded(benchmark_problem(1024), group, {})
-        w = (res.iterations_phase1, res.iterations_phase2)
-        check_objective("sharded f64 random_1024_1024", res, OBJ_1024, 1e-9)
-        require(w == walks[1024], f"sharded f64 random_1024_1024 walked "
-                f"{w}, solve {walks[1024]}")
-        log(f"sharded, 1 rank, f64 random_1024_1024: objective "
-            f"{res.objective!r}, pivots {w[0]}+{w[1]} as solve; wall "
-            f"{wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot")
+        keep: list = []
+        for n, ways in ((1024, ("graph", "eager", "old")), (8192, ("graph",))):
+            p = benchmark_problem(n)
+            for i, way in enumerate(ways):
+                if n == 8192:
+                    ks.reset_launches()
+                r = sharded_seq_loops(p, group, way,
+                                      keep=keep if n == 1024 and i == 0
+                                      else None,
+                                      against=keep if n == 1024 and i
+                                      else None)
+                if n == 8192:
+                    for name in SHARDED_SEQ_PATH:
+                        require(ks.LAUNCHES[name] > 0, f"{name} never "
+                                "launched on the sequential sharded path")
+                    launches.update({k: ks.LAUNCHES[k]
+                                     for k in SHARDED_SEQ_PATH[:2]})
+                res = r["res"]
+                label = f"sharded, 1 rank, f64 random_{n}_{n} {way}"
+                check_objective(label, res, OBJ_1024 if n == 1024
+                                else OBJ_8192, 1e-9)
+                w = (res.iterations_phase1, res.iterations_phase2)
+                require(w == F64_WALKS[n], f"{label} walked {w}, solve "
+                        f"{F64_WALKS[n]}")
+                log(seq_line(label, r).replace("nodes a pivot", "kernels a "
+                                               "pivot")
+                    + f"; objective {res.objective!r}, pivots "
+                    f"{w[0]}+{w[1]} as solve; {smi}"
+                    + (f"; launches {dict(ks.LAUNCHES)}" if n == 8192
+                       else ""))
+        log("sharded, 1 rank, f64 random_1024_1024: graph, graph=False and "
+            "the old eager body walked as solve, every loop call's final "
+            "state bit for bit the graph run's")
+        del keep
 
         r2048, wall = timed_sharded(benchmark_problem(2048), group, PROD)
         check_certified("sharded random_2048_2048", r2048, OBJ_2048)
@@ -4506,9 +5113,14 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
         # a pivot.
         vals = torch.zeros(5, dtype=torch.float64, device="cuda")
         col = torch.zeros(8192, dtype=torch.float32, device="cuda")
+        into = torch.zeros((1, 5), dtype=torch.float64, device="cuda")
         per = {}
-        for name, fn in (("all_gather", lambda: pg.all_gather(vals, group)),
-                         ("all_reduce", lambda: pg.all_reduce(col, group))):
+        for name, fn in (
+                ("all_gather", lambda: pg.all_gather(vals, group)),
+                ("all_reduce", lambda: pg.all_reduce(col, group)),
+                ("all_gather_into", lambda: pg.all_gather_into(into, vals,
+                                                               group)),
+                ("all_reduce_", lambda: pg.all_reduce_(col, group))):
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4517,8 +5129,10 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
             torch.cuda.synchronize()
             per[name] = 1e6 * (time.perf_counter() - t0) / 500
         log(f"NCCL at 1 rank: {per['all_gather']:.1f} us per all_gather of "
-            f"5 scalars, {per['all_reduce']:.1f} us per (8192,) all_reduce "
-            "(host clock over 500 back-to-back calls)")
+            f"5 scalars, {per['all_reduce']:.1f} us per (8192,) all_reduce; "
+            f"in place {per['all_gather_into']:.1f} and "
+            f"{per['all_reduce_']:.1f} us (host clock over 500 back-to-back "
+            "calls)")
 
         kb.reset_launches()
         pg.reset_counts()
@@ -4574,24 +5188,58 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
     return r2048
 
 
+def seq_sharded_rank(group, device, cases):
+    """A spawned rank: the sequential kernels' launch counters set to 0
+    just before ``solve_sharded`` of each (problem, options) in ``cases``
+    and read just after. Returns (the results, every rank's counts of
+    ``SHARDED_SEQ_PATH`` in rank order)."""
+    import torch.distributed as dist
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.kernels import seq as ks
+
+    ks.reset_launches()
+    res = [st.solve_sharded(p, group, o, device=device) for p, o in cases]
+    counts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(counts, {k: ks.LAUNCHES[k]
+                                    for k in SHARDED_SEQ_PATH}, group=group)
+    return res, counts
+
+
 def phase_sharded_two_ranks(r2048) -> None:
     """Two ranks on the one card over gloo (spawned processes; gloo moves
     the CUDA tensors through host memory, so these times say nothing of
     sharded speed): random_2048_2048 in production walking as at one rank
-    to the same certified objective (1e-12); then the fleet of config 3's
-    first 64 lanes, 32 a rank, every lane bit for bit as ``solve_batch``
-    gives it on one device, K7-K10 launched on each rank."""
+    to the same certified objective (1e-12); random_1024_1024 with the
+    default options (the sequential sharded loop, eager over gloo, its
+    kernels on each rank's slice) walking as ``solve`` (1,871 + 64) to the
+    golden within 1e-9, ``SHARDED_SEQ_PATH`` launched on each rank; then
+    the fleet of config 3's first 64 lanes, 32 a rank, every lane bit for
+    bit as ``solve_batch`` gives it on one device, K7-K10 launched on each
+    rank."""
     import torch
 
     import simplex_tpu_torch as st
     from simplex_tpu_torch.parallel.group import spawn
-    from simplex_tpu_torch.parallel.sharded import solve_sharded_rank
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    (two,) = spawn(solve_sharded_rank, 2, "gloo", "cuda",
-                   [(benchmark_problem(2048), st.SolverOptions(**PROD))])
+    (two, f64), counts = spawn(
+        seq_sharded_rank, 2, "gloo", "cuda",
+        [(benchmark_problem(2048), st.SolverOptions(**PROD)),
+         (benchmark_problem(1024), st.SolverOptions())])
     wall = time.perf_counter() - t0
+    label = "sharded, 2 gloo ranks on one card, f64 random_1024_1024"
+    check_objective(label, f64, OBJ_1024, 1e-9)
+    w = (f64.iterations_phase1, f64.iterations_phase2)
+    require(w == F64_WALKS[1024], f"{label} walked {w}, solve "
+            f"{F64_WALKS[1024]}")
+    for rank, c in enumerate(counts):
+        for name in SHARDED_SEQ_PATH:
+            require(c[name] > 0, f"{label}: {name} never launched on rank "
+                    f"{rank}")
+    log(f"{label}: objective {f64.objective!r}, pivots {w[0]}+{w[1]} as "
+        f"solve; launches per rank {counts}")
     w1 = (r2048.iterations_phase1, r2048.iterations_phase2)
     w2 = (two.iterations_phase1, two.iterations_phase2)
     check_certified("two-rank random_2048_2048", two, OBJ_2048)
@@ -4601,8 +5249,8 @@ def phase_sharded_two_ranks(r2048) -> None:
             f"rank's {r2048.objective!r}")
     log(f"sharded, 2 gloo ranks on one card, random_2048_2048: pivots "
         f"{w2[0]}+{w2[1]} as at one rank, certified objective "
-        f"{two.objective!r} (rel {rel:.1e}); {wall:.3f} s with the two "
-        f"processes' start")
+        f"{two.objective!r} (rel {rel:.1e}); {wall:.3f} s for it and the "
+        f"f64 random_1024_1024 with the two processes' start")
 
     n, m, seeds = CONFIG3
     problems = [st.generate_random_problem(n, m, s, 1, 100)
@@ -4615,8 +5263,10 @@ def phase_sharded_cards(cards: int) -> None:
     over NCCL, one card a rank (run when the host shows more than one
     card): random_2048_2048 and the flagship in production, each solved
     twice by the ranks (the second warm), certified within 1e-9 of the
-    golden, their walks beside ``solve``'s on one card; then config 3's
-    256 lanes split across the ranks (``check_fleet``)."""
+    golden, their walks beside ``solve``'s on one card; random_1024_1024
+    with the default options (the sequential sharded loop) walking as
+    ``solve``; then config 3's 256 lanes split across the ranks
+    (``check_fleet``)."""
     import simplex_tpu_torch as st
     from simplex_tpu_torch.parallel.group import spawn
 
@@ -4629,9 +5279,19 @@ def phase_sharded_cards(cards: int) -> None:
     t0 = time.perf_counter()
     runs = spawn(time_sharded_rank, cards, "nccl", "cuda",
                  [(benchmark_problem(n), opts) for n, _, _, _ in cases
-                  for _ in range(2)])
+                  for _ in range(2)]
+                 + [(benchmark_problem(1024), st.SolverOptions())])
     log(f"{cards} NCCL ranks: {len(runs)} sharded solves in "
         f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    f64, wall = runs.pop()
+    label = f"f64 random_1024_1024 on {cards} NCCL ranks"
+    check_objective(label, f64, OBJ_1024, 1e-9)
+    w = (f64.iterations_phase1, f64.iterations_phase2)
+    require(w == F64_WALKS[1024], f"{label} walked {w}, solve "
+            f"{F64_WALKS[1024]}")
+    log(f"{label} (the sequential sharded loop, one CUDA graph a chunk): "
+        f"objective {f64.objective!r}, pivots {w[0]}+{w[1]} as solve; "
+        f"wall {wall:.3f} s = {1e3 * wall / sum(w):.4f} ms/pivot")
     for i, (n, gold, single, wall1) in enumerate(cases):
         w1 = (single.iterations_phase1, single.iterations_phase2)
         for j, (res, wall) in enumerate(runs[2 * i:2 * i + 2]):
@@ -4678,7 +5338,8 @@ def main() -> int:
     cards = torch.cuda.device_count()
     records: dict = {}
     # Launches on each kernel's path: K1-K4 the single-card flagship, K5
-    # (and K2-K4 again) the sharded flagship, K6 the pure-f32 solve,
+    # (and K2-K4 again) the sharded flagship, the sequential sharded
+    # kernels the default-option sharded 8192^2, K6 the pure-f32 solve,
     # K7-K10 config 3's first call, batch_rank1 config 3 with the default
     # options; K11 and K12 are on no path.
     launches = {name: 0 for name in ORDER}
@@ -4697,7 +5358,7 @@ def main() -> int:
         phase_resumable(flagship_wall)
         northstar = phase_northstar()
         r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
-        for name in ("ah", *SHARDED_STEPS):
+        for name in ("ah", *SHARDED_STEPS, *SHARDED_SEQ_PATH[:2]):
             launches[name] = sharded_launches[name]
         phase_batch_spread()
         batch_launches: dict = {}
@@ -4730,9 +5391,11 @@ def main() -> int:
         phase_batch_reprice(records)
         phase_rank1_kernel(records)
         phase_seq_kernels(records)
+        phase_sharded_seq_kernels(records)
         phase_batch_trace()
         phase_window_trace()
         phase_chunk_trace()
+        phase_sharded_seq_trace()
         phase_sharded_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -176,6 +176,14 @@ SIGNATURES = {
                                          _P],
     # Tt b base ah colk M R eps scalars pair stream
     "seq_ratio_snapshot_launch": [_P] * 5 + [_I, _I, _D, _P, _I, _P],
+    # Tt V I P M R offset ah scalars max_iter eps pair stream
+    "seq_fold_column_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                               ctypes.c_longlong, _D, _I, _P],
+    # Tt costs b base ah colk fac M R r eps scalars, max_iter, bland mode,
+    # threshold, offset, send_v send_i pair stream
+    "seq_ratio_colk_sharded_launch": [_P] * 7 + [_I, _I, _I, _D, _P,
+                                                 ctypes.c_longlong, _I, _I,
+                                                 _I, _P, _P, _I, _P],
 }
 
 

@@ -811,14 +811,23 @@ def sharded_pack_plain(s: ShardedScalars, w, offset: int, vals,
         idx[i].copy_(torch.where(x >= BIG_INDEX, BIG_INDEX, offset + x))
 
 
+def fold_owners(V, I):
+    """The ranks whose gathered candidates win the fold (``V`` (P, 5 or
+    2) f64, ``I`` (P, 2) int32): the main candidate's, the first rank with
+    the largest key (the devex key, else ``-v_d``; a NaN key anywhere
+    makes the max NaN, which no key equals: rank 0), and the Bland one's,
+    the first rank with the lowest global index. 0-dim int64 tensors."""
+    key = V[:, 4] if V.shape[1] == 5 else -V[:, 0]
+    return (torch.argmax((key == key.max()).to(torch.int8)),
+            torch.argmin(I[:, 1]))
+
+
 def sharded_fold_plain(s: ShardedScalars, V, I) -> None:
     """Plain version of ``sharded_fold``: the main candidate from the
     first rank with the largest key, the Bland one from the first rank
     with the lowest global index."""
     devex = V.shape[1] == 5
-    key = V[:, 4] if devex else -V[:, 0]
-    od = torch.argmax((key == key.max()).to(torch.int8))
-    ob = torch.argmin(I[:, 1])
+    od, ob = fold_owners(V, I)
     s.h_d.copy_(I[od, 0])
     s.v_d.copy_(V[od, 0])
     s.h_b.copy_(I[ob, 1])

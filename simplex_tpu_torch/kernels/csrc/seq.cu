@@ -42,13 +42,31 @@
 // * K6 with the step after as the tail of its last tile block
 //   (csrc/pivot.cu).
 //
+// The sequential sharded loop (parallel.sharded.solve_loop_sharded, the
+// JAX loop under shard_map, simplex_tpu/parallel/sharded.py:240-286), on
+// each rank's slice of the variable axis, a pivot after the two
+// all_gathers of the candidates every rank packed:
+//
+// * seq_fold_column (a grid, one thread a row): the fold of the gathered
+//   candidates (sharded_step.cuh sharded::fold) and the step before the
+//   ratio test in each block's thread 0, then the owner's column of the
+//   slice, or zeros, into ``ah``, which an all_reduce sums across the
+//   ranks;
+// * seq_ratio_colk's SHARDED form: the ratio test on the summed ``ah``,
+//   the pass over the slice, the slice's candidates packed into the
+//   all_gather send buffers, and the step after without the next step
+//   before;
+// * seq_rank1 on the slice.
+//
 // seq_ratio (one cluster: the ratio test and the step between alone,
 // block 0 folding) is what the K6 loop launched before the snapshot
 // became its tail; it stays, the baseline that the tails' own cost is
 // measured against.
 //
 // plus seq_step_pre (one thread) once a chunk, before its first pivot:
-// 2 SEQ_CHUNK + 1 nodes in either loop. Every kernel reads its
+// 2 SEQ_CHUNK + 1 nodes in either loop; the sharded loop's chunk holds 3
+// SEQ_CHUNK kernels and its collectives (at one NCCL rank two device
+// copies a pivot). Every kernel reads its
 // scalars from the loop's fixed 0-dim tensors (kernels.seq.SeqScalars), so
 // the chunk's graph holds no host value but max_iter, eps, r and the Bland
 // policy.
@@ -104,6 +122,7 @@
 
 #include "cluster.cuh"
 #include "seq_step.cuh"
+#include "sharded_step.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -269,10 +288,12 @@ __device__ __forceinline__ void store(const SeqStep<T, V> &s,
 }
 
 // This thread's rows of the ratio test (rows g, g + SPAN, ...), PER at a
-// time, b and the gathers of a_h of the PER issued before any is waited
-// for: a_h into ah, each row's candidate folded into x and its eligibility
-// into any. The first PER rows' a_h and b stay in a0 and b0.
-template <typename T, typename V, int PER_, int SPAN>
+// time, b and the loads of a_h of the PER issued before any is waited
+// for: with GATHER a_h gathered from Tt's column h into ah, else read from
+// ah (the sharded loop's column, summed across the ranks); each row's
+// candidate folded into x and its eligibility into any. The first PER
+// rows' a_h and b stay in a0 and b0.
+template <typename T, typename V, int PER_, int SPAN, bool GATHER = true>
 __device__ __forceinline__ void ratio_rows(const T *__restrict__ Tt,
                                            const V *__restrict__ b,
                                            T *__restrict__ ah, int M, int R,
@@ -287,14 +308,14 @@ __device__ __forceinline__ void ratio_rows(const T *__restrict__ Tt,
             const int j = j0 + q * SPAN;
             if (j < M) {
                 bj[q] = b[j];
-                a[q] = Tt[(size_t)j * R + h];
+                a[q] = GATHER ? Tt[(size_t)j * R + h] : ah[j];
             }
         }
 #pragma unroll
         for (int q = 0; q < PER_; ++q) {
             const int j = j0 + q * SPAN;
             if (j < M) {
-                ah[j] = a[q];
+                if (GATHER) ah[j] = a[q];
                 const bool mask = a[q] >= eps;
                 any |= mask;
                 take_first(x, Ratio<T, V>{mask ? div_rn(bj[q], (V)a[q])
@@ -447,7 +468,8 @@ struct RatioShared {
     Between<T, V> held;
 };
 
-template <typename T, typename V, int NB, int NT, int PER_>
+template <typename T, typename V, int NB, int NT, int PER_,
+          bool GATHER = true>
 __device__ __forceinline__ Between<T, V> ratio_cluster(
         RatioShared<T, V, NB, NT / 32> &sh, const T *__restrict__ Tt,
         const V *__restrict__ b, T *__restrict__ ah, int M, int R, int h,
@@ -461,8 +483,8 @@ __device__ __forceinline__ Between<T, V> ratio_cluster(
     const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
     Ratio<T, V> x = none;
     bool any = false;
-    ratio_rows<T, V, PER_, SPAN>(Tt, b, ah, M, R, h, (T)eps, rank * NT + tid,
-                                 x, any, a0, b0);
+    ratio_rows<T, V, PER_, SPAN, GATHER>(Tt, b, ah, M, R, h, (T)eps,
+                                         rank * NT + tid, x, any, a0, b0);
     block_fold<NW>(x, any, none, sh.warps, sh.wany);
     cluster_wait();
     if (warp == 0 && lane < NB) {
@@ -545,13 +567,24 @@ __global__ void __launch_bounds__(NT) seq_ratio_kernel(
 // every thread reads before the first cluster barrier and block 0's tail
 // rewrites after the second, and the step between, which each block's
 // thread 0 hands to its block through shared memory.
+//
+// SHARDED (seq_ratio_colk_sharded, the sequential sharded loop's pivot on
+// a rank's slice of R = R_loc columns from global column ``offset``): the
+// ratio test reads the column the all_reduce summed into ah (no gather);
+// h is global, so base[k] = h as it is; the candidates over the slice's
+// live columns are packed into the all_gather send buffers (send_v [v_d,
+// v_b] f64, send_i the global h_d and h_b, BIG_INDEX kept) in place of
+// the scalars, which the next pivot's seq_fold_column folds across the
+// ranks; and the step after runs without the next step before (the
+// launcher's policy has then_pre 0), which needs that fold.
 
-template <typename T, typename V, int NB, int NT, int PER_>
+template <typename T, typename V, int NB, int NT, int PER_, bool SHARDED>
 __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
         const T *__restrict__ Tt, V *__restrict__ costs, V *__restrict__ b,
         int *__restrict__ base, T *__restrict__ ah, T *__restrict__ colk,
         T *__restrict__ fac, int M, int R, int r, double eps,
-        SeqStep<T, V> s, seq::Policy pol) {
+        SeqStep<T, V> s, seq::Policy pol, int offset,
+        double *__restrict__ send_v, int *__restrict__ send_i) {
     constexpr int NW = NT / 32, SPAN = NB * NT;
     __shared__ RatioShared<T, V, NB, NW> rsh;
     __shared__ Cands<V> cwarps[NW];
@@ -587,7 +620,7 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
     // The ratio test: every block folds every block's result.
     T a0[PER_];
     V b0[PER_];
-    const Between<T, V> w = ratio_cluster<T, V, NB, NT, PER_>(
+    const Between<T, V> w = ratio_cluster<T, V, NB, NT, PER_, !SHARDED>(
             rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, in.active,
             in.optimal, minc, s, a0, b0);
 
@@ -613,15 +646,65 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
     if (lane != 0) return;
     const seq::Candidates<V> c{cx.idx, cx.val, cx.bidx,
                                cx.bidx == BIG_INDEX ? inf<V>() : cx.bval};
-    *s.h_d = c.h_d;
-    *s.v_d = c.v_d;
-    *s.h_b = c.h_b;
-    *s.v_b = c.v_b;
+    if (SHARDED) {                               // cx.idx < R: a column wins
+        send_v[0] = (double)c.v_d;
+        send_v[1] = (double)c.v_b;
+        send_i[0] = offset + c.h_d;
+        send_i[1] = c.h_b == BIG_INDEX ? BIG_INDEX : offset + c.h_b;
+    } else {
+        *s.h_d = c.h_d;
+        *s.v_d = c.v_d;
+        *s.h_b = c.h_b;
+        *s.v_b = c.v_b;
+    }
     if (w.d) base[w.k] = h_raw;                  // before the step rewrites h
     in.unb = w.unb;
     in.u = w.u;
     in.bk = w.bk;
     seq::post(s, in, w.d, c, pol);
+}
+
+// ---------------------------------------------------------------------------
+// seq_fold_column: the sequential sharded loop's first kernel a pivot. Its
+// head, in each block's thread 0: the fold of the candidates every rank
+// packed (sharded_step.cuh sharded::fold over V (P, 2) f64 and I (P, 2)
+// int32, the body sharded_fold and K5's head share), then the step before
+// the ratio test (seq::pre: active, h, minc, optimal) on the folded
+// candidates, which block 0 stores with them; then each thread writes its
+// rows of ah: the slice's column h - offset where this rank owns the
+// global h, else zeros (+0.0, as torch.where writes them), the owner's
+// column that the all_reduce after it sums across the ranks. One thread a
+// row, COL_THREADS a block.
+
+constexpr int COL_THREADS = 256;
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(COL_THREADS) seq_fold_column_kernel(
+        const T *__restrict__ Tt, const double *__restrict__ Vg,
+        const int *__restrict__ Ig, int P, int M, int R, int offset,
+        T *__restrict__ ah, SeqStep<T, V> s, long long max_iter,
+        double eps) {
+    __shared__ int col;                          // h's local column, or -1
+    if (threadIdx.x == 0) {
+        const int status = *s.status, iterations = *s.iterations;
+        const bool bland = *s.bland != 0;
+        const sharded::Fold f = sharded::fold(Vg, Ig, P, 2);
+        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+        const int h = bland && c.h_b < BIG_INDEX ? c.h_b : c.h_d;
+        const long long loc = (long long)h - offset;
+        col = loc >= 0 && loc < R ? (int)loc : -1;
+        if (blockIdx.x == 0) {
+            *s.h_d = c.h_d;
+            *s.v_d = c.v_d;
+            *s.h_b = c.h_b;
+            *s.v_b = c.v_b;
+            seq::pre(s, status, iterations, bland, c, max_iter, eps);
+        }
+    }
+    __syncthreads();
+    const int hl = col;
+    const int j = blockIdx.x * COL_THREADS + threadIdx.x;
+    if (j < M) ah[j] = hl >= 0 ? Tt[(size_t)j * R + hl] : (T)0;
 }
 
 // ---------------------------------------------------------------------------
@@ -692,21 +775,39 @@ int ratio_run(const void *Tt, const void *b, int M, int R, double eps,
                           static_cast<T *>(ah), step_of<T, V>(step));
 }
 
-template <typename T, typename V>
+// SHARDED: the sharded form, packing into send_v and send_i at the
+// slice's offset; pol.then_pre must be 0 there.
+template <typename T, typename V, bool SHARDED = false>
 int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
                    void *colk, void *fac, int M, int R, int r, double eps,
                    const void *step, const seq::Policy &pol,
-                   cudaStream_t st) {
-    if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
-    auto kernel =
-            seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS, CLUSTER_THREADS, PER>;
+                   cudaStream_t st, int offset = 0, double *send_v = nullptr,
+                   int *send_i = nullptr) {
+    if (M < 1 || R < 1 || (SHARDED && (pol.then_pre || send_v == nullptr
+                                       || send_i == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    auto kernel = seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS,
+                                        CLUSTER_THREADS, PER, SHARDED>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
     return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
                           static_cast<const T *>(Tt), static_cast<V *>(costs),
                           static_cast<V *>(b), base, static_cast<T *>(ah),
                           static_cast<T *>(colk), static_cast<T *>(fac), M, R,
-                          r, eps, step_of<T, V>(step), pol);
+                          r, eps, step_of<T, V>(step), pol, offset, send_v,
+                          send_i);
+}
+
+template <typename T, typename V>
+int fold_column_run(const void *Tt, const double *V_, const int *I, int P,
+                    int M, int R, int offset, void *ah, const void *step,
+                    long long max_iter, double eps, cudaStream_t st) {
+    if (M < 1 || R < 1 || P < 1) return (int)cudaErrorInvalidValue;
+    seq_fold_column_kernel<T, V>
+            <<<(M + COL_THREADS - 1) / COL_THREADS, COL_THREADS, 0, st>>>(
+                    static_cast<const T *>(Tt), V_, I, P, M, R, offset,
+                    static_cast<T *>(ah), step_of<T, V>(step), max_iter, eps);
+    return (int)cudaGetLastError();
 }
 
 // Row k goes 16 bytes a load: R a multiple of 4, Tt and colk 16-byte
@@ -784,6 +885,57 @@ int seq_ratio_colk_launch(const void *Tt, void *costs, void *b, int *base,
     case PAIR_F32:
         return ratio_colk_run<float, float>(Tt, costs, b, base, ah, colk, fac,
                                             M, R, r, eps, step, pol, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The sequential sharded loop's column: Tt the slice (M, R) from global
+// column offset, V (P, 2) f64 and I (P, 2) int32 the gathered candidates,
+// ah (M,) of the tableau's dtype.
+int seq_fold_column_launch(const void *Tt, const double *V, const int *I,
+                           int P, int M, int R, int offset, void *ah,
+                           const void *step, long long max_iter, double eps,
+                           int pair, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return fold_column_run<double, double>(Tt, V, I, P, M, R, offset, ah,
+                                               step, max_iter, eps, st);
+    case PAIR_MIXED:
+        return fold_column_run<float, double>(Tt, V, I, P, M, R, offset, ah,
+                                              step, max_iter, eps, st);
+    case PAIR_F32:
+        return fold_column_run<float, float>(Tt, V, I, P, M, R, offset, ah,
+                                             step, max_iter, eps, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The sequential sharded loop's pivot but its rank-1 update, on the slice
+// (M, R) from global column offset: ah the summed column, r the slice's
+// live columns, send_v (2,) f64 and send_i (2,) int32 the send buffers.
+int seq_ratio_colk_sharded_launch(const void *Tt, void *costs, void *b,
+                                  int *base, void *ah, void *colk, void *fac,
+                                  int M, int R, int r, double eps,
+                                  const void *step, long long max_iter,
+                                  int bland_mode, int threshold, int offset,
+                                  double *send_v, int *send_i, int pair,
+                                  void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const seq::Policy pol{max_iter, eps, bland_mode, threshold, 0};
+    switch (pair) {
+    case PAIR_F64:
+        return ratio_colk_run<double, double, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    case PAIR_MIXED:
+        return ratio_colk_run<float, double, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    case PAIR_F32:
+        return ratio_colk_run<float, float, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
     }
     return (int)cudaErrorInvalidValue;
 }

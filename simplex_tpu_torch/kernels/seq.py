@@ -29,6 +29,19 @@ and of the K6 loop two as well --
 ``seq_ratio`` alone (one cluster) stays, the baseline of its tails'
 own cost.
 
+The sequential sharded loop (``parallel.sharded.solve_loop_sharded``, the
+JAX loop under ``shard_map``, ``simplex_tpu/parallel/sharded.py:240-286``)
+runs on each rank's slice, after the two ``all_gather``s of the
+candidates every rank packed --
+
+* ``seq_fold_column``: the fold of the gathered candidates and the step
+  before the ratio test as its head, then the owner's column (zeros on
+  the other ranks) into ``ah``, which an ``all_reduce`` sums in place;
+* ``seq_ratio_colk_sharded`` (one cluster): ``seq_ratio_colk``'s form
+  with the ratio test on the summed ``ah``, the slice's candidates packed
+  into the send buffers and no next step before;
+* ``seq_rank1`` on the slice.
+
 As in the other kernel modules each has a hand-written CUDA kernel
 (``csrc/seq.cu``, ``csrc/pivot.cu``; the step's body ``csrc/seq_step.cuh``)
 built at first use, a plain PyTorch version taken for CPU tensors (and by
@@ -49,9 +62,9 @@ import dataclasses
 
 import torch
 
-from .blocked import (RUNNING, _bland_mode, _cdiv, _expect, _index,
-                      _on_card, _ptr, _stream, entering_candidates,
-                      step_post_plain, step_pre_plain)
+from .blocked import (BIG_INDEX, RUNNING, _bland_mode, _cdiv, _expect,
+                      _index, _on_card, _ptr, _stream, entering_candidates,
+                      fold_owners, step_post_plain, step_pre_plain)
 from .pivot import LAUNCHES as PIVOT_LAUNCHES
 from .pivot import COLS, fused_pivot_plain, rank1_plan
 
@@ -62,7 +75,8 @@ from .pivot import COLS, fused_pivot_plain, rank1_plan
 #: ``seq_ratio``, and K6's fold with the step after it (``seq_k6_tail``)
 #: in K6's last tile block, counted in ``kernels.pivot.LAUNCHES``.
 LAUNCHES = {"seq_step_pre": 0, "seq_ratio": 0, "seq_colk": 0,
-            "seq_rank1": 0, "seq_snapshot": 0, "seq_k6_tail": 0}
+            "seq_rank1": 0, "seq_snapshot": 0, "seq_k6_tail": 0,
+            "seq_fold_column": 0, "seq_ratio_colk_sharded": 0}
 TAILS = {"seq_colk": "seq_ratio", "seq_snapshot": "seq_ratio",
          "seq_k6_tail": "fused_pivot"}
 
@@ -214,6 +228,12 @@ def seq_ratio_plain(Tt, b, s: SeqScalars, ah, eps: float) -> None:
     M, R = Tt.shape
     ah.copy_(Tt.index_select(1, s.h.long().clamp(max=R - 1).view(1))
              .view(M))
+    _ratio_plain(b, s, ah, eps)
+
+
+def _ratio_plain(b, s: SeqScalars, ah, eps: float) -> None:
+    """The ratio test on the column ``ah`` and the step between."""
+    M = ah.shape[0]
     mask = ah >= eps
     k = torch.argmin(torch.where(mask, b / torch.where(mask, ah, 1.0),
                                  torch.inf))
@@ -286,13 +306,19 @@ def seq_colk_plain(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
     iterations and, with ``then_pre``, the next pivot's step before the
     ratio test. On the card it runs as the second half of
     ``seq_ratio_colk``."""
+    _colk_plain(Tt, costs, b, base, ah, colk, fac, s)
+    set_candidates(s, entering_candidates(costs, None, r, eps))
+    step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
+
+
+def _colk_plain(Tt, costs, b, base, ah, colk, fac, s: SeqScalars) -> None:
+    """The pivot row's pass: colk, and the costs, the factors, b and base
+    of a done pivot."""
     R = Tt.shape[1]
     colk.copy_(Tt.index_select(0, s.k.long().view(1)).view(R))
     costs.copy_(torch.where(s.do, costs - s.u * colk.to(costs.dtype), costs))
     f = _update_b(b, base, ah, s)
     fac.copy_(torch.where(s.do, f, fac))
-    set_candidates(s, entering_candidates(costs, None, r, eps))
-    step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
 
 
 def seq_ratio_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
@@ -327,6 +353,134 @@ def seq_ratio_colk(Tt, costs, b, base, ah, colk, fac, s: SeqScalars, r: int,
     check(lib, err, "seq_ratio_colk")
     LAUNCHES["seq_ratio"] += 1
     LAUNCHES["seq_colk"] += 1
+
+
+# ---------------------------------------------------------------------------
+# The sequential sharded loop's kernels: seq_fold_column, and
+# seq_ratio_colk's sharded form.
+
+def pack_candidates(cands, offset: int, send_v, send_i) -> None:
+    """A slice's candidates ``(h_d, v_d, h_b, v_b)`` (local columns, as
+    ``entering_candidates`` gives them) into the ``all_gather`` send
+    buffers (``entering_sharded``'s ``vals`` and ``idxs``,
+    ``parallel/sharded.py``): ``send_v`` (2,) f64 ``[v_d, v_b]``,
+    ``send_i`` (2,) int32 the global indices, ``BIG_INDEX`` kept. The
+    values widen exactly to f64, and the fold orders them as in their own
+    dtype."""
+    h_d, v_d, h_b, v_b = cands
+    send_v.copy_(torch.stack([v_d.to(send_v.dtype), v_b.to(send_v.dtype)]))
+    send_i.copy_(torch.stack([
+        (offset + h_d.long()),
+        torch.where(h_b >= BIG_INDEX, BIG_INDEX, offset + h_b.long())])
+        .to(send_i.dtype))
+
+
+def _check_gathered(V, I) -> None:
+    P = V.shape[0]
+    _expect(V, "V", _F64, (P, 2))
+    _expect(I, "I", _I32, (P, 2))
+
+
+def seq_fold_column_plain(Tt, V, I, ah, s: SeqScalars, max_iter: int,
+                          eps: float, offset: int) -> None:
+    """Plain version of ``seq_fold_column``: ``fold_candidates``' fold and
+    ``entering_sharded``'s choice (``parallel/sharded.py``), then
+    ``gather_column``'s owner column before its ``all_reduce``."""
+    od, ob = fold_owners(V, I)
+    set_candidates(s, (I[od, 0], V[od, 0], I[ob, 1], V[ob, 1]))
+    step_pre_plain(s, max_iter, eps)
+    M, R = Tt.shape
+    loc = s.h.long() - offset
+    own = (loc >= 0) & (loc < R)
+    col = Tt.index_select(1, loc.clamp(0, R - 1).view(1)).view(M)
+    ah.copy_(torch.where(own, col, 0.0))
+
+
+def seq_fold_column(Tt, V, I, ah, s: SeqScalars, max_iter: int, eps: float,
+                    offset: int) -> None:
+    """The sequential sharded loop's first kernel a pivot
+    (``simplex_tpu/parallel/sharded.py:118-178``, ``entering_sharded`` and
+    the owner's half of ``broadcast_entering_column``): the fold of the
+    candidates every rank packed, ``V`` (P, 2) f64 and ``I`` (P, 2)
+    int32 -- the main one from the first rank with the smallest value (a
+    NaN anywhere: rank 0), the Bland one from the first rank with the
+    lowest global index -- into ``s``'s h_d, v_d, h_b and v_b; the step
+    before the ratio test (``seq_step_pre``'s active, h, minc and
+    optimal; h global); then ``ah`` the slice's column ``h - offset``
+    where this rank's slice of ``Tt``'s columns owns h, else zeros. On the
+    card one grid, one thread a row, each block's thread 0 folding (block
+    0 storing the scalars)."""
+    M, R = Tt.shape
+    _expect(Tt, "Tt", s.p.dtype, (M, R))
+    _expect(ah, "ah", s.p.dtype, (M,))
+    _check_gathered(V, I)
+    if not _on_card(Tt, V, I, ah, s.status):
+        seq_fold_column_plain(Tt, V, I, ah, s, max_iter, eps, offset)
+        return
+    pair = _pair(s)
+    lib, check = _lib()
+    err = lib.seq_fold_column_launch(
+        _ptr(Tt), _ptr(V), _ptr(I), V.shape[0], M, R, offset, _ptr(ah),
+        ctypes.byref(_seq_ptrs(s)), max_iter, float(eps), pair, _stream(Tt))
+    check(lib, err, "seq_fold_column")
+    LAUNCHES["seq_fold_column"] += 1
+
+
+def seq_ratio_colk_sharded_plain(Tt, costs, b, base, ah, colk, fac,
+                                 s: SeqScalars, r: int, eps: float,
+                                 max_iter: int, offset: int, send_v, send_i,
+                                 bland_static: bool, threshold) -> None:
+    """Plain version of ``seq_ratio_colk_sharded``: ``iteration_body_
+    sharded``'s ratio test on the summed column and ``pivot_update``'s
+    vector half on the slice, as they ran eagerly; the candidates packed
+    as ``entering_sharded`` packed them; ``step_post_plain`` without the
+    next step before."""
+    _ratio_plain(b, s, ah, eps)
+    _colk_plain(Tt, costs, b, base, ah, colk, fac, s)
+    pack_candidates(entering_candidates(costs, None, r, eps), offset,
+                    send_v, send_i)
+    step_post_plain(s, max_iter, eps, bland_static, threshold, False)
+
+
+def seq_ratio_colk_sharded(Tt, costs, b, base, ah, colk, fac, s: SeqScalars,
+                           r: int, eps: float, max_iter: int, *,
+                           offset: int, send_v, send_i, bland_static: bool,
+                           threshold) -> None:
+    """A pivot of the sequential sharded loop but its rank-1 update, on a
+    rank's slice ``Tt`` (M, R_loc) from global column ``offset``
+    (``simplex_tpu/parallel/sharded.py:253-279``): ``seq_ratio``'s test
+    and step between on ``ah``, the column the ``all_reduce`` summed;
+    ``seq_colk_plain``'s pass on the slice (colk, the costs, the factors,
+    b and ``base[k] = h``, h global); the candidates over the slice's
+    ``r`` live columns packed into ``send_v`` and ``send_i``
+    (``pack_candidates``) for the next pivot's ``all_gather``s; then the
+    step after without the next step before, which needs them folded.
+    One launch on the card: ``seq_ratio_colk``'s cluster with the test
+    reading ``ah`` and the pack in block 0's tail."""
+    M, R = Tt.shape
+    T, V = s.p.dtype, s.z.dtype
+    _expect(Tt, "Tt", T, (M, R))
+    for name, x, dt, n in (("costs", costs, V, R), ("b", b, V, M),
+                           ("base", base, _I32, M), ("ah", ah, T, M),
+                           ("colk", colk, T, R), ("fac", fac, T, M),
+                           ("send_v", send_v, _F64, 2),
+                           ("send_i", send_i, _I32, 2)):
+        _expect(x, name, dt, (n,))
+    if not _on_card(Tt, costs, b, base, ah, colk, fac, send_v, send_i,
+                    s.status):
+        seq_ratio_colk_sharded_plain(Tt, costs, b, base, ah, colk, fac, s, r,
+                                     eps, max_iter, offset, send_v, send_i,
+                                     bland_static, threshold)
+        return
+    pair = _pair(s)
+    lib, check = _lib()
+    err = lib.seq_ratio_colk_sharded_launch(
+        _ptr(Tt), _ptr(costs), _ptr(b), _ptr(base), _ptr(ah), _ptr(colk),
+        _ptr(fac), M, R, r, float(eps), ctypes.byref(_seq_ptrs(s)), max_iter,
+        *_policy(bland_static, threshold), offset, _ptr(send_v),
+        _ptr(send_i), pair, _stream(Tt))
+    check(lib, err, "seq_ratio_colk_sharded")
+    LAUNCHES["seq_ratio_colk_sharded"] += 1
 
 
 def seq_snapshot_plain(Tt, b, base, ah, colk, s: SeqScalars) -> None:

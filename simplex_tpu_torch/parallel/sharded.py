@@ -49,7 +49,7 @@ import torch.distributed as dist
 from ..config import (DEFAULT_OPTIONS, EPS_REL_F32, SolverOptions, Status,
                       kernel_blocked_enabled, normalize_enabled,
                       refine_enabled)
-from ..kernels.blocked import (BIG_INDEX, CapturedLaunches, ShardedScalars,
+from ..kernels.blocked import (BIG_INDEX, ShardedScalars,
                                ah, ah_fold_head, ah_plain,
                                anticycling_update, apply_reprice,
                                apply_window, colk_costs_sharded_tail,
@@ -57,10 +57,14 @@ from ..kernels.blocked import (BIG_INDEX, CapturedLaunches, ShardedScalars,
                                exit_status, sharded_fold, sharded_pack,
                                sharded_ratio, sharded_scalars,
                                sharded_step_pre)
+from ..kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
+from ..kernels.seq import LAUNCHES as SEQ_LAUNCHES
+from ..kernels.seq import (SeqScalars, pack_candidates, seq_fold_column,
+                           seq_rank1, seq_ratio_colk_sharded, seq_scalars)
 from ..problem import Problem
 from ..result import SolveResult
-from ..solver import (OPTIMAL, RUNNING, LoopState, _at, _drive,
-                      initial_state, pivot_update, ratio_test)
+from ..solver import (OPTIMAL, RUNNING, SEQ_CHUNK, LoopState, _at, _capture,
+                      pivot_update, ratio_test)
 from ..tableau import (Tableau, count_basic_artificials, extract_solution,
                        phase1_objective, round_up, tt_matvec)
 from ..two_phase import DeviceSolveOutput, certify, resolve_device
@@ -265,11 +269,13 @@ def entering_sharded(costs: torch.Tensor, bland: torch.Tensor, r: int,
 def iteration_body_sharded(state: LoopState, shard: Shard,
                            options: SolverOptions,
                            max_iter: int) -> LoopState:
-    """One pivot of the sequential sharded loop (``solve_loop_sharded``'s
-    body, ``sharded.py:253-279``): the entering fold, the entering column
-    from its owner, the replicated ratio test, and the port's
-    ``pivot_update`` on the local slice (the same rounding as ``solve``);
-    idempotent once the loop has finished."""
+    """One pivot of the sequential sharded loop as it ran eagerly
+    (``solve_loop_sharded``'s body, ``sharded.py:253-279``; about 40
+    torch calls and three allocating collectives): the entering fold, the
+    entering column from its owner, the replicated ratio test, and the
+    port's ``pivot_update`` on the local slice (the same rounding as
+    ``solve``); idempotent once the loop has finished. The reference that
+    the tests and ``chip_smoke.py`` hold ``solve_loop_sharded`` to."""
     eps = float(options.eps_resolved)
     tab = state.tab
     active = (state.status == RUNNING) & (state.iterations < max_iter)
@@ -289,14 +295,157 @@ def iteration_body_sharded(state: LoopState, shard: Shard,
                      state.iterations + do.to(torch.int32), stall, bland)
 
 
+@dataclasses.dataclass
+class ShardedSeqLoop:
+    """The sequential sharded loop's state on one rank (``solver.SeqLoop``
+    on a slice): a fixed set of tensors, each only ever updated in place,
+    since a CUDA graph of the chunk bakes in every pointer it reads -- its
+    collectives' buffers included. ``Tt`` is the caller's slice; b, the
+    slice's costs and base the loop's own copies; ``ah`` the (M_pad,)
+    column ``seq_fold_column`` writes and the ``all_reduce`` sums in
+    place; ``colk`` the slice's leaving row and ``fac`` the factors;
+    ``send_v``, ``send_i`` and ``recv_v``, ``recv_i`` the two candidate
+    ``all_gather``s' buffers ((2,) f64 and (2,) int32, and (P, 2) of
+    each); ``s`` the scalars (h global); ``shard`` the rank's slice and
+    ``r_loc`` its live columns."""
+
+    Tt: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    ah: torch.Tensor
+    colk: torch.Tensor
+    fac: torch.Tensor
+    send_v: torch.Tensor
+    send_i: torch.Tensor
+    recv_v: torch.Tensor
+    recv_i: torch.Tensor
+    s: SeqScalars
+    shard: Shard
+    r_loc: int
+
+
+def sharded_seq_loop(tab: Tableau, shard: Shard,
+                     options: SolverOptions) -> ShardedSeqLoop:
+    """The state at the start of ``solve_loop_sharded``: status RUNNING
+    and the slice's first candidates packed into the send buffers
+    (``entering_candidates``, ``pack_candidates``), with no collective:
+    each pivot's two ``all_gather``s fold them."""
+    Tt = tab.Tt
+    M, R_loc = Tt.shape
+    dev, dt = Tt.device, Tt.dtype
+    f64, i32 = torch.float64, torch.int32
+    loop = ShardedSeqLoop(
+        Tt, b=tab.b.clone(), costs=tab.costs.clone(),
+        base=tab.base.to(i32).clone(),
+        ah=torch.zeros(M, dtype=dt, device=dev),
+        colk=torch.zeros(R_loc, dtype=dt, device=dev),
+        fac=torch.zeros(M, dtype=dt, device=dev),
+        send_v=torch.empty(2, dtype=f64, device=dev),
+        send_i=torch.empty(2, dtype=i32, device=dev),
+        recv_v=torch.empty((shard.size, 2), dtype=f64, device=dev),
+        recv_i=torch.empty((shard.size, 2), dtype=i32, device=dev),
+        s=seq_scalars(tab.z.to(tab.costs.dtype),
+                      options.pivot_rule_resolved == "bland", dt),
+        shard=shard, r_loc=shard.local_r(tab.r))
+    pack_candidates(entering_candidates(loop.costs, None, loop.r_loc,
+                                        float(options.eps_resolved)),
+                    shard.offset, loop.send_v, loop.send_i)
+    return loop
+
+
+def run_chunk_sharded(loop: ShardedSeqLoop, options: SolverOptions,
+                      max_iter: int, pivots: int = SEQ_CHUNK) -> None:
+    """Enqueue ``pivots`` pivots with no host read, each: the two
+    ``all_gather``s of the candidates the pivot before packed (or the
+    loop's start), ``seq_fold_column`` (their fold and the step before as
+    its head, then the owner's column), the ``all_reduce`` of the column,
+    ``seq_ratio_colk_sharded`` (the ratio test, the slice's pass, the
+    pack and the step after) and ``seq_rank1`` on the slice: 2
+    ``all_gather``s, 1 ``all_reduce`` and 3 launches a pivot, the body a
+    CUDA graph captures (at one NCCL rank an ``all_gather`` is a device
+    copy and the ``all_reduce`` no node). A skipped pivot still issues
+    its collectives on every rank, and leaves the slice untouched."""
+    eps = float(options.eps_resolved)
+    policy = dict(bland_static=options.pivot_rule_resolved == "bland",
+                  threshold=options.bland_threshold)
+    s, sh = loop.s, loop.shard
+    for _ in range(pivots):
+        all_gather_into(loop.recv_v, loop.send_v, sh.group)
+        all_gather_into(loop.recv_i, loop.send_i, sh.group)
+        seq_fold_column(loop.Tt, loop.recv_v, loop.recv_i, loop.ah, s,
+                        max_iter, eps, sh.offset)
+        all_reduce_(loop.ah, sh.group)
+        seq_ratio_colk_sharded(loop.Tt, loop.costs, loop.b, loop.base,
+                               loop.ah, loop.colk, loop.fac, s, loop.r_loc,
+                               eps, max_iter, offset=sh.offset,
+                               send_v=loop.send_v, send_i=loop.send_i,
+                               **policy)
+        seq_rank1(loop.Tt, loop.fac, loop.colk, s)
+
+
+def _capture_collectives(run, device, *tables):
+    """``solver._capture`` of ``run`` with the collectives it issues:
+    (graph, ``CapturedLaunches``, ``CapturedCollectives``). The group's
+    communicator must be up (a collective issued on it before); the
+    capture is thread-local, so ProcessGroupNCCL's watchdog thread may go
+    on querying its events meanwhile. A failed capture raises."""
+    with CapturedCollectives() as colls:
+        graph, launches = _capture(run, device, *tables)
+    return graph, launches, colls
+
+
+def capture_chunk_sharded(loop: ShardedSeqLoop, options: SolverOptions,
+                          max_iter: int):
+    """One chunk of ``SEQ_CHUNK`` pivots (``run_chunk_sharded``) captured
+    as a CUDA graph with its NCCL collectives: (graph,
+    ``CapturedLaunches``, ``CapturedCollectives``)."""
+    return _capture_collectives(
+        lambda: run_chunk_sharded(loop, options, max_iter), loop.Tt.device,
+        SEQ_LAUNCHES, PIVOT_LAUNCHES)
+
+
 def solve_loop_sharded(tab: Tableau, shard: Shard, options: SolverOptions,
-                       max_iter: int) -> tuple[Tableau, int, int]:
-    """``sharded.py:240-286``: pivots until OPTIMAL / UNBOUNDED / the
-    fuse, the host reading status once per ``SEQ_CHUNK`` pivots."""
-    state, st, it = _drive(
-        lambda s: iteration_body_sharded(s, shard, options, max_iter),
-        initial_state(tab, options), max_iter)
-    return state.tab, st, it
+                       max_iter: int, *, graph: bool = True
+                       ) -> tuple[Tableau, int, int]:
+    """The sequential sharded loop (``sharded.py:240-286``): pivots until
+    OPTIMAL / UNBOUNDED / the fuse, the host reading status once per
+    ``SEQ_CHUNK`` pivots; the slice updated in place, b, the costs, z and
+    base the loop's (``ShardedSeqLoop``). Each pivot is
+    ``iteration_body_sharded``'s arithmetic as three kernels and three
+    collectives (``run_chunk_sharded``), bit for bit.
+
+    Where the group's collectives can be captured (NCCL on the card,
+    ``group.capturable``) a chunk is one CUDA graph, its collectives
+    inside, captured once a call and replayed once a chunk -- the JAX
+    ``lax.while_loop`` under ``shard_map``; a chunk past the exit or the
+    fuse runs skipped pivots. ``graph=False`` enqueues the same kernels
+    and collectives eagerly, the on-card comparison path. Gloo ranks and
+    the CPU run eagerly (the CPU with the plain versions), a chunk cut at
+    the fuse as the eager body was: ``max_iter - iterations`` pivots at
+    most."""
+    loop = sharded_seq_loop(tab, shard, options)
+    s = loop.s
+    replay = graph and capturable(shard.group, tab.Tt)
+    captured = None
+    st, it = RUNNING, 0
+    while st == RUNNING and it < max_iter:
+        if replay:
+            if captured is None:
+                captured = capture_chunk_sharded(loop, options, max_iter)
+            cuda_graph, launches, colls = captured
+            cuda_graph.replay()
+            launches.replayed()
+            colls.replayed()
+        else:
+            run_chunk_sharded(loop, options, max_iter,
+                              min(SEQ_CHUNK, max_iter - it))
+        # The chunk's one host sync.
+        st, it = (int(v) for v in
+                  torch.stack([s.status, s.iterations]).tolist())
+    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=s.z,
+                              base=loop.base)
+    return out, st, it
 
 
 # ---------------------------------------------------------------------------
@@ -541,26 +690,12 @@ def run_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
 
 def capture_window_sharded(loop: ShardedKernelLoop, options: SolverOptions,
                            max_iter: int):
-    """One window (``run_window_sharded``) captured as a CUDA graph on a
-    side stream, with its NCCL collectives, and the launches and
-    collectives it holds: (graph, ``CapturedLaunches``,
-    ``CapturedCollectives``). A capture runs nothing, so the state does
-    not move; the kernel library is loaded first, outside it, and the
-    communicator is up (``sharded_kernel_loop``'s fold). The capture is
-    thread-local, so ProcessGroupNCCL's watchdog thread may go on querying
-    its events meanwhile. A failed capture raises."""
-    from ..kernels._build import load_library
-
-    load_library()
-    graph = torch.cuda.CUDAGraph()
-    with CapturedLaunches() as launches, CapturedCollectives() as colls, \
-            torch.cuda.stream(torch.cuda.Stream(loop.Tt.device)):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            run_window_sharded(loop, options, max_iter)
-        finally:
-            graph.capture_end()
-    return graph, launches, colls
+    """One window (``run_window_sharded``) captured as a CUDA graph with
+    its NCCL collectives (``_capture_collectives``; the communicator is up
+    after ``sharded_kernel_loop``'s fold): (graph, ``CapturedLaunches``,
+    ``CapturedCollectives``)."""
+    return _capture_collectives(
+        lambda: run_window_sharded(loop, options, max_iter), loop.Tt.device)
 
 
 def solve_loop_blocked_kernel_sharded(tab: Tableau, shard: Shard,

@@ -22,9 +22,8 @@ one). The sequential loops (``SeqLoop``) and the blocked-kernel loop
 (``KernelLoop``) keep their whole state in fixed tensors updated in
 place, and on the card replay one CUDA graph a chunk or a window: the
 port of the JAX loops' compiled ``lax.while_loop`` and ``lax.fori_loop``.
-The plain blocked loop and ``iteration_body`` (the sequential sharded
-loop's and ``timed.solve_timed``'s per-iteration pivot) build new b,
-costs, z and base each pivot.
+The plain blocked loop and ``iteration_body`` (``timed.solve_timed``'s
+per-iteration pivot) build new b, costs, z and base each pivot.
 """
 
 from __future__ import annotations
@@ -198,19 +197,6 @@ def iteration_body(state: LoopState, options: SolverOptions,
     return LoopState(tab2, exit_status(active, optimal, unbounded,
                                         state.status),
                      state.iterations + do.to(torch.int32), stall, bland)
-
-
-def _drive(body, state: LoopState, max_iter: int):
-    """Run ``body`` until the loop exits, reading status and iterations
-    once per ``SEQ_CHUNK`` pivots. Returns (state, status, iterations);
-    status stays RUNNING when the fuse tripped."""
-    st, it = RUNNING, 0
-    while st == RUNNING and it < max_iter:
-        for _ in range(min(SEQ_CHUNK, max_iter - it)):
-            state = body(state)
-        st, it = (int(v) for v in
-                  torch.stack([state.status, state.iterations]).tolist())
-    return state, st, it
 
 
 # ---------------------------------------------------------------------------

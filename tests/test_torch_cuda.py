@@ -1645,12 +1645,13 @@ def test_seq_kernels_match_plain_on_card(cuda, pair, pallas):
 
 def _old_eager_seq(tab, opts, cap):
     """The sequential loop as it ran eagerly before the chunk's graph:
-    ``iteration_body`` driven by ``_drive``."""
+    ``iteration_body`` driven a chunk a host read
+    (tests/test_torch_sharded_seq.py ``drive``)."""
     from simplex_tpu_torch import solver
+    from test_torch_sharded_seq import drive
 
-    state, st, it = solver._drive(
-        lambda s: solver.iteration_body(s, opts, cap),
-        solver.initial_state(tab, opts), cap)
+    state, st, it = drive(lambda s: solver.iteration_body(s, opts, cap),
+                          solver.initial_state(tab, opts), cap)
     return state.tab, st, it
 
 
@@ -1976,3 +1977,263 @@ def test_k6_loop_edges_match_plain_on_card(cuda, M, R):
     ks_of = {e: k for e, _, _, k, _ in kinds}
     assert ks_of["k_first"] == 0 and ks_of["k_last"] == M - 1, kinds
     assert [hb for e, *_, hb in kinds if e == "no_bland"] == [kb.BIG_INDEX]
+
+
+# ---------------------------------------------------------------------------
+# The sequential sharded loop as one CUDA graph a chunk (kernels/seq.py
+# seq_fold_column, seq_ratio_colk_sharded; parallel/sharded.py).
+
+def _sharded_seq_slices(dev, pair, P, n=300, m=100, seed=5):
+    """P ``ShardedSeqLoop``s over the slices of one eliminated phase-1
+    tableau on ``dev`` (the whole tableau built at one slice, then cut),
+    twice: the kernels run on one set, the plain versions on the other;
+    and the options."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.tableau import gaussian_eliminate
+
+    T, V = SEQ_PAIRS[pair]
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V)
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    R_pad, M_pad = ps.sharded_padded_dims(n, m, P, opts)
+    whole = gaussian_eliminate(ps.build_phase1_sharded(
+        torch.as_tensor(p.A), torch.as_tensor(p.b, device=dev), n, m,
+        pg.Shard(None, 0, 1, R_pad), opts, M_pad, dev))
+    sets = []
+    for _ in range(2):
+        # A slice of every column is the tableau itself: clone it.
+        sets.append([ps.sharded_seq_loop(
+            dataclasses.replace(sl, Tt=sl.Tt.clone()),
+            pg.Shard(None, rank, P, R_pad // P), opts) for rank, sl in (
+                (r, ps.shard_tableau(whole, r, P)) for r in range(P))])
+    return sets, opts
+
+
+def _sharded_seq_pivot(loops, opts, kernel: bool, max_iter: int) -> None:
+    """One pivot of ``run_chunk_sharded`` on P slices in this process: the
+    gathers and the sum of the columns in rank order by torch ops, each
+    rank's kernels (or their plain versions) between them."""
+    from simplex_tpu_torch.kernels import seq as ks
+
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=False, threshold=50)
+    V = torch.stack([lp.send_v for lp in loops])
+    I = torch.stack([lp.send_i for lp in loops])
+    for lp in loops:
+        lp.recv_v.copy_(V)
+        lp.recv_i.copy_(I)
+        fold = ks.seq_fold_column if kernel else ks.seq_fold_column_plain
+        fold(lp.Tt, lp.recv_v, lp.recv_i, lp.ah, lp.s, max_iter, eps,
+             lp.shard.offset)
+    total = loops[0].ah.clone()
+    for lp in loops[1:]:
+        total += lp.ah
+    for lp in loops:
+        lp.ah.copy_(total)
+        if kernel:
+            ks.seq_ratio_colk_sharded(
+                lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk, lp.fac, lp.s,
+                lp.r_loc, eps, max_iter, offset=lp.shard.offset,
+                send_v=lp.send_v, send_i=lp.send_i, **policy)
+            ks.seq_rank1(lp.Tt, lp.fac, lp.colk, lp.s)
+        else:
+            ks.seq_ratio_colk_sharded_plain(
+                lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk, lp.fac, lp.s,
+                lp.r_loc, eps, max_iter, lp.shard.offset, lp.send_v,
+                lp.send_i, **policy)
+            ks.seq_rank1_plain(lp.Tt, lp.fac, lp.colk, lp.s)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("pair", ["f64", "mixed", "f32"])
+def test_sharded_seq_kernels_match_plain_on_card(cuda, pair, P):
+    """``seq_fold_column`` and ``seq_ratio_colk_sharded`` (with
+    ``seq_rank1``) against their plain versions on P slices of one card's
+    phase-1 tableau, pivot by pivot along a walk and from edge states
+    drawn at every eighth pivot (a NaN in b on an eligible row, Bland on,
+    a tie of the smallest cost across the first and last slices, the fuse
+    reached): every scalar, vector, send buffer and slice bit for bit;
+    taken, skipped and Bland pivots seen."""
+    from simplex_tpu_torch.kernels import seq as ks
+
+    (a_set, b_set), opts = _sharded_seq_slices(cuda, pair, P)
+    eps = float(opts.eps_resolved)
+    seen = set()
+    for i in range(48):
+        edge = (i // 8) % 4 if i % 8 == 7 else None
+        for loops in (a_set, b_set):
+            for lp in loops:
+                s = lp.s
+                s.status.fill_(int(pst.Status.RUNNING))
+                s.iterations.fill_(100 if edge == 3 else 3)
+                s.bland.fill_(edge == 1)
+            if edge == 0:
+                col = loops[0].ah
+                rows = torch.nonzero(col >= eps).view(-1)
+                if rows.numel():
+                    for lp in loops:
+                        lp.b[rows[0]] = float("nan")
+            elif edge == 2:
+                first, last = loops[0], loops[-1]
+                v = torch.minimum(first.costs.min(), last.costs.min()) - 1
+                first.costs[0] = v
+                last.costs[0 if P > 1 else 1] = v
+                for lp in (first, last):
+                    ks.pack_candidates(kb.entering_candidates(
+                        lp.costs, None, lp.r_loc, eps), lp.shard.offset,
+                        lp.send_v, lp.send_i)
+        _sharded_seq_pivot(a_set, opts, True, 100)
+        _sharded_seq_pivot(b_set, opts, False, 100)
+        for rank, (a, b) in enumerate(zip(a_set, b_set)):
+            for name, x in a.s.tensors().items():
+                assert _bits_equal(x, getattr(b.s, name)), (i, rank, name)
+            for name in ("Tt", "b", "costs", "base", "ah", "colk", "fac",
+                         "send_v", "send_i", "recv_v", "recv_i"):
+                assert _bits_equal(getattr(a, name), getattr(b, name)), (
+                    i, rank, name)
+        seen.add((edge, bool(a_set[0].s.do)))
+        for loops in (a_set, b_set):
+            for lp in loops:
+                lp.b.nan_to_num_(nan=1.0)
+                lp.s.z.nan_to_num_(nan=0.0)
+    assert {(None, True), (1, True), (3, False)} <= seen, seen
+
+
+def _sharded_seq_tab(dev, group, n=300, m=100, seed=5):
+    """One NCCL rank's f64 phase-1 slice (the whole tableau) and the
+    default options."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    opts = pst.SolverOptions()
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    R_pad, M_pad = ps.sharded_padded_dims(n, m, 1, opts)
+    shard = pg.Shard.of(group, R_pad)
+    tab = ps.build_phase1_sharded(torch.as_tensor(p.A),
+                                  torch.as_tensor(p.b, device=dev), n, m,
+                                  shard, opts, M_pad, dev)
+    return ps.gaussian_eliminate_sharded(tab, shard), shard, opts
+
+
+def test_sharded_seq_graph_matches_eager_on_card(cuda, monkeypatch,
+                                                 tmp_path):
+    """``solve_loop_sharded`` at one NCCL rank as one CUDA graph a chunk,
+    its collectives inside, against ``graph=False`` and against the loop
+    as it ran before (``iteration_body_sharded`` driven a chunk a host
+    read): the same status and iterations, the final slice, b, costs, z
+    and base bit for bit (the slice against the old body by value), the
+    same launches and collectives -- a pivot ``seq_fold_column``,
+    ``seq_ratio_colk_sharded`` and ``seq_rank1``, 2 ``all_gather``s and 1
+    ``all_reduce`` -- a replay adding the graph's, the capture none; the
+    captured chunk 3 launches a pivot."""
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from test_torch_sharded_seq import old_loop_sharded
+
+    captures = []
+    real = ps.capture_chunk_sharded
+    monkeypatch.setattr(ps, "capture_chunk_sharded",
+                        lambda *a: captures.append(real(*a)) or captures[-1])
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        tab0, shard, opts = _sharded_seq_tab(cuda, group)
+        runs = {}
+        for graph in (False, True):
+            tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+            ks.reset_launches()
+            kp.reset_launches()
+            pg.reset_counts()
+            out, st, it = ps.solve_loop_sharded(tab, shard, opts, 5000,
+                                                graph=graph)
+            torch.cuda.synchronize()
+            runs[graph] = (out, st, it, {**ks.LAUNCHES, **kp.LAUNCHES},
+                           dict(pg.COUNTS))
+        oo, ost, oit = old_loop_sharded(
+            dataclasses.replace(tab0, Tt=tab0.Tt.clone()), shard, opts, 5000)
+    (eo, est, eit, el, ec), (go, gst, git, gl, gc) = runs[False], runs[True]
+    assert est == gst == ost == int(pst.Status.OPTIMAL)
+    assert eit == git == oit > 2 * 32
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name), getattr(eo, name)), name
+        if name == "Tt":
+            assert torch.equal(go.Tt, oo.Tt)
+        else:
+            assert _bits_equal(getattr(go, name), getattr(oo, name)), name
+    assert gl == el and gc == ec and len(captures) == 1
+    chunks = gl["seq_fold_column"] // 32
+    assert chunks in (-(-git // 32), -(-git // 32) + 1)
+    for name in ("seq_fold_column", "seq_ratio_colk_sharded", "seq_rank1"):
+        assert gl[name] == 32 * chunks, (name, gl)
+    assert gl["seq_step_pre"] == gl["seq_ratio"] == 0
+    assert gc == {"all_gather": 64 * chunks, "all_reduce": 32 * chunks}
+    per = captures[0][1].per_replay
+    assert sum(n for name, n in per.items() if name not in ks.TAILS) == 96
+    assert dict(captures[0][2].counts) == {"all_gather": 64,
+                                           "all_reduce": 32}
+
+
+@pytest.mark.parametrize("cap", [1, 31, 32, 33])
+def test_sharded_seq_graph_fuse_is_exact_on_card(cuda, tmp_path, cap):
+    """A capped graphed sharded loop at one NCCL rank stops at the cap
+    whatever the chunk: status RUNNING, exactly ``cap`` pivots, the state
+    of ``graph=False``."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        tab0, shard, opts = _sharded_seq_tab(cuda, group)
+        outs = []
+        for graph in (True, False):
+            tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+            out, st, it = ps.solve_loop_sharded(tab, shard, opts, cap,
+                                                graph=graph)
+            assert st == int(pst.Status.RUNNING) and it == cap
+            outs.append(out)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(outs[0], name), getattr(outs[1], name))
+
+
+def test_sharded_seq_kernels_refuse_on_card(cuda):
+    """A launch the kernels refuse raises through the C entry points: an
+    empty shape, no ranks, a pair with no kernel, the sharded pass with
+    the next step before or without its send buffers."""
+    from simplex_tpu_torch.kernels import _build
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = _build.load_library()
+    M, R = 64, 96
+    f64 = dict(dtype=torch.float64, device=cuda)
+    Tt, ah, b = (torch.zeros((M, R), **f64), torch.zeros(M, **f64),
+                 torch.zeros(M, **f64))
+    V = torch.zeros((1, 2), **f64)
+    I = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    s = ks.seq_scalars(torch.zeros((), **f64), False, torch.float64)
+    step = ks.ctypes.byref(ks._seq_ptrs(s))
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in ((0, R, 1), (M, 0, 1), (M, R, 0)):
+        m_, r_, p_ = shape
+        err = lib.seq_fold_column_launch(
+            Tt.data_ptr(), V.data_ptr(), I.data_ptr(), p_, m_, r_, 0,
+            ah.data_ptr(), step, 10, 1e-9, 0, stream)
+        with pytest.raises(RuntimeError, match="seq_fold_column: CUDA"):
+            _build.check(lib, err, "seq_fold_column")
+    err = lib.seq_fold_column_launch(
+        Tt.data_ptr(), V.data_ptr(), I.data_ptr(), 1, M, R, 0,
+        ah.data_ptr(), step, 10, 1e-9, 7, stream)
+    with pytest.raises(RuntimeError, match="seq_fold_column: CUDA"):
+        _build.check(lib, err, "seq_fold_column")
+    costs, colk = torch.zeros(R, **f64), torch.zeros(R, **f64)
+    base = torch.zeros(M, dtype=torch.int32, device=cuda)
+    send_v = torch.zeros(2, **f64)
+    send_i = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for sv, m_ in ((send_v.data_ptr(), 0), (0, M)):
+        err = lib.seq_ratio_colk_sharded_launch(
+            Tt.data_ptr(), costs.data_ptr(), b.data_ptr(), base.data_ptr(),
+            ah.data_ptr(), colk.data_ptr(), ah.data_ptr(), m_, R, R, 1e-9,
+            step, 10, 0, 50, 0, sv, send_i.data_ptr(), 0, stream)
+        with pytest.raises(RuntimeError,
+                           match="seq_ratio_colk_sharded: CUDA"):
+            _build.check(lib, err, "seq_ratio_colk_sharded")
+    odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
+    with pytest.raises(ValueError, match="no sequential kernel"):
+        ks.seq_fold_column(Tt, V, I, ah, odd, 10, 1e-9, 0)
