@@ -31,8 +31,17 @@ Phases, in order; any failed check exits non-zero:
    a pivot), then the 10,000 x 100,000 phase-1 tableau for 256 pivots
    through ``solve_loop_pallas`` graphed and with ``graph=False`` (the
    same state bit for bit);
-5. the plain blocked loop: random_2048_2048 with ``dtype=float64,
-   block_pivots=128``, no K1-K4 launch;
+5. the plain blocked loop (``dtype=float64, block_pivots=128``, the full
+   f64 re-solve's loop, one CUDA graph a window): random_2048_2048 three
+   ways in turns -- graphed (the ``kernels.eta`` launch counters set to 0
+   just before and read just after), ``graph=False`` (every loop call's
+   final state the graph run's bit for bit) and the old body
+   (``solve_loop_blocked_reference``) -- each within 1e-9 of the golden,
+   walking the recorded 4,379 + 258, no K1-K4 launch; random_8192_8192
+   graphed within 1e-9, beside phase 3's sequential loop; the pure-f32
+   tableau with ``use_pallas=False`` (its graph holding the window's
+   re-pricing) on random_2048_2048 within 1e-3; each run's ms/pivot,
+   capture ms and 2 + 1/L kernels a pivot by the captured launch counts;
 6. the CLI (``python -m simplex_tpu_torch.cli``): a problem file, the
    ``-t --limit 1024 --timer`` sweep (the reference's CSV schema; its 9
    CSVs through ``simplex_tpu_torch.sweep_table`` against the
@@ -125,7 +134,8 @@ Phases, in order; any failed check exits non-zero:
    flagship's final (drifted) basis (the host finish, certified within
    1e-9 of the golden, its finishing pivots printed), ``fallback_solve``
    with no basis on random_2048_2048 (the full f64 re-solve on the card,
-   certified), and a production random_2048_2048 whose mixed-tier
+   certified, the plain blocked loop's kernels launched and K1-K4 not),
+   and a production random_2048_2048 whose mixed-tier
    certificates are made to fail (``two_phase.refine_result`` wrapped),
    which reaches ``fallback_solve`` through ``certify`` after two restart
    rounds and ends certified with ``refine.fallback``; then
@@ -157,8 +167,9 @@ Phases, in order; any failed check exits non-zero:
    finish's);
 10d. the benchmark entry points, each a process as a user starts it
    (``phase_bench``): ``python -m simplex_tpu_torch.bench`` at the
-   north-star defaults with ``--repeats 5`` (devex, then Dantzig) and
-   again on K6's path (``--block 0 --vector-dtype float32 --iters 256``),
+   north-star defaults with ``--repeats 5`` (devex, then Dantzig), again
+   on K6's path (``--block 0 --vector-dtype float32 --iters 256``) and on
+   the f64 plain blocked loop (``--dtype float64 --repeats 3``),
    each printing one JSON line with the key set of ``bench.py``, a
    positive value and a floor below its marginal; ``bench_batch`` at
    config 3 with ``--repeats 1``, ending in ``BENCH_BATCH_OK``; and
@@ -212,7 +223,12 @@ Phases, in order; any failed check exits non-zero:
    with ``seq_rank1``) against their plain versions at the 8192^2 f64
    tableau on two slices from 24 seeded states (a rank that does not own
    h, a tie of the smallest cost across the slices) and on one from 8,
-   bit for bit, then timed on one; the latency floor of a one-thread
+   bit for bit, then timed on one; the plain blocked loop's kernels
+   (``eta_ratio``, ``eta_colk``) against their plain versions at the f64
+   phase-1 tableau of random_2048_2048 under devex, pivot by pivot
+   through a window's first 64 pivots from edge states (Bland, the fuse,
+   a NaN in b, no eligible row, a devex re-anchor), bit for bit, then
+   timed at t = 64; the latency floor of a one-thread
    kernel (``tools/latency_floor.cu``: an empty kernel, one load, two
    dependent loads) by the same clocks;
    each timed on the device by two clocks -- torch.profiler, and CUDA
@@ -228,8 +244,10 @@ Phases, in order; any failed check exits non-zero:
    the f64 random_1024_1024 through ``solve_sharded`` at one NCCL rank:
    the kernels -- and the sharded chunk's NCCL nodes -- a pivot of each
    replayed chunk, the device's busy share inside a chunk and over its
-   period). These run last so that no profiler run precedes the timed
-   solves.
+   period), and the plain blocked loop's (f64 L=128 random_2048_2048:
+   every node of a replayed window, the apply's cuBLAS kernels among
+   them, the busy share inside a window and over its period). These run
+   last so that no profiler run precedes the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over HBM's 3.35 TB/s and its
@@ -241,9 +259,9 @@ kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 ``step_mid_tail`` and ``step_post_tail`` -- each tail's own cost, K1's
 or K2's time with it less their time without -- and the sharded step
 kernels with K2's sharded tails, the step after K2 and the pack, and
-K5's head, and the sequential loops' kernels with K6's tail and the
-sequential sharded loop's two, which replace XLA-fused glue, no Pallas
-kernel;
+K5's head, and the sequential loops' kernels with K6's tail, the
+sequential sharded loop's two and the plain blocked loop's two, which
+replace XLA-fused glue, no Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -462,11 +480,33 @@ K6_OPTS = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
 #: at 2048^2 pure f32.
 SEQ_KERNEL_SHAPES = ((False, 8192, 24576, "float64", "float64", 1e-9),
                      (True, 2048, 6144, "float32", "float32", 1e-4))
+#: The plain blocked loop's per-pivot kernels (kernels/eta.py): the JAX
+#: loop's XLA-fused pivot (no Pallas kernel), each replacing the lines it
+#: ports -- eta_ratio (the live column, the ratio test, the step between)
+#: and eta_colk (the live row, the vectors, the devex weights, the next
+#: candidates, the step after and the next step before) a pivot; the
+#: window's seq_step_pre is the sequential loops'.
+ETA_SOURCE = "simplex_tpu_torch/kernels/csrc/eta.cu"
+ETA_KERNELS = {
+    "eta_ratio": ("glue", "simplex_tpu/solver.py:534", ETA_SOURCE),
+    "eta_colk": ("glue", "simplex_tpu/solver.py:549", ETA_SOURCE),
+}
+ETAS = tuple(ETA_KERNELS)
+#: The plain blocked loop's configurations: the f64 tableau at L=128 (the
+#: full f64 re-solve's), and the pure-f32 one with the kernels off.
+BLOCKED_F64 = dict(dtype="float64", block_pivots=128)
+BLOCKED_F32 = dict(dtype="float32", vector_dtype="float32",
+                   use_pallas=False, block_pivots=128)
+#: The f64 L=128 walk of random_2048_2048 on the card
+#: (data/measures/h100_logs/pr22_chip_smoke.log, the plain blocked loop's
+#: line), and the window depth of the kernels' check and timing.
+BLOCKED_WALK = (4379, 258)
+ETA_T = 64
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
          "reprice", "batch_reprice", "batch_rank1", *STEPS, *SHARDED_STEPS,
-         *SEQS)
+         *SEQS, *ETAS)
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
@@ -580,13 +620,50 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
 def kernels_launched(fn, match: str | None = None) -> int:
     """The number of kernels one call of ``fn()`` launches on the card,
     counted by torch.profiler after one warm-up call; with ``match``, only
-    those whose name holds it."""
+    those whose name holds it. Where CUPTI hands back ``TRACE_TRIES``
+    empty sessions for the one call (seen on the card at single calls of
+    K2 and of K5 with its head while every other session of the run saw
+    its kernels), the count without ``match`` is the device operations a
+    CUDA graph of one call holds (``graph_nodes``), logged."""
     from torch.autograd import DeviceType
 
-    prof = traced(fn, 1, f"kernels_launched({match or 'all'})")
+    try:
+        prof = traced(fn, 1, f"kernels_launched({match or 'all'})")
+    except SmokeFailure:
+        if match is not None:
+            raise
+        n = graph_nodes(fn)
+        log(f"kernels_launched: the profiler missed the call; a CUDA graph "
+            f"of one call holds {n} device operations")
+        return n
     return sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and (match is None or match in e.key))
+
+
+def graph_nodes(fn) -> int:
+    """The device operations (kernel, memset and copy nodes) that one call
+    of ``fn()`` puts into a CUDA graph captured around it, after one
+    warm-up call, read with the driver's ``cuGraphGetNodes``: what a
+    torch.profiler session of the call counts, without CUPTI. The capture
+    runs nothing."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    err = driver.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                 None, ctypes.byref(n))
+    require(err == 0, f"cuGraphGetNodes: CUDA error {err}")
+    return n.value
 
 
 def host_us(fn, reps: int) -> float:
@@ -2135,21 +2212,37 @@ def seq_loops(p, opts: dict, way: str, pallas: bool = False,
     """One ``solve(p, **opts)`` with its sequential loop (``solve_loop``,
     or ``solve_loop_pallas`` with ``pallas``) run ``way``: "graph" (one
     CUDA graph a chunk, the default), "eager" (``graph=False``: the same
-    kernels enqueued eagerly) or "old" (``old_solve_loop``). Returns the
-    result, the solve's wall, each loop call's wall (host clock between
-    two synchronizes) and pivots, each capture's ms (``capture_chunk``:
-    the capture and the graph's instantiation) and the nodes a pivot of
-    each captured chunk by its launch counts, which must be
-    ``seq_nodes``. Each loop call's final state (Tt, b, costs, z, base,
-    status, iterations) is appended to ``keep`` as copies, or held to
-    ``against``'s bit for bit."""
+    kernels enqueued eagerly) or "old" (``old_solve_loop``); each
+    captured chunk must hold ``seq_nodes`` nodes by its launch counts
+    (``loop_runs``)."""
+    from simplex_tpu_torch import solver
+
+    return loop_runs(p, opts, way,
+                     "solve_loop_pallas" if pallas else "solve_loop",
+                     "capture_chunk", old_solve_loop, seq_nodes(),
+                     solver.SEQ_CHUNK, keep, against)
+
+
+def loop_runs(p, opts: dict, way: str, name: str, capture_name: str, old,
+              nodes: int, per: int, keep: list | None = None,
+              against: list | None = None) -> dict:
+    """One ``solve(p, **opts)`` with its loop ``solver.<name>`` run
+    ``way``: "graph" (one CUDA graph a chunk or a window, the default),
+    "eager" (``graph=False``: the same kernels enqueued eagerly) or "old"
+    (``old(tab, options, max_iter, *rest)``, the loop as it ran before).
+    Returns the result, the solve's wall, each loop call's wall (host
+    clock between two synchronizes) and pivots, each capture's ms
+    (``solver.<capture_name>``: the capture and the graph's
+    instantiation) and the kernels a pivot of each captured graph by its
+    launch counts, ``nodes`` a replay of ``per`` pivots. Each loop call's
+    final state (Tt, b, costs, z, base, status, iterations) is appended to
+    ``keep`` as copies, or held to ``against``'s bit for bit."""
     import torch
 
     from simplex_tpu_torch import solver
     from simplex_tpu_torch.kernels import seq as ks
 
-    name = "solve_loop_pallas" if pallas else "solve_loop"
-    real, real_capture = getattr(solver, name), solver.capture_chunk
+    real, real_capture = getattr(solver, name), getattr(solver, capture_name)
     calls, captures, per_pivot = [], [], []
 
     def capture(*args):
@@ -2158,21 +2251,22 @@ def seq_loops(p, opts: dict, way: str, pallas: bool = False,
         out = real_capture(*args)
         torch.cuda.synchronize()
         captures.append(1e3 * (time.perf_counter() - t0))
-        per = out[1].per_replay
+        counts = out[1].per_replay
         # A tail launches nothing.
-        nodes = sum(n for k, n in per.items() if k not in ks.TAILS)
-        require(nodes == seq_nodes(), f"the chunk graph holds {per}, not "
-                f"{seq_nodes()} nodes")
-        per_pivot.append(nodes / solver.SEQ_CHUNK)
+        got = sum(n for k, n in counts.items() if k not in ks.TAILS)
+        require(got == nodes, f"the captured graph holds {counts}, not "
+                f"{nodes} kernels")
+        per_pivot.append(got / per)
         return out
 
-    def loop(tab, options, max_iter):
+    def loop(tab, options, max_iter, *rest):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if way == "old":
-            out, st, it = old_solve_loop(tab, options, max_iter)
+            out, st, it = old(tab, options, max_iter, *rest)
         else:
-            out, st, it = real(tab, options, max_iter, graph=way == "graph")
+            out, st, it = real(tab, options, max_iter, *rest,
+                               graph=way == "graph")
         torch.cuda.synchronize()
         calls.append((time.perf_counter() - t0, it))
         final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
@@ -2186,12 +2280,12 @@ def seq_loops(p, opts: dict, way: str, pallas: bool = False,
         return out, st, it
 
     setattr(solver, name, loop)
-    solver.capture_chunk = capture
+    setattr(solver, capture_name, capture)
     try:
         res, wall = timed_solve(p, opts)
     finally:
         setattr(solver, name, real)
-        solver.capture_chunk = real_capture
+        setattr(solver, capture_name, real_capture)
     require(len(captures) == (len(calls) if way == "graph" else 0),
             f"{len(captures)} captures in {len(calls)} loop calls")
     pivots = sum(c[1] for c in calls)
@@ -2201,19 +2295,19 @@ def seq_loops(p, opts: dict, way: str, pallas: bool = False,
                 ms_pivot=1e3 * loop_s / pivots)
 
 
-def seq_line(label: str, r: dict) -> str:
+def seq_line(label: str, r: dict, unit: str = "chunk") -> str:
     return (f"{label}: {r['ms_pivot']:.4f} ms/pivot over {r['pivots']} "
             "pivots (loop calls " + ", ".join(
                 f"{1e3 * c[0]:.1f} ms / {c[1]}" for c in r["calls"])
             + f"); solve wall {r['wall']:.3f} s; captures "
             + (", ".join(f"{c:.2f}" for c in r["captures"]) or "none")
-            + " ms" + ("; nodes a pivot of each captured chunk (launch "
-                       "counts) " + ", ".join(f"{x:.5f}"
-                                              for x in r["per_pivot"])
-                       if r["per_pivot"] else ""))
+            + f" ms" + (f"; kernels a pivot of each captured {unit} (launch "
+                        "counts) " + ", ".join(f"{x:.5f}"
+                                               for x in r["per_pivot"])
+                        if r["per_pivot"] else ""))
 
 
-def phase_reference_f64(launches: dict) -> dict:
+def phase_reference_f64(launches: dict, seq_ms: dict) -> dict:
     """The default options (f64 tableau, eps 1e-9, Dantzig, the sequential
     loop; no refinement) on the reference's benchmarks, held to the
     certified goldens at 1e-9 and to the recorded walks (``F64_WALKS``).
@@ -2222,8 +2316,9 @@ def phase_reference_f64(launches: dict) -> dict:
     ``iteration_body``, each loop call ending with the graph run's state
     bit for bit; then random_8192_8192 twice graphed, with the sequential
     kernels' launch counters set to 0 just before the first and read just
-    after it. Prints each run's loop ms/pivot, capture ms and nodes a
-    pivot beside the JAX package's TPU record and the reference's."""
+    after it. Prints each run's loop ms/pivot (kept in ``seq_ms`` by n),
+    capture ms and nodes a pivot beside the JAX package's TPU record and
+    the reference's."""
     import torch
 
     from simplex_tpu_torch.kernels import seq as ks
@@ -2253,6 +2348,7 @@ def phase_reference_f64(launches: dict) -> dict:
             require(w == F64_WALKS[n], f"{label} walked {w}, recorded "
                     f"{F64_WALKS[n]}")
             walks[n] = w
+            seq_ms.setdefault(n, []).append(r["ms_pivot"])
             log(seq_line(label, r) + f"; OPTIMAL objective "
                 f"{res.objective!r} (golden {want!r}); pivots {w[0]}+{w[1]}"
                 f" (JAX package on a TPU {tpu}, reference CUDA program "
@@ -2353,21 +2449,108 @@ def phase_pallas_seq(launches: dict) -> None:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
-def phase_blocked_plain() -> None:
-    """The plain blocked loop: random_2048_2048 with an f64 tableau and
-    L=128, within 1e-9 of the golden; none of K1-K4 launched."""
-    from simplex_tpu_torch.kernels import blocked as kb
+def blocked_nodes(L: int) -> int:
+    """The kernels of the plain blocked loop's window graph by its launch
+    counts: ``seq_step_pre``, then per pivot ``eta_ratio`` and
+    ``eta_colk`` (the apply's ``addmm_`` and the re-pricing are library
+    calls, which no counter sees)."""
+    return 2 * L + 1
 
-    kb.reset_launches()
-    res, wall = timed_solve(benchmark_problem(2048),
-                            dict(dtype="float64", block_pivots=128))
-    counts = dict(kb.LAUNCHES)
-    check_objective("f64 blocked random_2048_2048", res, OBJ_2048, 1e-9)
-    require(not any(counts.values()), f"K1-K4 launched: {counts}")
+
+def blocked_loops(p, opts: dict, way: str, keep: list | None = None,
+                  against: list | None = None) -> dict:
+    """One ``solve(p, **opts)`` with its plain blocked loop
+    (``solve_loop_blocked``) run ``way``: "graph" (one CUDA graph a
+    window), "eager" (``graph=False``) or "old" (the old body,
+    ``solve_loop_blocked_reference``), by ``loop_runs``."""
+    from simplex_tpu_torch import solver
+
+    L = int(opts["block_pivots"])
+    return loop_runs(p, opts, way, "solve_loop_blocked",
+                     "capture_blocked_window",
+                     solver.solve_loop_blocked_reference, blocked_nodes(L),
+                     L, keep, against)
+
+
+def phase_blocked_plain(launches: dict, seq_ms: dict) -> None:
+    """The plain blocked loop (f64 tableau, L=128; the full f64 re-solve's
+    loop) on random_2048_2048 three ways in turns: one CUDA graph a window
+    (its kernels' launch counters set to 0 just before and read just
+    after), ``graph=False`` (every loop call's final state the graph
+    run's bit for bit) and the old body (``solve_loop_blocked_reference``,
+    its eta corrections ``@`` products); each within 1e-9 of the golden
+    and walking the recorded ``BLOCKED_WALK``, none of K1-K4 launched.
+    Then random_8192_8192 graphed, within 1e-9 of its golden, beside the
+    default options' sequential loop on the same problem (``seq_ms``,
+    phase 3); then the pure-f32 tableau with the kernels off (L=128, the
+    window's re-pricing and reopening in its graph) on random_2048_2048,
+    within 1e-3. Each run's ms/pivot, capture ms and kernels a pivot by
+    the captured launch counts."""
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    p = benchmark_problem(2048)
+    keep: list = []
+    for i, way in enumerate(("graph", "eager", "old")):
+        kb.reset_launches()
+        if i == 0:
+            ke.reset_launches()
+            ks.reset_launches()
+        r = blocked_loops(p, BLOCKED_F64, way, keep=keep if i == 0 else None,
+                          against=keep if way == "eager" else None)
+        if i == 0:
+            for name in ETAS:
+                launches[name] = ke.LAUNCHES[name]
+            require(min(launches[n] for n in ETAS) > 0
+                    and ks.LAUNCHES["seq_step_pre"] > 0,
+                    f"the plain blocked loop launched {ke.LAUNCHES}, "
+                    f"seq_step_pre {ks.LAUNCHES['seq_step_pre']}")
+        require(not any(kb.LAUNCHES.values()), f"K1-K4 launched: "
+                f"{kb.LAUNCHES}")
+        res = r["res"]
+        label = f"f64 L=128 random_2048_2048 {way}"
+        check_objective(label, res, OBJ_2048, 1e-9)
+        w = (res.iterations_phase1, res.iterations_phase2)
+        require(w == BLOCKED_WALK, f"{label} walked {w}, recorded "
+                f"{BLOCKED_WALK}")
+        log(seq_line(label, r, "window") + f"; OPTIMAL objective "
+            f"{res.objective!r} (golden {OBJ_2048!r}); pivots {w[0]}+{w[1]}"
+            + (f"; launches {dict(ke.LAUNCHES)}" if i == 0 else ""))
+    log("f64 L=128 random_2048_2048: graph, graph=False and the old body "
+        "walked the recorded pivots, every loop call of graph=False ending "
+        "in the graph run's state bit for bit")
+
+    p = benchmark_problem(8192)
+    torch.cuda.reset_peak_memory_stats()
+    r = blocked_loops(p, BLOCKED_F64, "graph")
+    res = r["res"]
+    check_objective("f64 L=128 random_8192_8192", res, OBJ_8192, 1e-9)
     w = (res.iterations_phase1, res.iterations_phase2)
-    log(f"f64 L=128 random_2048_2048: OPTIMAL objective {res.objective!r}"
-        f" (golden {OBJ_2048!r}); pivots {w[0]}+{w[1]}; wall {wall:.3f} "
-        f"s; {1e3 * wall / sum(w):.4f} ms/pivot; K1-K4 launches {counts}")
+    log(seq_line("f64 L=128 random_8192_8192 graph", r, "window")
+        + f"; OPTIMAL objective {res.objective!r} (golden {OBJ_8192!r}); "
+        f"pivots {w[0]}+{w[1]}; the default options' sequential loop on "
+        f"the same problem in this run: " + ", ".join(
+            f"{x:.4f}" for x in seq_ms.get(8192, [])) + " ms/pivot; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+    del res, r
+    torch.cuda.empty_cache()
+
+    ke.reset_launches()
+    r = blocked_loops(benchmark_problem(2048), BLOCKED_F32, "graph")
+    res = r["res"]
+    check_objective("f32 kernels-off random_2048_2048", res, OBJ_2048, 1e-3)
+    require(min(ke.LAUNCHES.values()) > 0, f"the f32 plain blocked loop "
+            f"launched {ke.LAUNCHES}")
+    w = (res.iterations_phase1, res.iterations_phase2)
+    log(seq_line("f32 (f32 vectors, use_pallas=False) L=128 "
+                 "random_2048_2048 graph", r, "window")
+        + f"; OPTIMAL objective {res.objective!r} (golden {OBJ_2048!r}, rel "
+        f"{abs(res.objective - OBJ_2048) / OBJ_2048:.2e}); pivots "
+        f"{w[0]}+{w[1]}")
 
 
 TIMED_OPS = ["fillTableau", "gauss1", "solve", "solveIterations",
@@ -2405,10 +2588,13 @@ SWEEP_SIZES = "256x8192,8192x256,4096x4096"
 #: cap room to be a quiet run. K6's pass runs at 96-98% of its floor, and
 #: its runs at one cap spread by 3 ms: between the caps 32 and 64 that is
 #: 3% of the marginal, so it runs to 256 pivots (128 between the caps).
+#: ``--dtype float64`` is the plain blocked loop on the f64 north-star
+#: tableau (9.7 GB), one CUDA graph a window.
 BENCH_RUNS = (
     ("bench", ["--repeats", "5"]),
     ("bench", ["--block", "0", "--vector-dtype", "float32", "--iters", "256",
                "--repeats", "5"]),
+    ("bench", ["--dtype", "float64", "--repeats", "3"]),
     ("bench_batch", ["--repeats", "1"]),
     ("bench_sharded", ["--repeats", "2"]),
 )
@@ -3421,7 +3607,8 @@ SEQ_GRAPH_KERNELS = ("seq_step_pre_kernel", "seq_ratio_colk_kernel",
                      "fused_pivot_tiles")
 
 
-def chunk_stats(events: list, chunk: int) -> dict:
+def chunk_stats(events: list, chunk: int,
+                names: tuple | None = SEQ_GRAPH_KERNELS) -> dict:
     """From a chrome trace's kernel events, the replayed chunks of a
     traced sequential loop: a chunk runs from one ``seq_step_pre`` to the
     kernel before the next. Returns the chunks' count, the (min, max)
@@ -3430,9 +3617,13 @@ def chunk_stats(events: list, chunk: int) -> dict:
     last one's end) and over a chunk's period (step_pre to step_pre, the
     host read included), and the middle chunk's kernels by name, their us
     a pivot by name and in all, and its span. The last chunk (no period)
-    counts inside only."""
+    counts inside only. ``names`` None takes every kernel of the trace
+    (those of no name in ``SEQ_GRAPH_KERNELS`` or ``BLOCKED_GRAPH_KERNELS``
+    by their own names, cut to 40 characters), else those whose name
+    holds one of ``names``."""
     kernels = sorted((e for e in events if e.get("cat") == "kernel"
-                      and any(n in e["name"] for n in SEQ_GRAPH_KERNELS)),
+                      and (names is None
+                           or any(n in e["name"] for n in names))),
                      key=lambda e: e["ts"])
     chunks: list = []
     for e in kernels:
@@ -3455,7 +3646,8 @@ def chunk_stats(events: list, chunk: int) -> dict:
         return min(x), statistics.median(x), max(x)
 
     def kind(e):
-        return next(n for n in SEQ_GRAPH_KERNELS if n in e["name"])
+        return next((n for n in (*SEQ_GRAPH_KERNELS, *BLOCKED_GRAPH_KERNELS)
+                     if n in e["name"]), e["name"][:40])
 
     by_name: dict = collections.defaultdict(float)
     for e in mid:
@@ -3531,6 +3723,209 @@ def phase_chunk_trace() -> None:
             f"{w['us_pivot']:.2f} us a pivot ("
             + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
             + f"), its span {w['span_us']:.1f} us")
+
+
+#: The plain blocked loop's kernels in its window graph by name (the
+#: apply's cuBLAS kernels go by their own names).
+BLOCKED_GRAPH_KERNELS = ("eta_ratio_kernel", "eta_colk_kernel")
+
+
+def phase_blocked_trace() -> None:
+    """random_2048_2048 with ``BLOCKED_F64``, its phase-1 loop call traced
+    by torch.profiler (CUDA activity): every kernel of each replayed window
+    (``seq_step_pre``, L of ``eta_ratio`` and of ``eta_colk``, and the
+    apply's cuBLAS kernels), the nodes a pivot, the device's busy share
+    inside a window and over a window's period (its kernels' time from its
+    ``seq_step_pre`` to the next's: the host's read of status and the next
+    replay included). Runs after every timed solve."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import solver
+
+    L = BLOCKED_F64["block_pivots"]
+    real = solver.solve_loop_blocked
+    first: list = []
+
+    def loop(*args, **kw):
+        if first:
+            return real(*args, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+        first.append((prof, out[2]))
+        return out
+
+    def run():
+        first.clear()
+        solver.solve_loop_blocked = loop
+        try:
+            timed_solve(benchmark_problem(2048), BLOCKED_F64)
+        finally:
+            solver.solve_loop_blocked = real
+        return first[0]
+
+    prof, pivots = until_traced(run, "plain blocked window trace")
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    w = chunk_stats(events, L, names=None)
+    names = w["names"]
+    require(names.get("seq_step_pre_kernel") == 1
+            and names.get("eta_ratio_kernel") == L
+            and names.get("eta_colk_kernel") == L,
+            f"the middle window holds {names}, not 1 seq_step_pre and "
+            f"{L} of eta_ratio and of eta_colk")
+    log(f"f64 L={L} random_2048_2048 phase-1 loop traced ({pivots} pivots, "
+        f"{w['chunks']} windows): {w['per_pivot'][0]:.5f}-"
+        f"{w['per_pivot'][1]:.5f} nodes a pivot in the replayed windows "
+        f"(the middle one: {names}); device busy inside a window "
+        f"{100 * w['inside'][0]:.1f}-{100 * w['inside'][2]:.1f}% (median "
+        f"{100 * w['inside'][1]:.1f}%), over a window's period with the "
+        f"host read {100 * w['period'][0]:.1f}-{100 * w['period'][2]:.1f}%"
+        f" (median {100 * w['period'][1]:.1f}%); the middle window's "
+        f"kernels {w['us_pivot']:.2f} us a pivot ("
+        + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
+        + f"), its span {w['span_us']:.1f} us")
+
+
+def phase_eta_kernels(records: dict) -> None:
+    """The plain blocked loop's kernels against their plain versions on the
+    card at the main path's shape: the f64 phase-1 tableau of
+    random_2048_2048 (M 2,048 x R 6,144), L=128, under devex (the full f64
+    re-solve's rule), two ``BlockedLoop``s, the kernels on one and the
+    plain versions on the other, pivot by pivot through the window's first
+    ``ETA_T`` pivots from edge states by the pivot's index (Bland on, the
+    fuse, a NaN in b, no eligible row, a weight past the re-anchor's
+    bound, taken pivots): every scalar, vector and factor bit for bit.
+    Then at t = ``ETA_T``, the window's mean live depth, on a taken pivot,
+    each kernel timed by torch.profiler and by CUDA events over a CUDA
+    graph of 50 calls, beside its plain version and its bound
+    (``bench.pivot_work``'s K1 and K2 entries at this shape and depth,
+    f64)."""
+    import dataclasses
+
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.bench import pivot_work
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    opts = st.SolverOptions(**BLOCKED_F64, pivot_rule="devex")
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=False, threshold=opts.bland_threshold)
+    p = benchmark_problem(2048)
+    tab = gaussian_eliminate(build_phase1(
+        torch.as_tensor(p.A, device="cuda"),
+        torch.as_tensor(p.b, device="cuda"), p.vars, p.constraints, opts))
+    a, b = (solver.blocked_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                                opts) for _ in range(2))
+    del tab
+    M, R = a.Tt.shape
+    L = a.C.shape[0]
+    cap = 10_000
+    seen = collections.Counter()
+    for lp, kernel in ((a, True), (b, False)):
+        (ks.seq_step_pre if kernel else kb.step_pre_plain)(lp.s, cap, eps)
+    for t in range(ETA_T):
+        edge = t % 7
+        saved = None
+        for lp in (a, b):
+            s = lp.s
+            if edge == 1:
+                s.bland.fill_(True)
+            elif edge == 2:
+                s.iterations.fill_(cap)
+            elif edge == 3:
+                lp.b[(t * 37) % M] = float("nan")
+            elif edge == 4:
+                h = int(s.h)
+                saved = (h, lp.Tt[:, h].clone())
+                lp.Tt[:, h] = -1e6
+            elif edge == 5:
+                lp.w[lp.r - 1] = 3e8
+            kb.step_pre_plain(s, cap, eps)
+        for lp, kernel in ((a, True), (b, False)):
+            s = lp.s
+            if kernel:
+                ke.eta_ratio(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t, eps,
+                             lp.ws)
+                ke.eta_colk(lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base,
+                            lp.w, lp.ah, s, t, lp.r, eps, cap, lp.ws,
+                            then_pre=True, **policy)
+            else:
+                ke.eta_ratio_plain(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t, eps)
+                ke.eta_colk_plain(lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base,
+                                  lp.w, lp.ah, s, t, lp.r, eps, cap, then_pre=True,
+                                  **policy)
+        tag = f"eta pivot t={t} (edge {edge})"
+        for name, x in a.s.tensors().items():
+            equal(f"{tag} {name}", x, getattr(b.s, name))
+        for name in ("b", "costs", "base", "w", "ah", "C", "F"):
+            equal(f"{tag} {name}", getattr(a, name), getattr(b, name))
+        seen["taken" if bool(a.s.do) else "skipped"] += 1
+        seen["unbounded"] += bool(a.s.unb)
+        seen["re-anchored"] += bool((a.w == 1).all())
+        for lp in (a, b):
+            if saved is not None:
+                lp.Tt[:, saved[0]] = saved[1]
+            lp.s.status.fill_(kb.RUNNING)
+            lp.s.iterations.fill_(0)
+            lp.b.nan_to_num_(nan=1.0)
+            lp.s.z.nan_to_num_(nan=0.0)
+    require(min(seen["taken"], seen["skipped"], seen["unbounded"],
+                seen["re-anchored"]) > 0,
+            f"the states miss a kind of pivot: {dict(seen)}")
+    log(f"eta kernels (f64, devex, M={M} R={R} L={L}): every scalar, "
+        f"vector and factor equal the plain versions' over pivots t = 0.."
+        f"{ETA_T - 1} ({dict(seen)})")
+
+    # A taken pivot at t = ETA_T, for the timings.
+    s = a.s
+    s.bland.fill_(False)
+    ks.seq_step_pre(s, cap, eps)
+    ke.eta_ratio(a.Tt, a.C, a.F, a.b, a.ah, s, ETA_T, eps, a.ws)
+    require(bool(s.do), "the timed pivot is not taken")
+    work = pivot_work(M, R, L, ETA_T, True, 8)
+    timed = {
+        "eta_ratio": (lambda: ke.eta_ratio(a.Tt, a.C, a.F, a.b, a.ah, s,
+                                           ETA_T, eps, a.ws),
+                      lambda: ke.eta_ratio_plain(a.Tt, a.C, a.F, a.b, a.ah,
+                                                 s, ETA_T, eps),
+                      "eta_ratio_kernel", bound(*work["ah_ratio"])),
+        "eta_colk": (lambda: ke.eta_colk(a.Tt, a.C, a.F, a.costs, a.b,
+                                         a.base, a.w, a.ah, s, ETA_T, a.r,
+                                         eps, cap, a.ws, then_pre=False,
+                                         **policy),
+                     lambda: ke.eta_colk_plain(a.Tt, a.C, a.F, a.costs, a.b,
+                                               a.base, a.w, a.ah, s, ETA_T,
+                                               a.r, eps, cap, then_pre=False,
+                                               **policy),
+                     "eta_colk_kernel", bound(*work["colk_costs"])),
+    }
+    for name, (fn, plain_fn, match, (bound_ms, by)) in timed.items():
+        require(kernels_launched(fn) == 1, f"one {name} call launched "
+                "more than one kernel")
+        ms = device_ms(fn, 50, match=match)
+        records[name] = {"max_abs_err": 0.0, "ms": ms,
+                         "plain_ms": device_ms(plain_fn, 5),
+                         "bound_ms": bound_ms, "bound_by": by,
+                         "library_ms": None, "check_ms": graph_ms(fn)}
+        rec = records[name]
+        log(f"{name} f64 M={M} R={R} t={ETA_T}: {ms:.5f} ms a call "
+            f"(torch.profiler), {rec['check_ms']:.5f} ms by CUDA events "
+            f"over a CUDA graph of 50 calls, plain {rec['plain_ms']:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}%"
+            " of it")
+    del a, b
+    torch.cuda.empty_cache()
 
 
 #: The nodes of the sequential sharded loop's chunk graph by name: its
@@ -4629,6 +5024,7 @@ def phase_tiers() -> None:
     import simplex_tpu_torch as st
     from simplex_tpu_torch import reinvert, two_phase
     from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import eta as ke
 
     opts = st.SolverOptions(**PROD)
     p = benchmark_problem(8192)
@@ -4657,19 +5053,22 @@ def phase_tiers() -> None:
 
     p = benchmark_problem(2048)
     kb.reset_launches()
+    ke.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = two_phase.fallback_solve(p, opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check_certified("full f64 re-solve of random_2048_2048", res, OBJ_2048)
-    require(res.refine.method == "tableau" and not any(kb.LAUNCHES.values()),
-            f"full f64 re-solve: {res.refine.method!r} {kb.LAUNCHES}")
+    require(res.refine.method == "tableau" and not any(kb.LAUNCHES.values())
+            and min(ke.LAUNCHES.values()) > 0,
+            f"full f64 re-solve: {res.refine.method!r} {kb.LAUNCHES} "
+            f"{ke.LAUNCHES}")
     log(f"tier chain, full f64 re-solve: fallback_solve(random_2048_2048, "
         f"no basis) -> OPTIMAL certified {res.objective!r} (golden "
         f"{OBJ_2048!r}); {res.iterations_phase1}+{res.iterations_phase2} "
-        f"pivots (f64 tableau, L=128, the plain blocked loop); wall "
-        f"{wall:.3f} s")
+        f"pivots (f64 tableau, L=128, the plain blocked loop as one CUDA "
+        f"graph a window: launches {dict(ke.LAUNCHES)}); wall {wall:.3f} s")
 
     refine_result = two_phase.refine_result
     restart_device = reinvert.restart_device
@@ -5348,9 +5747,10 @@ def main() -> int:
     try:
         phase_goldens({}, "default options, f64")
         phase_goldens(PROD, "production options")
-        walks = phase_reference_f64(launches)
+        seq_ms: dict = {}
+        walks = phase_reference_f64(launches, seq_ms)
         phase_pallas_seq(launches)
-        phase_blocked_plain()
+        phase_blocked_plain(launches, seq_ms)
         phase_cli()
         phase_r1024()
         walks[8192], flagship_wall = phase_flagship(launches)
@@ -5392,9 +5792,11 @@ def main() -> int:
         phase_rank1_kernel(records)
         phase_seq_kernels(records)
         phase_sharded_seq_kernels(records)
+        phase_eta_kernels(records)
         phase_batch_trace()
         phase_window_trace()
         phase_chunk_trace()
+        phase_blocked_trace()
         phase_sharded_seq_trace()
         phase_sharded_trace()
     except SmokeFailure as e:
@@ -5410,7 +5812,7 @@ def main() -> int:
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
               **FALLBACK_KERNELS, **STEP_KERNELS, **SHARDED_STEP_KERNELS,
-              **SEQ_KERNELS}
+              **SEQ_KERNELS, **ETA_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

@@ -23,7 +23,8 @@ and basic artificials. Two routes:
   (``solver.solve_loop_blocked``, the plain loop the JAX vmap runs, with
   a lane axis): each pivot of a window is one batched pass over the
   lanes, the live column and row read through each lane's own eta rows
-  (``bmm``), and the window ends in one ``baddbmm_`` apply and, on an f32
+  (``bmm`` in f64, rounded once, as the single-LP loop's kernels form
+  them), and the window ends in one ``baddbmm_`` apply and, on an f32
   tableau, the exact re-pricing of the lanes that ran it. The host reads
   the running-lane count once per window. ``solve_device_lanes``, the
   lanes one after another through the single-LP device core, stays as
@@ -250,8 +251,12 @@ def blocked_pivot(st: BlockedState, t: int, options: SolverOptions,
     the live leaving row ``T3[i, k_i] - F[i, :t, k_i] @ C[i, :t]``, the
     exact b, costs, z, base and devex updates, the eta pair, the status
     and the anticycling state. The eta corrections are products within a
-    lane (``bmm``), never sums across lanes. A lane that does not pivot
-    keeps every bit of its state. In place, with no host sync."""
+    lane (``bmm``), never sums across lanes, formed in f64 and rounded
+    once to the tableau's dtype, as the single-LP loop's kernels form them
+    (``kernels.eta.eta_live``): an f32 ``bmm`` rounds as cuBLAS splits the
+    batch, so a lane's walk hung on the batch's width, and parted from the
+    single-LP loop's. A lane that does not pivot keeps every bit of its
+    state. In place, with no host sync."""
     eps = float(options.eps_resolved)
     tabs = st.tabs
     T3 = tabs.T3
@@ -276,7 +281,9 @@ def blocked_pivot(st: BlockedState, t: int, options: SolverOptions,
     a_h = T3.gather(2, h.view(B, 1, 1).expand(B, M, 1))[:, :, 0]
     if t:
         ch = st.C[:, :t].gather(2, h.view(B, 1, 1).expand(B, t, 1))
-        a_h = a_h - torch.bmm(ch.transpose(1, 2), st.F[:, :t])[:, 0]
+        a_h = (a_h.double() - torch.bmm(ch.transpose(1, 2).double(),
+                                        st.F[:, :t].double())[:, 0]
+               ).to(T3.dtype)
     mask = a_h >= eps
     unbounded = ~mask.any(dim=1)
     k = torch.argmin(torch.where(
@@ -286,7 +293,9 @@ def blocked_pivot(st: BlockedState, t: int, options: SolverOptions,
     colk = T3[torch.arange(B, device=dev), k]
     if t:
         fk = st.F[:, :t].gather(2, k.view(B, 1, 1).expand(B, t, 1))
-        colk = colk - torch.bmm(fk.transpose(1, 2), st.C[:, :t])[:, 0]
+        colk = (colk.double() - torch.bmm(fk.transpose(1, 2).double(),
+                                          st.C[:, :t].double())[:, 0]
+                ).to(T3.dtype)
 
     bk = tabs.b.gather(1, k[:, None])[:, 0]
     pv = p.to(vd)

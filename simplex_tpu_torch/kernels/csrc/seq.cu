@@ -129,11 +129,19 @@ namespace cg = cooperative_groups;
 namespace {
 
 using seq::BIG_INDEX;
+using seq::Between;
+using seq::between;
+using seq::block_fold;
+using seq::Cands;
 using seq::div_rn;
 using seq::first;
 using seq::inf;
 using seq::mul_rn;
+using seq::Ratio;
+using seq::store;
 using seq::sub_rn;
+using seq::take_first;
+using seq::warp_fold;
 
 // The clusters: CLUSTER_BLOCKS blocks (past the portable 8, so launched
 // with the non-portable cluster size allowed) of CLUSTER_THREADS threads,
@@ -168,124 +176,7 @@ __global__ void seq_step_pre_kernel(SeqStep<T, V> s, long long max_iter,
 }
 
 // ---------------------------------------------------------------------------
-// The folds.
-
-// A ratio candidate: its quotient, its row, and the row's a_h and b.
-template <typename T, typename V>
-struct Ratio {
-    V q;
-    int j;
-    T a;
-    V b;
-};
-
-template <typename T, typename V>
-__device__ __forceinline__ void take_first(Ratio<T, V> &x,
-                                           const Ratio<T, V> &o) {
-    if (first(o.q, o.j, x.q, x.j)) x = o;
-}
-
-template <typename T, typename V>
-__device__ __forceinline__ Ratio<T, V> shfl_xor(const Ratio<T, V> &x,
-                                                int off) {
-    return Ratio<T, V>{__shfl_xor_sync(FULL, x.q, off),
-                       __shfl_xor_sync(FULL, x.j, off),
-                       __shfl_xor_sync(FULL, x.a, off),
-                       __shfl_xor_sync(FULL, x.b, off)};
-}
-
-// The entering candidates: the Dantzig one (val, idx) in torch.argmin's
-// order and the Bland one (the lowest eligible index bidx, carrying bval).
-template <typename V>
-struct Cands {
-    V val;
-    int idx;
-    V bval;
-    int bidx;
-};
-
-template <typename V>
-__device__ __forceinline__ void take_first(Cands<V> &x, const Cands<V> &o) {
-    if (first(o.val, o.idx, x.val, x.idx)) {
-        x.val = o.val;
-        x.idx = o.idx;
-    }
-    if (o.bidx < x.bidx) {
-        x.bidx = o.bidx;
-        x.bval = o.bval;
-    }
-}
-
-template <typename V>
-__device__ __forceinline__ Cands<V> shfl_xor(const Cands<V> &x, int off) {
-    return Cands<V>{__shfl_xor_sync(FULL, x.val, off),
-                    __shfl_xor_sync(FULL, x.idx, off),
-                    __shfl_xor_sync(FULL, x.bval, off),
-                    __shfl_xor_sync(FULL, x.bidx, off)};
-}
-
-// The warp's fold: every lane gets the warp's result.
-template <typename X>
-__device__ __forceinline__ X warp_fold(X x) {
-    for (int off = 16; off > 0; off >>= 1) take_first(x, shfl_xor(x, off));
-    return x;
-}
-
-// The block's fold of x and of the flag ``any``: every lane of warp 0 gets
-// the block's result. ``warps`` and ``wany`` are the block's shared
-// arrays of NW entries; the whole block calls it.
-template <int NW, typename X>
-__device__ __forceinline__ void block_fold(X &x, bool &any, const X &none,
-                                           X *warps, int *wany) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    any = __any_sync(FULL, any);
-    x = warp_fold(x);
-    if (NW > 1) {
-        if (lane == 0) {
-            warps[warp] = x;
-            wany[warp] = any;
-        }
-        __syncthreads();
-        if (warp == 0) {
-            x = warp_fold(lane < NW ? warps[lane] : none);
-            any = __any_sync(FULL, lane < NW && wany[lane] != 0);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // The ratio test and the pass, one thread's share.
-
-// The step between the ratio test and the pass, from the folded winner.
-template <typename T, typename V>
-struct Between {
-    int k;
-    bool d, unb;
-    T p;
-    V bk, u;
-};
-
-template <typename T, typename V>
-__device__ __forceinline__ Between<T, V> between(const Ratio<T, V> &x,
-                                                 bool any, bool active,
-                                                 bool optimal, V minc) {
-    const bool unb = !any;                       // x.j < M: every q is ordered
-    const bool d = active && !(optimal || unb);
-    const T p = d ? x.a : (T)1;
-    return Between<T, V>{x.j, d, unb, p, x.b,
-                         d ? div_rn(minc, (V)p) : (V)0};
-}
-
-template <typename T, typename V>
-__device__ __forceinline__ void store(const SeqStep<T, V> &s,
-                                      const Between<T, V> &w) {
-    *s.k = w.k;
-    *s.unb = w.unb;
-    *s.do_ = w.d;
-    *s.p = w.p;
-    *s.bk = w.bk;
-    *s.u = w.u;
-}
 
 // This thread's rows of the ratio test (rows g, g + SPAN, ...), PER at a
 // time, b and the loads of a_h of the PER issued before any is waited

@@ -1,0 +1,278 @@
+"""The plain blocked loop's per-pivot kernels: ``solver.solve_loop_blocked``
+as one CUDA graph a window of L pivots.
+
+No Pallas kernel stands behind these: in the JAX package the plain
+deferred block-pivot loop is a ``lax.while_loop`` around a
+``lax.fori_loop`` whose pivot XLA fuses (``simplex_tpu/solver.py:528-582``
+``inner``). The port's eager loop ran a pivot as about 30 torch calls;
+here a pivot is two kernels (``csrc/eta.cu``), each on a full grid whose
+last block folds the blocks' partials by an arrival ticket --
+
+* ``eta_ratio``: the live entering column ``a_h = Tt[:, h] - sum_{s<t}
+  C[s, h] F[s]`` into the loop's fixed ``ah``, the ratio test and the step
+  between (k, unb, do, p, bk, u);
+* ``eta_colk``: the live leaving row ``colk = Tt[k] - sum_{s<t} F[s, k]
+  C[s]`` into ``C[t]``, the costs and the devex weights (re-anchored every
+  pivot), ``F[t]``, b and ``base[k] = h``, the next pivot's candidates,
+  the step after and the next pivot's step before.
+
+The window begins with ``kernels.seq.seq_step_pre`` and ends in
+``Tt.addmm_(F.t(), C, alpha=-1)`` (cuBLAS: the JAX loop's XLA dot).
+
+As in the other kernel modules each kernel is built at first use, has a
+plain PyTorch version taken for CPU tensors (and by ``chip_smoke.py`` as
+the kernel's reference on the card), and a launch counter in
+``LAUNCHES``; a wrapper given CUDA tensors launches its kernel or raises.
+The eta corrections sum in f64 in one order in both (``eta_live``), so a
+kernel and its plain version agree bit for bit.
+
+Dtypes: the tableau ``Tt (M, R)``, ``C (L, R)``, ``F (L, M)`` and ``ah``
+of T; b, the costs, z and the devex weights of V: (f64, f64), (f32, f64)
+and (f32, f32) have kernels; the plain versions take any pair. The
+scalars are ``kernels.seq.SeqScalars``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .blocked import (BIG_INDEX, _bland_mode, _cdiv, _expect, _index,
+                      _on_card, _ptr, _stream, step_post_plain)
+from .seq import (SeqScalars, _lib, _pair, _ratio_plain, _seq_ptrs,
+                  _update_b, set_candidates)
+
+#: Launches of each kernel since the last ``reset_launches``. The steps
+#: run inside their carriers: the step between in ``eta_ratio``, the step
+#: after (and the next step before) in ``eta_colk``.
+LAUNCHES = {"eta_ratio": 0, "eta_colk": 0}
+
+#: Rows a block of ``eta_ratio``, and columns (or rows) a block of
+#: ``eta_colk`` (csrc/eta.cu ROWS_A, COLS_B).
+ETA_ROWS = 64
+ETA_COLS = 128
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def eta_workspace_bytes(M: int, R: int) -> int:
+    """Bytes of the two kernels' workspace for an ``M`` x ``R`` tableau
+    (csrc/eta.cu ``ws_bytes``): the two arrival counters and a stashed
+    weight (16 bytes), 32 bytes of partial for each block of
+    ``eta_ratio`` and 64 for each column block of ``eta_colk``."""
+    return 16 + 32 * _cdiv(M, ETA_ROWS) + 64 * _cdiv(R, ETA_COLS)
+
+
+def eta_workspace(M: int, R: int, device) -> torch.Tensor:
+    """A zeroed workspace for ``eta_ratio`` and ``eta_colk`` on ``device``.
+    Each call leaves its counter at 0 again, so a loop allocates one and
+    passes it to every call, in order on one stream. The plain versions
+    leave it untouched."""
+    return torch.zeros(eta_workspace_bytes(M, R), dtype=torch.uint8,
+                       device=device)
+
+
+def eta_sum(coef: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
+    """``sum_{s<t} coef[s] * rows[s]`` in the kernels' order, in f64: s =
+    0 .. t-1 from zeros, each product (exact for f32 operands) and each
+    sum rounded apart."""
+    acc = torch.zeros(rows.shape[1], dtype=torch.float64, device=rows.device)
+    if t:
+        prods = coef[:t, None].double() * rows[:t].double()
+        for q in range(t):
+            acc.add_(prods[q])
+    return acc
+
+
+def eta_live(head: torch.Tensor, coef: torch.Tensor, rows: torch.Tensor,
+             t: int) -> torch.Tensor:
+    """The live vector ``head - sum_{s<t} coef[s] * rows[s]`` as the
+    kernels form it: ``eta_sum``, one f64 subtraction, one rounding to
+    ``head``'s dtype."""
+    return (head.double() - eta_sum(coef, rows, t)).to(head.dtype)
+
+
+def eta_candidates(costs: torch.Tensor, w: torch.Tensor | None, r: int,
+                   eps: float):
+    """The entering candidates (h_d, v_d, h_b, v_b), 0-dim, the indices
+    int32, that ``solver._entering_blocked`` chooses between: over the
+    costs of the live columns ``i < r``, the main one the Dantzig argmin
+    (``w`` None) or the devex argmax of cost^2 / w over the eligible
+    columns (cost <= -eps; with none, column 0), its value the masked
+    cost there; the Bland one the lowest eligible index (``BIG_INDEX``
+    and inf with none). Every product and quotient in the costs' dtype."""
+    R = costs.shape[0]
+    iota = torch.arange(R, device=costs.device)
+    masked = torch.where(iota < r, costs, torch.inf)
+    eligible = masked <= -eps
+    if w is None:
+        h_d = torch.argmin(masked)
+    else:
+        h_d = torch.argmax(torch.where(eligible, masked * masked / w,
+                                       -torch.inf))
+    h_b = torch.where(eligible, iota, BIG_INDEX).min()
+    v_b = torch.where(h_b < BIG_INDEX, _index(masked, h_b, R - 1),
+                      torch.inf)
+    return (h_d.to(torch.int32), _index(masked, h_d, R - 1),
+            h_b.to(torch.int32), v_b)
+
+
+def _check(Tt, C, F, s: SeqScalars, t: int, **vecs) -> tuple[int, int, int]:
+    """Raises unless the operands have the scalars' dtypes and the
+    tableau's shapes and ``t`` lies in the window; returns (M, R, L)."""
+    M, R = Tt.shape
+    L = C.shape[0]
+    T, V = s.p.dtype, s.z.dtype
+    _expect(Tt, "Tt", T, (M, R))
+    _expect(C, "C", T, (L, R))
+    _expect(F, "F", T, (L, M))
+    n = {"ah": (T, M), "b": (V, M), "costs": (V, R), "w": (V, R),
+         "base": (torch.int32, M)}
+    for name, x in vecs.items():
+        if x is not None:
+            dt, size = n[name]
+            _expect(x, name, dt, (size,))
+    if not 0 <= t < L:
+        raise ValueError(f"t={t} outside the window [0, {L})")
+    return M, R, L
+
+
+def _check_ws(ws: torch.Tensor, M: int, R: int, dev) -> None:
+    nbytes = eta_workspace_bytes(M, R)
+    if (ws.dtype != torch.uint8 or not ws.is_contiguous()
+            or ws.device != dev or ws.numel() < nbytes):
+        raise ValueError(f"ws: want an eta_workspace({M}, {R}) on {dev}, "
+                         f"got {ws.dtype} ({ws.numel()},) on {ws.device}")
+
+
+# ---------------------------------------------------------------------------
+# eta_ratio: the live entering column, the ratio test and the step between.
+
+def eta_ratio_plain(Tt, C, F, b, ah, s: SeqScalars, t: int,
+                    eps: float) -> None:
+    """Plain version of ``eta_ratio``."""
+    M, R = Tt.shape
+    h = s.h.long().clamp(max=R - 1).view(1)
+    ah.copy_(eta_live(Tt.index_select(1, h).view(M),
+                      C.index_select(1, h).view(-1), F, t))
+    _ratio_plain(b, s, ah, eps)
+
+
+def eta_ratio(Tt, C, F, b, ah, s: SeqScalars, t: int, eps: float,
+              ws=None) -> None:
+    """Pivot t's entering column and ratio test with the step between
+    (``simplex_tpu/solver.py:534-548``): ``ah = Tt[:, h] - sum_{s<t} C[s,
+    h] F[s]`` (h clamped into the columns; ``eta_live``'s order and
+    precision); k the first index of the smallest ``b / a_h`` over ``a_h
+    >= eps`` (the quotient in V, a NaN
+    first as ``torch.argmin`` orders it, the other rows +inf: with no
+    eligible row k is 0); ``unb`` where no row is eligible; ``do = active
+    and not (optimal or unb)``; ``p = a_h[k]`` where done, else 1; ``bk =
+    b[k]``; ``u = minc / p`` where done, else 0 -- into ``s``. ``ws`` is an
+    ``eta_workspace``; on the card a call without one allocates one. One
+    launch on the card: one thread a row, the last block (an arrival
+    ticket) folding the blocks' candidates and running the step."""
+    M, R, L = _check(Tt, C, F, s, t, ah=ah, b=b)
+    if not _on_card(Tt, C, F, b, ah, s.status):
+        eta_ratio_plain(Tt, C, F, b, ah, s, t, eps)
+        return
+    pair = _pair(s)
+    lib, check = _lib()
+    if ws is None:
+        ws = eta_workspace(M, R, Tt.device)
+    _check_ws(ws, M, R, Tt.device)
+    err = lib.eta_ratio_launch(
+        _ptr(Tt), _ptr(C), _ptr(F), _ptr(b), _ptr(ah), M, R, L, t,
+        float(eps), _ptr(ws), ws.numel(), ctypes.byref(_seq_ptrs(s)), pair,
+        _stream(Tt))
+    check(lib, err, "eta_ratio")
+    LAUNCHES["eta_ratio"] += 1
+
+
+# ---------------------------------------------------------------------------
+# eta_colk: the live leaving row, C[t], the costs and weights, F[t], b and
+# base, the next candidates and the step after.
+
+def devex_weights(w, colk, s: SeqScalars, lvar) -> torch.Tensor:
+    """The Forrest-Goldfarb weights after a done pivot
+    (``solver._devex_update``'s, on the loop's scalars): ``alpha = colk /
+    p`` (T, widened); ``max(w, alpha^2 w_h)``; the leaving variable
+    ``lvar`` (where it is a column) ``max(w_h / p^2, 1)``; capped at 1e12,
+    NaN to 1; all ones when the largest passes 1e8 (the re-anchor)."""
+    R = w.shape[0]
+    V = w.dtype
+    wh = _index(w, s.h, R - 1)
+    alpha = (colk / s.p).to(V)
+    w2 = torch.maximum(w, alpha * alpha * wh)
+    is_l = torch.arange(R, device=w.device) == lvar
+    w2 = torch.where(is_l, torch.maximum(wh / (s.p * s.p).to(V),
+                                         torch.ones_like(wh)), w2)
+    w2 = torch.minimum(w2, torch.full_like(w2, 1e12))
+    w2 = torch.where(torch.isnan(w2), 1.0, w2)
+    return torch.where(w2.max() > 1e8, 1.0, w2)
+
+
+def eta_colk_plain(Tt, C, F, costs, b, base, w, ah, s: SeqScalars, t: int,
+                   r: int, eps: float, max_iter: int, bland_static: bool,
+                   threshold, then_pre: bool) -> None:
+    """Plain version of ``eta_colk``."""
+    M, R = Tt.shape
+    k = s.k.long().clamp(max=M - 1).view(1)
+    lvar = base.index_select(0, k)              # before base changes
+    colk = eta_live(Tt.index_select(0, k).view(R),
+                    F.index_select(1, k).view(-1), C, t)
+    C[t] = torch.where(s.do, colk, 0.0)
+    costs.copy_(torch.where(s.do, costs - s.u * colk.to(costs.dtype), costs))
+    if w is not None:
+        w.copy_(torch.where(s.do, devex_weights(w, colk, s, lvar), w))
+    f = _update_b(b, base, ah, s)
+    is_k = torch.arange(M, device=Tt.device) == k
+    F[t] = torch.where(s.do, torch.where(is_k, 1.0 - 1.0 / s.p, f), 0.0)
+    set_candidates(s, eta_candidates(costs, w, r, eps))
+    step_post_plain(s, max_iter, eps, bland_static, threshold, then_pre)
+
+
+def eta_colk(Tt, C, F, costs, b, base, w, ah, s: SeqScalars, t: int, r: int,
+             eps: float, max_iter: int, ws=None, *, bland_static: bool,
+             threshold, then_pre: bool) -> None:
+    """The rest of pivot t (``simplex_tpu/solver.py:549-582``, with the
+    next pivot's entering choice ``:491-505`` and ``devex_update``
+    ``:507-526``): ``colk =
+    Tt[k] - sum_{s<t} F[s, k] C[s]`` (``eta_live``'s order and precision)
+    into ``C[t]``
+    (zeros where the pivot is skipped); where it is done ``costs -= u *
+    colk`` (V), the devex weights (``w`` given; ``devex_weights``), ``b
+    -= bk * (a_h / p)`` with ``b[k] = bk / p``, ``base[k] = h`` and ``F[t]
+    = a_h / p`` with ``1 - 1/p`` at k (zeros where skipped); the next
+    candidates over the costs of the live columns ``i < r``
+    (``eta_candidates``) into ``s``; then ``step_post_plain``'s z, status,
+    stall, bland and iterations and, with ``then_pre``, the next pivot's
+    step before the ratio test. ``ws`` is an ``eta_workspace``. One launch
+    on the card: one thread a column, blocks past the columns one thread
+    a row of F[t] and b, the last column block (an arrival ticket) folding
+    the candidates -- on the new weights and on weights of 1, keeping the
+    latter on a re-anchor -- and running the step."""
+    M, R, L = _check(Tt, C, F, s, t, costs=costs, b=b, base=base, w=w,
+                     ah=ah)
+    if not _on_card(Tt, C, F, costs, b, base, w, ah, s.status):
+        eta_colk_plain(Tt, C, F, costs, b, base, w, ah, s, t, r, eps,
+                       max_iter, bland_static, threshold, then_pre)
+        return
+    pair = _pair(s)
+    lib, check = _lib()
+    if ws is None:
+        ws = eta_workspace(M, R, Tt.device)
+    _check_ws(ws, M, R, Tt.device)
+    err = lib.eta_colk_launch(
+        _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(b), _ptr(base),
+        _ptr(w), _ptr(ah), M, R, L, r, t, float(eps), _ptr(ws), ws.numel(),
+        ctypes.byref(_seq_ptrs(s)), max_iter,
+        _bland_mode(bland_static, threshold),
+        0 if threshold is None else int(threshold), int(then_pre), pair,
+        _stream(Tt))
+    check(lib, err, "eta_colk")
+    LAUNCHES["eta_colk"] += 1

@@ -18,12 +18,14 @@ idempotent once its loop has finished, and every pivot is gated on
 reports exactly ``max_iter`` pivots whatever the chunk.
 
 The tableau is updated in place (the JAX package's loops return a new
-one). The sequential loops (``SeqLoop``) and the blocked-kernel loop
-(``KernelLoop``) keep their whole state in fixed tensors updated in
-place, and on the card replay one CUDA graph a chunk or a window: the
-port of the JAX loops' compiled ``lax.while_loop`` and ``lax.fori_loop``.
-The plain blocked loop and ``iteration_body`` (``timed.solve_timed``'s
-per-iteration pivot) build new b, costs, z and base each pivot.
+one). The sequential loops (``SeqLoop``), the plain blocked loop
+(``BlockedLoop``) and the blocked-kernel loop (``KernelLoop``) keep their
+whole state in fixed tensors updated in place, and on the card replay one
+CUDA graph a chunk or a window: the port of the JAX loops' compiled
+``lax.while_loop`` and ``lax.fori_loop``. ``iteration_body``
+(``timed.solve_timed``'s per-iteration pivot) and the plain blocked loop's
+old body (``blocked_reference_windows``, the tests' reference) build new
+b, costs, z and base each pivot.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from .kernels.blocked import (OPTIMAL, RUNNING, CapturedLaunches,
                               apply_reprice, apply_window, colk_costs_tail,
                               colk_workspace, entering_candidates,
                               exit_status, pivot_scalars, step_pre)
+from .kernels.eta import LAUNCHES as ETA_LAUNCHES
+from .kernels.eta import eta_candidates, eta_colk, eta_ratio, eta_workspace
 from .kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
 from .kernels.seq import LAUNCHES as SEQ_LAUNCHES
 from .kernels.seq import (SeqScalars, fused_pivot_tail,
@@ -308,28 +312,37 @@ def capture_chunk(loop: SeqLoop, options: SolverOptions, max_iter: int
                     loop.Tt.device, SEQ_LAUNCHES, PIVOT_LAUNCHES)
 
 
-def _solve_seq(tab: Tableau, loop: SeqLoop, options: SolverOptions,
-               max_iter: int, graph: bool) -> tuple[Tableau, int, int]:
-    """Run ``loop`` to its exit, a chunk between two host reads of status
-    and iterations: on the card one replay of the chunk's CUDA graph,
-    captured once a call (``graph=False``: the same kernels enqueued
-    eagerly), on the CPU the plain versions eagerly."""
-    s = loop.s
+def _drive(s, run, capture, max_iter: int, graph: bool) -> tuple[int, int]:
+    """Run a loop whose scalars are ``s`` to its exit, one ``run()`` (a
+    chunk or a window) between two host reads of status and iterations:
+    on the card one replay of ``capture()``'s CUDA graph, captured once a
+    call (``graph=False``: ``run()`` enqueued eagerly), on the CPU
+    ``run()`` with the plain versions. Returns (status, iterations)."""
     captured = None
     st, it = RUNNING, 0
     while st == RUNNING and it < max_iter:
-        if graph and loop.Tt.is_cuda:
+        if graph and s.status.is_cuda:
             if captured is None:
-                captured = capture_chunk(loop, options, max_iter)
+                captured = capture()
             cuda_graph, launches = captured
             cuda_graph.replay()
             launches.replayed()
         else:
-            run_chunk(loop, options, max_iter)
-        # The chunk's one host sync.
+            run()
+        # The chunk's or window's one host sync.
         st, it = (int(v) for v in
                   torch.stack([s.status, s.iterations]).tolist())
-    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=s.z,
+    return st, it
+
+
+def _solve_seq(tab: Tableau, loop: SeqLoop, options: SolverOptions,
+               max_iter: int, graph: bool) -> tuple[Tableau, int, int]:
+    """Run ``loop`` to its exit, a chunk between two host reads of status
+    and iterations (``_drive``)."""
+    st, it = _drive(loop.s, lambda: run_chunk(loop, options, max_iter),
+                    lambda: capture_chunk(loop, options, max_iter), max_iter,
+                    graph)
+    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=loop.s.z,
                               base=loop.base)
     return out, st, it
 
@@ -418,106 +431,279 @@ def _devex_update(w, do, colk, p, h, old_base_k):
     return torch.where(do, w2, w)
 
 
-def solve_loop_blocked(tab: Tableau, options: SolverOptions, max_iter: int,
-                       costs0: torch.Tensor | None = None
-                       ) -> tuple[Tableau, int, int]:
-    """Deferred block pivoting in plain torch (``simplex_tpu.solver.
-    solve_loop_blocked``): the loop for f64 tableaus, and for f32 ones when
-    the kernels are off (``use_pallas=False``) or L is not a multiple of 8.
+def _check_apply(Tt: torch.Tensor) -> None:
+    """An f32 window apply on the card needs IEEE products (TF32 off)."""
+    if (Tt.dtype != torch.float64 and Tt.is_cuda
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise ValueError("the f32 window apply needs IEEE products: set "
+                         "torch.backends.cuda.matmul.allow_tf32 = False")
 
-    The tableau stays stale for a window of L pivots. Pivot t reads the
-    live entering column ``Tt[:, h] - C[:t, h] @ F[:t]`` and leaving row
-    ``Tt[k] - F[:t, k] @ C[:t]``, updates b, the costs, z, base and the
-    devex weights exactly, and stores its eta pair in ``C[t]``, ``F[t]``;
-    the window ends in ``Tt -= F^T C`` (one ``addmm_``, in place). With
-    ``costs0`` and an f32 tableau the costs are re-priced exactly at every
-    window boundary (``reprice_every`` is not read, as in the JAX loop),
-    and an OPTIMAL declared on drifted costs while exact pricing still
-    shows an improving column is reopened. f64 tableaus are not re-priced
-    (incremental f64 updates drift ~1e-13).
 
-    The JAX package emulates f64 on the TPU, so it forms the f64 eta
-    corrections elementwise and the f64 window apply as a Dekker split
-    (``_split_dot``); here both are native f64 products. An f32 apply on
-    the card needs TF32 off (IEEE products, the JAX loop's HIGHEST
-    precision). The host reads status and iterations once per window."""
+def blocked_reference_pivot(Tt, C, F, t: int, x: dict, r: int,
+                            options: SolverOptions, max_iter: int,
+                            live=None) -> dict:
+    """Pivot t of the plain blocked loop as it ran before its window's
+    graph (about 30 torch calls on new tensors: ``_entering_blocked``, the
+    eta corrections as ``@`` products, ``_devex_update``), from the carry
+    ``x`` -- b, costs, z, base, w (the devex weights, ones under the other
+    rules), status, iterations, stall, bland -- to the next one; ``C[t]``
+    and ``F[t]`` are written in place. ``live(head, coef, rows, t)``, when
+    given, forms the live column and row ``head - sum_{s<t} coef[s]
+    rows[s]`` in place of ``head - coef[:t] @ rows[:t]`` (the tests pass
+    ``kernels.eta.eta_live``, the kernels' order and precision)."""
     eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
     devex = options.pivot_rule_resolved == "devex"
-    threshold = options.bland_threshold
+    M, R = Tt.shape
+    vd = x["costs"].dtype
+    b, costs, z, base, w = (x[n] for n in ("b", "costs", "z", "base", "w"))
+    active = (x["status"] == RUNNING) & (x["iterations"] < max_iter)
+    h, minc = _entering_blocked(costs, w, x["bland"], r, eps, devex)
+    optimal = minc > -eps
+    if live is None:
+        def live(head, coef, rows, t):
+            return head - coef[:t] @ rows[:t] if t else head
+    hl = h.long().view(1)
+    a_h = live(Tt.index_select(1, hl).view(M), C.index_select(1, hl).view(-1),
+               F, t)
+    mask = a_h >= eps
+    unbounded = ~mask.any()
+    k = torch.argmin(torch.where(
+        mask, b / torch.where(mask, a_h, 1.0), torch.inf))
+    do = active & ~(optimal | unbounded)
+    p = torch.where(do, _at(a_h, k), 1.0)
+    kl = k.view(1)
+    colk = live(Tt.index_select(0, kl).view(R),
+                F.index_select(1, kl).view(-1), C, t)
+    bk = _at(b, k)
+    u = minc / p.to(vd)
+    z2 = torch.where(do, z - u * bk, z)
+    is_k = torch.arange(M, device=Tt.device) == k
+    C[t] = torch.where(do, colk, 0.0)
+    F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p, a_h / p), 0.0)
+    stall, bland = anticycling_update(
+        do, (z2 - z).abs() >= eps, x["stall"], x["bland"],
+        bland_static=options.pivot_rule_resolved == "bland",
+        threshold=options.bland_threshold)
+    return dict(
+        b=torch.where(do, torch.where(is_k, bk / p.to(vd),
+                                      b - bk * (a_h / p).to(vd)), b),
+        costs=torch.where(do, costs - u * colk.to(vd), costs), z=z2,
+        base=torch.where(do & is_k, h, base),
+        w=_devex_update(w, do, colk, p, h, _at(base, k)) if devex else w,
+        status=exit_status(active, optimal, unbounded, x["status"]),
+        iterations=x["iterations"] + do.to(torch.int32), stall=stall,
+        bland=bland)
+
+
+def blocked_reference_windows(tab: Tableau, options: SolverOptions,
+                              max_iter: int,
+                              costs0: torch.Tensor | None = None,
+                              live=None):
+    """The plain blocked loop as it ran before its window's graph:
+    ``blocked_reference_pivot`` L times, the window's apply
+    ``Tt.addmm_`` and, with ``costs0`` on an f32 tableau, the re-pricing
+    and the reopening of a premature OPTIMAL; one host read of status and
+    iterations a window. A generator: after each window it yields the
+    loop's carry (``blocked_reference_pivot``'s dict of tensors, its live
+    column and row formed by ``live``); ``Tt`` is updated in place. The
+    reference that the tests and ``chip_smoke.py`` hold
+    ``solve_loop_blocked`` to."""
+    eps = float(options.eps_resolved)
     L = int(options.block_pivots or 1)
     Tt = tab.Tt
     M, R = Tt.shape
     dev = Tt.device
-    dtype, vd = Tt.dtype, tab.costs.dtype
-    if dtype == torch.float64:
+    if Tt.dtype == torch.float64:
         costs0 = None
-    elif dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError("the f32 window apply needs IEEE products: set "
-                         "torch.backends.cuda.matmul.allow_tf32 = False")
-    iota_m = torch.arange(M, device=dev)
+    _check_apply(Tt)
     row_mask = torch.arange(R, device=dev) < tab.r
-
-    b, costs, z, base = tab.b, tab.costs, tab.z, tab.base
-    w = torch.ones(R, dtype=vd, device=dev)
-    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    bland = torch.tensor(bland_static, device=dev)
+    x = dict(b=tab.b, costs=tab.costs, z=tab.z, base=tab.base,
+             w=torch.ones(R, dtype=tab.costs.dtype, device=dev),
+             status=torch.tensor(RUNNING, dtype=torch.int32, device=dev),
+             iterations=torch.zeros((), dtype=torch.int32, device=dev),
+             stall=torch.zeros((), dtype=torch.int32, device=dev),
+             bland=torch.tensor(options.pivot_rule_resolved == "bland",
+                                device=dev))
     # Pivot t writes C[t] and F[t] (zeros when skipped) and reads rows
     # < t only, so the factors are never cleared.
-    C = torch.zeros((L, R), dtype=dtype, device=dev)
-    F = torch.zeros((L, M), dtype=dtype, device=dev)
+    C = torch.zeros((L, R), dtype=Tt.dtype, device=dev)
+    F = torch.zeros((L, M), dtype=Tt.dtype, device=dev)
 
     st, it = RUNNING, 0
     while st == RUNNING and it < max_iter:
         for t in range(L):
-            active = (status == RUNNING) & (iterations < max_iter)
-            h, minc = _entering_blocked(costs, w, bland, tab.r, eps, devex)
-            optimal = minc > -eps
-            hl = h.long().view(1)
-            a_h = Tt.index_select(1, hl).view(M)
-            if t:
-                a_h = a_h - C[:t].index_select(1, hl).view(t) @ F[:t]
-            mask = a_h >= eps
-            unbounded = ~mask.any()
-            k = torch.argmin(torch.where(
-                mask, b / torch.where(mask, a_h, 1.0), torch.inf))
-            do = active & ~(optimal | unbounded)
-            p = torch.where(do, _at(a_h, k), 1.0)
-            kl = k.view(1)
-            colk = Tt.index_select(0, kl).view(R)
-            if t:
-                colk = colk - F[:t].index_select(1, kl).view(t) @ C[:t]
-            bk = _at(b, k)
-            u = minc / p.to(vd)
-            costs2 = torch.where(do, costs - u * colk.to(vd), costs)
-            z2 = torch.where(do, z - u * bk, z)
-            is_k = iota_m == k
-            b = torch.where(do, torch.where(is_k, bk / p.to(vd),
-                                            b - bk * (a_h / p).to(vd)), b)
-            if devex:
-                w = _devex_update(w, do, colk, p, h, _at(base, k))
-            base = torch.where(do & is_k, h, base)
-            C[t] = torch.where(do, colk, 0.0)
-            F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p,
-                                               a_h / p), 0.0)
-            status = exit_status(active, optimal, unbounded, status)
-            stall, bland = anticycling_update(
-                do, (z2 - z).abs() >= eps, stall, bland,
-                bland_static=bland_static, threshold=threshold)
-            iterations = iterations + do.to(torch.int32)
-            costs, z = costs2, z2
+            x = blocked_reference_pivot(Tt, C, F, t, x, tab.r, options,
+                                        max_iter, live)
         Tt.addmm_(F.t(), C, alpha=-1.0)
         if costs0 is not None:
-            costs = costs0 - tt_matvec(Tt, basic_costs(base, costs0, tab.r))
-            vmin = torch.where(row_mask, costs, torch.inf).min()
-            status = torch.where((status == OPTIMAL) & (vmin <= -eps),
-                                 RUNNING, status).to(torch.int32)
+            x["costs"] = costs0 - tt_matvec(
+                Tt, basic_costs(x["base"], costs0, tab.r))
+            vmin = torch.where(row_mask, x["costs"], torch.inf).min()
+            x["status"] = torch.where(
+                (x["status"] == OPTIMAL) & (vmin <= -eps), RUNNING,
+                x["status"]).to(torch.int32)
         # The window's one host read.
-        st, it = (int(v) for v in torch.stack([status, iterations]).tolist())
+        st, it = (int(v) for v in
+                  torch.stack([x["status"], x["iterations"]]).tolist())
+        yield x
 
-    out = dataclasses.replace(tab, b=b, costs=costs, z=z, base=base)
+
+def solve_loop_blocked_reference(tab: Tableau, options: SolverOptions,
+                                 max_iter: int,
+                                 costs0: torch.Tensor | None = None,
+                                 live=None) -> tuple[Tableau, int, int]:
+    """``blocked_reference_windows`` run to its end: (tableau, status,
+    iterations), as ``solve_loop_blocked`` returns them."""
+    for state in blocked_reference_windows(tab, options, max_iter, costs0,
+                                           live):
+        pass
+    out = dataclasses.replace(tab, b=state["b"], costs=state["costs"],
+                              z=state["z"], base=state["base"])
+    return out, int(state["status"]), int(state["iterations"])
+
+
+@dataclasses.dataclass
+class BlockedLoop:
+    """The plain blocked loop's state: a fixed set of tensors, each only
+    ever updated in place, since a CUDA graph of the window bakes in every
+    pointer. ``Tt`` is the caller's tableau (T); ``C (L, R)`` and ``F (L,
+    M)`` the window's eta factors and ``ah`` the entering column (T); b,
+    the costs and base the loop's own copies and ``w`` the devex weights
+    (V; None under the other rules); ``ws`` the kernels' workspace
+    (``kernels.eta.eta_workspace``); ``s`` the scalars; ``costs0`` the
+    phase's pre-elimination costs where the window ends in the exact
+    re-pricing (an f32 tableau), else None."""
+
+    Tt: torch.Tensor
+    C: torch.Tensor
+    F: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    w: torch.Tensor | None
+    ah: torch.Tensor
+    ws: torch.Tensor
+    s: SeqScalars
+    r: int
+    costs0: torch.Tensor | None
+
+
+def blocked_loop(tab: Tableau, options: SolverOptions,
+                 costs0: torch.Tensor | None = None) -> BlockedLoop:
+    """The state at the start of ``solve_loop_blocked``: the vectors in
+    their own dtype, the devex weights at 1, status RUNNING and the first
+    candidates folded over the costs (``eta_candidates``)."""
+    L = int(options.block_pivots)
+    Tt = tab.Tt
+    M, R = Tt.shape
+    dev, dt, vd = Tt.device, Tt.dtype, tab.costs.dtype
+    devex = options.pivot_rule_resolved == "devex"
+    # Pivot t writes C[t] and F[t] (zeros when skipped) and reads rows
+    # < t only, so the factors are never cleared.
+    loop = BlockedLoop(
+        Tt, C=torch.zeros((L, R), dtype=dt, device=dev),
+        F=torch.zeros((L, M), dtype=dt, device=dev), b=tab.b.clone(),
+        costs=tab.costs.clone(), base=tab.base.to(torch.int32).clone(),
+        w=torch.ones(R, dtype=vd, device=dev) if devex else None,
+        ah=torch.zeros(M, dtype=dt, device=dev),
+        ws=eta_workspace(M, R, dev),
+        s=seq_scalars(tab.z.to(vd), options.pivot_rule_resolved == "bland",
+                      dt),
+        r=tab.r, costs0=None if dt == torch.float64 else costs0)
+    set_candidates(loop.s, eta_candidates(
+        loop.costs, loop.w, tab.r, float(options.eps_resolved)))
+    return loop
+
+
+def run_blocked_window(loop: BlockedLoop, options: SolverOptions,
+                       max_iter: int) -> None:
+    """Enqueue one window with no host read: ``seq_step_pre``, then per
+    pivot t ``eta_ratio`` (the column, the ratio test, the step between)
+    and ``eta_colk`` (the row, C[t], F[t], the vectors, the candidates,
+    the step after and, but at t = L - 1, the next step before), then the
+    apply ``Tt -= F^T C`` (one ``addmm_``, cuBLAS) and, with ``costs0``,
+    the exact re-pricing (``tt_matvec``), the reopening of a premature
+    OPTIMAL and the candidates refolded: 2L + 1 kernels and the apply on
+    the card (more nodes for the re-pricing), the body a CUDA graph
+    captures."""
+    eps = float(options.eps_resolved)
+    L = loop.C.shape[0]
+    policy = dict(bland_static=options.pivot_rule_resolved == "bland",
+                  threshold=options.bland_threshold)
+    s = loop.s
+    seq_step_pre(s, max_iter, eps)
+    for t in range(L):
+        eta_ratio(loop.Tt, loop.C, loop.F, loop.b, loop.ah, s, t, eps,
+                  loop.ws)
+        eta_colk(loop.Tt, loop.C, loop.F, loop.costs, loop.b, loop.base,
+                 loop.w, loop.ah, s, t, loop.r, eps, max_iter, loop.ws,
+                 then_pre=t + 1 < L, **policy)
+    loop.Tt.addmm_(loop.F.t(), loop.C, alpha=-1.0)
+    if loop.costs0 is not None:
+        # Exact re-pricing at the window boundary: an OPTIMAL declared on
+        # drifted costs while exact pricing still shows an improving
+        # column is reopened.
+        loop.costs.copy_(loop.costs0 - tt_matvec(
+            loop.Tt, basic_costs(loop.base, loop.costs0, loop.r)))
+        live = torch.arange(loop.costs.shape[0],
+                            device=loop.costs.device) < loop.r
+        vmin = torch.where(live, loop.costs, torch.inf).min()
+        s.status.copy_(torch.where((s.status == OPTIMAL) & (vmin <= -eps),
+                                   RUNNING, s.status))
+        set_candidates(s, eta_candidates(loop.costs, loop.w, loop.r, eps))
+
+
+def capture_blocked_window(loop: BlockedLoop, options: SolverOptions,
+                           max_iter: int
+                           ) -> tuple[torch.cuda.CUDAGraph, CapturedLaunches]:
+    """One window (``run_blocked_window``) captured as a CUDA graph, and
+    the launches it holds. The apply's and the re-pricing's scratch come
+    from the graph's private memory pool."""
+    return _capture(lambda: run_blocked_window(loop, options, max_iter),
+                    loop.Tt.device, ETA_LAUNCHES, SEQ_LAUNCHES)
+
+
+def solve_loop_blocked(tab: Tableau, options: SolverOptions, max_iter: int,
+                       costs0: torch.Tensor | None = None, *,
+                       graph: bool = True) -> tuple[Tableau, int, int]:
+    """Deferred block pivoting (``simplex_tpu.solver.solve_loop_blocked``):
+    the loop for f64 tableaus, and for f32 ones when the kernels are off
+    (``use_pallas=False``), L is not a multiple of 8 or R not of 128.
+
+    The tableau stays stale for a window of L pivots. Pivot t reads the
+    live entering column ``Tt[:, h] - sum_{s<t} C[s, h] F[s]`` and leaving
+    row ``Tt[k] - sum_{s<t} F[s, k] C[s]``, updates b, the costs, z, base
+    and the devex weights exactly (the weights re-anchored every pivot),
+    and stores its eta pair in ``C[t]``, ``F[t]``; the window ends in ``Tt
+    -= F^T C`` (one ``addmm_``, in place). With ``costs0`` and an f32
+    tableau the costs are re-priced exactly at every window boundary
+    (``reprice_every`` is not read, as in the JAX loop), and an OPTIMAL
+    declared on drifted costs while exact pricing still shows an improving
+    column is reopened. f64 tableaus are not re-priced (incremental f64
+    updates drift ~1e-13). Returns (tableau, status, iterations); status
+    stays RUNNING when the iteration fuse tripped, which it does at
+    exactly ``max_iter`` pivots, mid-window too.
+
+    A pivot is two kernels (``kernels.eta``; ``run_blocked_window``); the
+    tableau is updated in place and b, the costs, z and base are the
+    loop's. On the card a window is one CUDA graph replay, captured once a
+    call (the JAX ``lax.while_loop`` over its ``lax.fori_loop``), and the
+    host reads status and iterations once a window; ``graph=False``
+    enqueues the same kernels and calls eagerly (the on-card comparison
+    path); the CPU runs the plain versions eagerly. The JAX package
+    emulates f64 on the TPU, so it forms the f64 eta corrections
+    elementwise and the f64 apply as a Dekker split (``_split_dot``); here
+    both are native f64. An f32 apply on the card needs TF32 off (IEEE
+    products, the JAX loop's HIGHEST precision). A tableau and vectors of
+    a dtype pair with no kernel raise on the card."""
+    _check_apply(tab.Tt)
+    loop = blocked_loop(tab, options, costs0)
+    st, it = _drive(
+        loop.s, lambda: run_blocked_window(loop, options, max_iter),
+        lambda: capture_blocked_window(loop, options, max_iter), max_iter,
+        graph)
+    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=loop.s.z,
+                              base=loop.base)
     return out, st, it
 
 

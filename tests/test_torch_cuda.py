@@ -2237,3 +2237,235 @@ def test_sharded_seq_kernels_refuse_on_card(cuda):
     odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
         ks.seq_fold_column(Tt, V, I, ah, odd, 10, 1e-9, 0)
+
+
+# ---------------------------------------------------------------------------
+# The plain blocked loop's kernels (kernels.eta) and its window's graph.
+
+#: (dtype pair, pricing rule) of the plain blocked loop's card checks.
+ETA_CASES = [("f64", "dantzig"), ("f64", "devex"), ("mixed", "devex"),
+             ("mixed", "bland"), ("f32", "dantzig"), ("f32", "devex")]
+
+
+def _eta_phase1(dev, pair, rule, L=8, n=300, m=100, seed=5):
+    """An eliminated phase-1 tableau on the card, its pre-elimination costs
+    (None on an f64 tableau, which the loop never re-prices) and the plain
+    blocked loop's options."""
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    T, V = SEQ_PAIRS[pair]
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V, block_pivots=L,
+                             pivot_rule=rule, bland_threshold=3,
+                             use_pallas=False)
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    tab = build_phase1(torch.as_tensor(p.A, device=dev),
+                       torch.as_tensor(p.b, device=dev), n, m, opts)
+    costs0 = None if T == np.float64 else tab.costs.clone()
+    return gaussian_eliminate(tab), costs0, opts
+
+
+@pytest.mark.parametrize("pair,rule", ETA_CASES,
+                         ids=[f"{p}-{r}" for p, r in ETA_CASES])
+def test_eta_kernels_match_plain_on_card(cuda, pair, rule):
+    """``eta_ratio`` and ``eta_colk`` against their plain versions on the
+    same card tensors, pivot by pivot over five windows of 8 (the apply
+    between, the same ``addmm_`` on both), from edge states drawn by the
+    pivot's index: Bland on, the fuse reached (a skipped pivot), a NaN in
+    b, no eligible row (the live column made negative for one pivot), a
+    weight past the devex re-anchor's bound, and plain taken pivots.
+    Every scalar, the column, C, F, b, the costs, base, the weights and
+    the tableau bit for bit."""
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    from simplex_tpu_torch import solver
+
+    tab, costs0, opts = _eta_phase1(cuda, pair, rule)
+    loops = [solver.blocked_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                                 opts, costs0) for _ in range(2)]
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
+                  threshold=opts.bland_threshold)
+    L, cap = 8, 1000
+    M = loops[0].Tt.shape[0]
+    kinds = set()
+    for win in range(5):
+        for lp, kernel in zip(loops, (True, False)):
+            (ks.seq_step_pre if kernel else kb.step_pre_plain)(lp.s, cap,
+                                                              eps)
+        for t in range(L):
+            edge = (win * L + t) % 7
+            saved = []
+            for lp in loops:
+                s = lp.s
+                if edge == 1:
+                    s.bland.fill_(True)
+                elif edge == 2:
+                    s.iterations.fill_(cap)
+                elif edge == 3:
+                    lp.b[(win * 37 + t * 11) % M] = float("nan")
+                elif edge == 4:
+                    h = int(s.h)
+                    saved.append((h, lp.Tt[:, h].clone()))
+                    lp.Tt[:, h] = -1e6
+                elif edge == 5 and lp.w is not None:
+                    lp.w[lp.r - 1] = 3e8
+                kb.step_pre_plain(s, cap, eps)
+            for lp, kernel in zip(loops, (True, False)):
+                s = lp.s
+                then_pre = t + 1 < L
+                if kernel:
+                    ke.eta_ratio(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t, eps,
+                                 lp.ws)
+                    ke.eta_colk(lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base,
+                                lp.w, lp.ah, s, t, lp.r, eps, cap, lp.ws,
+                                then_pre=then_pre, **policy)
+                else:
+                    ke.eta_ratio_plain(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t,
+                                       eps)
+                    ke.eta_colk_plain(lp.Tt, lp.C, lp.F, lp.costs, lp.b,
+                                      lp.base, lp.w, lp.ah, s, t, lp.r, eps,
+                                      cap, then_pre=then_pre, **policy)
+            a, b = loops
+            for name, x in a.s.tensors().items():
+                assert _bits_equal(x, getattr(b.s, name)), (win, t, name)
+            for name in ("Tt", "C", "F", "b", "costs", "base", "w", "ah"):
+                x, y = getattr(a, name), getattr(b, name)
+                assert x is None or _bits_equal(x, y), (win, t, name)
+            kinds.add((bool(a.s.do), bool(a.s.unb), edge))
+            for lp in loops:
+                if edge == 4:
+                    h, col = saved.pop(0)
+                    lp.Tt[:, h] = col
+                # Go on walking: running again, below the fuse, b and z
+                # without a NaN.
+                lp.s.status.fill_(int(pst.Status.RUNNING))
+                lp.s.iterations.fill_(0)
+                lp.b.nan_to_num_(nan=1.0)
+                lp.s.z.nan_to_num_(nan=0.0)
+        for lp in loops:
+            lp.Tt.addmm_(lp.F.t(), lp.C, alpha=-1.0)
+        assert _bits_equal(loops[0].Tt, loops[1].Tt), win
+    assert (True, False, 0) in kinds and (False, True, 4) in kinds, kinds
+    assert (False, False, 2) in kinds, kinds
+
+
+@pytest.mark.parametrize("pair,rule", ETA_CASES,
+                         ids=[f"{p}-{r}" for p, r in ETA_CASES])
+def test_blocked_graph_matches_eager_on_card(cuda, monkeypatch, pair, rule):
+    """``solve_loop_blocked`` as one CUDA graph a window against
+    ``graph=False`` and against the old body on the card: graph and
+    ``graph=False`` the same status and iterations and the final Tt, b,
+    costs, z and base bit for bit (the window's ``addmm_`` and re-pricing
+    captured are the same calls as eager), one capture, the same
+    launches -- ``eta_ratio`` and ``eta_colk`` L a window and
+    ``seq_step_pre`` once, 2L + 1 kernels a replay; against the old body
+    with its live column and row formed as the kernels form them
+    (``eta_live``) bit for bit as well, and
+    against the old body as it ran (``@``) on an f64 tableau the same
+    walk, status and basis, b within 1e-9."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    tab0, costs0, opts = _eta_phase1(cuda, pair, rule)
+    captures = []
+    real = solver.capture_blocked_window
+    monkeypatch.setattr(solver, "capture_blocked_window",
+                        lambda *a: captures.append(real(*a)) or captures[-1])
+    runs = {}
+    for graph in (False, True):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        ke.reset_launches()
+        ks.reset_launches()
+        out, st, it = solver.solve_loop_blocked(tab, opts, 5000, costs0,
+                                                graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (out, st, it, {**ke.LAUNCHES, **ks.LAUNCHES})
+    (eo, est, eit, el), (go, gst, git, gl) = runs[False], runs[True]
+    assert est == gst == int(pst.Status.OPTIMAL) and eit == git > 16
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name), getattr(eo, name)), name
+    assert gl == el and len(captures) == 1
+    windows = gl["seq_step_pre"]
+    assert windows >= -(-git // 8)
+    assert gl["eta_ratio"] == gl["eta_colk"] == 8 * windows
+    per = captures[0][1].per_replay
+    assert per["eta_ratio"] == per["eta_colk"] == 8
+    assert per["seq_step_pre"] == 1 and sum(per.values()) == 17
+    order = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+    oo, ost, oit = solver.solve_loop_blocked_reference(order, opts, 5000,
+                                                       costs0, ke.eta_live)
+    assert (ost, oit) == (gst, git)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name),
+                           getattr(oo, name).to(getattr(go, name).dtype)), \
+            name
+    if pair == "f64":
+        old = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        wo, wst, wit = solver.solve_loop_blocked_reference(old, opts, 5000,
+                                                       costs0)
+        assert (wst, wit) == (gst, git)
+        assert torch.equal(wo.base.to(torch.int32), go.base)
+        torch.testing.assert_close(go.b, wo.b, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("cap", [1, 7, 8, 9, 20])
+def test_blocked_graph_fuse_is_exact_on_card(cuda, cap):
+    """A capped graphed plain blocked loop stops at the cap whatever the
+    window: status RUNNING, exactly ``cap`` pivots, the state of
+    ``graph=False`` bit for bit."""
+    from simplex_tpu_torch import solver
+
+    tab0, costs0, opts = _eta_phase1(cuda, "f64", "devex")
+    outs = []
+    for graph in (True, False):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        out, st, it = solver.solve_loop_blocked(tab, opts, cap, costs0,
+                                                graph=graph)
+        assert st == int(pst.Status.RUNNING) and it == cap
+        outs.append(out)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(outs[0], name), getattr(outs[1], name))
+
+
+def test_eta_kernels_refuse_on_card(cuda):
+    """A launch the kernels refuse raises (an empty shape, t outside the
+    window, a short workspace, an unknown pair through the C entry
+    points), a buffer of another shape raises in the wrapper, and a dtype
+    pair with no kernel raises: no fallback."""
+    from simplex_tpu_torch.kernels import _build
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = _build.load_library()
+    M, R, L = 256, 512, 8
+    f64 = dict(dtype=torch.float64, device=cuda)
+    Tt, C, F = (torch.rand(shape, **f64) for shape in ((M, R), (L, R),
+                                                       (L, M)))
+    b, ah = torch.rand(M, **f64), torch.zeros(M, **f64)
+    ws = ke.eta_workspace(M, R, cuda)
+    s = ks.seq_scalars(torch.zeros((), **f64), False, torch.float64)
+    step = ks.ctypes.byref(ks._seq_ptrs(s))
+    stream = torch.cuda.current_stream().cuda_stream
+    for m_, t, nbytes, pair in ((0, 0, ws.numel(), 0), (M, L, ws.numel(), 0),
+                                (M, 0, 16, 0), (M, 0, ws.numel(), 9)):
+        err = lib.eta_ratio_launch(
+            Tt.data_ptr(), C.data_ptr(), F.data_ptr(), b.data_ptr(),
+            ah.data_ptr(), m_, R, L, t, 1e-9, ws.data_ptr(), nbytes, step,
+            pair, stream)
+        with pytest.raises(RuntimeError, match="eta_ratio: CUDA error"):
+            _build.check(lib, err, "eta_ratio")
+    costs = torch.rand(R, **f64)
+    base = torch.zeros(M, dtype=torch.int32, device=cuda)
+    err = lib.eta_colk_launch(
+        Tt.data_ptr(), C.data_ptr(), F.data_ptr(), costs.data_ptr(),
+        b.data_ptr(), base.data_ptr(), 0, ah.data_ptr(), M, R, L, R, L,
+        1e-9, ws.data_ptr(), ws.numel(), step, 10, 0, 3, 1, 0, stream)
+    with pytest.raises(RuntimeError, match="eta_colk: CUDA error"):
+        _build.check(lib, err, "eta_colk")
+    with pytest.raises(ValueError, match="ah"):
+        ke.eta_ratio(Tt, C, F, b, ah[:-1], s, 0, 1e-9, ws)
+    odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
+    with pytest.raises(ValueError, match="no sequential kernel"):
+        ke.eta_ratio(Tt, C, F, b.float(), ah, odd, 0, 1e-9, ws)

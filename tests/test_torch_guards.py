@@ -236,8 +236,8 @@ def test_library_name_follows_the_sources():
     assert _build.source_digest() == _build.source_digest()
     assert len(_build.source_digest()) == 16
     assert [s.name for s in _build._sources()] == [
-        "batched.cu", "blocked.cu", "pivot.cu", "seq.cu", "sharded_step.cu",
-        "step.cu"]
+        "batched.cu", "blocked.cu", "eta.cu", "pivot.cu", "seq.cu",
+        "sharded_step.cu", "step.cu"]
 
 
 BATCH = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=8,
