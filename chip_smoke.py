@@ -37,8 +37,10 @@ Phases, in order; any failed check exits non-zero:
    just before and read just after), ``graph=False`` (every loop call's
    final state the graph run's bit for bit) and the old body
    (``solve_loop_blocked_reference``) -- each within 1e-9 of the golden,
-   walking the recorded 4,379 + 258, no K1-K4 launch; random_8192_8192
-   graphed within 1e-9, beside phase 3's sequential loop; the pure-f32
+   walking the recorded 4,379 + 258, no K1-K4 launch, graphed and with
+   ``graph=False`` the recorded objective bit for bit; random_8192_8192
+   graphed within 1e-9, walking the recorded 22,070 + 1,191 to the
+   recorded objective bit for bit, beside phase 3's sequential loop; the pure-f32
    tableau with ``use_pallas=False`` (its graph holding the window's
    re-pricing) on random_2048_2048 within 1e-3; each run's ms/pivot,
    capture ms and 2 + 1/L kernels a pivot by the captured launch counts;
@@ -227,8 +229,10 @@ Phases, in order; any failed check exits non-zero:
    (``eta_ratio``, ``eta_colk``) against their plain versions at the f64
    phase-1 tableau of random_2048_2048 under devex, pivot by pivot
    through a window's first 64 pivots from edge states (Bland, the fuse,
-   a NaN in b, no eligible row, a devex re-anchor), bit for bit, then
-   timed at t = 64; the latency floor of a one-thread
+   a NaN in b, no eligible row, a devex re-anchor), and at a mixed-pair
+   2,047 x 6,143 state whose slab rows start off 16-byte boundaries, bit
+   for bit, then timed at t = 64 at 2048^2 and 8192^2 beside ``addmv``
+   forming the live column; the latency floor of a one-thread
    kernel (``tools/latency_floor.cu``: an empty kernel, one load, two
    dependent loads) by the same clocks;
    each timed on the device by two clocks -- torch.profiler, and CUDA
@@ -502,6 +506,15 @@ BLOCKED_F32 = dict(dtype="float32", vector_dtype="float32",
 #: line), and the window depth of the kernels' check and timing.
 BLOCKED_WALK = (4379, 258)
 ETA_T = 64
+#: The f64 L=128 loop's objectives, graphed and with ``graph=False``, bit
+#: for bit, and its random_8192_8192 walk, as the card first recorded them
+#: (data/measures/h100_logs/): the kernels sum every eta correction in one
+#: order, whatever their grid.
+BLOCKED_OBJ = {2048: 3.308701062479446, 8192: 2.701733460334003}
+BLOCKED_WALK_8192 = (22070, 1191)
+#: The second shape of the eta kernels' edge states: rows of F and C off
+#: 16-byte boundaries (f32 rows of 4 bytes), the mixed pair, L=128.
+ETA_ODD = (2047, 6143)
 #: The kernels line's order.
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
@@ -2516,12 +2529,16 @@ def phase_blocked_plain(launches: dict, seq_ms: dict) -> None:
         w = (res.iterations_phase1, res.iterations_phase2)
         require(w == BLOCKED_WALK, f"{label} walked {w}, recorded "
                 f"{BLOCKED_WALK}")
+        require(way == "old" or res.objective == BLOCKED_OBJ[2048],
+                f"{label} reached {res.objective!r}, recorded "
+                f"{BLOCKED_OBJ[2048]!r} bit for bit")
         log(seq_line(label, r, "window") + f"; OPTIMAL objective "
             f"{res.objective!r} (golden {OBJ_2048!r}); pivots {w[0]}+{w[1]}"
             + (f"; launches {dict(ke.LAUNCHES)}" if i == 0 else ""))
     log("f64 L=128 random_2048_2048: graph, graph=False and the old body "
         "walked the recorded pivots, every loop call of graph=False ending "
-        "in the graph run's state bit for bit")
+        "in the graph run's state bit for bit, graph and graph=False at "
+        "the recorded objective bit for bit")
 
     p = benchmark_problem(8192)
     torch.cuda.reset_peak_memory_stats()
@@ -2529,6 +2546,9 @@ def phase_blocked_plain(launches: dict, seq_ms: dict) -> None:
     res = r["res"]
     check_objective("f64 L=128 random_8192_8192", res, OBJ_8192, 1e-9)
     w = (res.iterations_phase1, res.iterations_phase2)
+    require(w == BLOCKED_WALK_8192 and res.objective == BLOCKED_OBJ[8192],
+            f"f64 L=128 random_8192_8192 walked {w} to {res.objective!r}, "
+            f"recorded {BLOCKED_WALK_8192} to {BLOCKED_OBJ[8192]!r}")
     log(seq_line("f64 L=128 random_8192_8192 graph", r, "window")
         + f"; OPTIMAL objective {res.objective!r} (golden {OBJ_8192!r}); "
         f"pivots {w[0]}+{w[1]}; the default options' sequential loop on "
@@ -3613,10 +3633,13 @@ def chunk_stats(events: list, chunk: int,
     traced sequential loop: a chunk runs from one ``seq_step_pre`` to the
     kernel before the next. Returns the chunks' count, the (min, max)
     kernels a pivot, the (min, median, max) busy share inside a chunk
-    (its kernels' time over the span from its first kernel's start to its
-    last one's end) and over a chunk's period (step_pre to step_pre, the
-    host read included), and the middle chunk's kernels by name, their us
-    a pivot by name and in all, and its span. The last chunk (no period)
+    (the time some kernel of it runs over the span from its first
+    kernel's start to its last one's end) and over a chunk's period
+    (step_pre to step_pre, the host read included), and the middle
+    chunk's kernels by name, their us a pivot by name and in all (a
+    kernel's time from its start: under a programmatic dependent launch
+    it includes its wait for the kernel before), and its span. The last
+    chunk (no period)
     counts inside only. ``names`` None takes every kernel of the trace
     (those of no name in ``SEQ_GRAPH_KERNELS`` or ``BLOCKED_GRAPH_KERNELS``
     by their own names, cut to 40 characters), else those whose name
@@ -3633,13 +3656,25 @@ def chunk_stats(events: list, chunk: int,
             chunks[-1].append(e)
     require(len(chunks) >= 3, f"the trace holds {len(chunks)} chunks")
     per_pivot = [len(c) / chunk for c in chunks]
+
+    def busy(c):
+        # The time some kernel of the chunk runs: the union of their
+        # intervals (kernels launched as programmatic dependent launches
+        # overlap the one before).
+        total, end = 0.0, float("-inf")
+        for e in c:
+            lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+            if hi > lo:
+                total += hi - lo
+            end = max(end, hi)
+        return total
+
     inside, period = [], []
     for i, c in enumerate(chunks):
         span = max(e["ts"] + e["dur"] for e in c) - c[0]["ts"]
-        inside.append(sum(e["dur"] for e in c) / span)
+        inside.append(busy(c) / span)
         if i + 1 < len(chunks):
-            period.append(sum(e["dur"] for e in c)
-                          / (chunks[i + 1][0]["ts"] - c[0]["ts"]))
+            period.append(busy(c) / (chunks[i + 1][0]["ts"] - c[0]["ts"]))
     mid = chunks[len(chunks) // 2]
 
     def spread(x):
@@ -3741,6 +3776,7 @@ def phase_blocked_trace() -> None:
     import tempfile
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from simplex_tpu_torch import solver
@@ -3789,52 +3825,42 @@ def phase_blocked_trace() -> None:
         f" (median {100 * w['period'][1]:.1f}%); the middle window's "
         f"kernels {w['us_pivot']:.2f} us a pivot ("
         + ", ".join(f"{n} {us:.3f}" for n, us in w["us_by_name"].items())
-        + f"), its span {w['span_us']:.1f} us")
+        + f"), its span {w['span_us']:.1f} us = {w['span_us'] / L:.2f} us "
+        "a pivot")
+
+    # Which call launches the window's kernels of PyTorch's own: the
+    # apply, alone, traced eagerly at the window's shapes.
+    native = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                     and "at::native" in e["name"]})
+    M, R = 2048, 6144
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Tt, F, C = (torch.zeros(shape, **f64) for shape in ((M, R), (L, M),
+                                                         (L, R)))
+    apply = functools.partial(Tt.addmm_, F.t(), C, alpha=-1.0)
+    try:
+        prof = traced(apply, 5, "the window's apply")
+        launched = sorted({e.key for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA})
+    except SmokeFailure:
+        launched = ["not traced: every profiler trace came back empty"]
+    log(f"the window's at::native kernels: {native}; Tt.addmm_(F.t(), C, "
+        f"alpha=-1) alone at M={M} R={R} L={L} f64 launches {launched}")
 
 
-def phase_eta_kernels(records: dict) -> None:
-    """The plain blocked loop's kernels against their plain versions on the
-    card at the main path's shape: the f64 phase-1 tableau of
-    random_2048_2048 (M 2,048 x R 6,144), L=128, under devex (the full f64
-    re-solve's rule), two ``BlockedLoop``s, the kernels on one and the
-    plain versions on the other, pivot by pivot through the window's first
-    ``ETA_T`` pivots from edge states by the pivot's index (Bland on, the
-    fuse, a NaN in b, no eligible row, a weight past the re-anchor's
-    bound, taken pivots): every scalar, vector and factor bit for bit.
-    Then at t = ``ETA_T``, the window's mean live depth, on a taken pivot,
-    each kernel timed by torch.profiler and by CUDA events over a CUDA
-    graph of 50 calls, beside its plain version and its bound
-    (``bench.pivot_work``'s K1 and K2 entries at this shape and depth,
-    f64)."""
-    import dataclasses
-
-    import torch
-
-    import simplex_tpu_torch as st
-    from simplex_tpu_torch import solver
-    from simplex_tpu_torch.bench import pivot_work
+def eta_edge_walk(a, b, ts, cap: int, eps: float, policy: dict,
+                  tag: str) -> collections.Counter:
+    """Two ``solver.BlockedLoop``s of one state, the kernels on ``a`` and
+    the plain versions on ``b``, pivot by pivot over the window depths
+    ``ts`` from edge states by the pivot's index (Bland on, the fuse, a
+    NaN in b, no eligible row, a weight past the re-anchor's bound, taken
+    pivots): every scalar, vector and factor required bit for bit after
+    each pivot. Returns the kinds of pivot seen, each required once."""
     from simplex_tpu_torch.kernels import blocked as kb
     from simplex_tpu_torch.kernels import eta as ke
-    from simplex_tpu_torch.kernels import seq as ks
-    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
 
-    opts = st.SolverOptions(**BLOCKED_F64, pivot_rule="devex")
-    eps = float(opts.eps_resolved)
-    policy = dict(bland_static=False, threshold=opts.bland_threshold)
-    p = benchmark_problem(2048)
-    tab = gaussian_eliminate(build_phase1(
-        torch.as_tensor(p.A, device="cuda"),
-        torch.as_tensor(p.b, device="cuda"), p.vars, p.constraints, opts))
-    a, b = (solver.blocked_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
-                                opts) for _ in range(2))
-    del tab
-    M, R = a.Tt.shape
-    L = a.C.shape[0]
-    cap = 10_000
+    M = a.Tt.shape[0]
     seen = collections.Counter()
-    for lp, kernel in ((a, True), (b, False)):
-        (ks.seq_step_pre if kernel else kb.step_pre_plain)(lp.s, cap, eps)
-    for t in range(ETA_T):
+    for t in ts:
         edge = t % 7
         saved = None
         for lp in (a, b):
@@ -3863,13 +3889,13 @@ def phase_eta_kernels(records: dict) -> None:
             else:
                 ke.eta_ratio_plain(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t, eps)
                 ke.eta_colk_plain(lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base,
-                                  lp.w, lp.ah, s, t, lp.r, eps, cap, then_pre=True,
-                                  **policy)
-        tag = f"eta pivot t={t} (edge {edge})"
+                                  lp.w, lp.ah, s, t, lp.r, eps, cap,
+                                  then_pre=True, **policy)
+        where = f"{tag} pivot t={t} (edge {edge})"
         for name, x in a.s.tensors().items():
-            equal(f"{tag} {name}", x, getattr(b.s, name))
+            equal(f"{where} {name}", x, getattr(b.s, name))
         for name in ("b", "costs", "base", "w", "ah", "C", "F"):
-            equal(f"{tag} {name}", getattr(a, name), getattr(b, name))
+            equal(f"{where} {name}", getattr(a, name), getattr(b, name))
         seen["taken" if bool(a.s.do) else "skipped"] += 1
         seen["unbounded"] += bool(a.s.unb)
         seen["re-anchored"] += bool((a.w == 1).all())
@@ -3882,30 +3908,90 @@ def phase_eta_kernels(records: dict) -> None:
             lp.s.z.nan_to_num_(nan=0.0)
     require(min(seen["taken"], seen["skipped"], seen["unbounded"],
                 seen["re-anchored"]) > 0,
-            f"the states miss a kind of pivot: {dict(seen)}")
-    log(f"eta kernels (f64, devex, M={M} R={R} L={L}): every scalar, "
-        f"vector and factor equal the plain versions' over pivots t = 0.."
-        f"{ETA_T - 1} ({dict(seen)})")
+            f"{tag}: the states miss a kind of pivot: {dict(seen)}")
+    return seen
 
-    # A taken pivot at t = ETA_T, for the timings.
-    s = a.s
+
+def eta_odd_loops(M: int, R: int, L: int, eps: float, seed: int):
+    """Two ``solver.BlockedLoop``s of one seeded random state of the mixed
+    pair (f32 tableau, f64 vectors) at M x R, devex: Tt, every factor row,
+    b > 0, the costs, the weights at 1, a basis, the candidates folded."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    rng = np.random.default_rng(seed)
+
+    def uni(shape, lo, hi, dt):
+        return torch.from_numpy(rng.uniform(lo, hi, shape)).to("cuda", dt)
+
+    f32, f64 = torch.float32, torch.float64
+    state = dict(Tt=uni((M, R), -1, 1, f32), C=uni((L, R), -0.1, 0.1, f32),
+                 F=uni((L, M), -0.1, 0.1, f32), b=uni(M, 0, 1, f64),
+                 costs=uni(R, -1, 1, f64),
+                 base=torch.from_numpy(rng.integers(0, R, M)).to(
+                     "cuda", torch.int32))
+    loops = []
+    for _ in range(2):
+        lp = solver.BlockedLoop(
+            **{n: x.clone() for n, x in state.items()},
+            w=torch.ones(R, dtype=f64, device="cuda"),
+            ah=torch.zeros(M, dtype=f32, device="cuda"),
+            ws=ke.eta_workspace(M, R, "cuda"),
+            s=ks.seq_scalars(torch.zeros((), dtype=f64, device="cuda"),
+                             False, f32),
+            r=R - 1, costs0=None)
+        ks.set_candidates(lp.s, ke.eta_candidates(lp.costs, lp.w, lp.r, eps))
+        loops.append(lp)
+    return loops
+
+
+def eta_timings(records: dict | None, lp, t: int, eps: float, cap: int,
+                policy: dict, label: str) -> None:
+    """Each eta kernel at window depth t on ``lp`` (a taken pivot: the step
+    before, then ``eta_ratio``, is run first) timed by torch.profiler and
+    by CUDA events over a CUDA graph of 50 calls, beside its plain
+    version, ``torch.addmv`` forming the live column (or row) alone in
+    f64, and its bound (``bench.pivot_work``'s K1 and K2 entries at this
+    shape and depth, f64); logged, and with ``records`` the kernels
+    line's rows."""
+    import torch
+
+    from simplex_tpu_torch.bench import pivot_work
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    a, s = lp, lp.s
+    M, R = a.Tt.shape
+    L = a.C.shape[0]
     s.bland.fill_(False)
     ks.seq_step_pre(s, cap, eps)
-    ke.eta_ratio(a.Tt, a.C, a.F, a.b, a.ah, s, ETA_T, eps, a.ws)
-    require(bool(s.do), "the timed pivot is not taken")
-    work = pivot_work(M, R, L, ETA_T, True, 8)
+    ke.eta_ratio(a.Tt, a.C, a.F, a.b, a.ah, s, t, eps, a.ws)
+    require(bool(s.do), f"{label}: the timed pivot is not taken")
+    h, k = int(s.h), int(s.k)
+    work = pivot_work(M, R, L, t, True, 8)
+    live = {
+        "eta_ratio": functools.partial(torch.addmv, a.Tt[:, h], a.F[:t].t(),
+                                       a.C[:t, h], alpha=-1.0),
+        "eta_colk": functools.partial(torch.addmv, a.Tt[k], a.C[:t].t(),
+                                      a.F[:t, k], alpha=-1.0)}
+    close(f"{label} eta_ratio's column vs addmv", live["eta_ratio"](), a.ah,
+          1e-9 * (1 + a.ah.abs()))
     timed = {
         "eta_ratio": (lambda: ke.eta_ratio(a.Tt, a.C, a.F, a.b, a.ah, s,
-                                           ETA_T, eps, a.ws),
+                                           t, eps, a.ws),
                       lambda: ke.eta_ratio_plain(a.Tt, a.C, a.F, a.b, a.ah,
-                                                 s, ETA_T, eps),
+                                                 s, t, eps),
                       "eta_ratio_kernel", bound(*work["ah_ratio"])),
         "eta_colk": (lambda: ke.eta_colk(a.Tt, a.C, a.F, a.costs, a.b,
-                                         a.base, a.w, a.ah, s, ETA_T, a.r,
+                                         a.base, a.w, a.ah, s, t, a.r,
                                          eps, cap, a.ws, then_pre=False,
                                          **policy),
                      lambda: ke.eta_colk_plain(a.Tt, a.C, a.F, a.costs, a.b,
-                                               a.base, a.w, a.ah, s, ETA_T,
+                                               a.base, a.w, a.ah, s, t,
                                                a.r, eps, cap, then_pre=False,
                                                **policy),
                      "eta_colk_kernel", bound(*work["colk_costs"])),
@@ -3914,17 +4000,86 @@ def phase_eta_kernels(records: dict) -> None:
         require(kernels_launched(fn) == 1, f"one {name} call launched "
                 "more than one kernel")
         ms = device_ms(fn, 50, match=match)
-        records[name] = {"max_abs_err": 0.0, "ms": ms,
-                         "plain_ms": device_ms(plain_fn, 5),
-                         "bound_ms": bound_ms, "bound_by": by,
-                         "library_ms": None, "check_ms": graph_ms(fn)}
-        rec = records[name]
-        log(f"{name} f64 M={M} R={R} t={ETA_T}: {ms:.5f} ms a call "
+        rec = {"max_abs_err": 0.0, "ms": ms,
+               "plain_ms": device_ms(plain_fn, 5),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": device_ms(live[name], 50),
+               "check_ms": graph_ms(fn)}
+        if records is not None:
+            records[name] = rec
+        log(f"{name} {label} M={M} R={R} t={t}: {ms:.5f} ms a call "
             f"(torch.profiler), {rec['check_ms']:.5f} ms by CUDA events "
             f"over a CUDA graph of 50 calls, plain {rec['plain_ms']:.4f} "
-            f"ms, bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}%"
-            " of it")
-    del a, b
+            f"ms, addmv forming the live {'column' if name == 'eta_ratio' else 'row'} "
+            f"{rec['library_ms']:.5f} ms, bound {bound_ms:.5f} ms ({by}), "
+            f"{100 * bound_ms / ms:.1f}% of it; {nvidia_smi_line()}")
+
+
+def phase_eta_kernels(records: dict) -> None:
+    """The plain blocked loop's kernels against their plain versions on the
+    card at the main path's shape: the f64 phase-1 tableau of
+    random_2048_2048 (M 2,048 x R 6,144), L=128, under devex (the full f64
+    re-solve's rule), two ``BlockedLoop``s, the kernels on one and the
+    plain versions on the other, pivot by pivot through the window's first
+    ``ETA_T`` pivots from edge states (``eta_edge_walk``): every scalar,
+    vector and factor bit for bit. The same through a whole window of 128
+    pivots at the mixed pair's ``ETA_ODD`` shape from a seeded random
+    state, whose slab rows start off 16-byte boundaries. Then at t =
+    ``ETA_T``, the window's mean live depth, on a taken pivot, each kernel
+    timed (``eta_timings``) at 2048^2 -- the kernels line's rows -- and on
+    the f64 phase-1 tableau of random_8192_8192 (M 8,192 x R 24,576)."""
+    import dataclasses
+
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.tableau import build_phase1, gaussian_eliminate
+
+    opts = st.SolverOptions(**BLOCKED_F64, pivot_rule="devex")
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=False, threshold=opts.bland_threshold)
+    cap = 10_000
+
+    def phase1_loops(n: int, copies: int):
+        p = benchmark_problem(n)
+        tab = gaussian_eliminate(build_phase1(
+            torch.as_tensor(p.A, device="cuda"),
+            torch.as_tensor(p.b, device="cuda"), p.vars, p.constraints,
+            opts))
+        return [solver.blocked_loop(
+            dataclasses.replace(tab, Tt=tab.Tt.clone()), opts)
+            for _ in range(copies)]
+
+    a, b = phase1_loops(2048, 2)
+    M, R = a.Tt.shape
+    L = a.C.shape[0]
+    for lp, kernel in ((a, True), (b, False)):
+        (ks.seq_step_pre if kernel else kb.step_pre_plain)(lp.s, cap, eps)
+    seen = eta_edge_walk(a, b, range(ETA_T), cap, eps, policy, "eta")
+    log(f"eta kernels (f64, devex, M={M} R={R} L={L}): every scalar, "
+        f"vector and factor equal the plain versions' over pivots t = 0.."
+        f"{ETA_T - 1} ({dict(seen)})")
+
+    odd = eta_odd_loops(*ETA_ODD, L, eps, seed=24)
+    for lp, kernel in zip(odd, (True, False)):
+        (ks.seq_step_pre if kernel else kb.step_pre_plain)(lp.s, cap, eps)
+    seen = eta_edge_walk(*odd, range(L), cap, eps, policy, "eta odd")
+    log(f"eta kernels (f32/f64, devex, M={ETA_ODD[0]} R={ETA_ODD[1]} "
+        f"L={L}, slab rows off 16-byte boundaries): every scalar, vector "
+        f"and factor equal the plain versions' over pivots t = 0..{L - 1} "
+        f"({dict(seen)})")
+    del odd, b
+    torch.cuda.empty_cache()
+
+    eta_timings(records, a, ETA_T, eps, cap, policy, "f64")
+    del a
+    torch.cuda.empty_cache()
+    (big,) = phase1_loops(8192, 1)
+    eta_timings(None, big, ETA_T, eps, cap, policy, "f64")
+    del big
     torch.cuda.empty_cache()
 
 

@@ -185,15 +185,18 @@ SIGNATURES = {
                                                  ctypes.c_longlong, _I, _I,
                                                  _I, _P, _P, _I, _P],
     # csrc/eta.cu: Tt C F b ah M R L t eps, the workspace and its bytes,
-    # the sequential scalars' pointers (by reference), pair, stream
+    # the sequential scalars' pointers (by reference), pair, the grid's
+    # rows and columns a block and the slab rows a round (kernels/eta.py
+    # eta_plan), stream
     "eta_ratio_launch": [_P] * 5 + [_I] * 4 + [_D, _P, ctypes.c_longlong,
-                                               _P, _I, _P],
+                                               _P, _I, _I, _I, _I, _P],
     # Tt C F costs b base w ah M R L r t eps, the workspace and its bytes,
     # the scalars' pointers (by reference), max_iter, bland mode,
-    # threshold, then_pre, pair, stream
+    # threshold, then_pre, pair, the grid's rows and columns, the slab
+    # rows a round, stream
     "eta_colk_launch": [_P] * 8 + [_I] * 5 + [_D, _P, ctypes.c_longlong, _P,
                                               ctypes.c_longlong, _I, _I, _I,
-                                              _I, _P],
+                                              _I, _I, _I, _I, _P],
 }
 
 

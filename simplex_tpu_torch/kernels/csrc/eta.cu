@@ -51,7 +51,8 @@
 // f64 subtraction from Tt and one rounding to T; kernels/eta.py's plain
 // versions run the same order (eta_live), so kernel and plain version
 // agree bit for bit. On an f32 tableau that keeps the live column and row
-// within an f32 rounding or two of exact, as the mixed walks need. Every other product, quotient and difference is rounded apart
+// within an f32 rounding or two of exact, as the mixed walks need. Every
+// other product, quotient and difference is rounded apart
 // too, eps is compared in the operand's type (as torch compares a tensor
 // with a Python float), an f32 value widens exactly to f64 before it meets
 // an f64 one, and every fold is a total order, so the results do not
@@ -63,11 +64,48 @@
 // K2 entries count every input and output), and the window's factors stay
 // in the 50 MB L2 up to the 8192^2 f64 tableau. What a pivot can reach beside
 // that is latency: each pass is one dependent load (h or k, then the
-// column or the row) behind a chain of t loads a thread, then a ticket
-// and the last block's fold. Design: one thread a row of the column (64 a
-// block) and one a column of the row (128 a block); C[:t, h] and F[:t, k]
-// staged in shared memory STAGE rows at a time; each thread's chain
-// unrolled by 8, so its next 8 loads are in flight behind its sums.
+// column or the row) and a chain of t sums a thread, then a ticket and
+// the last block's fold. The first form (one thread a row, 64 a block, and
+// one a column, 128 a block, each thread loading its t slab elements from
+// global memory behind h or k, eight ahead of its sums) took 6.45 and 9.07
+// us at f64 2048^2, t = 64, on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md):
+// 32 blocks for 132 SMs, and the slab's loads sent late.
+//
+// Design (K1's, csrc/blocked.cu ah_ratio_fused): the slab F[:t, the
+// block's rows] (C[:t, the block's columns]) does not depend on h (k), so
+// each block sends for its share of it first, as cp.async copies into shared
+// memory, and only then reads h (k), C[:t, h] (F[:t, k]) and Tt[:, h]
+// (Tt[k]); each owner thread then runs its sum from shared memory in the
+// same order as before. Where every slab row starts on a 16-byte boundary
+// (the main path's shapes) each thread copies one fixed 16-byte chunk of a
+// row down the rows, two pointer steps a copy; rows of F and C start at s
+// M and s R elements, so for odd shapes (and f32 rows in general) they are
+// not aligned, and each lands in shared memory at its own misalignment
+// within a 16-byte chunk, whole chunks copied 16 bytes at a time and the
+// partial chunks at its head and tail element by element (Slab; the
+// fixed path took eta_ratio at 8192^2, t = 127, to 9.1 us from 17.2 by the
+// general path alone, tools/eta_variants.cu). The slab goes in rounds of
+// ``stage`` rows through a ring of two buffers, the round after next sent
+// for as soon as a round is read, so a window longer than a stage fits
+// (the dynamic shared memory at most 227 KB a block). The rows (columns) a
+// block and the rows a round come from the caller (kernels/eta.py
+// eta_plan: the grid sized to the card's 132 SMs; 256 columns a block of
+// 256 threads where that grid takes one wave; past one wave 16 rows a
+// round, so that several blocks share an SM), as the workspace's partials
+// are counted by them. Blocks fold as before, by the arrival ticket, in a
+// total order.
+//
+// Both kernels launch as programmatic dependent launches: each starts
+// while the kernel before it runs and sends for, before
+// griddepcontrol.wait, only what no kernel since the pivot before wrote --
+// eta_ratio F's rows s < t - 1 (the pivot before wrote F[t - 1], which each
+// owner loads after the wait), eta_colk C's rows s < t and its columns'
+// costs and weights -- and each lets the next launch as soon as it has
+// waited, so at most two of them run at once. The bulk copy engine
+// (cp.async.bulk, one copy a row completing on an mbarrier) was tried first
+// and dropped: its copies take their operands in uniform registers, so a
+// warp sends them one after the other, and an unrolled loop sending them
+// ran past its bound on the card (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -86,9 +124,11 @@ using seq::mul_rn;
 using seq::Ratio;
 using seq::sub_rn;
 
-constexpr int ROWS_A = 64;     // eta_ratio: rows a block, one a thread
-constexpr int COLS_B = 128;    // eta_colk: columns (or rows) a block
-constexpr int STAGE = 128;     // eta values staged in shared memory at once
+constexpr int RATIO_THREADS = 128; // eta_ratio's block: a row a thread
+constexpr int COLK_THREADS = 128;  // eta_colk's: a column (or row) a thread,
+                                   // 256 for 256 columns
+constexpr int BLOCK_SMEM = 232448; // a block's shared memory on sm_90
+constexpr int SMEM_RESERVE = 1024; // of it, room for the static arrays
 
 // The (tableau, vector) dtype pairs (kernels/seq.py PAIRS).
 enum Pair { PAIR_F64 = 0, PAIR_MIXED = 1, PAIR_F32 = 2 };
@@ -121,6 +161,175 @@ __device__ __forceinline__ unsigned ticket(unsigned *counter) {
                  : "memory");
     return old;
 }
+
+// The slab's layout in shared memory (kernels/eta.py eta_stage plans
+// within it): a row of ``width`` elements of ``item`` bytes takes width + 16 /
+// item slots (one chunk more, for its misalignment); a round holds
+// ``stage`` rows (the caller's: kernels/eta.py eta_plan); the block holds
+// min(t, 2 stage) rows, then the t coefficients C[:t, h] (or F[:t, k])
+// rounded up to 16 bytes. At t = 0 it holds nothing.
+__host__ __device__ constexpr int slab_width(int width, int item) {
+    return width + 16 / item;
+}
+__host__ __device__ constexpr long long round16(long long n) {
+    return (n + 15) / 16 * 16;
+}
+__host__ __device__ constexpr long long smem_bytes(int width, int stage,
+                                                   int t, int item) {
+    const int rows = t < 2 * stage ? t : 2 * stage;
+    return (long long)rows * slab_width(width, item) * item +
+           round16((long long)t * item);
+}
+
+// Asynchronous global -> shared copies (sm_80+): 16 bytes past L1, or one
+// element of N bytes (4 or 8). Sent without a compiler memory barrier:
+// what reads the shared memory they fill waits for them (cp_async_wait),
+// and a buffer is refilled only after a block barrier.
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void *smem, const void *gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(N));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch (sm_90): wait for the grid before this one
+// to complete, its memory visible; let the grid after this one launch.
+// Both return at once in a grid launched without the attribute.
+__device__ __forceinline__ void grid_wait() {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_next() {
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// One block's slab a[:n, c0 .. c0 + ncol) (row stride ld) in shared
+// memory, in rounds of ``stage`` rows through a ring of two buffers: round
+// r in buffer r mod 2, one cp.async group a round. A row's element e lands
+// at slot mis + e, mis being the row's first element's place (in
+// elements) within its 16-byte chunk. Where every row starts on a 16-byte
+// boundary (ld and the block's first column so placed: the main path's
+// shapes) each thread copies one fixed chunk of a row and steps down the
+// rows, no index arithmetic a copy beyond two pointer steps; otherwise
+// each chunk wholly inside a row goes as one 16-byte copy and the partial
+// chunks at the row's head and tail element by element. FIXED false takes
+// the general path for every row (tools/eta_variants.cu times the two).
+template <typename T, int NT, bool FIXED>
+struct Slab {
+    static constexpr int VEC = 16 / sizeof(T);
+    const T *__restrict__ a;
+    size_t ld;
+    int c0, ncol, n, stage, W;
+    T *buf;
+
+    __device__ bool aligned() const {
+        return ((reinterpret_cast<uintptr_t>(a + c0) |
+                 (ld * sizeof(T))) & 15) == 0;
+    }
+
+    // Round r's rows into buffer r mod 2, committed as one group (an empty
+    // one past the last round). The whole block calls it.
+    __device__ void load(int r) const {
+        const int s0 = r * stage, rows = min(stage, n - s0);
+        T *b = buf + (size_t)(r & 1) * stage * W;
+        const T *g = a + (size_t)s0 * ld + c0;
+        if (FIXED && aligned()) {
+            const int cpr = ncol / VEC;          // chunks a row, all whole
+            const int per = NT / cpr;            // rows a pass
+            const int q0 = (int)threadIdx.x / cpr;
+            const int c = (int)threadIdx.x - q0 * cpr;
+            if (q0 < per) {
+                const T *src = g + (size_t)q0 * ld + c * VEC;
+                T *dst = b + q0 * W + c * VEC;
+                const size_t sstep = (size_t)per * ld;
+                const int dstep = per * W;
+#pragma unroll 4
+                for (int q = q0; q < rows; q += per) {
+                    cp_async16(dst, src);
+                    src += sstep;
+                    dst += dstep;
+                }
+            }
+        } else {
+            const int cpr = W / VEC;             // chunks a row, at most
+            for (int u = threadIdx.x; u < rows * cpr; u += NT) {
+                const int q = u / cpr, c = u - q * cpr;
+                const T *row = g + (size_t)q * ld;
+                const int mis = (int)((reinterpret_cast<uintptr_t>(row) /
+                                       sizeof(T)) & (VEC - 1));
+                const int lo = c * VEC - mis;    // row[lo .. lo + VEC)
+                T *dst = b + (size_t)q * W;
+                if (lo >= 0 && lo + VEC <= ncol) {
+                    cp_async16(dst + c * VEC, row + lo);
+                } else {
+                    for (int e = max(lo, 0); e < min(lo + VEC, ncol); ++e)
+                        cp_async_elem<sizeof(T)>(dst + mis + e, row + e);
+                }
+            }
+        }
+        cp_async_commit();
+    }
+
+    // Rounds 0 and 1 (the caller starts them before it reads the pivot's
+    // index).
+    __device__ void first() const {
+        load(0);
+        load(1);
+    }
+
+    // The owner threads' (tid < ncol) sum_{s<n} cf[s] a[s, c0 + tid], s in
+    // order from 0.0, each product and sum rounded apart in f64 (the
+    // others 0): round by round as each lands, the round after next sent for
+    // into a buffer as soon as it is read. ``cf`` (n values or more) is
+    // staged by the caller. The whole block calls it.
+    __device__ double sum(const T *cf) const {
+        const int tid = threadIdx.x;
+        const int rounds = (n + stage - 1) / stage;
+        const size_t el = reinterpret_cast<uintptr_t>(a + c0) / sizeof(T);
+        double acc = 0.0;
+        for (int r = 0; r < rounds; ++r) {
+            cp_async_wait<1>();                  // round r (r + 1 may fly)
+            __syncthreads();                     // every thread's, and cf
+            const int s0 = r * stage, m = min(stage, n - s0);
+            if (tid < ncol)
+                acc = slab_sum(acc, cf + s0,
+                               buf + (size_t)(r & 1) * stage * W + tid, m, W,
+                               el + (size_t)s0 * ld, ld);
+            __syncthreads();                     // the round is read
+            load(r + 2);
+        }
+        return acc;
+    }
+
+    // The slab's rows into an owner's sum, s in order: acc + cf[q] x col[q
+    // W + mis_q], q < m; ``el`` is the first row's element index of its
+    // first column (its misalignment), so mis_q steps by ld mod VEC a row.
+    __device__ static double slab_sum(double acc, const T *__restrict__ cf,
+                                      const T *__restrict__ col, int m, int W,
+                                      size_t el, size_t ld) {
+        unsigned mis = (unsigned)(el & (VEC - 1));
+        const unsigned step = (unsigned)(ld & (VEC - 1));
+#pragma unroll 8
+        for (int q = 0; q < m; ++q) {
+            acc = __dadd_rn(acc, __dmul_rn((double)cf[q],
+                                           (double)col[q * W + mis]));
+            mis = (mis + step) & (VEC - 1);
+        }
+        return acc;
+    }
+};
 
 // The workspace (bytes; kernels/eta.py eta_workspace_bytes agrees): [0, 4)
 // eta_ratio's arrival counter, [4, 8) eta_colk's, [8, 16) the new weight at
@@ -160,46 +369,48 @@ struct WsB {
 // ---------------------------------------------------------------------------
 // eta_ratio: the live entering column, the ratio test and the step between.
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(ROWS_A) eta_ratio_kernel(
+template <typename T, typename V, int NT, bool FIXED>
+__global__ void __launch_bounds__(NT) eta_ratio_kernel(
         const T *__restrict__ Tt, const T *__restrict__ C,
         const T *__restrict__ F, const V *__restrict__ b,
-        T *__restrict__ ah, int M, int R, int t, double eps, int nbA,
-        unsigned char *__restrict__ ws_bytes, SeqStep<T, V> s) {
-    constexpr int NW = ROWS_A / 32;
-    __shared__ T cs[STAGE];                      // C[s0 + q, h]
+        T *__restrict__ ah, int M, int R, int t, double eps, int rows,
+        int stage, int nbA, unsigned char *__restrict__ ws_bytes,
+        SeqStep<T, V> s) {
+    constexpr int NW = NT / 32;
+    extern __shared__ __align__(16) unsigned char dyn[];
     __shared__ Ratio<T, V> warps[NW];
     __shared__ int wany[NW];
     __shared__ bool last;
     const WsA ws(ws_bytes, nbA);
     const int tid = threadIdx.x;
-    const int j = blockIdx.x * ROWS_A + tid;     // this thread's row
-    const bool row = j < M;
+    const int j0 = blockIdx.x * rows;
+    const int nrow = min(rows, M - j0);
+    const int j = j0 + tid;                      // this thread's row
+    const bool row = tid < nrow;
+    const int W = slab_width(rows, sizeof(T));
+    // The slab holds F's rows s < t - 1; the pivot before wrote F[t - 1],
+    // which each owner loads itself once that pivot is waited for.
+    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
+                                  stage, W, reinterpret_cast<T *>(dyn)};
+    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
+
+    // The block's F slab first (it does not depend on h), before the
+    // kernel before is waited for; then b, F[t - 1], h and what h selects.
+    slab.first();
+    grid_wait();
+    grid_launch_next();
+    const V bj = row ? b[j] : (V)0;
+    const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
     const int h = min(*s.h, R - 1);
-    T th = (T)0;
-    V bj = (V)0;
-    if (row) {
-        th = Tt[(size_t)j * R + h];
-        bj = b[j];
-    }
+    for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
+    const T th = row ? Tt[(size_t)j * R + h] : (T)0;
+    __syncthreads();                             // cs
 
     // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
     // in f64.
-    double acc = 0.0;
-    for (int s0 = 0; s0 < t; s0 += STAGE) {
-        const int n = min(STAGE, t - s0);
-        __syncthreads();                         // the stage before is read
-        for (int q = tid; q < n; q += ROWS_A)
-            cs[q] = C[(size_t)(s0 + q) * R + h];
-        __syncthreads();
-        if (row) {
-            const T *f = F + (size_t)s0 * M + j;
-#pragma unroll 8
-            for (int q = 0; q < n; ++q)
-                acc = __dadd_rn(acc, __dmul_rn((double)cs[q],
-                                               (double)f[(size_t)q * M]));
-        }
-    }
+    double acc = slab.sum(cs);
+    if (row && t > 0)
+        acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
 
     const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
     Ratio<T, V> x = none;
@@ -235,7 +446,7 @@ __global__ void __launch_bounds__(ROWS_A) eta_ratio_kernel(
     }
     x = none;
     any = false;
-    for (int q = tid; q < nbA; q += ROWS_A) {
+    for (int q = tid; q < nbA; q += NT) {
         seq::take_first(x, Ratio<T, V>{(V)__ldcg(ws.q + q), __ldcg(ws.j + q),
                                        (T)__ldcg(ws.a + q),
                                        (V)__ldcg(ws.b + q)});
@@ -314,23 +525,25 @@ __device__ __forceinline__ RowCands<V> shfl_xor(const RowCands<V> &x,
                        __shfl_xor_sync(FULL, x.wmax, off)};
 }
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
+template <typename T, typename V, int NT, bool FIXED>
+__global__ void __launch_bounds__(NT) eta_colk_kernel(
         const T *__restrict__ Tt, T *__restrict__ C, T *__restrict__ F,
         V *__restrict__ costs, V *__restrict__ b, int *__restrict__ base,
         V *__restrict__ w, const T *__restrict__ ah, int M, int R, int r,
-        int t, int nbA, int nbB, unsigned char *__restrict__ ws_bytes,
-        SeqStep<T, V> s, seq::Policy pol) {
-    constexpr int NW = COLS_B / 32;
+        int t, int cols, int stage, int nbA, int nbB,
+        unsigned char *__restrict__ ws_bytes, SeqStep<T, V> s,
+        seq::Policy pol) {
+    constexpr int NW = NT / 32;
     const int tid = threadIdx.x;
-    const int k = min(*s.k, M - 1);
-    const bool d = *s.do_ != 0;
     if ((int)blockIdx.x >= nbB) {
         // The row blocks: F[t] and b (whole blocks return together).
-        const int j = (blockIdx.x - nbB) * COLS_B + tid;
+        grid_wait();
+        grid_launch_next();
+        const int j = (blockIdx.x - nbB) * NT + tid;
         if (j >= M) return;
+        const int k = min(*s.k, M - 1);
         T *frow = F + (size_t)t * M;
-        if (!d) {
+        if (*s.do_ == 0) {
             frow[j] = (T)0;
             return;
         }
@@ -347,25 +560,40 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
         return;
     }
 
-    __shared__ T fk[STAGE];                      // F[s0 + q, k]
+    extern __shared__ __align__(16) unsigned char dyn[];
     __shared__ RowCands<V> warps[NW];
     __shared__ int wany[NW];
     __shared__ bool last, anchor;
     const WsB ws(ws_bytes, nbA, nbB);
-    const int i = blockIdx.x * COLS_B + tid;     // this thread's column
-    const bool col = i < R;
-    const int h_raw = *s.h;
-    const int h = min(h_raw, R - 1);
+    const int i0 = blockIdx.x * cols;
+    const int ncol = min(cols, R - i0);
+    const int i = i0 + tid;                      // this thread's column
+    const bool col = tid < ncol;
+    const int W = slab_width(cols, sizeof(T));
+    const Slab<T, NT, FIXED> slab{C, (size_t)R, i0, ncol, t, stage, W,
+                                  reinterpret_cast<T *>(dyn)};
+    T *fk = slab.buf + (size_t)min(t, 2 * stage) * W;  // F[:t, k]
+
+    // The block's C slab first (it does not depend on k, and no pivot
+    // since the last before wrote it), then what k does not select, all
+    // before the kernel before is waited for; then k and what it selects.
+    slab.first();
     const bool devex = w != nullptr;
-    const T p = *s.p;
-    const V u = *s.u;
-    T tk = (T)0;
     V c = (V)0, wi = (V)0;
     if (col) {
-        tk = Tt[(size_t)k * R + i];
         c = costs[i];
         if (devex) wi = w[i];
     }
+    grid_wait();
+    grid_launch_next();
+    const int h_raw = *s.h;
+    const int h = min(h_raw, R - 1);
+    const T p = *s.p;
+    const V u = *s.u;
+    const int k = min(*s.k, M - 1);
+    const bool d = *s.do_ != 0;
+    for (int q = tid; q < t; q += NT) fk[q] = F[(size_t)q * M + k];
+    const T tk = col ? Tt[(size_t)k * R + i] : (T)0;
     V wh = (V)0;
     int lvar = -1;
     if (devex && d) {                            // before the last block's
@@ -375,21 +603,7 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
 
     // colk[i] = Tt[k, i] - sum_{s<t} F[s, k] C[s, i], s in order from 0,
     // in f64.
-    double acc = 0.0;
-    for (int s0 = 0; s0 < t; s0 += STAGE) {
-        const int n = min(STAGE, t - s0);
-        __syncthreads();                         // the stage before is read
-        for (int q = tid; q < n; q += COLS_B)
-            fk[q] = F[(size_t)(s0 + q) * M + k];
-        __syncthreads();
-        if (col) {
-            const T *cc = C + (size_t)s0 * R + i;
-#pragma unroll 8
-            for (int q = 0; q < n; ++q)
-                acc = __dadd_rn(acc, __dmul_rn((double)fk[q],
-                                               (double)cc[(size_t)q * R]));
-        }
-    }
+    const double acc = slab.sum(fk);
 
     const RowCands<V> none{-inf<V>(), BIG_INDEX, inf<V>(), -inf<V>(),
                            BIG_INDEX, inf<V>(), inf<V>(), BIG_INDEX, (V)0};
@@ -458,7 +672,7 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
     seq::PostIn<V> in{};
     if (tid == 0) in = seq::post_load(s);
     x = none;
-    for (int q = tid; q < nbB; q += COLS_B)
+    for (int q = tid; q < nbB; q += NT)
         take_first(x, RowCands<V>{
                 (V)__ldcg(ws.key + q), __ldcg(ws.idx + q),
                 (V)__ldcg(ws.val + q), (V)__ldcg(ws.key1 + q),
@@ -486,7 +700,7 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
     if (devex && d) {
         __syncthreads();
         if (anchor)
-            for (int q = tid; q < R; q += COLS_B) w[q] = (V)1;
+            for (int q = tid; q < R; q += NT) w[q] = (V)1;
     }
 }
 
@@ -495,38 +709,123 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T, typename V>
-int ratio_run(const void *Tt, const void *C, const void *F, const void *b,
-              void *ah, int M, int R, int L, int t, double eps,
-              unsigned char *ws, long long ws_len, const void *step,
-              cudaStream_t st) {
-    if (M < 1 || R < 1 || t < 0 || t >= L) return (int)cudaErrorInvalidValue;
-    const int nbA = cdiv(M, ROWS_A), nbB = cdiv(R, COLS_B);
-    if (ws_len < (long long)ws_bytes(nbA, nbB))
-        return (int)cudaErrorInvalidValue;       // workspace too small
-    eta_ratio_kernel<T, V><<<nbA, ROWS_A, 0, st>>>(
-            static_cast<const T *>(Tt), static_cast<const T *>(C),
-            static_cast<const T *>(F), static_cast<const V *>(b),
-            static_cast<T *>(ah), M, R, t, eps, nbA, ws, step_of<T, V>(step));
+// A block's rows (or columns): whole 16-byte chunks of f32, one a thread.
+bool width_ok(int width, int nt) {
+    return width >= 4 && width <= nt && width % 4 == 0;
+}
+
+// The checks both launches make: the shape, t, the grid and the
+// workspace it needs, a stage of at least one row whose two rounds fit
+// beside the window's coefficients; then the block's dynamic shared memory
+// (-1: refused).
+template <typename T>
+long long prepare(int M, int R, int L, int t, int width, int nt, int rows,
+                  int cols, int stage, long long ws_len) {
+    if (M < 1 || R < 1 || t < 0 || t >= L || !width_ok(width, nt) ||
+        rows < 1 || cols < 1 || stage < 1)
+        return -1;
+    if (ws_len < (long long)ws_bytes(cdiv(M, rows), cdiv(R, cols)))
+        return -1;                               // workspace too small
+    const int item = sizeof(T);
+    if (2LL * stage * slab_width(width, item) * item +
+                round16((long long)L * item) >
+        BLOCK_SMEM - SMEM_RESERVE)
+        return -1;                               // the stage does not fit
+    return smem_bytes(width, stage, t, item);
+}
+
+// Let kernel K take ``smem`` bytes of dynamic shared memory: past 48 KB,
+// once a device (to the most any window needs), for the call waits for
+// the work on the card and would hold a capture or an eager window behind
+// the work before it.
+template <auto K>
+bool allow_smem(long long smem) {
+    static unsigned long long allowed = 0;      // a bit a device
+    if (smem <= 48 * 1024) return true;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return false;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(allowed & bit)) {
+        if (cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 BLOCK_SMEM - SMEM_RESERVE) != cudaSuccess)
+            return false;
+        allowed |= bit;
+    }
+    return true;
+}
+
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), int grid, int nt, long long smem, bool pdl,
+           cudaStream_t st, A... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)grid);
+    cfg.blockDim = dim3((unsigned)nt);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-template <typename T, typename V>
+// The launchers take the kernel's threads, the copy path and whether to
+// launch it as a programmatic dependent launch as parameters for
+// tools/eta_variants.cu; the C entry points below fix them.
+template <typename T, typename V, int NT = RATIO_THREADS, bool FIXED = true>
+int ratio_run(const void *Tt, const void *C, const void *F, const void *b,
+              void *ah, int M, int R, int L, int t, double eps,
+              unsigned char *ws, long long ws_len, const void *step, int rows,
+              int cols, int stage, bool pdl, cudaStream_t st) {
+    constexpr auto kernel = eta_ratio_kernel<T, V, NT, FIXED>;
+    const long long smem = prepare<T>(M, R, L, t, rows, NT, rows, cols,
+                                      stage, ws_len);
+    if (smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows);
+    return launch(kernel, nbA, NT, smem, pdl, st, static_cast<const T *>(Tt),
+                  static_cast<const T *>(C), static_cast<const T *>(F),
+                  static_cast<const V *>(b), static_cast<T *>(ah), M, R, t,
+                  eps, rows, stage, nbA, ws, step_of<T, V>(step));
+}
+
+template <typename T, typename V, int NT, bool FIXED = true>
 int colk_run(const void *Tt, void *C, void *F, void *costs, void *b,
              int *base, void *w, const void *ah, int M, int R, int L, int r,
              int t, unsigned char *ws, long long ws_len, const void *step,
-             const seq::Policy &pol, cudaStream_t st) {
-    if (M < 1 || R < 1 || t < 0 || t >= L) return (int)cudaErrorInvalidValue;
-    const int nbA = cdiv(M, ROWS_A), nbB = cdiv(R, COLS_B);
-    if (ws_len < (long long)ws_bytes(nbA, nbB))
-        return (int)cudaErrorInvalidValue;       // workspace too small
-    eta_colk_kernel<T, V><<<nbB + cdiv(M, COLS_B), COLS_B, 0, st>>>(
-            static_cast<const T *>(Tt), static_cast<T *>(C),
-            static_cast<T *>(F), static_cast<V *>(costs),
-            static_cast<V *>(b), base, static_cast<V *>(w),
-            static_cast<const T *>(ah), M, R, r, t, nbA, nbB, ws,
-            step_of<T, V>(step), pol);
-    return (int)cudaGetLastError();
+             const seq::Policy &pol, int rows, int cols, int stage, bool pdl,
+             cudaStream_t st) {
+    constexpr auto kernel = eta_colk_kernel<T, V, NT, FIXED>;
+    const long long smem = prepare<T>(M, R, L, t, cols, NT, rows, cols,
+                                      stage, ws_len);
+    if (smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows), nbB = cdiv(R, cols);
+    return launch(kernel, nbB + cdiv(M, NT), NT, smem, pdl, st,
+                  static_cast<const T *>(Tt), static_cast<T *>(C),
+                  static_cast<T *>(F), static_cast<V *>(costs),
+                  static_cast<V *>(b), base, static_cast<V *>(w),
+                  static_cast<const T *>(ah), M, R, r, t, cols, stage,
+                  nbA, nbB, ws, step_of<T, V>(step), pol);
+}
+
+// eta_colk with COLK_THREADS threads a block, or 256 for 256 columns.
+template <typename T, typename V>
+int colk_any(const void *Tt, void *C, void *F, void *costs, void *b,
+             int *base, void *w, const void *ah, int M, int R, int L, int r,
+             int t, unsigned char *ws, long long ws_len, const void *step,
+             const seq::Policy &pol, int rows, int cols, int stage,
+             cudaStream_t st) {
+    if (cols > COLK_THREADS)
+        return colk_run<T, V, 2 * COLK_THREADS>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, true, st);
+    return colk_run<T, V, COLK_THREADS>(Tt, C, F, costs, b, base, w, ah, M,
+                                        R, L, r, t, ws, ws_len, step, pol,
+                                        rows, cols, stage, true, st);
 }
 
 }  // namespace
@@ -534,8 +833,13 @@ int colk_run(const void *Tt, void *C, void *F, void *costs, void *b,
 // ---------------------------------------------------------------------------
 // C entry points (ctypes). ``step`` is the host's array of the sequential
 // scalars' pointers (kernels.seq.SeqScalars), ``pair`` the dtype pair
-// (PAIR_*), ``ws`` an eta_workspace of ``ws_len`` bytes; an unknown pair,
-// an empty shape, t outside [0, L) or a short workspace is refused with
+// (PAIR_*), ``ws`` an eta_workspace of ``ws_len`` bytes, ``rows`` and
+// ``cols`` the rows a block of eta_ratio and the columns a block of
+// eta_colk, ``stage`` the launched kernel's slab rows a round
+// (kernels/eta.py eta_plan). Both launch as programmatic dependent
+// launches. An unknown pair, an empty shape, t outside [0, L), a width
+// that is not a multiple of 4 within the block's threads, a stage whose two
+// rounds do not fit or a short workspace is refused with
 // cudaErrorInvalidValue. Each returns cudaGetLastError() as an int.
 
 extern "C" {
@@ -545,18 +849,22 @@ extern "C" {
 int eta_ratio_launch(const void *Tt, const void *C, const void *F,
                      const void *b, void *ah, int M, int R, int L, int t,
                      double eps, unsigned char *ws, long long ws_len,
-                     const void *step, int pair, void *stream) {
+                     const void *step, int pair, int rows, int cols,
+                     int stage, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (pair) {
     case PAIR_F64:
         return ratio_run<double, double>(Tt, C, F, b, ah, M, R, L, t, eps, ws,
-                                         ws_len, step, st);
+                                         ws_len, step, rows, cols, stage,
+                                         true, st);
     case PAIR_MIXED:
         return ratio_run<float, double>(Tt, C, F, b, ah, M, R, L, t, eps, ws,
-                                        ws_len, step, st);
+                                        ws_len, step, rows, cols, stage, true,
+                                        st);
     case PAIR_F32:
         return ratio_run<float, float>(Tt, C, F, b, ah, M, R, L, t, eps, ws,
-                                       ws_len, step, st);
+                                       ws_len, step, rows, cols, stage, true,
+                                       st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -569,19 +877,22 @@ int eta_colk_launch(const void *Tt, void *C, void *F, void *costs, void *b,
                     int r, int t, double eps, unsigned char *ws,
                     long long ws_len, const void *step, long long max_iter,
                     int bland_mode, int threshold, int then_pre, int pair,
-                    void *stream) {
+                    int rows, int cols, int stage, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const seq::Policy pol{max_iter, eps, bland_mode, threshold, then_pre};
     switch (pair) {
     case PAIR_F64:
-        return colk_run<double, double>(Tt, C, F, costs, b, base, w, ah, M, R,
-                                        L, r, t, ws, ws_len, step, pol, st);
+        return colk_any<double, double>(Tt, C, F, costs, b, base, w, ah, M, R,
+                                        L, r, t, ws, ws_len, step, pol, rows,
+                                        cols, stage, st);
     case PAIR_MIXED:
-        return colk_run<float, double>(Tt, C, F, costs, b, base, w, ah, M, R,
-                                       L, r, t, ws, ws_len, step, pol, st);
+        return colk_any<float, double>(Tt, C, F, costs, b, base, w, ah, M, R,
+                                       L, r, t, ws, ws_len, step, pol, rows,
+                                       cols, stage, st);
     case PAIR_F32:
-        return colk_run<float, float>(Tt, C, F, costs, b, base, w, ah, M, R,
-                                      L, r, t, ws, ws_len, step, pol, st);
+        return colk_any<float, float>(Tt, C, F, costs, b, base, w, ah, M, R,
+                                      L, r, t, ws, ws_len, step, pol, rows,
+                                      cols, stage, st);
     }
     return (int)cudaErrorInvalidValue;
 }

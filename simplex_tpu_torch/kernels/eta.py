@@ -5,8 +5,10 @@ No Pallas kernel stands behind these: in the JAX package the plain
 deferred block-pivot loop is a ``lax.while_loop`` around a
 ``lax.fori_loop`` whose pivot XLA fuses (``simplex_tpu/solver.py:528-582``
 ``inner``). The port's eager loop ran a pivot as about 30 torch calls;
-here a pivot is two kernels (``csrc/eta.cu``), each on a full grid whose
-last block folds the blocks' partials by an arrival ticket --
+here a pivot is two kernels (``csrc/eta.cu``), each on a grid sized to
+the card (``eta_plan``) whose blocks first send for their share of the eta
+slab into shared memory, before the pivot's index is read, and whose last
+block folds the blocks' partials by an arrival ticket --
 
 * ``eta_ratio``: the live entering column ``a_h = Tt[:, h] - sum_{s<t}
   C[s, h] F[s]`` into the loop's fixed ``ah``, the ratio test and the step
@@ -35,6 +37,8 @@ scalars are ``kernels.seq.SeqScalars``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -48,10 +52,25 @@ from .seq import (SeqScalars, _lib, _pair, _ratio_plain, _seq_ptrs,
 #: after (and the next step before) in ``eta_colk``.
 LAUNCHES = {"eta_ratio": 0, "eta_colk": 0}
 
-#: Rows a block of ``eta_ratio``, and columns (or rows) a block of
-#: ``eta_colk`` (csrc/eta.cu ROWS_A, COLS_B).
-ETA_ROWS = 64
-ETA_COLS = 128
+#: Threads a block of ``eta_ratio`` (csrc/eta.cu RATIO_THREADS), one a
+#: row, and at least a block of ``eta_colk`` (COLK_THREADS), one a column
+#: (or a row of F[t] and b in the blocks past the columns): 256 where it
+#: takes 256 columns.
+ETA_RATIO_THREADS = 128
+ETA_COLK_THREADS = 128
+#: The rows a block of ``eta_ratio``, and the columns a block of
+#: ``eta_colk``, that ``eta_plan`` chooses from.
+ETA_ROWS = (16, 32, 64, 128)
+ETA_COLS = (32, 64, 128, 256)
+#: The SMs the grid is sized to (an H100 SXM's).
+ETA_SMS = 132
+#: A block's shared memory on the card, less room for the kernels' static
+#: arrays (csrc/eta.cu BLOCK_SMEM, SMEM_RESERVE: a launch whose slab does
+#: not fit is refused there); the most slab rows a round; and the rows a
+#: round of ``eta_colk`` where its grid takes more than one wave.
+ETA_SLAB_SMEM = 232448 - 1024
+ETA_STAGE_MAX = 128
+ETA_STAGE_WAVES = 16
 
 
 def reset_launches() -> None:
@@ -59,12 +78,90 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class EtaPlan(NamedTuple):
+    """How a pivot's two kernels cut the tableau: the rows a block of
+    ``eta_ratio``, the columns a block of ``eta_colk``, and each one's slab
+    rows a round."""
+    rows: int
+    cols: int
+    stage_ratio: int
+    stage_colk: int
+
+
+def eta_colk_threads(cols: int) -> int:
+    """Threads a block of ``eta_colk`` taking ``cols`` columns."""
+    return max(ETA_COLK_THREADS, cols)
+
+
+def eta_colk_blocks(M: int, R: int, cols: int) -> int:
+    """Blocks of ``eta_colk``: its column blocks, then its blocks of F[t]
+    and b, one thread a row."""
+    return _cdiv(R, cols) + _cdiv(M, eta_colk_threads(cols))
+
+
+def eta_grid(M: int, R: int) -> tuple[int, int]:
+    """The rows a block of ``eta_ratio`` and the columns a block of
+    ``eta_colk`` for an ``M`` x ``R`` tableau: the fewest rows whose grid
+    stays within half the SMs, and the fewest columns whose whole grid
+    (``eta_colk_blocks``) takes one wave of one block an SM; the widest
+    where none does. A wider grid loads each block's slab sooner but gives
+    the last block more partials to fold; tools/eta_variants.cu timed
+    every choice (PERF.md). So the 2048^2 f64 tableau (M 2,048, R 6,144)
+    runs 64 blocks of ``eta_ratio`` and 96 + 16 of ``eta_colk``, the
+    8192^2 one 64 and 96 + 32, the north star's (M 10,112, R 120,064) 79
+    and 469 + 40."""
+    rows = next((w for w in ETA_ROWS if _cdiv(M, w) <= ETA_SMS // 2),
+                ETA_ROWS[-1])
+    cols = next((w for w in ETA_COLS if eta_colk_blocks(M, R, w) <= ETA_SMS),
+                ETA_COLS[-1])
+    return rows, cols
+
+
+def _slab_row_bytes(width: int, item: int) -> int:
+    """A slab row's bytes in shared memory: ``width`` elements of ``item``
+    bytes and one 16-byte chunk more, for the row's misalignment."""
+    return (width + 16 // item) * item
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def eta_stage(width: int, L: int, item: int, most: int = ETA_STAGE_MAX) -> int:
+    """Slab rows a round for a block ``width`` elements wide of
+    ``item``-byte elements in a window of L: as many as two rounds hold
+    beside the window's coefficients, at most ``most``; 0 where none fits
+    (the kernel refuses the launch)."""
+    room = ETA_SLAB_SMEM - _round16(L * item)
+    return max(0, min(room // (2 * _slab_row_bytes(width, item)), most))
+
+
+@functools.lru_cache(maxsize=None)
+def eta_plan(M: int, R: int, L: int, item: int) -> EtaPlan:
+    """The plan of both kernels for an ``M`` x ``R`` tableau of
+    ``item``-byte elements in a window of L: ``eta_grid``'s widths;
+    ``eta_ratio`` (one wave) and ``eta_colk`` where its grid takes one wave
+    with as many slab rows a round as fit, ``eta_colk`` past one wave
+    ``ETA_STAGE_WAVES`` rows, so that several of its blocks share an SM
+    and one block's loads overlap another's sums (at the north star, 256
+    columns a block: 36.7 and 60.7 us at t = 64 and 127 with 16 rows a
+    round, 49.5 and 70.3 with the most that fit, on NVIDIA H100 80GB HBM3,
+    700.00 W; tools/eta_variants.cu, PERF.md)."""
+    rows, cols = eta_grid(M, R)
+    waves = eta_colk_blocks(M, R, cols) > ETA_SMS
+    return EtaPlan(rows, cols, eta_stage(rows, L, item),
+                   eta_stage(cols, L, item,
+                             ETA_STAGE_WAVES if waves else ETA_STAGE_MAX))
+
+
 def eta_workspace_bytes(M: int, R: int) -> int:
     """Bytes of the two kernels' workspace for an ``M`` x ``R`` tableau
     (csrc/eta.cu ``ws_bytes``): the two arrival counters and a stashed
     weight (16 bytes), 32 bytes of partial for each block of
-    ``eta_ratio`` and 64 for each column block of ``eta_colk``."""
-    return 16 + 32 * _cdiv(M, ETA_ROWS) + 64 * _cdiv(R, ETA_COLS)
+    ``eta_ratio`` and 64 for each column block of ``eta_colk``
+    (``eta_grid``)."""
+    rows, cols = eta_grid(M, R)
+    return 16 + 32 * _cdiv(M, rows) + 64 * _cdiv(R, cols)
 
 
 def eta_workspace(M: int, R: int, device) -> torch.Tensor:
@@ -174,8 +271,9 @@ def eta_ratio(Tt, C, F, b, ah, s: SeqScalars, t: int, eps: float,
     and not (optimal or unb)``; ``p = a_h[k]`` where done, else 1; ``bk =
     b[k]``; ``u = minc / p`` where done, else 0 -- into ``s``. ``ws`` is an
     ``eta_workspace``; on the card a call without one allocates one. One
-    launch on the card: one thread a row, the last block (an arrival
-    ticket) folding the blocks' candidates and running the step."""
+    launch on the card (``eta_plan``): one thread a row, each block's F
+    slab sent for before h is read, the last block (an arrival ticket)
+    folding the blocks' candidates and running the step."""
     M, R, L = _check(Tt, C, F, s, t, ah=ah, b=b)
     if not _on_card(Tt, C, F, b, ah, s.status):
         eta_ratio_plain(Tt, C, F, b, ah, s, t, eps)
@@ -185,10 +283,11 @@ def eta_ratio(Tt, C, F, b, ah, s: SeqScalars, t: int, eps: float,
     if ws is None:
         ws = eta_workspace(M, R, Tt.device)
     _check_ws(ws, M, R, Tt.device)
+    plan = eta_plan(M, R, L, Tt.element_size())
     err = lib.eta_ratio_launch(
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(b), _ptr(ah), M, R, L, t,
         float(eps), _ptr(ws), ws.numel(), ctypes.byref(_seq_ptrs(s)), pair,
-        _stream(Tt))
+        plan.rows, plan.cols, plan.stage_ratio, _stream(Tt))
     check(lib, err, "eta_ratio")
     LAUNCHES["eta_ratio"] += 1
 
@@ -252,8 +351,9 @@ def eta_colk(Tt, C, F, costs, b, base, w, ah, s: SeqScalars, t: int, r: int,
     (``eta_candidates``) into ``s``; then ``step_post_plain``'s z, status,
     stall, bland and iterations and, with ``then_pre``, the next pivot's
     step before the ratio test. ``ws`` is an ``eta_workspace``. One launch
-    on the card: one thread a column, blocks past the columns one thread
-    a row of F[t] and b, the last column block (an arrival ticket) folding
+    on the card (``eta_plan``): one thread a column, each block's C slab
+    sent for before k is read, blocks past the columns one thread a row of
+    F[t] and b, the last column block (an arrival ticket) folding
     the candidates -- on the new weights and on weights of 1, keeping the
     latter on a re-anchor -- and running the step."""
     M, R, L = _check(Tt, C, F, s, t, costs=costs, b=b, base=base, w=w,
@@ -267,12 +367,13 @@ def eta_colk(Tt, C, F, costs, b, base, w, ah, s: SeqScalars, t: int, r: int,
     if ws is None:
         ws = eta_workspace(M, R, Tt.device)
     _check_ws(ws, M, R, Tt.device)
+    plan = eta_plan(M, R, L, Tt.element_size())
     err = lib.eta_colk_launch(
         _ptr(Tt), _ptr(C), _ptr(F), _ptr(costs), _ptr(b), _ptr(base),
         _ptr(w), _ptr(ah), M, R, L, r, t, float(eps), _ptr(ws), ws.numel(),
         ctypes.byref(_seq_ptrs(s)), max_iter,
         _bland_mode(bland_static, threshold),
         0 if threshold is None else int(threshold), int(then_pre), pair,
-        _stream(Tt))
+        plan.rows, plan.cols, plan.stage_colk, _stream(Tt))
     check(lib, err, "eta_colk")
     LAUNCHES["eta_colk"] += 1

@@ -427,12 +427,19 @@ def test_blocked_loop_keeps_its_storage(monkeypatch, pair):
 
 
 def test_eta_workspace_size():
-    """The workspace's bytes follow csrc/eta.cu: 16, then 32 a block of 64
-    rows and 64 a block of 128 columns."""
-    assert ke.eta_workspace_bytes(64, 128) == 16 + 32 + 64
-    assert ke.eta_workspace_bytes(65, 129) == 16 + 64 + 128
+    """The workspace's bytes follow csrc/eta.cu: 16, then 32 a block of
+    ``eta_ratio`` and 64 a column block of ``eta_colk``, on ``eta_grid``'s
+    grid."""
+    assert ke.eta_grid(64, 128) == (16, 32)
+    assert ke.eta_workspace_bytes(64, 128) == 16 + 32 * 4 + 64 * 4
+    assert ke.eta_workspace_bytes(65, 129) == 16 + 32 * 5 + 64 * 5
+    assert ke.eta_grid(2048, 6144) == (32, 64)
     assert ke.eta_workspace(2048, 6144, "cpu").numel() == \
-        16 + 32 * 32 + 64 * 48
+        16 + 32 * 64 + 64 * 96
+    assert ke.eta_grid(8192, 24576) == (128, 256)
+    assert ke.eta_workspace_bytes(8192, 24576) == 16 + 32 * 64 + 64 * 96
+    assert ke.eta_grid(10112, 120064) == (128, 256)
+    assert ke.eta_workspace_bytes(10112, 120064) == 16 + 32 * 79 + 64 * 469
 
 
 # ---------------------------------------------------------------------------
@@ -471,8 +478,9 @@ def test_eta_ratio_launch_is_wired(monkeypatch, pair):
     """``eta_ratio`` on the card, its library stubbed: one launch with as
     many arguments as its ctypes signature -- Tt, C, F, b and ah's
     pointers, M, R, L, t, eps, the workspace and its bytes, the scalars
-    by reference, the pair's code -- counting one launch; no state
-    moved."""
+    by reference, the pair's code, ``eta_plan``'s rows and columns a
+    block and ``eta_ratio``'s slab rows a round -- counting one launch; no
+    state moved."""
     opts = _options(pair, "dantzig", 8)
     tab, costs0 = _phase1(opts)
     loop = solver.blocked_loop(tab, opts, costs0)
@@ -483,7 +491,7 @@ def test_eta_ratio_launch_is_wired(monkeypatch, pair):
     ke.eta_ratio(loop.Tt, loop.C, loop.F, loop.b, loop.ah, loop.s, 5, 1e-9,
                  loop.ws)
     (args,) = got
-    assert len(args) == len(sig) == 15
+    assert len(args) == len(sig) == 18
     vals = _values(args)
     assert vals[:5] == [x.data_ptr() for x in (loop.Tt, loop.C, loop.F,
                                                loop.b, loop.ah)]
@@ -491,6 +499,8 @@ def test_eta_ratio_launch_is_wired(monkeypatch, pair):
                           loop.ws.numel()]
     assert _seq_ptrs_of(args[12], loop.s)
     assert vals[13] == ks.PAIRS[(loop.Tt.dtype, loop.b.dtype)]
+    plan = ke.eta_plan(M, R, 8, loop.Tt.element_size())
+    assert vals[14:17] == [plan.rows, plan.cols, plan.stage_ratio]
     assert ke.LAUNCHES == {"eta_ratio": 1, "eta_colk": 0}
     for n, x in loop.s.tensors().items():
         assert _same(x, state[n]), n
@@ -507,8 +517,9 @@ def test_eta_colk_launch_is_wired(monkeypatch, rule, policy):
     many arguments as its ctypes signature -- the loop's eight tensors'
     pointers in order (w null but under devex), M, R, L, r, t, eps, the
     workspace and its bytes, the scalars by reference, max_iter, the
-    Bland mode, threshold (0 for none), then_pre and the pair's code --
-    counting one launch."""
+    Bland mode, threshold (0 for none), then_pre, the pair's code,
+    ``eta_plan``'s rows and columns a block and ``eta_colk``'s slab rows a
+    round -- counting one launch."""
     opts = _options("mixed", rule, 8)
     tab, costs0 = _phase1(opts)
     loop = solver.blocked_loop(tab, opts, costs0)
@@ -519,7 +530,7 @@ def test_eta_colk_launch_is_wired(monkeypatch, rule, policy):
                 loop.w, loop.ah, loop.s, 3, loop.r, 1e-9, 77, loop.ws,
                 **policy)
     (args,) = got
-    assert len(args) == len(sig) == 23
+    assert len(args) == len(sig) == 26
     vals = _values(args)
     assert vals[:8] == [0 if x is None else x.data_ptr() for x in (
         loop.Tt, loop.C, loop.F, loop.costs, loop.b, loop.base, loop.w,
@@ -530,9 +541,11 @@ def test_eta_colk_launch_is_wired(monkeypatch, rule, policy):
     assert _seq_ptrs_of(args[16], loop.s)
     mode = (kb.BLAND_STATIC if policy["bland_static"] else kb.BLAND_NEVER
             if policy["threshold"] is None else kb.BLAND_THRESHOLD)
+    plan = ke.eta_plan(M, R, 8, loop.Tt.element_size())
     assert vals[17:] == [77, mode, policy["threshold"] or 0,
                          int(policy["then_pre"]),
-                         ks.PAIRS[(torch.float32, torch.float64)], 0]
+                         ks.PAIRS[(torch.float32, torch.float64)],
+                         plan.rows, plan.cols, plan.stage_colk, 0]
     assert ke.LAUNCHES == {"eta_ratio": 0, "eta_colk": 1}
 
 

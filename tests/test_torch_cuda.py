@@ -2431,9 +2431,10 @@ def test_blocked_graph_fuse_is_exact_on_card(cuda, cap):
 
 def test_eta_kernels_refuse_on_card(cuda):
     """A launch the kernels refuse raises (an empty shape, t outside the
-    window, a short workspace, an unknown pair through the C entry
-    points), a buffer of another shape raises in the wrapper, and a dtype
-    pair with no kernel raises: no fallback."""
+    window, a short workspace, an unknown pair, a stage of no rows or one
+    whose two rounds do not fit, through the C entry points), a buffer of
+    another shape raises in the wrapper, and a dtype pair with no kernel
+    raises: no fallback."""
     from simplex_tpu_torch.kernels import _build
     from simplex_tpu_torch.kernels import eta as ke
     from simplex_tpu_torch.kernels import seq as ks
@@ -2448,12 +2449,18 @@ def test_eta_kernels_refuse_on_card(cuda):
     s = ks.seq_scalars(torch.zeros((), **f64), False, torch.float64)
     step = ks.ctypes.byref(ks._seq_ptrs(s))
     stream = torch.cuda.current_stream().cuda_stream
-    for m_, t, nbytes, pair in ((0, 0, ws.numel(), 0), (M, L, ws.numel(), 0),
-                                (M, 0, 16, 0), (M, 0, ws.numel(), 9)):
+    plan = ke.eta_plan(M, R, L, 8)
+    for m_, t, nbytes, pair, stage in (
+            (0, 0, ws.numel(), 0, plan.stage_ratio),
+            (M, L, ws.numel(), 0, plan.stage_ratio),
+            (M, 0, 16, 0, plan.stage_ratio),
+            (M, 0, ws.numel(), 9, plan.stage_ratio),
+            (M, 0, ws.numel(), 0, 0),
+            (M, 0, ws.numel(), 0, ke.ETA_SLAB_SMEM)):
         err = lib.eta_ratio_launch(
             Tt.data_ptr(), C.data_ptr(), F.data_ptr(), b.data_ptr(),
             ah.data_ptr(), m_, R, L, t, 1e-9, ws.data_ptr(), nbytes, step,
-            pair, stream)
+            pair, plan.rows, plan.cols, stage, stream)
         with pytest.raises(RuntimeError, match="eta_ratio: CUDA error"):
             _build.check(lib, err, "eta_ratio")
     costs = torch.rand(R, **f64)
@@ -2461,7 +2468,8 @@ def test_eta_kernels_refuse_on_card(cuda):
     err = lib.eta_colk_launch(
         Tt.data_ptr(), C.data_ptr(), F.data_ptr(), costs.data_ptr(),
         b.data_ptr(), base.data_ptr(), 0, ah.data_ptr(), M, R, L, R, L,
-        1e-9, ws.data_ptr(), ws.numel(), step, 10, 0, 3, 1, 0, stream)
+        1e-9, ws.data_ptr(), ws.numel(), step, 10, 0, 3, 1, 0,
+        plan.rows, plan.cols, plan.stage_colk, stream)
     with pytest.raises(RuntimeError, match="eta_colk: CUDA error"):
         _build.check(lib, err, "eta_colk")
     with pytest.raises(ValueError, match="ah"):
@@ -2469,3 +2477,135 @@ def test_eta_kernels_refuse_on_card(cuda):
     odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
         ke.eta_ratio(Tt, C, F, b.float(), ah, odd, 0, 1e-9, ws)
+
+
+#: Shapes whose rows of F and C start off 16-byte boundaries: f64 rows on
+#: 8 bytes where M or R is odd, f32 rows on 4 bytes. ``eta_plan`` gives
+#: the last two 256 columns a block of ``eta_colk``: at 2,047 x 30,001 in
+#: one wave, with as many slab rows a round as fit; at 40 x 40,001 past one
+#: wave, with 16.
+ETA_ODD_SHAPES = [(1, 3), (37, 6143), (2047, 6143), (2047, 3), (2047, 30001),
+                  (40, 40001)]
+
+
+def _eta_random_state(dev, pair, M, R, L, seed):
+    """A random state of the plain blocked loop's kernels on the card: Tt,
+    the window's factors (every row < L filled), b > 0, the costs, devex
+    weights in [1, 2), a basis and the scalars of a running pivot."""
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    T, V = (getattr(torch, np.dtype(x).name) for x in SEQ_PAIRS[pair])
+    rng = np.random.default_rng(seed)
+
+    def uni(shape, lo, hi, dt):
+        return torch.from_numpy(rng.uniform(lo, hi, shape)).to(dev, dt)
+
+    st = dict(Tt=uni((M, R), -1, 1, T), C=uni((L, R), -0.1, 0.1, T),
+              F=uni((L, M), -0.1, 0.1, T), b=uni(M, 0, 1, V),
+              costs=uni(R, -1, 1, V), w=uni(R, 1, 2, V),
+              base=torch.from_numpy(rng.integers(0, R, M)).to(dev,
+                                                              torch.int32),
+              ah=torch.zeros(M, dtype=T, device=dev),
+              ws=ke.eta_workspace(M, R, dev))
+    st["s"] = ks.seq_scalars(torch.zeros((), dtype=V, device=dev), False, T)
+    return st
+
+
+@pytest.mark.parametrize("L", [128, 13])
+@pytest.mark.parametrize("M,R", ETA_ODD_SHAPES,
+                         ids=[f"{m}x{r}" for m, r in ETA_ODD_SHAPES])
+@pytest.mark.parametrize("pair", sorted(SEQ_PAIRS))
+def test_eta_kernels_unaligned_rows_on_card(cuda, pair, M, R, L):
+    """``eta_ratio`` and ``eta_colk`` against their plain versions on
+    shapes whose slab rows start off 16-byte boundaries (the copies'
+    heads and tails element by element), at t = 0, 1 and L - 1, from edge
+    states -- a taken pivot, a NaN in b, no eligible row, Bland on, the
+    fuse, a weight past the re-anchor's bound, Bland static with the next
+    step before -- under devex and Dantzig: every scalar, the column,
+    C[t], F[t], b, the costs, base and the weights bit for bit."""
+    from simplex_tpu_torch.kernels import eta as ke
+
+    st0 = _eta_random_state(cuda, pair, M, R, L, 11 + M + L)
+    for t in (0, 1, L - 1):
+        for edge in range(7):
+            devex = edge not in (1, 3)
+            eps = 1e30 if edge == 2 else 1e-9
+            policy = dict(bland_static=edge == 6, threshold=3,
+                          then_pre=edge == 6)
+            outs = []
+            for kernel in (True, False):
+                x = {n: (v.clone() if isinstance(v, torch.Tensor) else v)
+                     for n, v in st0.items() if n != "s"}
+                s = type(st0["s"])(**{n: v.clone() for n, v in
+                                      st0["s"].tensors().items()})
+                s.h.fill_((R * 5) // 7)
+                s.active.fill_(edge != 4)
+                s.minc.fill_(-0.5)
+                s.bland.fill_(edge == 3)
+                if edge == 1:
+                    x["b"][(M * 3) // 5] = float("nan")
+                if edge == 5:
+                    x["w"][R - 1] = 3e8
+                w = x["w"] if devex else None
+                args = (x["Tt"], x["C"], x["F"])
+                if kernel:
+                    ke.eta_ratio(*args, x["b"], x["ah"], s, t, eps, x["ws"])
+                    ke.eta_colk(*args, x["costs"], x["b"], x["base"], w,
+                                x["ah"], s, t, R - 1, eps, 1000, x["ws"],
+                                **policy)
+                else:
+                    ke.eta_ratio_plain(*args, x["b"], x["ah"], s, t, eps)
+                    ke.eta_colk_plain(*args, x["costs"], x["b"], x["base"],
+                                      w, x["ah"], s, t, R - 1, eps, 1000,
+                                      **policy)
+                outs.append((x, s))
+            (a, sa), (b, sb) = outs
+            for name, v in sa.tensors().items():
+                assert _bits_equal(v, getattr(sb, name)), (t, edge, name)
+            for name in ("ah", "C", "F", "b", "costs", "base", "w"):
+                assert _bits_equal(a[name], b[name]), (t, edge, name)
+
+
+@pytest.mark.parametrize("L", [13, 128])
+@pytest.mark.parametrize("pair", ["f64", "mixed"])
+def test_blocked_graph_window_lengths_on_card(cuda, monkeypatch, pair, L):
+    """The graphed plain blocked loop at a window that is not a multiple of
+    8 and at L = 128: ``graph=False`` and the old body with its live
+    column and row formed as the kernels form them walk the same pivots
+    to the same state bit for bit, ``eta_ratio`` and ``eta_colk``
+    launched L times a replay; on an f64 tableau the old body as it ran
+    (``@``) walks the same pivots."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import eta as ke
+
+    tab0, costs0, opts = _eta_phase1(cuda, pair, "devex", L=L)
+    captures = []
+    real = solver.capture_blocked_window
+    monkeypatch.setattr(solver, "capture_blocked_window",
+                        lambda *a: captures.append(real(*a)) or captures[-1])
+    runs = {}
+    for graph in (False, True):
+        tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        runs[graph] = solver.solve_loop_blocked(tab, opts, 5000, costs0,
+                                                graph=graph)
+        torch.cuda.synchronize()
+    (eo, est, eit), (go, gst, git) = runs[False], runs[True]
+    assert est == gst == int(pst.Status.OPTIMAL) and eit == git
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name), getattr(eo, name)), name
+    per = captures[0][1].per_replay
+    assert per["eta_ratio"] == per["eta_colk"] == L
+    order = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+    oo, ost, oit = solver.solve_loop_blocked_reference(order, opts, 5000,
+                                                       costs0, ke.eta_live)
+    assert (ost, oit) == (gst, git)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(go, name),
+                           getattr(oo, name).to(getattr(go, name).dtype)), \
+            name
+    if pair == "f64":
+        old = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+        _, wst, wit = solver.solve_loop_blocked_reference(old, opts, 5000,
+                                                          costs0)
+        assert (wst, wit) == (gst, git)

@@ -31,6 +31,16 @@ microseconds a pivot. ``--k6`` with ``--seq N`` takes K6's loop instead
     python3 tools/flagship_walls.py --seq 2048 --k6 --trace \
         --root _checkout/parent --root . --root . --root _checkout/parent
 
+``--blocked`` with ``--seq N`` takes the plain blocked loop instead
+(``solve_loop_blocked``: ``dtype`` float64, ``block_pivots`` 128, one
+CUDA graph a window; ``--trace`` traces a replayed window, of 128
+pivots), and after the solves times the full f64 re-solve of random_N_N
+(``two_phase.fallback_solve`` with no basis, the certification tier that
+runs this loop)::
+
+    python3 tools/flagship_walls.py --seq 2048 --blocked --trace \
+        --root _checkout/parent --root . --root . --root _checkout/parent
+
 Needs a CUDA card: a process that finds none exits non-zero.
 """
 
@@ -47,6 +57,7 @@ HERE = pathlib.Path(__file__).resolve()
 PROBLEM = pathlib.Path("data/examples/benchmark_problems/random_8192_8192.txt")
 PROD = dict(dtype="float32", vector_dtype="float64", block_pivots=128)
 K6 = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
+BLOCKED = dict(dtype="float64", block_pivots=128)
 
 
 def sharded_solver(stack):
@@ -97,17 +108,26 @@ def sharded_solver(stack):
     return solve, phase1
 
 
-def seq_solver(k6: bool):
-    """``solve`` with the default options (with ``k6``: K6's loop's),
-    and a list that each solve appends its loop calls' (seconds, pivots,
-    capture seconds) to."""
+def loop_names(k6: bool, blocked: bool) -> tuple[str, str, dict]:
+    """The loop ``--seq`` times, its capture and the options that run it."""
+    if blocked:
+        return "solve_loop_blocked", "capture_blocked_window", BLOCKED
+    if k6:
+        return "solve_loop_pallas", "capture_chunk", K6
+    return "solve_loop", "capture_chunk", {}
+
+
+def seq_solver(k6: bool, blocked: bool):
+    """``solve`` with the default options (with ``k6``: K6's loop's; with
+    ``blocked``: the plain blocked loop's), and a list that each solve
+    appends its loop calls' (seconds, pivots, capture seconds) to."""
     import torch
 
     import simplex_tpu_torch as st
     from simplex_tpu_torch import solver
 
-    name = "solve_loop_pallas" if k6 else "solve_loop"
-    loop, capture = getattr(solver, name), solver.capture_chunk
+    name, cname, opts = loop_names(k6, blocked)
+    loop, capture = getattr(solver, name), getattr(solver, cname)
     calls, captures = [], []
 
     def timed_capture(*args, **kw):
@@ -128,23 +148,26 @@ def seq_solver(k6: bool):
                       sum(captures[n:])))
         return out
 
-    solver.capture_chunk = timed_capture
+    setattr(solver, cname, timed_capture)
     setattr(solver, name, timed_loop)
     loops = []
 
-    def solve(problem, **opts):
+    def solve(problem, **_):
         del calls[:]
-        res = st.solve(problem, device="cuda", **(K6 if k6 else {}))
+        res = st.solve(problem, device="cuda", **opts)
         loops.append(tuple(map(sum, zip(*calls))))
         return res
     return solve, loops
 
 
-def trace_chunk(solve, problem, k6: bool) -> None:
+def trace_chunk(solve, problem, k6: bool, blocked: bool) -> None:
     """One more solve with its first loop call traced by torch.profiler:
-    the kernels of the middle replayed chunk (from one ``seq_step_pre`` to
-    the kernel before the next) by name, in us a pivot, and the nodes a
-    pivot. Names are read from the trace, so any version's kernels show."""
+    the kernels of the middle replayed chunk (or window: from one
+    ``seq_step_pre`` to the kernel before the next) by name, in us a pivot
+    (a kernel's time from its start: a programmatic dependent launch's
+    includes its wait for the kernel before), the nodes a pivot and the
+    span a pivot. Names are read from the trace, so any version's kernels
+    show."""
     import collections
     import json
     import re
@@ -155,7 +178,7 @@ def trace_chunk(solve, problem, k6: bool) -> None:
 
     from simplex_tpu_torch import solver
 
-    name = "solve_loop_pallas" if k6 else "solve_loop"
+    name = loop_names(k6, blocked)[0]
     real, traced = getattr(solver, name), []
 
     def loop(*args, **kw):
@@ -185,7 +208,7 @@ def trace_chunk(solve, problem, k6: bool) -> None:
         if chunks:
             chunks[-1].append(e)
     mid = chunks[len(chunks) // 2]
-    chunk = solver.SEQ_CHUNK
+    chunk = BLOCKED["block_pivots"] if blocked else solver.SEQ_CHUNK
     us = collections.defaultdict(float)
     for e in mid:
         name = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
@@ -200,7 +223,7 @@ def trace_chunk(solve, problem, k6: bool) -> None:
 
 
 def measure(root: pathlib.Path, solves: int, sharded: bool,
-            seq: int, trace: bool, k6: bool) -> int:
+            seq: int, trace: bool, k6: bool, blocked: bool) -> int:
     """Solve the flagship from ``root``'s package once cold and ``solves``
     times warm on the card, printing each wall."""
     sys.path.insert(0, str(root))
@@ -227,7 +250,7 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
     if sharded:
         solve, phase1 = sharded_solver(stack)
     elif seq:
-        solve, phase1 = seq_solver(k6)
+        solve, phase1 = seq_solver(k6, blocked)
     walls = []
     for i in range(solves + 1):
         torch.cuda.synchronize()
@@ -251,7 +274,20 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
         if i:
             walls.append(wall)
     if seq and trace:
-        trace_chunk(solve, problem, k6)
+        trace_chunk(solve, problem, k6, blocked)
+    if seq and blocked:
+        from simplex_tpu_torch import two_phase
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = two_phase.fallback_solve(problem, st.SolverOptions(**PROD),
+                                       device="cuda")
+        torch.cuda.synchronize()
+        print(f"{root}: full f64 re-solve (fallback_solve, no basis) wall "
+              f"{time.perf_counter() - t0:.3f} s, pivots "
+              f"{res.iterations_phase1}+{res.iterations_phase2}, objective "
+              f"{res.objective!r}, certified "
+              f"{getattr(res.refine, 'certified', None)}", flush=True)
     if walls:
         med = statistics.median(walls)
         print(f"{root}: warm wall min {min(walls):.3f} median {med:.3f} max "
@@ -277,11 +313,14 @@ def main() -> int:
                     help="with --seq: trace a replayed chunk's kernels")
     ap.add_argument("--k6", action="store_true",
                     help="with --seq: K6's loop (pure f32, use_pallas)")
+    ap.add_argument("--blocked", action="store_true",
+                    help="with --seq: the plain blocked loop (f64, L=128) "
+                         "and the full f64 re-solve")
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
         return measure(args.child.resolve(), args.solves, args.sharded,
-                       args.seq, args.trace, args.k6)
+                       args.seq, args.trace, args.k6, args.blocked)
     for root in args.root or [HERE.parents[1]]:
         rc = subprocess.run([sys.executable, str(HERE), "--child", str(root),
                              "--solves", str(args.solves),
@@ -289,6 +328,7 @@ def main() -> int:
                             + (["--sharded"] if args.sharded else [])
                             + (["--trace"] if args.trace else [])
                             + (["--k6"] if args.k6 else [])
+                            + (["--blocked"] if args.blocked else [])
                             ).returncode
         if rc != 0:
             return rc
