@@ -108,6 +108,23 @@ Phases, in order; any failed check exits non-zero:
    counted, 5 + 2/L nodes a pivot by the captured launch counts), then the
    north-star phase-1 slice for 256 pivots, ending with phase 9's z and
    basis;
+9b. the plain blocked sharded loop (``solve_sharded`` with the f64
+   tableau at L=128) at world size 1 over NCCL: random_2048_2048 three
+   ways in turns -- one CUDA graph a window with its collectives inside
+   (the slice kernels' launch counters set to 0 just before and read just
+   after), ``graph=False`` and the old body
+   (``solve_loop_blocked_sharded_reference``) -- each walking the recorded
+   4,379 + 258, every loop call of ``graph=False`` ending in the graph
+   run's state bit for bit, graph and ``graph=False`` at the recorded
+   objective bit for bit; random_8192_8192 graphed, walking 22,070 +
+   1,191 to the recorded objective bit for bit; the f64 north-star
+   phase-1 tableau (10,000 x 100,000, 9.7 GB) for 256 pivots through the
+   single-card loop and as the rank's slice, z and the basis equal; the
+   pure-f32 tableau with the kernels off on random_2048_2048 within 1e-3;
+   each run's ms/pivot, capture ms and 3 kernels a pivot by the captured
+   launch counts, beside 2 ``all_gather``s and 1 ``all_reduce`` a pivot
+   (and the re-pricing's 1 of each a window on the f32 tableau) by the
+   captured collective counts;
 10. the batched path (``solve_batch(..., device="cuda")``, BASELINE.json
    config 3's options: f32 tableau, f64 vectors, eps 1e-5, L=32, devex):
    the status spread (OPTIMAL 13, UNBOUNDED, INFEASIBLE); config 3 at
@@ -232,7 +249,14 @@ Phases, in order; any failed check exits non-zero:
    a NaN in b, no eligible row, a devex re-anchor), and at a mixed-pair
    2,047 x 6,143 state whose slab rows start off 16-byte boundaries, bit
    for bit, then timed at t = 64 at 2048^2 and 8192^2 beside ``addmv``
-   forming the live column; the latency floor of a one-thread
+   forming the live column; the sharded plain blocked loop's kernels
+   (``eta_fold_column``, ``eta_ratio_summed``, ``eta_colk_slice``)
+   against their plain versions at the same tableau as two slices of the
+   card and as one, pivot by pivot through a window's first 64 pivots from
+   edge states (Bland, the fuse, a NaN in b, a weight past the re-anchor's
+   bound on the last slice), bit for bit, then timed at t = 64 on one
+   slice beside ``addmv`` forming the live column or row; the latency
+   floor of a one-thread
    kernel (``tools/latency_floor.cu``: an empty kernel, one load, two
    dependent loads) by the same clocks;
    each timed on the device by two clocks -- torch.profiler, and CUDA
@@ -250,7 +274,9 @@ Phases, in order; any failed check exits non-zero:
    replayed chunk, the device's busy share inside a chunk and over its
    period), and the plain blocked loop's (f64 L=128 random_2048_2048:
    every node of a replayed window, the apply's cuBLAS kernels among
-   them, the busy share inside a window and over its period). These run
+   them, the busy share inside a window and over its period), and the
+   plain blocked sharded loop's (the same at one NCCL rank: 3 kernels and
+   2 copies a pivot of a replayed window, the busy shares). These run
    last so that no profiler run precedes the timed solves.
 
 Each kernel's bound is the larger of the bytes it must move (each input
@@ -264,8 +290,9 @@ kernels' records (K1-K12, ``batch_rank1``, ``step_pre`` and the tails
 or K2's time with it less their time without -- and the sharded step
 kernels with K2's sharded tails, the step after K2 and the pack, and
 K5's head, and the sequential loops' kernels with K6's tail, the
-sequential sharded loop's two and the plain blocked loop's two, which
-replace XLA-fused glue, no Pallas kernel;
+sequential sharded loop's two, the plain blocked loop's two and the
+plain blocked sharded loop's three, which replace XLA-fused glue, no
+Pallas kernel;
 K11 and K12 are on no
 path, in the port as in the JAX package, so their launches are 0), and
 ``{"ok": true, "device":
@@ -496,6 +523,19 @@ ETA_KERNELS = {
     "eta_colk": ("glue", "simplex_tpu/solver.py:549", ETA_SOURCE),
 }
 ETAS = tuple(ETA_KERNELS)
+#: The sharded plain blocked loop's kernels (kernels.eta's slice forms):
+#: the JAX loop's pivot under shard_map is XLA-fused glue, no Pallas kernel
+#: (simplex_tpu/parallel/sharded.py:418 the entering fold and the live
+#: column, :425 the ratio test, :429 the live row and the updates).
+SLICE_KERNELS = {
+    "eta_fold_column": ("glue", "simplex_tpu/parallel/sharded.py:418",
+                        ETA_SOURCE),
+    "eta_ratio_summed": ("glue", "simplex_tpu/parallel/sharded.py:425",
+                         ETA_SOURCE),
+    "eta_colk_slice": ("glue", "simplex_tpu/parallel/sharded.py:429",
+                       ETA_SOURCE),
+}
+SLICES = tuple(SLICE_KERNELS)
 #: The plain blocked loop's configurations: the f64 tableau at L=128 (the
 #: full f64 re-solve's), and the pure-f32 one with the kernels off.
 BLOCKED_F64 = dict(dtype="float64", block_pivots=128)
@@ -519,7 +559,7 @@ ETA_ODD = (2047, 6143)
 ORDER = ("ah_ratio", "colk_costs", "apply_reprice", "apply_window", "ah",
          "fused_pivot", "batch_window", "batch_apply_reprice", "batch_apply",
          "reprice", "batch_reprice", "batch_rank1", *STEPS, *SHARDED_STEPS,
-         *SEQS, *ETAS)
+         *SEQS, *ETAS, *SLICES)
 #: The default-option batch's lanes solved alone by solve() (config 3's
 #: first, last and two between).
 DEFAULT_BATCH_LANES = (0, 85, 170, 255)
@@ -5742,6 +5782,548 @@ def phase_sharded_one_rank(launches: dict, walks: dict,
     return r2048
 
 
+def blocked_sharded_loops(p, group, opts: dict, way: str,
+                          keep: list | None = None,
+                          against: list | None = None) -> dict:
+    """One ``solve_sharded(p, **opts)`` on ``group`` with its plain blocked
+    sharded loop (``solve_loop_blocked_sharded``) run ``way``: "graph"
+    (one CUDA graph a window, its NCCL collectives inside), "eager"
+    (``graph=False``: the same kernels and collectives enqueued eagerly) or
+    "old" (the old body, ``solve_loop_blocked_sharded_reference``: its
+    eta corrections ``@`` products and its collectives allocating).
+    Returns, as ``loop_runs``, the result, the solve's wall, each loop
+    call's wall and pivots, each capture's ms and kernels a pivot by the
+    captured launch counts, which must be 3 (``SLICES``, L of each a
+    window), beside 2 ``all_gather``s (3 under devex) and 1 ``all_reduce``
+    a pivot and, on an f32 tableau, 1 of each a window by the captured
+    collective counts. Each loop call's final state is appended to
+    ``keep`` as copies, or held to ``against``'s bit for bit."""
+    import torch
+
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    L = int(opts["block_pivots"])
+    real = ps.solve_loop_blocked_sharded
+    real_capture = ps.capture_blocked_window_sharded
+    calls, captures, per_pivot = [], [], []
+
+    def capture(loop, options, max_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(loop, options, max_iter)
+        torch.cuda.synchronize()
+        captures.append(1e3 * (time.perf_counter() - t0))
+        per = dict(out[1].per_replay)
+        colls = dict(out[2].counts)
+        devex = int(loop.w is not None)
+        reprice = int(loop.costs0 is not None)
+        require(per == {n: L for n in SLICES}, f"the sharded window graph "
+                f"holds {per}, not {L} of each of {SLICES}")
+        require(colls == {"all_gather": (2 + devex) * L + reprice,
+                          "all_reduce": L + reprice},
+                f"the sharded window graph holds the collectives {colls}")
+        per_pivot.append(sum(per.values()) / L)
+        return out
+
+    def loop(tab, shard, options, max_iter, costs0=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if way == "old":
+            out, st, it = ps.solve_loop_blocked_sharded_reference(
+                tab, shard, options, max_iter, costs0)
+        else:
+            out, st, it = real(tab, shard, options, max_iter, costs0,
+                               graph=way == "graph")
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, it))
+        final = {"Tt": out.Tt, "b": out.b, "costs": out.costs, "z": out.z,
+                 "base": out.base, "status": torch.tensor(st),
+                 "iterations": torch.tensor(it)}
+        if keep is not None:
+            keep.append({k: v.clone() for k, v in final.items()})
+        if against is not None:
+            for k, want in against[len(calls) - 1].items():
+                equal(f"sharded blocked {way} loop call {len(calls)} {k}",
+                      final[k], want)
+        return out, st, it
+
+    ps.solve_loop_blocked_sharded = loop
+    ps.capture_blocked_window_sharded = capture
+    try:
+        res, wall = timed_sharded(p, group, opts)
+    finally:
+        ps.solve_loop_blocked_sharded = real
+        ps.capture_blocked_window_sharded = real_capture
+    require(len(captures) == (len(calls) if way == "graph" else 0),
+            f"{len(captures)} captures in {len(calls)} sharded blocked loop "
+            "calls")
+    pivots = sum(c[1] for c in calls)
+    loop_s = sum(c[0] for c in calls)
+    return dict(res=res, wall=wall, calls=calls, captures=captures,
+                per_pivot=per_pivot, pivots=pivots,
+                ms_pivot=1e3 * loop_s / pivots)
+
+
+def phase_blocked_sharded(launches: dict) -> None:
+    """The plain blocked sharded loop (``solve_sharded`` with the f64
+    tableau at L=128, the full f64 re-solve's options) at one NCCL rank,
+    in this process: random_2048_2048 three ways in turns -- one CUDA
+    graph a window with its collectives inside (the slice kernels' launch
+    counters set to 0 just before and read just after), ``graph=False``
+    (every loop call's final state the graph run's bit for bit) and the
+    old body -- each within 1e-9 of the golden and walking the recorded
+    ``BLOCKED_WALK``, graph and ``graph=False`` at the recorded objective
+    bit for bit; random_8192_8192 graphed, walking ``BLOCKED_WALK_8192``
+    to its recorded objective bit for bit; the f64 north-star phase-1
+    tableau (10,000 x 100,000) for 256 pivots through the single-card
+    ``run_solve_loop`` and then as the rank's slice through
+    ``run_solve_loop_sharded``, z and the basis equal; the pure-f32
+    tableau with the kernels off (its window's graph holding the
+    re-pricing's collectives) on random_2048_2048 within 1e-3. Each run's
+    ms/pivot, capture ms and kernels a pivot by the captured launch
+    counts, beside the card's name and power limit."""
+    import tempfile
+
+    import torch
+
+    from simplex_tpu_torch.bench import bench_problem, build_bench_state
+    from simplex_tpu_torch.config import SolverOptions
+    from simplex_tpu_torch.kernels import blocked as kb
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel.sharded import (
+        build_phase1_sharded, gaussian_eliminate_sharded,
+        run_solve_loop_sharded, sharded_padded_dims)
+    from simplex_tpu_torch.solver import run_solve_loop
+
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "nccl", td) as group:
+        keep: list = []
+        p = benchmark_problem(2048)
+        for i, way in enumerate(("graph", "eager", "old")):
+            kb.reset_launches()
+            ke.reset_launches()
+            r = blocked_sharded_loops(p, group, BLOCKED_F64, way,
+                                      keep=keep if i == 0 else None,
+                                      against=keep if way == "eager"
+                                      else None)
+            if i == 0:
+                for name in SLICES:
+                    launches[name] = ke.SLICE_LAUNCHES[name]
+                require(min(launches[n] for n in SLICES) > 0,
+                        f"the sharded plain blocked loop launched "
+                        f"{ke.SLICE_LAUNCHES}")
+            require(not any(kb.LAUNCHES.values()), f"K1-K5 launched: "
+                    f"{kb.LAUNCHES}")
+            res = r["res"]
+            label = f"sharded, 1 rank, f64 L=128 random_2048_2048 {way}"
+            check_objective(label, res, OBJ_2048, 1e-9)
+            w = (res.iterations_phase1, res.iterations_phase2)
+            require(w == BLOCKED_WALK, f"{label} walked {w}, recorded "
+                    f"{BLOCKED_WALK}")
+            require(way == "old" or res.objective == BLOCKED_OBJ[2048],
+                    f"{label} reached {res.objective!r}, recorded "
+                    f"{BLOCKED_OBJ[2048]!r} bit for bit")
+            log(seq_line(label, r, "window") + f"; OPTIMAL objective "
+                f"{res.objective!r} (golden {OBJ_2048!r}); pivots "
+                f"{w[0]}+{w[1]}" + (f"; launches {dict(ke.SLICE_LAUNCHES)}"
+                                    if i == 0 else "") + f"; {smi}")
+        log("sharded, 1 rank, f64 L=128 random_2048_2048: graph, "
+            "graph=False and the old body walked the recorded pivots, every "
+            "loop call of graph=False ending in the graph run's state bit "
+            "for bit, graph and graph=False at the recorded objective bit "
+            "for bit")
+        del keep
+
+        torch.cuda.reset_peak_memory_stats()
+        r = blocked_sharded_loops(benchmark_problem(8192), group,
+                                  BLOCKED_F64, "graph")
+        res = r["res"]
+        label = "sharded, 1 rank, f64 L=128 random_8192_8192 graph"
+        check_objective(label, res, OBJ_8192, 1e-9)
+        w = (res.iterations_phase1, res.iterations_phase2)
+        require(w == BLOCKED_WALK_8192 and res.objective == BLOCKED_OBJ[8192],
+                f"{label} walked {w} to {res.objective!r}, recorded "
+                f"{BLOCKED_WALK_8192} to {BLOCKED_OBJ[8192]!r}")
+        log(seq_line(label, r, "window") + f"; OPTIMAL objective "
+            f"{res.objective!r}; pivots {w[0]}+{w[1]}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {smi}")
+        del res, r
+        torch.cuda.empty_cache()
+
+        # The f64 north-star phase-1 tableau for 256 pivots (2 windows):
+        # single-card, then as the one rank's slice.
+        opts = SolverOptions(**BLOCKED_F64)
+        n, m, cap = 100_000, 10_000, 256
+        walls = {}
+        tab, costs0 = build_bench_state(n, m, torch.float64, opts, {},
+                                        "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab, st1, it1 = run_solve_loop(tab, opts, cap, costs0)
+        torch.cuda.synchronize()
+        walls["single-card"] = time.perf_counter() - t0
+        z1, base1 = float(tab.z), tab.base.cpu()
+        gb = tab.Tt.numel() * 8 / 1e9
+        del tab, costs0
+        torch.cuda.empty_cache()
+        R_pad, M_pad = sharded_padded_dims(n, m, 1, opts)
+        shard = pg.Shard.of(group, R_pad)
+        A, b = bench_problem(n, m, torch.device("cuda"))
+        tab = build_phase1_sharded(A, b, n, m, shard, opts, M_pad, "cuda")
+        del A
+        costs0 = tab.costs
+        tab = gaussian_eliminate_sharded(tab, shard)
+        ke.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab, st2, it2 = run_solve_loop_sharded(tab, shard, opts, cap, costs0)
+        torch.cuda.synchronize()
+        walls["sharded"] = time.perf_counter() - t0
+        require(it1 == it2 == cap, f"f64 north-star: {it1} / {it2} pivots")
+        require(float(tab.z) == z1 and torch.equal(tab.base.cpu(), base1),
+                f"sharded f64 north-star: z {float(tab.z)!r} vs the "
+                f"single-card loop's {z1!r}, or another basis")
+        require(min(ke.SLICE_LAUNCHES[k] for k in SLICES) == cap,
+                f"sharded f64 north-star launched {ke.SLICE_LAUNCHES}")
+        log(f"f64 north-star 10000x100000 phase-1 tableau "
+            f"{tuple(tab.Tt.shape)} ({gb:.2f} GB), L=128, {cap} pivots: "
+            f"single-card {1e3 * walls['single-card'] / cap:.4f} ms/pivot, "
+            f"sharded at 1 rank {1e3 * walls['sharded'] / cap:.4f} ms/pivot "
+            f"(each with its capture), z {z1!r} and the basis equal; {smi}")
+        del tab, costs0
+        torch.cuda.empty_cache()
+
+        ke.reset_launches()
+        r = blocked_sharded_loops(benchmark_problem(2048), group,
+                                  BLOCKED_F32, "graph")
+        res = r["res"]
+        label = ("sharded, 1 rank, f32 (f32 vectors, use_pallas=False) L=128 "
+                 "random_2048_2048 graph")
+        check_objective(label, res, OBJ_2048, 1e-3)
+        require(min(ke.SLICE_LAUNCHES[k] for k in SLICES) > 0,
+                f"{label} launched {ke.SLICE_LAUNCHES}")
+        w = (res.iterations_phase1, res.iterations_phase2)
+        log(seq_line(label, r, "window") + f"; OPTIMAL objective "
+            f"{res.objective!r} (golden {OBJ_2048!r}, rel "
+            f"{abs(res.objective - OBJ_2048) / OBJ_2048:.2e}); pivots "
+            f"{w[0]}+{w[1]}; {smi}")
+    torch.cuda.empty_cache()
+
+
+def slice_pivot(loops, t: int, opts, kernel: bool, cap: int) -> None:
+    """Pivot t of ``run_blocked_pivot_sharded`` on the slices ``loops`` of
+    one card in this process: the collectives as torch ops in rank order
+    (gathers stacked, the columns summed), each slice's kernels -- or their
+    plain versions -- between them."""
+    import torch
+
+    from simplex_tpu_torch.kernels import eta as ke
+
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
+                  threshold=opts.bland_threshold)
+    devex = loops[0].w is not None
+    V = torch.stack([lp.send_v for lp in loops])
+    I = torch.stack([lp.send_i for lp in loops])
+    for lp in loops:
+        lp.recv_v.copy_(V)
+        lp.recv_i.copy_(I)
+        fold = ke.eta_fold_column if kernel else ke.eta_fold_column_plain
+        fold(lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
+             lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+    total = loops[0].ah.clone()
+    for lp in loops[1:]:
+        total += lp.ah
+    for lp in loops:
+        lp.ah.copy_(total)
+        args = (lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base, lp.w, lp.ah,
+                lp.s, t, lp.r_loc, eps, cap)
+        out = dict(offset=lp.shard.offset, wh=lp.wh, send_v=lp.send_v,
+                   send_i=lp.send_i, send_w=lp.send_w)
+        if kernel:
+            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps, lp.shard.R_loc,
+                                lp.ws)
+            ke.eta_colk_slice(*args, lp.ws, **out, **policy)
+        else:
+            ke.eta_ratio_summed_plain(lp.b, lp.ah, lp.s, eps)
+            ke.eta_colk_slice_plain(*args, *out.values(), **policy)
+    if devex:
+        W = torch.stack([lp.send_w for lp in loops])
+        for lp in loops:
+            lp.recv_w.copy_(W)
+
+
+def phase_slice_kernels(records: dict) -> None:
+    """The sharded plain blocked loop's kernels (``eta_fold_column``,
+    ``eta_ratio_summed``, ``eta_colk_slice``) against their plain versions
+    on the card at the main path's shape: the f64 phase-1 tableau of
+    random_2048_2048 (M 2,048 x R 6,144), L=128, under devex, as two
+    slices of the one card and as one slice, two sets of
+    ``ShardedBlockedLoop``s -- the kernels on one, the plain versions on
+    the other, the collectives torch ops between them (``slice_pivot``) --
+    pivot by pivot through the window's first ``ETA_T`` pivots from edge
+    states drawn by the pivot's index (Bland on, the fuse, a NaN in b, a
+    weight past the re-anchor's bound on the last slice): every scalar,
+    slice, factor, vector, weight and send buffer bit for bit. Then at t
+    = ``ETA_T``, on a taken pivot at one slice, each kernel timed by
+    torch.profiler and by CUDA events over a CUDA graph of 50 calls beside
+    its plain version, its bound and ``torch.addmv`` forming the live
+    column (the fold's) or row (the pass's) alone: the kernels line's
+    rows."""
+    import dataclasses
+
+    import torch
+
+    import simplex_tpu_torch as st
+    from simplex_tpu_torch.bench import pivot_work
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.tableau import gaussian_eliminate
+
+    opts = st.SolverOptions(**BLOCKED_F64, pivot_rule="devex")
+    eps = float(opts.eps_resolved)
+    cap = 10_000
+    p = benchmark_problem(2048)
+    n, m = p.vars, p.constraints
+    seen: collections.Counter = collections.Counter()
+    for P in (2, 1):
+        R_pad, M_pad = ps.sharded_padded_dims(n, m, P, opts)
+        whole = gaussian_eliminate(ps.build_phase1_sharded(
+            torch.as_tensor(p.A), torch.as_tensor(p.b, device="cuda"), n, m,
+            pg.Shard(None, 0, 1, R_pad), opts, M_pad, "cuda"))
+        sets = [[ps.sharded_blocked_loop(
+            dataclasses.replace(sl, Tt=sl.Tt.clone()),
+            pg.Shard(None, r, P, R_pad // P), opts)
+            for r, sl in ((r, ps.shard_tableau(whole, r, P))
+                          for r in range(P))] for _ in range(2)]
+        del whole
+        for t in range(ETA_T):
+            edge = t % 6
+            for loops in sets:
+                for lp in loops:
+                    lp.s.bland.fill_(edge == 1)
+                    lp.s.iterations.fill_(cap if edge == 2 else 3)
+                    lp.s.status.fill_(int(st.Status.RUNNING))
+                if edge == 3:
+                    for lp in loops:
+                        lp.b[(t * 37) % M_pad] = float("nan")
+                elif edge == 4:
+                    loops[-1].w[t] = 3e8
+            slice_pivot(sets[0], t, opts, True, cap)
+            slice_pivot(sets[1], t, opts, False, cap)
+            for r, (a, b) in enumerate(zip(*sets)):
+                for name, x in a.s.tensors().items():
+                    equal(f"slice kernels P={P} t={t} rank {r} {name}", x,
+                          getattr(b.s, name))
+                for name in ("Tt", "C", "F", "b", "costs", "base", "w", "ah",
+                             "wh", "send_v", "send_i", "send_w"):
+                    equal(f"slice kernels P={P} t={t} rank {r} {name}",
+                          getattr(a, name), getattr(b, name))
+            seen[(P, edge, bool(sets[0][0].s.do))] += 1
+            for loops in sets:
+                for lp in loops:
+                    lp.b.nan_to_num_(nan=1.0)
+                    lp.s.z.nan_to_num_(nan=0.0)
+        if P == 2:
+            del sets
+            torch.cuda.empty_cache()
+    require(seen[(1, 0, True)] > 0 and seen[(2, 0, True)] > 0
+            and seen[(1, 2, False)] > 0, f"the walks saw {dict(seen)}")
+    log(f"slice kernels (f64, devex, M={M_pad} R={R_pad}, L=128) at 2 slices"
+        f" of the card and at 1: every scalar, vector, factor, weight and "
+        f"send buffer equal the plain versions' over pivots t = 0.."
+        f"{ETA_T - 1} ({dict(seen)})")
+
+    # Each timed at t = ETA_T on a taken pivot at one slice.
+    lp = sets[0][0]
+    del sets
+    t = ETA_T
+    s = lp.s
+    s.status.fill_(int(st.Status.RUNNING))
+    s.iterations.fill_(3)
+    s.bland.fill_(False)
+    M, R = lp.Tt.shape
+    L = lp.C.shape[0]
+    policy = dict(bland_static=False, threshold=opts.bland_threshold)
+    lp.recv_v.copy_(lp.send_v.view(1, -1))
+    lp.recv_i.copy_(lp.send_i.view(1, -1))
+    lp.recv_w.copy_(lp.send_w.view(1))
+    W = lp.recv_w
+    fold = functools.partial(ke.eta_fold_column, lp.Tt, lp.C, lp.F,
+                             lp.recv_v, lp.recv_i, W, lp.ah, lp.w, lp.wh, s,
+                             t, cap, eps, 0)
+    fold()
+    ratio = functools.partial(ke.eta_ratio_summed, lp.b, lp.ah, s, eps, R,
+                              lp.ws)
+    ratio()
+    require(bool(s.do), "slice kernels: the timed pivot is not taken")
+    h, k = int(s.h), int(s.k)
+    colk = functools.partial(ke.eta_colk_slice, lp.Tt, lp.C, lp.F, lp.costs,
+                             lp.b, lp.base, lp.w, lp.ah, s, t, lp.r_loc, eps,
+                             cap, lp.ws, offset=0, wh=lp.wh,
+                             send_v=lp.send_v, send_i=lp.send_i,
+                             send_w=lp.send_w, **policy)
+    timed = {
+        "eta_fold_column": (
+            fold, functools.partial(
+                ke.eta_fold_column_plain, lp.Tt, lp.C, lp.F, lp.recv_v,
+                lp.recv_i, W, lp.ah, lp.w, lp.wh, s, t, cap, eps, 0),
+            "eta_fold_column_kernel",
+            bound(8 * (t * M + 2 * M + t), f64_flops=2 * t * M),
+            functools.partial(torch.addmv, lp.Tt[:, h], lp.F[:t].t(),
+                              lp.C[:t, h], alpha=-1.0)),
+        "eta_ratio_summed": (
+            ratio, functools.partial(ke.eta_ratio_summed_plain, lp.b, lp.ah,
+                                     s, eps),
+            "eta_ratio_kernel", bound(8 * 2 * M, f64_flops=M), None),
+        "eta_colk_slice": (
+            colk, functools.partial(
+                ke.eta_colk_slice_plain, lp.Tt, lp.C, lp.F, lp.costs, lp.b,
+                lp.base, lp.w, lp.ah, s, t, lp.r_loc, eps, cap, 0, lp.wh,
+                lp.send_v, lp.send_i, lp.send_w, **policy),
+            "eta_colk_kernel",
+            bound(*pivot_work(M, R, L, t, True, 8)["colk_costs"]),
+            functools.partial(torch.addmv, lp.Tt[k], lp.C[:t].t(),
+                              lp.F[:t, k], alpha=-1.0)),
+    }
+    for name, (fn, plain_fn, match, (bound_ms, by), lib) in timed.items():
+        require(kernels_launched(fn) == 1, f"one {name} call launched "
+                "more than one kernel")
+        ms = device_ms(fn, 50, match=match)
+        rec = {"max_abs_err": 0.0, "ms": ms,
+               "plain_ms": device_ms(plain_fn, 5),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": None if lib is None else device_ms(lib, 50),
+               "check_ms": graph_ms(fn)}
+        records[name] = rec
+        log(f"{name} f64 devex M={M} R={R} t={t} (one slice): {ms:.5f} ms a "
+            f"call (torch.profiler), {rec['check_ms']:.5f} ms by CUDA "
+            f"events over a CUDA graph of 50 calls, plain "
+            f"{rec['plain_ms']:.4f} ms, "
+            + ("no one library call" if lib is None else
+               f"addmv forming the live "
+               f"{'column' if name == 'eta_fold_column' else 'row'} "
+               f"{rec['library_ms']:.5f} ms")
+            + f", bound {bound_ms:.5f} ms ({by}), "
+            f"{100 * bound_ms / ms:.1f}% of it; {nvidia_smi_line()}")
+    del lp
+    torch.cuda.empty_cache()
+
+
+#: The sharded plain blocked loop's kernels in a trace of its window.
+SLICE_GRAPH_KERNELS = ("eta_fold_column_kernel", "eta_ratio_kernel",
+                       "eta_colk_kernel")
+
+
+def phase_blocked_sharded_trace() -> None:
+    """random_2048_2048 with ``BLOCKED_F64`` through ``solve_sharded`` at
+    one NCCL rank, its phase-1 loop call traced by torch.profiler (CUDA
+    activity): each replayed window's nodes (from the two copies before
+    its first ``eta_fold_column`` to those before the next window's --
+    the kernels, NCCL's nodes or copies, the apply's cuBLAS kernels): the
+    slice kernels a pivot (3), the copies a pivot; the device's busy share
+    inside a window and over its period (the host's read of status and
+    the next replay included); the middle window's nodes by name and
+    their us a pivot. Runs after every timed solve."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    L = BLOCKED_F64["block_pivots"]
+    real = ps.solve_loop_blocked_sharded
+    first: list = []
+
+    def loop(*args, **kw):
+        if first:
+            return real(*args, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+        first.append((prof, out[2]))
+        return out
+
+    with tempfile.TemporaryDirectory() as td, \
+            pg.world(0, 1, "nccl", td) as group:
+        def run():
+            first.clear()
+            ps.solve_loop_blocked_sharded = loop
+            try:
+                timed_sharded(benchmark_problem(2048), group, BLOCKED_F64)
+            finally:
+                ps.solve_loop_blocked_sharded = real
+            return first[0]
+
+        prof, pivots = until_traced(run, "the sharded blocked window trace")
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+
+    def kind(e):
+        if "nccl" in e["name"] or "DtoD" in e["name"]:
+            return "copy/nccl"
+        return next((n for n in SLICE_GRAPH_KERNELS if n in e["name"]),
+                    e["name"][:40])
+
+    nodes = sorted((e for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy")),
+                   key=lambda e: e["ts"])
+    folds = [i for i, e in enumerate(nodes)
+             if kind(e) == "eta_fold_column_kernel"]
+    starts = [max(folds[i] - 2, 0) for i in range(0, len(folds), L)]
+    windows = [nodes[a:b] for a, b in zip(starts, starts[1:])]
+    require(len(windows) >= 3, f"the trace holds {len(windows)} whole "
+            "windows")
+
+    def busy(c):
+        total, end = 0.0, float("-inf")
+        for e in c:
+            lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+            if hi > lo:
+                total += hi - lo
+            end = max(end, hi)
+        return total
+
+    inside, period, kernels, copies = [], [], [], []
+    for i, c in enumerate(windows):
+        span = max(e["ts"] + e["dur"] for e in c) - c[0]["ts"]
+        inside.append(busy(c) / span)
+        period.append(busy(c) / (nodes[starts[i + 1]]["ts"] - c[0]["ts"]))
+        kernels.append(sum(kind(e) in SLICE_GRAPH_KERNELS for e in c) / L)
+        copies.append(sum(kind(e) == "copy/nccl" for e in c) / L)
+    require(all(k == 3.0 for k in kernels), f"{kernels} slice kernels a "
+            "pivot in the traced windows, not 3")
+    mid = windows[len(windows) // 2]
+    names = dict(collections.Counter(kind(e) for e in mid))
+    by_name: dict = collections.defaultdict(float)
+    for e in mid:
+        by_name[kind(e)] += e["dur"] / L
+    span = max(e["ts"] + e["dur"] for e in mid) - mid[0]["ts"]
+
+    def spread(x):
+        return min(x), statistics.median(x), max(x)
+
+    ins, per = spread(inside), spread(period)
+    log(f"sharded 1-rank f64 L={L} random_2048_2048 phase-1 loop traced "
+        f"({pivots} pivots, {len(windows)} whole windows): 3 slice kernels "
+        f"and {min(copies):.5f}-{max(copies):.5f} copy/NCCL nodes a pivot "
+        f"(the middle window: {names}); device busy inside a window "
+        f"{100 * ins[0]:.1f}-{100 * ins[2]:.1f}% (median {100 * ins[1]:.1f}"
+        f"%), over a window's period with the host read {100 * per[0]:.1f}-"
+        f"{100 * per[2]:.1f}% (median {100 * per[1]:.1f}%); the middle "
+        f"window's nodes {sum(by_name.values()):.2f} us a pivot ("
+        + ", ".join(f"{n} {us:.3f}" for n, us in by_name.items())
+        + f"), its span {span:.1f} us = {span / L:.2f} us a pivot; "
+        f"{nvidia_smi_line()}")
+
+
 def seq_sharded_rank(group, device, cases):
     """A spawned rank: the sequential kernels' launch counters set to 0
     just before ``solve_sharded`` of each (problem, options) in ``cases``
@@ -5913,6 +6495,7 @@ def main() -> int:
         phase_resumable(flagship_wall)
         northstar = phase_northstar()
         r2048 = phase_sharded_one_rank(sharded_launches, walks, northstar)
+        phase_blocked_sharded(launches)
         for name in ("ah", *SHARDED_STEPS, *SHARDED_SEQ_PATH[:2]):
             launches[name] = sharded_launches[name]
         phase_batch_spread()
@@ -5948,11 +6531,13 @@ def main() -> int:
         phase_seq_kernels(records)
         phase_sharded_seq_kernels(records)
         phase_eta_kernels(records)
+        phase_slice_kernels(records)
         phase_batch_trace()
         phase_window_trace()
         phase_chunk_trace()
         phase_blocked_trace()
         phase_sharded_seq_trace()
+        phase_blocked_sharded_trace()
         phase_sharded_trace()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -5967,7 +6552,7 @@ def main() -> int:
 
     tables = {**KERNELS, **PIVOT_KERNELS, **BATCH_KERNELS,
               **FALLBACK_KERNELS, **STEP_KERNELS, **SHARDED_STEP_KERNELS,
-              **SEQ_KERNELS, **ETA_KERNELS}
+              **SEQ_KERNELS, **ETA_KERNELS, **SLICE_KERNELS}
     kernels = []
     for name in ORDER:
         kid, replaces, source = tables[name]

@@ -197,6 +197,23 @@ SIGNATURES = {
     "eta_colk_launch": [_P] * 8 + [_I] * 5 + [_D, _P, ctypes.c_longlong, _P,
                                               ctypes.c_longlong, _I, _I, _I,
                                               _I, _I, _I, _I, _P],
+    # Tt C F ah M R L t offset, the gathered V I W, P kv, w wh, the
+    # scalars' pointers (by reference), max_iter eps pair, eta_ratio's
+    # rows a block and slab rows a round, stream
+    "eta_fold_column_launch": [_P] * 4 + [_I] * 5 + [_P, _P, _P, _I, _I, _P,
+                                                     _P, _P,
+                                                     ctypes.c_longlong, _D,
+                                                     _I, _I, _I, _P],
+    # b ah M eps, the workspace and its bytes, the scalars' pointers (by
+    # reference), pair, eta_ratio's rows a block, stream
+    "eta_ratio_summed_launch": [_P, _P, _I, _D, _P, ctypes.c_longlong, _P,
+                                _I, _I, _P],
+    # eta_colk_launch's operands without then_pre, then offset wh send_v
+    # send_i send_w, stream
+    "eta_colk_slice_launch": [_P] * 8 + [_I] * 5 + [_D, _P, ctypes.c_longlong,
+                                                    _P, ctypes.c_longlong,
+                                                    _I, _I, _I, _I, _I, _I,
+                                                    _I, _P, _P, _P, _P, _P],
 }
 
 

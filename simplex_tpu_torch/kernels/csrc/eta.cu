@@ -32,6 +32,32 @@
 //   but for the window's last pivot, the next pivot's step before
 //   (seq::post).
 //
+// The sharded plain blocked loop (parallel.sharded.solve_loop_blocked_
+// sharded, one CUDA graph a window with its NCCL collectives; the JAX loop
+// under shard_map, simplex_tpu/parallel/sharded.py:386-510, whose pivot is
+// XLA-fused glue too) runs the same pivot on each rank's slice of the
+// columns, as three kernels on the same plan (kernels/eta.py eta_plan for
+// the slice's R_loc), after the all_gathers of the candidates every rank
+// packed:
+//
+// * eta_fold_column (eta_ratio's grid): each block sends for its F slab,
+//   then its thread 0 folds the gathered candidates (slice_fold) and runs
+//   the step before (seq::pre, h global), block 0 storing the scalars and
+//   the weight at h; under devex, where the largest of every rank's
+//   weights passed 1e8, every block resets its share of the slice's
+//   weights to 1 (the re-anchor the pivot before left to this fold); then
+//   the rank that owns h writes the live column in eta_ratio's order and
+//   precision, every other rank zeros, which an all_reduce sums.
+// * eta_ratio_summed: eta_ratio's grid and fold on the summed column, no
+//   slab (SUMMED).
+// * eta_colk_slice: eta_colk on the slice (SLICE): the weight at h from
+//   the fold (h may lie on another rank), the leaving variable by its
+//   global column, base[k] = h global; the last block packs the slice's
+//   candidates into the send buffers as global indices, with, under
+//   devex, the weights at them read back past L1, the candidate on weights
+//   of 1 and the slice's largest weight, in place of the re-anchor and the
+//   next step before, which need every rank's.
+//
 // The devex re-anchor runs every pivot: when the largest new weight
 // passes 1e8 every weight becomes 1, and the next pivot's devex score
 // reads the weights after it. So each block folds two devex candidates,
@@ -369,7 +395,11 @@ struct WsB {
 // ---------------------------------------------------------------------------
 // eta_ratio: the live entering column, the ratio test and the step between.
 
-template <typename T, typename V, int NT, bool FIXED>
+// SUMMED (eta_ratio_summed, the sharded plain blocked loop's ratio test):
+// the column is the one the all_reduce summed into ``ah``, which each
+// owner thread reads; no slab, no h, no write of ah. Launched without
+// programmatic dependent launch (a collective precedes it).
+template <typename T, typename V, int NT, bool FIXED, bool SUMMED = false>
 __global__ void __launch_bounds__(NT) eta_ratio_kernel(
         const T *__restrict__ Tt, const T *__restrict__ C,
         const T *__restrict__ F, const V *__restrict__ b,
@@ -387,37 +417,52 @@ __global__ void __launch_bounds__(NT) eta_ratio_kernel(
     const int nrow = min(rows, M - j0);
     const int j = j0 + tid;                      // this thread's row
     const bool row = tid < nrow;
-    const int W = slab_width(rows, sizeof(T));
-    // The slab holds F's rows s < t - 1; the pivot before wrote F[t - 1],
-    // which each owner loads itself once that pivot is waited for.
-    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
-                                  stage, W, reinterpret_cast<T *>(dyn)};
-    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
+    T a = (T)0;
+    V bj = (V)0;
+    if constexpr (SUMMED) {
+        grid_wait();
+        grid_launch_next();
+        if (row) {
+            bj = b[j];
+            a = ah[j];
+        }
+    } else {
+        const int W = slab_width(rows, sizeof(T));
+        // The slab holds F's rows s < t - 1; the pivot before wrote
+        // F[t - 1], which each owner loads itself once that pivot is
+        // waited for.
+        const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
+                                      stage, W, reinterpret_cast<T *>(dyn)};
+        T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
 
-    // The block's F slab first (it does not depend on h), before the
-    // kernel before is waited for; then b, F[t - 1], h and what h selects.
-    slab.first();
-    grid_wait();
-    grid_launch_next();
-    const V bj = row ? b[j] : (V)0;
-    const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
-    const int h = min(*s.h, R - 1);
-    for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
-    const T th = row ? Tt[(size_t)j * R + h] : (T)0;
-    __syncthreads();                             // cs
+        // The block's F slab first (it does not depend on h), before the
+        // kernel before is waited for; then b, F[t - 1], h and what h
+        // selects.
+        slab.first();
+        grid_wait();
+        grid_launch_next();
+        bj = row ? b[j] : (V)0;
+        const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
+        const int h = min(*s.h, R - 1);
+        for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
+        const T th = row ? Tt[(size_t)j * R + h] : (T)0;
+        __syncthreads();                         // cs
 
-    // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
-    // in f64.
-    double acc = slab.sum(cs);
-    if (row && t > 0)
-        acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
+        // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
+        // in f64.
+        double acc = slab.sum(cs);
+        if (row && t > 0)
+            acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
+        if (row) {
+            a = (T)__dsub_rn((double)th, acc);
+            ah[j] = a;
+        }
+    }
 
     const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
     Ratio<T, V> x = none;
     bool any = false;
     if (row) {
-        const T a = (T)__dsub_rn((double)th, acc);
-        ah[j] = a;
         any = a >= (T)eps;
         x = Ratio<T, V>{any ? div_rn(bj, (V)a) : inf<V>(), j, a, bj};
     }
@@ -525,14 +570,35 @@ __device__ __forceinline__ RowCands<V> shfl_xor(const RowCands<V> &x,
                        __shfl_xor_sync(FULL, x.wmax, off)};
 }
 
-template <typename T, typename V, int NT, bool FIXED>
+// What the slice's form (SLICE: eta_colk_slice, the sharded plain blocked
+// loop's pass on a rank's slice of R = R_loc columns from global column
+// ``offset``) takes beside eta_colk's operands: the weight at the global h
+// (eta_fold_column's, from the candidates' riders: the column h may lie on
+// another rank), and the candidates' send buffers (SLICE_KV and SLICE_KI
+// entries; ``send_w`` the slice's largest weight, devex only).
+template <typename V>
+struct SliceOut {
+    int offset;
+    const V *wh;
+    double *send_v;
+    int *send_i;
+    double *send_w;
+};
+
+// The send buffers' entries under devex (kernels/eta.py pack_slice): values
+// [v_d, v_b, w[h_d], w[h_b], key, v_d1, key1] and global indices [h_d, h_b,
+// h_d1], the last of each on weights of 1 (the re-anchor's); Dantzig and
+// Bland [v_d, v_b] and [h_d, h_b].
+constexpr int SLICE_KV = 7, SLICE_KI = 3;
+
+template <typename T, typename V, int NT, bool FIXED, bool SLICE = false>
 __global__ void __launch_bounds__(NT) eta_colk_kernel(
         const T *__restrict__ Tt, T *__restrict__ C, T *__restrict__ F,
         V *__restrict__ costs, V *__restrict__ b, int *__restrict__ base,
         V *__restrict__ w, const T *__restrict__ ah, int M, int R, int r,
         int t, int cols, int stage, int nbA, int nbB,
         unsigned char *__restrict__ ws_bytes, SeqStep<T, V> s,
-        seq::Policy pol) {
+        seq::Policy pol, SliceOut<V> so) {
     constexpr int NW = NT / 32;
     const int tid = threadIdx.x;
     if ((int)blockIdx.x >= nbB) {
@@ -597,8 +663,9 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
     V wh = (V)0;
     int lvar = -1;
     if (devex && d) {                            // before the last block's
-        wh = w[h];                               // stores
+        wh = SLICE ? *so.wh : w[h];              // stores
         lvar = base[k];
+        if (SLICE) lvar -= so.offset;            // the slice's column, if any
     }
 
     // colk[i] = Tt[k, i] - sum_{s<t} F[s, k] C[s, i], s in order from 0,
@@ -625,13 +692,13 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
                     w2 = max_nan(div_rn(wh, (V)mul_rn(p, p)), (V)1);
                 w2 = min_nan(w2, (V)1e12);
                 if (w2 != w2) w2 = (V)1;
-                if (i == h)
+                if (!SLICE && i == h)
                     *ws.wh = (double)w2;         // the last block stores it
                 else
                     w[i] = w2;
                 wi = w2;
-                x.wmax = w2;
             }
+            x.wmax = wi;
             const V c2 = mul_rn(cm, cm);
             x.key = elig ? div_rn(c2, wi) : -inf<V>();
             x.key1 = elig ? c2 : -inf<V>();
@@ -680,6 +747,32 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
                 (V)__ldcg(ws.bval + q), __ldcg(ws.bidx + q),
                 (V)__ldcg(ws.wmax + q)});
     block_fold<NW>(x, unused, none, warps, wany);
+    if (SLICE) {
+        // The slice's candidates into the send buffers as global indices,
+        // the weights at them (read past L1: every column block stored its
+        // weights before its ticket), and the slice's largest weight; no
+        // re-anchor (the next eta_fold_column decides it on the largest of
+        // every rank's) and no next step before (it needs the fold).
+        if (tid != 0) return;
+        const bool has = x.bidx != BIG_INDEX;
+        so.send_v[0] = (double)x.val;
+        so.send_v[1] = has ? (double)x.bval : (double)CUDART_INF;
+        so.send_i[0] = so.offset + x.idx;
+        so.send_i[1] = has ? so.offset + x.bidx : BIG_INDEX;
+        if (devex) {
+            so.send_v[2] = (double)__ldcg(w + x.idx);
+            so.send_v[3] = has ? (double)__ldcg(w + x.bidx) : 1.0;
+            so.send_v[4] = (double)x.key;
+            so.send_v[5] = (double)x.val1;
+            so.send_v[6] = (double)x.key1;
+            so.send_i[2] = so.offset + x.idx1;
+            *so.send_w = (double)x.wmax;
+        }
+        if (d) base[k] = h_raw;                  // h global
+        *ws.counter = 0;                         // ready for the next call
+        seq::post(s, in, d, seq::Candidates<V>{}, pol);
+        return;
+    }
     if (tid == 0) {
         const bool re = devex && d && x.wmax > (V)1e8;   // the re-anchor
         anchor = re;
@@ -705,6 +798,145 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// eta_fold_column: the sharded plain blocked loop's first kernel a pivot.
+// Its head, in each block's thread 0: the fold of the candidates every rank
+// packed (slice_fold), then the step before the ratio test (seq::pre;
+// h global), which block 0 stores with the folded candidates and the weight
+// at h; under devex, when the largest of every rank's weights passed 1e8,
+// every block resets its share of the slice's weights to 1 (the re-anchor
+// the pivot before left to the fold). Then the rank that owns h writes the
+// live column Tt[:, hl] - sum_{s<t} C[s, hl] F[s] into ah (hl = h -
+// offset), in eta_ratio's order and precision, the F slab sent for before
+// h is known; every other rank writes zeros (+0.0, as torch.where writes
+// them), which the all_reduce after it sums away.
+
+// The folded candidates: the main one (h_d, v_d, its weight w_d) and the
+// Bland one (h_b, v_b, w_b), the weights 1 without devex or on a
+// re-anchor; and whether the re-anchor resets the weights.
+struct SliceFold {
+    int h_d, h_b;
+    double v_d, v_b, w_d, w_b;
+    bool reset;
+};
+
+// The fold of V (P, kv) f64 and I (P, ki) int32 (pack_slice's layout;
+// kv = SLICE_KV under devex, else 2) and, under devex, Wg (P,) the ranks'
+// largest weights: reset when their largest passes 1e8 (a NaN anywhere
+// resets nothing, as torch's max propagates it); the main candidate from
+// the first rank with the largest key (the devex key on the new weights,
+// or on weights of 1 where reset; else -v_d; a NaN key anywhere: rank 0),
+// the Bland one from the first rank with the lowest global index
+// (parallel/sharded.py fold_candidates).
+__device__ __forceinline__ SliceFold slice_fold(const double *__restrict__ V,
+                                                const int *__restrict__ I,
+                                                const double *__restrict__ Wg,
+                                                int P, int kv) {
+    const bool devex = kv == SLICE_KV;
+    const int ki = devex ? SLICE_KI : 2;
+    bool reset = false;
+    if (devex) {
+        double mx = Wg[0];
+        bool nan = mx != mx;
+        for (int q = 1; q < P; ++q) {
+            const double x = Wg[q];
+            nan |= x != x;
+            if (x > mx) mx = x;
+        }
+        reset = !nan && mx > 1e8;
+    }
+    const bool ride = devex && !reset;           // the weights ride along
+    const int cv = reset ? 5 : 0, ck = reset ? 6 : 4, ci = reset ? 2 : 0;
+    SliceFold f{};
+    double mx = 0.0;
+    bool nan = false;
+    for (int q = 0; q < P; ++q) {
+        const double *v = V + (size_t)q * kv;
+        const int *ix = I + (size_t)q * ki;
+        const double key = devex ? v[ck] : -v[0];
+        nan |= key != key;
+        if (q == 0 || key > mx) {
+            mx = key;
+            f.h_d = ix[ci];
+            f.v_d = v[cv];
+            f.w_d = ride ? v[2] : 1.0;
+        }
+        if (q == 0 || ix[1] < f.h_b) {
+            f.h_b = ix[1];
+            f.v_b = v[1];
+            f.w_b = ride ? v[3] : 1.0;
+        }
+    }
+    if (nan) {                                   // the max is NaN: rank 0
+        f.h_d = I[ci];
+        f.v_d = V[cv];
+        f.w_d = ride ? V[2] : 1.0;
+    }
+    f.reset = reset;
+    return f;
+}
+
+template <typename T, typename V, int NT, bool FIXED>
+__global__ void __launch_bounds__(NT) eta_fold_column_kernel(
+        const T *__restrict__ Tt, const T *__restrict__ C,
+        const T *__restrict__ F, T *__restrict__ ah, int M, int R, int t,
+        int rows, int stage, int offset, const double *__restrict__ Vg,
+        const int *__restrict__ Ig, const double *__restrict__ Wg, int P,
+        int kv, V *__restrict__ w, V *__restrict__ wh, SeqStep<T, V> s,
+        long long max_iter, double eps) {
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int col;                          // h's local column, or -1
+    __shared__ bool reset;
+    const int tid = threadIdx.x;
+    const int j0 = blockIdx.x * rows;
+    const int nrow = min(rows, M - j0);
+    const int j = j0 + tid;                      // this thread's row
+    const bool row = tid < nrow;
+    const int W = slab_width(rows, sizeof(T));
+    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, t, stage, W,
+                                  reinterpret_cast<T *>(dyn)};
+    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, hl]
+
+    // The block's F slab first (it does not depend on h), then the fold.
+    slab.first();
+    if (tid == 0) {
+        const int status = *s.status, iterations = *s.iterations;
+        const bool bland = *s.bland != 0;
+        const SliceFold f = slice_fold(Vg, Ig, Wg, P, kv);
+        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+        const bool use_b = bland && c.h_b < BIG_INDEX;
+        const long long loc = (long long)(use_b ? c.h_b : c.h_d) - offset;
+        col = loc >= 0 && loc < R ? (int)loc : -1;
+        reset = f.reset;
+        if (blockIdx.x == 0) {
+            *s.h_d = c.h_d;
+            *s.v_d = c.v_d;
+            *s.h_b = c.h_b;
+            *s.v_b = c.v_b;
+            seq::pre(s, status, iterations, bland, c, max_iter, eps);
+            if (wh != nullptr) *wh = (V)(use_b ? f.w_b : f.w_d);
+        }
+    }
+    __syncthreads();
+    if (w != nullptr && reset)
+        for (int q = blockIdx.x * NT + tid; q < R; q += gridDim.x * NT)
+            w[q] = (V)1;
+    const int hl = col;
+    if (hl < 0) {                                // another rank's column
+        cp_async_wait<0>();
+        if (row) ah[j] = (T)0;
+        return;
+    }
+    for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + hl];
+    const T th = row ? Tt[(size_t)j * R + hl] : (T)0;
+    __syncthreads();                             // cs
+
+    // a_h[j] = Tt[j, hl] - sum_{s<t} C[s, hl] F[s, j], s in order from 0,
+    // in f64 (eta_ratio's sum: the same products in the same order).
+    const double acc = slab.sum(cs);
+    if (row) ah[j] = (T)__dsub_rn((double)th, acc);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -714,24 +946,33 @@ bool width_ok(int width, int nt) {
     return width >= 4 && width <= nt && width % 4 == 0;
 }
 
-// The checks both launches make: the shape, t, the grid and the
-// workspace it needs, a stage of at least one row whose two rounds fit
-// beside the window's coefficients; then the block's dynamic shared memory
-// (-1: refused).
+// The checks of a launch with a slab: the shape, t, the block's width, a
+// stage of at least one row whose two rounds fit beside the window's
+// coefficients; then the block's dynamic shared memory (-1: refused).
 template <typename T>
-long long prepare(int M, int R, int L, int t, int width, int nt, int rows,
-                  int cols, int stage, long long ws_len) {
+long long slab_smem(int M, int R, int L, int t, int width, int nt,
+                    int stage) {
     if (M < 1 || R < 1 || t < 0 || t >= L || !width_ok(width, nt) ||
-        rows < 1 || cols < 1 || stage < 1)
+        stage < 1)
         return -1;
-    if (ws_len < (long long)ws_bytes(cdiv(M, rows), cdiv(R, cols)))
-        return -1;                               // workspace too small
     const int item = sizeof(T);
     if (2LL * stage * slab_width(width, item) * item +
                 round16((long long)L * item) >
         BLOCK_SMEM - SMEM_RESERVE)
         return -1;                               // the stage does not fit
     return smem_bytes(width, stage, t, item);
+}
+
+// The checks both eta kernels make: slab_smem's, and the grid and the
+// workspace it needs.
+template <typename T>
+long long prepare(int M, int R, int L, int t, int width, int nt, int rows,
+                  int cols, int stage, long long ws_len) {
+    if (rows < 1 || cols < 1) return -1;
+    if (M >= 1 && R >= 1 &&
+        ws_len < (long long)ws_bytes(cdiv(M, rows), cdiv(R, cols)))
+        return -1;                               // workspace too small
+    return slab_smem<T>(M, R, L, t, width, nt, stage);
 }
 
 // Let kernel K take ``smem`` bytes of dynamic shared memory: past 48 KB,
@@ -792,13 +1033,14 @@ int ratio_run(const void *Tt, const void *C, const void *F, const void *b,
                   eps, rows, stage, nbA, ws, step_of<T, V>(step));
 }
 
-template <typename T, typename V, int NT, bool FIXED = true>
+template <typename T, typename V, int NT, bool FIXED = true,
+          bool SLICE = false>
 int colk_run(const void *Tt, void *C, void *F, void *costs, void *b,
              int *base, void *w, const void *ah, int M, int R, int L, int r,
              int t, unsigned char *ws, long long ws_len, const void *step,
              const seq::Policy &pol, int rows, int cols, int stage, bool pdl,
-             cudaStream_t st) {
-    constexpr auto kernel = eta_colk_kernel<T, V, NT, FIXED>;
+             cudaStream_t st, const SliceOut<V> &so = SliceOut<V>{}) {
+    constexpr auto kernel = eta_colk_kernel<T, V, NT, FIXED, SLICE>;
     const long long smem = prepare<T>(M, R, L, t, cols, NT, rows, cols,
                                       stage, ws_len);
     if (smem < 0 || !allow_smem<kernel>(smem))
@@ -809,23 +1051,92 @@ int colk_run(const void *Tt, void *C, void *F, void *costs, void *b,
                   static_cast<T *>(F), static_cast<V *>(costs),
                   static_cast<V *>(b), base, static_cast<V *>(w),
                   static_cast<const T *>(ah), M, R, r, t, cols, stage,
-                  nbA, nbB, ws, step_of<T, V>(step), pol);
+                  nbA, nbB, ws, step_of<T, V>(step), pol, so);
 }
 
-// eta_colk with COLK_THREADS threads a block, or 256 for 256 columns.
-template <typename T, typename V>
+// eta_colk (or with SLICE its slice's form) with COLK_THREADS threads a
+// block, or 256 for 256 columns.
+template <typename T, typename V, bool SLICE = false>
 int colk_any(const void *Tt, void *C, void *F, void *costs, void *b,
              int *base, void *w, const void *ah, int M, int R, int L, int r,
              int t, unsigned char *ws, long long ws_len, const void *step,
              const seq::Policy &pol, int rows, int cols, int stage,
-             cudaStream_t st) {
+             cudaStream_t st, const SliceOut<V> &so = SliceOut<V>{}) {
     if (cols > COLK_THREADS)
-        return colk_run<T, V, 2 * COLK_THREADS>(
+        return colk_run<T, V, 2 * COLK_THREADS, true, SLICE>(
                 Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
-                step, pol, rows, cols, stage, true, st);
-    return colk_run<T, V, COLK_THREADS>(Tt, C, F, costs, b, base, w, ah, M,
-                                        R, L, r, t, ws, ws_len, step, pol,
-                                        rows, cols, stage, true, st);
+                step, pol, rows, cols, stage, true, st, so);
+    return colk_run<T, V, COLK_THREADS, true, SLICE>(
+            Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len, step,
+            pol, rows, cols, stage, true, st, so);
+}
+
+// The slice's eta_colk: its send buffers given, and under devex (w given)
+// the weight at h and the send buffer of the largest weight; no next step
+// before (it needs the fold).
+template <typename T, typename V>
+int colk_slice_any(const void *Tt, void *C, void *F, void *costs, void *b,
+                   int *base, void *w, const void *ah, int M, int R, int L,
+                   int r, int t, unsigned char *ws, long long ws_len,
+                   const void *step, const seq::Policy &pol, int rows,
+                   int cols, int stage, int offset, const void *wh,
+                   double *send_v, int *send_i, double *send_w,
+                   cudaStream_t st) {
+    const bool devex = w != nullptr;
+    if (pol.then_pre || send_v == nullptr || send_i == nullptr ||
+        devex != (wh != nullptr) || devex != (send_w != nullptr))
+        return (int)cudaErrorInvalidValue;
+    const SliceOut<V> so{offset, static_cast<const V *>(wh), send_v, send_i,
+                         send_w};
+    return colk_any<T, V, true>(Tt, C, F, costs, b, base, w, ah, M, R, L, r,
+                                t, ws, ws_len, step, pol, rows, cols, stage,
+                                st, so);
+}
+
+// The sharded loop's ratio test on the summed column: eta_ratio's grid of
+// ``rows`` rows a block and its fold, no slab; launched without
+// programmatic dependent launch.
+template <typename T, typename V>
+int ratio_summed_run(const void *b, void *ah, int M, double eps,
+                     unsigned char *ws, long long ws_len, const void *step,
+                     int rows, cudaStream_t st) {
+    if (M < 1 || !width_ok(rows, RATIO_THREADS))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows);
+    if (ws_len < (long long)ws_bytes(nbA, 0))
+        return (int)cudaErrorInvalidValue;
+    return launch(eta_ratio_kernel<T, V, RATIO_THREADS, true, true>, nbA,
+                  RATIO_THREADS, 0, false, st, static_cast<const T *>(nullptr),
+                  static_cast<const T *>(nullptr),
+                  static_cast<const T *>(nullptr), static_cast<const V *>(b),
+                  static_cast<T *>(ah), M, 1, 0, eps, rows, 1, nbA, ws,
+                  step_of<T, V>(step));
+}
+
+// eta_fold_column on eta_ratio's plan (rows a block, slab rows a round);
+// under devex (kv == SLICE_KV) the ranks' largest weights, the slice's
+// weights and the weight at h given, else none of them. Launched without
+// programmatic dependent launch (collectives precede it).
+template <typename T, typename V>
+int fold_column_run(const void *Tt, const void *C, const void *F, void *ah,
+                    int M, int R, int L, int t, int offset, const double *Vg,
+                    const int *Ig, const double *Wg, int P, int kv, void *w,
+                    void *wh, const void *step, long long max_iter,
+                    double eps, int rows, int stage, cudaStream_t st) {
+    constexpr auto kernel = eta_fold_column_kernel<T, V, RATIO_THREADS, true>;
+    const bool devex = kv == SLICE_KV;
+    const long long smem = slab_smem<T>(M, R, L, t, rows, RATIO_THREADS,
+                                        stage);
+    if (P < 1 || (kv != 2 && !devex) || Vg == nullptr || Ig == nullptr ||
+        devex != (Wg != nullptr) || devex != (w != nullptr) ||
+        devex != (wh != nullptr) || smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    return launch(kernel, cdiv(M, rows), RATIO_THREADS, smem, false, st,
+                  static_cast<const T *>(Tt), static_cast<const T *>(C),
+                  static_cast<const T *>(F), static_cast<T *>(ah), M, R, t,
+                  rows, stage, offset, Vg, Ig, Wg, P, kv,
+                  static_cast<V *>(w), static_cast<V *>(wh),
+                  step_of<T, V>(step), max_iter, eps);
 }
 
 }  // namespace
@@ -893,6 +1204,94 @@ int eta_colk_launch(const void *Tt, void *C, void *F, void *costs, void *b,
         return colk_any<float, float>(Tt, C, F, costs, b, base, w, ah, M, R,
                                       L, r, t, ws, ws_len, step, pol, rows,
                                       cols, stage, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The sharded plain blocked loop's kernels on a rank's slice Tt (M, R) from
+// global column ``offset`` (C (L, R), F (L, M), ah (M,) of the tableau's
+// dtype). eta_fold_column: V (P, kv) f64 and I (P, kv == 7 ? 3 : 2) int32
+// the gathered candidates; under devex (kv 7) W (P,) f64 the ranks'
+// largest weights, w (R,) the slice's weights and wh the weight at h, of
+// the vectors' dtype (all null without devex); ``rows`` and ``stage``
+// eta_ratio's plan.
+int eta_fold_column_launch(const void *Tt, const void *C, const void *F,
+                           void *ah, int M, int R, int L, int t, int offset,
+                           const double *V, const int *I, const double *W,
+                           int P, int kv, void *w, void *wh,
+                           const void *step, long long max_iter, double eps,
+                           int pair, int rows, int stage, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return fold_column_run<double, double>(Tt, C, F, ah, M, R, L, t,
+                                               offset, V, I, W, P, kv, w, wh,
+                                               step, max_iter, eps, rows,
+                                               stage, st);
+    case PAIR_MIXED:
+        return fold_column_run<float, double>(Tt, C, F, ah, M, R, L, t,
+                                              offset, V, I, W, P, kv, w, wh,
+                                              step, max_iter, eps, rows,
+                                              stage, st);
+    case PAIR_F32:
+        return fold_column_run<float, float>(Tt, C, F, ah, M, R, L, t, offset,
+                                             V, I, W, P, kv, w, wh, step,
+                                             max_iter, eps, rows, stage, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The ratio test on the summed column ah (M,) of the tableau's dtype, b
+// (M,) of the vectors'; ``rows`` eta_ratio's plan, ws an eta_workspace.
+int eta_ratio_summed_launch(const void *b, void *ah, int M, double eps,
+                            unsigned char *ws, long long ws_len,
+                            const void *step, int pair, int rows,
+                            void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return ratio_summed_run<double, double>(b, ah, M, eps, ws, ws_len,
+                                                step, rows, st);
+    case PAIR_MIXED:
+        return ratio_summed_run<float, double>(b, ah, M, eps, ws, ws_len,
+                                               step, rows, st);
+    case PAIR_F32:
+        return ratio_summed_run<float, float>(b, ah, M, eps, ws, ws_len, step,
+                                              rows, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// eta_colk on the slice: eta_colk_launch's operands (no then_pre), then
+// the offset, the weight at h (devex), and the send buffers: send_v (kv,)
+// f64, send_i (ki,) int32, send_w (1,) f64 (devex, else null).
+int eta_colk_slice_launch(const void *Tt, void *C, void *F, void *costs,
+                          void *b, int *base, void *w, const void *ah, int M,
+                          int R, int L, int r, int t, double eps,
+                          unsigned char *ws, long long ws_len,
+                          const void *step, long long max_iter,
+                          int bland_mode, int threshold, int pair, int rows,
+                          int cols, int stage, int offset, const void *wh,
+                          double *send_v, int *send_i, double *send_w,
+                          void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const seq::Policy pol{max_iter, eps, bland_mode, threshold, 0};
+    switch (pair) {
+    case PAIR_F64:
+        return colk_slice_any<double, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
+    case PAIR_MIXED:
+        return colk_slice_any<float, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
+    case PAIR_F32:
+        return colk_slice_any<float, float>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -57,6 +57,9 @@ from ..kernels.blocked import (BIG_INDEX, ShardedScalars,
                                exit_status, sharded_fold, sharded_pack,
                                sharded_ratio, sharded_scalars,
                                sharded_step_pre)
+from ..kernels.eta import (SLICE_LAUNCHES, SLICE_PACK, eta_colk_slice,
+                           eta_fold_column, eta_ratio_summed, eta_workspace,
+                           pack_slice)
 from ..kernels.pivot import LAUNCHES as PIVOT_LAUNCHES
 from ..kernels.seq import LAUNCHES as SEQ_LAUNCHES
 from ..kernels.seq import (SeqScalars, pack_candidates, seq_fold_column,
@@ -64,7 +67,7 @@ from ..kernels.seq import (SeqScalars, pack_candidates, seq_fold_column,
 from ..problem import Problem
 from ..result import SolveResult
 from ..solver import (OPTIMAL, RUNNING, SEQ_CHUNK, LoopState, _at, _capture,
-                      pivot_update, ratio_test)
+                      _check_apply, pivot_update, ratio_test)
 from ..tableau import (Tableau, count_basic_artificials, extract_solution,
                        phase1_objective, round_up, tt_matvec)
 from ..two_phase import DeviceSolveOutput, certify, resolve_device
@@ -477,92 +480,366 @@ def reanchor(w, shard: Shard):
     return torch.where(reset, 1.0, w), reset
 
 
-def solve_loop_blocked_sharded(tab: Tableau, shard: Shard,
-                               options: SolverOptions, max_iter: int,
-                               costs0: torch.Tensor | None = None):
-    """Sharded deferred block pivoting in plain torch
-    (``solve_loop_blocked_sharded``, ``sharded.py:386-510``; the port's
-    ``solver.solve_loop_blocked`` on the local slice): the stale slice
-    and the eta columns ``C (L, R_loc)`` are local, the eta rows ``F`` and
-    the vectors replicated. Per pivot the entering fold and the live
-    column ``Tt[:, h] - C[:t, h] @ F[:t]`` from its owner (plus the
-    devex re-anchor's max); per window the local apply and, with
-    ``costs0`` and an f32 tableau, the exact re-pricing."""
+def blocked_sharded_reference_pivot(Tt, C, F, t: int, x: dict,
+                                    shard: Shard, r: int,
+                                    options: SolverOptions, max_iter: int,
+                                    live=None) -> dict:
+    """Pivot t of the plain blocked sharded loop as it ran before its
+    window's graph (``solve_loop_blocked_sharded``'s body,
+    ``sharded.py:411-466``; about 30 torch calls on new tensors and three
+    allocating collectives, four under devex): the entering fold
+    (``entering_sharded``), the live column from its owner (one
+    ``all_reduce``), the replicated ratio test, the live row on the slice,
+    and under devex the weights' update and re-anchor on the global max
+    (``reanchor``, one ``all_gather``); from the carry ``x`` -- b, costs,
+    z, base, w (the devex weights, else None), status, iterations, stall,
+    bland -- to the next one; ``C[t]`` and ``F[t]`` are written in place.
+    ``live(head, coef, rows, t)``, when given, forms the live column and
+    row ``head - sum_{s<t} coef[s] rows[s]`` in place of ``head -
+    coef[:t] @ rows[:t]`` (the tests pass ``kernels.eta.eta_live``, the
+    kernels' order and precision)."""
     eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    devex = options.pivot_rule_resolved == "devex"
-    threshold = options.bland_threshold
+    M, R_loc = Tt.shape
+    vd = x["costs"].dtype
+    b, costs, z, base, w = (x[n] for n in ("b", "costs", "z", "base", "w"))
+    if live is None:
+        def live(head, coef, rows, t):
+            return head - coef[:t] @ rows[:t] if t else head
+    active = (x["status"] == RUNNING) & (x["iterations"] < max_iter)
+    h, minc, wh = entering_sharded(costs, x["bland"], r, eps, shard, w)
+    optimal = minc > -eps
+    loc, own = _owned(h, shard)
+    hl = loc.view(1)
+    a_h = all_reduce(torch.where(own, live(
+        Tt.index_select(1, hl).view(M), C.index_select(1, hl).view(-1), F,
+        t), 0.0), shard.group)
+    mask = a_h >= eps
+    unbounded = ~mask.any()
+    k = torch.argmin(torch.where(
+        mask, b / torch.where(mask, a_h, 1.0), torch.inf))
+    do = active & ~(optimal | unbounded)
+    p = torch.where(do, _at(a_h, k), 1.0)
+    kl = k.view(1)
+    colk = live(Tt.index_select(0, kl).view(R_loc),
+                F.index_select(1, kl).view(-1), C, t)
+    bk = _at(b, k)
+    u = minc / p.to(vd)
+    z2 = torch.where(do, z - u * bk, z)
+    is_k = torch.arange(M, device=Tt.device) == k
+    if w is not None:
+        w, _ = reanchor(devex_update_sharded(
+            w, do, colk, p, wh, _at(base, k), shard), shard)
+    C[t] = torch.where(do, colk, 0.0)
+    F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p, a_h / p), 0.0)
+    stall, bland = anticycling_update(
+        do, (z2 - z).abs() >= eps, x["stall"], x["bland"],
+        bland_static=options.pivot_rule_resolved == "bland",
+        threshold=options.bland_threshold)
+    return dict(
+        b=torch.where(do, torch.where(is_k, bk / p.to(vd),
+                                      b - bk * (a_h / p).to(vd)), b),
+        costs=torch.where(do, costs - u * colk.to(vd), costs), z=z2,
+        base=torch.where(do & is_k, h, base), w=w,
+        status=exit_status(active, optimal, unbounded, x["status"]),
+        iterations=x["iterations"] + do.to(torch.int32), stall=stall,
+        bland=bland)
+
+
+def blocked_sharded_reference_windows(tab: Tableau, shard: Shard,
+                                      options: SolverOptions, max_iter: int,
+                                      costs0: torch.Tensor | None = None,
+                                      live=None):
+    """The plain blocked sharded loop as it ran before its window's graph
+    (``sharded.py:386-510``; the port's ``solver.blocked_reference_
+    windows`` on the local slice): ``blocked_sharded_reference_pivot`` L
+    times, the local apply ``Tt.addmm_`` and, with ``costs0`` on an f32
+    tableau, the exact re-pricing (one ``all_reduce`` of the basic costs)
+    and the reopening of a premature OPTIMAL (one ``all_gather`` of the
+    slices' minima); one host read of status and iterations a window. A
+    generator: after each window it yields the carry; ``Tt`` is updated in
+    place. The reference that the tests and ``chip_smoke.py`` hold
+    ``solve_loop_blocked_sharded`` to."""
+    eps = float(options.eps_resolved)
     L = int(options.block_pivots or 1)
     Tt = tab.Tt
     M, R_loc = Tt.shape
     dev = Tt.device
-    dtype, vd = Tt.dtype, tab.costs.dtype
-    if dtype == torch.float64:
+    if Tt.dtype == torch.float64:
         costs0 = None
-    elif dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError("the f32 window apply needs IEEE products: set "
-                         "torch.backends.cuda.matmul.allow_tf32 = False")
-    iota_m = torch.arange(M, device=dev)
+    _check_apply(Tt)
     row_mask = shard.row_mask(tab.r, dev)
-
-    b, costs, z, base = tab.b, tab.costs, tab.z, tab.base
-    w = torch.ones(R_loc, dtype=vd, device=dev) if devex else None
-    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    bland = torch.tensor(bland_static, device=dev)
-    C = torch.zeros((L, R_loc), dtype=dtype, device=dev)
-    F = torch.zeros((L, M), dtype=dtype, device=dev)
+    devex = options.pivot_rule_resolved == "devex"
+    x = dict(b=tab.b, costs=tab.costs, z=tab.z, base=tab.base,
+             w=torch.ones(R_loc, dtype=tab.costs.dtype, device=dev)
+             if devex else None,
+             status=torch.tensor(RUNNING, dtype=torch.int32, device=dev),
+             iterations=torch.zeros((), dtype=torch.int32, device=dev),
+             stall=torch.zeros((), dtype=torch.int32, device=dev),
+             bland=torch.tensor(options.pivot_rule_resolved == "bland",
+                                device=dev))
+    C = torch.zeros((L, R_loc), dtype=Tt.dtype, device=dev)
+    F = torch.zeros((L, M), dtype=Tt.dtype, device=dev)
 
     st, it = RUNNING, 0
     while st == RUNNING and it < max_iter:
         for t in range(L):
-            active = (status == RUNNING) & (iterations < max_iter)
-            h, minc, wh = entering_sharded(costs, bland, tab.r, eps, shard,
-                                           w)
-            optimal = minc > -eps
-            a_h = gather_column(Tt, h, shard, C, F, t)
-            mask = a_h >= eps
-            unbounded = ~mask.any()
-            k = torch.argmin(torch.where(
-                mask, b / torch.where(mask, a_h, 1.0), torch.inf))
-            do = active & ~(optimal | unbounded)
-            p = torch.where(do, _at(a_h, k), 1.0)
-            kl = k.view(1)
-            colk = Tt.index_select(0, kl).view(R_loc)
-            if t:
-                colk = colk - F[:t].index_select(1, kl).view(t) @ C[:t]
-            bk = _at(b, k)
-            u = minc / p.to(vd)
-            costs2 = torch.where(do, costs - u * colk.to(vd), costs)
-            z2 = torch.where(do, z - u * bk, z)
-            is_k = iota_m == k
-            b = torch.where(do, torch.where(is_k, bk / p.to(vd),
-                                            b - bk * (a_h / p).to(vd)), b)
-            if devex:
-                w, _ = reanchor(devex_update_sharded(
-                    w, do, colk, p, wh, _at(base, k), shard), shard)
-            base = torch.where(do & is_k, h, base)
-            C[t] = torch.where(do, colk, 0.0)
-            F[t] = torch.where(do, torch.where(is_k, 1.0 - 1.0 / p,
-                                               a_h / p), 0.0)
-            status = exit_status(active, optimal, unbounded, status)
-            stall, bland = anticycling_update(
-                do, (z2 - z).abs() >= eps, stall, bland,
-                bland_static=bland_static, threshold=threshold)
-            iterations = iterations + do.to(torch.int32)
-            costs, z = costs2, z2
+            x = blocked_sharded_reference_pivot(Tt, C, F, t, x, shard, tab.r,
+                                                options, max_iter, live)
         Tt.addmm_(F.t(), C, alpha=-1.0)
         if costs0 is not None:
-            costs = costs0 - tt_matvec(Tt, gather_basic_coeffs(
-                base, costs0, tab.r, shard))
-            vmin = global_min(torch.where(row_mask, costs, torch.inf).min(),
-                              shard)
-            status = torch.where((status == OPTIMAL) & (vmin <= -eps),
-                                 RUNNING, status).to(torch.int32)
-        st, it = (int(v) for v in torch.stack([status, iterations]).tolist())
+            x["costs"] = costs0 - tt_matvec(Tt, gather_basic_coeffs(
+                x["base"], costs0, tab.r, shard))
+            vmin = global_min(torch.where(row_mask, x["costs"],
+                                          torch.inf).min(), shard)
+            x["status"] = torch.where(
+                (x["status"] == OPTIMAL) & (vmin <= -eps), RUNNING,
+                x["status"]).to(torch.int32)
+        st, it = (int(v) for v in
+                  torch.stack([x["status"], x["iterations"]]).tolist())
+        yield x
 
-    out = dataclasses.replace(tab, b=b, costs=costs, z=z, base=base)
+
+def solve_loop_blocked_sharded_reference(tab: Tableau, shard: Shard,
+                                         options: SolverOptions,
+                                         max_iter: int,
+                                         costs0: torch.Tensor | None = None,
+                                         live=None):
+    """``blocked_sharded_reference_windows`` run to its end: (tableau,
+    status, iterations), as ``solve_loop_blocked_sharded`` returns them."""
+    for x in blocked_sharded_reference_windows(tab, shard, options,
+                                               max_iter, costs0, live):
+        pass
+    out = dataclasses.replace(tab, b=x["b"], costs=x["costs"], z=x["z"],
+                              base=x["base"])
+    return out, int(x["status"]), int(x["iterations"])
+
+
+@dataclasses.dataclass
+class ShardedBlockedLoop:
+    """The plain blocked sharded loop's state on one rank
+    (``solver.BlockedLoop`` on a slice): a fixed set of tensors, each only
+    ever updated in place, since a CUDA graph of the window bakes in every
+    pointer it reads -- its collectives' buffers included. ``Tt`` is the
+    caller's slice; ``C (L, R_loc)`` and ``F (L, M)`` the window's eta
+    factors and ``ah`` the entering column (T); b, the slice's costs and
+    base the loop's own copies, ``w`` the slice's devex weights (V; None
+    under the other rules); ``ws`` the kernels' workspace; ``send_v``,
+    ``send_i`` and ``recv_v``, ``recv_i`` the candidates' ``all_gather``
+    buffers (``kernels.eta.SLICE_PACK`` entries, and P rows of them);
+    under devex ``send_w``, ``recv_w`` the re-anchor's (the slice's largest
+    weight, every rank's) and ``wh`` the weight at h; where the window
+    ends in the exact re-pricing (an f32 tableau with ``costs0``) the
+    slice's ``costs0``, ``coef`` the basic costs' ``all_reduce`` buffer and
+    ``send_min``, ``recv_min`` the premature-optimal minimum's, else None;
+    ``s`` the scalars (h
+    global); ``shard`` the rank's slice, ``r_loc`` its live columns and
+    ``r`` the global ones."""
+
+    Tt: torch.Tensor
+    C: torch.Tensor
+    F: torch.Tensor
+    b: torch.Tensor
+    costs: torch.Tensor
+    base: torch.Tensor
+    w: torch.Tensor | None
+    ah: torch.Tensor
+    ws: torch.Tensor
+    send_v: torch.Tensor
+    send_i: torch.Tensor
+    recv_v: torch.Tensor
+    recv_i: torch.Tensor
+    send_w: torch.Tensor | None
+    recv_w: torch.Tensor | None
+    wh: torch.Tensor | None
+    coef: torch.Tensor | None
+    send_min: torch.Tensor | None
+    recv_min: torch.Tensor | None
+    costs0: torch.Tensor | None
+    s: SeqScalars
+    shard: Shard
+    r_loc: int
+    r: int
+
+    def pack(self, eps: float) -> None:
+        """The slice's candidates over its costs into the send buffers
+        (``pack_slice``), with no collective: the next pivot's
+        ``all_gather``s fold them."""
+        pack_slice(self.costs, self.w, self.r_loc, eps, self.shard.offset,
+                   self.send_v, self.send_i, self.send_w)
+
+
+def sharded_blocked_loop(tab: Tableau, shard: Shard, options: SolverOptions,
+                         costs0: torch.Tensor | None = None
+                         ) -> ShardedBlockedLoop:
+    """The state at the start of ``solve_loop_blocked_sharded``: the vectors
+    in their own dtype, the devex weights at 1 (and no rank's largest
+    weight past 1e8), status RUNNING and the slice's first candidates
+    packed, with no collective."""
+    L = int(options.block_pivots)
+    Tt = tab.Tt
+    M, R_loc = Tt.shape
+    dev, dt, vd = Tt.device, Tt.dtype, tab.costs.dtype
+    f64, i32 = torch.float64, torch.int32
+    devex = options.pivot_rule_resolved == "devex"
+    kv, ki = SLICE_PACK[devex]
+    P = shard.size
+    reprice = costs0 is not None and dt != torch.float64
+    # Pivot t writes C[t] and F[t] (zeros when skipped) and reads rows
+    # < t only, so the factors are never cleared.
+    loop = ShardedBlockedLoop(
+        Tt, C=torch.zeros((L, R_loc), dtype=dt, device=dev),
+        F=torch.zeros((L, M), dtype=dt, device=dev), b=tab.b.clone(),
+        costs=tab.costs.clone(), base=tab.base.to(i32).clone(),
+        w=torch.ones(R_loc, dtype=vd, device=dev) if devex else None,
+        ah=torch.zeros(M, dtype=dt, device=dev),
+        ws=eta_workspace(M, R_loc, dev),
+        send_v=torch.empty(kv, dtype=f64, device=dev),
+        send_i=torch.empty(ki, dtype=i32, device=dev),
+        recv_v=torch.empty((P, kv), dtype=f64, device=dev),
+        recv_i=torch.empty((P, ki), dtype=i32, device=dev),
+        send_w=torch.zeros((), dtype=f64, device=dev) if devex else None,
+        recv_w=torch.zeros(P, dtype=f64, device=dev) if devex else None,
+        wh=torch.ones((), dtype=vd, device=dev) if devex else None,
+        coef=torch.zeros(M, dtype=vd, device=dev) if reprice else None,
+        send_min=torch.zeros((), dtype=vd, device=dev) if reprice else None,
+        recv_min=torch.zeros(P, dtype=vd, device=dev) if reprice else None,
+        costs0=costs0 if reprice else None,
+        s=seq_scalars(tab.z.to(vd), options.pivot_rule_resolved == "bland",
+                      dt),
+        shard=shard, r_loc=shard.local_r(tab.r), r=tab.r)
+    loop.pack(float(options.eps_resolved))
+    return loop
+
+
+def _reprice_window(loop: ShardedBlockedLoop, eps: float) -> None:
+    """The window boundary's exact re-pricing on an f32 tableau
+    (``sharded.py:494-505``): the basic costs gathered into ``coef`` (one
+    ``all_reduce``), ``costs = costs0 - Tt^T coef`` on the slice, the
+    premature-optimal minimum over every slice (one ``all_gather``) and
+    the reopening; then, under devex, the re-anchor the last pivot left to
+    the next fold applied to the slice's weights, and the slice's
+    candidates repacked over the new costs."""
+    sh, s = loop.shard, loop.s
+    loc, own = _owned(loop.base, sh)
+    loop.coef.copy_(torch.where(own & (loop.base < loop.r),
+                                loop.costs0.index_select(0, loc), 0.0))
+    all_reduce_(loop.coef, sh.group)
+    loop.costs.copy_(loop.costs0 - tt_matvec(loop.Tt, loop.coef))
+    live = sh.row_mask(loop.r, loop.costs.device)
+    loop.send_min.copy_(torch.where(live, loop.costs, torch.inf).min())
+    all_gather_into(loop.recv_min, loop.send_min, sh.group)
+    s.status.copy_(torch.where((s.status == OPTIMAL)
+                               & (loop.recv_min.min() <= -eps), RUNNING,
+                               s.status))
+    if loop.w is not None:
+        loop.w.copy_(torch.where(loop.recv_w.max() > 1e8, 1.0, loop.w))
+    loop.pack(eps)
+
+
+def run_blocked_pivot_sharded(loop: ShardedBlockedLoop, t: int,
+                              options: SolverOptions, max_iter: int) -> None:
+    """Enqueue pivot t of the window: the two ``all_gather``s of the
+    candidates the pivot before packed (or the loop's start),
+    ``eta_fold_column`` (their fold and the step before as its head, then
+    the owner's live column), the ``all_reduce`` of the column,
+    ``eta_ratio_summed`` (the ratio test and the step between),
+    ``eta_colk_slice`` (the live row on the slice, the vectors, the eta
+    pair, the pack and the step after) and, under devex, the
+    ``all_gather`` of the slices' largest weights (the re-anchor's): 3
+    launches, 2 ``all_gather``s (3 under devex) and 1 ``all_reduce``. A
+    skipped pivot still issues its collectives on every rank."""
+    eps = float(options.eps_resolved)
+    s, sh = loop.s, loop.shard
+    all_gather_into(loop.recv_v, loop.send_v, sh.group)
+    all_gather_into(loop.recv_i, loop.send_i, sh.group)
+    eta_fold_column(loop.Tt, loop.C, loop.F, loop.recv_v, loop.recv_i,
+                    loop.recv_w, loop.ah, loop.w, loop.wh, s, t, max_iter,
+                    eps, sh.offset)
+    all_reduce_(loop.ah, sh.group)
+    eta_ratio_summed(loop.b, loop.ah, s, eps, sh.R_loc, loop.ws)
+    eta_colk_slice(loop.Tt, loop.C, loop.F, loop.costs, loop.b, loop.base,
+                   loop.w, loop.ah, s, t, loop.r_loc, eps, max_iter, loop.ws,
+                   offset=sh.offset, wh=loop.wh, send_v=loop.send_v,
+                   send_i=loop.send_i, send_w=loop.send_w,
+                   bland_static=options.pivot_rule_resolved == "bland",
+                   threshold=options.bland_threshold)
+    if loop.w is not None:
+        all_gather_into(loop.recv_w, loop.send_w, sh.group)
+
+
+def run_blocked_window_sharded(loop: ShardedBlockedLoop,
+                               options: SolverOptions, max_iter: int) -> None:
+    """Enqueue one window with no host read: L pivots
+    (``run_blocked_pivot_sharded``), then the apply ``Tt -= F^T C`` on the
+    slice (one ``addmm_``, cuBLAS) and, with ``costs0``,
+    ``_reprice_window``: the body a CUDA graph captures (at one NCCL rank
+    an ``all_gather`` is a device copy and the ``all_reduce`` no node)."""
+    for t in range(loop.C.shape[0]):
+        run_blocked_pivot_sharded(loop, t, options, max_iter)
+    loop.Tt.addmm_(loop.F.t(), loop.C, alpha=-1.0)
+    if loop.costs0 is not None:
+        _reprice_window(loop, float(options.eps_resolved))
+
+
+def capture_blocked_window_sharded(loop: ShardedBlockedLoop,
+                                   options: SolverOptions, max_iter: int):
+    """One window (``run_blocked_window_sharded``) captured as a CUDA graph
+    with its NCCL collectives (``_capture_collectives``; the group's
+    communicator must be up): (graph, ``CapturedLaunches``,
+    ``CapturedCollectives``). The apply's and the re-pricing's scratch
+    come from the graph's private memory pool."""
+    return _capture_collectives(
+        lambda: run_blocked_window_sharded(loop, options, max_iter),
+        loop.Tt.device, SLICE_LAUNCHES)
+
+
+def solve_loop_blocked_sharded(tab: Tableau, shard: Shard,
+                               options: SolverOptions, max_iter: int,
+                               costs0: torch.Tensor | None = None, *,
+                               graph: bool = True):
+    """Sharded deferred block pivoting (``solve_loop_blocked_sharded``,
+    ``sharded.py:386-510``; the port's ``solver.solve_loop_blocked`` on
+    the local slice, which it equals bit for bit at one rank): the stale
+    slice and the eta columns ``C (L, R_loc)`` are local, the eta rows
+    ``F`` and the vectors replicated. Each pivot is
+    ``blocked_sharded_reference_pivot``'s as three kernels and its
+    collectives (``run_blocked_window_sharded``; the live column and row in
+    ``kernels.eta.eta_live``'s order and precision); a window ends in the
+    slice's apply and, with ``costs0`` and an f32 tableau, the exact
+    re-pricing and the reopening of a premature OPTIMAL. The slice is
+    updated in place; b, the costs, z and base are the loop's
+    (``ShardedBlockedLoop``). Returns (tableau, status, iterations).
+
+    Where the group's collectives can be captured (NCCL on the card,
+    ``group.capturable``) a window is one CUDA graph, its collectives
+    inside, captured once a call and replayed once a window, the host
+    reading status and iterations once a window -- the JAX loop's
+    ``lax.while_loop`` over its ``lax.fori_loop`` under ``shard_map``.
+    ``graph=False`` enqueues the same kernels and collectives eagerly, the
+    on-card comparison path. Gloo ranks and the CPU run eagerly, the CPU
+    with the plain versions. An f32 apply on the card needs TF32 off."""
+    _check_apply(tab.Tt)
+    loop = sharded_blocked_loop(tab, shard, options, costs0)
+    s = loop.s
+    replay = graph and capturable(shard.group, tab.Tt)
+    captured = None
+    st, it = RUNNING, 0
+    while st == RUNNING and it < max_iter:
+        if replay:
+            if captured is None:
+                captured = capture_blocked_window_sharded(loop, options,
+                                                          max_iter)
+            cuda_graph, launches, colls = captured
+            cuda_graph.replay()
+            launches.replayed()
+            colls.replayed()
+        else:
+            run_blocked_window_sharded(loop, options, max_iter)
+        # The window's one host sync.
+        st, it = (int(v) for v in
+                  torch.stack([s.status, s.iterations]).tolist())
+    out = dataclasses.replace(tab, b=loop.b, costs=loop.costs, z=s.z,
+                              base=loop.base)
     return out, st, it
 
 

@@ -2609,3 +2609,442 @@ def test_blocked_graph_window_lengths_on_card(cuda, monkeypatch, pair, L):
         _, wst, wit = solver.solve_loop_blocked_reference(old, opts, 5000,
                                                           costs0)
         assert (wst, wit) == (gst, git)
+
+
+# ---------------------------------------------------------------------------
+# The plain blocked sharded loop's kernels (kernels.eta's slice forms) and
+# its window's graph with the collectives inside.
+
+#: (dtype pair, pricing rule) of the sharded plain blocked loop's checks.
+SLICE_CASES = [("f64", "dantzig"), ("f64", "devex"), ("mixed", "devex"),
+               ("mixed", "bland"), ("f32", "devex")]
+
+
+def _slice_sets(dev, pair, rule, P, L=8, n=300, m=100, seed=5):
+    """P ``ShardedBlockedLoop``s over the slices of one eliminated phase-1
+    tableau on ``dev`` (built at one slice, then cut), twice: the kernels
+    run on one set, the plain versions on the other; and the options."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.tableau import gaussian_eliminate
+
+    T, V = SEQ_PAIRS[pair]
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V, block_pivots=L,
+                             pivot_rule=rule, bland_threshold=3,
+                             use_pallas=False)
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    R_pad, M_pad = ps.sharded_padded_dims(n, m, P, opts)
+    whole = gaussian_eliminate(ps.build_phase1_sharded(
+        torch.as_tensor(p.A), torch.as_tensor(p.b, device=dev), n, m,
+        pg.Shard(None, 0, 1, R_pad), opts, M_pad, dev))
+    sets = []
+    for _ in range(2):
+        sets.append([ps.sharded_blocked_loop(
+            dataclasses.replace(sl, Tt=sl.Tt.clone()),
+            pg.Shard(None, rank, P, R_pad // P), opts) for rank, sl in (
+                (r, ps.shard_tableau(whole, r, P)) for r in range(P))])
+    return sets, opts
+
+
+def _slice_pivot(loops, t, opts, kernel: bool, cap: int) -> None:
+    """Pivot t of ``run_blocked_pivot_sharded`` on P slices in this
+    process: the gathers and the sum of the columns in rank order by
+    torch ops, each rank's kernels (or their plain versions) between
+    them."""
+    from simplex_tpu_torch.kernels import eta as ke
+
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
+                  threshold=opts.bland_threshold)
+    devex = loops[0].w is not None
+    V = torch.stack([lp.send_v for lp in loops])
+    I = torch.stack([lp.send_i for lp in loops])
+    for lp in loops:
+        lp.recv_v.copy_(V)
+        lp.recv_i.copy_(I)
+        fold = ke.eta_fold_column if kernel else ke.eta_fold_column_plain
+        fold(lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
+             lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+    total = loops[0].ah.clone()
+    for lp in loops[1:]:
+        total += lp.ah
+    for lp in loops:
+        lp.ah.copy_(total)
+        args = (lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base, lp.w, lp.ah,
+                lp.s, t, lp.r_loc, eps, cap)
+        out = dict(offset=lp.shard.offset, wh=lp.wh, send_v=lp.send_v,
+                   send_i=lp.send_i, send_w=lp.send_w)
+        if kernel:
+            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps, lp.shard.R_loc,
+                                lp.ws)
+            ke.eta_colk_slice(*args, lp.ws, **out, **policy)
+        else:
+            ke.eta_ratio_summed_plain(lp.b, lp.ah, lp.s, eps)
+            ke.eta_colk_slice_plain(*args, *out.values(), **policy)
+    if devex:
+        W = torch.stack([lp.send_w for lp in loops])
+        for lp in loops:
+            lp.recv_w.copy_(W)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("pair,rule", SLICE_CASES,
+                         ids=[f"{p}-{r}" for p, r in SLICE_CASES])
+def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
+    """``eta_fold_column``, ``eta_ratio_summed`` and ``eta_colk_slice``
+    against their plain versions on P slices of one card's phase-1
+    tableau, pivot by pivot over four windows of 8 (the apply between),
+    from edge states drawn by the pivot's index: Bland on, the fuse (a
+    skipped pivot), a NaN in b, no eligible row (the entering column made
+    negative on its owner), a weight past the devex re-anchor's bound on
+    the last rank only, a tie of the smallest cost across the first and
+    last slices, and plain taken pivots. Every scalar, slice, factor,
+    vector, weight and send buffer bit for bit."""
+    from simplex_tpu_torch.kernels import eta as ke
+
+    (a_set, b_set), opts = _slice_sets(cuda, pair, rule, P)
+    eps = float(opts.eps_resolved)
+    L, cap = 8, 1000
+    kinds = set()
+    for win in range(4):
+        for t in range(L):
+            edge = (win * L + t) % 7
+            saved = []
+            for loops in (a_set, b_set):
+                first, last = loops[0], loops[-1]
+                for lp in loops:
+                    lp.s.bland.fill_(edge == 1)
+                    lp.s.iterations.fill_(cap if edge == 2 else 3)
+                if edge == 3:
+                    rows = torch.nonzero(first.b > 0).view(-1)
+                    for lp in loops:
+                        lp.b[rows[(win * 7 + t) % rows.numel()]] = \
+                            float("nan")
+                elif edge == 4:
+                    h = int(ke.slice_fold(
+                        torch.stack([lp.send_v for lp in loops]),
+                        torch.stack([lp.send_i for lp in loops]),
+                        first.recv_w)[0])
+                    for lp in loops:
+                        loc = h - lp.shard.offset
+                        if 0 <= loc < lp.shard.R_loc:
+                            saved.append((lp, loc, lp.Tt[:, loc].clone()))
+                            lp.Tt[:, loc] = -1e6
+                elif edge == 5 and last.w is not None:
+                    last.w[0] = 3e8
+                elif edge == 6:
+                    v = torch.minimum(first.costs.min(), last.costs.min()) - 1
+                    first.costs[0] = v
+                    last.costs[0 if P > 1 else 1] = v
+                    for lp in (first, last):
+                        lp.pack(eps)
+            _slice_pivot(a_set, t, opts, True, cap)
+            _slice_pivot(b_set, t, opts, False, cap)
+            for rank, (a, b) in enumerate(zip(a_set, b_set)):
+                for name, x in a.s.tensors().items():
+                    assert _bits_equal(x, getattr(b.s, name)), (win, t, rank,
+                                                                name)
+                for name in ("Tt", "C", "F", "b", "costs", "base", "w", "ah",
+                             "wh", "send_v", "send_i", "send_w"):
+                    x, y = getattr(a, name), getattr(b, name)
+                    assert x is None or _bits_equal(x, y), (win, t, rank,
+                                                            name)
+            kinds.add((bool(a_set[0].s.do), bool(a_set[0].s.unb), edge))
+            for lp, loc, col in saved:
+                lp.Tt[:, loc] = col
+            for loops in (a_set, b_set):
+                for lp in loops:
+                    lp.s.status.fill_(int(pst.Status.RUNNING))
+                    lp.b.nan_to_num_(nan=1.0)
+                    lp.s.z.nan_to_num_(nan=0.0)
+        for loops in (a_set, b_set):
+            for lp in loops:
+                lp.Tt.addmm_(lp.F.t(), lp.C, alpha=-1.0)
+    assert (True, False, 0) in kinds and (False, False, 2) in kinds, kinds
+    assert (False, True, 4) in kinds, kinds
+
+
+#: Slices whose rows start off 16-byte boundaries, at a global offset:
+#: (M, R_loc).
+SLICE_ODD_SHAPES = [(37, 6143), (2047, 3), (40, 40001)]
+
+
+@pytest.mark.parametrize("M,R", SLICE_ODD_SHAPES,
+                         ids=[f"{m}x{r}" for m, r in SLICE_ODD_SHAPES])
+@pytest.mark.parametrize("pair", sorted(SEQ_PAIRS))
+def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
+    """The three slice kernels against their plain versions on a random
+    slice at global offset 1,000 whose rows start off 16-byte boundaries,
+    at t = 0, 1 and L - 1 (L = 13), with two ranks' gathered candidates
+    whose fold lands on this slice or on the other, under devex (with and
+    without the re-anchor) and Dantzig: every scalar, the column, C[t],
+    F[t], b, the costs, base, the weights and the send buffers bit for
+    bit."""
+    from simplex_tpu_torch.kernels import eta as ke
+
+    L, off = 13, 1000
+    st0 = _eta_random_state(cuda, pair, M, R, L, 29 + M)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    V = st0["costs"].dtype
+    for t in (0, 1, L - 1):
+        for edge in range(4):
+            devex = edge != 3
+            mine = edge != 1
+            h = off + (R * 5) // 7 if mine else off + R + 3
+            key = 4.0 if mine else 9.0
+            Vg = torch.tensor([[-0.5, -0.25, 1.5, 1.0, key, -0.5, key],
+                               [-0.4, -0.2, 1.0, 1.0, 2.0, -0.4, 2.0]], **f64)
+            Ig = torch.tensor([[h, off + 1, h], [off + R + 3, off + R + 5,
+                                                 off + R + 3]], **i32)
+            if mine:
+                Ig[:, 0] = Ig[:, 2] = torch.tensor([h, off + R + 3])
+            Wg = torch.tensor([1.0, 3e8 if edge == 2 else 5.0], **f64)
+            if not devex:
+                Vg, Ig, Wg = Vg[:, :2].contiguous(), Ig[:, :2].contiguous(), \
+                    None
+            outs = []
+            for kernel in (True, False):
+                x = {n: (v.clone() if isinstance(v, torch.Tensor) else v)
+                     for n, v in st0.items() if n != "s"}
+                s = type(st0["s"])(**{n: v.clone() for n, v in
+                                      st0["s"].tensors().items()})
+                x["base"][(M * 2) // 3] = off + R // 2
+                kv, ki = ke.SLICE_PACK[devex]
+                w = x["w"] if devex else None
+                wh = torch.ones((), dtype=V, device=cuda) if devex else None
+                send = (torch.zeros(kv, **f64), torch.zeros(ki, **i32),
+                        torch.zeros((), **f64) if devex else None)
+                args = (x["Tt"], x["C"], x["F"])
+                fold = ke.eta_fold_column if kernel else \
+                    ke.eta_fold_column_plain
+                fold(*args, Vg, Ig, Wg, x["ah"], w, wh, s, t, 1000, 1e-9,
+                     off)
+                if not mine:
+                    x["ah"].copy_(x["Tt"][:, 0])
+                if kernel:
+                    ke.eta_ratio_summed(x["b"], x["ah"], s, 1e-9, R,
+                                        x["ws"])
+                    ke.eta_colk_slice(*args, x["costs"], x["b"], x["base"],
+                                      w, x["ah"], s, t, R - 1, 1e-9, 1000,
+                                      x["ws"], offset=off, wh=wh,
+                                      send_v=send[0], send_i=send[1],
+                                      send_w=send[2], bland_static=False,
+                                      threshold=3)
+                else:
+                    ke.eta_ratio_summed_plain(x["b"], x["ah"], s, 1e-9)
+                    ke.eta_colk_slice_plain(*args, x["costs"], x["b"],
+                                            x["base"], w, x["ah"], s, t,
+                                            R - 1, 1e-9, 1000, off, wh,
+                                            *send, False, 3)
+                outs.append((x, s, wh, send))
+            (a, sa, wa, na), (b, sb, wb, nb) = outs
+            assert int(sa.h) == h and bool(sa.do)
+            for name, v in sa.tensors().items():
+                assert _bits_equal(v, getattr(sb, name)), (t, edge, name)
+            for name in ("ah", "C", "F", "b", "costs", "base", "w"):
+                assert _bits_equal(a[name], b[name]), (t, edge, name)
+            for u, v in [(wa, wb), *zip(na, nb)]:
+                assert u is None or _bits_equal(u, v), (t, edge)
+
+
+def _slice_tab(dev, group, pair, rule, L, n=300, m=100, seed=5):
+    """One NCCL rank's phase-1 slice (the whole tableau), its
+    pre-elimination costs and the plain blocked loop's options."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    T, V = SEQ_PAIRS[pair]
+    opts = pst.SolverOptions(dtype=T, vector_dtype=V, block_pivots=L,
+                             pivot_rule=rule, bland_threshold=3,
+                             use_pallas=False,
+                             eps=1e-9 if T == np.float64 else 1e-5)
+    p = pst.generate_random_problem(n, m, seed, 1, 100)
+    R_pad, M_pad = ps.sharded_padded_dims(n, m, 1, opts)
+    shard = pg.Shard.of(group, R_pad)
+    tab = ps.build_phase1_sharded(torch.as_tensor(p.A),
+                                  torch.as_tensor(p.b, device=dev), n, m,
+                                  shard, opts, M_pad, dev)
+    costs0 = tab.costs
+    return ps.gaussian_eliminate_sharded(tab, shard), costs0, shard, opts
+
+
+#: (pair, rule, L) of the graphed sharded plain blocked loop's checks.
+SLICE_LOOPS = [("f64", "dantzig", 8), ("f64", "devex", 13),
+               ("f64", "dantzig", 128), ("mixed", "devex", 8),
+               ("mixed", "bland", 13), ("f32", "devex", 8)]
+
+
+@pytest.mark.parametrize("pair,rule,L", SLICE_LOOPS,
+                         ids=[f"{p}-{r}-L{n}" for p, r, n in SLICE_LOOPS])
+def test_blocked_sharded_graph_matches_eager_on_card(cuda, monkeypatch,
+                                                     tmp_path, pair, rule, L):
+    """``solve_loop_blocked_sharded`` at one NCCL rank as one CUDA graph a
+    window, its collectives inside, against ``graph=False``, against the
+    single-card ``solver.solve_loop_blocked`` and against the old body
+    with its live column and row formed as the kernels form them
+    (``eta_live``): the same status and iterations and the final slice,
+    b, costs, z and base bit for bit; graph and ``graph=False`` the same
+    launches and collectives -- a pivot ``eta_fold_column``,
+    ``eta_ratio_summed`` and ``eta_colk_slice``, 2 ``all_gather``s (3 under
+    devex) and 1 ``all_reduce``, on the f32 tableau 1 of each more a
+    window -- one capture, a replay adding the graph's."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    captures = []
+    real = ps.capture_blocked_window_sharded
+    monkeypatch.setattr(ps, "capture_blocked_window_sharded",
+                        lambda *a: captures.append(real(*a)) or captures[-1])
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        tab0, costs0, shard, opts = _slice_tab(cuda, group, pair, rule, L)
+        runs = {}
+        for graph in (False, True):
+            tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+            ke.reset_launches()
+            pg.reset_counts()
+            out, st, it = ps.solve_loop_blocked_sharded(
+                tab, shard, opts, 5000, costs0, graph=graph)
+            torch.cuda.synchronize()
+            runs[graph] = (out, st, it, dict(ke.SLICE_LAUNCHES),
+                           dict(pg.COUNTS))
+        ref = ps.solve_loop_blocked_sharded_reference(
+            dataclasses.replace(tab0, Tt=tab0.Tt.clone()), shard, opts,
+            5000, costs0, ke.eta_live)
+    single = solver.solve_loop_blocked(
+        dataclasses.replace(tab0, Tt=tab0.Tt.clone()), opts, 5000, costs0)
+    (eo, est, eit, el, ec), (go, gst, git, gl, gc) = runs[False], runs[True]
+    assert est == gst == int(pst.Status.OPTIMAL) and eit == git > L
+    for other in (ref, single):
+        assert other[1:] == (gst, git)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        g = getattr(go, name)
+        for other in (eo, ref[0], single[0]):
+            assert _bits_equal(g, getattr(other, name).to(g.dtype)), name
+    assert gl == el and gc == ec and len(captures) == 1
+    windows = gl["eta_fold_column"] // L
+    assert windows == -(-git // L) or windows == -(-git // L) + 1
+    devex = int(rule == "devex")
+    reprice = int(costs0 is not None and pair != "f64")
+    assert gc == {"all_gather": windows * ((2 + devex) * L + reprice),
+                  "all_reduce": windows * (L + reprice)}, gc
+    per = captures[0][1].per_replay
+    assert per == {"eta_fold_column": L, "eta_ratio_summed": L,
+                   "eta_colk_slice": L}, per
+    assert dict(captures[0][2].counts) == {
+        "all_gather": (2 + devex) * L + reprice, "all_reduce": L + reprice}
+
+
+def test_blocked_sharded_resumable_on_card(cuda, tmp_path):
+    """``solve_resumable_sharded`` with the f64 blocked options (L = 8,
+    devex) at one NCCL rank, in windows of 25 pivots -- each window a call
+    of the plain blocked sharded loop, one CUDA graph a window -- walks as
+    the single-card ``solve_resumable`` in the same windows to its
+    objective within 1e-12 and within 1e-9 of ``solve_sharded``; the slice
+    kernels launched, the file removed."""
+    from simplex_tpu_torch.checkpoint import (solve_resumable,
+                                              solve_resumable_sharded)
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    problem = pst.generate_random_problem(300, 100, 5, 1, 100)
+    opts = pst.SolverOptions(block_pivots=8, pivot_rule="devex")
+    path = tmp_path / "run.npz"
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        ke.reset_launches()
+        got = solve_resumable_sharded(problem, group, str(path), 25, opts,
+                                      device="cuda")
+        launched = dict(ke.SLICE_LAUNCHES)
+        whole = ps.solve_sharded(problem, group, opts, device="cuda")
+    want = solve_resumable(problem, str(tmp_path / "one.npz"), 25, opts,
+                           device="cuda")
+    walk = (got.iterations_phase1, got.iterations_phase2)
+    assert got.status == want.status == whole.status == pst.Status.OPTIMAL
+    assert walk == (want.iterations_phase1, want.iterations_phase2)
+    assert got.objective == pytest.approx(want.objective, rel=1e-12)
+    assert got.objective == pytest.approx(whole.objective, rel=1e-9)
+    assert min(launched.values()) >= sum(walk) and not path.exists()
+
+
+@pytest.mark.parametrize("cap", [1, 7, 8, 9, 20])
+def test_blocked_sharded_graph_fuse_is_exact_on_card(cuda, tmp_path, cap):
+    """A capped graphed plain blocked sharded loop at one NCCL rank stops at
+    the cap whatever the window: status RUNNING, exactly ``cap`` pivots,
+    the state of ``graph=False`` bit for bit."""
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        tab0, costs0, shard, opts = _slice_tab(cuda, group, "f64", "devex",
+                                               8)
+        outs = []
+        for graph in (True, False):
+            tab = dataclasses.replace(tab0, Tt=tab0.Tt.clone())
+            out, st, it = ps.solve_loop_blocked_sharded(
+                tab, shard, opts, cap, costs0, graph=graph)
+            assert st == int(pst.Status.RUNNING) and it == cap
+            outs.append(out)
+    for name in ("Tt", "b", "costs", "z", "base"):
+        assert _bits_equal(getattr(outs[0], name), getattr(outs[1], name))
+
+
+def test_slice_kernels_refuse_on_card(cuda):
+    """A launch the slice kernels refuse raises through the C entry
+    points: an empty shape, no ranks, a fold of another width, a devex
+    fold without its weights, t outside the window; the ratio test on no
+    rows, on a grid not of whole 16-byte chunks or with a short workspace;
+    the slice's pass without its send buffers or, under devex, without the
+    weight at h; and a dtype pair with no kernel raises in the wrapper: no
+    fallback."""
+    from simplex_tpu_torch.kernels import _build
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = _build.load_library()
+    M, R, L = 256, 512, 8
+    f64 = dict(dtype=torch.float64, device=cuda)
+    Tt, C, F = (torch.rand(shape, **f64) for shape in ((M, R), (L, R),
+                                                       (L, M)))
+    b, ah, costs, w = (torch.rand(M, **f64), torch.zeros(M, **f64),
+                       torch.rand(R, **f64), torch.ones(R, **f64))
+    base = torch.zeros(M, dtype=torch.int32, device=cuda)
+    wh = torch.ones((), **f64)
+    V, W = torch.zeros((1, 7), **f64), torch.zeros(1, **f64)
+    I = torch.zeros((1, 3), dtype=torch.int32, device=cuda)
+    ws = ke.eta_workspace(M, R, cuda)
+    s = ks.seq_scalars(torch.zeros((), **f64), False, torch.float64)
+    step = ks.ctypes.byref(ks._seq_ptrs(s))
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = ke.eta_plan(M, R, L, 8)
+    p = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    for m_, t, P, kv, Wp in ((0, 0, 1, 7, W), (M, L, 1, 7, W),
+                             (M, 0, 0, 7, W), (M, 0, 1, 5, W),
+                             (M, 0, 1, 7, None)):
+        err = lib.eta_fold_column_launch(
+            p(Tt), p(C), p(F), p(ah), m_, R, L, t, 0, p(V), p(I), p(Wp), P,
+            kv, p(w), p(wh), step, 10, 1e-9, 0, plan.rows, plan.stage_ratio,
+            stream)
+        with pytest.raises(RuntimeError, match="eta_fold_column: CUDA"):
+            _build.check(lib, err, "eta_fold_column")
+    for m_, rows, nbytes in ((0, plan.rows, ws.numel()), (M, 3, ws.numel()),
+                             (M, plan.rows, 8)):
+        err = lib.eta_ratio_summed_launch(p(b), p(ah), m_, 1e-9, p(ws),
+                                          nbytes, step, 0, rows, stream)
+        with pytest.raises(RuntimeError, match="eta_ratio_summed: CUDA"):
+            _build.check(lib, err, "eta_ratio_summed")
+    send_v, send_w = torch.zeros(7, **f64), torch.zeros(1, **f64)
+    send_i = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for sv, whp in ((None, wh), (send_v, None)):
+        err = lib.eta_colk_slice_launch(
+            p(Tt), p(C), p(F), p(costs), p(b), p(base), p(w), p(ah), M, R, L,
+            R, 0, 1e-9, p(ws), ws.numel(), step, 10, 0, 3, 0, plan.rows,
+            plan.cols, plan.stage_colk, 0, p(whp), p(sv), p(send_i),
+            p(send_w), stream)
+        with pytest.raises(RuntimeError, match="eta_colk_slice: CUDA"):
+            _build.check(lib, err, "eta_colk_slice")
+    odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
+    with pytest.raises(ValueError, match="no sequential kernel"):
+        ke.eta_ratio_summed(b.float(), ah, odd, 1e-9, R, ws)

@@ -371,3 +371,41 @@ def test_collective_structure_pinned(rule):
             "all_reduce": windows * L + reprices}, (windows, counts)
     assert seq == [(8, {"all_gather": 16, "all_reduce": 8})]
     assert shapes[("all_reduce", (m, m))] == 1
+
+
+@pytest.mark.parametrize("rule", ["devex", "dantzig"])
+def test_plain_blocked_collectives_pinned(rule):
+    """The plain blocked sharded loop (``solve_loop_blocked_sharded``: the
+    f64 tableau with L = 8, and the f32 one with the kernels off) on two
+    gloo ranks, capped at 8 and 16 pivots (1 and 2 windows), issues
+    exactly
+
+    * per pivot: 2 all_gathers (candidate values, candidate indices) and 1
+      all_reduce (the entering column), and under devex 1 all_gather more
+      (the re-anchor's largest weights);
+    * per window, on the f32 tableau only: 1 all_reduce (the basic costs of
+      the exact re-pricing) and 1 all_gather (the premature-optimal
+      minimum);
+    * once, on the f32 tableau only: 1 all_gather (the cost scale);
+
+    as the eager loop it replaced did. A change that adds a collective per
+    pivot or per window fails here."""
+    from simplex_tpu_torch.parallel.group import spawn
+    from simplex_tpu_torch.parallel.sharded import count_collectives
+
+    n, m, L = 96, 48, 8
+    problem = pst.generate_random_problem(n, m, 3, 1, 100)
+    f64 = pst.SolverOptions(block_pivots=L, pivot_rule=rule)
+    f32 = pst.SolverOptions(**dict(PROD, block_pivots=L, eps=1e-5,
+                                   pivot_rule=rule, use_pallas=False))
+    runs = spawn(count_collectives, 2, "gloo", "cpu", problem,
+                 [(f64, [L, 2 * L]), (f32, [L, 2 * L])])
+    devex = int(rule == "devex")
+    for reprice, (loops, _) in enumerate(runs):
+        for windows, (iters, counts) in enumerate(loops, start=1):
+            assert iters == windows * L
+            assert counts == {
+                "all_gather": reprice + windows * ((2 + devex) * L
+                                                   + reprice),
+                "all_reduce": windows * (L + reprice)}, (reprice, windows,
+                                                         counts)
