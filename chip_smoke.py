@@ -254,8 +254,11 @@ Phases, in order; any failed check exits non-zero:
    against their plain versions at the same tableau as two slices of the
    card and as one, pivot by pivot through a window's first 64 pivots from
    edge states (Bland, the fuse, a NaN in b, a weight past the re-anchor's
-   bound on the last slice), bit for bit, then timed at t = 64 on one
-   slice beside ``addmv`` forming the live column or row; the latency
+   bound on the last slice), bit for bit, then at t = 64 on one slice
+   ``eta_fold_column`` and ``eta_ratio_summed`` held bit for bit to, and
+   timed in turns with, the forms before their redesign (``slice_prior``
+   of ``tools/eta_variants.cu``, built by nvcc as a library), and each
+   timed beside ``addmv`` forming the live column or row; the latency
    floor of a one-thread
    kernel (``tools/latency_floor.cu``: an empty kernel, one load, two
    dependent loads) by the same clocks;
@@ -6030,9 +6033,12 @@ def slice_pivot(loops, t: int, opts, kernel: bool, cap: int) -> None:
     for lp in loops:
         lp.recv_v.copy_(V)
         lp.recv_i.copy_(I)
-        fold = ke.eta_fold_column if kernel else ke.eta_fold_column_plain
-        fold(lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
-             lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+        args = (lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
+                lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+        if kernel:
+            ke.eta_fold_column(*args)
+        else:
+            ke.eta_fold_column_plain(*args)
     total = loops[0].ah.clone()
     for lp in loops[1:]:
         total += lp.ah
@@ -6043,8 +6049,7 @@ def slice_pivot(loops, t: int, opts, kernel: bool, cap: int) -> None:
         out = dict(offset=lp.shard.offset, wh=lp.wh, send_v=lp.send_v,
                    send_i=lp.send_i, send_w=lp.send_w)
         if kernel:
-            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps, lp.shard.R_loc,
-                                lp.ws)
+            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps)
             ke.eta_colk_slice(*args, lp.ws, **out, **policy)
         else:
             ke.eta_ratio_summed_plain(lp.b, lp.ah, lp.s, eps)
@@ -6055,7 +6060,168 @@ def slice_pivot(loops, t: int, opts, kernel: bool, cap: int) -> None:
             lp.recv_w.copy_(W)
 
 
+class PriorSliceLib:
+    """``tools/eta_variants.cu`` built as a library (``-DETA_VARIANTS_LIB``)
+    by nvcc in the background, into ``td``: the sharded plain blocked
+    loop's ``eta_fold_column`` and ``eta_ratio_summed`` as they were before
+    their redesign (its ``slice_prior``), with C entry points. ``load``
+    waits for the build; ``stop`` ends it if it still runs."""
+
+    def __init__(self, td: str) -> None:
+        from simplex_tpu_torch.kernels import _build
+
+        self.path = pathlib.Path(td) / "libslice_prior.so"
+        self.proc = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared",
+             "-DETA_VARIANTS_LIB", "-o", str(self.path),
+             str(ROOT / "tools" / "eta_variants.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def load(self):
+        import ctypes
+
+        _, err = self.proc.communicate(timeout=600)
+        require(self.proc.returncode == 0, "nvcc of tools/eta_variants.cu "
+                f"as a library failed: {err[-2000:]}")
+        lib = ctypes.CDLL(str(self.path))
+        P, I, D, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                       ctypes.c_longlong)
+        lib.prior_eta_fold_column_launch.argtypes = (
+            [P] * 4 + [I] * 5 + [P, P, P, I, I, P, P, P, LL, D, I, I, I, P])
+        lib.prior_eta_ratio_summed_launch.argtypes = [P, P, I, D, P, LL, P,
+                                                      I, I, P]
+        return lib
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+#: What each head kernel writes and does not read (on a pivot without a
+#: re-anchor): its scalars, and the fold's live column and weight at h.
+SLICE_WRITES = {
+    "eta_fold_column": ("h_d", "v_d", "h_b", "v_b", "active", "h", "minc",
+                        "optimal", "ah", "wh"),
+    "eta_ratio_summed": ("k", "unb", "do", "p", "bk", "u"),
+}
+
+
+def slice_turns(prior: PriorSliceLib, lp, t: int, cap: int, eps: float,
+                fold, ratio) -> dict:
+    """``eta_fold_column`` and ``eta_ratio_summed`` (``fold``, ``ratio``:
+    their wrappers' calls on the slice ``lp`` at pivot t) against the forms
+    before their redesign (``prior``), each form from the same state, and
+    the new one's after every element it writes (``SLICE_WRITES``) was set
+    to a value other than the one the earlier form wrote: every scalar,
+    ``ah``, ``wh`` and the weights bit for bit; then each, and the head
+    (the fold then the ratio test), timed in turns with them by
+    ``graph_ms`` (before, after, after, before). Returns each kernel's
+    ``before_ms`` and ``turn_ms`` (the mean of its two turns) for the
+    kernels line."""
+    import ctypes
+
+    import torch
+
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = prior.load()
+    s = lp.s
+    M, R = lp.Tt.shape
+    L = lp.C.shape[0]
+    plan = ke.eta_plan(M, R, L, lp.Tt.element_size())
+    pair = ks._pair(s)
+
+    def ptr(x):
+        return x.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def prior_fold():
+        err = lib.prior_eta_fold_column_launch(
+            ptr(lp.Tt), ptr(lp.C), ptr(lp.F), ptr(lp.ah), M, R, L, t, 0,
+            ptr(lp.recv_v), ptr(lp.recv_i), ptr(lp.recv_w),
+            lp.recv_v.shape[0], lp.recv_v.shape[1], ptr(lp.w), ptr(lp.wh),
+            ctypes.byref(ks._seq_ptrs(s)), cap, eps, pair, plan.rows,
+            plan.stage_ratio, stream())
+        require(err == 0, f"the earlier eta_fold_column failed ({err})")
+
+    def prior_ratio():
+        err = lib.prior_eta_ratio_summed_launch(
+            ptr(lp.b), ptr(lp.ah), M, eps, ptr(lp.ws), lp.ws.numel(),
+            ctypes.byref(ks._seq_ptrs(s)), pair, plan.rows, stream())
+        require(err == 0, f"the earlier eta_ratio_summed failed ({err})")
+
+    def tensors():
+        return {**s.tensors(), "ah": lp.ah, "wh": lp.wh, "w": lp.w}
+
+    def state():
+        torch.cuda.synchronize()
+        return {n: x.clone() for n, x in tensors().items()}
+
+    def put(saved):
+        live = tensors()
+        for key, x in saved.items():
+            live[key].copy_(x)
+
+    def unlike(x):
+        """Every element other than x's."""
+        if x.dtype == torch.bool:
+            return ~x
+        if x.is_floating_point():
+            return torch.where(torch.isnan(x), torch.ones_like(x),
+                               torch.full_like(x, float("nan")))
+        return x + 1
+
+    start = state()
+    for name, old, new in (("eta_fold_column", prior_fold, fold),
+                           ("eta_ratio_summed", prior_ratio, ratio)):
+        put(start)
+        old()
+        want = state()
+        put(start)
+        put({key: unlike(want[key]) for key in SLICE_WRITES[name]})
+        new()
+        got = state()
+        for key, x in got.items():
+            equal(f"{name} against the form before its redesign: {key}", x,
+                  want[key])
+    put(start)
+    out: dict = {}
+    forms = {"eta_fold_column": (prior_fold, fold),
+             "eta_ratio_summed": (prior_ratio, ratio),
+             "head": (lambda: (prior_fold(), prior_ratio()),
+                      lambda: (fold(), ratio()))}
+    for name, (old, new) in forms.items():
+        times: dict = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            times[which].append(graph_ms(old if which == "before" else new))
+        out[name] = {"before_ms": statistics.mean(times["before"]),
+                     "turn_ms": statistics.mean(times["after"])}
+        log(f"{name} f64 devex M={M} R={R} t={t} (one slice) in turns with "
+            f"the form before its redesign (CUDA graphs of 50 calls): "
+            f"before {', '.join(f'{1e3 * x:.3f}' for x in times['before'])}"
+            f" us, after {', '.join(f'{1e3 * x:.3f}' for x in times['after'])}"
+            f" us; both bit for bit; {nvidia_smi_line()}")
+    return out
+
+
 def phase_slice_kernels(records: dict) -> None:
+    """``_slice_kernels`` with the library of the earlier slice kernels
+    built by nvcc in the background meanwhile (``PriorSliceLib``)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        prior = PriorSliceLib(td)
+        try:
+            _slice_kernels(records, prior)
+        finally:
+            prior.stop()
+
+
+def _slice_kernels(records: dict, prior: PriorSliceLib) -> None:
     """The sharded plain blocked loop's kernels (``eta_fold_column``,
     ``eta_ratio_summed``, ``eta_colk_slice``) against their plain versions
     on the card at the main path's shape: the f64 phase-1 tableau of
@@ -6067,11 +6233,16 @@ def phase_slice_kernels(records: dict) -> None:
     states drawn by the pivot's index (Bland on, the fuse, a NaN in b, a
     weight past the re-anchor's bound on the last slice): every scalar,
     slice, factor, vector, weight and send buffer bit for bit. Then at t
-    = ``ETA_T``, on a taken pivot at one slice, each kernel timed by
-    torch.profiler and by CUDA events over a CUDA graph of 50 calls beside
-    its plain version, its bound and ``torch.addmv`` forming the live
-    column (the fold's) or row (the pass's) alone: the kernels line's
-    rows."""
+    = ``ETA_T``, on a taken pivot at one slice: ``eta_fold_column`` and
+    ``eta_ratio_summed`` against the forms before their redesign
+    (``tools/eta_variants.cu`` built here as a library, ``slice_prior``;
+    built by nvcc while the walk runs), bit for bit, and each, and the
+    head (the fold then the ratio test, as a pivot runs them), timed in
+    turns with them by CUDA events over CUDA graphs of 50 calls (before,
+    after, after, before); then each kernel timed by torch.profiler and by
+    CUDA events over a CUDA graph of 50 calls beside its plain version,
+    its bound and ``torch.addmv`` forming the live column (the fold's) or
+    row (the pass's) alone: the kernels line's rows."""
     import dataclasses
 
     import torch
@@ -6156,11 +6327,11 @@ def phase_slice_kernels(records: dict) -> None:
                              lp.recv_v, lp.recv_i, W, lp.ah, lp.w, lp.wh, s,
                              t, cap, eps, 0)
     fold()
-    ratio = functools.partial(ke.eta_ratio_summed, lp.b, lp.ah, s, eps, R,
-                              lp.ws)
+    ratio = functools.partial(ke.eta_ratio_summed, lp.b, lp.ah, s, eps)
     ratio()
     require(bool(s.do), "slice kernels: the timed pivot is not taken")
     h, k = int(s.h), int(s.k)
+    before = slice_turns(prior, lp, t, cap, eps, fold, ratio)
     colk = functools.partial(ke.eta_colk_slice, lp.Tt, lp.C, lp.F, lp.costs,
                              lp.b, lp.base, lp.w, lp.ah, s, t, lp.r_loc, eps,
                              cap, lp.ws, offset=0, wh=lp.wh,
@@ -6178,7 +6349,8 @@ def phase_slice_kernels(records: dict) -> None:
         "eta_ratio_summed": (
             ratio, functools.partial(ke.eta_ratio_summed_plain, lp.b, lp.ah,
                                      s, eps),
-            "eta_ratio_kernel", bound(8 * 2 * M, f64_flops=M), None),
+            "eta_ratio_summed_kernel", bound(8 * 2 * M, f64_flops=M),
+            None),
         "eta_colk_slice": (
             colk, functools.partial(
                 ke.eta_colk_slice_plain, lp.Tt, lp.C, lp.F, lp.costs, lp.b,
@@ -6197,7 +6369,7 @@ def phase_slice_kernels(records: dict) -> None:
                "plain_ms": device_ms(plain_fn, 5),
                "bound_ms": bound_ms, "bound_by": by,
                "library_ms": None if lib is None else device_ms(lib, 50),
-               "check_ms": graph_ms(fn)}
+               "check_ms": graph_ms(fn), **before.get(name, {})}
         records[name] = rec
         log(f"{name} f64 devex M={M} R={R} t={t} (one slice): {ms:.5f} ms a "
             f"call (torch.profiler), {rec['check_ms']:.5f} ms by CUDA "
@@ -6214,7 +6386,7 @@ def phase_slice_kernels(records: dict) -> None:
 
 
 #: The sharded plain blocked loop's kernels in a trace of its window.
-SLICE_GRAPH_KERNELS = ("eta_fold_column_kernel", "eta_ratio_kernel",
+SLICE_GRAPH_KERNELS = ("eta_fold_column_kernel", "eta_ratio_summed_kernel",
                        "eta_colk_kernel")
 
 

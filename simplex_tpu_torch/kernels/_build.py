@@ -204,10 +204,8 @@ SIGNATURES = {
                                                      _P, _P,
                                                      ctypes.c_longlong, _D,
                                                      _I, _I, _I, _P],
-    # b ah M eps, the workspace and its bytes, the scalars' pointers (by
-    # reference), pair, eta_ratio's rows a block, stream
-    "eta_ratio_summed_launch": [_P, _P, _I, _D, _P, ctypes.c_longlong, _P,
-                                _I, _I, _P],
+    # b ah M eps, the scalars' pointers (by reference), pair, stream
+    "eta_ratio_summed_launch": [_P, _P, _I, _D, _P, _I, _P],
     # eta_colk_launch's operands without then_pre, then offset wh send_v
     # send_i send_w, stream
     "eta_colk_slice_launch": [_P] * 8 + [_I] * 5 + [_D, _P, ctypes.c_longlong,

@@ -1,7 +1,8 @@
 // One thread-block cluster: the barrier in two halves and the launch.
 // Shared by the kernels that run as a single cluster whose blocks fold
 // over distributed shared memory (csrc/sharded_step.cu sharded_ratio,
-// csrc/seq.cu seq_ratio and seq_ratio_colk).
+// csrc/seq.cu seq_ratio and seq_ratio_colk, csrc/eta.cu
+// eta_ratio_summed).
 
 #pragma once
 
@@ -33,22 +34,25 @@ cudaError_t allow_cluster(void (*kernel)(P...), int nb) {
 }
 
 // ``kernel`` as one cluster of ``nb`` blocks of ``nt`` threads on ``st``,
-// the cluster's shape a launch attribute (which a CUDA graph captures).
+// the cluster's shape a launch attribute (which a CUDA graph captures);
+// with ``pdl`` a programmatic dependent launch too, in the same call.
 // Returns the launch's error, else cudaGetLastError(), as an int.
 template <typename... P, typename... A>
-int launch_cluster(void (*kernel)(P...), int nb, int nt, cudaStream_t st,
-                   A... args) {
+int launch_cluster(void (*kernel)(P...), int nb, int nt, bool pdl,
+                   cudaStream_t st, A... args) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(nb);
     cfg.blockDim = dim3(nt);
     cfg.stream = st;
-    cudaLaunchAttribute attr[1];
+    cudaLaunchAttribute attr[2];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = nb;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = pdl ? 2 : 1;
     const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();

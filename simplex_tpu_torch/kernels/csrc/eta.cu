@@ -40,16 +40,19 @@
 // the slice's R_loc), after the all_gathers of the candidates every rank
 // packed:
 //
-// * eta_fold_column (eta_ratio's grid): each block sends for its F slab,
-//   then its thread 0 folds the gathered candidates (slice_fold) and runs
-//   the step before (seq::pre, h global), block 0 storing the scalars and
-//   the weight at h; under devex, where the largest of every rank's
-//   weights passed 1e8, every block resets its share of the slice's
-//   weights to 1 (the re-anchor the pivot before left to this fold); then
-//   the rank that owns h writes the live column in eta_ratio's order and
-//   precision, every other rank zeros, which an all_reduce sums.
-// * eta_ratio_summed: eta_ratio's grid and fold on the summed column, no
-//   slab (SUMMED).
+// * eta_fold_column (eta_ratio's rows a block): each block sends for its F
+//   slab, then one warp folds the gathered candidates (slice_fold's order)
+//   and thread 0 runs the step before (seq::pre, h global), block 0
+//   storing the scalars and the weight at h; under devex, where the
+//   largest of every rank's weights passed 1e8, every block resets its
+//   share of the slice's weights to 1 (the re-anchor the pivot before
+//   left to this fold); then the rank that owns h writes the live column
+//   in eta_ratio's order and precision, every other rank zeros, which an
+//   all_reduce sums.
+// * eta_ratio_summed: the ratio test and the step between on the summed
+//   column as one thread-block cluster (ratio_cluster.cuh, the sequential
+//   sharded loop's), launched behind the fold as a programmatic dependent
+//   launch.
 // * eta_colk_slice: eta_colk on the slice (SLICE): the weight at h from
 //   the fold (h may lie on another rank), the leaving variable by its
 //   global column, base[k] = h global; the last block packs the slice's
@@ -121,13 +124,16 @@
 // are counted by them. Blocks fold as before, by the arrival ticket, in a
 // total order.
 //
-// Both kernels launch as programmatic dependent launches: each starts
-// while the kernel before it runs and sends for, before
+// eta_ratio and eta_colk (eta_colk_slice and, as a cluster,
+// eta_ratio_summed too) launch as programmatic dependent launches: each
+// starts while the kernel before it runs and sends for, before
 // griddepcontrol.wait, only what no kernel since the pivot before wrote --
 // eta_ratio F's rows s < t - 1 (the pivot before wrote F[t - 1], which each
 // owner loads after the wait), eta_colk C's rows s < t and its columns'
-// costs and weights -- and each lets the next launch as soon as it has
-// waited, so at most two of them run at once. The bulk copy engine
+// costs and weights, eta_ratio_summed b -- and each lets the next launch as
+// soon as it has waited, so at most two of them run at once
+// (eta_fold_column, which a copy or a collective precedes, lets
+// eta_ratio_summed launch once its fold is done). The bulk copy engine
 // (cp.async.bulk, one copy a row completing on an mbarrier) was tried first
 // and dropped: its copies take their operands in uniform registers, so a
 // warp sends them one after the other, and an unrolled loop sending them
@@ -138,6 +144,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "cluster.cuh"
+#include "ratio_cluster.cuh"
 #include "seq_step.cuh"
 
 namespace {
@@ -395,11 +403,7 @@ struct WsB {
 // ---------------------------------------------------------------------------
 // eta_ratio: the live entering column, the ratio test and the step between.
 
-// SUMMED (eta_ratio_summed, the sharded plain blocked loop's ratio test):
-// the column is the one the all_reduce summed into ``ah``, which each
-// owner thread reads; no slab, no h, no write of ah. Launched without
-// programmatic dependent launch (a collective precedes it).
-template <typename T, typename V, int NT, bool FIXED, bool SUMMED = false>
+template <typename T, typename V, int NT, bool FIXED>
 __global__ void __launch_bounds__(NT) eta_ratio_kernel(
         const T *__restrict__ Tt, const T *__restrict__ C,
         const T *__restrict__ F, const V *__restrict__ b,
@@ -417,46 +421,35 @@ __global__ void __launch_bounds__(NT) eta_ratio_kernel(
     const int nrow = min(rows, M - j0);
     const int j = j0 + tid;                      // this thread's row
     const bool row = tid < nrow;
+    const int W = slab_width(rows, sizeof(T));
+    // The slab holds F's rows s < t - 1; the pivot before wrote F[t - 1],
+    // which each owner loads itself once that pivot is waited for.
+    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
+                                  stage, W, reinterpret_cast<T *>(dyn)};
+    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
+
+    // The block's F slab first (it does not depend on h), before the
+    // kernel before is waited for; then b, F[t - 1], h and what h
+    // selects.
+    slab.first();
+    grid_wait();
+    grid_launch_next();
+    const V bj = row ? b[j] : (V)0;
+    const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
+    const int h = min(*s.h, R - 1);
+    for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
+    const T th = row ? Tt[(size_t)j * R + h] : (T)0;
+    __syncthreads();                             // cs
+
+    // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
+    // in f64.
+    double acc = slab.sum(cs);
+    if (row && t > 0)
+        acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
     T a = (T)0;
-    V bj = (V)0;
-    if constexpr (SUMMED) {
-        grid_wait();
-        grid_launch_next();
-        if (row) {
-            bj = b[j];
-            a = ah[j];
-        }
-    } else {
-        const int W = slab_width(rows, sizeof(T));
-        // The slab holds F's rows s < t - 1; the pivot before wrote
-        // F[t - 1], which each owner loads itself once that pivot is
-        // waited for.
-        const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
-                                      stage, W, reinterpret_cast<T *>(dyn)};
-        T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
-
-        // The block's F slab first (it does not depend on h), before the
-        // kernel before is waited for; then b, F[t - 1], h and what h
-        // selects.
-        slab.first();
-        grid_wait();
-        grid_launch_next();
-        bj = row ? b[j] : (V)0;
-        const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
-        const int h = min(*s.h, R - 1);
-        for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
-        const T th = row ? Tt[(size_t)j * R + h] : (T)0;
-        __syncthreads();                         // cs
-
-        // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
-        // in f64.
-        double acc = slab.sum(cs);
-        if (row && t > 0)
-            acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
-        if (row) {
-            a = (T)__dsub_rn((double)th, acc);
-            ah[j] = a;
-        }
+    if (row) {
+        a = (T)__dsub_rn((double)th, acc);
+        ah[j] = a;
     }
 
     const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
@@ -552,7 +545,8 @@ __device__ __forceinline__ void take_first(RowCands<V> &x,
         x.bidx = o.bidx;
         x.bval = o.bval;
     }
-    if (o.wmax > x.wmax) x.wmax = o.wmax;
+    if (o.wmax > x.wmax || o.wmax != o.wmax)     // NaN first, as torch's
+        x.wmax = o.wmax;                         // max propagates it
 }
 
 template <typename V>
@@ -799,17 +793,25 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
 
 // ---------------------------------------------------------------------------
 // eta_fold_column: the sharded plain blocked loop's first kernel a pivot.
-// Its head, in each block's thread 0: the fold of the candidates every rank
-// packed (slice_fold), then the step before the ratio test (seq::pre;
-// h global), which block 0 stores with the folded candidates and the weight
-// at h; under devex, when the largest of every rank's weights passed 1e8,
-// every block resets its share of the slice's weights to 1 (the re-anchor
-// the pivot before left to the fold). Then the rank that owns h writes the
-// live column Tt[:, hl] - sum_{s<t} C[s, hl] F[s] into ah (hl = h -
-// offset), in eta_ratio's order and precision, the F slab sent for before
-// h is known; every other rank writes zeros (+0.0, as torch.where writes
-// them), which the all_reduce after it sums away.
-
+// Its head: the fold of the candidates every rank packed (slice_fold), then
+// the step before the ratio test (seq::pre; h global), which block 0
+// stores with the folded candidates and the weight at h; under devex, when
+// the largest of every rank's weights passed 1e8, every block resets its
+// share of the slice's weights to 1 (the re-anchor the pivot before left
+// to the fold). Then the rank that owns h writes the live column Tt[:,
+// hl] - sum_{s<t} C[s, hl] F[s] into ah (hl = h - offset), in eta_ratio's
+// order and precision; every other rank writes zeros (+0.0, as torch.where
+// writes them), which the all_reduce after it sums away.
+//
+// One warp folds the ranks (lane q rank q, all of their entries loaded at
+// once, beside the block's F slab), in slice_fold's total order; the
+// ratio test may launch once the fold is done; a rank that does not own h
+// stores its zeros before it waits for its slab. Sending for the rank's
+// own candidates' columns before the fold (the h the fold picks is always
+// one of its owner's) was tried and dropped: over a window it saved
+// nothing (0.2 us slower at t = 0, as fast at t = 64, 0.17 faster at t =
+// 127; tools/eta_variants.cu, PERF.md) for an operand and three slots.
+//
 // The folded candidates: the main one (h_d, v_d, its weight w_d) and the
 // Bland one (h_b, v_b, w_b), the weights 1 without devex or on a
 // re-anchor; and whether the re-anchor resets the weights.
@@ -819,59 +821,73 @@ struct SliceFold {
     bool reset;
 };
 
-// The fold of V (P, kv) f64 and I (P, ki) int32 (pack_slice's layout;
-// kv = SLICE_KV under devex, else 2) and, under devex, Wg (P,) the ranks'
-// largest weights: reset when their largest passes 1e8 (a NaN anywhere
-// resets nothing, as torch's max propagates it); the main candidate from
-// the first rank with the largest key (the devex key on the new weights,
-// or on weights of 1 where reset; else -v_d; a NaN key anywhere: rank 0),
-// the Bland one from the first rank with the lowest global index
-// (parallel/sharded.py fold_candidates).
-__device__ __forceinline__ SliceFold slice_fold(const double *__restrict__ V,
-                                                const int *__restrict__ I,
-                                                const double *__restrict__ Wg,
-                                                int P, int kv) {
-    const bool devex = kv == SLICE_KV;
-    const int ki = devex ? SLICE_KI : 2;
-    bool reset = false;
-    if (devex) {
-        double mx = Wg[0];
-        bool nan = mx != mx;
-        for (int q = 1; q < P; ++q) {
-            const double x = Wg[q];
-            nan |= x != x;
-            if (x > mx) mx = x;
-        }
-        reset = !nan && mx > 1e8;
-    }
-    const bool ride = devex && !reset;           // the weights ride along
-    const int cv = reset ? 5 : 0, ck = reset ? 6 : 4, ci = reset ? 2 : 0;
+// Rank q's packed candidates (lane q < P of warp 0), every entry loaded at
+// once.
+struct RankPack {
+    double v[SLICE_KV];
+    int ix[SLICE_KI];
+    double w;
+};
+
+__device__ __forceinline__ RankPack rank_pack(const double *__restrict__ V,
+                                              const int *__restrict__ I,
+                                              const double *__restrict__ Wg,
+                                              int P, int kv) {
+    const int q = threadIdx.x & 31, ki = kv == SLICE_KV ? SLICE_KI : 2;
+    const bool in = q < P;
+    RankPack x;
+#pragma unroll
+    for (int e = 0; e < SLICE_KV; ++e)
+        x.v[e] = in && e < kv ? V[(size_t)q * kv + e] : 0.0;
+#pragma unroll
+    for (int e = 0; e < SLICE_KI; ++e)
+        x.ix[e] = in && e < ki ? I[(size_t)q * ki + e] : BIG_INDEX;
+    x.w = in && kv == SLICE_KV ? Wg[q] : 0.0;
+    return x;
+}
+
+// The fold of every rank's packed candidates (kernels/eta.py slice_fold,
+// pack_slice's layout: V (P, kv) f64 and I (P, ki) int32, kv = SLICE_KV
+// under devex, else 2, and under devex Wg (P,) the ranks' largest
+// weights) over one warp, P <= 32 (lane q holding rank q's RankPack), in
+// its total order: the re-anchor where any rank's largest weight
+// passed 1e8 and none is NaN; the main candidate from the first rank with
+// the largest key (rank 0 where any key is NaN), the Bland one from the
+// first rank with the lowest global index. Every lane gets the fold.
+__device__ __forceinline__ SliceFold slice_fold_warp(const RankPack &x,
+                                                     int P, int kv) {
+    constexpr unsigned FULL = seq::FULL;
+    const int q = threadIdx.x & 31;
+    const bool in = q < P, devex = kv == SLICE_KV;
     SliceFold f{};
-    double mx = 0.0;
-    bool nan = false;
-    for (int q = 0; q < P; ++q) {
-        const double *v = V + (size_t)q * kv;
-        const int *ix = I + (size_t)q * ki;
-        const double key = devex ? v[ck] : -v[0];
-        nan |= key != key;
-        if (q == 0 || key > mx) {
-            mx = key;
-            f.h_d = ix[ci];
-            f.v_d = v[cv];
-            f.w_d = ride ? v[2] : 1.0;
+    f.reset = devex && !__any_sync(FULL, in && x.w != x.w) &&
+              __any_sync(FULL, in && x.w > 1e8);
+    const bool ride = devex && !f.reset;         // the weights ride along
+    const double key = devex ? (f.reset ? x.v[6] : x.v[4]) : -x.v[0];
+    const bool nan = __any_sync(FULL, in && key != key);
+    double k = in ? key : -CUDART_INF;
+    int od = in ? q : 32, hb = in ? x.ix[1] : 0x7fffffff, ob = od;
+    for (int off = 16; off > 0; off >>= 1) {
+        const double k2 = __shfl_xor_sync(FULL, k, off);
+        const int o2 = __shfl_xor_sync(FULL, od, off);
+        if (k2 > k || (k2 == k && o2 < od)) {
+            k = k2;
+            od = o2;
         }
-        if (q == 0 || ix[1] < f.h_b) {
-            f.h_b = ix[1];
-            f.v_b = v[1];
-            f.w_b = ride ? v[3] : 1.0;
+        const int h2 = __shfl_xor_sync(FULL, hb, off);
+        const int b2 = __shfl_xor_sync(FULL, ob, off);
+        if (h2 < hb || (h2 == hb && b2 < ob)) {
+            hb = h2;
+            ob = b2;
         }
     }
-    if (nan) {                                   // the max is NaN: rank 0
-        f.h_d = I[ci];
-        f.v_d = V[cv];
-        f.w_d = ride ? V[2] : 1.0;
-    }
-    f.reset = reset;
+    if (nan) od = 0;                             // the max is NaN: rank 0
+    f.h_d = __shfl_sync(FULL, f.reset ? x.ix[2] : x.ix[0], od);
+    f.v_d = __shfl_sync(FULL, f.reset ? x.v[5] : x.v[0], od);
+    f.w_d = ride ? __shfl_sync(FULL, x.v[2], od) : 1.0;
+    f.h_b = hb;
+    f.v_b = __shfl_sync(FULL, x.v[1], ob);
+    f.w_b = ride ? __shfl_sync(FULL, x.v[3], ob) : 1.0;
     return f;
 }
 
@@ -896,44 +912,102 @@ __global__ void __launch_bounds__(NT) eta_fold_column_kernel(
                                   reinterpret_cast<T *>(dyn)};
     T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, hl]
 
-    // The block's F slab first (it does not depend on h), then the fold.
+    // The block's F slab first (it does not depend on h); the fold's
+    // operands all at once.
     slab.first();
+    RankPack pk{};
+    int status = 0, iterations = 0;
+    bool bland = false;
+    if (tid < 32) pk = rank_pack(Vg, Ig, Wg, P, kv);
     if (tid == 0) {
-        const int status = *s.status, iterations = *s.iterations;
-        const bool bland = *s.bland != 0;
-        const SliceFold f = slice_fold(Vg, Ig, Wg, P, kv);
-        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
-        const bool use_b = bland && c.h_b < BIG_INDEX;
-        const long long loc = (long long)(use_b ? c.h_b : c.h_d) - offset;
-        col = loc >= 0 && loc < R ? (int)loc : -1;
-        reset = f.reset;
-        if (blockIdx.x == 0) {
-            *s.h_d = c.h_d;
-            *s.v_d = c.v_d;
-            *s.h_b = c.h_b;
-            *s.v_b = c.v_b;
-            seq::pre(s, status, iterations, bland, c, max_iter, eps);
-            if (wh != nullptr) *wh = (V)(use_b ? f.w_b : f.w_d);
+        status = *s.status;
+        iterations = *s.iterations;
+        bland = *s.bland != 0;
+    }
+
+    // The fold and the step before.
+    if (tid < 32) {
+        const SliceFold f = slice_fold_warp(pk, P, kv);
+        if (tid == 0) {
+            const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+            const bool use_b = bland && c.h_b < BIG_INDEX;
+            const long long l = (long long)(use_b ? c.h_b : c.h_d) - offset;
+            col = l >= 0 && l < R ? (int)l : -1;
+            reset = f.reset;
+            if (blockIdx.x == 0) {
+                *s.h_d = c.h_d;
+                *s.v_d = c.v_d;
+                *s.h_b = c.h_b;
+                *s.v_b = c.v_b;
+                seq::pre(s, status, iterations, bland, c, max_iter, eps);
+                if (wh != nullptr) *wh = (V)(use_b ? f.w_b : f.w_d);
+            }
         }
     }
     __syncthreads();
+    grid_launch_next();                          // the ratio test may start
     if (w != nullptr && reset)
         for (int q = blockIdx.x * NT + tid; q < R; q += gridDim.x * NT)
             w[q] = (V)1;
     const int hl = col;
     if (hl < 0) {                                // another rank's column
-        cp_async_wait<0>();
         if (row) ah[j] = (T)0;
+        cp_async_wait<0>();      // no copy may land in an exited block
         return;
     }
     for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + hl];
     const T th = row ? Tt[(size_t)j * R + hl] : (T)0;
-    __syncthreads();                             // cs
 
     // a_h[j] = Tt[j, hl] - sum_{s<t} C[s, hl] F[s, j], s in order from 0,
-    // in f64 (eta_ratio's sum: the same products in the same order).
+    // in f64 (eta_ratio's sum: the same products in the same order; the
+    // sum's first barrier shows cs).
     const double acc = slab.sum(cs);
     if (row) ah[j] = (T)__dsub_rn((double)th, acc);
+}
+
+// ---------------------------------------------------------------------------
+// eta_ratio_summed: the sharded plain blocked loop's ratio test on the
+// column the all_reduce summed into ah, and the step between; one cluster
+// of SUMMED_BLOCKS blocks of SUMMED_THREADS threads, each thread taking its
+// rows SUMMED_PER at a time (ratio_cluster.cuh, seq_ratio_colk_sharded's
+// ratio test). A programmatic dependent launch: b of its first rows (the
+// pivot before wrote it) and the cluster's relaxed arrival before
+// griddepcontrol.wait; ah and the step between's operands (active,
+// optimal, minc: eta_fold_column's step before) after it. At one NCCL rank
+// the all_reduce is no node, so it starts behind eta_fold_column, which
+// lets it launch once its fold is done; at more, behind NCCL's kernel,
+// whose completion the wait still waits for.
+
+constexpr int SUMMED_BLOCKS = 16;
+constexpr int SUMMED_THREADS = 256;
+constexpr int SUMMED_PER = 4;
+
+template <typename T, typename V, int NB, int NT, int PER_>
+__global__ void __launch_bounds__(NT) eta_ratio_summed_kernel(
+        const V *__restrict__ b, T *__restrict__ ah, int M, double eps,
+        SeqStep<T, V> s) {
+    constexpr int SPAN = NB * NT;
+    __shared__ seq::RatioShared<T, V, NB, NT / 32> rsh;
+    const int g = (int)cooperative_groups::this_cluster().block_rank() * NT +
+                  threadIdx.x;
+    cluster_arrive_relaxed();
+    T a0[PER_];
+    V b0[PER_];
+#pragma unroll
+    for (int q = 0; q < PER_; ++q)
+        if (g + q * SPAN < M) b0[q] = b[g + q * SPAN];
+    grid_wait();
+    grid_launch_next();
+    bool active = false, optimal = false;
+    V minc = (V)0;
+    if (threadIdx.x == 0) {
+        active = *s.active != 0;
+        optimal = *s.optimal != 0;
+        minc = *s.minc;
+    }
+    seq::ratio_cluster<T, V, NB, NT, PER_, false, true>(
+            rsh, nullptr, b, ah, M, 1, 0, eps, active, optimal, minc, s, a0,
+            b0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1093,30 +1167,26 @@ int colk_slice_any(const void *Tt, void *C, void *F, void *costs, void *b,
                                 st, so);
 }
 
-// The sharded loop's ratio test on the summed column: eta_ratio's grid of
-// ``rows`` rows a block and its fold, no slab; launched without
-// programmatic dependent launch.
+// The sharded loop's ratio test on the summed column: one cluster of
+// SUMMED_BLOCKS blocks, a programmatic dependent launch.
 template <typename T, typename V>
 int ratio_summed_run(const void *b, void *ah, int M, double eps,
-                     unsigned char *ws, long long ws_len, const void *step,
-                     int rows, cudaStream_t st) {
-    if (M < 1 || !width_ok(rows, RATIO_THREADS))
-        return (int)cudaErrorInvalidValue;
-    const int nbA = cdiv(M, rows);
-    if (ws_len < (long long)ws_bytes(nbA, 0))
-        return (int)cudaErrorInvalidValue;
-    return launch(eta_ratio_kernel<T, V, RATIO_THREADS, true, true>, nbA,
-                  RATIO_THREADS, 0, false, st, static_cast<const T *>(nullptr),
-                  static_cast<const T *>(nullptr),
-                  static_cast<const T *>(nullptr), static_cast<const V *>(b),
-                  static_cast<T *>(ah), M, 1, 0, eps, rows, 1, nbA, ws,
-                  step_of<T, V>(step));
+                     const void *step, cudaStream_t st) {
+    if (M < 1) return (int)cudaErrorInvalidValue;
+    auto kernel = eta_ratio_summed_kernel<T, V, SUMMED_BLOCKS, SUMMED_THREADS,
+                                          SUMMED_PER>;
+    static const cudaError_t e = allow_cluster(kernel, SUMMED_BLOCKS);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, SUMMED_BLOCKS, SUMMED_THREADS, true, st,
+                          static_cast<const V *>(b), static_cast<T *>(ah), M,
+                          eps, step_of<T, V>(step));
 }
 
 // eta_fold_column on eta_ratio's plan (rows a block, slab rows a round);
 // under devex (kv == SLICE_KV) the ranks' largest weights, the slice's
 // weights and the weight at h given, else none of them. Launched without
-// programmatic dependent launch (collectives precede it).
+// programmatic dependent launch (a device copy or NCCL's kernel precedes
+// it). One warp folds the ranks, so P is at most 32.
 template <typename T, typename V>
 int fold_column_run(const void *Tt, const void *C, const void *F, void *ah,
                     int M, int R, int L, int t, int offset, const double *Vg,
@@ -1127,9 +1197,10 @@ int fold_column_run(const void *Tt, const void *C, const void *F, void *ah,
     const bool devex = kv == SLICE_KV;
     const long long smem = slab_smem<T>(M, R, L, t, rows, RATIO_THREADS,
                                         stage);
-    if (P < 1 || (kv != 2 && !devex) || Vg == nullptr || Ig == nullptr ||
-        devex != (Wg != nullptr) || devex != (w != nullptr) ||
-        devex != (wh != nullptr) || smem < 0 || !allow_smem<kernel>(smem))
+    if (P < 1 || P > 32 || (kv != 2 && !devex) || Vg == nullptr ||
+        Ig == nullptr || devex != (Wg != nullptr) ||
+        devex != (w != nullptr) || devex != (wh != nullptr) || smem < 0 ||
+        !allow_smem<kernel>(smem))
         return (int)cudaErrorInvalidValue;
     return launch(kernel, cdiv(M, rows), RATIO_THREADS, smem, false, st,
                   static_cast<const T *>(Tt), static_cast<const T *>(C),
@@ -1211,10 +1282,10 @@ int eta_colk_launch(const void *Tt, void *C, void *F, void *costs, void *b,
 // The sharded plain blocked loop's kernels on a rank's slice Tt (M, R) from
 // global column ``offset`` (C (L, R), F (L, M), ah (M,) of the tableau's
 // dtype). eta_fold_column: V (P, kv) f64 and I (P, kv == 7 ? 3 : 2) int32
-// the gathered candidates; under devex (kv 7) W (P,) f64 the ranks'
-// largest weights, w (R,) the slice's weights and wh the weight at h, of
-// the vectors' dtype (all null without devex); ``rows`` and ``stage``
-// eta_ratio's plan.
+// the gathered candidates, P at most 32; under devex (kv 7) W (P,) f64
+// the ranks' largest weights, w (R,) the slice's weights and wh the weight
+// at h, of the vectors' dtype (all null without devex); ``rows`` and
+// ``stage`` eta_ratio's rows a block and slab rows a round.
 int eta_fold_column_launch(const void *Tt, const void *C, const void *F,
                            void *ah, int M, int R, int L, int t, int offset,
                            const double *V, const int *I, const double *W,
@@ -1242,22 +1313,17 @@ int eta_fold_column_launch(const void *Tt, const void *C, const void *F,
 }
 
 // The ratio test on the summed column ah (M,) of the tableau's dtype, b
-// (M,) of the vectors'; ``rows`` eta_ratio's plan, ws an eta_workspace.
+// (M,) of the vectors': one cluster, a programmatic dependent launch.
 int eta_ratio_summed_launch(const void *b, void *ah, int M, double eps,
-                            unsigned char *ws, long long ws_len,
-                            const void *step, int pair, int rows,
-                            void *stream) {
+                            const void *step, int pair, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (pair) {
     case PAIR_F64:
-        return ratio_summed_run<double, double>(b, ah, M, eps, ws, ws_len,
-                                                step, rows, st);
+        return ratio_summed_run<double, double>(b, ah, M, eps, step, st);
     case PAIR_MIXED:
-        return ratio_summed_run<float, double>(b, ah, M, eps, ws, ws_len,
-                                               step, rows, st);
+        return ratio_summed_run<float, double>(b, ah, M, eps, step, st);
     case PAIR_F32:
-        return ratio_summed_run<float, float>(b, ah, M, eps, ws, ws_len, step,
-                                              rows, st);
+        return ratio_summed_run<float, float>(b, ah, M, eps, step, st);
     }
     return (int)cudaErrorInvalidValue;
 }

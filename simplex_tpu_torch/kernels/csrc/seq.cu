@@ -121,6 +121,7 @@
 #include <string.h>
 
 #include "cluster.cuh"
+#include "ratio_cluster.cuh"
 #include "seq_step.cuh"
 #include "sharded_step.cuh"
 
@@ -138,6 +139,9 @@ using seq::first;
 using seq::inf;
 using seq::mul_rn;
 using seq::Ratio;
+using seq::ratio_cluster;
+using seq::ratio_rows;
+using seq::RatioShared;
 using seq::store;
 using seq::sub_rn;
 using seq::take_first;
@@ -176,53 +180,7 @@ __global__ void seq_step_pre_kernel(SeqStep<T, V> s, long long max_iter,
 }
 
 // ---------------------------------------------------------------------------
-// The ratio test and the pass, one thread's share.
-
-// This thread's rows of the ratio test (rows g, g + SPAN, ...), PER at a
-// time, b and the loads of a_h of the PER issued before any is waited
-// for: with GATHER a_h gathered from Tt's column h into ah, else read from
-// ah (the sharded loop's column, summed across the ranks); each row's
-// candidate folded into x and its eligibility into any. The first PER
-// rows' a_h and b stay in a0 and b0.
-template <typename T, typename V, int PER_, int SPAN, bool GATHER = true>
-__device__ __forceinline__ void ratio_rows(const T *__restrict__ Tt,
-                                           const V *__restrict__ b,
-                                           T *__restrict__ ah, int M, int R,
-                                           int h, T eps, int g,
-                                           Ratio<T, V> &x, bool &any,
-                                           T (&a0)[PER_], V (&b0)[PER_]) {
-    for (int j0 = g; j0 < M; j0 += PER_ * SPAN) {
-        T a[PER_];
-        V bj[PER_];
-#pragma unroll
-        for (int q = 0; q < PER_; ++q) {
-            const int j = j0 + q * SPAN;
-            if (j < M) {
-                bj[q] = b[j];
-                a[q] = GATHER ? Tt[(size_t)j * R + h] : ah[j];
-            }
-        }
-#pragma unroll
-        for (int q = 0; q < PER_; ++q) {
-            const int j = j0 + q * SPAN;
-            if (j < M) {
-                if (GATHER) ah[j] = a[q];
-                const bool mask = a[q] >= eps;
-                any |= mask;
-                take_first(x, Ratio<T, V>{mask ? div_rn(bj[q], (V)a[q])
-                                               : inf<V>(),
-                                          j, a[q], bj[q]});
-            }
-        }
-        if (j0 == g) {
-#pragma unroll
-            for (int q = 0; q < PER_; ++q) {
-                a0[q] = a[q];
-                b0[q] = bj[q];
-            }
-        }
-    }
-}
+// The pass, one thread's share (the ratio test's: ratio_cluster.cuh).
 
 // b and the factors of a done pivot over this thread's rows, PER at a
 // time: fac = a_h / p (T; stored with FAC); b -= bk * fac, b[k] = bk / p
@@ -340,61 +298,6 @@ __device__ __forceinline__ void copy_row(const float *__restrict__ row,
         }
     }
     if (g >= n4) between_loads();
-}
-
-// The ratio test over a cluster of NB blocks, every block folding every
-// block's result: this thread's rows (the first PER's a_h and b kept in a0
-// and b0), the block's fold, the block's result into every block's shared
-// memory (distributed shared memory) before one cluster barrier, the NB
-// results folded in one order, and the step between in each block's
-// thread 0 on its operands (active, optimal and minc: thread 0's); block 0
-// stores it. Every thread of the block gets it. The caller has arrived at
-// the cluster barrier (relaxed) before.
-template <typename T, typename V, int NB, int NW>
-struct RatioShared {
-    Ratio<T, V> warps[NW];
-    int wany[NW];
-    Ratio<T, V> parts[NB];
-    int pany[NB];
-    Between<T, V> held;
-};
-
-template <typename T, typename V, int NB, int NT, int PER_,
-          bool GATHER = true>
-__device__ __forceinline__ Between<T, V> ratio_cluster(
-        RatioShared<T, V, NB, NT / 32> &sh, const T *__restrict__ Tt,
-        const V *__restrict__ b, T *__restrict__ ah, int M, int R, int h,
-        double eps, bool active, bool optimal, V minc,
-        const SeqStep<T, V> &s, T (&a0)[PER_], V (&b0)[PER_]) {
-    constexpr int NW = NT / 32, SPAN = NB * NT;
-    static_assert(NW <= 32 && NB <= 32, "one warp folds the warps, blocks");
-    cg::cluster_group cl = cg::this_cluster();
-    const int rank = (int)cl.block_rank();
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
-    Ratio<T, V> x = none;
-    bool any = false;
-    ratio_rows<T, V, PER_, SPAN, GATHER>(Tt, b, ah, M, R, h, (T)eps,
-                                         rank * NT + tid, x, any, a0, b0);
-    block_fold<NW>(x, any, none, sh.warps, sh.wany);
-    cluster_wait();
-    if (warp == 0 && lane < NB) {
-        *cl.map_shared_rank(&sh.parts[rank], lane) = x;
-        *cl.map_shared_rank(&sh.pany[rank], lane) = any;
-    }
-    cluster_arrive();
-    cluster_wait();
-    if (warp == 0) {
-        x = warp_fold(lane < NB ? sh.parts[lane] : none);
-        any = __any_sync(FULL, lane < NB && sh.pany[lane] != 0);
-        if (lane == 0) {
-            const Between<T, V> w = between(x, any, active, optimal, minc);
-            sh.held = w;
-            if (rank == 0) store(s, w);
-        }
-    }
-    __syncthreads();
-    return sh.held;
 }
 
 // ---------------------------------------------------------------------------
@@ -660,7 +563,7 @@ int ratio_run(const void *Tt, const void *b, int M, int R, double eps,
     auto kernel = seq_ratio_kernel<T, V, CLUSTER_BLOCKS, CLUSTER_THREADS, PER>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
                           static_cast<const T *>(Tt),
                           static_cast<const V *>(b), M, R, eps,
                           static_cast<T *>(ah), step_of<T, V>(step));
@@ -681,7 +584,7 @@ int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
                                         CLUSTER_THREADS, PER, SHARDED>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
                           static_cast<const T *>(Tt), static_cast<V *>(costs),
                           static_cast<V *>(b), base, static_cast<T *>(ah),
                           static_cast<T *>(colk), static_cast<T *>(fac), M, R,
@@ -713,8 +616,8 @@ int ratio_snapshot_run(const float *Tt, float *b, int *base, float *ah,
                                             PER, PER>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st, Tt, b,
-                          base, ah, colk, M, R, eps,
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
+                          Tt, b, base, ah, colk, M, R, eps,
                           step_of<float, float>(step));
 }
 

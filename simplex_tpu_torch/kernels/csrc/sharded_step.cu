@@ -235,7 +235,7 @@ int launch_ratio(const ShardStep &s, const float *ah, const double *b, int M,
     auto kernel = sharded_ratio_kernel<NB, NT, PER>;
     static const cudaError_t e = allow_cluster(kernel, NB);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, NB, NT, st, s, ah, b, M, eps);
+    return launch_cluster(kernel, NB, NT, false, st, s, ah, b, M, eps);
 }
 
 __global__ void sharded_pack_kernel(ShardStep s, const float *w, int offset,

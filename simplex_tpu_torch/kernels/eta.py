@@ -33,7 +33,8 @@ every rank packed, as three kernels on the same plan:
   1e8), then ``eta_ratio``'s live column from the rank that owns h (zeros
   on the others), which an ``all_reduce`` sums in place;
 * ``eta_ratio_summed``: ``eta_ratio``'s ratio test and step between on
-  the summed column;
+  the summed column, as one thread-block cluster launched behind the
+  fold;
 * ``eta_colk_slice``: ``eta_colk`` on the slice, h global, its candidates
   packed into the send buffers (``pack_slice``: under devex on the new
   weights and on weights of 1, and the slice's largest weight) in place
@@ -536,7 +537,8 @@ def eta_fold_column(Tt, C, F, V, I, W, ah, w, wh, s: SeqScalars, t: int,
     hl] F[s]`` (hl = h - offset; ``eta_live``'s order and precision) where
     the slice owns h, else zeros. One launch on the card, on ``eta_plan``'s
     rows: one thread a row, each block's F slab sent for before the fold,
-    each block's thread 0 folding (block 0 storing the scalars)."""
+    one warp of each block folding the ranks (at most 32; block 0 storing
+    the scalars)."""
     M, R, L = _check(Tt, C, F, s, t, ah=ah)
     _check_slice_fold(V, I, W, w, wh, s, R)
     if not _on_card(Tt, C, F, V, I, W, ah, w, wh, s.status):
@@ -560,14 +562,14 @@ def eta_ratio_summed_plain(b, ah, s: SeqScalars, eps: float) -> None:
     _ratio_plain(b, s, ah, eps)
 
 
-def eta_ratio_summed(b, ah, s: SeqScalars, eps: float, R: int,
-                     ws=None) -> None:
+def eta_ratio_summed(b, ah, s: SeqScalars, eps: float) -> None:
     """``eta_ratio``'s ratio test and step between on the column the
     ``all_reduce`` summed into ``ah`` (``simplex_tpu/parallel/sharded.py:
-    441-447``): k, unb, do, p, bk and u into ``s``. ``R`` is the slice's
-    columns (the plan's and the workspace's); ``ws`` an
-    ``eta_workspace(M, R)``. One launch on the card: ``eta_ratio``'s grid
-    and fold, no slab."""
+    441-447``): k, unb, do, p, bk and u into ``s``. One launch on the card:
+    one thread-block cluster whose blocks fold over distributed shared
+    memory (the sequential sharded loop's ratio test), launched as a
+    programmatic dependent launch behind ``eta_fold_column``; no
+    workspace."""
     M = ah.shape[0]
     _expect(ah, "ah", s.p.dtype, (M,))
     _expect(b, "b", s.z.dtype, (M,))
@@ -576,12 +578,9 @@ def eta_ratio_summed(b, ah, s: SeqScalars, eps: float, R: int,
         return
     pair = _pair(s)
     lib, check = _lib()
-    if ws is None:
-        ws = eta_workspace(M, R, ah.device)
-    _check_ws(ws, M, R, ah.device)
     err = lib.eta_ratio_summed_launch(
-        _ptr(b), _ptr(ah), M, float(eps), _ptr(ws), ws.numel(),
-        ctypes.byref(_seq_ptrs(s)), pair, eta_grid(M, R)[0], _stream(ah))
+        _ptr(b), _ptr(ah), M, float(eps), ctypes.byref(_seq_ptrs(s)), pair,
+        _stream(ah))
     check(lib, err, "eta_ratio_summed")
     SLICE_LAUNCHES["eta_ratio_summed"] += 1
 

@@ -623,9 +623,10 @@ class ShardedBlockedLoop:
     caller's slice; ``C (L, R_loc)`` and ``F (L, M)`` the window's eta
     factors and ``ah`` the entering column (T); b, the slice's costs and
     base the loop's own copies, ``w`` the slice's devex weights (V; None
-    under the other rules); ``ws`` the kernels' workspace; ``send_v``,
-    ``send_i`` and ``recv_v``, ``recv_i`` the candidates' ``all_gather``
-    buffers (``kernels.eta.SLICE_PACK`` entries, and P rows of them);
+    under the other rules); ``ws`` ``eta_colk_slice``'s workspace;
+    ``send_v``, ``send_i`` and ``recv_v``, ``recv_i`` the candidates'
+    ``all_gather`` buffers (``kernels.eta.SLICE_PACK`` entries, and P rows
+    of them);
     under devex ``send_w``, ``recv_w`` the re-anchor's (the slice's largest
     weight, every rank's) and ``wh`` the weight at h; where the window
     ends in the exact re-pricing (an f32 tableau with ``costs0``) the
@@ -756,7 +757,7 @@ def run_blocked_pivot_sharded(loop: ShardedBlockedLoop, t: int,
                     loop.recv_w, loop.ah, loop.w, loop.wh, s, t, max_iter,
                     eps, sh.offset)
     all_reduce_(loop.ah, sh.group)
-    eta_ratio_summed(loop.b, loop.ah, s, eps, sh.R_loc, loop.ws)
+    eta_ratio_summed(loop.b, loop.ah, s, eps)
     eta_colk_slice(loop.Tt, loop.C, loop.F, loop.costs, loop.b, loop.base,
                    loop.w, loop.ah, s, t, loop.r_loc, eps, max_iter, loop.ws,
                    offset=sh.offset, wh=loop.wh, send_v=loop.send_v,

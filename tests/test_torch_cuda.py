@@ -2662,9 +2662,12 @@ def _slice_pivot(loops, t, opts, kernel: bool, cap: int) -> None:
     for lp in loops:
         lp.recv_v.copy_(V)
         lp.recv_i.copy_(I)
-        fold = ke.eta_fold_column if kernel else ke.eta_fold_column_plain
-        fold(lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
-             lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+        args = (lp.Tt, lp.C, lp.F, lp.recv_v, lp.recv_i, lp.recv_w, lp.ah,
+                lp.w, lp.wh, lp.s, t, cap, eps, lp.shard.offset)
+        if kernel:
+            ke.eta_fold_column(*args)
+        else:
+            ke.eta_fold_column_plain(*args)
     total = loops[0].ah.clone()
     for lp in loops[1:]:
         total += lp.ah
@@ -2675,8 +2678,7 @@ def _slice_pivot(loops, t, opts, kernel: bool, cap: int) -> None:
         out = dict(offset=lp.shard.offset, wh=lp.wh, send_v=lp.send_v,
                    send_i=lp.send_i, send_w=lp.send_w)
         if kernel:
-            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps, lp.shard.R_loc,
-                                lp.ws)
+            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps)
             ke.eta_colk_slice(*args, lp.ws, **out, **policy)
         else:
             ke.eta_ratio_summed_plain(lp.b, lp.ah, lp.s, eps)
@@ -2698,8 +2700,11 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
     skipped pivot), a NaN in b, no eligible row (the entering column made
     negative on its owner), a weight past the devex re-anchor's bound on
     the last rank only, a tie of the smallest cost across the first and
-    last slices, and plain taken pivots. Every scalar, slice, factor,
-    vector, weight and send buffer bit for bit."""
+    last slices, a NaN cost on the last slice (the fold's NaN key), under
+    devex a NaN weight at an eligible column of the last slice (a NaN key
+    and a NaN largest weight) alone and beside a weight past 1e8 on the
+    first slice (no re-anchor), and plain taken pivots. Every scalar,
+    slice, factor, vector, weight and send buffer bit for bit."""
     from simplex_tpu_torch.kernels import eta as ke
 
     (a_set, b_set), opts = _slice_sets(cuda, pair, rule, P)
@@ -2708,8 +2713,8 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
     kinds = set()
     for win in range(4):
         for t in range(L):
-            edge = (win * L + t) % 7
-            saved = []
+            edge = (win * L + t) % 10
+            saved, fixes = [], []
             for loops in (a_set, b_set):
                 first, last = loops[0], loops[-1]
                 for lp in loops:
@@ -2738,6 +2743,24 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
                     last.costs[0 if P > 1 else 1] = v
                     for lp in (first, last):
                         lp.pack(eps)
+                elif edge == 7 or (edge in (8, 9) and last.w is not None):
+                    live = last.costs[:last.r_loc]
+                    cols = torch.nonzero(live <= -eps).view(-1)
+                    j = int(cols[(win * 7 + t) % cols.numel()]) \
+                        if cols.numel() else 0
+                    put = [(last, "costs" if edge == 7 else "w", j,
+                            float("nan"))]
+                    if edge == 9:
+                        put.append((first, "w", 0 if P > 1 or j else 1, 3e8))
+                    for lp, name, k, v in put:
+                        x = getattr(lp, name)
+                        fixes.append((loops, lp, x, k, x[k].clone()))
+                        x[k] = v
+                        lp.pack(eps)
+                    if first.w is not None:
+                        W = torch.stack([lp.send_w for lp in loops])
+                        for lp in loops:
+                            lp.recv_w.copy_(W)
             _slice_pivot(a_set, t, opts, True, cap)
             _slice_pivot(b_set, t, opts, False, cap)
             for rank, (a, b) in enumerate(zip(a_set, b_set)):
@@ -2752,6 +2775,13 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
             kinds.add((bool(a_set[0].s.do), bool(a_set[0].s.unb), edge))
             for lp, loc, col in saved:
                 lp.Tt[:, loc] = col
+            for loops, lp, x, k, v in fixes:     # the NaN and 3e8 undone
+                x[k] = v
+                lp.pack(eps)
+                if lp.w is not None:
+                    W = torch.stack([q.send_w for q in loops])
+                    for q in loops:
+                        q.recv_w.copy_(W)
             for loops in (a_set, b_set):
                 for lp in loops:
                     lp.s.status.fill_(int(pst.Status.RUNNING))
@@ -2777,9 +2807,14 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
     slice at global offset 1,000 whose rows start off 16-byte boundaries,
     at t = 0, 1 and L - 1 (L = 13), with two ranks' gathered candidates
     whose fold lands on this slice or on the other, under devex (with and
-    without the re-anchor) and Dantzig: every scalar, the column, C[t],
-    F[t], b, the costs, base, the weights and the send buffers bit for
-    bit."""
+    without the re-anchor) and Dantzig; the fold picking this slice's
+    Bland candidate (its own send_i[1]) and, on a re-anchor, its candidate
+    on weights of 1 (send_i[2]) apart from its main one; a pick on the
+    slice's last column; and a NaN on the other rank -- its Dantzig cost,
+    its largest weight beside this rank's past 1e8 (no re-anchor), its
+    devex key -- which leaves the pick to this rank: every scalar, the
+    column, C[t], F[t], b, the costs, base, the weights and the send
+    buffers bit for bit."""
     from simplex_tpu_torch.kernels import eta as ke
 
     L, off = 13, 1000
@@ -2788,10 +2823,12 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
     i32 = dict(dtype=torch.int32, device=cuda)
     V = st0["costs"].dtype
     for t in (0, 1, L - 1):
-        for edge in range(4):
-            devex = edge != 3
+        for edge in range(10):
+            devex = edge not in (3, 7)
             mine = edge != 1
             h = off + (R * 5) // 7 if mine else off + R + 3
+            if edge == 6:                        # the slice's last column
+                h = off + R - 1
             key = 4.0 if mine else 9.0
             Vg = torch.tensor([[-0.5, -0.25, 1.5, 1.0, key, -0.5, key],
                                [-0.4, -0.2, 1.0, 1.0, 2.0, -0.4, 2.0]], **f64)
@@ -2799,7 +2836,16 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
                                                  off + R + 3]], **i32)
             if mine:
                 Ig[:, 0] = Ig[:, 2] = torch.tensor([h, off + R + 3])
-            Wg = torch.tensor([1.0, 3e8 if edge == 2 else 5.0], **f64)
+            if edge == 5:                        # on weights of 1: another
+                Ig[0, 2] = off + R // 3
+            Wg = torch.tensor([1.0, 3e8 if edge in (2, 5) else 5.0], **f64)
+            if edge == 7:                        # NaN: rank 0's main one
+                Vg[1, 0] = float("nan")
+            elif edge == 8:
+                Wg = torch.tensor([3e8, float("nan")], **f64)
+            elif edge == 9:
+                Vg[1, 4] = Vg[1, 6] = float("nan")
+            want = {4: off + 1, 5: off + R // 3}.get(edge, h)
             if not devex:
                 Vg, Ig, Wg = Vg[:, :2].contiguous(), Ig[:, :2].contiguous(), \
                     None
@@ -2809,6 +2855,7 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
                      for n, v in st0.items() if n != "s"}
                 s = type(st0["s"])(**{n: v.clone() for n, v in
                                       st0["s"].tensors().items()})
+                s.bland.fill_(edge == 4)
                 x["base"][(M * 2) // 3] = off + R // 2
                 kv, ki = ke.SLICE_PACK[devex]
                 w = x["w"] if devex else None
@@ -2816,15 +2863,15 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
                 send = (torch.zeros(kv, **f64), torch.zeros(ki, **i32),
                         torch.zeros((), **f64) if devex else None)
                 args = (x["Tt"], x["C"], x["F"])
-                fold = ke.eta_fold_column if kernel else \
-                    ke.eta_fold_column_plain
-                fold(*args, Vg, Ig, Wg, x["ah"], w, wh, s, t, 1000, 1e-9,
-                     off)
+                fold = (Vg, Ig, Wg, x["ah"], w, wh, s, t, 1000, 1e-9, off)
+                if kernel:
+                    ke.eta_fold_column(*args, *fold)
+                else:
+                    ke.eta_fold_column_plain(*args, *fold)
                 if not mine:
                     x["ah"].copy_(x["Tt"][:, 0])
                 if kernel:
-                    ke.eta_ratio_summed(x["b"], x["ah"], s, 1e-9, R,
-                                        x["ws"])
+                    ke.eta_ratio_summed(x["b"], x["ah"], s, 1e-9)
                     ke.eta_colk_slice(*args, x["costs"], x["b"], x["base"],
                                       w, x["ah"], s, t, R - 1, 1e-9, 1000,
                                       x["ws"], offset=off, wh=wh,
@@ -2839,13 +2886,63 @@ def test_slice_kernels_unaligned_on_card(cuda, pair, M, R):
                                             *send, False, 3)
                 outs.append((x, s, wh, send))
             (a, sa, wa, na), (b, sb, wb, nb) = outs
-            assert int(sa.h) == h and bool(sa.do)
+            assert int(sa.h) == want, (t, edge)
+            assert bool(sa.do) or edge >= 4, (t, edge)
             for name, v in sa.tensors().items():
                 assert _bits_equal(v, getattr(sb, name)), (t, edge, name)
             for name in ("ah", "C", "F", "b", "costs", "base", "w"):
                 assert _bits_equal(a[name], b[name]), (t, edge, name)
             for u, v in [(wa, wb), *zip(na, nb)]:
                 assert u is None or _bits_equal(u, v), (t, edge)
+
+
+#: Rows of the summed column past one pass of eta_ratio_summed's cluster
+#: (its threads times SUMMED_PER: 8,192 rows at 8 x 256, 16,384 at 16 x
+#: 256): the north star's 10,112 and 20,000.
+RATIO_PASS_ROWS = [10112, 20000]
+
+
+@pytest.mark.parametrize("M", RATIO_PASS_ROWS)
+@pytest.mark.parametrize("pair", sorted(SEQ_PAIRS))
+def test_ratio_summed_past_one_pass_on_card(cuda, pair, M):
+    """``eta_ratio_summed`` against its plain version on a summed column
+    longer than one pass of its cluster: a taken pivot, the smallest ratio
+    tied on a row of the first pass and one of the last, a NaN in b on
+    the last pass, no eligible row, and the fuse: every scalar bit for
+    bit."""
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    T, V = (getattr(torch, np.dtype(x).name) for x in SEQ_PAIRS[pair])
+    rng = np.random.default_rng(M)
+    ah0 = torch.from_numpy(rng.uniform(-1, 1, M)).to(cuda, T)
+    b0 = torch.from_numpy(rng.uniform(0, 1, M)).to(cuda, V)
+    for edge in range(5):
+        ah, b = ah0.clone(), b0.clone()
+        if edge == 1:                            # a tie across the passes
+            for j in (5, M - 3):
+                ah[j], b[j] = 1.0, 1e-6
+        elif edge == 2:
+            b[M - 7] = float("nan")
+        elif edge == 3:
+            ah.copy_(-ah.abs())
+        runs = []
+        for kernel in (True, False):
+            s = ks.seq_scalars(torch.zeros((), dtype=V, device=cuda), False,
+                               T)
+            s.active.fill_(edge != 4)
+            s.minc.fill_(-0.5)
+            s.h.fill_(3)
+            if kernel:
+                ke.eta_ratio_summed(b, ah, s, 1e-9)
+            else:
+                ke.eta_ratio_summed_plain(b, ah, s, 1e-9)
+            runs.append(s)
+        torch.cuda.synchronize()
+        if edge == 1:
+            assert int(runs[0].k) == 5
+        for name, v in runs[0].tensors().items():
+            assert _bits_equal(v, getattr(runs[1], name)), (edge, name)
 
 
 def _slice_tab(dev, group, pair, rule, L, n=300, m=100, seed=5):
@@ -2993,10 +3090,10 @@ def test_blocked_sharded_graph_fuse_is_exact_on_card(cuda, tmp_path, cap):
 
 def test_slice_kernels_refuse_on_card(cuda):
     """A launch the slice kernels refuse raises through the C entry
-    points: an empty shape, no ranks, a fold of another width, a devex
-    fold without its weights, t outside the window; the ratio test on no
-    rows, on a grid not of whole 16-byte chunks or with a short workspace;
-    the slice's pass without its send buffers or, under devex, without the
+    points: an empty shape, no ranks or more than a warp folds, a fold of
+    another width, a devex fold without its weights, t outside the window;
+    the ratio test on no rows; the
+    slice's pass without its send buffers or, under devex, without the
     weight at h; and a dtype pair with no kernel raises in the wrapper: no
     fallback."""
     from simplex_tpu_torch.kernels import _build
@@ -3021,20 +3118,17 @@ def test_slice_kernels_refuse_on_card(cuda):
     plan = ke.eta_plan(M, R, L, 8)
     p = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
     for m_, t, P, kv, Wp in ((0, 0, 1, 7, W), (M, L, 1, 7, W),
-                             (M, 0, 0, 7, W), (M, 0, 1, 5, W),
-                             (M, 0, 1, 7, None)):
+                             (M, 0, 0, 7, W), (M, 0, 33, 7, W),
+                             (M, 0, 1, 5, W), (M, 0, 1, 7, None)):
         err = lib.eta_fold_column_launch(
             p(Tt), p(C), p(F), p(ah), m_, R, L, t, 0, p(V), p(I), p(Wp), P,
             kv, p(w), p(wh), step, 10, 1e-9, 0, plan.rows, plan.stage_ratio,
             stream)
         with pytest.raises(RuntimeError, match="eta_fold_column: CUDA"):
             _build.check(lib, err, "eta_fold_column")
-    for m_, rows, nbytes in ((0, plan.rows, ws.numel()), (M, 3, ws.numel()),
-                             (M, plan.rows, 8)):
-        err = lib.eta_ratio_summed_launch(p(b), p(ah), m_, 1e-9, p(ws),
-                                          nbytes, step, 0, rows, stream)
-        with pytest.raises(RuntimeError, match="eta_ratio_summed: CUDA"):
-            _build.check(lib, err, "eta_ratio_summed")
+    err = lib.eta_ratio_summed_launch(p(b), p(ah), 0, 1e-9, step, 0, stream)
+    with pytest.raises(RuntimeError, match="eta_ratio_summed: CUDA"):
+        _build.check(lib, err, "eta_ratio_summed")
     send_v, send_w = torch.zeros(7, **f64), torch.zeros(1, **f64)
     send_i = torch.zeros(3, dtype=torch.int32, device=cuda)
     for sv, whp in ((None, wh), (send_v, None)):
@@ -3047,4 +3141,4 @@ def test_slice_kernels_refuse_on_card(cuda):
             _build.check(lib, err, "eta_colk_slice")
     odd = ks.seq_scalars(torch.zeros((), device=cuda), False, torch.float64)
     with pytest.raises(ValueError, match="no sequential kernel"):
-        ke.eta_ratio_summed(b.float(), ah, odd, 1e-9, R, ws)
+        ke.eta_ratio_summed(b.float(), ah, odd, 1e-9)

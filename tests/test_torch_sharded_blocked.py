@@ -263,6 +263,75 @@ def test_the_fold_is_fold_candidates_s():
     assert int(h_d) == 1
 
 
+#: (rule, case) of the fold's owner invariant: a plain draw, a re-anchor (a
+#: weight past 1e8 on the last slice only), a NaN key on the last slice (a
+#: NaN cost, or under devex a NaN weight at an eligible column: rank 0's
+#: candidate wins), a slice with no eligible column (no Bland candidate,
+#: ``BIG_INDEX``).
+OWNER_CASES = [("dantzig", "plain"), ("dantzig", "nan"), ("dantzig", "empty"),
+               ("devex", "plain"), ("devex", "reanchor"), ("devex", "nan"),
+               ("devex", "empty")]
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+@pytest.mark.parametrize("rule,case", OWNER_CASES,
+                         ids=[f"{r}-{c}" for r, c in OWNER_CASES])
+def test_fold_picks_one_of_its_owners_candidates(rule, case, P):
+    """Over seeded packs (``pack_slice``) of P slices, the h that
+    ``slice_fold`` and ``step_pre_plain`` pick, Bland on and off, lies on
+    exactly one slice and is one of that slice's own ``send_i`` entries:
+    so exactly one rank writes the live column, and the columns a rank's
+    own candidates select hold the one it picks (what sending for them
+    before the fold would rest on)."""
+    rng = np.random.default_rng(1000 * P + OWNER_CASES.index((rule, case)))
+    devex = rule == "devex"
+    kv, ki = ke.SLICE_PACK[devex]
+    R_loc, r_loc, eps = 9, 7, 1e-9
+    f64 = torch.float64
+    seen = set()
+    for trial in range(12):
+        packs = []
+        for rank in range(P):
+            costs = torch.tensor(rng.normal(size=R_loc))
+            w = torch.tensor(rng.uniform(1.0, 5.0, R_loc)) if devex else None
+            if case == "empty" and rank == P // 2:
+                costs = costs.abs() + 1.0
+            elif case == "nan" and rank == P - 1:
+                # Dantzig's key is the cost, devex's cost^2 / w.
+                col = int(rng.integers(r_loc))
+                if devex:
+                    costs[col], w[col] = -1.0, float("nan")
+                else:
+                    costs[col] = float("nan")
+            elif case == "reanchor" and rank == P - 1:
+                w[int(rng.integers(R_loc))] = 3e8
+            v, i = torch.empty(kv, dtype=f64), torch.empty(ki,
+                                                          dtype=torch.int32)
+            mx = torch.empty((), dtype=f64) if devex else None
+            ke.pack_slice(costs, w, r_loc, eps, rank * R_loc, v, i, mx)
+            packs.append((v, i, mx))
+        V = torch.stack([v for v, _, _ in packs])
+        I = torch.stack([i for _, i, _ in packs])
+        W = torch.stack([mx for _, _, mx in packs]) if devex else None
+        h_d, v_d, _, h_b, v_b, _, reset = ke.slice_fold(V, I, W)
+        assert bool(reset) == (case == "reanchor")
+        if case == "reanchor":                  # on weights of 1
+            assert int(h_d) in I[:, 2].tolist()
+        elif case == "nan":                     # a NaN key: rank 0's
+            assert int(h_d) == int(I[0, 0])
+        for bland in (False, True):
+            s = ks.seq_scalars(torch.tensor(0.0, dtype=f64), bland, f64)
+            ks.set_candidates(s, (h_d, v_d, h_b, v_b))
+            kb.step_pre_plain(s, MAX_ITER, eps)
+            h = int(s.h)
+            owners = [r for r in range(P) if 0 <= h - r * R_loc < R_loc]
+            assert len(owners) == 1, (trial, bland, h)
+            slot = I[owners[0]].tolist().index(h)
+            seen.add((bland, slot))
+    # Bland's candidate was picked too, not the main one alone.
+    assert (True, 1) in seen or case == "empty" and P == 1, seen
+
+
 def test_pack_is_entering_sharded_s(monkeypatch):
     """``pack_slice`` holds what ``entering_sharded`` gathered (values,
     riders and key, then global indices), with and without eligible
@@ -581,7 +650,7 @@ def test_slice_kernels_check_their_operands():
         ke.eta_fold_column(Tt, C, F, V, I, None, ah, None, None, s, L, 10,
                            1e-9, 0)
     with pytest.raises(ValueError, match="ah"):
-        ke.eta_ratio_summed(torch.zeros(M, dtype=T), ah.float(), s, 1e-9, R)
+        ke.eta_ratio_summed(torch.zeros(M, dtype=T), ah.float(), s, 1e-9)
     vec = dict(costs=torch.zeros(R, dtype=T), b=torch.zeros(M, dtype=T),
                base=torch.zeros(M, dtype=torch.int32), w=None, ah=ah)
     send = dict(send_v=torch.zeros(2, dtype=torch.float64),
@@ -661,13 +730,12 @@ def test_slice_launches_are_wired(monkeypatch, pair, devex):
     assert vals[17:22] == [77, 1e-9, pair_code, plan.rows, plan.stage_ratio]
 
     got, sig = _stub(monkeypatch, "eta_ratio_summed_launch")
-    ke.eta_ratio_summed(x["b"], x["ah"], s, 1e-9, R, x["ws"])
+    ke.eta_ratio_summed(x["b"], x["ah"], s, 1e-9)
     (args,) = got
     assert len(args) == len(sig)
     vals = _values(args)
-    assert vals[:6] == [ptr("b"), ptr("ah"), M, 1e-9, ptr("ws"),
-                        x["ws"].numel()]
-    assert vals[7:9] == [pair_code, plan.rows]
+    assert vals[:4] == [ptr("b"), ptr("ah"), M, 1e-9]
+    assert vals[5] == pair_code
 
     got, sig = _stub(monkeypatch, "eta_colk_slice_launch")
     ke.eta_colk_slice(x["Tt"], x["C"], x["F"], x["costs"], x["b"],

@@ -46,6 +46,27 @@
 // back), two rounds, the first and last given. The timed state is a taken
 // devex pivot; eta_colk is timed without the next step before, so every
 // call does the same work.
+//
+// First, the sharded plain blocked loop's head (``/tmp/eta_variants
+// slice`` runs this part alone, ~1 min): eta_fold_column -- the shipped
+// form (one warp folding), the form before it (slice_prior) and the others
+// (slice_forms: the rank's own candidates' columns sent for before the
+// fold, the fold in one warp or in thread 0) -- and eta_ratio_summed -- one
+// cluster of 8 or 16 blocks of 256 threads, with or without programmatic
+// dependent launch, and the form before it (eta_ratio's grid and ticket) --
+// checked byte for byte against the forms before them: the fold at P = 1
+// and 3 ranks' candidates from edge states (rank 0's main, Bland and
+// re-anchor candidates picked, Dantzig, another rank's pick, a NaN key, a
+// pick none of the rank's own candidates, a NaN Dantzig cost, a NaN
+// weight alone and beside one past 1e8) at t = 0, 1, L / 2 and L - 1,
+// L = 128 and 13, M x R = 2,048 x 6,144, 37 x 6,143, 2,047 x 3 and 10,112
+// x 257, the three pairs; the ratio test on a taken pivot, a NaN in b, no
+// eligible row and the fuse. Then, in f64 at t = 64, L = 128: the fold's
+// forms at P = 1 and 3, the ratio test's alone (also at the north star's
+// 10,112 rows), and the head -- the fold then the ratio test: the shipped
+// fold with each cluster form, the other folds with the shipped cluster --
+// in turns, at
+// 2,048 x 6,144 and 8,192 x 24,576.
 
 #include <algorithm>
 #include <cmath>
@@ -53,6 +74,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <utility>
 #include <vector>
 
 #include "../simplex_tpu_torch/kernels/csrc/eta.cu"
@@ -66,6 +88,526 @@
             std::exit(1);                                                  \
         }                                                                  \
     } while (0)
+
+// ---------------------------------------------------------------------------
+// The sharded plain blocked loop's two head kernels as the port launched
+// them before, verbatim (their helpers -- Slab and the workspace -- are the
+// shipped file's, unchanged; slice_fold, the one-thread fold, is kept
+// here): eta_ratio_summed on eta_ratio's
+// grid, its last block folding by an arrival ticket, launched without
+// programmatic dependent launch; eta_fold_column with the fold in each
+// block's thread 0 and the owner's column loaded after it. Built alone
+// (-DETA_VARIANTS_LIB -shared), this file is a library of these two with
+// C entry points, which chip_smoke.py times in turns with the shipped
+// kernels.
+
+namespace slice_prior {
+
+// The fold of V (P, kv) f64 and I (P, ki) int32 (pack_slice's layout;
+// kv = SLICE_KV under devex, else 2) and, under devex, Wg (P,) the ranks'
+// largest weights: reset when their largest passes 1e8 (a NaN anywhere
+// resets nothing, as torch's max propagates it); the main candidate from
+// the first rank with the largest key (the devex key on the new weights,
+// or on weights of 1 where reset; else -v_d; a NaN key anywhere: rank 0),
+// the Bland one from the first rank with the lowest global index
+// (parallel/sharded.py fold_candidates).
+__device__ __forceinline__ SliceFold slice_fold(const double *__restrict__ V,
+                                                const int *__restrict__ I,
+                                                const double *__restrict__ Wg,
+                                                int P, int kv) {
+    const bool devex = kv == SLICE_KV;
+    const int ki = devex ? SLICE_KI : 2;
+    bool reset = false;
+    if (devex) {
+        double mx = Wg[0];
+        bool nan = mx != mx;
+        for (int q = 1; q < P; ++q) {
+            const double x = Wg[q];
+            nan |= x != x;
+            if (x > mx) mx = x;
+        }
+        reset = !nan && mx > 1e8;
+    }
+    const bool ride = devex && !reset;           // the weights ride along
+    const int cv = reset ? 5 : 0, ck = reset ? 6 : 4, ci = reset ? 2 : 0;
+    SliceFold f{};
+    double mx = 0.0;
+    bool nan = false;
+    for (int q = 0; q < P; ++q) {
+        const double *v = V + (size_t)q * kv;
+        const int *ix = I + (size_t)q * ki;
+        const double key = devex ? v[ck] : -v[0];
+        nan |= key != key;
+        if (q == 0 || key > mx) {
+            mx = key;
+            f.h_d = ix[ci];
+            f.v_d = v[cv];
+            f.w_d = ride ? v[2] : 1.0;
+        }
+        if (q == 0 || ix[1] < f.h_b) {
+            f.h_b = ix[1];
+            f.v_b = v[1];
+            f.w_b = ride ? v[3] : 1.0;
+        }
+    }
+    if (nan) {                                   // the max is NaN: rank 0
+        f.h_d = I[ci];
+        f.v_d = V[cv];
+        f.w_d = ride ? V[2] : 1.0;
+    }
+    f.reset = reset;
+    return f;
+}
+
+// SUMMED (eta_ratio_summed, the sharded plain blocked loop's ratio test):
+// the column is the one the all_reduce summed into ``ah``, which each
+// owner thread reads; no slab, no h, no write of ah. Launched without
+// programmatic dependent launch (a collective precedes it).
+template <typename T, typename V, int NT, bool FIXED, bool SUMMED = false>
+__global__ void __launch_bounds__(NT) eta_ratio_kernel(
+        const T *__restrict__ Tt, const T *__restrict__ C,
+        const T *__restrict__ F, const V *__restrict__ b,
+        T *__restrict__ ah, int M, int R, int t, double eps, int rows,
+        int stage, int nbA, unsigned char *__restrict__ ws_bytes,
+        SeqStep<T, V> s) {
+    constexpr int NW = NT / 32;
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ Ratio<T, V> warps[NW];
+    __shared__ int wany[NW];
+    __shared__ bool last;
+    const WsA ws(ws_bytes, nbA);
+    const int tid = threadIdx.x;
+    const int j0 = blockIdx.x * rows;
+    const int nrow = min(rows, M - j0);
+    const int j = j0 + tid;                      // this thread's row
+    const bool row = tid < nrow;
+    T a = (T)0;
+    V bj = (V)0;
+    if constexpr (SUMMED) {
+        grid_wait();
+        grid_launch_next();
+        if (row) {
+            bj = b[j];
+            a = ah[j];
+        }
+    } else {
+        const int W = slab_width(rows, sizeof(T));
+        // The slab holds F's rows s < t - 1; the pivot before wrote
+        // F[t - 1], which each owner loads itself once that pivot is
+        // waited for.
+        const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, max(t - 1, 0),
+                                      stage, W, reinterpret_cast<T *>(dyn)};
+        T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, h]
+
+        // The block's F slab first (it does not depend on h), before the
+        // kernel before is waited for; then b, F[t - 1], h and what h
+        // selects.
+        slab.first();
+        grid_wait();
+        grid_launch_next();
+        bj = row ? b[j] : (V)0;
+        const T flast = row && t > 0 ? F[(size_t)(t - 1) * M + j] : (T)0;
+        const int h = min(*s.h, R - 1);
+        for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + h];
+        const T th = row ? Tt[(size_t)j * R + h] : (T)0;
+        __syncthreads();                         // cs
+
+        // a_h[j] = Tt[j, h] - sum_{s<t} C[s, h] F[s, j], s in order from 0,
+        // in f64.
+        double acc = slab.sum(cs);
+        if (row && t > 0)
+            acc = __dadd_rn(acc, __dmul_rn((double)cs[t - 1], (double)flast));
+        if (row) {
+            a = (T)__dsub_rn((double)th, acc);
+            ah[j] = a;
+        }
+    }
+
+    const Ratio<T, V> none{inf<V>(), BIG_INDEX, (T)0, (V)0};
+    Ratio<T, V> x = none;
+    bool any = false;
+    if (row) {
+        any = a >= (T)eps;
+        x = Ratio<T, V>{any ? div_rn(bj, (V)a) : inf<V>(), j, a, bj};
+    }
+    block_fold<NW>(x, any, none, warps, wany);
+    if (tid == 0) {
+        ws.q[blockIdx.x] = (double)x.q;
+        ws.a[blockIdx.x] = (double)x.a;
+        ws.b[blockIdx.x] = (double)x.b;
+        ws.j[blockIdx.x] = x.j;
+        ws.any[blockIdx.x] = any;
+        last = ticket(ws.counter) == (unsigned)nbA - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+
+    // The last block: every block has written its partial. The step
+    // between's operands (the step before wrote them), then the partials
+    // folded in the same order, read past L1.
+    __threadfence();
+    bool active = false, optimal = false;
+    V minc = (V)0;
+    if (tid == 0) {
+        active = *s.active != 0;
+        optimal = *s.optimal != 0;
+        minc = *s.minc;
+    }
+    x = none;
+    any = false;
+    for (int q = tid; q < nbA; q += NT) {
+        seq::take_first(x, Ratio<T, V>{(V)__ldcg(ws.q + q), __ldcg(ws.j + q),
+                                       (T)__ldcg(ws.a + q),
+                                       (V)__ldcg(ws.b + q)});
+        any |= __ldcg(ws.any + q) != 0;
+    }
+    block_fold<NW>(x, any, none, warps, wany);
+    if (tid == 0) {
+        seq::store(s, seq::between(x, any, active, optimal, minc));
+        *ws.counter = 0;                         // ready for the next call
+    }
+}
+
+template <typename T, typename V, int NT, bool FIXED>
+__global__ void __launch_bounds__(NT) eta_fold_column_kernel(
+        const T *__restrict__ Tt, const T *__restrict__ C,
+        const T *__restrict__ F, T *__restrict__ ah, int M, int R, int t,
+        int rows, int stage, int offset, const double *__restrict__ Vg,
+        const int *__restrict__ Ig, const double *__restrict__ Wg, int P,
+        int kv, V *__restrict__ w, V *__restrict__ wh, SeqStep<T, V> s,
+        long long max_iter, double eps) {
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int col;                          // h's local column, or -1
+    __shared__ bool reset;
+    const int tid = threadIdx.x;
+    const int j0 = blockIdx.x * rows;
+    const int nrow = min(rows, M - j0);
+    const int j = j0 + tid;                      // this thread's row
+    const bool row = tid < nrow;
+    const int W = slab_width(rows, sizeof(T));
+    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, t, stage, W,
+                                  reinterpret_cast<T *>(dyn)};
+    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;  // C[:t, hl]
+
+    // The block's F slab first (it does not depend on h), then the fold.
+    slab.first();
+    if (tid == 0) {
+        const int status = *s.status, iterations = *s.iterations;
+        const bool bland = *s.bland != 0;
+        const SliceFold f = slice_fold(Vg, Ig, Wg, P, kv);
+        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+        const bool use_b = bland && c.h_b < BIG_INDEX;
+        const long long loc = (long long)(use_b ? c.h_b : c.h_d) - offset;
+        col = loc >= 0 && loc < R ? (int)loc : -1;
+        reset = f.reset;
+        if (blockIdx.x == 0) {
+            *s.h_d = c.h_d;
+            *s.v_d = c.v_d;
+            *s.h_b = c.h_b;
+            *s.v_b = c.v_b;
+            seq::pre(s, status, iterations, bland, c, max_iter, eps);
+            if (wh != nullptr) *wh = (V)(use_b ? f.w_b : f.w_d);
+        }
+    }
+    __syncthreads();
+    if (w != nullptr && reset)
+        for (int q = blockIdx.x * NT + tid; q < R; q += gridDim.x * NT)
+            w[q] = (V)1;
+    const int hl = col;
+    if (hl < 0) {                                // another rank's column
+        cp_async_wait<0>();
+        if (row) ah[j] = (T)0;
+        return;
+    }
+    for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + hl];
+    const T th = row ? Tt[(size_t)j * R + hl] : (T)0;
+    __syncthreads();                             // cs
+
+    // a_h[j] = Tt[j, hl] - sum_{s<t} C[s, hl] F[s, j], s in order from 0,
+    // in f64 (eta_ratio's sum: the same products in the same order).
+    const double acc = slab.sum(cs);
+    if (row) ah[j] = (T)__dsub_rn((double)th, acc);
+}
+
+// The sharded loop's ratio test on the summed column: eta_ratio's grid of
+// ``rows`` rows a block and its fold, no slab; launched without
+// programmatic dependent launch.
+template <typename T, typename V>
+int ratio_summed_run(const void *b, void *ah, int M, double eps,
+                     unsigned char *ws, long long ws_len, const void *step,
+                     int rows, cudaStream_t st) {
+    if (M < 1 || !width_ok(rows, RATIO_THREADS))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows);
+    if (ws_len < (long long)ws_bytes(nbA, 0))
+        return (int)cudaErrorInvalidValue;
+    return launch(eta_ratio_kernel<T, V, RATIO_THREADS, true, true>, nbA,
+                  RATIO_THREADS, 0, false, st, static_cast<const T *>(nullptr),
+                  static_cast<const T *>(nullptr),
+                  static_cast<const T *>(nullptr), static_cast<const V *>(b),
+                  static_cast<T *>(ah), M, 1, 0, eps, rows, 1, nbA, ws,
+                  step_of<T, V>(step));
+}
+
+// eta_fold_column on eta_ratio's plan (rows a block, slab rows a round);
+// under devex (kv == SLICE_KV) the ranks' largest weights, the slice's
+// weights and the weight at h given, else none of them. Launched without
+// programmatic dependent launch (collectives precede it).
+template <typename T, typename V>
+int fold_column_run(const void *Tt, const void *C, const void *F, void *ah,
+                    int M, int R, int L, int t, int offset, const double *Vg,
+                    const int *Ig, const double *Wg, int P, int kv, void *w,
+                    void *wh, const void *step, long long max_iter,
+                    double eps, int rows, int stage, cudaStream_t st) {
+    constexpr auto kernel = eta_fold_column_kernel<T, V, RATIO_THREADS, true>;
+    const bool devex = kv == SLICE_KV;
+    const long long smem = slab_smem<T>(M, R, L, t, rows, RATIO_THREADS,
+                                        stage);
+    if (P < 1 || (kv != 2 && !devex) || Vg == nullptr || Ig == nullptr ||
+        devex != (Wg != nullptr) || devex != (w != nullptr) ||
+        devex != (wh != nullptr) || smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    return launch(kernel, cdiv(M, rows), RATIO_THREADS, smem, false, st,
+                  static_cast<const T *>(Tt), static_cast<const T *>(C),
+                  static_cast<const T *>(F), static_cast<T *>(ah), M, R, t,
+                  rows, stage, offset, Vg, Ig, Wg, P, kv,
+                  static_cast<V *>(w), static_cast<V *>(wh),
+                  step_of<T, V>(step), max_iter, eps);
+}
+
+}  // namespace slice_prior
+
+#ifdef ETA_VARIANTS_LIB
+
+extern "C" {
+
+// eta_fold_column_launch's operands (the form before its redesign).
+int prior_eta_fold_column_launch(const void *Tt, const void *C,
+                                 const void *F, void *ah, int M, int R,
+                                 int L, int t, int offset, const double *V,
+                                 const int *I, const double *W, int P, int kv,
+                                 void *w, void *wh, const void *step,
+                                 long long max_iter, double eps, int pair,
+                                 int rows, int stage, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return slice_prior::fold_column_run<double, double>(
+                Tt, C, F, ah, M, R, L, t, offset, V, I, W, P, kv, w, wh, step,
+                max_iter, eps, rows, stage, st);
+    case PAIR_MIXED:
+        return slice_prior::fold_column_run<float, double>(
+                Tt, C, F, ah, M, R, L, t, offset, V, I, W, P, kv, w, wh, step,
+                max_iter, eps, rows, stage, st);
+    case PAIR_F32:
+        return slice_prior::fold_column_run<float, float>(
+                Tt, C, F, ah, M, R, L, t, offset, V, I, W, P, kv, w, wh, step,
+                max_iter, eps, rows, stage, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// b ah M eps, an eta_workspace and its bytes, the scalars' pointers,
+// pair, eta_ratio's rows a block, stream.
+int prior_eta_ratio_summed_launch(const void *b, void *ah, int M, double eps,
+                                  unsigned char *ws, long long ws_len,
+                                  const void *step, int pair, int rows,
+                                  void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return slice_prior::ratio_summed_run<double, double>(
+                b, ah, M, eps, ws, ws_len, step, rows, st);
+    case PAIR_MIXED:
+        return slice_prior::ratio_summed_run<float, double>(
+                b, ah, M, eps, ws, ws_len, step, rows, st);
+    case PAIR_F32:
+        return slice_prior::ratio_summed_run<float, float>(
+                b, ah, M, eps, ws, ws_len, step, rows, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"
+
+#else  // the program
+
+// ---------------------------------------------------------------------------
+// The head's forms the port does not ship, timed against its own.
+
+namespace slice_forms {
+
+// eta_fold_column with the fold in one warp (WARP; slice_fold_warp) or in
+// thread 0 (slice_prior::slice_fold), and with the rank's own candidates'
+// columns sent for before the fold (PREFETCH: Tt's into registers, C's
+// into a slot a candidate beside the slab) or h's column loaded after it
+// (PR 25's order). In every form non-owners store their zeros before they
+// wait for their slab, and the ratio test may launch once the fold is done.
+template <typename T, typename V, int NT, bool FIXED, bool PREFETCH,
+          bool WARP>
+__global__ void __launch_bounds__(NT) fold_kernel(
+        const T *__restrict__ Tt, const T *__restrict__ C,
+        const T *__restrict__ F, T *__restrict__ ah, int M, int R, int t,
+        int rows, int stage, int offset, const double *__restrict__ Vg,
+        const int *__restrict__ Ig, const double *__restrict__ Wg, int P,
+        int kv, const int *__restrict__ own, V *__restrict__ w,
+        V *__restrict__ wh, SeqStep<T, V> s, long long max_iter,
+        double eps) {
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int col, slot;     // h's local column and its slot, or -1
+    __shared__ bool reset;
+    const int tid = threadIdx.x;
+    const int j0 = blockIdx.x * rows;
+    const int nrow = min(rows, M - j0);
+    const int j = j0 + tid;                      // this thread's row
+    const bool row = tid < nrow;
+    const int W = slab_width(rows, sizeof(T));
+    const Slab<T, NT, FIXED> slab{F, (size_t)M, j0, nrow, t, stage, W,
+                                  reinterpret_cast<T *>(dyn)};
+    const int ki = kv == SLICE_KV ? SLICE_KI : 2;
+    const size_t cw = round16((long long)t * sizeof(T)) / sizeof(T);
+    T *cs = slab.buf + (size_t)min(t, 2 * stage) * W;
+
+    slab.first();
+    RankPack pk{};
+    int status = 0, iterations = 0;
+    bool bland = false;
+    if (WARP && tid < 32) pk = rank_pack(Vg, Ig, Wg, P, kv);
+    if (tid == 0) {
+        status = *s.status;
+        iterations = *s.iterations;
+        bland = *s.bland != 0;
+    }
+    int loc[SLICE_KI];                           // local columns, or -1
+    T th[SLICE_KI];
+#pragma unroll
+    for (int c = 0; c < SLICE_KI; ++c) {
+        const long long l =
+                PREFETCH && c < ki ? (long long)own[c] - offset : -1;
+        loc[c] = l >= 0 && l < R ? (int)l : -1;
+        th[c] = (T)0;
+        bool fresh = loc[c] >= 0;
+#pragma unroll
+        for (int e = 0; e < c; ++e) fresh &= loc[e] != loc[c];
+        if (fresh) {
+            if (row) th[c] = Tt[(size_t)j * R + loc[c]];
+            for (int q = tid; q < t; q += NT)
+                cp_async_elem<sizeof(T)>(cs + c * cw + q,
+                                         C + (size_t)q * R + loc[c]);
+        }
+    }
+    if (PREFETCH) cp_async_commit();
+
+    if (tid < 32) {
+        SliceFold f{};
+        if constexpr (WARP)
+            f = slice_fold_warp(pk, P, kv);
+        else if (tid == 0)
+            f = slice_prior::slice_fold(Vg, Ig, Wg, P, kv);
+        if (tid == 0) {
+            const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+            const bool use_b = bland && c.h_b < BIG_INDEX;
+            const long long l = (long long)(use_b ? c.h_b : c.h_d) - offset;
+            const int hl = l >= 0 && l < R ? (int)l : -1;
+            int sl = -1;
+#pragma unroll
+            for (int e = SLICE_KI - 1; e >= 0; --e)
+                if (hl >= 0 && loc[e] == hl) sl = e;
+            col = hl;
+            slot = sl;
+            reset = f.reset;
+            if (blockIdx.x == 0) {
+                *s.h_d = c.h_d;
+                *s.v_d = c.v_d;
+                *s.h_b = c.h_b;
+                *s.v_b = c.v_b;
+                seq::pre(s, status, iterations, bland, c, max_iter, eps);
+                if (wh != nullptr) *wh = (V)(use_b ? f.w_b : f.w_d);
+            }
+        }
+    }
+    __syncthreads();
+    grid_launch_next();
+    if (w != nullptr && reset)
+        for (int q = blockIdx.x * NT + tid; q < R; q += gridDim.x * NT)
+            w[q] = (V)1;
+    const int hl = col, sl = slot;
+    if (hl < 0) {                                // another rank's column
+        if (row) ah[j] = (T)0;
+        cp_async_wait<0>();
+        return;
+    }
+    T th_h;
+    const T *ch;
+    if (sl >= 0) {
+        th_h = sl == 0 ? th[0] : sl == 1 ? th[1] : th[2];
+        ch = cs + sl * cw;
+        cp_async_wait<0>();
+    } else {
+        if (PREFETCH) {          // into slot 0, once every copy has landed
+            cp_async_wait<0>();
+            __syncthreads();
+        }
+        for (int q = tid; q < t; q += NT) cs[q] = C[(size_t)q * R + hl];
+        th_h = row ? Tt[(size_t)j * R + hl] : (T)0;
+        ch = cs;
+    }
+    const double acc = slab.sum(ch);
+    if (row) ah[j] = (T)__dsub_rn((double)th_h, acc);
+}
+
+// slab_smem with ``coefs`` slots of t coefficients beside the slab's
+// rounds (a candidate's each, under PREFETCH).
+template <typename T>
+long long fold_smem(int M, int R, int L, int t, int width, int stage,
+                    int coefs) {
+    const int item = sizeof(T);
+    if (slab_smem<T>(M, R, L, t, width, RATIO_THREADS, stage) < 0 ||
+        2LL * stage * slab_width(width, item) * item +
+                        coefs * round16((long long)L * item) >
+                BLOCK_SMEM - SMEM_RESERVE)
+        return -1;
+    return smem_bytes(width, stage, t, item) +
+           (coefs - 1) * round16((long long)t * item);
+}
+
+template <typename T, typename V, bool PREFETCH, bool WARP>
+int fold_run(const void *Tt, const void *C, const void *F, void *ah, int M,
+             int R, int L, int t, int offset, const double *Vg, const int *Ig,
+             const double *Wg, int P, int kv, const int *own, void *w,
+             void *wh, const void *step, long long max_iter, double eps,
+             int rows, int stage, cudaStream_t st) {
+    constexpr auto kernel =
+            fold_kernel<T, V, RATIO_THREADS, true, PREFETCH, WARP>;
+    const bool devex = kv == SLICE_KV;
+    const long long smem = fold_smem<T>(
+            M, R, L, t, rows, stage, PREFETCH ? (devex ? SLICE_KI : 2) : 1);
+    if (P < 1 || (WARP && P > 32) || (kv != 2 && !devex) || smem < 0 ||
+        !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    return launch(kernel, cdiv(M, rows), RATIO_THREADS, smem, false, st,
+                  static_cast<const T *>(Tt), static_cast<const T *>(C),
+                  static_cast<const T *>(F), static_cast<T *>(ah), M, R, t,
+                  rows, stage, offset, Vg, Ig, Wg, P, kv, own,
+                  static_cast<V *>(w), static_cast<V *>(wh),
+                  step_of<T, V>(step), max_iter, eps);
+}
+
+// The ratio test as one cluster of NB blocks, with or without
+// programmatic dependent launch.
+template <typename T, typename V, int NB>
+int ratio_run(const void *b, void *ah, int M, double eps, const void *step,
+              bool pdl, cudaStream_t st) {
+    auto kernel = eta_ratio_summed_kernel<T, V, NB, SUMMED_THREADS,
+                                          SUMMED_PER>;
+    static const cudaError_t e = allow_cluster(kernel, NB);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, NB, SUMMED_THREADS, pdl, st,
+                          static_cast<const V *>(b), static_cast<T *>(ah), M,
+                          eps, step_of<T, V>(step));
+}
+
+}  // namespace slice_forms
 
 // ---------------------------------------------------------------------------
 // The kernels the port launched before, verbatim (their helpers, the
@@ -928,13 +1470,402 @@ void timing(const char *pair, int M, int R) {
     release(p);
 }
 
+
+// ---------------------------------------------------------------------------
+// The sharded plain blocked loop's head (``slice``): eta_fold_column and
+// eta_ratio_summed against the forms before them (slice_prior), byte for
+// byte, then timed in turns.
+
+// The gathered candidates of P ranks (this slice is rank 0's, global
+// columns [0, R); rank q > 0 holds columns past R) and the rank's own.
+struct SliceCands {
+    double *V, *W;
+    int *I, *own;
+    void *wh;
+    int P, kv;
+};
+
+// The fold's edge states: 0 devex, rank 0's main candidate wins; 1 Bland
+// on, rank 0's Bland candidate (the lowest index); 2 a re-anchor (the last
+// rank's largest weight 3e8), rank 0's candidate on weights of 1, apart
+// from its main one; 3 Dantzig; 4 another rank's candidate wins (zeros
+// here); 5 a NaN key on the last rank (rank 0's); 6 the pick none of the
+// rank's own candidates (loaded after the fold); 7 Dantzig with a NaN cost
+// on the last rank; 8 a NaN largest weight on the last rank (no re-anchor);
+// 9 a NaN largest weight beside one past 1e8 (no re-anchor either).
+constexpr int SLICE_EDGES = 10;
+
+template <typename T, typename V>
+SliceCands slice_cands(Prob<T, V> &p, int P, int edge) {
+    SliceCands x{};
+    x.P = P;
+    const bool devex = edge != 3 && edge != 7;
+    x.kv = devex ? 7 : 2;
+    const int ki = devex ? 3 : 2, R = p.R;
+    std::vector<double> v(P * x.kv), w(P, 1.5);
+    std::vector<int> ix(P * ki);
+    for (int q = 0; q < P; ++q) {
+        double key = q == 0 ? 4.0 : 2.0 - 0.1 * q;
+        if (edge == 4 && q == P - 1) key = 9.0;
+        if (edge == 5 && q == P - 1) key = NAN;
+        const double vd = edge == 7 && q == P - 1 ? NAN : -0.5 + 0.01 * q;
+        const double vals[7] = {vd, -0.25, 1.5, 1.25, key, -0.4, key};
+        const int h = q == 0 ? (R * 5) / 7 : R + 3 + 10 * q;
+        const int cols[3] = {h, q == 0 ? 1 : R + 5 + 10 * q,
+                             q == 0 && edge == 2 ? R / 3 : h};
+        for (int e = 0; e < x.kv; ++e) v[q * x.kv + e] = vals[e];
+        for (int e = 0; e < ki; ++e) ix[q * ki + e] = cols[e];
+    }
+    if (edge == 2) w[P - 1] = 3e8;
+    if (edge == 8 || edge == 9) w[P - 1] = NAN;
+    if (edge == 9) w[0] = 3e8;
+    std::vector<int> own(ix.begin(), ix.begin() + ki);
+    if (edge == 6) std::fill(own.begin(), own.end(), 0);
+    CK(cudaMalloc(&x.V, v.size() * sizeof(double)));
+    CK(cudaMalloc(&x.W, P * sizeof(double)));
+    CK(cudaMalloc(&x.I, ix.size() * sizeof(int)));
+    CK(cudaMalloc(&x.own, ki * sizeof(int)));
+    CK(cudaMalloc(&x.wh, sizeof(V)));
+    CK(cudaMemcpy(x.V, v.data(), v.size() * sizeof(double),
+                  cudaMemcpyHostToDevice));
+    CK(cudaMemcpy(x.W, w.data(), P * sizeof(double), cudaMemcpyHostToDevice));
+    CK(cudaMemcpy(x.I, ix.data(), ix.size() * sizeof(int),
+                  cudaMemcpyHostToDevice));
+    CK(cudaMemcpy(x.own, own.data(), ki * sizeof(int),
+                  cudaMemcpyHostToDevice));
+    CK(cudaMemset(x.wh, 0, sizeof(V)));
+    return x;
+}
+
+void release(SliceCands &x) {
+    for (void *d : {(void *)x.V, (void *)x.W, (void *)x.I, (void *)x.own,
+                    x.wh})
+        CK(cudaFree(d));
+}
+
+// The scalars a pivot's head starts from.
+template <typename T, typename V>
+void head_state(Prob<T, V> &p, int edge) {
+    std::fill(p.h_scal.begin(), p.h_scal.end(), 0);
+    p.set(STATUS, (int)seq::RUNNING);
+    p.set(ITERS, 3);
+    p.set(BLAND, (unsigned char)(edge == 1));
+    p.set(Z, (V)0.25);
+}
+
+// eta_fold_column's slab rows a round: as many as fit beside ``coefs``
+// columns of coefficients, at most 128 (kernels/eta.py eta_stage).
+int fold_stage(int width, int L, int item, int coefs) {
+    const long long row = (long long)slab_width(width, item) * item;
+    const long long room =
+            BLOCK_SMEM - SMEM_RESERVE - coefs * round16((long long)L * item);
+    return (int)std::min<long long>(128, room / (2 * row));
+}
+
+// The fold's forms: before (slice_prior), the shipped one (one warp
+// folding, h's column loaded after the fold), and the rank's own
+// candidates' columns sent for before the fold, folding in thread 0 or in
+// one warp.
+const char *const FOLD_FORMS[] = {"before", "shipped", "pf+thread0",
+                                  "pf+warp"};
+constexpr int NFOLD = 4;
+
+template <typename T, typename V>
+int fold_form(int form, Prob<T, V> &p, const SliceCands &x, int t,
+              const SeqStep<T, V> &s, cudaStream_t st) {
+    int rows, cols;
+    old_grid(p.M, p.R, rows, cols);
+    const bool devex = x.kv == 7;
+    void *w = devex ? p.w : nullptr;
+    void *wh = devex ? x.wh : nullptr;
+    const double *W = devex ? x.W : nullptr;
+    const int one = fold_stage(rows, p.L, sizeof(T), 1);
+    const int three = fold_stage(rows, p.L, sizeof(T), 3);
+    switch (form) {
+    case 0:
+        return slice_prior::fold_column_run<T, V>(
+                p.Tt, p.C, p.F, p.ah, p.M, p.R, p.L, t, 0, x.V, x.I, W, x.P,
+                x.kv, w, wh, &s, 1000, 1e-9, rows, one, st);
+    case 1:
+        return fold_column_run<T, V>(p.Tt, p.C, p.F, p.ah, p.M, p.R, p.L, t,
+                                     0, x.V, x.I, W, x.P, x.kv, w, wh, &s,
+                                     1000, 1e-9, rows, one, st);
+    case 2:
+        return slice_forms::fold_run<T, V, true, false>(
+                p.Tt, p.C, p.F, p.ah, p.M, p.R, p.L, t, 0, x.V, x.I, W, x.P,
+                x.kv, x.own, w, wh, &s, 1000, 1e-9, rows, three, st);
+    }
+    return slice_forms::fold_run<T, V, true, true>(
+            p.Tt, p.C, p.F, p.ah, p.M, p.R, p.L, t, 0, x.V, x.I, W, x.P, x.kv,
+            x.own, w, wh, &s, 1000, 1e-9, rows, three, st);
+}
+
+// The ratio test's forms: 0 before (eta_ratio's grid, the ticket), then
+// one cluster of 8 or 16 blocks, with or without programmatic dependent
+// launch.
+struct RatioForm {
+    const char *name;
+    int nb;
+    bool pdl;
+};
+const RatioForm RATIO_FORMS[] = {{"before", 0, false}, {"c8", 8, false},
+                                 {"c16", 16, false}, {"c8-pdl", 8, true},
+                                 {"c16-pdl", 16, true}};
+
+template <typename T, typename V>
+int ratio_summed_form(const RatioForm &f, Prob<T, V> &p, double eps,
+                      const SeqStep<T, V> &s, cudaStream_t st) {
+    if (f.nb == 0) {
+        int rows, cols;
+        old_grid(p.M, p.R, rows, cols);
+        return slice_prior::ratio_summed_run<T, V>(p.b, p.ah, p.M, eps, p.ws,
+                                                   p.ws_len, &s, rows, st);
+    }
+    if (f.nb == 8)
+        return slice_forms::ratio_run<T, V, 8>(p.b, p.ah, p.M, eps, &s,
+                                               f.pdl, st);
+    return slice_forms::ratio_run<T, V, 16>(p.b, p.ah, p.M, eps, &s, f.pdl,
+                                            st);
+}
+
+// What a head writes, as bytes: the scalars, ah, the weights, wh and the
+// workspace's first counter.
+template <typename T, typename V>
+std::vector<unsigned char> head_out(const Prob<T, V> &p, const SliceCands &x) {
+    std::vector<unsigned char> out;
+    auto grab = [&](const void *d, size_t n) {
+        const size_t at = out.size();
+        out.resize(at + n);
+        CK(cudaMemcpy(out.data() + at, d, n, cudaMemcpyDeviceToHost));
+    };
+    CK(cudaDeviceSynchronize());
+    grab(p.scal, 16 * NSCAL);
+    grab(p.ah, p.M * sizeof(T));
+    grab(p.w, p.R * sizeof(V));
+    grab(x.wh, sizeof(V));
+    grab(p.ws, 4);
+    return out;
+}
+
+template <typename T, typename V>
+void slice_check(const char *pair, int M, int R, int L) {
+    Prob<T, V> p = make<T, V>(M, R, L, 41 + M + R + L);
+    int n = 0;
+    for (int P : {1, 3}) {
+        for (int t : {0, 1, L / 2, L - 1}) {
+            for (int edge = 0; edge < SLICE_EDGES; ++edge) {
+                if (P == 1 && edge == 4) continue;
+                SliceCands x = slice_cands(p, P, edge);
+                head_state(p, edge);
+                std::vector<unsigned char> want;
+                for (int form = 0; form < NFOLD; ++form) {
+                    reset(p, t);
+                    const SeqStep<T, V> s = p.step();
+                    CK(fold_form(form, p, x, t, s, 0));
+                    const auto got = head_out(p, x);
+                    if (form == 0) {
+                        want = got;
+                    } else {
+                        ++n;
+                        if (got != want) {
+                            ++failures;
+                            std::printf("MISMATCH fold %s M=%d R=%d L=%d "
+                                        "P=%d t=%d edge %d form %d\n",
+                                        pair, M, R, L, P, t, edge, form);
+                        }
+                    }
+                }
+                release(x);
+            }
+        }
+    }
+    // The ratio test on a random summed column: a taken pivot, a NaN in b,
+    // no eligible row, the fuse.
+    double *scratch;
+    CK(cudaMalloc(&scratch, (size_t)M * sizeof(double)));
+    for (int edge = 0; edge < 4; ++edge) {
+        head_state(p, 0);
+        p.set(ACTIVE, (unsigned char)(edge != 3));
+        p.set(MINC, (V)-0.5);
+        const double eps = edge == 2 ? 1e30 : 1e-9;
+        std::vector<unsigned char> want;
+        for (const RatioForm &f : RATIO_FORMS) {
+            reset(p, 0);
+            fill(p.ah, M, 91, -1.0, 1.0, scratch);
+            if (edge == 1) {
+                const V nan = (V)NAN;
+                CK(cudaMemcpy(p.b + (M * 3) / 5, &nan, sizeof nan,
+                              cudaMemcpyHostToDevice));
+            }
+            const SeqStep<T, V> s = p.step();
+            CK(ratio_summed_form(f, p, eps, s, 0));
+            CK(cudaDeviceSynchronize());
+            std::vector<unsigned char> got(16 * NSCAL + 4);
+            CK(cudaMemcpy(got.data(), p.scal, 16 * NSCAL,
+                          cudaMemcpyDeviceToHost));
+            CK(cudaMemcpy(got.data() + 16 * NSCAL, p.ws, 4,
+                          cudaMemcpyDeviceToHost));
+            if (f.nb == 0) {
+                want = got;
+            } else {
+                ++n;
+                if (got != want) {
+                    ++failures;
+                    std::printf("MISMATCH ratio_summed %s M=%d edge %d %s\n",
+                                pair, M, edge, f.name);
+                }
+            }
+        }
+    }
+    CK(cudaFree(scratch));
+    std::printf("slice check %s M=%d R=%d L=%d: %d heads byte for byte\n",
+                pair, M, R, L, n);
+    release(p);
+}
+
+// us a call of each form in turns (graphs of 50 calls): the fold at P = 1
+// and 3 (at t = 0, 64 and 127), the ratio test alone, and the head -- the
+// fold then the ratio test, as a pivot runs them at one rank -- at t = 64,
+// L = 128, f64, on a taken devex pivot.
+void slice_timing(int M, int R) {
+    using T = double;
+    using V = double;
+    const int L = 128, t = 64;
+    Prob<T, V> p = make<T, V>(M, R, L, 7);
+    cudaStream_t st;
+    CK(cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking));
+    for (int P : {1, 3})
+        for (int tf : {0, t, L - 1}) {
+            SliceCands x = slice_cands(p, P, 0);
+            head_state(p, 0);
+            reset(p, tf);
+            const SeqStep<T, V> s = p.step();
+            std::vector<cudaGraphExec_t> gs;
+            for (int form = 0; form < NFOLD; ++form)
+                gs.push_back(capture(st, [&] {
+                    return fold_form(form, p, x, tf, s, st);
+                }));
+            std::vector<float> a, b;
+            turns(gs, st, a, b);
+            for (int form = 0; form < NFOLD; ++form)
+                std::printf("time eta_fold_column f64 M=%d R=%d L=%d t=%d "
+                            "P=%d %-10s: %.3f %.3f us\n",
+                            M, R, L, tf, P, FOLD_FORMS[form], a[form],
+                            b[form]);
+            for (auto g : gs) CK(cudaGraphExecDestroy(g));
+            release(x);
+        }
+    SliceCands x = slice_cands(p, 1, 0);
+    head_state(p, 0);
+    reset(p, t);
+    const SeqStep<T, V> s = p.step();
+    CK(fold_form(1, p, x, t, s, st));            // a taken pivot's column
+    CK(cudaStreamSynchronize(st));
+    std::vector<cudaGraphExec_t> gs;
+    const int nr = sizeof RATIO_FORMS / sizeof RATIO_FORMS[0];
+    for (const RatioForm &f : RATIO_FORMS)
+        if (!f.pdl)
+            gs.push_back(capture(st, [&] {
+                return ratio_summed_form(f, p, 1e-9, s, st);
+            }));
+    std::vector<float> a, b;
+    turns(gs, st, a, b);
+    int v = 0;
+    for (const RatioForm &f : RATIO_FORMS)
+        if (!f.pdl) {
+            std::printf("time eta_ratio_summed f64 M=%d %-8s alone: %.3f "
+                        "%.3f us\n", M, f.name, a[v], b[v]);
+            ++v;
+        }
+    for (auto g : gs) CK(cudaGraphExecDestroy(g));
+    gs.clear();
+    // The head: the fold before with the ratio test before; the shipped
+    // fold with each cluster, with and without programmatic dependent
+    // launch.
+    // The other folds with the shipped cluster (16 blocks, PDL).
+    std::vector<std::string> names;
+    std::vector<std::pair<int, const RatioForm *>> heads;
+    for (int r = 0; r < nr; ++r)
+        heads.push_back({RATIO_FORMS[r].nb == 0 ? 0 : 1, &RATIO_FORMS[r]});
+    for (int form = 2; form < NFOLD; ++form)
+        heads.push_back({form, &RATIO_FORMS[nr - 1]});
+    for (const auto &hd : heads) {
+        const int form = hd.first;
+        const RatioForm &f = *hd.second;
+        names.push_back(std::string(FOLD_FORMS[form]) + "+" + f.name);
+        gs.push_back(capture(st, [&] {
+            const int e = fold_form(form, p, x, t, s, st);
+            return e ? e : ratio_summed_form(f, p, 1e-9, s, st);
+        }));
+    }
+    turns(gs, st, a, b);
+    for (size_t r = 0; r < heads.size(); ++r)
+        std::printf("time head f64 M=%d R=%d L=%d t=%d %-18s: %.3f %.3f us "
+                    "a pivot\n", M, R, L, t, names[r].c_str(), a[r], b[r]);
+    for (auto g : gs) CK(cudaGraphExecDestroy(g));
+    release(x);
+    CK(cudaStreamDestroy(st));
+    release(p);
+}
+
+// The ratio test alone at the north star's rows (past one pass of 8 x 256
+// x 4), in turns.
+void ratio_rows_timing(int M) {
+    Prob<double, double> p = make<double, double>(M, 3, 2, 9);
+    double *scratch;
+    CK(cudaMalloc(&scratch, (size_t)M * sizeof(double)));
+    fill(p.ah, M, 91, -1.0, 1.0, scratch);
+    CK(cudaFree(scratch));
+    head_state(p, 0);
+    p.set(ACTIVE, (unsigned char)1);
+    p.set(MINC, -0.5);
+    reset(p, 0);
+    const SeqStep<double, double> s = p.step();
+    cudaStream_t st;
+    CK(cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking));
+    std::vector<cudaGraphExec_t> gs;
+    std::vector<const char *> names;
+    for (const RatioForm &f : RATIO_FORMS)
+        if (!f.pdl) {
+            names.push_back(f.name);
+            gs.push_back(capture(st, [&] {
+                return ratio_summed_form(f, p, 1e-9, s, st);
+            }));
+        }
+    std::vector<float> a, b;
+    turns(gs, st, a, b);
+    for (size_t v = 0; v < gs.size(); ++v)
+        std::printf("time eta_ratio_summed f64 M=%d %-8s alone: %.3f %.3f "
+                    "us\n", M, names[v], a[v], b[v]);
+    for (auto g : gs) CK(cudaGraphExecDestroy(g));
+    CK(cudaStreamDestroy(st));
+    release(p);
+}
+
 }  // namespace
 
 int main(int argc, char **argv) {
-    trace = argc > 1 && std::string(argv[1]) == "trace";
+    const std::string mode = argc > 1 ? argv[1] : "";
+    trace = mode == "trace";
     cudaDeviceProp prop;
     CK(cudaGetDeviceProperties(&prop, 0));
     std::printf("device %s, %d SMs\n", prop.name, prop.multiProcessorCount);
+    const int heads[][2] = {{2048, 6144}, {37, 6143}, {2047, 3},
+                            {10112, 257}};
+    for (const auto &sh : heads)
+        for (int L : {128, 13}) {
+            slice_check<double, double>("f64", sh[0], sh[1], L);
+            slice_check<float, double>("f32/f64", sh[0], sh[1], L);
+            slice_check<float, float>("f32", sh[0], sh[1], L);
+        }
+    slice_timing(2048, 6144);
+    slice_timing(8192, 24576);
+    ratio_rows_timing(10112);
+    if (mode == "slice") {
+        std::printf(failures ? "FAILED: %d\n" : "every check passed\n",
+                    failures);
+        return failures ? 1 : 0;
+    }
     const int shapes[][2] = {{2048, 6144}, {1, 3},     {37, 6143},
                              {2047, 6143}, {2047, 3},  {4097, 257}};
     for (const auto &sh : shapes)
@@ -953,3 +1884,5 @@ int main(int argc, char **argv) {
     std::printf(failures ? "FAILED: %d\n" : "every check passed\n", failures);
     return failures ? 1 : 0;
 }
+
+#endif  // ETA_VARIANTS_LIB

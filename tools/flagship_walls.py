@@ -41,6 +41,15 @@ runs this loop)::
     python3 tools/flagship_walls.py --seq 2048 --blocked --trace \
         --root _checkout/parent --root . --root . --root _checkout/parent
 
+``--sharded --blocked`` with ``--seq N`` solves random_N_N with those
+options through ``solve_sharded`` at one NCCL rank (the plain blocked
+sharded loop, one CUDA graph a window with its collectives inside), each
+wall beside the phase-1 loop call's ms/pivot with its capture taken out
+and with it::
+
+    python3 tools/flagship_walls.py --seq 2048 --sharded --blocked \
+        --root _checkout/parent --root . --root . --root _checkout/parent
+
 Needs a CUDA card: a process that finds none exits non-zero.
 """
 
@@ -60,10 +69,11 @@ K6 = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
 BLOCKED = dict(dtype="float64", block_pivots=128)
 
 
-def sharded_solver(stack):
+def sharded_solver(stack, blocked: bool = False):
     """``solve`` through ``solve_sharded`` at one NCCL rank (opened on
     ``stack``), and a list that each solve's phase-1 loop call appends
-    (seconds, pivots, capture seconds) to."""
+    (seconds, pivots, capture seconds) to: the sharded kernel loop's, or
+    with ``blocked`` the plain blocked sharded loop's."""
     import tempfile
 
     import torch
@@ -74,8 +84,10 @@ def sharded_solver(stack):
 
     group = stack.enter_context(pg.world(
         0, 1, "nccl", stack.enter_context(tempfile.TemporaryDirectory())))
-    loop, capture = (ps.solve_loop_blocked_kernel_sharded,
-                     ps.capture_window_sharded)
+    names = (("solve_loop_blocked_sharded", "capture_blocked_window_sharded")
+             if blocked else ("solve_loop_blocked_kernel_sharded",
+                              "capture_window_sharded"))
+    loop, capture = (getattr(ps, n) for n in names)
     calls, captures = [], []
 
     def timed_capture(*args, **kw):
@@ -96,8 +108,8 @@ def sharded_solver(stack):
                       sum(captures[n:])))
         return out
 
-    ps.capture_window_sharded = timed_capture
-    ps.solve_loop_blocked_kernel_sharded = timed_loop
+    setattr(ps, names[1], timed_capture)
+    setattr(ps, names[0], timed_loop)
     phase1 = []
 
     def solve(problem, **opts):
@@ -247,25 +259,27 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
                 else PROBLEM))
     stack = contextlib.ExitStack()
     solve, phase1 = ((lambda p, **o: st.solve(p, device="cuda", **o)), None)
+    opts = BLOCKED if sharded and blocked else PROD
     if sharded:
-        solve, phase1 = sharded_solver(stack)
+        solve, phase1 = sharded_solver(stack, blocked)
     elif seq:
         solve, phase1 = seq_solver(k6, blocked)
     walls = []
     for i in range(solves + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = solve(problem, **PROD)
+        res = solve(problem, **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pivots = res.iterations_phase1 + res.iterations_phase2
         loop = ""
         if phase1:
             sec, n, cap = phase1[-1]
-            loop = (f"; {'loops' if seq else 'phase-1 loop'} "
+            per_loop = seq and not sharded
+            loop = (f"; {'loops' if per_loop else 'phase-1 loop'} "
                     f"{1e3 * (sec - cap) / n:.4f} ms/pivot without "
-                    f"{'their captures' if seq else 'its capture'} "
-                    f"({1e3 * cap:.1f} ms)")
+                    f"{'their captures' if per_loop else 'its capture'} "
+                    f"({1e3 * cap:.1f} ms; {1e3 * sec / n:.4f} with it)")
         print(f"{root}: solve {i} ({'cold' if i == 0 else 'warm'}) wall "
               f"{wall:.3f} s, pivots {res.iterations_phase1}+"
               f"{res.iterations_phase2}, objective {res.objective!r}, "
@@ -273,9 +287,9 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
               flush=True)
         if i:
             walls.append(wall)
-    if seq and trace:
+    if seq and trace and not sharded:
         trace_chunk(solve, problem, k6, blocked)
-    if seq and blocked:
+    if seq and blocked and not sharded:
         from simplex_tpu_torch import two_phase
 
         torch.cuda.synchronize()
@@ -305,7 +319,8 @@ def main() -> int:
     ap.add_argument("--solves", type=int, default=3,
                     help="warm solves after the cold one (default 3)")
     ap.add_argument("--sharded", action="store_true",
-                    help="solve_sharded at one NCCL rank")
+                    help="solve_sharded at one NCCL rank (with --blocked "
+                         "and --seq N: the plain blocked sharded loop)")
     ap.add_argument("--seq", type=int, default=0, metavar="N",
                     help="random_N_N with the default options (the "
                          "sequential loop)")

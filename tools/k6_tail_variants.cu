@@ -595,7 +595,7 @@ int ratio_snapshot_r(const Bufs &x, cudaStream_t st) {
                                             PER, RPER>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, st,
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
                           (const float *)x.Tt, x.b, x.base, x.ah, x.colk, x.M,
                           x.R, x.eps, x.step());
 }

@@ -443,8 +443,8 @@ int a_ratio(const Bufs<T, V> &x, cudaStream_t st) {
     auto kernel = seq_ratio_kernel<T, V, NB, NT, P>;
     static const cudaError_t e = allow_cluster(kernel, NB);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, NB, NT, st, x.Tt, (const V *)x.b, x.M, x.R,
-                          x.eps, x.ah, x.step());
+    return launch_cluster(kernel, NB, NT, false, st, x.Tt, (const V *)x.b,
+                          x.M, x.R, x.eps, x.ah, x.step());
 }
 
 template <typename T, typename V, int NB, int NT, int P>
@@ -452,19 +452,20 @@ int b_colk(const Bufs<T, V> &x, cudaStream_t st) {
     auto kernel = colk_cluster_kernel<T, V, NB, NT, P>;
     static const cudaError_t e = allow_cluster(kernel, NB);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, NB, NT, st, x.Tt, x.costs, x.b, x.base,
-                          (const T *)x.ah, x.colk, x.fac, x.M, x.R, x.r,
-                          x.eps, x.step(), x.pol);
+    return launch_cluster(kernel, NB, NT, false, st, x.Tt, x.costs, x.b,
+                          x.base, (const T *)x.ah, x.colk, x.fac, x.M, x.R,
+                          x.r, x.eps, x.step(), x.pol);
 }
 
 template <typename T, typename V, int NB, int NT, int P>
 int c_fused(const Bufs<T, V> &x, cudaStream_t st) {
-    auto kernel = seq_ratio_colk_kernel<T, V, NB, NT, P>;
+    auto kernel = seq_ratio_colk_kernel<T, V, NB, NT, P, false>;
     static const cudaError_t e = allow_cluster(kernel, NB);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, NB, NT, st, x.Tt, x.costs, x.b, x.base,
-                          x.ah, x.colk, x.fac, x.M, x.R, x.r, x.eps, x.step(),
-                          x.pol);
+    return launch_cluster(kernel, NB, NT, false, st, x.Tt, x.costs, x.b,
+                          x.base, x.ah, x.colk, x.fac, x.M, x.R, x.r, x.eps,
+                          x.step(), x.pol, 0, (double *)nullptr,
+                          (int *)nullptr);
 }
 
 // A form: its name, the ratio test's launch and the pass's (none: the
