@@ -3461,7 +3461,89 @@ def sharded_seq_pivot(loops, kernel: bool, max_iter: int, eps: float,
             ks.seq_rank1_plain(lp.Tt, lp.fac, lp.colk, lp.s)
 
 
+#: What each of the sequential sharded loop's kernels writes and does not
+#: read: the fold's scalars and column, the pass's step between, row,
+#: factors and send buffers.
+SEQ_SHARDED_WRITES = {
+    "seq_fold_column": ("h_d", "v_d", "h_b", "v_b", "active", "h", "minc",
+                        "optimal", "ah"),
+    "seq_ratio_colk_sharded": ("k", "unb", "do", "p", "bk", "u", "colk",
+                               "fac", "send_v", "send_i"),
+}
+
+
+def seq_sharded_turns(prior: PriorLib, a, max_iter: int, eps: float,
+                      policy: dict, fold, ratio) -> dict:
+    """``seq_fold_column`` and ``seq_ratio_colk_sharded`` (``fold``,
+    ``ratio``: their wrappers' calls on the one slice ``a``, a
+    ``ShardedSeqLoop``, under ``policy``) against the forms before their
+    redesign (``prior``: the fold without the early trigger, the pass of
+    16 x 256 threads without programmatic dependent launch), bit for bit
+    and timed in turns, with the column then the pass (as a chunk runs
+    them at one rank) (``prior_turns``)."""
+    import ctypes
+
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = prior.load()
+    s = a.s
+    M, R = a.Tt.shape
+    pair = ks._pair(s)
+
+    def ptr(x):
+        return x.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def prior_fold():
+        err = lib.prior_seq_fold_column_launch(
+            ptr(a.Tt), ptr(a.recv_v), ptr(a.recv_i), a.recv_v.shape[0], M,
+            R, 0, ptr(a.ah), ctypes.byref(ks._seq_ptrs(s)), max_iter, eps,
+            pair, stream())
+        require(err == 0, f"the earlier seq_fold_column failed ({err})")
+
+    def prior_ratio():
+        err = lib.prior_seq_ratio_colk_sharded_launch(
+            ptr(a.Tt), ptr(a.costs), ptr(a.b), ptr(a.base), ptr(a.ah),
+            ptr(a.colk), ptr(a.fac), M, R, a.r_loc, eps,
+            ctypes.byref(ks._seq_ptrs(s)), max_iter,
+            *ks._policy(policy["bland_static"], policy["threshold"]), 0,
+            ptr(a.send_v), ptr(a.send_i), pair, stream())
+        require(err == 0,
+                f"the earlier seq_ratio_colk_sharded failed ({err})")
+
+    def tensors():
+        return {**s.tensors(), **{n: getattr(a, n) for n in (
+            "ah", "colk", "fac", "costs", "b", "base", "send_v", "send_i")}}
+
+    return prior_turns(
+        f"f64 M={M} R={R} (one slice)", tensors,
+        {name: (old, new, SEQ_SHARDED_WRITES[name]) for name, old, new in (
+            ("seq_fold_column", prior_fold, fold),
+            ("seq_ratio_colk_sharded", prior_ratio, ratio))},
+        {"seq_ratio_colk_sharded": (prior_ratio, ratio),
+         "seq_fold_column+seq_ratio_colk_sharded": (
+             lambda: (prior_fold(), prior_ratio()),
+             lambda: (fold(), ratio()))})
+
+
 def phase_sharded_seq_kernels(records: dict) -> None:
+    """``_sharded_seq_kernels`` with the library of the earlier kernels
+    built by nvcc in the background meanwhile (``prior_seq_lib``)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        prior = prior_seq_lib(td)
+        try:
+            _sharded_seq_kernels(records, prior)
+        finally:
+            prior.stop()
+
+
+def _sharded_seq_kernels(records: dict, prior: PriorLib) -> None:
     """The sequential sharded loop's kernels against their plain versions
     on the card at the main path's shapes (f64 random_8192_8192's phase 1:
     M 8,192 x R 24,576, one slice at one rank): ``seq_fold_column`` and
@@ -3472,10 +3554,14 @@ def phase_sharded_seq_kernels(records: dict) -> None:
     quotient on two rows far apart, no eligible row, a tie of the
     smallest cost across the slices -- every scalar, vector, buffer and
     the slices bit for bit after each pivot. Then, on a taken pivot at
-    one slice, each timed by torch.profiler and by CUDA events over a
-    CUDA graph of 50 calls, beside its plain version and its bound, and
-    ``seq_ratio_colk_sharded`` beside ``seq_ratio_colk``'s record at the
-    same shape; then the latency floor (``latency_floor``)."""
+    one slice, each against the form before its redesign
+    (``tools/seq_variants.cu`` built here as a library, ``seq_prior``),
+    bit for bit and timed in turns, the pass alone and after the column
+    (``seq_sharded_turns``), then each timed by torch.profiler and by CUDA
+    events over a CUDA graph of 50 calls, beside its plain version and
+    its bound, and ``seq_ratio_colk_sharded`` beside ``seq_ratio_colk``'s
+    record at the same shape; the same turns on a slice of a 1,024 x
+    3,072 tableau; then the latency floor (``latency_floor``)."""
     import numpy as np
     import torch
 
@@ -3580,6 +3666,8 @@ def phase_sharded_seq_kernels(records: dict) -> None:
                  eps, big, 0, a.send_v, a.send_i, **policy))
     ratio[0]()
     require(bool(s.do), "the timed sharded pivot is not taken")
+    before = seq_sharded_turns(prior, a, big, eps, policy, fold[0],
+                               ratio[0])
     timed = {
         "seq_fold_column": (fold, "seq_fold_column_kernel",
                             bound(2 * M * 8 + 24 + 47)),
@@ -3594,7 +3682,8 @@ def phase_sharded_seq_kernels(records: dict) -> None:
         rec = records[name] = {
             "max_abs_err": 0.0, "ms": statistics.mean(prof),
             "plain_ms": device_ms(plain_fn, 20), "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": None, "check_ms": graph_ms(fn)}
+            "bound_by": by, "library_ms": None, "check_ms": graph_ms(fn),
+            **before.get(name, {})}
         log(f"{name} M={M} R={R} f64: " + ", ".join(f"{x:.5f}" for x in prof)
             + f" ms a call (torch.profiler), {rec['check_ms']:.5f} ms by "
             f"CUDA events over a CUDA graph of 50 calls, plain "
@@ -3604,6 +3693,25 @@ def phase_sharded_seq_kernels(records: dict) -> None:
         f" ms against seq_ratio_colk {single:.5f} ms at the same shape "
         "(seq_ratio's record and seq_colk's, phase_seq_kernels)")
     del a, a_set, b_set
+    torch.cuda.empty_cache()
+    # The same turns at the 1,024^2 chunk's slice.
+    (small, _), _ = sharded_seq_sets(1024, 3072, 1, g, eps)
+    (a,) = small
+    a.recv_v.copy_(a.send_v.view(1, 2))
+    a.recv_i.copy_(a.send_i.view(1, 2))
+    s = a.s
+    s.iterations.fill_(0)
+    fold1 = functools.partial(ks.seq_fold_column, a.Tt, a.recv_v, a.recv_i,
+                              a.ah, s, big, eps, 0)
+    ratio1 = functools.partial(
+        ks.seq_ratio_colk_sharded, a.Tt, a.costs, a.b, a.base, a.ah,
+        a.colk, a.fac, s, a.r_loc, eps, big, offset=0, send_v=a.send_v,
+        send_i=a.send_i, **policy)
+    fold1()
+    ratio1()
+    require(bool(s.do), "the timed 1,024^2 sharded pivot is not taken")
+    seq_sharded_turns(prior, a, big, eps, policy, fold1, ratio1)
+    del a, small
     torch.cuda.empty_cache()
     latency_floor()
 
@@ -6060,37 +6168,40 @@ def slice_pivot(loops, t: int, opts, kernel: bool, cap: int) -> None:
             lp.recv_w.copy_(W)
 
 
-class PriorSliceLib:
-    """``tools/eta_variants.cu`` built as a library (``-DETA_VARIANTS_LIB``)
-    by nvcc in the background, into ``td``: the sharded plain blocked
-    loop's ``eta_fold_column`` and ``eta_ratio_summed`` as they were before
-    their redesign (its ``slice_prior``), with C entry points. ``load``
-    waits for the build; ``stop`` ends it if it still runs."""
+class PriorLib:
+    """A tool of ``tools/`` built as a library (``-D<define> -shared``) by
+    nvcc in the background, into ``td``: kernels as the port launched them
+    before a redesign, with C entry points -- ``tools/eta_variants.cu``'s
+    ``slice_prior`` (``eta_fold_column``, ``eta_ratio_summed``) and
+    ``colk_prior`` (``eta_colk``, ``eta_colk_slice``),
+    ``tools/seq_variants.cu``'s ``seq_prior`` (``seq_fold_column``,
+    ``seq_ratio_colk_sharded``). ``load`` waits for the build and gives
+    the entry points their argument types; ``stop`` ends it if it still
+    runs."""
 
-    def __init__(self, td: str) -> None:
+    def __init__(self, td: str, tool: str, define: str,
+                 argtypes: dict) -> None:
         from simplex_tpu_torch.kernels import _build
 
-        self.path = pathlib.Path(td) / "libslice_prior.so"
+        self.tool, self.argtypes, self.lib = tool, argtypes, None
+        self.path = pathlib.Path(td) / f"lib{define.lower()}.so"
         self.proc = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared",
-             "-DETA_VARIANTS_LIB", "-o", str(self.path),
-             str(ROOT / "tools" / "eta_variants.cu")],
+             f"-D{define}", "-o", str(self.path),
+             str(ROOT / "tools" / tool)],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
     def load(self):
         import ctypes
 
-        _, err = self.proc.communicate(timeout=600)
-        require(self.proc.returncode == 0, "nvcc of tools/eta_variants.cu "
-                f"as a library failed: {err[-2000:]}")
-        lib = ctypes.CDLL(str(self.path))
-        P, I, D, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
-                       ctypes.c_longlong)
-        lib.prior_eta_fold_column_launch.argtypes = (
-            [P] * 4 + [I] * 5 + [P, P, P, I, I, P, P, P, LL, D, I, I, I, P])
-        lib.prior_eta_ratio_summed_launch.argtypes = [P, P, I, D, P, LL, P,
-                                                      I, I, P]
-        return lib
+        if self.lib is None:
+            _, err = self.proc.communicate(timeout=600)
+            require(self.proc.returncode == 0, f"nvcc of tools/{self.tool} "
+                    f"as a library failed: {err[-2000:]}")
+            self.lib = ctypes.CDLL(str(self.path))
+            for name, types in self.argtypes.items():
+                getattr(self.lib, name).argtypes = types
+        return self.lib
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -6098,27 +6209,119 @@ class PriorSliceLib:
             self.proc.wait()
 
 
-#: What each head kernel writes and does not read (on a pivot without a
-#: re-anchor): its scalars, and the fold's live column and weight at h.
+def prior_eta_lib(td: str) -> PriorLib:
+    """``tools/eta_variants.cu`` as a library (``PriorLib``)."""
+    import ctypes
+
+    from simplex_tpu_torch.kernels import _build
+
+    P, I, D, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                   ctypes.c_longlong)
+    sig = _build.SIGNATURES
+    return PriorLib(td, "eta_variants.cu", "ETA_VARIANTS_LIB", {
+        "prior_eta_fold_column_launch":
+            [P] * 4 + [I] * 5 + [P, P, P, I, I, P, P, P, LL, D, I, I, I, P],
+        "prior_eta_ratio_summed_launch": [P, P, I, D, P, LL, P, I, I, P],
+        "prior_eta_colk_slice_launch": sig["eta_colk_slice_launch"],
+        "prior_eta_colk_launch": sig["eta_colk_launch"]})
+
+
+def prior_seq_lib(td: str) -> PriorLib:
+    """``tools/seq_variants.cu`` as a library (``PriorLib``): the earlier
+    ``seq_ratio_colk_sharded`` takes no threads argument."""
+    from simplex_tpu_torch.kernels import _build
+
+    sig = _build.SIGNATURES
+    pass_sig = list(sig["seq_ratio_colk_sharded_launch"])
+    del pass_sig[18]                             # the cluster's threads
+    return PriorLib(td, "seq_variants.cu", "SEQ_VARIANTS_LIB", {
+        "prior_seq_fold_column_launch": sig["seq_fold_column_launch"],
+        "prior_seq_ratio_colk_sharded_launch": pass_sig})
+
+
+def unlike(x):
+    """Every element other than x's."""
+    import torch
+
+    if x.dtype == torch.bool:
+        return ~x
+    if x.is_floating_point():
+        return torch.where(torch.isnan(x), torch.ones_like(x),
+                           torch.full_like(x, float("nan")))
+    return x + 1
+
+
+def prior_turns(label: str, tensors, checks: dict, timed: dict) -> dict:
+    """Kernels against the forms before their redesign. ``checks``: name
+    -> (the earlier form's call, the new one's, the names in
+    ``tensors()`` -- name -> tensor, the state they read and write --
+    that the kernel writes and does not read): each form runs from one
+    saved state, the new one after each of those was set to a value other
+    than the one the earlier form wrote (``unlike``), so a kernel that
+    skipped a store fails; then every tensor bit for bit. ``timed``: name
+    -> (earlier, new) calls, each timed in turns by ``graph_ms`` (before,
+    after, after, before) from that state. Returns each timed name's
+    ``before_ms`` and ``turn_ms`` (the mean of its two turns)."""
+    import torch
+
+    def state():
+        torch.cuda.synchronize()
+        return {n: x.clone() for n, x in tensors().items()}
+
+    def put(saved):
+        live = tensors()
+        for key, x in saved.items():
+            live[key].copy_(x)
+
+    start = state()
+    for name, (old, new, writes) in checks.items():
+        put(start)
+        old()
+        want = state()
+        put(start)
+        put({key: unlike(want[key]) for key in writes})
+        new()
+        got = state()
+        for key, x in got.items():
+            equal(f"{name} against the form before its redesign: {key}", x,
+                  want[key])
+    put(start)
+    out: dict = {}
+    for name, (old, new) in timed.items():
+        times: dict = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            times[which].append(graph_ms(old if which == "before" else new))
+        put(start)
+        out[name] = {"before_ms": statistics.mean(times["before"]),
+                     "turn_ms": statistics.mean(times["after"])}
+        log(f"{name} {label} in turns with the form before its redesign "
+            f"(CUDA graphs of 50 calls): before "
+            f"{', '.join(f'{1e3 * x:.3f}' for x in times['before'])} us, "
+            f"after {', '.join(f'{1e3 * x:.3f}' for x in times['after'])}"
+            f" us; bit for bit; {nvidia_smi_line()}")
+    return out
+
+
+#: What each slice kernel writes and does not read (on a pivot without a
+#: re-anchor): its scalars, the fold's live column and weight at h, the
+#: pass's send buffers.
 SLICE_WRITES = {
     "eta_fold_column": ("h_d", "v_d", "h_b", "v_b", "active", "h", "minc",
                         "optimal", "ah", "wh"),
     "eta_ratio_summed": ("k", "unb", "do", "p", "bk", "u"),
+    "eta_colk_slice": ("send_v", "send_i", "send_w"),
 }
 
 
-def slice_turns(prior: PriorSliceLib, lp, t: int, cap: int, eps: float,
-                fold, ratio) -> dict:
-    """``eta_fold_column`` and ``eta_ratio_summed`` (``fold``, ``ratio``:
-    their wrappers' calls on the slice ``lp`` at pivot t) against the forms
-    before their redesign (``prior``), each form from the same state, and
-    the new one's after every element it writes (``SLICE_WRITES``) was set
-    to a value other than the one the earlier form wrote: every scalar,
-    ``ah``, ``wh`` and the weights bit for bit; then each, and the head
-    (the fold then the ratio test), timed in turns with them by
-    ``graph_ms`` (before, after, after, before). Returns each kernel's
-    ``before_ms`` and ``turn_ms`` (the mean of its two turns) for the
-    kernels line."""
+def slice_turns(prior: PriorLib, lp, t: int, cap: int, eps: float,
+                policy: dict, fold, ratio, colk) -> dict:
+    """``eta_fold_column``, ``eta_ratio_summed`` and ``eta_colk_slice``
+    (``fold``, ``ratio``, ``colk``: their wrappers' calls on the slice
+    ``lp`` at pivot t, the pass under ``policy``) against the forms before
+    their redesign (``prior``: the head's before its cluster, the pass's
+    before its candidates carried their weights), bit for bit and timed in
+    turns, with the head (the fold then the ratio test) (``prior_turns``).
+    """
     import ctypes
 
     import torch
@@ -6154,74 +6357,50 @@ def slice_turns(prior: PriorSliceLib, lp, t: int, cap: int, eps: float,
             ctypes.byref(ks._seq_ptrs(s)), pair, plan.rows, stream())
         require(err == 0, f"the earlier eta_ratio_summed failed ({err})")
 
+    def prior_colk():
+        err = lib.prior_eta_colk_slice_launch(
+            ptr(lp.Tt), ptr(lp.C), ptr(lp.F), ptr(lp.costs), ptr(lp.b),
+            ptr(lp.base), ptr(lp.w), ptr(lp.ah), M, R, L, lp.r_loc, t, eps,
+            ptr(lp.ws), lp.ws.numel(), ctypes.byref(ks._seq_ptrs(s)), cap,
+            *ks._policy(policy["bland_static"], policy["threshold"]), pair,
+            plan.rows, plan.cols, plan.stage_colk, 0, ptr(lp.wh),
+            ptr(lp.send_v), ptr(lp.send_i), ptr(lp.send_w), stream())
+        require(err == 0, f"the earlier eta_colk_slice failed ({err})")
+
     def tensors():
-        return {**s.tensors(), "ah": lp.ah, "wh": lp.wh, "w": lp.w}
+        return {**s.tensors(), **{n: getattr(lp, n) for n in (
+            "ah", "wh", "w", "C", "F", "costs", "b", "base", "send_v",
+            "send_i", "send_w")}}
 
-    def state():
-        torch.cuda.synchronize()
-        return {n: x.clone() for n, x in tensors().items()}
-
-    def put(saved):
-        live = tensors()
-        for key, x in saved.items():
-            live[key].copy_(x)
-
-    def unlike(x):
-        """Every element other than x's."""
-        if x.dtype == torch.bool:
-            return ~x
-        if x.is_floating_point():
-            return torch.where(torch.isnan(x), torch.ones_like(x),
-                               torch.full_like(x, float("nan")))
-        return x + 1
-
-    start = state()
-    for name, old, new in (("eta_fold_column", prior_fold, fold),
-                           ("eta_ratio_summed", prior_ratio, ratio)):
-        put(start)
-        old()
-        want = state()
-        put(start)
-        put({key: unlike(want[key]) for key in SLICE_WRITES[name]})
-        new()
-        got = state()
-        for key, x in got.items():
-            equal(f"{name} against the form before its redesign: {key}", x,
-                  want[key])
-    put(start)
-    out: dict = {}
-    forms = {"eta_fold_column": (prior_fold, fold),
-             "eta_ratio_summed": (prior_ratio, ratio),
-             "head": (lambda: (prior_fold(), prior_ratio()),
-                      lambda: (fold(), ratio()))}
-    for name, (old, new) in forms.items():
-        times: dict = {"before": [], "after": []}
-        for which in ("before", "after", "after", "before"):
-            times[which].append(graph_ms(old if which == "before" else new))
-        out[name] = {"before_ms": statistics.mean(times["before"]),
-                     "turn_ms": statistics.mean(times["after"])}
-        log(f"{name} f64 devex M={M} R={R} t={t} (one slice) in turns with "
-            f"the form before its redesign (CUDA graphs of 50 calls): "
-            f"before {', '.join(f'{1e3 * x:.3f}' for x in times['before'])}"
-            f" us, after {', '.join(f'{1e3 * x:.3f}' for x in times['after'])}"
-            f" us; both bit for bit; {nvidia_smi_line()}")
-    return out
+    return prior_turns(
+        f"f64 devex M={M} R={R} t={t} (one slice)", tensors,
+        {"eta_fold_column": (prior_fold, fold,
+                             SLICE_WRITES["eta_fold_column"]),
+         "eta_ratio_summed": (prior_ratio, ratio,
+                              SLICE_WRITES["eta_ratio_summed"]),
+         "eta_colk_slice": (prior_colk, colk,
+                            SLICE_WRITES["eta_colk_slice"])},
+        {"eta_fold_column": (prior_fold, fold),
+         "eta_ratio_summed": (prior_ratio, ratio),
+         "head": (lambda: (prior_fold(), prior_ratio()),
+                  lambda: (fold(), ratio())),
+         "eta_colk_slice": (prior_colk, colk)})
 
 
 def phase_slice_kernels(records: dict) -> None:
     """``_slice_kernels`` with the library of the earlier slice kernels
-    built by nvcc in the background meanwhile (``PriorSliceLib``)."""
+    built by nvcc in the background meanwhile (``prior_eta_lib``)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as td:
-        prior = PriorSliceLib(td)
+        prior = prior_eta_lib(td)
         try:
             _slice_kernels(records, prior)
         finally:
             prior.stop()
 
 
-def _slice_kernels(records: dict, prior: PriorSliceLib) -> None:
+def _slice_kernels(records: dict, prior: PriorLib) -> None:
     """The sharded plain blocked loop's kernels (``eta_fold_column``,
     ``eta_ratio_summed``, ``eta_colk_slice``) against their plain versions
     on the card at the main path's shape: the f64 phase-1 tableau of
@@ -6233,13 +6412,13 @@ def _slice_kernels(records: dict, prior: PriorSliceLib) -> None:
     states drawn by the pivot's index (Bland on, the fuse, a NaN in b, a
     weight past the re-anchor's bound on the last slice): every scalar,
     slice, factor, vector, weight and send buffer bit for bit. Then at t
-    = ``ETA_T``, on a taken pivot at one slice: ``eta_fold_column`` and
-    ``eta_ratio_summed`` against the forms before their redesign
-    (``tools/eta_variants.cu`` built here as a library, ``slice_prior``;
-    built by nvcc while the walk runs), bit for bit, and each, and the
-    head (the fold then the ratio test, as a pivot runs them), timed in
-    turns with them by CUDA events over CUDA graphs of 50 calls (before,
-    after, after, before); then each kernel timed by torch.profiler and by
+    = ``ETA_T``, on a taken pivot at one slice: the three kernels against
+    the forms before their redesign (``tools/eta_variants.cu`` built here
+    as a library, ``slice_prior`` and ``colk_prior``; built by nvcc while
+    the walk runs), bit for bit, and each, and the head (the fold then the
+    ratio test, as a pivot runs them), timed in turns with them by CUDA
+    events over CUDA graphs of 50 calls (before, after, after, before)
+    (``slice_turns``); then each kernel timed by torch.profiler and by
     CUDA events over a CUDA graph of 50 calls beside its plain version,
     its bound and ``torch.addmv`` forming the live column (the fold's) or
     row (the pass's) alone: the kernels line's rows."""
@@ -6331,12 +6510,12 @@ def _slice_kernels(records: dict, prior: PriorSliceLib) -> None:
     ratio()
     require(bool(s.do), "slice kernels: the timed pivot is not taken")
     h, k = int(s.h), int(s.k)
-    before = slice_turns(prior, lp, t, cap, eps, fold, ratio)
     colk = functools.partial(ke.eta_colk_slice, lp.Tt, lp.C, lp.F, lp.costs,
                              lp.b, lp.base, lp.w, lp.ah, s, t, lp.r_loc, eps,
                              cap, lp.ws, offset=0, wh=lp.wh,
                              send_v=lp.send_v, send_i=lp.send_i,
                              send_w=lp.send_w, **policy)
+    before = slice_turns(prior, lp, t, cap, eps, policy, fold, ratio, colk)
     timed = {
         "eta_fold_column": (
             fold, functools.partial(

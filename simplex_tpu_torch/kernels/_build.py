@@ -180,10 +180,11 @@ SIGNATURES = {
     "seq_fold_column_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P,
                                ctypes.c_longlong, _D, _I, _P],
     # Tt costs b base ah colk fac M R r eps scalars, max_iter, bland mode,
-    # threshold, offset, send_v send_i pair stream
+    # threshold, offset, send_v send_i, the cluster's threads a block,
+    # pair stream
     "seq_ratio_colk_sharded_launch": [_P] * 7 + [_I, _I, _I, _D, _P,
                                                  ctypes.c_longlong, _I, _I,
-                                                 _I, _P, _P, _I, _P],
+                                                 _I, _P, _P, _I, _I, _P],
     # csrc/eta.cu: Tt C F b ah M R L t eps, the workspace and its bytes,
     # the sequential scalars' pointers (by reference), pair, the grid's
     # rows and columns a block and the slab rows a round (kernels/eta.py

@@ -2,7 +2,8 @@
 // Shared by the kernels that run as a single cluster whose blocks fold
 // over distributed shared memory (csrc/sharded_step.cu sharded_ratio,
 // csrc/seq.cu seq_ratio and seq_ratio_colk, csrc/eta.cu
-// eta_ratio_summed).
+// eta_ratio_summed); and programmatic dependent launch's two halves,
+// which csrc/eta.cu and csrc/seq.cu use.
 
 #pragma once
 
@@ -20,6 +21,16 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch (sm_90): wait for the grid before this one
+// to complete, its memory visible; let the grid after this one launch.
+// Both return at once in a grid launched without the attribute.
+__device__ __forceinline__ void grid_wait() {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_next() {
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // Lets ``kernel`` run as a cluster of ``nb`` blocks past the portable 8

@@ -57,9 +57,22 @@
 //   the fold (h may lie on another rank), the leaving variable by its
 //   global column, base[k] = h global; the last block packs the slice's
 //   candidates into the send buffers as global indices, with, under
-//   devex, the weights at them read back past L1, the candidate on weights
-//   of 1 and the slice's largest weight, in place of the re-anchor and the
-//   next step before, which need every rank's.
+//   devex, the new weights at them, the candidate on weights of 1 and the
+//   slice's largest weight, in place of the re-anchor and the next step
+//   before, which need every rank's. Its tail is latency: after its sums
+//   a block folds, stores its partial and takes the arrival ticket, and
+//   the last block folds the partials and packs. The weights at the
+//   candidates ride with them through the block's and the partials' folds
+//   (RowCands with CARRY; 16 bytes more a block of workspace), so no load
+//   follows the last fold; and the ticket's acq_rel atomic alone orders
+//   each partial before it, since the last block reads nothing else a
+//   column block wrote: eta_colk's __threadfence before the ticket and
+//   after it go. On NVIDIA H100 80GB HBM3, 700.00 W, at f64 2048^2, t =
+//   0 / 64 / 127, one slice (tools/eta_variants.cu colk, CUDA graphs of
+//   50 calls in turns): 5.91 / 7.16 / 8.17 us against 6.65 / 7.81 / 8.81
+//   for the form that read the weights back behind both fences; the
+//   carried weights alone 6.67 / 7.92 / 8.95 (their wider partials cost
+//   what the load saved at 96 column blocks), the fences alone the rest.
 //
 // The devex re-anchor runs every pivot: when the largest new weight
 // passes 1e8 every weight becomes 1, and the next pivot's devex score
@@ -239,16 +252,6 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Programmatic dependent launch (sm_90): wait for the grid before this one
-// to complete, its memory visible; let the grid after this one launch.
-// Both return at once in a grid launched without the attribute.
-__device__ __forceinline__ void grid_wait() {
-    asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-__device__ __forceinline__ void grid_launch_next() {
-    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
 // One block's slab a[:n, c0 .. c0 + ncol) (row stride ld) in shared
 // memory, in rounds of ``stage`` rows through a ring of two buffers: round
 // r in buffer r mod 2, one cp.async group a round. A row's element e lands
@@ -369,10 +372,11 @@ struct Slab {
 // eta_ratio's arrival counter, [4, 8) eta_colk's, [8, 16) the new weight at
 // h (a double), then eta_ratio's partials -- f64 q, a, b[nbA], int j,
 // any[nbA]: 32 bytes a block -- and eta_colk's -- f64 key, val, key1,
-// val1, bval, wmax[nbB], int idx, idx1, bidx[nbB]: 64 bytes a block. Each
-// call leaves its counter at 0.
+// val1, bval, wmax[nbB], int idx, idx1, bidx[nbB] (60 bytes a block, 64
+// with the padding), then f64 wv, bw[nbB] (eta_colk_slice's weights at
+// idx and bidx): 80 bytes a block. Each call leaves its counter at 0.
 __host__ __device__ constexpr size_t ws_bytes(int nbA, int nbB) {
-    return 16 + 32 * (size_t)nbA + 64 * (size_t)nbB;
+    return 16 + 32 * (size_t)nbA + 80 * (size_t)nbB;
 }
 
 struct WsA {
@@ -390,6 +394,7 @@ struct WsB {
     double *wh;
     double *key, *val, *key1, *val1, *bval, *wmax;
     int *idx, *idx1, *bidx;
+    double *wv, *bw;
     __device__ WsB(unsigned char *ws, int nbA, int nbB)
         : counter(reinterpret_cast<unsigned *>(ws + 4)),
           wh(reinterpret_cast<double *>(ws + 8)),
@@ -397,7 +402,7 @@ struct WsB {
           val(key + nbB), key1(val + nbB), val1(key1 + nbB),
           bval(val1 + nbB), wmax(bval + nbB),
           idx(reinterpret_cast<int *>(wmax + nbB)), idx1(idx + nbB),
-          bidx(idx1 + nbB) {}
+          bidx(idx1 + nbB), wv(key + 8 * (size_t)nbB), bw(wv + nbB) {}
 };
 
 // ---------------------------------------------------------------------------
@@ -503,8 +508,11 @@ __global__ void __launch_bounds__(NT) eta_ratio_kernel(
 
 // A block's candidates: the main one (key the negated cost under Dantzig,
 // the devex score under devex; the larger first), the devex one on weights
-// of 1, Bland's (the lowest eligible index), and the largest new weight.
-template <typename V>
+// of 1, Bland's (the lowest eligible index), and the largest new weight;
+// with CARRY (eta_colk_slice) the new weights at the main and the Bland
+// candidates ride with them (wv, bw), so the pack needs no load after the
+// fold.
+template <typename V, bool CARRY>
 struct RowCands {
     V key;
     int idx;
@@ -515,6 +523,10 @@ struct RowCands {
     V bval;
     int bidx;
     V wmax;
+};
+template <typename V>
+struct RowCands<V, true> : RowCands<V, false> {
+    V wv, bw;
 };
 
 // (k, i) before (k2, i2) in torch.argmax's order: NaN first, then the
@@ -528,13 +540,14 @@ __device__ __forceinline__ bool first_max(V k, int i, V k2, int i2) {
     return i < i2;
 }
 
-template <typename V>
-__device__ __forceinline__ void take_first(RowCands<V> &x,
-                                           const RowCands<V> &o) {
+template <typename V, bool CARRY>
+__device__ __forceinline__ void take_first(RowCands<V, CARRY> &x,
+                                           const RowCands<V, CARRY> &o) {
     if (first_max(o.key, o.idx, x.key, x.idx)) {
         x.key = o.key;
         x.idx = o.idx;
         x.val = o.val;
+        if constexpr (CARRY) x.wv = o.wv;
     }
     if (first_max(o.key1, o.idx1, x.key1, x.idx1)) {
         x.key1 = o.key1;
@@ -544,24 +557,31 @@ __device__ __forceinline__ void take_first(RowCands<V> &x,
     if (o.bidx < x.bidx) {
         x.bidx = o.bidx;
         x.bval = o.bval;
+        if constexpr (CARRY) x.bw = o.bw;
     }
     if (o.wmax > x.wmax || o.wmax != o.wmax)     // NaN first, as torch's
         x.wmax = o.wmax;                         // max propagates it
 }
 
-template <typename V>
-__device__ __forceinline__ RowCands<V> shfl_xor(const RowCands<V> &x,
-                                                int off) {
+template <typename V, bool CARRY>
+__device__ __forceinline__ RowCands<V, CARRY> shfl_xor(
+        const RowCands<V, CARRY> &x, int off) {
     constexpr unsigned FULL = seq::FULL;
-    return RowCands<V>{__shfl_xor_sync(FULL, x.key, off),
-                       __shfl_xor_sync(FULL, x.idx, off),
-                       __shfl_xor_sync(FULL, x.val, off),
-                       __shfl_xor_sync(FULL, x.key1, off),
-                       __shfl_xor_sync(FULL, x.idx1, off),
-                       __shfl_xor_sync(FULL, x.val1, off),
-                       __shfl_xor_sync(FULL, x.bval, off),
-                       __shfl_xor_sync(FULL, x.bidx, off),
-                       __shfl_xor_sync(FULL, x.wmax, off)};
+    RowCands<V, CARRY> o{};
+    o.key = __shfl_xor_sync(FULL, x.key, off);
+    o.idx = __shfl_xor_sync(FULL, x.idx, off);
+    o.val = __shfl_xor_sync(FULL, x.val, off);
+    o.key1 = __shfl_xor_sync(FULL, x.key1, off);
+    o.idx1 = __shfl_xor_sync(FULL, x.idx1, off);
+    o.val1 = __shfl_xor_sync(FULL, x.val1, off);
+    o.bval = __shfl_xor_sync(FULL, x.bval, off);
+    o.bidx = __shfl_xor_sync(FULL, x.bidx, off);
+    o.wmax = __shfl_xor_sync(FULL, x.wmax, off);
+    if constexpr (CARRY) {
+        o.wv = __shfl_xor_sync(FULL, x.wv, off);
+        o.bw = __shfl_xor_sync(FULL, x.bw, off);
+    }
+    return o;
 }
 
 // What the slice's form (SLICE: eta_colk_slice, the sharded plain blocked
@@ -620,8 +640,9 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
         return;
     }
 
+    using Cand = RowCands<V, SLICE>;
     extern __shared__ __align__(16) unsigned char dyn[];
-    __shared__ RowCands<V> warps[NW];
+    __shared__ Cand warps[NW];
     __shared__ int wany[NW];
     __shared__ bool last, anchor;
     const WsB ws(ws_bytes, nbA, nbB);
@@ -666,9 +687,11 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
     // in f64.
     const double acc = slab.sum(fk);
 
-    const RowCands<V> none{-inf<V>(), BIG_INDEX, inf<V>(), -inf<V>(),
-                           BIG_INDEX, inf<V>(), inf<V>(), BIG_INDEX, (V)0};
-    RowCands<V> x = none;
+    Cand none{};
+    none.key = none.key1 = -inf<V>();
+    none.val = none.val1 = none.bval = inf<V>();
+    none.idx = none.idx1 = none.bidx = BIG_INDEX;
+    Cand x = none;
     if (col) {
         const T ck = (T)__dsub_rn((double)tk, acc);
         C[(size_t)t * R + i] = d ? ck : (T)0;
@@ -693,6 +716,7 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
                 wi = w2;
             }
             x.wmax = wi;
+            if constexpr (SLICE) x.wv = wi;
             const V c2 = mul_rn(cm, cm);
             x.key = elig ? div_rn(c2, wi) : -inf<V>();
             x.key1 = elig ? c2 : -inf<V>();
@@ -704,10 +728,13 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
         if (elig) {
             x.bidx = i;
             x.bval = cm;
+            if constexpr (SLICE) x.bw = wi;
         }
     }
     // The block's fold (its barrier orders the stores above before thread
-    // 0's fence), the partial, then the ticket.
+    // 0's fence), the partial, then the ticket. SLICE: the ticket's
+    // acq_rel alone orders the partial before it (the last block reads
+    // nothing else a column block wrote); the fences cost 0.7-0.8 us.
     bool unused = false;
     block_fold<NW>(x, unused, none, warps, wany);
     if (tid == 0) {
@@ -721,7 +748,12 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
         ws.idx[q] = x.idx;
         ws.idx1[q] = x.idx1;
         ws.bidx[q] = x.bidx;
-        __threadfence();
+        if constexpr (SLICE) {
+            ws.wv[q] = (double)x.wv;
+            ws.bw[q] = (double)x.bw;
+        } else {
+            __threadfence();
+        }
         last = ticket(ws.counter) == (unsigned)nbB - 1;
     }
     __syncthreads();
@@ -729,24 +761,34 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
 
     // The last block: every column block has read h, base[k] and w[h] and
     // written its partial.
-    __threadfence();
+    if (!SLICE) __threadfence();
     seq::PostIn<V> in{};
     if (tid == 0) in = seq::post_load(s);
     x = none;
-    for (int q = tid; q < nbB; q += NT)
-        take_first(x, RowCands<V>{
-                (V)__ldcg(ws.key + q), __ldcg(ws.idx + q),
-                (V)__ldcg(ws.val + q), (V)__ldcg(ws.key1 + q),
-                __ldcg(ws.idx1 + q), (V)__ldcg(ws.val1 + q),
-                (V)__ldcg(ws.bval + q), __ldcg(ws.bidx + q),
-                (V)__ldcg(ws.wmax + q)});
+    for (int q = tid; q < nbB; q += NT) {
+        Cand o;
+        o.key = (V)__ldcg(ws.key + q);
+        o.idx = __ldcg(ws.idx + q);
+        o.val = (V)__ldcg(ws.val + q);
+        o.key1 = (V)__ldcg(ws.key1 + q);
+        o.idx1 = __ldcg(ws.idx1 + q);
+        o.val1 = (V)__ldcg(ws.val1 + q);
+        o.bval = (V)__ldcg(ws.bval + q);
+        o.bidx = __ldcg(ws.bidx + q);
+        o.wmax = (V)__ldcg(ws.wmax + q);
+        if constexpr (SLICE) {
+            o.wv = (V)__ldcg(ws.wv + q);
+            o.bw = (V)__ldcg(ws.bw + q);
+        }
+        take_first(x, o);
+    }
     block_fold<NW>(x, unused, none, warps, wany);
-    if (SLICE) {
+    if constexpr (SLICE) {
         // The slice's candidates into the send buffers as global indices,
-        // the weights at them (read past L1: every column block stored its
-        // weights before its ticket), and the slice's largest weight; no
-        // re-anchor (the next eta_fold_column decides it on the largest of
-        // every rank's) and no next step before (it needs the fold).
+        // the new weights at them (carried through the folds), and the
+        // slice's largest weight; no re-anchor (the next eta_fold_column
+        // decides it on the largest of every rank's) and no next step
+        // before (it needs the fold).
         if (tid != 0) return;
         const bool has = x.bidx != BIG_INDEX;
         so.send_v[0] = (double)x.val;
@@ -754,8 +796,8 @@ __global__ void __launch_bounds__(NT) eta_colk_kernel(
         so.send_i[0] = so.offset + x.idx;
         so.send_i[1] = has ? so.offset + x.bidx : BIG_INDEX;
         if (devex) {
-            so.send_v[2] = (double)__ldcg(w + x.idx);
-            so.send_v[3] = has ? (double)__ldcg(w + x.bidx) : 1.0;
+            so.send_v[2] = (double)x.wv;
+            so.send_v[3] = has ? (double)x.bw : 1.0;
             so.send_v[4] = (double)x.key;
             so.send_v[5] = (double)x.val1;
             so.send_v[6] = (double)x.key1;
@@ -1049,14 +1091,16 @@ long long prepare(int M, int R, int L, int t, int width, int nt, int rows,
     return slab_smem<T>(M, R, L, t, width, nt, stage);
 }
 
-// Let kernel K take ``smem`` bytes of dynamic shared memory: past 48 KB,
-// once a device (to the most any window needs), for the call waits for
-// the work on the card and would hold a capture or an eager window behind
-// the work before it.
+// Let kernel K take ``smem`` bytes of dynamic shared memory: past 48 KB
+// less SMEM_RESERVE (the default limit holds the static arrays too: at
+// f64, 64 columns a block and t = 91 eta_colk_slice's 48,776 bytes and
+// its 384 static passed it), once a device (to the most any window
+// needs), for the call waits for the work on the card and would hold a
+// capture or an eager window behind the work before it.
 template <auto K>
 bool allow_smem(long long smem) {
     static unsigned long long allowed = 0;      // a bit a device
-    if (smem <= 48 * 1024) return true;
+    if (smem <= 48 * 1024 - SMEM_RESERVE) return true;
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess) return false;
     const unsigned long long bit = 1ull << (dev & 63);

@@ -51,11 +51,16 @@
 //   candidates (sharded_step.cuh sharded::fold) and the step before the
 //   ratio test in each block's thread 0, then the owner's column of the
 //   slice, or zeros, into ``ah``, which an all_reduce sums across the
-//   ranks;
+//   ranks; it lets the next kernel launch as it starts;
 // * seq_ratio_colk's SHARDED form: the ratio test on the summed ``ah``,
 //   the pass over the slice, the slice's candidates packed into the
 //   all_gather send buffers, and the step after without the next step
-//   before;
+//   before; a programmatic dependent launch (the costs of its first
+//   columns, b of its first rows and the step after's own operands loaded
+//   before it waits), of CLUSTER_THREADS threads a block, or
+//   SHARDED_THREADS_WIDE where one pass of CLUSTER_BLOCKS x
+//   CLUSTER_THREADS x PER loads does not cover the slice's columns
+//   (kernels/seq.py seq_sharded_threads chooses on the host);
 // * seq_rank1 on the slice.
 //
 // seq_ratio (one cluster: the ratio test and the step between alone,
@@ -105,7 +110,14 @@
 // x 4, against 8.55 for the two it replaced, 7.64 for the two as clusters
 // and 7.05-8.70 for other shapes of this one (8 or 16 blocks, 128-1,024
 // threads, 1-8 at a time); at 8,192 x 24,576 with L2 evicted 9.71 against
-// 11.08 and 10.82 (16 x 512 x 4: 8.83, but 7.22 at 1,024^2).
+// 11.08 and 10.82 (16 x 512 x 4: 8.83, but 7.22 at 1,024^2). The
+// sharded form, the column then the pass, graphs of 50 in turns (the
+// sharded mode of that tool): launched behind the column it took 7.64 us
+// against 8.04 without PDL at 1,024 x 3,072; at 8,192 x 24,576 8.32 at 16
+// x 512 and 8.87 at 16 x 256 against 9.15, with L2 evicted 9.95 and 10.71
+// against 11.40; 16 x 256 stays ahead up to 16,384 columns (4,096 x
+// 16,384 cold: 9.23 against 9.44 at 16 x 512), 16 x 512 past them (4,096
+// x 20,480 cold: 9.44 against 9.82).
 //
 // Every result keeps the bits of the plain version (kernels/seq.py
 // seq_*_plain): every product, quotient and difference is rounded apart
@@ -153,6 +165,9 @@ using seq::warp_fold;
 constexpr int CLUSTER_BLOCKS = 16;
 constexpr int CLUSTER_THREADS = 256;
 constexpr int PER = 4;
+// The sequential sharded loop's seq_ratio_colk on a slice wider than one
+// pass of CLUSTER_BLOCKS x CLUSTER_THREADS x PER columns.
+constexpr int SHARDED_THREADS_WIDE = 512;
 using seq::FULL;
 
 // The (tableau, vector) dtype pairs (kernels/seq.py PAIRS).
@@ -370,7 +385,13 @@ __global__ void __launch_bounds__(NT) seq_ratio_kernel(
 // v_b] f64, send_i the global h_d and h_b, BIG_INDEX kept) in place of
 // the scalars, which the next pivot's seq_fold_column folds across the
 // ranks; and the step after runs without the next step before (the
-// launcher's policy has then_pre 0), which needs that fold.
+// launcher's policy has then_pre 0), which needs that fold. It launches as
+// a programmatic dependent launch behind seq_fold_column (which lets it
+// launch as it starts): before griddepcontrol.wait it loads only what no
+// kernel since its own launch the pivot before wrote -- the costs of its
+// first columns, b of its first rows, and block 0's status, iterations,
+// stall, Bland flag and z (seq_fold_column's step before writes active,
+// h, minc and optimal, which it loads after the wait, with ah).
 
 template <typename T, typename V, int NB, int NT, int PER_, bool SHARDED>
 __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
@@ -392,12 +413,33 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
 
     // What waits on nothing: the costs of this thread's first columns, and
     // the steps' operands (each block's thread 0 those of the step
-    // between; block 0's those of the step after too); then h.
+    // between; block 0's those of the step after too); then h. SHARDED:
+    // b of the first rows and the step after's operands, then the wait
+    // for seq_fold_column, then what it wrote.
     V c0[PER_];
     first_costs<V, PER_, SPAN>(costs, R, g, c0);
+    T a0[PER_];
+    V b0[PER_];
     seq::PostIn<V> in{};
     V minc = 0;
-    if (tid == 0) {
+    if (SHARDED) {
+        if (tid == 0 && rank == 0) {
+            in.status = *s.status;
+            in.iterations = *s.iterations;
+            in.stall = *s.stall;
+            in.bland = *s.bland != 0;
+            in.z = *s.z;
+        }
+#pragma unroll
+        for (int q = 0; q < PER_; ++q)
+            if (g + q * SPAN < M) b0[q] = b[g + q * SPAN];
+        grid_wait();
+        if (tid == 0) {
+            in.active = *s.active != 0;
+            in.optimal = *s.optimal != 0;
+            minc = *s.minc;
+        }
+    } else if (tid == 0) {
         in.active = *s.active != 0;
         in.optimal = *s.optimal != 0;
         minc = *s.minc;
@@ -412,11 +454,10 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
     const int h_raw = *s.h;
 
     // The ratio test: every block folds every block's result.
-    T a0[PER_];
-    V b0[PER_];
-    const Between<T, V> w = ratio_cluster<T, V, NB, NT, PER_, !SHARDED>(
-            rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, in.active,
-            in.optimal, minc, s, a0, b0);
+    const Between<T, V> w =
+            ratio_cluster<T, V, NB, NT, PER_, !SHARDED, SHARDED>(
+                    rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, in.active,
+                    in.optimal, minc, s, a0, b0);
 
     // The pass: the row's loads, then b and the factors, then the costs
     // and the candidates.
@@ -479,6 +520,7 @@ __global__ void __launch_bounds__(COL_THREADS) seq_fold_column_kernel(
         T *__restrict__ ah, SeqStep<T, V> s, long long max_iter,
         double eps) {
     __shared__ int col;                          // h's local column, or -1
+    grid_launch_next();                          // the ratio test may start
     if (threadIdx.x == 0) {
         const int status = *s.status, iterations = *s.iterations;
         const bool bland = *s.bland != 0;
@@ -570,8 +612,11 @@ int ratio_run(const void *Tt, const void *b, int M, int R, double eps,
 }
 
 // SHARDED: the sharded form, packing into send_v and send_i at the
-// slice's offset; pol.then_pre must be 0 there.
-template <typename T, typename V, bool SHARDED = false>
+// slice's offset, a programmatic dependent launch; pol.then_pre must be 0
+// there. NT threads a block (CLUSTER_THREADS, or the sharded form's
+// SHARDED_THREADS_WIDE for wide slices).
+template <typename T, typename V, bool SHARDED = false,
+          int NT = CLUSTER_THREADS>
 int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
                    void *colk, void *fac, int M, int R, int r, double eps,
                    const void *step, const seq::Policy &pol,
@@ -580,16 +625,37 @@ int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
     if (M < 1 || R < 1 || (SHARDED && (pol.then_pre || send_v == nullptr
                                        || send_i == nullptr)))
         return (int)cudaErrorInvalidValue;
-    auto kernel = seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS,
-                                        CLUSTER_THREADS, PER, SHARDED>;
+    auto kernel = seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS, NT, PER,
+                                        SHARDED>;
     static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
     if (e != cudaSuccess) return (int)e;
-    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
+    return launch_cluster(kernel, CLUSTER_BLOCKS, NT, SHARDED, st,
                           static_cast<const T *>(Tt), static_cast<V *>(costs),
                           static_cast<V *>(b), base, static_cast<T *>(ah),
                           static_cast<T *>(colk), static_cast<T *>(fac), M, R,
                           r, eps, step_of<T, V>(step), pol, offset, send_v,
                           send_i);
+}
+
+// The sharded form on ``threads`` threads a block (kernels/seq.py
+// seq_sharded_threads chooses them by the slice's columns); others are
+// refused.
+template <typename T, typename V>
+int ratio_colk_sharded_run(const void *Tt, void *costs, void *b, int *base,
+                           void *ah, void *colk, void *fac, int M, int R,
+                           int r, double eps, const void *step,
+                           const seq::Policy &pol, int offset,
+                           double *send_v, int *send_i, int threads,
+                           cudaStream_t st) {
+    if (threads == CLUSTER_THREADS)
+        return ratio_colk_run<T, V, true, CLUSTER_THREADS>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    if (threads == SHARDED_THREADS_WIDE)
+        return ratio_colk_run<T, V, true, SHARDED_THREADS_WIDE>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename V>
@@ -707,29 +773,30 @@ int seq_fold_column_launch(const void *Tt, const double *V, const int *I,
 
 // The sequential sharded loop's pivot but its rank-1 update, on the slice
 // (M, R) from global column offset: ah the summed column, r the slice's
-// live columns, send_v (2,) f64 and send_i (2,) int32 the send buffers.
+// live columns, send_v (2,) f64 and send_i (2,) int32 the send buffers,
+// ``threads`` the cluster's threads a block (256 or 512).
 int seq_ratio_colk_sharded_launch(const void *Tt, void *costs, void *b,
                                   int *base, void *ah, void *colk, void *fac,
                                   int M, int R, int r, double eps,
                                   const void *step, long long max_iter,
                                   int bland_mode, int threshold, int offset,
-                                  double *send_v, int *send_i, int pair,
-                                  void *stream) {
+                                  double *send_v, int *send_i, int threads,
+                                  int pair, void *stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const seq::Policy pol{max_iter, eps, bland_mode, threshold, 0};
     switch (pair) {
     case PAIR_F64:
-        return ratio_colk_run<double, double, true>(
+        return ratio_colk_sharded_run<double, double>(
                 Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
-                st, offset, send_v, send_i);
+                offset, send_v, send_i, threads, st);
     case PAIR_MIXED:
-        return ratio_colk_run<float, double, true>(
+        return ratio_colk_sharded_run<float, double>(
                 Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
-                st, offset, send_v, send_i);
+                offset, send_v, send_i, threads, st);
     case PAIR_F32:
-        return ratio_colk_run<float, float, true>(
+        return ratio_colk_sharded_run<float, float>(
                 Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
-                st, offset, send_v, send_i);
+                offset, send_v, send_i, threads, st);
     }
     return (int)cudaErrorInvalidValue;
 }

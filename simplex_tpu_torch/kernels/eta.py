@@ -182,10 +182,11 @@ def eta_workspace_bytes(M: int, R: int) -> int:
     """Bytes of the two kernels' workspace for an ``M`` x ``R`` tableau
     (csrc/eta.cu ``ws_bytes``): the two arrival counters and a stashed
     weight (16 bytes), 32 bytes of partial for each block of
-    ``eta_ratio`` and 64 for each column block of ``eta_colk``
-    (``eta_grid``)."""
+    ``eta_ratio`` and 80 for each column block of ``eta_colk`` (16 of
+    them the weights at the candidates, which ``eta_colk_slice`` carries
+    through its fold) (``eta_grid``)."""
     rows, cols = eta_grid(M, R)
-    return 16 + 32 * _cdiv(M, rows) + 64 * _cdiv(R, cols)
+    return 16 + 32 * _cdiv(M, rows) + 80 * _cdiv(R, cols)
 
 
 def eta_workspace(M: int, R: int, device) -> torch.Tensor:
@@ -621,7 +622,8 @@ def eta_colk_slice(Tt, C, F, costs, b, base, w, ah, s: SeqScalars, t: int,
     before. No re-anchor: the next ``eta_fold_column`` applies it from
     every rank's largest weight. One launch on the card: ``eta_colk``'s
     grid and plan, the last column block packing in place of the
-    re-anchor."""
+    re-anchor, the weights at the candidates carried with them through
+    the folds."""
     M, R, L = _check(Tt, C, F, s, t, costs=costs, b=b, base=base, w=w,
                      ah=ah)
     devex = w is not None

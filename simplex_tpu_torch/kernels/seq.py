@@ -86,6 +86,22 @@ _F64, _F32, _I32, _BOOL = torch.float64, torch.float32, torch.int32, \
 #: The (tableau, vector) dtype pairs the kernels take (csrc/seq.cu Pair).
 PAIRS = {(_F64, _F64): 0, (_F32, _F64): 1, (_F32, _F32): 2}
 
+#: The clusters' shape (csrc/seq.cu): blocks, threads a block, and the
+#: rows or columns a thread loads at a time; ``seq_ratio_colk_sharded``
+#: takes ``SHARDED_THREADS_WIDE`` threads a block on wider slices.
+CLUSTER_BLOCKS, CLUSTER_THREADS, CLUSTER_PER = 16, 256, 4
+SHARDED_THREADS_WIDE = 512
+
+
+def seq_sharded_threads(R: int) -> int:
+    """Threads a block of ``seq_ratio_colk_sharded``'s cluster on a slice
+    of ``R`` columns: ``CLUSTER_THREADS`` where one pass of the cluster's
+    loads (blocks x threads x ``CLUSTER_PER``) covers the slice's columns,
+    so each thread's loads of row k go out together; else
+    ``SHARDED_THREADS_WIDE``, which covers twice as many."""
+    one_pass = CLUSTER_BLOCKS * CLUSTER_THREADS * CLUSTER_PER
+    return CLUSTER_THREADS if R <= one_pass else SHARDED_THREADS_WIDE
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -456,7 +472,9 @@ def seq_ratio_colk_sharded(Tt, costs, b, base, ah, colk, fac, s: SeqScalars,
     (``pack_candidates``) for the next pivot's ``all_gather``s; then the
     step after without the next step before, which needs them folded.
     One launch on the card: ``seq_ratio_colk``'s cluster with the test
-    reading ``ah`` and the pack in block 0's tail."""
+    reading ``ah`` and the pack in block 0's tail, of
+    ``seq_sharded_threads(R)`` threads a block, a programmatic dependent
+    launch behind ``seq_fold_column``."""
     M, R = Tt.shape
     T, V = s.p.dtype, s.z.dtype
     _expect(Tt, "Tt", T, (M, R))
@@ -478,7 +496,7 @@ def seq_ratio_colk_sharded(Tt, costs, b, base, ah, colk, fac, s: SeqScalars,
         _ptr(Tt), _ptr(costs), _ptr(b), _ptr(base), _ptr(ah), _ptr(colk),
         _ptr(fac), M, R, r, float(eps), ctypes.byref(_seq_ptrs(s)), max_iter,
         *_policy(bland_static, threshold), offset, _ptr(send_v),
-        _ptr(send_i), pair, _stream(Tt))
+        _ptr(send_i), seq_sharded_threads(R), pair, _stream(Tt))
     check(lib, err, "seq_ratio_colk_sharded")
     LAUNCHES["seq_ratio_colk_sharded"] += 1
 

@@ -428,18 +428,18 @@ def test_blocked_loop_keeps_its_storage(monkeypatch, pair):
 
 def test_eta_workspace_size():
     """The workspace's bytes follow csrc/eta.cu: 16, then 32 a block of
-    ``eta_ratio`` and 64 a column block of ``eta_colk``, on ``eta_grid``'s
-    grid."""
+    ``eta_ratio`` and 80 a column block of ``eta_colk`` (its partial and
+    the weights ``eta_colk_slice`` carries), on ``eta_grid``'s grid."""
     assert ke.eta_grid(64, 128) == (16, 32)
-    assert ke.eta_workspace_bytes(64, 128) == 16 + 32 * 4 + 64 * 4
-    assert ke.eta_workspace_bytes(65, 129) == 16 + 32 * 5 + 64 * 5
+    assert ke.eta_workspace_bytes(64, 128) == 16 + 32 * 4 + 80 * 4
+    assert ke.eta_workspace_bytes(65, 129) == 16 + 32 * 5 + 80 * 5
     assert ke.eta_grid(2048, 6144) == (32, 64)
     assert ke.eta_workspace(2048, 6144, "cpu").numel() == \
-        16 + 32 * 64 + 64 * 96
+        16 + 32 * 64 + 80 * 96
     assert ke.eta_grid(8192, 24576) == (128, 256)
-    assert ke.eta_workspace_bytes(8192, 24576) == 16 + 32 * 64 + 64 * 96
+    assert ke.eta_workspace_bytes(8192, 24576) == 16 + 32 * 64 + 80 * 96
     assert ke.eta_grid(10112, 120064) == (128, 256)
-    assert ke.eta_workspace_bytes(10112, 120064) == 16 + 32 * 79 + 64 * 469
+    assert ke.eta_workspace_bytes(10112, 120064) == 16 + 32 * 79 + 80 * 469
 
 
 # ---------------------------------------------------------------------------

@@ -1542,6 +1542,108 @@ def _bits_equal(a, b) -> bool:
                 .all())
 
 
+class PriorLibs:
+    """The sharded loops' slice passes as the port launched them before
+    their redesign, from ``tools/eta_variants.cu`` (``colk_prior``) and
+    ``tools/seq_variants.cu`` (``seq_prior``) built as libraries by nvcc
+    (``-DETA_VARIANTS_LIB``, ``-DSEQ_VARIANTS_LIB``): each launched on a
+    slice's loop state as the shipped wrappers launch the shipped forms."""
+
+    def __init__(self, td: pathlib.Path) -> None:
+        import ctypes
+        import subprocess
+
+        from simplex_tpu_torch.kernels import _build
+
+        root = pathlib.Path(__file__).resolve().parent.parent
+        builds = {}
+        for tool, define in (("eta_variants.cu", "ETA_VARIANTS_LIB"),
+                             ("seq_variants.cu", "SEQ_VARIANTS_LIB")):
+            path = td / f"lib{define.lower()}.so"
+            builds[define] = (path, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared",
+                 f"-D{define}", "-o", str(path), str(root / "tools" / tool)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        libs = {}
+        for define, (path, proc) in builds.items():
+            _, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, err[-2000:]
+            libs[define] = ctypes.CDLL(str(path))
+        sig = _build.SIGNATURES
+        self.eta, self.seq = libs["ETA_VARIANTS_LIB"], libs["SEQ_VARIANTS_LIB"]
+        self.eta.prior_eta_colk_slice_launch.argtypes = \
+            sig["eta_colk_slice_launch"]
+        self.seq.prior_seq_fold_column_launch.argtypes = \
+            sig["seq_fold_column_launch"]
+        pass_sig = list(sig["seq_ratio_colk_sharded_launch"])
+        del pass_sig[18]                         # the cluster's threads
+        self.seq.prior_seq_ratio_colk_sharded_launch.argtypes = pass_sig
+
+    @staticmethod
+    def _ptr(x):
+        return None if x is None else x.data_ptr()
+
+    @staticmethod
+    def _stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def eta_colk_slice(self, lp, t, eps, cap, bland_static, threshold):
+        import ctypes
+
+        from simplex_tpu_torch.kernels import eta as ke
+        from simplex_tpu_torch.kernels import seq as ks
+
+        M, R = lp.Tt.shape
+        L = lp.C.shape[0]
+        plan = ke.eta_plan(M, R, L, lp.Tt.element_size())
+        p = self._ptr
+        err = self.eta.prior_eta_colk_slice_launch(
+            p(lp.Tt), p(lp.C), p(lp.F), p(lp.costs), p(lp.b), p(lp.base),
+            p(lp.w), p(lp.ah), M, R, L, lp.r_loc, t, eps, p(lp.ws),
+            lp.ws.numel(), ctypes.byref(ks._seq_ptrs(lp.s)), cap,
+            *ks._policy(bland_static, threshold), ks._pair(lp.s), plan.rows,
+            plan.cols, plan.stage_colk, lp.shard.offset, p(lp.wh),
+            p(lp.send_v), p(lp.send_i), p(lp.send_w), self._stream())
+        assert err == 0, err
+
+    def seq_fold_column(self, lp, max_iter, eps):
+        import ctypes
+
+        from simplex_tpu_torch.kernels import seq as ks
+
+        M, R = lp.Tt.shape
+        p = self._ptr
+        err = self.seq.prior_seq_fold_column_launch(
+            p(lp.Tt), p(lp.recv_v), p(lp.recv_i), lp.recv_v.shape[0], M, R,
+            lp.shard.offset, p(lp.ah), ctypes.byref(ks._seq_ptrs(lp.s)),
+            max_iter, eps, ks._pair(lp.s), self._stream())
+        assert err == 0, err
+
+    def seq_ratio_colk_sharded(self, lp, max_iter, eps, bland_static,
+                               threshold):
+        import ctypes
+
+        from simplex_tpu_torch.kernels import seq as ks
+
+        M, R = lp.Tt.shape
+        p = self._ptr
+        err = self.seq.prior_seq_ratio_colk_sharded_launch(
+            p(lp.Tt), p(lp.costs), p(lp.b), p(lp.base), p(lp.ah),
+            p(lp.colk), p(lp.fac), M, R, lp.r_loc, eps,
+            ctypes.byref(ks._seq_ptrs(lp.s)), max_iter,
+            *ks._policy(bland_static, threshold), lp.shard.offset,
+            p(lp.send_v), p(lp.send_i), ks._pair(lp.s), self._stream())
+        assert err == 0, err
+
+
+@pytest.fixture(scope="module")
+def prior_libs(tmp_path_factory):
+    """``PriorLibs``, built once a module (skipped without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return PriorLibs(tmp_path_factory.mktemp("prior"))
+
+
 #: (dtype pair, K6 loop) of the loops: solve_loop at each pair, K6's pure f32.
 SEQ_LOOPS = [("f64", False), ("mixed", False), ("f32", False), ("f32", True)]
 
@@ -2009,19 +2111,25 @@ def _sharded_seq_slices(dev, pair, P, n=300, m=100, seed=5):
     return sets, opts
 
 
-def _sharded_seq_pivot(loops, opts, kernel: bool, max_iter: int) -> None:
+def _sharded_seq_pivot(loops, opts, kernel, max_iter: int) -> None:
     """One pivot of ``run_chunk_sharded`` on P slices in this process: the
     gathers and the sum of the columns in rank order by torch ops, each
-    rank's kernels (or their plain versions) between them."""
+    rank's kernels (``kernel`` true), their plain versions (false) or the
+    forms of the column and the pass before their redesign (``kernel`` a
+    ``PriorLibs``, then ``seq_rank1``) between them."""
     from simplex_tpu_torch.kernels import seq as ks
 
     eps = float(opts.eps_resolved)
     policy = dict(bland_static=False, threshold=50)
+    prior = kernel if isinstance(kernel, PriorLibs) else None
     V = torch.stack([lp.send_v for lp in loops])
     I = torch.stack([lp.send_i for lp in loops])
     for lp in loops:
         lp.recv_v.copy_(V)
         lp.recv_i.copy_(I)
+        if prior:
+            prior.seq_fold_column(lp, max_iter, eps)
+            continue
         fold = ks.seq_fold_column if kernel else ks.seq_fold_column_plain
         fold(lp.Tt, lp.recv_v, lp.recv_i, lp.ah, lp.s, max_iter, eps,
              lp.shard.offset)
@@ -2030,7 +2138,10 @@ def _sharded_seq_pivot(loops, opts, kernel: bool, max_iter: int) -> None:
         total += lp.ah
     for lp in loops:
         lp.ah.copy_(total)
-        if kernel:
+        if prior:
+            prior.seq_ratio_colk_sharded(lp, max_iter, eps, **policy)
+            ks.seq_rank1(lp.Tt, lp.fac, lp.colk, lp.s)
+        elif kernel:
             ks.seq_ratio_colk_sharded(
                 lp.Tt, lp.costs, lp.b, lp.base, lp.ah, lp.colk, lp.fac, lp.s,
                 lp.r_loc, eps, max_iter, offset=lp.shard.offset,
@@ -2054,9 +2165,28 @@ def test_sharded_seq_kernels_match_plain_on_card(cuda, pair, P):
     a tie of the smallest cost across the first and last slices, the fuse
     reached): every scalar, vector, send buffer and slice bit for bit;
     taken, skipped and Bland pivots seen."""
+    _sharded_seq_walk(cuda, pair, P, False)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("pair", ["f64", "mixed", "f32"])
+def test_sharded_seq_kernels_match_earlier_forms_on_card(cuda, prior_libs,
+                                                        pair, P):
+    """The shipped ``seq_fold_column`` and ``seq_ratio_colk_sharded`` (the
+    pass a programmatic dependent launch behind the column) against their
+    forms before (``tools/seq_variants.cu``'s ``seq_prior``) along the
+    same walk and edge states: every scalar, vector, send buffer and slice
+    bit for bit."""
+    _sharded_seq_walk(cuda, pair, P, prior_libs)
+
+
+def _sharded_seq_walk(dev, pair, P, other) -> None:
+    """The kernels on one set of P slices, ``other`` (False: the plain
+    versions; a ``PriorLibs``: the earlier forms) on the other, 48 pivots
+    from edge states; every state bit for bit after each."""
     from simplex_tpu_torch.kernels import seq as ks
 
-    (a_set, b_set), opts = _sharded_seq_slices(cuda, pair, P)
+    (a_set, b_set), opts = _sharded_seq_slices(dev, pair, P)
     eps = float(opts.eps_resolved)
     seen = set()
     for i in range(48):
@@ -2083,7 +2213,7 @@ def test_sharded_seq_kernels_match_plain_on_card(cuda, pair, P):
                         lp.costs, None, lp.r_loc, eps), lp.shard.offset,
                         lp.send_v, lp.send_i)
         _sharded_seq_pivot(a_set, opts, True, 100)
-        _sharded_seq_pivot(b_set, opts, False, 100)
+        _sharded_seq_pivot(b_set, opts, other, 100)
         for rank, (a, b) in enumerate(zip(a_set, b_set)):
             for name, x in a.s.tensors().items():
                 assert _bits_equal(x, getattr(b.s, name)), (i, rank, name)
@@ -2097,6 +2227,56 @@ def test_sharded_seq_kernels_match_plain_on_card(cuda, pair, P):
                 lp.b.nan_to_num_(nan=1.0)
                 lp.s.z.nan_to_num_(nan=0.0)
     assert {(None, True), (1, True), (3, False)} <= seen, seen
+
+
+@pytest.mark.parametrize("pair", ["f64", "mixed", "f32"])
+def test_sharded_seq_wide_slice_on_card(cuda, prior_libs, pair):
+    """A slice wider than one pass of 16 x 256 x 4 columns (R_loc 20,480,
+    so ``seq_sharded_threads`` gives 512 threads a block): 24 pivots of
+    the kernels against the plain versions and against the forms before
+    (16 x 256), from a seeded random state with every eighth pivot under
+    Bland: every scalar, vector, send buffer and the slice bit for bit."""
+    from simplex_tpu_torch.kernels import seq as ks
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.tableau import Tableau
+
+    T, V = (getattr(torch, np.dtype(x).name) for x in SEQ_PAIRS[pair])
+    M, R = 96, 20480
+    assert ks.seq_sharded_threads(R) == 512
+    rng = np.random.default_rng(31)
+
+    def uni(shape, lo, hi, dt):
+        return torch.from_numpy(rng.uniform(lo, hi, shape)).to(cuda, dt)
+
+    tab = Tableau(uni((M, R), -1.0, 1.0, T), uni((M,), 0.0, 100.0, V),
+                  uni((R,), -1.0, 1.0, V),
+                  torch.zeros((), dtype=V, device=cuda),
+                  torch.from_numpy(rng.integers(0, R, M)).to(cuda,
+                                                             torch.int32),
+                  n=R - M - 100, m=M, r=R - 100)
+    opts = pst.SolverOptions(dtype=SEQ_PAIRS[pair][0],
+                             vector_dtype=SEQ_PAIRS[pair][1])
+    sets = [[ps.sharded_seq_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                                 pg.Shard(None, 0, 1, R), opts)]
+            for _ in range(3)]
+    taken = 0
+    for i in range(24):
+        for loops in sets:
+            loops[0].s.bland.fill_(i % 8 == 7)
+            loops[0].s.status.fill_(int(pst.Status.RUNNING))
+        for loops, how in zip(sets, (True, False, prior_libs)):
+            _sharded_seq_pivot(loops, opts, how, 1000)
+        (a,), (b,), (c,) = sets
+        for other in (b, c):
+            for name, x in a.s.tensors().items():
+                assert _bits_equal(x, getattr(other.s, name)), (i, name)
+            for name in ("Tt", "b", "costs", "base", "ah", "colk", "fac",
+                         "send_v", "send_i"):
+                assert _bits_equal(getattr(a, name), getattr(other, name)), (
+                    i, name)
+        taken += bool(a.s.do)
+    assert taken > 0
 
 
 def _sharded_seq_tab(dev, group, n=300, m=100, seed=5):
@@ -2196,7 +2376,8 @@ def test_sharded_seq_graph_fuse_is_exact_on_card(cuda, tmp_path, cap):
 def test_sharded_seq_kernels_refuse_on_card(cuda):
     """A launch the kernels refuse raises through the C entry points: an
     empty shape, no ranks, a pair with no kernel, the sharded pass with
-    the next step before or without its send buffers."""
+    the next step before, without its send buffers or on a cluster width
+    it has no kernel for."""
     from simplex_tpu_torch.kernels import _build
     from simplex_tpu_torch.kernels import seq as ks
 
@@ -2226,11 +2407,12 @@ def test_sharded_seq_kernels_refuse_on_card(cuda):
     base = torch.zeros(M, dtype=torch.int32, device=cuda)
     send_v = torch.zeros(2, **f64)
     send_i = torch.zeros(2, dtype=torch.int32, device=cuda)
-    for sv, m_ in ((send_v.data_ptr(), 0), (0, M)):
+    for sv, m_, nt in ((send_v.data_ptr(), 0, 256), (0, M, 256),
+                       (send_v.data_ptr(), M, 384)):
         err = lib.seq_ratio_colk_sharded_launch(
             Tt.data_ptr(), costs.data_ptr(), b.data_ptr(), base.data_ptr(),
             ah.data_ptr(), colk.data_ptr(), ah.data_ptr(), m_, R, R, 1e-9,
-            step, 10, 0, 50, 0, sv, send_i.data_ptr(), 0, stream)
+            step, 10, 0, 50, 0, sv, send_i.data_ptr(), nt, 0, stream)
         with pytest.raises(RuntimeError,
                            match="seq_ratio_colk_sharded: CUDA"):
             _build.check(lib, err, "seq_ratio_colk_sharded")
@@ -2646,13 +2828,15 @@ def _slice_sets(dev, pair, rule, P, L=8, n=300, m=100, seed=5):
     return sets, opts
 
 
-def _slice_pivot(loops, t, opts, kernel: bool, cap: int) -> None:
+def _slice_pivot(loops, t, opts, kernel, cap: int) -> None:
     """Pivot t of ``run_blocked_pivot_sharded`` on P slices in this
     process: the gathers and the sum of the columns in rank order by
-    torch ops, each rank's kernels (or their plain versions) between
-    them."""
+    torch ops, each rank's kernels (``kernel`` true), their plain versions
+    (false) or the kernels with the pass's form before its redesign
+    (``kernel`` a ``PriorLibs``) between them."""
     from simplex_tpu_torch.kernels import eta as ke
 
+    prior = kernel if isinstance(kernel, PriorLibs) else None
     eps = float(opts.eps_resolved)
     policy = dict(bland_static=opts.pivot_rule_resolved == "bland",
                   threshold=opts.bland_threshold)
@@ -2677,7 +2861,10 @@ def _slice_pivot(loops, t, opts, kernel: bool, cap: int) -> None:
                 lp.s, t, lp.r_loc, eps, cap)
         out = dict(offset=lp.shard.offset, wh=lp.wh, send_v=lp.send_v,
                    send_i=lp.send_i, send_w=lp.send_w)
-        if kernel:
+        if prior:
+            ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps)
+            prior.eta_colk_slice(lp, t, eps, cap, **policy)
+        elif kernel:
             ke.eta_ratio_summed(lp.b, lp.ah, lp.s, eps)
             ke.eta_colk_slice(*args, lp.ws, **out, **policy)
         else:
@@ -2705,9 +2892,99 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
     and a NaN largest weight) alone and beside a weight past 1e8 on the
     first slice (no re-anchor), and plain taken pivots. Every scalar,
     slice, factor, vector, weight and send buffer bit for bit."""
+    _slice_walk(cuda, pair, rule, P, False)
+
+
+#: (pair, rule, R) of the window sweep: 64 columns a block of eta_colk at
+#: R 6,144 and 128 at 12,288, so that the slab passes 48 KB less the
+#: static arrays' reserve at t = 90-91 (f64, 64), 46 (f64, 128) and 91-92
+#: (f32, 128) of a window of 128.
+WINDOW_SWEEP = [("f64", "dantzig", 6144), ("f64", "devex", 12288),
+                ("f32", "devex", 12288)]
+
+
+@pytest.mark.parametrize("pair,rule,R", WINDOW_SWEEP,
+                         ids=[f"{p}-{r}-{n}" for p, r, n in WINDOW_SWEEP])
+def test_eta_passes_launch_at_every_t_of_a_window_on_card(cuda, pair, rule,
+                                                          R):
+    """``eta_colk`` and ``eta_colk_slice`` (one slice) at every t of a
+    window of 128 against their plain versions, the slab's shared memory
+    growing with t past the default 48 KB limit, which holds the static
+    arrays too: every launch taken and every state bit for bit after each
+    pivot."""
+    from simplex_tpu_torch import solver
+    from simplex_tpu_torch.kernels import eta as ke
+    from simplex_tpu_torch.kernels import seq as ks
+
+    L, cap, m = 128, 10 ** 6, 100
+    n = R - 2 * m
+    (a_set, b_set), opts = _slice_sets(cuda, pair, rule, 1, L=L, n=n, m=m)
+    M = a_set[0].Tt.shape[0]
+    T = a_set[0].Tt
+    assert T.shape[1] == R
+    assert ke.eta_plan(M, R, L, T.element_size()).cols == {6144: 64,
+                                                            12288: 128}[R]
+    tab, costs0, _ = _eta_phase1(cuda, pair, rule, L=L, n=n, m=m)
+    loops = [solver.blocked_loop(dataclasses.replace(tab, Tt=tab.Tt.clone()),
+                                 opts, costs0) for _ in range(2)]
+    eps = float(opts.eps_resolved)
+    policy = dict(bland_static=False, threshold=opts.bland_threshold)
+    ks.seq_step_pre(loops[0].s, cap, eps)
+    kb.step_pre_plain(loops[1].s, cap, eps)
+    for t in range(L):
+        _slice_pivot(a_set, t, opts, True, cap)
+        _slice_pivot(b_set, t, opts, False, cap)
+        (a,), (b,) = a_set, b_set
+        for name, x in a.s.tensors().items():
+            assert _bits_equal(x, getattr(b.s, name)), (t, name)
+        for name in ("Tt", "C", "F", "b", "costs", "base", "w", "ah", "wh",
+                     "send_v", "send_i", "send_w"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x is None or _bits_equal(x, y), (t, name)
+        for lp, kernel in zip(loops, (True, False)):
+            s = lp.s
+            if kernel:
+                ke.eta_ratio(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t, eps,
+                             lp.ws)
+                ke.eta_colk(lp.Tt, lp.C, lp.F, lp.costs, lp.b, lp.base,
+                            lp.w, lp.ah, s, t, lp.r, eps, cap, lp.ws,
+                            then_pre=t + 1 < L, **policy)
+            else:
+                ke.eta_ratio_plain(lp.Tt, lp.C, lp.F, lp.b, lp.ah, s, t,
+                                   eps)
+                ke.eta_colk_plain(lp.Tt, lp.C, lp.F, lp.costs, lp.b,
+                                  lp.base, lp.w, lp.ah, s, t, lp.r, eps, cap,
+                                  then_pre=t + 1 < L, **policy)
+        for name, x in loops[0].s.tensors().items():
+            assert _bits_equal(x, getattr(loops[1].s, name)), (t, name)
+        for name in ("C", "F", "b", "costs", "base", "w", "ah"):
+            x, y = getattr(loops[0], name), getattr(loops[1], name)
+            assert x is None or _bits_equal(x, y), (t, name)
+    assert int(a_set[0].s.iterations) > 0
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("pair,rule", SLICE_CASES,
+                         ids=[f"{p}-{r}" for p, r in SLICE_CASES])
+def test_slice_pass_matches_its_earlier_form_on_card(cuda, prior_libs, pair,
+                                                     rule, P):
+    """The shipped ``eta_colk_slice`` (its candidates carrying the weights
+    at them through the folds) against its form before
+    (``tools/eta_variants.cu``'s ``colk_prior``: the weights read back
+    after the fold) along the same windows and edge states, t = 0 .. L -
+    1, the head the shipped kernels on both: every scalar, slice, factor,
+    vector, weight and send buffer bit for bit."""
+    _slice_walk(cuda, pair, rule, P, prior_libs)
+
+
+def _slice_walk(dev, pair, rule, P, other) -> None:
+    """The kernels on one set of P slices, ``other`` (False: the plain
+    versions; a ``PriorLibs``: the pass's earlier form) on the other, four
+    windows of 8 from edge states; every state bit for bit after each
+    pivot."""
     from simplex_tpu_torch.kernels import eta as ke
 
-    (a_set, b_set), opts = _slice_sets(cuda, pair, rule, P)
+    (a_set, b_set), opts = _slice_sets(dev, pair, rule, P)
     eps = float(opts.eps_resolved)
     L, cap = 8, 1000
     kinds = set()
@@ -2762,7 +3039,7 @@ def test_slice_kernels_match_plain_on_card(cuda, pair, rule, P):
                         for lp in loops:
                             lp.recv_w.copy_(W)
             _slice_pivot(a_set, t, opts, True, cap)
-            _slice_pivot(b_set, t, opts, False, cap)
+            _slice_pivot(b_set, t, opts, other, cap)
             for rank, (a, b) in enumerate(zip(a_set, b_set)):
                 for name, x in a.s.tensors().items():
                     assert _bits_equal(x, getattr(b.s, name)), (win, t, rank,

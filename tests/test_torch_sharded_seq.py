@@ -705,8 +705,9 @@ def test_ratio_colk_sharded_launch_is_wired(monkeypatch, pair, policy):
     """``seq_ratio_colk_sharded`` on the card: one call of its entry point
     with as many arguments as its ctypes signature -- the buffers, the
     shape, the slice's live columns, eps, the scalars, the fuse, the Bland
-    mode and threshold, the offset, the send buffers and the dtype pair --
-    and one launch counted."""
+    mode and threshold, the offset, the send buffers, the cluster's threads
+    a block (``seq_sharded_threads``) and the dtype pair -- and one launch
+    counted."""
     T, V = (getattr(torch, np.dtype(d).name) for d in PAIRS[pair])
     got, sig = _stub_card(monkeypatch, "seq_ratio_colk_sharded_launch")
     s = ks.seq_scalars(torch.tensor(0.0, dtype=V), False, T)
@@ -727,7 +728,7 @@ def test_ratio_colk_sharded_launch_is_wired(monkeypatch, pair, policy):
     assert vals[:7] == [x.data_ptr() for x in bufs]
     assert vals[7:11] == [M, R, 5, 1e-9]
     assert vals[12:16] == [77, *ks._policy(*policy), 18]
-    assert vals[16:19] == [send_v.data_ptr(), send_i.data_ptr(),
-                           ks.PAIRS[(T, V)]]
+    assert vals[16:20] == [send_v.data_ptr(), send_i.data_ptr(),
+                           ks.seq_sharded_threads(R), ks.PAIRS[(T, V)]]
     assert ks.LAUNCHES == {**{n: 0 for n in ks.LAUNCHES},
                            "seq_ratio_colk_sharded": 1}

@@ -47,7 +47,26 @@
 // devex pivot; eta_colk is timed without the next step before, so every
 // call does the same work.
 //
-// First, the sharded plain blocked loop's head (``/tmp/eta_variants
+// First (``/tmp/eta_variants colk`` runs this part alone, ~2 min) the
+// sharded plain blocked loop's pass, eta_colk_slice: the shipped kernel
+// (the new weights at the candidates carried through the block's and the
+// partials' folds, the ticket's acq_rel with no __threadfence beside it)
+// against the form before (colk_prior, verbatim: the weights read back
+// past L1 after the fold, a fence before the ticket and after) and the
+// forms the port does not ship (colk_forms: the carried weights with the
+// fences; the weights read back without them; clusters of 8 column
+// blocks folding over distributed shared memory, one ticket a cluster),
+// byte for byte after the shipped eta_ratio from edge states (state()'s
+// seven, Dantzig, a NaN weight that wins, equal devex scores in the first
+// and the last block, no eligible column, Bland static) at offsets 0 and
+// 2R, t = 0, 1, L / 2 and L - 1, L = 128 and 13, M x R = 2,048 x 6,144,
+// 2,048 x 2,048, 37 x 6,143, 2,047 x 3 and 4,097 x 257, the three pairs;
+// then timed in turns in f64 at 2,048 x 6,144 and 2,048 x 2,048 (a third
+// of its columns: one slice of three), t = 0, 64 and 127, and 8,192 x
+// 24,576 at t = 64, with eta_colk (whose template it shares) against its
+// form before at the first and the last.
+//
+// Then the sharded plain blocked loop's head (``/tmp/eta_variants
 // slice`` runs this part alone, ~1 min): eta_fold_column -- the shipped
 // form (one warp folding), the form before it (slice_prior) and the others
 // (slice_forms: the rank's own candidates' columns sent for before the
@@ -97,9 +116,9 @@
 // grid, its last block folding by an arrival ticket, launched without
 // programmatic dependent launch; eta_fold_column with the fold in each
 // block's thread 0 and the owner's column loaded after it. Built alone
-// (-DETA_VARIANTS_LIB -shared), this file is a library of these two with
-// C entry points, which chip_smoke.py times in turns with the shipped
-// kernels.
+// (-DETA_VARIANTS_LIB -shared), this file is a library of these two and
+// of colk_prior's (below) with C entry points, which chip_smoke.py and
+// the card tests hold and time the shipped kernels against.
 
 namespace slice_prior {
 
@@ -377,6 +396,339 @@ int fold_column_run(const void *Tt, const void *C, const void *F, void *ah,
 
 }  // namespace slice_prior
 
+// ---------------------------------------------------------------------------
+// eta_colk and eta_colk_slice as the port launched them before their
+// candidates carried the weights at them, verbatim (their helpers -- Slab,
+// the workspace, first_max and the launch checks -- are the shipped
+// file's; the workspace's earlier fields keep their places): the slice's
+// last block reads the weights at its candidates back past L1 after the
+// fold; its calls of its own launchers qualified, since SliceOut brings
+// the shipped ones in by argument-dependent lookup. Built alone
+// (-DETA_VARIANTS_LIB -shared) with C entry points, which chip_smoke.py
+// and the card tests hold and time the shipped kernel against.
+
+namespace colk_prior {
+
+// A block's candidates: the main one (key the negated cost under Dantzig,
+// the devex score under devex; the larger first), the devex one on weights
+// of 1, Bland's (the lowest eligible index), and the largest new weight.
+template <typename V>
+struct RowCands {
+    V key;
+    int idx;
+    V val;
+    V key1;
+    int idx1;
+    V val1;
+    V bval;
+    int bidx;
+    V wmax;
+};
+
+template <typename V>
+__device__ __forceinline__ void take_first(RowCands<V> &x,
+                                           const RowCands<V> &o) {
+    if (first_max(o.key, o.idx, x.key, x.idx)) {
+        x.key = o.key;
+        x.idx = o.idx;
+        x.val = o.val;
+    }
+    if (first_max(o.key1, o.idx1, x.key1, x.idx1)) {
+        x.key1 = o.key1;
+        x.idx1 = o.idx1;
+        x.val1 = o.val1;
+    }
+    if (o.bidx < x.bidx) {
+        x.bidx = o.bidx;
+        x.bval = o.bval;
+    }
+    if (o.wmax > x.wmax || o.wmax != o.wmax)     // NaN first, as torch's
+        x.wmax = o.wmax;                         // max propagates it
+}
+
+template <typename V>
+__device__ __forceinline__ RowCands<V> shfl_xor(const RowCands<V> &x,
+                                                int off) {
+    constexpr unsigned FULL = seq::FULL;
+    return RowCands<V>{__shfl_xor_sync(FULL, x.key, off),
+                       __shfl_xor_sync(FULL, x.idx, off),
+                       __shfl_xor_sync(FULL, x.val, off),
+                       __shfl_xor_sync(FULL, x.key1, off),
+                       __shfl_xor_sync(FULL, x.idx1, off),
+                       __shfl_xor_sync(FULL, x.val1, off),
+                       __shfl_xor_sync(FULL, x.bval, off),
+                       __shfl_xor_sync(FULL, x.bidx, off),
+                       __shfl_xor_sync(FULL, x.wmax, off)};
+}
+
+template <typename T, typename V, int NT, bool FIXED, bool SLICE = false>
+__global__ void __launch_bounds__(NT) eta_colk_kernel(
+        const T *__restrict__ Tt, T *__restrict__ C, T *__restrict__ F,
+        V *__restrict__ costs, V *__restrict__ b, int *__restrict__ base,
+        V *__restrict__ w, const T *__restrict__ ah, int M, int R, int r,
+        int t, int cols, int stage, int nbA, int nbB,
+        unsigned char *__restrict__ ws_bytes, SeqStep<T, V> s,
+        seq::Policy pol, SliceOut<V> so) {
+    constexpr int NW = NT / 32;
+    const int tid = threadIdx.x;
+    if ((int)blockIdx.x >= nbB) {
+        // The row blocks: F[t] and b (whole blocks return together).
+        grid_wait();
+        grid_launch_next();
+        const int j = (blockIdx.x - nbB) * NT + tid;
+        if (j >= M) return;
+        const int k = min(*s.k, M - 1);
+        T *frow = F + (size_t)t * M;
+        if (*s.do_ == 0) {
+            frow[j] = (T)0;
+            return;
+        }
+        const T p = *s.p;
+        const V bk = *s.bk;
+        if (j == k) {
+            frow[j] = sub_rn((T)1, div_rn((T)1, p));
+            b[j] = div_rn(bk, (V)p);
+        } else {
+            const T f = div_rn(ah[j], p);
+            frow[j] = f;
+            b[j] = sub_rn(b[j], mul_rn(bk, (V)f));
+        }
+        return;
+    }
+
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ RowCands<V> warps[NW];
+    __shared__ int wany[NW];
+    __shared__ bool last, anchor;
+    const WsB ws(ws_bytes, nbA, nbB);
+    const int i0 = blockIdx.x * cols;
+    const int ncol = min(cols, R - i0);
+    const int i = i0 + tid;                      // this thread's column
+    const bool col = tid < ncol;
+    const int W = slab_width(cols, sizeof(T));
+    const Slab<T, NT, FIXED> slab{C, (size_t)R, i0, ncol, t, stage, W,
+                                  reinterpret_cast<T *>(dyn)};
+    T *fk = slab.buf + (size_t)min(t, 2 * stage) * W;  // F[:t, k]
+
+    // The block's C slab first (it does not depend on k, and no pivot
+    // since the last before wrote it), then what k does not select, all
+    // before the kernel before is waited for; then k and what it selects.
+    slab.first();
+    const bool devex = w != nullptr;
+    V c = (V)0, wi = (V)0;
+    if (col) {
+        c = costs[i];
+        if (devex) wi = w[i];
+    }
+    grid_wait();
+    grid_launch_next();
+    const int h_raw = *s.h;
+    const int h = min(h_raw, R - 1);
+    const T p = *s.p;
+    const V u = *s.u;
+    const int k = min(*s.k, M - 1);
+    const bool d = *s.do_ != 0;
+    for (int q = tid; q < t; q += NT) fk[q] = F[(size_t)q * M + k];
+    const T tk = col ? Tt[(size_t)k * R + i] : (T)0;
+    V wh = (V)0;
+    int lvar = -1;
+    if (devex && d) {                            // before the last block's
+        wh = SLICE ? *so.wh : w[h];              // stores
+        lvar = base[k];
+        if (SLICE) lvar -= so.offset;            // the slice's column, if any
+    }
+
+    // colk[i] = Tt[k, i] - sum_{s<t} F[s, k] C[s, i], s in order from 0,
+    // in f64.
+    const double acc = slab.sum(fk);
+
+    const RowCands<V> none{-inf<V>(), BIG_INDEX, inf<V>(), -inf<V>(),
+                           BIG_INDEX, inf<V>(), inf<V>(), BIG_INDEX, (V)0};
+    RowCands<V> x = none;
+    if (col) {
+        const T ck = (T)__dsub_rn((double)tk, acc);
+        C[(size_t)t * R + i] = d ? ck : (T)0;
+        if (d) {
+            c = sub_rn(c, mul_rn(u, (V)ck));
+            costs[i] = c;
+        }
+        const V cm = i < r ? c : inf<V>();       // torch.where(iota < r)
+        const bool elig = cm <= -(V)pol.eps;
+        if (devex) {
+            if (d) {
+                const V alpha = (V)div_rn(ck, p);
+                V w2 = max_nan(wi, mul_rn(mul_rn(alpha, alpha), wh));
+                if (i == lvar)
+                    w2 = max_nan(div_rn(wh, (V)mul_rn(p, p)), (V)1);
+                w2 = min_nan(w2, (V)1e12);
+                if (w2 != w2) w2 = (V)1;
+                if (!SLICE && i == h)
+                    *ws.wh = (double)w2;         // the last block stores it
+                else
+                    w[i] = w2;
+                wi = w2;
+            }
+            x.wmax = wi;
+            const V c2 = mul_rn(cm, cm);
+            x.key = elig ? div_rn(c2, wi) : -inf<V>();
+            x.key1 = elig ? c2 : -inf<V>();
+        } else {
+            x.key = -cm;
+        }
+        x.idx = x.idx1 = i;
+        x.val = x.val1 = cm;
+        if (elig) {
+            x.bidx = i;
+            x.bval = cm;
+        }
+    }
+    // The block's fold (its barrier orders the stores above before thread
+    // 0's fence), the partial, then the ticket.
+    bool unused = false;
+    block_fold<NW>(x, unused, none, warps, wany);
+    if (tid == 0) {
+        const int q = blockIdx.x;
+        ws.key[q] = (double)x.key;
+        ws.val[q] = (double)x.val;
+        ws.key1[q] = (double)x.key1;
+        ws.val1[q] = (double)x.val1;
+        ws.bval[q] = (double)x.bval;
+        ws.wmax[q] = (double)x.wmax;
+        ws.idx[q] = x.idx;
+        ws.idx1[q] = x.idx1;
+        ws.bidx[q] = x.bidx;
+        __threadfence();
+        last = ticket(ws.counter) == (unsigned)nbB - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+
+    // The last block: every column block has read h, base[k] and w[h] and
+    // written its partial.
+    __threadfence();
+    seq::PostIn<V> in{};
+    if (tid == 0) in = seq::post_load(s);
+    x = none;
+    for (int q = tid; q < nbB; q += NT)
+        take_first(x, RowCands<V>{
+                (V)__ldcg(ws.key + q), __ldcg(ws.idx + q),
+                (V)__ldcg(ws.val + q), (V)__ldcg(ws.key1 + q),
+                __ldcg(ws.idx1 + q), (V)__ldcg(ws.val1 + q),
+                (V)__ldcg(ws.bval + q), __ldcg(ws.bidx + q),
+                (V)__ldcg(ws.wmax + q)});
+    block_fold<NW>(x, unused, none, warps, wany);
+    if (SLICE) {
+        // The slice's candidates into the send buffers as global indices,
+        // the weights at them (read past L1: every column block stored its
+        // weights before its ticket), and the slice's largest weight; no
+        // re-anchor (the next eta_fold_column decides it on the largest of
+        // every rank's) and no next step before (it needs the fold).
+        if (tid != 0) return;
+        const bool has = x.bidx != BIG_INDEX;
+        so.send_v[0] = (double)x.val;
+        so.send_v[1] = has ? (double)x.bval : (double)CUDART_INF;
+        so.send_i[0] = so.offset + x.idx;
+        so.send_i[1] = has ? so.offset + x.bidx : BIG_INDEX;
+        if (devex) {
+            so.send_v[2] = (double)__ldcg(w + x.idx);
+            so.send_v[3] = has ? (double)__ldcg(w + x.bidx) : 1.0;
+            so.send_v[4] = (double)x.key;
+            so.send_v[5] = (double)x.val1;
+            so.send_v[6] = (double)x.key1;
+            so.send_i[2] = so.offset + x.idx1;
+            *so.send_w = (double)x.wmax;
+        }
+        if (d) base[k] = h_raw;                  // h global
+        *ws.counter = 0;                         // ready for the next call
+        seq::post(s, in, d, seq::Candidates<V>{}, pol);
+        return;
+    }
+    if (tid == 0) {
+        const bool re = devex && d && x.wmax > (V)1e8;   // the re-anchor
+        anchor = re;
+        const seq::Candidates<V> cand{
+                re ? x.idx1 : x.idx, re ? x.val1 : x.val, x.bidx,
+                x.bidx == BIG_INDEX ? inf<V>() : x.bval};
+        *s.h_d = cand.h_d;
+        *s.v_d = cand.v_d;
+        *s.h_b = cand.h_b;
+        *s.v_b = cand.v_b;
+        if (d) {
+            base[k] = h_raw;                     // before the step rewrites h
+            if (devex && !re) w[h] = (V)__ldcg(ws.wh);
+        }
+        *ws.counter = 0;                         // ready for the next call
+        seq::post(s, in, d, cand, pol);
+    }
+    if (devex && d) {
+        __syncthreads();
+        if (anchor)
+            for (int q = tid; q < R; q += NT) w[q] = (V)1;
+    }
+}
+
+template <typename T, typename V, int NT, bool FIXED = true,
+          bool SLICE = false>
+int colk_run(const void *Tt, void *C, void *F, void *costs, void *b,
+             int *base, void *w, const void *ah, int M, int R, int L, int r,
+             int t, unsigned char *ws, long long ws_len, const void *step,
+             const seq::Policy &pol, int rows, int cols, int stage, bool pdl,
+             cudaStream_t st, const SliceOut<V> &so = SliceOut<V>{}) {
+    constexpr auto kernel = eta_colk_kernel<T, V, NT, FIXED, SLICE>;
+    const long long smem = prepare<T>(M, R, L, t, cols, NT, rows, cols,
+                                      stage, ws_len);
+    if (smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows), nbB = cdiv(R, cols);
+    return launch(kernel, nbB + cdiv(M, NT), NT, smem, pdl, st,
+                  static_cast<const T *>(Tt), static_cast<T *>(C),
+                  static_cast<T *>(F), static_cast<V *>(costs),
+                  static_cast<V *>(b), base, static_cast<V *>(w),
+                  static_cast<const T *>(ah), M, R, r, t, cols, stage,
+                  nbA, nbB, ws, step_of<T, V>(step), pol, so);
+}
+
+// eta_colk (or with SLICE its slice's form) with COLK_THREADS threads a
+// block, or 256 for 256 columns.
+template <typename T, typename V, bool SLICE = false>
+int colk_any(const void *Tt, void *C, void *F, void *costs, void *b,
+             int *base, void *w, const void *ah, int M, int R, int L, int r,
+             int t, unsigned char *ws, long long ws_len, const void *step,
+             const seq::Policy &pol, int rows, int cols, int stage,
+             cudaStream_t st, const SliceOut<V> &so = SliceOut<V>{}) {
+    if (cols > COLK_THREADS)
+        return colk_prior::colk_run<T, V, 2 * COLK_THREADS, true, SLICE>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, true, st, so);
+    return colk_prior::colk_run<T, V, COLK_THREADS, true, SLICE>(
+            Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len, step,
+            pol, rows, cols, stage, true, st, so);
+}
+
+// The slice's eta_colk: its send buffers given, and under devex (w given)
+// the weight at h and the send buffer of the largest weight; no next step
+// before (it needs the fold).
+template <typename T, typename V>
+int colk_slice_any(const void *Tt, void *C, void *F, void *costs, void *b,
+                   int *base, void *w, const void *ah, int M, int R, int L,
+                   int r, int t, unsigned char *ws, long long ws_len,
+                   const void *step, const seq::Policy &pol, int rows,
+                   int cols, int stage, int offset, const void *wh,
+                   double *send_v, int *send_i, double *send_w,
+                   cudaStream_t st) {
+    const bool devex = w != nullptr;
+    if (pol.then_pre || send_v == nullptr || send_i == nullptr ||
+        devex != (wh != nullptr) || devex != (send_w != nullptr))
+        return (int)cudaErrorInvalidValue;
+    const SliceOut<V> so{offset, static_cast<const V *>(wh), send_v, send_i,
+                         send_w};
+    return colk_prior::colk_any<T, V, true>(
+            Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len, step,
+            pol, rows, cols, stage, st, so);
+}
+
+}  // namespace colk_prior
+
 #ifdef ETA_VARIANTS_LIB
 
 extern "C" {
@@ -424,6 +776,68 @@ int prior_eta_ratio_summed_launch(const void *b, void *ah, int M, double eps,
     case PAIR_F32:
         return slice_prior::ratio_summed_run<float, float>(
                 b, ah, M, eps, ws, ws_len, step, rows, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// eta_colk_slice_launch's operands (the form before its candidates carried
+// their weights).
+int prior_eta_colk_slice_launch(const void *Tt, void *C, void *F,
+                                void *costs, void *b, int *base, void *w,
+                                const void *ah, int M, int R, int L, int r,
+                                int t, double eps, unsigned char *ws,
+                                long long ws_len, const void *step,
+                                long long max_iter, int bland_mode,
+                                int threshold, int pair, int rows, int cols,
+                                int stage, int offset, const void *wh,
+                                double *send_v, int *send_i, double *send_w,
+                                void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const seq::Policy pol{max_iter, eps, bland_mode, threshold, 0};
+    switch (pair) {
+    case PAIR_F64:
+        return colk_prior::colk_slice_any<double, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
+    case PAIR_MIXED:
+        return colk_prior::colk_slice_any<float, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
+    case PAIR_F32:
+        return colk_prior::colk_slice_any<float, float>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, offset, wh, send_v, send_i,
+                send_w, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// eta_colk_launch's operands (the single-card kernel before).
+int prior_eta_colk_launch(const void *Tt, void *C, void *F, void *costs,
+                          void *b, int *base, void *w, const void *ah, int M,
+                          int R, int L, int r, int t, double eps,
+                          unsigned char *ws, long long ws_len,
+                          const void *step, long long max_iter,
+                          int bland_mode, int threshold, int then_pre,
+                          int pair, int rows, int cols, int stage,
+                          void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const seq::Policy pol{max_iter, eps, bland_mode, threshold, then_pre};
+    switch (pair) {
+    case PAIR_F64:
+        return colk_prior::colk_any<double, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, st);
+    case PAIR_MIXED:
+        return colk_prior::colk_any<float, double>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, st);
+    case PAIR_F32:
+        return colk_prior::colk_any<float, float>(
+                Tt, C, F, costs, b, base, w, ah, M, R, L, r, t, ws, ws_len,
+                step, pol, rows, cols, stage, st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -610,9 +1024,266 @@ int ratio_run(const void *b, void *ah, int M, double eps, const void *step,
 }  // namespace slice_forms
 
 // ---------------------------------------------------------------------------
+// eta_colk_slice's forms the port does not ship, timed against its own
+// (the weights carried, no fence beside the ticket): with CARRY false the
+// last block reads the weights at its candidates back past L1 after the
+// fold, as the form before did; with FENCE a __threadfence before the
+// ticket and after it, as the form before had; with CL > 1 the column
+// blocks in clusters of CL whose blocks fold over distributed shared
+// memory, so that one block a cluster writes a partial and takes the
+// ticket and the last folds nbB / CL partials.
+
+namespace colk_forms {
+
+template <typename T, typename V, int NT, int CL, bool CARRY, bool FENCE>
+__global__ void __launch_bounds__(NT) form_kernel(
+        const T *__restrict__ Tt, T *__restrict__ C, T *__restrict__ F,
+        V *__restrict__ costs, V *__restrict__ b, int *__restrict__ base,
+        V *__restrict__ w, const T *__restrict__ ah, int M, int R, int r,
+        int t, int cols, int stage, int nbA, int nbB,
+        unsigned char *__restrict__ ws_bytes, SeqStep<T, V> s,
+        seq::Policy pol, SliceOut<V> so) {
+    constexpr int NW = NT / 32;
+    const int tid = threadIdx.x;
+    if ((int)blockIdx.x >= nbB) {                // nbB: a multiple of CL
+        grid_wait();
+        grid_launch_next();
+        const int j = (blockIdx.x - nbB) * NT + tid;
+        if (j >= M) return;
+        const int k = min(*s.k, M - 1);
+        T *frow = F + (size_t)t * M;
+        if (*s.do_ == 0) {
+            frow[j] = (T)0;
+            return;
+        }
+        const T p = *s.p;
+        const V bk = *s.bk;
+        if (j == k) {
+            frow[j] = sub_rn((T)1, div_rn((T)1, p));
+            b[j] = div_rn(bk, (V)p);
+        } else {
+            const T f = div_rn(ah[j], p);
+            frow[j] = f;
+            b[j] = sub_rn(b[j], mul_rn(bk, (V)f));
+        }
+        return;
+    }
+
+    using Cand = RowCands<V, CARRY>;
+    namespace cg = cooperative_groups;
+    const int crank = CL > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    if (CL > 1) cluster_arrive_relaxed();
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ Cand warps[NW];
+    __shared__ Cand parts[CL];                   // the leader's: the blocks'
+    __shared__ int wany[NW];
+    __shared__ bool last;
+    const WsB ws(ws_bytes, nbA, nbB);
+    const int i0 = blockIdx.x * cols;
+    const int ncol = max(0, min(cols, R - i0));
+    const int i = i0 + tid;
+    const bool col = tid < ncol;
+    const int W = slab_width(cols, sizeof(T));
+    const Slab<T, NT, true> slab{C, (size_t)R, min(i0, R - 1), ncol, t,
+                                 stage, W, reinterpret_cast<T *>(dyn)};
+    T *fk = slab.buf + (size_t)min(t, 2 * stage) * W;
+
+    if (ncol > 0) slab.first();                  // padding blocks: none
+    const bool devex = w != nullptr;
+    V c = (V)0, wi = (V)0;
+    if (col) {
+        c = costs[i];
+        if (devex) wi = w[i];
+    }
+    grid_wait();
+    grid_launch_next();
+    const int h_raw = *s.h;
+    const T p = *s.p;
+    const V u = *s.u;
+    const int k = min(*s.k, M - 1);
+    const bool d = *s.do_ != 0;
+    for (int q = tid; q < t; q += NT) fk[q] = F[(size_t)q * M + k];
+    const T tk = col ? Tt[(size_t)k * R + i] : (T)0;
+    V wh = (V)0;
+    int lvar = -1;
+    if (devex && d) {
+        wh = *so.wh;
+        lvar = base[k] - so.offset;
+    }
+    const double acc = ncol > 0 ? slab.sum(fk) : 0.0;
+
+    Cand none{};
+    none.key = none.key1 = -inf<V>();
+    none.val = none.val1 = none.bval = inf<V>();
+    none.idx = none.idx1 = none.bidx = BIG_INDEX;
+    Cand x = none;
+    if (col) {
+        const T ck = (T)__dsub_rn((double)tk, acc);
+        C[(size_t)t * R + i] = d ? ck : (T)0;
+        if (d) {
+            c = sub_rn(c, mul_rn(u, (V)ck));
+            costs[i] = c;
+        }
+        const V cm = i < r ? c : inf<V>();
+        const bool elig = cm <= -(V)pol.eps;
+        if (devex) {
+            if (d) {
+                const V alpha = (V)div_rn(ck, p);
+                V w2 = max_nan(wi, mul_rn(mul_rn(alpha, alpha), wh));
+                if (i == lvar)
+                    w2 = max_nan(div_rn(wh, (V)mul_rn(p, p)), (V)1);
+                w2 = min_nan(w2, (V)1e12);
+                if (w2 != w2) w2 = (V)1;
+                w[i] = w2;
+                wi = w2;
+            }
+            x.wmax = wi;
+            if constexpr (CARRY) x.wv = wi;
+            const V c2 = mul_rn(cm, cm);
+            x.key = elig ? div_rn(c2, wi) : -inf<V>();
+            x.key1 = elig ? c2 : -inf<V>();
+        } else {
+            x.key = -cm;
+        }
+        x.idx = x.idx1 = i;
+        x.val = x.val1 = cm;
+        if (elig) {
+            x.bidx = i;
+            x.bval = cm;
+            if constexpr (CARRY) x.bw = wi;
+        }
+    }
+    // The block's fold, its result into the leader's shared memory, one
+    // cluster barrier, the leader's warp over the CL results, then its
+    // partial and the ticket.
+    bool unused = false;
+    block_fold<NW>(x, unused, none, warps, wany);
+    if (CL > 1) {
+        cluster_wait();                          // every block runs
+        if (tid == 0)
+            *cg::this_cluster().map_shared_rank(&parts[crank], 0) = x;
+        cluster_arrive();
+        cluster_wait();
+        if (crank != 0) return;
+    }
+    if (tid < 32) {
+        if (CL > 1) x = seq::warp_fold(tid < CL ? parts[tid] : none);
+        if (tid == 0) {
+            const int q = blockIdx.x / CL;
+            ws.key[q] = (double)x.key;
+            ws.val[q] = (double)x.val;
+            ws.key1[q] = (double)x.key1;
+            ws.val1[q] = (double)x.val1;
+            ws.bval[q] = (double)x.bval;
+            ws.wmax[q] = (double)x.wmax;
+            ws.idx[q] = x.idx;
+            ws.idx1[q] = x.idx1;
+            ws.bidx[q] = x.bidx;
+            if constexpr (CARRY) {
+                ws.wv[q] = (double)x.wv;
+                ws.bw[q] = (double)x.bw;
+            }
+            if (FENCE) __threadfence();
+            last = ticket(ws.counter) == (unsigned)(nbB / CL) - 1;
+        }
+    }
+    __syncthreads();
+    if (!last) return;
+
+    if (FENCE) __threadfence();
+    seq::PostIn<V> in{};
+    if (tid == 0) in = seq::post_load(s);
+    x = none;
+    for (int q = tid; q < nbB / CL; q += NT) {
+        Cand o;
+        o.key = (V)__ldcg(ws.key + q);
+        o.idx = __ldcg(ws.idx + q);
+        o.val = (V)__ldcg(ws.val + q);
+        o.key1 = (V)__ldcg(ws.key1 + q);
+        o.idx1 = __ldcg(ws.idx1 + q);
+        o.val1 = (V)__ldcg(ws.val1 + q);
+        o.bval = (V)__ldcg(ws.bval + q);
+        o.bidx = __ldcg(ws.bidx + q);
+        o.wmax = (V)__ldcg(ws.wmax + q);
+        if constexpr (CARRY) {
+            o.wv = (V)__ldcg(ws.wv + q);
+            o.bw = (V)__ldcg(ws.bw + q);
+        }
+        take_first(x, o);
+    }
+    block_fold<NW>(x, unused, none, warps, wany);
+    if (tid != 0) return;
+    const bool has = x.bidx != BIG_INDEX;
+    so.send_v[0] = (double)x.val;
+    so.send_v[1] = has ? (double)x.bval : (double)CUDART_INF;
+    so.send_i[0] = so.offset + x.idx;
+    so.send_i[1] = has ? so.offset + x.bidx : BIG_INDEX;
+    if (devex) {
+        if constexpr (CARRY) {
+            so.send_v[2] = (double)x.wv;
+            so.send_v[3] = has ? (double)x.bw : 1.0;
+        } else {
+            so.send_v[2] = (double)__ldcg(w + x.idx);
+            so.send_v[3] = has ? (double)__ldcg(w + x.bidx) : 1.0;
+        }
+        so.send_v[4] = (double)x.key;
+        so.send_v[5] = (double)x.val1;
+        so.send_v[6] = (double)x.key1;
+        so.send_i[2] = so.offset + x.idx1;
+        *so.send_w = (double)x.wmax;
+    }
+    if (d) base[k] = h_raw;
+    *ws.counter = 0;
+    seq::post(s, in, d, seq::Candidates<V>{}, pol);
+}
+
+// A form on the shipped plan: the column blocks padded to a multiple of
+// CL, the row blocks after them, the grid a multiple of CL; a programmatic
+// dependent launch.
+template <typename T, typename V, int NT, int CL, bool CARRY, bool FENCE>
+int form_run(const void *Tt, void *C, void *F, void *costs, void *b,
+                int *base, void *w, const void *ah, int M, int R, int L,
+                int r, int t, unsigned char *ws, long long ws_len,
+                const void *step, const seq::Policy &pol, int rows, int cols,
+                int stage, const SliceOut<V> &so, cudaStream_t st) {
+    constexpr auto kernel = form_kernel<T, V, NT, CL, CARRY, FENCE>;
+    const long long smem = prepare<T>(M, R, L, t, cols, NT, rows, cols,
+                                      stage, ws_len);
+    if (smem < 0 || !allow_smem<kernel>(smem))
+        return (int)cudaErrorInvalidValue;
+    const int nbA = cdiv(M, rows);
+    const int nbB = cdiv(cdiv(R, cols), CL) * CL;
+    const int grid = cdiv(nbB + cdiv(M, NT), CL) * CL;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)grid);
+    cfg.blockDim = dim3((unsigned)NT);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = CL;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = CL > 1 ? 2 : 1;               // CL 1: no cluster
+    const cudaError_t e = cudaLaunchKernelEx(
+            &cfg, kernel, static_cast<const T *>(Tt), static_cast<T *>(C),
+            static_cast<T *>(F), static_cast<V *>(costs),
+            static_cast<V *>(b), base, static_cast<V *>(w),
+            static_cast<const T *>(ah), M, R, r, t, cols, stage, nbA, nbB,
+            ws, step_of<T, V>(step), pol, so);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+}  // namespace colk_forms
+
+// ---------------------------------------------------------------------------
 // The kernels the port launched before, verbatim (their helpers, the
 // workspace's layout and the candidates' folds are the shipped file's,
-// unchanged).
+// the candidates without carried weights).
 
 namespace prior {
 
@@ -742,7 +1413,7 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
     }
 
     __shared__ T fk[STAGE];                      // F[s0 + q, k]
-    __shared__ RowCands<V> warps[NW];
+    __shared__ RowCands<V, false> warps[NW];
     __shared__ int wany[NW];
     __shared__ bool last, anchor;
     const WsB ws(ws_bytes, nbA, nbB);
@@ -785,9 +1456,9 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
         }
     }
 
-    const RowCands<V> none{-inf<V>(), BIG_INDEX, inf<V>(), -inf<V>(),
+    const RowCands<V, false> none{-inf<V>(), BIG_INDEX, inf<V>(), -inf<V>(),
                            BIG_INDEX, inf<V>(), inf<V>(), BIG_INDEX, (V)0};
-    RowCands<V> x = none;
+    RowCands<V, false> x = none;
     if (col) {
         const T ck = (T)__dsub_rn((double)tk, acc);
         C[(size_t)t * R + i] = d ? ck : (T)0;
@@ -853,7 +1524,7 @@ __global__ void __launch_bounds__(COLS_B) eta_colk_kernel(
     if (tid == 0) in = seq::post_load(s);
     x = none;
     for (int q = tid; q < nbB; q += COLS_B)
-        take_first(x, RowCands<V>{
+        take_first(x, RowCands<V, false>{
                 (V)__ldcg(ws.key + q), __ldcg(ws.idx + q),
                 (V)__ldcg(ws.val + q), (V)__ldcg(ws.key1 + q),
                 __ldcg(ws.idx1 + q), (V)__ldcg(ws.val1 + q),
@@ -1842,6 +2513,277 @@ void ratio_rows_timing(int M) {
     release(p);
 }
 
+
+// ---------------------------------------------------------------------------
+// eta_colk_slice (``colk``): the shipped kernel, whose candidates carry the
+// weights at them through the block's and the partials' folds, against
+// the form before (colk_prior: the slice's last block reads the weights at
+// its candidates back past L1 after the fold) and the shipped one with the
+// ticket's acq_rel alone (no __threadfence before it or after it), byte
+// for byte; then each timed in turns, and eta_colk (the single-card
+// kernel, whose template it shares) against its form before.
+
+// The slice's operands beside a pivot's: the send buffers and the fold's
+// weight at h.
+template <typename V>
+struct SliceSend {
+    double *v, *w;
+    int *i;
+    V *wh;
+};
+
+template <typename V>
+SliceSend<V> slice_send() {
+    SliceSend<V> x{};
+    CK(cudaMalloc(&x.v, SLICE_KV * sizeof(double)));
+    CK(cudaMalloc(&x.w, sizeof(double)));
+    CK(cudaMalloc(&x.i, SLICE_KI * sizeof(int)));
+    CK(cudaMalloc(&x.wh, sizeof(V)));
+    const V wh = (V)1.75;
+    CK(cudaMemcpy(x.wh, &wh, sizeof wh, cudaMemcpyHostToDevice));
+    return x;
+}
+
+template <typename V>
+void release(SliceSend<V> &x) {
+    for (void *d : {(void *)x.v, (void *)x.w, (void *)x.i, (void *)x.wh})
+        CK(cudaFree(d));
+}
+
+// The slice's edge states: 0-5 state()'s (a taken devex pivot, a NaN in
+// b, no eligible row, Bland on, the fuse, a weight past 1e8); 6 Dantzig;
+// 7 a NaN weight at a column, the pivot skipped (its NaN score wins); 8
+// equal devex scores at a column of the first block and one of the last,
+// the pivot skipped (the lower index and its own weight win); 9 no
+// eligible column; 10 Bland static.
+constexpr int COLK_EDGES = 11;
+const char *const COLK_FORMS[] = {"before", "shipped", "carry+fence",
+                                   "readback", "cluster8"};
+constexpr int NCOLK = 5;
+
+// One element of a device array, set and later put back.
+struct Patch {
+    void *at;
+    unsigned char old[8];
+    size_t n;
+};
+
+template <typename X>
+void patch(std::vector<Patch> &ps, X *at, X v) {
+    Patch q{at, {}, sizeof(X)};
+    CK(cudaMemcpy(q.old, at, sizeof(X), cudaMemcpyDeviceToHost));
+    CK(cudaMemcpy(at, &v, sizeof(X), cudaMemcpyHostToDevice));
+    ps.push_back(q);
+}
+
+void unpatch(std::vector<Patch> &ps) {
+    for (auto q = ps.rbegin(); q != ps.rend(); ++q)
+        CK(cudaMemcpy(q->at, q->old, q->n, cudaMemcpyHostToDevice));
+    ps.clear();
+}
+
+template <typename T, typename V>
+void colk_state(Prob<T, V> &p, int edge, double &eps, seq::Policy &pol,
+                std::vector<Patch> &ps) {
+    state(p, edge < 6 ? edge : 0, eps, pol);
+    pol.then_pre = 0;
+    const int R = p.R;
+    if (edge == 7 || edge == 8) p.set(ACTIVE, (unsigned char)0);
+    if (edge == 7) patch(ps, p.w0 + R / 3, (V)NAN);
+    if (edge == 8 && R > 8) {
+        patch(ps, p.costs0 + 3, (V)-40);
+        patch(ps, p.w0 + 3, (V)400);
+        patch(ps, p.costs0 + (R - 4), (V)-20);
+        patch(ps, p.w0 + (R - 4), (V)100);
+    }
+    if (edge == 9) pol.eps = 1e30;
+    if (edge == 10) pol.bland_mode = step::BLAND_STATIC;
+}
+
+// Forms 2-4 (colk_forms) on NT threads a block.
+template <typename T, typename V, int NT>
+int colk_form_run(int form, Prob<T, V> &p, void *w, int t,
+                  const SeqStep<T, V> &s, const seq::Policy &pol,
+                  const Form &f, int stage, const SliceOut<V> &so,
+                  cudaStream_t st) {
+    auto run = form == 2   ? &colk_forms::form_run<T, V, NT, 1, true, true>
+               : form == 3 ? &colk_forms::form_run<T, V, NT, 1, false, false>
+                           : &colk_forms::form_run<T, V, NT, 8, true, false>;
+    return run(p.Tt, p.C, p.F, p.costs, p.b, p.base, w, p.ah, p.M, p.R, p.L,
+               p.R - 1, t, p.ws, p.ws_len, &s, pol, f.rows, f.cols, stage,
+               so, st);
+}
+
+template <typename T, typename V>
+int colk_slice_form(int form, Prob<T, V> &p, const SliceSend<V> &x, int t,
+                    const SeqStep<T, V> &s, const seq::Policy &pol,
+                    bool devex, int offset, cudaStream_t st) {
+    const Form f = shipped(p.M, p.R, true);
+    const int stage = f.stage_b ? f.stage_b : max_stage(f.cols, p.L,
+                                                          sizeof(T));
+    void *w = devex ? p.w : nullptr;
+    const void *wh = devex ? x.wh : nullptr;
+    double *sw = devex ? x.w : nullptr;
+    if (form == 0)
+        return colk_prior::colk_slice_any<T, V>(
+                p.Tt, p.C, p.F, p.costs, p.b, p.base, w, p.ah, p.M, p.R, p.L,
+                p.R - 1, t, p.ws, p.ws_len, &s, pol, f.rows, f.cols, stage,
+                offset, wh, x.v, x.i, sw, st);
+    if (form == 1)
+        return colk_slice_any<T, V>(p.Tt, p.C, p.F, p.costs, p.b, p.base, w,
+                                    p.ah, p.M, p.R, p.L, p.R - 1, t, p.ws,
+                                    p.ws_len, &s, pol, f.rows, f.cols, stage,
+                                    offset, wh, x.v, x.i, sw, st);
+    const SliceOut<V> so{offset, static_cast<const V *>(wh), x.v, x.i, sw};
+    if (f.cols > COLK_THREADS)
+        return colk_form_run<T, V, 2 * COLK_THREADS>(form, p, w, t, s, pol,
+                                                    f, stage, so, st);
+    return colk_form_run<T, V, COLK_THREADS>(form, p, w, t, s, pol, f,
+                                            stage, so, st);
+}
+
+// A slice pivot: the shipped eta_ratio (k, p, ...), then eta_colk_slice's
+// form; everything it writes and the send buffers, as bytes.
+template <typename T, typename V>
+std::vector<unsigned char> colk_pivot(int form, Prob<T, V> &p,
+                                      const SliceSend<V> &x, int t,
+                                      double eps, const seq::Policy &pol,
+                                      bool devex, int offset) {
+    reset(p, t);
+    CK(cudaMemset(x.v, 0x7f, SLICE_KV * sizeof(double)));
+    CK(cudaMemset(x.i, 0x7f, SLICE_KI * sizeof(int)));
+    CK(cudaMemset(x.w, 0x7f, sizeof(double)));
+    const SeqStep<T, V> s = p.step();
+    CK(ratio_form(shipped(p.M, p.R, true), p, t, eps, s, 0));
+    const int e = colk_slice_form(form, p, x, t, s, pol, devex, offset, 0);
+    if (e != 0) {                                // reported, not fatal
+        std::printf("LAUNCH eta_colk_slice %s M=%d R=%d t=%d: %s\n",
+                    COLK_FORMS[form], p.M, p.R, t,
+                    cudaGetErrorString((cudaError_t)e));
+        cudaGetLastError();
+        return {};
+    }
+    auto out = outputs(p, t);
+    auto grab = [&](const void *d, size_t n) {
+        const size_t at = out.size();
+        out.resize(at + n);
+        CK(cudaMemcpy(out.data() + at, d, n, cudaMemcpyDeviceToHost));
+    };
+    grab(x.v, SLICE_KV * sizeof(double));
+    grab(x.i, SLICE_KI * sizeof(int));
+    grab(x.w, sizeof(double));
+    return out;
+}
+
+template <typename T, typename V>
+void colk_check(const char *pair, int M, int R, int L) {
+    Prob<T, V> p = make<T, V>(M, R, L, 53 + M + R + L);
+    SliceSend<V> x = slice_send<V>();
+    std::vector<Patch> ps;
+    int n = 0;
+    for (int offset : {0, 2 * R})
+        for (int t : {0, 1, L / 2, L - 1})
+            for (int edge = 0; edge < COLK_EDGES; ++edge) {
+                double eps;
+                seq::Policy pol;
+                colk_state(p, edge, eps, pol, ps);
+                const bool devex = edge != 6;
+                const auto want = colk_pivot(0, p, x, t, eps, pol, devex,
+                                             offset);
+                for (int form = 1; form < NCOLK; ++form) {
+                    const auto got = colk_pivot(form, p, x, t, eps, pol,
+                                                devex, offset);
+                    ++n;
+                    if (got.empty() || got != want) {
+                        ++failures;
+                        std::printf("MISMATCH eta_colk_slice %s M=%d R=%d "
+                                    "L=%d t=%d offset %d edge %d %s\n",
+                                    pair, M, R, L, t, offset, edge,
+                                    COLK_FORMS[form]);
+                    }
+                }
+                unpatch(ps);
+                restore(p, edge < 6 ? edge : 0);
+            }
+    std::printf("colk check %s M=%d R=%d L=%d: %d slice pivots byte for "
+                "byte\n", pair, M, R, L, n);
+    release(x);
+    release(p);
+}
+
+// us a call of each form in turns (graphs of 50 calls) at f64, L = 128,
+// on a taken devex pivot: eta_colk_slice at each t of ``ts``, and with
+// ``single`` eta_colk before and shipped (no next step before).
+void colk_timing(int M, int R, std::initializer_list<int> ts, bool single) {
+    using T = double;
+    using V = double;
+    const int L = 128;
+    Prob<T, V> p = make<T, V>(M, R, L, 11);
+    SliceSend<V> x = slice_send<V>();
+    std::vector<Patch> ps;
+    cudaStream_t st;
+    CK(cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking));
+    const Form f = shipped(M, R, true);
+    const int stage = f.stage_b ? f.stage_b : max_stage(f.cols, L, sizeof(T));
+    for (int t : ts) {
+        double eps;
+        seq::Policy pol;
+        colk_state(p, 0, eps, pol, ps);
+        reset(p, t);
+        const SeqStep<T, V> s = p.step();
+        CK(ratio_form(f, p, t, eps, s, st));
+        CK(cudaStreamSynchronize(st));
+        std::vector<cudaGraphExec_t> gs;
+        std::vector<int> ok;                     // the forms that launch
+        for (int form = 0; form < NCOLK; ++form) {
+            if (colk_slice_form(form, p, x, t, s, pol, true, 0, st) != 0 ||
+                cudaStreamSynchronize(st) != cudaSuccess) {
+                cudaGetLastError();
+                std::printf("time eta_colk_slice %s: does not launch\n",
+                            COLK_FORMS[form]);
+                ++failures;
+                continue;
+            }
+            ok.push_back(form);
+            gs.push_back(capture(st, [&] {
+                return colk_slice_form(form, p, x, t, s, pol, true, 0, st);
+            }));
+        }
+        std::vector<float> a, b;
+        turns(gs, st, a, b);
+        for (size_t v = 0; v < ok.size(); ++v)
+            std::printf("time eta_colk_slice f64 M=%d R=%d L=%d t=%d "
+                        "%-11s: %.3f %.3f us\n", M, R, L, t,
+                        COLK_FORMS[ok[v]], a[v], b[v]);
+        for (auto g : gs) CK(cudaGraphExecDestroy(g));
+        if (single) {
+            gs.clear();
+            gs.push_back(capture(st, [&] {
+                return colk_prior::colk_any<T, V>(
+                        p.Tt, p.C, p.F, p.costs, p.b, p.base, p.w, p.ah, M,
+                        R, L, R - 1, t, p.ws, p.ws_len, &s, pol, f.rows,
+                        f.cols, stage, st);
+            }));
+            gs.push_back(capture(st, [&] {
+                return colk_any<T, V>(p.Tt, p.C, p.F, p.costs, p.b, p.base,
+                                      p.w, p.ah, M, R, L, R - 1, t, p.ws,
+                                      p.ws_len, &s, pol, f.rows, f.cols,
+                                      stage, st);
+            }));
+            turns(gs, st, a, b);
+            for (int v = 0; v < 2; ++v)
+                std::printf("time eta_colk f64 M=%d R=%d L=%d t=%d %-9s: "
+                            "%.3f %.3f us\n", M, R, L, t,
+                            COLK_FORMS[v], a[v], b[v]);
+            for (auto g : gs) CK(cudaGraphExecDestroy(g));
+        }
+        restore(p, 0);
+    }
+    CK(cudaStreamDestroy(st));
+    release(x);
+    release(p);
+}
+
 }  // namespace
 
 int main(int argc, char **argv) {
@@ -1850,6 +2792,24 @@ int main(int argc, char **argv) {
     cudaDeviceProp prop;
     CK(cudaGetDeviceProperties(&prop, 0));
     std::printf("device %s, %d SMs\n", prop.name, prop.multiProcessorCount);
+    if (mode != "slice") {
+        const int colks[][2] = {{2048, 6144}, {2048, 2048}, {37, 6143},
+                                {2047, 3},    {4097, 257}};
+        for (const auto &sh : colks)
+            for (int L : {128, 13}) {
+                colk_check<double, double>("f64", sh[0], sh[1], L);
+                colk_check<float, double>("f32/f64", sh[0], sh[1], L);
+                colk_check<float, float>("f32", sh[0], sh[1], L);
+            }
+        colk_timing(2048, 6144, {0, 64, 127}, true);
+        colk_timing(2048, 2048, {0, 64, 127}, false);
+        colk_timing(8192, 24576, {64}, true);
+    }
+    if (mode == "colk") {
+        std::printf(failures ? "FAILED: %d\n" : "every check passed\n",
+                    failures);
+        return failures ? 1 : 0;
+    }
     const int heads[][2] = {{2048, 6144}, {37, 6143}, {2047, 3},
                             {10112, 257}};
     for (const auto &sh : heads)

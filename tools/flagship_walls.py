@@ -50,6 +50,15 @@ and with it::
     python3 tools/flagship_walls.py --seq 2048 --sharded --blocked \
         --root _checkout/parent --root . --root . --root _checkout/parent
 
+``--sharded --sequential`` with ``--seq N`` solves random_N_N with the
+default options (f64) through ``solve_sharded`` at one NCCL rank (the
+sequential sharded loop, one CUDA graph a chunk with its collectives
+inside), each wall beside the phase-1 loop call's ms/pivot with its
+captures taken out and with them::
+
+    python3 tools/flagship_walls.py --seq 1024 --sharded --sequential \
+        --root _checkout/parent --root . --root . --root _checkout/parent
+
 Needs a CUDA card: a process that finds none exits non-zero.
 """
 
@@ -69,11 +78,12 @@ K6 = dict(dtype="float32", vector_dtype="float32", use_pallas=True)
 BLOCKED = dict(dtype="float64", block_pivots=128)
 
 
-def sharded_solver(stack, blocked: bool = False):
+def sharded_solver(stack, blocked: bool = False, sequential: bool = False):
     """``solve`` through ``solve_sharded`` at one NCCL rank (opened on
     ``stack``), and a list that each solve's phase-1 loop call appends
-    (seconds, pivots, capture seconds) to: the sharded kernel loop's, or
-    with ``blocked`` the plain blocked sharded loop's."""
+    (seconds, pivots, capture seconds) to: the sharded kernel loop's, with
+    ``blocked`` the plain blocked sharded loop's, with ``sequential`` the
+    sequential sharded loop's."""
     import tempfile
 
     import torch
@@ -85,8 +95,10 @@ def sharded_solver(stack, blocked: bool = False):
     group = stack.enter_context(pg.world(
         0, 1, "nccl", stack.enter_context(tempfile.TemporaryDirectory())))
     names = (("solve_loop_blocked_sharded", "capture_blocked_window_sharded")
-             if blocked else ("solve_loop_blocked_kernel_sharded",
-                              "capture_window_sharded"))
+             if blocked else
+             ("solve_loop_sharded", "capture_chunk_sharded") if sequential
+             else ("solve_loop_blocked_kernel_sharded",
+                   "capture_window_sharded"))
     loop, capture = (getattr(ps, n) for n in names)
     calls, captures = [], []
 
@@ -235,7 +247,8 @@ def trace_chunk(solve, problem, k6: bool, blocked: bool) -> None:
 
 
 def measure(root: pathlib.Path, solves: int, sharded: bool,
-            seq: int, trace: bool, k6: bool, blocked: bool) -> int:
+            seq: int, trace: bool, k6: bool, blocked: bool,
+            sequential: bool = False) -> int:
     """Solve the flagship from ``root``'s package once cold and ``solves``
     times warm on the card, printing each wall."""
     sys.path.insert(0, str(root))
@@ -259,9 +272,10 @@ def measure(root: pathlib.Path, solves: int, sharded: bool,
                 else PROBLEM))
     stack = contextlib.ExitStack()
     solve, phase1 = ((lambda p, **o: st.solve(p, device="cuda", **o)), None)
-    opts = BLOCKED if sharded and blocked else PROD
+    opts = (BLOCKED if sharded and blocked else {} if sequential
+            else PROD)
     if sharded:
-        solve, phase1 = sharded_solver(stack, blocked)
+        solve, phase1 = sharded_solver(stack, blocked, sequential)
     elif seq:
         solve, phase1 = seq_solver(k6, blocked)
     walls = []
@@ -331,11 +345,15 @@ def main() -> int:
     ap.add_argument("--blocked", action="store_true",
                     help="with --seq: the plain blocked loop (f64, L=128) "
                          "and the full f64 re-solve")
+    ap.add_argument("--sequential", action="store_true",
+                    help="with --sharded and --seq N: the sequential "
+                         "sharded loop (the default options)")
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
         return measure(args.child.resolve(), args.solves, args.sharded,
-                       args.seq, args.trace, args.k6, args.blocked)
+                       args.seq, args.trace, args.k6, args.blocked,
+                       args.sequential)
     for root in args.root or [HERE.parents[1]]:
         rc = subprocess.run([sys.executable, str(HERE), "--child", str(root),
                              "--solves", str(args.solves),
@@ -344,6 +362,7 @@ def main() -> int:
                             + (["--trace"] if args.trace else [])
                             + (["--k6"] if args.k6 else [])
                             + (["--blocked"] if args.blocked else [])
+                            + (["--sequential"] if args.sequential else [])
                             ).returncode
         if rc != 0:
             return rc

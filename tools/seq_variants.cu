@@ -18,6 +18,22 @@
 //             the factors and b, the costs loaded before the first
 //             cluster barrier: one launch a pivot.
 //
+// With ``sharded`` (``/tmp/seq_variants sharded`` runs this part alone,
+// ~2 min; it runs first otherwise): the sequential sharded loop's
+// seq_fold_column and seq_ratio_colk_sharded as shipped (the column lets
+// the pass launch as it starts; the pass a programmatic dependent launch
+// of 16 x 256 or 16 x 512 threads) against the forms before (seq_prior,
+// verbatim), byte for byte after one column and pass from each edge state
+// below, at one rank and as rank 0 of 3 (its candidate winning, or
+// another rank's: zeros), at 8,192 x 24,576, 1,024 x 3,072, 7 x 21, 4,097
+// x 257, 4,095 x 20,480 and 40,064 x 2,048, the three pairs; then timed
+// in turns in f64 from 1,024 x 3,072 to 8,192 x 24,576, the pass alone
+// and after the column, warm and (from 4,096 x 12,288 on) cold, with the
+// unsharded seq_ratio_colk against its form before at the first and the
+// last. Built alone (-DSEQ_VARIANTS_LIB -shared) this file is a library
+// of seq_prior's two kernels with C entry points, which chip_smoke.py and
+// the card tests hold and time the shipped ones against.
+//
 // Build and run on a machine with an H100:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
@@ -66,6 +82,230 @@ constexpr int THREADS = 256;
             std::exit(1);                                                \
         }                                                                \
     } while (0)
+
+// ---------------------------------------------------------------------------
+// The sequential sharded loop's seq_fold_column and seq_ratio_colk_sharded
+// as the port launched them before the fold let the pass launch early,
+// verbatim (their helpers -- ratio_cluster.cuh, the pass's and the fold's
+// -- are the shipped file's, unchanged): seq_ratio_colk's cluster of 16 x
+// 256 threads launched without programmatic dependent launch, and the fold
+// grid without the early trigger. Built alone (-DSEQ_VARIANTS_LIB
+// -shared) with C entry points, which chip_smoke.py and the card tests
+// hold and time the shipped kernels against.
+
+namespace seq_prior {
+
+template <typename T, typename V, int NB, int NT, int PER_, bool SHARDED>
+__global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
+        const T *__restrict__ Tt, V *__restrict__ costs, V *__restrict__ b,
+        int *__restrict__ base, T *__restrict__ ah, T *__restrict__ colk,
+        T *__restrict__ fac, int M, int R, int r, double eps,
+        SeqStep<T, V> s, seq::Policy pol, int offset,
+        double *__restrict__ send_v, int *__restrict__ send_i) {
+    constexpr int NW = NT / 32, SPAN = NB * NT;
+    __shared__ RatioShared<T, V, NB, NW> rsh;
+    __shared__ Cands<V> cwarps[NW];
+    __shared__ int cwany[NW];
+    __shared__ Cands<V> cparts[NB];              // block 0's: the blocks'
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = rank * NT + tid;
+    cluster_arrive_relaxed();
+
+    // What waits on nothing: the costs of this thread's first columns, and
+    // the steps' operands (each block's thread 0 those of the step
+    // between; block 0's those of the step after too); then h.
+    V c0[PER_];
+    first_costs<V, PER_, SPAN>(costs, R, g, c0);
+    seq::PostIn<V> in{};
+    V minc = 0;
+    if (tid == 0) {
+        in.active = *s.active != 0;
+        in.optimal = *s.optimal != 0;
+        minc = *s.minc;
+        if (rank == 0) {
+            in.status = *s.status;
+            in.iterations = *s.iterations;
+            in.stall = *s.stall;
+            in.bland = *s.bland != 0;
+            in.z = *s.z;
+        }
+    }
+    const int h_raw = *s.h;
+
+    // The ratio test: every block folds every block's result.
+    T a0[PER_];
+    V b0[PER_];
+    const Between<T, V> w = ratio_cluster<T, V, NB, NT, PER_, !SHARDED>(
+            rsh, Tt, b, ah, M, R, min(h_raw, R - 1), eps, in.active,
+            in.optimal, minc, s, a0, b0);
+
+    // The pass: the row's loads, then b and the factors, then the costs
+    // and the candidates.
+    const Cands<V> cnone{inf<V>(), BIG_INDEX, inf<V>(), BIG_INDEX};
+    Cands<V> cx = cnone;
+    colk_cols<T, V, PER_, SPAN>(
+            Tt, costs, colk, R, r, (V)eps, w, g, c0, cx, [&] {
+                if (w.d)
+                    update_rows<T, V, PER_, SPAN>(b, fac, ah, M, w, g, true,
+                                                  a0, b0);
+            });
+    bool unused = false;
+    block_fold<NW>(cx, unused, cnone, cwarps, cwany);
+    if (tid == 0) *cl.map_shared_rank(&cparts[rank], 0) = cx;
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0 || warp != 0) return;
+
+    // Block 0's warp 0 over the blocks, then the step after in lane 0.
+    cx = warp_fold(lane < NB ? cparts[lane] : cnone);
+    if (lane != 0) return;
+    const seq::Candidates<V> c{cx.idx, cx.val, cx.bidx,
+                               cx.bidx == BIG_INDEX ? inf<V>() : cx.bval};
+    if (SHARDED) {                               // cx.idx < R: a column wins
+        send_v[0] = (double)c.v_d;
+        send_v[1] = (double)c.v_b;
+        send_i[0] = offset + c.h_d;
+        send_i[1] = c.h_b == BIG_INDEX ? BIG_INDEX : offset + c.h_b;
+    } else {
+        *s.h_d = c.h_d;
+        *s.v_d = c.v_d;
+        *s.h_b = c.h_b;
+        *s.v_b = c.v_b;
+    }
+    if (w.d) base[w.k] = h_raw;                  // before the step rewrites h
+    in.unb = w.unb;
+    in.u = w.u;
+    in.bk = w.bk;
+    seq::post(s, in, w.d, c, pol);
+}
+
+constexpr int COL_THREADS = 256;
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(COL_THREADS) seq_fold_column_kernel(
+        const T *__restrict__ Tt, const double *__restrict__ Vg,
+        const int *__restrict__ Ig, int P, int M, int R, int offset,
+        T *__restrict__ ah, SeqStep<T, V> s, long long max_iter,
+        double eps) {
+    __shared__ int col;                          // h's local column, or -1
+    if (threadIdx.x == 0) {
+        const int status = *s.status, iterations = *s.iterations;
+        const bool bland = *s.bland != 0;
+        const sharded::Fold f = sharded::fold(Vg, Ig, P, 2);
+        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+        const int h = bland && c.h_b < BIG_INDEX ? c.h_b : c.h_d;
+        const long long loc = (long long)h - offset;
+        col = loc >= 0 && loc < R ? (int)loc : -1;
+        if (blockIdx.x == 0) {
+            *s.h_d = c.h_d;
+            *s.v_d = c.v_d;
+            *s.h_b = c.h_b;
+            *s.v_b = c.v_b;
+            seq::pre(s, status, iterations, bland, c, max_iter, eps);
+        }
+    }
+    __syncthreads();
+    const int hl = col;
+    const int j = blockIdx.x * COL_THREADS + threadIdx.x;
+    if (j < M) ah[j] = hl >= 0 ? Tt[(size_t)j * R + hl] : (T)0;
+}
+
+// SHARDED: the sharded form, packing into send_v and send_i at the
+// slice's offset; pol.then_pre must be 0 there.
+template <typename T, typename V, bool SHARDED = false>
+int ratio_colk_run(const void *Tt, void *costs, void *b, int *base, void *ah,
+                   void *colk, void *fac, int M, int R, int r, double eps,
+                   const void *step, const seq::Policy &pol,
+                   cudaStream_t st, int offset = 0, double *send_v = nullptr,
+                   int *send_i = nullptr) {
+    if (M < 1 || R < 1 || (SHARDED && (pol.then_pre || send_v == nullptr
+                                       || send_i == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    auto kernel = seq_ratio_colk_kernel<T, V, CLUSTER_BLOCKS,
+                                        CLUSTER_THREADS, PER, SHARDED>;
+    static const cudaError_t e = allow_cluster(kernel, CLUSTER_BLOCKS);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(kernel, CLUSTER_BLOCKS, CLUSTER_THREADS, false, st,
+                          static_cast<const T *>(Tt), static_cast<V *>(costs),
+                          static_cast<V *>(b), base, static_cast<T *>(ah),
+                          static_cast<T *>(colk), static_cast<T *>(fac), M, R,
+                          r, eps, step_of<T, V>(step), pol, offset, send_v,
+                          send_i);
+}
+
+template <typename T, typename V>
+int fold_column_run(const void *Tt, const double *V_, const int *I, int P,
+                    int M, int R, int offset, void *ah, const void *step,
+                    long long max_iter, double eps, cudaStream_t st) {
+    if (M < 1 || R < 1 || P < 1) return (int)cudaErrorInvalidValue;
+    seq_fold_column_kernel<T, V>
+            <<<(M + COL_THREADS - 1) / COL_THREADS, COL_THREADS, 0, st>>>(
+                    static_cast<const T *>(Tt), V_, I, P, M, R, offset,
+                    static_cast<T *>(ah), step_of<T, V>(step), max_iter, eps);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace seq_prior
+
+#ifdef SEQ_VARIANTS_LIB
+
+extern "C" {
+
+// seq_fold_column_launch's operands (the form before).
+int prior_seq_fold_column_launch(const void *Tt, const double *V,
+                                 const int *I, int P, int M, int R,
+                                 int offset, void *ah, const void *step,
+                                 long long max_iter, double eps, int pair,
+                                 void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (pair) {
+    case PAIR_F64:
+        return seq_prior::fold_column_run<double, double>(
+                Tt, V, I, P, M, R, offset, ah, step, max_iter, eps, st);
+    case PAIR_MIXED:
+        return seq_prior::fold_column_run<float, double>(
+                Tt, V, I, P, M, R, offset, ah, step, max_iter, eps, st);
+    case PAIR_F32:
+        return seq_prior::fold_column_run<float, float>(
+                Tt, V, I, P, M, R, offset, ah, step, max_iter, eps, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// seq_ratio_colk_sharded_launch's operands but the threads (the form
+// before: 256 a block, no programmatic dependent launch).
+int prior_seq_ratio_colk_sharded_launch(const void *Tt, void *costs, void *b,
+                                        int *base, void *ah, void *colk,
+                                        void *fac, int M, int R, int r,
+                                        double eps, const void *step,
+                                        long long max_iter, int bland_mode,
+                                        int threshold, int offset,
+                                        double *send_v, int *send_i,
+                                        int pair, void *stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const seq::Policy pol{max_iter, eps, bland_mode, threshold, 0};
+    switch (pair) {
+    case PAIR_F64:
+        return seq_prior::ratio_colk_run<double, double, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    case PAIR_MIXED:
+        return seq_prior::ratio_colk_run<float, double, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    case PAIR_F32:
+        return seq_prior::ratio_colk_run<float, float, true>(
+                Tt, costs, b, base, ah, colk, fac, M, R, r, eps, step, pol,
+                st, offset, send_v, send_i);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"
+
+#else  // the program
 
 // ---------------------------------------------------------------------------
 // The kernels the port launched before, verbatim.
@@ -890,10 +1130,259 @@ void timing(const char *pair, int M, int R, bool cold) {
     CK(cudaStreamDestroy(st));
 }
 
-int main() {
+
+// ---------------------------------------------------------------------------
+// The sequential sharded loop's column and pass (``sharded``): the shipped
+// seq_fold_column (it lets the pass launch as it starts) and
+// seq_ratio_colk_sharded (a programmatic dependent launch: the costs, b
+// and the step after's operands loaded before it waits) at 16 x 256 and
+// 16 x 512 threads, against the forms before (seq_prior), byte for byte
+// from each edge state, at one rank and as rank 0 of 3 (its own candidate
+// winning, or rank 1's: zeros); then timed in turns.
+
+// The gathered candidates of P ranks: rank 0 (this slice) packs h with the
+// state's minc and no Bland candidate; rank q > 0 a column past R with a
+// larger value, or, with ``other``, rank 1 the smallest.
+struct Gathered {
+    double *V;
+    int *I;
+    int P;
+};
+
+Gathered gathered(int h, double minc, int R, int P, bool other) {
+    Gathered g{nullptr, nullptr, P};
+    std::vector<double> v(2 * P);
+    std::vector<int> ix(2 * P);
+    for (int q = 0; q < P; ++q) {
+        v[2 * q] = q == 0 ? minc : (other && q == 1 ? minc - 1.0 : 0.5 * q);
+        v[2 * q + 1] = std::numeric_limits<double>::infinity();
+        ix[2 * q] = q == 0 ? h : R + 10 * q;
+        ix[2 * q + 1] = BIG_INDEX;
+    }
+    CK(cudaMalloc(&g.V, v.size() * sizeof(double)));
+    CK(cudaMalloc(&g.I, ix.size() * sizeof(int)));
+    CK(cudaMemcpy(g.V, v.data(), v.size() * sizeof(double),
+                  cudaMemcpyHostToDevice));
+    CK(cudaMemcpy(g.I, ix.data(), ix.size() * sizeof(int),
+                  cudaMemcpyHostToDevice));
+    return g;
+}
+
+void release(Gathered &g) {
+    CK(cudaFree(g.V));
+    CK(cudaFree(g.I));
+}
+
+const char *const SHARDED_FORMS[] = {"before", "16x256", "16x512"};
+constexpr int NSHARDED = 3;
+
+// The column and the pass of form ``form`` (before, or the shipped ones at
+// 256 and 512 threads a block): ``column`` runs the fold, ``pass`` the
+// pass.
+template <typename T, typename V>
+int sharded_pivot(int form, const Bufs<T, V> &x, const Gathered &g,
+                  double *send_v, int *send_i, cudaStream_t st,
+                  bool column = true, bool pass = true) {
+    const SeqStep<T, V> s = x.step();
+    int e = 0;
+    if (column)
+        e = form == 0 ? seq_prior::fold_column_run<T, V>(
+                                x.Tt, g.V, g.I, g.P, x.M, x.R, 0, x.ah, &s,
+                                x.pol.max_iter, x.eps, st)
+                      : fold_column_run<T, V>(x.Tt, g.V, g.I, g.P, x.M, x.R,
+                                              0, x.ah, &s, x.pol.max_iter,
+                                              x.eps, st);
+    if (e || !pass) return e;
+    if (form == 0)
+        return seq_prior::ratio_colk_run<T, V, true>(
+                x.Tt, x.costs, x.b, x.base, x.ah, x.colk, x.fac, x.M, x.R,
+                x.r, x.eps, &s, x.pol, st, 0, send_v, send_i);
+    return ratio_colk_sharded_run<T, V>(
+            x.Tt, x.costs, x.b, x.base, x.ah, x.colk, x.fac, x.M, x.R, x.r,
+            x.eps, &s, x.pol, 0, send_v, send_i,
+            form == 1 ? CLUSTER_THREADS : SHARDED_THREADS_WIDE, st);
+}
+
+template <typename T, typename V>
+void sharded_check(const char *pair, int M, int R) {
+    double *send_v;
+    int *send_i;
+    CK(cudaMalloc(&send_v, 2 * sizeof(double)));
+    CK(cudaMalloc(&send_i, 2 * sizeof(int)));
+    int n = 0;
+    for (int edge = 0; edge < N_EDGES; ++edge) {
+        Host<T, V> h =
+                make_state<T, V>(M, R, edge, false, 2000 + 37 * edge + M);
+        h.pol.then_pre = 0;
+        Device<T, V> d(h);
+        const int hcol = get<int>(h.scal, S_H);
+        const double minc = (double)get<V>(h.scal, S_MINC);
+        for (int P : {1, 3})
+            for (bool other : {false, true}) {
+                if (P == 1 && other) continue;
+                Gathered g = gathered(hcol, minc, R, P, other);
+                std::vector<unsigned char> want;
+                for (int form = 0; form < NSHARDED; ++form) {
+                    d.reset(h);
+                    CK(cudaMemset(send_v, 0x7f, 2 * sizeof(double)));
+                    CK(cudaMemset(send_i, 0x7f, 2 * sizeof(int)));
+                    CK(sharded_pivot(form, d.x, g, send_v, send_i, 0));
+                    CK(cudaDeviceSynchronize());
+                    auto got = snapshot(d.x);
+                    const size_t at = got.size();
+                    got.resize(at + 2 * sizeof(double) + 2 * sizeof(int));
+                    CK(cudaMemcpy(got.data() + at, send_v, 2 * sizeof(double),
+                                  cudaMemcpyDeviceToHost));
+                    CK(cudaMemcpy(got.data() + at + 2 * sizeof(double),
+                                  send_i, 2 * sizeof(int),
+                                  cudaMemcpyDeviceToHost));
+                    if (form == 0) {
+                        want = got;
+                        continue;
+                    }
+                    ++n;
+                    if (got != want) {
+                        ++failures;
+                        std::printf("MISMATCH sharded %s M=%d R=%d %s P=%d "
+                                    "other=%d %s\n", pair, M, R, EDGES[edge],
+                                    P, (int)other, SHARDED_FORMS[form]);
+                    }
+                }
+                release(g);
+            }
+    }
+    std::printf("sharded check %s M=%d R=%d: %d pivots byte for byte\n",
+                pair, M, R, n);
+    CK(cudaFree(send_v));
+    CK(cudaFree(send_i));
+}
+
+// us in turns (graphs of 50, three rounds) at f64 on a degenerate taken
+// pivot: each form's pass alone, and the column then the pass (as a chunk
+// runs them at one rank); with ``cold`` the column and the pass again
+// after a 256 MiB write that evicts L2, less the write alone. Then, with
+// ``single``, the unsharded seq_ratio_colk before and shipped.
+void sharded_timing(int M, int R, bool cold, bool single) {
+    using T = double;
+    using V = double;
+    Host<T, V> h = make_state<T, V>(M, R, 0, true, 7 + M);
+    h.pol.then_pre = 0;
+    Device<T, V> d(h);
+    cudaStream_t st;
+    CK(cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking));
+    double *send_v;
+    int *send_i;
+    CK(cudaMalloc(&send_v, 2 * sizeof(double)));
+    CK(cudaMalloc(&send_i, 2 * sizeof(int)));
+    Gathered g = gathered(get<int>(h.scal, S_H),
+                          (double)get<V>(h.scal, S_MINC), R, 1, false);
+    CK(sharded_pivot(1, d.x, g, send_v, send_i, st));
+    CK(cudaStreamSynchronize(st));
+    const auto s0 = snapshot(d.x);
+    std::printf("timed sharded state f64 M=%d R=%d: k=%d do=%d\n", M, R,
+                get<int>(s0.data(), S_K),
+                (int)get<unsigned char>(s0.data(), S_DO));
+    std::vector<cudaGraphExec_t> gs;
+    std::vector<std::string> names;
+    for (int form = 0; form < NSHARDED; ++form) {
+        gs.push_back(capture(st, [&] {
+            return sharded_pivot(form, d.x, g, send_v, send_i, st, false);
+        }));
+        names.push_back(std::string(SHARDED_FORMS[form]) + "-pass");
+    }
+    for (int form = 0; form < NSHARDED; ++form) {
+        gs.push_back(capture(st, [&] {
+            return sharded_pivot(form, d.x, g, send_v, send_i, st);
+        }));
+        names.push_back(std::string(SHARDED_FORMS[form]) + "-col+pass");
+    }
+    std::vector<std::vector<float>> t;
+    turns(gs, st, t);
+    char what[96];
+    std::snprintf(what, sizeof what, "sharded f64 M=%d R=%d", M, R);
+    report(what, names, t);
+    for (auto e : gs) CK(cudaGraphExecDestroy(e));
+    if (cold) {
+        const size_t nj = 256ull << 20;
+        void *junk;
+        CK(cudaMalloc(&junk, nj));
+        auto flush = [&] { return (int)cudaMemsetAsync(junk, 0, nj, st); };
+        gs.clear();
+        names.clear();
+        gs.push_back(capture(st, flush));
+        for (int form = 0; form < NSHARDED; ++form) {
+            gs.push_back(capture(st, [&] {
+                const int e = flush();
+                return e ? e : sharded_pivot(form, d.x, g, send_v, send_i,
+                                             st);
+            }));
+            names.push_back(std::string(SHARDED_FORMS[form]) + "-col+pass");
+        }
+        turns(gs, st, t);
+        auto w = t[0];
+        std::sort(w.begin(), w.end());
+        t.erase(t.begin());
+        for (auto &tv : t)
+            for (auto &x : tv) x -= w[w.size() / 2];
+        std::snprintf(what, sizeof what, "sharded f64 M=%d R=%d cold", M, R);
+        report(what, names, t);
+        for (auto e : gs) CK(cudaGraphExecDestroy(e));
+        CK(cudaFree(junk));
+    }
+    if (single) {
+        // The unsharded pass (the default loop's), before and shipped.
+        Bufs<T, V> x = d.x;
+        x.pol.then_pre = 0;
+        const SeqStep<T, V> s = x.step();
+        gs.clear();
+        names = {"before", "shipped"};
+        gs.push_back(capture(st, [&] {
+            return seq_prior::ratio_colk_run<T, V>(
+                    x.Tt, x.costs, x.b, x.base, x.ah, x.colk, x.fac, x.M,
+                    x.R, x.r, x.eps, &s, x.pol, st);
+        }));
+        gs.push_back(capture(st, [&] {
+            return ratio_colk_run<T, V>(x.Tt, x.costs, x.b, x.base, x.ah,
+                                        x.colk, x.fac, x.M, x.R, x.r, x.eps,
+                                        &s, x.pol, st);
+        }));
+        turns(gs, st, t);
+        std::snprintf(what, sizeof what, "seq_ratio_colk f64 M=%d R=%d", M,
+                      R);
+        report(what, names, t);
+        for (auto e : gs) CK(cudaGraphExecDestroy(e));
+    }
+    release(g);
+    CK(cudaFree(send_v));
+    CK(cudaFree(send_i));
+    CK(cudaStreamDestroy(st));
+}
+
+int main(int argc, char **argv) {
+    const std::string mode = argc > 1 ? argv[1] : "";
     cudaDeviceProp prop;
     CK(cudaGetDeviceProperties(&prop, 0));
     std::printf("card: %s, %d SMs\n", prop.name, prop.multiProcessorCount);
+    const int sharded[][2] = {{8192, 24576}, {1024, 3072}, {7, 21},
+                              {4097, 257},   {4095, 20480}, {40064, 2048}};
+    for (const auto &sh : sharded) {
+        sharded_check<double, double>("f64", sh[0], sh[1]);
+        sharded_check<float, double>("mixed", sh[0], sh[1]);
+        sharded_check<float, float>("f32", sh[0], sh[1]);
+    }
+    sharded_timing(1024, 3072, false, true);
+    sharded_timing(2048, 6144, false, false);
+    sharded_timing(4096, 12288, true, false);
+    sharded_timing(4096, 16384, true, false);
+    sharded_timing(4096, 20480, true, false);
+    sharded_timing(8192, 16384, true, false);
+    sharded_timing(8192, 24576, true, true);
+    if (mode == "sharded") {
+        std::printf("bit for bit: %s (%d state(s) differ)\n",
+                    failures ? "FAILED" : "every form, every state",
+                    failures);
+        return failures ? 1 : 0;
+    }
     const int shapes[][2] = {{8192, 24576}, {1024, 3072}, {2048, 6144},
                              {1, 3},        {7, 21},      {4095, 12285},
                              {4097, 257},   {40064, 2048}};
@@ -914,3 +1403,5 @@ int main() {
     timing<float, double>("mixed", 2048, 6144, false);
     return failures ? 1 : 0;
 }
+
+#endif  // SEQ_VARIANTS_LIB
