@@ -314,6 +314,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -836,7 +837,7 @@ def equal(name: str, got, want) -> None:
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version at the flagship shapes.
 
-def phase_kernels(records: dict) -> None:
+def phase_kernels(records: dict, prior: PriorLib) -> None:
     """f32 outputs are held against the plain version at 1e-5 * (1 + |x|)
     (another summation order of up to L products). The f64 vectors are
     held, at 1e-12 relative, against the f64 formula applied to the
@@ -909,7 +910,7 @@ def phase_kernels(records: dict) -> None:
         if t == 37:
             step_kernels(records, Tt, F, C, b, costs0, w0, base0, t)
             sharded_step_kernels(records, Tt, F, C, b, costs0, w0, base0, t,
-                                 got[0])
+                                 got[0], prior)
             # K5 with its owner flag (the sharded loop's call): its column
             # where the rank owns h, zeros where not, bit for bit.
             buf = torch.empty(M, dtype=torch.float32, device=dev)
@@ -1305,7 +1306,7 @@ def step_kernels(records: dict, Tt, F, C, b, costs, w, base, t: int
 
 
 def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
-                         t: int, ah) -> None:
+                         t: int, ah, prior: PriorLib) -> None:
     """The sharded loop's step on the card at the flagship shapes (M =
     8192, R = 24,576 columns cut into P slices, t = 37 live eta rows, K1's
     column ``ah`` as the summed column, its b, a basis drawn over the
@@ -1335,7 +1336,11 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
     calls, K5 and K2 with and without their head and tails in turns (a
     head's or a tail's own cost is the carrier's time with it less
     without), beside the bounds (``SHARDED_STEP_BYTES``; sharded_ratio's
-    column and b added)."""
+    column and b added). K5 with its head is also held and timed against
+    its form before the redesign (``prior``, ``k5_head_edges`` and
+    ``prior_turns``)."""
+    import ctypes
+
     import numpy as np
     import torch
 
@@ -1647,12 +1652,35 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
     kb.sharded_pack(s, w, 0, vals, idx)
     V, I = vals.view(1, 5), idx.view(1, 2)
     k2 = (Tt, v["C"], v["F"], v["costs"])
+    n = k5_head_edges(prior, Tt, v["F"], v["C"], eps)
+    log(f"K5 with its head: every scalar and the column equal the plain "
+        f"chain's and the form's before its redesign on {n} states (P = 1, "
+        f"3, 8 and 33; {', '.join(FOLD_EDGES)}; kv 2 and 5, the Bland flag "
+        "off and on, t = 0 and 37)")
+    lib = prior.load()
+
+    def head_before():
+        err = lib.prior_ah_head_launch(
+            Tt.data_ptr(), v["F"].data_ptr(), v["C"].data_ptr(), t, M, R,
+            col.data_ptr(), ctypes.byref(kb._shard_step_ptrs(s)),
+            V.data_ptr(), I.data_ptr(), *V.shape, big, eps, 0,
+            torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the earlier K5 with its head failed ({err})")
+
+    def head():
+        kb.ah_fold_head(Tt, v["F"], v["C"], t, s, V, I, big, eps, 0,
+                        out=col)
+
+    head_turn = prior_turns(
+        f"f32 M={M} R={R} t={t} (one rank)",
+        lambda: {**s.tensors(), "ah": col},
+        {"K5 with its head": (head_before, head, K5_HEAD_WRITES)},
+        {"K5 with its head": (head_before, head)})["K5 with its head"]
     timed = {
         "K5": (lambda: kb.ah(Tt, v["F"], v["C"], s.hl, t, own=s.own,
                              out=col), "ah_ratio_fused"),
-        "K5+head": (lambda: kb.ah_fold_head(Tt, v["F"], v["C"], t, s, V, I,
-                                            big, eps, 0, out=col),
-                    "ah_ratio_fused"),
+        "K5+head": (head, "ah_ratio_fused"),
+        "K5+head before": (head_before, "ah_ratio_fused"),
         "K2": (lambda: kb.colk_costs(
             *k2, s.k, t, s.u, s.do, R - 100, eps, col, v["b"], v["base"],
             s.h, s.p, s.bk, v["w"], ws2, out=(s.h_d, s.v_d, s.h_b, s.v_b),
@@ -1671,14 +1699,16 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
         require(n == 1, f"one {name} call launched {n} kernels")
     prof = {name: [] for name in timed}
     graph = {name: [] for name in timed}
-    for name in ("K5", "K5+head", "K2", "K2+tail", "K2+tail+pack",
-                 "K2+tail+pack", "K2+tail", "K2", "K5+head", "K5"):
+    for name in ("K5", "K5+head before", "K5+head", "K2", "K2+tail",
+                 "K2+tail+pack", "K2+tail+pack", "K2+tail", "K2", "K5+head",
+                 "K5+head before", "K5"):
         fn, match = timed[name]
         prof[name].append(device_ms(fn, 50, match=match))
         graph[name].append(graph_ms(fn))
     mean = statistics.mean
     log("sharded K5 and K2 with and without their head and tails, ms a "
-        "call in turns (K5, K5+head, K2, K2+tail, K2+tail+pack, then back): "
+        "call in turns (K5, K5+head before its redesign, K5+head, K2, "
+        "K2+tail, K2+tail+pack, then back): "
         + "; ".join(
             f"{name} " + ", ".join(f"{x:.5f}" for x in prof[name])
             + " (torch.profiler), " + ", ".join(f"{x:.5f}"
@@ -1734,6 +1764,17 @@ def sharded_step_kernels(records: dict, Tt, F, C, b, costs, w, base,
             + f", {check_ms:.5f} ms by CUDA events over a CUDA graph of 50 "
             f"calls, plain {records[name]['plain_ms']:.4f} ms, bound "
             f"{bound_ms:.2e} ms ({by})")
+    # The head's own cost before its redesign, from the same turns.
+    rec = records["sharded_fold_head"]
+    rec.update(own_before_ms=mean(prof["K5+head before"]) - mean(prof["K5"]),
+               own_before_check_ms=(mean(graph["K5+head before"])
+                                    - mean(graph["K5"])), **head_turn)
+    log(f"sharded_fold_head before its redesign: {rec['own_before_ms']:.5f} "
+        f"ms a call (K5+head before less K5, torch.profiler), "
+        f"{rec['own_before_check_ms']:.5f} ms by CUDA events over CUDA "
+        "graphs; "
+        f"K5 with its head {1e3 * head_turn['turn_ms']:.3f} us against "
+        f"{1e3 * head_turn['before_ms']:.3f} before, in turns")
 
 
 def k2_slice(tag, Tt, C, F, costs, k, u, do, eps, ah, b, base, h, p, bk, w,
@@ -3477,10 +3518,10 @@ def seq_sharded_turns(prior: PriorLib, a, max_iter: int, eps: float,
     """``seq_fold_column`` and ``seq_ratio_colk_sharded`` (``fold``,
     ``ratio``: their wrappers' calls on the one slice ``a``, a
     ``ShardedSeqLoop``, under ``policy``) against the forms before their
-    redesign (``prior``: the fold without the early trigger, the pass of
-    16 x 256 threads without programmatic dependent launch), bit for bit
-    and timed in turns, with the column then the pass (as a chunk runs
-    them at one rank) (``prior_turns``)."""
+    redesign (``prior``: the fold in each block's thread 0 behind a
+    barrier, the pass of 16 x 256 threads without programmatic dependent
+    launch), bit for bit and timed in turns, each alone and the column
+    then the pass (as a chunk runs them at one rank) (``prior_turns``)."""
     import ctypes
 
     import torch
@@ -3524,26 +3565,14 @@ def seq_sharded_turns(prior: PriorLib, a, max_iter: int, eps: float,
         {name: (old, new, SEQ_SHARDED_WRITES[name]) for name, old, new in (
             ("seq_fold_column", prior_fold, fold),
             ("seq_ratio_colk_sharded", prior_ratio, ratio))},
-        {"seq_ratio_colk_sharded": (prior_ratio, ratio),
+        {"seq_fold_column": (prior_fold, fold),
+         "seq_ratio_colk_sharded": (prior_ratio, ratio),
          "seq_fold_column+seq_ratio_colk_sharded": (
              lambda: (prior_fold(), prior_ratio()),
              lambda: (fold(), ratio()))})
 
 
-def phase_sharded_seq_kernels(records: dict) -> None:
-    """``_sharded_seq_kernels`` with the library of the earlier kernels
-    built by nvcc in the background meanwhile (``prior_seq_lib``)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as td:
-        prior = prior_seq_lib(td)
-        try:
-            _sharded_seq_kernels(records, prior)
-        finally:
-            prior.stop()
-
-
-def _sharded_seq_kernels(records: dict, prior: PriorLib) -> None:
+def phase_sharded_seq_kernels(records: dict, prior: PriorLib) -> None:
     """The sequential sharded loop's kernels against their plain versions
     on the card at the main path's shapes (f64 random_8192_8192's phase 1:
     M 8,192 x R 24,576, one slice at one rank): ``seq_fold_column`` and
@@ -3555,13 +3584,15 @@ def _sharded_seq_kernels(records: dict, prior: PriorLib) -> None:
     smallest cost across the slices -- every scalar, vector, buffer and
     the slices bit for bit after each pivot. Then, on a taken pivot at
     one slice, each against the form before its redesign
-    (``tools/seq_variants.cu`` built here as a library, ``seq_prior``),
-    bit for bit and timed in turns, the pass alone and after the column
+    (``tools/seq_variants.cu`` built as a library, ``seq_prior``), bit
+    for bit and timed in turns, each alone and the pass after the column
     (``seq_sharded_turns``), then each timed by torch.profiler and by CUDA
     events over a CUDA graph of 50 calls, beside its plain version and
     its bound, and ``seq_ratio_colk_sharded`` beside ``seq_ratio_colk``'s
     record at the same shape; the same turns on a slice of a 1,024 x
-    3,072 tableau; then the latency floor (``latency_floor``)."""
+    3,072 tableau; then ``seq_fold_column`` from the ranks' edge states at
+    P = 1, 3, 8 and 33 (``seq_fold_edges``); then the latency floor
+    (``latency_floor``)."""
     import numpy as np
     import torch
 
@@ -3713,6 +3744,12 @@ def _sharded_seq_kernels(records: dict, prior: PriorLib) -> None:
     seq_sharded_turns(prior, a, big, eps, policy, fold1, ratio1)
     del a, small
     torch.cuda.empty_cache()
+    n = seq_fold_edges(prior, M, R, big)
+    log(f"seq_fold_column (M={M}, one slice of R={R}): every scalar and the "
+        f"column equal the plain version's and the form's before its "
+        f"redesign on {n} states (P = 1, 3, 8 and 33; "
+        f"{', '.join(FOLD_EDGES)}; the Bland flag off and on; f64, f32/f64 "
+        "and f32)")
     latency_floor()
 
 
@@ -6175,9 +6212,9 @@ class PriorLib:
     ``slice_prior`` (``eta_fold_column``, ``eta_ratio_summed``) and
     ``colk_prior`` (``eta_colk``, ``eta_colk_slice``),
     ``tools/seq_variants.cu``'s ``seq_prior`` (``seq_fold_column``,
-    ``seq_ratio_colk_sharded``). ``load`` waits for the build and gives
-    the entry points their argument types; ``stop`` ends it if it still
-    runs."""
+    ``seq_ratio_colk_sharded``) and ``k5_prior`` (K5 with its head).
+    ``load`` waits for the build and gives the entry points their argument
+    types; ``stop`` ends it if it still runs."""
 
     def __init__(self, td: str, tool: str, define: str,
                  argtypes: dict) -> None:
@@ -6228,7 +6265,8 @@ def prior_eta_lib(td: str) -> PriorLib:
 
 def prior_seq_lib(td: str) -> PriorLib:
     """``tools/seq_variants.cu`` as a library (``PriorLib``): the earlier
-    ``seq_ratio_colk_sharded`` takes no threads argument."""
+    ``seq_ratio_colk_sharded`` takes no threads argument; the earlier K5
+    with its head takes ``ah_head_launch``'s."""
     from simplex_tpu_torch.kernels import _build
 
     sig = _build.SIGNATURES
@@ -6236,7 +6274,8 @@ def prior_seq_lib(td: str) -> PriorLib:
     del pass_sig[18]                             # the cluster's threads
     return PriorLib(td, "seq_variants.cu", "SEQ_VARIANTS_LIB", {
         "prior_seq_fold_column_launch": sig["seq_fold_column_launch"],
-        "prior_seq_ratio_colk_sharded_launch": pass_sig})
+        "prior_seq_ratio_colk_sharded_launch": pass_sig,
+        "prior_ah_head_launch": sig["ah_head_launch"]})
 
 
 def unlike(x):
@@ -6300,6 +6339,241 @@ def prior_turns(label: str, tensors, checks: dict, timed: dict) -> dict:
             f"after {', '.join(f'{1e3 * x:.3f}' for x in times['after'])}"
             f" us; bit for bit; {nvidia_smi_line()}")
     return out
+
+
+#: The gathered candidates' edge states of the ranks' fold checks
+#: (``fold_gathered``; tests/test_torch_rank_fold.py's).
+FOLD_EDGES = ("own", "other", "tie", "tie-late", "signed-zero", "nan-first",
+              "nan-mid", "nan-last", "bland-own", "bland-other", "inf-none",
+              "inf-mid")
+
+#: What the K5 head writes and does not read: the folded candidates and
+#: the step before K5, and the column.
+K5_HEAD_WRITES = ("h_d", "v_d", "w_d", "h_b", "v_b", "w_b", "active", "h",
+                  "minc", "optimal", "wh", "own", "hl", "ah")
+
+
+def fold_gathered(P: int, kv: int, edge: str, R: int, dev):
+    """V (P, kv) f64 and I (P, 2) int32 on ``dev``, the candidates P ranks
+    of ``R`` columns each packed, in state ``edge``: rank q's main
+    candidate in its own columns with value 0.5 q - 0.75 (rank 0 best:
+    own), or rank P - 1 best (other), every rank equal (tie), every rank
+    but 0 equal and best (tie-late), +0.0 and -0.0 alternating
+    (signed-zero), a NaN at rank 0, P // 2 or P - 1 with rank P - 1 best
+    otherwise, Bland candidates at rank 0 and the odd ranks (bland-own)
+    or at every rank but 0 (bland-other), else none (BIG_INDEX), every
+    value +inf (inf-none) or rank P // 2's -inf (inf-mid). Under devex (kv
+    5) the key is -v_d and the weights differ from rank to rank."""
+    import numpy as np
+    import torch
+
+    big = 2 ** 31 - 1
+    q = np.arange(P)
+    vd = 0.5 * q - 0.75
+    hb = np.full(P, big, dtype=np.int64)
+    vb = np.full(P, np.inf)
+    if edge == "other":
+        vd[P - 1] = -2.0
+    elif edge == "tie":
+        vd[:] = -0.75
+    elif edge == "tie-late":
+        vd[1:] = -2.0
+    elif edge == "signed-zero":
+        vd = np.where(q % 2 == 0, 0.0, -0.0)
+    elif edge.startswith("nan"):
+        if P > 1:
+            vd[P - 1] = -2.0
+        vd[{"nan-first": 0, "nan-mid": P // 2, "nan-last": P - 1}[edge]] = \
+            np.nan
+    elif edge == "bland-own":
+        on = (q % 2 == 1) | (q == 0)
+        hb = np.where(on, q * R + 1, big)
+        vb = np.where(on, -0.25 * q - 0.5, np.inf)
+    elif edge == "bland-other":
+        hb = np.where(q > 0, q * R + 2, big)
+        vb = np.where(q > 0, -0.25 * q, np.inf)
+    elif edge == "inf-none":
+        vd[:] = np.inf
+    elif edge == "inf-mid":
+        vd[P // 2] = -np.inf
+    V = np.zeros((P, kv))
+    V[:, 0], V[:, 1] = vd, vb
+    if kv == 5:
+        V[:, 2] = 1.0 / 3.0 + 0.37 * q
+        V[:, 3] = 2.0 + 0.11 * q
+        V[:, 4] = -vd
+    I = np.stack([q * R + 12345 % R, hb], axis=1).astype(np.int32)
+    return (torch.from_numpy(V).to(dev), torch.from_numpy(I).to(dev))
+
+
+def same_bits(name: str, got, want) -> None:
+    """``equal``, and the sign of every zero kept."""
+    import torch
+
+    equal(name, got, want)
+    if got.is_floating_point():
+        equal(f"{name} (signs)", torch.signbit(got) & ~torch.isnan(got),
+              torch.signbit(want) & ~torch.isnan(want))
+
+
+def compare_ways(label: str, tensors, reset, writes, ways: dict) -> None:
+    """``ways``: name -> call, the first the plain chain. Each runs after
+    ``reset()``, the others with each name in ``writes`` first set to a
+    value other than the one the first wrote (``unlike``), so a kernel
+    that skipped a store fails; then every tensor of ``tensors()`` (name
+    -> tensor) bit for bit with the first's (``same_bits``)."""
+    import torch
+
+    want = None
+    for name, fn in ways.items():
+        reset()
+        if want is not None:
+            live = tensors()
+            for key in writes:
+                live[key].copy_(unlike(want[key]))
+        fn()
+        torch.cuda.synchronize()
+        got = {key: x.clone() for key, x in tensors().items()}
+        if want is None:
+            want = got
+            continue
+        for key, x in got.items():
+            same_bits(f"{label}, {name}: {key}", x, want[key])
+
+
+def seq_fold_edges(prior: PriorLib, M: int, R: int, max_iter: int) -> int:
+    """``seq_fold_column`` against its plain version and its form before
+    the redesign (``prior``) on one slice of R columns (rank 0's) of a
+    seeded M x R tableau, from every ``fold_gathered`` state at P = 1, 3,
+    8 and 33, the Bland flag off and on, in the three dtype pairs: every
+    scalar and the column bit for bit (``compare_ways``). Returns the
+    states checked."""
+    import ctypes
+
+    import torch
+
+    from simplex_tpu_torch.kernels import seq as ks
+
+    lib = prior.load()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20261028)
+    f64, f32 = torch.float64, torch.float32
+    n = 0
+    for pair, (T, Vd) in (("f64", (f64, f64)), ("mixed", (f32, f64)),
+                          ("f32", (f32, f32))):
+        eps = 1e-9 if Vd == f64 else 1e-4
+        Tt = torch.rand((M, R), generator=g, device=dev, dtype=T) * 2 - 1
+        ah = torch.empty(M, dtype=T, device=dev)
+        for bland in (False, True):
+            s = ks.seq_scalars(torch.tensor(1.5, dtype=Vd, device=dev),
+                               bland, T)
+            s.iterations.fill_(3)
+            init = {key: x.clone() for key, x in s.tensors().items()}
+
+            def tensors():
+                return {**s.tensors(), "ah": ah}
+
+            def reset():
+                for key, x in init.items():
+                    getattr(s, key).copy_(x)
+                ah.fill_(float("nan"))
+
+            for P in (1, 3, 8, 33):
+                for edge in FOLD_EDGES:
+                    V, I = fold_gathered(P, 2, edge, R, dev)
+
+                    def before():
+                        err = lib.prior_seq_fold_column_launch(
+                            Tt.data_ptr(), V.data_ptr(), I.data_ptr(), P, M,
+                            R, 0, ah.data_ptr(),
+                            ctypes.byref(ks._seq_ptrs(s)), max_iter, eps,
+                            ks._pair(s),
+                            torch.cuda.current_stream().cuda_stream)
+                        require(err == 0, "the earlier seq_fold_column "
+                                f"failed ({err})")
+
+                    compare_ways(
+                        f"seq_fold_column {pair} P={P} {edge} bland={bland}",
+                        tensors, reset, SEQ_SHARDED_WRITES["seq_fold_column"],
+                        {"plain": functools.partial(
+                            ks.seq_fold_column_plain, Tt, V, I, ah, s,
+                            max_iter, eps, 0),
+                         "kernel": functools.partial(
+                             ks.seq_fold_column, Tt, V, I, ah, s, max_iter,
+                             eps, 0),
+                         "before": before})
+                    n += 1
+        del Tt, ah
+        torch.cuda.empty_cache()
+    return n
+
+
+def k5_head_edges(prior: PriorLib, Tt, F, C, eps: float) -> int:
+    """K5 with its head (``ah_fold_head``) against its plain chain
+    (``sharded_fold_plain``, ``sharded_step_pre_plain``, then K5 without
+    its head on the folded column and owner flag, which the kernel phase
+    holds against K1's column) and its form before the redesign
+    (``prior``) on rank 0's slice (``Tt``'s columns), from every
+    ``fold_gathered`` state at P = 1, 3, 8 and 33, kv 2 and 5, the Bland
+    flag off and on, at t = 0 and 37: every scalar and the column bit for
+    bit (``compare_ways``). Returns the states checked."""
+    import ctypes
+
+    import torch
+
+    from simplex_tpu_torch.kernels import blocked as kb
+
+    lib = prior.load()
+    dev = Tt.device
+    M, R = Tt.shape
+    big = 2 ** 30
+    col = torch.empty(M, device=dev)
+    n = 0
+    for bland in (False, True):
+        s = kb.sharded_scalars(torch.tensor(1.5, dtype=torch.float64,
+                                            device=dev), bland)
+        s.iterations.fill_(3)
+        init = {key: x.clone() for key, x in s.tensors().items()}
+
+        def tensors():
+            return {**s.tensors(), "ah": col}
+
+        def reset():
+            for key, x in init.items():
+                getattr(s, key).copy_(x)
+            col.fill_(float("nan"))
+
+        for t in (0, 37):
+            for kv in (2, 5):
+                for P in (1, 3, 8, 33):
+                    for edge in FOLD_EDGES:
+                        V, I = fold_gathered(P, kv, edge, R, dev)
+
+                        def plain():
+                            kb.sharded_fold_plain(s, V, I)
+                            kb.sharded_step_pre_plain(s, big, eps, 0, R)
+                            kb.ah(Tt, F, C, s.hl, t, own=s.own, out=col)
+
+                        def before():
+                            err = lib.prior_ah_head_launch(
+                                Tt.data_ptr(), F.data_ptr(), C.data_ptr(), t,
+                                M, R, col.data_ptr(),
+                                ctypes.byref(kb._shard_step_ptrs(s)),
+                                V.data_ptr(), I.data_ptr(), P, kv, big, eps,
+                                0, torch.cuda.current_stream().cuda_stream)
+                            require(err == 0, "the earlier K5 with its head "
+                                    f"failed ({err})")
+
+                        compare_ways(
+                            f"K5 with its head t={t} kv={kv} P={P} {edge} "
+                            f"bland={bland}", tensors, reset, K5_HEAD_WRITES,
+                            {"plain": plain,
+                             "kernel": functools.partial(
+                                 kb.ah_fold_head, Tt, F, C, t, s, V, I, big,
+                                 eps, 0, out=col),
+                             "before": before})
+                        n += 1
+    return n
 
 
 #: What each slice kernel writes and does not read (on a pivot without a
@@ -6832,6 +7106,10 @@ def main() -> int:
     launches = {name: 0 for name in ORDER}
     sharded_launches: dict = {}
     t_start = time.perf_counter()
+    # The earlier forms of the sequential sharded loop's kernels and of
+    # K5's head, built by nvcc in the background while the phases run.
+    prior_dir = tempfile.TemporaryDirectory()
+    prior_seq = prior_seq_lib(prior_dir.name)
     try:
         phase_goldens({}, "default options, f64")
         phase_goldens(PROD, "production options")
@@ -6874,13 +7152,13 @@ def main() -> int:
         phase_bench()
         log(f"benchmark entry points in {time.perf_counter() - t_bench:.1f}"
             " s")
-        phase_kernels(records)
+        phase_kernels(records, prior_seq)
         phase_pivot_kernel(records)
         phase_batch_kernels(records)
         phase_batch_reprice(records)
         phase_rank1_kernel(records)
         phase_seq_kernels(records)
-        phase_sharded_seq_kernels(records)
+        phase_sharded_seq_kernels(records, prior_seq)
         phase_eta_kernels(records)
         phase_slice_kernels(records)
         phase_batch_trace()
@@ -6893,6 +7171,9 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        prior_seq.stop()
+        prior_dir.cleanup()
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     # Each kernel's time by a second clock: K1, K2, K5 CUDA events over a
     # CUDA graph of 50 calls; K3/K4 torch.profiler (their record is CUDA

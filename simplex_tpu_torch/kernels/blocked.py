@@ -1011,9 +1011,9 @@ def ah_fold_head(Tt, F, C, t: int, s: ShardedScalars, V, I, max_iter: int,
     pivot before (``V``, ``I``), then ``sharded_step_pre_plain`` on this
     rank's slice (``Tt``'s columns, from global column ``offset``), then
     ``ah`` of the column ``s.hl`` with the owner flag ``s.own`` into
-    ``out``. On the card one launch, K5 with the fold and
-    the step in each block's first thread and block 0 storing the
-    scalars; it counts a launch of ``ah`` and one of
+    ``out``. On the card one launch, K5 with the fold (by shuffles) and
+    the step in every warp, h and the owner flag in registers, and block
+    0 storing the scalars; it counts a launch of ``ah`` and one of
     ``sharded_fold_head``."""
     M, R, L = _check_factors(Tt, C, F)
     _check_gathered(V, I)

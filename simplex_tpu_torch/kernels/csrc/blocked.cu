@@ -240,8 +240,6 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     __shared__ float ch[AHR_ROWS];               // C[s0 + s, h]
     __shared__ double sa[THREADS], sb[THREADS];  // each thread's a_h, b
     __shared__ bool last;
-    __shared__ int head_h;                       // the head's hl and own
-    __shared__ bool head_own;
     const AhrWs ws(ws_bytes, nb);
     const int tid = threadIdx.x;
     const int j0 = blockIdx.x * AHR_COLS;
@@ -252,29 +250,24 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
     // slab, then what h selects.
     ahr_stage<NTH>(F, 0, t, M, j0, fs);
     cp_async_commit();
+    sharded::Fold hf{};
+    sharded::Pre hx{};
     if constexpr (HEAD) {
-        // The fold and the step before K5 in each block's thread 0, every
-        // operand loaded at once while the F slab is on its way; block 0
-        // stores the scalars. No block of K5 reads a field the head writes
-        // (the column takes hl and own from shared memory), so the blocks
-        // need no ticket.
-        if (tid == 0) {
-            const int status = *hd.s.status, iters = *hd.s.iterations;
-            const bool bland = *hd.s.bland != 0;
-            const sharded::Fold f = sharded::fold(hd.V, hd.I, hd.P, hd.kv);
-            const sharded::Pre x = sharded::pre(
-                status, iters, bland, f, hd.pol.max_iter, hd.pol.eps,
-                hd.pol.offset, hd.pol.R_loc);
-            if (blockIdx.x == 0) {
-                sharded::store(hd.s, f);
-                sharded::store(hd.s, x);
-            }
-            head_h = x.hl;
-            head_own = x.own;
+        // The fold and the step before K5 in every warp, its operands
+        // loaded at once while the F slab is on its way (block 0's thread
+        // 0 also loads status and iterations): every warp gets the same
+        // h's local column and owner flag in registers, with no barrier.
+        int status = 0, iters = 0;
+        if (blockIdx.x == 0 && tid == 0) {
+            status = *hd.s.status;
+            iters = *hd.s.iterations;
         }
-        __syncthreads();
+        const bool bland = *hd.s.bland != 0;
+        hf = sharded::fold_warp(hd.V, hd.I, hd.P, hd.kv);
+        hx = sharded::pre(status, iters, bland, hf, hd.pol.max_iter,
+                          hd.pol.eps, hd.pol.offset, hd.pol.R_loc);
     }
-    const int h = HEAD ? head_h : min(*h_ptr, R - 1);
+    const int h = HEAD ? hx.hl : min(*h_ptr, R - 1);
     for (int s = tid; s < min(AHR_ROWS, t); s += NTH)
         ch[s] = C[(size_t)s * R + h];
     float th = 0.0f;
@@ -283,8 +276,14 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
         th = Tt[(size_t)j * R + h];
         if (RATIO) bj = b[j];
     }
-    if (!RATIO && (HEAD ? !head_own : (own != nullptr && *own == 0))) {
-        // another rank's column
+    if (HEAD && blockIdx.x == 0 && tid == 0) {
+        // Block 0 stores the scalars once its loads are out. No block of
+        // K5 reads a field the head writes, so the blocks need no ticket.
+        sharded::store(hd.s, hf);
+        sharded::store(hd.s, hx);
+    }
+    if (!RATIO && (HEAD ? !hx.own : (own != nullptr && *own == 0))) {
+        // another rank's column: every warp of the block agrees
         cp_async_wait<0>();
         if (owner) ah[j] = 0.0f;
         return;
@@ -411,15 +410,22 @@ __global__ void __launch_bounds__(NTH) ah_ratio_fused(
 // kernel skipped the dead F segments through its index maps; here t is the
 // loop bound.
 // The head (HEAD, the sharded loop's launch for every pivot of a window
-// but the first; csrc/sharded_step.cu): each block's thread 0 loads the
-// candidates every rank gathered after the pivot before (V, I) with
-// status, iterations and bland, all at once, right after the block's F
-// slab went out (it does not depend on h); folds them and runs the step
-// before K5 (sharded_step.cuh) in registers; and hands h's local column
-// and the owner flag to its block through shared memory. Block 0 alone
-// stores the scalars: the folded candidates, active, h, minc, optimal, wh,
-// own and hl. The head's round trip overlaps the slab's; the column is
-// the headless K5's bit for bit.
+// but the first; csrc/sharded_step.cu): every warp loads the candidates
+// every rank gathered after the pivot before (V, I; lane q rank q) with
+// bland, all at once, right after the block's F slab went out (it does
+// not depend on h); folds them by shuffles (sharded_step.cuh
+// sharded::fold_warp) and runs the step before K5 (sharded::pre) in
+// registers, so h's local column and the owner flag need no shared memory
+// and no barrier before C[s, h] and Tt[j, h] are loaded; every warp folds
+// to the same result, so a block on another rank's column returns as a
+// whole. Block 0's thread 0 alone loads status and iterations and, once
+// its loads are out, stores the scalars: the folded candidates, active,
+// h, minc, optimal, wh, own and hl. The column is the headless K5's bit
+// for bit. At one rank, t = 37, the head costs 0.53 us over the headless
+// K5, against 0.61 for the form before (each block's thread 0 folding
+// into shared memory behind a barrier), on NVIDIA H100 80GB HBM3, 700.00
+// W: what is left is the fold's trip to L2 before h's loads can go out.
+// The forms tried are tools/seq_variants.cu's (PERF.md).
 
 // ---------------------------------------------------------------------------
 // K2: pivot row, reduced-cost update, b / base / eta-row update, devex

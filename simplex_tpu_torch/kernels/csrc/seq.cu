@@ -48,10 +48,10 @@
 // all_gathers of the candidates every rank packed:
 //
 // * seq_fold_column (a grid, one thread a row): the fold of the gathered
-//   candidates (sharded_step.cuh sharded::fold) and the step before the
-//   ratio test in each block's thread 0, then the owner's column of the
-//   slice, or zeros, into ``ah``, which an all_reduce sums across the
-//   ranks; it lets the next kernel launch as it starts;
+//   candidates in every warp (sharded_step.cuh sharded::fold_warp), then
+//   the owner's column of the slice, or zeros, into ``ah``, which an
+//   all_reduce sums across the ranks, and the step before the ratio test
+//   in block 0's thread 0; it lets the next kernel launch as it starts;
 // * seq_ratio_colk's SHARDED form: the ratio test on the summed ``ah``,
 //   the pass over the slice, the slice's candidates packed into the
 //   all_gather send buffers, and the step after without the next step
@@ -500,47 +500,59 @@ __global__ void __launch_bounds__(NT) seq_ratio_colk_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// seq_fold_column: the sequential sharded loop's first kernel a pivot. Its
-// head, in each block's thread 0: the fold of the candidates every rank
-// packed (sharded_step.cuh sharded::fold over V (P, 2) f64 and I (P, 2)
-// int32, the body sharded_fold and K5's head share), then the step before
-// the ratio test (seq::pre: active, h, minc, optimal) on the folded
-// candidates, which block 0 stores with them; then each thread writes its
-// rows of ah: the slice's column h - offset where this rank owns the
-// global h, else zeros (+0.0, as torch.where writes them), the owner's
-// column that the all_reduce after it sums across the ranks. One thread a
-// row, COL_THREADS a block.
+// seq_fold_column: the sequential sharded loop's first kernel a pivot.
+// Every warp folds the candidates every rank packed for itself
+// (sharded_step.cuh sharded::fold_warp over V (P, 2) f64 and I (P, 2)
+// int32, lane q loading rank q's row with the Bland flag), so h, its local
+// column and the owner test stay in registers: no shared memory and no
+// block barrier stand between the fold and each thread's load of its row,
+// the slice's column h - offset where this rank owns the global h, else
+// zeros (+0.0, as torch.where writes them) -- the owner's column, which
+// the all_reduce after it sums across the ranks. Block 0's thread 0 loads
+// status and iterations beside the fold's operands and, once its row's
+// load is out, stores the folded candidates and runs the step before the
+// ratio test (seq::pre: active, h, minc, optimal). No block reads a field
+// the step writes. One thread a row, COL_THREADS a block: with each warp
+// folding for itself, 128 threads a block came out ahead of 256 for the
+// rank that owns h. It lets the next kernel launch as it starts. Alone at
+// one rank, f64, in CUDA graphs: 1.46 us at 1024^2 and 1.61 at 8192^2,
+// against 1.69 and 1.71 for the form before (each block's thread 0
+// folding into shared memory behind a barrier), on NVIDIA H100 80GB HBM3,
+// 700.00 W; the forms tried (one warp folding into shared memory behind a
+// barrier, block 0's step before its load, every thread folding the ranks
+// in order, 256 threads a block) are tools/seq_variants.cu's (PERF.md).
 
-constexpr int COL_THREADS = 256;
+constexpr int COL_THREADS = 128;
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(COL_THREADS) seq_fold_column_kernel(
+template <typename T, typename V, int NT = COL_THREADS>
+__global__ void __launch_bounds__(NT) seq_fold_column_kernel(
         const T *__restrict__ Tt, const double *__restrict__ Vg,
         const int *__restrict__ Ig, int P, int M, int R, int offset,
         T *__restrict__ ah, SeqStep<T, V> s, long long max_iter,
         double eps) {
-    __shared__ int col;                          // h's local column, or -1
     grid_launch_next();                          // the ratio test may start
-    if (threadIdx.x == 0) {
-        const int status = *s.status, iterations = *s.iterations;
-        const bool bland = *s.bland != 0;
-        const sharded::Fold f = sharded::fold(Vg, Ig, P, 2);
-        const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
-        const int h = bland && c.h_b < BIG_INDEX ? c.h_b : c.h_d;
-        const long long loc = (long long)h - offset;
-        col = loc >= 0 && loc < R ? (int)loc : -1;
-        if (blockIdx.x == 0) {
-            *s.h_d = c.h_d;
-            *s.v_d = c.v_d;
-            *s.h_b = c.h_b;
-            *s.v_b = c.v_b;
-            seq::pre(s, status, iterations, bland, c, max_iter, eps);
-        }
+    const bool step = blockIdx.x == 0 && threadIdx.x == 0;
+    int status = 0, iterations = 0;
+    if (step) {
+        status = *s.status;
+        iterations = *s.iterations;
     }
-    __syncthreads();
-    const int hl = col;
-    const int j = blockIdx.x * COL_THREADS + threadIdx.x;
-    if (j < M) ah[j] = hl >= 0 ? Tt[(size_t)j * R + hl] : (T)0;
+    const bool bland = *s.bland != 0;
+    const sharded::Fold f = sharded::fold_warp(Vg, Ig, P, 2);
+    const seq::Candidates<V> c{f.h_d, (V)f.v_d, f.h_b, (V)f.v_b};
+    const int h = bland && c.h_b < BIG_INDEX ? c.h_b : c.h_d;
+    const long long loc = (long long)h - offset;
+    const int j = blockIdx.x * NT + threadIdx.x;
+    const T a = loc >= 0 && loc < R && j < M ? Tt[(size_t)j * R + loc]
+                                             : (T)0;
+    if (step) {
+        *s.h_d = c.h_d;
+        *s.v_d = c.v_d;
+        *s.h_b = c.h_b;
+        *s.v_b = c.v_b;
+        seq::pre(s, status, iterations, bland, c, max_iter, eps);
+    }
+    if (j < M) ah[j] = a;
 }
 
 // ---------------------------------------------------------------------------
@@ -658,15 +670,14 @@ int ratio_colk_sharded_run(const void *Tt, void *costs, void *b, int *base,
     return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename V>
+template <typename T, typename V, int NT = COL_THREADS>
 int fold_column_run(const void *Tt, const double *V_, const int *I, int P,
                     int M, int R, int offset, void *ah, const void *step,
                     long long max_iter, double eps, cudaStream_t st) {
     if (M < 1 || R < 1 || P < 1) return (int)cudaErrorInvalidValue;
-    seq_fold_column_kernel<T, V>
-            <<<(M + COL_THREADS - 1) / COL_THREADS, COL_THREADS, 0, st>>>(
-                    static_cast<const T *>(Tt), V_, I, P, M, R, offset,
-                    static_cast<T *>(ah), step_of<T, V>(step), max_iter, eps);
+    seq_fold_column_kernel<T, V, NT><<<(M + NT - 1) / NT, NT, 0, st>>>(
+            static_cast<const T *>(Tt), V_, I, P, M, R, offset,
+            static_cast<T *>(ah), step_of<T, V>(step), max_iter, eps);
     return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 // The sharded kernel loop's scalar glue shared by csrc/sharded_step.cu
 // (sharded_step_pre, once a window, and sharded_fold, the window's last
-// node and the boundary's fold) and csrc/blocked.cu (the fold of the
+// node and the boundary's fold), csrc/blocked.cu (the fold of the
 // gathered candidates and the next pivot's step before K5, run as the
-// head of K5 for every pivot but a window's first).
+// head of K5 for every pivot but a window's first) and csrc/seq.cu (the
+// fold in seq_fold_column): fold in one thread, fold_warp in every lane
+// of a warp.
 //
 // Replaces no Pallas kernel: in the JAX package this glue is XLA code that
 // the jitted lax.fori_loop under shard_map fuses around the passes and the
@@ -16,6 +18,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 // The fields of kernels.blocked.ShardedScalars, in its order: those of
 // PivotScalars (step.cuh's Step, so a ShardStep's first twenty pointers
@@ -113,6 +116,87 @@ static __device__ __forceinline__ Fold fold(const double *__restrict__ V,
                 f.v_b = vb[i];
                 f.w_b = (float)wb[i];
             }
+        }
+    }
+    if (nan) {                                   // the max is NaN: rank 0
+        f.h_d = I[0];
+        f.v_d = V[0];
+        f.w_d = devex ? (float)V[2] : 1.0f;
+    }
+    return f;
+}
+
+// The ranks one round of fold_warp folds at most: a lane a rank.
+constexpr int FOLD_LANES = 32;
+constexpr unsigned FOLD_MASK = 0xffffffffu;
+
+// fold's result over one warp, which every lane gets. The ranks go in
+// rounds of up to FOLD_LANES, each round's W lanes (the least power of two
+// that holds the round; every group of W lanes of the warp holds the same
+// ranks) loading their rank's row of V and I at once, the round's only
+// trip to memory. log2(W) xor butterflies fold the largest key and the
+// lowest global Bland index; a ballot then takes the first lane that holds
+// each (ties to the lower rank), and the winners' values come from those
+// lanes, the weights already cast to f32 (one shuffle each, under devex
+// only). A round's winner replaces the carried one only where it is
+// strictly better, so the carried (an earlier rank) keeps a tie. A NaN key
+// in any rank makes rank 0 the main candidate, as in fold, its values then
+// loaded again. At P = 1 no shuffle runs. Every shuffle counts: each warp
+// of a block folds at once, on one SM's shuffle unit. The whole warp calls
+// it; its fields equal fold's bit for bit at every P.
+static __device__ __forceinline__ Fold fold_warp(const double *__restrict__ V,
+                                                 const int *__restrict__ I,
+                                                 int P, int kv) {
+    const bool devex = kv == 5;
+    int W = 1;                                   // lanes a round
+    while (W < P && W < FOLD_LANES) W <<= 1;
+    const int q = threadIdx.x & (W - 1);         // the lane's rank in a round
+    Fold f{};
+    double mx = 0.0;
+    bool nan = false;
+    for (int r0 = 0; r0 < P; r0 += W) {
+        const int r = r0 + q;
+        const bool in = r < P;
+        const double *v = V + (size_t)r * kv;
+        double vd = in ? v[0] : 0.0, vb = in ? v[1] : 0.0;
+        float wd = in && devex ? (float)v[2] : 1.0f;
+        float wb = in && devex ? (float)v[3] : 1.0f;
+        const double key = !in ? -CUDART_INF : devex ? v[4] : -vd;
+        int hd = in ? I[2 * r] : 0;
+        const int hb = in ? I[2 * r + 1] : BIG_INDEX;
+        if (__any_sync(FOLD_MASK, key != key)) nan = true;
+        double k = key;
+        int b = hb;
+        if (W > 1) {
+            for (int off = W / 2; off > 0; off >>= 1) {
+                const double k2 = __shfl_xor_sync(FOLD_MASK, k, off);
+                const int b2 = __shfl_xor_sync(FOLD_MASK, b, off);
+                k = k2 > k ? k2 : k;
+                b = b2 < b ? b2 : b;
+            }
+            // The first lanes holding the largest key (none where a NaN
+            // hides it: then rank 0 wins below) and the lowest index.
+            const unsigned kd = __ballot_sync(FOLD_MASK, in && key == k);
+            const unsigned kb = __ballot_sync(FOLD_MASK, in && hb == b);
+            const int od = kd ? __ffs(kd) - 1 : 0, ob = __ffs(kb) - 1;
+            hd = __shfl_sync(FOLD_MASK, hd, od);
+            vd = __shfl_sync(FOLD_MASK, vd, od);
+            vb = __shfl_sync(FOLD_MASK, vb, ob);
+            if (devex) {
+                wd = __shfl_sync(FOLD_MASK, wd, od);
+                wb = __shfl_sync(FOLD_MASK, wb, ob);
+            }
+        }
+        if (r0 == 0 || k > mx) {
+            mx = k;
+            f.h_d = hd;
+            f.v_d = vd;
+            f.w_d = wd;
+        }
+        if (r0 == 0 || b < f.h_b) {
+            f.h_b = b;
+            f.v_b = vb;
+            f.w_b = wb;
         }
     }
     if (nan) {                                   // the max is NaN: rank 0

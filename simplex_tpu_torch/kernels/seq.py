@@ -424,8 +424,8 @@ def seq_fold_column(Tt, V, I, ah, s: SeqScalars, max_iter: int, eps: float,
     before the ratio test (``seq_step_pre``'s active, h, minc and
     optimal; h global); then ``ah`` the slice's column ``h - offset``
     where this rank's slice of ``Tt``'s columns owns h, else zeros. On the
-    card one grid, one thread a row, each block's thread 0 folding (block
-    0 storing the scalars)."""
+    card one grid, one thread a row, every warp folding by shuffles (block
+    0's first thread storing the scalars)."""
     M, R = Tt.shape
     _expect(Tt, "Tt", s.p.dtype, (M, R))
     _expect(ah, "ah", s.p.dtype, (M,))

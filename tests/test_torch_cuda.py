@@ -1543,11 +1543,13 @@ def _bits_equal(a, b) -> bool:
 
 
 class PriorLibs:
-    """The sharded loops' slice passes as the port launched them before
-    their redesign, from ``tools/eta_variants.cu`` (``colk_prior``) and
-    ``tools/seq_variants.cu`` (``seq_prior``) built as libraries by nvcc
-    (``-DETA_VARIANTS_LIB``, ``-DSEQ_VARIANTS_LIB``): each launched on a
-    slice's loop state as the shipped wrappers launch the shipped forms."""
+    """The sharded loops' slice passes and K5's sharded head as the port
+    launched them before their redesign, from ``tools/eta_variants.cu``
+    (``colk_prior``) and ``tools/seq_variants.cu`` (``seq_prior``,
+    ``k5_prior``) built as libraries by nvcc (``-DETA_VARIANTS_LIB``,
+    ``-DSEQ_VARIANTS_LIB``): each launched on a slice's loop state, or on
+    the shipped wrapper's operands, as the shipped wrappers launch the
+    shipped forms."""
 
     def __init__(self, td: pathlib.Path) -> None:
         import ctypes
@@ -1578,6 +1580,7 @@ class PriorLibs:
         pass_sig = list(sig["seq_ratio_colk_sharded_launch"])
         del pass_sig[18]                         # the cluster's threads
         self.seq.prior_seq_ratio_colk_sharded_launch.argtypes = pass_sig
+        self.seq.prior_ah_head_launch.argtypes = sig["ah_head_launch"]
 
     @staticmethod
     def _ptr(x):
@@ -1607,16 +1610,34 @@ class PriorLibs:
         assert err == 0, err
 
     def seq_fold_column(self, lp, max_iter, eps):
+        self.fold_column(lp.Tt, lp.recv_v, lp.recv_i, lp.ah, lp.s, max_iter,
+                         eps, lp.shard.offset)
+
+    def fold_column(self, Tt, V, I, ah, s, max_iter, eps, offset):
+        """``kernels.seq.seq_fold_column``'s operands."""
         import ctypes
 
         from simplex_tpu_torch.kernels import seq as ks
 
-        M, R = lp.Tt.shape
+        M, R = Tt.shape
         p = self._ptr
         err = self.seq.prior_seq_fold_column_launch(
-            p(lp.Tt), p(lp.recv_v), p(lp.recv_i), lp.recv_v.shape[0], M, R,
-            lp.shard.offset, p(lp.ah), ctypes.byref(ks._seq_ptrs(lp.s)),
-            max_iter, eps, ks._pair(lp.s), self._stream())
+            p(Tt), p(V), p(I), V.shape[0], M, R, offset, p(ah),
+            ctypes.byref(ks._seq_ptrs(s)), max_iter, eps, ks._pair(s),
+            self._stream())
+        assert err == 0, err
+
+    def ah_fold_head(self, Tt, F, C, t, s, V, I, max_iter, eps, offset,
+                     out):
+        """``kernels.blocked.ah_fold_head``'s operands."""
+        import ctypes
+
+        M, R = Tt.shape
+        p = self._ptr
+        err = self.seq.prior_ah_head_launch(
+            p(Tt), p(F), p(C), t, M, R, p(out),
+            ctypes.byref(kb._shard_step_ptrs(s)), p(V), p(I), *V.shape,
+            max_iter, eps, offset, self._stream())
         assert err == 0, err
 
     def seq_ratio_colk_sharded(self, lp, max_iter, eps, bland_static,
@@ -2371,6 +2392,181 @@ def test_sharded_seq_graph_fuse_is_exact_on_card(cuda, tmp_path, cap):
             outs.append(out)
     for name in ("Tt", "b", "costs", "z", "base"):
         assert _bits_equal(getattr(outs[0], name), getattr(outs[1], name))
+
+
+def _unlike(x):
+    """Every element other than x's."""
+    if x.dtype == torch.bool:
+        return ~x
+    if x.is_floating_point():
+        return torch.where(torch.isnan(x), torch.ones_like(x),
+                           torch.full_like(x, float("nan")))
+    return x + 1
+
+
+def _three_ways(tensors, reset, writes, ways):
+    """``ways`` (name -> call), the first the plain chain, each after
+    ``reset()``; the others with each name in ``writes`` first set to a
+    value other than the first's (a skipped store shows). Every tensor of
+    ``tensors()`` bit for bit with the first's."""
+    want = None
+    for name, fn in ways.items():
+        reset()
+        if want is not None:
+            live = tensors()
+            for key in writes:
+                live[key].copy_(_unlike(want[key]))
+        fn()
+        torch.cuda.synchronize()
+        got = {key: x.clone() for key, x in tensors().items()}
+        if want is None:
+            want = got
+            continue
+        for key, x in got.items():
+            assert _bits_equal(x, want[key]), (name, key)
+
+
+#: What the ranks' folds write and do not read.
+FOLD_COLUMN_WRITES = ("h_d", "v_d", "h_b", "v_b", "active", "h", "minc",
+                      "optimal", "ah")
+K5_HEAD_WRITES = ("h_d", "v_d", "w_d", "h_b", "v_b", "w_b", "active", "h",
+                  "minc", "optimal", "wh", "own", "hl", "ah")
+
+
+@pytest.mark.parametrize("P", [1, 3, 8, 33])
+@pytest.mark.parametrize("pair", ["f64", "mixed", "f32"])
+def test_rank_fold_column_matches_plain_and_earlier_on_card(
+        cuda, prior_libs, pair, P):
+    """``seq_fold_column`` (every warp folding the ranks by shuffles)
+    against ``seq_fold_column_plain`` and its form before (each block's
+    thread 0 folding behind a barrier), from every edge state of
+    tests/test_torch_rank_fold.py, the Bland flag off and on, on the
+    slice of rank 0 and of rank P // 2 (its candidate winning, or
+    another's: zeros), at M 1,000 x R 300: every scalar and the column
+    bit for bit."""
+    from simplex_tpu_torch.kernels import seq as ks
+    from test_torch_rank_fold import EDGES, gathered
+
+    T, Vd = {"f64": (torch.float64, torch.float64),
+             "mixed": (torch.float32, torch.float64),
+             "f32": (torch.float32, torch.float32)}[pair]
+    M, R, max_iter = 1000, 300, 10
+    eps = 1e-9 if Vd == torch.float64 else 1e-4
+    Tt = _rand((M, R), 7 + P, dtype=np.float64).to(T).to(cuda)
+    ah = torch.empty(M, dtype=T, device=cuda)
+    for bland in (False, True):
+        s = ks.seq_scalars(torch.tensor(1.5, dtype=Vd, device=cuda), bland,
+                           T)
+        s.iterations.fill_(3)
+        init = {key: x.clone() for key, x in s.tensors().items()}
+
+        def tensors():
+            return {**s.tensors(), "ah": ah}
+
+        def reset():
+            for key, x in init.items():
+                getattr(s, key).copy_(x)
+            ah.fill_(float("nan"))
+
+        for edge in EDGES:
+            V, I = (torch.from_numpy(x).to(cuda)
+                    for x in gathered(P, 2, edge, R))
+            for offset in sorted({0, (P // 2) * R}):
+                args = (Tt, V, I, ah, s, max_iter, eps, offset)
+                _three_ways(tensors, reset, FOLD_COLUMN_WRITES, {
+                    "plain": lambda: ks.seq_fold_column_plain(*args),
+                    "kernel": lambda: ks.seq_fold_column(*args),
+                    "before": lambda: prior_libs.fold_column(*args)})
+
+
+@pytest.mark.parametrize("P", [1, 3, 8, 33])
+@pytest.mark.parametrize("kv", [2, 5])
+@pytest.mark.parametrize("t", [0, 5, 37])
+def test_k5_head_matches_plain_and_earlier_on_card(cuda, prior_libs, t, kv,
+                                                   P):
+    """K5 with its head (``ah_fold_head``: every warp folding the ranks by
+    shuffles, no barrier before the column's loads) against its plain
+    chain (``sharded_fold_plain``, ``sharded_step_pre_plain``, then K5
+    without its head) and against its form before (each block's thread 0
+    folding behind a barrier), from every edge state of
+    tests/test_torch_rank_fold.py, the Bland flag off and on, on the slice
+    of rank 0 and of rank P // 2 (its candidate winning, or another's:
+    zeros), at t = 0 and t > 0: every scalar and the column bit for
+    bit."""
+    from test_torch_rank_fold import EDGES, gathered
+
+    M, R, L, big, eps = 256, 384, 64, 2 ** 30, 1e-4
+    Tt = _rand((M, R), 11).to(cuda)
+    C = _rand((L, R), 12).to(cuda)
+    F = _rand((L, M), 13, -0.1, 0.1).to(cuda)
+    col = torch.empty(M, device=cuda)
+    for bland in (False, True):
+        s = kb.sharded_scalars(torch.tensor(1.5, dtype=torch.float64,
+                                            device=cuda), bland)
+        s.iterations.fill_(3)
+        init = {key: x.clone() for key, x in s.tensors().items()}
+
+        def tensors():
+            return {**s.tensors(), "ah": col}
+
+        def reset():
+            for key, x in init.items():
+                getattr(s, key).copy_(x)
+            col.fill_(float("nan"))
+
+        for edge in EDGES:
+            V, I = (torch.from_numpy(x).to(cuda)
+                    for x in gathered(P, kv, edge, R))
+            for offset in sorted({0, (P // 2) * R}):
+
+                def plain():
+                    kb.sharded_fold_plain(s, V, I)
+                    kb.sharded_step_pre_plain(s, big, eps, offset, R)
+                    kb.ah(Tt, F, C, s.hl, t, own=s.own, out=col)
+
+                args = (Tt, F, C, t, s, V, I, big, eps, offset)
+                _three_ways(tensors, reset, K5_HEAD_WRITES, {
+                    "plain": plain,
+                    "kernel": lambda: kb.ah_fold_head(*args, out=col),
+                    "before": lambda: prior_libs.ah_fold_head(*args, col)})
+
+
+@pytest.mark.parametrize("loop", ["sequential", "kernel"])
+def test_sharded_loops_walk_unchanged_at_1024_on_card(cuda, monkeypatch,
+                                                      tmp_path, loop):
+    """``solve_sharded`` of random_1024_1024 at one NCCL rank with its
+    loop graphed and with ``graph=False``: the sequential sharded loop
+    (the default options) walks the recorded 1,871 + 64 pivots, the
+    sharded kernel loop (the production options) as the single-card
+    ``solve``; the two ways' results bit for bit."""
+    import functools
+
+    from simplex_tpu_torch.parallel import group as pg
+    from simplex_tpu_torch.parallel import sharded as ps
+
+    p = pst.read_random_problem(DATA / "benchmark_problems"
+                                / "random_1024_1024.txt")
+    opts = {} if loop == "sequential" else PROD
+    name = ("solve_loop_sharded" if loop == "sequential"
+            else "solve_loop_blocked_kernel_sharded")
+    real = getattr(ps, name)
+    res = {}
+    with pg.world(0, 1, "nccl", str(tmp_path)) as group:
+        for graph in (True, False):
+            monkeypatch.setattr(ps, name, functools.partial(real,
+                                                            graph=graph))
+            res[graph] = pst.solve_sharded(p, group, device="cuda", **opts)
+    g, e = res[True], res[False]
+    walk = (g.iterations_phase1, g.iterations_phase2)
+    if loop == "sequential":
+        assert walk == (1871, 64)
+    else:
+        one = pst.solve(p, device="cuda", **opts)
+        assert walk == (one.iterations_phase1, one.iterations_phase2)
+    assert g.status == e.status == pst.Status.OPTIMAL
+    assert walk == (e.iterations_phase1, e.iterations_phase2)
+    assert repr(g.objective) == repr(e.objective)
+    assert np.array_equal(g.x, e.x)
 
 
 def test_sharded_seq_kernels_refuse_on_card(cuda):
